@@ -2,17 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the sources in this checkout, holds each
-against its plain PyTorch version at the main path's shapes, drives the
-main path (the shallow-water solver at 3600x1800 for 0.1 simulated days,
-``solve_fused(fast="auto", pinned=True)``), checks that the path launched
-the kernels and that its output is right, and prints:
+Builds the port's three kernels from the sources in this checkout (one
+``nvcc`` each, all at once), holds each against its plain PyTorch version
+at the full width of its path, drives the paths that run them, checks
+that each path launched its kernels and that its output is right, and
+prints:
 
 - the card's name and power limit (nvidia-smi), and the versions;
-- one JSON line ``{"kernels": [...]}`` with each kernel's launches on the
-  main path, its largest difference from the plain version, its time, the
+- one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
+  path, its largest difference from the plain version, its time, the
   plain version's time and the least time the card could take;
 - as the last line ``{"ok": true, "device": {...}}``.
+
+The paths, each driven with the launch counts set to 0 just before it and
+read just after:
+
+1. the single-GPU main path: ``solve_fused(fast="auto", pinned=True)`` at
+   3600x1800 for 0.1 simulated days, periodic in x, through ``sw_steps``;
+2. the single-GPU walled solve: the same with ``periodic_x=False``, where
+   "auto" picks the wide-halo pair kernel ``sw_wide``;
+3. four ranks on a (2,2) grid (gloo, all four processes on this one card,
+   exchanges staged through host memory): the 0.1-day solve through
+   ``sw_wide``, and 20 steps of the split-phase path through ``sw_phase``.
+   Four processes share one card, so these times are not a scaling result.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -32,9 +44,16 @@ PEAK_F32_PER_S = 67e12
 # f32 operations per cell and step of csrc/sw_steps.cu, counted from its
 # source (a division counts as one)
 OPS_PER_CELL_STEP = 107
+# f32 operations per cell of the split-phase kernels' two phases, counted
+# from csrc/sw_window.cuh (phase 1: fluxes 30, tendencies 36, update 15;
+# phase 2: 13 per field); a wide step is both
+OPS_PER_CELL_PHASE = {1: 81, 2: 26}
 # the parity band of the JAX suite for the fused kernel against
 # model_step_fast (tests/test_examples.py): reordered-arithmetic rounding
 BAND_ABS, BAND_REL = 5e-6, 1e-6
+# the band for a whole 0.1-day run against another path's
+# (tests/test_examples.py:337, the carried-frame run's)
+RUN_BAND_ABS, RUN_BAND_REL = 1e-5, 2e-6
 
 
 def band(ref):
@@ -72,6 +91,163 @@ def compare(name, ref_fields, out_fields, names):
     return worst
 
 
+def bound_ms(bytes_moved, ops):
+    """The least time for a call: bytes over the HBM rate or f32 operations
+    over the f32 rate, whichever is longer; and which one it is."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_need(cfg, phase):
+    """Bytes and f32 operations one AB-2 sw_phase call needs.  The halo
+    ring of its output is not: the next enforce_boundaries overwrites it in
+    h, u and v, and the tendencies' ring feeds only ring cells.  So phase 1
+    reads h, u, v whole (read at neighbours) and dh, du, dv on the interior
+    (read at the output cell), and writes six fields on the interior;
+    phase 2 reads u, v whole and writes them on the interior."""
+    ny, nx = cfg.ny_local, cfg.nx_local
+    cells, interior = ny * nx, (ny - 2) * (nx - 2)
+    if phase == 1:
+        moved = 3 * cells + 3 * interior + 6 * interior
+    else:
+        moved = 2 * cells + 2 * interior
+    return 4 * moved, OPS_PER_CELL_PHASE[phase] * interior
+
+
+def wide_need(cfg, nsteps, radius):
+    """Bytes and f32 operations one AB-2 sw_wide call of ``nsteps`` steps
+    needs.  Only the crop region of its output is meaningful (the caller
+    refreshes every margin cell before the next call), so with ``radius``
+    the per-step dependency radius, step s computes on the crop grown by
+    (nsteps - s) x radius; h, u, v are read on the crop grown by nsteps x
+    radius, dh, du, dv where step 1 computes, and six fields are written
+    on the crop."""
+    def cells(k):
+        return ((cfg.ny_local + 2 * k * radius[0])
+                * (cfg.nx_local + 2 * k * radius[1]))
+    moved = 3 * cells(nsteps) + 3 * cells(nsteps - 1) + 6 * cells(0)
+    step_ops = OPS_PER_CELL_PHASE[1] + OPS_PER_CELL_PHASE[2]
+    return 4 * moved, step_ops * sum(cells(nsteps - s) for s in range(1, nsteps + 1))
+
+
+def timed_case(label, kernel, plain, bytes_moved, ops):
+    """Kernel and plain times of one call and its bound, printed."""
+    ms = time_ms(kernel, reps=50, warmup=50)
+    plain_ms = time_ms(plain, reps=5, warmup=2)
+    bms, by = bound_ms(bytes_moved, ops)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}; {bytes_moved / ms / 1e6:.1f} GB/s achieved)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def check_phase_kernels(P, KP, dev, names):
+    """sw_phase against its plain version at full width: both phases on the
+    1802x3602 local arrays of 3600x1800, walled and periodic, at offsets
+    (0, 0), and on rank 3 of a (2,2) grid (902x1802 at (900, 1800))."""
+    worst, per_case = 0.0, {}
+    for label, cfg, rank in (
+        ("periodic", P.Config(nx=3600, ny=1800), 0),
+        ("walled", P.Config(nx=3600, ny=1800, periodic_x=False), 0),
+        ("2x2 rank 3", P.Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2), 3),
+    ):
+        py, px = divmod(rank, cfg.nproc_x)
+        off = (py * (cfg.ny_local - 2), px * (cfg.nx_local - 2))
+        s0 = tuple(P.initial_state(cfg, rank=rank, device=dev))
+        s1 = KP.sw_phase1_plain(s0, cfg, True, off)  # AB-2 inputs from here
+        for first, inp in ((True, s0), (False, s1)):
+            ref = KP.sw_phase1_plain(inp, cfg, first, off)
+            out = KP.sw_phase1(inp, cfg, first, off)
+            worst = max(worst, compare(f"sw_phase1({label}, first={first})",
+                                       ref, out, names))
+        ref = KP.sw_phase2_plain(s1[1], s1[2], cfg, off)
+        out = KP.sw_phase2(s1[1], s1[2], cfg, off)
+        worst = max(worst, compare(f"sw_phase2({label})", ref, out, ("u", "v")))
+        per_case[f"{label},phase1"] = timed_case(
+            f"sw_phase1({label})",
+            lambda: KP.sw_phase1(s1, cfg, False, off),
+            lambda: KP.sw_phase1_plain(s1, cfg, False, off),
+            *phase_need(cfg, 1))
+        per_case[f"{label},phase2"] = timed_case(
+            f"sw_phase2({label})",
+            lambda: KP.sw_phase2(s1[1], s1[2], cfg, off),
+            lambda: KP.sw_phase2_plain(s1[1], s1[2], cfg, off),
+            *phase_need(cfg, 2))
+    return worst, per_case
+
+
+def check_wide_kernel(P, KW, dev, names):
+    """sw_wide against its plain version on the crop region of the walled
+    (1,1) widened frame of 3600x1800 (1832x3632), one and two steps."""
+    cfg = P.Config(nx=3600, ny=1800, periodic_x=False)
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    m = P._margin_rows(2)
+    wf, _ = P._wide_exchange(tuple(P.initial_state(cfg, device=dev)), cfg, comm,
+                             m, P.create_token())
+    off = (-(m - 1), -(m - 1))
+    wf1 = KW.sw_wide_plain(wf, cfg, True, 1, off)  # AB-2 inputs from here
+    sl = (slice(m - 1, m - 1 + cfg.ny_local), slice(m - 1, m - 1 + cfg.nx_local))
+    worst, per_case = 0.0, {}
+    for first, nsteps, inp in ((True, 1, wf), (False, 1, wf1), (False, 2, wf1)):
+        ref = KW.sw_wide_plain(inp, cfg, first, nsteps, off)
+        out = KW.sw_wide(inp, cfg, first, nsteps, off)
+        label = f"sw_wide(first={first}, nsteps={nsteps})"
+        worst = max(worst, compare(label, [a[sl] for a in ref],
+                                   [b[sl] for b in out], names))
+        if not first:
+            per_case[f"nsteps={nsteps}"] = timed_case(
+                label,
+                lambda: KW.sw_wide(inp, cfg, False, nsteps, off),
+                lambda: KW.sw_wide_plain(inp, cfg, False, nsteps, off),
+                *wide_need(cfg, nsteps, KW.STEP_RADIUS))
+    print(f"  widened frame {tuple(wf[0].shape)}")
+    return worst, per_case
+
+
+def shared_card_rank(rank, t1, device, nx, ny):
+    """One of four ranks on a (2,2) grid of an ``nx`` x ``ny`` domain, all on
+    ``device``: the solve to ``t1`` through "auto" (the wide-halo pair
+    kernel), then 20 steps of the split-phase path against 20 of
+    model_step_fast on the same ranks."""
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.ops import _staging
+
+    dev = torch.device(device)
+    cfg = P.Config(nx=nx, ny=ny, nproc_y=2, nproc_x=2)
+    if P.select_steps("auto", cfg)[1] is not P.model_step2_wide:
+        raise AssertionError("auto does not pick wide2 on the (2,2) grid")
+    info = {}
+    KW.counter.launches = 0
+    _staging.stats.reset()
+    wall, n_steps, final = P.solve_fused(cfg, t1, device=dev, fast="auto",
+                                         return_state=True, info=info)
+    # every run makes the same exchanges: the counts divide evenly by runs;
+    # the seconds are the timed run's own, with its wall
+    out = {
+        "wall": wall, "n_steps": n_steps, "runs": info["runs"],
+        "wide_launches": KW.counter.launches,
+        "staged_bytes": _staging.stats.staged_bytes,
+        "exchange_calls": _staging.stats.calls,
+        "exchange_s": info["exchange_s"], "final": tuple(final),
+    }
+    del final
+
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    s = P.initial_state(cfg, rank=rank, device=dev)
+    KP.counter.launches = 0
+    first, multi = P.make_stepper(cfg, comm, fast="pallas_halo")
+    halo = multi(first(s), 19)
+    out["phase_launches"] = KP.counter.launches
+    first, multi = P.make_stepper(cfg, comm, fast=True)
+    fast = multi(first(s), 19)
+    out["halo_err"] = max((a - b).abs().max().item() for a, b in zip(fast, halo))
+    out["halo_band"] = min(band(a) for a in fast)
+    out["halo_finite"] = all(bool(torch.isfinite(b).all()) for b in halo)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -84,7 +260,11 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
     from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
     from mpi4jax_tpu_torch.models.shallow_water import (
         DAY_IN_SECONDS,
         Config,
@@ -94,14 +274,17 @@ def main():
         make_stepper,
         solve_fused,
     )
+    from mpi4jax_tpu_torch.parallel import launch
 
-    # -- build ------------------------------------------------------------
+    # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
-    lib = K.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in (K.BUILD_DIR / "sw_steps.build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    libs = _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    print(f"built {', '.join(p.name for p in libs)} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for src in ("sw_steps", "sw_phase", "sw_wide"):
+        for line in (_build.BUILD_DIR / f"{src}.build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {src}:", line.strip())
 
     dev = torch.device("cuda")
     cfg = Config(nx=3600, ny=1800)
@@ -113,7 +296,6 @@ def main():
     s0 = tuple(initial_state(cfg, device=dev))
     s1 = K.sw_steps_plain(s0, cfg, True, 1)  # AB-2 steps start from here
     cells = ny * nx
-    bytes_moved = 12 * cells * 4
     per_case = {}
     worst = 0.0
     for first, nsteps in ((True, 1), (False, 1), (False, 2), (False, 3)):
@@ -123,19 +305,15 @@ def main():
         torch.cuda.synchronize()
         label = f"sw_steps(first={first}, nsteps={nsteps})"
         worst = max(worst, compare(label, ref, out, names))
-        ms = time_ms(lambda: K.sw_steps(inp, cfg, first, nsteps), reps=50, warmup=50)
-        plain_ms = time_ms(lambda: K.sw_steps_plain(inp, cfg, first, nsteps),
-                           reps=5, warmup=2)
-        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = OPS_PER_CELL_STEP * nsteps * cells / PEAK_F32_PER_S * 1e3
-        per_case[f"first={first},nsteps={nsteps}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {max(t_bytes, t_ops):.4f} ms "
-              f"({bytes_moved / ms / 1e6:.1f} GB/s achieved)")
+        per_case[f"first={first},nsteps={nsteps}"] = timed_case(
+            label,
+            lambda: K.sw_steps(inp, cfg, first, nsteps),
+            lambda: K.sw_steps_plain(inp, cfg, first, nsteps),
+            12 * cells * 4, OPS_PER_CELL_STEP * nsteps * cells)
     del s0, s1, ref, out
+
+    phase_worst, phase_cases = check_phase_kernels(P, KP, dev, names)
+    wide_worst, wide_cases = check_wide_kernel(P, KW, dev, names)
 
     # -- main path --------------------------------------------------------
     t1 = 0.1 * DAY_IN_SECONDS
@@ -167,6 +345,8 @@ def main():
           f"min {h.min().item():.4f}, max {h.max().item():.4f}")
     if not abs(mean_h - cfg.depth) < 10:
         raise AssertionError(f"mean height {mean_h} far from depth {cfg.depth}")
+    # kept on the host for the four-rank run's comparison
+    single_final = [f[1:-1, 1:-1].cpu() for f in final]
     del final, h
 
     # the kernel path against the plain fast=True path over 20 steps
@@ -177,8 +357,91 @@ def main():
     out_p = multi_p(first_p(s), 19)
     torch.cuda.synchronize()
     worst20 = compare("20 steps pallas2 vs fast", out_p, out_k, names)
+    del s, out_k, out_p
+
+    # -- single-GPU walled solve: "auto" picks the wide-halo pair kernel ---
+    wcfg = Config(nx=3600, ny=1800, periodic_x=False)
+    if P.select_steps("auto", wcfg)[1] is not P.model_step2_wide:
+        raise AssertionError("auto does not pick wide2 on the walled config")
+    winfo = {}
+    KW.counter.launches = 0
+    wwall, wn, wfinal = solve_fused(wcfg, t1, device=dev, fast="auto",
+                                    pinned=True, return_state=True, info=winfo)
+    wide_launches = KW.counter.launches
+    print(f"walled path: {wn} steps, wall {wwall:.4f} s, {wn / wwall:.2f} steps/s, "
+          f"{winfo['runs']} runs, sw_wide launches {wide_launches}")
+    if wide_launches != 221 * winfo["runs"]:
+        raise AssertionError(
+            f"sw_wide launched {wide_launches} times, expected 221 x {winfo['runs']}")
+    for f in wfinal:
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("walled final state is not finite")
+    wmean = wfinal.h[1:-1, 1:-1].mean().item()
+    if not abs(wmean - wcfg.depth) < 10:
+        raise AssertionError(f"walled mean height {wmean} far from depth")
+    del wfinal
+    _, wcomm = make_mesh_and_comm(wcfg, device=dev)
+    s = initial_state(wcfg, device=dev)
+    first_w, multi_w = make_stepper(wcfg, wcomm, fast="wide2")
+    first_p, multi_p = make_stepper(wcfg, wcomm, fast=True)
+    out_w = multi_w(first_w(s), 19)
+    out_p = multi_p(first_p(s), 19)
+    torch.cuda.synchronize()
+    wide_worst = max(wide_worst, compare("20 steps wide2 vs fast (walled)",
+                                         out_p, out_w, names))
+    del s, out_w, out_p
+    torch.cuda.empty_cache()
+
+    # -- four ranks on this card: gloo, exchanges staged through the host --
+    t0 = time.perf_counter()
+    ranks = launch.run(shared_card_rank, 4, backend="gloo", device="cuda:0",
+                       timeout=900, args=(t1, "cuda:0", 3600, 1800))
+    print(f"four ranks (2,2), 3600x1800 periodic: {time.perf_counter() - t0:.1f} s "
+          "with start-up")
+    g = Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2)
+    run_worst = 0.0
+    for k, fname in enumerate(names):
+        stacked = torch.stack([torch.from_numpy(r["final"][k]) for r in ranks])
+        got = torch.from_numpy(P.reassemble(stacked.numpy(), g))
+        ref = single_final[k]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"four-rank final {fname} is not finite")
+        err = (got - ref).abs().max().item()
+        lim = RUN_BAND_ABS + RUN_BAND_REL * ref.abs().max().item()
+        print(f"  four-rank wide2 vs single-GPU pallas2, final {fname}: "
+              f"max|diff| {err:.3e} (band {lim:.3e})")
+        if err > lim:
+            raise AssertionError(f"four-rank final {fname} off by {err:.3e}")
+        run_worst = max(run_worst, err)
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["wide_launches"] != 221 * res["runs"]:
+            raise AssertionError(f"rank {r}: sw_wide launched {res['wide_launches']} "
+                                 f"times, expected 221 x {res['runs']}")
+        if res["phase_launches"] != 40:
+            raise AssertionError(f"rank {r}: sw_phase launched "
+                                 f"{res['phase_launches']} times, expected 40")
+        if not res["halo_finite"] or res["halo_err"] > res["halo_band"]:
+            raise AssertionError(f"rank {r}: pallas_halo off by {res['halo_err']:.3e}")
+        print(f"  rank {r}: 20 steps pallas_halo vs fast max|diff| "
+              f"{res['halo_err']:.3e} (band {res['halo_band']:.3e}); timed "
+              f"solve {res['exchange_s']:.4f} s of {res['wall']:.4f} s inside "
+              "exchanges")
+    runs = r0["runs"]
+    print(f"four processes share one card (gloo, exchanges staged through host "
+          f"memory; not a scaling result): {r0['n_steps']} steps, wall "
+          f"{r0['wall']:.4f} s, {r0['n_steps'] / r0['wall']:.2f} steps/s; rank 0 "
+          f"per run: {r0['staged_bytes'] / runs / 1e6:.1f} MB staged, "
+          f"{r0['exchange_calls'] // runs} exchanges; timed run: "
+          f"{r0['exchange_s']:.4f} s of {r0['wall']:.4f} s inside exchanges "
+          "(device work queued before each waited for first, waits for peers "
+          "included)")
+    print("NCCL not exercised: it needs one GPU per rank, and this machine has "
+          f"{torch.cuda.device_count()}")
 
     pair = per_case["first=False,nsteps=2"]
+    phase = phase_cases["periodic,phase1"]
+    wide = wide_cases["nsteps=2"]
     kernels = [{
         "name": "sw_steps",
         "route": "cuda",
@@ -193,6 +456,35 @@ def main():
         "library_ms": None,
         "ok": True,
         "by_case": per_case,
+    }, {
+        "name": "sw_phase",
+        "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/sw_phase.cu",
+        "replaces": "examples/shallow_water.py:1014",
+        "launches": r0["phase_launches"],
+        "max_abs_err": max(phase_worst, max(r["halo_err"] for r in ranks)),
+        "ms": phase["ms"],
+        "plain_ms": phase["plain_ms"],
+        "bound_ms": phase["bound_ms"],
+        "bound_by": phase["bound_by"],
+        "library_ms": None,
+        "ok": True,
+        "by_case": phase_cases,
+    }, {
+        "name": "sw_wide",
+        "route": "cuda",
+        "source": "mpi4jax_tpu_torch/csrc/sw_wide.cu",
+        "replaces": "examples/shallow_water.py:1259",
+        "launches": wide_launches,
+        "max_abs_err": max(wide_worst, run_worst),
+        "ms": wide["ms"],
+        "plain_ms": wide["plain_ms"],
+        "bound_ms": wide["bound_ms"],
+        "bound_by": wide["bound_by"],
+        "library_ms": None,
+        "ok": True,
+        "by_case": wide_cases,
+        "four_rank_launches_rank0": r0["wide_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

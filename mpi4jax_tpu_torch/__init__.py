@@ -1,18 +1,26 @@
 """mpi4jax_tpu_torch — the PyTorch/CUDA port of mpi4jax_tpu.
 
 One process per rank; a ``Comm`` is a set of axes of a process grid, and
-the ops keep the JAX package's ``(result, token)`` API.  This slice covers
-the single-GPU main path: the size-1 communicator, ``sendrecv``,
-``gather``, tokens, and the shallow-water solver (``models``) with its
-fused step kernel written in CUDA for Hopper (``kernels/sw_steps.py``,
-``csrc/sw_steps.cu``).  Nothing here imports JAX.
+the ops keep the JAX package's ``(result, token)`` API.  Ranks are
+``torch.distributed`` processes (``parallel/launch.py`` starts them on one
+host; gloo, or NCCL with a GPU per rank).  Ported so far: the
+communicator with its row and column sub-communicators, ``sendrecv``,
+``gather``, tokens, and the shallow-water solver (``models``) on any
+process grid, with its three kernels written in CUDA for Hopper
+(``kernels/``, ``csrc/``: the fused whole-step, split-phase and wide-halo
+kernels).  Nothing here imports JAX.
 """
 
 from .ops.gather import gather  # noqa: F401
 from .ops.sendrecv import sendrecv  # noqa: F401
 from .ops.token import Token, create_token  # noqa: F401
 from .parallel.comm import Comm  # noqa: F401
-from .parallel.mesh import ProcessGrid, make_world_mesh, resolve_device  # noqa: F401
+from .parallel.mesh import (  # noqa: F401
+    ProcessGrid,
+    init_distributed,
+    make_world_mesh,
+    resolve_device,
+)
 from .parallel.rankspec import shift  # noqa: F401
 
 __all__ = [
@@ -21,6 +29,7 @@ __all__ = [
     "Token",
     "create_token",
     "gather",
+    "init_distributed",
     "make_world_mesh",
     "resolve_device",
     "sendrecv",

@@ -44,6 +44,13 @@ def state_from_jax(arrays, cfg: Config, rank: int = 0, device=None) -> State:
     if not 0 <= rank < cfg.nproc:
         raise ValueError(f"rank {rank} out of range for {cfg.nproc} ranks")
     return State(*(
-        torch.from_numpy(np.ascontiguousarray(a[rank], np.float32)).to(device)
+        torch.from_numpy(np.array(a[rank], np.float32)).to(device)
         for a in arrays
     ))
+
+
+def states_from_jax(arrays, cfg: Config, device=None):
+    """Every rank's local ``State`` from the six stacked-block arrays, in
+    rank order."""
+    return [state_from_jax(arrays, cfg, rank=r, device=device)
+            for r in range(cfg.nproc)]

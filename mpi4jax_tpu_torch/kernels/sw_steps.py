@@ -20,29 +20,26 @@ This module holds three things:
 - the plain PyTorch version of the step (``_phase1_window``,
   ``_phase2_window``, ``_step_window``, ported operand for operand from
   the JAX package), which ``sw_steps_plain`` applies to the whole array
-  with ``torch.roll``;
+  with ``torch.roll``; the phase windows, in both mask frames, also serve
+  ``kernels/sw_phase.py`` and ``kernels/sw_wide.py``;
 - the wrapper ``sw_steps``: a CPU tensor takes the plain version, a CUDA
   tensor launches the kernel or raises;
 - the build of ``csrc/sw_steps.cu`` with ``nvcc`` at first use, into the
-  package's ``_build/`` directory, loaded with ``ctypes``.
+  package's ``_build/`` directory (``kernels/_build.py``), loaded with
+  ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "sw_steps.cu"
-BUILD_DIR = _PKG / "_build"
+from . import _build
+
+SOURCE = _build.CSRC / "sw_steps.cu"
 
 # per-step dependency radius of one whole step (rows, cols); the kernel's
 # tile margins are nsteps times these.  Rows: phase 1 reads 2 rows away
@@ -98,21 +95,34 @@ def _rolls(roll, nr: int, nx: int):
     return rm1x, rp1x, rm1y, rp1y
 
 
-def _window_masks(cfg, iy, ix, giy, gix):
-    """``(derived, u_wall, wall_v, interior)`` for the default (rank-local)
-    frame of ``examples/shallow_water.py:_window_masks``; the wide frame
-    comes with the multi-rank kernels.  Wall masks test the domain-global
-    indices ``giy``/``gix``, the update mask the rank-local ``iy``/``ix``."""
+def _window_masks(cfg, iy, ix, giy, gix, wide=False):
+    """``(derived, u_wall, wall_v, interior)`` of ``examples/shallow_water.py:
+    _window_masks``.  Wall masks test the domain-global indices
+    ``giy``/``gix``.  In the default (rank-local) frame the update mask
+    tests the rank-local ``iy``/``ix``, so the rank's own halo ring is left
+    to the next exchange.  In the wide frame (``wide=True``, the widened
+    arrays of the wide-halo path) every cell is computed as its owning rank
+    computes it: the update mask tests domain-global interiority, and the
+    kept masks use inequalities, so the beyond-wall rows of the frame are
+    zeroed in every derived field."""
     nyl, nxl = cfg.ny_local, cfg.nx_local
     gy_n, gx_n = cfg.ny + 2, cfg.nx + 2
 
     u_wall = None  # kind-"u" no-flow wall column
     wall_v = giy == gy_n - 2  # kind-"v" no-flux row
-    kept = (giy == 0) | (giy == gy_n - 1)
-    if not cfg.periodic_x:
-        kept = kept | (gix == 0) | (gix == gx_n - 1)
-        u_wall = gix == gx_n - 2
-    interior = (iy > 0) & (iy < nyl - 1) & (ix > 0) & (ix < nxl - 1)
+    if wide:
+        kept = (giy <= 0) | (giy >= gy_n - 1)
+        interior = (giy >= 1) & (giy <= gy_n - 2)
+        if not cfg.periodic_x:
+            kept = kept | (gix <= 0) | (gix >= gx_n - 1)
+            interior = interior & (gix >= 1) & (gix <= gx_n - 2)
+            u_wall = gix == gx_n - 2
+    else:
+        kept = (giy == 0) | (giy == gy_n - 1)
+        if not cfg.periodic_x:
+            kept = kept | (gix == 0) | (gix == gx_n - 1)
+            u_wall = gix == gx_n - 2
+        interior = (iy > 0) & (iy < nyl - 1) & (ix > 0) & (ix < nxl - 1)
 
     def derived(expr, extra=None):
         mask = kept if extra is None else (kept | extra)
@@ -121,11 +131,13 @@ def _window_masks(cfg, iy, ix, giy, gix):
     return derived, u_wall, wall_v, interior
 
 
-def _phase1_window(cfg, first_step: bool, iy, ix, giy, gix, fields, roll):
+def _phase1_window(cfg, first_step: bool, iy, ix, giy, gix, fields, roll,
+                   wide=False):
     """Integration phase of one step (hc, fluxes, q, ke, tendencies, AB-2 or
     Euler update) on a ``(nr, nx)`` window, no exchanges.  Same operands in
     the same order as ``examples/shallow_water.py:_phase1_window``,
-    including its roll-commutation rewrites of the KE stencil."""
+    including its roll-commutation rewrites of the KE stencil; ``wide``
+    selects the masks' frame (``_window_masks``)."""
     h, u, v, dh, du, dv = fields
     nr, nx = h.shape
     gy_n, gx_n = cfg.ny + 2, cfg.nx + 2
@@ -133,7 +145,7 @@ def _phase1_window(cfg, first_step: bool, iy, ix, giy, gix, fields, roll):
     (dx, dy), g, dt = divisors(c, h.device), c.g, c.dt
     rm1x, rp1x, rm1y, rp1y = _rolls(roll, nr, nx)
 
-    derived, u_wall, wall_v, interior = _window_masks(cfg, iy, ix, giy, gix)
+    derived, u_wall, wall_v, interior = _window_masks(cfg, iy, ix, giy, gix, wide)
 
     hc = torch.where(giy == 0, rm1y(h), torch.where(giy == gy_n - 1, rp1y(h), h))
     if not cfg.periodic_x:
@@ -184,14 +196,14 @@ def _phase1_window(cfg, first_step: bool, iy, ix, giy, gix, fields, roll):
     return h1, u1, v1, dh_new, du_new, dv_new
 
 
-def _phase2_window(cfg, iy, ix, giy, gix, u, v, roll):
+def _phase2_window(cfg, iy, ix, giy, gix, u, v, roll, wide=False):
     """Viscosity phase of one step on a window: lateral friction on ``u``
     and ``v``, which enter with coherent halos."""
     nr, nx = u.shape
     c = step_constants(cfg)
     (dx, dy), dt = divisors(c, u.device), c.dt
     rm1x, rp1x, rm1y, rp1y = _rolls(roll, nr, nx)
-    derived, u_wall, wall_v, interior = _window_masks(cfg, iy, ix, giy, gix)
+    derived, u_wall, wall_v, interior = _window_masks(cfg, iy, ix, giy, gix, wide)
 
     visc = c.visc
     out = []
@@ -266,68 +278,22 @@ def sw_steps_plain(fields, cfg, first_step: bool, nsteps: int):
 # ---------------------------------------------------------------------------
 
 
-class LaunchCounter:
-    """``launches``: kernel executions, direct or by CUDA-graph replay.
-    ``captured``: launches recorded into graphs being captured; the graph
-    runner adds them to ``launches`` once per replay."""
-
-    def __init__(self):
-        self.launches = 0
-        self.captured = 0
-
-
-counter = LaunchCounter()
+counter = _build.counter_for("sw_steps")
 _lib = None
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda, PATH)")
-    return found
-
-
-def build() -> Path:
-    """Compile ``csrc/sw_steps.cu`` for sm_90a into ``_build/`` (named by
-    the source's hash, so an edited source rebuilds) and return the
-    library's path.  FMA contraction stays off: the kernel must round as
-    the plain version does."""
-    defines = [f"-D{k}={v}" for k, v in _DEFINES.items()]
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(defines).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libsw_steps_{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        *defines, "-o", str(tmp), str(SOURCE),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "sw_steps.build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr
-    )
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+def spec():
+    """``(source, defines, headers)`` of this kernel's build."""
+    return SOURCE, _DEFINES, ()
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.sw_steps_launch
-        fn.argtypes = (
+        _lib = _build.load(spec(), {"sw_steps_launch": (
             [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
             + [ctypes.c_float] * 9 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
+        )})
     return _lib
 
 
@@ -342,14 +308,7 @@ def sw_steps(fields, cfg, first_step: bool, nsteps: int):
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_steps: unsupported device {h.device}")
     shape = (cfg.ny_local, cfg.nx_local)
-    for f in fields:
-        if f.device != h.device or f.dtype != torch.float32:
-            raise ValueError("sw_steps: fields must be f32 on one CUDA device")
-        if tuple(f.shape) != shape or not f.is_contiguous():
-            raise ValueError(
-                f"sw_steps: fields must be contiguous {shape}, got "
-                f"{tuple(f.shape)}"
-            )
+    _build.check_cuda_fields("sw_steps", fields, shape)
     if min(shape) < 3:
         raise ValueError(f"sw_steps: local shape {shape} below 3x3")
     outs = tuple(torch.empty_like(f) for f in fields)
@@ -362,10 +321,6 @@ def sw_steps(fields, cfg, first_step: bool, nsteps: int):
         c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc,
         stream,
     )
-    if err != 0:
-        raise RuntimeError(f"sw_steps kernel launch failed: cudaError {err}")
-    if torch.cuda.is_current_stream_capturing():
-        counter.captured += 1
-    else:
-        counter.launches += 1
+    _build.raise_on_error("sw_steps", err)
+    counter.count(torch.cuda.is_current_stream_capturing())
     return outs

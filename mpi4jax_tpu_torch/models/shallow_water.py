@@ -5,7 +5,8 @@ an Arakawa C-grid (energy-conserving Sadourny scheme, Adams-Bashforth 2).
 The JAX version traces one SPMD program over a device mesh and keeps the
 state as stacked blocks ``(nproc, ny_l, nx_l)``; the port runs one process
 per rank, and a ``State`` here is rank ``r``'s block, what the JAX package
-calls ``global[r]``.  This slice runs the single-rank world.
+calls ``global[r]``.  A grid of several ranks runs in a world of as many
+processes (``parallel/launch.py``), the halos travel through ``sendrecv``.
 
 The ``fast=`` modes are the JAX package's public contract:
 
@@ -14,10 +15,15 @@ The ``fast=`` modes are the JAX package's public contract:
 - ``"pallas"`` / ``"pallas2"`` / ``"pallas3"`` — the fused whole-step
   kernel (``kernels/sw_steps.py``) advancing 1, 2 or 3 steps per call;
   single-rank periodic-x only;
-- ``"auto"`` — ``"pallas2"`` on a single-rank periodic-x config;
-- ``"pallas_halo"``, ``"wide"``, ``"wide2"`` (and ``"auto"`` where it would
-  pick them) raise ``NotImplementedError``: they come with the multi-rank
-  kernels.
+- ``"pallas_halo"`` — ``model_step_fused_halo``: the split-phase kernels
+  (``kernels/sw_phase.py``) with real halo exchanges between them; any grid;
+- ``"wide"`` / ``"wide2"`` — the communication-avoiding wide-halo kernel
+  (``kernels/sw_wide.py``) on a widened frame carried across calls, one or
+  two steps per call; any grid whose local interior is at least the
+  exchange depth (8 or 16 cells);
+- ``"auto"`` — ``"pallas2"`` on a single-rank periodic-x config, else
+  ``"wide2"`` where the local interior fits its exchange depth, else
+  ``"pallas_halo"``.
 
 Every entry point takes ``device=None``, meaning the GPU; without CUDA it
 raises unless given ``device="cpu"``.
@@ -34,7 +40,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import _build
+from ..kernels import sw_phase as _kp
 from ..kernels import sw_steps as _k
+from ..kernels import sw_wide as _kw
 from ..kernels.sw_steps import (  # noqa: F401  (the physics windows live beside the kernel)
     _phase1_window,
     _phase2_window,
@@ -43,6 +52,7 @@ from ..kernels.sw_steps import (  # noqa: F401  (the physics windows live beside
     divisors,
     step_constants,
 )
+from ..ops import _staging
 from ..ops.gather import gather
 from ..ops.sendrecv import sendrecv
 from ..ops.token import create_token
@@ -51,12 +61,6 @@ from ..parallel.mesh import make_world_mesh, resolve_device
 from ..parallel.rankspec import shift
 
 DAY_IN_SECONDS = 86_400
-
-# the ROADMAP item that brings the multi-rank kernel modes
-MULTI_RANK_KERNELS_ITEM = (
-    "ROADMAP.md Queue 1, 'Multi-rank shallow-water modes' "
-    "(_sw_wide_kernel and _sw_phase_kernel)"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +532,217 @@ def model_step3_fused(state: State, cfg: Config, comm: Comm,
     return model_step_fused(state, cfg, comm, first_step, nsteps=3)
 
 
+# ---------------------------------------------------------------------------
+# split-phase step (any grid: kernel compute + real halo exchanges)
+# ---------------------------------------------------------------------------
+
+
+def _rank_offsets(cfg: Config, comm: Comm):
+    """This rank's domain-global (row, col) offset: the two ints that let
+    one kernel build serve every rank position (every wall mask tests
+    ``local index + offset``)."""
+    return (comm.axis_index("py") * (cfg.ny_local - 2),
+            comm.axis_index("px") * (cfg.nx_local - 2))
+
+
+def model_step_fused_halo(state: State, cfg: Config, comm: Comm,
+                          first_step: bool) -> State:
+    """One step on any grid (``examples/shallow_water.py:
+    model_step_pallas_halo``): ``model_step_fast``'s exchange structure
+    with its two compute regions as the split-phase kernels — phase 1,
+    exchange h, u, v, phase 2, exchange u, v (kind "h", a pure halo
+    refresh).  CPU tensors take the kernels' plain versions."""
+    token = create_token()
+    off = _rank_offsets(cfg, comm)
+    h1, u1, v1, dh_new, du_new, dv_new = _kp.sw_phase1(
+        tuple(state), cfg, first_step, off)
+
+    h1, token = enforce_boundaries(h1, "h", cfg, comm, token)
+    u1, token = enforce_boundaries(u1, "u", cfg, comm, token)
+    v1, token = enforce_boundaries(v1, "v", cfg, comm, token)
+
+    if cfg.lateral_viscosity > 0:
+        u1, v1 = _kp.sw_phase2(u1, v1, cfg, off)
+        u1, token = enforce_boundaries(u1, "h", cfg, comm, token)
+        v1, token = enforce_boundaries(v1, "h", cfg, comm, token)
+
+    return State(h1, u1, v1, dh_new, du_new, dv_new)
+
+
+# ---------------------------------------------------------------------------
+# wide-halo step (any grid: communication-avoiding fused kernel)
+# ---------------------------------------------------------------------------
+
+
+def _strip_exch(payload, route, c: Comm, token):
+    """One batched halo strip along a direction: a single ``sendrecv`` with
+    a zeros template (edge ranks of a non-wrapping direction keep zeros).
+    A size-1 axis needs no message: the identity for a wrapping route,
+    zeros for a non-wrapping one."""
+    if c.Get_size() == 1:
+        return payload if route.wrap else torch.zeros_like(payload)
+    out, _ = sendrecv(payload, torch.zeros_like(payload), dest=route,
+                      comm=c, token=token)
+    return out
+
+
+def _wide_exchange(fields, cfg: Config, comm: Comm, m: int, token):
+    """Build the widened frame (``examples/shallow_water.py:
+    _wide_exchange``): every side gains ``m - 1`` cells of neighbour data
+    beyond the 1-cell halo, from ``m``-deep strips of all six fields, one
+    ``sendrecv`` per direction: x strips first, then y strips of the
+    x-widened arrays, which brings the corners.  The state fields keep
+    their own halo ring and take only the ``m - 1`` cells beyond it; the
+    tendencies take the whole strip, whose first cell is the owning rank's
+    value at the seam."""
+    nyl, nxl = cfg.ny_local, cfg.nx_local
+    commx, commy = comm.sub("px"), comm.sub("py")
+    wrap_x = cfg.periodic_x
+
+    # x phase: (6, nyl, m) strips; high-side strips travel east
+    lo = torch.stack([f[:, 1:m + 1] for f in fields])
+    hi = torch.stack([f[:, nxl - 1 - m:nxl - 1] for f in fields])
+    from_west = _strip_exch(hi, shift(+1, wrap=wrap_x), commx, token)
+    from_east = _strip_exch(lo, shift(-1, wrap=wrap_x), commx, token)
+    wx = []
+    for k, f in enumerate(fields):
+        w, e = from_west[k], from_east[k]
+        if k < 3:  # state: local halo ring kept in place
+            wx.append(torch.cat([w[:, :m - 1], f, e[:, 1:]], dim=1))
+        else:  # tendency: the strip supplies the halo position
+            wx.append(torch.cat([w, f[:, 1:-1], e], dim=1))
+
+    # y phase: (6, m, nx_w) strips of the x-widened arrays
+    lo = torch.stack([f[1:m + 1] for f in wx])
+    hi = torch.stack([f[nyl - 1 - m:nyl - 1] for f in wx])
+    from_south = _strip_exch(hi, shift(+1, wrap=False), commy, token)
+    from_north = _strip_exch(lo, shift(-1, wrap=False), commy, token)
+    out = []
+    for k, f in enumerate(wx):
+        s_, n_ = from_south[k], from_north[k]
+        if k < 3:
+            out.append(torch.cat([s_[:m - 1], f, n_[1:]], dim=0))
+        else:
+            out.append(torch.cat([s_, f[1:-1], n_], dim=0))
+    return tuple(out), token
+
+
+def _wide_kernel_call(wfields, cfg: Config, comm: Comm, first_step: bool,
+                      nsteps: int, m: int):
+    """``nsteps`` steps of the wide-halo kernel on the widened frame, whose
+    global offsets are the rank's minus ``m - 1``."""
+    oy, ox = _rank_offsets(cfg, comm)
+    return _kw.sw_wide(tuple(wfields), cfg, first_step, nsteps,
+                       (oy - (m - 1), ox - (m - 1)))
+
+
+def _wide_crop(outs, cfg: Config, m: int) -> State:
+    """Crop a widened frame back to the local layout: the state's halo ring
+    lands coherent, and the tendency ring is set back to zero (in the frame
+    it holds the neighbour's values at seams)."""
+    nyl, nxl = cfg.ny_local, cfg.nx_local
+    sl = (slice(m - 1, m - 1 + nyl), slice(m - 1, m - 1 + nxl))
+    dev = outs[0].device
+    liy = torch.arange(nyl, device=dev)[:, None]
+    lix = torch.arange(nxl, device=dev)[None, :]
+    ring = (liy == 0) | (liy == nyl - 1) | (lix == 0) | (lix == nxl - 1)
+    h1, u1, v1 = (o[sl].contiguous() for o in outs[:3])
+    dh_n, du_n, dv_n = (torch.where(ring, 0.0, o[sl]) for o in outs[3:])
+    return State(h1, u1, v1, dh_n, du_n, dv_n)
+
+
+def _wide_refresh(wf, cfg: Config, comm: Comm, m: int, token):
+    """Refresh the margin bands of a carried widened frame between kernel
+    calls (``examples/shallow_water.py:_wide_refresh``): after a call the
+    crop region is valid and the ``m - 1``-deep margins are garbage.  x
+    bands first, then y bands at the full widened width, sliced after the
+    x update so their corners carry diagonal-neighbour data.  The bands
+    are written into the carried tensors in place."""
+    e = m - 1
+    nyl, nxl = cfg.ny_local, cfg.nx_local
+    commx, commy = comm.sub("px"), comm.sub("py")
+    wrap_x = cfg.periodic_x
+
+    # x bands (6, ny_w, e): west margin <- west neighbour's easternmost
+    # interior, east margin <- east neighbour's westernmost
+    from_west = _strip_exch(torch.stack([f[:, nxl - 2:nxl - 2 + e] for f in wf]),
+                            shift(+1, wrap=wrap_x), commx, token)
+    from_east = _strip_exch(torch.stack([f[:, e + 2:2 * e + 2] for f in wf]),
+                            shift(-1, wrap=wrap_x), commx, token)
+    for k, f in enumerate(wf):
+        f[:, :e] = from_west[k]
+        f[:, e + nxl:] = from_east[k]
+
+    # y bands (6, e, nx_w), full width (corners now valid)
+    from_south = _strip_exch(torch.stack([f[nyl - 2:nyl - 2 + e] for f in wf]),
+                             shift(+1, wrap=False), commy, token)
+    from_north = _strip_exch(torch.stack([f[e + 2:2 * e + 2] for f in wf]),
+                             shift(-1, wrap=False), commy, token)
+    for k, f in enumerate(wf):
+        f[:e, :] = from_south[k]
+        f[e + nyl:, :] = from_north[k]
+    return wf
+
+
+def _check_wide_interior(cfg: Config, m: int) -> None:
+    if cfg.ny_local - 2 < m or cfg.nx_local - 2 < m:
+        raise ValueError(
+            "wide-halo path: local interior must be >= the exchange depth "
+            f"({m}) in both dimensions; use model_step_fused_halo"
+        )
+
+
+def _wide_run(state: State, num_steps: int, cfg: Config, comm: Comm,
+              chunk_size: int, m: int, euler_first: bool) -> State:
+    """Advance ``num_steps`` steps on the carried widened frame
+    (``examples/shallow_water.py:_wide_run``): build the frame once, run
+    ``chunk_size``-step kernel calls with a margin-band refresh before each
+    (except the first call after the build, whose margins are fresh), the
+    remainder one step per call, and crop once at the end.
+    ``euler_first`` makes the first step the forward-Euler one."""
+    _check_wide_interior(cfg, m)
+    if num_steps <= 0:
+        return state
+    token = create_token()
+    wf, token = _wide_exchange(tuple(state), cfg, comm, m, token)
+    rest = num_steps
+    fresh = True  # margins still the just-exchanged ones
+    if euler_first:
+        wf = _wide_kernel_call(wf, cfg, comm, True, 1, m)
+        rest -= 1
+        fresh = False
+    nchunks, rem = divmod(rest, chunk_size)
+    for n in [chunk_size] * nchunks + [1] * rem:
+        if not fresh:
+            wf = _wide_refresh(wf, cfg, comm, m, token)
+        fresh = False
+        wf = _wide_kernel_call(wf, cfg, comm, False, n, m)
+    return _wide_crop(wf, cfg, m)
+
+
+def model_step_fused_wide(state: State, cfg: Config, comm: Comm,
+                          first_step: bool, nsteps: int = 2) -> State:
+    """``nsteps`` steps as one wide-halo kernel call between a frame build
+    and a crop (``examples/shallow_water.py:model_step_pallas_wide``)."""
+    m = _margin_rows(nsteps)
+    _check_wide_interior(cfg, m)
+    wf, _ = _wide_exchange(tuple(state), cfg, comm, m, create_token())
+    return _wide_crop(_wide_kernel_call(wf, cfg, comm, first_step, nsteps, m),
+                      cfg, m)
+
+
+def model_step_wide(state: State, cfg: Config, comm: Comm,
+                    first_step: bool) -> State:
+    """One step through the wide-halo kernel."""
+    return model_step_fused_wide(state, cfg, comm, first_step, nsteps=1)
+
+
+def model_step2_wide(state: State, cfg: Config, comm: Comm,
+                     first_step: bool) -> State:
+    """Two steps per wide-halo kernel call and exchange round."""
+    return model_step_fused_wide(state, cfg, comm, first_step, nsteps=2)
+
+
 def select_step(fast, cfg: Config = None):
     """The single-step callable behind ``fast`` (see ``select_steps``)."""
     return select_steps(fast, cfg)[0]
@@ -546,23 +761,22 @@ def select_steps(fast, cfg: Config = None):
             )
         if cfg.nproc == 1 and cfg.periodic_x:
             fast = "pallas2"
+        elif min(cfg.ny_local, cfg.nx_local) - 2 >= _margin_rows(2):
+            fast = "wide2"
         else:
-            wanted = ("wide2" if min(cfg.ny_local, cfg.nx_local) - 2
-                      >= _margin_rows(2) else "pallas_halo")
-            raise NotImplementedError(
-                f"fast='auto' picks {wanted!r} for this config, which is not "
-                f"ported yet; see {MULTI_RANK_KERNELS_ITEM}"
-            )
-    if fast in ("wide", "wide2", "pallas_halo"):
-        raise NotImplementedError(
-            f"fast={fast!r} is not ported yet; see {MULTI_RANK_KERNELS_ITEM}"
-        )
+            fast = "pallas_halo"
+    if fast == "wide2":
+        return model_step_wide, model_step2_wide, 2
+    if fast == "wide":
+        return model_step_wide, None, 1
     if fast == "pallas3":
         return model_step_fused, model_step3_fused, 3
     if fast == "pallas2":
         return model_step_fused, model_step2_fused, 2
     if fast == "pallas":
         return model_step_fused, None, 1
+    if fast == "pallas_halo":
+        return model_step_fused_halo, None, 1
     return (model_step_fast if fast else model_step), None, 1
 
 
@@ -572,6 +786,19 @@ def make_stepper(cfg: Config, comm: Comm, *, fast=True):
     steps (whole chunks through the chunk kernel, the remainder one step
     at a time)."""
     step, chunk, chunk_size = select_steps(fast, cfg)
+
+    if step is model_step_wide:
+        # the wide modes run on the carried widened frame
+        m = _margin_rows(chunk_size)
+
+        def first_step(state: State) -> State:
+            return _wide_run(state, 1, cfg, comm, chunk_size, m, euler_first=True)
+
+        def multistep(state: State, num_steps: int) -> State:
+            return _wide_run(state, num_steps, cfg, comm, chunk_size, m,
+                             euler_first=False)
+
+        return first_step, multistep
 
     def first_step(state: State) -> State:
         return step(state, cfg, comm, first_step=True)
@@ -654,22 +881,25 @@ class _GraphRun:
     """A whole run captured as one CUDA graph and replayed: the port's
     counterpart of the ``mpx.compile`` pin in the JAX package's
     ``solve_fused``.  Each replay adds the kernel launches it contains to
-    the kernel's launch count."""
+    each kernel's launch count."""
 
     def __init__(self, fn, state: State):
         self.static_in = State(*(f.clone() for f in state))
-        before = _k.counter.captured
+        before = {name: c.captured for name, c in _build.COUNTERS.items()}
         self.graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(self.graph):
                 self.static_out = fn(self.static_in)
         finally:
-            self.per_replay = _k.counter.captured - before
-            _k.counter.captured = before
+            self.per_replay = {}
+            for name, c in _build.COUNTERS.items():
+                self.per_replay[name] = c.captured - before.get(name, 0)
+                c.captured = before.get(name, 0)
 
     def __call__(self) -> State:
         self.graph.replay()
-        _k.counter.launches += self.per_replay
+        for name, n in self.per_replay.items():
+            _build.COUNTERS[name].launches += n
         return self.static_out
 
 
@@ -681,23 +911,44 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     of steps as ``solve(collect=False)``.  Returns ``(wall_time_s,
     n_steps)``, plus the final state when ``return_state`` is set.
 
+    The wide modes run the carried frame (``_wide_run``) over the
+    whole run: one frame build, a margin-band refresh per call, one crop.
+
     ``pinned=True`` captures the whole run as a CUDA graph (after one eager
-    warm-up run) and times its replays.  It needs a CUDA device; a failed
-    capture raises, there is no eager fallback.  When ``info`` (a dict) is
+    warm-up run) and times its replays.  It needs a CUDA device and a
+    single-rank grid (a multi-rank run stages its exchanges through the
+    host, which a graph cannot capture); a failed capture raises, there is
+    no eager fallback.  When ``info`` (a dict) is
     passed, ``info["runs"]`` counts the whole runs executed (warm-ups
-    included) and ``info["pinned"]`` says whether they were replays."""
+    included), ``info["pinned"]`` says whether they were replays and
+    ``info["exchange_s"]`` holds the seconds the timed (best) run spent
+    inside multi-rank ops (``ops/_staging.py:stats``)."""
     _, comm = make_mesh_and_comm(cfg, device=device)
     n_iters = max(0, math.ceil((t1 - cfg.dt) / (cfg.dt * num_multisteps)))
     n_steps = 1 + n_iters * num_multisteps
     step, chunk, chunk_size = select_steps(fast, cfg)
 
-    def fused(state: State) -> State:
-        state = step(state, cfg, comm, first_step=True)
-        return _run_steps(state, n_steps - 1, cfg, comm, step, chunk, chunk_size)
+    if step is model_step_wide:
+        m = _margin_rows(chunk_size)
+
+        def fused(state: State) -> State:
+            return _wide_run(state, n_steps, cfg, comm, chunk_size, m,
+                             euler_first=True)
+    else:
+        def fused(state: State) -> State:
+            state = step(state, cfg, comm, first_step=True)
+            return _run_steps(state, n_steps - 1, cfg, comm, step, chunk,
+                              chunk_size)
 
     state = initial_state(cfg, rank=comm.Get_rank(), device=comm.device)
     runs = 0
     if pinned:
+        if comm.Get_size() > 1:
+            raise ValueError(
+                "pinned=True captures a CUDA graph, which cannot hold the "
+                f"host-staged exchanges of a {comm.Get_size()}-rank run; "
+                "pass pinned=False"
+            )
         if comm.device.type != "cuda":
             raise ValueError("pinned=True captures a CUDA graph; it needs a CUDA device")
         # one eager run on a side stream first (library load, allocator
@@ -715,16 +966,20 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
 
     _sync(runner())  # warm-up
     runs += 1
-    wall = float("inf")
+    wall, exchange_s = float("inf"), 0.0
     for _ in range(2):
+        before = _staging.stats.seconds
         start = time.perf_counter()
         out = runner()
         _sync(out)
-        wall = min(wall, time.perf_counter() - start)
+        elapsed = time.perf_counter() - start
+        if elapsed < wall:
+            wall, exchange_s = elapsed, _staging.stats.seconds - before
         runs += 1
     if info is not None:
         info["runs"] = runs
         info["pinned"] = bool(pinned)
+        info["exchange_s"] = exchange_s
     if return_state:
         return wall, n_steps, out
     return wall, n_steps

@@ -3,15 +3,20 @@
 PyTorch counterpart of ``mpi4jax_tpu/parallel/comm.py:48-289``: a ``Comm``
 is a set of axes of a process grid (``parallel/mesh.py``).  ``sub`` selects
 the row or column communicator of a Cartesian grid, as ``MPI_Comm_split``
-does there.  This slice covers the size-1 world; ``Split``, ``Clone``,
-color groups and real process groups come with the multi-rank slice.
+does there.  On a grid of several processes a comm's ranks are the
+processes that share this process's coordinates on every other axis;
+``members`` lists their global ranks in comm-rank order and ``group`` is
+their ``torch.distributed`` process group, made on every rank when the
+grid was built.  Point-to-point ops translate a comm rank to a global
+rank (``global_rank``) and use the default group.  ``Split``, ``Clone``
+and color groups are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from .mesh import ProcessGrid
+from .mesh import ProcessGrid, group_of
 
 
 class Comm:
@@ -29,6 +34,7 @@ class Comm:
         if not self._axes:
             raise ValueError("Comm needs at least one mesh axis name")
         self._mesh = mesh
+        self._members = None
         if mesh is not None:
             missing = [a for a in self._axes if a not in mesh.axes]
             if missing:
@@ -74,6 +80,34 @@ class Comm:
 
     rank = Get_rank
     size = Get_size
+
+    def members(self) -> Tuple[int, ...]:
+        """The global rank of every rank of this comm, in comm-rank order
+        (row-major over the comm's axes; this process's coordinates on the
+        grid's other axes)."""
+        if self._members is not None:
+            return self._members
+        mesh = self._bound()
+        base = list(mesh.coords())
+        idx = [mesh.axes.index(a) for a in self._axes]
+        out = []
+        for r in range(self.Get_size()):
+            coord = list(base)
+            for i in reversed(idx):
+                coord[i] = r % mesh.shape[i]
+                r //= mesh.shape[i]
+            out.append(mesh.rank_at(coord))
+        self._members = tuple(out)
+        return self._members
+
+    def global_rank(self, rank: int) -> int:
+        """The global rank of this comm's rank ``rank``."""
+        return self.members()[rank]
+
+    def group(self):
+        """The ``torch.distributed`` process group of this comm's ranks
+        (``None``: the default group, the whole world)."""
+        return group_of(frozenset(self.members()))
 
     def axis_index(self, axis: str) -> int:
         """This process's coordinate along one grid axis (the counterpart of

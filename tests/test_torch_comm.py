@@ -217,8 +217,11 @@ def test_unbound_comm_raises():
 
 @pytest.mark.parametrize("shape", [(2,), (2, 4)])
 def test_multi_rank_grid_not_yet(shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A grid of several ranks needs an initialised world of its size;
+    without one it raises and says how to start the ranks."""
+    with pytest.raises(RuntimeError, match="launch.run") as err:
         tpx.make_world_mesh(shape, device="cpu")
+    assert "not initialised" in str(err.value)
 
 
 def test_default_world_mesh():

@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-An AST scan of every module of ``mpi4jax_tpu_torch/`` and of
-``chip_smoke.py``: no import of ``jax`` (or ``jaxlib``), none of
+An AST scan of every module of ``mpi4jax_tpu_torch/``, of
+``chip_smoke.py`` and of ``tests/torch_ranks.py``: no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -14,7 +14,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "mpi4jax_tpu_torch"
 FILES = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
-FILES.append(REPO / "chip_smoke.py")
+# the smoke script, and the rank programs every test rank imports afresh
+FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 

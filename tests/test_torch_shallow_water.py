@@ -190,6 +190,14 @@ def test_select_steps_table(mode, step, chunk, size):
     assert (jc is None) == (c is None)
 
 
+# the JAX package's multi-rank step names and the port's
+_MULTI_RANK_NAMES = {
+    "model_step_pallas_halo": "model_step_fused_halo",
+    "model_step_wide": "model_step_wide",
+    "model_step2_wide": "model_step2_wide",
+}
+
+
 @pytest.mark.parametrize("mode,grid,nx,ny,periodic", [
     ("pallas_halo", (1, 1), 48, 24, True),
     ("wide", (1, 1), 48, 24, True),
@@ -200,14 +208,15 @@ def test_select_steps_table(mode, step, chunk, size):
     ("auto", (1, 1), 48, 12, False),   # small walls: JAX picks pallas_halo
 ])
 def test_select_steps_unported_modes_raise(mode, grid, nx, ny, periodic):
+    """The multi-rank modes, which the port once refused: it now picks the
+    split-phase and wide-halo steps exactly where the JAX package picks
+    their counterparts, chunk step and chunk size included."""
     jcfg, pcfg = configs(nx, ny, *grid, periodic=periodic)
-    want = J.select_step(mode, jcfg).__name__
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        P.select_steps(mode, pcfg)
-    if mode == "auto":
-        picked = {"model_step_pallas_halo": "pallas_halo",
-                  "model_step_wide": "wide2"}[want]
-        assert repr(picked) in str(err.value)
+    js, jc, jn = J.select_steps(mode, jcfg)
+    s, c, n = P.select_steps(mode, pcfg)
+    assert s.__name__ == _MULTI_RANK_NAMES[js.__name__]
+    assert (c.__name__ if c else None) == (_MULTI_RANK_NAMES[jc.__name__] if jc else None)
+    assert n == jn
 
 
 def test_select_step_auto_needs_cfg():
@@ -265,7 +274,8 @@ def test_solve_fused_matches_jax_solve_fused():
     _, n, state = P.solve_fused(pcfg, t1, num_multisteps=2, fast="auto",
                                 return_state=True, device="cpu", info=info)
     assert n == jn == 7
-    assert info == {"runs": 3, "pinned": False}
+    # a single-rank run makes no exchange
+    assert info == {"runs": 3, "pinned": False, "exchange_s": 0.0}
     assert_in_band(jax_local(jstate), state, "solve_fused auto")
 
 
@@ -323,3 +333,13 @@ def test_bench_raises_without_cuda():
         pytest.skip("a CUDA device is present; the rule is checked without one")
     with pytest.raises(RuntimeError, match="CUDA"):
         tbench.run()
+
+
+def test_states_from_jax_gives_every_rank():
+    jcfg, pcfg = configs(48, 24, 2, 4)
+    states = convert.states_from_jax(
+        [np.asarray(f) for f in J.initial_state(jcfg)], pcfg, device="cpu")
+    assert len(states) == pcfg.nproc
+    for r, s in enumerate(states):
+        for a, b in zip(s, P.initial_state(pcfg, rank=r, device="cpu")):
+            assert torch.equal(a, b)

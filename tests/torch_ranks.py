@@ -1,0 +1,240 @@
+"""Rank programs of the port's multi-rank tests, and one run of each.
+
+The programs run on every rank of a world that
+``mpi4jax_tpu_torch.parallel.launch.run`` starts (gloo ranks on the CPU)
+and return dicts of tensors, which ``run`` hands back as numpy arrays.
+This module imports only torch, numpy and the port, since every rank
+imports it afresh; the test modules compare the results with the JAX
+package on the 8-device CPU mesh.
+
+``shared_result`` computes a result once per test run: under
+pytest-xdist a module's tests are spread over several workers, and each
+would otherwise start its own ranks.  The first worker to ask computes
+and stores the result in the run's shared temporary directory; the
+others wait on a file lock and load it.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import os
+import pickle
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from mpi4jax_tpu_torch import Comm, gather, make_world_mesh, sendrecv, shift
+from mpi4jax_tpu_torch.models import shallow_water as P
+from mpi4jax_tpu_torch.ops import _staging
+
+# every launch of the tests gets this limit: a hang fails one test instead
+# of the whole run
+RANK_TIMEOUT_S = 50.0
+
+
+def shared_result(tmp_path_factory, name: str, compute):
+    """``compute()``, once per test run (see the module docstring)."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(path, "rb") as fh:
+                return pickle.load(fh)
+        result = compute()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        with open(tmp, "wb") as fh:
+            pickle.dump(result, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+        return result
+
+
+# ---------------------------------------------------------------------------
+# the communicator
+# ---------------------------------------------------------------------------
+
+SHIFTS = [(1, True), (1, False), (-1, True), (-1, False)]
+
+
+def comm_inputs(size: int) -> np.ndarray:
+    """Every rank's send buffer, ``(size, 4, 6)`` f32 from a fixed seed."""
+    rng = np.random.default_rng(7)
+    return (10 * rng.standard_normal((size, 4, 6))).astype(np.float32)
+
+
+def grid_of(size: int):
+    """The 2-D grid of a world of ``size`` ranks, as the solver picks it."""
+    return P.pick_process_grid(size)
+
+
+def comm_program(rank: int, size: int):
+    """sendrecv and gather on the 1-D world and on the 2-D grid of ``size``
+    ranks and its sub-communicators."""
+    x = torch.from_numpy(comm_inputs(size)[rank])
+    tmpl = torch.full_like(x, -3.0)
+    out = {}
+
+    world = Comm("x", mesh=make_world_mesh((size,), ("x",), device="cpu"))
+    for k, wrap in SHIFTS:
+        out[f"world/{k}/{wrap}"] = sendrecv(x, tmpl, dest=shift(k, wrap=wrap),
+                                            comm=world)[0]
+    out["world/source"] = sendrecv(x, tmpl, source=shift(1), comm=world)[0]
+    # a strided column view, which torch.distributed refuses as it is
+    out["world/column"] = sendrecv(x[:, 1], tmpl[:, 0], dest=shift(1),
+                                   comm=world)[0]
+    buf = x.clone()
+    received, _ = sendrecv(buf, tmpl, dest=shift(1), comm=world)
+    buf.add_(1.0)  # the result must not alias the send buffer
+    out["world/no_alias"] = received
+    out["world/gather"] = gather(x, 0, comm=world)[0]
+
+    mesh = make_world_mesh(grid_of(size), ("py", "px"), device="cpu")
+    grid = Comm(("py", "px"), mesh=mesh)
+    out["grid/facts"] = torch.tensor([
+        grid.Get_size(), grid.Get_rank(),
+        grid.sub("px").Get_size(), grid.sub("px").Get_rank(),
+        grid.sub("py").Get_size(), grid.sub("py").Get_rank(),
+        grid.axis_index("py"), grid.axis_index("px"),
+    ])
+    out["grid/gather"] = gather(x, 0, comm=grid)[0]
+    for axis in ("px", "py"):
+        sub = grid.sub(axis)
+        out[f"{axis}/gather"] = gather(x, 0, comm=sub)[0]
+        for k, wrap in SHIFTS:
+            out[f"{axis}/{k}/{wrap}"] = sendrecv(
+                x, tmpl, dest=shift(k, wrap=wrap), comm=sub)[0]
+    out["stats"] = torch.tensor([_staging.stats.calls, _staging.stats.staged_bytes])
+    return out
+
+
+def raise_on(rank: int, bad: int):
+    """Raises on rank ``bad``; the others wait at a collective."""
+    if rank == bad:
+        raise ValueError(f"deliberate failure on rank {rank}")
+    torch.distributed.barrier()
+    return {}
+
+
+def grid_of_wrong_size(rank: int):
+    """Asks for a (2, 4) grid in a world of another size."""
+    make_world_mesh((2, 4), ("py", "px"), device="cpu")
+
+
+def sleep_forever(rank: int):
+    import time
+
+    time.sleep(3600)
+
+
+# ---------------------------------------------------------------------------
+# the shallow-water paths
+# ---------------------------------------------------------------------------
+
+WIDE_SIZE = (64, 32)  # nx, ny of the wide modes (the JAX suite's)
+HALO_SIZE = (48, 24)  # nx, ny of the split-phase mode
+STEPS = 11  # steps after the first one: whole pairs and a remainder
+RUN_LENGTHS = (1, 2, 5, 11)  # _wide_run's bookkeeping cases
+
+
+def config(size, grid, periodic):
+    nx, ny = size
+    return replace(P.Config(nx=nx, ny=ny, nproc_y=grid[0], nproc_x=grid[1]),
+                   periodic_x=periodic)
+
+
+def mode_cases(grid):
+    """``(size, mode)`` pairs each grid runs through ``make_stepper``."""
+    cases = [(WIDE_SIZE, m) for m in ("wide", "wide2", "auto")]
+    cases += [(HALO_SIZE, m) for m in ("pallas_halo", "auto", True)]
+    if grid == (2, 4):
+        cases.append((HALO_SIZE, False))
+    return cases
+
+
+def exchange_inputs(cfg, m):
+    """Seeded random local arrays ``(nproc, ny_l, nx_l)`` and widened frames
+    ``(nproc, ny_l + 2(m-1), nx_l + 2(m-1))``, six fields each."""
+    rng = np.random.default_rng(11)
+    local = rng.standard_normal((6, cfg.nproc, cfg.ny_local, cfg.nx_local))
+    wide = rng.standard_normal((6, cfg.nproc, cfg.ny_local + 2 * (m - 1),
+                                cfg.nx_local + 2 * (m - 1)))
+    return local.astype(np.float32), wide.astype(np.float32)
+
+
+def _run(cfg, comm, mode, num_steps):
+    first, multi = P.make_stepper(cfg, comm, fast=mode)
+    s = first(P.initial_state(cfg, rank=comm.Get_rank(), device="cpu"))
+    return multi(s, num_steps) if num_steps else s
+
+
+def sw_program(rank: int, grid):
+    """Every multi-rank shallow-water path on ``grid``, both boundary
+    modes; returns this rank's results by name."""
+    out = {}
+    for periodic in (True, False):
+        tag = "periodic" if periodic else "walled"
+        for size, mode in mode_cases(grid):
+            cfg = config(size, grid, periodic)
+            _, comm = P.make_mesh_and_comm(cfg, device="cpu")
+            out[f"step/{tag}/{size[0]}/{mode}"] = tuple(_run(cfg, comm, mode, STEPS))
+
+        cfg = config(WIDE_SIZE, grid, periodic)
+        _, comm = P.make_mesh_and_comm(cfg, device="cpu")
+        for n in RUN_LENGTHS:
+            for mode in ("wide2", True):
+                out[f"run/{tag}/{n}/{mode}"] = tuple(_run(cfg, comm, mode, n))
+
+        m = P._margin_rows(2)
+        local, wide = exchange_inputs(cfg, m)
+        fields = tuple(torch.from_numpy(a[rank]) for a in local)
+        frames = [torch.from_numpy(a[rank].copy()) for a in wide]
+        tok = P.create_token()
+        out[f"exchange/{tag}"] = P._wide_exchange(fields, cfg, comm, m, tok)[0]
+        out[f"refresh/{tag}"] = tuple(P._wide_refresh(frames, cfg, comm, m, tok))
+        out[f"crop/{tag}"] = tuple(P._wide_crop(
+            [torch.from_numpy(a[rank]) for a in wide], cfg, m))
+        for kind in ("h", "u", "v"):
+            out[f"enforce/{tag}/{kind}"] = P.enforce_boundaries(
+                fields[0], kind, cfg, comm, tok)[0]
+        out[f"offsets/{tag}"] = torch.tensor(P._rank_offsets(cfg, comm))
+
+    cfg = config(WIDE_SIZE, grid, True)
+    info = {}
+    _, n, state = P.solve_fused(cfg, 23 * cfg.dt, num_multisteps=5, fast="wide2",
+                                return_state=True, device="cpu", info=info)
+    out["solve_fused/wide2"] = tuple(state)
+    out["solve_fused/n"] = torch.tensor(n)
+    out["solve_fused/info"] = torch.tensor([info["runs"], info["exchange_s"]],
+                                           dtype=torch.float64)
+    for size, mode in ((HALO_SIZE, "pallas_halo"), (HALO_SIZE, True),
+                       (WIDE_SIZE, "wide2")):
+        cfg = config(size, grid, True)
+        snaps, _, n = P.solve(cfg, 20 * cfg.dt, num_multisteps=5, device="cpu",
+                              fast=mode)
+        out[f"solve/{mode}/local"] = torch.from_numpy(snaps[-2])
+        out[f"solve/{mode}/gathered"] = torch.from_numpy(snaps[-1])
+    try:
+        P.solve_fused(cfg, cfg.dt, device="cpu", pinned=True)
+        out["pinned_error"] = ""
+    except ValueError as e:
+        out["pinned_error"] = str(e)
+    return out
+
+
+class RunResults:
+    """Results by name, each computed once per test run (``shared_result``)
+    and kept for the module that asked."""
+
+    def __init__(self, tmp_path_factory, prefix: str):
+        self._factory = tmp_path_factory
+        self._prefix = prefix
+        self._cache = {}
+
+    def get(self, name: str, compute):
+        if name not in self._cache:
+            self._cache[name] = shared_result(
+                self._factory, f"{self._prefix}-{name}", compute)
+        return self._cache[name]
