@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's three kernels from the sources in this checkout (one
+Builds the port's kernels from the four sources in this checkout (one
 ``nvcc`` each, all at once), holds each against its plain PyTorch version
 at the full width of its path, drives the paths that run them, checks
 that each path launched its kernels and that its output is right, and
@@ -11,7 +11,8 @@ prints:
 - the card's name and power limit (nvidia-smi), and the versions;
 - one JSON line ``{"kernels": [...]}`` with each kernel's launches on its
   path, its largest difference from the plain version, its time, the
-  plain version's time and the least time the card could take;
+  plain version's time, the least time the card could take and, where
+  one PyTorch call computes the same function, that call's time;
 - as the last line ``{"ok": true, "device": {...}}``.
 
 The paths, each driven with the launch counts set to 0 just before it and
@@ -25,22 +26,35 @@ read just after:
    exchanges staged through host memory): the 0.1-day solve through
    ``sw_wide``, and 20 steps of the split-phase path through ``sw_phase``.
    Four processes share one card, so these times are not a scaling result.
+4. long-context attention at the width the JAX package measured its flash
+   kernel at (B=4, T=4096, H=8, D=128, f32): the two flash kernels
+   (``flash_fwd``, ``flash_fwd_causal``) against their plain version in
+   f32 and bf16, masked, ragged and fully masked, beside
+   ``scaled_dot_product_attention``; single-GPU ``flash_attention``,
+   causal and not, against ``reference_attention``; and the demo's entry
+   point (``models.long_context_attention.main``) on four gloo ranks on
+   this card, 1024 tokens each: causal and non-causal ring, causal
+   Ulysses, each rank against its slice of single-GPU ``flash_attention``.
+   TF32 is off: every f32 product on the card is full f32.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s
-# outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 # f32 operations per cell and step of csrc/sw_steps.cu, counted from its
 # source (a division counts as one)
 OPS_PER_CELL_STEP = 107
@@ -54,6 +68,17 @@ BAND_ABS, BAND_REL = 5e-6, 1e-6
 # the band for a whole 0.1-day run against another path's
 # (tests/test_examples.py:337, the carried-frame run's)
 RUN_BAND_ABS, RUN_BAND_REL = 1e-5, 2e-6
+# the width the JAX package built and measured its flash kernel at
+# (mpi4jax_tpu/kernels/flash_attention.py:33)
+ATTN_B, ATTN_T, ATTN_H, ATTN_D = 4, 4096, 8, 128
+# flash kernel against plain, per field against max|ref| (tests/
+# test_kernels.py:50-55, :206-211): m 1e-6, l and o 1e-5 (+ the same
+# absolute), the causal kernel's o 1e-4; bf16 o 4 * 2^-8 of max|ref|
+FLASH_REL = {"m": 1e-6, "l": 1e-5, "o": 1e-5}
+FLASH_CAUSAL_O_REL = 1e-4
+FLASH_BF16_O_REL = 4 * 2.0**-8
+# attention outputs against another path (tests/test_long_context.py:61)
+ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5
 
 
 def band(ref):
@@ -91,11 +116,12 @@ def compare(name, ref_fields, out_fields, names):
     return worst
 
 
-def bound_ms(bytes_moved, ops):
-    """The least time for a call: bytes over the HBM rate or f32 operations
-    over the f32 rate, whichever is longer; and which one it is."""
+def bound_ms(bytes_moved, ops, peak=PEAK_F32_PER_S):
+    """The least time for a call: bytes over the HBM rate or operations
+    over ``peak`` (the f32 rate unless given), whichever is longer; and
+    which one it is."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -131,13 +157,16 @@ def wide_need(cfg, nsteps, radius):
     return 4 * moved, step_ops * sum(cells(nsteps - s) for s in range(1, nsteps + 1))
 
 
-def timed_case(label, kernel, plain, bytes_moved, ops):
+def timed_case(label, kernel, plain, bytes_moved, ops, peak=PEAK_F32_PER_S,
+               reps=50):
     """Kernel and plain times of one call and its bound, printed."""
-    ms = time_ms(kernel, reps=50, warmup=50)
+    ms = time_ms(kernel, reps=reps, warmup=reps)
     plain_ms = time_ms(plain, reps=5, warmup=2)
-    bms, by = bound_ms(bytes_moved, ops)
+    bms, by = bound_ms(bytes_moved, ops, peak)
+    rate = (f"{ops / ms / 1e9:.1f} TFLOP/s" if by == "operations"
+            else f"{bytes_moved / ms / 1e6:.1f} GB/s")
     print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}; {bytes_moved / ms / 1e6:.1f} GB/s achieved)")
+          f"bound {bms:.4f} ms ({by}; {rate} achieved)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
 
@@ -248,6 +277,222 @@ def shared_card_rank(rank, t1, device, nx, ny):
     return out
 
 
+def print_flash_ptxas(log):
+    """Registers and spills of the full-width (D = 128) flash kernels, from
+    the ``-Xptxas -v`` log."""
+    name = None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"(flash_fwd(?:_causal)?_kernel)ILi(\d+)E(f|13__nv_bfloat16)"
+                          r"(?:Lb([01])E)?", line)
+        if entry:
+            kind, d, dtype, mask = entry.groups()
+            name = (f"{kind}<D={d}, {'f32' if dtype == 'f' else 'bf16'}"
+                    f"{', mask' if mask == '1' else ''}>") if d == "128" else None
+        elif name and ("registers" in line or "spill" in line):
+            print(f"  ptxas {name}:", line.replace("ptxas info    :", "").strip())
+
+
+def flash_compare(label, want, got, o_rel):
+    """Per field (o, m, l) of the partials: the largest difference where
+    the plain version is finite, against its band; infinities must agree
+    exactly and no NaN may appear.  Returns the differences by field."""
+    errs, shown = {}, []
+    for name, a, b in zip("oml", want, got):
+        a, b = a.float(), b.float()
+        if bool(torch.isnan(b).any()):
+            raise AssertionError(f"{label}: {name} holds NaN")
+        fin = torch.isfinite(a)
+        if not (torch.equal(fin, torch.isfinite(b))
+                and torch.equal(a[~fin], b[~fin])):
+            raise AssertionError(f"{label}: {name} differs where plain is infinite")
+        rel = o_rel if name == "o" else FLASH_REL[name]
+        top = a[fin].abs().max().item() if bool(fin.any()) else 0.0
+        lim = (0.0 if rel == FLASH_BF16_O_REL else rel) + rel * top
+        err = (a[fin] - b[fin]).abs().max().item() if bool(fin.any()) else 0.0
+        if err > lim:
+            raise AssertionError(f"{label}: {name} off by {err:.3e} > {lim:.3e}")
+        errs[name] = err
+        shown.append(f"{name} {err:.3e} (band {lim:.3e})")
+    print(f"  {label} max|diff|: " + ", ".join(shown))
+    return errs
+
+
+def flash_need(q, k, pairs, masked):
+    """Bytes and operations one partials call needs: q, k, v read once, o,
+    m, l written once (and the mask read); two products of D per score
+    pair the call has to compute, at the inputs' peak rate."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    moved = q.element_size() * (2 * b * tq * h * d + 2 * b * tk * h * d)
+    moved += 8 * b * h * tq + (tq * tk if masked else 0)
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_F32_PER_S
+    return moved, 4 * d * pairs * b * h, peak
+
+
+def sdpa(q, k, v, mask, causal):
+    """The library yardstick: one ``scaled_dot_product_attention`` call on
+    the (B, H, T, D) views, its time and the backend PyTorch picks."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    choice = torch._fused_sdp_choice(qt, kt, vt, attn_mask=mask, dropout_p=0.0,
+                                     is_causal=causal)
+    ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal), reps=10, warmup=3)
+    return ms, SDPBackend(choice).name
+
+
+def check_flash_kernels(FA, dev):
+    """Both flash kernels against their plain version at full width: f32
+    unmasked, masked (p = 0.8) and causal; bf16 unmasked and causal; a
+    ragged masked block (4000 x 4100); a fully masked block.  Returns the
+    worst difference of each kernel and its cases."""
+    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((b, t, h, d), device=dev, generator=gen)
+               for _ in range(3))
+    scale = 1.0 / d**0.5
+    mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
+    tq_r, tk_r = t - 96, t + 4  # a ragged block: 4000 x 4100 at T = 4096
+    cases = [
+        ("f32", q, k, v, None, False),
+        ("f32,mask", q, k, v, mask, False),
+        ("f32,causal", q, k, v, None, True),
+        ("bf16", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, False),
+        ("bf16,causal", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, True),
+        # the queries a strided view: the kernel reads by strides
+        (f"f32,ragged {tq_r}x{tk_r},mask", q[:, :tq_r],
+         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+         torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8, False),
+    ]
+    worst = {"flash_fwd": 0.0, "flash_fwd_causal": 0.0}
+    by_case = {"flash_fwd": {}, "flash_fwd_causal": {}}
+    for label, qq, kk, vv, mm, causal in cases:
+        name = "flash_fwd_causal" if causal else "flash_fwd"
+        want = FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal)
+        got = FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal)
+        torch.cuda.synchronize()
+        o_rel = (FLASH_BF16_O_REL if qq.dtype == torch.bfloat16
+                 else FLASH_CAUSAL_O_REL if causal else FLASH_REL["o"])
+        errs = flash_compare(f"{name}({label})", want, got, o_rel)
+        del want, got
+        tq, tk = qq.shape[1], kk.shape[1]
+        pairs = (tq * (tq + 1) // 2 if causal else tq * tk if mm is None
+                 else int(mm.sum().item()))
+        case = timed_case(
+            f"{name}({label})",
+            lambda: FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal),
+            lambda: FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal),
+            *flash_need(qq, kk, pairs, mm is not None), reps=10)
+        case["library_ms"], case["library"] = sdpa(qq, kk, vv, mm, causal)
+        print(f"    scaled_dot_product_attention: {case['library_ms']:.4f} ms "
+              f"({case['library']})")
+        case["max_abs_err"] = errs
+        by_case[name][label] = case
+        worst[name] = max(worst[name], *errs.values())
+
+    # no attendable key: m = -inf, l = 0, o = 0, never NaN
+    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
+    o, m, l = FA.flash_block_partials(q, k, v, none, scale=scale)
+    torch.cuda.synchronize()
+    if not (bool(torch.isneginf(m).all()) and bool((l == 0).all())
+            and bool((o == 0).all())):
+        raise AssertionError("flash_fwd: a fully masked block is not (0, -inf, 0)")
+    print("  flash_fwd(f32, fully masked): m = -inf, l = 0, o = 0 on every row")
+    # the backward kernels (not ported yet): dq does 3 products of D per
+    # score pair, dk/dv 4; their f32 bounds at this width, for PERF.md
+    pairs = {"full": t * t, "causal": t * (t + 1) // 2}
+    for name, products in (("_bwd_dq_kernel", 3), ("_bwd_dkv_kernel", 4)):
+        print(f"  bound of {name} (f32): " + ", ".join(
+            f"{tag} {bound_ms(0, 2 * products * d * n * b * h)[0]:.4f} ms"
+            for tag, n in pairs.items()))
+    return worst, by_case
+
+
+def single_gpu_attention(TA, FA, q, k, v):
+    """``flash_attention`` at full width, causal and not: against
+    ``reference_attention`` on the card, its time, tokens/s and launches.
+    Returns the outputs, kept for the four-rank comparison."""
+    b, t = q.shape[:2]
+    outs, worst = {}, 0.0
+    for causal in (False, True):
+        for c in FA.counter, FA.counter_causal:
+            c.launches = 0
+        out = TA.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        launches = (FA.counter.launches, FA.counter_causal.launches)
+        if launches != ((0, 1) if causal else (1, 0)):
+            raise AssertionError(f"flash_attention(causal={causal}) launched "
+                                 f"{launches} (flash_fwd, flash_fwd_causal)")
+        ref = TA.reference_attention(q, k, v, causal=causal)
+        err = (out - ref).abs().max().item()
+        if not (bool(torch.isfinite(out).all())
+                and torch.allclose(out, ref, rtol=ATTN_RTOL, atol=ATTN_ATOL)):
+            raise AssertionError(f"flash_attention(causal={causal}) off "
+                                 f"reference_attention by {err:.3e}")
+        del ref
+        ms = time_ms(lambda: TA.flash_attention(q, k, v, causal=causal),
+                     reps=10, warmup=3)
+        print(f"flash_attention(causal={causal}) at B={b}, T={t}, H={q.shape[2]}, "
+              f"D={q.shape[3]}: {ms:.4f} ms per call, {b * t / ms * 1e3:.0f} "
+              f"tokens/s; max|diff| from reference_attention {err:.3e} "
+              f"(rtol {ATTN_RTOL}, atol {ATTN_ATOL})")
+        outs[causal] = out
+        worst = max(worst, err)
+    return outs, worst
+
+
+def four_rank_attention(LCA, launch, single, device):
+    """The demo's entry point on four gloo ranks on this card (T_global =
+    4096, 1024 tokens a rank): causal and non-causal ring, causal Ulysses,
+    each rank's output against its slice of single-GPU
+    ``flash_attention``, and each rank's kernel launches."""
+    t_loc = ATTN_T // 4
+    kwargs = {"b": ATTN_B, "t_loc": t_loc, "h": ATTN_H, "d": ATTN_D,
+              "runs": (("ring", True), ("ring", False), ("ulysses", True)),
+              "repeats": 2}
+    t0 = time.perf_counter()
+    ranks = launch.run(LCA.rank_main, 4, backend="gloo", device=device,
+                       timeout=600, args=(device, kwargs))
+    print(f"four ranks, long-context attention: {time.perf_counter() - t0:.1f} s "
+          "with start-up")
+    # launches per rank r: (flash_fwd, flash_fwd_causal)
+    expect = {"ring/causal": lambda r: (r, 1), "ring/full": lambda r: (4, 0),
+              "ulysses/causal": lambda r: (0, 1)}
+    worst, launches = 0.0, {"flash_fwd": 0, "flash_fwd_causal": 0}
+    for key, want in expect.items():
+        ref = single[key.endswith("causal")]
+        for r, res in enumerate(ranks):
+            got = res[key]["launches"]
+            if (got["flash_fwd"], got["flash_fwd_causal"]) != want(r):
+                raise AssertionError(f"{key} rank {r}: launches {got}, "
+                                     f"expected {want(r)}")
+            for name in launches:
+                launches[name] += got[name]
+            out = torch.from_numpy(res[key]["out"])
+            mine = ref[:, r * t_loc:(r + 1) * t_loc].cpu()
+            err = (out - mine).abs().max().item()
+            if not (bool(torch.isfinite(out).all())
+                    and torch.allclose(out, mine, rtol=ATTN_RTOL, atol=ATTN_ATOL)):
+                raise AssertionError(f"{key} rank {r}: off single-GPU "
+                                     f"flash_attention by {err:.3e}")
+            worst = max(worst, err)
+            print(f"  {key} rank {r}: max|diff| {err:.3e} from single-GPU "
+                  f"flash_attention; launches {got}; wall {res[key]['wall']:.4f} s, "
+                  f"{res[key]['exchange_s']:.4f} s in {res[key]['exchange_calls']} "
+                  f"exchanges, {res[key]['staged_bytes'] / 1e6:.1f} MB staged")
+    r0 = ranks[0]
+    print("four processes share one card (gloo, exchanges staged through host "
+          "memory; not a scaling result): rank 0 wall " + ", ".join(
+              f"{key} {r0[key]['wall']:.4f} s" for key in expect))
+    return worst, launches, {key: {"wall_rank0": r0[key]["wall"],
+                                   "exchange_s_rank0": r0[key]["exchange_s"],
+                                   "staged_bytes_rank0": r0[key]["staged_bytes"]}
+                             for key in expect}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -259,11 +504,17 @@ def main():
     print(smi)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    # every f32 product on the card in full f32, the plain versions' too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
+    from mpi4jax_tpu_torch import attention as TA
     from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import flash_attention as FA
     from mpi4jax_tpu_torch.kernels import sw_phase as KP
     from mpi4jax_tpu_torch.kernels import sw_steps as K
     from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import long_context_attention as LCA
     from mpi4jax_tpu_torch.models import shallow_water as P
     from mpi4jax_tpu_torch.models.shallow_water import (
         DAY_IN_SECONDS,
@@ -278,13 +529,14 @@ def main():
 
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
-    libs = _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("sw_steps", "sw_phase", "sw_wide"):
         for line in (_build.BUILD_DIR / f"{src}.build.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}:", line.strip())
+    print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
 
     dev = torch.device("cuda")
     cfg = Config(nx=3600, ny=1800)
@@ -438,6 +690,19 @@ def main():
           "included)")
     print("NCCL not exercised: it needs one GPU per rank, and this machine has "
           f"{torch.cuda.device_count()}")
+    torch.cuda.empty_cache()
+
+    # -- long-context attention -------------------------------------------
+    flash_worst, flash_cases = check_flash_kernels(FA, dev)
+    torch.cuda.empty_cache()
+    q, k, v = (torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
+               for x in LCA.demo_data(0, 4, ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
+    single, single_worst = single_gpu_attention(TA, FA, q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    ring_worst, attn_launches, attn_runs = four_rank_attention(LCA, launch, single,
+                                                         "cuda:0")
+    del single
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -486,6 +751,29 @@ def main():
         "by_case": wide_cases,
         "four_rank_launches_rank0": r0["wide_launches"],
     }]
+    for name, main_case, replaces in (
+        ("flash_fwd", "f32", ":122"),
+        ("flash_fwd_causal", "f32,causal", ":166"),
+    ):
+        case = flash_cases[name][main_case]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpi4jax_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
+            "launches": attn_launches[name],
+            "max_abs_err": max(flash_worst[name], single_worst, ring_worst),
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "library": f"scaled_dot_product_attention ({case['library']})",
+            "ok": True,
+            "by_case": flash_cases[name],
+            "four_rank_runs": attn_runs,
+        })
+    print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

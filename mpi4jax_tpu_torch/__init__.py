@@ -5,12 +5,16 @@ the ops keep the JAX package's ``(result, token)`` API.  Ranks are
 ``torch.distributed`` processes (``parallel/launch.py`` starts them on one
 host; gloo, or NCCL with a GPU per rank).  Ported so far: the
 communicator with its row and column sub-communicators, ``sendrecv``,
-``gather``, tokens, and the shallow-water solver (``models``) on any
-process grid, with its three kernels written in CUDA for Hopper
+``gather``, ``alltoall``, tokens, the shallow-water solver (``models``)
+on any process grid, with its three kernels written in CUDA for Hopper
 (``kernels/``, ``csrc/``: the fused whole-step, split-phase and wide-halo
-kernels).  Nothing here imports JAX.
+kernels), and the forward of long-context attention (``attention``: ring
+and Ulysses over the ranks, single-device flash attention) on the two
+flash-attention forward kernels, also in CUDA.  Nothing here imports
+JAX.
 """
 
+from .ops.alltoall import alltoall  # noqa: F401
 from .ops.gather import gather  # noqa: F401
 from .ops.sendrecv import sendrecv  # noqa: F401
 from .ops.token import Token, create_token  # noqa: F401
@@ -27,6 +31,7 @@ __all__ = [
     "Comm",
     "ProcessGrid",
     "Token",
+    "alltoall",
     "create_token",
     "gather",
     "init_distributed",

@@ -5,9 +5,14 @@ plain C interface.  ``build`` compiles one with ``nvcc`` for ``sm_90a`` at
 first use into the package's git-ignored ``_build/`` directory, named by
 a hash of the source, the headers it includes and its ``-D`` flags, so an
 edited source rebuilds; the wrapper loads the library with ``ctypes``.
-FMA contraction stays off (``-fmad=false``): a kernel must round as its
-plain PyTorch version does.  ``build_many`` starts one ``nvcc`` per
-source, all at once.
+FMA contraction is a per-source switch (``fmad``, part of the name's
+hash).  The stencil kernels (``sw_steps``, ``sw_phase``, ``sw_wide``) are
+built with it off (``-fmad=false``): each is bit for bit with its plain
+PyTorch version, which rounds every product.  The flash-attention
+kernels (``flash_fwd``) are built with it on: their parity with the plain
+version is a band, and an f32 dot product without FMA takes twice the
+instructions.  ``build_many`` starts one ``nvcc`` per source, all at
+once.
 
 ``LaunchCounter`` is the count each wrapper keeps of its kernel's
 launches; ``COUNTERS`` lists them by kernel name, so a CUDA-graph runner
@@ -68,15 +73,17 @@ def _nvcc() -> str:
 
 
 def build(source: Path, defines: Mapping[str, int] = None,
-          headers: Sequence[Path] = ()) -> Path:
+          headers: Sequence[Path] = (), fmad: bool = False) -> Path:
     """Compile ``source`` for sm_90a into ``_build/`` and return the
     library's path; a library already built from the same bytes is reused.
     ``defines`` become ``-D`` flags; ``headers`` (files the source
-    includes) enter the name's hash.  The compiler's output, with
+    includes) enter the name's hash; ``fmad`` lets the compiler contract
+    a multiply and an add into one FMA.  The compiler's output, with
     ``-Xptxas -v``'s register and shared-memory report, goes to
     ``_build/<stem>.build.log``."""
     source = Path(source)
     flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
+    flags.append(f"-fmad={'true' if fmad else 'false'}")
     digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     for h in headers:
         digest.update(Path(h).read_bytes())
@@ -87,7 +94,7 @@ def build(source: Path, defines: Mapping[str, int] = None,
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
         *flags, "-o", str(tmp), str(source),
     ]
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -100,18 +107,18 @@ def build(source: Path, defines: Mapping[str, int] = None,
     return out
 
 
-def build_many(specs: Iterable[Tuple[Path, Mapping[str, int], Sequence[Path]]]):
-    """``build`` every ``(source, defines, headers)`` at once, one ``nvcc``
-    process each; returns the libraries' paths in order."""
+def build_many(specs: Iterable[Tuple]):
+    """``build`` every ``(source, defines, headers[, fmad])`` at once, one
+    ``nvcc`` process each; returns the libraries' paths in order."""
     specs = list(specs)
     with ThreadPoolExecutor(max_workers=max(1, len(specs))) as pool:
         return list(pool.map(lambda s: build(*s), specs))
 
 
 def load(spec, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
-    """Build ``spec`` (``(source, defines, headers)``) and load it, with the
-    ``argtypes`` of each C function named in ``signatures``; every launch
-    function returns its ``cudaError_t`` as an ``int``."""
+    """Build ``spec`` (``(source, defines, headers[, fmad])``) and load
+    it, with the ``argtypes`` of each C function named in ``signatures``;
+    every launch function returns its ``cudaError_t`` as an ``int``."""
     lib = ctypes.CDLL(str(build(*spec)))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -1,1 +1,1 @@
-"""Models built on the port: the shallow-water solver."""
+"""Models built on the port: the shallow-water solver and the long-context attention demo."""

@@ -1,1 +1,1 @@
-"""Communication ops: sendrecv, gather, tokens."""
+"""Communication ops: sendrecv, gather, alltoall, tokens."""

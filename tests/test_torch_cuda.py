@@ -18,7 +18,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mpi4jax_tpu_torch.attention import flash_attention  # noqa: E402
 from mpi4jax_tpu_torch.entry import entry  # noqa: E402
+from mpi4jax_tpu_torch.kernels import flash_attention as FA  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_phase as KP  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_steps as K  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_wide as KW  # noqa: E402
@@ -199,3 +201,128 @@ def test_kernel_modes_match_fast_step_on_the_card(mode):
         first, multi = P.make_stepper(cfg, comm, fast=fast)
         outs.append(multi(first(s0), 11))
     assert_band(*outs)
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention forward kernels
+# ---------------------------------------------------------------------------
+
+# (b, tq, tk, h, d): the shapes of tests/test_kernels.py (rectangular,
+# ragged 257 x 1100), and the full head dim with tiles that neither
+# length divides
+FLASH_SHAPES = [(1, 16, 16, 1, 32), (2, 16, 24, 4, 32), (2, 8, 8, 3, 64),
+                (1, 257, 1100, 1, 32), (2, 130, 70, 2, 128)]
+
+
+def flash_inputs(b, tq, tk, h, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32))
+               .to("cuda", dtype) for t in (tq, tk, tk))
+    mask = torch.from_numpy(rng.random((tq, tk)) < 0.8).cuda()
+    return q, k, v, mask
+
+
+def assert_partials_band(want, got, o_rel):
+    """Bands of tests/test_kernels.py against max|ref| per field: m 1e-6,
+    l 1e-5, o ``o_rel`` (1e-5; 1e-4 causal; 4 * 2^-8 for bf16 o, its
+    rounding unit)."""
+    for (a, b), rel in zip(zip(want, got), (o_rel, 1e-6, 1e-5)):
+        a, b = a.float(), b.float()
+        assert a.shape == b.shape
+        assert not bool(torch.isnan(b).any())
+        fin = torch.isfinite(a)
+        assert torch.equal(fin, torch.isfinite(b))
+        top = a[fin].abs().max().item() if bool(fin.any()) else 0.0
+        atol = 0.0 if rel > 1e-3 else rel
+        assert (a[fin] - b[fin]).abs().max().item() <= atol + rel * top
+        assert torch.equal(a[~fin], b[~fin])
+
+
+@pytest.fixture
+def full_f32_products():
+    """The plain versions multiply in full f32 (no TF32)."""
+    need_cuda()
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("b,tq,tk,h,d", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(full_f32_products, b, tq, tk, h, d, masked, dtype):
+    q, k, v, mask = flash_inputs(b, tq, tk, h, d, dtype)
+    mask = mask if masked else None
+    scale = 1.0 / np.sqrt(d)
+    before = FA.counter.launches
+    got = FA.flash_block_partials(q, k, v, mask, scale=scale)
+    want = FA.block_partials_plain(q, k, v, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert FA.counter.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert_partials_band(want, got, 1e-5 if dtype == torch.float32 else 4 * 2**-8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,d", [(2, 16, 4, 32), (1, 1024, 1, 32), (1, 1100, 1, 32),
+                                     (1, 100, 2, 64), (2, 200, 2, 128)])
+def test_flash_causal_kernel_matches_plain(full_f32_products, b, t, h, d, dtype):
+    q, k, v, _ = flash_inputs(b, t, t, h, d, dtype, seed=3)
+    scale = 1.0 / np.sqrt(d)
+    before = FA.counter_causal.launches
+    got = FA.flash_block_partials(q, k, v, None, scale=scale, causal=True)
+    want = FA.block_partials_plain(q, k, v, None, scale=scale, causal=True)
+    torch.cuda.synchronize()
+    assert FA.counter_causal.launches == before + 1
+    assert_partials_band(want, got, 1e-4 if dtype == torch.float32 else 4 * 2**-8)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_fully_masked_rows():
+    """m = -inf, l = 0, o = 0 (never NaN) for rows with no attendable key,
+    and rows of a partly masked block that have one agree with plain."""
+    need_cuda()
+    q, k, v, _ = flash_inputs(2, 100, 130, 2, 64, torch.float32, seed=1)
+    mask = torch.zeros((100, 130), dtype=torch.bool, device="cuda")
+    mask[::3, 5] = True  # a third of the rows see one key, the rest none
+    o, m, l = FA.flash_block_partials(q, k, v, mask, scale=0.1)
+    torch.cuda.synchronize()
+    empty = torch.ones(100, dtype=torch.bool, device="cuda")
+    empty[::3] = False
+    assert bool(torch.isneginf(m[:, :, empty]).all())
+    assert bool((l[:, :, empty] == 0).all()) and bool((o[:, empty] == 0).all())
+    assert not bool(torch.isnan(o).any())
+    assert_partials_band(FA.block_partials_plain(q, k, v, mask, scale=0.1),
+                         (o, m, l), 1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_mask_none_equals_all_true():
+    need_cuda()
+    q, k, v, _ = flash_inputs(1, 70, 90, 2, 32, torch.float32, seed=2)
+    ones = torch.ones((70, 90), dtype=torch.bool, device="cuda")
+    a = FA.flash_block_partials(q, k, v, None, scale=0.2)
+    b = FA.flash_block_partials(q, k, v, ones, scale=0.2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_grad_and_bad_inputs():
+    need_cuda()
+    q, k, v, _ = flash_inputs(1, 16, 16, 2, 32, torch.float32)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        FA.flash_block_partials(q, k, v, None, scale=0.2)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        FA.flash_block_partials(q, k, v, None, scale=0.2)
+    q = q.detach()
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_block_partials(q[..., :24], k[..., :24], v[..., :24], None, scale=0.2)
+    with pytest.raises(ValueError, match="dtype"):
+        FA.flash_block_partials(q.half(), k.half(), v.half(), None, scale=0.2)

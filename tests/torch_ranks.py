@@ -24,7 +24,16 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from mpi4jax_tpu_torch import Comm, gather, make_world_mesh, sendrecv, shift
+from mpi4jax_tpu_torch import (
+    Comm,
+    alltoall,
+    gather,
+    make_world_mesh,
+    sendrecv,
+    shift,
+)
+from mpi4jax_tpu_torch.attention import ring_attention, ulysses_attention
+from mpi4jax_tpu_torch.models import long_context_attention as LCA
 from mpi4jax_tpu_torch.models import shallow_water as P
 from mpi4jax_tpu_torch.ops import _staging
 
@@ -221,6 +230,66 @@ def sw_program(rank: int, grid):
         out["pinned_error"] = ""
     except ValueError as e:
         out["pinned_error"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# alltoall and long-context attention
+# ---------------------------------------------------------------------------
+
+# the JAX demo's widths (examples/long_context_attention.py:41)
+ATTENTION = {"b": 2, "t_loc": 128, "h": 8, "d": 64}
+ATTENTION_RUNS = (("ring", False), ("ring", True), ("ulysses", False),
+                  ("ulysses", True))
+
+
+def alltoall_inputs(size: int, comm_size: int) -> np.ndarray:
+    """Every rank's alltoall input, ``(size, comm_size, 3, 5)`` f32."""
+    rng = np.random.default_rng(5 + comm_size)
+    return rng.standard_normal((size, comm_size, 3, 5), dtype=np.float32)
+
+
+def _error(fn) -> str:
+    """The message of the exception ``fn()`` raises ("" if none)."""
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def attention_program(rank: int, size: int):
+    """alltoall on the 1-D world (and, on 4 ranks, on the row, column and
+    column-major comms of a (2,2) grid), then the long-context demo's
+    entry point over the world: ring and Ulysses, causal and not."""
+    out = {}
+    world = Comm("sp", mesh=make_world_mesh((size,), ("sp",), device="cpu"))
+    x = torch.from_numpy(alltoall_inputs(size, size)[rank])
+    out["alltoall/world"] = alltoall(x, comm=world)[0]
+    if size == 4:
+        mesh = make_world_mesh((2, 2), ("py", "px"), device="cpu")
+        sub = torch.from_numpy(alltoall_inputs(size, 2)[rank])
+        for axes in ("px", "py"):
+            out[f"alltoall/{axes}"] = alltoall(sub, comm=Comm(axes, mesh=mesh))[0]
+        # a comm whose rank order is not the process group's; its ranks
+        # take the inputs of their comm rank
+        colmajor = Comm(("px", "py"), mesh=mesh)
+        xc = torch.from_numpy(alltoall_inputs(size, size)[colmajor.Get_rank()])
+        out["alltoall/px,py"] = alltoall(xc, comm=colmajor)[0]
+        out["alltoall/px,py/rank"] = colmajor.Get_rank()
+    out["alltoall/error"] = _error(lambda: alltoall(x[:1], comm=world))
+
+    for key, res in LCA.main("cpu", **ATTENTION, runs=ATTENTION_RUNS).items():
+        out[f"{key}/out"] = res["out"]
+        out[f"{key}/launches"] = sum(res["launches"].values())
+        out[f"{key}/exchanges"] = res["exchange_calls"]
+
+    q = torch.zeros((1, 4, size + 1, 32))
+    out["ulysses/error"] = _error(lambda: ulysses_attention(q, q, q, comm=world))
+    g = torch.zeros((1, 4, size, 32), requires_grad=True)
+    out["ring/grad_error"] = _error(lambda: ring_attention(g, g, g, comm=world))
+    out["ulysses/grad_error"] = _error(
+        lambda: ulysses_attention(g, g, g, comm=world))
     return out
 
 
