@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the four sources in this checkout (one
+Builds the port's kernels from the five sources in this checkout (one
 ``nvcc`` each, all at once), holds each against its plain PyTorch version
 at the full width of its path, drives the paths that run them, checks
 that each path launched its kernels and that its output is right, and
@@ -35,6 +35,17 @@ read just after:
    point (``models.long_context_attention.main``) on four gloo ranks on
    this card, 1024 tokens each: causal and non-causal ring, causal
    Ulysses, each rank against its slice of single-GPU ``flash_attention``.
+5. long-context training at the same width: the two backward kernels
+   (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain version in the
+   forward's cases, beside ``scaled_dot_product_attention``'s backward;
+   gradients of single-GPU ``flash_attention`` against
+   ``reference_attention``'s; five SGD steps of the training example
+   (``models.long_context_training.main``, d_model 1024, 8 heads, d_ff
+   2048, B 4, T 4096) on this card, its first gradients against the same
+   step with ``reference_attention``; the same problem on four gloo ranks
+   on a (2,2) grid of (dp, sp); and the gradients of causal and
+   non-causal ring and causal Ulysses attention on four gloo ranks, each
+   rank against its slice of single-GPU ``flash_attention``'s.
    TF32 is off: every f32 product on the card is full f32.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -79,6 +90,20 @@ FLASH_CAUSAL_O_REL = 1e-4
 FLASH_BF16_O_REL = 4 * 2.0**-8
 # attention outputs against another path (tests/test_long_context.py:61)
 ATTN_RTOL, ATTN_ATOL = 2e-4, 2e-5
+# backward kernels against plain, per gradient against max|ref|
+# (tests/test_kernels.py:252, rtol 1e-3, atol 1e-4); bf16 4 * 2^-8
+BWD_REL, BWD_ABS = 1e-3, 1e-4
+# attention gradients against another path (tests/test_long_context.py:128)
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
+# the training example at the attention width (d_model = heads * D,
+# d_ff = 2 d_model, examples/long_context_training.py:119); SGD at the
+# example's lr 0.1 diverges at this width, 1e-3 does not
+TRAIN = {"b_loc": ATTN_B, "t_loc": ATTN_T, "d_model": ATTN_H * ATTN_D,
+         "d_ff": 2 * ATTN_H * ATTN_D, "heads": ATTN_H, "steps": 5, "lr": 1e-3,
+         "seed": 0}
+# the first step against single-device attention (tests/test_examples.py:
+# 563-569): loss rtol 1e-5, gradients rtol 2e-3, atol 2e-5
+LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-5, 2e-3, 2e-5
 
 
 def band(ref):
@@ -282,12 +307,14 @@ def print_flash_ptxas(log):
     the ``-Xptxas -v`` log."""
     name = None
     for line in log.read_text().splitlines():
-        entry = re.search(r"(flash_fwd(?:_causal)?_kernel)ILi(\d+)E(f|13__nv_bfloat16)"
-                          r"(?:Lb([01])E)?", line)
+        entry = re.search(r"(flash_(?:fwd(?:_causal)?|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E"
+                          r"(f|13__nv_bfloat16)((?:Lb[01]E)*)", line)
         if entry:
-            kind, d, dtype, mask = entry.groups()
-            name = (f"{kind}<D={d}, {'f32' if dtype == 'f' else 'bf16'}"
-                    f"{', mask' if mask == '1' else ''}>") if d == "128" else None
+            kind, d, dtype, flags = entry.groups()
+            extra = "".join(f", {n}" for n, f in zip(
+                ("mask", "causal"), re.findall(r"Lb([01])E", flags)) if f == "1")
+            name = (f"{kind}<D={d}, {'f32' if dtype == 'f' else 'bf16'}{extra}>"
+                    if d == "128" else None)
         elif name and ("registers" in line or "spill" in line):
             print(f"  ptxas {name}:", line.replace("ptxas info    :", "").strip())
 
@@ -401,13 +428,6 @@ def check_flash_kernels(FA, dev):
             and bool((o == 0).all())):
         raise AssertionError("flash_fwd: a fully masked block is not (0, -inf, 0)")
     print("  flash_fwd(f32, fully masked): m = -inf, l = 0, o = 0 on every row")
-    # the backward kernels (not ported yet): dq does 3 products of D per
-    # score pair, dk/dv 4; their f32 bounds at this width, for PERF.md
-    pairs = {"full": t * t, "causal": t * (t + 1) // 2}
-    for name, products in (("_bwd_dq_kernel", 3), ("_bwd_dkv_kernel", 4)):
-        print(f"  bound of {name} (f32): " + ", ".join(
-            f"{tag} {bound_ms(0, 2 * products * d * n * b * h)[0]:.4f} ms"
-            for tag, n in pairs.items()))
     return worst, by_case
 
 
@@ -493,6 +513,389 @@ def four_rank_attention(LCA, launch, single, device):
                              for key in expect}
 
 
+def bwd_need(q, k, pairs, masked, outputs):
+    """Bytes and operations one backward kernel call needs: q, k, v and
+    g_o read once, m and g_l read, its outputs (``"dq"``, or ``"dkv"``: dk
+    and dv) written once (and the mask read); 3 products of D per score
+    pair for dq (s, dp, ds k), 4 for dk/dv (s, dp, ds q, p g_o), at the
+    inputs' peak rate."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    es = q.element_size()
+    moved = es * (2 * b * tq * h * d + 2 * b * tk * h * d) + 8 * b * h * tq
+    moved += tq * tk if masked else 0
+    moved += es * (b * tq * h * d if outputs == "dq" else 2 * b * tk * h * d)
+    products = 3 if outputs == "dq" else 4
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_F32_PER_S
+    return moved, 2 * products * d * pairs * b * h, peak
+
+
+def sdpa_bwd(q, k, v, mask, causal, g_o):
+    """The library yardstick of the backward: the autograd backward of one
+    ``scaled_dot_product_attention`` call on the (B, H, T, D) views, its
+    time (dq, dk and dv together) and the backend PyTorch picks."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    choice = torch._fused_sdp_choice(qt, kt, vt, attn_mask=mask, dropout_p=0.0,
+                                     is_causal=causal)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             is_causal=causal)
+        g = g_o.transpose(1, 2)
+        ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g,
+                                                 retain_graph=True),
+                     reps=10, warmup=3)
+    except RuntimeError as e:  # a yardstick only: no time rather than no run
+        return None, f"{SDPBackend(choice).name} failed: {str(e).splitlines()[0]}"
+    return ms, SDPBackend(choice).name
+
+
+def bwd_compare(label, want, got, dtype):
+    """Per gradient: max|diff| against 1e-3 max|ref| + 1e-4 (f32) or
+    4 * 2^-8 max|ref| (bf16); NaN fails.  Returns the differences."""
+    errs, shown = {}, []
+    for name, a, b in zip(("dq", "dk", "dv"), want, got):
+        if b.dtype != dtype or bool(torch.isnan(b).any()):
+            raise AssertionError(f"{label}: {name} is {b.dtype} or holds NaN")
+        a, b = a.float(), b.float()
+        top = a.abs().max().item()
+        lim = FLASH_BF16_O_REL * top if dtype == torch.bfloat16 else BWD_REL * top + BWD_ABS
+        err = (a - b).abs().max().item()
+        if err > lim:
+            raise AssertionError(f"{label}: {name} off by {err:.3e} > {lim:.3e}")
+        errs[name] = err
+        shown.append(f"{name} {err:.3e} (band {lim:.3e})")
+    print(f"  {label} max|diff|: " + ", ".join(shown))
+    return errs
+
+
+def check_flash_bwd_kernels(FA, dev):
+    """Both backward kernels against the plain backward at full width, in
+    the forward's cases: f32 unmasked, masked (p = 0.8) and causal; bf16
+    unmasked and causal; a ragged masked block (4000 x 4100) through a
+    strided query view; a fully masked block.  ``m`` comes from the
+    forward kernel, the cotangents g_o and g_l from a seeded generator.
+    Returns the worst difference of each kernel and its cases."""
+    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((b, t, h, d), device=dev, generator=gen)
+               for _ in range(3))
+    scale = 1.0 / d**0.5
+    mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
+    tq_r, tk_r = t - 96, t + 4
+    cases = [
+        ("f32", q, k, v, None, False),
+        ("f32,mask", q, k, v, mask, False),
+        ("f32,causal", q, k, v, None, True),
+        ("bf16", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, False),
+        ("bf16,causal", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, True),
+        (f"f32,ragged {tq_r}x{tk_r},mask", q[:, :tq_r],
+         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+         torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8, False),
+    ]
+    names = ("flash_bwd_dq", "flash_bwd_dkv")
+    worst = dict.fromkeys(names, 0.0)
+    by_case = {name: {} for name in names}
+    for label, qq, kk, vv, mm, causal in cases:
+        with torch.no_grad():
+            _, m, _ = FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal)
+        g_o = torch.randn(qq.shape, device=dev, generator=gen).to(qq.dtype)
+        g_l = torch.randn(m.shape, device=dev, generator=gen)
+        args, kw = (qq, kk, vv, mm, m, g_o, g_l), {"scale": scale, "causal": causal}
+        want = FA.block_partials_bwd_plain(*args, **kw)
+        got = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
+        torch.cuda.synchronize()
+        errs = bwd_compare(f"backward({label})", want, got, qq.dtype)
+        del want, got
+        tq, tk = qq.shape[1], kk.shape[1]
+        pairs = (tq * (tq + 1) // 2 if causal else tq * tk if mm is None
+                 else int(mm.sum().item()))
+        lib_ms, lib = sdpa_bwd(qq, kk, vv, mm, causal, g_o)
+        for name, fn, outputs, errs_of in (
+                ("flash_bwd_dq", FA.flash_bwd_dq, "dq", ("dq",)),
+                ("flash_bwd_dkv", FA.flash_bwd_dkv, "dkv", ("dk", "dv"))):
+            case = timed_case(
+                f"{name}({label})", lambda fn=fn: fn(*args, **kw),
+                lambda: FA.block_partials_bwd_plain(*args, **kw),
+                *bwd_need(qq, kk, pairs, mm is not None, outputs), reps=10)
+            case["library_ms"], case["library"] = lib_ms, lib
+            case["max_abs_err"] = {e: errs[e] for e in errs_of}
+            by_case[name][label] = case
+            worst[name] = max(worst[name], *case["max_abs_err"].values())
+        dq_kv = by_case["flash_bwd_dq"][label]["ms"] + by_case["flash_bwd_dkv"][label]["ms"]
+        lib_txt = "not timed" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"    scaled_dot_product_attention backward (dq, dk, dv in one "
+              f"call): {lib_txt} ({lib}); dq + dk/dv kernels {dq_kv:.4f} ms "
+              "(plain times are the whole plain backward)")
+
+    # no attendable key: zero gradients, never NaN
+    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        _, m, _ = FA.flash_block_partials(q, k, v, none, scale=scale)
+    g_o, g_l = torch.randn(q.shape, device=dev, generator=gen), torch.randn(
+        m.shape, device=dev, generator=gen)
+    dq = FA.flash_bwd_dq(q, k, v, none, m, g_o, g_l, scale=scale)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, none, m, g_o, g_l, scale=scale)
+    torch.cuda.synchronize()
+    if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
+        raise AssertionError("backward of a fully masked block is not zero")
+    print("  flash_bwd_dq, flash_bwd_dkv(f32, fully masked): dq = dk = dv = 0")
+    return worst, by_case
+
+
+def single_gpu_attention_grads(TA, FA, q, k, v):
+    """Autograd through ``flash_attention`` at full width, causal and not,
+    against ``reference_attention``'s gradients on the card; the launches
+    of one forward and backward, its time and tokens/s."""
+    b, t = q.shape[:2]
+    gen = torch.Generator(device=q.device).manual_seed(2)
+    g = torch.randn(q.shape, device=q.device, generator=gen)
+    counters = (FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv)
+    worst, runs = 0.0, {}
+    for causal in (False, True):
+        for c in counters:
+            c.launches = 0
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        TA.flash_attention(*leaves, causal=causal).backward(g)
+        torch.cuda.synchronize()
+        launches = tuple(c.launches for c in counters)
+        if launches != ((0, 1, 1, 1) if causal else (1, 0, 1, 1)):
+            raise AssertionError(f"flash_attention(causal={causal}) forward and "
+                                 f"backward launched {launches} (flash_fwd, "
+                                 "flash_fwd_causal, flash_bwd_dq, flash_bwd_dkv)")
+        refs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        TA.reference_attention(*refs, causal=causal).backward(g)
+        err = 0.0
+        for name, a, r in zip(("dq", "dk", "dv"), leaves, refs):
+            err = max(err, (a.grad - r.grad).abs().max().item())
+            if not (bool(torch.isfinite(a.grad).all())
+                    and torch.allclose(a.grad, r.grad, rtol=GRAD_RTOL, atol=GRAD_ATOL)):
+                raise AssertionError(f"flash_attention(causal={causal}) {name} off "
+                                     f"reference_attention's by {err:.3e}")
+        del refs
+
+        def fwd_bwd():
+            out = TA.flash_attention(*leaves, causal=causal)
+            torch.autograd.grad(out, leaves, g)
+
+        ms = time_ms(fwd_bwd, reps=10, warmup=3)
+        print(f"flash_attention(causal={causal}) forward + backward at B={b}, T={t}: "
+              f"{ms:.4f} ms, {b * t / ms * 1e3:.0f} tokens/s; gradients max|diff| "
+              f"from reference_attention's {err:.3e} (rtol {GRAD_RTOL}, atol "
+              f"{GRAD_ATOL}); launches {launches}")
+        runs["causal" if causal else "full"] = {"ms": ms, "tokens_per_s": b * t / ms * 1e3}
+        worst = max(worst, err)
+    return worst, runs
+
+
+def single_gpu_training(LCT, TA, dev):
+    """Five SGD steps of the training example at full width as a world of
+    one: the loss falls, every step launches the flash kernels it should,
+    and the first step's loss and gradients equal those of the same step
+    with ``reference_attention`` under autograd."""
+    res = LCT.main(dev, **TRAIN)
+    losses = res["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not reduce the loss: {losses}")
+    want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq": 1,
+            "flash_bwd_dkv": 1}
+    for i, got in enumerate(res["launches"]):
+        if got != want:
+            raise AssertionError(f"training step {i} launched {got}, expected {want}")
+    gen = torch.Generator().manual_seed(TRAIN["seed"])
+    params = LCT.init_params(TRAIN["d_model"], TRAIN["d_ff"], generator=gen, device=dev)
+    x, y = (a.to(dev) for a in LCT.train_data(TRAIN["seed"] + 1, TRAIN["b_loc"],
+                                              TRAIN["t_loc"], TRAIN["d_model"]))
+    leaves = {n: p.requires_grad_(True) for n, p in params.items()}
+    pred = LCT.block_forward(leaves, x, heads=TRAIN["heads"], attend=lambda q, k, v:
+                             TA.reference_attention(q, k, v, causal=True))
+    loss = torch.mean((pred - y) ** 2)
+    loss.backward()
+    loss_rel = abs(losses[0] - loss.item()) / abs(loss.item())
+    if loss_rel > LOSS_RTOL:
+        raise AssertionError(f"first loss {losses[0]} != reference {loss.item()}")
+    worst = 0.0
+    for name, p in leaves.items():
+        got = res["grads0"][name]
+        err = ((got - p.grad).abs() / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * p.grad.abs())).max().item()
+        worst = max(worst, err)
+        if err > 1:
+            raise AssertionError(f"first-step gradient of {name} off the reference "
+                                 f"step: {err:.3f} of the band")
+    del leaves, pred, loss, params
+    walls = res["wall"]
+    step_s = float(np.median(walls[1:]))
+    tokens = TRAIN["b_loc"] * TRAIN["t_loc"]
+    print(f"training, 1 GPU (d_model {TRAIN['d_model']}, heads {TRAIN['heads']}, d_ff "
+          f"{TRAIN['d_ff']}, B {TRAIN['b_loc']}, T {TRAIN['t_loc']}, lr {TRAIN['lr']}): "
+          f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; step walls "
+          + ", ".join(f"{w:.4f}" for w in walls) + f" s; median {step_s * 1e3:.2f} ms "
+          f"a step, {tokens / step_s:.0f} tokens/s; peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB; launches per step {res['launches'][0]}; "
+          f"first step against reference_attention: loss rel diff "
+          f"{loss_rel:.3e}, gradients at {worst:.3f} of the "
+          f"band (rtol {TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL})")
+    return {"losses": losses, "grads0": {n: g.cpu() for n, g in res["grads0"].items()},
+            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "peak_bytes": res["peak_bytes"], "walls": walls,
+            "launches_per_step": res["launches"][0], "grad_band_share": worst}
+
+
+def four_rank_training(LCT, launch, single, device):
+    """The training example on four gloo ranks on this card, a (2,2) grid
+    of (dp, sp): 2 rows x 2048 tokens a rank, the single-GPU problem cut
+    into tiles.  Every rank ends every step with the same parameters; the
+    first step's loss and gradients equal the single-GPU run's."""
+    kwargs = {**TRAIN, "b_loc": ATTN_B // 2, "t_loc": ATTN_T // 2}
+    t0 = time.perf_counter()
+    ranks = launch.run(LCT.rank_main, 4, backend="gloo", device=device,
+                       timeout=600, args=(device, kwargs))
+    print(f"four ranks, training on a (2,2) grid: {time.perf_counter() - t0:.1f} s "
+          "with start-up")
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        if res["digests"] != r0["digests"] or res["losses"] != r0["losses"]:
+            raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
+        s = r % 2  # the rank's sp index
+        want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq": s + 1,
+                "flash_bwd_dkv": s + 1}
+        for i, got in enumerate(res["launches"]):
+            if got != want:
+                raise AssertionError(f"rank {r} step {i} launched {got}, expected {want}")
+    if abs(r0["losses"][0] - single["losses"][0]) > LOSS_RTOL * abs(single["losses"][0]):
+        raise AssertionError(f"four-rank first loss {r0['losses'][0]} != single-GPU "
+                             f"{single['losses'][0]}")
+    worst = 0.0
+    for name, ref in single["grads0"].items():
+        got = torch.from_numpy(r0["grads0"][name])
+        worst = max(worst, ((got - ref).abs() / (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+                                                  * ref.abs())).max().item())
+    if worst > 1:
+        raise AssertionError(f"four-rank first-step gradients at {worst:.3f} of the band")
+    if not r0["losses"][-1] < r0["losses"][0]:
+        raise AssertionError(f"four-rank training did not reduce the loss: {r0['losses']}")
+    ex = r0["exchange"]
+    for r, res in enumerate(ranks):
+        print(f"  rank {r}: launches per step {res['launches'][0]}; peak memory "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB")
+    print("four processes share one card (gloo, exchanges staged through host memory; "
+          f"not a scaling result): rank 0 step walls "
+          + ", ".join(f"{w:.4f}" for w in r0["wall"]) + " s, of which in exchanges "
+          + ", ".join(f"{e['seconds']:.4f}" for e in ex) + f" s; per step "
+          f"{ex[0]['calls']} exchanges, {ex[0]['staged_bytes'] / 1e6:.1f} MB staged; "
+          f"first step at {worst:.3f} of the gradient band from the single-GPU run; "
+          f"loss {r0['losses'][0]:.6f} -> {r0['losses'][-1]:.6f}")
+    return {"walls_rank0": r0["wall"], "exchange_rank0": ex,
+            "launches_per_step": [res["launches"][0] for res in ranks],
+            "peak_bytes": [res["peak_bytes"] for res in ranks],
+            "grad_band_share": worst, "losses": r0["losses"]}
+
+
+def grad_rank(rank, device, b, t_loc, h, d, runs):
+    """One of four ranks on ``device``: for each ``(scheme, causal)`` of
+    ``runs``, the gradient of the sum over ranks of ``sum(out**2)`` for
+    this rank's shards of the demo's q, k, v, against its slice of the
+    single-GPU ``flash_attention`` gradient of the gathered sequence; the
+    launches, exchanges and peak memory of the backward."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+    from mpi4jax_tpu_torch.attention import (flash_attention, ring_attention,
+                                             ulysses_attention)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.models import long_context_attention as LCA
+    from mpi4jax_tpu_torch.ops import _staging
+
+    dev = torch.device(device)
+    n = 4
+    world = Comm("sp", mesh=make_world_mesh((n,), ("sp",), device=dev))
+    full = [torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
+            for x in LCA.demo_data(0, n, b, t_loc, h, d)]
+    mine = slice(rank * t_loc, (rank + 1) * t_loc)
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq", "flash_bwd_dkv")
+    out = {}
+    for scheme, causal in runs:
+        leaves = [x.clone().requires_grad_(True) for x in full]
+        (flash_attention(*leaves, causal=causal) ** 2).sum().backward()
+        refs = [t.grad[:, mine] for t in leaves]
+        del leaves
+        shards = [x[:, mine].clone().requires_grad_(True) for x in full]
+        for name in kernels:
+            _build.counter_for(name).launches = 0
+        _staging.stats.reset()
+        loss = (fns[scheme](*shards, comm=world, causal=causal) ** 2).sum()
+        torch.cuda.synchronize(dev)
+        forward_calls, forward_s = _staging.stats.calls, _staging.stats.seconds
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - start
+        errs, ok = [], True
+        for a, r in zip(shards, refs):
+            errs.append((a.grad - r).abs().max().item())
+            ok = ok and bool(torch.isfinite(a.grad).all()) and torch.allclose(
+                a.grad, r, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        out[f"{scheme}/{'causal' if causal else 'full'}"] = {
+            "launches": {k: _build.counter_for(k).launches for k in kernels},
+            "errs": errs, "ok": ok, "wall_bwd": wall,
+            "peak_bwd_bytes": torch.cuda.max_memory_allocated(dev) - base,
+            "exchanges": (forward_calls, _staging.stats.calls - forward_calls),
+            "exchange_s_bwd": _staging.stats.seconds - forward_s,
+            "staged_bytes": _staging.stats.staged_bytes,
+        }
+        del shards, refs, loss
+    return out
+
+
+def four_rank_grads(launch, device):
+    """Ring (causal and not) and causal Ulysses gradients on four gloo ranks
+    on this card at the attention width, 1024 tokens a rank; each rank
+    against its slice of single-GPU ``flash_attention``'s gradients."""
+    t_loc = ATTN_T // 4
+    runs = (("ring", True), ("ring", False), ("ulysses", True))
+    t0 = time.perf_counter()
+    ranks = launch.run(grad_rank, 4, backend="gloo", device=device, timeout=600,
+                       args=(device, ATTN_B, t_loc, ATTN_H, ATTN_D, runs))
+    print(f"four ranks, attention gradients: {time.perf_counter() - t0:.1f} s with "
+          "start-up")
+    # forward + backward launches per rank r: (flash_fwd, flash_fwd_causal,
+    # flash_bwd_dq, flash_bwd_dkv); the ring's backward recomputes every
+    # block's forward, Ulysses' reuses the saved m
+    expect = {"ring/causal": lambda r: (2 * r, 2, r + 1, r + 1),
+              "ring/full": lambda r: (8, 0, 4, 4),
+              "ulysses/causal": lambda r: (0, 1, 1, 1)}
+    worst, launches = 0.0, {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for key, want in expect.items():
+        for r, res in enumerate(ranks):
+            run = res[key]
+            got = tuple(run["launches"].values())
+            if got != want(r):
+                raise AssertionError(f"{key} rank {r}: launches {got}, expected {want(r)}")
+            if not run["ok"]:
+                raise AssertionError(f"{key} rank {r}: gradients off single-GPU "
+                                     f"flash_attention's by {max(run['errs']):.3e}")
+            for name in launches:
+                launches[name] += run["launches"][name]
+            worst = max(worst, *run["errs"])
+            print(f"  {key} rank {r}: dq, dk, dv max|diff| "
+                  + ", ".join(f"{e:.3e}" for e in run["errs"])
+                  + f" from single-GPU flash_attention's; launches {got}; backward "
+                  f"{run['wall_bwd']:.4f} s ({run['exchange_s_bwd']:.4f} s inside "
+                  f"exchanges), peak {run['peak_bwd_bytes'] / 2**20:.1f} MiB "
+                  f"above the forward's; exchanges (forward, backward) "
+                  f"{run['exchanges']}, {run['staged_bytes'] / 1e6:.1f} MB staged")
+    print("four processes share one card (gloo; not a scaling result)")
+    return worst, launches, {key: {"wall_bwd_rank0": ranks[0][key]["wall_bwd"],
+                                   "exchange_s_bwd_rank0": ranks[0][key]["exchange_s_bwd"],
+                                   "peak_bwd_bytes_rank0": ranks[0][key]["peak_bwd_bytes"],
+                                   "staged_bytes_rank0": ranks[0][key]["staged_bytes"]}
+                             for key in expect}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -515,6 +918,7 @@ def main():
     from mpi4jax_tpu_torch.kernels import sw_steps as K
     from mpi4jax_tpu_torch.kernels import sw_wide as KW
     from mpi4jax_tpu_torch.models import long_context_attention as LCA
+    from mpi4jax_tpu_torch.models import long_context_training as LCT
     from mpi4jax_tpu_torch.models import shallow_water as P
     from mpi4jax_tpu_torch.models.shallow_water import (
         DAY_IN_SECONDS,
@@ -529,7 +933,8 @@ def main():
 
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
-    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec()])
+    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec(),
+                              FA.bwd_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("sw_steps", "sw_phase", "sw_wide"):
@@ -537,6 +942,7 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}:", line.strip())
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
+    print_flash_ptxas(_build.BUILD_DIR / "flash_bwd.build.log")
 
     dev = torch.device("cuda")
     cfg = Config(nx=3600, ny=1800)
@@ -703,6 +1109,21 @@ def main():
     ring_worst, attn_launches, attn_runs = four_rank_attention(LCA, launch, single,
                                                          "cuda:0")
     del single
+    torch.cuda.empty_cache()
+
+    # -- long-context training ---------------------------------------------
+    bwd_worst, bwd_cases = check_flash_bwd_kernels(FA, dev)
+    torch.cuda.empty_cache()
+    q, k, v = (torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
+               for x in LCA.demo_data(0, 4, ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
+    grad_worst, grad_runs = single_gpu_attention_grads(TA, FA, q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    train1 = single_gpu_training(LCT, TA, dev)
+    torch.cuda.empty_cache()
+    train4 = four_rank_training(LCT, launch, train1, "cuda:0")
+    ring_grad_worst, ring_grad_launches, ring_grad_runs = four_rank_grads(launch,
+                                                                          "cuda:0")
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -773,6 +1194,33 @@ def main():
             "by_case": flash_cases[name],
             "four_rank_runs": attn_runs,
         })
+    for name, replaces in (("flash_bwd_dq", ":328"), ("flash_bwd_dkv", ":366")):
+        case = bwd_cases[name]["f32"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpi4jax_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
+            # five steps of single-GPU training, the slice's main path
+            "launches": 5 * train1["launches_per_step"][name],
+            "max_abs_err": max(bwd_worst[name], grad_worst, ring_grad_worst),
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "library": (f"scaled_dot_product_attention backward ({case['library']}), "
+                        "dq, dk and dv in one call: set against dq + dk/dv"),
+            "ok": True,
+            "by_case": bwd_cases[name],
+            "four_rank_grad_launches": ring_grad_launches[name],
+            "four_rank_training_launches_per_step": [
+                ln[name] for ln in train4["launches_per_step"]],
+        })
+    kernels[-1]["paths"] = {
+        "attention_grads_1gpu": grad_runs,
+        "training_1gpu": {k: v for k, v in train1.items() if k != "grads0"},
+        "training_4ranks": train4, "attention_grads_4ranks": ring_grad_runs}
     print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

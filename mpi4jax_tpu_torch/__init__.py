@@ -5,15 +5,18 @@ the ops keep the JAX package's ``(result, token)`` API.  Ranks are
 ``torch.distributed`` processes (``parallel/launch.py`` starts them on one
 host; gloo, or NCCL with a GPU per rank).  Ported so far: the
 communicator with its row and column sub-communicators, ``sendrecv``,
-``gather``, ``alltoall``, tokens, the shallow-water solver (``models``)
-on any process grid, with its three kernels written in CUDA for Hopper
-(``kernels/``, ``csrc/``: the fused whole-step, split-phase and wide-halo
-kernels), and the forward of long-context attention (``attention``: ring
-and Ulysses over the ranks, single-device flash attention) on the two
-flash-attention forward kernels, also in CUDA.  Nothing here imports
-JAX.
+``gather``, ``alltoall`` (differentiable), ``allreduce`` (SUM, PROD, MIN,
+MAX), tokens, the shallow-water solver (``models``) on any process grid,
+with its three kernels written in CUDA for Hopper (``kernels/``,
+``csrc/``: the fused whole-step, split-phase and wide-halo kernels), and
+long-context attention forward and backward (``attention``: ring with
+its memory-efficient backward and Ulysses over the ranks, single-device
+flash attention) on the four flash-attention kernels, also in CUDA,
+with the dp x sp training example (``models/long_context_training.py``).
+Nothing here imports JAX.
 """
 
+from .ops.allreduce import MAX, MIN, PROD, SUM, Op, allreduce  # noqa: F401
 from .ops.alltoall import alltoall  # noqa: F401
 from .ops.gather import gather  # noqa: F401
 from .ops.sendrecv import sendrecv  # noqa: F401
@@ -29,8 +32,14 @@ from .parallel.rankspec import shift  # noqa: F401
 
 __all__ = [
     "Comm",
+    "MAX",
+    "MIN",
+    "Op",
+    "PROD",
     "ProcessGrid",
+    "SUM",
     "Token",
+    "allreduce",
     "alltoall",
     "create_token",
     "gather",

@@ -1,4 +1,4 @@
-"""Sequence-parallel attention on the communication ops: the forward.
+"""Sequence-parallel attention on the communication ops, forward and backward.
 
 PyTorch counterpart of ``mpi4jax_tpu/attention.py``.  Every function takes
 rank-local ``(B, T, H, D)`` tensors; the global sequence is the
@@ -10,17 +10,21 @@ rank-order concatenation of the shards.
   runs skip the blocks that lie wholly in the future (a rank computes
   steps ``0..rank``), drop the mask on the blocks wholly in the past and
   run the diagonal block through the causal kernel.  Every rank rotates
-  at every step, computed or not.
+  at every step, computed or not.  Its gradient is the memory-efficient
+  backward of the JAX package (``_RingAttention``): only rank-local
+  tensors are saved, K/V are rotated around the ring again, and the dK/dV
+  accumulators travel with their blocks back to their owners.
 - ``ulysses_attention`` (Jacobs et al. 2023): one ``alltoall`` re-shards
   from sequence-parallel to head-parallel, full-sequence flash attention
-  runs on the local head group, and one more ``alltoall`` shards back.
+  runs on the local head group, and one more ``alltoall`` shards back;
+  autograd runs the same exchanges (``alltoall`` is its own transpose)
+  in its backward.
 
-The block partials come from ``kernels/flash_attention.py``: the CUDA
-kernels on the card, the plain version on the CPU.  Only the forward is
-ported: the ring's memory-efficient backward and the backward kernels are
-ROADMAP Queue 2.  A multi-rank call whose inputs require grad raises, as
-does any kernel call, since ``torch.distributed`` records no gradient for
-the exchanged blocks; one rank on the CPU stays differentiable.
+The block partials and their backward come from
+``kernels/flash_attention.py``: the CUDA kernels on the card, the plain
+versions on the CPU.  ``ring_attention(memory_efficient_grad=False)``
+over several ranks would need the transpose of ``sendrecv`` (ROADMAP
+Queue 1 item 4), so a grad request on that path raises.
 """
 
 from __future__ import annotations
@@ -31,9 +35,9 @@ from typing import Optional
 import torch
 
 from .kernels.flash_attention import (
+    block_partials_bwd,
     flash_block_partials,
     merge_partials,
-    refuse_grad,
 )
 from .ops.alltoall import alltoall
 from .ops.sendrecv import sendrecv
@@ -61,15 +65,21 @@ def reference_attention(q, k, v, *, causal: bool = False):
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _to_qhd(x):
+    """(B, H, T) row statistics -> (B, T, H, 1), to scale (B, T, H, D)."""
+    return x.transpose(1, 2)[..., None]
+
+
 def _normalize(acc, l, dtype):
     """``acc / l`` per row (rows with ``l = 0`` stay 0), in ``dtype``."""
     l_safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / l_safe.transpose(1, 2)[..., None]).to(dtype)
+    return (acc / _to_qhd(l_safe)).to(dtype)
 
 
 def flash_attention(q, k, v, causal: bool = False):
     """Single-device attention through one call of the flash partials and
-    the normalisation, so the (T, T) scores never reach device memory."""
+    the normalisation, so the (T, T) scores never reach device memory,
+    forward or backward (the partials' blockwise backward kernels)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, _, l = flash_block_partials(q, k, v, None, scale=scale, causal=causal)
     return _normalize(o, l, q.dtype)
@@ -84,9 +94,25 @@ def _comm_of(comm: Optional[Comm], what: str) -> Comm:
 def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
                    causal: bool = False, memory_efficient_grad: bool = True):
     """Exact blockwise attention over a K/V ring; returns this rank's shard
-    of the output.  ``memory_efficient_grad`` is accepted for parity with
-    the JAX package, whose custom backward is not ported yet."""
+    of the output.
+
+    ``memory_efficient_grad=True`` (default) differentiates through the
+    ring's own backward (``_RingAttention``), which saves only rank-local
+    tensors and re-rotates K/V.  ``False`` differentiates through the
+    forward op by op; over several ranks that needs the transpose of
+    ``sendrecv``, which is not ported (ROADMAP Queue 1 item 4), so a grad
+    request there raises.  On one rank every path is differentiable."""
     comm = _comm_of(comm, "ring_attention")
+    if memory_efficient_grad:
+        return _RingAttention.apply(q, k, v, comm, causal)
+    if comm.Get_size() > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "ring_attention(memory_efficient_grad=False) over several ranks: "
+            "differentiating through the K/V rotations needs the transpose "
+            "of sendrecv, which is ROADMAP Queue 1 item 4; use "
+            "memory_efficient_grad=True"
+        )
     out, _m, _l = _ring_forward(q, k, v, comm, causal)
     return out
 
@@ -95,8 +121,6 @@ def _ring_forward(q, k, v, comm: Comm, causal: bool):
     """The ring forward; returns the normalised output and the final
     streaming-softmax stats ``(m, l)``."""
     size, rank = comm.Get_size(), comm.Get_rank()
-    if size > 1:
-        refuse_grad("ring_attention over several ranks", q, k, v)
     b, t_loc, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
 
@@ -120,17 +144,81 @@ def _ring_forward(q, k, v, comm: Comm, causal: bool):
     return _normalize(acc, l, q.dtype), m, l
 
 
+class _RingAttention(torch.autograd.Function):
+    """The ring with the JAX package's memory-efficient backward
+    (``_ring_me_fwd``/``_ring_me_bwd``).
+
+    With the final stats ``(m, l)`` the output decomposes over blocks as
+    ``out = sum_b o_b e^{m_b - m} / l``, so block b's partials get the
+    cotangents ``g_o_b = (g / l) e^{m_b - m}`` and
+    ``g_l_b = -(sum_d g out / l) e^{m_b - m}``; the weights' own
+    derivative (the ``m_b`` cotangent) is dropped, exact because the
+    decomposition does not depend on the stabilizers.  Each step
+    recomputes one block's ``m_b`` with a forward call, runs the backward
+    of the partials on it, and adds dK/dV into buffers that rotate with
+    the block: after ``size`` hops every rank holds its own dK/dV with
+    every rank's contributions.  Per rank the backward makes
+    ``2 (size - 1)`` K/V rotations and ``2 size`` dK/dV ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, comm, causal):
+        out, m, l = _ring_forward(q, k, v, comm, causal)
+        # rank-local residuals only: O(T / size) per rank
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.comm, ctx.causal = comm, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, l = ctx.saved_tensors
+        comm, causal = ctx.comm, ctx.causal
+        size, rank = comm.Get_size(), comm.Get_rank()
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        m_safe = torch.where(torch.isinf(m), 0.0, m)
+        g = g.float()
+        # cotangents of the (acc, l) pair that gave out = acc / l
+        g_acc = g / _to_qhd(l_safe)
+        g_l = -(g * out.float()).sum(-1).transpose(1, 2) / l_safe
+
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        k_blk, v_blk = k, v
+        for step in range(size):
+            if not causal or step <= rank:
+                blk_causal = causal and step == 0
+                _, m_b, _ = flash_block_partials(q, k_blk, v_blk, None,
+                                                 scale=scale, causal=blk_causal)
+                w = torch.exp(m_b - m_safe)  # stabilizer reweight
+                g_ob = (g_acc * _to_qhd(w)).to(q.dtype)
+                dq_b, dk_b, dv_b = block_partials_bwd(
+                    q, k_blk, v_blk, None, m_b, g_ob, g_l * w, scale=scale,
+                    causal=blk_causal)
+                dq += dq_b.float()
+                dk += dk_b.float()
+                dv += dv_b.float()
+            # dK/dV travel with their block and need all size hops to get
+            # home; K/V are not read after the last step
+            if step + 1 < size:
+                k_blk, _ = sendrecv(k_blk, k_blk, dest=shift(1), comm=comm)
+                v_blk, _ = sendrecv(v_blk, v_blk, dest=shift(1), comm=comm)
+            dk, _ = sendrecv(dk, dk, dest=shift(1), comm=comm)
+            dv, _ = sendrecv(dv, dv, dest=shift(1), comm=comm)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def ulysses_attention(q, k, v, *, comm: Optional[Comm] = None,
                       causal: bool = False):
     """Exact attention by all-to-all head exchange.  Input shards
-    ``(B, T_local, H, D)`` with ``H % size == 0``."""
+    ``(B, T_local, H, D)`` with ``H % size == 0``.  Differentiable: the
+    backward runs the transposes of the four ``alltoall`` exchanges and
+    the partials' backward on the local head group."""
     comm = _comm_of(comm, "ulysses_attention")
     size = comm.Get_size()
     b, t_loc, h, d = q.shape
     if h % size != 0:
         raise ValueError(f"ulysses needs heads ({h}) divisible by ranks ({size})")
-    if size > 1:
-        refuse_grad("ulysses_attention over several ranks", q, k, v)
     h_loc = h // size
 
     def seq_to_heads(x):

@@ -1,10 +1,12 @@
-"""Carry state and configuration across from the JAX package.
+"""Carry state, configuration and parameters across from the JAX package.
 
 The JAX package keeps the shallow-water state as stacked blocks
-``(nproc, ny_l, nx_l)``; rank ``r`` of the port holds ``global[r]``.  Both
-functions take plain numpy arrays and dicts, so nothing here imports JAX:
-``np.asarray`` each JAX field and ``dataclasses.asdict`` the JAX config
-first.
+``(nproc, ny_l, nx_l)``; rank ``r`` of the port holds ``global[r]``.  The
+long-context training example's parameters are a dict of arrays
+(``examples/long_context_training.py:init_params``), replicated on every
+rank.  Every function takes plain numpy arrays and dicts, so nothing here
+imports JAX: ``np.asarray`` each JAX array and ``dataclasses.asdict`` the
+JAX config first.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from dataclasses import fields
 import numpy as np
 import torch
 
+from .models import long_context_training as LCT
 from .models.shallow_water import Config, State
 from .parallel.mesh import resolve_device
 
@@ -54,3 +57,27 @@ def states_from_jax(arrays, cfg: Config, device=None):
     rank order."""
     return [state_from_jax(arrays, cfg, rank=r, device=device)
             for r in range(cfg.nproc)]
+
+
+def params_from_jax(params: dict, device=None) -> dict:
+    """The training example's parameters as f32 tensors on ``device``,
+    from ``init_params``' dict of arrays (``jax.random`` draws them; the
+    port's own ``init_params`` draws others).  Shapes must be those of
+    ``init_params(key, d_model, d_ff)`` for the d_model and d_ff that
+    ``wqkv`` and ``w1`` show; a missing or unknown key raises ``KeyError``,
+    a wrong shape ``ValueError``.  ``models.long_context_training.Block``
+    makes a module of the result."""
+    device = resolve_device(device)
+    names = set(LCT.PARAM_NAMES)
+    if set(params) != names:
+        raise KeyError(
+            f"params_from_jax: expected keys {sorted(names)}; missing "
+            f"{sorted(names - set(params))}, unknown {sorted(set(params) - names)}")
+    arrays = {k: np.asarray(v) for k, v in params.items()}
+    d_model, d_ff = arrays["wqkv"].shape[0], arrays["w1"].shape[-1]
+    for name, want in LCT.param_shapes(d_model, d_ff).items():
+        if arrays[name].shape != want:
+            raise ValueError(f"params_from_jax: {name} has shape "
+                             f"{arrays[name].shape}, want {want}")
+    return {k: torch.from_numpy(np.array(a, np.float32)).to(device)
+            for k, a in arrays.items()}

@@ -1,9 +1,9 @@
 """Flash-attention block partials: the ring-attention hot op.
 
-PyTorch counterpart of ``mpi4jax_tpu/kernels/flash_attention.py`` (its
-forward).  One ring step computes attention of the local queries against
-one K/V block, as partials in the flash/log-sum-exp form that the caller
-merges across steps (``merge_partials``):
+PyTorch counterpart of ``mpi4jax_tpu/kernels/flash_attention.py``.  One
+ring step computes attention of the local queries against one K/V block,
+as partials in the flash/log-sum-exp form that the caller merges across
+steps (``merge_partials``):
 
     m      = rowmax(scores)                      (B, H, Tq)  f32
     l      = rowsum(exp(scores - m))             (B, H, Tq)  f32
@@ -12,22 +12,33 @@ merges across steps (``merge_partials``):
 with ``scores = (q . k) * scale`` in f32 and masked entries at ``-inf``.
 A row with no attendable key gives ``m = -inf``, ``l = 0``, ``o = 0``.
 
-``flash_block_partials`` dispatches on the tensors' device: CPU tensors
+``flash_block_partials`` dispatches on the tensors' device.  CPU tensors
 take the plain version (``block_partials_plain``, op for op the JAX
-package's jnp path, natively differentiable); CUDA tensors launch one of
-the two kernels of ``csrc/flash_fwd.cu``, which replace the TPU kernels
-``_kernel`` (non-causal, optional mask: ``flash_fwd``) and
-``_kernel_causal`` (the causal diagonal block: ``flash_fwd_causal``), or
-raise.  The kernels have no backward yet (ROADMAP Queue 2): a CUDA call
-whose inputs require grad raises instead of returning partials whose
-gradient would be wrong.
+package's jnp path, natively differentiable), or, with
+``custom_backward=True``, the same autograd ``Function`` as the card (the
+counterpart of the JAX package's ``interpret=True``).  CUDA tensors go
+through ``FlashPartials``: its forward launches one of the two kernels of
+``csrc/flash_fwd.cu``, which replace the TPU kernels ``_kernel``
+(non-causal, optional mask: ``flash_fwd``) and ``_kernel_causal`` (the
+causal diagonal block: ``flash_fwd_causal``); its backward launches the
+two kernels of ``csrc/flash_bwd.cu``, which replace ``_bwd_dq_kernel``
+(``flash_bwd_dq``) and ``_bwd_dkv_kernel`` (``flash_bwd_dkv``).  A CUDA
+call launches the kernels or raises; nothing falls back to the plain
+version.
+
+The backward holds ``m`` constant, as the JAX package's custom VJP does:
+its cotangent is dropped, which is exact for every consumer that merges
+and normalises the partials (the result does not depend on the
+stabilizer), and makes a function of ``m`` alone have zero gradient.
 
 Bound on an H100: operations.  At B=4, T=4096, H=8, D=128 (the width
-the JAX package measured its kernel at) a non-causal call does
+the JAX package measured its kernel at) a non-causal forward does
 4 B H T^2 D = 2.749e11 f32 operations, 4.10 ms at 67 TFLOP/s on the CUDA
-cores, against 0.080 ms for its 269 MB of inputs and outputs; the causal
-call does T(T+1)/2 of the T^2 score pairs.  Built with FMA contraction
-on: the parity with the plain version is a band, not bit for bit.
+cores, against 0.080 ms for its 269 MB of inputs and outputs; the dq
+kernel does 6 B H T^2 D (6.15 ms) and the dk/dv kernel 8 B H T^2 D
+(8.21 ms); causal calls do T(T+1)/2 of the T^2 score pairs.  Built with
+FMA contraction on: the parity with the plain versions is a band, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -39,12 +50,16 @@ import torch
 from . import _build
 
 SOURCE = _build.CSRC / "flash_fwd.cu"
+BWD_SOURCE = _build.CSRC / "flash_bwd.cu"
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
 counter = _build.counter_for("flash_fwd")
 counter_causal = _build.counter_for("flash_fwd_causal")
+counter_bwd_dq = _build.counter_for("flash_bwd_dq")
+counter_bwd_dkv = _build.counter_for("flash_bwd_dkv")
 _lib = None
+_bwd_lib = None
 
 _C = ctypes
 _STRIDES = [_C.c_longlong] * 9
@@ -54,11 +69,23 @@ _SIGNATURES = {
     "flash_fwd_causal_launch": ([_C.c_void_p] * 6 + [_C.c_int] * 5 + _STRIDES
                                 + [_C.c_float, _C.c_void_p]),
 }
+_BWD_STRIDES = [_C.c_longlong] * 12
+_BWD_SIGNATURES = {
+    "flash_bwd_dq_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 7 + _BWD_STRIDES
+                            + [_C.c_float, _C.c_void_p]),
+    "flash_bwd_dkv_launch": ([_C.c_void_p] * 9 + [_C.c_int] * 7 + _BWD_STRIDES
+                             + [_C.c_float, _C.c_void_p]),
+}
 
 
 def spec():
-    """``(source, defines, headers, fmad)`` of the kernels' build."""
+    """``(source, defines, headers, fmad)`` of the forward kernels' build."""
     return SOURCE, {}, (), True
+
+
+def bwd_spec():
+    """``(source, defines, headers, fmad)`` of the backward kernels' build."""
+    return BWD_SOURCE, {}, (), True
 
 
 def _library():
@@ -66,6 +93,13 @@ def _library():
     if _lib is None:
         _lib = _build.load(spec(), _SIGNATURES)
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        _bwd_lib = _build.load(bwd_spec(), _BWD_SIGNATURES)
+    return _bwd_lib
 
 
 def block_partials_plain(q, k, v, mask, *, scale: float, causal: bool = False):
@@ -99,16 +133,29 @@ def _check_causal(q, k, mask, causal: bool) -> None:
             )
 
 
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise if autograd would record ``tensors``: the kernels (and the
-    multi-rank exchanges) have no backward yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what}: no gradient on this path yet; the backward kernels "
-            "(_bwd_dq_kernel, _bwd_dkv_kernel) are ROADMAP Queue 2. Call it "
-            "under torch.no_grad(), or on CPU tensors for the differentiable "
-            "plain version"
-        )
+def block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, *, scale: float,
+                             causal: bool = False):
+    """``(dq, dk, dv)`` of the partials in plain PyTorch, by the backward
+    kernels' formula (not by autograd): ``p = exp(s - m_safe)`` where a
+    (query, key) pair is valid, else 0; ``dp = g_o v^T + g_l``;
+    ``ds = p dp scale``; ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T g_o``.
+    The inputs are upcast to f32 and the results cast to the primal
+    dtypes; ``m``'s cotangent takes no part (see the module docstring)."""
+    tq, tk = q.shape[1], k.shape[1]
+    if causal:
+        mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril()
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g_o))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    m_safe = torch.where(torch.isinf(m), 0.0, m)
+    p = torch.exp(s - m_safe[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf) + g_l.float()[..., None]
+    ds = p * dp * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_kernel_inputs(q, k, v, mask) -> None:
@@ -147,10 +194,13 @@ def _check_kernel_inputs(q, k, v, mask) -> None:
                 f"flash_block_partials: mask must be bool {(tq, tk)} on {dev}")
 
 
-def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
+def _check_device(q) -> None:
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_block_partials: unsupported device {q.device}")
-    refuse_grad("flash_block_partials on CUDA", q, k, v)
+
+
+def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
+    _check_device(q)
     _check_kernel_inputs(q, k, v, mask)
     b, tq, h, d = q.shape
     tk = k.shape[1]
@@ -179,7 +229,113 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
     return o, m, l
 
 
-def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False):
+def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
+    """The checks of a backward launch and the C arguments both kernels
+    share: ``(inputs, dims, strides, stream)``."""
+    _check_device(q)
+    _check_kernel_inputs(q, k, v, mask)
+    b, tq, h, d = q.shape
+    if tuple(g_o.shape) != tuple(q.shape) or tuple(m.shape) != (b, h, tq) \
+            or tuple(g_l.shape) != (b, h, tq):
+        raise ValueError("flash_block_partials backward: g_o must be shaped "
+                         f"like q {tuple(q.shape)}, m and g_l {(b, h, tq)}")
+    # a cotangent comes as autograd made it: the kernels read it by strides
+    # when they can, else from a contiguous copy
+    g_o = g_o.to(q.dtype)
+    if g_o.stride(3) != 1 or any(s % 4 for s in g_o.stride()[:3]) \
+            or g_o.data_ptr() % (4 * g_o.element_size()):
+        g_o = g_o.contiguous()
+    m = m.float().contiguous()
+    g_l = g_l.float().contiguous()
+    mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
+    # the tensors ride along so that they outlive the launch
+    keep = (g_o, m, g_l, mask_u8)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g_o.data_ptr(),
+           None if mask_u8 is None else mask_u8.data_ptr(), m.data_ptr(),
+           g_l.data_ptr())
+    dims = (b, h, tq, k.shape[1], d, int(q.dtype == torch.bfloat16), int(causal))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *g_o.stride()[:3])
+    return keep, ins, dims, strides, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def flash_bwd_dq(q, k, v, mask, m, g_o, g_l, *, scale: float,
+                 causal: bool = False):
+    """``dq`` of the partials from the ``flash_bwd_dq`` kernel (CUDA
+    tensors; the arguments of ``block_partials_bwd``)."""
+    keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
+                                                        g_l, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or k.shape[1] == 0:
+        return dq.zero_()
+    err = _bwd_library().flash_bwd_dq_launch(*ins, dq.data_ptr(), *dims,
+                                             *strides, scale, stream)
+    _build.raise_on_error("flash_bwd_dq", err)
+    counter_bwd_dq.count(torch.cuda.is_current_stream_capturing())
+    del keep
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, *, scale: float,
+                  causal: bool = False):
+    """``(dk, dv)`` of the partials from the ``flash_bwd_dkv`` kernel (CUDA
+    tensors; the arguments of ``block_partials_bwd``)."""
+    keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
+                                                        g_l, causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if dk.numel() == 0 or q.shape[1] == 0:
+        return dk.zero_(), dv.zero_()
+    err = _bwd_library().flash_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(),
+                                              *dims, *strides, scale, stream)
+    _build.raise_on_error("flash_bwd_dkv", err)
+    counter_bwd_dkv.count(torch.cuda.is_current_stream_capturing())
+    del keep
+    return dk, dv
+
+
+def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
+                       causal: bool = False):
+    """``(dq, dk, dv)`` of the partials from the saved ``(q, k, v, m)`` and
+    the cotangents of ``o`` and ``l``: the plain version for CPU tensors,
+    the two backward kernels for CUDA tensors (or raise)."""
+    _check_causal(q, k, mask, causal)
+    if q.device.type == "cpu":
+        return block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l,
+                                        scale=scale, causal=causal)
+    dq = flash_bwd_dq(q, k, v, mask, m, g_o, g_l, scale=scale, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, scale=scale,
+                           causal=causal)
+    return dq, dk, dv
+
+
+class FlashPartials(torch.autograd.Function):
+    """The partials with their blockwise backward (the JAX package's
+    ``_partials`` custom VJP): the forward saves ``(q, k, v, m)``, the
+    backward recomputes ``p`` tile by tile, so no (Tq, Tk) tensor is kept,
+    and drops ``m``'s cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, causal):
+        if q.device.type == "cpu":
+            o, m, l = block_partials_plain(q, k, v, mask, scale=scale,
+                                           causal=causal)
+        else:
+            o, m, l = _kernel_partials(q, k, v, mask, scale, causal)
+        ctx.save_for_backward(q, k, v, m)
+        ctx.mask, ctx.scale, ctx.causal = mask, scale, causal
+        return o, m, l
+
+    @staticmethod
+    def backward(ctx, g_o, _g_m, g_l):
+        q, k, v, m = ctx.saved_tensors
+        dq, dk, dv = block_partials_bwd(q, k, v, ctx.mask, m, g_o, g_l,
+                                        scale=ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False,
+                         custom_backward: bool = False):
     """Streaming-softmax partials of ``softmax(q k^T * scale) v`` for one
     K/V block.
 
@@ -189,12 +345,15 @@ def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False):
     ``mask=None`` and ``Tq == Tk``) is the triangular diagonal block,
     computed by the kernel that skips the key tiles wholly after a query
     tile.  Returns ``(o_part, m, l)``: (B, Tq, H, D) in ``q``'s dtype,
-    (B, H, Tq) and (B, H, Tq) in float32.  CPU tensors take the plain
-    version; CUDA tensors launch a kernel, or raise."""
+    (B, H, Tq) and (B, H, Tq) in float32.  CUDA tensors launch the
+    kernels (forward, and backward under autograd), or raise.  CPU
+    tensors take the natively differentiable plain version, or with
+    ``custom_backward=True`` the plain forward and backward of the
+    blockwise ``FlashPartials``."""
     _check_causal(q, k, mask, causal)
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not custom_backward:
         return block_partials_plain(q, k, v, mask, scale=scale, causal=causal)
-    return _kernel_partials(q, k, v, mask, scale, causal)
+    return FlashPartials.apply(q, k, v, mask, scale, causal)
 
 
 def merge_partials(acc, m, l, o_new, m_new, l_new):

@@ -10,6 +10,11 @@ comm's process group, with its buffers from ``ops/_staging.py`` as
 ``gather``'s are.  The group orders its ranks by global rank; the rows
 are permuted to and from comm-rank order around the exchange where the
 two differ.
+
+The exchange runs inside a ``torch.autograd.Function`` whose backward is
+the same ``alltoall`` of the cotangent: the op is its own transpose, as
+``lax.all_to_all`` is to the JAX package.  The tensors handed to
+``torch.distributed`` are detached and contiguous.
 """
 
 from __future__ import annotations
@@ -22,6 +27,41 @@ import torch.distributed as dist
 from ..parallel.comm import Comm
 from ._staging import Exchange
 from .token import Token, produce
+
+
+def _exchange(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """One multi-rank alltoall of ``x`` (leading axis = comm size)."""
+    size = comm.Get_size()
+    members = comm.members()
+    # by_group[j]: the comm rank of group rank j (ascending global rank)
+    by_group = sorted(range(size), key=members.__getitem__)
+    permuted = by_group != list(range(size))
+    x = x.detach()
+    if permuted:
+        x = x[by_group]
+    with Exchange(x.device) as ex:
+        recv = ex.buffer(x)
+        dist.all_to_all_single(recv, ex.send(x), group=comm.group())
+        out = ex.result(recv)
+    if permuted:
+        unsorted = torch.empty_like(out)
+        unsorted[by_group] = out
+        out = unsorted
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange, whose backward is the alltoall of the cotangent (rank
+    r's slice i went to rank i's slot r, and back)."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return _exchange(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.comm), None
 
 
 def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
@@ -37,18 +77,4 @@ def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
         )
     if size == 1:
         return x.clone(), produce(token)
-    members = comm.members()
-    # by_group[j]: the comm rank of group rank j (ascending global rank)
-    by_group = sorted(range(size), key=members.__getitem__)
-    permuted = by_group != list(range(size))
-    if permuted:
-        x = x[by_group]
-    with Exchange(x.device) as ex:
-        recv = ex.buffer(x)
-        dist.all_to_all_single(recv, ex.send(x), group=comm.group())
-        out = ex.result(recv)
-    if permuted:
-        unsorted = torch.empty_like(out)
-        unsorted[by_group] = out
-        out = unsorted
-    return out, produce(token)
+    return _AllToAll.apply(x, comm), produce(token)

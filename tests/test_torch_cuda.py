@@ -312,13 +312,17 @@ def test_flash_kernel_mask_none_equals_all_true():
 
 @pytest.mark.gpu
 def test_flash_kernel_refuses_grad_and_bad_inputs():
+    """A gradient through the kernels now launches the two backward
+    kernels once each (no refusal); bad inputs are still refused."""
     need_cuda()
     q, k, v, _ = flash_inputs(1, 16, 16, 2, 32, torch.float32)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        FA.flash_block_partials(q, k, v, None, scale=0.2)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        flash_attention(q, k, v, causal=True)
+    before = (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches)
+    flash_attention(q, k, v, causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     with torch.no_grad():
         FA.flash_block_partials(q, k, v, None, scale=0.2)
     q = q.detach()
@@ -326,3 +330,107 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
         FA.flash_block_partials(q[..., :24], k[..., :24], v[..., :24], None, scale=0.2)
     with pytest.raises(ValueError, match="dtype"):
         FA.flash_block_partials(q.half(), k.half(), v.half(), None, scale=0.2)
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention backward kernels
+# ---------------------------------------------------------------------------
+
+
+def cotangents(q, seed=4):
+    """Seeded cotangents of o (q's shape and dtype) and l (B, H, Tq) f32."""
+    b, tq, h, _ = q.shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_o = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    g_l = torch.randn((b, h, tq), device="cuda", generator=gen)
+    return g_o, g_l
+
+
+def assert_grads_band(want, got, dtype):
+    """Per gradient against max|ref|: the band of tests/test_kernels.py:252
+    (rtol 1e-3, atol 1e-4) read as 1e-3 max|ref| + 1e-4; 4 * 2^-8 of
+    max|ref| for bf16 (its rounding unit, twice)."""
+    for a, b in zip(want, got):
+        assert b.dtype == a.dtype == dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(b).all())
+        top = a.abs().max().item()
+        lim = 4 * 2**-8 * top if dtype == torch.bfloat16 else 1e-3 * top + 1e-4
+        assert (a - b).abs().max().item() <= lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("b,tq,tk,h,d", FLASH_SHAPES)
+def test_flash_bwd_kernels_match_plain(full_f32_products, b, tq, tk, h, d, masked,
+                                       dtype):
+    q, k, v, mask = flash_inputs(b, tq, tk, h, d, dtype, seed=5)
+    mask = mask if masked else None
+    scale = 1.0 / np.sqrt(d)
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=scale)
+    g_o, g_l = cotangents(q)
+    before = (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches)
+    got = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=scale)
+    want = FA.block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, scale=scale)
+    torch.cuda.synchronize()
+    assert (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert_grads_band(want, got, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,h,d", [(2, 16, 4, 32), (1, 1024, 1, 32), (1, 1100, 1, 32),
+                                     (1, 100, 2, 64), (2, 200, 2, 128)])
+def test_flash_bwd_causal_kernels_match_plain(full_f32_products, b, t, h, d, dtype):
+    q, k, v, _ = flash_inputs(b, t, t, h, d, dtype, seed=6)
+    scale = 1.0 / np.sqrt(d)
+    _, m, _ = FA.block_partials_plain(q, k, v, None, scale=scale, causal=True)
+    g_o, g_l = cotangents(q)
+    got = FA.block_partials_bwd(q, k, v, None, m, g_o, g_l, scale=scale, causal=True)
+    want = FA.block_partials_bwd_plain(q, k, v, None, m, g_o, g_l, scale=scale,
+                                       causal=True)
+    torch.cuda.synchronize()
+    assert_grads_band(want, got, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_fully_masked_rows_and_strided_cotangent():
+    """Rows that see no key get exactly zero dq (and contribute nothing to
+    dk, dv), never NaN; a non-contiguous g_o gives what its contiguous
+    copy gives."""
+    need_cuda()
+    q, k, v, _ = flash_inputs(2, 100, 130, 2, 64, torch.float32, seed=7)
+    mask = torch.zeros((100, 130), dtype=torch.bool, device="cuda")
+    mask[::3, 5] = True
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=0.1)
+    g_o, g_l = cotangents(q)
+    g_t = g_o.transpose(0, 1).contiguous().transpose(0, 1)  # other strides
+    dq, dk, dv = FA.block_partials_bwd(q, k, v, mask, m, g_t, g_l, scale=0.1)
+    torch.cuda.synchronize()
+    empty = torch.ones(100, dtype=torch.bool, device="cuda")
+    empty[::3] = False
+    assert bool((dq[:, empty] == 0).all())
+    assert not any(bool(torch.isnan(x).any()) for x in (dq, dk, dv))
+    again = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1)
+    for a, b in zip(again, (dq, dk, dv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_attention_gradients_on_the_card(full_f32_products, causal):
+    """Autograd through ``flash_attention`` against ``reference_attention``
+    (rtol 2e-3, atol 2e-4, tests/test_long_context.py:128), with one
+    launch of each backward kernel."""
+    from mpi4jax_tpu_torch.attention import reference_attention
+
+    q, k, v, _ = flash_inputs(2, 96, 96, 2, 64, torch.float32, seed=8)
+    grads = []
+    for fn in (flash_attention, reference_attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        (fn(*leaves, causal=causal) ** 2).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)

@@ -1,30 +1,55 @@
 """Isolation for the port's parity tests from state other test files leave.
 
 The parity tests run the JAX package beside the port in one pytest
-worker, after whatever files the worker ran before.  Two kinds of process
-state left behind there break the JAX side here:
+worker, after whatever files the worker ran before.  Process state left
+behind there breaks the JAX side here:
 
 - ``tests/test_analysis_pure.py`` can leave ``MPI4JAX_TPU_ANALYZE`` set to
   an invalid value, which every later JAX op of the package rejects
   (``leaked_env_guard`` puts it back before every test of the session;
   this fixture also clears the programmatic override);
-- a test that fails while a collective is armed in the watchdog's registry
-  leaves the entry armed, and the watchdog aborts the process once its
-  deadline passes.
+- a test that fails while a collective is armed in a watchdog registry
+  leaves the entry armed, and that registry's monitor aborts the process
+  once the deadline passes.  Besides ``mpi4jax_tpu.resilience.watchdog``,
+  every test file that loads the package under a private name
+  (``_load_isolated``) has its own copy of the module, with its own
+  registry and monitor thread.
 
-``isolated_reference_state`` clears both before each test.  Import it into
-a test module (``from torch_port_isolation import isolated_reference_state
-# noqa: F401``); it is autouse.
+``isolated_reference_state`` clears both before each test: it drains the
+registry of every loaded copy of the watchdog module, holds each copy's
+``suspend_expiries`` window open for the test (so its Python monitor
+treats nothing as expired), and unsets ``MPI4JAX_TPU_WATCHDOG_TIMEOUT``
+so that the test arms no collective.  The C++ monitor of
+``csrc/host_hooks.cc`` is out of its reach: its registry has no drain,
+and an entry an earlier test left there can still abort the worker
+(ROADMAP Queue 3).  Import it into a test module (``from
+torch_port_isolation import isolated_reference_state  # noqa: F401``);
+it is autouse.
 """
 
+import contextlib
+import sys
+
 import pytest
+
+
+def watchdog_copies():
+    """Every loaded copy of the JAX package's watchdog module."""
+    return [m for name, m in list(sys.modules.items())
+            if name.endswith("resilience.watchdog")
+            and hasattr(m, "drain_registry") and hasattr(m, "suspend_expiries")]
 
 
 @pytest.fixture(autouse=True)
 def isolated_reference_state(monkeypatch):
     from mpi4jax_tpu.analysis import hook
-    from mpi4jax_tpu.resilience import watchdog
+    from mpi4jax_tpu.resilience import watchdog  # noqa: F401 - loads the copy
 
     monkeypatch.delenv("MPI4JAX_TPU_ANALYZE", raising=False)
+    monkeypatch.delenv("MPI4JAX_TPU_WATCHDOG_TIMEOUT", raising=False)
     hook.set_analyze_mode(None)
-    watchdog.drain_registry()
+    with contextlib.ExitStack() as stack:
+        for copy in watchdog_copies():
+            copy.drain_registry()
+            stack.enter_context(copy.suspend_expiries())
+        yield

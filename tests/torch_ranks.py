@@ -26,7 +26,10 @@ import torch
 
 from mpi4jax_tpu_torch import (
     Comm,
+    Op,
+    allreduce,
     alltoall,
+    convert,
     gather,
     make_world_mesh,
     sendrecv,
@@ -34,6 +37,7 @@ from mpi4jax_tpu_torch import (
 )
 from mpi4jax_tpu_torch.attention import ring_attention, ulysses_attention
 from mpi4jax_tpu_torch.models import long_context_attention as LCA
+from mpi4jax_tpu_torch.models import long_context_training as LCT
 from mpi4jax_tpu_torch.models import shallow_water as P
 from mpi4jax_tpu_torch.ops import _staging
 
@@ -286,10 +290,120 @@ def attention_program(rank: int, size: int):
 
     q = torch.zeros((1, 4, size + 1, 32))
     out["ulysses/error"] = _error(lambda: ulysses_attention(q, q, q, comm=world))
-    g = torch.zeros((1, 4, size, 32), requires_grad=True)
-    out["ring/grad_error"] = _error(lambda: ring_attention(g, g, g, comm=world))
-    out["ulysses/grad_error"] = _error(
-        lambda: ulysses_attention(g, g, g, comm=world))
+    g = torch.from_numpy(np.random.default_rng((3, rank)).standard_normal(
+        (1, 4, size, 32), dtype=np.float32)).requires_grad_(True)
+    for scheme, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        g.grad = None
+        fn(g, g, g, comm=world, causal=True).square().sum().backward()
+        out[f"{scheme}/grad"] = g.grad
+    out["ring/plain_ad_error"] = _error(lambda: ring_attention(
+        g, g, g, comm=world, memory_efficient_grad=False))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gradients, allreduce and the dp x sp training step
+# ---------------------------------------------------------------------------
+
+# the JAX suite's long-context shapes (tests/test_long_context.py:29)
+GRAD = {"b": 2, "t_loc": 16, "h": 8, "d": 32}
+# (scheme, causal, dtype) of each gradient run
+GRAD_RUNS = (("ring", True, "float32"), ("ring", False, "float32"),
+             ("ring", True, "bfloat16"), ("ulysses", True, "float32"))
+REDUCTIONS = ("SUM", "PROD", "MIN", "MAX")
+# the training step of tests/test_examples.py:528
+TRAIN = {"b_loc": 1, "t_loc": 16, "d_model": 32, "d_ff": 64, "heads": 4,
+         "lr": 0.05}
+
+
+def grad_key(scheme, causal, dtype) -> str:
+    return f"{scheme}/{'causal' if causal else 'full'}/{dtype}"
+
+
+def grad_inputs(size: int) -> np.ndarray:
+    """q, k and v of every rank, ``(3, size, B, T_loc, H, D)`` f32."""
+    rng = np.random.default_rng(13)
+    g = GRAD
+    return rng.standard_normal((3, size, g["b"], g["t_loc"], g["h"], g["d"]),
+                               dtype=np.float32)
+
+
+def allreduce_inputs(size: int) -> np.ndarray:
+    """Every rank's allreduce input, ``(size, 3, 4)``: small integers as
+    f32, so sums and products in any order are exact."""
+    rng = np.random.default_rng(21)
+    return rng.integers(-3, 4, size=(size, 3, 4)).astype(np.float32)
+
+
+def _grad_runs(rank, size, out):
+    """Each run of ``GRAD_RUNS``: the gradient of the sum of ``out**2``
+    over every rank with respect to this rank's q, k and v, and the
+    exchanges of its forward and of its backward."""
+    world = Comm("sp", mesh=make_world_mesh((size,), ("sp",), device="cpu"))
+    shards = grad_inputs(size)[:, rank]
+    for scheme, causal, dtype in GRAD_RUNS:
+        q, k, v = (torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+                   for x in shards)
+        key = grad_key(scheme, causal, dtype)
+        _staging.stats.reset()
+        o = LCA.SCHEMES[scheme](q, k, v, comm=world, causal=causal)
+        forward = _staging.stats.calls
+        o.float().square().sum().backward()
+        out[f"{key}/exchanges"] = torch.tensor([forward,
+                                                _staging.stats.calls - forward])
+        out[f"{key}/dtype"] = str(q.grad.dtype)
+        out[f"{key}/grads"] = tuple(t.grad.float() for t in (q, k, v))
+
+
+def _allreduce_runs(rank, size, out):
+    """Every ported reduction on the world and, on 4 ranks, on the row,
+    column and column-major comms of a (2,2) grid; what the world's
+    staged, and the refusals."""
+    x = torch.from_numpy(allreduce_inputs(size)[rank])
+    before = x.clone()
+    comms = {"world": Comm("x", mesh=make_world_mesh((size,), ("x",),
+                                                     device="cpu"))}
+    if size == 4:
+        mesh = make_world_mesh((2, 2), ("py", "px"), device="cpu")
+        for axes in ("px", "py", ("px", "py")):
+            comms[",".join((axes,) if isinstance(axes, str) else axes)] = Comm(
+                axes, mesh=mesh)
+    for name, comm in comms.items():
+        for op in REDUCTIONS:
+            _staging.stats.reset()
+            out[f"allreduce/{name}/{op}"] = allreduce(x, getattr(Op, op),
+                                                      comm=comm)[0]
+            out[f"allreduce/{name}/{op}/stats"] = torch.tensor(
+                [_staging.stats.calls, _staging.stats.staged_bytes])
+    out["allreduce/input_kept"] = torch.equal(x, before)
+    world = comms["world"]
+    out["allreduce/errors"] = [
+        _error(lambda: allreduce(x, Op.LAND, comm=world)),
+        _error(lambda: allreduce(x, torch.add, comm=world)),
+        _error(lambda: allreduce(x.clone().requires_grad_(True), comm=world)),
+    ]
+
+
+def training_program(rank: int, size: int, params: dict, x: np.ndarray,
+                     y: np.ndarray, grads: bool):
+    """One step of the dp x sp training example on the world's grid from
+    the JAX package's parameters and stacked tiles ``x`` (size, B, T, D),
+    ``y`` (size, B, T); with ``grads``, also the attention gradient runs
+    and the allreduce runs."""
+    out = {}
+    if grads:
+        _grad_runs(rank, size, out)
+        _allreduce_runs(rank, size, out)
+    world, sp = LCT.make_grid("cpu")
+    step = LCT.make_train_step(world, sp, TRAIN["heads"], lr=TRAIN["lr"])
+    _staging.stats.reset()
+    new, loss = step(convert.params_from_jax(params, device="cpu"),
+                     torch.from_numpy(x[rank]), torch.from_numpy(y[rank]))
+    out["train/params"] = new
+    out["train/loss"] = loss
+    out["train/exchanges"] = _staging.stats.calls
+    out["train/grid"] = torch.tensor([world.axis_index("dp"),
+                                      world.axis_index("sp")])
     return out
 
 
