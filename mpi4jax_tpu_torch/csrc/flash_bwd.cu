@@ -1,5 +1,6 @@
-// Flash-attention backward of the block partials for Hopper (sm_90a): two
-// kernels.
+// Flash-attention backward of the block partials in f32 for Hopper
+// (sm_90a): two kernels.  bf16 inputs take the tensor-core kernels of
+// flash_bwd_mma.cu.
 //
 // Replace the TPU kernels of mpi4jax_tpu/kernels/flash_attention.py:
 // - flash_bwd_dq_kernel replaces _bwd_dq_kernel (dq, one block per query
@@ -20,10 +21,9 @@
 // so the loop bounds below hold for any tile size.  A row that sees no key
 // has p = 0 everywhere and gets zero gradients, never NaN.  The arithmetic
 // is that of the plain version (block_partials_bwd_plain in
-// mpi4jax_tpu_torch/kernels/flash_attention.py): f32 products of the
-// inputs (exact for bf16), f32 accumulation, the results rounded to the
-// inputs' type at the end; expf is the accurate one, and the library is
-// built with FMA contraction on and without fast math.
+// mpi4jax_tpu_torch/kernels/flash_attention.py): f32 products, f32
+// accumulation; expf is the accurate one, and the library is built with
+// FMA contraction on and without fast math.
 //
 // Layout: q and g_o (B, Tq, H, D), k and v (B, Tk, H, D), read in place
 // through their batch, time and head strides (the last dimension is
@@ -50,7 +50,6 @@
 // two kernels needs no atomics: both outputs are deterministic.  No tensor
 // cores (wgmma), TMA or pipelining of the next tile's loads yet.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -102,20 +101,6 @@ struct Elem<float> {
     return *reinterpret_cast<const float4*>(p);
   }
   static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const auto* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(pair[0]);
-    const float2 b = __bfloat1622float2(pair[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
 };
 
 // rows [row0, row0 + rows) of one (batch, head) slice into dst (row stride
@@ -444,11 +429,9 @@ cudaError_t dispatch_d(const Args& a, int B, int D, int causal, bool dkv,
   }
 }
 
-int run(const Args& a, int B, int D, int bf16, int causal, bool dkv, void* stream) {
+int run(const Args& a, int B, int D, int causal, bool dkv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? dispatch_d<__nv_bfloat16>(a, B, D, causal, dkv, s)
-                               : dispatch_d<float>(a, B, D, causal, dkv, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_d<float>(a, B, D, causal, dkv, s));
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* go,
@@ -465,33 +448,33 @@ Args make_args(const void* q, const void* k, const void* v, const void* go,
 
 }  // namespace
 
-// dq (B, Tq, H, D) of the partials; mask is a contiguous (Tq, Tk) uint8
+// dq (B, Tq, H, D) f32 of the partials; mask is a contiguous (Tq, Tk) uint8
 // array, or null; causal needs Tq == Tk and no mask.  Returns the launch's
 // cudaError_t.
 extern "C" int flash_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* go,
     const void* mask, const void* m, const void* gl, void* dq, int B, int H,
-    int Tq, int Tk, int D, int bf16, int causal, long long sqb, long long sqt,
+    int Tq, int Tk, int D, int causal, long long sqb, long long sqt,
     long long sqh, long long skb, long long skt, long long skh, long long svb,
     long long svt, long long svh, long long sgb, long long sgt, long long sgh,
     float scale, void* stream) {
   const Args a = make_args(q, k, v, go, mask, m, gl, dq, nullptr, nullptr, H,
                            Tq, Tk, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
                            sgb, sgt, sgh, scale);
-  return run(a, B, D, bf16, causal, false, stream);
+  return run(a, B, D, causal, false, stream);
 }
 
-// dk and dv (B, Tk, H, D) of the partials; arguments as for dq.  Returns
+// dk and dv (B, Tk, H, D) f32 of the partials; arguments as for dq.  Returns
 // the launch's cudaError_t.
 extern "C" int flash_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* go,
     const void* mask, const void* m, const void* gl, void* dk, void* dv,
-    int B, int H, int Tq, int Tk, int D, int bf16, int causal, long long sqb,
+    int B, int H, int Tq, int Tk, int D, int causal, long long sqb,
     long long sqt, long long sqh, long long skb, long long skt, long long skh,
     long long svb, long long svt, long long svh, long long sgb, long long sgt,
     long long sgh, float scale, void* stream) {
   const Args a = make_args(q, k, v, go, mask, m, gl, nullptr, dk, dv, H, Tq,
                            Tk, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
                            sgb, sgt, sgh, scale);
-  return run(a, B, D, bf16, causal, true, stream);
+  return run(a, B, D, causal, true, stream);
 }

@@ -51,6 +51,7 @@ from . import _build
 
 SOURCE = _build.CSRC / "flash_fwd.cu"
 BWD_SOURCE = _build.CSRC / "flash_bwd.cu"
+MMA_SOURCE = _build.CSRC / "flash_bwd_mma.cu"
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,8 +59,11 @@ counter = _build.counter_for("flash_fwd")
 counter_causal = _build.counter_for("flash_fwd_causal")
 counter_bwd_dq = _build.counter_for("flash_bwd_dq")
 counter_bwd_dkv = _build.counter_for("flash_bwd_dkv")
+counter_bwd_dq_mma = _build.counter_for("flash_bwd_dq_mma")
+counter_bwd_dkv_mma = _build.counter_for("flash_bwd_dkv_mma")
 _lib = None
 _bwd_lib = None
+_mma_lib = None
 
 _C = ctypes
 _STRIDES = [_C.c_longlong] * 9
@@ -71,11 +75,14 @@ _SIGNATURES = {
 }
 _BWD_STRIDES = [_C.c_longlong] * 12
 _BWD_SIGNATURES = {
-    "flash_bwd_dq_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 7 + _BWD_STRIDES
+    "flash_bwd_dq_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 6 + _BWD_STRIDES
                             + [_C.c_float, _C.c_void_p]),
-    "flash_bwd_dkv_launch": ([_C.c_void_p] * 9 + [_C.c_int] * 7 + _BWD_STRIDES
+    "flash_bwd_dkv_launch": ([_C.c_void_p] * 9 + [_C.c_int] * 6 + _BWD_STRIDES
                              + [_C.c_float, _C.c_void_p]),
 }
+# the bf16 kernels take the same arguments
+_MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
+                   for name, args in _BWD_SIGNATURES.items()}
 
 
 def spec():
@@ -86,6 +93,12 @@ def spec():
 def bwd_spec():
     """``(source, defines, headers, fmad)`` of the backward kernels' build."""
     return BWD_SOURCE, {}, (), True
+
+
+def mma_spec():
+    """``(source, defines, headers, fmad)`` of the bf16 tensor-core
+    backward kernels' build."""
+    return MMA_SOURCE, {}, (), True
 
 
 def _library():
@@ -100,6 +113,13 @@ def _bwd_library():
     if _bwd_lib is None:
         _bwd_lib = _build.load(bwd_spec(), _BWD_SIGNATURES)
     return _bwd_lib
+
+
+def _mma_library():
+    global _mma_lib
+    if _mma_lib is None:
+        _mma_lib = _build.load(mma_spec(), _MMA_SIGNATURES)
+    return _mma_lib
 
 
 def block_partials_plain(q, k, v, mask, *, scale: float, causal: bool = False):
@@ -229,9 +249,23 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
     return o, m, l
 
 
+def _kernel_layout(t, elems: int):
+    """``t`` as a backward kernel reads it: the last dim contiguous, the
+    other strides multiples of ``elems`` and the data aligned to ``elems``
+    elements; else a contiguous copy (a copy of the layout, not of the
+    computation)."""
+    if t.stride(3) != 1 or any(s % elems for s in t.stride()[:3]) \
+            or t.data_ptr() % (elems * t.element_size()):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
 def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
     """The checks of a backward launch and the C arguments both kernels
-    share: ``(inputs, dims, strides, stream)``."""
+    share: ``(keep, inputs, dims, strides, stream)``.  The f32 kernels read
+    4 elements at once, the bf16 ones 16 bytes (``cp.async``): where q, k,
+    v or g_o miss that alignment the kernels get a contiguous copy, so the
+    backward takes every input the forward took."""
     _check_device(q)
     _check_kernel_inputs(q, k, v, mask)
     b, tq, h, d = q.shape
@@ -239,57 +273,72 @@ def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
             or tuple(g_l.shape) != (b, h, tq):
         raise ValueError("flash_block_partials backward: g_o must be shaped "
                          f"like q {tuple(q.shape)}, m and g_l {(b, h, tq)}")
+    elems = 8 if q.dtype == torch.bfloat16 else 4
     # a cotangent comes as autograd made it: the kernels read it by strides
-    # when they can, else from a contiguous copy
-    g_o = g_o.to(q.dtype)
-    if g_o.stride(3) != 1 or any(s % 4 for s in g_o.stride()[:3]) \
-            or g_o.data_ptr() % (4 * g_o.element_size()):
-        g_o = g_o.contiguous()
+    # when they can
+    g_o = _kernel_layout(g_o.to(q.dtype), elems)
+    if elems == 8:
+        q, k, v = (_kernel_layout(t, elems) for t in (q, k, v))
     m = m.float().contiguous()
     g_l = g_l.float().contiguous()
     mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
     # the tensors ride along so that they outlive the launch
-    keep = (g_o, m, g_l, mask_u8)
+    keep = (q, k, v, g_o, m, g_l, mask_u8)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g_o.data_ptr(),
            None if mask_u8 is None else mask_u8.data_ptr(), m.data_ptr(),
            g_l.data_ptr())
-    dims = (b, h, tq, k.shape[1], d, int(q.dtype == torch.bfloat16), int(causal))
+    dims = (b, h, tq, k.shape[1], d, int(causal))
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *g_o.stride()[:3])
     return keep, ins, dims, strides, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _bwd_kernel(q, kind: str):
+    """``(name, C function, counter)`` of the ``kind`` ("dq" or "dkv")
+    backward kernel for ``q``'s dtype: the tensor-core kernels of
+    ``csrc/flash_bwd_mma.cu`` for bf16, those of ``csrc/flash_bwd.cu`` for
+    f32."""
+    if q.dtype == torch.bfloat16:
+        name, lib = f"flash_bwd_{kind}_mma", _mma_library()
+    else:
+        name, lib = f"flash_bwd_{kind}", _bwd_library()
+    return name, getattr(lib, name + "_launch"), _build.counter_for(name)
+
+
 def flash_bwd_dq(q, k, v, mask, m, g_o, g_l, *, scale: float,
                  causal: bool = False):
-    """``dq`` of the partials from the ``flash_bwd_dq`` kernel (CUDA
-    tensors; the arguments of ``block_partials_bwd``)."""
+    """``dq`` of the partials from one launch of ``flash_bwd_dq_mma``
+    (bf16) or ``flash_bwd_dq`` (f32) (CUDA tensors; the arguments of
+    ``block_partials_bwd``)."""
     keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
                                                         g_l, causal)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or k.shape[1] == 0:
         return dq.zero_()
-    err = _bwd_library().flash_bwd_dq_launch(*ins, dq.data_ptr(), *dims,
-                                             *strides, scale, stream)
-    _build.raise_on_error("flash_bwd_dq", err)
-    counter_bwd_dq.count(torch.cuda.is_current_stream_capturing())
+    name, launch, counter = _bwd_kernel(q, "dq")
+    err = launch(*ins, dq.data_ptr(), *dims, *strides, scale, stream)
+    _build.raise_on_error(name, err)
+    counter.count(torch.cuda.is_current_stream_capturing())
     del keep
     return dq
 
 
 def flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, *, scale: float,
                   causal: bool = False):
-    """``(dk, dv)`` of the partials from the ``flash_bwd_dkv`` kernel (CUDA
-    tensors; the arguments of ``block_partials_bwd``)."""
+    """``(dk, dv)`` of the partials from one launch of
+    ``flash_bwd_dkv_mma`` (bf16) or ``flash_bwd_dkv`` (f32) (CUDA tensors;
+    the arguments of ``block_partials_bwd``)."""
     keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
                                                         g_l, causal)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     if dk.numel() == 0 or q.shape[1] == 0:
         return dk.zero_(), dv.zero_()
-    err = _bwd_library().flash_bwd_dkv_launch(*ins, dk.data_ptr(), dv.data_ptr(),
-                                              *dims, *strides, scale, stream)
-    _build.raise_on_error("flash_bwd_dkv", err)
-    counter_bwd_dkv.count(torch.cuda.is_current_stream_capturing())
+    name, launch, counter = _bwd_kernel(q, "dkv")
+    err = launch(*ins, dk.data_ptr(), dv.data_ptr(), *dims, *strides, scale,
+                 stream)
+    _build.raise_on_error(name, err)
+    counter.count(torch.cuda.is_current_stream_capturing())
     del keep
     return dk, dv
 

@@ -359,6 +359,24 @@ def assert_grads_band(want, got, dtype):
         assert (a - b).abs().max().item() <= lim
 
 
+BWD_COUNTERS = (FA.counter_bwd_dq, FA.counter_bwd_dkv, FA.counter_bwd_dq_mma,
+                FA.counter_bwd_dkv_mma)
+
+
+def bwd_launches():
+    """Launches so far of (flash_bwd_dq, flash_bwd_dkv, flash_bwd_dq_mma,
+    flash_bwd_dkv_mma)."""
+    return np.array([c.launches for c in BWD_COUNTERS])
+
+
+def assert_one_backward(before, dtype):
+    """One launch of each backward kernel of ``dtype``'s route (the
+    tensor-core kernels for bf16, the f32 ones for f32) and none of the
+    other route's."""
+    want = [0, 0, 1, 1] if dtype == torch.bfloat16 else [1, 1, 0, 0]
+    assert (bwd_launches() - before).tolist() == want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
@@ -370,12 +388,11 @@ def test_flash_bwd_kernels_match_plain(full_f32_products, b, tq, tk, h, d, maske
     scale = 1.0 / np.sqrt(d)
     _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=scale)
     g_o, g_l = cotangents(q)
-    before = (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches)
+    before = bwd_launches()
     got = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=scale)
     want = FA.block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, scale=scale)
     torch.cuda.synchronize()
-    assert (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert_one_backward(before, dtype)
     assert_grads_band(want, got, dtype)
 
 
@@ -388,10 +405,12 @@ def test_flash_bwd_causal_kernels_match_plain(full_f32_products, b, t, h, d, dty
     scale = 1.0 / np.sqrt(d)
     _, m, _ = FA.block_partials_plain(q, k, v, None, scale=scale, causal=True)
     g_o, g_l = cotangents(q)
+    before = bwd_launches()
     got = FA.block_partials_bwd(q, k, v, None, m, g_o, g_l, scale=scale, causal=True)
     want = FA.block_partials_bwd_plain(q, k, v, None, m, g_o, g_l, scale=scale,
                                        causal=True)
     torch.cuda.synchronize()
+    assert_one_backward(before, dtype)
     assert_grads_band(want, got, dtype)
 
 
@@ -415,6 +434,78 @@ def test_flash_bwd_fully_masked_rows_and_strided_cotangent():
     assert not any(bool(torch.isnan(x).any()) for x in (dq, dk, dv))
     again = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1)
     for a, b in zip(again, (dq, dk, dv)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_bf16_fully_masked_rows_and_strided_cotangent(full_f32_products):
+    """The same through the tensor-core kernels: rows that see no key get
+    exactly zero dq, keys no row sees exactly zero dk and dv, never NaN;
+    the rest within the bf16 band; a non-contiguous g_o gives what its
+    contiguous copy gives."""
+    q, k, v, _ = flash_inputs(2, 100, 130, 2, 64, torch.bfloat16, seed=7)
+    mask = torch.zeros((100, 130), dtype=torch.bool, device="cuda")
+    mask[::3, 5] = True
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=0.1)
+    g_o, g_l = cotangents(q)
+    g_t = g_o.transpose(0, 1).contiguous().transpose(0, 1)  # other strides
+    before = bwd_launches()
+    got = FA.block_partials_bwd(q, k, v, mask, m, g_t, g_l, scale=0.1)
+    torch.cuda.synchronize()
+    assert_one_backward(before, torch.bfloat16)
+    dq, dk, dv = got
+    empty = torch.ones(100, dtype=torch.bool, device="cuda")
+    empty[::3] = False
+    unseen = torch.ones(130, dtype=torch.bool, device="cuda")
+    unseen[5] = False
+    assert bool((dq[:, empty] == 0).all())
+    assert bool((dk[:, unseen] == 0).all()) and bool((dv[:, unseen] == 0).all())
+    assert not any(bool(torch.isnan(x).any()) for x in got)
+    assert_grads_band(FA.block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, scale=0.1),
+                      got, torch.bfloat16)
+    again = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "mask", "causal"])
+def test_flash_bwd_bf16_is_deterministic(mode):
+    """Each block owns its output rows (no atomics): two calls give the
+    same bits."""
+    need_cuda()
+    q, k, v, mask = flash_inputs(2, 300, 300, 2, 128, torch.bfloat16, seed=9)
+    mask = mask if mode == "mask" else None
+    causal = mode == "causal"
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=0.1, causal=causal)
+    g_o, g_l = cotangents(q)
+    first = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1, causal=causal)
+    second = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1, causal=causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_bf16_takes_views_the_forward_takes():
+    """q, k, v views whose strides are multiples of 4 but not of 8 (and
+    whose data is 8- but not 16-byte aligned) pass the forward's check;
+    the tensor-core backward reads 16 bytes at once, so it works on a
+    contiguous copy and gives the gradients of that copy."""
+    need_cuda()
+    rng = np.random.default_rng(10)
+    wide = [torch.from_numpy(rng.standard_normal((2, 90, 2, 68), dtype=np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(3)]
+    q, k, v = (x[..., 4:68] for x in wide)
+    assert q.stride() == (12240, 136, 68, 1) and q.data_ptr() % 16 == 8
+    o, m, l = FA.flash_block_partials(q, k, v, None, scale=0.1)
+    g_o, g_l = cotangents(q)
+    before = bwd_launches()
+    got = FA.block_partials_bwd(q, k, v, None, m, g_o, g_l, scale=0.1)
+    want = FA.block_partials_bwd(*(x.contiguous() for x in (q, k, v)), None, m, g_o,
+                                 g_l, scale=0.1)
+    torch.cuda.synchronize()
+    assert (bwd_launches() - before).tolist() == [0, 0, 2, 2]
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
 
 
