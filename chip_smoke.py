@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the five sources in this checkout (one
+Builds the port's kernels from the six sources in this checkout (one
 ``nvcc`` each, all at once), holds each against its plain PyTorch version
 at the full width of its path, drives the paths that run them, checks
 that each path launched its kernels and that its output is right, and
@@ -35,9 +35,11 @@ read just after:
    point (``models.long_context_attention.main``) on four gloo ranks on
    this card, 1024 tokens each: causal and non-causal ring, causal
    Ulysses, each rank against its slice of single-GPU ``flash_attention``.
-5. long-context training at the same width: the two backward kernels
-   (``flash_bwd_dq``, ``flash_bwd_dkv``) against their plain version in the
-   forward's cases, beside ``scaled_dot_product_attention``'s backward;
+5. long-context training at the same width: the backward kernels against
+   their plain version in the forward's cases (f32: ``flash_bwd_dq``,
+   ``flash_bwd_dkv``; bf16: the tensor-core ``flash_bwd_dq_mma``,
+   ``flash_bwd_dkv_mma``), beside ``scaled_dot_product_attention``'s
+   backward;
    gradients of single-GPU ``flash_attention`` against
    ``reference_attention``'s; five SGD steps of the training example
    (``models.long_context_training.main``, d_model 1024, 8 heads, d_ff
@@ -47,6 +49,10 @@ read just after:
    non-causal ring and causal Ulysses attention on four gloo ranks, each
    rank against its slice of single-GPU ``flash_attention``'s.
    TF32 is off: every f32 product on the card is full f32.
+6. bf16 attention training at the same width: single-GPU
+   ``flash_attention`` forward and backward on bf16 inputs, causal and
+   not, through the tensor-core backward kernels, its gradients against
+   those of ``reference_attention`` on the same values in f32.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -304,11 +310,11 @@ def shared_card_rank(rank, t1, device, nx, ny):
 
 def print_flash_ptxas(log):
     """Registers and spills of the full-width (D = 128) flash kernels, from
-    the ``-Xptxas -v`` log."""
+    the ``-Xptxas -v`` log (the ``*_mma`` kernels take bf16 only)."""
     name = None
     for line in log.read_text().splitlines():
-        entry = re.search(r"(flash_(?:fwd(?:_causal)?|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E"
-                          r"(f|13__nv_bfloat16)((?:Lb[01]E)*)", line)
+        entry = re.search(r"(flash_(?:fwd(?:_causal)?|bwd_dq|bwd_dkv)(?:_mma)?_kernel)"
+                          r"ILi(\d+)E(f|13__nv_bfloat16)?((?:Lb[01]E)*)", line)
         if entry:
             kind, d, dtype, flags = entry.groups()
             extra = "".join(f", {n}" for n, f in zip(
@@ -571,12 +577,17 @@ def bwd_compare(label, want, got, dtype):
     return errs
 
 
+BWD_NAMES = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+
+
 def check_flash_bwd_kernels(FA, dev):
-    """Both backward kernels against the plain backward at full width, in
-    the forward's cases: f32 unmasked, masked (p = 0.8) and causal; bf16
-    unmasked and causal; a ragged masked block (4000 x 4100) through a
-    strided query view; a fully masked block.  ``m`` comes from the
-    forward kernel, the cotangents g_o and g_l from a seeded generator.
+    """The backward kernels against the plain backward at full width: f32
+    (``flash_bwd_dq``, ``flash_bwd_dkv``) and bf16 (the tensor-core
+    ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) each unmasked, masked
+    (p = 0.8), causal, a ragged masked block (4000 x 4100) through a
+    strided query view, and a fully masked block, which must give exactly
+    zero.  ``m`` comes from the forward kernel, the cotangents g_o and g_l
+    from a seeded generator.  Each call must launch its dtype's kernel.
     Returns the worst difference of each kernel and its cases."""
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -585,29 +596,41 @@ def check_flash_bwd_kernels(FA, dev):
     scale = 1.0 / d**0.5
     mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
     tq_r, tk_r = t - 96, t + 4
+    ragged = (q[:, :tq_r], torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+              torch.randn((b, tk_r, h, d), device=dev, generator=gen),
+              torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     cases = [
         ("f32", q, k, v, None, False),
         ("f32,mask", q, k, v, mask, False),
         ("f32,causal", q, k, v, None, True),
-        ("bf16", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, False),
-        ("bf16,causal", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, True),
-        (f"f32,ragged {tq_r}x{tk_r},mask", q[:, :tq_r],
-         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
-         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
-         torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8, False),
+        ("bf16", qb, kb, vb, None, False),
+        ("bf16,causal", qb, kb, vb, None, True),
+        (f"f32,ragged {tq_r}x{tk_r},mask", *ragged, False),
+        ("bf16,mask", qb, kb, vb, mask, False),
+        (f"bf16,ragged {tq_r}x{tk_r},mask", qb[:, :tq_r], ragged[1].bfloat16(),
+         ragged[2].bfloat16(), ragged[3], False),
     ]
-    names = ("flash_bwd_dq", "flash_bwd_dkv")
-    worst = dict.fromkeys(names, 0.0)
-    by_case = {name: {} for name in names}
+    counters = dict(zip(BWD_NAMES, (FA.counter_bwd_dq, FA.counter_bwd_dkv,
+                                    FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)))
+    worst = dict.fromkeys(BWD_NAMES, 0.0)
+    by_case = {name: {} for name in BWD_NAMES}
     for label, qq, kk, vv, mm, causal in cases:
         with torch.no_grad():
             _, m, _ = FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal)
         g_o = torch.randn(qq.shape, device=dev, generator=gen).to(qq.dtype)
         g_l = torch.randn(m.shape, device=dev, generator=gen)
         args, kw = (qq, kk, vv, mm, m, g_o, g_l), {"scale": scale, "causal": causal}
+        sfx = "_mma" if qq.dtype == torch.bfloat16 else ""
+        dq_name, dkv_name = f"flash_bwd_dq{sfx}", f"flash_bwd_dkv{sfx}"
         want = FA.block_partials_bwd_plain(*args, **kw)
+        before = {n: c.launches for n, c in counters.items()}
         got = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
         torch.cuda.synchronize()
+        moved = [n for n, c in counters.items() if c.launches != before[n]]
+        if moved != [dq_name, dkv_name]:
+            raise AssertionError(f"backward({label}) launched {moved}, expected "
+                                 f"{dq_name} and {dkv_name}")
         errs = bwd_compare(f"backward({label})", want, got, qq.dtype)
         del want, got
         tq, tk = qq.shape[1], kk.shape[1]
@@ -615,8 +638,8 @@ def check_flash_bwd_kernels(FA, dev):
                  else int(mm.sum().item()))
         lib_ms, lib = sdpa_bwd(qq, kk, vv, mm, causal, g_o)
         for name, fn, outputs, errs_of in (
-                ("flash_bwd_dq", FA.flash_bwd_dq, "dq", ("dq",)),
-                ("flash_bwd_dkv", FA.flash_bwd_dkv, "dkv", ("dk", "dv"))):
+                (dq_name, FA.flash_bwd_dq, "dq", ("dq",)),
+                (dkv_name, FA.flash_bwd_dkv, "dkv", ("dk", "dv"))):
             case = timed_case(
                 f"{name}({label})", lambda fn=fn: fn(*args, **kw),
                 lambda: FA.block_partials_bwd_plain(*args, **kw),
@@ -625,7 +648,7 @@ def check_flash_bwd_kernels(FA, dev):
             case["max_abs_err"] = {e: errs[e] for e in errs_of}
             by_case[name][label] = case
             worst[name] = max(worst[name], *case["max_abs_err"].values())
-        dq_kv = by_case["flash_bwd_dq"][label]["ms"] + by_case["flash_bwd_dkv"][label]["ms"]
+        dq_kv = by_case[dq_name][label]["ms"] + by_case[dkv_name][label]["ms"]
         lib_txt = "not timed" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"    scaled_dot_product_attention backward (dq, dk, dv in one "
               f"call): {lib_txt} ({lib}); dq + dk/dv kernels {dq_kv:.4f} ms "
@@ -633,16 +656,18 @@ def check_flash_bwd_kernels(FA, dev):
 
     # no attendable key: zero gradients, never NaN
     none = torch.zeros((t, t), dtype=torch.bool, device=dev)
-    with torch.no_grad():
-        _, m, _ = FA.flash_block_partials(q, k, v, none, scale=scale)
-    g_o, g_l = torch.randn(q.shape, device=dev, generator=gen), torch.randn(
-        m.shape, device=dev, generator=gen)
-    dq = FA.flash_bwd_dq(q, k, v, none, m, g_o, g_l, scale=scale)
-    dk, dv = FA.flash_bwd_dkv(q, k, v, none, m, g_o, g_l, scale=scale)
-    torch.cuda.synchronize()
-    if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
-        raise AssertionError("backward of a fully masked block is not zero")
-    print("  flash_bwd_dq, flash_bwd_dkv(f32, fully masked): dq = dk = dv = 0")
+    for qq, kk, vv, what in ((q, k, v, "flash_bwd_dq, flash_bwd_dkv(f32"),
+                             (qb, kb, vb, "flash_bwd_dq_mma, flash_bwd_dkv_mma(bf16")):
+        with torch.no_grad():
+            _, m, _ = FA.flash_block_partials(qq, kk, vv, none, scale=scale)
+        g_o = torch.randn(q.shape, device=dev, generator=gen).to(qq.dtype)
+        g_l = torch.randn(m.shape, device=dev, generator=gen)
+        dq = FA.flash_bwd_dq(qq, kk, vv, none, m, g_o, g_l, scale=scale)
+        dk, dv = FA.flash_bwd_dkv(qq, kk, vv, none, m, g_o, g_l, scale=scale)
+        torch.cuda.synchronize()
+        if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
+            raise AssertionError(f"{what}: backward of a fully masked block is not zero")
+        print(f"  {what}, fully masked): dq = dk = dv = 0")
     return worst, by_case
 
 
@@ -653,7 +678,8 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
     b, t = q.shape[:2]
     gen = torch.Generator(device=q.device).manual_seed(2)
     g = torch.randn(q.shape, device=q.device, generator=gen)
-    counters = (FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv)
+    counters = (FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv,
+                FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)
     worst, runs = 0.0, {}
     for causal in (False, True):
         for c in counters:
@@ -662,10 +688,11 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
         TA.flash_attention(*leaves, causal=causal).backward(g)
         torch.cuda.synchronize()
         launches = tuple(c.launches for c in counters)
-        if launches != ((0, 1, 1, 1) if causal else (1, 0, 1, 1)):
+        if launches != ((0, 1, 1, 1, 0, 0) if causal else (1, 0, 1, 1, 0, 0)):
             raise AssertionError(f"flash_attention(causal={causal}) forward and "
                                  f"backward launched {launches} (flash_fwd, "
-                                 "flash_fwd_causal, flash_bwd_dq, flash_bwd_dkv)")
+                                 "flash_fwd_causal, flash_bwd_dq, flash_bwd_dkv, "
+                                 "flash_bwd_dq_mma, flash_bwd_dkv_mma)")
         refs = [x.detach().requires_grad_(True) for x in (q, k, v)]
         TA.reference_attention(*refs, causal=causal).backward(g)
         err = 0.0
@@ -691,6 +718,65 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
     return worst, runs
 
 
+def bf16_attention_grads(TA, FA, q, k, v):
+    """The bf16 path: autograd through ``flash_attention`` on the bf16
+    values of ``q, k, v`` at full width, causal and not.  Each forward and
+    backward launches its forward kernel once and ``flash_bwd_dq_mma`` and
+    ``flash_bwd_dkv_mma`` once each, and neither f32 backward kernel; the
+    bf16 gradients hold 4 * 2^-8 of max|ref| against those of
+    ``reference_attention`` on the same values in f32.  Returns the worst
+    difference, the launches of both runs and each run's time and
+    tokens/s."""
+    b, t = q.shape[:2]
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    gen = torch.Generator(device=q.device).manual_seed(3)
+    g = torch.randn(q.shape, device=q.device, generator=gen).bfloat16()
+    counters = dict(zip(("flash_fwd", "flash_fwd_causal") + BWD_NAMES, (
+        FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv,
+        FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)))
+    worst, runs, total = 0.0, {}, dict.fromkeys(counters, 0)
+    for causal in (False, True):
+        for c in counters.values():
+            c.launches = 0
+        leaves = [x.detach().requires_grad_(True) for x in (qb, kb, vb)]
+        TA.flash_attention(*leaves, causal=causal).backward(g)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        want = ((0, 1) if causal else (1, 0)) + (0, 0, 1, 1)
+        if tuple(launches.values()) != want:
+            raise AssertionError(f"bf16 flash_attention(causal={causal}) launched "
+                                 f"{launches}, expected {want}")
+        for n in total:
+            total[n] += launches[n]
+        refs = [x.detach().float().requires_grad_(True) for x in (qb, kb, vb)]
+        TA.reference_attention(*refs, causal=causal).backward(g.float())
+        shown = []
+        for name, a, r in zip(("dq", "dk", "dv"), leaves, refs):
+            if a.grad.dtype != torch.bfloat16 or not bool(torch.isfinite(a.grad).all()):
+                raise AssertionError(f"bf16 flash_attention(causal={causal}) {name} "
+                                     f"is {a.grad.dtype} or not finite")
+            lim = FLASH_BF16_O_REL * r.grad.abs().max().item()
+            err = (a.grad.float() - r.grad).abs().max().item()
+            if err > lim:
+                raise AssertionError(f"bf16 flash_attention(causal={causal}) {name} "
+                                     f"off reference_attention's by {err:.3e} > {lim:.3e}")
+            shown.append(f"{name} {err:.3e} (band {lim:.3e})")
+            worst = max(worst, err)
+        del refs
+
+        def fwd_bwd():
+            out = TA.flash_attention(*leaves, causal=causal)
+            torch.autograd.grad(out, leaves, g)
+
+        ms = time_ms(fwd_bwd, reps=10, warmup=3)
+        print(f"flash_attention(causal={causal}) bf16 forward + backward at B={b}, "
+              f"T={t}: {ms:.4f} ms, {b * t / ms * 1e3:.0f} tokens/s; gradients "
+              f"max|diff| from reference_attention's in f32: " + ", ".join(shown)
+              + f"; launches {launches}")
+        runs["causal" if causal else "full"] = {"ms": ms, "tokens_per_s": b * t / ms * 1e3}
+    return worst, total, runs
+
+
 def single_gpu_training(LCT, TA, dev):
     """Five SGD steps of the training example at full width as a world of
     one: the loss falls, every step launches the flash kernels it should,
@@ -701,7 +787,7 @@ def single_gpu_training(LCT, TA, dev):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training did not reduce the loss: {losses}")
     want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq": 1,
-            "flash_bwd_dkv": 1}
+            "flash_bwd_dkv": 1, "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
     for i, got in enumerate(res["launches"]):
         if got != want:
             raise AssertionError(f"training step {i} launched {got}, expected {want}")
@@ -761,7 +847,7 @@ def four_rank_training(LCT, launch, single, device):
             raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
         s = r % 2  # the rank's sp index
         want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq": s + 1,
-                "flash_bwd_dkv": s + 1}
+                "flash_bwd_dkv": s + 1, "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
         for i, got in enumerate(res["launches"]):
             if got != want:
                 raise AssertionError(f"rank {r} step {i} launched {got}, expected {want}")
@@ -814,7 +900,8 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
             for x in LCA.demo_data(0, n, b, t_loc, h, d)]
     mine = slice(rank * t_loc, (rank + 1) * t_loc)
     fns = {"ring": ring_attention, "ulysses": ulysses_attention}
-    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq", "flash_bwd_dkv",
+               "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     out = {}
     for scheme, causal in runs:
         leaves = [x.clone().requires_grad_(True) for x in full]
@@ -863,11 +950,12 @@ def four_rank_grads(launch, device):
     print(f"four ranks, attention gradients: {time.perf_counter() - t0:.1f} s with "
           "start-up")
     # forward + backward launches per rank r: (flash_fwd, flash_fwd_causal,
-    # flash_bwd_dq, flash_bwd_dkv); the ring's backward recomputes every
-    # block's forward, Ulysses' reuses the saved m
-    expect = {"ring/causal": lambda r: (2 * r, 2, r + 1, r + 1),
-              "ring/full": lambda r: (8, 0, 4, 4),
-              "ulysses/causal": lambda r: (0, 1, 1, 1)}
+    # flash_bwd_dq, flash_bwd_dkv, and the bf16 flash_bwd_dq_mma,
+    # flash_bwd_dkv_mma); the ring's backward recomputes every block's
+    # forward, Ulysses' reuses the saved m
+    expect = {"ring/causal": lambda r: (2 * r, 2, r + 1, r + 1, 0, 0),
+              "ring/full": lambda r: (8, 0, 4, 4, 0, 0),
+              "ulysses/causal": lambda r: (0, 1, 1, 1, 0, 0)}
     worst, launches = 0.0, {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for key, want in expect.items():
         for r, res in enumerate(ranks):
@@ -934,7 +1022,7 @@ def main():
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
     libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec(),
-                              FA.bwd_spec()])
+                              FA.bwd_spec(), FA.mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("sw_steps", "sw_phase", "sw_wide"):
@@ -943,6 +1031,7 @@ def main():
                 print(f"  ptxas {src}:", line.strip())
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd.build.log")
+    print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_mma.build.log")
 
     dev = torch.device("cuda")
     cfg = Config(nx=3600, ny=1800)
@@ -1124,6 +1213,13 @@ def main():
     train4 = four_rank_training(LCT, launch, train1, "cuda:0")
     ring_grad_worst, ring_grad_launches, ring_grad_runs = four_rank_grads(launch,
                                                                           "cuda:0")
+    torch.cuda.empty_cache()
+
+    # -- bf16 attention training: the tensor-core backward kernels ---------
+    q, k, v = (torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
+               for x in LCA.demo_data(0, 4, ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
+    bf16_worst, bf16_launches, bf16_runs = bf16_attention_grads(TA, FA, q, k, v)
+    del q, k, v
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -1221,6 +1317,28 @@ def main():
         "attention_grads_1gpu": grad_runs,
         "training_1gpu": {k: v for k, v in train1.items() if k != "grads0"},
         "training_4ranks": train4, "attention_grads_4ranks": ring_grad_runs}
+    for name, replaces in (("flash_bwd_dq_mma", ":328"), ("flash_bwd_dkv_mma", ":366")):
+        case = bwd_cases[name]["bf16"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpi4jax_tpu_torch/csrc/flash_bwd_mma.cu",
+            "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
+            # bf16 flash_attention forward + backward, causal and not
+            "launches": bf16_launches[name],
+            "max_abs_err": bwd_worst[name],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "library": (f"scaled_dot_product_attention backward ({case['library']}), "
+                        "dq, dk and dv in one call: set against dq + dk/dv"),
+            "ok": True,
+            "by_case": bwd_cases[name],
+        })
+    kernels[-1]["paths"] = {"bf16_attention_grads_1gpu": bf16_runs,
+                            "bf16_grads_max_abs_err_vs_f32_reference": bf16_worst}
     print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
