@@ -46,10 +46,10 @@
 // bf16 A fragments in place and never pass through shared memory.
 // - dq keeps its Q and g_O tiles in shared memory for the whole block and
 //   streams 64-key tiles of K and V through a two-stage cp.async double
-//   buffer (104 KiB at D = 128, two blocks an SM): S = Q K^T and
+//   buffer (102 KiB at D = 128, two blocks an SM): S = Q K^T and
 //   dP = g_O V^T per warp, ds in registers, dq += ds K.
 // - dk/dv keeps K and V and streams 32-query tiles of Q and g_O, with that
-//   tile's m and g_l, through the double buffer (69 KiB at D = 128):
+//   tile's m and g_l, through the double buffer (68.5 KiB at D = 128):
 //   S^T = K Q^T and dP^T = V g_O^T, so p^T and ds^T land in A layout with
 //   key rows, m_safe and g_l indexed by the fragment's column; then
 //   dv += p^T g_O and dk += ds^T Q.  32-query tiles keep the two 16 x D

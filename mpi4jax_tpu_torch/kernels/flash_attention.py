@@ -20,10 +20,13 @@ counterpart of the JAX package's ``interpret=True``).  CUDA tensors go
 through ``FlashPartials``: its forward launches one of the two kernels of
 ``csrc/flash_fwd.cu``, which replace the TPU kernels ``_kernel``
 (non-causal, optional mask: ``flash_fwd``) and ``_kernel_causal`` (the
-causal diagonal block: ``flash_fwd_causal``); its backward launches the
-two kernels of ``csrc/flash_bwd.cu``, which replace ``_bwd_dq_kernel``
-(``flash_bwd_dq``) and ``_bwd_dkv_kernel`` (``flash_bwd_dkv``).  A CUDA
-call launches the kernels or raises; nothing falls back to the plain
+causal diagonal block: ``flash_fwd_causal``); its backward launches two
+kernels that replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, chosen
+by dtype: for f32 those of ``csrc/flash_bwd.cu`` on the CUDA cores
+(``flash_bwd_dq``, ``flash_bwd_dkv``), for bf16 those of
+``csrc/flash_bwd_mma.cu`` on the tensor cores (``flash_bwd_dq_mma``,
+``flash_bwd_dkv_mma``), each with its own launch counter.  A CUDA call
+launches the kernels or raises; nothing falls back to the plain
 version.
 
 The backward holds ``m`` constant, as the JAX package's custom VJP does:
@@ -36,9 +39,10 @@ the JAX package measured its kernel at) a non-causal forward does
 4 B H T^2 D = 2.749e11 f32 operations, 4.10 ms at 67 TFLOP/s on the CUDA
 cores, against 0.080 ms for its 269 MB of inputs and outputs; the dq
 kernel does 6 B H T^2 D (6.15 ms) and the dk/dv kernel 8 B H T^2 D
-(8.21 ms); causal calls do T(T+1)/2 of the T^2 score pairs.  Built with
-FMA contraction on: the parity with the plain versions is a band, not
-bit for bit.
+(8.21 ms), in bf16 0.417 and 0.556 ms at the 989 TFLOP/s tensor-core
+rate; causal calls do T(T+1)/2 of the T^2 score pairs.  Built with FMA
+contraction on: the parity with the plain versions is a band, not bit
+for bit.
 """
 
 from __future__ import annotations
@@ -61,9 +65,7 @@ counter_bwd_dq = _build.counter_for("flash_bwd_dq")
 counter_bwd_dkv = _build.counter_for("flash_bwd_dkv")
 counter_bwd_dq_mma = _build.counter_for("flash_bwd_dq_mma")
 counter_bwd_dkv_mma = _build.counter_for("flash_bwd_dkv_mma")
-_lib = None
-_bwd_lib = None
-_mma_lib = None
+_libs = {}  # loaded libraries by source
 
 _C = ctypes
 _STRIDES = [_C.c_longlong] * 9
@@ -101,25 +103,12 @@ def mma_spec():
     return MMA_SOURCE, {}, (), True
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        _lib = _build.load(spec(), _SIGNATURES)
-    return _lib
-
-
-def _bwd_library():
-    global _bwd_lib
-    if _bwd_lib is None:
-        _bwd_lib = _build.load(bwd_spec(), _BWD_SIGNATURES)
-    return _bwd_lib
-
-
-def _mma_library():
-    global _mma_lib
-    if _mma_lib is None:
-        _mma_lib = _build.load(mma_spec(), _MMA_SIGNATURES)
-    return _mma_lib
+def _loaded(spec_of, signatures):
+    """The library of ``spec_of()``, built and loaded at first use."""
+    source = spec_of()[0]
+    if source not in _libs:
+        _libs[source] = _build.load(spec_of(), signatures)
+    return _libs[source]
 
 
 def block_partials_plain(q, k, v, mask, *, scale: float, causal: bool = False):
@@ -235,13 +224,13 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     outs = (o.data_ptr(), m.data_ptr(), l.data_ptr())
     if causal:
-        err = _library().flash_fwd_causal_launch(
+        err = _loaded(spec, _SIGNATURES).flash_fwd_causal_launch(
             *ptrs, *outs, b, h, tq, d, bf16, *strides, scale, stream)
         _build.raise_on_error("flash_fwd_causal", err)
         counter_causal.count(torch.cuda.is_current_stream_capturing())
     else:
         mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
-        err = _library().flash_fwd_launch(
+        err = _loaded(spec, _SIGNATURES).flash_fwd_launch(
             *ptrs, None if mask_u8 is None else mask_u8.data_ptr(), *outs,
             b, h, tq, tk, d, bf16, *strides, scale, stream)
         _build.raise_on_error("flash_fwd", err)
@@ -299,9 +288,9 @@ def _bwd_kernel(q, kind: str):
     ``csrc/flash_bwd_mma.cu`` for bf16, those of ``csrc/flash_bwd.cu`` for
     f32."""
     if q.dtype == torch.bfloat16:
-        name, lib = f"flash_bwd_{kind}_mma", _mma_library()
+        name, lib = f"flash_bwd_{kind}_mma", _loaded(mma_spec, _MMA_SIGNATURES)
     else:
-        name, lib = f"flash_bwd_{kind}", _bwd_library()
+        name, lib = f"flash_bwd_{kind}", _loaded(bwd_spec, _BWD_SIGNATURES)
     return name, getattr(lib, name + "_launch"), _build.counter_for(name)
 
 
