@@ -60,16 +60,21 @@
 // are loaded as zeros by the zero-fill form of cp.async (source size 0),
 // never padded in device memory.  The split into two kernels needs no
 // atomics: each block owns its output rows, and both outputs are
-// deterministic.  No wgmma, TMA or warp specialisation yet.
+// deterministic.  No wgmma, TMA or warp specialisation yet.  The
+// warp-level helpers (cp.async, ldmatrix, mma.sync and the fragment
+// layouts) live in mma_bf16.cuh, shared with the forward kernels of
+// flash_fwd_mma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace mma_bf16;
 
 constexpr int NWARP = 4;
 constexpr int NT = 32 * NWARP;    // 128 threads
@@ -104,165 +109,6 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros (nothing read) unless ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// 4 bytes from global to shared memory; zeros (nothing read) unless ok
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of the
-// i-th, lane l receives its row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// the same, transposed: lane l receives rows 2 (l % 4) and 2 (l % 4) + 1
-// of column l / 4
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of one (batch, head) slice (row stride st) into
-// dst (row stride D + PAD) by 16-byte cp.async; rows at or past n land as
-// zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* base, long long st,
-                                          int row0, int n) {
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-#pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const bool ok = row0 + r < n;
-    cp_async16(dst + r * Geom<D>::LD + c, ok ? base + (long long)(row0 + r) * st + c : base,
-               ok);
-  }
-}
-
-// acc[j] (8-column tile j) += A (16 rows at a) . B (NB rows at b)^T over D:
-// a score strip of the warp, row r of A against row 8 j + c of B
-template <int D, int NB>
-__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const bf16* a,
-                                          const bf16* b, int lane) {
-  constexpr int LD = Geom<D>::LD;
-  // A: lanes 0-15 rows 0-15 at column 0, lanes 16-31 the same at column 8
-  const bf16* pa = a + (lane & 15) * LD + (lane >> 4) * 8;
-  // B: lanes 0-7 rows 0-7 at column 0 (b0 of tile j), 8-15 the same at 8
-  // (b1), 16-23 rows 8-15 at 0 (b0 of tile j + 1), 24-31 at 8 (b1)
-  const bf16* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kd = 0; kd < D; kd += 16) {
-    uint32_t af[4];
-    ldsm4(af, pa + kd);
-#pragma unroll
-    for (int j = 0; j < NB / 8; j += 2) {
-      uint32_t bf[4];
-      ldsm4(bf, pb + j * 8 * LD + kd);
-      mma(acc[j], af, bf[0], bf[1]);
-      mma(acc[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[n] (8-column tile n of D) += P . M: P the warp's 16 x NB strip as bf16
-// A fragments (pf[kk] holds columns 16 kk .. 16 kk + 15), M the NB rows at
-// m, each of D columns
-template <int D, int NB>
-__device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const uint32_t (&pf)[NB / 16][4],
-                                         const bf16* m, int lane) {
-  constexpr int LD = Geom<D>::LD;
-  // transposed B: lanes 0-7 rows 0-7 at column 0 (b0 of tile n), 8-15 rows
-  // 8-15 at 0 (b1), 16-23 rows 0-7 at 8 (b0 of tile n + 1), 24-31 rows
-  // 8-15 at 8 (b1)
-  const bf16* pm = m + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < NB / 16; ++kk) {
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t bf[4];
-      ldsm4t(bf, pm + kk * 16 * LD + n * 8);
-      mma(acc[n], pf[kk], bf[0], bf[1]);
-      mma(acc[n + 1], pf[kk], bf[2], bf[3]);
-    }
-  }
-}
-
-// the f32 accumulators of 8-column tiles 2 kk and 2 kk + 1 (C layout: row
-// g holds c0, c1, row g + 8 c2, c3, at columns 2 t, 2 t + 1) as the bf16 A
-// fragment of the 16 x 16 tile kk (a0 row g, a1 row g + 8, columns 2 t and
-// 2 t + 1; a2, a3 the same 8 columns on)
-template <int NB>
-__device__ __forceinline__ void to_a_fragments(uint32_t (&f)[NB / 16][4],
-                                               const float (&x)[NB / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 16; ++kk) {
-    f[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    f[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    f[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    f[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[D][4]) {
-#pragma unroll
-  for (int n = 0; n < D; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-}
-
-// the warp's 16 rows [row0, row0 + 16) of a (B, n, H, D) bf16 output from
-// its accumulators; rows at or past n are not written
-template <int D>
-__device__ __forceinline__ void store_strip(bf16* out, const float (&acc)[D / 8][4], int b,
-                                            int h, int H, int row0, int n, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int pos = row0 + g + 8 * half;
-    if (pos >= n) continue;
-    bf16* row = out + (((long long)b * n + pos) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(row + nd * 8) =
-          pack_bf16(acc[nd][2 * half], acc[nd][2 * half + 1]);
-  }
-}
-
 // dq of one (batch x head, 64-query tile): walks 64-key tiles [0, kt_end).
 template <int D, bool MASK, bool CAUSAL>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_mma_kernel(Args a) {
@@ -292,10 +138,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_mma_kernel(Args a) {
     kt_end = min(kt_end, q_last / BK + 1);
   }
 
-  load_rows<D, BOWN>(Qs, qb, a.sqt, q0, a.Tq);
-  load_rows<D, BOWN>(Gs, gb, a.sgt, q0, a.Tq);
-  load_rows<D, BK>(Ks, kb, a.skt, 0, a.Tk);
-  load_rows<D, BK>(Vs, vb, a.svt, 0, a.Tk);
+  load_rows<D, BOWN, LD, NT>(Qs, qb, a.sqt, q0, a.Tq);
+  load_rows<D, BOWN, LD, NT>(Gs, gb, a.sgt, q0, a.Tq);
+  load_rows<D, BK, LD, NT>(Ks, kb, a.skt, 0, a.Tk);
+  load_rows<D, BK, LD, NT>(Vs, vb, a.svt, 0, a.Tk);
   cp_commit();
 
   // this thread's two rows of the warp's strip: g and g + 8
@@ -317,8 +163,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_mma_kernel(Args a) {
   for (int kt = 0; kt < kt_end; ++kt) {
     const int st = kt & 1;
     if (kt + 1 < kt_end) {  // the next tile into the other stage
-      load_rows<D, BK>(Ks + (st ^ 1) * BK * LD, kb, a.skt, (kt + 1) * BK, a.Tk);
-      load_rows<D, BK>(Vs + (st ^ 1) * BK * LD, vb, a.svt, (kt + 1) * BK, a.Tk);
+      load_rows<D, BK, LD, NT>(Ks + (st ^ 1) * BK * LD, kb, a.skt, (kt + 1) * BK, a.Tk);
+      load_rows<D, BK, LD, NT>(Vs + (st ^ 1) * BK * LD, vb, a.svt, (kt + 1) * BK, a.Tk);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -331,8 +177,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_mma_kernel(Args a) {
     float s[BK / 8][4], dp[BK / 8][4];
     zero<BK / 8>(s);
     zero<BK / 8>(dp);
-    strip_abt<D, BK>(s, Qs + 16 * warp * LD, Kt, lane);
-    strip_abt<D, BK>(dp, Gs + 16 * warp * LD, Vt, lane);
+    strip_abt<D, BK, LD>(s, Qs + 16 * warp * LD, Kt, lane);
+    strip_abt<D, BK, LD>(dp, Gs + 16 * warp * LD, Vt, lane);
 
     const int k0 = kt * BK;
     const bool guard = MASK || (k0 + BK > a.Tk) || (CAUSAL && k0 + BK - 1 > qw);
@@ -353,7 +199,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_mma_kernel(Args a) {
       }
     uint32_t df[BK / 16][4];
     to_a_fragments<BK>(df, s);
-    strip_pm<D, BK>(acc, df, Kt, lane);
+    strip_pm<D, BK, LD>(acc, df, Kt, lane);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   store_strip<D>(a.dq, acc, b, h, a.H, qw, a.Tq, lane);
@@ -399,10 +245,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_mma_kernel(Args a) {
   const int qt_begin = CAUSAL ? k0 / BQ : 0;
   const int n_qt = (a.Tq + BQ - 1) / BQ;
 
-  load_rows<D, BOWN>(Ks, kb, a.skt, k0, a.Tk);
-  load_rows<D, BOWN>(Vs, vb, a.svt, k0, a.Tk);
-  load_rows<D, BQ>(Qs, qb, a.sqt, qt_begin * BQ, a.Tq);
-  load_rows<D, BQ>(Gs, gb, a.sgt, qt_begin * BQ, a.Tq);
+  load_rows<D, BOWN, LD, NT>(Ks, kb, a.skt, k0, a.Tk);
+  load_rows<D, BOWN, LD, NT>(Vs, vb, a.svt, k0, a.Tk);
+  load_rows<D, BQ, LD, NT>(Qs, qb, a.sqt, qt_begin * BQ, a.Tq);
+  load_rows<D, BQ, LD, NT>(Gs, gb, a.sgt, qt_begin * BQ, a.Tq);
   load_row_stats(Ms, Ls, a, bh, qt_begin * BQ);
   cp_commit();
 
@@ -414,8 +260,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_mma_kernel(Args a) {
     const int st = (qt - qt_begin) & 1;
     if (qt + 1 < n_qt) {  // the next tile into the other stage
       const int nst = st ^ 1, q1 = (qt + 1) * BQ;
-      load_rows<D, BQ>(Qs + nst * BQ * LD, qb, a.sqt, q1, a.Tq);
-      load_rows<D, BQ>(Gs + nst * BQ * LD, gb, a.sgt, q1, a.Tq);
+      load_rows<D, BQ, LD, NT>(Qs + nst * BQ * LD, qb, a.sqt, q1, a.Tq);
+      load_rows<D, BQ, LD, NT>(Gs + nst * BQ * LD, gb, a.sgt, q1, a.Tq);
       load_row_stats(Ms + nst * BQ, Ls + nst * BQ, a, bh, q1);
       cp_commit();
       cp_wait<1>();
@@ -432,8 +278,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_mma_kernel(Args a) {
     float s[BQ / 8][4], dp[BQ / 8][4];
     zero<BQ / 8>(s);
     zero<BQ / 8>(dp);
-    strip_abt<D, BQ>(s, Ks + 16 * warp * LD, Qt, lane);
-    strip_abt<D, BQ>(dp, Vs + 16 * warp * LD, Gt, lane);
+    strip_abt<D, BQ, LD>(s, Ks + 16 * warp * LD, Qt, lane);
+    strip_abt<D, BQ, LD>(dp, Vs + 16 * warp * LD, Gt, lane);
 
     const int q0 = qt * BQ;
     const bool guard = MASK || (q0 + BQ > a.Tq) || (kw + 16 > a.Tk) ||
@@ -458,8 +304,8 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_mma_kernel(Args a) {
     uint32_t pf[BQ / 16][4], df[BQ / 16][4];
     to_a_fragments<BQ>(pf, s);
     to_a_fragments<BQ>(df, dp);
-    strip_pm<D, BQ>(dv, pf, Gt, lane);
-    strip_pm<D, BQ>(dk, df, Qt, lane);
+    strip_pm<D, BQ, LD>(dv, pf, Gt, lane);
+    strip_pm<D, BQ, LD>(dk, df, Qt, lane);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
   store_strip<D>(a.dk, dk, b, h, a.H, kw, a.Tk, lane);

@@ -1,6 +1,9 @@
-// Flash-attention forward partials for Hopper (sm_90a): two kernels.
+// Flash-attention forward partials in f32 for Hopper (sm_90a): two
+// kernels.
 //
-// Replace the TPU kernels of mpi4jax_tpu/kernels/flash_attention.py:
+// Replace the TPU kernels of mpi4jax_tpu/kernels/flash_attention.py for
+// f32 inputs (bf16 inputs take the tensor-core kernels of
+// flash_fwd_mma.cu):
 // - flash_fwd_kernel replaces _kernel (the non-causal streaming partials,
 //   with an optional (Tq, Tk) bool mask shared across batch and heads);
 // - flash_fwd_causal_kernel replaces _kernel_causal (the diagonal block of
@@ -13,10 +16,9 @@
 // that has seen no attendable key keeps m = -inf, l = 0, o = 0, never NaN.
 // The arithmetic follows the plain version (block_partials_plain in
 // mpi4jax_tpu_torch/kernels/flash_attention.py): f32 products of the
-// inputs (exact for bf16 inputs), scale applied to the f32 score, p
-// rounded to the input type before the PV product, f32 accumulation, o
-// rounded to the input type at the end.  expf is the accurate one; the
-// library is built with FMA contraction on and without fast math.
+// inputs, scale applied to the f32 score, f32 accumulation.  expf is the
+// accurate one; the library is built with FMA contraction on and without
+// fast math.
 //
 // Layout: q (B, Tq, H, D), k and v (B, Tk, H, D), read in place through
 // their batch, time and head strides (the last dimension is contiguous);
@@ -39,7 +41,6 @@
 // product reads them with V.  No tensor cores (wgmma), TMA or pipelining
 // of the next tile's loads yet.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -89,23 +90,6 @@ struct Elem<float> {
   }
   static __device__ __forceinline__ float round(float x) { return x; }
   static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const auto* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(pair[0]);
-    const float2 b = __bfloat1622float2(pair[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
 };
 
 // rows [row0, row0 + rows) of one (batch, head) slice into dst (row stride
@@ -336,29 +320,26 @@ cudaError_t dispatch_mode(const Args& a, int B, int causal, cudaStream_t stream)
   return launch(flash_fwd_kernel<D, T, false>, smem, a, B, stream);
 }
 
-template <typename T>
 cudaError_t dispatch_d(const Args& a, int B, int D, int causal, cudaStream_t stream) {
   switch (D) {
-    case 32: return dispatch_mode<32, T>(a, B, causal, stream);
-    case 64: return dispatch_mode<64, T>(a, B, causal, stream);
-    case 128: return dispatch_mode<128, T>(a, B, causal, stream);
+    case 32: return dispatch_mode<32, float>(a, B, causal, stream);
+    case 64: return dispatch_mode<64, float>(a, B, causal, stream);
+    case 128: return dispatch_mode<128, float>(a, B, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(const void* q, const void* k, const void* v, const void* mask, void* o,
-        void* m, void* l, int B, int H, int Tq, int Tk, int D, int bf16,
-        long long sqb, long long sqt, long long sqh, long long skb,
-        long long skt, long long skh, long long svb, long long svt,
-        long long svh, float scale, int causal, void* stream) {
+        void* m, void* l, int B, int H, int Tq, int Tk, int D, long long sqb,
+        long long sqt, long long sqh, long long skb, long long skt,
+        long long skh, long long svb, long long svt, long long svh,
+        float scale, int causal, void* stream) {
   Args a{q,   k,   v,   static_cast<const uint8_t*>(mask),
          o,   static_cast<float*>(m), static_cast<float*>(l),
          H,   Tq,  Tk,  sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
          scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = bf16 ? dispatch_d<__nv_bfloat16>(a, B, D, causal, s)
-                               : dispatch_d<float>(a, B, D, causal, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_d(a, B, D, causal, s));
 }
 
 }  // namespace
@@ -367,11 +348,10 @@ int run(const void* q, const void* k, const void* v, const void* mask, void* o,
 // null for none.  Returns the launch's cudaError_t.
 extern "C" int flash_fwd_launch(
     const void* q, const void* k, const void* v, const void* mask, void* o,
-    void* m, void* l, int B, int H, int Tq, int Tk, int D, int bf16,
-    long long sqb, long long sqt, long long sqh, long long skb, long long skt,
-    long long skh, long long svb, long long svt, long long svh, float scale,
-    void* stream) {
-  return run(q, k, v, mask, o, m, l, B, H, Tq, Tk, D, bf16, sqb, sqt, sqh,
+    void* m, void* l, int B, int H, int Tq, int Tk, int D, long long sqb,
+    long long sqt, long long sqh, long long skb, long long skt, long long skh,
+    long long svb, long long svt, long long svh, float scale, void* stream) {
+  return run(q, k, v, mask, o, m, l, B, H, Tq, Tk, D, sqb, sqt, sqh,
              skb, skt, skh, svb, svt, svh, scale, 0, stream);
 }
 
@@ -379,9 +359,9 @@ extern "C" int flash_fwd_launch(
 // cudaError_t.
 extern "C" int flash_fwd_causal_launch(
     const void* q, const void* k, const void* v, void* o, void* m, void* l,
-    int B, int H, int T, int D, int bf16, long long sqb, long long sqt,
-    long long sqh, long long skb, long long skt, long long skh, long long svb,
-    long long svt, long long svh, float scale, void* stream) {
-  return run(q, k, v, nullptr, o, m, l, B, H, T, T, D, bf16, sqb, sqt, sqh,
+    int B, int H, int T, int D, long long sqb, long long sqt, long long sqh,
+    long long skb, long long skt, long long skh, long long svb, long long svt,
+    long long svh, float scale, void* stream) {
+  return run(q, k, v, nullptr, o, m, l, B, H, T, T, D, sqb, sqt, sqh,
              skb, skt, skh, svb, svt, svh, scale, 1, stream);
 }

@@ -17,17 +17,23 @@ take the plain version (``block_partials_plain``, op for op the JAX
 package's jnp path, natively differentiable), or, with
 ``custom_backward=True``, the same autograd ``Function`` as the card (the
 counterpart of the JAX package's ``interpret=True``).  CUDA tensors go
-through ``FlashPartials``: its forward launches one of the two kernels of
-``csrc/flash_fwd.cu``, which replace the TPU kernels ``_kernel``
-(non-causal, optional mask: ``flash_fwd``) and ``_kernel_causal`` (the
-causal diagonal block: ``flash_fwd_causal``); its backward launches two
-kernels that replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, chosen
-by dtype: for f32 those of ``csrc/flash_bwd.cu`` on the CUDA cores
-(``flash_bwd_dq``, ``flash_bwd_dkv``), for bf16 those of
-``csrc/flash_bwd_mma.cu`` on the tensor cores (``flash_bwd_dq_mma``,
-``flash_bwd_dkv_mma``), each with its own launch counter.  A CUDA call
-launches the kernels or raises; nothing falls back to the plain
-version.
+through ``FlashPartials``.  Its forward launches one kernel that
+replaces the TPU kernel ``_kernel`` (non-causal, optional mask) or
+``_kernel_causal`` (the causal diagonal block); its backward launches
+two kernels that replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+Each is chosen by dtype, and each has its own launch counter:
+
+- f32, on the CUDA cores: ``flash_fwd`` and ``flash_fwd_causal`` of
+  ``csrc/flash_fwd.cu``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` of
+  ``csrc/flash_bwd.cu``;
+- bf16, on the tensor cores (``mma.sync``, with the warp-level helpers
+  of ``csrc/mma_bf16.cuh``): ``flash_fwd_mma`` and
+  ``flash_fwd_causal_mma`` of ``csrc/flash_fwd_mma.cu``,
+  ``flash_bwd_dq_mma`` and ``flash_bwd_dkv_mma`` of
+  ``csrc/flash_bwd_mma.cu``.
+
+A CUDA call launches the kernels or raises; nothing falls back to the
+plain version.
 
 The backward holds ``m`` constant, as the JAX package's custom VJP does:
 its cotangent is dropped, which is exact for every consumer that merges
@@ -36,8 +42,9 @@ stabilizer), and makes a function of ``m`` alone have zero gradient.
 
 Bound on an H100: operations.  At B=4, T=4096, H=8, D=128 (the width
 the JAX package measured its kernel at) a non-causal forward does
-4 B H T^2 D = 2.749e11 f32 operations, 4.10 ms at 67 TFLOP/s on the CUDA
-cores, against 0.080 ms for its 269 MB of inputs and outputs; the dq
+4 B H T^2 D = 2.749e11 operations: in f32 4.10 ms at 67 TFLOP/s on the
+CUDA cores, against 0.080 ms for its 269 MB of inputs and outputs; in
+bf16 0.278 ms at the 989 TFLOP/s tensor-core rate; the dq
 kernel does 6 B H T^2 D (6.15 ms) and the dk/dv kernel 8 B H T^2 D
 (8.21 ms), in bf16 0.417 and 0.556 ms at the 989 TFLOP/s tensor-core
 rate; causal calls do T(T+1)/2 of the T^2 score pairs.  Built with FMA
@@ -56,11 +63,15 @@ from . import _build
 SOURCE = _build.CSRC / "flash_fwd.cu"
 BWD_SOURCE = _build.CSRC / "flash_bwd.cu"
 MMA_SOURCE = _build.CSRC / "flash_bwd_mma.cu"
+FWD_MMA_SOURCE = _build.CSRC / "flash_fwd_mma.cu"
+MMA_HEADER = _build.CSRC / "mma_bf16.cuh"  # included by both *_mma sources
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
-counter = _build.counter_for("flash_fwd")
-counter_causal = _build.counter_for("flash_fwd_causal")
+counter = _build.counter_for("flash_fwd")  # f32
+counter_causal = _build.counter_for("flash_fwd_causal")  # f32
+counter_mma = _build.counter_for("flash_fwd_mma")  # bf16
+counter_causal_mma = _build.counter_for("flash_fwd_causal_mma")  # bf16
 counter_bwd_dq = _build.counter_for("flash_bwd_dq")
 counter_bwd_dkv = _build.counter_for("flash_bwd_dkv")
 counter_bwd_dq_mma = _build.counter_for("flash_bwd_dq_mma")
@@ -70,11 +81,14 @@ _libs = {}  # loaded libraries by source
 _C = ctypes
 _STRIDES = [_C.c_longlong] * 9
 _SIGNATURES = {
-    "flash_fwd_launch": ([_C.c_void_p] * 7 + [_C.c_int] * 6 + _STRIDES
+    "flash_fwd_launch": ([_C.c_void_p] * 7 + [_C.c_int] * 5 + _STRIDES
                          + [_C.c_float, _C.c_void_p]),
-    "flash_fwd_causal_launch": ([_C.c_void_p] * 6 + [_C.c_int] * 5 + _STRIDES
+    "flash_fwd_causal_launch": ([_C.c_void_p] * 6 + [_C.c_int] * 4 + _STRIDES
                                 + [_C.c_float, _C.c_void_p]),
 }
+# the bf16 forward kernels take the same arguments
+_FWD_MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
+                       for name, args in _SIGNATURES.items()}
 _BWD_STRIDES = [_C.c_longlong] * 12
 _BWD_SIGNATURES = {
     "flash_bwd_dq_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 6 + _BWD_STRIDES
@@ -88,8 +102,15 @@ _MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
 
 
 def spec():
-    """``(source, defines, headers, fmad)`` of the forward kernels' build."""
+    """``(source, defines, headers, fmad)`` of the f32 forward kernels'
+    build."""
     return SOURCE, {}, (), True
+
+
+def fwd_mma_spec():
+    """``(source, defines, headers, fmad)`` of the bf16 tensor-core
+    forward kernels' build."""
+    return FWD_MMA_SOURCE, {}, (MMA_HEADER,), True
 
 
 def bwd_spec():
@@ -100,7 +121,7 @@ def bwd_spec():
 def mma_spec():
     """``(source, defines, headers, fmad)`` of the bf16 tensor-core
     backward kernels' build."""
-    return MMA_SOURCE, {}, (), True
+    return MMA_SOURCE, {}, (MMA_HEADER,), True
 
 
 def _loaded(spec_of, signatures):
@@ -218,31 +239,56 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
     l = torch.empty_like(m)
     if b * h * tq == 0:
         return o, m, l
+    q, k, v = _fwd_layout(q, k, v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    bf16 = int(q.dtype == torch.bfloat16)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     outs = (o.data_ptr(), m.data_ptr(), l.data_ptr())
+    name, launch, counter_of = _fwd_kernel(q, causal)
     if causal:
-        err = _loaded(spec, _SIGNATURES).flash_fwd_causal_launch(
-            *ptrs, *outs, b, h, tq, d, bf16, *strides, scale, stream)
-        _build.raise_on_error("flash_fwd_causal", err)
-        counter_causal.count(torch.cuda.is_current_stream_capturing())
+        err = launch(*ptrs, *outs, b, h, tq, d, *strides, scale, stream)
     else:
         mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
-        err = _loaded(spec, _SIGNATURES).flash_fwd_launch(
-            *ptrs, None if mask_u8 is None else mask_u8.data_ptr(), *outs,
-            b, h, tq, tk, d, bf16, *strides, scale, stream)
-        _build.raise_on_error("flash_fwd", err)
-        counter.count(torch.cuda.is_current_stream_capturing())
+        err = launch(*ptrs, None if mask_u8 is None else mask_u8.data_ptr(), *outs,
+                     b, h, tq, tk, d, *strides, scale, stream)
+    _build.raise_on_error(name, err)
+    counter_of.count(torch.cuda.is_current_stream_capturing())
     return o, m, l
 
 
+def _fwd_route(dtype, causal: bool):
+    """``(name, spec_of, signatures)`` of the forward kernel for ``dtype``:
+    the tensor-core kernels of ``csrc/flash_fwd_mma.cu`` for bf16, those
+    of ``csrc/flash_fwd.cu`` for f32."""
+    name = "flash_fwd_causal" if causal else "flash_fwd"
+    if dtype == torch.bfloat16:
+        return name + "_mma", fwd_mma_spec, _FWD_MMA_SIGNATURES
+    return name, spec, _SIGNATURES
+
+
+def _fwd_kernel(q, causal: bool):
+    """``(name, C function, counter)`` of the forward kernel for ``q``'s
+    dtype (``_fwd_route``), its library built and loaded at first use."""
+    name, spec_of, signatures = _fwd_route(q.dtype, causal)
+    lib = _loaded(spec_of, signatures)
+    return name, getattr(lib, name + "_launch"), _build.counter_for(name)
+
+
+def _fwd_layout(q, k, v):
+    """``(q, k, v)`` as the forward kernels read them: the bf16 kernels
+    copy 16 bytes at once (``cp.async``), so a bf16 view whose strides are
+    not multiples of 8 elements, or whose data is not 16-byte aligned,
+    becomes a contiguous copy; f32 tensors are read in place."""
+    if q.dtype == torch.bfloat16:
+        return tuple(_kernel_layout(t, 8) for t in (q, k, v))
+    return q, k, v
+
+
 def _kernel_layout(t, elems: int):
-    """``t`` as a backward kernel reads it: the last dim contiguous, the
-    other strides multiples of ``elems`` and the data aligned to ``elems``
-    elements; else a contiguous copy (a copy of the layout, not of the
-    computation)."""
+    """``t`` as a kernel that reads ``elems`` elements at once takes it:
+    the last dim contiguous, the other strides multiples of ``elems`` and
+    the data aligned to ``elems`` elements; else a contiguous copy (a copy
+    of the layout, not of the computation)."""
     if t.stride(3) != 1 or any(s % elems for s in t.stride()[:3]) \
             or t.data_ptr() % (elems * t.element_size()):
         return t.clone(memory_format=torch.contiguous_format)

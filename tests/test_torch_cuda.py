@@ -238,6 +238,24 @@ def assert_partials_band(want, got, o_rel):
         assert torch.equal(a[~fin], b[~fin])
 
 
+FWD_COUNTERS = (FA.counter, FA.counter_causal, FA.counter_mma, FA.counter_causal_mma)
+
+
+def fwd_launches():
+    """Launches so far of (flash_fwd, flash_fwd_causal, flash_fwd_mma,
+    flash_fwd_causal_mma)."""
+    return np.array([c.launches for c in FWD_COUNTERS])
+
+
+def assert_one_forward(before, dtype, causal):
+    """One launch of the forward kernel of ``dtype``'s route (the
+    tensor-core ``*_mma`` kernels for bf16, the f32 ones for f32) and
+    ``causal``, and none of the others."""
+    want = [0, 0, 0, 0]
+    want[2 * (dtype == torch.bfloat16) + int(causal)] = 1
+    assert (fwd_launches() - before).tolist() == want
+
+
 @pytest.fixture
 def full_f32_products():
     """The plain versions multiply in full f32 (no TF32)."""
@@ -256,11 +274,11 @@ def test_flash_kernel_matches_plain(full_f32_products, b, tq, tk, h, d, masked, 
     q, k, v, mask = flash_inputs(b, tq, tk, h, d, dtype)
     mask = mask if masked else None
     scale = 1.0 / np.sqrt(d)
-    before = FA.counter.launches
+    before = fwd_launches()
     got = FA.flash_block_partials(q, k, v, mask, scale=scale)
     want = FA.block_partials_plain(q, k, v, mask, scale=scale)
     torch.cuda.synchronize()
-    assert FA.counter.launches == before + 1
+    assert_one_forward(before, dtype, False)
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     assert_partials_band(want, got, 1e-5 if dtype == torch.float32 else 4 * 2**-8)
 
@@ -272,11 +290,11 @@ def test_flash_kernel_matches_plain(full_f32_products, b, tq, tk, h, d, masked, 
 def test_flash_causal_kernel_matches_plain(full_f32_products, b, t, h, d, dtype):
     q, k, v, _ = flash_inputs(b, t, t, h, d, dtype, seed=3)
     scale = 1.0 / np.sqrt(d)
-    before = FA.counter_causal.launches
+    before = fwd_launches()
     got = FA.flash_block_partials(q, k, v, None, scale=scale, causal=True)
     want = FA.block_partials_plain(q, k, v, None, scale=scale, causal=True)
     torch.cuda.synchronize()
-    assert FA.counter_causal.launches == before + 1
+    assert_one_forward(before, dtype, True)
     assert_partials_band(want, got, 1e-4 if dtype == torch.float32 else 4 * 2**-8)
 
 
@@ -308,6 +326,81 @@ def test_flash_kernel_mask_none_equals_all_true():
     b = FA.flash_block_partials(q, k, v, ones, scale=0.2)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_kernel_fully_masked_rows(full_f32_products):
+    """The tensor-core forward: rows with no attendable key give exactly
+    (0, -inf, 0), never NaN, in a partly masked block whose other rows
+    agree with plain; a wholly masked block gives it on every row."""
+    q, k, v, _ = flash_inputs(2, 100, 130, 2, 64, torch.bfloat16, seed=1)
+    mask = torch.zeros((100, 130), dtype=torch.bool, device="cuda")
+    mask[::3, 5] = True  # a third of the rows see one key, the rest none
+    before = fwd_launches()
+    o, m, l = FA.flash_block_partials(q, k, v, mask, scale=0.1)
+    torch.cuda.synchronize()
+    assert_one_forward(before, torch.bfloat16, False)
+    empty = torch.ones(100, dtype=torch.bool, device="cuda")
+    empty[::3] = False
+    assert bool(torch.isneginf(m[:, :, empty]).all())
+    assert bool((l[:, :, empty] == 0).all()) and bool((o[:, empty] == 0).all())
+    assert not bool(torch.isnan(o).any())
+    assert_partials_band(FA.block_partials_plain(q, k, v, mask, scale=0.1),
+                         (o, m, l), 4 * 2**-8)
+    o, m, l = FA.flash_block_partials(q, k, v, torch.zeros_like(mask), scale=0.1)
+    assert bool(torch.isneginf(m).all()) and bool((l == 0).all()) and bool((o == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tk", [90, 128], ids=["bytes", "words"])
+def test_flash_bf16_kernel_mask_none_equals_all_true(tk):
+    """An all-True mask gives the unmasked bits, whether the mask tile is
+    staged byte by byte (Tk not a multiple of 4) or by 4-byte copies."""
+    need_cuda()
+    q, k, v, _ = flash_inputs(1, 70, tk, 2, 32, torch.bfloat16, seed=2)
+    ones = torch.ones((70, tk), dtype=torch.bool, device="cuda")
+    a = FA.flash_block_partials(q, k, v, None, scale=0.2)
+    b = FA.flash_block_partials(q, k, v, ones, scale=0.2)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "mask", "causal"])
+def test_flash_bf16_kernel_is_deterministic(mode):
+    """Each block owns its query rows (no atomics): two calls give the
+    same bits."""
+    need_cuda()
+    q, k, v, mask = flash_inputs(2, 300, 300, 2, 128, torch.bfloat16, seed=9)
+    mask = mask if mode == "mask" else None
+    first = FA.flash_block_partials(q, k, v, mask, scale=0.1, causal=mode == "causal")
+    second = FA.flash_block_partials(q, k, v, mask, scale=0.1, causal=mode == "causal")
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_bf16_kernel_takes_stride4_views(causal):
+    """q, k, v views whose strides are multiples of 4 but not of 8 (and
+    whose data is 8- but not 16-byte aligned) pass the input check; the
+    tensor-core forward copies 16 bytes at once, so it works on a
+    contiguous copy and gives the partials of that copy."""
+    need_cuda()
+    rng = np.random.default_rng(11)
+    wide = [torch.from_numpy(rng.standard_normal((2, 90, 2, 68), dtype=np.float32))
+            .to("cuda", torch.bfloat16) for _ in range(3)]
+    q, k, v = (x[..., 4:68] for x in wide)
+    assert q.stride() == (12240, 136, 68, 1) and q.data_ptr() % 16 == 8
+    before = fwd_launches()
+    got = FA.flash_block_partials(q, k, v, None, scale=0.1, causal=causal)
+    want = FA.flash_block_partials(*(x.contiguous() for x in (q, k, v)), None,
+                                   scale=0.1, causal=causal)
+    torch.cuda.synchronize()
+    assert (fwd_launches() - before).tolist() == ([0, 0, 0, 2] if causal
+                                                  else [0, 0, 2, 0])
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
