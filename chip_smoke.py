@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from the six sources in this checkout (one
+Builds the port's kernels from the seven sources in this checkout (one
 ``nvcc`` each, all at once), holds each against its plain PyTorch version
 at the full width of its path, drives the paths that run them, checks
 that each path launched its kernels and that its output is right, and
@@ -27,9 +27,10 @@ read just after:
    ``sw_wide``, and 20 steps of the split-phase path through ``sw_phase``.
    Four processes share one card, so these times are not a scaling result.
 4. long-context attention at the width the JAX package measured its flash
-   kernel at (B=4, T=4096, H=8, D=128, f32): the two flash kernels
-   (``flash_fwd``, ``flash_fwd_causal``) against their plain version in
-   f32 and bf16, masked, ragged and fully masked, beside
+   kernel at (B=4, T=4096, H=8, D=128, f32): the forward kernels against
+   their plain version (f32: ``flash_fwd``, ``flash_fwd_causal``; bf16:
+   the tensor-core ``flash_fwd_mma``, ``flash_fwd_causal_mma``), masked,
+   ragged and fully masked, and in bf16 a query view of stride 4, beside
    ``scaled_dot_product_attention``; single-GPU ``flash_attention``,
    causal and not, against ``reference_attention``; and the demo's entry
    point (``models.long_context_attention.main``) on four gloo ranks on
@@ -49,9 +50,9 @@ read just after:
    non-causal ring and causal Ulysses attention on four gloo ranks, each
    rank against its slice of single-GPU ``flash_attention``'s.
    TF32 is off: every f32 product on the card is full f32.
-6. bf16 attention training at the same width: single-GPU
-   ``flash_attention`` forward and backward on bf16 inputs, causal and
-   not, through the tensor-core backward kernels, its gradients against
+6. bf16 attention at the same width: single-GPU ``flash_attention`` on
+   bf16 inputs, causal and not, forward alone and forward and backward,
+   through the tensor-core kernels, its output and gradients against
    those of ``reference_attention`` on the same values in f32.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
@@ -376,11 +377,24 @@ def sdpa(q, k, v, mask, causal):
     return ms, SDPBackend(choice).name
 
 
+FWD_NAMES = ("flash_fwd", "flash_fwd_causal", "flash_fwd_mma", "flash_fwd_causal_mma")
+
+
+def fwd_counters(FA):
+    return dict(zip(FWD_NAMES, (FA.counter, FA.counter_causal, FA.counter_mma,
+                                FA.counter_causal_mma)))
+
+
 def check_flash_kernels(FA, dev):
-    """Both flash kernels against their plain version at full width: f32
-    unmasked, masked (p = 0.8) and causal; bf16 unmasked and causal; a
-    ragged masked block (4000 x 4100); a fully masked block.  Returns the
-    worst difference of each kernel and its cases."""
+    """The flash forward kernels against their plain version at full
+    width: f32 (``flash_fwd``, ``flash_fwd_causal``) and bf16 (the
+    tensor-core ``flash_fwd_mma``, ``flash_fwd_causal_mma``) each
+    unmasked, masked (p = 0.8), causal and a ragged masked block (4000 x
+    4100) through a strided query view; in bf16 also a fully masked
+    block, which must give (0, -inf, 0) on every row, and a query view
+    whose strides are multiples of 4 but not of 8, which must give the
+    partials of its contiguous copy.  Each call must launch its dtype's
+    kernel.  Returns the worst difference of each kernel and its cases."""
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((b, t, h, d), device=dev, generator=gen)
@@ -388,28 +402,56 @@ def check_flash_kernels(FA, dev):
     scale = 1.0 / d**0.5
     mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
     tq_r, tk_r = t - 96, t + 4  # a ragged block: 4000 x 4100 at T = 4096
+    k_r, v_r = (torch.randn((b, tk_r, h, d), device=dev, generator=gen)
+                for _ in range(2))
+    mask_r = torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    # the queries of a (B, T, H, D + 4) tensor: strides multiples of 4, not 8
+    q4 = torch.randn((b, t, h, d + 4), device=dev, generator=gen).bfloat16()[..., 4:]
+    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
     cases = [
         ("f32", q, k, v, None, False),
         ("f32,mask", q, k, v, mask, False),
         ("f32,causal", q, k, v, None, True),
-        ("bf16", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, False),
-        ("bf16,causal", q.bfloat16(), k.bfloat16(), v.bfloat16(), None, True),
+        ("bf16", qb, kb, vb, None, False),
+        ("bf16,causal", qb, kb, vb, None, True),
         # the queries a strided view: the kernel reads by strides
-        (f"f32,ragged {tq_r}x{tk_r},mask", q[:, :tq_r],
-         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
-         torch.randn((b, tk_r, h, d), device=dev, generator=gen),
-         torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8, False),
+        (f"f32,ragged {tq_r}x{tk_r},mask", q[:, :tq_r], k_r, v_r, mask_r, False),
+        ("bf16,mask", qb, kb, vb, mask, False),
+        (f"bf16,ragged {tq_r}x{tk_r},mask", qb[:, :tq_r], k_r.bfloat16(),
+         v_r.bfloat16(), mask_r, False),
+        ("bf16,fully masked", qb, kb, vb, none, False),
+        ("bf16,q stride 4", q4, kb, vb, None, False),
     ]
-    worst = {"flash_fwd": 0.0, "flash_fwd_causal": 0.0}
-    by_case = {"flash_fwd": {}, "flash_fwd_causal": {}}
+    counters = fwd_counters(FA)
+    worst = dict.fromkeys(FWD_NAMES, 0.0)
+    by_case = {name: {} for name in FWD_NAMES}
     for label, qq, kk, vv, mm, causal in cases:
-        name = "flash_fwd_causal" if causal else "flash_fwd"
+        bf16 = qq.dtype == torch.bfloat16
+        name = ("flash_fwd_causal" if causal else "flash_fwd") + ("_mma" if bf16 else "")
         want = FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal)
+        before = {n: c.launches for n, c in counters.items()}
         got = FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal)
         torch.cuda.synchronize()
-        o_rel = (FLASH_BF16_O_REL if qq.dtype == torch.bfloat16
+        moved = [n for n, c in counters.items() if c.launches != before[n]]
+        if moved != [name]:
+            raise AssertionError(f"forward({label}) launched {moved}, expected {name}")
+        o_rel = (FLASH_BF16_O_REL if bf16
                  else FLASH_CAUSAL_O_REL if causal else FLASH_REL["o"])
         errs = flash_compare(f"{name}({label})", want, got, o_rel)
+        if mm is none:
+            o, m, l = got
+            if not (bool(torch.isneginf(m).all()) and bool((l == 0).all())
+                    and bool((o == 0).all())):
+                raise AssertionError(f"{name}: a fully masked block is not (0, -inf, 0)")
+            print(f"  {name}(bf16, fully masked): m = -inf, l = 0, o = 0 on every row")
+        if qq is q4:
+            copy = FA.flash_block_partials(q4.contiguous(), kk, vv, mm, scale=scale)
+            if not all(torch.equal(x, y) for x, y in zip(copy, got)):
+                raise AssertionError(f"{name}: a stride-4 query view does not give "
+                                     "the partials of its contiguous copy")
+            print(f"  {name}(bf16, q strides {q4.stride()}): the partials of its "
+                  "contiguous copy, bit for bit")
         del want, got
         tq, tk = qq.shape[1], kk.shape[1]
         pairs = (tq * (tq + 1) // 2 if causal else tq * tk if mm is None
@@ -427,7 +469,6 @@ def check_flash_kernels(FA, dev):
         worst[name] = max(worst[name], *errs.values())
 
     # no attendable key: m = -inf, l = 0, o = 0, never NaN
-    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
     o, m, l = FA.flash_block_partials(q, k, v, none, scale=scale)
     torch.cuda.synchronize()
     if not (bool(torch.isneginf(m).all()) and bool((l == 0).all())
@@ -718,11 +759,57 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
     return worst, runs
 
 
+def bf16_attention_forward(TA, FA, q, k, v):
+    """The bf16 path forward alone: ``flash_attention`` on the bf16 values
+    of ``q, k, v`` at full width, causal and not.  Each call launches
+    ``flash_fwd_mma`` or ``flash_fwd_causal_mma`` once and neither f32
+    forward kernel; its bf16 output holds 4 * 2^-8 of max|ref| against
+    ``reference_attention`` on the same values in f32.  Returns the worst
+    difference, the launches of both calls and each call's time and
+    tokens/s."""
+    b, t = q.shape[:2]
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    counters = fwd_counters(FA)
+    worst, runs, total = 0.0, {}, dict.fromkeys(counters, 0)
+    for causal in (False, True):
+        for c in counters.values():
+            c.launches = 0
+        out = TA.flash_attention(qb, kb, vb, causal=causal)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        want = (0, 0) + ((0, 1) if causal else (1, 0))
+        if tuple(launches.values()) != want:
+            raise AssertionError(f"bf16 flash_attention(causal={causal}) launched "
+                                 f"{launches}, expected {want}")
+        for n in total:
+            total[n] += launches[n]
+        ref = TA.reference_attention(*(x.float() for x in (qb, kb, vb)), causal=causal)
+        lim = FLASH_BF16_O_REL * ref.abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        if out.dtype != torch.bfloat16 or not bool(torch.isfinite(out).all()) \
+                or err > lim:
+            raise AssertionError(f"bf16 flash_attention(causal={causal}) is {out.dtype}, "
+                                 f"not finite or off reference_attention by {err:.3e} "
+                                 f"> {lim:.3e}")
+        del ref, out
+        ms = time_ms(lambda: TA.flash_attention(qb, kb, vb, causal=causal),
+                     reps=20, warmup=5)
+        print(f"flash_attention(causal={causal}) bf16 forward at B={b}, T={t}: "
+              f"{ms:.4f} ms, {b * t / ms * 1e3:.0f} tokens/s; max|diff| from "
+              f"reference_attention in f32 {err:.3e} (band {lim:.3e}); launches "
+              f"{launches}")
+        runs["causal" if causal else "full"] = {"ms": ms, "tokens_per_s": b * t / ms * 1e3,
+                                                "max_abs_err": err}
+        worst = max(worst, err)
+    return worst, total, runs
+
+
 def bf16_attention_grads(TA, FA, q, k, v):
     """The bf16 path: autograd through ``flash_attention`` on the bf16
     values of ``q, k, v`` at full width, causal and not.  Each forward and
-    backward launches its forward kernel once and ``flash_bwd_dq_mma`` and
-    ``flash_bwd_dkv_mma`` once each, and neither f32 backward kernel; the
+    backward launches its tensor-core forward kernel (``flash_fwd_mma`` or
+    ``flash_fwd_causal_mma``) once and ``flash_bwd_dq_mma`` and
+    ``flash_bwd_dkv_mma`` once each, and no f32 kernel; the
     bf16 gradients hold 4 * 2^-8 of max|ref| against those of
     ``reference_attention`` on the same values in f32.  Returns the worst
     difference, the launches of both runs and each run's time and
@@ -731,9 +818,9 @@ def bf16_attention_grads(TA, FA, q, k, v):
     qb, kb, vb = (x.bfloat16() for x in (q, k, v))
     gen = torch.Generator(device=q.device).manual_seed(3)
     g = torch.randn(q.shape, device=q.device, generator=gen).bfloat16()
-    counters = dict(zip(("flash_fwd", "flash_fwd_causal") + BWD_NAMES, (
-        FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv,
-        FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)))
+    counters = {**fwd_counters(FA), **dict(zip(BWD_NAMES, (
+        FA.counter_bwd_dq, FA.counter_bwd_dkv, FA.counter_bwd_dq_mma,
+        FA.counter_bwd_dkv_mma)))}
     worst, runs, total = 0.0, {}, dict.fromkeys(counters, 0)
     for causal in (False, True):
         for c in counters.values():
@@ -742,7 +829,7 @@ def bf16_attention_grads(TA, FA, q, k, v):
         TA.flash_attention(*leaves, causal=causal).backward(g)
         torch.cuda.synchronize()
         launches = {n: c.launches for n, c in counters.items()}
-        want = ((0, 1) if causal else (1, 0)) + (0, 0, 1, 1)
+        want = (0, 0) + ((0, 1) if causal else (1, 0)) + (0, 0, 1, 1)
         if tuple(launches.values()) != want:
             raise AssertionError(f"bf16 flash_attention(causal={causal}) launched "
                                  f"{launches}, expected {want}")
@@ -787,7 +874,8 @@ def single_gpu_training(LCT, TA, dev):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training did not reduce the loss: {losses}")
     want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq": 1,
-            "flash_bwd_dkv": 1, "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
+            "flash_bwd_dkv": 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
+            "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
     for i, got in enumerate(res["launches"]):
         if got != want:
             raise AssertionError(f"training step {i} launched {got}, expected {want}")
@@ -847,7 +935,8 @@ def four_rank_training(LCT, launch, single, device):
             raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
         s = r % 2  # the rank's sp index
         want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq": s + 1,
-                "flash_bwd_dkv": s + 1, "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
+                "flash_bwd_dkv": s + 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
+                "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
         for i, got in enumerate(res["launches"]):
             if got != want:
                 raise AssertionError(f"rank {r} step {i} launched {got}, expected {want}")
@@ -1022,7 +1111,7 @@ def main():
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
     libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec(),
-                              FA.bwd_spec(), FA.mma_spec()])
+                              FA.bwd_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("sw_steps", "sw_phase", "sw_wide"):
@@ -1032,6 +1121,7 @@ def main():
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd.build.log")
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_mma.build.log")
+    print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_mma.build.log")
 
     dev = torch.device("cuda")
     cfg = Config(nx=3600, ny=1800)
@@ -1215,9 +1305,11 @@ def main():
                                                                           "cuda:0")
     torch.cuda.empty_cache()
 
-    # -- bf16 attention training: the tensor-core backward kernels ---------
+    # -- bf16 attention: the tensor-core forward and backward kernels -----
     q, k, v = (torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
                for x in LCA.demo_data(0, 4, ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
+    bf16_fwd_worst, bf16_fwd_launches, bf16_fwd_runs = bf16_attention_forward(
+        TA, FA, q, k, v)
     bf16_worst, bf16_launches, bf16_runs = bf16_attention_grads(TA, FA, q, k, v)
     del q, k, v
 
@@ -1339,6 +1431,31 @@ def main():
         })
     kernels[-1]["paths"] = {"bf16_attention_grads_1gpu": bf16_runs,
                             "bf16_grads_max_abs_err_vs_f32_reference": bf16_worst}
+    for name, main_case, replaces in (
+        ("flash_fwd_mma", "bf16", ":122"),
+        ("flash_fwd_causal_mma", "bf16,causal", ":166"),
+    ):
+        case = flash_cases[name][main_case]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mpi4jax_tpu_torch/csrc/flash_fwd_mma.cu",
+            "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
+            # bf16 flash_attention forward alone, then forward + backward,
+            # causal and not
+            "launches": bf16_fwd_launches[name] + bf16_launches[name],
+            "max_abs_err": flash_worst[name],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "library": f"scaled_dot_product_attention ({case['library']})",
+            "ok": True,
+            "by_case": flash_cases[name],
+        })
+    kernels[-1]["paths"] = {"bf16_attention_forward_1gpu": bf16_fwd_runs,
+                            "bf16_forward_max_abs_err_vs_f32_reference": bf16_fwd_worst}
     print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
