@@ -239,12 +239,12 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
     l = torch.empty_like(m)
     if b * h * tq == 0:
         return o, m, l
-    q, k, v = _fwd_layout(q, k, v)
+    q, k, v = _input_layout(q, k, v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     outs = (o.data_ptr(), m.data_ptr(), l.data_ptr())
-    name, launch, counter_of = _fwd_kernel(q, causal)
+    name, launch, launch_counter = _fwd_kernel(q, causal)
     if causal:
         err = launch(*ptrs, *outs, b, h, tq, d, *strides, scale, stream)
     else:
@@ -252,7 +252,7 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
         err = launch(*ptrs, None if mask_u8 is None else mask_u8.data_ptr(), *outs,
                      b, h, tq, tk, d, *strides, scale, stream)
     _build.raise_on_error(name, err)
-    counter_of.count(torch.cuda.is_current_stream_capturing())
+    launch_counter.count(torch.cuda.is_current_stream_capturing())
     return o, m, l
 
 
@@ -274,11 +274,12 @@ def _fwd_kernel(q, causal: bool):
     return name, getattr(lib, name + "_launch"), _build.counter_for(name)
 
 
-def _fwd_layout(q, k, v):
-    """``(q, k, v)`` as the forward kernels read them: the bf16 kernels
-    copy 16 bytes at once (``cp.async``), so a bf16 view whose strides are
-    not multiples of 8 elements, or whose data is not 16-byte aligned,
-    becomes a contiguous copy; f32 tensors are read in place."""
+def _input_layout(q, k, v):
+    """``(q, k, v)`` as the kernels of their dtype read them: the bf16
+    kernels copy 16 bytes at once (``cp.async``), so a bf16 view whose
+    strides are not multiples of 8 elements, or whose data is not 16-byte
+    aligned, becomes a contiguous copy; f32 tensors, which the f32 kernels
+    read 4 elements at a time, are read in place."""
     if q.dtype == torch.bfloat16:
         return tuple(_kernel_layout(t, 8) for t in (q, k, v))
     return q, k, v
@@ -312,8 +313,7 @@ def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
     # a cotangent comes as autograd made it: the kernels read it by strides
     # when they can
     g_o = _kernel_layout(g_o.to(q.dtype), elems)
-    if elems == 8:
-        q, k, v = (_kernel_layout(t, elems) for t in (q, k, v))
+    q, k, v = _input_layout(q, k, v)
     m = m.float().contiguous()
     g_l = g_l.float().contiguous()
     mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)

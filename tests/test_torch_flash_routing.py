@@ -50,23 +50,23 @@ def _stride4_views(dtype):
     return tuple(x[..., 4:68] for x in wide)
 
 
-def test_fwd_layout_copies_bf16_views_the_mma_kernels_cannot_read():
+def test_input_layout_copies_bf16_views_the_mma_kernels_cannot_read():
     views = _stride4_views(torch.bfloat16)
     assert views[0].stride() == (12240, 136, 68, 1)
-    got = FA._fwd_layout(*views)
+    got = FA._input_layout(*views)
     for view, t in zip(views, got):
         assert t.is_contiguous() and t.data_ptr() != view.data_ptr()
         assert torch.equal(t, view)
 
 
-def test_fwd_layout_reads_f32_and_aligned_bf16_in_place():
+def test_input_layout_reads_f32_and_aligned_bf16_in_place():
     views = _stride4_views(torch.float32)
-    assert all(a is b for a, b in zip(FA._fwd_layout(*views), views))
+    assert all(a is b for a, b in zip(FA._input_layout(*views), views))
     rng = np.random.default_rng(1)
     # a time slice of a contiguous bf16 tensor: strides multiples of 8
     full = torch.from_numpy(rng.standard_normal((2, 96, 2, 64), dtype=np.float32))
     sliced = tuple(full.bfloat16()[:, 8:72] for _ in range(3))
-    assert all(a is b for a, b in zip(FA._fwd_layout(*sliced), sliced))
+    assert all(a is b for a, b in zip(FA._input_layout(*sliced), sliced))
 
 
 def test_mma_specs_cover_the_shared_header():
