@@ -37,10 +37,11 @@ read just after:
    this card, 1024 tokens each: causal and non-causal ring, causal
    Ulysses, each rank against its slice of single-GPU ``flash_attention``.
 5. long-context training at the same width: the backward kernels against
-   their plain version in the forward's cases (f32: ``flash_bwd_dq``,
-   ``flash_bwd_dkv``; bf16: the tensor-core ``flash_bwd_dq_mma``,
-   ``flash_bwd_dkv_mma``), beside ``scaled_dot_product_attention``'s
-   backward;
+   their plain version in the forward's cases (f32: the 3xTF32
+   tensor-core ``flash_bwd_dq_tf32``, ``flash_bwd_dkv_tf32``, whose
+   library must hold TF32 ``HMMA`` instructions; bf16: the tensor-core
+   ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``), beside
+   ``scaled_dot_product_attention``'s backward;
    gradients of single-GPU ``flash_attention`` against
    ``reference_attention``'s; five SGD steps of the training example
    (``models.long_context_training.main``, d_model 1024, 8 heads, d_ff
@@ -49,7 +50,9 @@ read just after:
    on a (2,2) grid of (dp, sp); and the gradients of causal and
    non-causal ring and causal Ulysses attention on four gloo ranks, each
    rank against its slice of single-GPU ``flash_attention``'s.
-   TF32 is off: every f32 product on the card is full f32.
+   TF32 is off in PyTorch: every f32 product of the plain versions and
+   of cuBLAS is full f32; the f32 backward kernels compute theirs by
+   3xTF32, which keeps f32 accuracy.
 6. bf16 attention at the same width: single-GPU ``flash_attention`` on
    bf16 inputs, causal and not, forward alone and forward and backward,
    through the tensor-core kernels, its output and gradients against
@@ -60,6 +63,7 @@ a checkout of the repository.  Every phase raises on failure.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -69,10 +73,11 @@ import numpy as np
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores, dense bf16 FLOP/s of the tensor cores
+# outside the tensor cores, dense bf16 and TF32 FLOP/s of the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
+PEAK_TF32_PER_S = 494.7e12
 # f32 operations per cell and step of csrc/sw_steps.cu, counted from its
 # source (a division counts as one)
 OPS_PER_CELL_STEP = 107
@@ -311,16 +316,18 @@ def shared_card_rank(rank, t1, device, nx, ny):
 
 def print_flash_ptxas(log):
     """Registers and spills of the full-width (D = 128) flash kernels, from
-    the ``-Xptxas -v`` log (the ``*_mma`` kernels take bf16 only)."""
+    the ``-Xptxas -v`` log (the ``*_mma`` kernels take bf16 only, the
+    ``*_tf32`` ones f32 only)."""
     name = None
     for line in log.read_text().splitlines():
-        entry = re.search(r"(flash_(?:fwd(?:_causal)?|bwd_dq|bwd_dkv)(?:_mma)?_kernel)"
+        entry = re.search(r"(flash_(?:fwd(?:_causal)?|bwd_dq|bwd_dkv)(?:_mma|_tf32)?_kernel)"
                           r"ILi(\d+)E(f|13__nv_bfloat16)?((?:Lb[01]E)*)", line)
         if entry:
             kind, d, dtype, flags = entry.groups()
             extra = "".join(f", {n}" for n, f in zip(
                 ("mask", "causal"), re.findall(r"Lb([01])E", flags)) if f == "1")
-            name = (f"{kind}<D={d}, {'f32' if dtype == 'f' else 'bf16'}{extra}>"
+            f32 = dtype == "f" or "_tf32" in kind
+            name = (f"{kind}<D={d}, {'f32' if f32 else 'bf16'}{extra}>"
                     if d == "128" else None)
         elif name and ("registers" in line or "spill" in line):
             print(f"  ptxas {name}:", line.replace("ptxas info    :", "").strip())
@@ -565,7 +572,9 @@ def bwd_need(q, k, pairs, masked, outputs):
     g_o read once, m and g_l read, its outputs (``"dq"``, or ``"dkv"``: dk
     and dv) written once (and the mask read); 3 products of D per score
     pair for dq (s, dp, ds k), 4 for dk/dv (s, dp, ds q, p g_o), at the
-    inputs' peak rate."""
+    inputs' peak rate: bf16 on the tensor cores; f32 also on them by
+    3xTF32, three TF32 operations for each f32 one, so a third of the
+    TF32 rate (``f32_bound`` gives the CUDA cores' bound)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     es = q.element_size()
@@ -573,8 +582,17 @@ def bwd_need(q, k, pairs, masked, outputs):
     moved += tq * tk if masked else 0
     moved += es * (b * tq * h * d if outputs == "dq" else 2 * b * tk * h * d)
     products = 3 if outputs == "dq" else 4
-    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_F32_PER_S
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_TF32_PER_S / 3
     return moved, 2 * products * d * pairs * b * h, peak
+
+
+def f32_bound(case, moved, ops):
+    """Add to an f32 backward ``case`` the bound of the same call on the
+    CUDA cores' f32 rate (the bound of the PR 4 design, kept so that rows
+    compare across designs); print it."""
+    case["f32_cuda_core_bound_ms"] = bound_ms(moved, ops, PEAK_F32_PER_S)[0]
+    print(f"    f32 CUDA-core bound {case['f32_cuda_core_bound_ms']:.4f} ms; "
+          f"kernel at {case['bound_ms'] / case['ms']:.1%} of the 3xTF32 bound")
 
 
 def sdpa_bwd(q, k, v, mask, causal, g_o):
@@ -618,16 +636,37 @@ def bwd_compare(label, want, got, dtype):
     return errs
 
 
-BWD_NAMES = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+BWD_NAMES = ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32", "flash_bwd_dq_mma",
+             "flash_bwd_dkv_mma")
+
+
+def bwd_counters(FA):
+    """The backward kernels' launch counters, by ``BWD_NAMES``."""
+    return dict(zip(BWD_NAMES, (FA.counter_bwd_dq_tf32, FA.counter_bwd_dkv_tf32,
+                                FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)))
+
+
+def sass_tf32_mma(lib, nvcc):
+    """The number of TF32 tensor-core instructions (``HMMA...TF32``) in the
+    machine code of library ``lib``, by ``cuobjdump -sass`` (beside
+    ``nvcc``); raises if there is none."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    n = len(re.findall(r"HMMA\.\w+\.F32\.TF32", sass))
+    print(f"  {lib.name}: {n} HMMA TF32 instructions in its SASS")
+    if n == 0:
+        raise AssertionError(f"{lib.name} holds no TF32 mma instruction")
+    return n
 
 
 def check_flash_bwd_kernels(FA, dev):
     """The backward kernels against the plain backward at full width: f32
-    (``flash_bwd_dq``, ``flash_bwd_dkv``) and bf16 (the tensor-core
-    ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) each unmasked, masked
-    (p = 0.8), causal, a ragged masked block (4000 x 4100) through a
-    strided query view, and a fully masked block, which must give exactly
-    zero.  ``m`` comes from the forward kernel, the cotangents g_o and g_l
+    (the 3xTF32 ``flash_bwd_dq_tf32``, ``flash_bwd_dkv_tf32``) and bf16
+    (the tensor-core ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) each
+    unmasked, masked (p = 0.8), causal, a ragged masked block (4000 x
+    4100) through a strided query view, and a fully masked block, which
+    must give exactly zero (timed in f32).  ``m`` comes from the forward kernel, the cotangents g_o and g_l
     from a seeded generator.  Each call must launch its dtype's kernel.
     Returns the worst difference of each kernel and its cases."""
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
@@ -636,6 +675,7 @@ def check_flash_bwd_kernels(FA, dev):
                for _ in range(3))
     scale = 1.0 / d**0.5
     mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
+    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
     tq_r, tk_r = t - 96, t + 4
     ragged = (q[:, :tq_r], torch.randn((b, tk_r, h, d), device=dev, generator=gen),
               torch.randn((b, tk_r, h, d), device=dev, generator=gen),
@@ -651,9 +691,9 @@ def check_flash_bwd_kernels(FA, dev):
         ("bf16,mask", qb, kb, vb, mask, False),
         (f"bf16,ragged {tq_r}x{tk_r},mask", qb[:, :tq_r], ragged[1].bfloat16(),
          ragged[2].bfloat16(), ragged[3], False),
+        ("f32,fully masked", q, k, v, none, False),
     ]
-    counters = dict(zip(BWD_NAMES, (FA.counter_bwd_dq, FA.counter_bwd_dkv,
-                                    FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)))
+    counters = bwd_counters(FA)
     worst = dict.fromkeys(BWD_NAMES, 0.0)
     by_case = {name: {} for name in BWD_NAMES}
     for label, qq, kk, vv, mm, causal in cases:
@@ -662,7 +702,7 @@ def check_flash_bwd_kernels(FA, dev):
         g_o = torch.randn(qq.shape, device=dev, generator=gen).to(qq.dtype)
         g_l = torch.randn(m.shape, device=dev, generator=gen)
         args, kw = (qq, kk, vv, mm, m, g_o, g_l), {"scale": scale, "causal": causal}
-        sfx = "_mma" if qq.dtype == torch.bfloat16 else ""
+        sfx = "_mma" if qq.dtype == torch.bfloat16 else "_tf32"
         dq_name, dkv_name = f"flash_bwd_dq{sfx}", f"flash_bwd_dkv{sfx}"
         want = FA.block_partials_bwd_plain(*args, **kw)
         before = {n: c.launches for n, c in counters.items()}
@@ -673,6 +713,8 @@ def check_flash_bwd_kernels(FA, dev):
             raise AssertionError(f"backward({label}) launched {moved}, expected "
                                  f"{dq_name} and {dkv_name}")
         errs = bwd_compare(f"backward({label})", want, got, qq.dtype)
+        if mm is none and not all(bool((x == 0).all()) for x in got):
+            raise AssertionError(f"backward({label}) is not zero")
         del want, got
         tq, tk = qq.shape[1], kk.shape[1]
         pairs = (tq * (tq + 1) // 2 if causal else tq * tk if mm is None
@@ -681,10 +723,12 @@ def check_flash_bwd_kernels(FA, dev):
         for name, fn, outputs, errs_of in (
                 (dq_name, FA.flash_bwd_dq, "dq", ("dq",)),
                 (dkv_name, FA.flash_bwd_dkv, "dkv", ("dk", "dv"))):
+            need = bwd_need(qq, kk, pairs, mm is not None, outputs)
             case = timed_case(
                 f"{name}({label})", lambda fn=fn: fn(*args, **kw),
-                lambda: FA.block_partials_bwd_plain(*args, **kw),
-                *bwd_need(qq, kk, pairs, mm is not None, outputs), reps=10)
+                lambda: FA.block_partials_bwd_plain(*args, **kw), *need, reps=10)
+            if qq.dtype == torch.float32:
+                f32_bound(case, *need[:2])
             case["library_ms"], case["library"] = lib_ms, lib
             case["max_abs_err"] = {e: errs[e] for e in errs_of}
             by_case[name][label] = case
@@ -695,20 +739,18 @@ def check_flash_bwd_kernels(FA, dev):
               f"call): {lib_txt} ({lib}); dq + dk/dv kernels {dq_kv:.4f} ms "
               "(plain times are the whole plain backward)")
 
-    # no attendable key: zero gradients, never NaN
-    none = torch.zeros((t, t), dtype=torch.bool, device=dev)
-    for qq, kk, vv, what in ((q, k, v, "flash_bwd_dq, flash_bwd_dkv(f32"),
-                             (qb, kb, vb, "flash_bwd_dq_mma, flash_bwd_dkv_mma(bf16")):
-        with torch.no_grad():
-            _, m, _ = FA.flash_block_partials(qq, kk, vv, none, scale=scale)
-        g_o = torch.randn(q.shape, device=dev, generator=gen).to(qq.dtype)
-        g_l = torch.randn(m.shape, device=dev, generator=gen)
-        dq = FA.flash_bwd_dq(qq, kk, vv, none, m, g_o, g_l, scale=scale)
-        dk, dv = FA.flash_bwd_dkv(qq, kk, vv, none, m, g_o, g_l, scale=scale)
-        torch.cuda.synchronize()
-        if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
-            raise AssertionError(f"{what}: backward of a fully masked block is not zero")
-        print(f"  {what}, fully masked): dq = dk = dv = 0")
+    # no attendable key in bf16 (f32 is a case above): zero gradients, never NaN
+    with torch.no_grad():
+        _, m, _ = FA.flash_block_partials(qb, kb, vb, none, scale=scale)
+    g_o = torch.randn(q.shape, device=dev, generator=gen).to(qb.dtype)
+    g_l = torch.randn(m.shape, device=dev, generator=gen)
+    dq = FA.flash_bwd_dq(qb, kb, vb, none, m, g_o, g_l, scale=scale)
+    dk, dv = FA.flash_bwd_dkv(qb, kb, vb, none, m, g_o, g_l, scale=scale)
+    torch.cuda.synchronize()
+    if not all(bool((x == 0).all()) for x in (dq, dk, dv)):
+        raise AssertionError("flash_bwd_dq_mma, flash_bwd_dkv_mma: backward of a "
+                             "fully masked bf16 block is not zero")
+    print("  flash_bwd_dq_mma, flash_bwd_dkv_mma(bf16, fully masked): dq = dk = dv = 0")
     return worst, by_case
 
 
@@ -719,8 +761,7 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
     b, t = q.shape[:2]
     gen = torch.Generator(device=q.device).manual_seed(2)
     g = torch.randn(q.shape, device=q.device, generator=gen)
-    counters = (FA.counter, FA.counter_causal, FA.counter_bwd_dq, FA.counter_bwd_dkv,
-                FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)
+    counters = (FA.counter, FA.counter_causal, *bwd_counters(FA).values())
     worst, runs = 0.0, {}
     for causal in (False, True):
         for c in counters:
@@ -732,8 +773,9 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
         if launches != ((0, 1, 1, 1, 0, 0) if causal else (1, 0, 1, 1, 0, 0)):
             raise AssertionError(f"flash_attention(causal={causal}) forward and "
                                  f"backward launched {launches} (flash_fwd, "
-                                 "flash_fwd_causal, flash_bwd_dq, flash_bwd_dkv, "
-                                 "flash_bwd_dq_mma, flash_bwd_dkv_mma)")
+                                 "flash_fwd_causal, flash_bwd_dq_tf32, "
+                                 "flash_bwd_dkv_tf32, flash_bwd_dq_mma, "
+                                 "flash_bwd_dkv_mma)")
         refs = [x.detach().requires_grad_(True) for x in (q, k, v)]
         TA.reference_attention(*refs, causal=causal).backward(g)
         err = 0.0
@@ -818,9 +860,7 @@ def bf16_attention_grads(TA, FA, q, k, v):
     qb, kb, vb = (x.bfloat16() for x in (q, k, v))
     gen = torch.Generator(device=q.device).manual_seed(3)
     g = torch.randn(q.shape, device=q.device, generator=gen).bfloat16()
-    counters = {**fwd_counters(FA), **dict(zip(BWD_NAMES, (
-        FA.counter_bwd_dq, FA.counter_bwd_dkv, FA.counter_bwd_dq_mma,
-        FA.counter_bwd_dkv_mma)))}
+    counters = {**fwd_counters(FA), **bwd_counters(FA)}
     worst, runs, total = 0.0, {}, dict.fromkeys(counters, 0)
     for causal in (False, True):
         for c in counters.values():
@@ -873,8 +913,8 @@ def single_gpu_training(LCT, TA, dev):
     losses = res["losses"]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training did not reduce the loss: {losses}")
-    want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq": 1,
-            "flash_bwd_dkv": 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
+    want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq_tf32": 1,
+            "flash_bwd_dkv_tf32": 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
             "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
     for i, got in enumerate(res["launches"]):
         if got != want:
@@ -934,9 +974,10 @@ def four_rank_training(LCT, launch, single, device):
         if res["digests"] != r0["digests"] or res["losses"] != r0["losses"]:
             raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
         s = r % 2  # the rank's sp index
-        want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq": s + 1,
-                "flash_bwd_dkv": s + 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
-                "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
+        want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq_tf32": s + 1,
+                "flash_bwd_dkv_tf32": s + 1, "flash_fwd_mma": 0,
+                "flash_fwd_causal_mma": 0, "flash_bwd_dq_mma": 0,
+                "flash_bwd_dkv_mma": 0}
         for i, got in enumerate(res["launches"]):
             if got != want:
                 raise AssertionError(f"rank {r} step {i} launched {got}, expected {want}")
@@ -989,7 +1030,7 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
             for x in LCA.demo_data(0, n, b, t_loc, h, d)]
     mine = slice(rank * t_loc, (rank + 1) * t_loc)
     fns = {"ring": ring_attention, "ulysses": ulysses_attention}
-    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq", "flash_bwd_dkv",
+    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
                "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     out = {}
     for scheme, causal in runs:
@@ -1039,13 +1080,13 @@ def four_rank_grads(launch, device):
     print(f"four ranks, attention gradients: {time.perf_counter() - t0:.1f} s with "
           "start-up")
     # forward + backward launches per rank r: (flash_fwd, flash_fwd_causal,
-    # flash_bwd_dq, flash_bwd_dkv, and the bf16 flash_bwd_dq_mma,
+    # flash_bwd_dq_tf32, flash_bwd_dkv_tf32, and the bf16 flash_bwd_dq_mma,
     # flash_bwd_dkv_mma); the ring's backward recomputes every block's
     # forward, Ulysses' reuses the saved m
     expect = {"ring/causal": lambda r: (2 * r, 2, r + 1, r + 1, 0, 0),
               "ring/full": lambda r: (8, 0, 4, 4, 0, 0),
               "ulysses/causal": lambda r: (0, 1, 1, 1, 0, 0)}
-    worst, launches = 0.0, {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    worst, launches = 0.0, {"flash_bwd_dq_tf32": 0, "flash_bwd_dkv_tf32": 0}
     for key, want in expect.items():
         for r, res in enumerate(ranks):
             run = res[key]
@@ -1111,7 +1152,7 @@ def main():
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
     libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec(),
-                              FA.bwd_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
+                              FA.tf32_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for src in ("sw_steps", "sw_phase", "sw_wide"):
@@ -1119,7 +1160,8 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}:", line.strip())
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
-    print_flash_ptxas(_build.BUILD_DIR / "flash_bwd.build.log")
+    print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_tf32.build.log")
+    tf32_hmma = sass_tf32_mma(libs[4], _build._nvcc())
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_mma.build.log")
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_mma.build.log")
 
@@ -1382,24 +1424,28 @@ def main():
             "by_case": flash_cases[name],
             "four_rank_runs": attn_runs,
         })
-    for name, replaces in (("flash_bwd_dq", ":328"), ("flash_bwd_dkv", ":366")):
+    for name, replaces in (("flash_bwd_dq_tf32", ":328"), ("flash_bwd_dkv_tf32", ":366")):
         case = bwd_cases[name]["f32"]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "mpi4jax_tpu_torch/csrc/flash_bwd.cu",
+            "source": "mpi4jax_tpu_torch/csrc/flash_bwd_tf32.cu",
             "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
             # five steps of single-GPU training, the slice's main path
             "launches": 5 * train1["launches_per_step"][name],
             "max_abs_err": max(bwd_worst[name], grad_worst, ring_grad_worst),
             "ms": case["ms"],
             "plain_ms": case["plain_ms"],
+            # 3xTF32 on the tensor cores: 3 x the f32 operations at 494.7
+            # TFLOP/s; the CUDA cores' f32 bound beside it
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
+            "f32_cuda_core_bound_ms": case["f32_cuda_core_bound_ms"],
             "library_ms": case["library_ms"],
             "library": (f"scaled_dot_product_attention backward ({case['library']}), "
                         "dq, dk and dv in one call: set against dq + dk/dv"),
             "ok": True,
+            "sass_hmma_tf32_in_library": tf32_hmma,
             "by_case": bwd_cases[name],
             "four_rank_grad_launches": ring_grad_launches[name],
             "four_rank_training_launches_per_step": [

@@ -9,8 +9,8 @@ FMA contraction is a per-source switch (``fmad``, part of the name's
 hash).  The stencil kernels (``sw_steps``, ``sw_phase``, ``sw_wide``) are
 built with it off (``-fmad=false``): each is bit for bit with its plain
 PyTorch version, which rounds every product.  The flash-attention
-kernels (``flash_fwd``, ``flash_bwd``) are built with it on: their parity with the plain
-version is a band, and an f32 dot product without FMA takes twice the
+kernels (``flash_fwd*.cu``, ``flash_bwd*.cu``) are built with it on: their parity with
+the plain version is a band, and an f32 dot product without FMA takes twice the
 instructions.  ``build_many`` starts one ``nvcc`` per source, all at
 once.
 

@@ -23,9 +23,11 @@ replaces the TPU kernel ``_kernel`` (non-causal, optional mask) or
 two kernels that replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
 Each is chosen by dtype, and each has its own launch counter:
 
-- f32, on the CUDA cores: ``flash_fwd`` and ``flash_fwd_causal`` of
-  ``csrc/flash_fwd.cu``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` of
-  ``csrc/flash_bwd.cu``;
+- f32: ``flash_fwd`` and ``flash_fwd_causal`` of ``csrc/flash_fwd.cu``
+  on the CUDA cores; ``flash_bwd_dq_tf32`` and ``flash_bwd_dkv_tf32`` of
+  ``csrc/flash_bwd_tf32.cu`` on the tensor cores, every product an
+  error-compensated 3xTF32 ``mma.sync`` (the helpers of
+  ``csrc/mma_tf32.cuh``);
 - bf16, on the tensor cores (``mma.sync``, with the warp-level helpers
   of ``csrc/mma_bf16.cuh``): ``flash_fwd_mma`` and
   ``flash_fwd_causal_mma`` of ``csrc/flash_fwd_mma.cu``,
@@ -45,9 +47,11 @@ the JAX package measured its kernel at) a non-causal forward does
 4 B H T^2 D = 2.749e11 operations: in f32 4.10 ms at 67 TFLOP/s on the
 CUDA cores, against 0.080 ms for its 269 MB of inputs and outputs; in
 bf16 0.278 ms at the 989 TFLOP/s tensor-core rate; the dq
-kernel does 6 B H T^2 D (6.15 ms) and the dk/dv kernel 8 B H T^2 D
-(8.21 ms), in bf16 0.417 and 0.556 ms at the 989 TFLOP/s tensor-core
-rate; causal calls do T(T+1)/2 of the T^2 score pairs.  Built with FMA
+kernel does 6 B H T^2 D (6.15 ms on the CUDA cores) and the dk/dv kernel
+8 B H T^2 D (8.21 ms), in f32 by 3xTF32 three times that at the 494.7
+TFLOP/s TF32 rate (2.50 and 3.33 ms), in bf16 0.417 and 0.556 ms at the
+989 TFLOP/s tensor-core rate; causal calls do T(T+1)/2 of the T^2 score
+pairs.  Built with FMA
 contraction on: the parity with the plain versions is a band, not bit
 for bit.
 """
@@ -61,10 +65,11 @@ import torch
 from . import _build
 
 SOURCE = _build.CSRC / "flash_fwd.cu"
-BWD_SOURCE = _build.CSRC / "flash_bwd.cu"
+BWD_SOURCE = _build.CSRC / "flash_bwd_tf32.cu"
 MMA_SOURCE = _build.CSRC / "flash_bwd_mma.cu"
 FWD_MMA_SOURCE = _build.CSRC / "flash_fwd_mma.cu"
-MMA_HEADER = _build.CSRC / "mma_bf16.cuh"  # included by both *_mma sources
+MMA_HEADER = _build.CSRC / "mma_bf16.cuh"  # included by all three tensor-core sources
+TF32_HEADER = _build.CSRC / "mma_tf32.cuh"  # included by BWD_SOURCE
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -72,8 +77,8 @@ counter = _build.counter_for("flash_fwd")  # f32
 counter_causal = _build.counter_for("flash_fwd_causal")  # f32
 counter_mma = _build.counter_for("flash_fwd_mma")  # bf16
 counter_causal_mma = _build.counter_for("flash_fwd_causal_mma")  # bf16
-counter_bwd_dq = _build.counter_for("flash_bwd_dq")
-counter_bwd_dkv = _build.counter_for("flash_bwd_dkv")
+counter_bwd_dq_tf32 = _build.counter_for("flash_bwd_dq_tf32")  # f32
+counter_bwd_dkv_tf32 = _build.counter_for("flash_bwd_dkv_tf32")  # f32
 counter_bwd_dq_mma = _build.counter_for("flash_bwd_dq_mma")
 counter_bwd_dkv_mma = _build.counter_for("flash_bwd_dkv_mma")
 _libs = {}  # loaded libraries by source
@@ -90,15 +95,15 @@ _SIGNATURES = {
 _FWD_MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
                        for name, args in _SIGNATURES.items()}
 _BWD_STRIDES = [_C.c_longlong] * 12
-_BWD_SIGNATURES = {
-    "flash_bwd_dq_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 6 + _BWD_STRIDES
-                            + [_C.c_float, _C.c_void_p]),
-    "flash_bwd_dkv_launch": ([_C.c_void_p] * 9 + [_C.c_int] * 6 + _BWD_STRIDES
-                             + [_C.c_float, _C.c_void_p]),
+_TF32_SIGNATURES = {
+    "flash_bwd_dq_tf32_launch": ([_C.c_void_p] * 8 + [_C.c_int] * 6 + _BWD_STRIDES
+                                 + [_C.c_float, _C.c_void_p]),
+    "flash_bwd_dkv_tf32_launch": ([_C.c_void_p] * 9 + [_C.c_int] * 6 + _BWD_STRIDES
+                                  + [_C.c_float, _C.c_void_p]),
 }
 # the bf16 kernels take the same arguments
-_MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
-                   for name, args in _BWD_SIGNATURES.items()}
+_MMA_SIGNATURES = {name.replace("_tf32_launch", "_mma_launch"): args
+                   for name, args in _TF32_SIGNATURES.items()}
 
 
 def spec():
@@ -113,9 +118,10 @@ def fwd_mma_spec():
     return FWD_MMA_SOURCE, {}, (MMA_HEADER,), True
 
 
-def bwd_spec():
-    """``(source, defines, headers, fmad)`` of the backward kernels' build."""
-    return BWD_SOURCE, {}, (), True
+def tf32_spec():
+    """``(source, defines, headers, fmad)`` of the f32 tensor-core
+    (3xTF32) backward kernels' build."""
+    return BWD_SOURCE, {}, (MMA_HEADER, TF32_HEADER), True
 
 
 def mma_spec():
@@ -298,10 +304,11 @@ def _kernel_layout(t, elems: int):
 
 def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
     """The checks of a backward launch and the C arguments both kernels
-    share: ``(keep, inputs, dims, strides, stream)``.  The f32 kernels read
-    4 elements at once, the bf16 ones 16 bytes (``cp.async``): where q, k,
-    v or g_o miss that alignment the kernels get a contiguous copy, so the
-    backward takes every input the forward took."""
+    share: ``(keep, inputs, dims, strides, stream)``.  Both read 16 bytes
+    at once (``cp.async``), 4 f32 or 8 bf16 elements: where q, k, v or g_o
+    miss that alignment the kernels get a contiguous copy, so the backward
+    takes every input the forward took (the forward's check already asks
+    f32 for strides in multiples of 4 and 16-byte aligned data)."""
     _check_device(q)
     _check_kernel_inputs(q, k, v, mask)
     b, tq, h, d = q.shape
@@ -328,22 +335,29 @@ def _bwd_launch_args(q, k, v, mask, m, g_o, g_l, causal: bool):
     return keep, ins, dims, strides, torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _bwd_route(dtype, kind: str):
+    """``(name, spec_of, signatures)`` of the ``kind`` ("dq" or "dkv")
+    backward kernel for ``dtype``: the bf16 tensor-core kernels of
+    ``csrc/flash_bwd_mma.cu`` for bf16, the 3xTF32 tensor-core kernels of
+    ``csrc/flash_bwd_tf32.cu`` for f32."""
+    if dtype == torch.bfloat16:
+        return f"flash_bwd_{kind}_mma", mma_spec, _MMA_SIGNATURES
+    return f"flash_bwd_{kind}_tf32", tf32_spec, _TF32_SIGNATURES
+
+
 def _bwd_kernel(q, kind: str):
-    """``(name, C function, counter)`` of the ``kind`` ("dq" or "dkv")
-    backward kernel for ``q``'s dtype: the tensor-core kernels of
-    ``csrc/flash_bwd_mma.cu`` for bf16, those of ``csrc/flash_bwd.cu`` for
-    f32."""
-    if q.dtype == torch.bfloat16:
-        name, lib = f"flash_bwd_{kind}_mma", _loaded(mma_spec, _MMA_SIGNATURES)
-    else:
-        name, lib = f"flash_bwd_{kind}", _loaded(bwd_spec, _BWD_SIGNATURES)
+    """``(name, C function, counter)`` of the ``kind`` backward kernel for
+    ``q``'s dtype (``_bwd_route``), its library built and loaded at first
+    use."""
+    name, spec_of, signatures = _bwd_route(q.dtype, kind)
+    lib = _loaded(spec_of, signatures)
     return name, getattr(lib, name + "_launch"), _build.counter_for(name)
 
 
 def flash_bwd_dq(q, k, v, mask, m, g_o, g_l, *, scale: float,
                  causal: bool = False):
     """``dq`` of the partials from one launch of ``flash_bwd_dq_mma``
-    (bf16) or ``flash_bwd_dq`` (f32) (CUDA tensors; the arguments of
+    (bf16) or ``flash_bwd_dq_tf32`` (f32) (CUDA tensors; the arguments of
     ``block_partials_bwd``)."""
     keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
                                                         g_l, causal)
@@ -361,8 +375,8 @@ def flash_bwd_dq(q, k, v, mask, m, g_o, g_l, *, scale: float,
 def flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, *, scale: float,
                   causal: bool = False):
     """``(dk, dv)`` of the partials from one launch of
-    ``flash_bwd_dkv_mma`` (bf16) or ``flash_bwd_dkv`` (f32) (CUDA tensors;
-    the arguments of ``block_partials_bwd``)."""
+    ``flash_bwd_dkv_mma`` (bf16) or ``flash_bwd_dkv_tf32`` (f32) (CUDA
+    tensors; the arguments of ``block_partials_bwd``)."""
     keep, ins, dims, strides, stream = _bwd_launch_args(q, k, v, mask, m, g_o,
                                                         g_l, causal)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)

@@ -410,10 +410,10 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
     need_cuda()
     q, k, v, _ = flash_inputs(1, 16, 16, 2, 32, torch.float32)
     q.requires_grad_(True)
-    before = (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches)
+    before = (FA.counter_bwd_dq_tf32.launches, FA.counter_bwd_dkv_tf32.launches)
     flash_attention(q, k, v, causal=True).sum().backward()
     torch.cuda.synchronize()
-    assert (FA.counter_bwd_dq.launches, FA.counter_bwd_dkv.launches) == \
+    assert (FA.counter_bwd_dq_tf32.launches, FA.counter_bwd_dkv_tf32.launches) == \
         (before[0] + 1, before[1] + 1)
     assert q.grad is not None and bool(torch.isfinite(q.grad).all())
     with torch.no_grad():
@@ -452,20 +452,20 @@ def assert_grads_band(want, got, dtype):
         assert (a - b).abs().max().item() <= lim
 
 
-BWD_COUNTERS = (FA.counter_bwd_dq, FA.counter_bwd_dkv, FA.counter_bwd_dq_mma,
+BWD_COUNTERS = (FA.counter_bwd_dq_tf32, FA.counter_bwd_dkv_tf32, FA.counter_bwd_dq_mma,
                 FA.counter_bwd_dkv_mma)
 
 
 def bwd_launches():
-    """Launches so far of (flash_bwd_dq, flash_bwd_dkv, flash_bwd_dq_mma,
-    flash_bwd_dkv_mma)."""
+    """Launches so far of (flash_bwd_dq_tf32, flash_bwd_dkv_tf32,
+    flash_bwd_dq_mma, flash_bwd_dkv_mma)."""
     return np.array([c.launches for c in BWD_COUNTERS])
 
 
 def assert_one_backward(before, dtype):
-    """One launch of each backward kernel of ``dtype``'s route (the
-    tensor-core kernels for bf16, the f32 ones for f32) and none of the
-    other route's."""
+    """One launch of each backward kernel of ``dtype``'s route (the bf16
+    ``*_mma`` kernels for bf16, the 3xTF32 ``*_tf32`` ones for f32) and
+    none of the other route's."""
     want = [0, 0, 1, 1] if dtype == torch.bfloat16 else [1, 1, 0, 0]
     assert (bwd_launches() - before).tolist() == want
 
@@ -600,6 +600,68 @@ def test_flash_bwd_bf16_takes_views_the_forward_takes():
     assert (bwd_launches() - before).tolist() == [0, 0, 2, 2]
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "mask", "causal"])
+def test_flash_bwd_f32_is_deterministic(mode):
+    """The 3xTF32 kernels: each block owns its output rows (no atomics),
+    so two calls give the same bits."""
+    need_cuda()
+    q, k, v, mask = flash_inputs(2, 300, 300, 2, 128, torch.float32, seed=11)
+    mask = mask if mode == "mask" else None
+    causal = mode == "causal"
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=0.1, causal=causal)
+    g_o, g_l = cotangents(q)
+    before = bwd_launches()
+    first = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1, causal=causal)
+    second = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=0.1, causal=causal)
+    torch.cuda.synchronize()
+    assert (bwd_launches() - before).tolist() == [2, 2, 0, 0]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_f32_takes_views_the_forward_takes():
+    """q, k, v views whose strides are multiples of 4 (not of 8) and a g_o
+    of other strides: the 3xTF32 kernels read f32 16 bytes at once, which
+    these views allow, and give the gradients of the contiguous copies."""
+    need_cuda()
+    rng = np.random.default_rng(12)
+    wide = [torch.from_numpy(rng.standard_normal((2, 90, 2, 68), dtype=np.float32))
+            .cuda() for _ in range(3)]
+    q, k, v = (x[..., 4:68] for x in wide)
+    assert q.stride() == (12240, 136, 68, 1) and q.data_ptr() % 16 == 0
+    _, m, _ = FA.flash_block_partials(q, k, v, None, scale=0.1)
+    g_o, g_l = cotangents(q)
+    g_t = g_o.transpose(0, 1).contiguous().transpose(0, 1)  # other strides
+    before = bwd_launches()
+    got = FA.block_partials_bwd(q, k, v, None, m, g_t, g_l, scale=0.1)
+    want = FA.block_partials_bwd(*(x.contiguous() for x in (q, k, v)), None, m, g_o,
+                                 g_l, scale=0.1)
+    torch.cuda.synchronize()
+    assert (bwd_launches() - before).tolist() == [2, 2, 0, 0]
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_f32_masked_keys_not_a_multiple_of_8(full_f32_products):
+    """D = 128, 70 queries against 90 keys under a mask: the key count
+    (and so the mask's row) is a multiple of neither 8 nor 4, so the last
+    key tile is ragged inside an 8-wide slice of the permuted products and
+    the mask tile is staged byte by byte."""
+    q, k, v, mask = flash_inputs(2, 70, 90, 2, 128, torch.float32, seed=13)
+    scale = 1.0 / np.sqrt(128)
+    _, m, _ = FA.block_partials_plain(q, k, v, mask, scale=scale)
+    g_o, g_l = cotangents(q)
+    before = bwd_launches()
+    got = FA.block_partials_bwd(q, k, v, mask, m, g_o, g_l, scale=scale)
+    want = FA.block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, scale=scale)
+    torch.cuda.synchronize()
+    assert_one_backward(before, torch.float32)
+    assert_grads_band(want, got, torch.float32)
 
 
 @pytest.mark.gpu

@@ -41,6 +41,31 @@ def test_fwd_counters_are_distinct():
     assert FA.counter_causal_mma is FA._build.counter_for("flash_fwd_causal_mma")
 
 
+@pytest.mark.parametrize("kind", ["dq", "dkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_route_by_dtype(dtype, kind):
+    """bf16 takes the tensor-core kernels of flash_bwd_mma.cu, f32 the
+    3xTF32 tensor-core kernels of flash_bwd_tf32.cu, each under its own
+    counter's name."""
+    name, spec_of, signatures = FA._bwd_route(dtype, kind)
+    if dtype == torch.bfloat16:
+        assert (name, spec_of) == (f"flash_bwd_{kind}_mma", FA.mma_spec)
+        assert spec_of()[0].name == "flash_bwd_mma.cu"
+    else:
+        assert (name, spec_of) == (f"flash_bwd_{kind}_tf32", FA.tf32_spec)
+        assert spec_of()[0].name == "flash_bwd_tf32.cu"
+    assert name + "_launch" in signatures
+    assert FA._build.COUNTERS[name] is FA._build.counter_for(name)
+
+
+def test_bwd_counters_are_distinct():
+    counters = (FA.counter_bwd_dq_tf32, FA.counter_bwd_dkv_tf32,
+                FA.counter_bwd_dq_mma, FA.counter_bwd_dkv_mma)
+    assert len({id(c) for c in counters}) == 4
+    assert FA.counter_bwd_dq_tf32 is FA._build.counter_for("flash_bwd_dq_tf32")
+    assert FA.counter_bwd_dkv_tf32 is FA._build.counter_for("flash_bwd_dkv_tf32")
+
+
 def _stride4_views(dtype):
     """(2, 90, 2, 64) views of (2, 90, 2, 68) tensors: strides multiples of
     4 but not of 8, data 8 bytes past a 16-byte boundary in bf16."""
@@ -70,12 +95,21 @@ def test_input_layout_reads_f32_and_aligned_bf16_in_place():
 
 
 def test_mma_specs_cover_the_shared_header():
-    """Both tensor-core sources include mma_bf16.cuh and list it in their
-    spec, so an edit of the header rebuilds them."""
-    for spec_of in (FA.fwd_mma_spec, FA.mma_spec):
+    """The three tensor-core sources include mma_bf16.cuh and list it in
+    their spec, so an edit of the header rebuilds them."""
+    for spec_of in (FA.fwd_mma_spec, FA.mma_spec, FA.tf32_spec):
         source, _, headers, fmad = spec_of()
         assert FA.MMA_HEADER in headers and FA.MMA_HEADER.exists() and fmad
         assert '#include "mma_bf16.cuh"' in source.read_text()
+
+
+def test_tf32_spec_covers_its_header_and_the_old_source_is_gone():
+    """The 3xTF32 source includes mma_tf32.cuh and lists it in its spec;
+    the CUDA-core f32 backward it replaced is no longer in the tree."""
+    source, _, headers, _ = FA.tf32_spec()
+    assert FA.TF32_HEADER in headers and FA.TF32_HEADER.exists()
+    assert '#include "mma_tf32.cuh"' in source.read_text()
+    assert not (FA._build.CSRC / "flash_bwd.cu").exists()
 
 
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -95,7 +129,7 @@ def exported(source):
 
 @pytest.mark.parametrize("spec_of,signatures", [
     (FA.spec, FA._SIGNATURES), (FA.fwd_mma_spec, FA._FWD_MMA_SIGNATURES),
-    (FA.bwd_spec, FA._BWD_SIGNATURES), (FA.mma_spec, FA._MMA_SIGNATURES),
+    (FA.tf32_spec, FA._TF32_SIGNATURES), (FA.mma_spec, FA._MMA_SIGNATURES),
 ], ids=["flash_fwd", "flash_fwd_mma", "flash_bwd", "flash_bwd_mma"])
 def test_signatures_match_the_exported_functions(spec_of, signatures):
     """The argtypes the wrapper sets are the C functions' parameters, one
