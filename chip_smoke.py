@@ -588,8 +588,8 @@ def bwd_need(q, k, pairs, masked, outputs):
 
 def f32_bound(case, moved, ops):
     """Add to an f32 backward ``case`` the bound of the same call on the
-    CUDA cores' f32 rate (the bound of the PR 4 design, kept so that rows
-    compare across designs); print it."""
+    CUDA cores' f32 rate (the bound of a design without the tensor cores,
+    kept so that rows compare across designs); print it."""
     case["f32_cuda_core_bound_ms"] = bound_ms(moved, ops, PEAK_F32_PER_S)[0]
     print(f"    f32 CUDA-core bound {case['f32_cuda_core_bound_ms']:.4f} ms; "
           f"kernel at {case['bound_ms'] / case['ms']:.1%} of the 3xTF32 bound")
@@ -666,8 +666,8 @@ def check_flash_bwd_kernels(FA, dev):
     (the tensor-core ``flash_bwd_dq_mma``, ``flash_bwd_dkv_mma``) each
     unmasked, masked (p = 0.8), causal, a ragged masked block (4000 x
     4100) through a strided query view, and a fully masked block, which
-    must give exactly zero (timed in f32).  ``m`` comes from the forward kernel, the cotangents g_o and g_l
-    from a seeded generator.  Each call must launch its dtype's kernel.
+    must give exactly zero (timed in f32).  ``m`` comes from the forward
+    kernel, the cotangents g_o and g_l from a seeded generator.  Each call must launch its dtype's kernel.
     Returns the worst difference of each kernel and its cases."""
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
     gen = torch.Generator(device=dev).manual_seed(1)

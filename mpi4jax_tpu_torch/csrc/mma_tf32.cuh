@@ -18,10 +18,10 @@
 //
 // The tensor cores' f32 accumulation truncates.  A long sum of truncated
 // additions into one large accumulator drifts: the gradient products sum
-// over the whole sequence (4096 rows at full width) and drifted 1e-3, a
-// hundred times the f32 products' difference from plain.  So strip_pm
-// sums each tile's rows into a zeroed partial on the tensor cores and
-// adds the partial to the accumulator with a rounding f32 add.
+// over the whole sequence (4096 rows at full width) and drifted 1.4e-3
+// from plain, 126 times what the same sums on the CUDA cores give.  So
+// strip_pm sums each tile's rows into a zeroed partial on the tensor
+// cores and adds the partial to the accumulator with a rounding f32 add.
 //
 // A warp owns a strip of 16 rows.  The fragment layouts, per lane l with
 // g = l / 4 and t = l % 4:

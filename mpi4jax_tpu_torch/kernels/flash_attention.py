@@ -51,9 +51,8 @@ kernel does 6 B H T^2 D (6.15 ms on the CUDA cores) and the dk/dv kernel
 8 B H T^2 D (8.21 ms), in f32 by 3xTF32 three times that at the 494.7
 TFLOP/s TF32 rate (2.50 and 3.33 ms), in bf16 0.417 and 0.556 ms at the
 989 TFLOP/s tensor-core rate; causal calls do T(T+1)/2 of the T^2 score
-pairs.  Built with FMA
-contraction on: the parity with the plain versions is a band, not bit
-for bit.
+pairs.  Built with FMA contraction on: the parity with the plain
+versions is a band, not bit for bit.
 """
 
 from __future__ import annotations
