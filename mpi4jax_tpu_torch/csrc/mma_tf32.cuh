@@ -20,8 +20,9 @@
 // additions into one large accumulator drifts: the gradient products sum
 // over the whole sequence (4096 rows at full width) and drifted 1.4e-3
 // from plain, 126 times what the same sums on the CUDA cores give.  So
-// strip_pm sums each tile's rows into a zeroed partial on the tensor
-// cores and adds the partial to the accumulator with a rounding f32 add.
+// each product sums a short run of its terms into a zeroed partial on the
+// tensor cores and adds the partial to its accumulator with a rounding
+// f32 add: strip_pm a streamed tile's rows, strip_abt 32 columns of D.
 //
 // A warp owns a strip of 16 rows.  The fragment layouts, per lane l with
 // g = l / 4 and t = l % 4:
@@ -141,7 +142,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base, long lo
 }
 
 // acc[j] (8-column tile j) += A (16 rows at a) . B (NB rows at b)^T over D:
-// a score strip of the warp, row r of A against row 8 j + c of B
+// a score strip of the warp, row r of A against row 8 j + c of B; each 32
+// columns of D summed into a zeroed partial, added by a rounding f32 add
 template <int D, int NB, int LD>
 __device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a,
                                           const float* b, int lane) {
@@ -151,18 +153,27 @@ __device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* 
   // B: lanes 0-7 rows 0-7 at column 0 (b0 of tile j), 8-15 the same at 4
   // (b1), 16-23 rows 8-15 at 0 (b0 of tile j + 1), 24-31 at 4 (b1)
   const float* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4;
+  constexpr int KC = D < 32 ? D : 32;  // the columns of D a partial sums
 #pragma unroll
-  for (int kd = 0; kd < D; kd += 8) {
-    uint32_t ar[4];
-    ldsm4(ar, pa + kd);
-    const Frag4 af = split4(ar);
+  for (int k0 = 0; k0 < D; k0 += KC) {
+    float part[NB / 8][4] = {};
 #pragma unroll
-    for (int j = 0; j < NB / 8; j += 2) {
-      uint32_t br[4];
-      ldsm4(br, pb + j * 8 * LD + kd);
-      mma3(acc[j], af, split2(__uint_as_float(br[0]), __uint_as_float(br[1])));
-      mma3(acc[j + 1], af, split2(__uint_as_float(br[2]), __uint_as_float(br[3])));
+    for (int kd = k0; kd < k0 + KC; kd += 8) {
+      uint32_t ar[4];
+      ldsm4(ar, pa + kd);
+      const Frag4 af = split4(ar);
+#pragma unroll
+      for (int j = 0; j < NB / 8; j += 2) {
+        uint32_t br[4];
+        ldsm4(br, pb + j * 8 * LD + kd);
+        mma3(part[j], af, split2(__uint_as_float(br[0]), __uint_as_float(br[1])));
+        mma3(part[j + 1], af, split2(__uint_as_float(br[2]), __uint_as_float(br[3])));
+      }
     }
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
 }
 
