@@ -8,7 +8,7 @@
 //   64-query tile, walking key tiles);
 // - flash_bwd_dkv_tf32_kernel replaces _bwd_dkv_kernel (dk and dv, one
 //   block per 64-key tile, walking query tiles).
-// The partials map (q, k, v) -> (o, m, l) of flash_fwd.cu gets this
+// The partials map (q, k, v) -> (o, m, l) of flash_fwd_tf32.cu gets this
 // backward with the stabilizer m held constant (its cotangent is dropped,
 // exact for every consumer that merges and normalises the partials; see
 // _partials_bwd in the JAX package).  From the saved (q, k, v, m) and the
@@ -93,7 +93,6 @@
 namespace {
 
 using namespace mma_tf32;
-using mma_bf16::cp_async4;
 using mma_bf16::cp_commit;
 using mma_bf16::cp_wait;
 using mma_bf16::zero;
@@ -136,34 +135,6 @@ struct Args {
   long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sgb, sgt, sgh;
   float scale;
 };
-
-// the mask at query rows [q0, q0 + ROWS), key columns [k0, k0 + COLS) into
-// dst (row stride MLD): by 4-byte cp.async when by4 (Tk and the pointer
-// multiples of 4), else byte by byte; entries past Tq or Tk land as 0 (not
-// valid)
-template <int ROWS, int COLS, int MLD>
-__device__ __forceinline__ void load_mask(uint8_t* dst, const Args& a, int q0, int k0,
-                                          bool by4) {
-  if (by4) {
-    constexpr int CH = COLS / 4;  // 4-byte chunks a row
-    for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
-      const int r = idx / CH, c = (idx % CH) * 4;
-      const bool ok = q0 + r < a.Tq && k0 + c < a.Tk;
-      cp_async4(dst + r * MLD + c,
-                ok ? a.mask + (long long)(q0 + r) * a.Tk + k0 + c : a.mask, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
-      const int r = idx / COLS, c = idx % COLS;
-      const bool ok = q0 + r < a.Tq && k0 + c < a.Tk;
-      dst[r * MLD + c] = ok ? a.mask[(long long)(q0 + r) * a.Tk + k0 + c] : 0;
-    }
-  }
-}
-
-__device__ __forceinline__ bool mask_by4(const Args& a) {
-  return a.Tk % 4 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 4 == 0;
-}
 
 // the accumulators of the second half's warps (half = 1) added into those
 // of the first half's warps on the same strip, through red (16 x D floats a
@@ -223,7 +194,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_tf32_kernel(Args a) {
   load_rows<D, BOWN, LD, NT>(Gs, gb, a.sgt, q0, a.Tq);
   load_rows<D, BK, LD, NT>(Ks, kb, a.skt, 0, a.Tk);
   load_rows<D, BK, LD, NT>(Vs, vb, a.svt, 0, a.Tk);
-  if (MASK) load_mask<BOWN, BK, MLD_DQ>(Ms, a, q0, 0, by4);
+  if (MASK) load_mask<BOWN, BK, MLD_DQ, NT>(Ms, a, q0, 0, by4);
   cp_commit();
 
   // this thread's two rows of the warp's strip: g and g + 8
@@ -248,7 +219,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_tf32_kernel(Args a) {
       const int k1 = (kt + 1) * BK;
       load_rows<D, BK, LD, NT>(Ks + (st ^ 1) * BK * LD, kb, a.skt, k1, a.Tk);
       load_rows<D, BK, LD, NT>(Vs + (st ^ 1) * BK * LD, vb, a.svt, k1, a.Tk);
-      if (MASK) load_mask<BOWN, BK, MLD_DQ>(Ms + (st ^ 1) * BOWN * MLD_DQ, a, q0, k1, by4);
+      if (MASK) load_mask<BOWN, BK, MLD_DQ, NT>(Ms + (st ^ 1) * BOWN * MLD_DQ, a, q0, k1, by4);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -338,7 +309,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tf32_kernel(Args a) {
   load_rows<D, BQ, LD, NT>(Qs, qb, a.sqt, qt_begin * BQ, a.Tq);
   load_rows<D, BQ, LD, NT>(Gs, gb, a.sgt, qt_begin * BQ, a.Tq);
   load_row_stats(Ms, Ls, a, bh, qt_begin * BQ);
-  if (MASK) load_mask<BQ, BOWN, MLD_DKV>(Xs, a, qt_begin * BQ, k0, by4);
+  if (MASK) load_mask<BQ, BOWN, MLD_DKV, NT>(Xs, a, qt_begin * BQ, k0, by4);
   cp_commit();
 
   float dk[D / 8][4], dv[D / 8][4];
@@ -352,7 +323,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv_tf32_kernel(Args a) {
       load_rows<D, BQ, LD, NT>(Qs + nst * BQ * LD, qb, a.sqt, q1, a.Tq);
       load_rows<D, BQ, LD, NT>(Gs + nst * BQ * LD, gb, a.sgt, q1, a.Tq);
       load_row_stats(Ms + nst * BQ, Ls + nst * BQ, a, bh, q1);
-      if (MASK) load_mask<BQ, BOWN, MLD_DKV>(Xs + nst * BQ * MLD_DKV, a, q1, k0, by4);
+      if (MASK) load_mask<BQ, BOWN, MLD_DKV, NT>(Xs + nst * BQ * MLD_DKV, a, q1, k0, by4);
       cp_commit();
       cp_wait<1>();
     } else {

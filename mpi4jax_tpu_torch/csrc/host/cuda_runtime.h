@@ -1,6 +1,6 @@
-// Host emulation of the CUDA pieces the flash backward sources use, so
-// that their fragment maps, masks and loop bounds run under a host C++
-// compiler (tests/test_torch_warp_emulation.py).  Not used by nvcc.
+// Host emulation of the CUDA pieces the flash sources use, so that their
+// fragment maps, masks, softmax shuffles and loop bounds run under a host
+// C++ compiler (tests/test_torch_warp_emulation.py).  Not used by nvcc.
 //
 // A launch runs its blocks one after another.  A block's threads are
 // coroutines (ucontext) that switch at every barrier and every
@@ -14,8 +14,8 @@
 // The test replaces the inline-asm helpers with the emu_* functions below:
 // mma.sync m16n8k8 TF32 and m16n8k16 bf16 (f32 accumulate, operands as the
 // tensor cores read them: TF32 truncated to its 19 bits), ldmatrix x4 and
-// its transpose, cp.async as a plain copy (zeros where the source size is
-// 0).  With HOST_EMU_TRUNCATE each mma's f32 sum is the exact sum
+// its transpose, __shfl_xor_sync, cp.async as a plain copy (zeros where the
+// source size is 0).  With HOST_EMU_TRUNCATE each mma's f32 sum is the exact sum
 // truncated toward zero, as the tensor cores' accumulation truncates.
 #pragma once
 
@@ -160,6 +160,16 @@ void launch_stub(K kernel, dim3 grid, int threads, A a) {
       emu::blk.body = [&] { kernel(a); };
       emu::run_block(threads);
     }
+}
+
+// __shfl_xor_sync over the whole warp: each lane deposits x and reads the
+// x of lane ^ mask
+inline float __shfl_xor_sync(unsigned, float x, int mask) {
+  const int tid = threadIdx.x, lane = tid % 32, w0 = tid - lane;
+  std::vector<emu::Slot>& slots = emu::step();
+  slots[tid].a[0] = __float_as_uint(x);
+  emu::yield();
+  return __uint_as_float(slots[w0 + (lane ^ mask)].a[0]);
 }
 
 // d = c + a . b for the lane's four C elements (c0 (g, 2t), c1 (g, 2t+1),

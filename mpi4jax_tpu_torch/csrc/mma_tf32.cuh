@@ -1,5 +1,6 @@
-// Warp-level TF32 tensor-core helpers of the f32 flash backward on Hopper
-// (sm_90a): flash_bwd_tf32.cu.
+// Warp-level TF32 tensor-core helpers of the f32 flash kernels on Hopper
+// (sm_90a): the forward (flash_fwd_tf32.cu) and the backward
+// (flash_bwd_tf32.cu).
 //
 // Every product is mma.sync m16n8k8 (TF32 in, f32 accumulate), issued
 // three times for error-compensated 3xTF32: each f32 operand element x is
@@ -58,6 +59,7 @@
 namespace mma_tf32 {
 
 using mma_bf16::cp_async16;
+using mma_bf16::cp_async4;
 
 // an A fragment, split: x = big + small, each tf32
 struct Frag4 {
@@ -209,6 +211,35 @@ __device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
+}
+
+// the (Tq, Tk) mask of a.mask at query rows [q0, q0 + ROWS), key columns
+// [k0, k0 + COLS) into dst (row stride MLD) over the block's NT threads:
+// by 4-byte cp.async when by4 (Tk and the pointer multiples of 4), else
+// byte by byte; entries past a.Tq or a.Tk land as 0 (not valid)
+template <int ROWS, int COLS, int MLD, int NT, typename Args>
+__device__ __forceinline__ void load_mask(uint8_t* dst, const Args& a, int q0, int k0,
+                                          bool by4) {
+  if (by4) {
+    constexpr int CH = COLS / 4;  // 4-byte chunks a row
+    for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+      const int r = idx / CH, c = (idx % CH) * 4;
+      const bool ok = q0 + r < a.Tq && k0 + c < a.Tk;
+      cp_async4(dst + r * MLD + c,
+                ok ? a.mask + (long long)(q0 + r) * a.Tk + k0 + c : a.mask, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * COLS; idx += NT) {
+      const int r = idx / COLS, c = idx % COLS;
+      const bool ok = q0 + r < a.Tq && k0 + c < a.Tk;
+      dst[r * MLD + c] = ok ? a.mask[(long long)(q0 + r) * a.Tk + k0 + c] : 0;
+    }
+  }
+}
+
+template <typename Args>
+__device__ __forceinline__ bool mask_by4(const Args& a) {
+  return a.Tk % 4 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 4 == 0;
 }
 
 // the warp's 16 rows [row0, row0 + 16) of a (B, n, H, D) f32 output from

@@ -23,11 +23,11 @@ replaces the TPU kernel ``_kernel`` (non-causal, optional mask) or
 two kernels that replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
 Each is chosen by dtype, and each has its own launch counter:
 
-- f32: ``flash_fwd`` and ``flash_fwd_causal`` of ``csrc/flash_fwd.cu``
-  on the CUDA cores; ``flash_bwd_dq_tf32`` and ``flash_bwd_dkv_tf32`` of
-  ``csrc/flash_bwd_tf32.cu`` on the tensor cores, every product an
-  error-compensated 3xTF32 ``mma.sync`` (the helpers of
-  ``csrc/mma_tf32.cuh``);
+- f32, on the tensor cores, every product an error-compensated 3xTF32
+  ``mma.sync`` (the helpers of ``csrc/mma_tf32.cuh``):
+  ``flash_fwd_tf32`` and ``flash_fwd_causal_tf32`` of
+  ``csrc/flash_fwd_tf32.cu``, ``flash_bwd_dq_tf32`` and
+  ``flash_bwd_dkv_tf32`` of ``csrc/flash_bwd_tf32.cu``;
 - bf16, on the tensor cores (``mma.sync``, with the warp-level helpers
   of ``csrc/mma_bf16.cuh``): ``flash_fwd_mma`` and
   ``flash_fwd_causal_mma`` of ``csrc/flash_fwd_mma.cu``,
@@ -44,8 +44,9 @@ stabilizer), and makes a function of ``m`` alone have zero gradient.
 
 Bound on an H100: operations.  At B=4, T=4096, H=8, D=128 (the width
 the JAX package measured its kernel at) a non-causal forward does
-4 B H T^2 D = 2.749e11 operations: in f32 4.10 ms at 67 TFLOP/s on the
-CUDA cores, against 0.080 ms for its 269 MB of inputs and outputs; in
+4 B H T^2 D = 2.749e11 operations: in f32 by 3xTF32 three times that
+at the 494.7 TFLOP/s TF32 rate, 1.667 ms (4.10 ms at 67 TFLOP/s on the
+CUDA cores), against 0.080 ms for its 269 MB of inputs and outputs; in
 bf16 0.278 ms at the 989 TFLOP/s tensor-core rate; the dq
 kernel does 6 B H T^2 D (6.15 ms on the CUDA cores) and the dk/dv kernel
 8 B H T^2 D (8.21 ms), in f32 by 3xTF32 three times that at the 494.7
@@ -63,17 +64,17 @@ import torch
 
 from . import _build
 
-SOURCE = _build.CSRC / "flash_fwd.cu"
+SOURCE = _build.CSRC / "flash_fwd_tf32.cu"
 BWD_SOURCE = _build.CSRC / "flash_bwd_tf32.cu"
 MMA_SOURCE = _build.CSRC / "flash_bwd_mma.cu"
 FWD_MMA_SOURCE = _build.CSRC / "flash_fwd_mma.cu"
-MMA_HEADER = _build.CSRC / "mma_bf16.cuh"  # included by all three tensor-core sources
-TF32_HEADER = _build.CSRC / "mma_tf32.cuh"  # included by BWD_SOURCE
+MMA_HEADER = _build.CSRC / "mma_bf16.cuh"  # included by all four sources
+TF32_HEADER = _build.CSRC / "mma_tf32.cuh"  # included by SOURCE and BWD_SOURCE
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels are built for
 DTYPES = (torch.float32, torch.bfloat16)
 
-counter = _build.counter_for("flash_fwd")  # f32
-counter_causal = _build.counter_for("flash_fwd_causal")  # f32
+counter_tf32 = _build.counter_for("flash_fwd_tf32")  # f32
+counter_causal_tf32 = _build.counter_for("flash_fwd_causal_tf32")  # f32
 counter_mma = _build.counter_for("flash_fwd_mma")  # bf16
 counter_causal_mma = _build.counter_for("flash_fwd_causal_mma")  # bf16
 counter_bwd_dq_tf32 = _build.counter_for("flash_bwd_dq_tf32")  # f32
@@ -85,13 +86,13 @@ _libs = {}  # loaded libraries by source
 _C = ctypes
 _STRIDES = [_C.c_longlong] * 9
 _SIGNATURES = {
-    "flash_fwd_launch": ([_C.c_void_p] * 7 + [_C.c_int] * 5 + _STRIDES
-                         + [_C.c_float, _C.c_void_p]),
-    "flash_fwd_causal_launch": ([_C.c_void_p] * 6 + [_C.c_int] * 4 + _STRIDES
-                                + [_C.c_float, _C.c_void_p]),
+    "flash_fwd_tf32_launch": ([_C.c_void_p] * 7 + [_C.c_int] * 5 + _STRIDES
+                              + [_C.c_float, _C.c_void_p]),
+    "flash_fwd_causal_tf32_launch": ([_C.c_void_p] * 6 + [_C.c_int] * 4 + _STRIDES
+                                     + [_C.c_float, _C.c_void_p]),
 }
 # the bf16 forward kernels take the same arguments
-_FWD_MMA_SIGNATURES = {name.replace("_launch", "_mma_launch"): args
+_FWD_MMA_SIGNATURES = {name.replace("_tf32_launch", "_mma_launch"): args
                        for name, args in _SIGNATURES.items()}
 _BWD_STRIDES = [_C.c_longlong] * 12
 _TF32_SIGNATURES = {
@@ -105,10 +106,10 @@ _MMA_SIGNATURES = {name.replace("_tf32_launch", "_mma_launch"): args
                    for name, args in _TF32_SIGNATURES.items()}
 
 
-def spec():
-    """``(source, defines, headers, fmad)`` of the f32 forward kernels'
-    build."""
-    return SOURCE, {}, (), True
+def fwd_tf32_spec():
+    """``(source, defines, headers, fmad)`` of the f32 tensor-core
+    (3xTF32) forward kernels' build."""
+    return SOURCE, {}, (MMA_HEADER, TF32_HEADER), True
 
 
 def fwd_mma_spec():
@@ -263,12 +264,12 @@ def _kernel_partials(q, k, v, mask, scale: float, causal: bool):
 
 def _fwd_route(dtype, causal: bool):
     """``(name, spec_of, signatures)`` of the forward kernel for ``dtype``:
-    the tensor-core kernels of ``csrc/flash_fwd_mma.cu`` for bf16, those
-    of ``csrc/flash_fwd.cu`` for f32."""
+    the tensor-core kernels of ``csrc/flash_fwd_mma.cu`` for bf16, the
+    3xTF32 tensor-core kernels of ``csrc/flash_fwd_tf32.cu`` for f32."""
     name = "flash_fwd_causal" if causal else "flash_fwd"
     if dtype == torch.bfloat16:
         return name + "_mma", fwd_mma_spec, _FWD_MMA_SIGNATURES
-    return name, spec, _SIGNATURES
+    return name + "_tf32", fwd_tf32_spec, _SIGNATURES
 
 
 def _fwd_kernel(q, causal: bool):
@@ -284,7 +285,8 @@ def _input_layout(q, k, v):
     kernels copy 16 bytes at once (``cp.async``), so a bf16 view whose
     strides are not multiples of 8 elements, or whose data is not 16-byte
     aligned, becomes a contiguous copy; f32 tensors, which the f32 kernels
-    read 4 elements at a time, are read in place."""
+    copy 4 elements at once (the input check asks for that layout), are
+    read in place."""
     if q.dtype == torch.bfloat16:
         return tuple(_kernel_layout(t, 8) for t in (q, k, v))
     return q, k, v

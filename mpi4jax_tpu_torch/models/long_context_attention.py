@@ -30,7 +30,7 @@ from ..kernels import _build
 from ..ops import _staging
 
 SCHEMES = {"ring": ring_attention, "ulysses": ulysses_attention}
-KERNELS = ("flash_fwd", "flash_fwd_causal")
+KERNELS = ("flash_fwd_tf32", "flash_fwd_causal_tf32")
 
 
 def demo_shard(seed: int, rank: int, b: int, t_loc: int, h: int, d: int):

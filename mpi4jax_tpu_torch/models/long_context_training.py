@@ -48,9 +48,9 @@ from ..parallel.mesh import resolve_device
 
 # the parameters, in the sorted order the gradients are reduced in
 PARAM_NAMES = ("w1", "w2", "wo", "wout", "wqkv")
-KERNELS = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
-           "flash_fwd_mma", "flash_fwd_causal_mma", "flash_bwd_dq_mma",
-           "flash_bwd_dkv_mma")
+KERNELS = ("flash_fwd_tf32", "flash_fwd_causal_tf32", "flash_bwd_dq_tf32",
+           "flash_bwd_dkv_tf32", "flash_fwd_mma", "flash_fwd_causal_mma",
+           "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
 
 
 def param_shapes(d_model: int, d_ff: int) -> dict:

@@ -1,17 +1,18 @@
-"""The flash backward's CUDA sources run on the host, warp instructions
+"""The flash kernels' CUDA sources run on the host, warp instructions
 emulated.
 
 ``mpi4jax_tpu_torch/csrc/host/`` emulates the CUDA pieces the backward
-sources use: a block's threads run as coroutines that switch at every
-barrier and warp-collective instruction, and ``mma.sync``, ``ldmatrix``
-and ``cp.async`` are computed from every lane's operands.  Each test copies
-the sources with their inline-asm helpers replaced by those emulations,
-builds them with the host C++ compiler and holds the kernels against the
-plain version on the CPU, in the band of ``tests/test_torch_cuda.py``.  So
-the fragment maps, the permuted k of the 3xTF32 gradient products, the
-staged masks and the causal and ragged bounds run here, where no card is;
-the card runs the real instructions in ``tests/test_torch_cuda.py``.
-Skips where no C++ compiler is found.
+sources and the f32 forward use: a block's threads run as coroutines that
+switch at every barrier and warp-collective instruction, and
+``mma.sync``, ``ldmatrix``, ``__shfl_xor_sync`` and ``cp.async`` are
+computed from every lane's operands.  Each test copies the sources with
+their inline-asm helpers replaced by those emulations, builds them with
+the host C++ compiler and holds the kernels against the plain version on
+the CPU, in the band of ``tests/test_torch_cuda.py``.  So the fragment
+maps, the permuted k of the 3xTF32 products, the online softmax's quad
+shuffles, the staged masks and the causal and ragged bounds run here,
+where no card is; the card runs the real instructions in
+``tests/test_torch_cuda.py``.  Skips where no C++ compiler is found.
 """
 
 import ctypes
@@ -27,8 +28,9 @@ torch = pytest.importorskip("torch")
 from mpi4jax_tpu_torch.kernels import flash_attention as FA  # noqa: E402
 
 HOST = FA._build.CSRC / "host"
-SOURCES = {"tf32": FA.BWD_SOURCE, "mma": FA.MMA_SOURCE}
-SIGNATURES = {"tf32": FA._TF32_SIGNATURES, "mma": FA._MMA_SIGNATURES}
+SOURCES = {"tf32": FA.BWD_SOURCE, "mma": FA.MMA_SOURCE, "fwd_tf32": FA.SOURCE}
+SIGNATURES = {"tf32": FA._TF32_SIGNATURES, "mma": FA._MMA_SIGNATURES,
+              "fwd_tf32": FA._SIGNATURES}
 
 # each inline-asm helper of the headers, by name, and its emulation
 EMULATED = {
@@ -66,8 +68,9 @@ def emulated_source(text):
 
 @pytest.fixture(scope="module")
 def kernels(tmp_path_factory):
-    """The backward libraries built for the host: ``tf32``, ``mma`` and
-    ``tf32_truncating`` (each mma's sum truncated, as the tensor cores
+    """The libraries built for the host: the backward ``tf32`` and ``mma``,
+    the f32 forward ``fwd_tf32``, and ``tf32_truncating`` and
+    ``fwd_tf32_truncating`` (each mma's sum truncated, as the tensor cores
     accumulate)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -80,7 +83,9 @@ def kernels(tmp_path_factory):
                                   + "\nnamespace { float4 smem4[EMU_SMEM_MAX / 16]; }\n")
     libs = {}
     for name, src, flags in (("tf32", "tf32", []), ("mma", "mma", []),
-                             ("tf32_truncating", "tf32", ["-DHOST_EMU_TRUNCATE"])):
+                             ("tf32_truncating", "tf32", ["-DHOST_EMU_TRUNCATE"]),
+                             ("fwd_tf32", "fwd_tf32", []),
+                             ("fwd_tf32_truncating", "fwd_tf32", ["-DHOST_EMU_TRUNCATE"])):
         lib = out / f"lib{name}.so"
         subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", str(HOST),
                         *flags, "-o", str(lib), "-x", "c++",
@@ -187,3 +192,111 @@ def test_tf32_gradient_sums_survive_truncating_accumulation(kernels, tq, tk):
     want = FA.block_partials_bwd_plain(*args, scale=32**-0.5)
     for err, _ in errors(want, got):
         assert err <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the f32 forward (csrc/flash_fwd_tf32.cu)
+# ---------------------------------------------------------------------------
+
+
+def run_fwd(lib, q, k, v, mask, causal):
+    """``(o, m, l)`` from the forward launch function of ``lib``."""
+    b, tq, h, d = q.shape
+    o = torch.empty_like(q)
+    m = torch.empty((b, h, tq), dtype=torch.float32)
+    l = torch.empty_like(m)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    outs = (o.data_ptr(), m.data_ptr(), l.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if causal:
+        err = lib.flash_fwd_causal_tf32_launch(*ptrs, *outs, b, h, tq, d, *strides,
+                                               d**-0.5, None)
+    else:
+        mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
+        err = lib.flash_fwd_tf32_launch(*ptrs, None if mask_u8 is None else
+                                        mask_u8.data_ptr(), *outs, b, h, tq, k.shape[1],
+                                        d, *strides, d**-0.5, None)
+    assert err == 0
+    return o, m, l
+
+
+def fwd_errors(want, got, causal):
+    """max|diff| of o, m, l where plain is finite, and each band: m 1e-6,
+    l and o 1e-5, the causal o 1e-4, each as that much absolute plus that
+    much of max|ref| (chip_smoke.py's FLASH_REL, FLASH_CAUSAL_O_REL, from
+    tests/test_kernels.py:50-55); infinities must agree exactly and no NaN
+    may appear."""
+    out = []
+    for name, a, b in zip("oml", want, got):
+        assert not bool(torch.isnan(b).any())
+        fin = torch.isfinite(a)
+        assert torch.equal(fin, torch.isfinite(b)) and torch.equal(a[~fin], b[~fin])
+        rel = {"o": 1e-4 if causal else 1e-5, "m": 1e-6, "l": 1e-5}[name]
+        top = a[fin].abs().max().item() if bool(fin.any()) else 0.0
+        err = (a[fin] - b[fin]).abs().max().item() if bool(fin.any()) else 0.0
+        out.append((err, rel + rel * top))
+    return out
+
+
+def fwd_inputs(b, tq, tk, h, d, masked, seed):
+    """q, k, v and the mask (p = 0.8, or None) made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32))
+               for t in (tq, tk, tk))
+    return q, k, v, torch.from_numpy(rng.random((tq, tk)) < 0.8) if masked else None
+
+
+# (b, tq, tk, h, d, masked, causal): ragged tiles (tq past a multiple of
+# 64 and of 128, tk past a multiple of 64 and of 128), a masked key count
+# past a multiple of 8 and of 4 (the mask staged byte by byte) and of 4
+# only (4-byte copies), each head dim, causal blocks of one and of two
+# 128-query tiles
+FWD_CASES = [
+    (1, 70, 90, 1, 128, False, False), (1, 130, 70, 2, 128, False, False),
+    (1, 70, 90, 1, 128, True, False), (1, 100, 132, 2, 32, True, False),
+    (2, 8, 8, 3, 64, True, False), (1, 16, 24, 1, 32, False, False),
+    (2, 16, 16, 2, 32, False, True), (1, 100, 100, 1, 64, False, True),
+    (1, 200, 200, 1, 32, False, True),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,masked,causal", FWD_CASES)
+def test_emulated_tf32_forward_matches_plain(kernels, b, tq, tk, h, d, masked, causal):
+    q, k, v, mask = fwd_inputs(b, tq, tk, h, d, masked, seed=tq + tk + d)
+    got = run_fwd(kernels["fwd_tf32"], q, k, v, mask, causal)
+    want = FA.block_partials_plain(q, k, v, mask, scale=d**-0.5, causal=causal)
+    for err, band in fwd_errors(want, got, causal):
+        assert err <= band
+
+
+def test_emulated_tf32_forward_fully_masked_block(kernels):
+    """No valid pair: (o, m, l) = (0, -inf, 0) on every row, never NaN;
+    and a mask that leaves a third of the rows one key gives those rows
+    their plain partials and the rest (0, -inf, 0)."""
+    q, k, v, _ = fwd_inputs(1, 40, 72, 2, 32, False, seed=4)
+    o, m, l = run_fwd(kernels["fwd_tf32"], q, k, v,
+                      torch.zeros((40, 72), dtype=torch.bool), False)
+    assert bool(torch.isneginf(m).all()) and bool((l == 0).all()) and bool((o == 0).all())
+    mask = torch.zeros((40, 72), dtype=torch.bool)
+    mask[::3, 5] = True
+    got = run_fwd(kernels["fwd_tf32"], q, k, v, mask, False)
+    for err, band in fwd_errors(FA.block_partials_plain(q, k, v, mask, scale=32**-0.5),
+                                got, False):
+        assert err <= band
+
+
+def test_tf32_forward_survives_truncating_accumulation(kernels):
+    """With each mma's f32 sum truncated toward zero, as the tensor cores
+    accumulate, 64 queries against 2048 keys at D = 128 hold every band:
+    the scores sum 32 columns of D, and p v a 64-key tile, into zeroed
+    partials added by rounding f32 adds.  Measured here: m 2.9e-6 (band
+    5.4e-6), l 4.7e-4 (band 2.1e-3), o 3.6e-5 (band 2.1e-4); without the
+    truncation m 2.2e-6, and most of it is the plain version's own f32
+    rounding (against a float64 forward: plain 1.8e-6, kernel 7.5e-7
+    untruncated, 1.5e-6 truncated).  With P V summed in one accumulator
+    o misses its band (4.9e-4, a mutation run)."""
+    q, k, v, _ = fwd_inputs(1, 64, 2048, 1, 128, False, seed=5)
+    got = run_fwd(kernels["fwd_tf32_truncating"], q, k, v, None, False)
+    want = FA.block_partials_plain(q, k, v, None, scale=128**-0.5)
+    for err, band in fwd_errors(want, got, False):
+        assert err <= band
