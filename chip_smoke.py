@@ -28,10 +28,12 @@ read just after:
    Four processes share one card, so these times are not a scaling result.
 4. long-context attention at the width the JAX package measured its flash
    kernel at (B=4, T=4096, H=8, D=128, f32): the forward kernels against
-   their plain version (f32: ``flash_fwd``, ``flash_fwd_causal``; bf16:
-   the tensor-core ``flash_fwd_mma``, ``flash_fwd_causal_mma``), masked,
-   ragged and fully masked, and in bf16 a query view of stride 4, beside
-   ``scaled_dot_product_attention``; single-GPU ``flash_attention``,
+   their plain version (f32: the 3xTF32 tensor-core ``flash_fwd_tf32``,
+   ``flash_fwd_causal_tf32``, whose library must hold TF32 ``HMMA``
+   instructions; bf16: the tensor-core ``flash_fwd_mma``,
+   ``flash_fwd_causal_mma``), masked, ragged, fully masked and through a
+   query view of stride 4, beside ``scaled_dot_product_attention``;
+   single-GPU ``flash_attention``,
    causal and not, against ``reference_attention``; and the demo's entry
    point (``models.long_context_attention.main``) on four gloo ranks on
    this card, 1024 tokens each: causal and non-causal ring, causal
@@ -51,8 +53,8 @@ read just after:
    non-causal ring and causal Ulysses attention on four gloo ranks, each
    rank against its slice of single-GPU ``flash_attention``'s.
    TF32 is off in PyTorch: every f32 product of the plain versions and
-   of cuBLAS is full f32; the f32 backward kernels compute theirs by
-   3xTF32, which keeps f32 accuracy.
+   of cuBLAS is full f32; the f32 forward and backward kernels compute
+   theirs by 3xTF32, which keeps f32 accuracy.
 6. bf16 attention at the same width: single-GPU ``flash_attention`` on
    bf16 inputs, causal and not, forward alone and forward and backward,
    through the tensor-core kernels, its output and gradients against
@@ -361,12 +363,15 @@ def flash_compare(label, want, got, o_rel):
 def flash_need(q, k, pairs, masked):
     """Bytes and operations one partials call needs: q, k, v read once, o,
     m, l written once (and the mask read); two products of D per score
-    pair the call has to compute, at the inputs' peak rate."""
+    pair the call has to compute, at the inputs' peak rate: bf16 on the
+    tensor cores; f32 also on them by 3xTF32, three TF32 operations for
+    each f32 one, so a third of the TF32 rate (``f32_bound`` gives the
+    CUDA cores' bound)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
     moved = q.element_size() * (2 * b * tq * h * d + 2 * b * tk * h * d)
     moved += 8 * b * h * tq + (tq * tk if masked else 0)
-    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_F32_PER_S
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_TF32_PER_S / 3
     return moved, 4 * d * pairs * b * h, peak
 
 
@@ -384,23 +389,25 @@ def sdpa(q, k, v, mask, causal):
     return ms, SDPBackend(choice).name
 
 
-FWD_NAMES = ("flash_fwd", "flash_fwd_causal", "flash_fwd_mma", "flash_fwd_causal_mma")
+FWD_NAMES = ("flash_fwd_tf32", "flash_fwd_causal_tf32", "flash_fwd_mma",
+             "flash_fwd_causal_mma")
 
 
 def fwd_counters(FA):
-    return dict(zip(FWD_NAMES, (FA.counter, FA.counter_causal, FA.counter_mma,
+    """The forward kernels' launch counters, by ``FWD_NAMES``."""
+    return dict(zip(FWD_NAMES, (FA.counter_tf32, FA.counter_causal_tf32, FA.counter_mma,
                                 FA.counter_causal_mma)))
 
 
 def check_flash_kernels(FA, dev):
     """The flash forward kernels against their plain version at full
-    width: f32 (``flash_fwd``, ``flash_fwd_causal``) and bf16 (the
-    tensor-core ``flash_fwd_mma``, ``flash_fwd_causal_mma``) each
-    unmasked, masked (p = 0.8), causal and a ragged masked block (4000 x
-    4100) through a strided query view; in bf16 also a fully masked
-    block, which must give (0, -inf, 0) on every row, and a query view
-    whose strides are multiples of 4 but not of 8, which must give the
-    partials of its contiguous copy.  Each call must launch its dtype's
+    width: f32 (the 3xTF32 ``flash_fwd_tf32``, ``flash_fwd_causal_tf32``)
+    and bf16 (the tensor-core ``flash_fwd_mma``, ``flash_fwd_causal_mma``)
+    each unmasked, masked (p = 0.8), causal, a ragged masked block (4000 x
+    4100) through a strided query view, a fully masked block, which must
+    give (0, -inf, 0) on every row, and a query view whose strides are
+    multiples of 4 (in bf16 not of 8), which must give the partials of its
+    contiguous copy bit for bit.  Each call must launch its dtype's
     kernel.  Returns the worst difference of each kernel and its cases."""
     b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -414,7 +421,8 @@ def check_flash_kernels(FA, dev):
     mask_r = torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     # the queries of a (B, T, H, D + 4) tensor: strides multiples of 4, not 8
-    q4 = torch.randn((b, t, h, d + 4), device=dev, generator=gen).bfloat16()[..., 4:]
+    q4f = torch.randn((b, t, h, d + 4), device=dev, generator=gen)[..., 4:]
+    q4 = q4f.bfloat16()
     none = torch.zeros((t, t), dtype=torch.bool, device=dev)
     cases = [
         ("f32", q, k, v, None, False),
@@ -429,13 +437,15 @@ def check_flash_kernels(FA, dev):
          v_r.bfloat16(), mask_r, False),
         ("bf16,fully masked", qb, kb, vb, none, False),
         ("bf16,q stride 4", q4, kb, vb, None, False),
+        ("f32,fully masked", q, k, v, none, False),
+        ("f32,q stride 4", q4f, k, v, None, False),
     ]
     counters = fwd_counters(FA)
     worst = dict.fromkeys(FWD_NAMES, 0.0)
     by_case = {name: {} for name in FWD_NAMES}
     for label, qq, kk, vv, mm, causal in cases:
         bf16 = qq.dtype == torch.bfloat16
-        name = ("flash_fwd_causal" if causal else "flash_fwd") + ("_mma" if bf16 else "")
+        name = ("flash_fwd_causal" if causal else "flash_fwd") + ("_mma" if bf16 else "_tf32")
         want = FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal)
         before = {n: c.launches for n, c in counters.items()}
         got = FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal)
@@ -451,13 +461,13 @@ def check_flash_kernels(FA, dev):
             if not (bool(torch.isneginf(m).all()) and bool((l == 0).all())
                     and bool((o == 0).all())):
                 raise AssertionError(f"{name}: a fully masked block is not (0, -inf, 0)")
-            print(f"  {name}(bf16, fully masked): m = -inf, l = 0, o = 0 on every row")
-        if qq is q4:
-            copy = FA.flash_block_partials(q4.contiguous(), kk, vv, mm, scale=scale)
+            print(f"  {name}({label}): m = -inf, l = 0, o = 0 on every row")
+        if qq is q4 or qq is q4f:
+            copy = FA.flash_block_partials(qq.contiguous(), kk, vv, mm, scale=scale)
             if not all(torch.equal(x, y) for x, y in zip(copy, got)):
                 raise AssertionError(f"{name}: a stride-4 query view does not give "
                                      "the partials of its contiguous copy")
-            print(f"  {name}(bf16, q strides {q4.stride()}): the partials of its "
+            print(f"  {name}({label}, q strides {qq.stride()}): the partials of its "
                   "contiguous copy, bit for bit")
         del want, got
         tq, tk = qq.shape[1], kk.shape[1]
@@ -468,20 +478,14 @@ def check_flash_kernels(FA, dev):
             lambda: FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal),
             lambda: FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal),
             *flash_need(qq, kk, pairs, mm is not None), reps=10)
+        if not bf16:
+            f32_bound(case, *flash_need(qq, kk, pairs, mm is not None)[:2])
         case["library_ms"], case["library"] = sdpa(qq, kk, vv, mm, causal)
         print(f"    scaled_dot_product_attention: {case['library_ms']:.4f} ms "
               f"({case['library']})")
         case["max_abs_err"] = errs
         by_case[name][label] = case
         worst[name] = max(worst[name], *errs.values())
-
-    # no attendable key: m = -inf, l = 0, o = 0, never NaN
-    o, m, l = FA.flash_block_partials(q, k, v, none, scale=scale)
-    torch.cuda.synchronize()
-    if not (bool(torch.isneginf(m).all()) and bool((l == 0).all())
-            and bool((o == 0).all())):
-        raise AssertionError("flash_fwd: a fully masked block is not (0, -inf, 0)")
-    print("  flash_fwd(f32, fully masked): m = -inf, l = 0, o = 0 on every row")
     return worst, by_case
 
 
@@ -492,14 +496,14 @@ def single_gpu_attention(TA, FA, q, k, v):
     b, t = q.shape[:2]
     outs, worst = {}, 0.0
     for causal in (False, True):
-        for c in FA.counter, FA.counter_causal:
+        for c in FA.counter_tf32, FA.counter_causal_tf32:
             c.launches = 0
         out = TA.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        launches = (FA.counter.launches, FA.counter_causal.launches)
+        launches = (FA.counter_tf32.launches, FA.counter_causal_tf32.launches)
         if launches != ((0, 1) if causal else (1, 0)):
             raise AssertionError(f"flash_attention(causal={causal}) launched "
-                                 f"{launches} (flash_fwd, flash_fwd_causal)")
+                                 f"{launches} (flash_fwd_tf32, flash_fwd_causal_tf32)")
         ref = TA.reference_attention(q, k, v, causal=causal)
         err = (out - ref).abs().max().item()
         if not (bool(torch.isfinite(out).all())
@@ -532,15 +536,15 @@ def four_rank_attention(LCA, launch, single, device):
                        timeout=600, args=(device, kwargs))
     print(f"four ranks, long-context attention: {time.perf_counter() - t0:.1f} s "
           "with start-up")
-    # launches per rank r: (flash_fwd, flash_fwd_causal)
+    # launches per rank r: (flash_fwd_tf32, flash_fwd_causal_tf32)
     expect = {"ring/causal": lambda r: (r, 1), "ring/full": lambda r: (4, 0),
               "ulysses/causal": lambda r: (0, 1)}
-    worst, launches = 0.0, {"flash_fwd": 0, "flash_fwd_causal": 0}
+    worst, launches = 0.0, {"flash_fwd_tf32": 0, "flash_fwd_causal_tf32": 0}
     for key, want in expect.items():
         ref = single[key.endswith("causal")]
         for r, res in enumerate(ranks):
             got = res[key]["launches"]
-            if (got["flash_fwd"], got["flash_fwd_causal"]) != want(r):
+            if (got["flash_fwd_tf32"], got["flash_fwd_causal_tf32"]) != want(r):
                 raise AssertionError(f"{key} rank {r}: launches {got}, "
                                      f"expected {want(r)}")
             for name in launches:
@@ -587,9 +591,9 @@ def bwd_need(q, k, pairs, masked, outputs):
 
 
 def f32_bound(case, moved, ops):
-    """Add to an f32 backward ``case`` the bound of the same call on the
-    CUDA cores' f32 rate (the bound of a design without the tensor cores,
-    kept so that rows compare across designs); print it."""
+    """Add to an f32 ``case`` (forward or backward) the bound of the same
+    call on the CUDA cores' f32 rate (the bound of a design without the
+    tensor cores, kept so that rows compare across designs); print it."""
     case["f32_cuda_core_bound_ms"] = bound_ms(moved, ops, PEAK_F32_PER_S)[0]
     print(f"    f32 CUDA-core bound {case['f32_cuda_core_bound_ms']:.4f} ms; "
           f"kernel at {case['bound_ms'] / case['ms']:.1%} of the 3xTF32 bound")
@@ -761,7 +765,7 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
     b, t = q.shape[:2]
     gen = torch.Generator(device=q.device).manual_seed(2)
     g = torch.randn(q.shape, device=q.device, generator=gen)
-    counters = (FA.counter, FA.counter_causal, *bwd_counters(FA).values())
+    counters = (FA.counter_tf32, FA.counter_causal_tf32, *bwd_counters(FA).values())
     worst, runs = 0.0, {}
     for causal in (False, True):
         for c in counters:
@@ -772,8 +776,8 @@ def single_gpu_attention_grads(TA, FA, q, k, v):
         launches = tuple(c.launches for c in counters)
         if launches != ((0, 1, 1, 1, 0, 0) if causal else (1, 0, 1, 1, 0, 0)):
             raise AssertionError(f"flash_attention(causal={causal}) forward and "
-                                 f"backward launched {launches} (flash_fwd, "
-                                 "flash_fwd_causal, flash_bwd_dq_tf32, "
+                                 f"backward launched {launches} (flash_fwd_tf32, "
+                                 "flash_fwd_causal_tf32, flash_bwd_dq_tf32, "
                                  "flash_bwd_dkv_tf32, flash_bwd_dq_mma, "
                                  "flash_bwd_dkv_mma)")
         refs = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -913,7 +917,7 @@ def single_gpu_training(LCT, TA, dev):
     losses = res["losses"]
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training did not reduce the loss: {losses}")
-    want = {"flash_fwd": 0, "flash_fwd_causal": 2, "flash_bwd_dq_tf32": 1,
+    want = {"flash_fwd_tf32": 0, "flash_fwd_causal_tf32": 2, "flash_bwd_dq_tf32": 1,
             "flash_bwd_dkv_tf32": 1, "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0,
             "flash_bwd_dq_mma": 0, "flash_bwd_dkv_mma": 0}
     for i, got in enumerate(res["launches"]):
@@ -974,7 +978,8 @@ def four_rank_training(LCT, launch, single, device):
         if res["digests"] != r0["digests"] or res["losses"] != r0["losses"]:
             raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
         s = r % 2  # the rank's sp index
-        want = {"flash_fwd": 2 * s, "flash_fwd_causal": 2, "flash_bwd_dq_tf32": s + 1,
+        want = {"flash_fwd_tf32": 2 * s, "flash_fwd_causal_tf32": 2,
+                "flash_bwd_dq_tf32": s + 1,
                 "flash_bwd_dkv_tf32": s + 1, "flash_fwd_mma": 0,
                 "flash_fwd_causal_mma": 0, "flash_bwd_dq_mma": 0,
                 "flash_bwd_dkv_mma": 0}
@@ -1030,8 +1035,8 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
             for x in LCA.demo_data(0, n, b, t_loc, h, d)]
     mine = slice(rank * t_loc, (rank + 1) * t_loc)
     fns = {"ring": ring_attention, "ulysses": ulysses_attention}
-    kernels = ("flash_fwd", "flash_fwd_causal", "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32",
-               "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+    kernels = ("flash_fwd_tf32", "flash_fwd_causal_tf32", "flash_bwd_dq_tf32",
+               "flash_bwd_dkv_tf32", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     out = {}
     for scheme, causal in runs:
         leaves = [x.clone().requires_grad_(True) for x in full]
@@ -1079,7 +1084,7 @@ def four_rank_grads(launch, device):
                        args=(device, ATTN_B, t_loc, ATTN_H, ATTN_D, runs))
     print(f"four ranks, attention gradients: {time.perf_counter() - t0:.1f} s with "
           "start-up")
-    # forward + backward launches per rank r: (flash_fwd, flash_fwd_causal,
+    # forward + backward launches per rank r: (flash_fwd_tf32, flash_fwd_causal_tf32,
     # flash_bwd_dq_tf32, flash_bwd_dkv_tf32, and the bf16 flash_bwd_dq_mma,
     # flash_bwd_dkv_mma); the ring's backward recomputes every block's
     # forward, Ulysses' reuses the saved m
@@ -1151,7 +1156,7 @@ def main():
 
     # -- build: one nvcc per source, all at once --------------------------
     t0 = time.perf_counter()
-    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.spec(),
+    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.fwd_tf32_spec(),
                               FA.tf32_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1159,7 +1164,8 @@ def main():
         for line in (_build.BUILD_DIR / f"{src}.build.log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}:", line.strip())
-    print_flash_ptxas(_build.BUILD_DIR / "flash_fwd.build.log")
+    print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_tf32.build.log")
+    fwd_tf32_hmma = sass_tf32_mma(libs[3], _build._nvcc())
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_tf32.build.log")
     tf32_hmma = sass_tf32_mma(libs[4], _build._nvcc())
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_mma.build.log")
@@ -1403,24 +1409,28 @@ def main():
         "four_rank_launches_rank0": r0["wide_launches"],
     }]
     for name, main_case, replaces in (
-        ("flash_fwd", "f32", ":122"),
-        ("flash_fwd_causal", "f32,causal", ":166"),
+        ("flash_fwd_tf32", "f32", ":122"),
+        ("flash_fwd_causal_tf32", "f32,causal", ":166"),
     ):
         case = flash_cases[name][main_case]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "mpi4jax_tpu_torch/csrc/flash_fwd.cu",
+            "source": "mpi4jax_tpu_torch/csrc/flash_fwd_tf32.cu",
             "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
             "launches": attn_launches[name],
             "max_abs_err": max(flash_worst[name], single_worst, ring_worst),
             "ms": case["ms"],
             "plain_ms": case["plain_ms"],
+            # 3xTF32 on the tensor cores: 3 x the f32 operations at 494.7
+            # TFLOP/s; the CUDA cores' f32 bound beside it
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
+            "f32_cuda_core_bound_ms": case["f32_cuda_core_bound_ms"],
             "library_ms": case["library_ms"],
             "library": f"scaled_dot_product_attention ({case['library']})",
             "ok": True,
+            "sass_hmma_tf32_in_library": fwd_tf32_hmma,
             "by_case": flash_cases[name],
             "four_rank_runs": attn_runs,
         })

@@ -2,14 +2,14 @@
 // tensor cores: two kernels.
 //
 // Replace the TPU kernels of mpi4jax_tpu/kernels/flash_attention.py for
-// bf16 inputs (f32 inputs take flash_fwd.cu):
+// bf16 inputs (f32 inputs take flash_fwd_tf32.cu):
 // - flash_fwd_mma_kernel replaces _kernel (the non-causal streaming
 //   partials, with an optional (Tq, Tk) bool mask shared across batch and
 //   heads);
 // - flash_fwd_causal_mma_kernel replaces _kernel_causal (the diagonal
 //   block of a causal ring, Tq == Tk: key tiles that lie wholly after a
 //   query tile's last query are never visited).
-// What they compute is what flash_fwd.cu computes (see its note): for
+// What they compute is what flash_fwd_tf32.cu computes (see its note): for
 // every (batch, head) and query row,
 //     m = rowmax(s),  l = rowsum(exp(s - m)),  o = exp(s - m) @ V,
 // with s = (q . k) * scale in f32 and entries that are not valid at -inf;
@@ -25,7 +25,7 @@
 // Precision: the products of the bf16 inputs are exact and accumulate in
 // f32; p is rounded to bf16 before the PV product and l sums the
 // unrounded p, as the plain version does; o is rounded once at the end.
-// The one difference from the plain version, shared with flash_fwd.cu:
+// The one difference from the plain version, shared with flash_fwd_tf32.cu:
 // p is taken against the running maximum and the f32 accumulator is
 // rescaled as the maximum grows (the online softmax of _merge_tile,
 // flash_attention.py:88-103).  expf is the accurate one.

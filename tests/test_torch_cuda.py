@@ -238,19 +238,20 @@ def assert_partials_band(want, got, o_rel):
         assert torch.equal(a[~fin], b[~fin])
 
 
-FWD_COUNTERS = (FA.counter, FA.counter_causal, FA.counter_mma, FA.counter_causal_mma)
+FWD_COUNTERS = (FA.counter_tf32, FA.counter_causal_tf32, FA.counter_mma,
+                FA.counter_causal_mma)
 
 
 def fwd_launches():
-    """Launches so far of (flash_fwd, flash_fwd_causal, flash_fwd_mma,
-    flash_fwd_causal_mma)."""
+    """Launches so far of (flash_fwd_tf32, flash_fwd_causal_tf32,
+    flash_fwd_mma, flash_fwd_causal_mma)."""
     return np.array([c.launches for c in FWD_COUNTERS])
 
 
 def assert_one_forward(before, dtype, causal):
     """One launch of the forward kernel of ``dtype``'s route (the
-    tensor-core ``*_mma`` kernels for bf16, the f32 ones for f32) and
-    ``causal``, and none of the others."""
+    tensor-core ``*_mma`` kernels for bf16, the 3xTF32 ``*_tf32`` ones for
+    f32) and ``causal``, and none of the others."""
     want = [0, 0, 0, 0]
     want[2 * (dtype == torch.bfloat16) + int(causal)] = 1
     assert (fwd_launches() - before).tolist() == want
@@ -401,6 +402,64 @@ def test_flash_bf16_kernel_takes_stride4_views(causal):
                                                   else [0, 0, 2, 0])
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["full", "mask", "causal"])
+def test_flash_f32_kernel_is_deterministic(mode):
+    """The 3xTF32 forward: each block owns its query rows (no atomics), so
+    two calls give the same bits."""
+    need_cuda()
+    q, k, v, mask = flash_inputs(2, 300, 300, 2, 128, torch.float32, seed=14)
+    mask = mask if mode == "mask" else None
+    before = fwd_launches()
+    first = FA.flash_block_partials(q, k, v, mask, scale=0.1, causal=mode == "causal")
+    second = FA.flash_block_partials(q, k, v, mask, scale=0.1, causal=mode == "causal")
+    torch.cuda.synchronize()
+    assert (fwd_launches() - before).tolist() == ([0, 2, 0, 0] if mode == "causal"
+                                                  else [2, 0, 0, 0])
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_f32_kernel_takes_stride4_views(causal):
+    """q, k, v views whose strides are multiples of 4 (not of 8): the
+    3xTF32 forward copies f32 16 bytes at once, which these views allow, so
+    it reads them in place and gives the partials of their contiguous
+    copies, bit for bit."""
+    need_cuda()
+    rng = np.random.default_rng(15)
+    wide = [torch.from_numpy(rng.standard_normal((2, 90, 2, 68), dtype=np.float32))
+            .cuda() for _ in range(3)]
+    q, k, v = (x[..., 4:68] for x in wide)
+    assert q.stride() == (12240, 136, 68, 1) and q.data_ptr() % 16 == 0
+    before = fwd_launches()
+    got = FA.flash_block_partials(q, k, v, None, scale=0.1, causal=causal)
+    want = FA.flash_block_partials(*(x.contiguous() for x in (q, k, v)), None,
+                                   scale=0.1, causal=causal)
+    torch.cuda.synchronize()
+    assert (fwd_launches() - before).tolist() == ([0, 2, 0, 0] if causal
+                                                  else [2, 0, 0, 0])
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_f32_kernel_masked_keys_not_a_multiple_of_8(full_f32_products):
+    """D = 128, 70 queries against 90 keys under a mask: the key count
+    (and so the mask's row) is a multiple of neither 8 nor 4, so the last
+    key tile is ragged inside an 8-wide slice of the permuted P V product
+    and the mask tile is staged byte by byte."""
+    q, k, v, mask = flash_inputs(2, 70, 90, 2, 128, torch.float32, seed=16)
+    scale = 1.0 / np.sqrt(128)
+    before = fwd_launches()
+    got = FA.flash_block_partials(q, k, v, mask, scale=scale)
+    want = FA.block_partials_plain(q, k, v, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert_one_forward(before, torch.float32, False)
+    assert_partials_band(want, got, 1e-5)
 
 
 @pytest.mark.gpu

@@ -20,23 +20,27 @@ from mpi4jax_tpu_torch.kernels import flash_attention as FA  # noqa: E402
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fwd_route_by_dtype(dtype, causal):
-    """bf16 takes the tensor-core kernels of flash_fwd_mma.cu, f32 those of
-    flash_fwd.cu, each under its own counter's name."""
+    """bf16 takes the tensor-core kernels of flash_fwd_mma.cu, f32 the
+    3xTF32 tensor-core kernels of flash_fwd_tf32.cu, each under its own
+    counter's name."""
     name, spec_of, signatures = FA._fwd_route(dtype, causal)
     base = "flash_fwd_causal" if causal else "flash_fwd"
     if dtype == torch.bfloat16:
         assert (name, spec_of) == (base + "_mma", FA.fwd_mma_spec)
         assert spec_of()[0].name == "flash_fwd_mma.cu"
     else:
-        assert (name, spec_of) == (base, FA.spec)
-        assert spec_of()[0].name == "flash_fwd.cu"
+        assert (name, spec_of) == (base + "_tf32", FA.fwd_tf32_spec)
+        assert spec_of()[0].name == "flash_fwd_tf32.cu"
     assert name + "_launch" in signatures
     assert FA._build.COUNTERS[name] is FA._build.counter_for(name)
 
 
 def test_fwd_counters_are_distinct():
-    counters = (FA.counter, FA.counter_causal, FA.counter_mma, FA.counter_causal_mma)
+    counters = (FA.counter_tf32, FA.counter_causal_tf32, FA.counter_mma,
+                FA.counter_causal_mma)
     assert len({id(c) for c in counters}) == 4
+    assert FA.counter_tf32 is FA._build.counter_for("flash_fwd_tf32")
+    assert FA.counter_causal_tf32 is FA._build.counter_for("flash_fwd_causal_tf32")
     assert FA.counter_mma is FA._build.counter_for("flash_fwd_mma")
     assert FA.counter_causal_mma is FA._build.counter_for("flash_fwd_causal_mma")
 
@@ -95,9 +99,9 @@ def test_input_layout_reads_f32_and_aligned_bf16_in_place():
 
 
 def test_mma_specs_cover_the_shared_header():
-    """The three tensor-core sources include mma_bf16.cuh and list it in
+    """The four tensor-core sources include mma_bf16.cuh and list it in
     their spec, so an edit of the header rebuilds them."""
-    for spec_of in (FA.fwd_mma_spec, FA.mma_spec, FA.tf32_spec):
+    for spec_of in (FA.fwd_mma_spec, FA.mma_spec, FA.tf32_spec, FA.fwd_tf32_spec):
         source, _, headers, fmad = spec_of()
         assert FA.MMA_HEADER in headers and FA.MMA_HEADER.exists() and fmad
         assert '#include "mma_bf16.cuh"' in source.read_text()
@@ -110,6 +114,18 @@ def test_tf32_spec_covers_its_header_and_the_old_source_is_gone():
     assert FA.TF32_HEADER in headers and FA.TF32_HEADER.exists()
     assert '#include "mma_tf32.cuh"' in source.read_text()
     assert not (FA._build.CSRC / "flash_bwd.cu").exists()
+
+
+def test_fwd_tf32_spec_covers_both_headers_and_the_old_source_is_gone():
+    """The 3xTF32 forward includes mma_bf16.cuh and mma_tf32.cuh and lists
+    both in its spec, so an edit of either rebuilds it; the CUDA-core f32
+    forward it replaced is no longer in the tree."""
+    source, _, headers, fmad = FA.fwd_tf32_spec()
+    assert source.name == "flash_fwd_tf32.cu" and fmad
+    assert headers == (FA.MMA_HEADER, FA.TF32_HEADER)
+    for header in headers:
+        assert f'#include "{header.name}"' in source.read_text()
+    assert not (FA._build.CSRC / "flash_fwd.cu").exists()
 
 
 _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -128,7 +144,7 @@ def exported(source):
 
 
 @pytest.mark.parametrize("spec_of,signatures", [
-    (FA.spec, FA._SIGNATURES), (FA.fwd_mma_spec, FA._FWD_MMA_SIGNATURES),
+    (FA.fwd_tf32_spec, FA._SIGNATURES), (FA.fwd_mma_spec, FA._FWD_MMA_SIGNATURES),
     (FA.tf32_spec, FA._TF32_SIGNATURES), (FA.mma_spec, FA._MMA_SIGNATURES),
 ], ids=["flash_fwd", "flash_fwd_mma", "flash_bwd", "flash_bwd_mma"])
 def test_signatures_match_the_exported_functions(spec_of, signatures):
