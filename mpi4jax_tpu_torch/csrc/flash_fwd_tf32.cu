@@ -31,8 +31,9 @@
 // (source size 0), never padded in device memory.
 //
 // Precision: both products (s = q k^T and o += p v) are 3xTF32 on the
-// tensor cores (mma_tf32.cuh): each f32 operand is split at its fragment
-// load into two TF32 halves rounded to nearest, and three mma.sync m16n8k8
+// tensor cores (mma_tf32.cuh): each f32 operand is split into two TF32
+// halves rounded to nearest (q and p where a warp loads its fragment, k
+// and v once a tile for the whole block), and three mma.sync m16n8k8
 // accumulate a_small b_big + a_big b_small + a_big b_big in f32, so each
 // product keeps f32 accuracy.  The tensor cores' accumulation truncates,
 // so each product sums a short run of its terms into a zeroed partial and
@@ -47,28 +48,35 @@
 // cores' 67 TFLOP/s and 0.080 ms for its 269 MB of inputs and outputs;
 // the causal call does T (T + 1) / 2 of the T^2 pairs.
 //
-// Design (a first correct one, on the scheme of flash_fwd_mma.cu and the
-// helpers of flash_bwd_tf32.cu): a block of 8 warps owns 128 query rows,
-// each warp its own 16-row strip; the grid is (Tq / 128, B H).  Q goes
-// into shared memory once by cp.async; the block walks 64-key tiles of K
-// and V through a two-stage cp.async double buffer.  At D = 128 that is
-// 198 KiB (218 KiB with the mask), one block and 8 warps an SM: two warps
-// an SM sub-partition, which the f32 backward needed to hide its latency
-// (64-query blocks with two warps a strip, each on half of every key
-// tile, would give the same occupancy but split each strip's Q fragments
-// twice a tile and merge (m, l, o) at the end).  Per key tile each warp
-// computes its 16 x 64 score strip S = Q K^T in f32 registers (strip_abt),
-// scales and masks it, takes each row's maximum across the lane quad that
-// holds the row, rescales l and the 16 x D f32 output accumulator by
-// alpha = exp(m_old - m_new), and adds P V with P's C tiles taken as A
-// fragments, k permuted inside each 8-wide slice (strip_pm).  So neither
-// the scores nor p pass through shared memory.  Shared f32 rows are
-// padded by 4 elements (the bank analysis of mma_tf32.cuh).  The mask
-// rides with the K/V stage: its 128 x 64 bytes for the tile are staged in
-// shared memory (load_mask) and read there, never from device memory in
-// the inner loop.  Causal blocks stop at the tile of their last query and
-// start heaviest first.  Each block owns its rows: no atomics, the output
-// is deterministic.  No wgmma, TMA or warp specialisation yet.
+// Design (on the scheme of flash_fwd_mma.cu and the helpers of
+// flash_bwd_tf32.cu): a block of 8 warps owns 128 query rows, each warp
+// its own 16-row strip; the grid is (Tq / 128, B H).  Q goes into shared
+// memory once by cp.async; the block walks 32-key tiles of K and V through
+// a two-stage cp.async double buffer, and splits each tile once, as it
+// lands, into big and small TF32 tiles (split_rows), from which every warp
+// reads its B fragments with no arithmetic.  A first design split every
+// fragment where a warp loaded it, with 64-key tiles: each of the 8 warps
+// split the same K and V elements again, and the splits, not the
+// products, set its time (6.39 ms at B=4, T=4096, H=8, D=128 on an H100,
+// against 1.667 ms for the products).  At D = 128 Q, the two raw stages
+// and the split tiles take 198 KiB (210 KiB with the mask), one block and
+// 8 warps an SM: two warps an SM sub-partition, which the f32 backward
+// needed to hide its latency (64-query blocks with two warps a strip,
+// each on half of every key tile, would give the same occupancy but split
+// each strip's Q fragments twice a tile and merge (m, l, o) at the end).
+// Per key tile each warp computes its 16 x 32 score strip S = Q K^T in f32
+// registers (strip_abt, Q's fragments split as they load), scales and
+// masks it, takes each row's maximum across the lane quad that holds the
+// row, rescales l and the 16 x D f32 output accumulator by alpha =
+// exp(m_old - m_new), and adds P V with P's C tiles taken as A fragments,
+// k permuted inside each 8-wide slice (strip_pm).  So neither the scores
+// nor p pass through shared memory.  Shared f32 rows are padded by 4
+// elements (the bank analysis of mma_tf32.cuh).  The mask rides with the
+// K/V stage: its 128 x 32 bytes for the tile are staged in shared memory
+// (load_mask) and read there, never from device memory in the inner loop.
+// Causal blocks stop at the tile of their last query and start heaviest
+// first.  Each block owns its rows: no atomics, the output is
+// deterministic.  No wgmma, TMA or warp specialisation yet.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,15 +95,15 @@ using mma_bf16::zero;
 constexpr int NWARP = 8;
 constexpr int NT = 32 * NWARP;  // 256 threads
 constexpr int BQ = 16 * NWARP;  // 128: the query rows a block owns
-constexpr int BK = 64;          // the key tile the block streams
+constexpr int BK = 32;          // the key tile the block streams
 constexpr int PAD = 4;          // f32 elements of padding a shared row
 constexpr int MLD = BK + 16;    // row stride (bytes) of a shared mask tile
 
 template <int D>
 struct Geom {
   static constexpr int LD = D + PAD;  // row stride of every shared f32 tile
-  // Q, two stages of K and V
-  static constexpr size_t SMEM = sizeof(float) * (size_t)(BQ + 4 * BK) * LD;
+  // Q, two raw stages of K and V, and K and V split
+  static constexpr size_t SMEM = sizeof(float) * (size_t)(BQ + 8 * BK) * LD;
   // and two stages of the mask tile
   static constexpr size_t SMEM_MASK = SMEM + 2 * BQ * MLD;
 };
@@ -113,16 +121,20 @@ struct Args {
   float scale;
 };
 
-// The partials of one (batch x head, 128-query tile): walks 64-key tiles
+// The partials of one (batch x head, 128-query tile): walks 32-key tiles
 // [0, kt_end).
 template <int D, bool MASK, bool CAUSAL>
 __device__ __forceinline__ void fwd_block(const Args& a, int qt) {
   constexpr int LD = Geom<D>::LD;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + BQ * LD;      // two stages
-  float* Vs = Ks + 2 * BK * LD;  // two stages
-  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + 2 * BK * LD);  // two stages (MASK)
+  float* Ks = Qs + BQ * LD;      // two raw stages
+  float* Vs = Ks + 2 * BK * LD;  // two raw stages
+  float* Kb = Vs + 2 * BK * LD;  // the current tile split: K's big half,
+  float* Kl = Kb + BK * LD;      // K's small half,
+  float* Vb = Kl + BK * LD;      // V's big half
+  float* Vl = Vb + BK * LD;      // and V's small half
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vl + BK * LD);  // two stages (MASK)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -163,14 +175,17 @@ __device__ __forceinline__ void fwd_block(const Args& a, int qt) {
     } else {
       cp_wait<0>();
     }
+    // the tile has landed for every thread, and every warp is done with
+    // the last tile's split halves
     __syncthreads();
-    const float* Kt = Ks + st * BK * LD;
-    const float* Vt = Vs + st * BK * LD;
+    split_rows<D, BK, LD, NT>(Kb, Kl, Ks + st * BK * LD);
+    split_rows<D, BK, LD, NT>(Vb, Vl, Vs + st * BK * LD);
+    __syncthreads();
     const uint8_t* Mw = Ms + (st * BQ + 16 * warp) * MLD;  // the warp's mask rows
 
     float s[BK / 8][4];
     zero<BK / 8>(s);
-    strip_abt<D, BK, LD>(s, Qs + 16 * warp * LD, Kt, lane);
+    strip_abt<D, BK, LD>(s, Qs + 16 * warp * LD, SplitTile{Kb, Kl}, lane);
 
     // scale, and -inf where a key is masked, causal-hidden or past Tk
     const int k0 = kt * BK;
@@ -226,8 +241,7 @@ __device__ __forceinline__ void fwd_block(const Args& a, int qt) {
       acc[n][3] *= alpha[1];
     }
 
-    strip_pm<D, BK, LD>(acc, s, Vt, lane);
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    strip_pm<D, BK, LD>(acc, s, SplitTile{Vb, Vl}, lane);
   }
 
   store_strip<D>(a.o, acc, b, h, a.H, qw, a.Tq, lane);

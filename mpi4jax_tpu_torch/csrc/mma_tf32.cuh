@@ -48,6 +48,12 @@
 // f32 tile.  ldmatrix.trans moves 16-bit halves and cannot serve 32-bit
 // data, so the transposed B of strip_pm comes by plain shared loads.
 // cp.async and ldmatrix are mma_bf16.cuh's.
+//
+// The split costs more instructions than the products it feeds.  A tile
+// that every warp of a block reads can be split once, as it lands, into a
+// big and a small tile in shared memory (split_rows); the products then
+// take it as a SplitTile and read both halves' fragments with no
+// arithmetic (the forward does so for K and V).
 
 #pragma once
 
@@ -128,6 +134,73 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
   mma_bf16::ldsm4(r, reinterpret_cast<const mma_bf16::bf16*>(p));
 }
 
+// a shared f32 tile split once into its TF32 halves (split_rows): big and
+// small, each with the raw tile's row stride.  The products take a tile
+// either raw (a const float*, each fragment split where it is loaded) or
+// split (a SplitTile, its fragments read as they stand).
+struct SplitTile {
+  const float* big;
+  const float* small;
+};
+
+__device__ __forceinline__ const float* at(const float* t, int off) { return t + off; }
+
+__device__ __forceinline__ SplitTile at(SplitTile t, int off) {
+  return SplitTile{t.big + off, t.small + off};
+}
+
+// the B fragments of two neighbouring 8-column tiles of strip_abt from one
+// ldmatrix of four 8 x 4 tiles at p: split where they are loaded
+__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, const float* p) {
+  uint32_t r[4];
+  ldsm4(r, p);
+  f0 = split2(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  f1 = split2(__uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// the same from a split tile: one ldmatrix of each half
+__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, SplitTile p) {
+  uint32_t rb[4], rs[4];
+  ldsm4(rb, p.big);
+  ldsm4(rs, p.small);
+  f0 = Frag2{{rb[0], rb[1]}, {rs[0], rs[1]}};
+  f1 = Frag2{{rb[2], rb[3]}, {rs[2], rs[3]}};
+}
+
+// one B fragment of strip_pm, the elements at e and e + ld: split where
+// they are loaded, or read from a split tile
+__device__ __forceinline__ Frag2 b_rows(const float* e, int ld) { return split2(e[0], e[ld]); }
+
+__device__ __forceinline__ Frag2 b_rows(SplitTile e, int ld) {
+  return Frag2{{__float_as_uint(e.big[0]), __float_as_uint(e.big[ld])},
+               {__float_as_uint(e.small[0]), __float_as_uint(e.small[ld])}};
+}
+
+// rows [0, ROWS) of the raw tile src (row stride LD, D columns) split into
+// the tiles big and small (the same stride) over the block's NT threads,
+// four elements a thread at a time
+template <int D, int ROWS, int LD, int NT>
+__device__ __forceinline__ void split_rows(float* big, float* small, const float* src) {
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += NT) {
+    const int off = (idx / CH) * LD + (idx % CH) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(src + off);
+    const Frag4 f = split4(x.x, x.y, x.z, x.w);
+    float4 b, s;
+    b.x = __uint_as_float(f.big[0]);
+    b.y = __uint_as_float(f.big[1]);
+    b.z = __uint_as_float(f.big[2]);
+    b.w = __uint_as_float(f.big[3]);
+    s.x = __uint_as_float(f.small[0]);
+    s.y = __uint_as_float(f.small[1]);
+    s.z = __uint_as_float(f.small[2]);
+    s.w = __uint_as_float(f.small[3]);
+    *reinterpret_cast<float4*>(big + off) = b;
+    *reinterpret_cast<float4*>(small + off) = s;
+  }
+}
+
 // rows [row0, row0 + ROWS) of one (batch, head) slice (row stride st) into
 // dst (row stride LD) by 16-byte cp.async over the block's NT threads;
 // rows at or past n land as zeros
@@ -144,17 +217,18 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base, long lo
 }
 
 // acc[j] (8-column tile j) += A (16 rows at a) . B (NB rows at b)^T over D:
-// a score strip of the warp, row r of A against row 8 j + c of B; each 32
-// columns of D summed into a zeroed partial, added by a rounding f32 add
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a,
-                                          const float* b, int lane) {
+// a score strip of the warp, row r of A against row 8 j + c of B (b raw or
+// split); each 32 columns of D summed into a zeroed partial, added by a
+// rounding f32 add
+template <int D, int NB, int LD, typename TB>
+__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a, TB b,
+                                          int lane) {
   // A: lanes 0-7 rows 0-7 at column 0 (a0), 8-15 rows 8-15 at 0 (a1),
   // 16-23 rows 0-7 at 4 (a2), 24-31 rows 8-15 at 4 (a3)
   const float* pa = a + (lane & 15) * LD + (lane >> 4) * 4;
   // B: lanes 0-7 rows 0-7 at column 0 (b0 of tile j), 8-15 the same at 4
   // (b1), 16-23 rows 8-15 at 0 (b0 of tile j + 1), 24-31 at 4 (b1)
-  const float* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4;
+  const TB pb = at(b, ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4);
   constexpr int KC = D < 32 ? D : 32;  // the columns of D a partial sums
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += KC) {
@@ -166,10 +240,10 @@ __device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* 
       const Frag4 af = split4(ar);
 #pragma unroll
       for (int j = 0; j < NB / 8; j += 2) {
-        uint32_t br[4];
-        ldsm4(br, pb + j * 8 * LD + kd);
-        mma3(part[j], af, split2(__uint_as_float(br[0]), __uint_as_float(br[1])));
-        mma3(part[j + 1], af, split2(__uint_as_float(br[2]), __uint_as_float(br[3])));
+        Frag2 b0, b1;
+        b_pair(b0, b1, at(pb, j * 8 * LD + kd));
+        mma3(part[j], af, b0);
+        mma3(part[j + 1], af, b1);
       }
     }
 #pragma unroll
@@ -188,26 +262,24 @@ __device__ __forceinline__ Frag4 c_to_a(const float (&x)[4]) {
 }
 
 // acc[n] (8-column tile n of D) += P . M: P the warp's 16 x NB strip in C
-// tiles (p[kk] holds columns 8 kk .. 8 kk + 7), M the NB rows at m, each of
-// D columns; k permuted as c_to_a: B's slot t (b0) is row 8 kk + 2 t,
-// slot t + 4 (b1) row 8 kk + 2 t + 1, both at column 8 n + g.  Each tile's
-// NB-row sum goes into a zeroed partial, added to acc[n] by a rounding
-// f32 add (see the note at the top)
-template <int D, int NB, int LD>
+// tiles (p[kk] holds columns 8 kk .. 8 kk + 7), M the NB rows at m (raw or
+// split), each of D columns; k permuted as c_to_a: B's slot t (b0) is row
+// 8 kk + 2 t, slot t + 4 (b1) row 8 kk + 2 t + 1, both at column 8 n + g.
+// Each tile's NB-row sum goes into a zeroed partial, added to acc[n] by a
+// rounding f32 add (see the note at the top)
+template <int D, int NB, int LD, typename TM>
 __device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p)[NB / 8][4],
-                                         const float* m, int lane) {
+                                         TM m, int lane) {
   Frag4 af[NB / 8];
 #pragma unroll
   for (int kk = 0; kk < NB / 8; ++kk) af[kk] = c_to_a(p[kk]);
-  const float* pm = m + 2 * (lane & 3) * LD + (lane >> 2);
+  const TM pm = at(m, 2 * (lane & 3) * LD + (lane >> 2));
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < NB / 8; ++kk) {
-      const float* e = pm + kk * 8 * LD + n * 8;
-      mma3(part, af[kk], split2(e[0], e[LD]));
-    }
+    for (int kk = 0; kk < NB / 8; ++kk)
+      mma3(part, af[kk], b_rows(at(pm, kk * 8 * LD + n * 8), LD));
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }

@@ -288,9 +288,9 @@ def test_emulated_tf32_forward_fully_masked_block(kernels):
 def test_tf32_forward_survives_truncating_accumulation(kernels):
     """With each mma's f32 sum truncated toward zero, as the tensor cores
     accumulate, 64 queries against 2048 keys at D = 128 hold every band:
-    the scores sum 32 columns of D, and p v a 64-key tile, into zeroed
+    the scores sum 32 columns of D, and p v a 32-key tile, into zeroed
     partials added by rounding f32 adds.  Measured here: m 2.9e-6 (band
-    5.4e-6), l 4.7e-4 (band 2.1e-3), o 3.6e-5 (band 2.1e-4); without the
+    5.4e-6), l 4.6e-4 (band 2.1e-3), o 4.1e-5 (band 2.1e-4); without the
     truncation m 2.2e-6, and most of it is the plain version's own f32
     rounding (against a float64 forward: plain 1.8e-6, kernel 7.5e-7
     untruncated, 1.5e-6 truncated).  With P V summed in one accumulator
