@@ -473,13 +473,14 @@ def check_flash_kernels(FA, dev):
         tq, tk = qq.shape[1], kk.shape[1]
         pairs = (tq * (tq + 1) // 2 if causal else tq * tk if mm is None
                  else int(mm.sum().item()))
+        need = flash_need(qq, kk, pairs, mm is not None)
         case = timed_case(
             f"{name}({label})",
             lambda: FA.flash_block_partials(qq, kk, vv, mm, scale=scale, causal=causal),
             lambda: FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal),
-            *flash_need(qq, kk, pairs, mm is not None), reps=10)
+            *need, reps=10)
         if not bf16:
-            f32_bound(case, *flash_need(qq, kk, pairs, mm is not None)[:2])
+            f32_bound(case, *need[:2])
         case["library_ms"], case["library"] = sdpa(qq, kk, vv, mm, causal)
         print(f"    scaled_dot_product_attention: {case['library_ms']:.4f} ms "
               f"({case['library']})")
