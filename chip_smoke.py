@@ -421,8 +421,8 @@ def check_flash_kernels(FA, dev):
     mask_r = torch.rand((tq_r, tk_r), device=dev, generator=gen) < 0.8
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
     # the queries of a (B, T, H, D + 4) tensor: strides multiples of 4, not 8
-    q4f = torch.randn((b, t, h, d + 4), device=dev, generator=gen)[..., 4:]
-    q4 = q4f.bfloat16()
+    wide = torch.randn((b, t, h, d + 4), device=dev, generator=gen)
+    q4f, q4 = wide[..., 4:], wide.bfloat16()[..., 4:]
     none = torch.zeros((t, t), dtype=torch.bool, device=dev)
     cases = [
         ("f32", q, k, v, None, False),
@@ -463,6 +463,10 @@ def check_flash_kernels(FA, dev):
                 raise AssertionError(f"{name}: a fully masked block is not (0, -inf, 0)")
             print(f"  {name}({label}): m = -inf, l = 0, o = 0 on every row")
         if qq is q4 or qq is q4f:
+            strides = qq.stride()[:3]
+            if any(s % 4 for s in strides) or all(s % 8 == 0 for s in strides):
+                raise AssertionError(f"{label}: strides {strides} are not multiples of "
+                                     "4 but not of 8")
             copy = FA.flash_block_partials(qq.contiguous(), kk, vv, mm, scale=scale)
             if not all(torch.equal(x, y) for x, y in zip(copy, got)):
                 raise AssertionError(f"{name}: a stride-4 query view does not give "
