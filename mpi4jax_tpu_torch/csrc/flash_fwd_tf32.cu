@@ -74,6 +74,9 @@
 // elements (the bank analysis of mma_tf32.cuh).  The mask rides with the
 // K/V stage: its 128 x 32 bytes for the tile are staged in shared memory
 // (load_mask) and read there, never from device memory in the inner loop.
+// A tile's copy into a stage is issued only after the barrier that every
+// warp passes once done with the tile that stage held, the mask included
+// (the warps read it after the split), so two barriers a tile suffice.
 // Causal blocks stop at the tile of their last query and start heaviest
 // first.  Each block owns its rows: no atomics, the output is
 // deterministic.  No wgmma, TMA or warp specialisation yet.
@@ -165,19 +168,18 @@ __device__ __forceinline__ void fwd_block(const Args& a, int qt) {
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int st = kt & 1;
+    cp_wait<0>();
+    // the tile has landed for every thread, and every warp is done with
+    // the last tile: its split halves and its mask stage, which the next
+    // tile's copy below refills
+    __syncthreads();
     if (kt + 1 < kt_end) {  // the next tile into the other stage
       const int k1 = (kt + 1) * BK;
       load_rows<D, BK, LD, NT>(Ks + (st ^ 1) * BK * LD, kb, a.skt, k1, a.Tk);
       load_rows<D, BK, LD, NT>(Vs + (st ^ 1) * BK * LD, vb, a.svt, k1, a.Tk);
       if (MASK) load_mask<BQ, BK, MLD, NT>(Ms + (st ^ 1) * BQ * MLD, a, q0, k1, by4);
       cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
     }
-    // the tile has landed for every thread, and every warp is done with
-    // the last tile's split halves
-    __syncthreads();
     split_rows<D, BK, LD, NT>(Kb, Kl, Ks + st * BK * LD);
     split_rows<D, BK, LD, NT>(Vb, Vl, Vs + st * BK * LD);
     __syncthreads();

@@ -6,10 +6,22 @@
 // coroutines (ucontext) that switch at every barrier and every
 // warp-collective instruction: each thread deposits its operands, and
 // once all have, each computes its own result from its warp's deposits.
-// This needs every thread of a block to meet the same sequence of
-// collectives, which the kernels do; a thread that does not aborts the
-// run.  The deposits alternate between two slots, so a thread may deposit
-// for the next collective before the others have read the last one.
+// This needs every thread of a warp to meet the same sequence of
+// collectives, and every thread of a block the same barriers, which the
+// kernels do; a thread that does not aborts the run.  The deposits
+// alternate between two slots, so a thread may deposit for the next
+// collective before the others have read the last one.
+//
+// Two schedules (host_emu_schedule).  Lockstep, the default: every thread
+// of the block runs to its next collective in turn, so all warps move
+// together and shared memory is read and written in program order.
+// Warp-serial: each warp in turn, in ascending or descending order, runs
+// alone from one barrier to the next.  One warp then finishes its reads
+// and writes of shared memory before another begins, as a warp that runs
+// ahead on the card may: a stage refilled before every warp has read it,
+// with no barrier between, gives a wrong result under one of the two
+// orders.  Neither schedule sees a missing cp.async wait, since cp.async
+// lands at once here.
 //
 // The test replaces the inline-asm helpers with the emu_* functions below:
 // mma.sync m16n8k8 TF32 and m16n8k16 bf16 (f32 accumulate, operands as the
@@ -94,7 +106,7 @@ struct Block {
   int n = 0, cur = 0;
   std::vector<Slot> slots[2];
   std::vector<int> count;
-  std::vector<char> done;
+  std::vector<char> done, at_barrier;
   std::vector<ucontext_t> ctx;
   std::vector<std::vector<char>> stacks;
   ucontext_t sched;
@@ -112,11 +124,28 @@ inline void trampoline(int i) {
   blk.done[i] = 1;
 }
 
+// 0 lockstep, 1 warp-serial ascending, -1 warp-serial descending
+inline int schedule = 0;
+
+inline void abort_if(bool bad, const char* what, int i) {
+  if (!bad) return;
+  fprintf(stderr, "host emulation: thread %d %s\n", i, what);
+  abort();
+}
+
+// runs thread i to its next collective, barrier or end
+inline void resume(int i) {
+  blk.cur = i;
+  threadIdx = {(unsigned)i, 0u, 0u};
+  swapcontext(&blk.sched, &blk.ctx[i]);
+}
+
 inline void run_block(int n) {
   blk.n = n;
   for (auto& s : blk.slots) s.assign(n, Slot{});
   blk.count.assign(n, 0);
   blk.done.assign(n, 0);
+  blk.at_barrier.assign(n, 0);
   blk.ctx.resize(n);
   blk.stacks.resize(n);
   for (int i = 0; i < n; ++i) {
@@ -127,20 +156,30 @@ inline void run_block(int n) {
     blk.ctx[i].uc_link = &blk.sched;
     makecontext(&blk.ctx[i], (void (*)())trampoline, 1, i);
   }
+  const int nw = (n + 31) / 32;
   for (bool alive = true; alive;) {
     alive = false;
+    if (schedule == 0) {
+      for (int i = 0; i < n; ++i)
+        if (!blk.done[i]) resume(i);
+    } else {
+      for (int k = 0; k < nw; ++k) {  // warp w alone up to its next barrier
+        const int w = schedule > 0 ? k : nw - 1 - k, lo = 32 * w, hi = min(n, lo + 32);
+        for (bool moved = true; moved;) {
+          moved = false;
+          for (int i = lo; i < hi; ++i)
+            if (!blk.done[i] && !blk.at_barrier[i]) resume(i), moved = true;
+          for (int i = lo + 1; i < hi; ++i)
+            abort_if(blk.count[i] != blk.count[lo], "left its warp's collectives", i);
+        }
+      }
+    }
     for (int i = 0; i < n; ++i) {
-      if (blk.done[i]) continue;
-      blk.cur = i;
-      threadIdx = {(unsigned)i, 0u, 0u};
-      swapcontext(&blk.sched, &blk.ctx[i]);
+      abort_if(blk.count[i] != blk.count[0] || blk.done[i] != blk.done[0],
+               "left its block's barriers", i);
+      blk.at_barrier[i] = 0;
       alive = alive || !blk.done[i];
     }
-    for (int i = 1; i < n; ++i)
-      if (blk.count[i] != blk.count[0] || blk.done[i] != blk.done[0]) {
-        fprintf(stderr, "host emulation: thread %d left its block's collectives\n", i);
-        abort();
-      }
   }
 }
 
@@ -148,8 +187,13 @@ inline void run_block(int n) {
 
 inline void __syncthreads() {
   emu::step();
+  emu::blk.at_barrier[threadIdx.x] = 1;
   emu::yield();
 }
+
+// the schedule of the launches that follow: 0 lockstep, 1 warp-serial in
+// ascending warp order, -1 in descending
+extern "C" void host_emu_schedule(int s) { emu::schedule = s; }
 
 template <typename K, typename A>
 void launch_stub(K kernel, dim3 grid, int threads, A a) {

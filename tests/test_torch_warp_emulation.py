@@ -300,3 +300,57 @@ def test_tf32_forward_survives_truncating_accumulation(kernels):
     want = FA.block_partials_plain(q, k, v, None, scale=128**-0.5)
     for err, band in fwd_errors(want, got, False):
         assert err <= band
+
+
+# ---------------------------------------------------------------------------
+# warps run apart: each warp alone from one barrier to the next
+# ---------------------------------------------------------------------------
+
+# the emulation's warp-serial schedules (host_emu_schedule in
+# csrc/host/cuda_runtime.h): warps in ascending and in descending order
+WARP_ORDERS = {"ascending": 1, "descending": -1}
+
+# (kernel, b, tq, tk, h, d, masked, causal): the staged mask by 4-byte
+# copies and byte by byte, a causal forward of two query tiles, and the
+# masked backward of each dtype, each over several key tiles
+APART_CASES = [
+    ("fwd_tf32", 1, 100, 132, 2, 32, True, False),
+    ("fwd_tf32", 1, 70, 90, 1, 128, True, False),
+    ("fwd_tf32", 1, 200, 200, 1, 32, False, True),
+    ("tf32", 1, 100, 132, 2, 32, True, False),
+    ("mma", 1, 70, 90, 1, 128, True, False),
+]
+
+
+@pytest.fixture(params=WARP_ORDERS)
+def warps_apart(request, kernels):
+    """The libraries with every launch run warp-serial, in the order of the
+    parameter; lockstep again afterwards."""
+    for lib in kernels.values():
+        lib.host_emu_schedule(WARP_ORDERS[request.param])
+    yield kernels
+    for lib in kernels.values():
+        lib.host_emu_schedule(0)
+
+
+@pytest.mark.parametrize("kind,b,tq,tk,h,d,masked,causal", APART_CASES)
+def test_emulated_kernels_hold_with_warps_run_apart(warps_apart, kind, b, tq, tk, h, d,
+                                                    masked, causal):
+    """A shared stage that one warp refills while another still reads it,
+    with no barrier between, gives a wrong result when the warps run one
+    after another (the lockstep schedule cannot show it: there every warp
+    reads before any writes).  Each kernel holds its band under both
+    orders."""
+    lib = warps_apart[kind]
+    if kind == "fwd_tf32":
+        q, k, v, mask = fwd_inputs(b, tq, tk, h, d, masked, seed=tq + tk + d)
+        got = run_fwd(lib, q, k, v, mask, causal)
+        want = FA.block_partials_plain(q, k, v, mask, scale=d**-0.5, causal=causal)
+        errs = fwd_errors(want, got, causal)
+    else:
+        dtype = torch.bfloat16 if kind == "mma" else torch.float32
+        args = inputs(b, tq, tk, h, d, dtype, masked, causal, seed=tq + tk + d)
+        got = run(lib, kind, *args, causal)
+        errs = errors(FA.block_partials_bwd_plain(*args, scale=d**-0.5, causal=causal), got)
+    for err, band in errs:
+        assert err <= band
