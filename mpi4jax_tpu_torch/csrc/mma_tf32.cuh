@@ -136,12 +136,48 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
 
 // a shared f32 tile split once into its TF32 halves (split_rows): big and
 // small, each with the raw tile's row stride.  strip_abt and strip_pm take
-// a tile either raw (a const float*, each fragment split where it is
-// loaded) or split (a SplitTile, its fragments read as they stand).
+// their B tile either raw (a const float*, each fragment split where it is
+// loaded) or split (a SplitTile, its fragments read as they stand): they
+// are written once, and reach B only through the overloads of at, b_pair
+// and b_rows below, which inline to what either kind needs.
 struct SplitTile {
   const float* big;
   const float* small;
 };
+
+// tile t advanced by off elements
+__device__ __forceinline__ const float* at(const float* t, int off) { return t + off; }
+
+__device__ __forceinline__ SplitTile at(SplitTile t, int off) {
+  return SplitTile{t.big + off, t.small + off};
+}
+
+// the B fragments of two neighbouring 8-column tiles of strip_abt from one
+// ldmatrix of four 8 x 4 tiles at p: split where they are loaded
+__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, const float* p) {
+  uint32_t r[4];
+  ldsm4(r, p);
+  f0 = split2(__uint_as_float(r[0]), __uint_as_float(r[1]));
+  f1 = split2(__uint_as_float(r[2]), __uint_as_float(r[3]));
+}
+
+// the same from a split tile: one ldmatrix of each half
+__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, SplitTile p) {
+  uint32_t rb[4], rs[4];
+  ldsm4(rb, p.big);
+  ldsm4(rs, p.small);
+  f0 = Frag2{{rb[0], rb[1]}, {rs[0], rs[1]}};
+  f1 = Frag2{{rb[2], rb[3]}, {rs[2], rs[3]}};
+}
+
+// one B fragment of strip_pm, the elements at e and e + ld: split where
+// they are loaded, or read from a split tile
+__device__ __forceinline__ Frag2 b_rows(const float* e, int ld) { return split2(e[0], e[ld]); }
+
+__device__ __forceinline__ Frag2 b_rows(SplitTile e, int ld) {
+  return Frag2{{__float_as_uint(e.big[0]), __float_as_uint(e.big[ld])},
+               {__float_as_uint(e.small[0]), __float_as_uint(e.small[ld])}};
+}
 
 // rows [0, ROWS) of the raw tile src (row stride LD, D columns) split into
 // the tiles big and small (the same stride) over the block's NT threads,
@@ -184,17 +220,18 @@ __device__ __forceinline__ void load_rows(float* dst, const float* base, long lo
 }
 
 // acc[j] (8-column tile j) += A (16 rows at a) . B (NB rows at b)^T over D:
-// a score strip of the warp, row r of A against row 8 j + c of B; each 32
-// columns of D summed into a zeroed partial, added by a rounding f32 add
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a,
-                                          const float* b, int lane) {
+// a score strip of the warp, row r of A against row 8 j + c of B (b raw or
+// split); each 32 columns of D summed into a zeroed partial, added by a
+// rounding f32 add
+template <int D, int NB, int LD, typename TB>
+__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a, TB b,
+                                          int lane) {
   // A: lanes 0-7 rows 0-7 at column 0 (a0), 8-15 rows 8-15 at 0 (a1),
   // 16-23 rows 0-7 at 4 (a2), 24-31 rows 8-15 at 4 (a3)
   const float* pa = a + (lane & 15) * LD + (lane >> 4) * 4;
   // B: lanes 0-7 rows 0-7 at column 0 (b0 of tile j), 8-15 the same at 4
   // (b1), 16-23 rows 8-15 at 0 (b0 of tile j + 1), 24-31 at 4 (b1)
-  const float* pb = b + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4;
+  const TB pb = at(b, ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4);
   constexpr int KC = D < 32 ? D : 32;  // the columns of D a partial sums
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += KC) {
@@ -206,41 +243,10 @@ __device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* 
       const Frag4 af = split4(ar);
 #pragma unroll
       for (int j = 0; j < NB / 8; j += 2) {
-        uint32_t br[4];
-        ldsm4(br, pb + j * 8 * LD + kd);
-        mma3(part[j], af, split2(__uint_as_float(br[0]), __uint_as_float(br[1])));
-        mma3(part[j + 1], af, split2(__uint_as_float(br[2]), __uint_as_float(br[3])));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NB / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-  }
-}
-
-// strip_abt with B a split tile: its fragments read as they stand
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* a, SplitTile b,
-                                          int lane) {
-  const float* pa = a + (lane & 15) * LD + (lane >> 4) * 4;  // as strip_abt
-  const int pb = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 4;
-  constexpr int KC = D < 32 ? D : 32;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    float part[NB / 8][4] = {};
-#pragma unroll
-    for (int kd = k0; kd < k0 + KC; kd += 8) {
-      uint32_t ar[4];
-      ldsm4(ar, pa + kd);
-      const Frag4 af = split4(ar);
-#pragma unroll
-      for (int j = 0; j < NB / 8; j += 2) {
-        uint32_t bb[4], bs[4];
-        ldsm4(bb, b.big + pb + j * 8 * LD + kd);
-        ldsm4(bs, b.small + pb + j * 8 * LD + kd);
-        mma3(part[j], af, Frag2{{bb[0], bb[1]}, {bs[0], bs[1]}});
-        mma3(part[j + 1], af, Frag2{{bb[2], bb[3]}, {bs[2], bs[3]}});
+        Frag2 b0, b1;
+        b_pair(b0, b1, at(pb, j * 8 * LD + kd));
+        mma3(part[j], af, b0);
+        mma3(part[j + 1], af, b1);
       }
     }
 #pragma unroll
@@ -259,48 +265,24 @@ __device__ __forceinline__ Frag4 c_to_a(const float (&x)[4]) {
 }
 
 // acc[n] (8-column tile n of D) += P . M: P the warp's 16 x NB strip in C
-// tiles (p[kk] holds columns 8 kk .. 8 kk + 7), M the NB rows at m, each of
-// D columns; k permuted as c_to_a: B's slot t (b0) is row 8 kk + 2 t,
-// slot t + 4 (b1) row 8 kk + 2 t + 1, both at column 8 n + g.  Each tile's
-// NB-row sum goes into a zeroed partial, added to acc[n] by a rounding
-// f32 add (see the note at the top)
-template <int D, int NB, int LD>
+// tiles (p[kk] holds columns 8 kk .. 8 kk + 7), M the NB rows at m (raw or
+// split), each of D columns; k permuted as c_to_a: B's slot t (b0) is row
+// 8 kk + 2 t, slot t + 4 (b1) row 8 kk + 2 t + 1, both at column 8 n + g.
+// Each tile's NB-row sum goes into a zeroed partial, added to acc[n] by a
+// rounding f32 add (see the note at the top)
+template <int D, int NB, int LD, typename TM>
 __device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p)[NB / 8][4],
-                                         const float* m, int lane) {
+                                         TM m, int lane) {
   Frag4 af[NB / 8];
 #pragma unroll
   for (int kk = 0; kk < NB / 8; ++kk) af[kk] = c_to_a(p[kk]);
-  const float* pm = m + 2 * (lane & 3) * LD + (lane >> 2);
+  const TM pm = at(m, 2 * (lane & 3) * LD + (lane >> 2));
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < NB / 8; ++kk) {
-      const float* e = pm + kk * 8 * LD + n * 8;
-      mma3(part, af[kk], split2(e[0], e[LD]));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
-  }
-}
-
-// strip_pm with M a split tile: its fragments read as they stand
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_pm(float (&acc)[D / 8][4], const float (&p)[NB / 8][4],
-                                         SplitTile m, int lane) {
-  Frag4 af[NB / 8];
-#pragma unroll
-  for (int kk = 0; kk < NB / 8; ++kk) af[kk] = c_to_a(p[kk]);
-  const int pm = 2 * (lane & 3) * LD + (lane >> 2);  // as strip_pm
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < NB / 8; ++kk) {
-      const int e = pm + kk * 8 * LD + n * 8;
-      mma3(part, af[kk], Frag2{{__float_as_uint(m.big[e]), __float_as_uint(m.big[e + LD])},
-                               {__float_as_uint(m.small[e]), __float_as_uint(m.small[e + LD])}});
-    }
+    for (int kk = 0; kk < NB / 8; ++kk)
+      mma3(part, af[kk], b_rows(at(pm, kk * 8 * LD + n * 8), LD));
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
   }
