@@ -62,8 +62,16 @@ read just after:
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
+
+    python3 chip_smoke.py --bwd-digest
+
+builds only the two backward sources and prints the sha256 of their
+machine code and of their gradients on fixed inputs (``backward_digests``):
+run from two checkouts on one card, equal digests say that their
+backward kernels are the same.
 """
 
+import hashlib
 import json
 import os
 import re
@@ -763,6 +771,67 @@ def check_flash_bwd_kernels(FA, dev):
     return worst, by_case
 
 
+def sass_digest(lib, nvcc):
+    """sha256 of the machine code of library ``lib``: the function names
+    and instructions of its ``cuobjdump -sass``, with nothing that names
+    the file."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    code = [ln.strip() for ln in sass.splitlines()
+            if "Function :" in ln or re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+    return hashlib.sha256("\n".join(code).encode()).hexdigest()
+
+
+def backward_digests(FA, dev):
+    """sha256 of dq, dk and dv from the backward kernels at full width, f32
+    and bf16, unmasked, masked (p = 0.8) and causal, on inputs from a
+    seeded generator with ``m`` from the plain forward: what the backward
+    kernels alone give, whatever forward kernel the checkout routes to.
+    Equal digests from two checkouts on one card say their backward
+    kernels give the same bits."""
+    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, g_o = (torch.randn((b, t, h, d), device=dev, generator=gen)
+                    for _ in range(4))
+    g_l = torch.randn((b, h, t), device=dev, generator=gen)
+    mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
+    scale = 1.0 / d**0.5
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv, gg = (x.to(dtype) for x in (q, k, v, g_o))
+        for label, mm, causal in (("", None, False), (",mask", mask, False),
+                                  (",causal", None, True)):
+            _, m, _ = FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal)
+            args, kw = (qq, kk, vv, mm, m, gg, g_l), {"scale": scale, "causal": causal}
+            grads = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
+            digest = hashlib.sha256()
+            for x in grads:
+                digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            out[f"{'f32' if dtype == torch.float32 else 'bf16'}{label}"] = digest.hexdigest()
+            del m, grads
+    return out
+
+
+def bwd_digest_main():
+    """``python3 chip_smoke.py --bwd-digest``: builds the two backward
+    sources of the checkout that holds this script and prints the digests
+    of their machine code and of their gradients (``backward_digests``),
+    one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import flash_attention as FA
+
+    libs = _build.build_many([FA.tf32_spec(), FA.mma_spec()])
+    sass = {lib.name: sass_digest(lib, _build._nvcc()) for lib in libs}
+    print(json.dumps({"sass": sass, "grads": backward_digests(FA, torch.device("cuda"))}))
+    return 0
+
+
 def single_gpu_attention_grads(TA, FA, q, k, v):
     """Autograd through ``flash_attention`` at full width, causal and not,
     against ``reference_attention``'s gradients on the card; the launches
@@ -1346,6 +1415,11 @@ def main():
     # -- long-context training ---------------------------------------------
     bwd_worst, bwd_cases = check_flash_bwd_kernels(FA, dev)
     torch.cuda.empty_cache()
+    print("backward digests (m from the plain forward; --bwd-digest prints them "
+          "alone):", json.dumps({"sass": {lib.name: sass_digest(lib, _build._nvcc())
+                                          for lib in libs[4:6]},
+                                 "grads": backward_digests(FA, dev)}))
+    torch.cuda.empty_cache()
     q, k, v = (torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
                for x in LCA.demo_data(0, 4, ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
     grad_worst, grad_runs = single_gpu_attention_grads(TA, FA, q, k, v)
@@ -1528,4 +1602,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(bwd_digest_main() if sys.argv[1:] == ["--bwd-digest"] else main())

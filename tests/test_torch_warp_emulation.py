@@ -12,7 +12,10 @@ the CPU, in the band of ``tests/test_torch_cuda.py``.  So the fragment
 maps, the permuted k of the 3xTF32 products, the online softmax's quad
 shuffles, the staged masks and the causal and ragged bounds run here,
 where no card is; the card runs the real instructions in
-``tests/test_torch_cuda.py``.  Skips where no C++ compiler is found.
+``tests/test_torch_cuda.py``.  The warps run in lockstep, except in the
+last test, where each runs alone from one barrier to the next, so that a
+shared stage refilled before every warp has read it gives a wrong
+result.  Skips where no C++ compiler is found.
 """
 
 import ctypes
