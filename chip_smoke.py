@@ -772,14 +772,20 @@ def check_flash_bwd_kernels(FA, dev):
 
 
 def sass_digest(lib, nvcc):
-    """sha256 of the machine code of library ``lib``: the function names
-    and instructions of its ``cuobjdump -sass``, with nothing that names
-    the file."""
+    """sha256 of the machine code of library ``lib``: the instructions of
+    each function of its ``cuobjdump -sass``, functions in sorted order,
+    with nothing that names the file (its name, its path, and the hash of
+    it in the names of anonymous namespaces)."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    code = [ln.strip() for ln in sass.splitlines()
-            if "Function :" in ln or re.search(r"/\*[0-9a-f]{4}\*/", ln)]
+    blocks = []
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            blocks.append([])
+        elif blocks and re.search(r"/\*[0-9a-f]{4}\*/", ln):
+            blocks[-1].append(re.sub(r"\d*_GLOBAL__N__\w+", "_GLOBAL__N__", ln.strip()))
+    code = sorted(hashlib.sha256("\n".join(b).encode()).hexdigest() for b in blocks)
     return hashlib.sha256("\n".join(code).encode()).hexdigest()
 
 

@@ -152,22 +152,35 @@ __device__ __forceinline__ SplitTile at(SplitTile t, int off) {
   return SplitTile{t.big + off, t.small + off};
 }
 
-// the B fragments of two neighbouring 8-column tiles of strip_abt from one
-// ldmatrix of four 8 x 4 tiles at p: split where they are loaded
-__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, const float* p) {
+// the B fragments of two neighbouring 8-column tiles of strip_abt, from
+// one ldmatrix of four 8 x 4 tiles at p: frag(i) is tile i's, split where
+// it is taken
+struct RawPair {
   uint32_t r[4];
-  ldsm4(r, p);
-  f0 = split2(__uint_as_float(r[0]), __uint_as_float(r[1]));
-  f1 = split2(__uint_as_float(r[2]), __uint_as_float(r[3]));
+  __device__ __forceinline__ Frag2 frag(int i) const {
+    return split2(__uint_as_float(r[2 * i]), __uint_as_float(r[2 * i + 1]));
+  }
+};
+
+__device__ __forceinline__ RawPair b_pair(const float* p) {
+  RawPair x;
+  ldsm4(x.r, p);
+  return x;
 }
 
 // the same from a split tile: one ldmatrix of each half
-__device__ __forceinline__ void b_pair(Frag2& f0, Frag2& f1, SplitTile p) {
-  uint32_t rb[4], rs[4];
-  ldsm4(rb, p.big);
-  ldsm4(rs, p.small);
-  f0 = Frag2{{rb[0], rb[1]}, {rs[0], rs[1]}};
-  f1 = Frag2{{rb[2], rb[3]}, {rs[2], rs[3]}};
+struct SplitPair {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ Frag2 frag(int i) const {
+    return Frag2{{big[2 * i], big[2 * i + 1]}, {small[2 * i], small[2 * i + 1]}};
+  }
+};
+
+__device__ __forceinline__ SplitPair b_pair(SplitTile p) {
+  SplitPair x;
+  ldsm4(x.big, p.big);
+  ldsm4(x.small, p.small);
+  return x;
 }
 
 // one B fragment of strip_pm, the elements at e and e + ld: split where
@@ -243,10 +256,9 @@ __device__ __forceinline__ void strip_abt(float (&acc)[NB / 8][4], const float* 
       const Frag4 af = split4(ar);
 #pragma unroll
       for (int j = 0; j < NB / 8; j += 2) {
-        Frag2 b0, b1;
-        b_pair(b0, b1, at(pb, j * 8 * LD + kd));
-        mma3(part[j], af, b0);
-        mma3(part[j + 1], af, b1);
+        const auto bp = b_pair(at(pb, j * 8 * LD + kd));
+        mma3(part[j], af, bp.frag(0));
+        mma3(part[j + 1], af, bp.frag(1));
       }
     }
 #pragma unroll
