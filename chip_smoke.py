@@ -790,32 +790,37 @@ def sass_digest(lib, nvcc):
 
 
 def backward_digests(FA, dev):
-    """sha256 of dq, dk and dv from the backward kernels at full width, f32
-    and bf16, unmasked, masked (p = 0.8) and causal, on inputs from a
-    seeded generator with ``m`` from the plain forward: what the backward
-    kernels alone give, whatever forward kernel the checkout routes to.
-    Equal digests from two checkouts on one card say their backward
-    kernels give the same bits."""
-    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    """sha256 of dq, dk and dv from the backward kernels at B=4, T=4096,
+    H=8, each head dim the kernels are built for, f32 and bf16, unmasked,
+    masked (p = 0.8) and causal (every template instance of both backward
+    sources), on inputs from a seeded generator with ``m`` from the plain
+    forward: what the backward kernels alone give, whatever forward kernel
+    the checkout routes to.  Equal digests from two checkouts on one card
+    say their backward kernels give the same bits."""
+    b, t, h = ATTN_B, ATTN_T, ATTN_H
     gen = torch.Generator(device=dev).manual_seed(2)
-    q, k, v, g_o = (torch.randn((b, t, h, d), device=dev, generator=gen)
-                    for _ in range(4))
-    g_l = torch.randn((b, h, t), device=dev, generator=gen)
     mask = torch.rand((t, t), device=dev, generator=gen) < 0.8
-    scale = 1.0 / d**0.5
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        qq, kk, vv, gg = (x.to(dtype) for x in (q, k, v, g_o))
-        for label, mm, causal in (("", None, False), (",mask", mask, False),
-                                  (",causal", None, True)):
-            _, m, _ = FA.block_partials_plain(qq, kk, vv, mm, scale=scale, causal=causal)
-            args, kw = (qq, kk, vv, mm, m, gg, g_l), {"scale": scale, "causal": causal}
-            grads = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
-            digest = hashlib.sha256()
-            for x in grads:
-                digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-            out[f"{'f32' if dtype == torch.float32 else 'bf16'}{label}"] = digest.hexdigest()
-            del m, grads
+    for d in FA.HEAD_DIMS:
+        q, k, v, g_o = (torch.randn((b, t, h, d), device=dev, generator=gen)
+                        for _ in range(4))
+        g_l = torch.randn((b, h, t), device=dev, generator=gen)
+        scale = 1.0 / d**0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            qq, kk, vv, gg = (x.to(dtype) for x in (q, k, v, g_o))
+            for label, mm, causal in (("", None, False), (",mask", mask, False),
+                                      (",causal", None, True)):
+                _, m, _ = FA.block_partials_plain(qq, kk, vv, mm, scale=scale,
+                                                  causal=causal)
+                args = (qq, kk, vv, mm, m, gg, g_l)
+                kw = {"scale": scale, "causal": causal}
+                grads = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
+                digest = hashlib.sha256()
+                for x in grads:
+                    digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                kind = "f32" if dtype == torch.float32 else "bf16"
+                out[f"{kind},D={d}{label}"] = digest.hexdigest()
+                del m, grads
     return out
 
 
