@@ -74,9 +74,11 @@
 // elements (the bank analysis of mma_tf32.cuh).  The mask rides with the
 // K/V stage: its 128 x 32 bytes for the tile are staged in shared memory
 // (load_mask) and read there, never from device memory in the inner loop.
-// A tile's copy into a stage is issued only after the barrier that every
-// warp passes once done with the tile that stage held, the mask included
-// (the warps read it after the split), so two barriers a tile suffice.
+// The warps read a tile's raw K and V only to split them, before the
+// tile's second barrier, but its mask after that: so the next tile's K
+// and V are copied at the top of each tile, a tile ahead, and its mask
+// only after the first barrier, once every warp is done with the stage it
+// refills.  Two barriers a tile suffice.
 // Causal blocks stop at the tile of their last query and start heaviest
 // first.  Each block owns its rows: no atomics, the output is
 // deterministic.  No wgmma, TMA or warp specialisation yet.
@@ -168,16 +170,22 @@ __device__ __forceinline__ void fwd_block(const Args& a, int qt) {
 
   for (int kt = 0; kt < kt_end; ++kt) {
     const int st = kt & 1;
-    cp_wait<0>();
-    // the tile has landed for every thread, and every warp is done with
-    // the last tile: its split halves and its mask stage, which the next
-    // tile's copy below refills
-    __syncthreads();
-    if (kt + 1 < kt_end) {  // the next tile into the other stage
+    // the next tile's K and V into the other stage, whose raw rows every
+    // warp split before the last tile's second barrier
+    if (kt + 1 < kt_end) {
       const int k1 = (kt + 1) * BK;
       load_rows<D, BK, LD, NT>(Ks + (st ^ 1) * BK * LD, kb, a.skt, k1, a.Tk);
       load_rows<D, BK, LD, NT>(Vs + (st ^ 1) * BK * LD, vb, a.svt, k1, a.Tk);
-      if (MASK) load_mask<BQ, BK, MLD, NT>(Ms + (st ^ 1) * BQ * MLD, a, q0, k1, by4);
+      cp_commit();
+      cp_wait<1>();  // all but the copy just issued: this tile and its mask
+    } else {
+      cp_wait<0>();
+    }
+    // the tile has landed for every thread, and every warp is done with
+    // the last tile's split halves and mask stage
+    __syncthreads();
+    if (MASK && kt + 1 < kt_end) {  // only now the next tile's mask
+      load_mask<BQ, BK, MLD, NT>(Ms + (st ^ 1) * BQ * MLD, a, q0, (kt + 1) * BK, by4);
       cp_commit();
     }
     split_rows<D, BK, LD, NT>(Kb, Kl, Ks + st * BK * LD);
