@@ -4,7 +4,9 @@
 
 Builds the port's kernels from the seven sources in this checkout (one
 ``nvcc`` each, all at once), holds each against its plain PyTorch version
-at the full width of its path, drives the paths that run them, checks
+at the full width of its path (``sw_steps`` and ``sw_wide`` bit for bit),
+prints each stencil kernel's blocks resident per SM and the cells it
+computes per cell it keeps, drives the paths that run them, checks
 that each path launched its kernels and that its output is right, and
 prints:
 
@@ -62,6 +64,12 @@ read just after:
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
+
+    python3 chip_smoke.py --stencils
+
+builds only the stencil sources and runs their phases: the kernels
+against their plain versions, their times and geometry, and the two
+single-GPU solves (``stencils_main``), one JSON line.
 
     python3 chip_smoke.py --bwd-digest
 
@@ -147,18 +155,28 @@ def time_ms(fn, reps, warmup):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, ref_fields, out_fields, names):
+def compare(name, ref_fields, out_fields, names, exact=False):
     """Largest absolute difference over the fields; raises outside the
-    band."""
+    band, or, ``exact``, unless every field equals the plain version's bit
+    for bit, the signs of zeros included (the stencil kernels against their
+    plain versions)."""
     worst = 0.0
     for fname, a, b in zip(names, ref_fields, out_fields):
         if not bool(torch.isfinite(b).all()):
             raise AssertionError(f"{name}: field {fname} is not finite")
         err = (a - b).abs().max().item()
-        lim = band(a)
-        print(f"  {name} {fname}: max|diff| {err:.3e} (band {lim:.3e})")
-        if err > lim:
-            raise AssertionError(f"{name}: field {fname} off by {err:.3e} > {lim:.3e}")
+        if exact:
+            same = torch.equal(a.contiguous().view(torch.int32),
+                               b.contiguous().view(torch.int32))
+            print(f"  {name} {fname}: max|diff| {err:.3e} (bit for bit: {same})")
+            if not same:
+                raise AssertionError(f"{name}: field {fname} differs from plain "
+                                     f"(max|diff| {err:.3e})")
+        else:
+            lim = band(a)
+            print(f"  {name} {fname}: max|diff| {err:.3e} (band {lim:.3e})")
+            if err > lim:
+                raise AssertionError(f"{name}: field {fname} off by {err:.3e} > {lim:.3e}")
         worst = max(worst, err)
     return worst
 
@@ -252,32 +270,278 @@ def check_phase_kernels(P, KP, dev, names):
     return worst, per_case
 
 
+def rank_frames(P, dev, cfg, m, ranks):
+    """The widened frames of ``ranks`` of ``cfg`` (a grid of ranks of
+    3600x1800, periodic in x) and their domain-global offsets, cut from one
+    global array grown by ``m - 1`` cells on every side: the whole
+    domain's initial state, its interior columns repeated periodically in
+    x, zeros beyond the walls (as ``_wide_exchange`` leaves them)."""
+    e = m - 1
+    whole = P.initial_state(P.Config(nx=cfg.nx, ny=cfg.ny), device=dev)
+    cols = (torch.arange(-e, cfg.nx + 2 + e, device=dev) - 1) % cfg.nx + 1
+    glob = []
+    for f in whole:
+        f = f[:, cols]
+        pad = torch.zeros(e, f.shape[1], dtype=f.dtype, device=dev)
+        glob.append(torch.cat([pad, f, pad]))
+    ny_w, nx_w = cfg.ny_local + 2 * e, cfg.nx_local + 2 * e
+    out = {}
+    for rank in ranks:
+        py, px = divmod(rank, cfg.nproc_x)
+        oy, ox = py * (cfg.ny_local - 2), px * (cfg.nx_local - 2)
+        out[rank] = (tuple(g[oy:oy + ny_w, ox:ox + nx_w].contiguous() for g in glob),
+                     (oy - e, ox - e))
+    return out
+
+
 def check_wide_kernel(P, KW, dev, names):
-    """sw_wide against its plain version on the crop region of the walled
-    (1,1) widened frame of 3600x1800 (1832x3632), one and two steps."""
+    """sw_wide against its plain version on the crop region, bit for bit:
+    the walled (1,1) widened frame of 3600x1800 (1832x3632) and the
+    periodic frames of ranks 0 and 3 of its (2,2) grid (932x1832, at the
+    ranks' offsets), Euler and AB-2, one and two steps."""
     cfg = P.Config(nx=3600, ny=1800, periodic_x=False)
     _, comm = P.make_mesh_and_comm(cfg, device=dev)
     m = P._margin_rows(2)
     wf, _ = P._wide_exchange(tuple(P.initial_state(cfg, device=dev)), cfg, comm,
                              m, P.create_token())
     off = (-(m - 1), -(m - 1))
-    wf1 = KW.sw_wide_plain(wf, cfg, True, 1, off)  # AB-2 inputs from here
-    sl = (slice(m - 1, m - 1 + cfg.ny_local), slice(m - 1, m - 1 + cfg.nx_local))
+    g4 = P.Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2)
+    cases = [("walled", cfg, wf, off)]
+    for rank, (frame, roff) in rank_frames(P, dev, g4, m, (0, 3)).items():
+        cases.append((f"(2,2) rank {rank}", g4, frame, roff))
     worst, per_case = 0.0, {}
-    for first, nsteps, inp in ((True, 1, wf), (False, 1, wf1), (False, 2, wf1)):
-        ref = KW.sw_wide_plain(inp, cfg, first, nsteps, off)
-        out = KW.sw_wide(inp, cfg, first, nsteps, off)
-        label = f"sw_wide(first={first}, nsteps={nsteps})"
-        worst = max(worst, compare(label, [a[sl] for a in ref],
-                                   [b[sl] for b in out], names))
-        if not first:
-            per_case[f"nsteps={nsteps}"] = timed_case(
-                label,
-                lambda: KW.sw_wide(inp, cfg, False, nsteps, off),
-                lambda: KW.sw_wide_plain(inp, cfg, False, nsteps, off),
-                *wide_need(cfg, nsteps, KW.STEP_RADIUS))
-    print(f"  widened frame {tuple(wf[0].shape)}")
+    for where, c, frame, o in cases:
+        sl = (slice(m - 1, m - 1 + c.ny_local), slice(m - 1, m - 1 + c.nx_local))
+        frame1 = KW.sw_wide_plain(frame, c, True, 1, o)  # AB-2 inputs from here
+        for first, nsteps, inp in ((True, 1, frame), (True, 2, frame), (False, 1, frame1),
+                                   (False, 2, frame1)):
+            ref = KW.sw_wide_plain(inp, c, first, nsteps, o)
+            out = KW.sw_wide(inp, c, first, nsteps, o)
+            label = f"sw_wide({where}, first={first}, nsteps={nsteps})"
+            worst = max(worst, compare(label, [a[sl] for a in ref],
+                                       [b[sl] for b in out], names, exact=True))
+            if not first and where != "(2,2) rank 3":
+                key = f"nsteps={nsteps}" if where == "walled" else f"{where},nsteps={nsteps}"
+                per_case[key] = timed_case(
+                    label,
+                    lambda: KW.sw_wide(inp, c, False, nsteps, o),
+                    lambda: KW.sw_wide_plain(inp, c, False, nsteps, o),
+                    *wide_need(c, nsteps, KW.STEP_RADIUS))
+        print(f"  widened frame {where} {tuple(frame[0].shape)} at offsets {o}")
     return worst, per_case
+
+
+def check_steps_kernel(P, K, dev, names):
+    """sw_steps against its plain version on the 1802x3602 local arrays of
+    3600x1800, bit for bit, every (first step, nsteps) the main path and
+    the fused modes take, each timed beside its plain version."""
+    cfg = P.Config(nx=3600, ny=1800)
+    cells = cfg.ny_local * cfg.nx_local
+    s0 = tuple(P.initial_state(cfg, device=dev))
+    s1 = K.sw_steps_plain(s0, cfg, True, 1)  # AB-2 steps start from here
+    per_case = {}
+    worst = 0.0
+    for first, nsteps in ((True, 1), (False, 1), (False, 2), (False, 3)):
+        inp = s0 if first else s1
+        ref = K.sw_steps_plain(inp, cfg, first, nsteps)
+        out = K.sw_steps(inp, cfg, first, nsteps)
+        torch.cuda.synchronize()
+        label = f"sw_steps(first={first}, nsteps={nsteps})"
+        worst = max(worst, compare(label, ref, out, names, exact=True))
+        per_case[f"first={first},nsteps={nsteps}"] = timed_case(
+            label,
+            lambda: K.sw_steps(inp, cfg, first, nsteps),
+            lambda: K.sw_steps_plain(inp, cfg, first, nsteps),
+            12 * cells * 4, OPS_PER_CELL_STEP * nsteps * cells)
+    # the pair again on the state halfway through the main path's run:
+    # the kernel's time depends on the data (a division with a zero or
+    # tiny operand takes a slow path), and the first step's state is
+    # mostly at rest
+    mid = s1
+    for _ in range(110):
+        mid = K.sw_steps(mid, cfg, False, 2)
+    ref = K.sw_steps_plain(mid, cfg, False, 2)
+    out = K.sw_steps(mid, cfg, False, 2)
+    label = "sw_steps(first=False, nsteps=2) at step 221"
+    worst = max(worst, compare(label, ref, out, names, exact=True))
+    per_case["first=False,nsteps=2,step=221"] = timed_case(
+        label, lambda: K.sw_steps(mid, cfg, False, 2),
+        lambda: K.sw_steps_plain(mid, cfg, False, 2),
+        12 * cells * 4, OPS_PER_CELL_STEP * 2 * cells)
+    return worst, per_case
+
+
+def stencil_geometry(K, KW, P):
+    """Each stencil kernel's blocks at the shapes of its paths, from the
+    geometry functions its source exports: blocks resident per SM (from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the cells it
+    computes per step over those it keeps.  Empty for a checkout whose
+    kernels export none (before the streamed design)."""
+    if not hasattr(K, "geometry"):
+        return {}
+    wcfg = P.Config(nx=3600, ny=1800, periodic_x=False)
+    g4 = P.Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2)
+    geo = {}
+    for nsteps in (1, 2, 3):
+        geo[f"sw_steps,nsteps={nsteps}"] = K.geometry((1802, 3602), nsteps)
+    for nsteps in (1, 2):
+        geo[f"sw_wide,nsteps={nsteps}"] = KW.geometry(wcfg, (1832, 3632), nsteps)
+    geo["sw_wide,nsteps=2,(2,2) rank"] = KW.geometry(g4, (932, 1832), 2)
+    for name, g in geo.items():
+        print(f"  geometry {name}: {g['strips']} strips x {g['chunks']} chunks of "
+              f"{g['rows_per_block']} rows, {g['blocks_per_sm']} blocks "
+              f"({g['warps_per_sm']} warps) resident per SM, {g['smem_bytes']} B of "
+              f"shared memory a block, computed/useful cells "
+              f"{g['computed_per_useful']:.4f}")
+    return geo
+
+
+def periodic_solve(P, K, dev, t1):
+    """The main path: ``solve_fused(fast="auto", pinned=True)`` at 3600x1800
+    periodic to ``t1`` (one CUDA graph), its launches and final state
+    checked, then 20 steps of the kernel path against the plain
+    ``fast=True`` path."""
+    cfg = P.Config(nx=3600, ny=1800)
+    ny, nx = cfg.ny_local, cfg.nx_local
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    names = P.State._fields
+    info = {}
+    K.counter.launches = 0
+    wall, n_steps, final = P.solve_fused(cfg, t1, device=dev, fast="auto",
+                                         pinned=True, return_state=True, info=info)
+    launches = K.counter.launches
+    per_run = 1 + (n_steps - 1) // 2  # the Euler call and the pair calls
+    print(f"main path: {n_steps} steps, wall {wall:.4f} s, "
+          f"{n_steps / wall:.2f} steps/s, state traffic "
+          f"{12 * ny * nx * 4 * n_steps / wall / 1e9:.1f} GB/s, "
+          f"{info['runs']} runs, sw_steps launches {launches}")
+    if n_steps != 441 or (n_steps - 1) % 2:
+        raise AssertionError(f"expected 441 steps, got {n_steps}")
+    if launches != per_run * info["runs"] or launches == 0:
+        raise AssertionError(
+            f"sw_steps launched {launches} times, expected "
+            f"{per_run} x {info['runs']} runs"
+        )
+    h = final.h
+    if tuple(h.shape) != (ny, nx) or not bool(torch.isfinite(h).all()):
+        raise AssertionError("final h is not finite at the expected shape")
+    for f in final:
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("final state is not finite")
+    mean_h = h[1:-1, 1:-1].mean().item()
+    print(f"  final h: mean {mean_h:.4f} (depth {cfg.depth}), "
+          f"min {h.min().item():.4f}, max {h.max().item():.4f}")
+    if not abs(mean_h - cfg.depth) < 10:
+        raise AssertionError(f"mean height {mean_h} far from depth {cfg.depth}")
+    # the pair's time on the state the main path ends with (a kernel's
+    # time depends on its data)
+    final_pair_ms = time_ms(lambda: K.sw_steps(tuple(final), cfg, False, 2), reps=50,
+                            warmup=50)
+    print(f"  sw_steps pair on the final state: {final_pair_ms:.4f} ms")
+    # kept on the host for the four-rank run's comparison
+    single_final = [f[1:-1, 1:-1].cpu() for f in final]
+    del final, h
+
+    # the kernel path against the plain fast=True path over 20 steps
+    s = P.initial_state(cfg, device=dev)
+    first_k, multi_k = P.make_stepper(cfg, comm, fast="pallas2")
+    first_p, multi_p = P.make_stepper(cfg, comm, fast=True)
+    out_k = multi_k(first_k(s), 19)
+    out_p = multi_p(first_p(s), 19)
+    torch.cuda.synchronize()
+    worst20 = compare("20 steps pallas2 vs fast", out_p, out_k, names)
+    return {"steps": n_steps, "wall": wall, "steps_per_s": n_steps / wall,
+            "runs": info["runs"], "launches": launches, "worst20": worst20,
+            "final_pair_ms": final_pair_ms, "final": single_final}
+
+
+def walled_solve(P, KW, dev, t1):
+    """The single-GPU walled solve: "auto" picks the wide-halo pair kernel;
+    its launches and final state checked, then 20 steps of ``wide2``
+    against the plain ``fast=True`` path."""
+    wcfg = P.Config(nx=3600, ny=1800, periodic_x=False)
+    names = P.State._fields
+    if P.select_steps("auto", wcfg)[1] is not P.model_step2_wide:
+        raise AssertionError("auto does not pick wide2 on the walled config")
+    winfo = {}
+    KW.counter.launches = 0
+    wwall, wn, wfinal = P.solve_fused(wcfg, t1, device=dev, fast="auto",
+                                      pinned=True, return_state=True, info=winfo)
+    wide_launches = KW.counter.launches
+    print(f"walled path: {wn} steps, wall {wwall:.4f} s, {wn / wwall:.2f} steps/s, "
+          f"{winfo['runs']} runs, sw_wide launches {wide_launches}")
+    if wide_launches != 221 * winfo["runs"]:
+        raise AssertionError(
+            f"sw_wide launched {wide_launches} times, expected 221 x {winfo['runs']}")
+    for f in wfinal:
+        if not bool(torch.isfinite(f).all()):
+            raise AssertionError("walled final state is not finite")
+    wmean = wfinal.h[1:-1, 1:-1].mean().item()
+    if not abs(wmean - wcfg.depth) < 10:
+        raise AssertionError(f"walled mean height {wmean} far from depth")
+    del wfinal
+    _, wcomm = P.make_mesh_and_comm(wcfg, device=dev)
+    s = P.initial_state(wcfg, device=dev)
+    first_w, multi_w = P.make_stepper(wcfg, wcomm, fast="wide2")
+    first_p, multi_p = P.make_stepper(wcfg, wcomm, fast=True)
+    out_w = multi_w(first_w(s), 19)
+    out_p = multi_p(first_p(s), 19)
+    torch.cuda.synchronize()
+    worst20 = compare("20 steps wide2 vs fast (walled)", out_p, out_w, names)
+    return {"steps": wn, "wall": wwall, "steps_per_s": wn / wwall,
+            "runs": winfo["runs"], "launches": wide_launches, "worst20": worst20}
+
+
+def stencils_main():
+    """``python3 chip_smoke.py --stencils``: builds the stencil sources of
+    the checkout that holds this script and runs only their phases: each
+    stencil kernel against its plain version at full width (bit for bit
+    for sw_steps and sw_wide), timed, with its geometry, and the periodic
+    and walled 0.1-day solves; one JSON line.  Run from two checkouts in
+    one call, it sets their stencil times and steps/s side by side."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    t0 = time.perf_counter()
+    _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    print(f"built the stencil sources in {time.perf_counter() - t0:.1f} s")
+    print_stencil_ptxas(_build)
+    dev = torch.device("cuda")
+    names = P.State._fields
+    geo = stencil_geometry(K, KW, P)
+    worst, per_case = check_steps_kernel(P, K, dev, names)
+    phase_worst, phase_cases = check_phase_kernels(P, KP, dev, names)
+    wide_worst, wide_cases = check_wide_kernel(P, KW, dev, names)
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    periodic = periodic_solve(P, K, dev, t1)
+    periodic.pop("final")
+    walled = walled_solve(P, KW, dev, t1)
+    print(smi)
+    print(json.dumps({"stencils": {
+        "sw_steps": per_case, "sw_phase": phase_cases, "sw_wide": wide_cases,
+        "max_abs_err": {"sw_steps": worst, "sw_phase": phase_worst, "sw_wide": wide_worst},
+        "geometry": geo, "periodic_solve": periodic, "walled_solve": walled}}))
+    return 0
+
+
+def print_stencil_ptxas(_build):
+    """Registers, spills and shared memory of the stencil kernels, from
+    the ``-Xptxas -v`` logs."""
+    for src in ("sw_steps", "sw_phase", "sw_wide"):
+        for line in (_build.BUILD_DIR / f"{src}.build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {src}:", line.strip())
 
 
 def shared_card_rank(rank, t1, device, nx, ny):
@@ -1228,15 +1492,7 @@ def main():
     from mpi4jax_tpu_torch.models import long_context_attention as LCA
     from mpi4jax_tpu_torch.models import long_context_training as LCT
     from mpi4jax_tpu_torch.models import shallow_water as P
-    from mpi4jax_tpu_torch.models.shallow_water import (
-        DAY_IN_SECONDS,
-        Config,
-        State,
-        initial_state,
-        make_mesh_and_comm,
-        make_stepper,
-        solve_fused,
-    )
+    from mpi4jax_tpu_torch.models.shallow_water import DAY_IN_SECONDS, Config, State
     from mpi4jax_tpu_torch.parallel import launch
 
     # -- build: one nvcc per source, all at once --------------------------
@@ -1245,10 +1501,7 @@ def main():
                               FA.tf32_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for src in ("sw_steps", "sw_phase", "sw_wide"):
-        for line in (_build.BUILD_DIR / f"{src}.build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {src}:", line.strip())
+    print_stencil_ptxas(_build)
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_tf32.build.log")
     fwd_tf32_hmma = sass_tf32_mma(libs[3], _build._nvcc())
     print_flash_ptxas(_build.BUILD_DIR / "flash_bwd_tf32.build.log")
@@ -1257,109 +1510,22 @@ def main():
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_mma.build.log")
 
     dev = torch.device("cuda")
-    cfg = Config(nx=3600, ny=1800)
-    ny, nx = cfg.ny_local, cfg.nx_local
-    _, comm = make_mesh_and_comm(cfg, device=dev)
     names = State._fields
 
     # -- kernel against plain at full width -------------------------------
-    s0 = tuple(initial_state(cfg, device=dev))
-    s1 = K.sw_steps_plain(s0, cfg, True, 1)  # AB-2 steps start from here
-    cells = ny * nx
-    per_case = {}
-    worst = 0.0
-    for first, nsteps in ((True, 1), (False, 1), (False, 2), (False, 3)):
-        inp = s0 if first else s1
-        ref = K.sw_steps_plain(inp, cfg, first, nsteps)
-        out = K.sw_steps(inp, cfg, first, nsteps)
-        torch.cuda.synchronize()
-        label = f"sw_steps(first={first}, nsteps={nsteps})"
-        worst = max(worst, compare(label, ref, out, names))
-        per_case[f"first={first},nsteps={nsteps}"] = timed_case(
-            label,
-            lambda: K.sw_steps(inp, cfg, first, nsteps),
-            lambda: K.sw_steps_plain(inp, cfg, first, nsteps),
-            12 * cells * 4, OPS_PER_CELL_STEP * nsteps * cells)
-    del s0, s1, ref, out
-
+    geo = stencil_geometry(K, KW, P)
+    worst, per_case = check_steps_kernel(P, K, dev, names)
     phase_worst, phase_cases = check_phase_kernels(P, KP, dev, names)
     wide_worst, wide_cases = check_wide_kernel(P, KW, dev, names)
 
     # -- main path --------------------------------------------------------
     t1 = 0.1 * DAY_IN_SECONDS
-    info = {}
-    K.counter.launches = 0
-    wall, n_steps, final = solve_fused(cfg, t1, device=dev, fast="auto",
-                                       pinned=True, return_state=True, info=info)
-    launches = K.counter.launches
-    per_run = 1 + (n_steps - 1) // 2  # the Euler call and the pair calls
-    print(f"main path: {n_steps} steps, wall {wall:.4f} s, "
-          f"{n_steps / wall:.2f} steps/s, state traffic "
-          f"{12 * cells * 4 * n_steps / wall / 1e9:.1f} GB/s, "
-          f"{info['runs']} runs, sw_steps launches {launches}")
-    if n_steps != 441 or (n_steps - 1) % 2:
-        raise AssertionError(f"expected 441 steps, got {n_steps}")
-    if launches != per_run * info["runs"] or launches == 0:
-        raise AssertionError(
-            f"sw_steps launched {launches} times, expected "
-            f"{per_run} x {info['runs']} runs"
-        )
-    h = final.h
-    if tuple(h.shape) != (ny, nx) or not bool(torch.isfinite(h).all()):
-        raise AssertionError("final h is not finite at the expected shape")
-    for f in final:
-        if not bool(torch.isfinite(f).all()):
-            raise AssertionError("final state is not finite")
-    mean_h = h[1:-1, 1:-1].mean().item()
-    print(f"  final h: mean {mean_h:.4f} (depth {cfg.depth}), "
-          f"min {h.min().item():.4f}, max {h.max().item():.4f}")
-    if not abs(mean_h - cfg.depth) < 10:
-        raise AssertionError(f"mean height {mean_h} far from depth {cfg.depth}")
-    # kept on the host for the four-rank run's comparison
-    single_final = [f[1:-1, 1:-1].cpu() for f in final]
-    del final, h
-
-    # the kernel path against the plain fast=True path over 20 steps
-    s = initial_state(cfg, device=dev)
-    first_k, multi_k = make_stepper(cfg, comm, fast="pallas2")
-    first_p, multi_p = make_stepper(cfg, comm, fast=True)
-    out_k = multi_k(first_k(s), 19)
-    out_p = multi_p(first_p(s), 19)
-    torch.cuda.synchronize()
-    worst20 = compare("20 steps pallas2 vs fast", out_p, out_k, names)
-    del s, out_k, out_p
-
-    # -- single-GPU walled solve: "auto" picks the wide-halo pair kernel ---
-    wcfg = Config(nx=3600, ny=1800, periodic_x=False)
-    if P.select_steps("auto", wcfg)[1] is not P.model_step2_wide:
-        raise AssertionError("auto does not pick wide2 on the walled config")
-    winfo = {}
-    KW.counter.launches = 0
-    wwall, wn, wfinal = solve_fused(wcfg, t1, device=dev, fast="auto",
-                                    pinned=True, return_state=True, info=winfo)
-    wide_launches = KW.counter.launches
-    print(f"walled path: {wn} steps, wall {wwall:.4f} s, {wn / wwall:.2f} steps/s, "
-          f"{winfo['runs']} runs, sw_wide launches {wide_launches}")
-    if wide_launches != 221 * winfo["runs"]:
-        raise AssertionError(
-            f"sw_wide launched {wide_launches} times, expected 221 x {winfo['runs']}")
-    for f in wfinal:
-        if not bool(torch.isfinite(f).all()):
-            raise AssertionError("walled final state is not finite")
-    wmean = wfinal.h[1:-1, 1:-1].mean().item()
-    if not abs(wmean - wcfg.depth) < 10:
-        raise AssertionError(f"walled mean height {wmean} far from depth")
-    del wfinal
-    _, wcomm = make_mesh_and_comm(wcfg, device=dev)
-    s = initial_state(wcfg, device=dev)
-    first_w, multi_w = make_stepper(wcfg, wcomm, fast="wide2")
-    first_p, multi_p = make_stepper(wcfg, wcomm, fast=True)
-    out_w = multi_w(first_w(s), 19)
-    out_p = multi_p(first_p(s), 19)
-    torch.cuda.synchronize()
-    wide_worst = max(wide_worst, compare("20 steps wide2 vs fast (walled)",
-                                         out_p, out_w, names))
-    del s, out_w, out_p
+    periodic = periodic_solve(P, K, dev, t1)
+    launches, single_final = periodic["launches"], periodic.pop("final")
+    worst20 = periodic["worst20"]
+    walled = walled_solve(P, KW, dev, t1)
+    wide_worst = max(wide_worst, walled["worst20"])
+    wide_launches = walled["launches"]
     torch.cuda.empty_cache()
 
     # -- four ranks on this card: gloo, exchanges staged through the host --
@@ -1468,6 +1634,9 @@ def main():
         "library_ms": None,
         "ok": True,
         "by_case": per_case,
+        "geometry": {k: g for k, g in geo.items() if k.startswith("sw_steps")},
+        "periodic_solve_steps_per_s": periodic["steps_per_s"],
+        "pair_ms_on_final_state": periodic["final_pair_ms"],
     }, {
         "name": "sw_phase",
         "route": "cuda",
@@ -1496,6 +1665,8 @@ def main():
         "library_ms": None,
         "ok": True,
         "by_case": wide_cases,
+        "geometry": {k: g for k, g in geo.items() if k.startswith("sw_wide")},
+        "walled_solve_steps_per_s": walled["steps_per_s"],
         "four_rank_launches_rank0": r0["wide_launches"],
     }]
     for name, main_case, replaces in (
@@ -1613,4 +1784,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(bwd_digest_main() if sys.argv[1:] == ["--bwd-digest"] else main())
+    modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

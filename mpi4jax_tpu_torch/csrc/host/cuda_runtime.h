@@ -1,6 +1,7 @@
-// Host emulation of the CUDA pieces the flash sources use, so that their
-// fragment maps, masks, softmax shuffles and loop bounds run under a host
-// C++ compiler (tests/test_torch_warp_emulation.py).  Not used by nvcc.
+// Host emulation of the CUDA pieces the flash and streamed stencil sources
+// use, so that their fragment maps, masks, softmax shuffles, rings and
+// loop bounds run under a host C++ compiler (tests/test_torch_warp_emulation.py,
+// tests/test_torch_sw_emulation.py).  Not used by nvcc.
 //
 // A launch runs its blocks one after another.  A block's threads are
 // coroutines (ucontext) that switch at every barrier and every
@@ -66,6 +67,23 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// an H100's residency: 132 SMs, 2048 threads and 228 KB of shared memory
+// each, 1 KB of it reserved per block
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 132;
+  return cudaSuccess;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int threads, size_t smem) {
+  *n = std::min<int>(2048 / threads, 233472 / (int)(smem + 1024));
+  return cudaSuccess;
+}
+
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -94,6 +112,8 @@ inline uint32_t __float_as_uint(float f) {
   memcpy(&u, &f, 4);
   return u;
 }
+inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
+inline float __frcp_rn(float b) { return 1.0f / b; }
 
 namespace emu {
 

@@ -9,11 +9,15 @@ Bound on an H100: bytes.  A call must read the six state fields once and
 write them once, 12 fields x 4 bytes per cell (12 x 25.96 MB = 311.6 MB at
 3600x1800); at 3.35 TB/s that is 0.093 ms per call, whatever ``nsteps``.
 The arithmetic, about 107 f32 operations per cell and step, needs a third
-of that time even for three steps.  The design keeps every intermediate
-field (hc, fe, fn, q, ke, the viscous fluxes) and, for ``nsteps > 1``, the
-intermediate state in shared memory, so device memory sees only that one
-read and one write per call, plus the margins each tile re-reads (see
-``csrc/sw_steps.cu``).  Making the kernel reach that bound is later work.
+of that time even for three steps.  The kernel (``csrc/sw_steps.cu`` on
+the streamed rows of ``csrc/sw_stream.cuh``) gives each block a strip of
+``EXT`` columns and a chunk of rows, which it walks a row at a time,
+keeping every intermediate field in rings of a few rows of shared memory
+and what a cell reads only at itself in registers.  A strip recomputes
+margins of ``nsteps * INTERIOR_RADIUS`` cells, or, in the two strips that
+hold the periodic seam columns, ``nsteps * STEP_RADIUS`` columns.  The
+source lays out the blocks and reports them (``geometry``,
+``query_geometry``).
 
 This module holds three things:
 
@@ -26,7 +30,7 @@ This module holds three things:
   tensor launches the kernel or raises;
 - the build of ``csrc/sw_steps.cu`` with ``nvcc`` at first use, into the
   package's ``_build/`` directory (``kernels/_build.py``), loaded with
-  ``ctypes``.
+  ``ctypes``, and the kernel's geometry as the source reports it.
 """
 
 from __future__ import annotations
@@ -40,18 +44,24 @@ import torch
 from . import _build
 
 SOURCE = _build.CSRC / "sw_steps.cu"
+HEADERS = (_build.CSRC / "sw_stream.cuh",)
 
-# per-step dependency radius of one whole step (rows, cols); the kernel's
-# tile margins are nsteps times these.  Rows: phase 1 reads 2 rows away
-# (fn of the row below through hc's wall pad), the viscosity 1 more.
-# Cols: phase 1 reads 1 column away, each periodic column fix 2, the
-# viscosity 1.  tests/test_torch_sw_kernel.py checks that tiles cut with
-# these margins reproduce the whole-array step bit for bit.
+# per-step dependency radius of one whole step (rows, cols) near the
+# periodic seam: the margins of the kernel's first and last strips, in
+# columns, are nsteps times its second entry.  Cols: phase 1 reads 1
+# column away, each periodic column fix 2 (col 0 holds col nx-2), the
+# viscosity 1.  tests/test_torch_sw_kernel.py measures it by NaN injection
+# (periodic distance).
 STEP_RADIUS = (3, 6)
-TILE = (32, 32)  # output rows, cols per CUDA block
-# both reach the kernel as -D flags of its build: one source for the tiling
-_DEFINES = {"SW_TY": TILE[0], "SW_TX": TILE[1],
-            "SW_RY": STEP_RADIUS[0], "SW_RX": STEP_RADIUS[1]}
+# ... and away from the seam columns, at the walls included (measured in
+# array rows, which never wrap: tests/test_torch_sw_kernel.py): every
+# chunk's row margin and every other strip's column margin, per step.
+# Phase 1 reads 1 cell away, the viscosity 1 more.
+INTERIOR_RADIUS = (2, 2)
+EXT = 256  # threads of a block = the columns of its strip, margins included
+# the geometry reaches the kernel as -D flags of its build
+_DEFINES = {"SW_NT": EXT, "SW_RY": INTERIOR_RADIUS[0], "SW_RX": INTERIOR_RADIUS[1],
+            "SW_EDGE_RX": STEP_RADIUS[1]}
 
 
 def f32(x: float) -> float:
@@ -281,20 +291,63 @@ def sw_steps_plain(fields, cfg, first_step: bool, nsteps: int):
 counter = _build.counter_for("sw_steps")
 _lib = None
 
+_C = ctypes
+_SIGNATURES = {
+    "sw_steps_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 5 + [_C.c_float] * 9
+                        + [_C.c_void_p]),
+    "sw_steps_geometry": [_C.c_int] * 3 + [_C.c_void_p] * 2,
+}
+# what the geometry functions of csrc/sw_steps.cu and sw_wide.cu report
+GEOMETRY_KEYS = ("strips", "chunks", "rows_per_block", "blocks_per_sm", "threads",
+                 "smem_bytes", "rows_walked")
+
 
 def spec():
     """``(source, defines, headers)`` of this kernel's build."""
-    return SOURCE, _DEFINES, ()
+    return SOURCE, _DEFINES, HEADERS
 
 
 def _library():
     global _lib
     if _lib is None:
-        _lib = _build.load(spec(), {"sw_steps_launch": (
-            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-            + [ctypes.c_float] * 9 + [ctypes.c_void_p]
-        )})
+        _lib = _build.load(spec(), _SIGNATURES)
     return _lib
+
+
+def query_geometry(fn, *args, blocks=False):
+    """Call a geometry export of a built library (``sw_steps_geometry`` or
+    ``sw_wide_geometry``) with its leading ``args``: the seven ints of its
+    report and, with ``blocks``, every block's ``(oy, h, ox, w, my, mx)``:
+    output rows ``oy..oy+h`` and columns ``ox..ox+w``, walked with ``my``
+    rows and computed with ``mx`` columns of margin on each side."""
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    _build.raise_on_error("stencil geometry", fn(*args, out, None))
+    if not blocks:
+        return list(out), None
+    n = out[0] * out[1]
+    spans = (ctypes.c_int * (6 * n))()
+    _build.raise_on_error("stencil geometry", fn(*args, out, spans))
+    return list(out), [tuple(spans[6 * b:6 * b + 6]) for b in range(n)]
+
+
+def geometry_report(out, rows, cols, nsteps):
+    """The geometry functions' ``out`` as a dict, with the cells the kernel
+    computes per step over those it keeps (``computed_per_useful``) and the
+    warps resident per SM."""
+    g = dict(zip(GEOMETRY_KEYS, out))
+    g["computed_per_useful"] = g["strips"] * g["threads"] * g["rows_walked"] / (rows * cols)
+    g["warps_per_sm"] = g["blocks_per_sm"] * g["threads"] // 32
+    g["nsteps"] = nsteps
+    return g
+
+
+def geometry(shape, nsteps: int):
+    """The launch's blocks and residency on the current card, without
+    launching: strips, chunks, rows per chunk, blocks resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the computed
+    over useful cell ratio."""
+    out, _ = query_geometry(_library().sw_steps_geometry, shape[0], shape[1], nsteps)
+    return geometry_report(out, shape[0], shape[1], nsteps)
 
 
 def sw_steps(fields, cfg, first_step: bool, nsteps: int):

@@ -10,17 +10,21 @@ wide mask frame, the wall rows of ``u`` and ``v`` set to zero, phase 2 in
 the wide frame; no exchange and no periodic fix.  The frame's
 domain-global offsets (the rank's offsets minus ``m - 1``) come in as two
 ints.  Only the crop region ``[m-1, m-1+ny_l) x [m-1, m-1+nx_l)`` is
-meaningful after a call: outside it lies recompute garbage (inf and NaN
-beyond the walls), which the caller overwrites before any further use.
+meaningful after a call.  The plain version leaves recompute garbage
+outside it (inf and NaN beyond the walls); the kernel computes and writes
+the crop alone and leaves the other output cells unwritten.  The caller
+overwrites every one of them before any read (``_wide_refresh``,
+``_wide_crop`` in ``models/shallow_water.py``).
 
 Bound on an H100: bytes.  Only the crop is meaningful, so an AB-2 call
 must read h, u, v on the crop grown by ``nsteps x STEP_RADIUS``, the
 tendencies on the crop grown by ``(nsteps - 1) x STEP_RADIUS``, and write
 six fields on the crop: 312.3 MB for a pair on the 1802 x 3602 crop of
-3600 x 1800, 0.0932 ms at 3.35 TB/s.  The kernel
-(``csrc/sw_wide.cu``) keeps every intermediate and, for ``nsteps = 2``,
-the intermediate state in shared memory, as ``csrc/sw_steps.cu`` does;
-making it reach the bound is later work.
+3600 x 1800, 0.0932 ms at 3.35 TB/s.  The kernel (``csrc/sw_wide.cu``)
+runs the streamed rows of ``csrc/sw_stream.cuh``, as ``csrc/sw_steps.cu``
+does, over the crop only: strips and chunks with margins of ``nsteps *
+STEP_RADIUS`` cells, every intermediate in rings of a few rows of shared
+memory.
 
 This module holds the plain version (``_wide_step_window`` over the whole
 frame with ``torch.roll``), the wrapper (a CPU tensor takes the plain
@@ -35,29 +39,36 @@ import ctypes
 import torch
 
 from . import _build
-from .sw_steps import _phase1_window, _phase2_window, step_constants
+from .sw_steps import (
+    EXT,
+    _phase1_window,
+    _phase2_window,
+    geometry_report,
+    query_geometry,
+    step_constants,
+)
 
 SOURCE = _build.CSRC / "sw_wide.cu"
-HEADERS = (_build.CSRC / "sw_window.cuh",)
+HEADERS = (_build.CSRC / "sw_stream.cuh",)
 
 # per-step dependency radius (rows, cols) of one wide step, the kernel's
-# tile margins per step: phase 1 reads one cell away, the viscosity one
-# more (no periodic column fix, which costs csrc/sw_steps.cu its wider
-# column margins).  tests/test_torch_sw_wide.py measures it by NaN
-# injection and checks that tiles cut with these margins reproduce the
-# whole-frame plain version bit for bit.
+# margins per step: phase 1 reads one cell away, the viscosity one more (no
+# periodic column fix, which costs csrc/sw_steps.cu its wider column
+# margins in its edge strips).  tests/test_torch_sw_wide.py measures it by
+# NaN injection and checks that blocks cut with these margins reproduce
+# the whole-frame plain version bit for bit on the crop.
 STEP_RADIUS = (2, 2)
-TILE = (32, 32)  # output rows, cols per CUDA block
-_DEFINES = {"SW_TY": TILE[0], "SW_TX": TILE[1],
-            "SW_RY": STEP_RADIUS[0], "SW_RX": STEP_RADIUS[1]}
+_DEFINES = {"SW_NT": EXT, "SW_RY": STEP_RADIUS[0], "SW_RX": STEP_RADIUS[1],
+            "SW_EDGE_RX": STEP_RADIUS[1]}
 
 counter = _build.counter_for("sw_wide")
 _lib = None
 
 _C = ctypes
 _SIGNATURES = {
-    "sw_wide_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 10 + [_C.c_float] * 9
+    "sw_wide_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 14 + [_C.c_float] * 9
                        + [_C.c_void_p]),
+    "sw_wide_geometry": [_C.c_int] * 7 + [_C.c_void_p] * 2,
 }
 
 
@@ -71,6 +82,28 @@ def _library():
     if _lib is None:
         _lib = _build.load(spec(), _SIGNATURES)
     return _lib
+
+
+def crop_region(cfg, shape):
+    """``(cy, cx, ny_l, nx_l)``: the first row and column of the crop of a
+    frame of ``shape`` (the local array grown by ``m - 1`` cells on every
+    side) and its extent, the local array's."""
+    nyl, nxl = cfg.ny_local, cfg.nx_local
+    ey, ex = shape[0] - nyl, shape[1] - nxl
+    if ey < 0 or ey != ex or ey % 2:
+        raise ValueError(f"sw_wide: frame {tuple(shape)} is not the local array "
+                         f"{(nyl, nxl)} grown by the same margin on every side")
+    return ey // 2, ex // 2, nyl, nxl
+
+
+def geometry(cfg, shape, nsteps: int):
+    """The launch's blocks and residency on the current card for a frame of
+    ``shape``, without launching (as ``sw_steps.geometry``; the ratio is
+    over the crop)."""
+    cy, cx, rows, cols = crop_region(cfg, shape)
+    out, _ = query_geometry(_library().sw_wide_geometry, shape[0], shape[1], cy, cx, rows,
+                            cols, nsteps)
+    return geometry_report(out, rows, cols, nsteps)
 
 
 def _wide_step_window(cfg, first_step: bool, giy, gix, fields, roll):
@@ -124,13 +157,14 @@ def sw_wide(fields, cfg, first_step: bool, nsteps: int, offsets):
         raise RuntimeError(f"sw_wide: unsupported device {h.device}")
     shape = tuple(h.shape)
     _build.check_cuda_fields("sw_wide", fields, shape)
+    cy, cx, rows, cols = crop_region(cfg, shape)
     outs = tuple(torch.empty_like(f) for f in fields)
     c = step_constants(cfg)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = _library().sw_wide_launch(
         *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
         shape[0], shape[1], int(offsets[0]), int(offsets[1]),
-        cfg.ny + 2, cfg.nx + 2, int(not cfg.periodic_x),
+        cfg.ny + 2, cfg.nx + 2, int(not cfg.periodic_x), cy, cx, rows, cols,
         int(first_step), nsteps, int(cfg.lateral_viscosity > 0),
         c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc,
         stream,

@@ -63,6 +63,58 @@ def test_kernel_matches_plain(ny, nx, first, nsteps):
         assert (a - b).abs().max().item() <= 5e-6 + 1e-6 * a.abs().max().item()
 
 
+# domains whose local arrays put the kernel's strips side by side: one
+# 256-column strip over both seams (230 + 2 columns at nsteps 1), the two
+# seam strips alone (250 + 2), seam and interior strips with a ragged one
+# (700 + 2), and several chunks of rows (300 + 2 rows)
+STRIP_CASES = [(70, 230), (130, 250), (40, 700), (300, 1100)]
+
+
+def same_bits(a, b):
+    """Bit for bit, the signs of zeros included (``torch.equal`` takes -0
+    for 0)."""
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first,nsteps", STEP_CASES + [(True, 2), (True, 3)])
+@pytest.mark.parametrize("ny,nx", STRIP_CASES)
+def test_kernel_bit_for_bit_across_strips(ny, nx, first, nsteps):
+    """Every output cell equals the plain version's bit for bit on frames
+    whose seam strips, interior strips and chunks meet."""
+    need_cuda()
+    cfg = P.Config(nx=nx, ny=ny)
+    fields = perturbed_state(ny, nx, seed=3)
+    geo = K.geometry((cfg.ny_local, cfg.nx_local), nsteps)
+    got = K.sw_steps(fields, cfg, first, nsteps)
+    want = K.sw_steps_plain(fields, cfg, first, nsteps)
+    torch.cuda.synchronize()
+    assert geo["strips"] * geo["chunks"] > 1
+    for name, a, b in zip(P.State._fields, want, got):
+        assert same_bits(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first,nsteps", STEP_CASES)
+def test_kernel_bit_for_bit_on_a_region_at_rest(first, nsteps):
+    """A flat, motionless middle, as the far field of the full-width
+    initial state: zero numerators, which the division routine sends down
+    its slow path, and dh's -0."""
+    need_cuda()
+    ny, nx = 130, 700
+    cfg = P.Config(nx=nx, ny=ny)
+    fields = perturbed_state(ny, nx, seed=4)
+    rest = (slice(ny // 4, 3 * ny // 4), slice(nx // 4, 3 * nx // 4))
+    for k, f in enumerate(fields):
+        f[rest] = 100.0 if k == 0 else 0.0
+    got = K.sw_steps(fields, cfg, first, nsteps)
+    want = K.sw_steps_plain(fields, cfg, first, nsteps)
+    torch.cuda.synchronize()
+    assert bool((torch.signbit(want[3]) & (want[3] == 0)).any())
+    for name, a, b in zip(P.State._fields, want, got):
+        assert same_bits(a, b), name
+
+
 @pytest.mark.gpu
 def test_kernel_wrapper_checks():
     need_cuda()
@@ -171,6 +223,51 @@ def test_wide_kernel_matches_plain_on_crop(nx, ny, grid, rank, periodic, first,
     assert KW.counter.launches == before + 1
     sl = (slice(m - 1, m - 1 + cfg.ny_local), slice(m - 1, m - 1 + cfg.nx_local))
     assert_band([a[sl] for a in want], [b[sl] for b in got])
+
+
+def wide_frame(nx, ny, grid, rank, periodic, nsteps, seed=0):
+    """A rank's widened frame on the card, cut from one seeded global array
+    that extends m - 1 cells beyond the border, zero beyond the walls (as
+    ``_wide_exchange`` leaves it), its config and offsets."""
+    cfg = replace(P.Config(nx=nx, ny=ny, nproc_y=grid[0], nproc_x=grid[1]),
+                  periodic_x=periodic)
+    e = P._margin_rows(nsteps) - 1
+    gy, gx = cfg.ny + 2 + 2 * e, cfg.nx + 2 + 2 * e
+    rng = np.random.default_rng(seed)
+    glob = [s * rng.standard_normal((gy, gx)) for s in (0.5, 0.1, 0.1, 1e-4, 1e-5, 1e-5)]
+    glob[0] += 100.0
+    beyond = np.zeros((gy, gx), bool)
+    beyond[:e] = beyond[gy - e:] = True
+    if not periodic:
+        beyond[:, :e] = beyond[:, gx - e:] = True
+    py, px = divmod(rank, cfg.nproc_x)
+    oy, ox = py * (cfg.ny_local - 2), px * (cfg.nx_local - 2)
+    ny_w, nx_w = cfg.ny_local + 2 * e, cfg.nx_local + 2 * e
+    fields = []
+    for g in glob:
+        g[beyond] = 0.0
+        fields.append(torch.from_numpy(g[oy:oy + ny_w, ox:ox + nx_w].astype(np.float32)).cuda())
+    return cfg, tuple(fields), (oy - e, ox - e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("first,nsteps", [(True, 1), (False, 1), (False, 2), (True, 2)])
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "walled"])
+@pytest.mark.parametrize("nx,ny,grid,rank", [(600, 100, (1, 1), 0), (1200, 300, (2, 2), 3),
+                                             (1200, 300, (2, 2), 0), (64, 32, (2, 4), 6)])
+def test_wide_kernel_bit_for_bit_on_the_crop(nx, ny, grid, rank, periodic, first, nsteps):
+    """The crop-only grid: on the crop every cell equals the plain
+    version's bit for bit, for one rank and for corner and interior ranks
+    of a grid (their offsets), with several strips and chunks."""
+    need_cuda()
+    cfg, wf, off = wide_frame(nx, ny, grid, rank, periodic, nsteps)
+    got = KW.sw_wide(wf, cfg, first, nsteps, off)
+    want = KW.sw_wide_plain(wf, cfg, first, nsteps, off)
+    torch.cuda.synchronize()
+    cy, cx, rows, cols = KW.crop_region(cfg, wf[0].shape)
+    sl = (slice(cy, cy + rows), slice(cx, cx + cols))
+    for name, a, b in zip(P.State._fields, want, got):
+        assert same_bits(a[sl], b[sl]), name
 
 
 @pytest.mark.gpu

@@ -9,9 +9,11 @@
   so the garbage region holds inf and NaN.  Compared on the crop region
   ``[m-1, m-1+ny_l) x [m-1, m-1+nx_l)``, band ``5e-6 + 1e-6 * max|a|``
   (tests/test_examples.py:291).
-- ``csrc/sw_wide.cu``'s decomposition, run in PyTorch: tiles gathered with
-  periodic addressing and margins of ``nsteps * STEP_RADIUS`` reproduce the
-  whole-frame plain version bit for bit (NaN for NaN), and one step's
+- ``csrc/sw_wide.cu``'s decomposition, run in PyTorch: the blocks the
+  source lays out (strips and chunks over the crop only, gathered with
+  periodic addressing, margins of ``nsteps * STEP_RADIUS``; reported by
+  the source built for the host, ``tests/torch_sw_host.py``) reproduce
+  the whole-frame plain version bit for bit on the crop, and one step's
   dependency radius, measured by NaN injection, is ``STEP_RADIUS``.
 - The wrapper's dispatch.  Tests of the kernel itself need a card: they are
   in ``tests/test_torch_cuda.py``.
@@ -39,6 +41,7 @@ import shallow_water as J  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_wide as K  # noqa: E402
 from mpi4jax_tpu_torch.models import shallow_water as P  # noqa: E402
 from torch_port_isolation import isolated_reference_state  # noqa: E402,F401
+from torch_sw_host import host_libs, wide_blocks  # noqa: E402
 
 pytest_plugins = ["leaked_env_guard"]
 
@@ -127,27 +130,30 @@ def test_plain_matches_jax_kernel_call(grid, periodic, first, nsteps):
 # ---------------------------------------------------------------------------
 
 
-def tiled(fields, cfg, first, nsteps, off, tile):
-    """What ``csrc/sw_wide.cu`` computes, tile by tile: gather each tile
-    with margins of ``nsteps * STEP_RADIUS`` by periodic addressing of the
-    frame, run the steps on the tile alone, keep the centre."""
+@pytest.fixture(scope="module")
+def wide_lib(tmp_path_factory):
+    return host_libs(tmp_path_factory)["sw_wide"]
+
+
+def tiled(lib, fields, cfg, first, nsteps, off):
+    """What ``csrc/sw_wide.cu`` computes, block by block over the crop (as
+    the source lays them out): gather each block's ``EXT`` columns and its
+    rows grown by its margins by periodic addressing of the frame, run the
+    steps on the window alone, keep the output rows and columns.  Cells
+    outside the crop stay NaN: the kernel does not write them."""
     ny, nx = fields[0].shape
-    my, mx = K.STEP_RADIUS[0] * nsteps, K.STEP_RADIUS[1] * nsteps
-    ty, tx = tile
-    outs = [torch.empty_like(f) for f in fields]
-    for y0 in range(0, ny, ty):
-        for x0 in range(0, nx, tx):
-            gy = torch.arange(y0 - my, y0 + ty + my) % ny
-            gx = torch.arange(x0 - mx, x0 + tx + mx) % nx
-            win = tuple(f[gy][:, gx] for f in fields)
-            giy, gix = gy[:, None] + off[0], gx[None, :] + off[1]
-            first_ = first
-            for _ in range(nsteps):
-                win = K._wide_step_window(cfg, first_, giy, gix, win, torch.roll)
-                first_ = False
-            hy, hx = min(ty, ny - y0), min(tx, nx - x0)
-            for o, w in zip(outs, win):
-                o[y0:y0 + hy, x0:x0 + hx] = w[my:my + hy, mx:mx + hx]
+    outs = [torch.full_like(f, float("nan")) for f in fields]
+    for oy, h, ox, w, my, mx in wide_blocks(lib, cfg, (ny, nx), nsteps)[0]:
+        gy = torch.arange(oy - my, oy + h + my) % ny
+        gx = torch.arange(ox - mx, ox - mx + K.EXT) % nx
+        win = tuple(f[gy][:, gx] for f in fields)
+        giy, gix = gy[:, None] + off[0], gx[None, :] + off[1]
+        first_ = first
+        for _ in range(nsteps):
+            win = K._wide_step_window(cfg, first_, giy, gix, win, torch.roll)
+            first_ = False
+        for o, wf in zip(outs, win):
+            o[oy:oy + h, ox:ox + w] = wf[my:my + h, mx:mx + w]
     return outs
 
 
@@ -155,17 +161,30 @@ def tiled(fields, cfg, first, nsteps, off, tile):
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "walled"])
 @pytest.mark.parametrize("grid,rank", [((1, 1), 0), ((2, 4), 0), ((2, 4), 6)],
                          ids=["1x1", "2x4-r0", "2x4-r6"])
-def test_tiles_with_margins_reproduce_whole_frame(grid, rank, periodic, first,
-                                                  nsteps):
-    _, cfg = configs(grid, periodic)
+@pytest.mark.parametrize("nx,ny", [(64, 32), (1200, 40)], ids=["64x32", "1200x40"])
+def test_tiles_with_margins_reproduce_whole_frame(wide_lib, nx, ny, grid, rank, periodic,
+                                                  first, nsteps):
+    """On the crop: at 64 x 32 these frames are one strip; at 1200 x 40
+    two (2 x 4 ranks) or five (1 x 1), with a ragged last one."""
+    _, cfg = configs(grid, periodic, nx=nx, ny=ny)
     m = P._margin_rows(nsteps)
     fields = tuple(torch.from_numpy(a[rank]) for a in frames(cfg, m, seed=1))
     off = frame_offsets(cfg, rank, m)
     want = K.sw_wide_plain(fields, cfg, first, nsteps, off)
-    got = tiled(fields, cfg, first, nsteps, off, tile=(16, 16))
+    got = tiled(wide_lib, fields, cfg, first, nsteps, off)
     for name, a, b in zip(P.State._fields, want, got):
-        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True,
-                                   msg=name)
+        assert torch.equal(crop(a, cfg, m), crop(b, cfg, m)), name
+        assert int(torch.isnan(b).sum()) == b.numel() - cfg.ny_local * cfg.nx_local
+
+
+def test_crop_region_is_the_local_array_inside_the_margins():
+    _, cfg = configs((2, 4), False)
+    for nsteps in (1, 2):
+        m = P._margin_rows(nsteps)
+        shape = (cfg.ny_local + 2 * (m - 1), cfg.nx_local + 2 * (m - 1))
+        assert K.crop_region(cfg, shape) == (m - 1, m - 1, cfg.ny_local, cfg.nx_local)
+    with pytest.raises(ValueError, match="grown by the same margin"):
+        K.crop_region(cfg, (cfg.ny_local + 2, cfg.nx_local + 4))
 
 
 def nan_spread(field):
