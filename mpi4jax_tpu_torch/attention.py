@@ -24,7 +24,7 @@ The block partials and their backward come from
 ``kernels/flash_attention.py``: the CUDA kernels on the card, the plain
 versions on the CPU.  ``ring_attention(memory_efficient_grad=False)``
 over several ranks would need the transpose of ``sendrecv`` (ROADMAP
-Queue 1 item 4), so a grad request on that path raises.
+Queue 1 item 1), so a grad request on that path raises.
 """
 
 from __future__ import annotations
@@ -100,7 +100,7 @@ def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
     ring's own backward (``_RingAttention``), which saves only rank-local
     tensors and re-rotates K/V.  ``False`` differentiates through the
     forward op by op; over several ranks that needs the transpose of
-    ``sendrecv``, which is not ported (ROADMAP Queue 1 item 4), so a grad
+    ``sendrecv``, which is not ported (ROADMAP Queue 1 item 1), so a grad
     request there raises.  On one rank every path is differentiable."""
     comm = _comm_of(comm, "ring_attention")
     if memory_efficient_grad:
@@ -110,7 +110,7 @@ def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
         raise NotImplementedError(
             "ring_attention(memory_efficient_grad=False) over several ranks: "
             "differentiating through the K/V rotations needs the transpose "
-            "of sendrecv, which is ROADMAP Queue 1 item 4; use "
+            "of sendrecv, which is ROADMAP Queue 1 item 1; use "
             "memory_efficient_grad=True"
         )
     out, _m, _l = _ring_forward(q, k, v, comm, causal)

@@ -114,6 +114,9 @@ inline uint32_t __float_as_uint(float f) {
 }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 inline float __frcp_rn(float b) { return 1.0f / b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __double2float_rn(double x) { return (float)x; }
 
 namespace emu {
 

@@ -26,7 +26,7 @@ template <int NS>
 __global__ void __launch_bounds__(sws::NT, NS == 1 ? 3 : (NS == 2 ? 2 : 1))
     sw_steps_kernel(sws::Args a) {
   extern __shared__ float4 smem4[];
-  sws::stream_block<false, NS>(a, reinterpret_cast<float*>(smem4));
+  sws::stream_block<sws::PERIODIC, NS>(a, reinterpret_cast<float*>(smem4));
 }
 
 cudaError_t dispatch(const sws::Args& a, int nsteps, int* geo, int* blocks,

@@ -1,6 +1,7 @@
-// Streamed whole-step shallow-water physics for Hopper (sm_90a), shared by
-// the fused-step kernel (sw_steps.cu, the single-rank periodic frame) and
-// the wide-halo kernel (sw_wide.cu, a rank's widened frame).
+// Streamed shallow-water physics for Hopper (sm_90a), shared by the
+// fused-step kernel (sw_steps.cu, the single-rank periodic frame), the
+// wide-halo kernel (sw_wide.cu, a rank's widened frame) and the split-phase
+// kernels (sw_phase.cu, a rank's local array).
 //
 // One step is _step_window (periodic frame) or _wide_step_window (wide
 // frame) of mpi4jax_tpu_torch/kernels/sw_steps.py and sw_wide.py: phase 1
@@ -8,6 +9,9 @@
 // the AB-2 or Euler update), the post-integration conditions, phase 2
 // (lateral viscosity), and in the periodic frame the column fix (col 0 <-
 // col nx-2, col nx-1 <- col 1) after phase 1 and at the end of the step.
+// The local frame runs one phase per launch (sw_phase.cu's own block loops
+// over the stage physics below): _phase1_window or _phase2_window over a
+// rank's local array, no conditions and no fix.
 // Each expression keeps the plain version's operand order and every
 // division gives the true quotient (those by dx and dy from a reciprocal
 // held once, corrected by the exact residual, where the host has checked
@@ -15,21 +19,28 @@
 // -fmad=false, so they round as PyTorch's elementwise ops do.
 // Every wall or kept test is a select, never a product with a 0/1 mask.
 //
+// The three frames (Frame) differ only in their masks and where a stage
+// reads: the periodic frame fixes its seam columns, the wide frame tests
+// domain-global indices by inequalities (its margins reach beyond the
+// walls), the local frame tests the walls by equality and its update mask
+// on local indices (the halo ring is left to the next exchange).
+//
 // Geometry.  A block of NT threads owns a strip of output columns and a
 // chunk of output rows.  Thread t owns column t of the strip's extended
 // width of NT columns: the output columns plus a margin on each side.  It
-// walks the chunk's rows grown by MY = 2 NSTEPS rows on each side, one row
+// walks the chunk's rows grown by MY = RY NSTEPS rows on each side, one row
 // per iteration.  Rows and columns are addressed periodically in the
 // array, which is what torch.roll over the whole array reads.  The margins
 // are the measured dependency radius times NSTEPS (SW_RY, SW_RX, SW_EDGE_RX,
-// passed as -D flags by the Python modules; tests/test_torch_sw_kernel.py
-// and test_torch_sw_wide.py measure them by NaN injection):
-// - rows: 2 per step in both frames (the wall rows reach no farther, so no
-//   chunk needs a wider margin);
-// - columns: 2 per step, but in the periodic frame the first and last
-//   strips (the ones holding the seam columns 0 and nx-1, whose fix reads
-//   the far end of the array) take 6 per step.  All strips have the same
-//   extended width, so an edge strip keeps fewer output columns.
+// passed as -D flags by the Python modules; tests/test_torch_sw_kernel.py,
+// test_torch_sw_wide.py and test_torch_sw_phase.py measure them by NaN
+// injection):
+// - rows: 2 per step in the periodic and wide frames (the wall rows reach
+//   no farther, so no chunk needs a wider margin), 1 for one phase;
+// - columns: as many, but in the periodic frame the first and last strips
+//   (the ones holding the seam columns 0 and nx-1, whose fix reads the far
+//   end of the array) take 6 per step.  All strips have the same extended
+//   width, so an edge strip keeps fewer output columns.
 // The cells within a margin of the extended region's border compute from
 // padding and ring rows not yet written: garbage that no output cell
 // reads, from rings zeroed when the block starts.
@@ -73,7 +84,7 @@
 #include <mutex>
 
 #if !defined(SW_NT) || !defined(SW_RY) || !defined(SW_RX) || !defined(SW_EDGE_RX)
-#error "build through mpi4jax_tpu_torch/kernels/sw_steps.py or sw_wide.py (geometry flags)"
+#error "build through mpi4jax_tpu_torch/kernels/sw_steps.py, sw_wide.py or sw_phase.py (geometry flags)"
 #endif
 
 namespace sws {
@@ -193,10 +204,39 @@ struct Divisors {
   Divisor dx, dy;
 };
 
+// A Divisor whose numerators outside [lo, hi], zeros apart, divide in
+// double: the quotient rounded to double and then to float is RN(a / b),
+// subnormal quotients included, since 53 >= 2 * 24 + 2 bits make the
+// double rounding innocuous (Figueroa).  So no numerator takes the f32
+// division routine's slow path, as tiny ones (the initial jet's
+// exponential tails, subnormal in f32) otherwise do.  The quotient of the
+// held reciprocal is computed whatever the numerator and kept by a select
+// (RN(a r) alone for a zero numerator: the quotient's zero); only the
+// numerators outside the range and not zero branch.  The intrinsics keep
+// the compiler from folding the double division back into an f32 one.
+struct TailDivisor {
+  Divisor d;
+};
+
+__device__ __forceinline__ float operator/(float a, const TailDivisor& t) {
+  const Divisor& d = t.d;
+  const float q = __fmul_rn(a, d.r);
+  const float c = __fmaf_rn(d.r, __fmaf_rn(-d.b, q, a), q);
+  const float m = fabsf(a);
+  const bool held = m >= d.lo && m <= d.hi;
+  if (held || m == 0.0f) return held ? c : q;
+  return __double2float_rn(__ddiv_rn((double)a, (double)d.b));
+}
+
+struct TailDivisors {
+  TailDivisor dx, dy;
+};
+
 // phase 1's fluxes, potential vorticity and kinetic energy at one cell:
 // hc at the cell and its east, north and north-east neighbours; u at the
 // cell, north and west; v at the cell, east and south
-__device__ __forceinline__ Derived fluxes(const Consts& k, const Divisors& d, bool kept,
+template <class Div>
+__device__ __forceinline__ Derived fluxes(const Consts& k, const Div& d, bool kept,
                                           bool u_wall,
                                           bool wall_v, int gy, float hc0, float hcE,
                                           float hcN, float hcNE, float u, float uN,
@@ -221,7 +261,8 @@ __device__ __forceinline__ Derived fluxes(const Consts& k, const Divisors& d, bo
 }
 
 // phase 1's tendencies at one cell, zero outside the update mask
-__device__ __forceinline__ void tendencies(const Consts& k, const Divisors& d, bool interior,
+template <class Div>
+__device__ __forceinline__ void tendencies(const Consts& k, const Div& d, bool interior,
                                            float fe,
                                            float feW, float feN, float feNW, float fn,
                                            float fnE, float fnS, float fnSE, float q,
@@ -249,7 +290,8 @@ __device__ __forceinline__ float advance(const Consts& k, bool first, float a, f
 }
 
 // phase 2's viscous fluxes of one field a at one cell (a east and north)
-__device__ __forceinline__ void visc_fluxes(const Consts& k, const Divisors& d, bool kept,
+template <class Div>
+__device__ __forceinline__ void visc_fluxes(const Consts& k, const Div& d, bool kept,
                                             bool u_wall,
                                             bool wall_v, float a, float aE, float aN,
                                             float& gx, float& gy) {
@@ -261,7 +303,8 @@ __device__ __forceinline__ void visc_fluxes(const Consts& k, const Divisors& d, 
 
 // phase 2's update: a plus the divergence of its fluxes inside the update
 // mask, a plus 0 elsewhere
-__device__ __forceinline__ float viscous(const Consts& k, const Divisors& d, bool interior,
+template <class Div>
+__device__ __forceinline__ float viscous(const Consts& k, const Div& d, bool interior,
                                          float a, float gx,
                                          float gxW, float gy, float gyS) {
   float da = 0.0f;
@@ -345,39 +388,54 @@ struct StepRings {
 // the frame: masks and where a stage reads
 // ---------------------------------------------------------------------------
 
-// per-row flags of the domain-global row gy (the same tests in both
-// frames: in the periodic one gy runs over 0..GY-1 only)
+enum Frame {
+  PERIODIC,  // one rank, periodic in x: the column fix (sw_steps)
+  WIDE,      // a rank's widened frame: global masks by inequalities (sw_wide)
+  LOCAL,     // a rank's local array: _window_masks' default frame (sw_phase)
+};
+
+// per-row flags of array row ly, at the domain-global row gy (the periodic
+// and wide frames share their tests: in the periodic one gy runs over
+// 0..GY-1 only; the local frame's kept rows are tested by equality and its
+// update mask on the local row)
 struct Row {
   int gy;
   bool kept, interior, wall_v;
 };
 
+template <Frame F>
 __device__ __forceinline__ Row row_flags(const Args& a, int ly) {
   Row w;
   w.gy = ly + a.oy;
-  w.kept = w.gy <= 0 || w.gy >= a.GY - 1;
-  w.interior = w.gy >= 1 && w.gy <= a.GY - 2;
+  if (F == LOCAL) {
+    w.kept = w.gy == 0 || w.gy == a.GY - 1;
+    w.interior = ly >= 1 && ly <= a.ny - 2;
+  } else {
+    w.kept = w.gy <= 0 || w.gy >= a.GY - 1;
+    w.interior = w.gy >= 1 && w.gy <= a.GY - 2;
+  }
   w.wall_v = w.gy == a.GY - 2;
   return w;
 }
 
 // per-thread column data: the ring columns a stage reads (the periodic
 // frame's fixed columns read the ones they copy) and the column flags
+// (tested as the row flags are)
 struct Cols {
   int lx;                      // array column
   int sW, sC, sE;              // state of steps >= 1 at t-1, t, t+1
   int hC, hE;                  // hc of steps >= 1 at t, t+1
   int hC0, hE0;                // hc of step 0
-  bool u_wall, u_wallE;        // the u wall column (walled wide frame) at t, t+1
+  bool u_wall, u_wallE;        // the u wall column (x walled) at t, t+1
   bool kept, interior;
 };
 
-template <bool WIDE>
+template <Frame F>
 __device__ __forceinline__ Cols col_flags(const Args& a, int ex0, int t) {
   Cols c;
   c.lx = pmod(ex0 + t, a.nx);
   const int lxW = pmod(ex0 + t - 1, a.nx), lxE = pmod(ex0 + t + 1, a.nx);
-  if (!WIDE) {
+  if (F == PERIODIC) {
     // the periodic column fix: col 0 holds col nx-2, col nx-1 holds col 1,
     // which in periodic addressing lie two columns away
     auto fix = [&](int col, int l) { return l == 0 ? col - 2 : (l == a.nx - 1 ? col + 2 : col); };
@@ -397,14 +455,20 @@ __device__ __forceinline__ Cols col_flags(const Args& a, int ex0, int t) {
     c.sW = t - 1;
     c.sC = t;
     c.sE = t + 1;
-    // hc's pad columns at the x walls; at gxE == 0 the cell is kept and
-    // its hcE unused
+    // hc's pad columns at the x walls; at gxE == 0 the cell is kept (in
+    // the local frame, a halo column whose east wraps to column 0: no
+    // output cell reads its fe or q) and its hcE unused
     c.hC = c.hC0 = w && gx == 0 ? t + 1 : (w && gx == a.GX - 1 ? t - 1 : t);
     c.hE = c.hE0 = w && gxE == a.GX - 1 ? t : t + 1;
     c.u_wall = w && gx == a.GX - 2;
     c.u_wallE = w && gxE == a.GX - 2;
-    c.kept = w && (gx <= 0 || gx >= a.GX - 1);
-    c.interior = !w || (gx >= 1 && gx <= a.GX - 2);
+    if (F == LOCAL) {
+      c.kept = w && (gx == 0 || gx == a.GX - 1);
+      c.interior = c.lx >= 1 && c.lx <= a.nx - 2;
+    } else {
+      c.kept = w && (gx <= 0 || gx >= a.GX - 1);
+      c.interior = !w || (gx >= 1 && gx <= a.GX - 2);
+    }
   }
   return c;
 }
@@ -413,7 +477,7 @@ __device__ __forceinline__ Cols col_flags(const Args& a, int ex0, int t) {
 // the block
 // ---------------------------------------------------------------------------
 
-template <bool WIDE, int NS>
+template <Frame F, int NS>
 struct Block {
   const Args a;
   const Consts k;
@@ -443,7 +507,7 @@ struct Block {
     StepRings<NS, S> R(sm);
     float pu = 0.0f, pv = 0.0f;
     if (r >= 0 && r < nrows) {
-      const Row r0 = row_flags(a, ly_of(r)), r1 = row_flags(a, ly_of(r + 1));
+      const Row r0 = row_flags<F>(a, ly_of(r)), r1 = row_flags<F>(a, ly_of(r + 1));
       const int sW = S == 0 ? t - 1 : c.sW, sC = S == 0 ? t : c.sC, sE = S == 0 ? t + 1 : c.sE;
       const int hC = S == 0 ? c.hC0 : c.hC, hE = S == 0 ? c.hE0 : c.hE;
       // hc's pad rows at the y walls; where row r+1 is row 0, row r is
@@ -476,7 +540,7 @@ struct Block {
     float h1 = 0.0f, nd[3] = {0.0f, 0.0f, 0.0f};
     if (r >= 0 && r < nrows) {
       const int ly = ly_of(r);
-      const Row r0 = row_flags(a, ly);
+      const Row r0 = row_flags<F>(a, ly);
       const int sC = S == 0 ? t : c.sC, sE = S == 0 ? t + 1 : c.sE;
       const float* fe = R.dv.at(r, 0);
       const float* feN = R.dv.at(r + 1, 0);
@@ -520,7 +584,7 @@ struct Block {
     StepRings<NS, S> R(sm);
     float pu = 0.0f, pv = 0.0f;
     if (r >= 0 && r < nrows) {
-      const Row r0 = row_flags(a, ly_of(r)), r1 = row_flags(a, ly_of(r + 1));
+      const Row r0 = row_flags<F>(a, ly_of(r)), r1 = row_flags<F>(a, ly_of(r + 1));
       // u1 and v1 as phase 2 sees them: the wall conditions (wide frame)
       // or the column fix (periodic frame), and v's wall row
       const float* u1 = R.mid.at(r, 0);
@@ -564,7 +628,7 @@ struct Block {
     if (r >= 0 && r < nrows) {
       float u2 = u1_d[S][0], v2 = u1_d[S][1];
       if (a.has_visc) {
-        const bool interior = row_flags(a, ly_of(r)).interior && c.interior;
+        const bool interior = row_flags<F>(a, ly_of(r)).interior && c.interior;
         const float* gu = R.vs.at(r, 0);
         const float* gv = R.vs.at(r, 2);
         u2 = viscous(k, dd, interior, u2, gu[t], gu[t - 1], R.vs.at(r, 1)[t],
@@ -631,7 +695,7 @@ struct Block {
     my0 = s.my;
     my1 = my0 + s.h;
     nrows = s.h + 2 * s.my;
-    c = col_flags<WIDE>(a, ex0, t);
+    c = col_flags<F>(a, ex0, t);
 #pragma unroll
     for (int f = 0; f < 3; ++f) pre[f] = 0.0f;
   }
@@ -661,9 +725,9 @@ struct Block {
   }
 };
 
-template <bool WIDE, int NS>
+template <Frame F, int NS>
 __device__ __forceinline__ void stream_block(const Args& a, float* smem) {
-  Block<WIDE, NS> b(a, smem);
+  Block<F, NS> b(a, smem);
   b.run();
 }
 
@@ -732,20 +796,20 @@ cudaError_t residency(size_t smem, Residency& out) {
 }
 
 // Sets a.nstrips and a.rows_per_block: as many chunks as fill every SM's
-// resident blocks once, each at least twice as tall as its two margins.
-// out (may be null): strips, chunks, output rows per chunk, blocks resident
-// per SM, threads per block, shared-memory bytes per block, rows walked in
-// all.  blocks (may be null): span_of's six ints for every block, strip by
-// strip within each chunk.
-inline cudaError_t grid(Args& a, int nsteps, Residency res, size_t smem, int* out,
-                        int* blocks) {
+// resident blocks once, each at least min_rows tall.  out (may be null):
+// strips, chunks, output rows per chunk, blocks resident per SM, threads
+// per block, shared-memory bytes per block, rows walked in all.  blocks
+// (may be null): span_of's six ints for every block, strip by strip within
+// each chunk.
+inline cudaError_t grid(Args& a, int nsteps, int min_rows, Residency res, size_t smem,
+                        int* out, int* blocks) {
   const int me = EDGE_RX * nsteps, mi = RX * nsteps;
   if (NT <= 2 * me || a.rows < 1 || a.cols < 1) return cudaErrorInvalidValue;
   a.nstrips = strip_count(a.cols, NT - 2 * me, NT - 2 * mi);
   int chunks = res.per_sm * res.sms / a.nstrips;
   chunks = chunks < 1 ? 1 : chunks;
   int rpb = (a.rows + chunks - 1) / chunks;
-  rpb = rpb < 4 * RY * nsteps ? 4 * RY * nsteps : rpb;
+  rpb = rpb < min_rows ? min_rows : rpb;
   a.rows_per_block = rpb;
   chunks = (a.rows + rpb - 1) / rpb;
   if (out != nullptr) {
@@ -762,20 +826,29 @@ inline cudaError_t grid(Args& a, int nsteps, Residency res, size_t smem, int* ou
   return cudaSuccess;
 }
 
-// The launch, or with out or blocks given the geometry alone (grid()'s)
-template <void (*KERNEL)(Args), int NS>
-cudaError_t launch(Args a, int* out, int* blocks, cudaStream_t stream) {
-  constexpr size_t smem = Layout<NS>::BYTES;
+// The launch of KERNEL with smem bytes of shared memory a block, the
+// margins of nsteps steps and chunks of at least min_rows rows, or with
+// out or blocks given the geometry alone (grid()'s)
+template <void (*KERNEL)(Args)>
+cudaError_t launch_with(Args a, int nsteps, int min_rows, size_t smem, int* out,
+                        int* blocks, cudaStream_t stream) {
   Residency res;
   cudaError_t e = residency<KERNEL>(smem, res);
   if (e != cudaSuccess) return e;
-  e = grid(a, NS, res, smem, out, blocks);
+  e = grid(a, nsteps, min_rows, res, smem, out, blocks);
   if (e != cudaSuccess || out != nullptr || blocks != nullptr) return e;
   a.exact_dx = reciprocal_is_exact(a.k.dx);
   a.exact_dy = reciprocal_is_exact(a.k.dy);
   const dim3 g(a.nstrips, (a.rows + a.rows_per_block - 1) / a.rows_per_block);
   KERNEL<<<g, NT, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// ... of a whole-step kernel of NS steps (stream_block's shared memory;
+// chunks at least twice as tall as their two margins)
+template <void (*KERNEL)(Args), int NS>
+cudaError_t launch(Args a, int* out, int* blocks, cudaStream_t stream) {
+  return launch_with<KERNEL>(a, NS, 4 * RY * NS, Layout<NS>::BYTES, out, blocks, stream);
 }
 
 }  // namespace sws

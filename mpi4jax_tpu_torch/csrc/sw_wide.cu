@@ -36,7 +36,7 @@ namespace {
 template <int NS>
 __global__ void __launch_bounds__(sws::NT, NS == 1 ? 3 : 2) sw_wide_kernel(sws::Args a) {
   extern __shared__ float4 smem4[];
-  sws::stream_block<true, NS>(a, reinterpret_cast<float*>(smem4));
+  sws::stream_block<sws::WIDE, NS>(a, reinterpret_cast<float*>(smem4));
 }
 
 cudaError_t dispatch(const sws::Args& a, int nsteps, int* geo, int* blocks,

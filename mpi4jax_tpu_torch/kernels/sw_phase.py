@@ -19,10 +19,12 @@ tendencies), so AB-2 phase 1 must read h, u, v whole, the tendencies on
 the interior and write six fields on the interior (311.2 MB on the
 1802 x 3602 local arrays of 3600 x 1800, 0.0929 ms at 3.35 TB/s); phase 2
 reads u, v whole and writes their interior (0.0310 ms).
-The kernel (``csrc/sw_phase.cu``) loads each tile with a margin of the
-phase's own dependency radius and keeps every intermediate in shared
-memory, so device memory sees one read of the tile with its margins and
-one write.  Making it reach the bound is later work.
+The kernel (``csrc/sw_phase.cu``) runs the streamed rows of
+``csrc/sw_stream.cuh`` in its local frame, one phase per launch: a block of
+``EXT`` threads, one a column, walks a chunk of rows of a strip with
+margins of the phases' radius, every intermediate in rings of a few rows
+of shared memory or in registers.  The source lays out the blocks and
+reports them (``geometry``).
 
 This module holds the plain versions (the windows of ``kernels/sw_steps.py``
 over the whole local array, with ``torch.roll``), the wrappers (a CPU
@@ -37,22 +39,30 @@ import ctypes
 import torch
 
 from . import _build
-from .sw_steps import _phase1_window, _phase2_window, step_constants
+from .sw_steps import (
+    EXT,
+    _phase1_window,
+    _phase2_window,
+    geometry_report,
+    query_geometry,
+    step_constants,
+)
 
 SOURCE = _build.CSRC / "sw_phase.cu"
-HEADERS = (_build.CSRC / "sw_window.cuh",)
+HEADERS = (_build.CSRC / "sw_stream.cuh",)
 
-# each phase's dependency radius (rows, cols), the kernel's tile margins:
-# an output cell reads inputs at most one cell away in either phase (hc's
+# each phase's dependency radius (rows, cols), the kernel's margins: an
+# output cell reads inputs at most one cell away in either phase (hc's
 # wall pads reach one cell further, but only into rows and columns whose
 # fluxes the kept masks zero).  The NaN-injection tests in
 # tests/test_torch_sw_phase.py measure both.
 PHASE1_RADIUS = (1, 1)
 PHASE2_RADIUS = (1, 1)
-TILE = (32, 32)  # output rows, cols per CUDA block
-_DEFINES = {"SW_TY": TILE[0], "SW_TX": TILE[1],
-            "P1_RY": PHASE1_RADIUS[0], "P1_RX": PHASE1_RADIUS[1],
-            "P2_RY": PHASE2_RADIUS[0], "P2_RX": PHASE2_RADIUS[1]}
+# one build serves both phases: its margins cover either radius, the same
+# for every strip (no seam here)
+_MARGIN = tuple(max(a, b) for a, b in zip(PHASE1_RADIUS, PHASE2_RADIUS))
+_DEFINES = {"SW_NT": EXT, "SW_RY": _MARGIN[0], "SW_RX": _MARGIN[1],
+            "SW_EDGE_RX": _MARGIN[1]}
 
 counter = _build.counter_for("sw_phase")
 _lib = None
@@ -62,6 +72,7 @@ _CONSTS = [_C.c_float] * 9
 _SIGNATURES = {
     "sw_phase1_launch": [_C.c_void_p] * 12 + [_C.c_int] * 8 + _CONSTS + [_C.c_void_p],
     "sw_phase2_launch": [_C.c_void_p] * 4 + [_C.c_int] * 7 + _CONSTS + [_C.c_void_p],
+    "sw_phase_geometry": [_C.c_int] * 3 + [_C.c_void_p] * 2,
 }
 
 
@@ -75,6 +86,14 @@ def _library():
     if _lib is None:
         _lib = _build.load(spec(), _SIGNATURES)
     return _lib
+
+
+def geometry(shape, phase: int):
+    """Phase ``phase``'s blocks and residency on the current card for a
+    local array of ``shape``, without launching (as ``sw_steps.geometry``;
+    the ratio is over the whole array, which is the output)."""
+    out, _ = query_geometry(_library().sw_phase_geometry, shape[0], shape[1], phase)
+    return geometry_report(out, shape[0], shape[1], 1)
 
 
 def _indices(shape, offsets, device):

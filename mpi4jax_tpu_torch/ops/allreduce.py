@@ -10,7 +10,7 @@ other sub-comms included), with its buffer from ``ops/_staging.py`` as
 
 Ported: ``SUM``, ``PROD``, ``MIN`` and ``MAX``.  The logical and bitwise
 members, callable reductions, fusion, the async variants and autodiff
-are ROADMAP Queue 1 item 4 and raise ``NotImplementedError``.  Autodiff
+are ROADMAP Queue 1 item 1 and raise ``NotImplementedError``.  Autodiff
 in particular is not a plain ``autograd.Function``: in the JAX package
 the transpose of a SUM-allreduce is the identity on each rank, and its
 JVP reduces the tangents alongside (``mpi4jax_tpu/ops/allreduce.py:9-13``).
@@ -56,7 +56,7 @@ _DIST_OPS = {
     Op.MAX: dist.ReduceOp.MAX,
 }
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 4)"
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 1)"
 
 
 def allreduce(x, op: Op = SUM, *, comm: Optional[Comm] = None,

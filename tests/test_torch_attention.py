@@ -200,7 +200,7 @@ def test_multi_rank_attention_refuses_grad(results, size, scheme):
         assert np.abs(grad).max() > 0
         err = r["ring/plain_ad_error"]
         assert err.startswith("NotImplementedError")
-        assert "ROADMAP Queue 1 item 4" in err
+        assert "ROADMAP Queue 1 item 1" in err
 
 
 # ---------------------------------------------------------------------------

@@ -185,21 +185,41 @@ def assert_band(want, got):
         assert (a - b).abs().max().item() <= 5e-6 + 1e-6 * a.abs().max().item()
 
 
+def assert_phases_bit_for_bit(cfg, fields, off):
+    """Euler and AB-2 phase 1 and phase 2 equal their plain versions bit
+    for bit on every cell, the halo ring included, one launch each."""
+    before = KP.counter.launches
+    for first in (True, False):
+        got = KP.sw_phase1(fields, cfg, first, off)
+        for a, b in zip(KP.sw_phase1_plain(fields, cfg, first, off), got):
+            assert same_bits(a, b)
+    got = KP.sw_phase2(fields[1], fields[2], cfg, off)
+    for a, b in zip(KP.sw_phase2_plain(fields[1], fields[2], cfg, off), got):
+        assert same_bits(a, b)
+    torch.cuda.synchronize()
+    assert KP.counter.launches == before + 3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "walled"])
 @pytest.mark.parametrize("nx,ny,grid,rank", RANK_CASES)
 def test_phase_kernels_match_plain(nx, ny, grid, rank, periodic):
-    """Every cell, the halo ring included; band 5e-6 + 1e-6*max|a|."""
+    """Every cell, the halo ring included, bit for bit."""
     need_cuda()
-    cfg, fields, off = rank_state(nx, ny, grid, rank, periodic)
-    before = KP.counter.launches
-    for first in (True, False):
-        got = KP.sw_phase1(fields, cfg, first, off)
-        assert_band(KP.sw_phase1_plain(fields, cfg, first, off), got)
-    got = KP.sw_phase2(fields[1], fields[2], cfg, off)
-    assert_band(KP.sw_phase2_plain(fields[1], fields[2], cfg, off), got)
-    torch.cuda.synchronize()
-    assert KP.counter.launches == before + 3
+    assert_phases_bit_for_bit(*rank_state(nx, ny, grid, rank, periodic))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "walled"])
+@pytest.mark.parametrize("nx,ny,grid,rank", [(10, 8, (1, 1), 0), (3600, 16, (1, 1), 0),
+                                             (4, 4, (2, 2), 1), (1200, 300, (2, 2), 3)])
+def test_phase_kernels_bit_for_bit_on_tiny_and_ragged_frames(nx, ny, grid, rank, periodic):
+    """The frames ``pallas_halo`` takes on many ranks: a 10 x 12 local
+    array, one of 18 x 3602 rows (fifteen strips, one chunk of rows) and a
+    4 x 4 rank; and a 152 x 602 rank (three strips, the last ragged, and a
+    ragged last chunk)."""
+    need_cuda()
+    assert_phases_bit_for_bit(*rank_state(nx, ny, grid, rank, periodic))
 
 
 @pytest.mark.gpu

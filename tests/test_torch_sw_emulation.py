@@ -1,14 +1,18 @@
 """The stencil kernels' CUDA sources run on the host, bit for bit.
 
-``csrc/sw_steps.cu`` and ``csrc/sw_wide.cu`` (both on the streamed rows of
-``csrc/sw_stream.cuh``), built for the host as ``tests/torch_sw_host.py``
-says (so that they round as ``nvcc -fmad=false`` builds them), are held
-against the plain versions bit for bit (``same_bits``: the signs of zeros
-too, which ``torch.equal`` does not see): every ``nsteps``, Euler and
-AB-2, on periodic frames whose one strip spans both seams, frames of two,
-three and four strips with ragged last strips and chunks, and frames
-narrower than the margins, and on walled, periodic and offset wide frames
-of one and several strips (the crop, and no cell written outside it).
+``csrc/sw_steps.cu``, ``csrc/sw_wide.cu`` and ``csrc/sw_phase.cu`` (all on
+the streamed rows of ``csrc/sw_stream.cuh``), built for the host as
+``tests/torch_sw_host.py`` says (so that they round as ``nvcc -fmad=false``
+builds them), are held against the plain versions bit for bit
+(``same_bits``: the signs of zeros too, which ``torch.equal`` does not
+see): every ``nsteps``, Euler and AB-2, on periodic frames whose one strip
+spans both seams, frames of two, three and four strips with ragged last
+strips and chunks, and frames narrower than the margins; on walled,
+periodic and offset wide frames of one and several strips (the crop, and
+no cell written outside it); and both split phases (Euler and AB-2 phase
+1, phase 2) on the local arrays of single, corner, edge and interior
+ranks, periodic and walled, ragged, tiny and at rest (every cell written,
+the halo ring included).
 The warps run in lockstep and, in the last tests, each alone from one
 barrier to the next in ascending and descending order, where a ring row
 refilled before every warp has read it gives a wrong result.  The
@@ -27,11 +31,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mpi4jax_tpu_torch.kernels import sw_phase as KP  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_steps as K  # noqa: E402
 from mpi4jax_tpu_torch.kernels import sw_wide as KW  # noqa: E402
 from mpi4jax_tpu_torch.models import shallow_water as P  # noqa: E402
 from test_torch_warp_emulation import HOST  # noqa: E402
-from torch_sw_host import host_libs, steps_blocks, wide_blocks  # noqa: E402
+from torch_sw_host import host_libs, phase_blocks, steps_blocks, wide_blocks  # noqa: E402
 
 STEPS = [(True, 1), (False, 1), (False, 2), (False, 3), (True, 2), (True, 3)]
 WIDE_STEPS = [(True, 1), (False, 1), (False, 2), (True, 2)]
@@ -179,6 +184,92 @@ def test_emulated_sw_wide_matches_plain_on_the_crop(libs, case, first, nsteps):
     assert_wide_match(libs["sw_wide"], case, first, nsteps)
 
 
+def phase_case(grid, rank, periodic, nx, ny, seed=0, dx=5e3):
+    """Rank ``rank``'s local state of a ``grid`` of ranks over an ``nx`` x
+    ``ny`` domain of spacing ``dx``, every field perturbed by seeded noise
+    at its own scale (with ``seed`` None the middle half of the array at
+    rest instead, as in ``state``), its config and its offsets."""
+    cfg = P.Config(nx=nx, ny=ny, dx=dx, dy=dx, nproc_y=grid[0], nproc_x=grid[1],
+                   periodic_x=periodic)
+    rng = np.random.default_rng(rank if seed is None else seed + rank)
+    scales = (1e-2, 1e-2, 1e-2, 1e-4, 1e-5, 1e-5)
+    fields = tuple(
+        (b + s * torch.from_numpy(rng.standard_normal(b.shape).astype(np.float32))).contiguous()
+        for b, s in zip(P.initial_state(cfg, rank=rank, device="cpu"), scales))
+    if seed is None:
+        ny_l, nx_l = fields[0].shape
+        rest = (slice(ny_l // 4, 3 * ny_l // 4), slice(nx_l // 4, 3 * nx_l // 4))
+        for k, f in enumerate(fields):
+            f[rest] = 100.0 if k == 0 else 0.0
+    py, px = divmod(rank, cfg.nproc_x)
+    return cfg, fields, (py * (cfg.ny_local - 2), px * (cfg.nx_local - 2))
+
+
+def run_phase(lib, phase, fields, cfg, off):
+    """Phase 1 (``"euler"``, ``"ab2"``) or 2 (``"visc"``) of ``lib`` into
+    outputs filled with a sentinel; returns what the plain version returns
+    (six fields, or u and v)."""
+    ints, floats = KP._frame_args(cfg, off)
+    if phase == "visc":
+        outs = (torch.full_like(fields[1], SENTINEL), torch.full_like(fields[2], SENTINEL))
+        err = lib.sw_phase2_launch(fields[1].data_ptr(), fields[2].data_ptr(),
+                                   *(o.data_ptr() for o in outs), *ints, *floats, None)
+    else:
+        outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
+        err = lib.sw_phase1_launch(*(f.data_ptr() for f in fields),
+                                   *(o.data_ptr() for o in outs), *ints,
+                                   int(phase == "euler"), *floats, None)
+    assert err == 0
+    return outs
+
+
+def assert_phase_match(lib, case, phase):
+    cfg, fields, off = phase_case(*case)
+    if phase == "visc":
+        want = KP.sw_phase2_plain(fields[1], fields[2], cfg, off)
+        names = ("u", "v")
+    else:
+        want = KP.sw_phase1_plain(fields, cfg, phase == "euler", off)
+        names = P.State._fields
+    got = run_phase(lib, phase, fields, cfg, off)
+    for name, a, b in zip(names, want, got):
+        assert same_bits(a, b), name
+
+
+PHASES = ["euler", "ab2", "visc"]
+# (grid, rank, periodic, nx, ny, seed[, dx]): the single rank both ways;
+# corner ranks 0 and 7, edge rank 2 and interior-column rank 5 of (2,4);
+# rank 3 of (2,2) on 1200 x 40 (a 602 x 22 local array: three strips, the
+# last ragged, and two chunks, the last ragged); the tiny frames
+# pallas_halo takes: a 10 x 12 local array (one strip far wider than it),
+# 18 x 3602 (fifteen strips, two chunks) and a 4 x 4 rank of (2,2); a
+# single rank whose middle half is at rest (exact zeros); and a spacing of
+# 2000 km, whose reciprocal the host does not certify (outside [2^-20,
+# 2^20]): every division by dx and dy then takes the double division
+PHASE_CASES = [((1, 1), 0, True, 64, 32, 0), ((1, 1), 0, False, 64, 32, 0),
+               ((2, 4), 0, False, 64, 32, 0), ((2, 4), 7, False, 64, 32, 0),
+               ((2, 4), 2, True, 64, 32, 0), ((2, 4), 5, False, 64, 32, 0),
+               ((2, 2), 3, False, 1200, 40, 0), ((1, 1), 0, False, 10, 8, 0),
+               ((1, 1), 0, True, 3600, 16, 0), ((2, 2), 1, False, 4, 4, 0),
+               ((1, 1), 0, True, 300, 40, None), ((2, 2), 3, False, 64, 32, 0, 2e6)]
+PHASE_IDS = ["1x1-periodic", "1x1-walled", "2x4-r0-walled", "2x4-r7-walled",
+             "2x4-r2-periodic", "2x4-r5-walled", "2x2-r3-walled-ragged", "10x12",
+             "18x3602", "2x2-r1-4x4", "1x1-at-rest", "2x2-r3-uncertified-dx"]
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("case", PHASE_CASES, ids=PHASE_IDS)
+def test_emulated_sw_phase_matches_plain(libs, case, phase):
+    assert_phase_match(libs["sw_phase"], case, phase)
+
+
+def test_emulated_sw_phase_at_rest_gives_negative_zeros(libs):
+    """The case at rest reaches the signs of zeros: its dh holds -0."""
+    cfg, fields, off = phase_case(*PHASE_CASES[10])
+    dh = run_phase(libs["sw_phase"], "ab2", fields, cfg, off)[3]
+    assert int((torch.signbit(dh) & (dh == 0)).sum()) > 0
+
+
 @pytest.fixture(params=[1, -1], ids=["ascending", "descending"])
 def warps_apart(request, libs):
     for lib in libs.values():
@@ -200,6 +291,13 @@ def test_emulated_sw_steps_holds_with_warps_run_apart(warps_apart, ny, nx, first
 @pytest.mark.parametrize("case", [WIDE_CASES[4], WIDE_CASES[6]], ids=[WIDE_IDS[4], WIDE_IDS[6]])
 def test_emulated_sw_wide_holds_with_warps_run_apart(warps_apart, case, first, nsteps):
     assert_wide_match(warps_apart["sw_wide"], case, first, nsteps)
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("case", [PHASE_CASES[3], PHASE_CASES[6], PHASE_CASES[7]],
+                         ids=[PHASE_IDS[3], PHASE_IDS[6], PHASE_IDS[7]])
+def test_emulated_sw_phase_holds_with_warps_run_apart(warps_apart, case, phase):
+    assert_phase_match(warps_apart["sw_phase"], case, phase)
 
 
 DIVISION_CHECK = r"""
@@ -265,6 +363,72 @@ def test_division_by_a_held_reciprocal_is_the_true_division(libs, tmp_path):
     assert (model, outside) == (1, 0) and fast >= 1
 
 
+TAIL_DIVISION_CHECK = r"""
+#include <stdint.h>
+#include "sw_stream.cuh"
+// a / sws::TailDivisor{divisor(b, reciprocal_is_exact(b))} against a / b,
+// bit for bit (any NaN for a NaN): for each divisor, a quarter of the
+// numerators subnormal, a quarter tiny normals under 2^-100 (the held
+// reciprocal's range ends there), the rest over the whole range, near
+// exact multiples of b and special; divisors as in the held reciprocal's
+// check, the model's 5000 and one outside the certified range (2^21).
+// Prints the cases and the mismatches.
+int main() {
+  uint64_t s = 7;
+  auto next = [&] { s = s * 6364136223846793005ULL + 1442695040888963407ULL; return s; };
+  long n = 0, bad = 0;
+  const float special[] = {0.0f, -0.0f, 0x1p-149f, -0x1p-149f, 0x1p-127f, 0x1p-101f,
+                           0x1p101f, 3e38f, __uint_as_float(0x7f800000u),
+                           __uint_as_float(0x7fc00000u)};
+  for (int i = 0; i < 24; ++i) {
+    float b = __uint_as_float((uint32_t)(next() >> 41) | ((uint32_t)(117 + next() % 20) << 23));
+    if (i < 4) b = __uint_as_float(0x3fffffffu - i);
+    if (i == 4) b = 5000.0f;
+    if (i == 5) b = 0x1p21f;
+    if (i == 6) b = -5000.0f;
+    const sws::TailDivisor d{sws::divisor(b, sws::reciprocal_is_exact(b))};
+    for (int j = 0; j < 1000000; ++j) {
+      const uint64_t u = next();
+      const uint32_t sign = (uint32_t)(u >> 20) & 0x80000000u, frac = (uint32_t)(u >> 41);
+      float a;
+      if (j % 4 == 0) {
+        a = __uint_as_float(sign | (frac == 0 ? 1u : frac));
+      } else if (j % 4 == 1) {
+        a = __uint_as_float(sign | frac | ((uint32_t)(1 + u % 26) << 23));
+      } else {
+        a = __uint_as_float(sign | frac | ((uint32_t)(1 + u % 253) << 23));
+        if (j % 3 == 0) a = __uint_as_float(__float_as_uint(a / b * b) + (int)(u % 5) - 2);
+      }
+      if (j < 10) a = special[j];
+      const float want = a / b, got = a / d;
+      ++n;
+      if (__float_as_uint(want) != __float_as_uint(got) && !(want != want && got != got)) ++bad;
+    }
+  }
+  printf("%ld %ld\n", n, bad);
+  return 0;
+}
+"""
+
+
+def test_tail_division_is_the_true_division(libs, tmp_path):
+    """``a / TailDivisor`` (the phase kernels' divisions by dx and dy: the
+    held reciprocal inside its certified range, a zero's quotient by a
+    select, a double division rounded to float everywhere else) gives the
+    bits of ``a / b`` on 24 M numerators, subnormal ones and subnormal
+    quotients included, for certified divisors and one that is not."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    header = libs["sw_phase"]._name.rsplit("/", 1)[0]
+    (tmp_path / "check.cc").write_text(TAIL_DIVISION_CHECK)
+    defines = [f"-D{k}={v}" for k, v in KP.spec()[1].items()]
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-w", "-I", header, "-I",
+                    str(HOST), *defines, "-o", str(tmp_path / "check"),
+                    str(tmp_path / "check.cc")], check=True)
+    n, bad = map(int, subprocess.run([str(tmp_path / "check")], capture_output=True,
+                                     text=True, check=True).stdout.split())
+    assert (n, bad) == (24 * 1000000, 0)
+
+
 @pytest.mark.parametrize("nsteps", [1, 2, 3])
 @pytest.mark.parametrize("ny,nx", [(44, 600), (1802, 3602), (902, 1802), (9, 8)])
 def test_sw_steps_geometry_is_the_layout(libs, ny, nx, nsteps):
@@ -293,6 +457,25 @@ def test_sw_wide_geometry_is_the_crop_layout(libs, case, nsteps):
         assert (my, mx) == (KW.STEP_RADIUS[0] * nsteps, KW.STEP_RADIUS[1] * nsteps)
     assert bool((covered[cy:cy + rows, cx:cx + cols] == 1).all())
     assert int(covered.sum()) == rows * cols
+
+
+@pytest.mark.parametrize("phase", [1, 2])
+@pytest.mark.parametrize("ny,nx", [(1802, 3602), (902, 1802), (22, 602), (18, 3602),
+                                   (10, 12)])
+def test_sw_phase_geometry_is_the_layout(libs, ny, nx, phase):
+    """The blocks cover the local array once, each walked with one row
+    and computed with one column of margin (the phases' radius); the
+    geometry's counts are those of the blocks."""
+    blocks, g = phase_blocks(libs["sw_phase"], ny, nx, phase)
+    assert g["strips"] * g["chunks"] == len(blocks)
+    assert g["rows_walked"] * g["strips"] == sum(h + 2 * my for _, h, _, _, my, _ in blocks)
+    assert max(h for _, h, *_ in blocks) <= g["rows_per_block"]
+    covered = torch.zeros((ny, nx), dtype=torch.int32)
+    for oy, h, ox, w, my, mx in blocks:
+        assert (my, mx) == KP.PHASE1_RADIUS == KP.PHASE2_RADIUS
+        assert w + 2 * mx <= g["threads"]
+        covered[oy:oy + h, ox:ox + w] += 1
+    assert bool((covered == 1).all())
 
 
 def test_main_path_pairs_compute_at_most_a_quarter_more_than_they_keep(libs):

@@ -1,4 +1,4 @@
-"""The split-phase kernel's module: its plain versions, its tiling, its wrapper.
+"""The split-phase kernel's module: its plain versions, its margins, its wrapper.
 
 - ``sw_phase1_plain`` and ``sw_phase2_plain`` (the plain versions the CPU
   runs) against the JAX package's ``_phase1_window`` and
@@ -7,12 +7,11 @@
   the (1,1) rank and of interior and edge ranks of (2,4), both boundary
   modes.  Band ``5e-6 + 1e-6 * max|a|`` (tests/test_examples.py), on every
   cell, the halo ring included.
-- ``csrc/sw_phase.cu``'s decomposition, run in PyTorch: tiles gathered with
-  periodic addressing and margins of the phase's radius reproduce the
-  whole-array plain version bit for bit, and each phase's dependency
-  radius, measured by NaN injection, lies inside its margins.
-- The wrappers' dispatch.  Tests of the kernel itself need a card: they
-  are in ``tests/test_torch_cuda.py``.
+- Each phase's dependency radius, measured by NaN injection, is the
+  margin of ``csrc/sw_phase.cu``'s strips and chunks.
+- The wrappers' dispatch.  The kernel's source runs on the host, bit for
+  bit against the plain versions, in ``tests/test_torch_sw_emulation.py``;
+  on the card in ``tests/test_torch_cuda.py``.
 """
 
 import os
@@ -117,59 +116,8 @@ def test_phase2_plain_matches_jax_window(grid, rank, periodic):
 
 
 # ---------------------------------------------------------------------------
-# the kernel's tiling, emulated
+# the kernel's margins: each phase's dependency radius
 # ---------------------------------------------------------------------------
-
-
-def tiled(phase, fields, cfg, first, off, tile=K.TILE):
-    """What ``csrc/sw_phase.cu`` computes, tile by tile: gather each tile
-    with its margins by periodic addressing, apply the phase's window to
-    the tile alone (rolls wrap inside the tile, so the margins fill with
-    garbage), keep the centre."""
-    ny, nx = fields[0].shape
-    my, mx = K.PHASE1_RADIUS if phase == 1 else K.PHASE2_RADIUS
-    ty, tx = tile
-    n_out = 6 if phase == 1 else 2
-    outs = [torch.empty_like(fields[0]) for _ in range(n_out)]
-    for y0 in range(0, ny, ty):
-        for x0 in range(0, nx, tx):
-            gy = torch.arange(y0 - my, y0 + ty + my) % ny
-            gx = torch.arange(x0 - mx, x0 + tx + mx) % nx
-            win = [f[gy][:, gx] for f in fields]
-            iy, ix = gy[:, None], gx[None, :]
-            giy, gix = iy + off[0], ix + off[1]
-            if phase == 1:
-                res = K._phase1_window(cfg, first, iy, ix, giy, gix, win, torch.roll)
-            else:
-                res = K._phase2_window(cfg, iy, ix, giy, gix, win[0], win[1],
-                                       torch.roll)
-            hy, hx = min(ty, ny - y0), min(tx, nx - x0)
-            for o, w in zip(outs, res):
-                o[y0:y0 + hy, x0:x0 + hx] = w[my:my + hy, mx:mx + hx]
-    return outs
-
-
-TILE_CASES = [((1, 1), 0, 64, 32), ((2, 4), 0, 64, 32), ((2, 4), 7, 64, 32),
-              ((2, 2), 3, 120, 70)]
-
-
-@pytest.mark.parametrize("phase", [1, 2])
-@pytest.mark.parametrize("periodic", [True, False], ids=["periodic", "walled"])
-@pytest.mark.parametrize("grid,rank,nx,ny", TILE_CASES,
-                         ids=[f"{g[0]}x{g[1]}-r{r}-{x}x{y}" for g, r, x, y in TILE_CASES])
-def test_tiles_with_margins_reproduce_whole_array(grid, rank, nx, ny, periodic,
-                                                  phase):
-    _, cfg = configs(grid, periodic, nx, ny)
-    fields = tuple(map(torch.from_numpy, local_fields(cfg, rank, seed=1)))
-    off = offsets(cfg, rank)
-    if phase == 1:
-        want = K.sw_phase1_plain(fields, cfg, False, off)
-        got = tiled(1, fields, cfg, False, off, tile=(8, 16))
-    else:
-        want = K.sw_phase2_plain(fields[1], fields[2], cfg, off)
-        got = tiled(2, fields[1:3], cfg, False, off, tile=(8, 16))
-    for k, (a, b) in enumerate(zip(want, got)):
-        assert torch.equal(a, b), k
 
 
 def nan_spread(phase, field):

@@ -318,7 +318,7 @@ def test_allreduce_refuses_what_is_not_ported(results, size):
     for r in port_run(results, size):
         for err in r["allreduce/errors"]:
             assert err.startswith("NotImplementedError")
-            assert "ROADMAP Queue 1 item 4" in err
+            assert "ROADMAP Queue 1 item 1" in err
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 emulated.
 
 ``mpi4jax_tpu_torch/csrc/host/`` emulates the CUDA pieces the backward
-sources and the f32 forward use: a block's threads run as coroutines that
+sources and the forward sources of both dtypes use: a block's threads run as coroutines that
 switch at every barrier and warp-collective instruction, and
 ``mma.sync``, ``ldmatrix``, ``__shfl_xor_sync`` and ``cp.async`` are
 computed from every lane's operands.  Each test copies the sources with
@@ -10,7 +10,8 @@ their inline-asm helpers replaced by those emulations, builds them with
 the host C++ compiler and holds the kernels against the plain version on
 the CPU, in the band of ``tests/test_torch_cuda.py``.  So the fragment
 maps, the permuted k of the 3xTF32 products, the online softmax's quad
-shuffles, the staged masks and the causal and ragged bounds run here,
+shuffles, the staged masks (the bf16 forward's ride with its K and V in
+two cp.async stages) and the causal and ragged bounds run here,
 where no card is; the card runs the real instructions in
 ``tests/test_torch_cuda.py``.  The warps run in lockstep, except in the
 last test, where each runs alone from one barrier to the next, so that a
@@ -31,9 +32,10 @@ torch = pytest.importorskip("torch")
 from mpi4jax_tpu_torch.kernels import flash_attention as FA  # noqa: E402
 
 HOST = FA._build.CSRC / "host"
-SOURCES = {"tf32": FA.BWD_SOURCE, "mma": FA.MMA_SOURCE, "fwd_tf32": FA.SOURCE}
+SOURCES = {"tf32": FA.BWD_SOURCE, "mma": FA.MMA_SOURCE, "fwd_tf32": FA.SOURCE,
+           "fwd_mma": FA.FWD_MMA_SOURCE}
 SIGNATURES = {"tf32": FA._TF32_SIGNATURES, "mma": FA._MMA_SIGNATURES,
-              "fwd_tf32": FA._SIGNATURES}
+              "fwd_tf32": FA._SIGNATURES, "fwd_mma": FA._FWD_MMA_SIGNATURES}
 
 # each inline-asm helper of the headers, by name, and its emulation
 EMULATED = {
@@ -72,9 +74,9 @@ def emulated_source(text):
 @pytest.fixture(scope="module")
 def kernels(tmp_path_factory):
     """The libraries built for the host: the backward ``tf32`` and ``mma``,
-    the f32 forward ``fwd_tf32``, and ``tf32_truncating`` and
-    ``fwd_tf32_truncating`` (each mma's sum truncated, as the tensor cores
-    accumulate)."""
+    the f32 forward ``fwd_tf32``, the bf16 forward ``fwd_mma``, and
+    ``tf32_truncating`` and ``fwd_tf32_truncating`` (each mma's sum
+    truncated, as the tensor cores accumulate)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
@@ -88,7 +90,8 @@ def kernels(tmp_path_factory):
     for name, src, flags in (("tf32", "tf32", []), ("mma", "mma", []),
                              ("tf32_truncating", "tf32", ["-DHOST_EMU_TRUNCATE"]),
                              ("fwd_tf32", "fwd_tf32", []),
-                             ("fwd_tf32_truncating", "fwd_tf32", ["-DHOST_EMU_TRUNCATE"])):
+                             ("fwd_tf32_truncating", "fwd_tf32", ["-DHOST_EMU_TRUNCATE"]),
+                             ("fwd_mma", "fwd_mma", [])):
         lib = out / f"lib{name}.so"
         subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w", "-I", str(HOST),
                         *flags, "-o", str(lib), "-x", "c++",
@@ -198,12 +201,13 @@ def test_tf32_gradient_sums_survive_truncating_accumulation(kernels, tq, tk):
 
 
 # ---------------------------------------------------------------------------
-# the f32 forward (csrc/flash_fwd_tf32.cu)
+# the forward: f32 (csrc/flash_fwd_tf32.cu) and bf16 (csrc/flash_fwd_mma.cu)
 # ---------------------------------------------------------------------------
 
 
 def run_fwd(lib, q, k, v, mask, causal):
-    """``(o, m, l)`` from the forward launch function of ``lib``."""
+    """``(o, m, l)`` from the forward launch function of ``lib``: the
+    ``*_mma`` functions for bf16 inputs, the ``*_tf32`` ones for f32."""
     b, tq, h, d = q.shape
     o = torch.empty_like(q)
     m = torch.empty((b, h, tq), dtype=torch.float32)
@@ -211,14 +215,15 @@ def run_fwd(lib, q, k, v, mask, causal):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     outs = (o.data_ptr(), m.data_ptr(), l.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    kind = "mma" if q.dtype == torch.bfloat16 else "tf32"
     if causal:
-        err = lib.flash_fwd_causal_tf32_launch(*ptrs, *outs, b, h, tq, d, *strides,
-                                               d**-0.5, None)
+        err = getattr(lib, f"flash_fwd_causal_{kind}_launch")(*ptrs, *outs, b, h, tq, d,
+                                                              *strides, d**-0.5, None)
     else:
         mask_u8 = None if mask is None else mask.contiguous().view(torch.uint8)
-        err = lib.flash_fwd_tf32_launch(*ptrs, None if mask_u8 is None else
-                                        mask_u8.data_ptr(), *outs, b, h, tq, k.shape[1],
-                                        d, *strides, d**-0.5, None)
+        err = getattr(lib, f"flash_fwd_{kind}_launch")(
+            *ptrs, None if mask_u8 is None else mask_u8.data_ptr(), *outs, b, h, tq,
+            k.shape[1], d, *strides, d**-0.5, None)
     assert err == 0
     return o, m, l
 
@@ -227,25 +232,32 @@ def fwd_errors(want, got, causal):
     """max|diff| of o, m, l where plain is finite, and each band: m 1e-6,
     l and o 1e-5, the causal o 1e-4, each as that much absolute plus that
     much of max|ref| (chip_smoke.py's FLASH_REL, FLASH_CAUSAL_O_REL, from
-    tests/test_kernels.py:50-55); infinities must agree exactly and no NaN
-    may appear."""
+    tests/test_kernels.py:50-55); a bf16 o, causal or not, 4 * 2^-8 of
+    max|ref| (its rounding unit, FLASH_BF16_O_REL) with no absolute term;
+    infinities must agree exactly and no NaN may appear."""
     out = []
     for name, a, b in zip("oml", want, got):
+        assert b.dtype == a.dtype
+        a, b = a.float(), b.float()
         assert not bool(torch.isnan(b).any())
         fin = torch.isfinite(a)
         assert torch.equal(fin, torch.isfinite(b)) and torch.equal(a[~fin], b[~fin])
         rel = {"o": 1e-4 if causal else 1e-5, "m": 1e-6, "l": 1e-5}[name]
+        atol = rel
+        if name == "o" and want[0].dtype == torch.bfloat16:
+            rel, atol = 4 * 2**-8, 0.0
         top = a[fin].abs().max().item() if bool(fin.any()) else 0.0
         err = (a[fin] - b[fin]).abs().max().item() if bool(fin.any()) else 0.0
-        out.append((err, rel + rel * top))
+        out.append((err, atol + rel * top))
     return out
 
 
-def fwd_inputs(b, tq, tk, h, d, masked, seed):
-    """q, k, v and the mask (p = 0.8, or None) made from ``seed``."""
+def fwd_inputs(b, tq, tk, h, d, masked, seed, dtype=torch.float32):
+    """q, k, v of ``dtype`` and the mask (p = 0.8, or None) made from
+    ``seed``."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d), dtype=np.float32))
-               for t in (tq, tk, tk))
+               .to(dtype) for t in (tq, tk, tk))
     return q, k, v, torch.from_numpy(rng.random((tq, tk)) < 0.8) if masked else None
 
 
@@ -305,6 +317,31 @@ def test_tf32_forward_survives_truncating_accumulation(kernels):
         assert err <= band
 
 
+# (b, tq, tk, h, d, masked, causal) of the bf16 forward: unmasked with a
+# ragged last query and key tile, the full head dim; masked with a key
+# count past a multiple of 4 (the mask staged byte by byte) and of 4 only
+# (4-byte copies); causal blocks of one and of two 64-query tiles, one
+# ragged; several query tiles over one ragged key tile
+BF16_FWD_CASES = [
+    (1, 70, 90, 1, 128, False, False), (1, 70, 90, 1, 128, True, False),
+    (1, 100, 132, 2, 32, True, False), (2, 16, 16, 2, 32, False, True),
+    (1, 100, 100, 1, 64, False, True), (1, 130, 70, 2, 128, False, False),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,d,masked,causal", BF16_FWD_CASES)
+def test_emulated_bf16_forward_matches_plain(kernels, b, tq, tk, h, d, masked, causal):
+    """The bf16 forward, which the card has held in its band since it was
+    written, in the band under the emulation: its two cp.async stages of K,
+    V and the mask, its fragment maps and its causal and ragged bounds."""
+    q, k, v, mask = fwd_inputs(b, tq, tk, h, d, masked, seed=tq + tk + d,
+                               dtype=torch.bfloat16)
+    got = run_fwd(kernels["fwd_mma"], q, k, v, mask, causal)
+    want = FA.block_partials_plain(q, k, v, mask, scale=d**-0.5, causal=causal)
+    for err, band in fwd_errors(want, got, causal):
+        assert err <= band
+
+
 # ---------------------------------------------------------------------------
 # warps run apart: each warp alone from one barrier to the next
 # ---------------------------------------------------------------------------
@@ -315,13 +352,17 @@ WARP_ORDERS = {"ascending": 1, "descending": -1}
 
 # (kernel, b, tq, tk, h, d, masked, causal): the staged mask by 4-byte
 # copies and byte by byte, a causal forward of two query tiles, and the
-# masked backward of each dtype, each over several key tiles
+# masked backward of each dtype, each over several key tiles; the bf16
+# forward's masked stages by 4-byte copies over three key tiles, and its
+# causal forward over four query tiles
 APART_CASES = [
     ("fwd_tf32", 1, 100, 132, 2, 32, True, False),
     ("fwd_tf32", 1, 70, 90, 1, 128, True, False),
     ("fwd_tf32", 1, 200, 200, 1, 32, False, True),
     ("tf32", 1, 100, 132, 2, 32, True, False),
     ("mma", 1, 70, 90, 1, 128, True, False),
+    ("fwd_mma", 1, 100, 132, 2, 32, True, False),
+    ("fwd_mma", 1, 200, 200, 1, 32, False, True),
 ]
 
 
@@ -345,8 +386,9 @@ def test_emulated_kernels_hold_with_warps_run_apart(warps_apart, kind, b, tq, tk
     reads before any writes).  Each kernel holds its band under both
     orders."""
     lib = warps_apart[kind]
-    if kind == "fwd_tf32":
-        q, k, v, mask = fwd_inputs(b, tq, tk, h, d, masked, seed=tq + tk + d)
+    if kind.startswith("fwd"):
+        dtype = torch.bfloat16 if kind == "fwd_mma" else torch.float32
+        q, k, v, mask = fwd_inputs(b, tq, tk, h, d, masked, seed=tq + tk + d, dtype=dtype)
         got = run_fwd(lib, q, k, v, mask, causal)
         want = FA.block_partials_plain(q, k, v, mask, scale=d**-0.5, causal=causal)
         errs = fwd_errors(want, got, causal)
