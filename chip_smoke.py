@@ -65,6 +65,24 @@ read just after:
    bf16 inputs, causal and not, forward alone and forward and backward,
    through the tensor-core kernels, its output and gradients against
    those of ``reference_attention`` on the same values in f32.
+8. the op surface on four gloo ranks on this card: every op (the 13
+   ops, the logical, bitwise and fold reductions, send/recv, barrier and
+   four gradients) on f32, int32 and bool CUDA tensors, on the world
+   comm and on an unequal color split, against numpy bit for bit (the
+   f32 SUM and PROD allreduce on the world rtol 1e-5), each call's wall
+   and staged bytes on rank 0; ``ring_attention(memory_efficient_grad=False)`` at the
+   attention width (1024 tokens a rank), causal and not, forward and
+   backward through ``sendrecv``'s transpose, each rank's output and
+   gradients against its slice of single-GPU ``flash_attention``'s, the
+   four f32 flash kernels' launches per rank checked, its backward's wall,
+   exchange seconds and peak memory beside phase 6's memory-efficient
+   backward; and ``entry.dryrun_multichip(4, device="cuda:0")``, whose
+   ranks count the launches of its kernels (``sw_phase``, ``sw_wide`` and
+   the four f32 flash kernels; the f32 flash ones checked per rank) and
+   then hold each against its plain version at the shapes the dry run
+   gave it (the stencils bit for bit, the flash partials and their
+   backward in the ring's bands).  Four processes share one card, so no
+   number of this phase is a scaling result.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -82,6 +100,13 @@ builds only the two backward sources and prints the sha256 of their
 machine code and of their gradients on fixed inputs (``backward_digests``):
 run from two checkouts on one card, equal digests say that their
 backward kernels are the same.
+
+    python3 chip_smoke.py --ring
+
+builds only the f32 forward source and times phase 6's four-rank ring
+forward, causal and not, eight calls each (``ring_main``), one JSON line:
+run from two checkouts in one call, it sets their ring forwards side by
+side.
 """
 
 import hashlib
@@ -630,6 +655,62 @@ def stencils_main():
         "max_abs_err": {"sw_steps": worst, "sw_phase": phase_worst, "sw_wide": wide_worst},
         "geometry": geo, "periodic_solve": periodic, "walled_solve": walled,
         "halo_solve": halo, "sass_sha256": sass, "sw_phase_sass_census": census}}))
+    return 0
+
+
+def ring_rank(rank, device, b, t_loc, h, d, repeats):
+    """One of four ranks of ``--ring``: the demo's causal and non-causal
+    ring forward (no grad) at the attention width on ``device``,
+    ``repeats`` calls each in this process; each call's wall and seconds
+    inside exchanges, and the exchanges of a call."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+    from mpi4jax_tpu_torch.attention import ring_attention
+    from mpi4jax_tpu_torch.models.long_context_attention import demo_shard
+    from mpi4jax_tpu_torch.ops import _staging
+
+    dev = torch.device(device)
+    comm = Comm("sp", mesh=make_world_mesh((4,), ("sp",), device=dev))
+    q, k, v = (torch.from_numpy(x).to(dev) for x in demo_shard(0, rank, b, t_loc, h, d))
+    out = {}
+    with torch.no_grad():
+        for causal in (True, False):
+            runs = []
+            for _ in range(repeats):
+                _staging.stats.reset()
+                torch.cuda.synchronize(dev)
+                start = time.perf_counter()
+                ring_attention(q, k, v, comm=comm, causal=causal)
+                torch.cuda.synchronize(dev)
+                runs.append((time.perf_counter() - start, _staging.stats.seconds))
+            out["causal" if causal else "full"] = {
+                "wall": [w for w, _ in runs], "exchange_s": [e for _, e in runs],
+                "exchanges": _staging.stats.calls}
+    return out
+
+
+def ring_main(repeats=8):
+    """``python3 chip_smoke.py --ring``: builds the f32 forward source of the
+    checkout that holds this script and times the four-rank ring forward
+    of phase 6 (four gloo ranks on this card, 1024 tokens a rank, causal
+    and not), ``repeats`` calls each in the same processes; prints rank
+    0's walls and exchange seconds, one JSON line.  Run from two
+    checkouts in one call, it sets their ring forwards side by side."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import flash_attention as FA
+    from mpi4jax_tpu_torch.parallel import launch
+
+    _build.build_many([FA.fwd_tf32_spec()])
+    ranks = launch.run(ring_rank, 4, backend="gloo", device="cuda:0", timeout=600,
+                       args=("cuda:0", ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D, repeats))
+    print(json.dumps({"ring_forward_rank0": ranks[0]}))
     return 0
 
 
@@ -1497,8 +1578,10 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
     """One of four ranks on ``device``: for each ``(scheme, causal)`` of
     ``runs``, the gradient of the sum over ranks of ``sum(out**2)`` for
     this rank's shards of the demo's q, k, v, against its slice of the
-    single-GPU ``flash_attention`` gradient of the gathered sequence; the
-    launches, exchanges and peak memory of the backward."""
+    single-GPU ``flash_attention`` gradient of the gathered sequence (and
+    the forward against its output); the launches, exchanges and peak
+    memory of the backward.  ``"ring_plain"`` is
+    ``ring_attention(memory_efficient_grad=False)``."""
     from mpi4jax_tpu_torch import Comm, make_world_mesh
     from mpi4jax_tpu_torch.attention import (flash_attention, ring_attention,
                                              ulysses_attention)
@@ -1512,21 +1595,29 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
     full = [torch.from_numpy(np.concatenate(list(x), axis=1)).to(dev)
             for x in LCA.demo_data(0, n, b, t_loc, h, d)]
     mine = slice(rank * t_loc, (rank + 1) * t_loc)
-    fns = {"ring": ring_attention, "ulysses": ulysses_attention}
+    fns = {"ring": ring_attention, "ulysses": ulysses_attention,
+           "ring_plain": lambda *a, **k: ring_attention(*a, **k,
+                                                        memory_efficient_grad=False)}
     kernels = ("flash_fwd_tf32", "flash_fwd_causal_tf32", "flash_bwd_dq_tf32",
                "flash_bwd_dkv_tf32", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
     out = {}
     for scheme, causal in runs:
         leaves = [x.clone().requires_grad_(True) for x in full]
-        (flash_attention(*leaves, causal=causal) ** 2).sum().backward()
+        ref_out = flash_attention(*leaves, causal=causal)
+        (ref_out ** 2).sum().backward()
         refs = [t.grad[:, mine] for t in leaves]
+        ref_out = ref_out.detach()[:, mine]
         del leaves
         shards = [x[:, mine].clone().requires_grad_(True) for x in full]
         for name in kernels:
             _build.counter_for(name).launches = 0
         _staging.stats.reset()
-        loss = (fns[scheme](*shards, comm=world, causal=causal) ** 2).sum()
+        o = fns[scheme](*shards, comm=world, causal=causal)
+        loss = (o ** 2).sum()
         torch.cuda.synchronize(dev)
+        out_ok = bool(torch.isfinite(o).all()) and torch.allclose(
+            o, ref_out, rtol=ATTN_RTOL, atol=ATTN_ATOL)
+        out_err = (o - ref_out).abs().max().item()
         forward_calls, forward_s = _staging.stats.calls, _staging.stats.seconds
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1542,12 +1633,13 @@ def grad_rank(rank, device, b, t_loc, h, d, runs):
         out[f"{scheme}/{'causal' if causal else 'full'}"] = {
             "launches": {k: _build.counter_for(k).launches for k in kernels},
             "errs": errs, "ok": ok, "wall_bwd": wall,
+            "out_err": out_err, "out_ok": out_ok,
             "peak_bwd_bytes": torch.cuda.max_memory_allocated(dev) - base,
             "exchanges": (forward_calls, _staging.stats.calls - forward_calls),
             "exchange_s_bwd": _staging.stats.seconds - forward_s,
             "staged_bytes": _staging.stats.staged_bytes,
         }
-        del shards, refs, loss
+        del shards, refs, loss, o, ref_out
     return out
 
 
@@ -1595,6 +1687,312 @@ def four_rank_grads(launch, device):
                                    "peak_bwd_bytes_rank0": ranks[0][key]["peak_bwd_bytes"],
                                    "staged_bytes_rank0": ranks[0][key]["staged_bytes"]}
                              for key in expect}
+
+# -- phase 8: the op surface, the op-by-op ring backward and the dry run ---
+
+# the unequal split of phase 8: (0,) and (1, 2, 3)
+SURFACE_COLORS = [0, 1, 1, 1]
+
+
+def surface_inputs(n):
+    """Every rank's inputs of phase 8, from a numpy seed: f32 ``f``
+    (n, 256, 256) in [0.5, 1.5), int32 ``i``, bool ``b``, and int32
+    ``blocks`` (n, n, 128, 128), block j addressed to rank j."""
+    rng = np.random.default_rng(5)
+    return {"f": rng.uniform(0.5, 1.5, (n, 256, 256)).astype(np.float32),
+            "i": rng.integers(-1000, 1000, (n, 256, 256)).astype(np.int32),
+            "b": rng.random((n, 256, 256)) < 0.5,
+            "blocks": rng.integers(-1000, 1000, (n, n, 128, 128)).astype(np.int32)}
+
+
+def butterfly(vals, fn):
+    """The fold of ``vals`` in the association of the port's
+    ``ops/_base.py:fold`` (the JAX package's doubling butterfly)."""
+    acc, w = list(vals), 1
+    while w < len(acc):
+        acc = [fn(acc[p], acc[p + w]) if p + w < len(acc) else acc[p]
+               for p in range(len(acc))]
+        w *= 2
+    return acc[0]
+
+
+def hillis_steele(vals, fn):
+    """The inclusive prefix of ``vals`` in ``ops/scan.py``'s rounds."""
+    acc, d = list(vals), 1
+    while d < len(acc):
+        acc = [fn(acc[r], acc[r - d]) if r >= d else acc[r] for r in range(len(acc))]
+        d *= 2
+    return acc
+
+
+def surface_cases(world, split, t, rank):
+    """Phase 8's op calls on this rank's inputs ``t``, by name."""
+    from mpi4jax_tpu_torch import (BAND, BOR, BXOR, LAND, LOR, LXOR, MAX, MIN,
+                                   PROD, SUM, allgather, allreduce, alltoall,
+                                   barrier, bcast, gather, recv, reduce,
+                                   reduce_scatter, scan, scatter, send, sendrecv,
+                                   shift)
+
+    def pair(x, dest, tag, comm):
+        send(x, dest, tag=tag, comm=comm)
+        return recv(x, tag=tag, comm=comm)
+
+    cases = {f"allreduce/{k}/{op.name}": (lambda k=k, op=op:
+                                          allreduce(t[k], op, comm=world))
+             for k, ops in (("f", (SUM, PROD, MIN, MAX)), ("i", (SUM, BAND, BOR, BXOR)),
+                            ("b", (LAND, LOR, LXOR))) for op in ops}
+    cases.update({
+        **{f"allgather/{k}": (lambda k=k: allgather(t[k], comm=world)) for k in "fib"},
+        "bcast/i/2": lambda: bcast(t["i"], 2, comm=world),
+        "bcast/b/1": lambda: bcast(t["b"], 1, comm=world),
+        "reduce/i/SUM/1": lambda: reduce(t["i"], SUM, 1, comm=world),
+        "reduce/f/MAX/3": lambda: reduce(t["f"], MAX, 3, comm=world),
+        "reduce_scatter/SUM": lambda: reduce_scatter(t["blocks"], SUM, comm=world),
+        "reduce_scatter/BXOR": lambda: reduce_scatter(t["blocks"], BXOR, comm=world),
+        "scan/f/SUM": lambda: scan(t["f"], SUM, comm=world),
+        "scan/i/SUM": lambda: scan(t["i"], SUM, comm=world),
+        "scatter/3": lambda: scatter(t["blocks"], 3, comm=world),
+        "gather/f/0": lambda: gather(t["f"], 0, comm=world),
+        "alltoall": lambda: alltoall(t["blocks"], comm=world),
+        "sendrecv": lambda: sendrecv(t["f"], t["f"], dest=shift(1), comm=world),
+        "send_recv": lambda: pair(t["f"], shift(-1), 5, world),
+        "barrier": lambda: (None, barrier(comm=world)),
+        "split/allreduce/i/SUM": lambda: allreduce(t["i"], SUM, comm=split),
+        "split/allreduce/f/PROD": lambda: allreduce(t["f"], PROD, comm=split),
+        "split/scan/i/SUM": lambda: scan(t["i"], SUM, comm=split),
+        "split/bcast/f/0": lambda: bcast(t["f"], 0, comm=split),
+        "split/reduce/i/SUM/0": lambda: reduce(t["i"], SUM, 0, comm=split),
+        "split/sendrecv": lambda: sendrecv(t["f"], t["f"], dest=shift(1), comm=split),
+        "split/send_recv": lambda: pair(t["f"], shift(1), 2, split),
+    })
+
+    def grad_of(fn, x):
+        x = x.clone().requires_grad_(True)
+        fn(x).backward()
+        return (x.grad, None)
+
+    w = float(rank + 1)  # this rank's loss weight
+    cases.update({
+        "grad/allreduce": lambda: grad_of(
+            lambda x: allreduce(x, SUM, comm=world)[0].sum() * w, t["f"]),
+        "grad/bcast": lambda: grad_of(
+            lambda x: bcast(x, 0, comm=world)[0].sum() * w, t["f"]),
+        "grad/sendrecv": lambda: grad_of(
+            lambda x: sendrecv(x, x, dest=shift(1), comm=world)[0].sum() * w, t["f"]),
+        "grad/reduce_scatter": lambda: grad_of(
+            lambda x: reduce_scatter(x, SUM, comm=world)[0].sum() * w,
+            t["blocks"].float()),
+    })
+    return cases
+
+
+def surface_expected(inp, n):
+    """Every rank's expected result of each phase-8 case, computed in numpy."""
+    f, i, b, blocks = inp["f"], inp["i"], inp["b"], inp["blocks"]
+    ranks = range(n)
+    allr = lambda x, fn: [butterfly(list(x), fn)] * n  # noqa: E731
+    groups = [[0], [1, 2, 3]]
+    group_of = {r: g for g in groups for r in g}
+    want = {
+        "allreduce/f/SUM": [f.sum(0)] * n,
+        "allreduce/f/PROD": allr(f, np.multiply),
+        "allreduce/f/MIN": [f.min(0)] * n, "allreduce/f/MAX": [f.max(0)] * n,
+        "allreduce/i/SUM": [i.sum(0, dtype=np.int32)] * n,
+        "allreduce/i/BAND": allr(i, np.bitwise_and),
+        "allreduce/i/BOR": allr(i, np.bitwise_or),
+        "allreduce/i/BXOR": allr(i, np.bitwise_xor),
+        "allreduce/b/LAND": allr(b, np.logical_and),
+        "allreduce/b/LOR": allr(b, np.logical_or),
+        "allreduce/b/LXOR": allr(b, np.logical_xor),
+        "allgather/f": [f] * n, "allgather/i": [i] * n, "allgather/b": [b] * n,
+        "bcast/i/2": [i[2]] * n, "bcast/b/1": [b[1]] * n,
+        "reduce/i/SUM/1": [i.sum(0, dtype=np.int32) if r == 1 else i[r] for r in ranks],
+        "reduce/f/MAX/3": [f.max(0) if r == 3 else f[r] for r in ranks],
+        "reduce_scatter/SUM": [blocks[:, r].sum(0, dtype=np.int32) for r in ranks],
+        "reduce_scatter/BXOR": [butterfly(list(blocks[:, r]), np.bitwise_xor)
+                                for r in ranks],
+        "scan/f/SUM": hillis_steele(list(f), np.add),
+        "scan/i/SUM": hillis_steele(list(i), np.add),
+        "scatter/3": [blocks[3, r] for r in ranks],
+        "gather/f/0": [f] * n,
+        "alltoall": [blocks[:, r] for r in ranks],
+        "sendrecv": [f[(r - 1) % n] for r in ranks],
+        "send_recv": [f[(r + 1) % n] for r in ranks],
+        "split/allreduce/i/SUM": [i[group_of[r]].sum(0, dtype=np.int32) for r in ranks],
+        "split/allreduce/f/PROD": [butterfly(list(f[group_of[r]]), np.multiply)
+                                   for r in ranks],
+        "split/scan/i/SUM": [hillis_steele(list(i[group_of[r]]), np.add)[
+            group_of[r].index(r)] for r in ranks],
+        "split/bcast/f/0": [f[group_of[r][0]] for r in ranks],
+        "split/reduce/i/SUM/0": [i[group_of[r]].sum(0, dtype=np.int32)
+                                 if r == group_of[r][0] else i[r] for r in ranks],
+        "split/sendrecv": [f[group_of[r][(group_of[r].index(r) - 1) % len(group_of[r])]]
+                           for r in ranks],
+        "split/send_recv": [f[group_of[r][(group_of[r].index(r) - 1) % len(group_of[r])]]
+                            for r in ranks],
+        # rank r's loss weight is r + 1: the SUM allreduce's backward is the
+        # identity, bcast's sums every weight onto root, sendrecv's takes the
+        # weight of the rank it sent to, reduce_scatter's is the allgather
+        "grad/allreduce": [np.full_like(f[0], r + 1) for r in ranks],
+        "grad/bcast": [np.full_like(f[0], sum(range(1, n + 1)) if r == 0 else 0)
+                       for r in ranks],
+        "grad/sendrecv": [np.full_like(f[0], (r + 1) % n + 1) for r in ranks],
+        "grad/reduce_scatter": [np.stack([np.full(blocks.shape[2:], j + 1, np.float32)
+                                          for j in ranks]) for r in ranks],
+    }
+    return want
+
+
+def surface_rank(rank, device, b, t_loc, h, d):
+    """One of four ranks of phase 8 on ``device``: every op of the surface
+    on CUDA tensors (the world and an unequal split), each call's wall and
+    staged bytes, then the op-by-op ring backward (``grad_rank``)."""
+    from mpi4jax_tpu_torch import Comm, flush, make_world_mesh
+    from mpi4jax_tpu_torch.ops import _staging
+
+    dev = torch.device(device)
+    n = 4
+    world = Comm("x", mesh=make_world_mesh((n,), ("x",), device=dev))
+    split = world.Split(SURFACE_COLORS)
+    t = {k: torch.from_numpy(v[rank]).to(dev) for k, v in surface_inputs(n).items()}
+    out = {"results": {}, "wall": {}, "staged": {}}
+    # twice, keeping the second: a call's first use in a process pays for
+    # loading its code and setting up its gloo algorithm
+    for _ in range(2):
+        for name, fn in surface_cases(world, split, t, rank).items():
+            torch.cuda.synchronize(dev)
+            staged, start = _staging.stats.staged_bytes, time.perf_counter()
+            res = fn()[0]
+            torch.cuda.synchronize(dev)
+            out["wall"][name] = time.perf_counter() - start
+            out["staged"][name] = _staging.stats.staged_bytes - staged
+            if res is not None:
+                if res.device != dev:
+                    raise AssertionError(f"{name}: result on {res.device}, not {dev}")
+                out["results"][name] = res
+    flush()
+    # both backward paths, twice, keeping the second (see above)
+    runs = (("ring", True), ("ring", False), ("ring_plain", True), ("ring_plain", False))
+    out["ring"] = grad_rank(rank, device, b, t_loc, h, d, runs * 2)
+    return out
+
+
+def four_rank_surface(launch, device, me_runs):
+    """Phase 8: four gloo ranks on this card.  Every op on CUDA tensors
+    against numpy, bit for bit but for the f32 SUM and PROD allreduce on
+    the world (one ``dist.all_reduce``, whose association is the
+    backend's: rtol 1e-5, tests/test_allreduce.py:62);
+    ``ring_attention(memory_efficient_grad=False)`` at the attention width,
+    causal and not, each rank's output and gradients against its slice of
+    single-GPU ``flash_attention``'s with the launches of the four f32
+    kernels checked, its backward beside the memory-efficient one run in
+    the same processes and beside phase 6's (``me_runs``); then
+    ``entry.dryrun_multichip(4)`` on this card, its kernels' launches per
+    rank and their checks against their plain versions.  Returns the
+    op-by-op runs' worst difference, their launches, the dry run's
+    launches and worst difference per kernel, each run's numbers and the
+    ops' numbers."""
+    n, t_loc = 4, ATTN_T // 4
+    t0 = time.perf_counter()
+    ranks = launch.run(surface_rank, n, backend="gloo", device=device, timeout=600,
+                       args=(device, ATTN_B, t_loc, ATTN_H, ATTN_D))
+    print(f"four ranks, op surface and op-by-op ring backward: "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    want = surface_expected(surface_inputs(n), n)
+    for name, per_rank in want.items():
+        for r, res in enumerate(ranks):
+            got, exp = res["results"][name], np.asarray(per_rank[r])
+            if name in ("allreduce/f/SUM", "allreduce/f/PROD"):
+                ok = got.shape == exp.shape and np.allclose(got, exp, rtol=1e-5, atol=0)
+            else:
+                ok = got.dtype == exp.dtype and np.array_equal(got, exp)
+            if not ok:
+                raise AssertionError(f"{name} rank {r}: differs from numpy "
+                                     f"({got.dtype} {got.shape} vs {exp.dtype} "
+                                     f"{exp.shape})")
+    r0 = ranks[0]
+    print("  every op on CUDA tensors against numpy (rank 0: wall ms, staged MB): "
+          + ", ".join(f"{k} {r0['wall'][k] * 1e3:.3f} ms {r0['staged'][k] / 1e6:.2f} MB"
+                      for k in r0["wall"]))
+    # launches per rank r (flash_fwd_tf32, flash_fwd_causal_tf32,
+    # flash_bwd_dq_tf32, flash_bwd_dkv_tf32, flash_bwd_dq_mma,
+    # flash_bwd_dkv_mma): the op-by-op backward reuses every block's saved
+    # partials and recomputes no forward; the memory-efficient one, timed
+    # beside it in this phase, recomputes each computed block's forward
+    expect = {"ring_plain/causal": lambda r: (r, 1, r + 1, r + 1, 0, 0),
+              "ring_plain/full": lambda r: (4, 0, 4, 4, 0, 0),
+              "ring/causal": lambda r: (2 * r, 2, r + 1, r + 1, 0, 0),
+              "ring/full": lambda r: (8, 0, 4, 4, 0, 0)}
+    worst = 0.0
+    launches = dict.fromkeys(("flash_fwd_tf32", "flash_fwd_causal_tf32",
+                              "flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"), 0)
+    for key, expected in expect.items():
+        for r, res in enumerate(ranks):
+            run = res["ring"][key]
+            got = tuple(run["launches"].values())
+            if got != expected(r):
+                raise AssertionError(f"{key} rank {r}: launches {got}, "
+                                     f"expected {expected(r)}")
+            if not run["out_ok"]:
+                raise AssertionError(f"{key} rank {r}: output off single-GPU "
+                                     f"flash_attention's by {run['out_err']:.3e}")
+            if not run["ok"]:
+                raise AssertionError(f"{key} rank {r}: gradients off single-GPU "
+                                     f"flash_attention's by {max(run['errs']):.3e}")
+            if key.startswith("ring_plain"):
+                for name in launches:
+                    launches[name] += run["launches"][name]
+                worst = max(worst, run["out_err"], *run["errs"])
+            print(f"  {key} rank {r}: out max|diff| {run['out_err']:.3e}, dq, dk, dv "
+                  + ", ".join(f"{e:.3e}" for e in run["errs"])
+                  + f"; launches {got}; backward {run['wall_bwd']:.4f} s "
+                  f"({run['exchange_s_bwd']:.4f} s inside exchanges), peak "
+                  f"{run['peak_bwd_bytes'] / 2**20:.1f} MiB above the forward's; "
+                  f"exchanges (forward, backward) {run['exchanges']}")
+    for causal in ("causal", "full"):
+        plain, me = (ranks[0]["ring"][f"{k}/{causal}"] for k in ("ring_plain", "ring"))
+        me6 = me_runs[f"ring/{causal}"]
+        print(f"  ring {causal} rank 0 backward: op by op {plain['wall_bwd']:.4f} s, "
+              f"{plain['exchange_s_bwd']:.4f} s in exchanges, peak "
+              f"{plain['peak_bwd_bytes'] / 2**20:.1f} MiB above the forward's; "
+              f"memory-efficient {me['wall_bwd']:.4f} s, {me['exchange_s_bwd']:.4f} s, "
+              f"{me['peak_bwd_bytes'] / 2**20:.1f} MiB (phase 6, its first call in "
+              f"its processes: {me6['wall_bwd_rank0']:.4f} s, "
+              f"{me6['exchange_s_bwd_rank0']:.4f} s, "
+              f"{me6['peak_bwd_bytes_rank0'] / 2**20:.1f} MiB)")
+    print("four processes share one card (gloo; not a scaling result)")
+
+    from mpi4jax_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device=device, timeout=600)
+    print(f"dryrun_multichip(4, {device}): {time.perf_counter() - t0:.1f} s with "
+          f"start-up; checks {json.dumps(dry['checks'], default=str)}")
+    # the f32 flash launches per rank r of the dry run's causal ring (two
+    # forwards and the memory-efficient backward; t_loc 8, one block a
+    # step): (flash_fwd_tf32, flash_fwd_causal_tf32, flash_bwd_dq_tf32,
+    # flash_bwd_dkv_tf32) = (3 r, 3, r + 1, r + 1)
+    for r, res in enumerate(dry["ranks"]):
+        got = tuple(res["launches"][k] for k in launches)
+        if got != (3 * r, 3, r + 1, r + 1):
+            raise AssertionError(f"dry run rank {r}: f32 flash launches {got}, "
+                                 f"expected {(3 * r, 3, r + 1, r + 1)}")
+    held = dry["checks"]["kernels_vs_plain"]
+    dry_kernels = {name: {"launches": n, "max_abs_err": held[name]["max_abs_err"]}
+                   for name, n in dry["checks"]["kernel_launches"]["launches"].items()}
+    print("  dry run, launches over the four ranks and max|diff| from plain at its "
+          "shapes: " + ", ".join(f"{k} {v['launches']} ({v['max_abs_err']:.3e})"
+                                 for k, v in dry_kernels.items()))
+    runs = {key: {"wall_bwd_rank0": ranks[0]["ring"][key]["wall_bwd"],
+                  "launches_per_rank": [tuple(r["ring"][key]["launches"].values())
+                                        for r in ranks],
+                  "exchange_s_bwd_rank0": ranks[0]["ring"][key]["exchange_s_bwd"],
+                  "peak_bwd_bytes_rank0": ranks[0]["ring"][key]["peak_bwd_bytes"],
+                  "staged_bytes_rank0": ranks[0]["ring"][key]["staged_bytes"]}
+            for key in expect}
+    return worst, launches, dry_kernels, runs, {"op_wall_ms_rank0": {
+        k: v * 1e3 for k, v in ranks[0]["wall"].items()},
+        "op_staged_bytes_rank0": ranks[0]["staged"], "dryrun_checks": dry["checks"]}
 
 
 def main():
@@ -1746,6 +2144,11 @@ def main():
         TA, FA, q, k, v)
     bf16_worst, bf16_launches, bf16_runs = bf16_attention_grads(TA, FA, q, k, v)
     del q, k, v
+    torch.cuda.empty_cache()
+
+    # -- the op surface, the op-by-op ring backward and the dry run -------
+    plain_worst, plain_launches, dry_kernels, plain_runs, surface = four_rank_surface(
+        launch, "cuda:0", ring_grad_runs)
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -1789,6 +2192,10 @@ def main():
         "geometry": {k: g for k, g in geo.items() if k.startswith("sw_phase")},
         "halo_solve": halo,
         "four_rank_launches_rank0": r0["phase_launches"],
+        # phase 8: the dry run's split-phase shallow water, over its four
+        # ranks, and its kernel-against-plain checks at those frames
+        "dryrun_launches": dry_kernels["sw_phase"]["launches"],
+        "dryrun_max_abs_err": dry_kernels["sw_phase"]["max_abs_err"],
     }, {
         "name": "sw_wide",
         "route": "cuda",
@@ -1806,6 +2213,9 @@ def main():
         "geometry": {k: g for k, g in geo.items() if k.startswith("sw_wide")},
         "walled_solve_steps_per_s": walled["steps_per_s"],
         "four_rank_launches_rank0": r0["wide_launches"],
+        # phase 8: the dry run's wide-halo shallow water (see sw_phase)
+        "dryrun_launches": dry_kernels["sw_wide"]["launches"],
+        "dryrun_max_abs_err": dry_kernels["sw_wide"]["max_abs_err"],
     }]
     for name, main_case, replaces in (
         ("flash_fwd_tf32", "f32", ":122"),
@@ -1818,7 +2228,8 @@ def main():
             "source": "mpi4jax_tpu_torch/csrc/flash_fwd_tf32.cu",
             "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
             "launches": attn_launches[name],
-            "max_abs_err": max(flash_worst[name], single_worst, ring_worst),
+            "max_abs_err": max(flash_worst[name], single_worst, ring_worst, plain_worst,
+                               dry_kernels[name]["max_abs_err"]),
             "ms": case["ms"],
             "plain_ms": case["plain_ms"],
             # 3xTF32 on the tensor cores: 3 x the f32 operations at 494.7
@@ -1832,6 +2243,13 @@ def main():
             "sass_hmma_tf32_in_library": fwd_tf32_hmma,
             "by_case": flash_cases[name],
             "four_rank_runs": attn_runs,
+            # phase 8: ring_attention(memory_efficient_grad=False) forward and
+            # backward on four ranks, causal and not, all ranks' launches
+            "four_rank_op_by_op_launches": plain_launches[name],
+            "four_rank_op_by_op_max_abs_err": plain_worst,
+            # phase 8: the dry run's causal ring, over its four ranks
+            "dryrun_launches": dry_kernels[name]["launches"],
+            "dryrun_max_abs_err": dry_kernels[name]["max_abs_err"],
         })
     for name, replaces in (("flash_bwd_dq_tf32", ":328"), ("flash_bwd_dkv_tf32", ":366")):
         case = bwd_cases[name]["f32"]
@@ -1842,7 +2260,8 @@ def main():
             "replaces": "mpi4jax_tpu/kernels/flash_attention.py" + replaces,
             # five steps of single-GPU training, the slice's main path
             "launches": 5 * train1["launches_per_step"][name],
-            "max_abs_err": max(bwd_worst[name], grad_worst, ring_grad_worst),
+            "max_abs_err": max(bwd_worst[name], grad_worst, ring_grad_worst, plain_worst,
+                               dry_kernels[name]["max_abs_err"]),
             "ms": case["ms"],
             "plain_ms": case["plain_ms"],
             # 3xTF32 on the tensor cores: 3 x the f32 operations at 494.7
@@ -1859,11 +2278,17 @@ def main():
             "four_rank_grad_launches": ring_grad_launches[name],
             "four_rank_training_launches_per_step": [
                 ln[name] for ln in train4["launches_per_step"]],
+            "four_rank_op_by_op_launches": plain_launches[name],
+            "four_rank_op_by_op_max_abs_err": plain_worst,
+            # phase 8: the dry run's causal ring, over its four ranks
+            "dryrun_launches": dry_kernels[name]["launches"],
+            "dryrun_max_abs_err": dry_kernels[name]["max_abs_err"],
         })
     kernels[-1]["paths"] = {
         "attention_grads_1gpu": grad_runs,
         "training_1gpu": {k: v for k, v in train1.items() if k != "grads0"},
-        "training_4ranks": train4, "attention_grads_4ranks": ring_grad_runs}
+        "training_4ranks": train4, "attention_grads_4ranks": ring_grad_runs,
+        "op_by_op_ring_grads_4ranks": plain_runs, "op_surface_4ranks": surface}
     for name, replaces in (("flash_bwd_dq_mma", ":328"), ("flash_bwd_dkv_mma", ":366")):
         case = bwd_cases[name]["bf16"]
         kernels.append({
@@ -1922,5 +2347,6 @@ def main():
 
 
 if __name__ == "__main__":
-    modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main}
+    modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
+             "--ring": ring_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

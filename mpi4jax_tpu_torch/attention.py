@@ -23,8 +23,14 @@ rank-order concatenation of the shards.
 The block partials and their backward come from
 ``kernels/flash_attention.py``: the CUDA kernels on the card, the plain
 versions on the CPU.  ``ring_attention(memory_efficient_grad=False)``
-over several ranks would need the transpose of ``sendrecv`` (ROADMAP
-Queue 1 item 1), so a grad request on that path raises.
+differentiates through the forward op by op: the partials' own backward,
+the merges, and the transposes of the rotations (``sendrecv``'s reverse
+route).  Every rank must run the transpose of every rotation, in the same
+order: K and V rotate as one stacked tensor (two chains could be ordered
+differently by autograd on ranks whose graphs differ, and gloo would then
+swap dK and dV of equal shapes without an error), and the last rotation
+is tied to the output (``_Tie``), so that a causal rank, which stops
+computing after its own step, still runs the rotations' backward.
 """
 
 from __future__ import annotations
@@ -99,27 +105,45 @@ def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
     ``memory_efficient_grad=True`` (default) differentiates through the
     ring's own backward (``_RingAttention``), which saves only rank-local
     tensors and re-rotates K/V.  ``False`` differentiates through the
-    forward op by op; over several ranks that needs the transpose of
-    ``sendrecv``, which is not ported (ROADMAP Queue 1 item 1), so a grad
-    request there raises.  On one rank every path is differentiable."""
+    forward op by op (see the module docstring): it keeps every block's
+    partials for the backward and recomputes no forward."""
     comm = _comm_of(comm, "ring_attention")
     if memory_efficient_grad:
         return _RingAttention.apply(q, k, v, comm, causal)
-    if comm.Get_size() > 1 and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "ring_attention(memory_efficient_grad=False) over several ranks: "
-            "differentiating through the K/V rotations needs the transpose "
-            "of sendrecv, which is ROADMAP Queue 1 item 1; use "
-            "memory_efficient_grad=True"
-        )
     out, _m, _l = _ring_forward(q, k, v, comm, causal)
     return out
 
 
+class _Tie(torch.autograd.Function):
+    """``out`` with ``tied`` made inputs of it: the backward passes ``out``'s
+    cotangent through and gives ``tied`` zeros, so that autograd runs the
+    backward of whatever produced ``tied`` on every rank."""
+
+    @staticmethod
+    def forward(out, tied):
+        return out.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.tied = (inputs[1].shape, inputs[1].dtype, inputs[1].device)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.tied
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+    @staticmethod
+    def jvp(ctx, t_out, _):
+        return t_out
+
+
 def _ring_forward(q, k, v, comm: Comm, causal: bool):
     """The ring forward; returns the normalised output and the final
-    streaming-softmax stats ``(m, l)``."""
+    streaming-softmax stats ``(m, l)``.  Where autograd follows K or V,
+    they rotate as one stacked tensor and the last rotation is tied to the
+    output (the op-by-op backward's order; see the module docstring);
+    elsewhere as two exchanges a step, which time faster through gloo's
+    host staging (PERF.md, ``chip_smoke.py --ring``)."""
     size, rank = comm.Get_size(), comm.Get_rank()
     b, t_loc, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
@@ -129,6 +153,9 @@ def _ring_forward(q, k, v, comm: Comm, causal: bool):
     l = torch.zeros((b, h, t_loc), dtype=torch.float32, device=q.device)
     acc = torch.zeros_like(q)
     k_blk, v_blk = k, v
+    stacked = size > 1 and torch.is_grad_enabled() and (k.requires_grad
+                                                          or v.requires_grad)
+    kv = torch.stack([k, v]) if stacked else None
     for step in range(size):
         # k_blk holds the shard of rank - step (mod size): the diagonal
         # block at step 0, wholly past keys while step <= rank, wholly
@@ -138,10 +165,16 @@ def _ring_forward(q, k, v, comm: Comm, causal: bool):
                 q, k_blk, v_blk, None, scale=scale,
                 causal=causal and step == 0)
             acc, m, l = merge_partials(acc, m, l, o_new, m_new, l_new)
-        if step + 1 < size:
+        if step + 1 < size and stacked:
+            kv, _ = sendrecv(kv, kv, dest=shift(1), comm=comm)
+            k_blk, v_blk = kv.unbind(0)
+        elif step + 1 < size:
             k_blk, _ = sendrecv(k_blk, k_blk, dest=shift(1), comm=comm)
             v_blk, _ = sendrecv(v_blk, v_blk, dest=shift(1), comm=comm)
-    return _normalize(acc, l, q.dtype), m, l
+    out = _normalize(acc, l, q.dtype)
+    if stacked:
+        out = _Tie.apply(out, kv)
+    return out, m, l
 
 
 class _RingAttention(torch.autograd.Function):

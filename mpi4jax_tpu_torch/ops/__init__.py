@@ -1,1 +1,35 @@
-"""Communication ops: sendrecv, gather, alltoall, tokens."""
+"""The 13 communication ops, ``Status``, ``flush`` and tokens.
+
+PyTorch counterpart of ``mpi4jax_tpu/ops/__init__.py`` (its ops; the
+throughput layer, fusion and the async variants are not ported).
+"""
+
+from ._base import (  # noqa: F401
+    BAND,
+    BOR,
+    BXOR,
+    LAND,
+    LOR,
+    LXOR,
+    MAX,
+    MIN,
+    PROD,
+    SUM,
+    Op,
+    OpLike,
+)
+from .allgather import allgather  # noqa: F401
+from .allreduce import allreduce  # noqa: F401
+from .alltoall import alltoall  # noqa: F401
+from .barrier import barrier  # noqa: F401
+from .bcast import bcast  # noqa: F401
+from .gather import gather  # noqa: F401
+from .recv import recv  # noqa: F401
+from .reduce import reduce  # noqa: F401
+from .reduce_scatter import reduce_scatter  # noqa: F401
+from .scan import scan  # noqa: F401
+from .scatter import scatter  # noqa: F401
+from .send import flush, send  # noqa: F401
+from .sendrecv import sendrecv  # noqa: F401
+from .status import Status  # noqa: F401
+from .token import Token, create_token  # noqa: F401

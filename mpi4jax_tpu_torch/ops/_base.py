@@ -1,15 +1,102 @@
-"""Shared validation for the ops: MPX-tagged errors, buffer checks, roots.
+"""Shared pieces of the ops: the reductions, MPX-tagged errors, buffer checks.
 
-PyTorch counterpart of the subset of ``mpi4jax_tpu/ops/_base.py`` and
-``mpi4jax_tpu/analysis/report.py`` that ``sendrecv`` and ``gather`` need.
-The codes keep the JAX package's meaning, so a message greps the same.
+PyTorch counterpart of ``mpi4jax_tpu/ops/_base.py`` (``Op``, the local
+combine of each reduction, ``combine_fn``) and of the
+part of ``mpi4jax_tpu/analysis/report.py`` that the ops raise.  The codes
+keep the JAX package's meaning, so a message greps the same:
+
+- MPX101, unmatched send: a send still queued at ``flush()``;
+- MPX102, recv without matching send: a recv found no queued send on its
+  (comm, tag);
+- MPX103, bare-int routing;
+- MPX105, root out of range;
+- MPX106, send/recv type-signature mismatch.
+
+``fold`` combines the blocks of every rank in ascending group-rank order
+with the association of the JAX package's doubling butterfly
+(``apply_butterfly_allreduce``: after the round of offset ``w``, position
+``p`` holds the fold of positions ``[p, p + 2w)``), so that a callable that
+is associative but not commutative gives the same bits on every rank, and
+the JAX package's bits.
 """
 
 from __future__ import annotations
 
-# the codes this package raises: bare-int routing, root out of range,
-# send/recv type-signature mismatch
-CODES = frozenset({"MPX103", "MPX105", "MPX106"})
+import enum
+from typing import Callable, Union
+
+import torch
+
+CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106"})
+
+
+class Op(enum.Enum):
+    """Reduction operations, the members of the JAX package's ``Op``.  A
+    Python callable ``f(a, b)`` is accepted wherever an ``Op`` is; it must
+    be associative (MPI's contract), not commutative."""
+
+    SUM = "sum"
+    PROD = "prod"
+    MIN = "min"
+    MAX = "max"
+    LAND = "land"
+    LOR = "lor"
+    LXOR = "lxor"
+    BAND = "band"
+    BOR = "bor"
+    BXOR = "bxor"
+
+
+SUM = Op.SUM
+PROD = Op.PROD
+MIN = Op.MIN
+MAX = Op.MAX
+LAND = Op.LAND
+LOR = Op.LOR
+LXOR = Op.LXOR
+BAND = Op.BAND
+BOR = Op.BOR
+BXOR = Op.BXOR
+
+OpLike = Union[Op, Callable]
+
+# the local combine of each reduction: the logical ones give bool, the
+# bitwise ones keep the input dtype (jnp.logical_* / jnp.bitwise_*)
+_LOCAL_COMBINE = {
+    Op.SUM: torch.add,
+    Op.PROD: torch.mul,
+    Op.MIN: torch.minimum,
+    Op.MAX: torch.maximum,
+    Op.LAND: torch.logical_and,
+    Op.LOR: torch.logical_or,
+    Op.LXOR: torch.logical_xor,
+    Op.BAND: torch.bitwise_and,
+    Op.BOR: torch.bitwise_or,
+    Op.BXOR: torch.bitwise_xor,
+}
+
+
+def combine_fn(op: OpLike) -> Callable:
+    """The binary function that combines two ranks' values under ``op``."""
+    if isinstance(op, Op):
+        return _LOCAL_COMBINE[op]
+    if callable(op):
+        return op
+    raise TypeError(
+        f"op must be an mpi4jax_tpu_torch.Op or a binary callable, got {op!r}"
+    )
+
+
+def fold(blocks, fn: Callable):
+    """Combine ``blocks`` (a sequence in ascending group-rank order) with
+    ``fn`` in the doubling butterfly's association; see the module
+    docstring."""
+    acc = list(blocks)
+    k, w = len(acc), 1
+    while w < k:
+        acc = [fn(acc[p], acc[p + w]) if p + w < k else acc[p] for p in range(k)]
+        w *= 2
+    return acc[0]
 
 
 def mpx_error(exc_type, code: str, message: str):
@@ -41,9 +128,18 @@ def check_send_recv(sendbuf, recvbuf, what: str) -> None:
 
 
 def check_root(root: int, size: int, what: str) -> None:
-    """A static root must name a rank of the communicator (MPX105)."""
+    """A static root must name a rank of the communicator (MPX105); on a
+    color split, ``size`` is the smallest group's."""
+    if isinstance(root, bool) or not isinstance(root, int):
+        raise TypeError(f"{what}: root must be an int, got {type(root).__name__}")
     if not 0 <= root < size:
         raise mpx_error(
             ValueError, "MPX105",
             f"{what} root {root} out of range for size {size}",
         )
+
+
+def check_comm(comm, what: str):
+    if comm is None:
+        raise ValueError(f"{what}: pass comm= (no default communicator yet)")
+    return comm

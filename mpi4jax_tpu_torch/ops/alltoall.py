@@ -13,8 +13,10 @@ two differ.
 
 The exchange runs inside a ``torch.autograd.Function`` whose backward is
 the same ``alltoall`` of the cotangent: the op is its own transpose, as
-``lax.all_to_all`` is to the JAX package.  The tensors handed to
-``torch.distributed`` are detached and contiguous.
+``lax.all_to_all`` is to the JAX package; its forward mode is the
+``alltoall`` of the tangent.  The tensors handed to ``torch.distributed``
+are detached and contiguous.  On a color split the comm is this rank's
+group, whose size only uniform splits have (``GroupComm.Get_size``).
 """
 
 from __future__ import annotations
@@ -25,14 +27,15 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
+from ._base import check_comm
 from ._staging import Exchange
 from .token import Token, produce
 
 
 def _exchange(x: torch.Tensor, comm: Comm) -> torch.Tensor:
-    """One multi-rank alltoall of ``x`` (leading axis = comm size)."""
-    size = comm.Get_size()
+    """One multi-rank alltoall of ``x`` (leading axis = the group size)."""
     members = comm.members()
+    size = len(members)
     # by_group[j]: the comm rank of group rank j (ascending global rank)
     by_group = sorted(range(size), key=members.__getitem__)
     permuted = by_group != list(range(size))
@@ -55,20 +58,26 @@ class _AllToAll(torch.autograd.Function):
     r's slice i went to rank i's slot r, and back)."""
 
     @staticmethod
-    def forward(ctx, x, comm):
-        ctx.comm = comm
+    def forward(x, comm):
         return _exchange(x, comm)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.comm = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
-        return _exchange(g, ctx.comm), None
+        return _AllToAll.apply(g, ctx.comm), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return _exchange(t, ctx.comm)
 
 
 def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
     """Exchange slices: rank ``r`` sends ``x[i]`` to rank ``i`` and receives
     into ``out[i]`` from rank ``i``.  Returns ``(result, token)``."""
-    if comm is None:
-        raise ValueError("alltoall: pass comm= (no default communicator yet)")
+    comm = check_comm(comm, "alltoall")
     size = comm.Get_size()
     if x.ndim == 0 or x.shape[0] != size:
         raise ValueError(

@@ -10,7 +10,8 @@ needs an initialised world of exactly that size (``init_distributed``, or
 ``parallel/launch.py:run``, which starts the ranks and initialises it), and
 building it creates the process group of every row, column and other
 sub-grid, on every rank and in the same order (``dist.new_group`` is
-collective), so that ``Comm.sub`` never creates a group lazily.
+collective), so that ``Comm.sub`` never creates a group lazily; a color
+split (``Comm.Split``) creates its groups the same way (``ensure_groups``).
 
 Devices: with ``backend="gloo"`` every rank may compute on the one card
 (``cuda:0``; exchanges are staged through host memory) or on the CPU
@@ -137,7 +138,8 @@ def group_of(members: FrozenSet[int]):
     except KeyError:
         raise RuntimeError(
             f"no process group over ranks {sorted(members)}: groups are made "
-            "on every rank when make_world_mesh builds the grid"
+            "on every rank when make_world_mesh builds the grid or "
+            "Comm.Split splits a comm"
         ) from None
 
 
@@ -162,16 +164,24 @@ def _grid_ranks(shape, keep: Tuple[int, ...]):
     return out
 
 
+def ensure_groups(member_sets) -> None:
+    """Create the process group of every set of global ranks in
+    ``member_sets`` with more than one rank and fewer than all that has
+    none yet, in ascending order of the sorted sets.  Collective: every
+    rank calls it with the same sets (``dist.new_group`` is collective)."""
+    world = dist.get_world_size()
+    todo = {frozenset(s) for s in member_sets}
+    for members in sorted(todo, key=sorted):
+        if 1 < len(members) < world and members not in _World.groups:
+            _World.groups[members] = dist.new_group(sorted(members))
+
+
 def _make_groups(shape: Tuple[int, ...]) -> None:
     """Create the process group of every sub-grid of ``shape`` with more
-    than one rank and fewer than all, in one fixed order on every rank
-    (a member set made for an earlier grid is not made again)."""
-    world = prod(shape)
-    for k in range(1, len(shape)):
-        for keep in itertools.combinations(range(len(shape)), k):
-            for members in _grid_ranks(shape, keep):
-                if 1 < len(members) < world and members not in _World.groups:
-                    _World.groups[members] = dist.new_group(sorted(members))
+    than one rank and fewer than all (``ensure_groups``)."""
+    ensure_groups(members for k in range(1, len(shape))
+                  for keep in itertools.combinations(range(len(shape)), k)
+                  for members in _grid_ranks(shape, keep))
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package.
 
 An AST scan of every module of ``mpi4jax_tpu_torch/``, of
-``chip_smoke.py`` and of ``tests/torch_ranks.py``: no import of ``jax`` (or ``jaxlib``), none of
+``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
+``tests/torch_ranks_ops.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -15,7 +16,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "mpi4jax_tpu_torch"
 FILES = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
 # the smoke script, and the rank programs every test rank imports afresh
-FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py"]
+FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
+          REPO / "tests" / "torch_ranks_ops.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -59,5 +61,5 @@ def test_port_is_packaged():
     from setuptools import find_packages
 
     pkgs = find_packages(str(REPO), include=["mpi4jax_tpu*"])
-    for sub in ("", ".parallel", ".ops", ".models", ".kernels"):
+    for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental"):
         assert "mpi4jax_tpu_torch" + sub in pkgs

@@ -172,6 +172,8 @@ def jax_allreduce(size):
                 return mpx.allreduce(x, op=op, comm=comm)[0]
 
             out[f"allreduce/{name}/{op}"] = np.asarray(f(x))
+    out["allreduce/world/LAND"] = np.asarray(mpx.allreduce(x, mpx.LAND, comm=world)[0])
+    out["allreduce/world/add"] = np.asarray(mpx.allreduce(x, jnp.add, comm=world)[0])
     return out
 
 
@@ -315,10 +317,18 @@ def test_allreduce_counts_and_keeps_its_input(results, size):
 
 @pytest.mark.parametrize("size", GRAD_SIZES)
 def test_allreduce_refuses_what_is_not_ported(results, size):
-    for r in port_run(results, size):
-        for err in r["allreduce/errors"]:
-            assert err.startswith("NotImplementedError")
-            assert "ROADMAP Queue 1 item 1" in err
+    """What an older slice refused now works, as in the JAX package: LAND
+    of f32 data (the JAX package's dtype, f32 0/1), a callable reduction
+    (``torch.add`` against ``jnp.add``), bit for bit; and the gradient of
+    ``sum(allreduce(x)**2)``, whose SUM backward is the per-rank identity
+    (tests/test_allreduce.py:131): ``2 * sum_r x_r`` on every rank."""
+    want = jax_results(results, size)
+    land, added, grad = (per_rank(results, size, "allreduce/once_refused")[:, i]
+                         for i in range(3))
+    np.testing.assert_array_equal(land, want["allreduce/world/LAND"])
+    assert land.dtype == want["allreduce/world/LAND"].dtype == np.float32
+    np.testing.assert_array_equal(added, want["allreduce/world/add"])
+    np.testing.assert_array_equal(grad, 2 * exact_allreduce(size, "world", "SUM"))
 
 
 # ---------------------------------------------------------------------------

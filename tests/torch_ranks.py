@@ -296,8 +296,10 @@ def attention_program(rank: int, size: int):
         g.grad = None
         fn(g, g, g, comm=world, causal=True).square().sum().backward()
         out[f"{scheme}/grad"] = g.grad
-    out["ring/plain_ad_error"] = _error(lambda: ring_attention(
-        g, g, g, comm=world, memory_efficient_grad=False))
+    g.grad = None
+    ring_attention(g, g, g, comm=world, causal=True,
+                   memory_efficient_grad=False).square().sum().backward()
+    out["ring/plain_grad"] = g.grad
     return out
 
 
@@ -356,9 +358,10 @@ def _grad_runs(rank, size, out):
 
 
 def _allreduce_runs(rank, size, out):
-    """Every ported reduction on the world and, on 4 ranks, on the row,
-    column and column-major comms of a (2,2) grid; what the world's
-    staged, and the refusals."""
+    """Every reduction of ``REDUCTIONS`` on the world and, on 4 ranks, on
+    the row, column and column-major comms of a (2,2) grid; what the
+    world's staged; and what older slices refused: a logical reduction, a
+    callable and a gradient."""
     x = torch.from_numpy(allreduce_inputs(size)[rank])
     before = x.clone()
     comms = {"world": Comm("x", mesh=make_world_mesh((size,), ("x",),
@@ -377,10 +380,12 @@ def _allreduce_runs(rank, size, out):
                 [_staging.stats.calls, _staging.stats.staged_bytes])
     out["allreduce/input_kept"] = torch.equal(x, before)
     world = comms["world"]
-    out["allreduce/errors"] = [
-        _error(lambda: allreduce(x, Op.LAND, comm=world)),
-        _error(lambda: allreduce(x, torch.add, comm=world)),
-        _error(lambda: allreduce(x.clone().requires_grad_(True), comm=world)),
+    xg = x.clone().requires_grad_(True)
+    (allreduce(xg, comm=world)[0] ** 2).sum().backward()
+    out["allreduce/once_refused"] = [
+        allreduce(x, Op.LAND, comm=world)[0],
+        allreduce(x, torch.add, comm=world)[0],
+        xg.grad,
     ]
 
 
