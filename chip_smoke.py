@@ -83,6 +83,22 @@ read just after:
    gave it (the stencils bit for bit, the flash partials and their
    backward in the ring's bands).  Four processes share one card, so no
    number of this phase is a scaling result.
+9. data-parallel training and the throughput layer on four gloo ranks on
+   this card: the DP example (``models.data_parallel_training.main``, 200
+   steps at its own width) under fusion ``auto`` with the codecs off,
+   bf16 and fp8 and under fusion ``off`` exact, each in lock-step on every
+   rank, 1 exchange a step fused against 5, each codec's loss curve within
+   ``PARITY_TOL`` of the exact run's after 10 steps, and 5 steps against
+   single-device SGD on the concatenated batch; phase 6's (2,2) training
+   under fusion ``off``, ``auto`` and ``force`` (6, 6 and 1 gradient
+   collectives a step, the flash kernels' launches as phase 6's, the first
+   gradients against ``off``'s in the f32 SUM band); the fusion demo's
+   three forms (``models.fusion_overlap_demo.main``) and the gradient
+   set's allreduces beside one f32 causal flash forward, start, compute,
+   wait against allreduce then compute; and the fp8 and bf16 codec on
+   CUDA tensors of the first gradients against the CPU, bit for bit.
+   Four processes share one card: no number of this phase is a scaling
+   result, and no codec shrinks the bytes an exchange moves here.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -1521,6 +1537,17 @@ def single_gpu_training(LCT, TA, dev):
             "launches_per_step": res["launches"][0], "grad_band_share": worst}
 
 
+def ring_training_launches(s):
+    """Each flash kernel's launches a step on sp rank ``s`` of the (2,2)
+    training: the earlier block forward 2s times (forward and the
+    memory-efficient backward's recompute), the causal one twice, the
+    backward kernels s + 1 times each."""
+    return {"flash_fwd_tf32": 2 * s, "flash_fwd_causal_tf32": 2,
+            "flash_bwd_dq_tf32": s + 1, "flash_bwd_dkv_tf32": s + 1,
+            "flash_fwd_mma": 0, "flash_fwd_causal_mma": 0, "flash_bwd_dq_mma": 0,
+            "flash_bwd_dkv_mma": 0}
+
+
 def four_rank_training(LCT, launch, single, device):
     """The training example on four gloo ranks on this card, a (2,2) grid
     of (dp, sp): 2 rows x 2048 tokens a rank, the single-GPU problem cut
@@ -1536,12 +1563,7 @@ def four_rank_training(LCT, launch, single, device):
     for r, res in enumerate(ranks):
         if res["digests"] != r0["digests"] or res["losses"] != r0["losses"]:
             raise AssertionError(f"rank {r}'s parameters or losses differ from rank 0's")
-        s = r % 2  # the rank's sp index
-        want = {"flash_fwd_tf32": 2 * s, "flash_fwd_causal_tf32": 2,
-                "flash_bwd_dq_tf32": s + 1,
-                "flash_bwd_dkv_tf32": s + 1, "flash_fwd_mma": 0,
-                "flash_fwd_causal_mma": 0, "flash_bwd_dq_mma": 0,
-                "flash_bwd_dkv_mma": 0}
+        want = ring_training_launches(r % 2)
         for i, got in enumerate(res["launches"]):
             if got != want:
                 raise AssertionError(f"rank {r} step {i} launched {got}, expected {want}")
@@ -1995,6 +2017,284 @@ def four_rank_surface(launch, device, me_runs):
         "op_staged_bytes_rank0": ranks[0]["staged"], "dryrun_checks": dry["checks"]}
 
 
+# -- phase 9: data-parallel training and the throughput layer ---------------
+
+# the DP example's runs: (codec, fusion); the first is the exact run the
+# others' loss curves are held against
+DP_RUNS = (("off", "auto"), ("bf16", "auto"), ("fp8", "auto"), ("off", "off"))
+DP_STEPS, DP_WARMUP = 200, 10
+# loss-curve parity per codec: the largest |loss - exact loss| / exact loss
+# after the warm-up (benchmarks/compress_replay.py:89)
+PARITY_TOL = {"bf16": 2e-2, "fp8": 1e-1}
+# 5 DP steps against single-device SGD (tests/test_data_parallel.py:82-84)
+SGD_RTOL, SGD_ATOL = 5e-5, 1e-6
+# fused against unfused f32 SUMs (the band of tests/test_allreduce.py:62,
+# with a floor of 1e-6 of the tensor's largest value for cancellations)
+SUM_RTOL, SUM_FLOOR = 1e-5, 1e-6
+FUSION_MODES = ("off", "auto", "force")
+# gradient collectives a step of the (2,2) training at full width: the
+# loss (4 B), w1 and w2 (8 MiB), wo (4 MiB), wout (4 KiB), wqkv (12 MiB)
+# under the 4 MiB bucket cap (ops/_fusion.py:bucket_plan)
+FUSION_PLANS = {"off": 6, "auto": 6, "force": 1}
+
+
+def sum_band(got, ref):
+    """The largest ``|got - ref|`` over its bound, ``SUM_RTOL |ref|`` plus
+    ``SUM_FLOOR max|ref|``: 1 is the edge of the band."""
+    lim = SUM_RTOL * ref.abs() + SUM_FLOOR * ref.abs().max()
+    return ((got - ref).abs() / lim).max().item()
+
+
+def overlap_timing(comm, payload, q, reps=5):
+    """Rank's walls (median of ``reps`` after one) of the gradient set's
+    allreduces then one f32 causal flash forward, against the starts, the
+    same forward, then the waits; each form's results and the largest
+    band share of the second's against the first's."""
+    from mpi4jax_tpu_torch import (SUM, allreduce, allreduce_start, allreduce_wait,
+                                   spmd)
+    from mpi4jax_tpu_torch.attention import flash_attention
+    from mpi4jax_tpu_torch.ops import _staging
+
+    dev = q.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else lambda d: None
+
+    @spmd(comm=comm)
+    def plain():
+        red = [allreduce(g, op=SUM)[0] for g in payload]
+        return red, flash_attention(q, q, q, causal=True)
+
+    @spmd(comm=comm)
+    def started():
+        handles = [allreduce_start(g, op=SUM)[0] for g in payload]
+        o = flash_attention(q, q, q, causal=True)  # overlaps the exchanges
+        return [allreduce_wait(h)[0] for h in handles], o
+
+    @spmd(comm=comm)
+    def compute():
+        return flash_attention(q, q, q, causal=True)
+
+    walls = {"allreduce_then_compute": [], "start_compute_wait": [], "compute": []}
+    exch = {"allreduce_then_compute": [], "start_compute_wait": []}
+    outs = {}
+    for _ in range(reps + 1):
+        for name, fn in (("allreduce_then_compute", plain),
+                         ("start_compute_wait", started), ("compute", compute)):
+            sync(dev)
+            _staging.stats.reset()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            sync(dev)
+            walls[name].append(time.perf_counter() - t0)
+            if name in exch:
+                exch[name].append(_staging.stats.seconds)
+    share = max(sum_band(a, b) for a, b in zip(outs["start_compute_wait"][0],
+                                                outs["allreduce_then_compute"][0]))
+    if share > 1 or not torch.equal(outs["start_compute_wait"][1],
+                                    outs["allreduce_then_compute"][1]):
+        raise AssertionError(f"start/wait off the plain allreduce: {share:.3f} of "
+                             "the band")
+    return ({k: float(np.median(v[1:])) for k, v in walls.items()},
+            {k: float(np.median(v[1:])) for k, v in exch.items()}, share)
+
+
+def codec_on_card(grads):
+    """``encode_fp8``, ``decode_fp8`` and both roundtrips of each gradient
+    on the card against the same calls on the CPU, bit for bit; returns
+    how many elements were held."""
+    from mpi4jax_tpu_torch.ops import _compress as Z
+
+    held = 0
+    for name, g in grads.items():
+        cpu = g.detach().cpu()
+        (q, s), (qc, sc) = Z.encode_fp8(g), Z.encode_fp8(cpu)
+        same = (torch.equal(q.cpu().view(torch.uint8), qc.view(torch.uint8))
+                and torch.equal(s.cpu().view(torch.int32), sc.view(torch.int32))
+                and torch.equal(Z.decode_fp8(q, s, g.shape, g.numel()).cpu()
+                                .view(torch.int32),
+                                Z.decode_fp8(qc, sc, cpu.shape, cpu.numel())
+                                .view(torch.int32)))
+        for codec in ("bf16", "fp8"):
+            same = same and torch.equal(Z.roundtrip(g, codec).cpu().view(torch.int32),
+                                        Z.roundtrip(cpu, codec).view(torch.int32))
+        if not same:
+            raise AssertionError(f"codec of {name}: CUDA differs from the CPU")
+        held += g.numel()
+    return held
+
+
+def throughput_rank(rank, device, lct_kwargs):
+    """One of four ranks of phase 9 on ``device``: the DP example under
+    each (codec, fusion) of ``DP_RUNS`` and 5 steps against single-device
+    SGD; the (2, 2) training under each fusion mode; the fusion demo and
+    the overlap timing; the codec on the card against the CPU."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+    from mpi4jax_tpu_torch.models import data_parallel_training as DP
+    from mpi4jax_tpu_torch.models import fusion_overlap_demo as FD
+    from mpi4jax_tpu_torch.models import long_context_training as LCT
+    from mpi4jax_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device(device)
+    out = {"dp": {}, "lct": {}}
+    for codec, fusion in DP_RUNS:
+        os.environ["MPI4JAX_TPU_COMPRESS"] = codec
+        res = DP.main(steps=DP_STEPS, seed=0, device=device, fusion=fusion)
+        out["dp"][f"{codec}/{fusion}"] = {k: res[k] for k in ("losses", "wall",
+                                                               "exchange")}
+    del os.environ["MPI4JAX_TPU_COMPRESS"]
+    res = DP.main(steps=5, seed=0, device=device)
+    x, y = (torch.from_numpy(a).to(dev) for a in DP.train_data(0, 4))
+    ref = DP.sgd_steps(res["params0"], x.reshape(-1, 16), y.reshape(-1, 1), 5, DP.LR)
+    errs = [((p - r).abs() / (SGD_ATOL + SGD_RTOL * r.abs())).max().item()
+            for p, r in zip(tree_leaves(res["params"]), tree_leaves(ref))]
+    out["dp_vs_sgd"] = max(errs)
+    # off, auto, force, force, auto, off: each mode's walls on both sides
+    # of the others' (host-staged walls drift within a process)
+    grads0 = {}
+    for mode in FUSION_MODES + FUSION_MODES[::-1]:
+        run = LCT.main(device, fusion=mode, **lct_kwargs)
+        grads0.setdefault(mode, run.pop("grads0"))
+        out["lct"].setdefault(mode, []).append(run)
+    out["lct_band"] = {mode: max(sum_band(grads0[mode][n], g)
+                                 for n, g in grads0["off"].items())
+                       for mode in ("auto", "force")}
+    out["codec_elements"] = codec_on_card(grads0["off"])
+    out["demo"] = FD.main(device)
+    comm = Comm("x", mesh=make_world_mesh((4,), ("x",), device=dev))
+    gen = torch.Generator().manual_seed(rank)
+    shapes = LCT.param_shapes(lct_kwargs["d_model"], lct_kwargs["d_ff"])
+    payload = [torch.randn(shapes[n], generator=gen).to(dev) for n in sorted(shapes)]
+    q = torch.randn((lct_kwargs["b_loc"], lct_kwargs["t_loc"], lct_kwargs["heads"],
+                     lct_kwargs["d_model"] // lct_kwargs["heads"]),
+                    generator=gen).to(dev)
+    out["overlap"] = overlap_timing(comm, payload, q)
+    return out
+
+
+def four_rank_throughput(launch, device, lct_kwargs):
+    """Phase 9 on four gloo ranks on this card (``throughput_rank``) with
+    the (2,2) training at ``lct_kwargs``, its checks and its numbers;
+    returns the summary for the kernels line."""
+    from mpi4jax_tpu_torch.models import long_context_training as LCT
+    from mpi4jax_tpu_torch.ops._fusion import bucket_plan
+
+    t0 = time.perf_counter()
+    ranks = launch.run(throughput_rank, 4, backend="gloo", device=device, timeout=900,
+                       args=(device, lct_kwargs))
+    print(f"four ranks, data-parallel training and the throughput layer: "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    r0 = ranks[0]
+    summary = {"dp": {}, "lct": {}}
+    exact = r0["dp"]["off/auto"]["losses"]
+    for key, run in r0["dp"].items():
+        codec, fusion = key.split("/")
+        calls = {e["calls"] for r in ranks for e in r["dp"][key]["exchange"]}
+        if calls != {1 if fusion == "auto" else 5}:
+            raise AssertionError(f"DP {key}: exchanges a step {calls}")
+        gap = max(abs(a - b) / max(b, 1e-12)
+                  for a, b in zip(run["losses"][DP_WARMUP:], exact[DP_WARMUP:]))
+        if codec in PARITY_TOL and gap > PARITY_TOL[codec]:
+            raise AssertionError(f"DP {key}: loss curve {gap:.3e} from the exact "
+                                 f"run's, limit {PARITY_TOL[codec]}")
+        if not run["losses"][-1] < run["losses"][0]:
+            raise AssertionError(f"DP {key}: the loss did not fall")
+        walls, ex = run["wall"][1:], run["exchange"][1:]
+        summary["dp"][key] = {
+            "wall_ms_per_step": float(np.median(walls)) * 1e3,
+            "exchange_ms_per_step": float(np.median([e["seconds"] for e in ex])) * 1e3,
+            "staged_bytes_per_step": ex[0]["staged_bytes"],
+            "exchanges_per_step": ex[0]["calls"], "loss_gap": gap,
+            "loss_first_last": (run["losses"][0], run["losses"][-1])}
+    worst_sgd = max(r["dp_vs_sgd"] for r in ranks)
+    if worst_sgd > 1:
+        raise AssertionError(f"5 DP steps off single-device SGD: {worst_sgd:.3f} of "
+                             "the band")
+    print(f"  DP example (16 -> 64 -> 1, 64 rows a rank, {DP_STEPS} steps), rank 0 "
+          "medians after the first step: " + "; ".join(
+              f"{k}: {v['wall_ms_per_step']:.3f} ms a step, "
+              f"{v['exchange_ms_per_step']:.3f} ms in {v['exchanges_per_step']} "
+              f"exchange(s), {v['staged_bytes_per_step']} B staged, loss "
+              f"{v['loss_first_last'][0]:.5f} -> {v['loss_first_last'][1]:.5f}, gap "
+              f"to exact {v['loss_gap']:.3e}" for k, v in summary["dp"].items())
+          + f"; 5 steps against single-device SGD at {worst_sgd:.3f} of the band")
+    shapes = LCT.param_shapes(lct_kwargs["d_model"], lct_kwargs["d_ff"])
+    entries = [("float32", 4)] + [("float32", 4 * int(np.prod(shapes[n])))
+                                  for n in sorted(shapes)]
+    plans = {"off": 6, "auto": len(bucket_plan(entries, 4 << 20)),
+             "force": len(bucket_plan(entries, 4 << 20, force=True))}
+    if plans != FUSION_PLANS:
+        raise AssertionError(f"bucket plans {plans}, expected {FUSION_PLANS}")
+    ring = 8  # the ring's rotations a step over sp (2 ranks): 4 (n - 1) + 2 n
+    for mode in FUSION_MODES:
+        for r, res in enumerate(ranks):
+            for k, run in enumerate(res["lct"][mode]):
+                want = ring_training_launches(r % 2)
+                for i, got in enumerate(run["launches"]):
+                    if got != want:
+                        raise AssertionError(f"{mode} rank {r} step {i} launched {got}")
+                calls = {e["calls"] for e in run["exchange"]}
+                if calls != {ring + plans[mode]}:
+                    raise AssertionError(f"{mode} rank {r}: exchanges a step {calls}, "
+                                         f"expected {ring} + {plans[mode]}")
+                if run["digests"] != ranks[0]["lct"][mode][k]["digests"]:
+                    raise AssertionError(f"{mode} rank {r}: parameters differ from "
+                                         "rank 0's")
+        runs = r0["lct"][mode]
+        summary["lct"][mode] = {
+            "collectives_per_step": plans[mode],
+            # each run's median of its steps after the first, in run order
+            "wall_ms_median": [float(np.median(run["wall"][1:])) * 1e3 for run in runs],
+            "exchange_ms_median": [float(np.median([e["seconds"] for e in
+                                                    run["exchange"][1:]])) * 1e3
+                                   for run in runs],
+            "staged_bytes_per_step": runs[0]["exchange"][0]["staged_bytes"],
+            "losses": runs[0]["losses"],
+            "launches_per_step": [res["lct"][mode][0]["launches"][0] for res in ranks]}
+    band = {m: max(r["lct_band"][m] for r in ranks) for m in ("auto", "force")}
+    if max(band.values()) > 1:
+        raise AssertionError(f"fused first gradients off the unfused: {band}")
+    print(f"  (2,2) training at d_model {lct_kwargs['d_model']}, d_ff "
+          f"{lct_kwargs['d_ff']}, {lct_kwargs['b_loc']} x {lct_kwargs['t_loc']} tokens "
+          f"a rank, {lct_kwargs['steps']} steps a run, runs off, auto, force, force, "
+          "auto, off; rank 0 medians after the first step, each mode's two runs: "
+          + "; ".join(
+              f"fusion {m}: {v['collectives_per_step']} gradient collective(s) a "
+              f"step, " + " and ".join(f"{w:.2f}" for w in v["wall_ms_median"])
+              + " ms a step, " + " and ".join(f"{e:.2f}" for e in
+                                                v["exchange_ms_median"])
+              + f" ms in exchanges, {v['staged_bytes_per_step'] / 1e6:.1f} MB staged"
+              for m, v in summary["lct"].items())
+          + "; first gradients against fusion off at "
+          + ", ".join(f"{m} {b:.3f}" for m, b in band.items()) + " of the f32 SUM band")
+    for r, res in enumerate(ranks):
+        demo = res["demo"]
+        if (demo["fused/auto/calls"], demo["fused/off/calls"]) != (1, 16):
+            raise AssertionError(f"demo rank {r}: {demo['fused/auto/calls']} packed "
+                                 f"collectives for 16 ({demo['fused/off/calls']})")
+    walls, exch, share = r0["overlap"]
+    print(f"  fusion demo on four ranks: 16 allreduces in 1 packed collective, "
+          f"start/wait and overlap() equal to the plain allreduce; overlap, rank 0, "
+          f"the gradient set ({sum(4 * int(np.prod(s)) for s in shapes.values()) / 1e6:.1f} "
+          f"MB in 5 allreduces) and one f32 causal flash forward ({lct_kwargs['b_loc']}, "
+          f"{lct_kwargs['t_loc']}, {lct_kwargs['heads']}, "
+          f"{lct_kwargs['d_model'] // lct_kwargs['heads']}): allreduce then compute "
+          f"{walls['allreduce_then_compute'] * 1e3:.2f} ms "
+          f"({exch['allreduce_then_compute'] * 1e3:.2f} in exchanges), start, compute, "
+          f"wait {walls['start_compute_wait'] * 1e3:.2f} ms "
+          f"({exch['start_compute_wait'] * 1e3:.2f}), the compute alone "
+          f"{walls['compute'] * 1e3:.2f} ms; results at {share:.3f} of the band")
+    elements = min(r["codec_elements"] for r in ranks)
+    print(f"  fp8 and bf16 codec on the card against the CPU, bit for bit: "
+          f"{elements} elements of the first gradients a rank")
+    print("four processes share one card (gloo, exchanges staged through host memory; "
+          "not a scaling result); compression shrinks no bytes here (no multi-host "
+          "lowering yet)")
+    summary.update(dp_vs_sgd_band_share=worst_sgd, fused_grad_band_share=band,
+                   overlap_ms_rank0={k: v * 1e3 for k, v in walls.items()},
+                   overlap_exchange_ms_rank0={k: v * 1e3 for k, v in exch.items()},
+                   codec_elements_held=elements)
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2149,6 +2449,11 @@ def main():
     # -- the op surface, the op-by-op ring backward and the dry run -------
     plain_worst, plain_launches, dry_kernels, plain_runs, surface = four_rank_surface(
         launch, "cuda:0", ring_grad_runs)
+    torch.cuda.empty_cache()
+
+    # -- data-parallel training and the throughput layer ------------------
+    throughput = four_rank_throughput(
+        launch, "cuda:0", {**TRAIN, "b_loc": ATTN_B // 2, "t_loc": ATTN_T // 2})
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -2250,6 +2555,10 @@ def main():
             # phase 8: the dry run's causal ring, over its four ranks
             "dryrun_launches": dry_kernels[name]["launches"],
             "dryrun_max_abs_err": dry_kernels[name]["max_abs_err"],
+            # phase 9: the (2,2) training under each fusion mode
+            "four_rank_fusion_training_launches_per_step": {
+                mode: [ln[name] for ln in run["launches_per_step"]]
+                for mode, run in throughput["lct"].items()},
         })
     for name, replaces in (("flash_bwd_dq_tf32", ":328"), ("flash_bwd_dkv_tf32", ":366")):
         case = bwd_cases[name]["f32"]
@@ -2278,6 +2587,10 @@ def main():
             "four_rank_grad_launches": ring_grad_launches[name],
             "four_rank_training_launches_per_step": [
                 ln[name] for ln in train4["launches_per_step"]],
+            # phase 9: the same (2,2) training under each fusion mode
+            "four_rank_fusion_training_launches_per_step": {
+                mode: [ln[name] for ln in run["launches_per_step"]]
+                for mode, run in throughput["lct"].items()},
             "four_rank_op_by_op_launches": plain_launches[name],
             "four_rank_op_by_op_max_abs_err": plain_worst,
             # phase 8: the dry run's causal ring, over its four ranks
@@ -2288,7 +2601,8 @@ def main():
         "attention_grads_1gpu": grad_runs,
         "training_1gpu": {k: v for k, v in train1.items() if k != "grads0"},
         "training_4ranks": train4, "attention_grads_4ranks": ring_grad_runs,
-        "op_by_op_ring_grads_4ranks": plain_runs, "op_surface_4ranks": surface}
+        "op_by_op_ring_grads_4ranks": plain_runs, "op_surface_4ranks": surface,
+        "throughput_4ranks": throughput}
     for name, replaces in (("flash_bwd_dq_mma", ":328"), ("flash_bwd_dkv_mma", ":366")):
         case = bwd_cases[name]["bf16"]
         kernels.append({

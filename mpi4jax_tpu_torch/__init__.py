@@ -19,7 +19,12 @@ memory-efficient or op-by-op backward and Ulysses over the ranks,
 single-device flash attention) on the four flash-attention kernels, also
 in CUDA, with the dp x sp training example
 (``models/long_context_training.py``); and the ``dryrun_multichip`` twin
-(``entry.py``).  Nothing here imports JAX.
+(``entry.py``); the throughput layer of the data-parallel path: tensor
+fusion (``set_fusion_mode``), the async ``*_start``/``*_wait`` pairs and
+``overlap()``, regions (``spmd``, ``run``, ``get_default_comm``) and
+error-feedback compression (``compress``), with the data-parallel
+training and fusion demo examples (``models/``).  Nothing here imports
+JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -52,6 +57,20 @@ from .ops import (  # noqa: F401
     send,
     sendrecv,
 )
+from . import compress  # noqa: F401
+from .ops._async import (  # noqa: F401
+    allreduce_start,
+    allreduce_wait,
+    alltoall_start,
+    alltoall_wait,
+    overlap,
+    p2p_wait,
+    recv_start,
+    reduce_scatter_start,
+    reduce_scatter_wait,
+    send_start,
+)
+from .ops._fusion import set_fusion_mode  # noqa: F401
 from .parallel.comm import Comm, GroupComm  # noqa: F401
 from .parallel.mesh import (  # noqa: F401
     ProcessGrid,
@@ -60,6 +79,7 @@ from .parallel.mesh import (  # noqa: F401
     resolve_device,
 )
 from .parallel.rankspec import shift  # noqa: F401
+from .parallel.region import get_default_comm, run, spmd  # noqa: F401
 
 __all__ = [
     "BAND",
@@ -80,21 +100,36 @@ __all__ = [
     "Token",
     "allgather",
     "allreduce",
+    "allreduce_start",
+    "allreduce_wait",
     "alltoall",
+    "alltoall_start",
+    "alltoall_wait",
     "barrier",
     "bcast",
+    "compress",
     "create_token",
     "flush",
     "gather",
+    "get_default_comm",
     "init_distributed",
     "make_world_mesh",
+    "overlap",
+    "p2p_wait",
     "recv",
+    "recv_start",
     "reduce",
     "reduce_scatter",
+    "reduce_scatter_start",
+    "reduce_scatter_wait",
     "resolve_device",
+    "run",
     "scan",
     "scatter",
     "send",
+    "send_start",
     "sendrecv",
+    "set_fusion_mode",
     "shift",
+    "spmd",
 ]

@@ -4,7 +4,9 @@ The JAX package keeps the shallow-water state as stacked blocks
 ``(nproc, ny_l, nx_l)``; rank ``r`` of the port holds ``global[r]``.  The
 long-context training example's parameters are a dict of arrays
 (``examples/long_context_training.py:init_params``), replicated on every
-rank.  Every function takes plain numpy arrays and dicts, so nothing here
+rank; the data-parallel example's are a list of ``{"w", "b"}`` layers
+(``examples/data_parallel_training.py:init_mlp``).  Every function takes
+plain numpy arrays, dicts and lists, so nothing here
 imports JAX: ``np.asarray`` each JAX array and ``dataclasses.asdict`` the
 JAX config first.
 """
@@ -81,3 +83,26 @@ def params_from_jax(params: dict, device=None) -> dict:
                              f"{arrays[name].shape}, want {want}")
     return {k: torch.from_numpy(np.array(a, np.float32)).to(device)
             for k, a in arrays.items()}
+
+
+def mlp_params_from_jax(params, device=None) -> list:
+    """The data-parallel example's layers as f32 tensors on ``device``,
+    from ``init_mlp``'s list of ``{"w", "b"}`` dicts of arrays: each ``w``
+    (fan_in, fan_out) and ``b`` (fan_out,), each layer's fan_in the last
+    one's fan_out; other keys or shapes raise ``KeyError`` or
+    ``ValueError``.  ``models.data_parallel_training`` trains the result."""
+    device = resolve_device(device)
+    out, fan_in = [], None
+    for i, layer in enumerate(params):
+        if set(layer) != {"w", "b"}:
+            raise KeyError(f"mlp_params_from_jax: layer {i} has keys "
+                           f"{sorted(layer)}, expected ['b', 'w']")
+        w, b = np.asarray(layer["w"]), np.asarray(layer["b"])
+        if (w.ndim != 2 or b.shape != (w.shape[1],)
+                or fan_in not in (None, w.shape[0])):
+            raise ValueError(f"mlp_params_from_jax: layer {i} has w {w.shape} "
+                             f"and b {b.shape} after fan-out {fan_in}")
+        fan_in = w.shape[1]
+        out.append({k: torch.from_numpy(np.array(a, np.float32)).to(device)
+                    for k, a in (("w", w), ("b", b))})
+    return out

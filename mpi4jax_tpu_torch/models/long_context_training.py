@@ -11,7 +11,10 @@ The twin of ``examples/long_context_training.py``, on one 2-D process grid
   memory-efficient backward;
 - parameters are replicated; each rank's gradient is partial (it saw one
   tile), so one SUM-``allreduce`` over the world per parameter completes
-  it, and the SGD step runs on every rank alike.
+  it, and the SGD step runs on every rank alike.  The loss's and the
+  gradients' allreduces are issued in a region (``spmd``) before any is
+  used: under fusion (``main`` sets ``"auto"``, as the JAX example does)
+  they go out in packed buckets of ``MPI4JAX_TPU_FUSION_BUCKET_BYTES``.
 
 The model is a minimal pre-LN transformer block with a scalar readout
 trained to regress a target sequence: ``block_forward`` on a dict of
@@ -44,7 +47,9 @@ from .. import SUM, Comm, allreduce, make_world_mesh
 from ..attention import ring_attention
 from ..kernels import _build
 from ..ops import _staging
+from ..ops._fusion import set_fusion_mode
 from ..parallel.mesh import resolve_device
+from ..parallel.region import spmd
 
 # the parameters, in the sorted order the gradients are reduced in
 PARAM_NAMES = ("w1", "w2", "wo", "wout", "wqkv")
@@ -119,7 +124,16 @@ def make_grad_fn(world: Comm, sp: Comm, heads: int):
     parameter's gradient of it.  The rank's part comes from
     ``torch.autograd.grad`` through ring attention over ``sp``; the loss
     and then every parameter's gradient, in sorted name order, are
-    SUM-allreduced over ``world``."""
+    SUM-allreduced over ``world`` in one region, all issued before any is
+    used."""
+
+    @spmd(comm=world)
+    def reduce(local, parts):
+        loss, tok = allreduce(local, op=SUM, comm=world)
+        out = {}
+        for n, g in parts.items():
+            out[n], tok = allreduce(g, op=SUM, comm=world, token=tok)
+        return loss, out
 
     def grads(params, x, y):
         names = sorted(params)
@@ -134,11 +148,7 @@ def make_grad_fn(world: Comm, sp: Comm, heads: int):
             denom = world.Get_size() * y.numel()
             local = torch.sum((pred - y) ** 2) / denom
             parts = torch.autograd.grad(local, [leaves[n] for n in names])
-        loss, tok = allreduce(local.detach(), op=SUM, comm=world)
-        out = {}
-        for n, g in zip(names, parts):
-            out[n], tok = allreduce(g, op=SUM, comm=world, token=tok)
-        return loss, out
+        return reduce(local.detach(), dict(zip(names, parts)))
 
     return grads
 
@@ -205,10 +215,11 @@ def _sync(device: torch.device) -> None:
 
 def main(device=None, *, b_loc: int = 2, t_loc: int = 32, d_model: int = 32,
          d_ff: int = 64, heads: int = 4, steps: int = 5, lr: float = 0.1,
-         seed: int = 0):
-    """Train ``steps`` SGD steps on this rank's tile; rank 0 prints the
-    loss.  The parameters come from ``init_params`` on a CPU generator
-    seeded with ``seed`` (the same on every rank), the data from
+         seed: int = 0, fusion: str = "auto"):
+    """Train ``steps`` SGD steps on this rank's tile under ``fusion``
+    (``set_fusion_mode``, reset at the end); rank 0 prints the loss.  The
+    parameters come from ``init_params`` on a CPU generator seeded with
+    ``seed`` (the same on every rank), the data from
     ``train_data(seed + 1, ...)``.  Returns ``losses`` (the global loss
     before each step's update), per step ``wall`` (seconds, synchronised),
     ``launches`` (each flash kernel's), ``exchange`` (calls, staged bytes
@@ -230,28 +241,32 @@ def main(device=None, *, b_loc: int = 2, t_loc: int = 32, d_model: int = 32,
            "digests": []}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(steps):
-        for name in KERNELS:
-            _build.counter_for(name).launches = 0
-        _staging.stats.reset()
-        _sync(dev)
-        start = time.perf_counter()
-        loss, grads = grad_fn(params, x, y)
-        params = sgd(params, grads, lr)
-        _sync(dev)
-        out["wall"].append(time.perf_counter() - start)
-        out["launches"].append({name: _build.counter_for(name).launches
-                                for name in KERNELS})
-        out["exchange"].append({"calls": _staging.stats.calls,
-                                "staged_bytes": _staging.stats.staged_bytes,
-                                "seconds": _staging.stats.seconds})
-        out["losses"].append(loss.item())
-        if i == 0:
-            out["grads0"] = grads
-        out["digests"].append(digest(params))
-        if world.Get_rank() == 0:
-            print(f"step {i}: loss {out['losses'][-1]:.6f}, "
-                  f"{out['wall'][-1]:.4f} s")
+    set_fusion_mode(fusion)
+    try:
+        for i in range(steps):
+            for name in KERNELS:
+                _build.counter_for(name).launches = 0
+            _staging.stats.reset()
+            _sync(dev)
+            start = time.perf_counter()
+            loss, grads = grad_fn(params, x, y)
+            params = sgd(params, grads, lr)
+            _sync(dev)
+            out["wall"].append(time.perf_counter() - start)
+            out["launches"].append({name: _build.counter_for(name).launches
+                                    for name in KERNELS})
+            out["exchange"].append({"calls": _staging.stats.calls,
+                                    "staged_bytes": _staging.stats.staged_bytes,
+                                    "seconds": _staging.stats.seconds})
+            out["losses"].append(loss.item())
+            if i == 0:
+                out["grads0"] = grads
+            out["digests"].append(digest(params))
+            if world.Get_rank() == 0:
+                print(f"step {i}: loss {out['losses'][-1]:.6f}, "
+                      f"{out['wall'][-1]:.4f} s")
+    finally:
+        set_fusion_mode(None)
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                          if dev.type == "cuda" else 0)
     return out

@@ -1,7 +1,10 @@
 """The 13 communication ops, ``Status``, ``flush`` and tokens.
 
-PyTorch counterpart of ``mpi4jax_tpu/ops/__init__.py`` (its ops; the
-throughput layer, fusion and the async variants are not ported).
+PyTorch counterpart of ``mpi4jax_tpu/ops/__init__.py``.  The throughput
+layer beside the ops: fusion (``_fusion.py``), the async start/wait pairs
+and ``overlap()`` (``_async.py``), the codecs and error feedback
+(``_codec.py``, ``_compress.py``); its hierarchical lowerings and
+algorithm selectors are not ported.
 """
 
 from ._base import (  # noqa: F401

@@ -1,0 +1,512 @@
+"""Async collectives: ``*_start``/``*_wait`` pairs and ``overlap()``.
+
+PyTorch counterpart of ``mpi4jax_tpu/ops/_async.py``.  A start issues the
+exchange and returns a handle at once; compute issued before the wait
+runs while the exchange is on the wire; the wait finishes it and returns
+the result.  The JAX package splits a collective into ring phases that
+its scheduler interleaves with compute; here a start issues
+``torch.distributed`` work with ``async_op=True``:
+
+- ``allreduce_start`` flattens the payload, splits it into
+  ``MPI4JAX_TPU_OVERLAP_CHUNKS`` pieces (``overlap_chunk_split``) and
+  issues one ``dist.all_reduce`` a piece; ``allreduce_wait`` waits for
+  each and reassembles the input's shape;
+- ``alltoall_start`` and ``reduce_scatter_start`` split every block along
+  its payload and issue one ``dist.all_to_all_single`` a piece; the waits
+  reassemble, and ``reduce_scatter_wait`` folds the received rows in
+  ascending rank order as the synchronous op does;
+- ``send_start`` queues a buffered send as ``send`` does; ``recv_start``
+  takes the matching send and posts a ``dist.irecv``; ``p2p_wait``
+  returns the received tensor (a send's handle returns its payload).
+
+On gloo a CUDA tensor is staged through a pinned host buffer
+(``ops/_staging.py``), which the handle keeps alive until the wait copies
+it back to the device; other backends get the tensor, and the wait makes
+the current stream wait for the work (the NCCL route, which needs one GPU
+a rank, is written and has not run).  Outstanding works on one process
+group are matched by issue order, so handles may be waited in any order.
+
+Where the async route does not give the synchronous op's bits or its
+autograd (a size-1 comm, a reduction the port folds itself: callables,
+bool tensors, the logical and bitwise ones, PROD on a color split; a
+tensor that autograd follows, forward or backward), the start runs the
+whole synchronous op and the wait only returns its result, as the JAX
+package's start does where its ring does not apply.  An f32 SUM or PROD
+in pieces may add in another order than in one piece: fused, chunked and
+whole results agree within the band the port's SUM is held to (rtol
+1e-5); everything else bit for bit.
+
+A start needs a region (``parallel/region.py``); a handle waited twice
+raises MPX112, and so does a start its region never waited, at the
+region's end.  ``with overlap():`` splits every ``allreduce``,
+``reduce_scatter`` and ``alltoall`` inside it into a start and a wait
+deferred to the result's first use (``_LazyWait``), or to the scope's
+end.  The JAX package's instrumentation spans (watchdog, telemetry,
+native tracing) have no counterpart until those layers are ported.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import List, Optional
+
+import torch
+import torch.distributed as dist
+
+from ..parallel.comm import Comm
+from ..parallel.region import current_context
+from ..utils import config
+from . import _fusion
+from ._base import SUM, Op, check_comm, combine_fn, fold, mpx_error
+from ._staging import Exchange
+from .recv import match, recv
+from .send import queue, send
+from .token import Token, produce
+
+_span_counter = itertools.count()
+
+
+def overlap_chunk_split(n: int, chunks: int) -> List[int]:
+    """Chunk element counts for an ``n``-element payload: at most
+    ``chunks`` pieces of ``ceil(n / chunks)`` but the last, none empty,
+    summing to ``n``."""
+    if n <= 0:
+        return [n]
+    c = max(1, min(int(chunks), n))
+    stride = -(-n // c)
+    sizes, left = [], n
+    while left > 0:
+        take = min(stride, left)
+        sizes.append(take)
+        left -= take
+    return sizes
+
+
+class AsyncHandle:
+    """One started collective: ``mode`` is ``"async"`` (works in flight in
+    ``pieces``) or ``"full"`` (the result in ``pieces``, computed at the
+    start)."""
+
+    __slots__ = ("kind", "comm", "reduction", "shape", "dtype", "device",
+                 "sizes", "k", "mode", "pieces", "uid", "waited", "exchange",
+                 "order")
+
+    def __init__(self, kind, comm, reduction):
+        self.kind = kind
+        self.comm = comm
+        self.reduction = reduction
+        self.shape = self.dtype = self.device = None
+        self.sizes = self.k = self.mode = self.pieces = None
+        self.exchange = self.order = None
+        self.uid = next(_span_counter)
+        self.waited = False
+
+    def __repr__(self):
+        state = "waited" if self.waited else "in-flight"
+        return f"AsyncHandle({self.kind}#{self.uid}, mode={self.mode}, {state})"
+
+
+class P2PHandle(AsyncHandle):
+    """One async point-to-point half (``kind`` ``"send"`` or ``"recv"``),
+    closed by ``p2p_wait``."""
+
+    __slots__ = ("tag",)
+
+    def __init__(self, kind, comm, tag):
+        super().__init__(kind, comm, None)
+        self.tag = tag
+
+    def __repr__(self):
+        state = "waited" if self.waited else "in-flight"
+        return f"P2PHandle({self.kind}#{self.uid}, tag={self.tag}, {state})"
+
+
+def _start(opname: str, comm, make):
+    """The region's comm for ``comm`` and a new handle ``make(comm)``,
+    registered with the region, whose end checks that it was waited."""
+    ctx = current_context()
+    if ctx is None:
+        raise RuntimeError(
+            f"{opname}: the async start/wait collectives work inside a "
+            "region only (spmd / run), whose end waits for what is still "
+            "in flight")
+    comm = check_comm(comm, opname)
+    handle = make(comm)
+    ctx.handles.append(handle)
+    return comm, handle
+
+
+def _full(handle: AsyncHandle, result) -> None:
+    handle.mode = "full"
+    handle.pieces = (result,)
+
+
+def _grad(x: torch.Tensor) -> bool:
+    from .allreduce import wants_grad
+
+    return wants_grad(x)
+
+
+def _issue(handle: AsyncHandle, device, calls: int, issue) -> None:
+    """Run ``issue(exchange)``, which returns the works and buffers in
+    flight, timed as ``calls`` collectives; the handle keeps them."""
+    ex = Exchange(device)
+    ex.start()
+    handle.pieces = issue(ex)
+    ex.stop(calls)
+    handle.mode = "async"
+    handle.exchange = ex
+
+
+def _collect(handle: AsyncHandle) -> list:
+    """Wait for every piece and bring each received buffer back to the
+    handle's device, in issue order."""
+    ex = handle.exchange
+    ex.start(sync=False)
+    out = []
+    for work, recv, _send in handle.pieces:
+        work.wait()
+        out.append(ex.result(recv, non_blocking=True))
+    ex.stop(0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# allreduce
+# ---------------------------------------------------------------------------
+
+
+def allreduce_start(x, op=None, *, comm: Optional[Comm] = None,
+                    token: Optional[Token] = None):
+    """Begin an async allreduce; returns ``(handle, token)``.  Finish it
+    with ``allreduce_wait``."""
+    from .allreduce import _DIST_OPS, reduce_all
+
+    op = SUM if op is None else op
+    combine_fn(op)
+    comm, handle = _start("allreduce_start", comm,
+                          lambda c: AsyncHandle("allreduce", c, op))
+    x = _fusion.materialize_value(x)
+    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+    handle.k = len(comm.members())
+    if (handle.k == 1 or op not in _DIST_OPS or x.dtype == torch.bool
+            or _grad(x) or (comm.groups is not None and op is Op.PROD)):
+        _full(handle, reduce_all(x, op, comm))
+        return handle, produce(token)
+    flat = x.detach().reshape(-1)
+    handle.sizes = overlap_chunk_split(
+        flat.numel(), config.overlap_chunks(flat.numel() * x.element_size()))
+
+    def issue(ex):
+        pieces, off = [], 0
+        for n in handle.sizes:
+            seg = flat[off:off + n]
+            off += n
+            buf = ex.send(seg)
+            if buf.data_ptr() == seg.data_ptr():  # all_reduce writes in place
+                buf = buf.clone()
+            work = dist.all_reduce(buf, op=_DIST_OPS[op], group=comm.group(),
+                                   async_op=True)
+            pieces.append((work, buf, None))
+        return pieces
+
+    _issue(handle, x.device, len(handle.sizes), issue)
+    return handle, produce(token)
+
+
+def allreduce_wait(handle, *, token: Optional[Token] = None):
+    """Finish an async allreduce: returns ``(result, token)`` with the
+    input's shape."""
+    _check_handle("allreduce_wait", handle, "allreduce")
+    if handle.mode == "full":
+        res = handle.pieces[0]
+    else:
+        parts = _collect(handle)
+        res = (torch.cat(parts) if len(parts) > 1 else parts[0]).reshape(handle.shape)
+    return _done(handle, res), produce(token)
+
+
+# ---------------------------------------------------------------------------
+# alltoall and reduce_scatter: blocks split along their payload
+# ---------------------------------------------------------------------------
+
+
+def _start_blocks(handle: AsyncHandle, x: torch.Tensor, comm: Comm) -> None:
+    """Issue the alltoall of ``x``'s blocks in pieces along the payload."""
+    from .alltoall import group_order
+
+    size = handle.k
+    blocks = x.detach().reshape(size, -1)
+    handle.sizes = overlap_chunk_split(
+        blocks.shape[1], config.overlap_chunks(x.numel() * x.element_size()))
+    handle.order = group_order(comm)
+
+    def issue(ex):
+        pieces, off = [], 0
+        for n in handle.sizes:
+            seg = blocks[:, off:off + n]
+            off += n
+            if handle.order is not None:
+                seg = seg[handle.order]
+            send, recv = ex.send(seg), ex.buffer(seg)
+            work = dist.all_to_all_single(recv, send, group=comm.group(),
+                                          async_op=True)
+            pieces.append((work, recv, send))
+        return pieces
+
+    _issue(handle, x.device, len(handle.sizes), issue)
+
+
+def _received_rows(handle: AsyncHandle) -> torch.Tensor:
+    """The received blocks ``(size, n)`` in comm-rank order."""
+    from .alltoall import unpermute
+
+    parts = [unpermute(p, handle.order) for p in _collect(handle)]
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _check_blocks(opname: str, x, comm: Comm) -> int:
+    size = comm.Get_size()
+    if x.ndim == 0 or x.shape[0] != size:
+        raise ValueError(
+            f"{opname} input must have leading axis == comm size ({size}), "
+            f"got shape {tuple(x.shape)}")
+    return size
+
+
+def alltoall_start(x, *, comm: Optional[Comm] = None,
+                   token: Optional[Token] = None):
+    """Begin an async alltoall of ``x`` (``(size, *s)``, block i to rank
+    i); returns ``(handle, token)``.  Finish it with ``alltoall_wait``."""
+    from .alltoall import _AllToAll
+
+    comm, handle = _start("alltoall_start", comm,
+                          lambda c: AsyncHandle("alltoall", c, None))
+    x = _fusion.materialize_value(x)
+    handle.k = _check_blocks("alltoall_start", x, comm)
+    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+    if handle.k == 1:
+        _full(handle, x.clone())
+    elif _grad(x):
+        _full(handle, _AllToAll.apply(x, comm))
+    else:
+        _start_blocks(handle, x, comm)
+    return handle, produce(token)
+
+
+def alltoall_wait(handle, *, token: Optional[Token] = None):
+    """Finish an async alltoall: returns ``(result, token)``, ``out[i]``
+    the block rank i addressed to this rank."""
+    _check_handle("alltoall_wait", handle, "alltoall")
+    res = (handle.pieces[0] if handle.mode == "full"
+           else _received_rows(handle).reshape(handle.shape))
+    return _done(handle, res), produce(token)
+
+
+def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
+                         token: Optional[Token] = None):
+    """Begin an async reduce_scatter of ``x`` (``(size, *s)``, block i to
+    rank i); returns ``(handle, token)``.  Finish it with
+    ``reduce_scatter_wait``."""
+    from .reduce_scatter import scatter_reduced
+
+    op = SUM if op is None else op
+    combine_fn(op)
+    comm, handle = _start("reduce_scatter_start", comm,
+                          lambda c: AsyncHandle("reduce_scatter", c, op))
+    x = _fusion.materialize_value(x)
+    handle.k = _check_blocks("reduce_scatter_start", x, comm)
+    handle.shape, handle.dtype, handle.device = x.shape[1:], x.dtype, x.device
+    if handle.k == 1 or not isinstance(op, Op) or _grad(x):
+        _full(handle, scatter_reduced(x, op, comm))
+    else:
+        _start_blocks(handle, x, comm)
+    return handle, produce(token)
+
+
+def reduce_scatter_wait(handle, *, token: Optional[Token] = None):
+    """Finish an async reduce_scatter: returns ``(result, token)``, this
+    rank's reduced block."""
+    _check_handle("reduce_scatter_wait", handle, "reduce_scatter")
+    if handle.mode == "full":
+        res = handle.pieces[0]
+    else:
+        rows = _received_rows(handle)
+        out = fold(rows.unbind(0), combine_fn(handle.reduction))
+        res = out.to(torch.promote_types(out.dtype, handle.dtype)).reshape(handle.shape)
+    return _done(handle, res), produce(token)
+
+
+# ---------------------------------------------------------------------------
+# point to point
+# ---------------------------------------------------------------------------
+
+
+def send_start(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
+               token: Optional[Token] = None):
+    """Begin an async send of ``x`` along ``dest``: queued for the matching
+    ``recv_start`` or ``recv`` as ``send`` queues it (its message leaves at
+    once, buffered).  Returns ``(handle, token)``; close it with
+    ``p2p_wait``."""
+    comm, handle = _start("send_start", comm, lambda c: P2PHandle("send", c, tag))
+    x = _fusion.materialize_value(x)
+    send(x, dest, tag, comm=comm)
+    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+    _full(handle, x)
+    return handle, produce(token)
+
+
+def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
+               token: Optional[Token] = None):
+    """Begin an async receive into ``x``'s shape and dtype from the
+    matching queued send (``source=None`` adopts its routing, as
+    ``recv``); returns ``(handle, token)``, the received tensor comes from
+    ``p2p_wait``."""
+    comm, handle = _start("recv_start", comm, lambda c: P2PHandle("recv", c, tag))
+    x = _fusion.materialize_value(x)
+    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+    q = queue(comm, tag)
+    if _grad(x) or (q and _grad(q[0].x)):
+        _full(handle, recv(x, source, tag, comm=comm)[0])
+        return handle, produce(token)
+    pending = match(x, source, tag, comm, "recv_start")
+    rank = comm.Get_rank()
+    if pending.frm is None or pending.frm == rank:
+        pending.release()
+        got = x.clone() if pending.frm is None else pending.x.reshape(x.shape).clone()
+        _full(handle, got)
+        return handle, produce(token)
+
+    def issue(ex):
+        buf = ex.buffer(x)
+        work = dist.irecv(buf, src=comm.global_rank(pending.frm), tag=pending.wire)
+        pending.release()
+        return [(work, buf, None)]
+
+    _issue(handle, x.device, 1, issue)
+    return handle, produce(token)
+
+
+def p2p_wait(handle, *, token: Optional[Token] = None):
+    """Finish an async point-to-point half: returns ``(value, token)``,
+    the received tensor for ``recv_start``'s handle and the sent payload
+    for ``send_start``'s."""
+    _check_p2p_handle("p2p_wait", handle)
+    res = handle.pieces[0] if handle.mode == "full" else _collect(handle)[0]
+    return _done(handle, res), produce(token)
+
+
+def _done(handle: AsyncHandle, res):
+    handle.waited = True
+    handle.pieces = handle.exchange = None
+    return res
+
+
+def _check_p2p_handle(opname: str, handle) -> None:
+    if not isinstance(handle, P2PHandle):
+        raise TypeError(f"{opname} expects the P2PHandle returned by "
+                        f"send_start/recv_start, got {handle!r}")
+    if handle.waited:
+        raise mpx_error(
+            RuntimeError, "MPX112",
+            f"{opname}: this handle was already waited — each "
+            "send_start/recv_start pairs with exactly one p2p_wait")
+
+
+def _check_handle(opname: str, handle, kind: str) -> None:
+    if not isinstance(handle, AsyncHandle) or handle.kind != kind:
+        raise TypeError(f"{opname} expects the AsyncHandle returned by "
+                        f"{kind}_start, got {handle!r}")
+    if handle.waited:
+        raise mpx_error(
+            RuntimeError, "MPX112",
+            f"{opname}: this handle was already waited — each "
+            f"{kind}_start pairs with exactly one {kind}_wait")
+
+
+def finish_region(ctx) -> None:
+    """At a region's end: wait for every start it left in flight (its
+    buffers are still being written), then raise MPX112 if there was
+    one."""
+    # a start that raised before it issued anything has no mode
+    left = [h for h in ctx.handles if not h.waited and h.mode is not None]
+    ctx.handles = []
+    for h in left:
+        if h.mode == "async":
+            _collect(h)
+        _done(h, None)
+    if left:
+        raise mpx_error(
+            RuntimeError, "MPX112",
+            f"region ended with {len(left)} start(s) never waited: "
+            + ", ".join(f"{h.kind}#{h.uid}" for h in left)
+            + "; each *_start pairs with exactly one *_wait")
+
+
+# ---------------------------------------------------------------------------
+# overlap(): implicit start/wait
+# ---------------------------------------------------------------------------
+
+
+_overlap_stack: List[list] = []
+
+
+class overlap:
+    """``with overlap():`` splits every ``allreduce``, ``reduce_scatter``
+    and ``alltoall`` inside it into its start, issued at the call, and its
+    wait, deferred to the result's first use or the scope's end, so the
+    compute between the two overlaps the exchange.  Needs a region."""
+
+    def __enter__(self):
+        if current_context() is None:
+            raise RuntimeError(
+                "overlap() requires a region (spmd / run); use explicit "
+                "allreduce_start/allreduce_wait outside one")
+        self._lazies: list = []
+        _overlap_stack.append(self._lazies)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _overlap_stack.pop()
+        if exc_type is None:
+            for lw in self._lazies:
+                lw._force()
+        return False
+
+
+class _LazyWait(_fusion.LazyResult):
+    """A deferred wait: the first use of the result runs ``*_wait``."""
+
+    __slots__ = ("_handle",)
+
+    def __init__(self, handle):
+        super().__init__(handle.shape, handle.dtype, handle.device, None)
+        self._handle = handle
+
+    def _force(self):
+        if self._value is None:
+            wait = {"allreduce": allreduce_wait, "alltoall": alltoall_wait,
+                    "reduce_scatter": reduce_scatter_wait}[self._handle.kind]
+            self._value = wait(self._handle)[0]
+        return self._value
+
+
+def overlap_active() -> bool:
+    """Inside ``overlap()`` and not inside a fusion flush."""
+    return bool(_overlap_stack) and not _fusion._inhibit
+
+
+def maybe_lazy(opname: str, x, op, comm, token):
+    """Route one collective through its start and a deferred wait;
+    ``None`` outside ``overlap()``."""
+    if not overlap_active():
+        return None
+    if opname == "allreduce":
+        handle, tok = allreduce_start(x, op, comm=comm, token=token)
+    elif opname == "alltoall":
+        handle, tok = alltoall_start(x, comm=comm, token=token)
+    else:
+        handle, tok = reduce_scatter_start(x, op, comm=comm, token=token)
+    lw = _LazyWait(handle)
+    _overlap_stack[-1].append(lw)
+    return lw, tok

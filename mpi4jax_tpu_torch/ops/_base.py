@@ -10,7 +10,8 @@ keep the JAX package's meaning, so a message greps the same:
   (comm, tag);
 - MPX103, bare-int routing;
 - MPX105, root out of range;
-- MPX106, send/recv type-signature mismatch.
+- MPX106, send/recv type-signature mismatch;
+- MPX112, an async start waited twice, or never waited in its region.
 
 ``fold`` combines the blocks of every rank in ascending group-rank order
 with the association of the JAX package's doubling butterfly
@@ -27,7 +28,10 @@ from typing import Callable, Union
 
 import torch
 
-CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106"})
+from ..parallel.region import current_context
+from ._fusion import flush_pending
+
+CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112"})
 
 
 class Op(enum.Enum):
@@ -140,6 +144,16 @@ def check_root(root: int, size: int, what: str) -> None:
 
 
 def check_comm(comm, what: str):
+    """The comm an op runs on: ``comm``, or inside a region
+    (``parallel/region.py``) the region's when ``comm`` is ``None``.
+    Inside a region it first issues the fusion queue (``ops/_fusion.py``):
+    an op that reaches here does not join it, and program order holds."""
+    ctx = current_context()
+    if ctx is not None:
+        flush_pending(ctx)
+        if comm is None:
+            comm = ctx.comm
     if comm is None:
-        raise ValueError(f"{what}: pass comm= (no default communicator yet)")
+        raise ValueError(f"{what}: pass comm= (no default communicator "
+                         "outside a region: spmd, run)")
     return comm

@@ -5,7 +5,10 @@ gloo a CUDA tensor is copied to a pinned host buffer before the message and
 back to its device after it, in plain sight; other backends get the
 tensor itself, made contiguous (``torch.distributed`` refuses strided
 views such as a column ``a[:, 1]``).  ``Exchange`` is that policy for one
-op, and ``stats`` counts what the ops of this process cost.
+op, and ``stats`` counts what the ops of this process cost.  An async
+collective (``ops/_async.py``) keeps its ``Exchange`` in its handle: its
+start stages the tensor and issues the work (``start``/``stop``), and its
+wait brings the result back, the pinned host buffer alive until then.
 """
 
 from __future__ import annotations
@@ -46,16 +49,26 @@ class Exchange:
         self.device = device
         self.host = dist.get_backend() == "gloo"
 
-    def __enter__(self) -> "Exchange":
-        if self.host and self.device.type == "cuda":
-            # the first staging copy would wait for the device anyway
+    def start(self, sync: bool = True) -> None:
+        """Start timing.  ``sync``: on gloo, first wait for the device work
+        queued before (the first staging copy would wait anyway); an async
+        wait passes ``False``, so that the compute issued since its start
+        is not counted as exchange time."""
+        if sync and self.host and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._start = time.perf_counter()
+
+    def stop(self, calls: int = 1) -> None:
+        """Stop timing; ``calls`` collectives were issued since ``start``."""
+        stats.calls += calls
+        stats.seconds += time.perf_counter() - self._start
+
+    def __enter__(self) -> "Exchange":
+        self.start()
         return self
 
     def __exit__(self, *exc) -> bool:
-        stats.calls += 1
-        stats.seconds += time.perf_counter() - self._start
+        self.stop()
         return False
 
     def send(self, t: torch.Tensor) -> torch.Tensor:
@@ -72,8 +85,10 @@ class Exchange:
         return torch.empty(like.shape, dtype=like.dtype,
                            pin_memory=like.device.type == "cuda")
 
-    def result(self, t: torch.Tensor) -> torch.Tensor:
+    def result(self, t: torch.Tensor, non_blocking: bool = False) -> torch.Tensor:
+        """``non_blocking``: the copy back does not wait for the device's
+        queued work (the pinned buffer stays reserved until it is done)."""
         if not self.host or self.device.type == "cpu":
             return t
         stats.staged_bytes += t.numel() * t.element_size()
-        return t.to(self.device)
+        return t.to(self.device, non_blocking=non_blocking)

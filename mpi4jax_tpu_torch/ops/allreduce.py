@@ -16,7 +16,11 @@ is a copy.  Over several ranks:
   has no bitwise reductions and no bool reduction, so nothing here leans
   on ``dist.ReduceOp`` for them.
 
-Each call is one exchange in ``ops/_staging.py``'s ``stats``.  The
+Each call is one exchange in ``ops/_staging.py``'s ``stats``.  Inside
+``overlap()`` the call is split into ``allreduce_start`` and a wait
+deferred to the result's first use (``ops/_async.py``); under fusion an
+``Op`` reduction inside a region is queued and packed with its neighbours
+(``ops/_fusion.py``); either returns a result that is computed on use.  The
 result takes the JAX package's dtype: a logical reduction of bools is
 bool, and of other dtypes the input's (its butterfly's ``jnp.where``
 promotes the bool result); the bitwise ones keep the input dtype.
@@ -52,6 +56,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
+from . import _async, _fusion
 from ._base import SUM, Op, OpLike, check_comm, combine_fn, fold
 from ._staging import Exchange
 from .allgather import _AllGather
@@ -148,17 +153,30 @@ def allreduce(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
               token: Optional[Token] = None):
     """Reduce ``x`` with ``op`` across all ranks of ``comm``; every rank
     receives the result.  Returns ``(result, token)``."""
+    # overlap first: a split collective already hides its latency
+    lazy = _async.maybe_lazy("allreduce", x, op, comm, token)
+    if lazy is not None:
+        return lazy
+    if isinstance(op, Op):  # callables never fuse
+        deferred = _fusion.maybe_defer("allreduce", x, comm, token, reduction=op)
+        if deferred is not None:
+            return deferred
     comm = check_comm(comm, "allreduce")
+    return reduce_all(_fusion.materialize_value(x), op, comm), produce(token)
+
+
+def reduce_all(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:
+    """``allreduce``'s result, run now on ``comm``."""
     fn = combine_fn(op)
     if len(comm.members()) == 1:
-        return x.clone(), produce(token)
+        return x.clone()
     split = comm.groups is not None
     if op in _DIST_OPS and x.dtype != torch.bool:
         if op is Op.SUM:
-            return (_GroupSum if split else _AllreduceSum).apply(x, comm), produce(token)
+            return (_GroupSum if split else _AllreduceSum).apply(x, comm)
         grad = wants_grad(x)
         if not grad and not (split and op is Op.PROD):
-            return all_reduce(x, op, comm), produce(token)
+            return all_reduce(x, op, comm)
         if grad and not split and op is not Op.PROD:
             raise NotImplementedError(
                 f"allreduce: no derivative of {op.name} on a whole comm, as in "
@@ -167,4 +185,4 @@ def allreduce(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
             )
     out = fold(_AllGather.apply(x, comm).unbind(0), fn)
     # the butterfly's jnp.where promotes a logical result to the input's dtype
-    return out.to(torch.promote_types(out.dtype, x.dtype)), produce(token)
+    return out.to(torch.promote_types(out.dtype, x.dtype))

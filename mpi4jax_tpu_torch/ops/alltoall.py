@@ -17,6 +17,8 @@ the same ``alltoall`` of the cotangent: the op is its own transpose, as
 ``alltoall`` of the tangent.  The tensors handed to ``torch.distributed``
 are detached and contiguous.  On a color split the comm is this rank's
 group, whose size only uniform splits have (``GroupComm.Get_size``).
+Inside ``overlap()`` the call is split into ``alltoall_start`` and a
+deferred wait (``ops/_async.py``).
 """
 
 from __future__ import annotations
@@ -27,30 +29,41 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
+from . import _async
 from ._base import check_comm
+from ._fusion import materialize_value
 from ._staging import Exchange
 from .token import Token, produce
 
 
+def group_order(comm: Comm):
+    """``by_group[j]``, the comm rank of group rank j (ascending global
+    rank), where the two orders differ; else ``None``."""
+    members = comm.members()
+    by_group = sorted(range(len(members)), key=members.__getitem__)
+    return by_group if by_group != list(range(len(members))) else None
+
+
+def unpermute(out: torch.Tensor, by_group) -> torch.Tensor:
+    """Rows received in group-rank order back in comm-rank order."""
+    if by_group is None:
+        return out
+    unsorted = torch.empty_like(out)
+    unsorted[by_group] = out
+    return unsorted
+
+
 def _exchange(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """One multi-rank alltoall of ``x`` (leading axis = the group size)."""
-    members = comm.members()
-    size = len(members)
-    # by_group[j]: the comm rank of group rank j (ascending global rank)
-    by_group = sorted(range(size), key=members.__getitem__)
-    permuted = by_group != list(range(size))
+    by_group = group_order(comm)
     x = x.detach()
-    if permuted:
+    if by_group is not None:
         x = x[by_group]
     with Exchange(x.device) as ex:
         recv = ex.buffer(x)
         dist.all_to_all_single(recv, ex.send(x), group=comm.group())
         out = ex.result(recv)
-    if permuted:
-        unsorted = torch.empty_like(out)
-        unsorted[by_group] = out
-        out = unsorted
-    return out
+    return unpermute(out, by_group)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -77,7 +90,11 @@ class _AllToAll(torch.autograd.Function):
 def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
     """Exchange slices: rank ``r`` sends ``x[i]`` to rank ``i`` and receives
     into ``out[i]`` from rank ``i``.  Returns ``(result, token)``."""
+    lazy = _async.maybe_lazy("alltoall", x, None, comm, token)
+    if lazy is not None:
+        return lazy
     comm = check_comm(comm, "alltoall")
+    x = materialize_value(x)
     size = comm.Get_size()
     if x.ndim == 0 or x.shape[0] != size:
         raise ValueError(

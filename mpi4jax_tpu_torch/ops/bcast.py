@@ -10,7 +10,9 @@ Autodiff (``_Bcast``): the backward sums the cotangents of every rank onto
 root (``_ReduceToRoot``) and gives the other ranks zeros, the transpose of
 the JAX package's masked ``psum``; with each rank's loss ``sum(y**2)``
 root's gradient is ``2 * size * x_root``.  ``_ReduceToRoot``'s backward is
-the broadcast again.  The forward mode broadcasts root's tangent.
+the broadcast again.  The forward mode broadcasts root's tangent.  Under
+fusion, a bcast inside a region is queued and packed with its same-root
+neighbours (``ops/_fusion.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
+from . import _fusion
 from ._base import check_comm, check_root
 from ._staging import Exchange
 from .token import Token, produce
@@ -88,8 +91,12 @@ def bcast(x, root: int, *, comm: Optional[Comm] = None,
           token: Optional[Token] = None):
     """Broadcast ``x`` from rank ``root`` to all ranks.  Returns
     ``(result, token)``."""
+    deferred = _fusion.maybe_defer("bcast", x, comm, token, root=root)
+    if deferred is not None:
+        return deferred
     comm = check_comm(comm, "bcast")
     check_root(root, comm.min_size(), "bcast")
+    x = _fusion.materialize_value(x)
     if len(comm.members()) == 1:
         return x.clone(), produce(token)
     return _Bcast.apply(x, root, comm), produce(token)

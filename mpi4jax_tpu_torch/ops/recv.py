@@ -31,42 +31,50 @@ def recv(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
     """Receive into ``x``'s shape and dtype from the matching ``send``.
     Returns ``(received, token)``."""
     comm = check_comm(comm, "recv")
-    check_tag(tag, "recv")
+    pending = match(x, source, tag, comm, "recv")
+    rank = comm.Get_rank()
+    to, frm = pending.to, pending.frm
+    fill_status(status, frm, tag, pending.x)
+    if to is None and frm is None:
+        return x, produce(token)
+    if to == rank:  # a route onto itself
+        pending.receive(x, None)
+        return pending.x.reshape(x.shape).clone(), produce(token)
+    received = _SendRecv.apply(
+        pending.x, x, comm.global_rank(to) if to is not None else None,
+        comm.global_rank(frm) if frm is not None else None, pending)
+    return received, produce(token)
+
+
+def match(x, source, tag: int, comm: Comm, what: str):
+    """Pop and return the oldest send queued on ``(comm, tag)`` after
+    checking it against the template ``x`` and the ``source`` spec; a
+    failed check leaves it queued."""
+    check_tag(tag, what)
     q = queue(comm, tag)
     if not q:
         raise mpx_error(
             RuntimeError, "MPX102",
-            f"recv(tag={tag}): no matching send queued on this comm. The "
+            f"{what}(tag={tag}): no matching send queued on this comm. The "
             "matching send must come earlier on the same comm and tag (MPI "
             "would block here forever).",
         )
     pending = q[0]
     if source is not None:
-        pairs = routing(comm, source, None, "recv")
+        pairs = routing(comm, source, None, what)
         if pairs != pending.pairs:
             raise ValueError(
-                f"recv: source spec implies routing {pairs} but the matching "
+                f"{what}: source spec implies routing {pairs} but the matching "
                 f"send declared {pending.pairs}"
             )
     sent = pending.x
     if sent.dtype != x.dtype or sent.numel() != x.numel():
         raise mpx_error(
             ValueError, "MPX106",
-            f"recv: template shape/dtype {tuple(x.shape)}/{x.dtype} does not "
+            f"{what}: template shape/dtype {tuple(x.shape)}/{x.dtype} does not "
             f"match sent {tuple(sent.shape)}/{sent.dtype} (shapes may differ "
             "only at equal element count; the output takes the template's)",
         )
     check_no_overtake(pending)
     q.popleft()
-    rank = comm.Get_rank()
-    to, frm = pending.to, pending.frm
-    fill_status(status, frm, tag, sent)
-    if to is None and frm is None:
-        return x, produce(token)
-    if to == rank:  # a route onto itself
-        pending.receive(x, None)
-        return sent.reshape(x.shape).clone(), produce(token)
-    received = _SendRecv.apply(
-        sent, x, comm.global_rank(to) if to is not None else None,
-        comm.global_rank(frm) if frm is not None else None, pending)
-    return received, produce(token)
+    return pending

@@ -20,7 +20,7 @@ import torch
 
 from ..parallel.comm import Comm
 from ._base import SUM, OpLike, check_comm, check_root, combine_fn
-from .allreduce import allreduce
+from .allreduce import reduce_all
 from .bcast import _ReduceToRoot
 from .token import Token, produce
 
@@ -37,6 +37,6 @@ def reduce(x, op: OpLike, root: int, *, comm: Optional[Comm] = None,
     if op is SUM and x.dtype != torch.bool:
         reduced = _ReduceToRoot.apply(x, root, comm)
     else:
-        reduced = allreduce(x, op, comm=comm)[0]
+        reduced = reduce_all(x, op, comm)
     is_root = torch.tensor(comm.Get_rank() == root, device=x.device)
     return torch.where(is_root, reduced, x), produce(token)

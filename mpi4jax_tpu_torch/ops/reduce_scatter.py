@@ -12,7 +12,8 @@ reduction of a non-bool dtype keeps that dtype, as in ``allreduce``.
 Autodiff: SUM's backward is the ``allgather`` of the cotangent and its
 forward mode reduce-scatters the tangent (``allgather.py:
 _ReduceScatterSum``); the other reductions differentiate through the
-``alltoall`` and the fold.
+``alltoall`` and the fold.  Inside ``overlap()`` the call is split into
+``reduce_scatter_start`` and a deferred wait (``ops/_async.py``).
 """
 
 from __future__ import annotations
@@ -22,9 +23,11 @@ from typing import Optional
 import torch
 
 from ..parallel.comm import Comm
+from . import _async
 from ._base import SUM, OpLike, check_comm, combine_fn, fold
+from ._fusion import materialize_value
 from .allgather import _ReduceScatterSum
-from .alltoall import alltoall
+from .alltoall import _AllToAll
 from .token import Token, produce
 
 
@@ -33,7 +36,15 @@ def reduce_scatter(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
     """Reduce ``x`` (shape ``(size, *s)``) with ``op`` across all ranks of
     ``comm`` and scatter the result: rank i receives the reduction of every
     rank's ``x[i]``.  Returns ``(result, token)``."""
+    lazy = _async.maybe_lazy("reduce_scatter", x, op, comm, token)
+    if lazy is not None:
+        return lazy
     comm = check_comm(comm, "reduce_scatter")
+    return scatter_reduced(materialize_value(x), op, comm), produce(token)
+
+
+def scatter_reduced(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:
+    """``reduce_scatter``'s result, run now on ``comm``."""
     size = comm.Get_size()
     if x.ndim == 0 or x.shape[0] != size:
         raise ValueError(
@@ -43,9 +54,8 @@ def reduce_scatter(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
         )
     fn = combine_fn(op)
     if size == 1:
-        return x[0].clone(), produce(token)
+        return x[0].clone()
     if op is SUM and x.dtype != torch.bool:
-        return _ReduceScatterSum.apply(x, comm), produce(token)
-    rows, _ = alltoall(x, comm=comm)
-    out = fold(rows.unbind(0), fn)
-    return out.to(torch.promote_types(out.dtype, x.dtype)), produce(token)
+        return _ReduceScatterSum.apply(x, comm)
+    out = fold(_AllToAll.apply(x, comm).unbind(0), fn)
+    return out.to(torch.promote_types(out.dtype, x.dtype))

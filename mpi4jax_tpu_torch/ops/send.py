@@ -34,7 +34,9 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
+from ..parallel.region import current_context
 from ._base import check_comm, mpx_error
+from ._fusion import flush_pending
 from ._staging import Exchange
 from .sendrecv import peers, routing
 from .token import Token, produce
@@ -92,11 +94,15 @@ class PendingSend:
                 buf = ex.buffer(template)
                 dist.recv(buf, source, tag=self.wire)
                 received = ex.result(buf)
+        self.release()
+        return received
+
+    def release(self) -> None:
+        """Hand this rank's own message over to ``reap`` (its recv ran)."""
         if self._work is not None:
             _in_flight.append((self._work, self._snapshot))
         self._snapshot = self._work = None
         reap()
-        return received
 
 
 def send(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
@@ -141,9 +147,10 @@ def check_no_overtake(pending: PendingSend) -> None:
 
 
 def flush() -> None:
-    """Raise MPX101 if a send is still unmatched (its recv can never come);
-    else wait for every matched send to complete, and for the card's
-    queued work."""
+    """Issue the region's fusion queue (``ops/_fusion.py``); raise MPX101
+    if a send is still unmatched (its recv can never come); else wait for
+    every matched send to complete, and for the card's queued work."""
+    flush_pending(current_context())
     leftover = {k: len(q) for k, q in _queues.items() if q}
     if not leftover:
         while _in_flight:

@@ -856,3 +856,41 @@ def test_flash_attention_gradients_on_the_card(full_f32_products, causal):
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["bf16", "fp8"])
+def test_codec_on_the_card_matches_the_cpu(codec):
+    """The fp8 bytes, scales and decode and both roundtrips on CUDA tensors
+    equal the CPU's bit for bit (the scale divides by a 0-dim tensor)."""
+    need_cuda()
+    from mpi4jax_tpu_torch.ops import _compress as Z
+
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.standard_normal((37, 300))
+                          * 10.0 ** rng.integers(-20, 20, (37, 1))).astype(np.float32))
+    got = Z.roundtrip(x.cuda(), codec).cpu()
+    assert torch.equal(got.view(torch.int32), Z.roundtrip(x, codec).view(torch.int32))
+    (q, s), (qc, sc) = Z.encode_fp8(x.cuda()), Z.encode_fp8(x)
+    assert torch.equal(q.cpu().view(torch.uint8), qc.view(torch.uint8))
+    assert torch.equal(s.cpu(), sc)
+
+
+@pytest.mark.gpu
+def test_fused_results_stay_on_the_card():
+    """A world of one on the card: the packed allreduce and bcast results
+    are CUDA tensors equal to their inputs."""
+    need_cuda()
+    import mpi4jax_tpu_torch as tpx
+
+    mesh = tpx.make_world_mesh(device="cuda")
+    comm = tpx.Comm(mesh.axes[0], mesh=mesh)
+    xs = [torch.arange(5.0, device="cuda"), torch.ones(2, 3, device="cuda")]
+    tpx.set_fusion_mode("force")
+    try:
+        out = tpx.run(lambda: [tpx.allreduce(x)[0] for x in xs]
+                      + [tpx.bcast(x, 0)[0] for x in xs], comm=comm)
+    finally:
+        tpx.set_fusion_mode(None)
+    for got, want in zip(out, xs + xs):
+        assert got.is_cuda and torch.equal(got, want)

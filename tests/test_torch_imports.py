@@ -2,7 +2,7 @@
 
 An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
-``tests/torch_ranks_ops.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -17,7 +17,8 @@ PORT = REPO / "mpi4jax_tpu_torch"
 FILES = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
 # the smoke script, and the rank programs every test rank imports afresh
 FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
-          REPO / "tests" / "torch_ranks_ops.py"]
+          REPO / "tests" / "torch_ranks_ops.py",
+          REPO / "tests" / "torch_ranks_throughput.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -61,5 +62,6 @@ def test_port_is_packaged():
     from setuptools import find_packages
 
     pkgs = find_packages(str(REPO), include=["mpi4jax_tpu*"])
-    for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental"):
+    for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental",
+                ".utils"):
         assert "mpi4jax_tpu_torch" + sub in pkgs

@@ -7,7 +7,8 @@ ranks the gradients of ring attention (its memory-efficient backward,
 causal and not, f32 and bf16) and of Ulysses attention, and ``allreduce``
 with SUM, PROD, MIN and MAX; on 2, 4 and 8 ranks, a (2, size/2) grid,
 one step of the training example from the JAX package's
-``init_params`` carried over by ``convert.params_from_jax``.  The JAX side
+``init_params`` carried over by ``convert.params_from_jax``, and its
+gradients under each fusion mode.  The JAX side
 runs the same on the first ``size`` devices of the 8-device CPU mesh:
 ``jax.grad`` of ``ring_attention`` and ``ulysses_attention``,
 ``mpx.allreduce``, and ``examples/long_context_training.py``'s
@@ -17,7 +18,8 @@ JAX suite: ring gradients rtol 1e-4, atol 1e-5
 0.05 against the f32 gradient (:185); Ulysses gradients rtol 2e-3, atol
 2e-4 (:127); allreduce of integer-valued data bit for bit; the training
 loss rtol 1e-5 and the update rtol 2e-3, atol 2e-5
-(tests/test_examples.py:563-569).
+(tests/test_examples.py:563-569); fused against unfused gradients rtol
+1e-5 (the f32 SUM band of tests/test_allreduce.py:62).
 """
 
 import importlib.util
@@ -369,6 +371,26 @@ def test_train_step_matches_single_device(results, size):
                 err_msg=f"grad {name}")
 
 
+@pytest.mark.parametrize("mode", ["auto", "force"])
+@pytest.mark.parametrize("size", TRAIN_SIZES)
+def test_train_step_under_fusion_matches_unfused(results, size, mode):
+    """The loss and gradients of ``make_grad_fn`` under fusion ``auto`` and
+    ``force`` against ``off`` in the f32 SUM band (rtol 1e-5,
+    tests/test_allreduce.py:62); at these widths the loss and the five
+    gradients (under 4 MiB) go out as one packed allreduce, where ``off``
+    makes six."""
+    n_dp, n_sp = grid_shape(size)
+    ring = 4 * (n_sp - 1) + 2 * n_sp if n_sp > 1 else 0
+    for r in port_run(results, size):
+        got, want = r[f"train/fusion/{mode}"], r["train/fusion/off"]
+        assert want["exchanges"] == ring + 6
+        assert got["exchanges"] == ring + 1
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        for name, g in want["grads"].items():
+            np.testing.assert_allclose(got["grads"][name], g, rtol=1e-5,
+                                       atol=1e-6 * np.abs(g).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("size", TRAIN_SIZES)
 def test_train_step_grid_and_exchanges(results, size):
     """Rank r sits at (dp, sp) = divmod(r, n_sp) and every rank makes the
@@ -384,8 +406,10 @@ def test_train_step_grid_and_exchanges(results, size):
 
 def test_main_reduces_the_loss_on_four_ranks():
     """The CLI's run (the JAX example's widths, five steps at lr 0.1, a
-    (2,2) grid): the loss falls, every rank ends every step with the same
-    parameters and the same losses, and the CPU launches no kernel."""
+    (2,2) grid, fusion ``auto`` as the JAX example's ``main``): the loss
+    falls, every rank ends every step with the same parameters and the
+    same losses, the CPU launches no kernel, and a step's exchanges are
+    the ring's and one packed allreduce of the loss and the gradients."""
     ranks = launch.run(LCT.rank_main, 4, device="cpu", timeout=R.RANK_TIMEOUT_S,
                        args=("cpu", {}))
     losses = ranks[0]["losses"]
@@ -394,7 +418,7 @@ def test_main_reduces_the_loss_on_four_ranks():
         assert r["losses"] == losses
         assert r["digests"] == ranks[0]["digests"]
         assert all(n == 0 for step in r["launches"] for n in step.values())
-        assert r["exchange"][0]["calls"] == 4 * 1 + 2 * 2 + 6
+        assert r["exchange"][0]["calls"] == 4 * 1 + 2 * 2 + 1
 
 
 def test_main_on_one_rank_matches_one_step_by_hand():

@@ -33,6 +33,7 @@ from mpi4jax_tpu_torch import (
     gather,
     make_world_mesh,
     sendrecv,
+    set_fusion_mode,
     shift,
 )
 from mpi4jax_tpu_torch.attention import ring_attention, ulysses_attention
@@ -314,6 +315,7 @@ GRAD_RUNS = (("ring", True, "float32"), ("ring", False, "float32"),
              ("ring", True, "bfloat16"), ("ulysses", True, "float32"))
 REDUCTIONS = ("SUM", "PROD", "MIN", "MAX")
 # the training step of tests/test_examples.py:528
+FUSION_MODES = ("off", "auto", "force")
 TRAIN = {"b_loc": 1, "t_loc": 16, "d_model": 32, "d_ff": 64, "heads": 4,
          "lr": 0.05}
 
@@ -393,8 +395,9 @@ def training_program(rank: int, size: int, params: dict, x: np.ndarray,
                      y: np.ndarray, grads: bool):
     """One step of the dp x sp training example on the world's grid from
     the JAX package's parameters and stacked tiles ``x`` (size, B, T, D),
-    ``y`` (size, B, T); with ``grads``, also the attention gradient runs
-    and the allreduce runs."""
+    ``y`` (size, B, T), and its loss and gradients under each fusion mode;
+    with ``grads``, also the attention gradient runs and the allreduce
+    runs."""
     out = {}
     if grads:
         _grad_runs(rank, size, out)
@@ -409,6 +412,17 @@ def training_program(rank: int, size: int, params: dict, x: np.ndarray,
     out["train/exchanges"] = _staging.stats.calls
     out["train/grid"] = torch.tensor([world.axis_index("dp"),
                                       world.axis_index("sp")])
+    grad_fn = LCT.make_grad_fn(world, sp, TRAIN["heads"])
+    for mode in FUSION_MODES:
+        set_fusion_mode(mode)
+        try:
+            _staging.stats.reset()
+            loss, grads = grad_fn(convert.params_from_jax(params, device="cpu"),
+                                  torch.from_numpy(x[rank]), torch.from_numpy(y[rank]))
+            out[f"train/fusion/{mode}"] = {"loss": loss, "grads": grads,
+                                           "exchanges": _staging.stats.calls}
+        finally:
+            set_fusion_mode(None)
     return out
 
 
