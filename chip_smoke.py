@@ -99,6 +99,24 @@ read just after:
    CUDA tensors of the first gradients against the CPU, bit for bit.
    Four processes share one card: no number of this phase is a scaling
    result, and no codec shrinks the bytes an exchange moves here.
+10. the dispatch layer on this card (``dispatch_phase``): the periodic
+   and walled 0.1-day solves at 3600x1800 through
+   ``solve_fused(fast="auto", unroll=N)`` for N in 1, 20 and 440, and the
+   split-phase one (``fast="pallas_halo"``) for N = 20: the Euler step,
+   then megastep calls that each replay one CUDA graph of N single steps
+   (441 ``sw_steps``, 441 ``sw_wide`` and 882 ``sw_phase`` launches a
+   run), each final state against ``pinned=True``'s (the whole-run graph)
+   bit for bit, steps/s, graph replays and bytes copied per call, and the
+   walled body's parts (frame build, kernel, crop) timed alone, and a
+   ``torch.profiler`` trace of the 440 steps of three megastep runs
+   (the device's busy share, its time by kernel); the test suite's
+   generic step (an allreduce, then ``s*0.25 + v*0.5``) on a
+   one-rank CUDA comm, ``compile(unroll=8)`` against 8 eager calls bit
+   for bit, the host microseconds of a pinned call against an eager
+   ``spmd`` call and a donated one, MPX129 when ``MPI4JAX_TPU_FUSION`` is
+   set between calls and ``repin()``; and a capture made to fail (a host
+   synchronisation in the body), which must raise.  One JSON line
+   ``{"dispatch": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -116,6 +134,11 @@ builds only the two backward sources and prints the sha256 of their
 machine code and of their gradients on fixed inputs (``backward_digests``):
 run from two checkouts on one card, equal digests say that their
 backward kernels are the same.
+
+    python3 chip_smoke.py --dispatch
+
+builds only the stencil sources and runs phase 10 alone
+(``dispatch_main``), one JSON line.
 
     python3 chip_smoke.py --ring
 
@@ -671,6 +694,315 @@ def stencils_main():
         "max_abs_err": {"sw_steps": worst, "sw_phase": phase_worst, "sw_wide": wide_worst},
         "geometry": geo, "periodic_solve": periodic, "walled_solve": walled,
         "halo_solve": halo, "sass_sha256": sass, "sw_phase_sass_census": census}}))
+    return 0
+
+
+# phase 10: the megastep trip counts of the periodic and walled solves, and
+# the split-phase solve's
+UNROLLS = (1, 20, 440)
+HALO_UNROLL = 20
+# the generic step's megastep and its per-call timing
+GENERIC_UNROLL, GENERIC_SHAPE, GENERIC_CALLS = 8, (8, 256), 2000
+
+
+def megastep_solves(P, name, label, cfg, fast, dev, t1, unrolls, per_step):
+    """``solve_fused(fast=fast, unroll=N)`` for each N beside
+    ``pinned=True`` in this process: each final state bit for bit with the
+    whole-run graph's, ``per_step`` launches of kernel ``name`` a step (the
+    Euler step and N-step graph replays), the replays a run and the bytes a
+    call copies; launch counts set to 0 just before each solve and read
+    just after."""
+    from mpi4jax_tpu_torch.kernels import _build
+
+    counter = _build.counter_for(name)
+    info = {}
+    wall, n, ref = P.solve_fused(cfg, t1, device=dev, fast=fast, pinned=True,
+                                 return_state=True, info=info)
+    out = {"pinned": {"steps": n, "wall": wall, "steps_per_s": n / wall}}
+    print(f"{label}: pinned=True (whole-run graph) {n / wall:.2f} steps/s")
+    for N in unrolls:
+        info = {}
+        counter.launches = 0
+        wall, n, final = P.solve_fused(cfg, t1, device=dev, fast=fast, unroll=N,
+                                       return_state=True, info=info)
+        launches = counter.launches
+        n_mega, tail = divmod(n - 1, N)
+        replays = n_mega + (1 if tail else 0)
+        per_run = per_step * n
+        # the pins ran their bodies once eagerly before each capture
+        warm = per_step * ((N if n_mega else 0) + tail)
+        print(f"{label}, unroll={N}: {n / wall:.2f} steps/s, {info['replays']} graph "
+              f"replays and {info['launches'].get(name, 0)} {name} launches a run "
+              f"({launches} over {info['runs']} runs and the pins' warm-ups), "
+              f"{info['bytes_copied'] / max(1, info['replays']):.0f} bytes copied "
+              "a call")
+        if not (info["unroll"] == N and info["pinned"]):
+            raise AssertionError(f"{label}, unroll={N}: no graph megastep ran ({info})")
+        if info["launches"].get(name) != per_run or info["replays"] != replays:
+            raise AssertionError(
+                f"{label}, unroll={N}: {info['launches']} launches and "
+                f"{info['replays']} replays a run, expected {per_run} {name} and "
+                f"{replays}")
+        if launches != per_run * info["runs"] + warm:
+            raise AssertionError(f"{label}, unroll={N}: {name} launched {launches} "
+                                 f"times, expected {per_run} x {info['runs']} + {warm}")
+        compare(f"{label}, unroll={N} vs pinned=True", ref, final, P.State._fields,
+                exact=True)
+        out[f"unroll={N}"] = {
+            "steps": n, "wall": wall, "steps_per_s": n / wall,
+            "replays_per_run": info["replays"], "launches_per_run": per_run,
+            "launches": launches, "runs": info["runs"],
+            "bytes_copied_per_call": info["bytes_copied"] / max(1, info["replays"]),
+            "bit_for_bit_with_pinned": True}
+        del final
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def walled_step_parts(P, dev):
+    """The walled megastep's body, one step at full width, by part, each
+    timed from a CUDA graph of 20 calls: the frame build
+    (``_wide_exchange``), the one-step ``sw_wide`` call, the crop, and the
+    whole body (``_wide_run`` of one step), on the state after the Euler
+    step."""
+    cfg = P.Config(nx=3600, ny=1800, periodic_x=False)
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    m = P._margin_rows(2)
+    s = P._wide_run(P.initial_state(cfg, device=dev), 1, cfg, comm, 2, m,
+                    euler_first=True)
+    tok = P.create_token()
+    frame, _ = P._wide_exchange(tuple(s), cfg, comm, m, tok)
+    out = P._wide_kernel_call(frame, cfg, comm, False, 1, m)
+    parts = {
+        "frame_build": lambda: P._wide_exchange(tuple(s), cfg, comm, m, tok),
+        "sw_wide_one_step": lambda: P._wide_kernel_call(frame, cfg, comm, False, 1, m),
+        "crop": lambda: P._wide_crop(out, cfg, m),
+        "body": lambda: P._wide_run(s, 1, cfg, comm, 2, m, euler_first=False),
+    }
+    ms = {k: time_graph_ms(fn, reps=20, warmup=3) for k, fn in parts.items()}
+    print("walled megastep body, one step at 3600x1800, ms: " + json.dumps(ms))
+    del s, frame, out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def device_busy(fn):
+    """One call of ``fn`` (after one unprofiled call) under
+    ``torch.profiler``: its wall, the device's busy share of it (the union
+    of the device events' intervals over the wall) and the device time by
+    kernel name, the largest four; ``None`` fields where the trace holds
+    no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, cur, by_name = 0.0, None, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:60]
+            by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return {"wall_ms": wall * 1e3, "device_events": len(spans),
+            "busy_share": busy / 1e3 / (wall * 1e3) if spans else None,
+            "device_ms_by_kernel": dict(top) if spans else None}
+
+
+def megastep_profiles(P, dev):
+    """The megastep runs' 440 single steps under the profiler (``device_busy``),
+    the pins built as ``solve_fused(unroll=N)`` builds them (the Euler step
+    left out): periodic N = 1 and 440, walled N = 440."""
+    from mpi4jax_tpu_torch.aot import pinning
+
+    out = {}
+    for label, cfg, n in (("periodic,unroll=1", P.Config(nx=3600, ny=1800), 1),
+                          ("periodic,unroll=440", P.Config(nx=3600, ny=1800), 440),
+                          ("walled,unroll=440",
+                           P.Config(nx=3600, ny=1800, periodic_x=False), 440)):
+        _, comm = P.make_mesh_and_comm(cfg, device=dev)
+        step, chunk, size = P.select_steps("auto", cfg)
+        if step is P.model_step_wide:
+            m = P._margin_rows(size)
+
+            def one(s, cfg=cfg, comm=comm, size=size, m=m):
+                return P._wide_run(s, 1, cfg, comm, size, m, euler_first=False)
+        else:
+            def one(s, cfg=cfg, comm=comm, step=step, chunk=chunk, size=size):
+                return P._run_steps(s, 1, cfg, comm, step, chunk, size)
+        s0 = P.initial_state(cfg, device=dev)
+        pp = pinning.compile(one, s0, comm=comm, unroll=n)
+
+        def run(pp=pp, s0=s0, calls=440 // n):
+            s = s0
+            for _ in range(calls):
+                s = pp(s)
+            return s
+
+        out[label] = device_busy(run)
+        print(f"  profile, {label}: " + json.dumps(out[label]))
+        del pp, s0
+        torch.cuda.empty_cache()
+    return out
+
+
+def generic_step(v):
+    """The test suite's step (tests/test_megastep.py:73-75): an allreduce
+    SUM, then ``s*0.25 + v*0.5``."""
+    from mpi4jax_tpu_torch import SUM, allreduce
+
+    s, _ = allreduce(v, op=SUM)
+    return s * 0.25 + v * 0.5
+
+
+def host_us(fn, x, calls, chain=False):
+    """Host microseconds a call over ``calls`` calls, synchronised at the
+    end (``examples/aot_serving_step.py:90``'s ``per_call_us``); ``chain``
+    feeds each output to the next call."""
+    out = fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = fn(out if chain else x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def generic_megastep(dev):
+    """The generic step on a one-rank CUDA comm: ``compile(unroll=8)``
+    against 8 eager calls bit for bit; host microseconds a call, pinned
+    (one-step graph, donated or not) against eager ``spmd``; MPX129 when
+    ``MPI4JAX_TPU_FUSION`` is set between calls, ``repin()``; a capture
+    made to fail must raise."""
+    import mpi4jax_tpu_torch as tpx
+
+    comm = tpx.Comm("x", mesh=tpx.make_world_mesh((1,), ("x",), device=dev))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(GENERIC_SHAPE).astype(np.float32)).to(dev)
+    eager = tpx.spmd(generic_step, comm=comm)
+    want = x
+    for _ in range(GENERIC_UNROLL):
+        want = eager(want)
+    mega = tpx.compile(generic_step, x, comm=comm, unroll=GENERIC_UNROLL)
+    got = mega(x)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"generic step, compile(unroll={GENERIC_UNROLL}) on one CUDA rank "
+          f"(graph: {mega.graph}): bit for bit with {GENERIC_UNROLL} eager calls: {same}")
+    if not (mega.graph and same):
+        raise AssertionError("the generic megastep is not a graph equal to eager calls")
+
+    one = tpx.compile(generic_step, x, comm=comm)
+    donated = tpx.compile(generic_step, x, comm=comm, donate_argnums=0)
+    us = {"eager_spmd": host_us(eager, x, GENERIC_CALLS),
+          "pinned": host_us(one, x, GENERIC_CALLS),
+          "pinned_donated": host_us(donated, x.clone(), GENERIC_CALLS, chain=True),
+          "pinned_unroll8_per_step": host_us(mega, x, GENERIC_CALLS) / GENERIC_UNROLL}
+    copied = {"pinned": one.bytes_copied, "pinned_donated": donated.bytes_copied}
+    print("  host us a call on (8, 256) f32: " + json.dumps(us)
+          + "; bytes copied a call: " + json.dumps(copied))
+
+    os.environ["MPI4JAX_TPU_FUSION"] = "auto"
+    try:
+        try:
+            mega(x)
+            raise AssertionError("a pin called after MPI4JAX_TPU_FUSION moved ran")
+        except tpx.aot.StaleProgramError as e:
+            stale = e.mpx_code
+        again = mega.repin()
+        regot = again(x)
+        torch.cuda.synchronize()
+        repinned = torch.equal(regot.view(torch.int32), want.view(torch.int32))
+    finally:
+        del os.environ["MPI4JAX_TPU_FUSION"]
+    print(f"  MPI4JAX_TPU_FUSION=auto between calls: {stale}; repin() replays the "
+          f"step bit for bit: {repinned}; the old pin valid again after the "
+          f"variable is unset: {not mega.is_stale()}")
+    if stale != "MPX129" or not repinned or mega.is_stale():
+        raise AssertionError("staleness or repin did not hold on the card")
+    del again, mega, one, donated
+
+    def synchronising(v):
+        return v * v.sum().item()
+
+    try:
+        tpx.compile(synchronising, x, comm=comm)
+        raise AssertionError("a capture with a host synchronisation did not raise")
+    except RuntimeError as e:
+        failed = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    print(f"  a capture made to fail raised: {failed}")
+    torch.cuda.synchronize()
+    return {"bit_for_bit": same, "host_us_per_call": us,
+            "bytes_copied_per_call": copied, "stale": stale, "repin_bit_for_bit": repinned,
+            "failed_capture": failed}
+
+
+def dispatch_phase(P, dev):
+    """Phase 10 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    from mpi4jax_tpu_torch.aot import pinning
+
+    t0 = time.perf_counter()
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    pinning.reset_stats()
+    out = {
+        "periodic": megastep_solves(P, "sw_steps", "periodic",
+                                    P.Config(nx=3600, ny=1800), "auto", dev, t1,
+                                    UNROLLS, 1),
+        "walled": megastep_solves(P, "sw_wide", "walled",
+                                  P.Config(nx=3600, ny=1800, periodic_x=False),
+                                  "auto", dev, t1, UNROLLS, 1),
+        "split_phase": megastep_solves(P, "sw_phase", "split-phase",
+                                       P.Config(nx=3600, ny=1800), "pallas_halo",
+                                       dev, t1, (HALO_UNROLL,), 2),
+        "walled_step_parts_ms": walled_step_parts(P, dev),
+        "profiles": megastep_profiles(P, dev),
+        "generic": generic_megastep(dev),
+    }
+    out["pin_stats"] = pinning.stats()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 10 (dispatch layer): {out['seconds']:.1f} s")
+    return out
+
+
+def dispatch_main():
+    """``python3 chip_smoke.py --dispatch``: builds the stencil sources and
+    runs phase 10 alone; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    t0 = time.perf_counter()
+    _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    print(f"built the stencil sources in {time.perf_counter() - t0:.1f} s")
+    out = dispatch_phase(P, torch.device("cuda"))
+    print(smi)
+    print(json.dumps({"dispatch": out}))
     return 0
 
 
@@ -2454,6 +2786,11 @@ def main():
     # -- data-parallel training and the throughput layer ------------------
     throughput = four_rank_throughput(
         launch, "cuda:0", {**TRAIN, "b_loc": ATTN_B // 2, "t_loc": ATTN_T // 2})
+    torch.cuda.empty_cache()
+
+    # -- the dispatch layer: megastep graphs, pins, staleness --------------
+    dispatch = dispatch_phase(P, dev)
+    print(json.dumps({"dispatch": dispatch}))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -2476,6 +2813,10 @@ def main():
         "geometry": {k: g for k, g in geo.items() if k.startswith("sw_steps")},
         "periodic_solve_steps_per_s": periodic["steps_per_s"],
         "pair_ms_on_final_state": periodic["final_pair_ms"],
+        # phase 10: the periodic megastep solves, one AB-2 step a launch
+        "one_step": per_case["first=False,nsteps=1"],
+        "dispatch_launches": {n: r["launches"] for n, r in dispatch["periodic"].items()
+                              if n.startswith("unroll")},
     }, {
         "name": "sw_phase",
         "route": "cuda",
@@ -2501,6 +2842,9 @@ def main():
         # ranks, and its kernel-against-plain checks at those frames
         "dryrun_launches": dry_kernels["sw_phase"]["launches"],
         "dryrun_max_abs_err": dry_kernels["sw_phase"]["max_abs_err"],
+        # phase 10: the split-phase megastep solve
+        "dispatch_launches": {n: r["launches"] for n, r in dispatch["split_phase"].items()
+                              if n.startswith("unroll")},
     }, {
         "name": "sw_wide",
         "route": "cuda",
@@ -2521,6 +2865,10 @@ def main():
         # phase 8: the dry run's wide-halo shallow water (see sw_phase)
         "dryrun_launches": dry_kernels["sw_wide"]["launches"],
         "dryrun_max_abs_err": dry_kernels["sw_wide"]["max_abs_err"],
+        # phase 10: the walled megastep solves, one step a launch
+        "one_step": wide_cases["nsteps=1"],
+        "dispatch_launches": {n: r["launches"] for n, r in dispatch["walled"].items()
+                              if n.startswith("unroll")},
     }]
     for name, main_case, replaces in (
         ("flash_fwd_tf32", "f32", ":122"),
@@ -2662,5 +3010,5 @@ def main():
 
 if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
-             "--ring": ring_main}
+             "--ring": ring_main, "--dispatch": dispatch_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

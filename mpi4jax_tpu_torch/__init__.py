@@ -23,8 +23,12 @@ in CUDA, with the dp x sp training example
 fusion (``set_fusion_mode``), the async ``*_start``/``*_wait`` pairs and
 ``overlap()``, regions (``spmd``, ``run``, ``get_default_comm``) and
 error-feedback compression (``compress``), with the data-parallel
-training and fusion demo examples (``models/``).  Nothing here imports
-JAX.
+training and fusion demo examples (``models/``); and the dispatch
+layer: ``compile`` (``aot/``: a pinned program, on one CUDA rank a
+captured CUDA graph, stale under MPX129 when a knob moves), megastep loops
+(``spmd``/``compile`` ``unroll=N``, ``parallel/megastep.py``, with its
+boundary hooks) and ``models.shallow_water.solve_fused(unroll=N)``.
+Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -57,7 +61,8 @@ from .ops import (  # noqa: F401
     send,
     sendrecv,
 )
-from . import compress  # noqa: F401
+from . import aot, compress  # noqa: F401
+from .aot import compile  # noqa: F401
 from .ops._async import (  # noqa: F401
     allreduce_start,
     allreduce_wait,
@@ -78,6 +83,7 @@ from .parallel.mesh import (  # noqa: F401
     make_world_mesh,
     resolve_device,
 )
+from .parallel.megastep import register_boundary_hook  # noqa: F401
 from .parallel.rankspec import shift  # noqa: F401
 from .parallel.region import get_default_comm, run, spmd  # noqa: F401
 
@@ -105,8 +111,10 @@ __all__ = [
     "alltoall",
     "alltoall_start",
     "alltoall_wait",
+    "aot",
     "barrier",
     "bcast",
+    "compile",
     "compress",
     "create_token",
     "flush",
@@ -122,6 +130,7 @@ __all__ = [
     "reduce_scatter",
     "reduce_scatter_start",
     "reduce_scatter_wait",
+    "register_boundary_hook",
     "resolve_device",
     "run",
     "scan",

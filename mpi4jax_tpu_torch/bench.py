@@ -6,11 +6,17 @@ at 3600 x 1800 interior, 0.1 simulated days, on one GPU, through
 timed after a warm-up, best of two.  A second run five times as long gives
 the per-step slope, which cancels the fixed cost of each run.
 
-    python -m mpi4jax_tpu_torch.bench
+    python -m mpi4jax_tpu_torch.bench [--unroll N]
+
+``--unroll N`` runs the solve as megastep calls of N single steps each
+(``solve_fused(unroll=N)``: one CUDA graph of N steps a call) instead of
+the whole-run graph; the ``unroll`` field of the line is the trip count
+that both timed runs ran with (0: the whole-run graph).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
@@ -18,14 +24,14 @@ import torch
 from .models.shallow_water import DAY_IN_SECONDS, Config, solve_fused
 
 
-def run(device=None) -> dict:
+def run(device=None, unroll: int = 0) -> dict:
     cfg = Config(nx=3600, ny=1800)
     t1 = 0.1 * DAY_IN_SECONDS
     info1, info5 = {}, {}
     wall, n_steps = solve_fused(cfg, t1, device=device, fast="auto",
-                                pinned=True, info=info1)
+                                pinned=True, unroll=unroll, info=info1)
     wall5, n_steps5 = solve_fused(cfg, 5 * t1, device=device, fast="auto",
-                                  pinned=True, info=info5)
+                                  pinned=True, unroll=unroll, info=info5)
     per_step = (wall5 - wall) / (n_steps5 - n_steps)
 
     # state-traffic model: each step must at least read and write the six
@@ -42,6 +48,9 @@ def run(device=None) -> dict:
         "n_steps": n_steps,
         # both timed runs replayed a captured CUDA graph
         "pinned": bool(info1.get("pinned") and info5.get("pinned")),
+        # the megastep trip count both timed runs ran with (0: whole run)
+        "unroll": (info1.get("unroll", 0)
+                   if info1.get("unroll") == info5.get("unroll") else 0),
         "environment": f"1-device {name}; no interconnect measured",
     }
     if per_step > 0:
@@ -50,8 +59,15 @@ def run(device=None) -> dict:
     return out
 
 
-def main():
-    print(json.dumps(run()))
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument(
+        "--unroll", type=int, default=0,
+        help="megastep trip count: the solve as CUDA-graph calls of N steps "
+             "each (solve_fused(unroll=N)) instead of one whole-run graph; "
+             "0 (default) keeps the whole-run graph")
+    args = parser.parse_args(argv)
+    print(json.dumps(run(unroll=args.unroll)))
 
 
 if __name__ == "__main__":

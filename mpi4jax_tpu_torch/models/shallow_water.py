@@ -34,6 +34,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -877,35 +878,9 @@ def solve(cfg: Config, t1: float, *, num_multisteps: int = 10, device=None,
     return snapshots, wall, n_steps
 
 
-class _GraphRun:
-    """A whole run captured as one CUDA graph and replayed: the port's
-    counterpart of the ``mpx.compile`` pin in the JAX package's
-    ``solve_fused``.  Each replay adds the kernel launches it contains to
-    each kernel's launch count."""
-
-    def __init__(self, fn, state: State):
-        self.static_in = State(*(f.clone() for f in state))
-        before = {name: c.captured for name, c in _build.COUNTERS.items()}
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.static_out = fn(self.static_in)
-        finally:
-            self.per_replay = {}
-            for name, c in _build.COUNTERS.items():
-                self.per_replay[name] = c.captured - before.get(name, 0)
-                c.captured = before.get(name, 0)
-
-    def __call__(self) -> State:
-        self.graph.replay()
-        for name, n in self.per_replay.items():
-            _build.COUNTERS[name].launches += n
-        return self.static_out
-
-
 def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
                 device=None, fast=True, return_state=False,
-                pinned: bool = False, info: dict = None):
+                pinned: bool = False, unroll: int = 0, info: dict = None):
     """Benchmark-mode solve: the first Euler step plus every remaining step
     as one run, timed after a warm-up, best of two.  Runs the same number
     of steps as ``solve(collect=False)``.  Returns ``(wall_time_s,
@@ -914,15 +889,34 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     The wide modes run the carried frame (``_wide_run``) over the
     whole run: one frame build, a margin-band refresh per call, one crop.
 
-    ``pinned=True`` captures the whole run as a CUDA graph (after one eager
-    warm-up run) and times its replays.  It needs a CUDA device and a
-    single-rank grid (a multi-rank run stages its exchanges through the
-    host, which a graph cannot capture); a failed capture raises, there is
-    no eager fallback.  When ``info`` (a dict) is
-    passed, ``info["runs"]`` counts the whole runs executed (warm-ups
-    included), ``info["pinned"]`` says whether they were replays and
-    ``info["exchange_s"]`` holds the seconds the timed (best) run spent
-    inside multi-rank ops (``ops/_staging.py:stats``)."""
+    ``pinned=True`` pins the whole run (``aot.compile``): on one CUDA rank
+    one CUDA graph, captured after one eager run, whose replays are timed.
+    It needs a CUDA device and a single-rank grid (a multi-rank run stages
+    its exchanges through the host, which a graph cannot capture); a
+    failed capture raises, there is no eager fallback.
+
+    ``unroll=N`` (> 0) runs the megastep mode of the JAX package: the
+    Euler step through the whole-run program at total 0, then
+    ``(n_steps - 1) // N`` calls of a megastep pin of N single steps
+    (``compile(one_step, state, unroll=N)``) and one pin of the remaining
+    steps; on one CUDA rank each is a CUDA graph, the two sharing one
+    memory pool, elsewhere the same loop runs eagerly.  The body is one
+    step: ``_run_steps(state, 1, ...)``, or the wide modes' ``_wide_run``
+    of one step (a frame build, one kernel call and a crop).  It works
+    on every grid and, when set, wins over ``pinned``.
+
+    When ``info`` (a dict) is passed, ``info["runs"]`` counts the whole
+    runs executed (warm-ups included), ``info["pinned"]`` says whether
+    they replayed CUDA graphs, ``info["unroll"]`` is the megastep trip
+    count that ran (0 without one), and of the timed (best) run
+    ``info["exchange_s"]`` holds the seconds spent inside multi-rank ops
+    (``ops/_staging.py:stats``), ``info["replays"]`` the graph replays,
+    ``info["launches"]`` each kernel's launches (the kernels that
+    launched) and ``info["bytes_copied"]`` the bytes the pins copied into
+    and out of their graphs."""
+    from ..aot import pinning
+    from ..parallel.region import spmd
+
     _, comm = make_mesh_and_comm(cfg, device=device)
     n_iters = max(0, math.ceil((t1 - cfg.dt) / (cfg.dt * num_multisteps)))
     n_steps = 1 + n_iters * num_multisteps
@@ -931,18 +925,45 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     if step is model_step_wide:
         m = _margin_rows(chunk_size)
 
-        def fused(state: State) -> State:
-            return _wide_run(state, n_steps, cfg, comm, chunk_size, m,
+        @partial(spmd, comm=comm, static_argnums=(1,))
+        def fused(state: State, total: int) -> State:
+            return _wide_run(state, total + 1, cfg, comm, chunk_size, m,
                              euler_first=True)
+
+        def one_step(state: State) -> State:
+            return _wide_run(state, 1, cfg, comm, chunk_size, m,
+                             euler_first=False)
     else:
-        def fused(state: State) -> State:
+        @partial(spmd, comm=comm, static_argnums=(1,))
+        def fused(state: State, total: int) -> State:
             state = step(state, cfg, comm, first_step=True)
-            return _run_steps(state, n_steps - 1, cfg, comm, step, chunk,
+            return _run_steps(state, total, cfg, comm, step, chunk,
                               chunk_size)
 
+        def one_step(state: State) -> State:
+            return _run_steps(state, 1, cfg, comm, step, chunk, chunk_size)
+
     state = initial_state(cfg, rank=comm.Get_rank(), device=comm.device)
-    runs = 0
-    if pinned:
+    runs, programs = 0, []
+    mega = bool(unroll) and unroll > 0
+    if mega:
+        n_mega, tail = divmod(n_steps - 1, unroll)
+        pool = (torch.cuda.graph_pool_handle()
+                if comm.device.type == "cuda" and comm.Get_size() == 1 else None)
+        pp = (pinning.compile(one_step, state, comm=comm, unroll=unroll, pool=pool)
+              if n_mega else None)
+        tail_pp = (pinning.compile(one_step, state, comm=comm, unroll=tail,
+                                   pool=pool) if tail else None)
+        programs = [p for p in (pp, tail_pp) if p is not None]
+
+        def runner(s: State) -> State:
+            s = fused(s, 0)
+            for _ in range(n_mega):
+                s = pp(s)
+            if tail_pp is not None:
+                s = tail_pp(s)
+            return s
+    elif pinned:
         if comm.Get_size() > 1:
             raise ValueError(
                 "pinned=True captures a CUDA graph, which cannot hold the "
@@ -951,38 +972,56 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
             )
         if comm.device.type != "cuda":
             raise ValueError("pinned=True captures a CUDA graph; it needs a CUDA device")
-        # one eager run on a side stream first (library load, allocator
-        # warm-up), as CUDA-graph capture requires
-        side = torch.cuda.Stream(comm.device)
-        side.wait_stream(torch.cuda.current_stream(comm.device))
-        with torch.cuda.stream(side):
-            _sync(fused(state))
-        torch.cuda.current_stream(comm.device).wait_stream(side)
-        runs += 1
-        runner = _GraphRun(fused, state)
+        runner = pinning.compile(fused, state, n_steps - 1)
+        programs = [runner]
+        runs += 1  # the eager run before the capture
     else:
-        def runner():
-            return fused(state)
+        def runner(s: State) -> State:
+            return fused(s, n_steps - 1)
 
-    _sync(runner())  # warm-up
+    graph = bool(programs) and all(p.graph for p in programs)
+    _sync(runner(state))  # warm-up
     runs += 1
-    wall, exchange_s = float("inf"), 0.0
+    wall, timed = float("inf"), {}
     for _ in range(2):
-        before = _staging.stats.seconds
+        before = _counts()
         start = time.perf_counter()
-        out = runner()
+        out = runner(state)
         _sync(out)
         elapsed = time.perf_counter() - start
         if elapsed < wall:
-            wall, exchange_s = elapsed, _staging.stats.seconds - before
+            wall, timed = elapsed, _count_delta(before)
         runs += 1
     if info is not None:
         info["runs"] = runs
-        info["pinned"] = bool(pinned)
-        info["exchange_s"] = exchange_s
+        info["pinned"] = graph
+        info["unroll"] = unroll if mega else 0
+        info.update(timed)
     if return_state:
         return wall, n_steps, out
     return wall, n_steps
+
+
+def _counts():
+    from ..aot import pinning
+
+    return (_staging.stats.seconds, pinning.stats(),
+            {k: c.launches for k, c in _build.COUNTERS.items()})
+
+
+def _count_delta(before) -> dict:
+    """What ran since ``_counts()`` gave ``before``: exchange seconds,
+    graph replays, each kernel's launches and the bytes pins copied."""
+    seconds, pins, launches = before
+    now_pins = _counts()[1]
+    return {
+        "exchange_s": _staging.stats.seconds - seconds,
+        "replays": now_pins["replays"] - pins["replays"],
+        "launches": {k: c.launches - launches.get(k, 0)
+                     for k, c in _build.COUNTERS.items()
+                     if c.launches != launches.get(k, 0)},
+        "bytes_copied": now_pins["copied_bytes"] - pins["copied_bytes"],
+    }
 
 
 def pick_process_grid(n: int):

@@ -38,10 +38,13 @@ whole results agree within the band the port's SUM is held to (rtol
 
 A start needs a region (``parallel/region.py``); a handle waited twice
 raises MPX112, and so does a start its region never waited, at the
-region's end.  ``with overlap():`` splits every ``allreduce``,
-``reduce_scatter`` and ``alltoall`` inside it into a start and a wait
-deferred to the result's first use (``_LazyWait``), or to the scope's
-end.  The JAX package's instrumentation spans (watchdog, telemetry,
+region's end.  Inside a megastep loop (``parallel/megastep.py``) a start
+records its iteration, and its span must close there: a start still in
+flight at the iteration's end raises MPX130 (``close_iteration``), and so
+does a wait of a start from another iteration or from outside the loop.
+``with overlap():`` splits every ``allreduce``, ``reduce_scatter`` and
+``alltoall`` inside it into a start and a wait deferred to the result's
+first use (``_LazyWait``), or to the scope's end.  The JAX package's instrumentation spans (watchdog, telemetry,
 native tracing) have no counterpart until those layers are ported.
 """
 
@@ -89,7 +92,7 @@ class AsyncHandle:
 
     __slots__ = ("kind", "comm", "reduction", "shape", "dtype", "device",
                  "sizes", "k", "mode", "pieces", "uid", "waited", "exchange",
-                 "order")
+                 "order", "loop")
 
     def __init__(self, kind, comm, reduction):
         self.kind = kind
@@ -100,6 +103,8 @@ class AsyncHandle:
         self.exchange = self.order = None
         self.uid = next(_span_counter)
         self.waited = False
+        # (loop id, iteration) of the megastep iteration it started in
+        self.loop = None
 
     def __repr__(self):
         state = "waited" if self.waited else "in-flight"
@@ -132,8 +137,49 @@ def _start(opname: str, comm, make):
             "in flight")
     comm = check_comm(comm, opname)
     handle = make(comm)
+    handle.loop = ctx.megastep
     ctx.handles.append(handle)
     return comm, handle
+
+
+def _check_span(opname: str, handle: AsyncHandle) -> None:
+    """MPX130 where the wait is not in the megastep iteration of its
+    start."""
+    ctx = current_context()
+    here = ctx.megastep if ctx is not None else None
+    if handle.loop == here:
+        return
+    where = ("the start is in a megastep iteration and the wait outside it"
+             if handle.loop is not None else
+             "the wait is inside a megastep iteration but its start is not")
+    raise mpx_error(
+        RuntimeError, "MPX130",
+        f"{opname}: async span {handle.kind}#{handle.uid} straddles a "
+        f"megastep loop boundary: {where}; keep each *_start/*_wait pair "
+        "inside one loop iteration, or drop unroll= for this program")
+
+
+def close_iteration(ctx, scope, label: str, comm) -> None:
+    """At the end of megastep iteration ``scope``: wait for every start it
+    left in flight (its buffers are still being written), then raise
+    MPX130 if there was one."""
+    if ctx is None:
+        return
+    left = [h for h in ctx.handles
+            if h.loop == scope and not h.waited and h.mode is not None]
+    if not left:
+        return
+    ctx.handles = [h for h in ctx.handles if h not in left]
+    for h in left:
+        if h.mode == "async":
+            _collect(h)
+        _done(h, None)
+    raise mpx_error(
+        RuntimeError, "MPX130",
+        f"megastep {label!r} on {comm!r}: iteration {scope[1]} ended with "
+        f"{len(left)} start(s) in flight: "
+        + ", ".join(f"{h.kind}#{h.uid}" for h in left)
+        + "; an async span must open and close within one loop iteration")
 
 
 def _full(handle: AsyncHandle, result) -> None:
@@ -411,6 +457,7 @@ def _check_p2p_handle(opname: str, handle) -> None:
             RuntimeError, "MPX112",
             f"{opname}: this handle was already waited — each "
             "send_start/recv_start pairs with exactly one p2p_wait")
+    _check_span(opname, handle)
 
 
 def _check_handle(opname: str, handle, kind: str) -> None:
@@ -422,6 +469,7 @@ def _check_handle(opname: str, handle, kind: str) -> None:
             RuntimeError, "MPX112",
             f"{opname}: this handle was already waited — each "
             f"{kind}_start pairs with exactly one {kind}_wait")
+    _check_span(opname, handle)
 
 
 def finish_region(ctx) -> None:

@@ -11,7 +11,11 @@ keep the JAX package's meaning, so a message greps the same:
 - MPX103, bare-int routing;
 - MPX105, root out of range;
 - MPX106, send/recv type-signature mismatch;
-- MPX112, an async start waited twice, or never waited in its region.
+- MPX112, an async start waited twice, or never waited in its region;
+- MPX129, a pinned program called after its world moved
+  (``aot/invalidation.py``);
+- MPX130, an async span that straddles a megastep loop boundary
+  (``ops/_async.py``).
 
 ``fold`` combines the blocks of every rank in ascending group-rank order
 with the association of the JAX package's doubling butterfly
@@ -31,7 +35,8 @@ import torch
 from ..parallel.region import current_context
 from ._fusion import flush_pending
 
-CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112"})
+CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
+                   "MPX129", "MPX130"})
 
 
 class Op(enum.Enum):

@@ -62,15 +62,18 @@ _inhibit = 0
 
 def set_fusion_mode(mode: Optional[str]) -> None:
     """Override ``MPI4JAX_TPU_FUSION`` (``None`` hands control back to the
-    variable)."""
+    variable).  Either way the configuration epoch moves, so a program
+    pinned before is stale (MPX129)."""
     global _mode_override
     if mode is None:
         _mode_override = _UNSET
+        config.bump_config_epoch()
         return
     if mode not in config.FUSION_MODES:
         raise ValueError(
             f"fusion mode must be one of {config.FUSION_MODES}, got {mode!r}")
     _mode_override = mode
+    config.bump_config_epoch()
 
 
 def effective_mode() -> str:

@@ -894,3 +894,138 @@ def test_fused_results_stay_on_the_card():
         tpx.set_fusion_mode(None)
     for got, want in zip(out, xs + xs):
         assert got.is_cuda and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the dispatch layer: pins as CUDA graphs, megastep graphs
+# ---------------------------------------------------------------------------
+
+
+def _one_rank_comm():
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+
+    return Comm("x", mesh=make_world_mesh((1,), ("x",), device="cuda"))
+
+
+def _generic_step(v):
+    from mpi4jax_tpu_torch import SUM, allreduce
+
+    s, _ = allreduce(v, op=SUM)
+    return s * 0.25 + v * 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unroll", [1, 3, 8])
+def test_graph_megastep_equals_eager_calls(unroll):
+    """``compile(unroll=N)`` on one CUDA rank is one CUDA graph whose call
+    equals N eager calls bit for bit."""
+    need_cuda()
+    import mpi4jax_tpu_torch as tpx
+
+    comm = _one_rank_comm()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((8, 256))
+                         .astype(np.float32)).cuda()
+    want = x
+    eager = tpx.spmd(_generic_step, comm=comm)
+    for _ in range(unroll):
+        want = eager(want)
+    pinned = tpx.compile(_generic_step, x, comm=comm, unroll=unroll)
+    before = tpx.aot.stats()["aot"]["replays"]
+    got = pinned(x)
+    torch.cuda.synchronize()
+    assert pinned.graph and pinned.unroll == unroll
+    assert tpx.aot.stats()["aot"]["replays"] == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_failed_capture_raises():
+    """A body that synchronises with the host cannot be captured: compile
+    raises, and nothing falls back to an eager run."""
+    need_cuda()
+    import mpi4jax_tpu_torch as tpx
+
+    def synchronising(v):
+        return v * v.sum().item()
+
+    x = torch.ones(4, 4, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        tpx.compile(synchronising, x, comm=_one_rank_comm())
+    torch.cuda.synchronize()
+    # the card is usable after the failed capture
+    assert tpx.compile(_generic_step, x, comm=_one_rank_comm())(x).sum().item() == 12.0
+
+
+@pytest.mark.gpu
+def test_results_survive_the_next_call_unless_donated():
+    """A call returns copies: the next replay does not overwrite them.
+    With the carry donated, ``s = program(s)`` copies nothing and each call
+    returns the graph's own buffers."""
+    need_cuda()
+    import mpi4jax_tpu_torch as tpx
+
+    comm = _one_rank_comm()
+    x = torch.arange(16.0, device="cuda").reshape(4, 4)
+    kept = tpx.compile(_generic_step, x, comm=comm)
+    a = kept(x)
+    a_copy = a.clone()
+    b = kept(a)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a_copy) and not torch.equal(a, b)
+    assert kept.bytes_copied == 2 * x.numel() * 4
+
+    donated = tpx.compile(_generic_step, x, comm=comm, donate_argnums=0)
+    s = donated(x.clone())
+    first = s.clone()
+    s2 = donated(s)
+    torch.cuda.synchronize()
+    assert s2.data_ptr() == s.data_ptr() and donated.bytes_copied == 0
+    assert torch.equal(s2, tpx.spmd(_generic_step, comm=comm)(first))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,per_step", [("pallas2", 1), ("wide2", 1),
+                                           ("pallas_halo", 2)])
+def test_solve_fused_unroll_on_the_card(mode, per_step):
+    """``solve_fused(unroll=4)`` over 12 steps (two megasteps and a tail of
+    3): graphs, one kernel call a step (two for the split-phase path), the
+    final state bit for bit with ``pinned=True``'s."""
+    need_cuda()
+    cfg = P.Config(nx=48, ny=24, periodic_x=mode != "wide2")
+    name = {"pallas2": "sw_steps", "wide2": "sw_wide", "pallas_halo": "sw_phase"}[mode]
+    info = {}
+    _, n, got = P.solve_fused(cfg, 12 * cfg.dt, num_multisteps=1, fast=mode,
+                              unroll=4, return_state=True, info=info)
+    _, _, want = P.solve_fused(cfg, 12 * cfg.dt, num_multisteps=1, fast=mode,
+                               pinned=True, return_state=True)
+    assert n == 12 and info["unroll"] == 4 and info["pinned"]
+    assert info["replays"] == 3 and info["launches"][name] == per_step * 12
+    for a, b in zip(want, got):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_unroll_one_launches_as_the_call_without_the_layer():
+    """``spmd(unroll=1)`` and ``compile(unroll=1)`` launch what a direct
+    call launches, with the same bits."""
+    need_cuda()
+    import mpi4jax_tpu_torch as tpx
+
+    cfg = P.Config(nx=48, ny=24)
+    _, comm = P.make_mesh_and_comm(cfg, device="cuda")
+    s = P.initial_state(cfg, device="cuda")
+
+    def step(state):
+        return P.model_step_fused(state, cfg, comm, False)
+
+    runs = []
+    for fn in (step, tpx.spmd(step, comm=comm), tpx.spmd(step, comm=comm, unroll=1),
+               tpx.compile(step, s, comm=comm, unroll=1)):
+        before = K.counter.launches
+        out = fn(s)
+        torch.cuda.synchronize()
+        runs.append((K.counter.launches - before, out))
+    assert [n for n, _ in runs] == [1, 1, 1, 1]
+    for _, out in runs[1:]:
+        for a, b in zip(runs[0][1], out):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))

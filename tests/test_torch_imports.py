@@ -2,7 +2,8 @@
 
 An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
-``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``,
+``tests/torch_ranks_dispatch.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -18,7 +19,8 @@ FILES = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
 # the smoke script, and the rank programs every test rank imports afresh
 FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_ops.py",
-          REPO / "tests" / "torch_ranks_throughput.py"]
+          REPO / "tests" / "torch_ranks_throughput.py",
+          REPO / "tests" / "torch_ranks_dispatch.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -63,5 +65,23 @@ def test_port_is_packaged():
 
     pkgs = find_packages(str(REPO), include=["mpi4jax_tpu*"])
     for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental",
-                ".utils"):
+                ".utils", ".aot"):
         assert "mpi4jax_tpu_torch" + sub in pkgs
+
+
+@pytest.mark.parametrize("module", ["mpi4jax_tpu_torch.aot", "mpi4jax_tpu_torch.aot.keys",
+                                    "mpi4jax_tpu_torch.aot.invalidation",
+                                    "mpi4jax_tpu_torch.aot.pinning",
+                                    "mpi4jax_tpu_torch.parallel.megastep"])
+def test_dispatch_layer_loads_no_jax(module):
+    """The dispatch layer's modules, imported in a fresh interpreter, load
+    neither JAX nor the JAX package."""
+    import subprocess
+    import sys
+
+    code = (f"import sys, {module}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mpi4jax_tpu')]; print(bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, check=True).stdout.strip()
+    assert out == "[]"

@@ -274,8 +274,10 @@ def test_solve_fused_matches_jax_solve_fused():
     _, n, state = P.solve_fused(pcfg, t1, num_multisteps=2, fast="auto",
                                 return_state=True, device="cpu", info=info)
     assert n == jn == 7
-    # a single-rank run makes no exchange
-    assert info == {"runs": 3, "pinned": False, "exchange_s": 0.0}
+    # a single-rank run makes no exchange, replays no graph and, on the
+    # CPU, launches no kernel
+    assert info == {"runs": 3, "pinned": False, "unroll": 0, "exchange_s": 0.0,
+                    "replays": 0, "launches": {}, "bytes_copied": 0}
     assert_in_band(jax_local(jstate), state, "solve_fused auto")
 
 
