@@ -2627,6 +2627,418 @@ def four_rank_throughput(launch, device, lct_kwargs):
     return summary
 
 
+# phase 11: the runtime services.  The one-GPU solves run each tier once;
+# the four-rank runs interleave the tiers in the same processes, so that
+# no tier is compared with another call's numbers
+RUNTIME_TIERS = ("off", "counters", "events")
+RUNTIME_INTERLEAVED = ("off", "counters", "events", "events", "counters", "off")
+RUNTIME_HALO_STEPS = 20
+# the split-phase step on one GPU: five boundary refreshes (h, u, v, then u
+# and v after the viscosity phase), each a sendrecv onto itself in the two
+# periodic x directions; on (2,2) four directions
+SENDRECV_A_STEP = {1: 10, 4: 20}
+# host us a call of the generic step read by phase 10 before the runtime
+# services existed (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5)
+BEFORE_SERVICES_HOST_US = {"eager_spmd": 65.20, "pinned": 48.22, "pinned_donated": 26.73}
+DRILL_TIMEOUT_S, DRILL_DELAY_S, DRILL_HANG_S = 1.0, 0.5, 3.0
+
+
+def _pending_journal():
+    from mpi4jax_tpu_torch.telemetry import journal
+
+    return sum(len(d) for d in journal._journal.pending.values())
+
+
+def _sendrecv(snap):
+    calls = sum(r["calls"] for r in snap["ops"].values() if r["op"] == "sendrecv")
+    records = sum(1 for e in snap.get("events", ()) if e.get("op") == "sendrecv")
+    return calls, records
+
+
+def runtime_solves(P, dev, t1):
+    """One GPU, 3600x1800, 0.1 day: the periodic (``fast="auto"``) and the
+    split-phase (``fast="pallas_halo"``) solves, ``pinned=True``, under
+    each telemetry tier: each final state bit for bit with ``off``'s, 221
+    ``sw_steps`` or 882 ``sw_phase`` launches a run; under ``counters``
+    the pin kept its graph and counted ``sendrecv`` per replay (10 a step
+    on the split-phase path, read from the snapshot); under ``events``
+    the pin ran eagerly (the knob named), with one journal record a
+    ``sendrecv`` and no begin left unpaired."""
+    from mpi4jax_tpu_torch import telemetry
+    from mpi4jax_tpu_torch.kernels import _build
+
+    out = {}
+    for label, fast, name, per_run, a_step in (
+            ("periodic", "auto", "sw_steps", 221, 0),
+            ("split_phase", "pallas_halo", "sw_phase", 882, SENDRECV_A_STEP[1])):
+        cfg = P.Config(nx=3600, ny=1800)
+        counter = _build.counter_for(name)
+        ref, rows = None, {}
+        for mode in RUNTIME_TIERS:
+            telemetry.reset()
+            telemetry.set_telemetry_mode(mode)
+            try:
+                info = {}
+                counter.launches = 0
+                wall, n, final = P.solve_fused(cfg, t1, device=dev, fast=fast,
+                                               pinned=True, return_state=True,
+                                               info=info)
+                torch.cuda.synchronize()
+                snap = telemetry.snapshot(include_events=True)
+                pending = _pending_journal()
+            finally:
+                telemetry.set_telemetry_mode(None)
+            calls, records = _sendrecv(snap)
+            runs = info["runs"]
+            want = a_step * n * runs
+            print(f"{label}, telemetry {mode}: {n / wall:.2f} steps/s, graph "
+                  f"{info['pinned']} ({info.get('eager_reason') or 'no per-op hook'}), "
+                  f"{info['launches'].get(name, 0)} {name} launches a run, "
+                  f"{counter.launches} over {runs} runs, sendrecv counted {calls} "
+                  f"(the code makes {want}), journal records {records}")
+            if info["launches"].get(name) != per_run or counter.launches != per_run * runs:
+                raise AssertionError(f"{label} under {mode}: {name} launched "
+                                     f"{info['launches']} a run and {counter.launches} "
+                                     f"in all, expected {per_run} a run")
+            if mode == "off":
+                ref = final
+                if not info["pinned"] or calls or records:
+                    raise AssertionError(f"{label} under off: graph {info['pinned']}, "
+                                         f"{calls} counted, {records} journaled")
+            else:
+                compare(f"{label}, telemetry {mode} vs off", ref, final,
+                        P.State._fields, exact=True)
+            if mode == "counters" and not (info["pinned"] and info.get("eager_reason") is None
+                                           and calls == want and records == 0):
+                raise AssertionError(f"{label} under counters: graph {info['pinned']}, "
+                                     f"{calls} sendrecv counted, expected {want}")
+            if mode == "events" and not (
+                    not info["pinned"]
+                    and info.get("eager_reason") == "MPI4JAX_TPU_TELEMETRY=events"
+                    and calls == records == want and pending == 0):
+                raise AssertionError(
+                    f"{label} under events: graph {info['pinned']} "
+                    f"({info.get('eager_reason')}), {calls} counted, {records} journaled, "
+                    f"{pending} begins unpaired, expected {want}")
+            rows[mode] = {"steps": n, "wall": wall, "steps_per_s": n / wall,
+                          "graph": info["pinned"], "eager_reason": info.get("eager_reason"),
+                          "runs": runs, "launches_per_run": info["launches"].get(name, 0),
+                          "launches": counter.launches, "sendrecv_counted": calls,
+                          "sendrecv_journaled": records, "bit_for_bit_with_off": True}
+            del final
+        out[label] = rows
+        del ref
+        telemetry.reset()
+        torch.cuda.empty_cache()
+    return out
+
+
+def runtime_rank(rank, device, nx, ny, t1, tdir, halo_steps):
+    """One of four ranks on a (2,2) grid, all on ``device``: the 0.1-day
+    ``wide2`` solve and ``halo_steps`` split-phase steps under each tier
+    of ``RUNTIME_INTERLEAVED``, the journals of an events run in
+    ``tdir/run<k>-events``; each run's final states against the first
+    (``off``) run's bit for bit; ``report()`` in the first events run."""
+    from mpi4jax_tpu_torch import telemetry
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.ops import _staging
+    from mpi4jax_tpu_torch.telemetry import journal
+
+    import io
+
+    dev = torch.device(device)
+    cfg = P.Config(nx=nx, ny=ny, nproc_y=2, nproc_x=2)
+    ref, runs, text = None, [], None
+    for k, mode in enumerate(RUNTIME_INTERLEAVED):
+        telemetry.reset()
+        telemetry.set_telemetry_mode(mode)
+        d = os.path.join(tdir, f"run{k}-{mode}")
+        if mode == "events":
+            os.environ["MPI4JAX_TPU_TELEMETRY_DIR"] = d
+        try:
+            info = {}
+            KW.counter.launches = KP.counter.launches = 0
+            wall, n, final = P.solve_fused(cfg, t1, device=dev, fast="auto",
+                                           return_state=True, info=info)
+            wide_calls = _sendrecv(telemetry.snapshot())[0]
+            _, comm = P.make_mesh_and_comm(cfg, device=dev)
+            s = P.initial_state(cfg, rank=rank, device=dev)
+            first, multi = P.make_stepper(cfg, comm, fast="pallas_halo")
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ex0, t0 = _staging.stats.seconds, time.perf_counter()
+            halo = multi(first(s), halo_steps - 1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            halo_wall = time.perf_counter() - t0
+            halo_ex = _staging.stats.seconds - ex0
+            journal.flush()
+            snap = telemetry.snapshot(include_events=True)
+            pending = _pending_journal()
+            if mode == "events" and text is None:
+                text = telemetry.report(file=io.StringIO())
+        finally:
+            telemetry.set_telemetry_mode(None)
+            os.environ.pop("MPI4JAX_TPU_TELEMETRY_DIR", None)
+        fields = tuple(final) + tuple(halo)
+        if ref is None:
+            ref = fields
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(ref, fields))
+        calls, records = _sendrecv(snap)
+        runs.append({"mode": mode, "steps": n, "wall": wall, "steps_per_s": n / wall,
+                     "runs": info["runs"], "exchange_s": info["exchange_s"],
+                     "halo_wall": halo_wall, "halo_exchange_s": halo_ex,
+                     "halo_steps_per_s": halo_steps / halo_wall,
+                     "wide_launches": KW.counter.launches,
+                     "phase_launches": KP.counter.launches,
+                     "sendrecv_counted": calls, "sendrecv_journaled": records,
+                     "halo_sendrecv_counted": calls - wide_calls,
+                     "pending": pending, "bit_for_bit_with_off": same,
+                     "finite": all(bool(torch.isfinite(f).all()) for f in fields),
+                     "dir": d if mode == "events" else None})
+        del final, halo
+    return {"runs": runs, "report": text if rank == 0 else None}
+
+
+def four_rank_runtime(launch, device, t1, tdir, nx=3600, ny=1800):
+    """Four gloo ranks on the card: ``runtime_rank`` on each, then each
+    events run's journals merged by the port's CLI (the Perfetto JSON
+    loaded) and checked: no begin unpaired, one record a ``sendrecv`` call
+    and rank, a skew table over four ranks."""
+    from mpi4jax_tpu_torch.telemetry import merge
+
+    t0 = time.perf_counter()
+    ranks = launch.run(runtime_rank, 4, backend="gloo", device=device, timeout=600,
+                       args=(device, nx, ny, t1, tdir, RUNTIME_HALO_STEPS))
+    print(f"four ranks under the telemetry tiers: {time.perf_counter() - t0:.1f} s "
+          "with start-up")
+    for r, res in enumerate(ranks):
+        for run in res["runs"]:
+            if not (run["bit_for_bit_with_off"] and run["finite"]):
+                raise AssertionError(f"rank {r}, {run['mode']}: final state not bit for "
+                                     "bit with off's")
+            if run["wide_launches"] != 221 * run["runs"] or run["phase_launches"] != 2 * RUNTIME_HALO_STEPS:
+                raise AssertionError(f"rank {r}, {run['mode']}: {run['wide_launches']} "
+                                     f"sw_wide and {run['phase_launches']} sw_phase launches")
+            want = 0 if run["mode"] == "off" else SENDRECV_A_STEP[4] * RUNTIME_HALO_STEPS
+            if run["halo_sendrecv_counted"] != want:
+                raise AssertionError(f"rank {r}, {run['mode']}: the split-phase steps "
+                                     f"counted {run['halo_sendrecv_counted']} sendrecv, "
+                                     f"the code makes {want}")
+            if run["mode"] == "events" and (run["pending"]
+                                            or run["sendrecv_journaled"] != run["sendrecv_counted"]):
+                raise AssertionError(f"rank {r}, events: {run['pending']} begins unpaired, "
+                                     f"{run['sendrecv_journaled']} records for "
+                                     f"{run['sendrecv_counted']} calls")
+    merged = {}
+    for k, run0 in enumerate(ranks[0]["runs"]):
+        if run0["dir"] is None:
+            continue
+        d = run0["dir"]
+        perfetto = os.path.join(d, "trace.json")
+        cli = subprocess.run([sys.executable, "-m", "mpi4jax_tpu_torch.telemetry", "merge",
+                              d, "--perfetto", perfetto], capture_output=True, text=True)
+        if cli.returncode != 0:
+            raise AssertionError(f"merge CLI on {d} failed: {cli.stderr[-2000:]}")
+        with open(perfetto) as f:
+            trace = json.load(f)
+        recs = merge.merge_dir(d)
+        per_rank = {}
+        for rec in recs:
+            if rec["type"] == "op" and rec["op"] == "sendrecv":
+                per_rank[rec["rank"]] = per_rank.get(rec["rank"], 0) + 1
+        want = {r: res["runs"][k]["sendrecv_counted"] for r, res in enumerate(ranks)}
+        table = merge.skew_table(recs)
+        print(f"  run {k} (events), merged: {cli.stdout.splitlines()[0]}; "
+              f"{len(trace['traceEvents'])} trace events; sendrecv records by rank "
+              f"{per_rank} (counted {want})")
+        if per_rank != want or sorted(table["per_rank"]) != [0, 1, 2, 3]:
+            raise AssertionError(f"run {k}: merged sendrecv records {per_rank}, counted "
+                                 f"{want}, skew ranks {sorted(table['per_rank'])}")
+        merged[f"run{k}"] = {"records": len(recs), "trace_events": len(trace["traceEvents"]),
+                             "sendrecv_by_rank": per_rank,
+                             "max_skew_s": table["per_op"]["sendrecv"]["max_skew"],
+                             "last_arrivals": {r: v["last_arrivals"]
+                                               for r, v in table["per_rank"].items()}}
+    print("rank 0's report() in the first events run:")
+    print(ranks[0]["report"])
+    r0 = [{k: v for k, v in run.items() if k != "dir"} for run in ranks[0]["runs"]]
+    for run in r0:
+        print(f"  rank 0, {run['mode']}: wide2 {run['steps_per_s']:.2f} steps/s "
+              f"({run['exchange_s']:.4f} s of {run['wall']:.4f} in exchanges), "
+              f"split-phase {run['halo_steps_per_s']:.2f} steps/s "
+              f"({run['halo_exchange_s']:.4f} s of {run['halo_wall']:.4f})")
+    return {"rank0": r0, "merged": merged}
+
+
+def runtime_drills(device, tdir, nx=3600, ny=1800):
+    """The four drills of ``models/runtime_drill.py`` at 3600x1800 on
+    (2,2), each its own launch, all started at once; each checked."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi4jax_tpu_torch.models import runtime_drill
+    from mpi4jax_tpu_torch.telemetry import merge
+
+    def one(name):
+        return name, runtime_drill.run_drill(
+            name, device=device, nx=nx, ny=ny, timeout=DRILL_TIMEOUT_S,
+            delay=DRILL_DELAY_S, hang=DRILL_HANG_S, limit=180,
+            workdir=os.path.join(tdir, f"drill-{name}"))
+
+    with ThreadPoolExecutor(4) as pool:
+        res = dict(pool.map(one, runtime_drill.DRILLS))
+    out = {}
+    d = res["delay"]
+    table = merge.skew_table(merge.merge_dir(d["dir"]))
+    arrivals = {r: v["last_arrivals"] for r, v in table["per_rank"].items()}
+    late = max(arrivals, key=arrivals.get)
+    print(f"drill delay (rank 2, {DRILL_DELAY_S} s at its 10th sendrecv and after): exit "
+          f"{d['exit']}, {d['seconds']:.1f} s; last arrivals by rank {arrivals}; max skew "
+          f"{table['per_op']['sendrecv']['max_skew']:.4f} s")
+    print(merge.render_skew(table))
+    if d["exit"] != [0, 0, 0, 0] or late != 2:
+        raise AssertionError(f"delay drill: exits {d['exit']}, late rank {late}")
+    out["delay"] = {"exit": d["exit"], "seconds": d["seconds"], "last_arrivals": arrivals,
+                    "max_skew_s": table["per_op"]["sendrecv"]["max_skew"]}
+
+    w = res["watchdog"]
+    lines = {}
+    for r in (0, 1, 3):
+        m = re.search(rf"r{r} \| WATCHDOG \| in-flight: MPI_Sendrecv \(call [0-9a-f]{{8}}, "
+                      r"axes=.*elapsed (\d+\.\d+)s\)", w["stderr"][r])
+        fatal = re.search(rf"r{r} \| FATAL: collective watchdog: MPI_Sendrecv exceeded "
+                          rf"{DRILL_TIMEOUT_S:g}s \(call [0-9a-f]{{8}}, axes=[^)]*\)\)",
+                          w["stderr"][r])
+        if w["exit"][r] == 0 or not m or not fatal:
+            raise AssertionError(f"watchdog drill, rank {r}: exit {w['exit'][r]}, "
+                                 f"stderr {w['stderr'][r][-1500:]}")
+        lines[r] = [m.group(0), fatal.group(0)]
+        print(f"  {m.group(0)}\n  {fatal.group(0)}")
+    print(f"drill watchdog (rank 2 delayed {DRILL_HANG_S} s, watchdog {DRILL_TIMEOUT_S} s): "
+          f"exit {w['exit']}, {w['seconds']:.1f} s")
+    if w["exit"][2] == 0:
+        raise AssertionError("watchdog drill: the delayed rank finished")
+    out["watchdog"] = {"exit": w["exit"], "seconds": w["seconds"], "lines": lines}
+
+    c = res["corrupt"]
+    guard = re.search(r"r0 \| FATAL: MPI_Sendrecv: non-finite input detected "
+                      r"\(MPI4JAX_TPU_CHECK_NUMERICS, call [0-9a-f]{8}\)", c["stderr"][0])
+    print(f"drill corrupt (rank 0's sendrecv inputs NaN, numeric guards): exit "
+          f"{c['exit']}, {c['seconds']:.1f} s: {guard.group(0) if guard else None}")
+    if not guard or c["exit"][0] in (0, 13):
+        raise AssertionError(f"corrupt drill: exit {c['exit']}, {c['stderr'][0][-1500:]}")
+    out["corrupt"] = {"exit": c["exit"], "seconds": c["seconds"], "line": guard.group(0)}
+
+    x = res["die"]
+    print(f"drill die (rank 1 in its 5th sendrecv, watchdog {DRILL_TIMEOUT_S} s): exit "
+          f"{x['exit']}, {x['seconds']:.1f} s")
+    if x["exit"][1] != 13 or "die injected in MPI_Sendrecv" not in x["stderr"][1] \
+            or any(code in (0, None) for code in x["exit"]):
+        raise AssertionError(f"die drill: exit {x['exit']}")
+    out["die"] = {"exit": x["exit"], "seconds": x["seconds"]}
+    return out
+
+
+def runtime_call_cost(dev):
+    """Host us a call of the generic (8, 256) step on one CUDA rank, eager
+    ``spmd``, under off, counters, events, watchdog, numeric guards and off
+    again (in this order, one process), and a pinned one-step graph under
+    off and counters."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import resilience, telemetry
+
+    comm = tpx.Comm("x", mesh=tpx.make_world_mesh((1,), ("x",), device=dev))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(GENERIC_SHAPE).astype(np.float32)).to(dev)
+    eager = tpx.spmd(generic_step, comm=comm)
+    tiers = (("off", {}), ("counters", {"telemetry": "counters"}),
+             ("events", {"telemetry": "events"}), ("watchdog", {"watchdog": 10.0}),
+             ("numerics", {"numerics": True}), ("off_again", {}))
+    us = {}
+    for label, knobs in tiers:
+        telemetry.set_telemetry_mode(knobs.get("telemetry"))
+        resilience.set_watchdog_timeout(knobs.get("watchdog"))
+        resilience.set_check_numerics(knobs.get("numerics", False))
+        try:
+            us[label] = host_us(eager, x, GENERIC_CALLS)
+        finally:
+            telemetry.set_telemetry_mode(None)
+            resilience.reset_overrides()
+            telemetry.reset()
+    pinned = {}
+    for mode in ("off", "counters"):
+        telemetry.set_telemetry_mode(mode)
+        try:
+            one = tpx.compile(generic_step, x, comm=comm)
+            pinned[mode] = host_us(one, x, GENERIC_CALLS)
+            if not one.graph:
+                raise AssertionError(f"the pin under {mode} is not a graph")
+        finally:
+            telemetry.set_telemetry_mode(None)
+            telemetry.reset()
+    print("  host us a call of the generic (8, 256) step, eager spmd: "
+          + json.dumps(us) + "; pinned one-step graph: " + json.dumps(pinned)
+          + "; phase 10 before the runtime services (H100 80GB HBM3, 700 W): "
+          + json.dumps(BEFORE_SERVICES_HOST_US))
+    return {"eager_spmd": us, "pinned": pinned,
+            "before_services": BEFORE_SERVICES_HOST_US}
+
+
+def runtime_phase(P, dev, launch):
+    """Phase 11 (see the module docstring); returns its summary, printed
+    as one JSON line."""
+    from mpi4jax_tpu_torch import native
+
+    import tempfile
+
+    t0 = time.perf_counter()
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    out = {"host_library": native.build(verbose=False)}
+    out["one_gpu"] = runtime_solves(P, dev, t1)
+    out["call_cost_us"] = runtime_call_cost(dev)
+    # the journals and the drills' logs, removed at the end
+    with tempfile.TemporaryDirectory(prefix="mpx-runtime-") as tdir:
+        out["four_ranks"] = four_rank_runtime(launch, "cuda:0", t1, tdir)
+        torch.cuda.empty_cache()
+        out["drills"] = runtime_drills("cuda:0", tdir)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 (runtime services): {out['seconds']:.1f} s")
+    return out
+
+
+def runtime_main():
+    """``python3 chip_smoke.py --runtime``: builds the stencil sources and
+    the host library and runs phase 11 alone; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch import native
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    native.build(verbose=False)
+    print(f"built the stencil sources and the host library in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = runtime_phase(P, torch.device("cuda"), launch)
+    print(smi)
+    print(json.dumps({"runtime": out}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2660,6 +3072,9 @@ def main():
                               FA.tf32_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in "
           f"{time.perf_counter() - t0:.1f} s")
+    from mpi4jax_tpu_torch import native
+
+    print(f"built the host library {native.build(verbose=False)}")
     print_stencil_ptxas(_build)
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_tf32.build.log")
     fwd_tf32_hmma = sass_tf32_mma(libs[3], _build._nvcc())
@@ -2792,6 +3207,12 @@ def main():
     dispatch = dispatch_phase(P, dev)
     print(json.dumps({"dispatch": dispatch}))
 
+    # -- the runtime services: telemetry tiers, resilience drills ----------
+    runtime = runtime_phase(P, dev, launch)
+    print(json.dumps({"runtime": runtime}))
+    one_gpu = runtime["one_gpu"]
+    four = runtime["four_ranks"]["rank0"]
+
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
     phase2 = phase_cases["periodic,phase2"]
@@ -2817,6 +3238,8 @@ def main():
         "one_step": per_case["first=False,nsteps=1"],
         "dispatch_launches": {n: r["launches"] for n, r in dispatch["periodic"].items()
                               if n.startswith("unroll")},
+        # phase 11: the periodic solve under each telemetry tier, every run
+        "runtime_launches": {m: r["launches"] for m, r in one_gpu["periodic"].items()},
     }, {
         "name": "sw_phase",
         "route": "cuda",
@@ -2845,6 +3268,10 @@ def main():
         # phase 10: the split-phase megastep solve
         "dispatch_launches": {n: r["launches"] for n, r in dispatch["split_phase"].items()
                               if n.startswith("unroll")},
+        # phase 11: the split-phase solve under each tier (one GPU), and
+        # rank 0's 20 steps under each interleaved tier (four ranks)
+        "runtime_launches": {m: r["launches"] for m, r in one_gpu["split_phase"].items()},
+        "runtime_four_rank_launches_rank0": [r["phase_launches"] for r in four],
     }, {
         "name": "sw_wide",
         "route": "cuda",
@@ -2869,6 +3296,8 @@ def main():
         "one_step": wide_cases["nsteps=1"],
         "dispatch_launches": {n: r["launches"] for n, r in dispatch["walled"].items()
                               if n.startswith("unroll")},
+        # phase 11: rank 0's wide2 solve under each interleaved tier
+        "runtime_four_rank_launches_rank0": [r["wide_launches"] for r in four],
     }]
     for name, main_case, replaces in (
         ("flash_fwd_tf32", "f32", ":122"),
@@ -3010,5 +3439,6 @@ def main():
 
 if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
-             "--ring": ring_main, "--dispatch": dispatch_main}
+             "--ring": ring_main, "--dispatch": dispatch_main,
+             "--runtime": runtime_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

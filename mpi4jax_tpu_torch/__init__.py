@@ -27,7 +27,13 @@ training and fusion demo examples (``models/``); and the dispatch
 layer: ``compile`` (``aot/``: a pinned program, on one CUDA rank a
 captured CUDA graph, stale under MPX129 when a knob moves), megastep loops
 (``spmd``/``compile`` ``unroll=N``, ``parallel/megastep.py``, with its
-boundary hooks) and ``models.shallow_water.solve_fused(unroll=N)``.
+boundary hooks) and ``models.shallow_water.solve_fused(unroll=N)``;
+and the runtime services around every op's one dispatch point
+(``ops/_base.py:run_body``): the native host hooks (``native.py``:
+runtime tracing, ``abort_if``, the C++ watchdog), telemetry
+(``telemetry/``: counters, the events journal, ``report``, the merge of
+journals) and resilience (``resilience/``: the watchdog, fault
+injection, numeric guards, the rendezvous retry), all off by default.
 Nothing here imports JAX.
 """
 
@@ -61,7 +67,7 @@ from .ops import (  # noqa: F401
     send,
     sendrecv,
 )
-from . import aot, compress  # noqa: F401
+from . import aot, compress, resilience, telemetry  # noqa: F401
 from .aot import compile  # noqa: F401
 from .ops._async import (  # noqa: F401
     allreduce_start,
@@ -86,6 +92,12 @@ from .parallel.mesh import (  # noqa: F401
 from .parallel.megastep import register_boundary_hook  # noqa: F401
 from .parallel.rankspec import shift  # noqa: F401
 from .parallel.region import get_default_comm, run, spmd  # noqa: F401
+from .resilience import (  # noqa: F401
+    set_check_numerics,
+    set_fault_spec,
+    set_watchdog_timeout,
+)
+from .telemetry import set_telemetry_mode  # noqa: F401
 
 __all__ = [
     "BAND",
@@ -131,6 +143,7 @@ __all__ = [
     "reduce_scatter_start",
     "reduce_scatter_wait",
     "register_boundary_hook",
+    "resilience",
     "resolve_device",
     "run",
     "scan",
@@ -138,7 +151,12 @@ __all__ = [
     "send",
     "send_start",
     "sendrecv",
+    "set_check_numerics",
+    "set_fault_spec",
     "set_fusion_mode",
+    "set_telemetry_mode",
+    "set_watchdog_timeout",
     "shift",
     "spmd",
+    "telemetry",
 ]

@@ -11,8 +11,8 @@ at the pin:
   epoch plus the raw value of every variable of ``config.FLAG_NAMES``
   except the storage-only and dispatch-only ones, which shape nothing a
   pin runs;
-- the elastic epoch.  ``resilience/`` is not ported, so it is 0, as the
-  JAX package's is in a world that never imported its resilience layer.
+- the elastic epoch.  ``resilience/elastic.py`` is not ported yet, so it
+  is 0, as the JAX package's is in a world that never churned.
 
 A call checks two things: the epochs (ints, first), then the raw
 variables.  A failed check raises ``StaleProgramError`` tagged MPX129,

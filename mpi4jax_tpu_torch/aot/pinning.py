@@ -35,9 +35,24 @@ was pinned in with the current one and raises ``StaleProgramError``
 
 Each replay adds the launches its graph holds to each kernel's count
 (``kernels/_build.py:COUNTERS``), so a replayed kernel is counted as one
-launched directly.  The JAX package's persistent tier (its disk cache,
-serialization, C++ fast path, cache warming) and ``compile_step`` wait:
-ROADMAP Queue 1 item 6.
+launched directly.
+
+The runtime services (``telemetry/``, ``resilience/``, ``native.py``).
+A replay runs no host code, so a graph cannot run the host hooks the
+dispatch point puts around each op.  Under the ``counters`` tier alone a
+pin keeps its graph: the capture stashes the telemetry records of the ops
+its body ran (``telemetry/core.py:capture_eager``) and each replay counts
+them, so a replayed op is counted as one called directly.  When a service
+asks for host code at every op call (the ``events`` tier, the watchdog, a
+fault spec, numeric guards, runtime tracing or debug logging), a pin on
+one CUDA rank runs its body eagerly instead, the pin's meaning on the CPU
+and on several ranks: ``program.graph`` is False, ``program.info`` names
+the knob, and ``stats()["eager_pins"]`` and the meter ``aot.eager_pins``
+count it.  Its kernels still run on the card.
+
+The JAX package's persistent tier (its disk cache, serialization, C++
+fast path, cache warming) and ``compile_step`` wait: ROADMAP Queue 1
+item 6.
 """
 
 from __future__ import annotations
@@ -48,6 +63,8 @@ import torch
 import torch.distributed as dist
 
 from ..kernels import _build
+from ..ops._base import per_op_hook as _per_op_hook
+from ..telemetry import core as _telemetry
 from ..utils.tree import tree_flatten, tree_leaves
 from . import keys
 from .invalidation import WorldStamp
@@ -56,7 +73,8 @@ __all__ = ["PinnedProgram", "compile", "stats", "reset_stats"]
 
 
 class _Stats:
-    __slots__ = ("pins", "calls", "stale_raises", "replays", "copied_bytes")
+    __slots__ = ("pins", "calls", "stale_raises", "replays", "copied_bytes",
+                 "eager_pins")
 
     def __init__(self):
         self.reset()
@@ -67,6 +85,7 @@ class _Stats:
         self.stale_raises = 0
         self.replays = 0
         self.copied_bytes = 0
+        self.eager_pins = 0
 
 
 _stats = _Stats()
@@ -75,8 +94,9 @@ _stats = _Stats()
 def stats() -> dict:
     """Pinning counters: ``pins`` (programs pinned), ``calls`` (pinned
     calls), ``stale_raises`` (MPX129 refusals), ``replays`` (CUDA-graph
-    replays) and ``copied_bytes`` (bytes copied into and out of graphs by
-    calls)."""
+    replays), ``copied_bytes`` (bytes copied into and out of graphs by
+    calls) and ``eager_pins`` (pins on one CUDA rank that run eagerly under
+    a per-op host hook; ``program.info`` names the knob)."""
     return {k: getattr(_stats, k) for k in _Stats.__slots__}
 
 
@@ -140,8 +160,12 @@ class GraphRun:
 
         before = {k: c.captured for k, c in _build.COUNTERS.items()}
         self.graph = torch.cuda.CUDAGraph()
+        # the telemetry records of the ops the capture runs, counted at
+        # every replay (nothing is recorded with telemetry off)
+        self.telemetry = _telemetry.EagerCell()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool), \
+                    _telemetry.capture_eager(self.telemetry, ()):
                 out = body(*args)
                 out_leaves, self.unflatten_out = tree_flatten(out)
                 self.alias = alias and _signature(out_leaves) == self.signature
@@ -174,6 +198,10 @@ class GraphRun:
         self.graph.replay()
         for k, n in self.per_replay.items():
             _build.COUNTERS[k].launches += n
+        if self.telemetry.by_sig:
+            # a capture under off stashed nothing, and a pin is captured
+            # again when the tier changes: under off a replay counts nothing
+            _telemetry.count_eager_call(self.telemetry, ())
         _stats.replays += 1
         if self.alias:
             outs = self.static_out
@@ -187,13 +215,15 @@ class GraphRun:
 
 class EagerRun:
     """The body run at every call: the pin's meaning on the CPU and on a
-    world of several ranks."""
+    world of several ranks, and on one CUDA rank under a per-op host hook
+    (``reason``, the knob)."""
 
-    def __init__(self, body, dyn: tuple, name: str):
+    def __init__(self, body, dyn: tuple, name: str, reason: Optional[str] = None):
         self.body = body
         self.name = name
         self.signature = _signature(tree_leaves(tuple(dyn)))
         self.bytes_copied = 0
+        self.reason = reason
 
     def __call__(self, *dyn):
         _check_signature(self.name, self.signature, tree_leaves(tuple(dyn)))
@@ -229,6 +259,14 @@ class PinnedProgram:
     @property
     def bytes_copied(self) -> int:
         return self._run.bytes_copied
+
+    @property
+    def info(self) -> dict:
+        """``graph`` and, for a pin on one CUDA rank that runs eagerly,
+        ``eager_reason``: the knob that asked for a host hook at every op
+        (``None`` otherwise)."""
+        return {"graph": self.graph,
+                "eager_reason": getattr(self._run, "reason", None)}
 
     def __call__(self, *args):
         world = self._world
@@ -381,12 +419,17 @@ def compile(fn, *example_args, comm=None, donate_argnums=(),
     leaves = tree_leaves(dyn)
     tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
     device = tensors[0].device if tensors else (c.device if c is not None else None)
-    if device is not None and device.type == "cuda" and _one_rank_world():
+    on_card = device is not None and device.type == "cuda" and _one_rank_world()
+    per_op = _per_op_hook() if on_card else None
+    if on_card and per_op is None:
         alias = bool(dyn) and set(donate) == set(
             i for i in range(len(example_args)) if i not in statics)
         run = GraphRun(body, dyn, name, alias, pool)
     else:
-        run = EagerRun(body, dyn, name)
+        run = EagerRun(body, dyn, name, per_op)
+        if per_op is not None:
+            _stats.eager_pins += 1
+            _telemetry.meter("aot.eager_pins")
     _stats.pins += 1
     key = program_key(name, inner, leaves, static_vals, c, n_unroll, donate)
 

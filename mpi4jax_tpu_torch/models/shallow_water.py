@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import math
 import time
+import weakref
 from dataclasses import dataclass
 from functools import partial
 from typing import NamedTuple
@@ -204,6 +205,20 @@ def reassemble(stacked: np.ndarray, cfg: Config) -> np.ndarray:
 
 _ALL = slice(None)
 
+# the row and column comms of each grid comm, built at its first exchange:
+# the JAX package traces a step once, so its sub-comms (and their uids,
+# which key the telemetry counters) are built once too
+_ROW_COL = weakref.WeakKeyDictionary()
+
+
+def row_col(comm: Comm):
+    """``(comm.sub("px"), comm.sub("py"))``, the same two comms at every
+    call on ``comm``."""
+    subs = _ROW_COL.get(comm)
+    if subs is None:
+        subs = _ROW_COL[comm] = (comm.sub("px"), comm.sub("py"))
+    return subs
+
 
 def enforce_boundaries(arr, kind: str, cfg: Config, comm: Comm, token):
     """Exchange the 1-cell halo with the four neighbours and apply the
@@ -213,8 +228,7 @@ def enforce_boundaries(arr, kind: str, cfg: Config, comm: Comm, token):
     non-wrapping direction on a size-1 axis has no neighbour and is
     skipped.  Returns a new tensor and the token."""
     assert kind in ("h", "u", "v")
-    commx = comm.sub("px")
-    commy = comm.sub("py")
+    commx, commy = row_col(comm)
     wrap_x = cfg.periodic_x
     arr = arr.clone()
 
@@ -597,7 +611,7 @@ def _wide_exchange(fields, cfg: Config, comm: Comm, m: int, token):
     tendencies take the whole strip, whose first cell is the owning rank's
     value at the seam."""
     nyl, nxl = cfg.ny_local, cfg.nx_local
-    commx, commy = comm.sub("px"), comm.sub("py")
+    commx, commy = row_col(comm)
     wrap_x = cfg.periodic_x
 
     # x phase: (6, nyl, m) strips; high-side strips travel east
@@ -661,7 +675,7 @@ def _wide_refresh(wf, cfg: Config, comm: Comm, m: int, token):
     are written into the carried tensors in place."""
     e = m - 1
     nyl, nxl = cfg.ny_local, cfg.nx_local
-    commx, commy = comm.sub("px"), comm.sub("py")
+    commx, commy = row_col(comm)
     wrap_x = cfg.periodic_x
 
     # x bands (6, ny_w, e): west margin <- west neighbour's easternmost
@@ -908,7 +922,9 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     When ``info`` (a dict) is passed, ``info["runs"]`` counts the whole
     runs executed (warm-ups included), ``info["pinned"]`` says whether
     they replayed CUDA graphs, ``info["unroll"]`` is the megastep trip
-    count that ran (0 without one), and of the timed (best) run
+    count that ran (0 without one), ``info["eager_reason"]``, present
+    only when a pin on one CUDA rank ran eagerly, the knob that made it
+    (``aot/pinning.py``), and of the timed (best) run
     ``info["exchange_s"]`` holds the seconds spent inside multi-rank ops
     (``ops/_staging.py:stats``), ``info["replays"]`` the graph replays,
     ``info["launches"]`` each kernel's launches (the kernels that
@@ -974,7 +990,7 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
             raise ValueError("pinned=True captures a CUDA graph; it needs a CUDA device")
         runner = pinning.compile(fused, state, n_steps - 1)
         programs = [runner]
-        runs += 1  # the eager run before the capture
+        runs += int(runner.graph)  # the eager run before the capture
     else:
         def runner(s: State) -> State:
             return fused(s, n_steps - 1)
@@ -995,6 +1011,11 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     if info is not None:
         info["runs"] = runs
         info["pinned"] = graph
+        # the knob that made a pin on one CUDA rank run eagerly, if one did
+        reason = next((p.info["eager_reason"] for p in programs
+                       if p.info["eager_reason"]), None)
+        if reason is not None:
+            info["eager_reason"] = reason
         info["unroll"] = unroll if mega else 0
         info.update(timed)
     if return_state:

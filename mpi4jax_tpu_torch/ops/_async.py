@@ -44,8 +44,17 @@ flight at the iteration's end raises MPX130 (``close_iteration``), and so
 does a wait of a start from another iteration or from outside the loop.
 ``with overlap():`` splits every ``allreduce``, ``reduce_scatter`` and
 ``alltoall`` inside it into a start and a wait deferred to the result's
-first use (``_LazyWait``), or to the scope's end.  The JAX package's instrumentation spans (watchdog, telemetry,
-native tracing) have no counterpart until those layers are ported.
+first use (``_LazyWait``), or to the scope's end.
+
+Each start and each wait goes through the dispatch point as its own op
+(``ops/_base.py:run_body``, ``bare=True``: a telemetry record each), and
+the pair carries one instrumentation span, as in the JAX package: the
+start runs the fault probe, the input guards, the watchdog arm, the
+events-tier journal begin and the trace's begin line of the base op
+(``allreduce``, ``send``, ...); the wait, or the region or iteration end
+that collects a start left in flight, runs the trace's end line, the
+journal end, the disarm and the output guards (``_span_open``,
+``_span_close``).
 """
 
 from __future__ import annotations
@@ -60,7 +69,7 @@ from ..parallel.comm import Comm
 from ..parallel.region import current_context
 from ..utils import config
 from . import _fusion
-from ._base import SUM, Op, check_comm, combine_fn, fold, mpx_error
+from ._base import SUM, Op, check_comm, combine_fn, fold, mpx_error, run_body
 from ._staging import Exchange
 from .recv import match, recv
 from .send import queue, send
@@ -92,7 +101,7 @@ class AsyncHandle:
 
     __slots__ = ("kind", "comm", "reduction", "shape", "dtype", "device",
                  "sizes", "k", "mode", "pieces", "uid", "waited", "exchange",
-                 "order", "loop")
+                 "order", "loop", "span")
 
     def __init__(self, kind, comm, reduction):
         self.kind = kind
@@ -105,6 +114,8 @@ class AsyncHandle:
         self.waited = False
         # (loop id, iteration) of the megastep iteration it started in
         self.loop = None
+        # the instrumentation span the start opened (_span_open)
+        self.span = None
 
     def __repr__(self):
         state = "waited" if self.waited else "in-flight"
@@ -182,6 +193,55 @@ def close_iteration(ctx, scope, label: str, comm) -> None:
         + "; an async span must open and close within one loop iteration")
 
 
+# ---------------------------------------------------------------------------
+# the instrumentation span (start -> wait)
+# ---------------------------------------------------------------------------
+
+
+def _span_open(base_op: str, comm, arrays, handle: AsyncHandle):
+    """Open the pair's span at the start, inside the start's dispatch
+    (``_base.OpSpan`` of the base op, its journal bracket under the
+    start's telemetry record); returns the start's inputs (corrupted where
+    a corrupt clause fired)."""
+    from ..telemetry import core as _tcore
+    from ._base import OpSpan, hooks
+
+    h = hooks()
+    span = None if h is None else OpSpan.open(h, base_op, comm, _tcore.current_open())
+    if span is None:
+        return arrays
+    arrays = span.begin(arrays)
+    handle.span = span
+    return arrays
+
+
+def _span_close(handle: AsyncHandle, results) -> None:
+    """Close the span once the pair's result is ready."""
+    span, handle.span = handle.span, None
+    if span is not None:
+        span.end()
+        span.finish([r for r in results if isinstance(r, torch.Tensor)])
+
+
+def _dispatch_start(opname: str, comm, body, arrays, token, handle):
+    """A start through the dispatch point; a start that raises after its
+    span opened disarms it (its wait will never come)."""
+    try:
+        return run_body(opname, comm, body, arrays, token, bare=True)
+    except BaseException:
+        span, handle.span = handle.span, None
+        if span is not None:
+            span.disarm()
+        raise
+
+
+def _meter_chunks(opname: str, comm, dtype, n_chunks: int) -> None:
+    from ..telemetry import core as _tcore
+
+    _tcore.meter(f"overlap.{opname}.c{comm.uid}."
+                 f"{_tcore.dtype_name(dtype)}.chunks", n_chunks)
+
+
 def _full(handle: AsyncHandle, result) -> None:
     handle.mode = "full"
     handle.pieces = (result,)
@@ -232,44 +292,55 @@ def allreduce_start(x, op=None, *, comm: Optional[Comm] = None,
     combine_fn(op)
     comm, handle = _start("allreduce_start", comm,
                           lambda c: AsyncHandle("allreduce", c, op))
-    x = _fusion.materialize_value(x)
-    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
-    handle.k = len(comm.members())
-    if (handle.k == 1 or op not in _DIST_OPS or x.dtype == torch.bool
-            or _grad(x) or (comm.groups is not None and op is Op.PROD)):
-        _full(handle, reduce_all(x, op, comm))
+
+    def body(comm, arrays, token):
+        (x,) = _span_open("allreduce", comm, arrays, handle)
+        handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+        handle.k = len(comm.members())
+        if (handle.k == 1 or op not in _DIST_OPS or x.dtype == torch.bool
+                or _grad(x) or (comm.groups is not None and op is Op.PROD)):
+            _full(handle, reduce_all(x, op, comm))
+            return handle, produce(token)
+        flat = x.detach().reshape(-1)
+        handle.sizes = overlap_chunk_split(
+            flat.numel(), config.overlap_chunks(flat.numel() * x.element_size()))
+        _meter_chunks("allreduce", comm, x.dtype, len(handle.sizes))
+
+        def issue(ex):
+            pieces, off = [], 0
+            for n in handle.sizes:
+                seg = flat[off:off + n]
+                off += n
+                buf = ex.send(seg)
+                if buf.data_ptr() == seg.data_ptr():  # all_reduce writes in place
+                    buf = buf.clone()
+                work = dist.all_reduce(buf, op=_DIST_OPS[op], group=comm.group(),
+                                       async_op=True)
+                pieces.append((work, buf, None))
+            return pieces
+
+        _issue(handle, x.device, len(handle.sizes), issue)
         return handle, produce(token)
-    flat = x.detach().reshape(-1)
-    handle.sizes = overlap_chunk_split(
-        flat.numel(), config.overlap_chunks(flat.numel() * x.element_size()))
 
-    def issue(ex):
-        pieces, off = [], 0
-        for n in handle.sizes:
-            seg = flat[off:off + n]
-            off += n
-            buf = ex.send(seg)
-            if buf.data_ptr() == seg.data_ptr():  # all_reduce writes in place
-                buf = buf.clone()
-            work = dist.all_reduce(buf, op=_DIST_OPS[op], group=comm.group(),
-                                   async_op=True)
-            pieces.append((work, buf, None))
-        return pieces
-
-    _issue(handle, x.device, len(handle.sizes), issue)
-    return handle, produce(token)
+    return _dispatch_start("allreduce_start", comm, body,
+                           (_fusion.materialize_value(x),), token, handle)
 
 
 def allreduce_wait(handle, *, token: Optional[Token] = None):
     """Finish an async allreduce: returns ``(result, token)`` with the
     input's shape."""
     _check_handle("allreduce_wait", handle, "allreduce")
-    if handle.mode == "full":
-        res = handle.pieces[0]
-    else:
-        parts = _collect(handle)
-        res = (torch.cat(parts) if len(parts) > 1 else parts[0]).reshape(handle.shape)
-    return _done(handle, res), produce(token)
+
+    def body(comm, arrays, token):
+        if handle.mode == "full":
+            res = handle.pieces[0]
+        else:
+            parts = _collect(handle)
+            res = (torch.cat(parts) if len(parts) > 1 else parts[0]).reshape(
+                handle.shape)
+        return _done(handle, res), produce(token)
+
+    return run_body("allreduce_wait", handle.comm, body, (), token, bare=True)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +357,7 @@ def _start_blocks(handle: AsyncHandle, x: torch.Tensor, comm: Comm) -> None:
     handle.sizes = overlap_chunk_split(
         blocks.shape[1], config.overlap_chunks(x.numel() * x.element_size()))
     handle.order = group_order(comm)
+    _meter_chunks(handle.kind, comm, x.dtype, len(handle.sizes))
 
     def issue(ex):
         pieces, off = [], 0
@@ -330,23 +402,32 @@ def alltoall_start(x, *, comm: Optional[Comm] = None,
                           lambda c: AsyncHandle("alltoall", c, None))
     x = _fusion.materialize_value(x)
     handle.k = _check_blocks("alltoall_start", x, comm)
-    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
-    if handle.k == 1:
-        _full(handle, x.clone())
-    elif _grad(x):
-        _full(handle, _AllToAll.apply(x, comm))
-    else:
-        _start_blocks(handle, x, comm)
-    return handle, produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = _span_open("alltoall", comm, arrays, handle)
+        handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+        if handle.k == 1:
+            _full(handle, x.clone())
+        elif _grad(x):
+            _full(handle, _AllToAll.apply(x, comm))
+        else:
+            _start_blocks(handle, x, comm)
+        return handle, produce(token)
+
+    return _dispatch_start("alltoall_start", comm, body, (x,), token, handle)
 
 
 def alltoall_wait(handle, *, token: Optional[Token] = None):
     """Finish an async alltoall: returns ``(result, token)``, ``out[i]``
     the block rank i addressed to this rank."""
     _check_handle("alltoall_wait", handle, "alltoall")
-    res = (handle.pieces[0] if handle.mode == "full"
-           else _received_rows(handle).reshape(handle.shape))
-    return _done(handle, res), produce(token)
+
+    def body(comm, arrays, token):
+        res = (handle.pieces[0] if handle.mode == "full"
+               else _received_rows(handle).reshape(handle.shape))
+        return _done(handle, res), produce(token)
+
+    return run_body("alltoall_wait", handle.comm, body, (), token, bare=True)
 
 
 def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
@@ -362,25 +443,36 @@ def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
                           lambda c: AsyncHandle("reduce_scatter", c, op))
     x = _fusion.materialize_value(x)
     handle.k = _check_blocks("reduce_scatter_start", x, comm)
-    handle.shape, handle.dtype, handle.device = x.shape[1:], x.dtype, x.device
-    if handle.k == 1 or not isinstance(op, Op) or _grad(x):
-        _full(handle, scatter_reduced(x, op, comm))
-    else:
-        _start_blocks(handle, x, comm)
-    return handle, produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = _span_open("reduce_scatter", comm, arrays, handle)
+        handle.shape, handle.dtype, handle.device = x.shape[1:], x.dtype, x.device
+        if handle.k == 1 or not isinstance(op, Op) or _grad(x):
+            _full(handle, scatter_reduced(x, op, comm))
+        else:
+            _start_blocks(handle, x, comm)
+        return handle, produce(token)
+
+    return _dispatch_start("reduce_scatter_start", comm, body, (x,), token,
+                           handle)
 
 
 def reduce_scatter_wait(handle, *, token: Optional[Token] = None):
     """Finish an async reduce_scatter: returns ``(result, token)``, this
     rank's reduced block."""
     _check_handle("reduce_scatter_wait", handle, "reduce_scatter")
-    if handle.mode == "full":
-        res = handle.pieces[0]
-    else:
-        rows = _received_rows(handle)
-        out = fold(rows.unbind(0), combine_fn(handle.reduction))
-        res = out.to(torch.promote_types(out.dtype, handle.dtype)).reshape(handle.shape)
-    return _done(handle, res), produce(token)
+
+    def body(comm, arrays, token):
+        if handle.mode == "full":
+            res = handle.pieces[0]
+        else:
+            rows = _received_rows(handle)
+            out = fold(rows.unbind(0), combine_fn(handle.reduction))
+            res = out.to(torch.promote_types(out.dtype, handle.dtype)).reshape(
+                handle.shape)
+        return _done(handle, res), produce(token)
+
+    return run_body("reduce_scatter_wait", handle.comm, body, (), token, bare=True)
 
 
 # ---------------------------------------------------------------------------
@@ -395,11 +487,16 @@ def send_start(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
     once, buffered).  Returns ``(handle, token)``; close it with
     ``p2p_wait``."""
     comm, handle = _start("send_start", comm, lambda c: P2PHandle("send", c, tag))
-    x = _fusion.materialize_value(x)
-    send(x, dest, tag, comm=comm)
-    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
-    _full(handle, x)
-    return handle, produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = _span_open("send", comm, arrays, handle)
+        send(x, dest, tag, comm=comm)
+        handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+        _full(handle, x)
+        return handle, produce(token)
+
+    return _dispatch_start("send_start", comm, body,
+                           (_fusion.materialize_value(x),), token, handle)
 
 
 def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
@@ -409,28 +506,35 @@ def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
     ``recv``); returns ``(handle, token)``, the received tensor comes from
     ``p2p_wait``."""
     comm, handle = _start("recv_start", comm, lambda c: P2PHandle("recv", c, tag))
-    x = _fusion.materialize_value(x)
-    handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
-    q = queue(comm, tag)
-    if _grad(x) or (q and _grad(q[0].x)):
-        _full(handle, recv(x, source, tag, comm=comm)[0])
-        return handle, produce(token)
-    pending = match(x, source, tag, comm, "recv_start")
-    rank = comm.Get_rank()
-    if pending.frm is None or pending.frm == rank:
-        pending.release()
-        got = x.clone() if pending.frm is None else pending.x.reshape(x.shape).clone()
-        _full(handle, got)
+
+    def body(comm, arrays, token):
+        (x,) = _span_open("recv", comm, arrays, handle)
+        handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+        q = queue(comm, tag)
+        if _grad(x) or (q and _grad(q[0].x)):
+            _full(handle, recv(x, source, tag, comm=comm)[0])
+            return handle, produce(token)
+        pending = match(x, source, tag, comm, "recv_start")
+        rank = comm.Get_rank()
+        if pending.frm is None or pending.frm == rank:
+            pending.release()
+            got = (x.clone() if pending.frm is None
+                   else pending.x.reshape(x.shape).clone())
+            _full(handle, got)
+            return handle, produce(token)
+
+        def issue(ex):
+            buf = ex.buffer(x)
+            work = dist.irecv(buf, src=comm.global_rank(pending.frm),
+                              tag=pending.wire)
+            pending.release()
+            return [(work, buf, None)]
+
+        _issue(handle, x.device, 1, issue)
         return handle, produce(token)
 
-    def issue(ex):
-        buf = ex.buffer(x)
-        work = dist.irecv(buf, src=comm.global_rank(pending.frm), tag=pending.wire)
-        pending.release()
-        return [(work, buf, None)]
-
-    _issue(handle, x.device, 1, issue)
-    return handle, produce(token)
+    return _dispatch_start("recv_start", comm, body,
+                           (_fusion.materialize_value(x),), token, handle)
 
 
 def p2p_wait(handle, *, token: Optional[Token] = None):
@@ -438,13 +542,20 @@ def p2p_wait(handle, *, token: Optional[Token] = None):
     the received tensor for ``recv_start``'s handle and the sent payload
     for ``send_start``'s."""
     _check_p2p_handle("p2p_wait", handle)
-    res = handle.pieces[0] if handle.mode == "full" else _collect(handle)[0]
-    return _done(handle, res), produce(token)
+
+    def body(comm, arrays, token):
+        res = handle.pieces[0] if handle.mode == "full" else _collect(handle)[0]
+        return _done(handle, res), produce(token)
+
+    return run_body("p2p_wait", handle.comm, body, (), token, bare=True)
 
 
 def _done(handle: AsyncHandle, res):
+    """Close the handle, and its span, once its result ``res`` is ready
+    (``None`` where a region or iteration end collects it)."""
     handle.waited = True
     handle.pieces = handle.exchange = None
+    _span_close(handle, [] if res is None else [res])
     return res
 
 

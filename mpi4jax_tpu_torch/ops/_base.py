@@ -23,16 +23,26 @@ with the association of the JAX package's doubling butterfly
 ``p`` holds the fold of positions ``[p, p + 2w)``), so that a callable that
 is associative but not commutative gives the same bits on every rank, and
 the JAX package's bits.
+
+``run_body`` is the dispatch point every op goes through (the JAX
+package's ``_run_body``): the runtime services bracket each call there
+(see its docstring).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Callable, Union
+import itertools
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..parallel.region import current_context
+from ..resilience import runtime as _resilience
+from ..telemetry import bracket as _tbracket
+from ..telemetry import core as _telemetry
+from ..utils import config as _config
+from ..utils import debug as _debug
 from ._fusion import flush_pending
 
 CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
@@ -162,3 +172,218 @@ def check_comm(comm, what: str):
         raise ValueError(f"{what}: pass comm= (no default communicator "
                          "outside a region: spmd, run)")
     return comm
+
+
+# ---------------------------------------------------------------------------
+# the dispatch point
+# ---------------------------------------------------------------------------
+
+
+def mpi_opname(opname: str) -> str:
+    return "MPI_" + opname.capitalize()
+
+
+# call ids pair the begin/end hooks and the watchdog's arm/disarm of one
+# call: unique per process, 8 hex characters as in the reference's lines
+_call_id_counter = itertools.count()
+
+
+def next_call_id() -> str:
+    return f"{next(_call_id_counter) & 0xFFFFFFFF:08x}"
+
+
+class Hooks:
+    """Which runtime services are on, read once per configuration stamp:
+    ``telemetry`` (counters or events), ``events``, ``tracing`` (native
+    runtime trace), ``logging`` (the per-op debug line) and ``resilience``
+    (a watchdog timeout, a fault spec or numeric guards)."""
+
+    __slots__ = ("telemetry", "events", "tracing", "logging", "resilience",
+                 "per_op")
+
+    def __init__(self):
+        mode = _telemetry.effective_mode()
+        self.telemetry = mode != "off"
+        self.events = mode == "events"
+        self.tracing = _debug.get_runtime_tracing()
+        self.logging = _debug.get_logging()
+        timeout = _resilience.effective_watchdog_timeout()
+        numerics = _resilience.effective_check_numerics()
+        faults = bool(_resilience.effective_fault_clauses())
+        self.resilience = timeout is not None or numerics or faults
+        # the knob that makes every call run host code of its own, which a
+        # CUDA-graph replay cannot run (aot/pinning.py), first one named
+        per_op = (("MPI4JAX_TPU_TELEMETRY=events", self.events),
+                  ("MPI4JAX_TPU_WATCHDOG_TIMEOUT", timeout is not None),
+                  ("MPI4JAX_TPU_FAULT_SPEC", faults),
+                  ("MPI4JAX_TPU_CHECK_NUMERICS", numerics),
+                  ("MPI4JAX_TPU_TRACE", self.tracing),
+                  ("MPI4JAX_TPU_DEBUG", self.logging))
+        self.per_op = next((name for name, on in per_op if on), None)
+
+    def any(self) -> bool:
+        return (self.telemetry or self.tracing or self.logging
+                or self.resilience)
+
+
+_hooks_cell: list = [None, None]  # [service stamp, Hooks or None]
+
+
+def hooks() -> Optional[Hooks]:
+    """The services that are on, ``None`` when every one is off: one read
+    of the services' stamp per call, the flags parsed only when it
+    moved."""
+    stamp = _config.service_stamp()
+    if _hooks_cell[0] != stamp:
+        h = Hooks()
+        _hooks_cell[1] = h if h.any() else None
+        _hooks_cell[0] = stamp
+    return _hooks_cell[1]
+
+
+def per_op_hook() -> Optional[str]:
+    """The knob that asks for host code at every op call (the events tier,
+    the watchdog, a fault spec, numeric guards, runtime tracing or debug
+    logging), ``None`` when none does."""
+    h = hooks()
+    return None if h is None else h.per_op
+
+
+# above 0 while an op's body runs instrumented: an op that runs inside
+# another's body (scan's sendrecvs, scatter's alltoall) is part of that call
+_depth = [0]
+
+
+def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
+    """Run op ``body(comm, arrays, token)`` bracketed by the runtime
+    services every op shares, and return what it returns.  In the JAX
+    package's order:
+
+    - the fault probe, the input numeric guards and the watchdog arm
+      (``resilience/runtime.py:Plan.before``; a corrupt clause replaces
+      the inputs the body gets);
+    - the events-tier journal begin (``telemetry/bracket.py``), after the
+      probe, so that an injected delay shows as a late arrival;
+    - the debug line and the native runtime trace's begin line
+      (``native.py``);
+    - the body;
+    - the native trace's end line, the journal end, the watchdog disarm
+      and the output guards; then the telemetry record is counted.
+
+    On an exception the record is dropped (``abort_op``) and the watchdog
+    disarmed.  ``bare=True`` keeps only the telemetry record: the async
+    ``*_start``/``*_wait`` pairs open one span at the start and close it at
+    the wait (``ops/_async.py``).  With every service off (the default)
+    the body is called directly, after one read of the configuration
+    stamp.  An op called inside another's body is part of that call.
+
+    The end hooks run when the body has returned, and the body returns
+    with its result ready: a multi-rank op on gloo stages its exchange
+    through host memory and waits for it (``ops/_staging.py``).  A route
+    with no message returns with its copy queued on the device.
+    """
+    h = hooks()
+    if h is None or _depth[0]:
+        return body(comm, arrays, token)
+    _depth[0] += 1
+    try:
+        return _instrumented(h, opname, comm, body, arrays, token, bare)
+    finally:
+        _depth[0] -= 1
+
+
+def _instrumented(h: Hooks, opname, comm, body, arrays, token, bare):
+    rec = _telemetry.open_op(opname, comm, arrays) if h.telemetry else None
+    span = None if bare else OpSpan.open(h, opname, comm, rec)
+    if span is None and rec is None:
+        return body(comm, arrays, token)
+    try:
+        if span is not None:
+            arrays = span.begin(arrays)
+        out = body(comm, arrays, token)
+        # TODO(NCCL): a collective on NCCL returns before its result is
+        # ready; its end hooks belong after a CUDA event recorded on the
+        # op's stream once that event has completed (the event's query,
+        # not a synchronisation of the whole device)
+        if span is not None:
+            span.end()
+    except BaseException:
+        _telemetry.abort_op(rec)
+        if span is not None:
+            span.disarm()
+        raise
+    if span is not None:
+        span.finish(output_tensors(out))
+    _telemetry.close_op(rec)
+    return out
+
+
+class OpSpan:
+    """The per-call services around one op, or around an async pair from
+    its start to its wait (``ops/_async.py``): the resilience plan, the
+    events-tier journal bracket, the debug line and the native trace."""
+
+    __slots__ = ("plan", "ebr", "tracing", "logging", "call_id", "name", "comm",
+                 "rank", "armed")
+
+    @classmethod
+    def open(cls, h: Hooks, opname: str, comm, rec) -> Optional["OpSpan"]:
+        """The span of one call of ``opname`` under the services ``h``
+        (``rec``: its open telemetry record), ``None`` when none is on."""
+        from .. import native
+
+        plan = _resilience.plan_for(opname) if h.resilience else None
+        ebr = _tbracket.bracket_for(rec)
+        tracing = h.tracing and native.runtime_tracing_supported()
+        if plan is None and ebr is None and not tracing and not h.logging:
+            return None
+        span = cls()
+        span.plan, span.ebr, span.tracing, span.logging = plan, ebr, tracing, h.logging
+        span.call_id, span.name = next_call_id(), mpi_opname(opname)
+        span.comm, span.rank = comm, comm.global_rank(comm.Get_rank())
+        span.armed = False
+        return span
+
+    def begin(self, arrays):
+        """Before the op: probe, input guards, arm, journal begin, the
+        begin lines; returns the inputs (corrupted where a clause fired)."""
+        from .. import native
+
+        if self.plan is not None:
+            arrays = self.plan.before(self.name, self.call_id, self.comm,
+                                      self.rank, arrays)
+            self.armed = self.plan.timeout is not None
+        if self.ebr is not None:
+            self.ebr.begin(self.call_id, self.rank)
+        if self.logging:
+            native.host_line(self.comm.Get_rank(), f"{self.call_id} | {self.name}")
+        if self.tracing:
+            native.op_begin(self.name, self.call_id, self.comm.Get_rank(), "")
+        return arrays
+
+    def end(self) -> None:
+        """The op's result is ready: the trace's end line, the journal end."""
+        from .. import native
+
+        if self.tracing:
+            native.op_end(self.name, self.call_id, self.comm.Get_rank())
+        if self.ebr is not None:
+            self.ebr.end(self.call_id)
+
+    def disarm(self) -> None:
+        if self.armed:
+            self.plan.disarm(self.call_id, self.rank)
+            self.armed = False
+
+    def finish(self, results) -> None:
+        """After ``end``: the disarm and the output guards."""
+        self.disarm()
+        if self.plan is not None:
+            self.plan.after(self.name, self.call_id, self.rank, results)
+
+
+def output_tensors(out) -> list:
+    """The tensors among an op's outputs (a result and a token, or a
+    token)."""
+    items = out if isinstance(out, tuple) else (out,)
+    return [o for o in items if isinstance(o, torch.Tensor)]

@@ -36,9 +36,11 @@ the port's SUM is held to against the JAX package (rtol 1e-5).
 Callable reductions never fuse.  A deferred op's token passes through:
 the packed collective is ordered by where the flush happens.
 
-The JAX package's telemetry meter of a flush (``_meter_bucket``) waits
-for the telemetry layer, and its analysis handoff (``take_pending_ana``)
-for the analysis layer.
+A flush meters each bucket (``_meter_bucket``: buckets, members, packed
+bytes and padding per op, comm and dtype) in the telemetry tiers, and each
+packed collective goes through the dispatch point like any op; the JAX
+package's analysis handoff (``take_pending_ana``) waits for the analysis
+layer.
 """
 
 from __future__ import annotations
@@ -362,6 +364,7 @@ def _flush_queue(q: _Queue) -> None:
         for members in plan:
             flats = [entries[i][0].reshape(-1) for i in members]
             flat = torch.cat(flats) if len(flats) > 1 else flats[0]
+            _meter_bucket(q, flat, len(members))
             fused = _run_member(q, flat)
             for i, (start, end) in zip(members,
                                        pack_offsets(f.numel() for f in flats)):
@@ -381,6 +384,21 @@ def _run_member(q: _Queue, x):
     from .bcast import bcast
 
     return bcast(x, q.root, comm=q.comm)[0]
+
+
+def _meter_bucket(q: _Queue, flat, members: int) -> None:
+    """The JAX package's bucket meters; the port packs without the ring's
+    padding, so its ``padding_waste`` is 0."""
+    from ..telemetry import core as _telemetry
+
+    if _telemetry.effective_mode() == "off":
+        return
+    prefix = (f"fusion.{q.opname}.c{q.comm.uid}."
+              f"{_telemetry.dtype_name(flat.dtype)}")
+    _telemetry.meter(f"{prefix}.buckets")
+    _telemetry.meter(f"{prefix}.members", members)
+    _telemetry.meter(f"{prefix}.bytes_packed", flat.numel() * flat.element_size())
+    _telemetry.meter(f"{prefix}.padding_waste", 0)
 
 
 def materialize_value(x):

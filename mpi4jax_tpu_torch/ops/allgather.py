@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
-from ._base import check_comm, fold
+from ._base import check_comm, fold, run_body
 from ._staging import Exchange
 from .alltoall import _exchange as _alltoall
 from .token import Token, produce
@@ -95,4 +95,6 @@ def allgather(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
     ``(size, *x.shape)``.  Returns ``(result, token)``."""
     comm = check_comm(comm, "allgather")
     comm.Get_size()  # the uniform group size, or the JAX package's error
-    return allgather_any(x, comm), produce(token)
+    return run_body("allgather", comm,
+                    lambda c, a, t: (allgather_any(a[0], c), produce(t)),
+                    (x,), token)

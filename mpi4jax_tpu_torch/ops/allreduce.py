@@ -57,7 +57,7 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from . import _async, _fusion
-from ._base import SUM, Op, OpLike, check_comm, combine_fn, fold
+from ._base import SUM, Op, OpLike, check_comm, combine_fn, fold, run_body
 from ._staging import Exchange
 from .allgather import _AllGather
 from .token import Token, produce
@@ -162,7 +162,9 @@ def allreduce(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
         if deferred is not None:
             return deferred
     comm = check_comm(comm, "allreduce")
-    return reduce_all(_fusion.materialize_value(x), op, comm), produce(token)
+    return run_body("allreduce", comm,
+                    lambda c, a, t: (reduce_all(a[0], op, c), produce(t)),
+                    (_fusion.materialize_value(x),), token)
 
 
 def reduce_all(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:

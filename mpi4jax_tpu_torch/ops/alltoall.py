@@ -30,7 +30,7 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from . import _async
-from ._base import check_comm
+from ._base import check_comm, run_body
 from ._fusion import materialize_value
 from ._staging import Exchange
 from .token import Token, produce
@@ -101,6 +101,11 @@ def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
             f"alltoall input must have leading axis == comm size "
             f"({size}), got shape {tuple(x.shape)} (ref alltoall.py:71-73)"
         )
-    if size == 1:
-        return x.clone(), produce(token)
-    return _AllToAll.apply(x, comm), produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        if size == 1:
+            return x.clone(), produce(token)
+        return _AllToAll.apply(x, comm), produce(token)
+
+    return run_body("alltoall", comm, body, (x,), token)

@@ -16,7 +16,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
-from ._base import check_comm
+from ._base import check_comm, run_body
 from ._staging import Exchange
 from .send import reap
 from .token import Token, produce
@@ -25,11 +25,15 @@ from .token import Token, produce
 def barrier(*, comm: Optional[Comm] = None, token: Optional[Token] = None):
     """Synchronize all ranks of ``comm``.  Returns a token."""
     comm = check_comm(comm, "barrier")
-    if len(comm.members()) > 1:
-        device = comm.device
-        with Exchange(device) as ex:
-            buf = ex.send(torch.zeros(1, device=device))
-            dist.all_reduce(buf, group=comm.group())
-            ex.result(buf).cpu()  # the host waits for the collective
-    reap()
-    return produce(token)
+
+    def body(comm, arrays, token):
+        if len(comm.members()) > 1:
+            device = comm.device
+            with Exchange(device) as ex:
+                buf = ex.send(torch.zeros(1, device=device))
+                dist.all_reduce(buf, group=comm.group())
+                ex.result(buf).cpu()  # the host waits for the collective
+        reap()
+        return produce(token)
+
+    return run_body("barrier", comm, body, (), token)

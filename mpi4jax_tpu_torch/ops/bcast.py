@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from . import _fusion
-from ._base import check_comm, check_root
+from ._base import check_comm, check_root, run_body
 from ._staging import Exchange
 from .token import Token, produce
 
@@ -96,7 +96,11 @@ def bcast(x, root: int, *, comm: Optional[Comm] = None,
         return deferred
     comm = check_comm(comm, "bcast")
     check_root(root, comm.min_size(), "bcast")
-    x = _fusion.materialize_value(x)
-    if len(comm.members()) == 1:
-        return x.clone(), produce(token)
-    return _Bcast.apply(x, root, comm), produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        if len(comm.members()) == 1:
+            return x.clone(), produce(token)
+        return _Bcast.apply(x, root, comm), produce(token)
+
+    return run_body("bcast", comm, body, (_fusion.materialize_value(x),), token)

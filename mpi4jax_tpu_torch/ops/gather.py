@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, check_root
+from ._base import check_comm, check_root, run_body
 from .allgather import allgather_any
 from .token import Token, produce
 
@@ -23,4 +23,6 @@ def gather(x, root: int, *, comm: Optional[Comm] = None,
     ``(size, *x.shape)`` result.  Returns ``(result, token)``."""
     comm = check_comm(comm, "gather")
     check_root(root, comm.Get_size(), "gather")
-    return allgather_any(x, comm), produce(token)
+    return run_body("gather", comm,
+                    lambda c, a, t: (allgather_any(a[0], c), produce(t)),
+                    (x,), token)

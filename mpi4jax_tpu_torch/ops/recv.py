@@ -19,7 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, mpx_error
+from ._base import check_comm, mpx_error, run_body
 from .send import check_no_overtake, check_tag, queue
 from .sendrecv import _SendRecv, fill_status, routing
 from .status import Status
@@ -35,15 +35,20 @@ def recv(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
     rank = comm.Get_rank()
     to, frm = pending.to, pending.frm
     fill_status(status, frm, tag, pending.x)
-    if to is None and frm is None:
-        return x, produce(token)
-    if to == rank:  # a route onto itself
-        pending.receive(x, None)
-        return pending.x.reshape(x.shape).clone(), produce(token)
-    received = _SendRecv.apply(
-        pending.x, x, comm.global_rank(to) if to is not None else None,
-        comm.global_rank(frm) if frm is not None else None, pending)
-    return received, produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        if to is None and frm is None:
+            return x, produce(token)
+        if to == rank:  # a route onto itself
+            pending.receive(x, None)
+            return pending.x.reshape(x.shape).clone(), produce(token)
+        received = _SendRecv.apply(
+            pending.x, x, comm.global_rank(to) if to is not None else None,
+            comm.global_rank(frm) if frm is not None else None, pending)
+        return received, produce(token)
+
+    return run_body("recv", comm, body, (x,), token)
 
 
 def match(x, source, tag: int, comm: Comm, what: str):

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from ..parallel.comm import Comm
-from ._base import SUM, OpLike, check_comm, check_root, combine_fn
+from ._base import SUM, OpLike, check_comm, check_root, combine_fn, run_body
 from .allreduce import reduce_all
 from .bcast import _ReduceToRoot
 from .token import Token, produce
@@ -32,11 +32,16 @@ def reduce(x, op: OpLike, root: int, *, comm: Optional[Comm] = None,
     comm = check_comm(comm, "reduce")
     check_root(root, comm.min_size(), "reduce")
     combine_fn(op)
-    if len(comm.members()) == 1:
-        return x.clone(), produce(token)
-    if op is SUM and x.dtype != torch.bool:
-        reduced = _ReduceToRoot.apply(x, root, comm)
-    else:
-        reduced = reduce_all(x, op, comm)
-    is_root = torch.tensor(comm.Get_rank() == root, device=x.device)
-    return torch.where(is_root, reduced, x), produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        if len(comm.members()) == 1:
+            return x.clone(), produce(token)
+        if op is SUM and x.dtype != torch.bool:
+            reduced = _ReduceToRoot.apply(x, root, comm)
+        else:
+            reduced = reduce_all(x, op, comm)
+        is_root = torch.tensor(comm.Get_rank() == root, device=x.device)
+        return torch.where(is_root, reduced, x), produce(token)
+
+    return run_body("reduce", comm, body, (x,), token)

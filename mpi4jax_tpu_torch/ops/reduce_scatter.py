@@ -24,7 +24,7 @@ import torch
 
 from ..parallel.comm import Comm
 from . import _async
-from ._base import SUM, OpLike, check_comm, combine_fn, fold
+from ._base import SUM, OpLike, check_comm, combine_fn, fold, run_body
 from ._fusion import materialize_value
 from .allgather import _ReduceScatterSum
 from .alltoall import _AllToAll
@@ -40,7 +40,9 @@ def reduce_scatter(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
     if lazy is not None:
         return lazy
     comm = check_comm(comm, "reduce_scatter")
-    return scatter_reduced(materialize_value(x), op, comm), produce(token)
+    return run_body("reduce_scatter", comm,
+                    lambda c, a, t: (scatter_reduced(a[0], op, c), produce(t)),
+                    (materialize_value(x),), token)
 
 
 def scatter_reduced(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:

@@ -22,7 +22,7 @@ import torch
 
 from ..parallel.comm import Comm
 from ..parallel.rankspec import shift
-from ._base import SUM, OpLike, check_comm, combine_fn
+from ._base import SUM, OpLike, check_comm, combine_fn, run_body
 from .sendrecv import sendrecv
 from .token import Token, produce
 
@@ -35,12 +35,17 @@ def scan(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
     fn = combine_fn(op)
     rank = comm.Get_rank()
     sizes = [len(g) for g in comm.groups] if comm.groups else [comm.Get_size()]
-    acc, d = x, 1
-    while d < max(sizes):
-        received, _ = sendrecv(acc, acc, dest=shift(d, wrap=False), comm=comm)
-        combined = fn(acc, received)
-        # jnp.where's promotion: a logical fold of ints stays int
-        dtype = torch.promote_types(combined.dtype, received.dtype)
-        acc = (combined if rank >= d else received).to(dtype)
-        d *= 2
-    return (acc.clone() if acc is x else acc), produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        acc, d = x, 1
+        while d < max(sizes):
+            received, _ = sendrecv(acc, acc, dest=shift(d, wrap=False), comm=comm)
+            combined = fn(acc, received)
+            # jnp.where's promotion: a logical fold of ints stays int
+            dtype = torch.promote_types(combined.dtype, received.dtype)
+            acc = (combined if rank >= d else received).to(dtype)
+            d *= 2
+        return (acc.clone() if acc is x else acc), produce(token)
+
+    return run_body("scan", comm, body, (x,), token)

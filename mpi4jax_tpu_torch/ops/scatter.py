@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, check_root
+from ._base import check_comm, check_root, run_body
 from .alltoall import alltoall
 from .token import Token, produce
 
@@ -29,7 +29,12 @@ def scatter(x, root: int, *, comm: Optional[Comm] = None,
             f"scatter input must have leading axis == comm size ({size}), "
             f"got shape {tuple(x.shape)}"
         )
-    if size == 1:
-        return x[0].clone(), produce(token)
-    rows, _ = alltoall(x, comm=comm)
-    return rows[root], produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        if size == 1:
+            return x[0].clone(), produce(token)
+        rows, _ = alltoall(x, comm=comm)
+        return rows[root], produce(token)
+
+    return run_body("scatter", comm, body, (x,), token)

@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from ..parallel.region import current_context
-from ._base import check_comm, mpx_error
+from ._base import check_comm, mpx_error, run_body
 from ._fusion import flush_pending
 from ._staging import Exchange
 from .sendrecv import peers, routing
@@ -115,18 +115,23 @@ def send(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
     pairs = routing(comm, None, dest, "send")
     rank = comm.Get_rank()
     to, frm = peers(pairs, rank)
-    wire, snapshot, work = wire_tag(comm, tag), None, None
-    if to is not None and to != rank:
-        with Exchange(x.device) as ex:
-            snapshot = ex.send(x.detach())
-            if snapshot.data_ptr() == x.data_ptr():
-                snapshot = snapshot.clone()
-            work = dist.isend(snapshot, comm.global_rank(to), tag=wire)
-    peer = comm.global_rank(frm) if frm is not None and frm != rank else None
-    queue(comm, tag).append(PendingSend(x, pairs, to, frm, wire, snapshot, work,
-                                        next(_seq), peer))
-    reap()
-    return produce(token)
+
+    def body(comm, arrays, token):
+        (x,) = arrays
+        wire, snapshot, work = wire_tag(comm, tag), None, None
+        if to is not None and to != rank:
+            with Exchange(x.device) as ex:
+                snapshot = ex.send(x.detach())
+                if snapshot.data_ptr() == x.data_ptr():
+                    snapshot = snapshot.clone()
+                work = dist.isend(snapshot, comm.global_rank(to), tag=wire)
+        peer = comm.global_rank(frm) if frm is not None and frm != rank else None
+        queue(comm, tag).append(PendingSend(x, pairs, to, frm, wire, snapshot,
+                                            work, next(_seq), peer))
+        reap()
+        return produce(token)
+
+    return run_body("send", comm, body, (x,), token)
 
 
 def check_no_overtake(pending: PendingSend) -> None:

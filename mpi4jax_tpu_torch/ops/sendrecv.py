@@ -40,7 +40,7 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from ..parallel.rankspec import resolve_routing
-from ._base import check_comm, check_send_recv
+from ._base import check_comm, check_send_recv, run_body
 from ._staging import Exchange
 from .status import Status
 from .token import Token, produce
@@ -161,12 +161,17 @@ def sendrecv(sendbuf, recvbuf, source=None, dest=None, *,
     rank = comm.Get_rank()
     to, frm = peers(pairs, rank)
     fill_status(status, frm, sendtag, sendbuf)
-    if frm is None and to is None:
-        return recvbuf, produce(token)
-    if frm == rank and to == rank:  # a route onto itself: no message
-        return sendbuf.reshape(recvbuf.shape).clone(), produce(token)
-    received = _SendRecv.apply(
-        sendbuf, recvbuf,
-        comm.global_rank(to) if to is not None else None,
-        comm.global_rank(frm) if frm is not None else None, None)
-    return received, produce(token)
+
+    def body(comm, arrays, token):
+        sendbuf, recvbuf = arrays
+        if frm is None and to is None:
+            return recvbuf, produce(token)
+        if frm == rank and to == rank:  # a route onto itself: no message
+            return sendbuf.reshape(recvbuf.shape).clone(), produce(token)
+        received = _SendRecv.apply(
+            sendbuf, recvbuf,
+            comm.global_rank(to) if to is not None else None,
+            comm.global_rank(frm) if frm is not None else None, None)
+        return received, produce(token)
+
+    return run_body("sendrecv", comm, body, (sendbuf, recvbuf), token)

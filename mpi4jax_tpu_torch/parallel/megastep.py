@@ -30,9 +30,14 @@ several ranks) the loop runs eagerly with the same contracts:
 ``unroll == 1`` calls the body once, with no loop machinery: the same
 launches and exchanges as a call without this layer.
 
-The JAX package's whole-megastep watchdog bracket and its events-tier
-journal bracket wait for the resilience and telemetry layers (ROADMAP
-Queue 1 item 7).
+Around the whole loop, as in the JAX package: with the watchdog on, one
+entry ``MPI_Megastep[label]`` armed with the deadline ``timeout * N``
+(the per-op arms inside the loop are untouched) and disarmed when the
+loop ends or raises; in the ``events`` tier, one journal record per
+megastep call (``op: "megastep"``, with ``unroll`` and ``label``), whose
+latency over N the journal keeps as the per-step estimate.  Neither runs
+inside a CUDA-graph capture: both services make a pin run eagerly
+(``aot/pinning.py``).
 """
 
 from __future__ import annotations
@@ -188,15 +193,75 @@ def megastep_loop(body_fn, carry, unroll: int, comm, label: str = "fn"):
     ctx = current_context()
     loop_id = next(_loop_ids)
     struct0, sig0 = _carry_signature(carry)
-    for i in range(n):
-        scope = (loop_id, i)
-        with _iteration_scope(ctx, scope):
-            out = body_fn(i, carry)
-            # per-iteration drain: buckets stay per-iteration, and no
-            # deferred result leaks into the next iteration's carry
-            _fusion.flush_pending(ctx)
-            out = _fusion.materialize_tree(out)
-            _async.close_iteration(ctx, scope, label, comm)
-        _check_carry(struct0, sig0, out, label)
-        carry = out
+    bracket = _LoopBracket.open(comm, n, label)
+    try:
+        for i in range(n):
+            scope = (loop_id, i)
+            with _iteration_scope(ctx, scope):
+                out = body_fn(i, carry)
+                # per-iteration drain: buckets stay per-iteration, and no
+                # deferred result leaks into the next iteration's carry
+                _fusion.flush_pending(ctx)
+                out = _fusion.materialize_tree(out)
+                _async.close_iteration(ctx, scope, label, comm)
+            _check_carry(struct0, sig0, out, label)
+            carry = out
+    except BaseException:
+        if bracket is not None:
+            bracket.disarm()
+        raise
+    if bracket is not None:
+        bracket.close()
     return carry
+
+
+class _LoopBracket:
+    """The whole loop's watchdog entry and events-tier journal record."""
+
+    __slots__ = ("comm", "rank", "wd_call_id", "ev_call_id")
+
+    @classmethod
+    def open(cls, comm, n: int, label: str):
+        """Arm and begin, or ``None`` when neither service is on."""
+        from ..ops._base import hooks, next_call_id
+        from ..resilience import runtime as _resilience
+
+        h = hooks()
+        if h is None:
+            return None
+        timeout = _resilience.effective_watchdog_timeout()
+        if timeout is None and not h.events:
+            return None
+        b = cls()
+        b.comm = comm
+        b.rank = comm.global_rank(comm.Get_rank())
+        b.wd_call_id = b.ev_call_id = None
+        if timeout is not None:
+            from ..resilience import watchdog
+
+            b.wd_call_id = next_call_id()
+            watchdog.arm(f"MPI_Megastep[{label}]", b.wd_call_id, comm, b.rank,
+                         timeout * n)
+        if h.events:
+            from ..telemetry import journal
+
+            b.ev_call_id = next_call_id()
+            journal.begin(b.ev_call_id, b.rank, {
+                "op": "megastep", "label": label, "unroll": n,
+                "comm_uid": str(comm.uid), "axes": list(comm.axes),
+                "bytes": 0, "dtype": ""})
+        return b
+
+    def disarm(self) -> None:
+        if self.wd_call_id is not None:
+            from ..resilience import watchdog
+
+            watchdog.disarm(self.wd_call_id, self.rank)
+            self.wd_call_id = None
+
+    def close(self) -> None:
+        if self.ev_call_id is not None:
+            from ..telemetry import journal
+
+            journal.end(self.ev_call_id, self.rank, {"algo": "loop"})
+        self.disarm()

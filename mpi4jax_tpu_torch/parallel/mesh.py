@@ -95,7 +95,11 @@ class _World:
 
 def init_distributed(backend: str = "gloo", *, init_method: str = None,
                      world_size: int = None, rank: int = None, device=None,
-                     timeout: float = 300.0) -> torch.device:
+                     timeout: float = 300.0,
+                     connect_deadline: Optional[float] = None,
+                     connect_max_attempts: Optional[int] = None,
+                     connect_base_delay: float = 1.0,
+                     connect_max_delay: float = 30.0) -> torch.device:
     """Initialise ``torch.distributed`` for this process (the role of
     ``mpi4jax_tpu/parallel/mesh.py:init_distributed``) and return the
     device this rank computes on.  Nothing on the host tells a process of
@@ -103,7 +107,20 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
     ``file://<path>``), ``world_size`` and ``rank`` default to the
     ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``
     environment variables.  ``timeout`` (seconds) bounds every collective,
-    so a lost rank errors instead of hanging."""
+    so a lost rank errors instead of hanging.
+
+    The rendezvous is retried with full-jitter backoff
+    (``resilience/retry.py``), as the JAX package retries its coordinator:
+    a refused or failed attempt (a store's port still taken, say) is tried
+    again until ``connect_deadline`` seconds have passed or
+    ``connect_max_attempts`` attempts failed (defaults
+    ``MPI4JAX_TPU_BOOTSTRAP_DEADLINE``, 300, and
+    ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS``, 0 for the deadline alone);
+    then a ``RuntimeError`` names the attempts, the time and the last
+    error.  A second initialisation of a world is not retried."""
+    from ..resilience.retry import retry_with_backoff
+    from ..utils import config
+
     if world_size is None:
         world_size = int(os.environ["WORLD_SIZE"])
     if rank is None:
@@ -115,9 +132,27 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
     dev = device_for_rank(backend, device, local_rank, local_world)
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
-    dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank,
-                            timeout=timedelta(seconds=timeout))
+    if connect_deadline is None:
+        connect_deadline = config.bootstrap_deadline()
+    if connect_max_attempts is None:
+        connect_max_attempts = config.bootstrap_max_attempts()
+
+    def connect():
+        dist.init_process_group(backend, init_method=init_method,
+                                world_size=world_size, rank=rank,
+                                timeout=timedelta(seconds=timeout))
+
+    retry_with_backoff(
+        connect,
+        what=f"torch.distributed rendezvous ({init_method}, rank {rank} of "
+             f"{world_size})",
+        deadline=connect_deadline,
+        max_attempts=connect_max_attempts or None,
+        base_delay=connect_base_delay,
+        max_delay=connect_max_delay,
+        # a second initialisation is a programming error, not a refusal
+        giveup=lambda e: "twice" in str(e) or dist.is_initialized(),
+    )
     _World.device = dev
     _World.groups = {}
     return dev

@@ -1,0 +1,56 @@
+"""Runtime telemetry of the port: per-op counters, the events journal,
+the cross-rank report and the merge of journals.
+
+PyTorch counterpart of ``mpi4jax_tpu/telemetry/``, in the JAX package's
+three tiers, gated by ``MPI4JAX_TPU_TELEMETRY`` or
+``set_telemetry_mode``:
+
+- ``off`` (default): nothing is collected, and the dispatch point calls
+  each op's body directly;
+- ``counters``: per-(op, comm, algorithm, dtype) calls and bytes, and the
+  meters of the machinery around the ops; a pinned CUDA graph keeps its
+  graph and counts each replay;
+- ``events``: also a begin/end journal record per op call and rank, in
+  memory and, with ``MPI4JAX_TPU_TELEMETRY_DIR``, in per-process JSONL
+  files.  A pin then runs its body eagerly (a graph replay runs no host
+  code), and says so (``program.info``).
+
+Read it back with :func:`snapshot` (this process), :func:`report` (every
+rank's, gathered through the port's collectives), :func:`dump`, or merge
+the journals of every rank into one Perfetto timeline::
+
+    python -m mpi4jax_tpu_torch.telemetry merge $MPI4JAX_TPU_TELEMETRY_DIR \\
+        --perfetto trace.json
+
+The health plane (``telemetry/health.py``: the flight ring, the online
+straggler detector, postmortem bundles and their ``postmortem`` merge) is
+the next slice.
+"""
+
+from .core import (  # noqa: F401
+    effective_mode,
+    meter,
+    reset,
+    set_telemetry_mode,
+    snapshot,
+    telemetry_cache_token,
+)
+from .hist import Histogram  # noqa: F401
+from .merge import chrome_trace, merge_dir, skew_table  # noqa: F401
+from .report import dump, gather_snapshots, report  # noqa: F401
+
+__all__ = [
+    "set_telemetry_mode",
+    "effective_mode",
+    "telemetry_cache_token",
+    "meter",
+    "snapshot",
+    "report",
+    "dump",
+    "reset",
+    "gather_snapshots",
+    "Histogram",
+    "merge_dir",
+    "chrome_trace",
+    "skew_table",
+]

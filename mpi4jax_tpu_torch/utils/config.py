@@ -15,14 +15,35 @@ names, choices and defaults are the same, so a user's settings carry over:
   into, 2 by default, at least 1;
 - ``MPI4JAX_TPU_UNROLL_DEFAULT``: the megastep trip count of an ``spmd``
   or ``compile`` call without ``unroll=`` (``parallel/megastep.py``), 1
-  (no loop) by default, at least 1.
+  (no loop) by default, at least 1;
+
+and the runtime services' (``telemetry/``, ``resilience/``):
+
+- ``MPI4JAX_TPU_TELEMETRY``: ``off`` (default), ``counters`` or
+  ``events``; ``MPI4JAX_TPU_TELEMETRY_DIR``: where the events tier writes
+  its per-process JSONL journal ('' keeps it in memory);
+- ``MPI4JAX_TPU_WATCHDOG_TIMEOUT``: seconds a collective may stay in
+  flight (unset, empty or 0: off); ``MPI4JAX_TPU_FAULT_SPEC``: the fault
+  injection spec (``resilience/faultinject.py``);
+  ``MPI4JAX_TPU_CHECK_NUMERICS``: guard every op's floating inputs and
+  outputs against NaN/Inf;
+- ``MPI4JAX_TPU_TOPOLOGY``: ranks per host (``2x4`` or ``3,5``), which
+  the fault spec's host clauses read;
+- ``MPI4JAX_TPU_BOOTSTRAP_DEADLINE`` (300 s) and
+  ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS`` (0: the deadline alone): the
+  retry of ``init_distributed``'s rendezvous;
+- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): the drain notice window, read by
+  the elastic layer, which is not ported yet.
+
+``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
+of ``utils/debug.py``, as in the JAX package.
 
 The JAX package resolves these as default < autotune table < environment.
 The port has no autotune table yet (``autotune/`` is not ported), so here
 it is default < environment, and ``auto`` compression resolves to ``bf16``,
 as the JAX package does when its table has no entry.  An unset or empty
 variable takes the default; a value outside the choices, or an integer
-below its minimum, raises ``ValueError``.
+below its minimum, raises ``ValueError`` with the JAX package's message.
 
 A pinned program (``aot/pinning.py``) captures the configuration once:
 ``config_stamp()`` is the override epoch, which every programmatic
@@ -32,11 +53,18 @@ raw values of ``FLAG_NAMES``.
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
 FUSION_MODES = ("off", "auto", "force")
+TELEMETRY_MODES = ("off", "counters", "events")
+TRUTHY = ("true", "1", "on", "yes")
+FALSY = ("false", "0", "off", "no", "")
+DEFAULT_BOOTSTRAP_DEADLINE = 300.0
+DEFAULT_BOOTSTRAP_MAX_ATTEMPTS = 0  # 0 = bounded by the deadline only
+DEFAULT_DRAIN_GRACE_S = 5.0
 DEFAULT_FUSION_BUCKET_BYTES = 4 << 20
 DEFAULT_OVERLAP_CHUNKS = 2
 
@@ -53,6 +81,15 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_COMPILE_CACHE_DIR",
     "MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES",
     "MPI4JAX_TPU_CPP_DISPATCH",
+    "MPI4JAX_TPU_TELEMETRY",
+    "MPI4JAX_TPU_TELEMETRY_DIR",
+    "MPI4JAX_TPU_WATCHDOG_TIMEOUT",
+    "MPI4JAX_TPU_FAULT_SPEC",
+    "MPI4JAX_TPU_CHECK_NUMERICS",
+    "MPI4JAX_TPU_TOPOLOGY",
+    "MPI4JAX_TPU_BOOTSTRAP_DEADLINE",
+    "MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS",
+    "MPI4JAX_TPU_DRAIN_GRACE_S",
 )
 
 _config_epoch = 0
@@ -69,6 +106,24 @@ def bump_config_epoch() -> None:
     reads the variables themselves)."""
     global _config_epoch
     _config_epoch += 1
+
+
+# the variables the runtime services read at an op call (which services
+# are on, ``ops/_base.py:hooks``, and an op's resilience plan,
+# ``resilience/runtime.py:plan_for``); ``MPI4JAX_TPU_DEBUG`` and
+# ``MPI4JAX_TPU_TRACE`` are read at import and their setters bump the epoch
+SERVICE_FLAG_NAMES = (
+    "MPI4JAX_TPU_TELEMETRY",
+    "MPI4JAX_TPU_WATCHDOG_TIMEOUT",
+    "MPI4JAX_TPU_FAULT_SPEC",
+    "MPI4JAX_TPU_CHECK_NUMERICS",
+)
+
+
+def service_stamp() -> tuple:
+    """``(config_epoch(), raw values of SERVICE_FLAG_NAMES)``: equal
+    stamps, the same runtime services."""
+    return (_config_epoch, tuple(map(os.environ.get, SERVICE_FLAG_NAMES)))
 
 
 def env_fingerprint() -> tuple:
@@ -137,3 +192,153 @@ def unroll_default() -> int:
     """The megastep trip count of a call without ``unroll=``
     (``MPI4JAX_TPU_UNROLL_DEFAULT``; 1, no loop, by default)."""
     return _int("MPI4JAX_TPU_UNROLL_DEFAULT", 1, minimum=1)
+
+
+# ---------------------------------------------------------------------------
+# the runtime services' knobs
+# ---------------------------------------------------------------------------
+
+
+def parse_env_bool(name: str, default: bool = False) -> bool:
+    """A truthy/falsy variable; anything else raises ``ValueError``."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    val = raw.lower().strip()
+    if val in TRUTHY:
+        return True
+    if val in FALSY:
+        return False
+    raise ValueError(
+        f"Environment variable {name}={raw!r} could not be parsed as a boolean "
+        f"(truthy values: {TRUTHY}, falsy values: {FALSY})"
+    )
+
+
+def parse_env_float(name: str, default: Optional[float] = None) -> Optional[float]:
+    """A finite number of seconds >= 0 (unset or empty: ``default``)."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        val = float(raw)
+    except ValueError as e:
+        raise ValueError(
+            f"Environment variable {name}={raw!r} could not be parsed as a "
+            "number of seconds"
+        ) from e
+    # NaN would defeat every comparison downstream (a NaN watchdog timeout
+    # never expires while still instrumenting each op)
+    if not math.isfinite(val) or val < 0:
+        raise ValueError(
+            f"Environment variable {name}={raw!r} must be a finite "
+            "number >= 0"
+        )
+    return val
+
+
+def debug_enabled() -> bool:
+    return parse_env_bool("MPI4JAX_TPU_DEBUG", False)
+
+
+def trace_enabled() -> bool:
+    return parse_env_bool("MPI4JAX_TPU_TRACE", False)
+
+
+def telemetry_mode() -> str:
+    """The telemetry tier (``MPI4JAX_TPU_TELEMETRY``): ``off``,
+    ``counters`` or ``events``."""
+    return _choice("MPI4JAX_TPU_TELEMETRY", TELEMETRY_MODES, "off")
+
+
+def telemetry_dir() -> str:
+    """Where the events tier writes its JSONL journal
+    (``MPI4JAX_TPU_TELEMETRY_DIR``; '' = in memory only)."""
+    return (os.environ.get("MPI4JAX_TPU_TELEMETRY_DIR") or "").strip()
+
+
+def watchdog_timeout() -> Optional[float]:
+    """The collective watchdog's timeout in seconds; ``None`` (unset, empty
+    or 0) is off."""
+    val = parse_env_float("MPI4JAX_TPU_WATCHDOG_TIMEOUT", None)
+    if val is None or val == 0:
+        return None
+    return val
+
+
+def fault_spec() -> str:
+    """The raw ``MPI4JAX_TPU_FAULT_SPEC`` ('' = no injection), parsed by
+    ``resilience.parse_fault_spec``."""
+    return (os.environ.get("MPI4JAX_TPU_FAULT_SPEC") or "").strip()
+
+
+def check_numerics() -> bool:
+    """Whether ops guard their floating inputs and outputs against NaN/Inf
+    (``MPI4JAX_TPU_CHECK_NUMERICS``)."""
+    return parse_env_bool("MPI4JAX_TPU_CHECK_NUMERICS", False)
+
+
+def topology_spec() -> str:
+    """The raw ``MPI4JAX_TPU_TOPOLOGY`` string ('' = none declared)."""
+    return (os.environ.get("MPI4JAX_TPU_TOPOLOGY") or "").strip()
+
+
+def parse_topology_spec(raw: str) -> Optional[Tuple[int, ...]]:
+    """Per-host rank counts of a topology spec: ``<hosts>x<ranks>`` (``2x4``
+    -> ``(4, 4)``) or comma-separated counts (``3,5`` -> ``(3, 5)``); '' ->
+    ``None``; a malformed spec raises ``ValueError``."""
+    if raw is None:
+        return None
+    raw = raw.strip().lower()
+    if not raw:
+        return None
+    try:
+        if "x" in raw:
+            hosts_s, _, per_s = raw.partition("x")
+            hosts, per = int(hosts_s), int(per_s)
+            if hosts < 1 or per < 1:
+                raise ValueError
+            return (per,) * hosts
+        counts = tuple(int(c) for c in raw.split(","))
+        if not counts or any(c < 1 for c in counts):
+            raise ValueError
+        return counts
+    except ValueError:
+        raise ValueError(
+            f"Environment variable MPI4JAX_TPU_TOPOLOGY={raw!r} could not "
+            "be parsed: expected '<hosts>x<ranks_per_host>' (e.g. '2x4') "
+            "or comma-separated per-host rank counts (e.g. '3,5'), all "
+            "positive integers"
+        ) from None
+
+
+def bootstrap_deadline() -> float:
+    """Total seconds ``init_distributed``'s rendezvous may retry
+    (``MPI4JAX_TPU_BOOTSTRAP_DEADLINE``; 300 by default)."""
+    val = parse_env_float("MPI4JAX_TPU_BOOTSTRAP_DEADLINE",
+                          DEFAULT_BOOTSTRAP_DEADLINE)
+    if val is None or val <= 0:
+        raise ValueError(
+            "MPI4JAX_TPU_BOOTSTRAP_DEADLINE must be a positive number of "
+            f"seconds, got {val!r}"
+        )
+    return val
+
+
+def bootstrap_max_attempts() -> int:
+    """The attempt cap of that retry (``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS``;
+    0 = the deadline alone)."""
+    return _int("MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS",
+                DEFAULT_BOOTSTRAP_MAX_ATTEMPTS)
+
+
+def drain_grace_s() -> float:
+    """The drain notice window in seconds (``MPI4JAX_TPU_DRAIN_GRACE_S``;
+    5 by default)."""
+    val = parse_env_float("MPI4JAX_TPU_DRAIN_GRACE_S", DEFAULT_DRAIN_GRACE_S)
+    if val is None or val <= 0:
+        raise ValueError(
+            "MPI4JAX_TPU_DRAIN_GRACE_S must be a positive number of "
+            f"seconds, got {val!r}"
+        )
+    return val

@@ -20,7 +20,8 @@ FILES = sorted(p for p in PORT.rglob("*.py") if "__pycache__" not in p.parts)
 FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_ops.py",
           REPO / "tests" / "torch_ranks_throughput.py",
-          REPO / "tests" / "torch_ranks_dispatch.py"]
+          REPO / "tests" / "torch_ranks_dispatch.py",
+          REPO / "tests" / "torch_ranks_runtime.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -65,14 +66,20 @@ def test_port_is_packaged():
 
     pkgs = find_packages(str(REPO), include=["mpi4jax_tpu*"])
     for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental",
-                ".utils", ".aot"):
+                ".utils", ".aot", ".telemetry", ".resilience"):
         assert "mpi4jax_tpu_torch" + sub in pkgs
 
 
 @pytest.mark.parametrize("module", ["mpi4jax_tpu_torch.aot", "mpi4jax_tpu_torch.aot.keys",
                                     "mpi4jax_tpu_torch.aot.invalidation",
                                     "mpi4jax_tpu_torch.aot.pinning",
-                                    "mpi4jax_tpu_torch.parallel.megastep"])
+                                    "mpi4jax_tpu_torch.parallel.megastep",
+                                    "mpi4jax_tpu_torch.native",
+                                    "mpi4jax_tpu_torch.telemetry",
+                                    "mpi4jax_tpu_torch.telemetry.merge",
+                                    "mpi4jax_tpu_torch.resilience",
+                                    "mpi4jax_tpu_torch.models.runtime_drill",
+                                    "mpi4jax_tpu_torch.utils.debug"])
 def test_dispatch_layer_loads_no_jax(module):
     """The dispatch layer's modules, imported in a fresh interpreter, load
     neither JAX nor the JAX package."""

@@ -16,15 +16,25 @@ behind there breaks the JAX side here:
   registry and monitor thread.
 
 ``isolated_reference_state`` clears both before each test: it drains the
-registry of every loaded copy of the watchdog module, holds each copy's
-``suspend_expiries`` window open for the test (so its Python monitor
-treats nothing as expired), and unsets ``MPI4JAX_TPU_WATCHDOG_TIMEOUT``
-so that the test arms no collective.  The C++ monitor of
-``csrc/host_hooks.cc`` is out of its reach: its registry has no drain,
-and an entry an earlier test left there can still abort the worker
-(ROADMAP Queue 3).  Import it into a test module (``from
-torch_port_isolation import isolated_reference_state  # noqa: F401``);
-it is autouse.
+registry of every loaded copy of the JAX package's watchdog module, holds
+each copy's ``suspend_expiries`` window open for the test (so its Python
+monitor treats nothing as expired), and unsets
+``MPI4JAX_TPU_WATCHDOG_TIMEOUT`` so that the test arms no collective.
+The C++ monitor of ``csrc/host_hooks.cc`` is out of its reach: its
+registry has no drain, and an entry an earlier test left there can still
+abort the worker (ROADMAP Queue 3).
+
+The port has a watchdog module of its own
+(``mpi4jax_tpu_torch.resilience.watchdog``), which is not one of those
+copies: holding its expiries off would let the port's watchdog tests pass
+while testing nothing.  Instead, after each test the fixture puts the
+port's runtime services back to their defaults (``reset_port_services``):
+both its registries drained (the Python one and its own C++ library's),
+its telemetry and resilience overrides, its counters, journal and fault
+counts reset, runtime tracing and debug logging off.
+
+Import it into a test module (``from torch_port_isolation import
+isolated_reference_state  # noqa: F401``); it is autouse.
 """
 
 import contextlib
@@ -34,10 +44,32 @@ import pytest
 
 
 def watchdog_copies():
-    """Every loaded copy of the JAX package's watchdog module."""
+    """Every loaded copy of the JAX package's watchdog module (not the
+    port's)."""
     return [m for name, m in list(sys.modules.items())
             if name.endswith("resilience.watchdog")
+            and not name.startswith("mpi4jax_tpu_torch.")
             and hasattr(m, "drain_registry") and hasattr(m, "suspend_expiries")]
+
+
+def reset_port_services() -> None:
+    """The port's runtime services back to their defaults (only where the
+    port's modules are loaded)."""
+    if "mpi4jax_tpu_torch.resilience.watchdog" not in sys.modules:
+        return
+    from mpi4jax_tpu_torch import resilience, telemetry
+    from mpi4jax_tpu_torch.resilience import watchdog
+    from mpi4jax_tpu_torch.utils import debug
+
+    watchdog.drain_registry()
+    watchdog.set_on_timeout(None)
+    watchdog.force_python_fallback(False)
+    resilience.reset_overrides()
+    resilience.reset_fault_state()
+    telemetry.set_telemetry_mode(None)
+    telemetry.reset()
+    debug.set_runtime_tracing(False)
+    debug.set_logging(False)
 
 
 @pytest.fixture(autouse=True)
@@ -53,3 +85,4 @@ def isolated_reference_state(monkeypatch):
             copy.drain_registry()
             stack.enter_context(copy.suspend_expiries())
         yield
+    reset_port_services()
