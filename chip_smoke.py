@@ -117,6 +117,40 @@ read just after:
    set between calls and ``repin()``; and a capture made to fail (a host
    synchronisation in the body), which must raise.  One JSON line
    ``{"dispatch": ...}``.
+11. the runtime services on this card (``runtime_phase``): the periodic
+   and split-phase 0.1-day solves (``pinned=True``) under telemetry
+   ``off``, ``counters`` and ``events``, each final state bit for bit with
+   ``off``'s, the launches a run in every tier, the pin's graph kept under
+   ``counters`` (``sendrecv`` counted per replay from the capture's stash)
+   and run eagerly under ``events`` (every call journaled); the host
+   microseconds a call of the generic step per service; four gloo ranks on
+   (2,2) under the tiers interleaved (the ``wide2`` solve and 20
+   split-phase steps, bit for bit with ``off``, the journals merged by the
+   ``merge`` command); and the drills of ``models/runtime_drill.py`` at
+   3600x1800 (delay, watchdog, corrupt, die), started together.  One JSON
+   line ``{"runtime": ...}``.
+12. the health plane on this card (``health_phase``): (a) the split-phase
+   0.1-day solve (``pinned=True``) under ``counters`` with
+   ``MPI4JAX_TPU_HEALTH`` off, on, on, off in this process, each final
+   state bit for bit with the first's, 882 ``sw_phase`` launches a run, the
+   pin still a graph, the flight ring's ``total`` the counted ``sendrecv``
+   calls and its ``dropped`` that less its 1024 records; (b) the same under
+   ``events`` (the pin eager), off and on: a begin and a record a call;
+   (c) four gloo ranks on (2,2), 902x1802 a rank, 20 split-phase steps
+   under ``events`` with the detector's ``on_boundary`` after every step:
+   20 exchanges, the same cross-rank verdicts on every rank, a
+   Prometheus file a rank, each exchange's ms on rank 0, then the same
+   with rank 2 delayed 0.05 s in each ``sendrecv`` after its 300th and
+   every rank's findings printed; (d) the ``health_hang`` and
+   ``health_die`` drills, started together as (c) starts and running
+   beside it: their postmortem bundles and
+   the ``postmortem`` command naming the faulty rank; (e) in a process of
+   its own, also beside (c), ``profile_ops``
+   around one replay of a 20-step megastep graph (20 ``sw_steps`` kernels
+   in the trace) and one eager split-phase step (its
+   ``mpi4jax_tpu.sendrecv`` ranges and 2 ``sw_phase`` kernels); (f)
+   ``prometheus_text()`` of (a) and ``cache_stats()``.  One JSON line
+   ``{"health": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -146,6 +180,12 @@ builds only the f32 forward source and times phase 6's four-rank ring
 forward, causal and not, eight calls each (``ring_main``), one JSON line:
 run from two checkouts in one call, it sets their ring forwards side by
 side.
+
+    python3 chip_smoke.py --runtime
+    python3 chip_smoke.py --health
+
+build the stencil sources and the host library and run phase 11 or phase
+12 alone, one JSON line each.
 """
 
 import hashlib
@@ -3039,6 +3079,460 @@ def runtime_main():
     return 0
 
 
+# phase 12: the health plane.  (a) and (b) run in this process, the
+# flags set in its environment for each run; (c) and the drills on four
+# gloo ranks
+HEALTH_RUNS = ("off", "on", "on", "off")
+HEALTH_STEPS = 20
+HEALTH_DELAY_SPEC = "delay:rank=2:op=sendrecv:after=300:secs=0.05"
+HEALTH_DRILLS = ("health_hang", "health_die")
+
+
+def _set_health(on):
+    if on:
+        os.environ["MPI4JAX_TPU_HEALTH"] = "on"
+    else:
+        os.environ.pop("MPI4JAX_TPU_HEALTH", None)
+
+
+def health_solves(P, dev, t1):
+    """One GPU, 3600x1800, 0.1 day, the split-phase solve
+    (``fast="pallas_halo"``, ``pinned=True``): (a) under ``counters`` with
+    the health plane off, on, on, off in this process: each final state bit
+    for bit with the first ``off``'s, 882 ``sw_phase`` launches a run, the
+    pin still a graph, the ring's ``total`` the run's counted ``sendrecv``
+    calls and its ``dropped`` that less its capacity; (b) under ``events``,
+    where the pin runs eagerly, off and on: every call a begin and a
+    record in the ring, begins and records equal within its window."""
+    from mpi4jax_tpu_torch import telemetry
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.telemetry import health
+    from mpi4jax_tpu_torch.utils.config import DEFAULT_FLIGHT_RING as RING
+
+    cfg = P.Config(nx=3600, ny=1800)
+    counter = _build.counter_for("sw_phase")
+    ref, rows, prom = None, {}, None
+    for k, (mode, on) in enumerate([("counters", h == "on") for h in HEALTH_RUNS]
+                                   + [("events", False), ("events", True)]):
+        label = f"{mode},{'on' if on else 'off'}#{k}"
+        telemetry.reset()
+        telemetry.set_telemetry_mode(mode)
+        _set_health(on)
+        try:
+            info = {}
+            counter.launches = 0
+            wall, n, final = P.solve_fused(cfg, t1, device=dev, fast="pallas_halo",
+                                           pinned=True, return_state=True, info=info)
+            torch.cuda.synchronize()
+            calls = _sendrecv(telemetry.snapshot())[0]
+            ring = health.flight_snapshot()
+            dropped = telemetry.snapshot().get("dropped")
+            if mode == "counters" and on:
+                prom = health.prometheus_text()
+        finally:
+            telemetry.set_telemetry_mode(None)
+            _set_health(False)
+        runs = info["runs"]
+        window = ring["records"]
+        begins = sum(1 for r in window if r.get("kind") == "begin")
+        ops = sum(1 for r in window if r.get("type") == "op")
+        dispatches = sum(1 for r in window if r.get("kind") == "dispatch")
+        same = ref is None or all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                  for a, b in zip(ref, final))
+        print(f"split-phase, {mode}, health {'on' if on else 'off'}: {n / wall:.2f} "
+              f"steps/s, graph {info['pinned']} "
+              f"({info.get('eager_reason') or 'no per-op hook'}), "
+              f"{info['launches'].get('sw_phase', 0)} sw_phase launches a run, "
+              f"{counter.launches} over {runs} runs; sendrecv counted {calls}; ring "
+              f"total {ring['total']}, dropped {ring['dropped']}, window "
+              f"{len(window)} ({dispatches} dispatch, {begins} begins, {ops} records); "
+              f"{'the reference' if ref is None else f'bit for bit with it: {same}'}")
+        if info["launches"].get("sw_phase") != 882 or counter.launches != 882 * runs:
+            raise AssertionError(f"{label}: sw_phase launched {info['launches']} a run "
+                                 f"and {counter.launches} in all")
+        if not same:
+            raise AssertionError(f"{label}: the final state differs from the "
+                                 "first off run's")
+        if ref is None:
+            ref = final
+        if mode == "counters" and not (info["pinned"] and info.get("eager_reason") is None):
+            raise AssertionError(f"{label}: the pin is not a graph ({info})")
+        if mode == "events" and info["pinned"]:
+            raise AssertionError(f"{label}: the pin kept its graph under events")
+        # a counted call spills its dispatch record; under events also its
+        # begin and its journal record
+        want_total = (0 if not on else calls if mode == "counters" else 3 * calls)
+        if ring["total"] != want_total or ring["dropped"] != max(0, want_total - RING):
+            raise AssertionError(f"{label}: ring total {ring['total']}, dropped "
+                                 f"{ring['dropped']}, expected {want_total}")
+        if on and mode == "counters" and dispatches != min(RING, calls):
+            raise AssertionError(f"{label}: {dispatches} dispatch records in the window")
+        if on and mode == "events" and not (
+                begins == ops and abs(dispatches - begins) <= 1
+                and dispatches + begins + ops == len(window)):
+            raise AssertionError(f"{label}: {dispatches} dispatches, {begins} begins, "
+                                 f"{ops} records in the window")
+        if not on and (ring["capacity"] or dropped is not None):
+            raise AssertionError(f"{label}: a ring ({ring['capacity']}) or a dropped "
+                                 f"key ({dropped}) with health off")
+        rows[label] = {"mode": mode, "health": on, "steps": n, "wall": wall,
+                       "steps_per_s": n / wall, "graph": info["pinned"],
+                       "eager_reason": info.get("eager_reason"), "runs": runs,
+                       "launches_per_run": info["launches"].get("sw_phase", 0),
+                       "launches": counter.launches, "sendrecv_counted": calls,
+                       "ring_total": ring["total"], "ring_dropped": ring["dropped"],
+                       "window_begins": begins, "window_records": ops,
+                       "window_dispatches": dispatches, "bit_for_bit": same}
+        del final
+        telemetry.reset()
+        torch.cuda.empty_cache()
+    del ref
+    return rows, prom
+
+
+def health_rank(rank, device, nx, ny, tdir, steps, specs):
+    """One of four ranks on a (2,2) grid: for each fault spec of ``specs``
+    ('' for none), ``steps`` split-phase steps under ``events`` with the
+    health plane on, ``on_boundary`` after every step with the grid's comm,
+    the Prometheus file into ``tdir/<k>``; each boundary's findings and
+    wall."""
+    from mpi4jax_tpu_torch import resilience, telemetry
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.telemetry import health
+
+    import contextlib
+    import io
+
+    dev = torch.device(device)
+    cfg = P.Config(nx=nx, ny=ny, nproc_y=2, nproc_x=2)
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    first, multi = P.make_stepper(cfg, comm, fast="pallas_halo")
+    s0 = P.initial_state(cfg, rank=rank, device=dev)
+    multi(first(s0), 1)  # warm-up, every service off
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    runs = []
+    os.environ["MPI4JAX_TPU_HEALTH"] = "on"
+    os.environ["MPI4JAX_TPU_HEALTH_PROM"] = "1"
+    for k, spec in enumerate(specs):
+        d = os.path.join(tdir, f"run{k}")
+        os.environ["MPI4JAX_TPU_TELEMETRY_DIR"] = d
+        telemetry.reset()
+        resilience.reset_fault_state()
+        resilience.set_fault_spec(spec or None)
+        telemetry.set_telemetry_mode("events")
+        KP.counter.launches = 0
+        findings, exchange_ms = [], []
+        t0 = time.perf_counter()
+        s = s0
+        # the fault probe's line per injection, kept out of the call's output
+        lines = io.StringIO()
+        with contextlib.redirect_stderr(lines):
+            for step in range(steps):
+                s = first(s) if step == 0 else multi(s, 1)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                b0 = time.perf_counter()
+                findings.append(health.on_boundary(step, comm=comm))
+                exchange_ms.append((time.perf_counter() - b0) * 1e3)
+        wall = time.perf_counter() - t0
+        telemetry.set_telemetry_mode(None)
+        resilience.set_fault_spec(None)
+        snap = telemetry.snapshot()
+        runs.append({"spec": spec, "findings": findings, "exchange_ms": exchange_ms,
+                     "wall": wall, "exchanges": health._detector.exchanges,
+                     "launches": KP.counter.launches,
+                     "sendrecv_calls": _sendrecv(snap)[0],
+                     "meters": {k: v for k, v in snap["meters"].items()
+                                if k.startswith("health.") or k.startswith("faults.")},
+                     "prom": os.path.exists(os.path.join(
+                         d, f"{health.PROM_FILE_PREFIX}{rank}.prom")),
+                     "finite": all(bool(torch.isfinite(f).all()) for f in s),
+                     "fault_lines": lines.getvalue().splitlines()[:1]})
+    for k in ("MPI4JAX_TPU_HEALTH", "MPI4JAX_TPU_HEALTH_PROM",
+              "MPI4JAX_TPU_TELEMETRY_DIR"):
+        os.environ.pop(k, None)
+    return runs
+
+
+def _verdicts(boundary_findings):
+    return [[(f["rank"], f["key"], f["persistent"]) for f in (b or ())
+             if f["kind"] == "slow_rank"] for b in boundary_findings]
+
+
+def four_rank_health(launch, device, tdir, nx=3600, ny=1800):
+    """(c): ``health_rank`` on four gloo ranks, without a fault and then
+    under ``HEALTH_DELAY_SPEC``: ``HEALTH_STEPS`` exchanges a run, the same
+    cross-rank verdicts on every rank, a Prometheus file a rank, 40
+    ``sw_phase`` launches a rank and run; each exchange's ms on rank 0 and
+    each rank's findings printed."""
+    t0 = time.perf_counter()
+    ranks = launch.run(health_rank, 4, backend="gloo", device=device, timeout=300,
+                       args=(device, nx, ny, tdir, HEALTH_STEPS, ("", HEALTH_DELAY_SPEC)))
+    print(f"four ranks, health on, {HEALTH_STEPS} split-phase steps a run: "
+          f"{time.perf_counter() - t0:.1f} s with start-up")
+    out = []
+    for k, run0 in enumerate(ranks[0]):
+        verdicts = _verdicts(run0["findings"])
+        for r, res in enumerate(ranks):
+            run = res[k]
+            if _verdicts(run["findings"]) != verdicts:
+                raise AssertionError(f"run {k}: rank {r}'s verdicts differ from rank 0's")
+            if run["exchanges"] != HEALTH_STEPS or not run["prom"] or not run["finite"]:
+                raise AssertionError(f"run {k}, rank {r}: {run['exchanges']} exchanges, "
+                                     f"prom {run['prom']}, finite {run['finite']}")
+            # kernels launch on the card only (the plain versions run on the
+            # CPU, where this phase is rehearsed)
+            want = 2 * HEALTH_STEPS if device.startswith("cuda") else 0
+            if run["launches"] != want or \
+                    run["sendrecv_calls"] != SENDRECV_A_STEP[4] * HEALTH_STEPS:
+                raise AssertionError(f"run {k}, rank {r}: {run['launches']} sw_phase, "
+                                     f"{run['sendrecv_calls']} sendrecv")
+        named = sorted({v[0] for b in verdicts for v in b})
+        persistent = sorted({v[0] for b in verdicts for v in b if v[2]})
+        ms = run0["exchange_ms"]
+        print(f"  run {k} ({run0['spec'] or 'no fault'}): wall {run0['wall']:.3f} s; "
+              f"exchange ms on rank 0 min {min(ms):.3f} median "
+              f"{sorted(ms)[len(ms) // 2]:.3f} max {max(ms):.3f}; slow ranks named "
+              f"{named}, persistent {persistent}; delays injected "
+              f"{[res[k]['meters'].get('faults.injected', 0) for res in ranks]} "
+              f"{[ln for res in ranks for ln in res[k]['fault_lines']]}")
+        for r, res in enumerate(ranks):
+            local = [[(f["key"].split("|")[0], round(f["ratio"], 2))
+                      for f in (b or ()) if f["kind"] == "degraded"]
+                     for b in res[k]["findings"]]
+            print(f"    rank {r}: degraded at boundaries "
+                  f"{[i for i, b in enumerate(local) if b]} "
+                  f"{[b for b in local if b][:3]}; meters {res[k]['meters']}")
+        out.append({"spec": run0["spec"], "wall": run0["wall"],
+                    "exchange_ms_rank0": ms, "slow_ranks_named": named,
+                    "persistent": persistent, "verdicts_by_boundary": verdicts,
+                    "degraded_boundaries_by_rank": {
+                        r: [i for i, b in enumerate(res[k]["findings"])
+                            if any(f["kind"] == "degraded" for f in (b or ()))]
+                        for r, res in enumerate(ranks)},
+                    "launches_rank0": run0["launches"]})
+    return out
+
+
+def start_health_drills(device, tdir, nx=3600, ny=1800):
+    """(d): the health-armed drills, started together in threads of their
+    own; ``{name: future}``, each future's result ``run_drill``'s."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi4jax_tpu_torch.models import runtime_drill
+
+    pool = ThreadPoolExecutor(len(HEALTH_DRILLS))
+    futures = {name: pool.submit(
+        runtime_drill.run_drill, name, device=device, nx=nx, ny=ny,
+        timeout=DRILL_TIMEOUT_S, limit=180, workdir=os.path.join(tdir, f"drill-{name}"))
+        for name in HEALTH_DRILLS}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def check_health_drills(res):
+    """(d)'s checks on ``run_drill``'s results: ``health_hang`` (four
+    bundles, the command names rank 2, the hung rank killed once the others
+    ended) and ``health_die`` (rank 1's bundle, the command names rank
+    1)."""
+    out = {}
+    for name, rank, reason in (
+            ("health_hang", 2, "fault: hang injected in MPI_Sendrecv on rank 2"),
+            ("health_die", 1, "fatal_fault: die injected in MPI_Sendrecv on rank 1")):
+        d = res[name]
+        bundles = sorted(f for f in os.listdir(d["dir"]) if f.startswith("postmortem-p"))
+        with open(os.path.join(d["dir"], f"postmortem-p{rank}.json")) as f:
+            reasons = json.load(f)["reasons"]
+        cli = subprocess.run([sys.executable, "-m", "mpi4jax_tpu_torch.telemetry",
+                              "postmortem", d["dir"]], capture_output=True, text=True)
+        suspects = [ln for ln in cli.stdout.splitlines()
+                    if ln.startswith("suspected straggler")]
+        print(f"drill {name}: exit {d['exit']}, {d['seconds']:.1f} s, bundles {bundles}, "
+              f"rank {rank}'s reasons {reasons}")
+        for ln in suspects:
+            print(f"  {ln}")
+        want_bundles = 4 if name == "health_hang" else 1
+        if (cli.returncode != 0 or len(bundles) != want_bundles or reasons != [reason]
+                or not suspects or not suspects[0].startswith(
+                    f"suspected straggler: rank {rank} — fault incident")):
+            raise AssertionError(f"drill {name}: rc {cli.returncode}, bundles {bundles}, "
+                                 f"reasons {reasons}, {cli.stdout[-1500:]} "
+                                 f"{cli.stderr[-1500:]}")
+        if name == "health_hang" and d["exit"][2] != -9:
+            raise AssertionError(f"drill {name}: the hung rank exited {d['exit'][2]}")
+        out[name] = {"exit": d["exit"], "seconds": d["seconds"], "bundles": bundles,
+                     "reasons": reasons, "suspects": suspects}
+    return out
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def health_profiles(P, dev, tdir):
+    """(e): ``profile_ops`` around one megastep call of
+    ``solve_fused(fast="auto", unroll=20)``'s pin (20 ``sw_steps`` kernels
+    in the trace, ``fenced_arrays`` > 0), and around one eager split-phase
+    step (its ``mpi4jax_tpu.sendrecv`` ranges and 2 ``sw_phase`` kernels)."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch.aot import pinning
+    from mpi4jax_tpu_torch.kernels import _build
+
+    out = {}
+    cfg = P.Config(nx=3600, ny=1800)
+    _, comm = P.make_mesh_and_comm(cfg, device=dev)
+    step, chunk, size = P.select_steps("auto", cfg)
+
+    def one(s):
+        return P._run_steps(s, 1, cfg, comm, step, chunk, size)
+
+    s0 = P.initial_state(cfg, device=dev)
+    pp = pinning.compile(one, s0, comm=comm, unroll=20)
+    s1 = pp(s0)
+    torch.cuda.synchronize()
+    steps_counter = _build.counter_for("sw_steps")
+    steps_counter.launches = 0
+    with tpx.profile_ops(os.path.join(tdir, "megastep")) as prof:
+        s2 = pp(s1)
+    events = _trace_events(prof.trace_file)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "sw_steps" in e.get("name", "")]
+    print(f"profile_ops, one unroll=20 megastep call (graph {pp.graph}): "
+          f"{len(kernels)} sw_steps kernels in the trace, {steps_counter.launches} "
+          f"launches counted, fenced_arrays {prof.fenced_arrays}, "
+          f"{len(events)} trace events")
+    if len(kernels) != 20 or steps_counter.launches != 20 or not prof.fenced_arrays:
+        raise AssertionError(f"megastep profile: {len(kernels)} kernels, "
+                             f"{steps_counter.launches} launches, fenced "
+                             f"{prof.fenced_arrays}")
+    out["megastep"] = {"graph": pp.graph, "sw_steps_kernels": len(kernels),
+                       "launches": steps_counter.launches,
+                       "kernel_us": sum(e.get("dur", 0) for e in kernels),
+                       "fenced_arrays": prof.fenced_arrays,
+                       "trace_events": len(events)}
+    del pp, s0, s1, s2
+    torch.cuda.empty_cache()
+
+    first, multi = P.make_stepper(cfg, comm, fast="pallas_halo")
+    s = first(P.initial_state(cfg, device=dev))
+    multi(s, 1)
+    torch.cuda.synchronize()
+    phase_counter = _build.counter_for("sw_phase")
+    phase_counter.launches = 0
+    with tpx.profile_ops(os.path.join(tdir, "eager")) as prof:
+        s = multi(s, 1)
+    events = _trace_events(prof.trace_file)
+    # the host's ranges (the profiler also mirrors each onto the device's
+    # timeline as a gpu_user_annotation)
+    ranges = [e for e in events if e.get("name") == "mpi4jax_tpu.sendrecv"
+              and e.get("cat") != "gpu_user_annotation"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "sw_phase" in e.get("name", "")]
+    print(f"profile_ops, one eager split-phase step: {len(ranges)} "
+          f"mpi4jax_tpu.sendrecv ranges, {len(kernels)} sw_phase kernels, "
+          f"{phase_counter.launches} launches counted, fenced_arrays "
+          f"{prof.fenced_arrays}")
+    if len(ranges) != SENDRECV_A_STEP[1] or len(kernels) != 2 or phase_counter.launches != 2:
+        raise AssertionError(f"eager profile: {len(ranges)} ranges, {len(kernels)} "
+                             f"kernels, {phase_counter.launches} launches")
+    out["eager_step"] = {"sendrecv_ranges": len(ranges), "sw_phase_kernels": len(kernels),
+                         "launches": phase_counter.launches,
+                         "range_us": sum(e.get("dur", 0) for e in ranges),
+                         "fenced_arrays": prof.fenced_arrays}
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_rank(rank, device, tdir):
+    """(e) in a process of its own: in the smoke run's long-lived process
+    (phases 1-11 before it) the trace of one megastep replay held only 10
+    and then 8 of its 20 kernels, in two full runs; in the shorter
+    processes of three other calls all 18 captures held all 20."""
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    return health_profiles(P, torch.device(device), tdir)
+
+
+def health_phase(P, dev, launch):
+    """Phase 12 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    import tempfile
+
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import native
+
+    t0 = time.perf_counter()
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    native.build(verbose=False)
+    from concurrent.futures import ThreadPoolExecutor
+
+    out, parts = {}, {}
+    out["one_gpu"], prom = health_solves(P, dev, t1)
+    parts["one_gpu"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="mpx-health-") as tdir:
+        # the drills' ranks and (e)'s process run beside (c): they check
+        # counts, bundles and traces, not times
+        drills = start_health_drills("cuda:0", tdir)
+        pool = ThreadPoolExecutor(1)
+        profiles = pool.submit(launch.run, profile_rank, 1, backend="gloo",
+                               device="cuda:0", timeout=300, args=("cuda:0", tdir))
+        pool.shutdown(wait=False)
+        try:
+            out["four_ranks"] = four_rank_health(launch, "cuda:0", tdir)
+            parts["four_ranks"] = time.perf_counter() - t0 - sum(parts.values())
+        finally:
+            # every drill's and (e)'s process has ended before the directory
+            # goes
+            res = {name: f.result() for name, f in drills.items()}
+            out["profiles"] = profiles.result()[0]
+        parts["drills_and_profiles_after"] = (time.perf_counter() - t0
+                                              - sum(parts.values()))
+        out["drills"] = check_health_drills(res)
+    print("prometheus_text() of the first counters run with health on:")
+    print(prom, end="")
+    out["cache_stats"] = tpx.cache_stats()
+    print("cache_stats(): " + json.dumps(out["cache_stats"]))
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    print(f"phase 12 (health plane): {out['seconds']:.1f} s; by part "
+          + json.dumps({k: round(v, 1) for k, v in parts.items()}))
+    return out
+
+
+def health_main():
+    """``python3 chip_smoke.py --health``: builds the stencil sources and
+    the host library and runs phase 12 alone; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch import native
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    _build.build_many([K.spec(), KP.spec(), KW.spec()])
+    native.build(verbose=False)
+    print(f"built the stencil sources and the host library in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = health_phase(P, torch.device("cuda"), launch)
+    print(smi)
+    print(json.dumps({"health": out}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3213,6 +3707,10 @@ def main():
     one_gpu = runtime["one_gpu"]
     four = runtime["four_ranks"]["rank0"]
 
+    # -- the health plane: ring, detector, bundles, profile_ops -------------
+    health = health_phase(P, dev, launch)
+    print(json.dumps({"health": health}))
+
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
     phase2 = phase_cases["periodic,phase2"]
@@ -3240,6 +3738,8 @@ def main():
                               if n.startswith("unroll")},
         # phase 11: the periodic solve under each telemetry tier, every run
         "runtime_launches": {m: r["launches"] for m, r in one_gpu["periodic"].items()},
+        # phase 12: one unroll=20 megastep replay under profile_ops
+        "health_profile_launches": health["profiles"]["megastep"]["launches"],
     }, {
         "name": "sw_phase",
         "route": "cuda",
@@ -3272,6 +3772,13 @@ def main():
         # rank 0's 20 steps under each interleaved tier (four ranks)
         "runtime_launches": {m: r["launches"] for m, r in one_gpu["split_phase"].items()},
         "runtime_four_rank_launches_rank0": [r["phase_launches"] for r in four],
+        # phase 12: the split-phase solve under counters (health off, on, on,
+        # off) and events (off, on), every run; rank 0's 20 steps of each
+        # four-rank run; one eager step under profile_ops
+        "health_launches": {k: r["launches"] for k, r in health["one_gpu"].items()},
+        "health_four_rank_launches_rank0": [r["launches_rank0"]
+                                            for r in health["four_ranks"]],
+        "health_profile_launches": health["profiles"]["eager_step"]["launches"],
     }, {
         "name": "sw_wide",
         "route": "cuda",
@@ -3440,5 +3947,5 @@ def main():
 if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
              "--ring": ring_main, "--dispatch": dispatch_main,
-             "--runtime": runtime_main}
+             "--runtime": runtime_main, "--health": health_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -33,8 +33,12 @@ and the runtime services around every op's one dispatch point
 runtime tracing, ``abort_if``, the C++ watchdog), telemetry
 (``telemetry/``: counters, the events journal, ``report``, the merge of
 journals) and resilience (``resilience/``: the watchdog, fault
-injection, numeric guards, the rendezvous retry), all off by default.
-Nothing here imports JAX.
+injection, numeric guards, the rendezvous retry), all off by default;
+and the health plane (``telemetry/health.py``: the flight ring, the
+straggler detector, postmortem bundles and their merge, Prometheus text)
+with the JAX package's remaining top-level helpers (``profile_ops``,
+``cache_stats``, ``clear_caches``, ``varying``, the default mesh, the
+capability probes).  Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -68,8 +72,10 @@ from .ops import (  # noqa: F401
     sendrecv,
 )
 from . import aot, compress, resilience, telemetry  # noqa: F401
-from .aot import compile  # noqa: F401
+from .aot import PinnedProgram, StaleProgramError, compile  # noqa: F401
 from .ops._async import (  # noqa: F401
+    AsyncHandle,
+    P2PHandle,
     allreduce_start,
     allreduce_wait,
     alltoall_start,
@@ -81,13 +87,16 @@ from .ops._async import (  # noqa: F401
     reduce_scatter_wait,
     send_start,
 )
+from .ops._base import cache_stats, clear_caches, varying  # noqa: F401
 from .ops._fusion import set_fusion_mode  # noqa: F401
 from .parallel.comm import Comm, GroupComm  # noqa: F401
 from .parallel.mesh import (  # noqa: F401
     ProcessGrid,
+    get_default_mesh,
     init_distributed,
     make_world_mesh,
     resolve_device,
+    set_default_mesh,
 )
 from .parallel.megastep import register_boundary_hook  # noqa: F401
 from .parallel.rankspec import shift  # noqa: F401
@@ -98,8 +107,16 @@ from .resilience import (  # noqa: F401
     set_watchdog_timeout,
 )
 from .telemetry import set_telemetry_mode  # noqa: F401
+from .utils import (  # noqa: F401
+    ProfileSummary,
+    has_cuda_support,
+    has_sycl_support,
+    has_tpu_support,
+    profile_ops,
+)
 
 __all__ = [
+    "AsyncHandle",
     "BAND",
     "BOR",
     "BXOR",
@@ -111,9 +128,13 @@ __all__ = [
     "MAX",
     "MIN",
     "Op",
+    "P2PHandle",
     "PROD",
+    "PinnedProgram",
     "ProcessGrid",
+    "ProfileSummary",
     "SUM",
+    "StaleProgramError",
     "Status",
     "Token",
     "allgather",
@@ -126,16 +147,23 @@ __all__ = [
     "aot",
     "barrier",
     "bcast",
+    "cache_stats",
+    "clear_caches",
     "compile",
     "compress",
     "create_token",
     "flush",
     "gather",
     "get_default_comm",
+    "get_default_mesh",
+    "has_cuda_support",
+    "has_sycl_support",
+    "has_tpu_support",
     "init_distributed",
     "make_world_mesh",
     "overlap",
     "p2p_wait",
+    "profile_ops",
     "recv",
     "recv_start",
     "reduce",
@@ -152,6 +180,7 @@ __all__ = [
     "send_start",
     "sendrecv",
     "set_check_numerics",
+    "set_default_mesh",
     "set_fault_spec",
     "set_fusion_mode",
     "set_telemetry_mode",
@@ -159,4 +188,5 @@ __all__ = [
     "shift",
     "spmd",
     "telemetry",
+    "varying",
 ]

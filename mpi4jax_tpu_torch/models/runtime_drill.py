@@ -22,11 +22,34 @@ grid.  The drills:
 - ``corrupt``: rank 0's ``sendrecv`` inputs turn to NaN after its 2nd,
   under numeric guards: the guard aborts rank 0 with its message;
 - ``die``: rank 1 exits with code 13 in its 5th ``sendrecv``, with the
-  watchdog at ``timeout`` so that the others end instead of hanging.
+  watchdog at ``timeout`` so that the others end instead of hanging;
+- ``hang``: rank 2 sleeps for good in its 10th ``sendrecv``
+  (``hang:rank=2:op=sendrecv:after=9``), with the watchdog at
+  ``timeout``: the others abort; the hung rank is killed once they have
+  ended.
+
+Two drills arm the health plane (``MPI4JAX_TPU_HEALTH=on`` in the ranks'
+environment; ``telemetry/health.py``) under the ``events`` tier, so that
+each rank's flight ring holds its begins, records and incidents, and the
+ranks write postmortem bundles into the drill's directory:
+
+- ``health_hang``: the ``hang`` drill with the watchdog in its Python
+  registry (``watchdog.force_python_fallback(True)``), whose expiry writes
+  the bundle of each waiting rank (the C++ monitor aborts in C++ and
+  writes none); its handler dumps and aborts one ``timeout`` later, so
+  that the first death cannot close a connection another rank waits on
+  before that rank's own expiry; the hung rank writes its bundle as it
+  hangs.  Four
+  bundles, and ``python -m mpi4jax_tpu_torch.telemetry postmortem`` names
+  rank 2 from the fault incident at the tail of its ring;
+- ``health_die``: the ``die`` drill: rank 1 writes its bundle (reason
+  ``fatal_fault: die injected ...``) before it exits; the others, under
+  the C++ watchdog, write none.
 
 ``run_drill(name, ...)`` starts the ranks, waits at most ``limit``
-seconds (then kills what is left) and returns every rank's exit code,
-standard output and standard error, with the seconds it took.  The
+seconds (then kills what is left; a hung rank as soon as the others have
+ended) and returns every rank's exit code, standard output and standard
+error, with the seconds it took.  The
 checks of what came out are the caller's (``chip_smoke.py`` phase 11, the
 port's tests).
 """
@@ -40,7 +63,12 @@ import sys
 import tempfile
 import time
 
-DRILLS = ("delay", "watchdog", "corrupt", "die")
+DRILLS = ("delay", "watchdog", "corrupt", "die", "hang", "health_hang",
+          "health_die")
+# the rank that sleeps for good in the hang drills
+HUNG_RANK = {"hang": 2, "health_hang": 2}
+# the drills whose ranks run with MPI4JAX_TPU_HEALTH=on
+HEALTH_DRILLS = ("health_hang", "health_die")
 WORLD = 4  # the drill specs name ranks 0-2 of a (2, 2) grid
 STEPS = 1  # drilled steps after the warm-up
 
@@ -55,8 +83,12 @@ def drill_spec(name: str, delay: float = 0.5, hang: float = 3.0):
         return f"delay:rank=2:op=sendrecv:after=9:secs={hang:g}", True, False, "off"
     if name == "corrupt":
         return "corrupt:nan:rank=0:op=sendrecv:after=2", False, True, "off"
-    if name == "die":
-        return "die:rank=1:op=sendrecv:after=4", True, False, "off"
+    if name in ("die", "health_die"):
+        return ("die:rank=1:op=sendrecv:after=4", True, False,
+                "events" if name == "health_die" else "off")
+    if name in ("hang", "health_hang"):
+        return ("hang:rank=2:op=sendrecv:after=9", True, False,
+                "events" if name == "health_hang" else "off")
     raise ValueError(f"unknown drill {name!r}; one of {DRILLS}")
 
 
@@ -79,6 +111,19 @@ def rank_main(args) -> int:
     barrier(comm=comm)
 
     spec, watchdog, numerics, mode = drill_spec(args.drill, args.delay, args.hang)
+    if args.drill == "health_hang":
+        from ..resilience import watchdog as _wd
+
+        _wd.force_python_fallback(True)
+        # the dump-and-die waits one timeout after the expiry (whose bundle
+        # is written before the handler runs), so that every waiting rank
+        # expires and writes its bundle before the first death closes the
+        # connections the others wait on
+        def die_late(entries, expired):
+            time.sleep(args.timeout)
+            _wd._default_on_timeout(entries, expired)
+
+        _wd.set_on_timeout(die_late)
     resilience.set_fault_spec(spec)
     if watchdog:
         resilience.set_watchdog_timeout(args.timeout)
@@ -99,7 +144,8 @@ def run_drill(name: str, *, device=None, nx: int = 48, ny: int = 24,
     x ``ny`` domain on ``device``; ``None`` means the GPU, and without
     CUDA this raises unless given ``device="cpu"``); returns ``{"exit":
     [...], "stdout": [...], "stderr": [...], "seconds": s, "dir":
-    workdir}``, the journals of the ``delay`` drill in ``workdir``."""
+    workdir}``, the journals of the ``delay`` and health drills and the
+    health drills' postmortem bundles in ``workdir``."""
     from ..parallel.mesh import resolve_device
 
     if name not in DRILLS:
@@ -109,6 +155,8 @@ def run_drill(name: str, *, device=None, nx: int = 48, ny: int = 24,
     os.makedirs(workdir, exist_ok=True)
     env = {k: v for k, v in os.environ.items() if not k.startswith("MPI4JAX_TPU_")}
     env["MPI4JAX_TPU_TELEMETRY_DIR"] = workdir
+    if name in HEALTH_DRILLS:
+        env["MPI4JAX_TPU_HEALTH"] = "on"
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     rendezvous = "file://" + os.path.join(workdir, "rendezvous")
@@ -126,8 +174,13 @@ def run_drill(name: str, *, device=None, nx: int = 48, ny: int = 24,
         procs.append(subprocess.Popen(cmd, env=env, stdout=out, stderr=err,
                                       cwd=root))
     deadline = time.monotonic() + limit
+    hung = HUNG_RANK.get(name)
     try:
-        for p in procs:
+        # a hung rank never returns: it is killed (below) as soon as the
+        # others have ended
+        for r, p in enumerate(procs):
+            if r == hung:
+                continue
             try:
                 p.wait(max(0.1, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:

@@ -43,6 +43,7 @@ from ..telemetry import bracket as _tbracket
 from ..telemetry import core as _telemetry
 from ..utils import config as _config
 from ..utils import debug as _debug
+from ..utils import profiling as _profiling
 from ._fusion import flush_pending
 
 CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
@@ -195,11 +196,13 @@ def next_call_id() -> str:
 class Hooks:
     """Which runtime services are on, read once per configuration stamp:
     ``telemetry`` (counters or events), ``events``, ``tracing`` (native
-    runtime trace), ``logging`` (the per-op debug line) and ``resilience``
-    (a watchdog timeout, a fault spec or numeric guards)."""
+    runtime trace), ``logging`` (the per-op debug line), ``resilience``
+    (a watchdog timeout, a fault spec or numeric guards) and
+    ``profiling`` (an open ``profile_ops`` capture, which names each op
+    call's range; it runs nothing a pin must run eagerly for)."""
 
     __slots__ = ("telemetry", "events", "tracing", "logging", "resilience",
-                 "per_op")
+                 "profiling", "per_op")
 
     def __init__(self):
         mode = _telemetry.effective_mode()
@@ -207,6 +210,7 @@ class Hooks:
         self.events = mode == "events"
         self.tracing = _debug.get_runtime_tracing()
         self.logging = _debug.get_logging()
+        self.profiling = _profiling.capture_open()
         timeout = _resilience.effective_watchdog_timeout()
         numerics = _resilience.effective_check_numerics()
         faults = bool(_resilience.effective_fault_clauses())
@@ -223,7 +227,7 @@ class Hooks:
 
     def any(self) -> bool:
         return (self.telemetry or self.tracing or self.logging
-                or self.resilience)
+                or self.resilience or self.profiling)
 
 
 _hooks_cell: list = [None, None]  # [service stamp, Hooks or None]
@@ -276,6 +280,8 @@ def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
     the wait (``ops/_async.py``).  With every service off (the default)
     the body is called directly, after one read of the configuration
     stamp.  An op called inside another's body is part of that call.
+    While a ``profile_ops`` capture is open, the call runs inside its
+    ``mpi4jax_tpu.<op>`` range (``utils/profiling.py``).
 
     The end hooks run when the body has returned, and the body returns
     with its result ready: a multi-rank op on gloo stages its exchange
@@ -287,6 +293,9 @@ def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
         return body(comm, arrays, token)
     _depth[0] += 1
     try:
+        if h.profiling:
+            with _profiling.op_range(opname):
+                return _instrumented(h, opname, comm, body, arrays, token, bare)
         return _instrumented(h, opname, comm, body, arrays, token, bare)
     finally:
         _depth[0] -= 1
@@ -387,3 +396,61 @@ def output_tensors(out) -> list:
     token)."""
     items = out if isinstance(out, tuple) else (out,)
     return [o for o in items if isinstance(o, torch.Tensor)]
+
+
+# ---------------------------------------------------------------------------
+# the public helpers of the JAX package's ops/_base.py
+# ---------------------------------------------------------------------------
+
+
+def varying(x, *, comm=None):
+    """The JAX package's helper that re-types a replicated value as
+    rank-varying, for carries of structured control flow that pass through
+    a collective.  The port runs each rank's ops eagerly and has no
+    replicated typing, so this is the identity, after the one thing the
+    JAX package also does first: a deferred fusion or overlap result
+    (``LazyResult``) anywhere in ``x`` is turned into its tensor, since
+    re-typing is a use.  ``comm`` is accepted for the JAX package's
+    signature; nothing here depends on it."""
+    from ._fusion import materialize_tree
+
+    return materialize_tree(x)
+
+
+def cache_stats() -> dict:
+    """Cache accounting, in the JAX package's keys:
+
+    - ``hits``, ``misses``, ``evictions``, ``size``: what the port caches
+      per op call.  The port compiles no program per call, so its eager
+      tier is the resilience plan memo (``resilience/runtime.py:plan_for``,
+      one ``Plan`` per op name and services' stamp): a hit is a call that
+      found its plan, a miss one that built it, an eviction an entry
+      dropped when the stamp moved, ``size`` the entries held.  The
+      staging buffers of the multi-rank ops (``ops/_staging.py``) are no
+      cache of the port's: each call takes its pinned host buffer from
+      PyTorch's caching host allocator, which the port does not count;
+    - ``"aot"``: the pin counters (``aot.stats()``);
+    - ``"disk_cache"``: the JAX package's persistent tier, which the port
+      does not have: ``enabled`` False and every count 0.
+
+    ``clear_caches()`` resets them."""
+    from .. import aot
+    from ..resilience import runtime as _rt
+
+    out = _rt.plan_memo_stats()
+    out.update(aot.stats())
+    out["disk_cache"] = {"enabled": False, "dir": "", "hits": 0,
+                         "misses": 0, "writes": 0, "evictions": 0,
+                         "bytes": 0, "entries": 0, "disk_bytes": 0}
+    return out
+
+
+def clear_caches() -> None:
+    """Empty the resilience plan memo (its counts too) and reset the pin
+    counters.  A pinned program keeps its graph: it is dropped with the
+    object, as the JAX package's ``spmd`` programs are."""
+    from .. import aot
+    from ..resilience import runtime as _rt
+
+    _rt.clear_plan_memo()
+    aot.reset_stats()

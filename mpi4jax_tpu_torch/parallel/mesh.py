@@ -294,3 +294,33 @@ def make_world_mesh(
         device = world_device()
     _make_groups(shape)
     return ProcessGrid(shape, axes, resolve_device(device), dist.get_rank())
+
+
+# the default grid and the world it was built in (or set for)
+_default_mesh: tuple = (None, None)
+
+
+def _world_key():
+    return ((dist.get_world_size(), dist.get_rank())
+            if dist.is_available() and dist.is_initialized() else None)
+
+
+def get_default_mesh() -> ProcessGrid:
+    """The world's default grid: ``make_world_mesh()`` (a 1-D grid named
+    ``"mpi4jax"`` over every process), built once per world, or the grid
+    ``set_default_mesh`` gave for it.  ``get_default_comm`` builds its comm
+    on it.  Building a grid of several ranks is collective: every rank must
+    ask."""
+    global _default_mesh
+    world = _world_key()
+    if _default_mesh[1] is None or _default_mesh[0] != world:
+        _default_mesh = (world, make_world_mesh())
+    return _default_mesh[1]
+
+
+def set_default_mesh(mesh: Optional[ProcessGrid]) -> None:
+    """Replace the default grid of this world (``None``: build it anew at
+    the next ``get_default_mesh``).  A default comm built already keeps its
+    grid, as in the JAX package."""
+    global _default_mesh
+    _default_mesh = (_world_key(), mesh)

@@ -36,10 +36,8 @@ from __future__ import annotations
 import functools
 from typing import List, Optional
 
-import torch.distributed as dist
-
 from .comm import Comm
-from .mesh import DEFAULT_AXIS, make_world_mesh
+from .mesh import DEFAULT_AXIS, _world_key, get_default_mesh
 
 
 class RegionContext:
@@ -64,17 +62,17 @@ def current_context() -> Optional[RegionContext]:
 
 
 def get_default_comm() -> Comm:
-    """Inside a region, its comm; outside, the world's comm over a 1-D
-    grid named ``"mpi4jax"`` (built once per world; every rank must ask
-    for it, since building a grid of several ranks is collective)."""
+    """Inside a region, its comm; outside, the world's comm over the
+    default grid (``get_default_mesh``: a 1-D grid named ``"mpi4jax"``;
+    built once per world; every rank must ask for it, since building a
+    grid of several ranks is collective)."""
     ctx = current_context()
     if ctx is not None:
         return ctx.comm
     global _default
-    world = ((dist.get_world_size(), dist.get_rank())
-             if dist.is_available() and dist.is_initialized() else None)
+    world = _world_key()
     if _default[1] is None or _default[0] != world:
-        _default = (world, Comm(DEFAULT_AXIS, mesh=make_world_mesh()))
+        _default = (world, Comm(DEFAULT_AXIS, mesh=get_default_mesh()))
     return _default[1]
 
 

@@ -339,11 +339,31 @@ def probe_host(indexed_clauses, mpi_name: str, rank) -> int:
         elif clause.verb == "die":
             _fault_line(r, f"die injected in {mpi_name} "
                            f"({clause.canonical()})")
+            # the last chance for a postmortem bundle: os._exit skips
+            # every finally (a no-op unless the health plane is on; a
+            # fault probe must not die of its observers)
+            try:
+                from ..telemetry import health as _health
+
+                _health.maybe_postmortem(
+                    f"fatal_fault: die injected in {mpi_name} on rank {r}")
+            except Exception:
+                pass
             sys.stderr.flush()
             os._exit(13)
         elif clause.verb == "hang":
             _fault_line(r, f"hang injected in {mpi_name} "
                            f"({clause.canonical()}) — sleeping forever")
+            # the bundle now: the hung rank blocks before its watchdog arm,
+            # so this is its one postmortem, with the fault incident at the
+            # ring's tail, which the postmortem command names it from
+            try:
+                from ..telemetry import health as _health
+
+                _health.maybe_postmortem(
+                    f"fault: hang injected in {mpi_name} on rank {r}")
+            except Exception:
+                pass
             sys.stderr.flush()
             _hang_forever()
         elif clause.verb == "preempt":

@@ -169,6 +169,21 @@ class Plan:
 # one Plan per (service stamp, op name): a plan holds nothing that changes
 # between calls, so the flags are parsed once per stamp
 _plan_memo: list = [None, {}]
+# its accounting (``ops/_base.py:cache_stats``)
+_plan_stats = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def plan_memo_stats() -> dict:
+    """``{"hits", "misses", "evictions", "size"}`` of the plan memo."""
+    return dict(_plan_stats, size=len(_plan_memo[1]))
+
+
+def clear_plan_memo() -> None:
+    """Empty the plan memo and zero its accounting."""
+    _plan_memo[0] = None
+    _plan_memo[1] = {}
+    for k in _plan_stats:
+        _plan_stats[k] = 0
 
 
 def plan_for(opname: str) -> Optional[Plan]:
@@ -176,11 +191,14 @@ def plan_for(opname: str) -> Optional[Plan]:
     is off."""
     stamp = config.service_stamp()
     if _plan_memo[0] != stamp:
+        _plan_stats["evictions"] += len(_plan_memo[1])
         _plan_memo[1] = {}
         _plan_memo[0] = stamp
     memo = _plan_memo[1]
     if opname in memo:
+        _plan_stats["hits"] += 1
         return memo[opname]
+    _plan_stats["misses"] += 1
     timeout = effective_watchdog_timeout()
     numerics = effective_check_numerics()
     clauses = tuple(

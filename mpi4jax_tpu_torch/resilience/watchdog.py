@@ -20,6 +20,12 @@ Two registries, as in the JAX package:
   expiry handler is pluggable (``set_on_timeout``) and
   ``suspend_expiries`` holds its expiries off.
 
+Only the Python monitor tells the health plane of an expiry
+(``telemetry/health.py:on_watchdog_expiry``: a stall incident and a
+postmortem bundle); the C++ one aborts in C++ and writes no bundle, as in
+the JAX package, so a run that wants its survivors' bundles routes the
+watchdog through the Python registry (``force_python_fallback(True)``).
+
 ``drain_registry`` empties both.  Arm and disarm are plain host calls
 around the op: the port runs its ops eagerly, so program order brackets
 them.
@@ -214,6 +220,17 @@ class _Registry:
                     f"{expired['opname']} call {expired['call_id']} "
                     f"exceeded {expired['timeout']:g}s",
                 )
+                # the health plane's stall incident and postmortem bundle,
+                # while the registry and the flight ring still show the
+                # stuck op, also before a handler can abort (a no-op
+                # unless MPI4JAX_TPU_HEALTH=on; it must not stop the
+                # monitor)
+                try:
+                    from ..telemetry import health as _health
+
+                    _health.on_watchdog_expiry(expired)
+                except Exception:
+                    pass
                 self.on_timeout(self.snapshot(), expired)
                 # only reachable with a non-fatal handler (the default
                 # aborts the process): drop the EXPIRED entries — healthy

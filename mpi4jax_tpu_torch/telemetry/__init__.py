@@ -22,11 +22,15 @@ the journals of every rank into one Perfetto timeline::
     python -m mpi4jax_tpu_torch.telemetry merge $MPI4JAX_TPU_TELEMETRY_DIR \\
         --perfetto trace.json
 
-The health plane (``telemetry/health.py``: the flight ring, the online
-straggler detector, postmortem bundles and their ``postmortem`` merge) is
-the next slice.
+``MPI4JAX_TPU_HEALTH=on`` also arms the health plane (``health.py``):
+a bounded flight ring (:func:`flight_snapshot`), an online straggler
+detector at megastep or commit boundaries (``health.on_boundary``),
+postmortem bundles (:func:`dump_postmortem`, merged by ``python -m
+mpi4jax_tpu_torch.telemetry postmortem <dir>``) and
+:func:`prometheus_text`.
 """
 
+from . import health  # noqa: F401
 from .core import (  # noqa: F401
     effective_mode,
     meter,
@@ -34,6 +38,11 @@ from .core import (  # noqa: F401
     set_telemetry_mode,
     snapshot,
     telemetry_cache_token,
+)
+from .health import (  # noqa: F401
+    dump_postmortem,
+    flight_snapshot,
+    prometheus_text,
 )
 from .hist import Histogram  # noqa: F401
 from .merge import chrome_trace, merge_dir, skew_table  # noqa: F401
@@ -53,4 +62,8 @@ __all__ = [
     "merge_dir",
     "chrome_trace",
     "skew_table",
+    "health",
+    "flight_snapshot",
+    "dump_postmortem",
+    "prometheus_text",
 ]

@@ -23,9 +23,11 @@ eager dispatch counts a cache hit.
 
 Mode is ``MPI4JAX_TPU_TELEMETRY={off,counters,events}`` with a
 programmatic override (``set_telemetry_mode``), which bumps the
-configuration epoch.  The JAX package's health plane
-(``telemetry/health.py``) is not ported: nothing here feeds a flight ring
-or a detector.
+configuration epoch.  The health plane (``health.py``) rides the commit
+points here: every counted record (a call's, and each record of a pin's
+stash at every replay) is spilled into its flight ring, every measured
+latency fed to its detector, and the first dispatch under an armed plane
+registers its boundary hook.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import threading
 from typing import Dict, List, Optional
 
 from ..utils import config
+from . import health
 from .hist import Histogram
 
 __all__ = [
@@ -146,8 +149,10 @@ def meter(name: str, n: int = 1) -> None:
 
 def record_latency(key: str, seconds: float) -> None:
     """Feed one measured op latency into its histogram (the journal calls
-    this when an events-tier record completes)."""
+    this when an events-tier record completes), and into the health
+    detector's window (``health.py``)."""
     _counters.record_latency(key, seconds)
+    health.feed_latency(key, seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +254,7 @@ def open_op(opname: str, comm, arrays) -> Optional[OpRecord]:
     Its bytes and dtype are the first array's, as the JAX package's."""
     if effective_mode() == "off":
         return None
+    health.ensure_boundary_hook()
     a0 = arrays[0] if arrays else None
     nbytes, dtype = 0, ""
     if a0 is not None:
@@ -281,6 +287,7 @@ def close_op(rec: Optional[OpRecord]) -> None:
         _eager_cell._pending.append(rec)
         return
     _counters.count_op(rec.key(), rec.bytes)
+    health.record_dispatch(rec)
 
 
 def abort_op(rec: Optional[OpRecord]) -> None:
@@ -290,11 +297,14 @@ def abort_op(rec: Optional[OpRecord]) -> None:
 
 
 def count_eager_call(cell: EagerCell, sig: tuple) -> None:
-    """Count one replay of a pin from its stash."""
+    """Count one replay of a pin from its stash, and spill each stashed
+    record into the flight ring (``health.record_dispatches``), as the
+    JAX package's eager dispatch spills each record it counts."""
     if effective_mode() == "off":
         return
     for key, calls, nbytes in cell.totals_for(sig):
         _counters.count_op(key, nbytes, calls)
+    health.record_dispatches(cell.records_for(sig))
 
 
 def current_open() -> Optional[OpRecord]:
@@ -338,18 +348,23 @@ def snapshot(include_events: bool = False) -> dict:
     pins = pinning.stats()
     if any(pins.values()):
         snap["compile_cache"] = {"aot": pins}
-    dropped = journal.dropped_records()
-    if dropped:
-        snap["dropped"] = {"journal": dropped}
+    # present only when a bounded buffer dropped something, so that a
+    # healthy snapshot keeps the shape it had before the health plane
+    dropped = {"journal": journal.dropped_records(),
+               "flight_ring": health.ring_dropped()}
+    if any(dropped.values()):
+        snap["dropped"] = dropped
     if include_events:
         snap["events"] = journal.snapshot_events()
     return snap
 
 
 def reset() -> None:
-    """Forget every counter, meter, histogram and journal record."""
+    """Forget every counter, meter, histogram and journal record, and the
+    health plane's ring, detector and gauges."""
     from . import journal
 
     _counters.reset()
     del _open_ops[:]
     journal.reset()
+    health.reset()

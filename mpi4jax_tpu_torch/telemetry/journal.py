@@ -29,6 +29,8 @@ import threading
 from collections import deque
 from typing import Optional
 
+from . import health
+
 __all__ = ["begin", "end", "instant", "incident", "snapshot_events", "reset",
            "process_index", "JOURNAL_FILE_PREFIX"]
 
@@ -97,6 +99,8 @@ class _Journal:
             from . import core
 
             core.meter("telemetry.dropped")
+        # the flight ring (health.py) takes the record the journal built
+        health.record_event(record)
         f = self._writer()
         if f is not None:
             f.write(json.dumps(record, sort_keys=True) + "\n")
@@ -106,6 +110,9 @@ class _Journal:
         with self.lock:
             self.pending.setdefault((call_id, rank), deque()).append(
                 (mono, wall, meta))
+        # arrivals reach the ring at once: the begin a rank never pairs
+        # with an end is the hung op a postmortem needs
+        health.record_begin(call_id, rank, meta, mono, wall)
 
     def end(self, call_id: str, rank: int, end_meta: dict) -> None:
         mono, wall = _clocks()

@@ -1,7 +1,7 @@
 """Merge per-rank JSONL journals into one Chrome-trace-event timeline.
 
-PyTorch counterpart of ``mpi4jax_tpu/telemetry/merge.py`` (its merge
-half): ``python -m mpi4jax_tpu_torch.telemetry merge <dir> --perfetto
+PyTorch counterpart of ``mpi4jax_tpu/telemetry/merge.py``.
+``python -m mpi4jax_tpu_torch.telemetry merge <dir> --perfetto
 out.json`` reads every ``*.jsonl`` the events tier wrote under ``<dir>``
 (one file per process; records carry their rank), validates each line,
 and renders:
@@ -17,9 +17,18 @@ and renders:
 
 The records' schema is the JAX package's, so journals of either package
 merge here and there, into the same trace (``TRACE_PRODUCER`` names that
-format).  The ``postmortem`` subcommand reads the health plane's crash
-bundles, which the port does not write yet (``telemetry/health.py`` is
-not ported).
+format).  Where postmortem bundles lie beside the journals, the merge
+warns of the records their bounded buffers dropped.
+
+``python -m mpi4jax_tpu_torch.telemetry postmortem <dir>`` reads the
+health plane's bundles (``postmortem-p*.json``, ``health.py``), aligns
+their flight rings by call id and prints each rank's last completed and
+last begun op, the frontier call and the suspected straggler
+(``postmortem_report``, ``render_postmortem``).  Bundles of either
+package read the same in either's command.  The port writes one bundle
+per rank process, so a rank that wrote none (killed before its trigger,
+or watched by the C++ watchdog, which writes no bundle) is absent from
+the report; the JAX package's single process holds every rank's ring.
 """
 
 from __future__ import annotations
@@ -29,8 +38,11 @@ import os
 import sys
 from typing import Dict, List, Optional
 
+from . import health as _health
+
 __all__ = ["read_journal", "merge_dir", "chrome_trace", "skew_table",
-           "render_skew", "main", "MalformedJournal"]
+           "render_skew", "read_bundles", "postmortem_report",
+           "render_postmortem", "main", "MalformedJournal"]
 
 # the trace format's producer tag, shared with the JAX package's merge so
 # that one run's timeline reads the same from either
@@ -259,9 +271,268 @@ def render_skew(table: dict) -> str:
     return "\n".join(lines)
 
 
+def read_bundles(directory: str) -> List[dict]:
+    """Parse every per-rank postmortem bundle
+    (``postmortem-p*.json``, written by ``health.dump_postmortem``)
+    under ``directory``, sorted by process index."""
+    paths = sorted(
+        os.path.join(directory, name)
+        for name in os.listdir(directory)
+        if name.startswith(_health.POSTMORTEM_FILE_PREFIX)
+        and name.endswith(".json")
+    )
+    if not paths:
+        raise FileNotFoundError(
+            f"no {_health.POSTMORTEM_FILE_PREFIX}*.json bundles under "
+            f"{directory} (set MPI4JAX_TPU_HEALTH=on and "
+            f"MPI4JAX_TPU_TELEMETRY_DIR to produce them)"
+        )
+    bundles = []
+    for path in paths:
+        try:
+            with open(path) as f:
+                bundle = json.load(f)
+        except ValueError as e:
+            raise MalformedJournal(f"{path}: not valid JSON: {e}") from e
+        if (not isinstance(bundle, dict)
+                or bundle.get("schema") != _health.POSTMORTEM_SCHEMA):
+            raise MalformedJournal(
+                f"{path}: not a {_health.POSTMORTEM_SCHEMA} bundle"
+            )
+        bundles.append(bundle)
+    return sorted(bundles, key=lambda b: b.get("process", 0))
+
+
+def _bundle_dropped(directory: str) -> Dict[str, int]:
+    """Best-effort dropped-record totals from any postmortem bundles in
+    ``directory`` (the merge CLI's completeness warning — the JSONL
+    journals themselves never drop, but the in-memory ring/journal the
+    bundles snapshot do)."""
+    totals: Dict[str, int] = {}
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return totals
+    for name in names:
+        if not (name.startswith(_health.POSTMORTEM_FILE_PREFIX)
+                and name.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(directory, name)) as f:
+                bundle = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if not isinstance(bundle, dict):
+            continue
+        for src, n in (bundle.get("dropped") or {}).items():
+            if n:
+                totals[src] = totals.get(src, 0) + int(n)
+    return totals
+
+
+def postmortem_report(bundles: List[dict]) -> dict:
+    """Merge per-rank postmortem bundles into the "who was stuck where"
+    answer.
+
+    Flight-recorder rings are aligned across ranks by call id: per rank,
+    the last *completed* op and the last *begun* op (a begin without a
+    matching completion is an op still in flight when the bundle was
+    written); across ranks, the **frontier call** is the call id with
+    the latest arrival anywhere — ranks that never arrived at it are the
+    stragglers everyone else was waiting for.  Attribution order:
+
+    1. a journalled ``fault`` incident in a rank's ring (deterministic
+       under fault injection — the injected rank journals before dying
+       or hanging);
+    2. ranks missing their arrival at the frontier call while peers
+       arrived;
+    3. the rank with the largest in-flight watchdog elapsed time.
+    """
+    processes: Dict[int, dict] = {}
+    # call_id -> {"op", "began": {rank: t}, "ended": {rank: t}}
+    calls: Dict[str, dict] = {}
+    all_ranks = set()
+    dropped: Dict[str, int] = {}
+    times = []
+    for b in bundles:
+        proc = int(b.get("process", 0))
+        for src, n in (b.get("dropped") or {}).items():
+            if n:
+                dropped[src] = dropped.get(src, 0) + int(n)
+        pinfo = processes.setdefault(proc, {
+            "reasons": list(b.get("reasons") or ()),
+            "inflight": list(b.get("watchdog_inflight") or ()),
+            "ranks": {},
+        })
+        for e in pinfo["inflight"]:
+            if "rank" in e:
+                all_ranks.add(int(e["rank"]))
+        for rec in (b.get("flight") or {}).get("records", ()):
+            if not isinstance(rec, dict) or "rank" not in rec:
+                continue  # dispatch records carry no rank
+            rank = int(rec["rank"])
+            all_ranks.add(rank)
+            rinfo = pinfo["ranks"].setdefault(rank, {
+                "last_completed": None, "last_begin": None,
+                "incidents": [],
+            })
+            if rec.get("type") == "op":
+                times.append(rec["t_end"])
+                cur = rinfo["last_completed"]
+                if cur is None or rec["t_end"] > cur["t_end"]:
+                    rinfo["last_completed"] = rec
+                call = calls.setdefault(rec.get("call_id"),
+                                        {"op": rec.get("op", "?"),
+                                         "began": {}, "ended": {}})
+                call["ended"][rank] = max(call["ended"].get(rank, 0.0),
+                                          rec["t_end"])
+                call["began"][rank] = max(call["began"].get(rank, 0.0),
+                                          rec["t_begin"])
+            elif rec.get("type") == "instant":
+                times.append(rec["t"])
+                rinfo["incidents"].append(rec)
+            elif rec.get("kind") == "begin":
+                times.append(rec["t"])
+                cur = rinfo["last_begin"]
+                if cur is None or rec["t"] > cur["t"]:
+                    rinfo["last_begin"] = rec
+                call = calls.setdefault(rec.get("call_id"),
+                                        {"op": rec.get("op", "?"),
+                                         "began": {}, "ended": {}})
+                call["began"][rank] = max(call["began"].get(rank, 0.0),
+                                          rec["t"])
+    # the frontier: the call somebody arrived at last
+    frontier = None
+    if calls:
+        fid = max(calls, key=lambda c: max(calls[c]["began"].values(),
+                                           default=0.0))
+        call = calls[fid]
+        began = sorted(call["began"])
+        frontier = {
+            "call_id": fid,
+            "op": call["op"],
+            "t": max(call["began"].values(), default=0.0),
+            "began": began,
+            "ended": sorted(call["ended"]),
+            "missing": sorted(all_ranks - set(began)),
+        }
+    suspects = []
+    seen_ranks = set()
+
+    def _suspect(rank, op, call_id, why):
+        if rank in seen_ranks:
+            return
+        seen_ranks.add(rank)
+        suspects.append({"rank": int(rank), "op": op,
+                         "call_id": call_id, "why": why})
+
+    for proc in sorted(processes):
+        for rank in sorted(processes[proc]["ranks"]):
+            for inc in processes[proc]["ranks"][rank]["incidents"]:
+                if inc.get("name") == "fault":
+                    _suspect(rank, None, None,
+                             "fault incident journalled on this rank: "
+                             + str(inc.get("detail", "")))
+    if frontier and frontier["began"] and frontier["missing"]:
+        for rank in frontier["missing"]:
+            _suspect(
+                rank, frontier["op"], frontier["call_id"],
+                f"never arrived at {frontier['op']} call "
+                f"{frontier['call_id']} "
+                f"({len(frontier['began'])} peer rank(s) arrived)",
+            )
+    if not suspects:
+        stuck = [
+            (e.get("elapsed", 0.0), e)
+            for proc in processes
+            for e in processes[proc]["inflight"]
+        ]
+        if stuck:
+            elapsed, e = max(stuck, key=lambda x: x[0])
+            _suspect(e.get("rank", 0), e.get("opname"), e.get("call_id"),
+                     f"largest in-flight time: {e.get('opname', '?')} "
+                     f"call {e.get('call_id', '?')} stuck {elapsed:.1f}s")
+    return {
+        "processes": processes,
+        "frontier": frontier,
+        "suspects": suspects,
+        "dropped": dropped,
+        "base_t": min(times) if times else 0.0,
+    }
+
+
+def render_postmortem(report: dict) -> str:
+    """Human-readable postmortem: per-rank frontier + attribution."""
+    base = report["base_t"]
+
+    def _rel(t):
+        return f"+{t - base:.3f}s"
+
+    lines = []
+    nranks = sum(len(p["ranks"]) for p in report["processes"].values())
+    lines.append(f"postmortem: {len(report['processes'])} bundle(s), "
+                 f"{nranks} rank(s) with flight records")
+    for proc in sorted(report["processes"]):
+        pinfo = report["processes"][proc]
+        lines.append("")
+        lines.append(f"process {proc}:")
+        if pinfo["reasons"]:
+            lines.append("  reasons: " + "; ".join(pinfo["reasons"]))
+        for rank in sorted(pinfo["ranks"]):
+            rinfo = pinfo["ranks"][rank]
+            lines.append(f"  rank {rank}:")
+            done = rinfo["last_completed"]
+            if done is not None:
+                lines.append(
+                    f"    last completed: {done.get('op', '?')} call "
+                    f"{done.get('call_id', '?')} seq {done.get('seq', '?')}"
+                    f" @ {_rel(done['t_end'])}")
+            beg = rinfo["last_begin"]
+            if beg is not None:
+                lines.append(
+                    f"    last begin:     {beg.get('op', '?')} call "
+                    f"{beg.get('call_id', '?')} @ {_rel(beg['t'])}")
+            for inc in rinfo["incidents"][-3:]:
+                detail = inc.get("detail", "")
+                lines.append(
+                    f"    incident @ {_rel(inc['t'])}: {inc.get('name')}"
+                    + (f" — {detail}" if detail else ""))
+        for e in pinfo["inflight"]:
+            lines.append(
+                f"  in flight: {e.get('opname', '?')} call "
+                f"{e.get('call_id', '?')} rank {e.get('rank', '?')} "
+                f"(elapsed {e.get('elapsed', 0.0):.1f}s of "
+                f"{e.get('timeout', 0.0):g}s budget)")
+    frontier = report["frontier"]
+    if frontier is not None:
+        lines.append("")
+        ranks_s = ",".join(str(r) for r in frontier["began"])
+        line = (f"frontier: {frontier['op']} call {frontier['call_id']} "
+                f"@ {_rel(frontier['t'])} — arrived: rank(s) {ranks_s}")
+        if frontier["missing"]:
+            line += ("; MISSING: rank(s) "
+                     + ",".join(str(r) for r in frontier["missing"]))
+        lines.append(line)
+    if report["dropped"]:
+        lines.append("")
+        lines.append("dropped: " + ", ".join(
+            f"{n} {src} record(s)"
+            for src, n in sorted(report["dropped"].items())))
+    lines.append("")
+    if report["suspects"]:
+        for s in report["suspects"]:
+            lines.append(f"suspected straggler: rank {s['rank']} — "
+                         f"{s['why']}")
+    else:
+        lines.append("no straggler attribution (no fault incidents, no "
+                     "missing arrivals, no in-flight ops)")
+    return "\n".join(lines)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
-    """CLI: ``merge <dir> [--perfetto OUT] [--no-skew]`` (exit 2 on a
-    malformed journal or an empty directory)."""
+    """CLI: ``merge <dir> [--perfetto OUT] [--no-skew]`` and
+    ``postmortem <dir> [--out OUT]`` (exit 2 on a malformed journal or
+    bundle, or when no bundles exist — the CI contract)."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -269,14 +540,38 @@ def main(argv: Optional[List[str]] = None) -> int:
         description="merge per-rank telemetry journals",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
-    mp = sub.add_parser("merge", help="merge a journal dir into a Chrome trace")
+    mp = sub.add_parser(
+        "merge", help="merge a journal dir into a Chrome trace"
+    )
     mp.add_argument("dir", help="MPI4JAX_TPU_TELEMETRY_DIR of the run")
     mp.add_argument("--perfetto", metavar="OUT",
                     help="write the merged Chrome-trace-event JSON here "
                          "(open in Perfetto / chrome://tracing)")
     mp.add_argument("--no-skew", action="store_true",
                     help="skip the straggler attribution table")
+    pp = sub.add_parser(
+        "postmortem",
+        help="merge per-rank postmortem bundles: last-known frontier "
+             "per rank + straggler attribution",
+    )
+    pp.add_argument("dir", help="MPI4JAX_TPU_TELEMETRY_DIR of the run")
+    pp.add_argument("--out", metavar="OUT",
+                    help="also write the rendered report here")
     args = parser.parse_args(argv)
+
+    if args.cmd == "postmortem":
+        try:
+            bundles = read_bundles(args.dir)
+        except (MalformedJournal, FileNotFoundError, OSError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        text = render_postmortem(postmortem_report(bundles))
+        print(text)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(text + "\n")
+            print(f"wrote {args.out}", file=sys.stderr)
+        return 0
 
     try:
         records = merge_dir(args.dir)
@@ -287,6 +582,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ops = {r["op"] for r in records if r["type"] == "op"}
     print(f"merged {len(records)} records from {len(ranks)} rank(s), "
           f"{len(ops)} op(s)")
+    dropped = _bundle_dropped(args.dir)
+    if dropped:
+        print("warning: bounded in-memory buffers dropped records ("
+              + ", ".join(f"{src}: {n}"
+                          for src, n in sorted(dropped.items()))
+              + ") — snapshots/reports from that run were incomplete "
+              "(the JSONL timeline above is not; see the postmortem "
+              "bundles)", file=sys.stderr)
     if args.perfetto:
         trace = chrome_trace(records)
         with open(args.perfetto, "w") as f:

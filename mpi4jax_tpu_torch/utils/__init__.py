@@ -1,5 +1,7 @@
-"""Knobs, debug switches and pytrees: the parts of the JAX package's
-``utils/`` the port reads."""
+"""Knobs, debug switches, the profiler capture, pytrees and the capability
+probes: the parts of the JAX package's ``utils/`` the port reads."""
+
+import torch
 
 from .debug import (  # noqa: F401
     get_logging,
@@ -7,3 +9,21 @@ from .debug import (  # noqa: F401
     set_logging,
     set_runtime_tracing,
 )
+from .profiling import ProfileSummary, profile_ops  # noqa: F401
+
+
+def has_cuda_support() -> bool:
+    """True if PyTorch sees a CUDA device (``torch.cuda.is_available()``),
+    the device the port's kernels and entry points run on."""
+    return torch.cuda.is_available()
+
+
+def has_tpu_support() -> bool:
+    """Always False: the port is PyTorch on CUDA and has no TPU backend
+    (the JAX package is the one that runs on TPUs)."""
+    return False
+
+
+def has_sycl_support() -> bool:
+    """Always False, as in the JAX package: neither has a SYCL backend."""
+    return False

@@ -33,7 +33,20 @@ and the runtime services' (``telemetry/``, ``resilience/``):
   ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS`` (0: the deadline alone): the
   retry of ``init_distributed``'s rendezvous;
 - ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): the drain notice window, read by
-  the elastic layer, which is not ported yet.
+  the elastic layer, which is not ported yet;
+
+and the health plane's (``telemetry/health.py``):
+
+- ``MPI4JAX_TPU_HEALTH``: ``off`` (default) or ``on``, the flight ring,
+  the straggler detector and postmortem bundles;
+- ``MPI4JAX_TPU_HEALTH_INTERVAL``: the boundary stride of the detector's
+  exchange, 1 (every boundary) by default, at least 1;
+- ``MPI4JAX_TPU_FLIGHT_RING``: the ring's capacity in records, 1024 by
+  default, at least 1;
+- ``MPI4JAX_TPU_HEALTH_SUSPECTS``: hand persistent stragglers to the
+  elastic layer (off by default; a no-op until that layer is ported);
+- ``MPI4JAX_TPU_HEALTH_PROM``: write the Prometheus text at every
+  detector boundary (off by default).
 
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
@@ -60,6 +73,7 @@ from typing import Optional, Tuple
 COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
 FUSION_MODES = ("off", "auto", "force")
 TELEMETRY_MODES = ("off", "counters", "events")
+HEALTH_MODES = ("off", "on")
 TRUTHY = ("true", "1", "on", "yes")
 FALSY = ("false", "0", "off", "no", "")
 DEFAULT_BOOTSTRAP_DEADLINE = 300.0
@@ -67,6 +81,7 @@ DEFAULT_BOOTSTRAP_MAX_ATTEMPTS = 0  # 0 = bounded by the deadline only
 DEFAULT_DRAIN_GRACE_S = 5.0
 DEFAULT_FUSION_BUCKET_BYTES = 4 << 20
 DEFAULT_OVERLAP_CHUNKS = 2
+DEFAULT_FLIGHT_RING = 1024
 
 # every variable that shapes what the port runs, and the JAX package's
 # storage-only and dispatch-only knobs (aot/invalidation.py exempts those
@@ -90,9 +105,18 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_BOOTSTRAP_DEADLINE",
     "MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS",
     "MPI4JAX_TPU_DRAIN_GRACE_S",
+    "MPI4JAX_TPU_HEALTH",
+    "MPI4JAX_TPU_HEALTH_INTERVAL",
+    "MPI4JAX_TPU_FLIGHT_RING",
+    "MPI4JAX_TPU_HEALTH_SUSPECTS",
+    "MPI4JAX_TPU_HEALTH_PROM",
 )
 
 _config_epoch = 0
+# bumped when a host-side observer that shapes no program turns on or off
+# (``profile_ops``): the dispatch point re-reads its services, a pin stays
+# valid
+_service_epoch = 0
 
 
 def config_epoch() -> int:
@@ -108,6 +132,14 @@ def bump_config_epoch() -> None:
     _config_epoch += 1
 
 
+def bump_service_epoch() -> None:
+    """Called when a service that no pin captures turns on or off
+    (``utils/profiling.py``): ``service_stamp()`` moves, ``config_stamp()``
+    does not."""
+    global _service_epoch
+    _service_epoch += 1
+
+
 # the variables the runtime services read at an op call (which services
 # are on, ``ops/_base.py:hooks``, and an op's resilience plan,
 # ``resilience/runtime.py:plan_for``); ``MPI4JAX_TPU_DEBUG`` and
@@ -121,9 +153,10 @@ SERVICE_FLAG_NAMES = (
 
 
 def service_stamp() -> tuple:
-    """``(config_epoch(), raw values of SERVICE_FLAG_NAMES)``: equal
-    stamps, the same runtime services."""
-    return (_config_epoch, tuple(map(os.environ.get, SERVICE_FLAG_NAMES)))
+    """``(config_epoch(), the service epoch, raw values of
+    SERVICE_FLAG_NAMES)``: equal stamps, the same runtime services."""
+    return (_config_epoch, _service_epoch,
+            tuple(map(os.environ.get, SERVICE_FLAG_NAMES)))
 
 
 def env_fingerprint() -> tuple:
@@ -342,3 +375,37 @@ def drain_grace_s() -> float:
             f"seconds, got {val!r}"
         )
     return val
+
+
+# ---------------------------------------------------------------------------
+# the health plane's knobs
+# ---------------------------------------------------------------------------
+
+
+def health_mode() -> str:
+    """The health plane (``MPI4JAX_TPU_HEALTH``): ``off`` or ``on``."""
+    return _choice("MPI4JAX_TPU_HEALTH", HEALTH_MODES, "off")
+
+
+def health_interval() -> int:
+    """The boundary stride of the detector's digest exchange
+    (``MPI4JAX_TPU_HEALTH_INTERVAL``; 1, every boundary, by default)."""
+    return _int("MPI4JAX_TPU_HEALTH_INTERVAL", 1, minimum=1)
+
+
+def flight_ring_capacity() -> int:
+    """The flight ring's capacity in records (``MPI4JAX_TPU_FLIGHT_RING``;
+    1024 by default, at least 1)."""
+    return _int("MPI4JAX_TPU_FLIGHT_RING", DEFAULT_FLIGHT_RING, minimum=1)
+
+
+def health_suspects_enabled() -> bool:
+    """Whether the detector hands persistent stragglers to the elastic
+    agreement (``MPI4JAX_TPU_HEALTH_SUSPECTS``; off by default)."""
+    return parse_env_bool("MPI4JAX_TPU_HEALTH_SUSPECTS", False)
+
+
+def health_prom_enabled() -> bool:
+    """Whether detector boundaries also write the Prometheus text under the
+    telemetry directory (``MPI4JAX_TPU_HEALTH_PROM``; off by default)."""
+    return parse_env_bool("MPI4JAX_TPU_HEALTH_PROM", False)

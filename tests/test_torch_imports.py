@@ -21,7 +21,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_ops.py",
           REPO / "tests" / "torch_ranks_throughput.py",
           REPO / "tests" / "torch_ranks_dispatch.py",
-          REPO / "tests" / "torch_ranks_runtime.py"]
+          REPO / "tests" / "torch_ranks_runtime.py",
+          REPO / "tests" / "torch_ranks_health.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 

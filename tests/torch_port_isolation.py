@@ -31,7 +31,8 @@ while testing nothing.  Instead, after each test the fixture puts the
 port's runtime services back to their defaults (``reset_port_services``):
 both its registries drained (the Python one and its own C++ library's),
 its telemetry and resilience overrides, its counters, journal and fault
-counts reset, runtime tracing and debug logging off.
+counts reset, the health plane's ring, detector and gauges reset and its
+boundary hook unregistered, runtime tracing and debug logging off.
 
 Import it into a test module (``from torch_port_isolation import
 isolated_reference_state  # noqa: F401``); it is autouse.
@@ -68,6 +69,7 @@ def reset_port_services() -> None:
     resilience.reset_fault_state()
     telemetry.set_telemetry_mode(None)
     telemetry.reset()
+    telemetry.health.unregister_boundary_hook()
     debug.set_runtime_tracing(False)
     debug.set_logging(False)
 
