@@ -152,6 +152,29 @@ read just after:
    ``prometheus_text()`` of (a) and ``cache_stats()``.  One JSON line
    ``{"health": ...}``.
 
+13. elastic shrink-and-resume on four gloo ranks on this card
+   (``elastic_phase``; it launches no kernel): (a) the example twin
+   (``models/elastic_training.py``) at the JAX example's width, 12 steps,
+   ``die:rank=3:op=allreduce:after=5`` with the claimed watchdog at 1 s:
+   the survivors end at world 3, epoch 1, with identical parameters, bit
+   for bit those of a clean 3-rank run from the committed state, and each
+   survivor's detection, agreement, re-bootstrap, restore and first step
+   at world 3 printed; (b) the ``hang`` drill (``hang:rank=2``, the same
+   watchdog): recovery at world 3, no FATAL line, the hung rank killed;
+   (c) the same loop at ``_init_params(dim=1024, hidden=8192)`` (8,404,993
+   f32, 33.6 MB, the parameter bytes of phase 6's training block, the
+   residual stack not committed), ``commit_every="auto"``, rank 3 dying in
+   step 5 (``after=25``):
+   the step, the commit (device to host and pack), the restore exchange
+   over the 3 survivors and the interval ``auto`` locks in; (d)
+   ``aot.compile_step(unroll=4)`` under ``elastic.run`` on four ranks,
+   4 -> 3, eager pins (only megastep boundaries dispatched, a re-pin and a
+   stale refusal), and on one rank, in a process of its own, a pin that
+   is a CUDA graph, stale (MPX129) after ``advance_epoch()``, re-pinned
+   as a graph.  (b) and
+   (d)'s two parts run side by side; (a) and (c) alone.  One JSON line
+   ``{"elastic": ...}``.
+
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
 
@@ -186,6 +209,10 @@ side.
 
 build the stencil sources and the host library and run phase 11 or phase
 12 alone, one JSON line each.
+
+    python3 chip_smoke.py --elastic
+
+runs phase 13 alone (nothing to build), one JSON line.
 """
 
 import hashlib
@@ -3533,6 +3560,346 @@ def health_main():
     return 0
 
 
+def elastic_clean_rank(rank, device, params, start, steps, rdv, port_base):
+    """Phase 13 (a)'s reference: the example's loop on a clean 3-rank world
+    from the committed state (``params`` at step ``start``)."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+    from mpi4jax_tpu_torch.resilience import elastic
+
+    mesh = make_world_mesh(device=device)
+    comm = Comm(mesh.axes[0], mesh=mesh)
+    store = elastic.ShardStore(comm, bootstrap={
+        "rendezvous": rdv, "host": "localhost", "port_base": port_base,
+        "process_id": rank, "num_processes": comm.Get_size()})
+    step_fn, losses = ET.make_elastic_step(store=store)
+    state = elastic.run(step_fn, {"params": ET.to_device(params, device)},
+                        store, steps=steps, start_step=start)
+    return {"losses": [(r["step"], r["world"], r["loss"]) for r in losses],
+            "params": ET.to_numpy(state["params"])}
+
+
+class _Calls:
+    """An ``ElasticStep`` recording each call's step and epoch, and the pin
+    counters' moves over its calls (a revoke resets them in between)."""
+
+    def __init__(self, inner):
+        self.inner, self.unroll, self.calls = inner, inner.unroll, []
+        self.pins = self.stale = 0
+
+    def __call__(self, state, step, comm):
+        from mpi4jax_tpu_torch import aot
+
+        self.calls.append((int(step), comm.epoch))
+        before = aot.stats()["aot"]
+        try:
+            return self.inner(state, step, comm)
+        finally:
+            after = aot.stats()["aot"]
+            self.pins += after["pins"] - before["pins"]
+            self.stale += after["stale_raises"] - before["stale_raises"]
+
+    def repin(self):
+        self.inner.repin()
+        return self
+
+
+def elastic_body(state, step, comm):
+    """Phase 13 (d)'s iteration: ``w = w/2 + mean_ranks(w)/4 + step``
+    (capturable: no host synchronisation)."""
+    import mpi4jax_tpu_torch as tpx
+
+    total, _ = tpx.allreduce(state["w"], comm=comm)
+    return {"w": state["w"] * 0.5 + total * (0.25 / comm.Get_size())
+            + step.to(state["w"].dtype)}
+
+
+def elastic_megastep_rank(rank, device, rdv, port_base, unroll, steps):
+    """Phase 13 (d) on four ranks: ``compile_step(elastic_body, unroll)``
+    under ``elastic.run``, rank 3 lost (simulated) inside the megastep
+    starting at step 4; eager pins (several ranks)."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import aot
+    from mpi4jax_tpu_torch.resilience import elastic
+
+    def body(state, step, comm):
+        if int(step) == 5 and comm.epoch == 0:
+            raise elastic.RankFailure({3}, "simulated loss inside a megastep")
+        return elastic_body(state, step, comm)
+
+    mesh = tpx.make_world_mesh(device=device)
+    comm = tpx.Comm(mesh.axes[0], mesh=mesh)
+    store = elastic.ShardStore(comm, bootstrap={
+        "rendezvous": rdv, "host": "localhost", "port_base": port_base,
+        "process_id": rank, "num_processes": 4})
+    step_fn = _Calls(aot.compile_step(body, unroll=unroll))
+    state = {"w": torch.arange(1 << 16, dtype=torch.float32, device=device)}
+    try:
+        state = elastic.run(step_fn, state, store, steps=steps)
+    except elastic.RankFailure as rf:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return {"declared": str(rf)}
+    return {"calls": step_fn.calls, "pins": step_fn.pins,
+            "stale_raises": step_fn.stale, "world": store.comm.Get_size(),
+            "epoch": elastic.current_epoch(), "graph": step_fn.inner.pinned.graph,
+            "w_sha": hashlib.sha256(state["w"].cpu().numpy().tobytes()).hexdigest()}
+
+
+def elastic_one_rank_graph(rank, dev):
+    """Phase 13 (d) on one rank, in a process of its own (``launch.run``
+    with one rank), since it advances the epoch and resets the pin
+    counters: the pin a CUDA graph, ``advance_epoch()`` between two calls
+    raises ``StaleProgramError``, and the re-pin over a comm of the new
+    epoch is a graph again; each result against the eager iterations bit
+    for bit."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import aot
+    from mpi4jax_tpu_torch.resilience import elastic
+
+    dev = torch.device(dev)
+    def comm1():
+        mesh = tpx.make_world_mesh(device=dev)
+        return tpx.Comm(mesh.axes[0], mesh=mesh)
+
+    def eager(state, step, comm, n):
+        for i in range(n):
+            state = elastic_body(state, torch.tensor(step + i, dtype=torch.int32,
+                                                     device=dev), comm)
+        return state
+
+    unroll = 4
+    comm = comm1()
+    es = aot.compile_step(elastic_body, unroll=unroll)
+    s0 = {"w": torch.linspace(-1, 1, 1 << 16, device=dev)}
+    aot.reset_stats()
+    out = es(s0, 0, comm)
+    first = {"graph": es.pinned.graph,
+             "bitwise": torch.equal(out["w"], eager(s0, 0, comm, unroll)["w"])}
+    replays = aot.stats()["aot"]["replays"]
+    elastic.advance_epoch(cause="revoke", detail="phase 13 (d)")
+    try:
+        es(out, unroll, comm)
+        stale = None
+    except aot.StaleProgramError as e:
+        stale = getattr(e, "mpx_code", None)
+    es.repin()
+    fresh = comm1()
+    again = es(out, unroll, fresh)
+    second = {"graph": es.pinned.graph,
+              "bitwise": torch.equal(again["w"],
+                                     eager(out, unroll, fresh, unroll)["w"])}
+    replays2 = aot.stats()["aot"]["replays"]
+    res = {"first": first, "stale": stale, "second": second,
+           "replays": [replays, replays2]}
+    if not (first["graph"] and second["graph"] and stale == "MPX129"
+            and first["bitwise"] and second["bitwise"] and replays2 > replays):
+        raise AssertionError(f"phase 13 (d) one-rank graph pin: {res}")
+    return res
+
+
+def _recovery_line(label, res, ranks):
+    for r in ranks:
+        out = res["results"][r]
+        (rec,) = out["recoveries"]
+        first3 = next(x for x in out["losses"] if x["epoch"] == 1)
+        print(f"  {label} rank {r}: failed {rec['failed']} at step "
+              f"{rec['step']}; detection {rec['detect_s'] * 1e3:.1f} ms, "
+              f"agreement {rec['agree_s'] * 1e3:.1f} ms, re-bootstrap "
+              f"{rec['rebootstrap_s'] * 1e3:.1f} ms, restore "
+              f"{rec['restore_s'] * 1e3:.1f} ms, first step at world 3 "
+              f"{first3['seconds'] * 1e3:.1f} ms")
+
+
+def _check_drill(label, res, lost, lost_exit, steps):
+    survivors = [r for r in range(4) if r != lost]
+    if not res["ok"] or res["completed"] != survivors:
+        raise AssertionError(f"{label}: drill failed: exit {res['exit']}, "
+                             f"stderr {[e[-800:] for e in res['stderr']]}")
+    if res["exit"][lost] != lost_exit:
+        raise AssertionError(f"{label}: rank {lost} exit {res['exit'][lost]}, "
+                             f"expected {lost_exit}")
+    for r in survivors:
+        out = res["results"][r]
+        if out["final_world"] != 3 or out["epoch"] != 1:
+            raise AssertionError(f"{label}: rank {r} ended at world "
+                                 f"{out['final_world']}, epoch {out['epoch']}")
+        if out["losses"][-1]["step"] != steps - 1:
+            raise AssertionError(f"{label}: rank {r} did not finish the budget")
+        if "FATAL" in res["stderr"][r]:
+            raise AssertionError(f"{label}: rank {r} printed a FATAL line")
+    return survivors
+
+
+def _final_params(res, r):
+    with np.load(os.path.join(res["dir"], f"state-p{r}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def elastic_phase(dev, launch):
+    """Phase 13 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    t0 = time.perf_counter()
+    steps, die, hang = 12, "die:rank=3:op=allreduce:after=5", \
+        "hang:rank=2:op=allreduce:after=5"
+    out, parts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mpx-elastic-") as tdir:
+        # (a) the example twin at the JAX example's width, rank 3 dies
+        a = ET.launch(4, steps=steps, device="cuda:0", fault_spec=die,
+                      watchdog=1.0, limit=120.0, workdir=os.path.join(tdir, "a"))
+        survivors = _check_drill("(a)", a, 3, 13, steps)
+        _recovery_line("(a)", a, survivors)
+        restored_step = a["results"][0]["restored_step"]
+        with np.load(os.path.join(a["dir"], "state-p0.npz")) as z:
+            restored = {k.split("/", 1)[1]: z[k] for k in z.files
+                        if k.startswith("restored/")}
+        clean = launch.run(elastic_clean_rank, 3, backend="gloo", device="cuda:0",
+                           timeout=300, args=("cuda:0", restored, restored_step,
+                                              steps, "file://" + os.path.join(
+                                                  tdir, "clean"),
+                                              ET.free_port_base(3)))
+        after = [(x["step"], x["world"], x["loss"])
+                 for x in a["results"][0]["losses"] if x["epoch"] == 1]
+        finals = [_final_params(a, r) for r in survivors]
+        for i, r in enumerate(survivors):
+            if [tuple(x) for x in clean[i]["losses"]] != after:
+                raise AssertionError(f"(a): rank {r}'s losses after the restore "
+                                     "differ from the clean 3-rank run's")
+            for k, v in clean[i]["params"].items():
+                if (finals[i][f"final/{k}"].tobytes() != v.tobytes()
+                        or finals[i][f"final/{k}"].tobytes()
+                        != finals[0][f"final/{k}"].tobytes()):
+                    raise AssertionError(f"(a): rank {r}'s final {k} is not the "
+                                         "clean 3-rank run's bit for bit")
+        print(f"  (a) survivors {survivors}: identical parameters, bit for bit "
+              f"the clean 3-rank run's from the committed step {restored_step}; "
+              f"{a['seconds']:.1f} s with start-up")
+        out["a"] = {"seconds": a["seconds"], "restored_step": restored_step,
+                    "recoveries": {r: a["results"][r]["recoveries"][0]
+                                   for r in survivors},
+                    "losses_rank0": a["results"][0]["losses"],
+                    "first_step_world3_s": {
+                        r: next(x["seconds"] for x in a["results"][r]["losses"]
+                                if x["epoch"] == 1) for r in survivors}}
+        parts["a"] = time.perf_counter() - t0
+
+        # (b) the hang drill and both parts of (d), side by side (counts and
+        # verdicts, not times)
+        pool = ThreadPoolExecutor(3)
+        fb = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                         fault_spec=hang, watchdog=1.0, limit=120.0,
+                         workdir=os.path.join(tdir, "b"))
+        fd = pool.submit(launch.run, elastic_megastep_rank, 4, backend="gloo",
+                         device="cuda:0", timeout=300,
+                         args=("cuda:0", "file://" + os.path.join(tdir, "d"),
+                               ET.free_port_base(4), 4, steps))
+        # (d) one rank, in a process of its own: it advances the epoch and
+        # resets the pin counters
+        f1 = pool.submit(launch.run, elastic_one_rank_graph, 1,
+                         device=str(dev), timeout=120.0, args=(str(dev),))
+        pool.shutdown(wait=True)
+        b = fb.result()
+        survivors_b = _check_drill("(b)", b, 2, -9, steps)
+        _recovery_line("(b)", b, survivors_b)
+        out["b"] = {"seconds": b["seconds"], "exit": b["exit"],
+                    "recoveries": {r: b["results"][r]["recoveries"][0]
+                                   for r in survivors_b}}
+        d4 = fd.result()
+        if "declared failed" not in d4[3].get("declared", ""):
+            raise AssertionError(f"(d): rank 3 not declared failed: {d4[3]}")
+        for r in range(3):
+            res = d4[r]
+            calls = [tuple(c) for c in res["calls"]]
+            if (any(s % 4 for s, _ in calls) or res["world"] != 3
+                    or res["epoch"] != 1 or res["pins"] < 2
+                    or res["stale_raises"] < 1 or res["graph"]
+                    or calls[:3] != [(0, 0), (4, 0), (4, 1)]
+                    or res["w_sha"] != d4[0]["w_sha"]):
+                raise AssertionError(f"(d): rank {r}: {res}")
+        print(f"  (d) four ranks, compile_step(unroll=4): dispatched "
+              f"{d4[0]['calls']}, pins {d4[0]['pins']}, stale refusals "
+              f"{d4[0]['stale_raises']}, eager pins, world 3, epoch 1, the "
+              "survivors' state equal")
+        parts["b_and_d"] = time.perf_counter() - t0 - sum(parts.values())
+
+        # (c) the same loop with realistic state bytes, alone on the card
+        # rank 3 dies in step 5 (its 26th allreduce: 5 a step without the
+        # residual's allgather), after the auto interval locked in at world 4
+        c = ET.launch(4, steps=steps, device="cuda:0",
+                      fault_spec="die:rank=3:op=allreduce:after=25",
+                      watchdog=1.0, limit=300.0, dim=1024, hidden=8192,
+                      ef_state=False, commit_every="auto",
+                      workdir=os.path.join(tdir, "c"))
+        survivors_c = _check_drill("(c)", c, 3, 13, steps)
+        r0 = c["results"][0]
+        n_params = 1024 * 8192 + 8192 + 8192 + 1
+        state_bytes = 4 * n_params
+        shard = -(-state_bytes // 4)
+        w4 = [x["seconds"] for x in r0["losses"] if x["world"] == 4]
+        w3 = [x["seconds"] for x in r0["losses"] if x["world"] == 3][1:]
+        rec = r0["recoveries"][0]
+        out["c"] = {
+            "params": n_params, "state_bytes": state_bytes,
+            "shard_bytes_world4": shard, "held_world4": 2,
+            "last_commit": r0["last_commit"],
+            "step_s_world4": w4, "step_s_world3_median": float(np.median(w3)),
+            "commit_s": {r: c["results"][r]["last_commit_s"] for r in survivors_c},
+            "restore_exchange_s": {r: c["results"][r]["recoveries"][0]["restore_s"]
+                                   for r in survivors_c},
+            "auto_commit_every": {r: c["results"][r]["auto_commit_every"]
+                                  for r in survivors_c},
+            "recovery_rank0": rec, "seconds": c["seconds"]}
+        if r0["last_commit"]["state_bytes"] != state_bytes:
+            raise AssertionError(f"(c): committed {r0['last_commit']} bytes, "
+                                 f"expected {state_bytes}")
+        print(f"  (c) {n_params} f32 ({state_bytes / 1e6:.1f} MB), redundancy 1: "
+              f"{2 * shard / 1e6:.1f} MB held a rank at world 4; step "
+              f"{np.median(w4[1:]) * 1e3:.1f} ms at world 4, "
+              f"{out['c']['step_s_world3_median'] * 1e3:.1f} ms at world 3; "
+              f"commit (device to host and pack) "
+              f"{r0['last_commit_s'] * 1e3:.1f} ms; restore exchange over 3 "
+              f"ranks {rec['restore_s'] * 1e3:.1f} ms; commit_every='auto' "
+              f"locked in {r0['auto_commit_every']}")
+        parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+
+    # (d) one rank: a graph pin, stale across advance_epoch(), re-pinned
+    out["d"] = {"four_ranks": d4[0], "one_rank": f1.result()[0]}
+    print(f"  (d) one rank: graph pin, {out['d']['one_rank']['stale']} after "
+          "advance_epoch(), re-pinned as a graph, both bit for bit with the "
+          "eager iterations")
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    print(f"phase 13 (elastic): {out['seconds']:.1f} s; by part "
+          + json.dumps({k: round(v, 1) for k, v in parts.items()}))
+    return out
+
+
+def elastic_main():
+    """``python3 chip_smoke.py --elastic``: phase 13 alone (it launches no
+    kernel, so nothing is built); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.parallel import launch
+
+    out = elastic_phase(torch.device("cuda"), launch)
+    print(smi)
+    print(json.dumps({"elastic": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3710,6 +4077,10 @@ def main():
     # -- the health plane: ring, detector, bundles, profile_ops -------------
     health = health_phase(P, dev, launch)
     print(json.dumps({"health": health}))
+
+    # -- elastic shrink-and-resume: no kernel, four gloo ranks -------------
+    elastic = elastic_phase(dev, launch)
+    print(json.dumps({"elastic": elastic}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -3947,5 +4318,6 @@ def main():
 if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
              "--ring": ring_main, "--dispatch": dispatch_main,
-             "--runtime": runtime_main, "--health": health_main}
+             "--runtime": runtime_main, "--health": health_main,
+             "--elastic": elastic_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -38,7 +38,11 @@ and the health plane (``telemetry/health.py``: the flight ring, the
 straggler detector, postmortem bundles and their merge, Prometheus text)
 with the JAX package's remaining top-level helpers (``profile_ops``,
 ``cache_stats``, ``clear_caches``, ``varying``, the default mesh, the
-capability probes).  Nothing here imports JAX.
+capability probes); and elastic shrink-and-resume
+(``resilience/elastic.py``: ``elastic.run``, ``ShardStore``,
+``RankFailure``, communication epochs with MPX126, ``aot.compile_step``,
+the chaos drills of ``resilience/drill.py``).  Nothing here imports
+JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -102,6 +106,9 @@ from .parallel.megastep import register_boundary_hook  # noqa: F401
 from .parallel.rankspec import shift  # noqa: F401
 from .parallel.region import get_default_comm, run, spmd  # noqa: F401
 from .resilience import (  # noqa: F401
+    RankFailure,
+    ShardStore,
+    elastic,
     set_check_numerics,
     set_fault_spec,
     set_watchdog_timeout,
@@ -132,6 +139,8 @@ __all__ = [
     "PROD",
     "PinnedProgram",
     "ProcessGrid",
+    "RankFailure",
+    "ShardStore",
     "ProfileSummary",
     "SUM",
     "StaleProgramError",
@@ -152,6 +161,7 @@ __all__ = [
     "compile",
     "compress",
     "create_token",
+    "elastic",
     "flush",
     "gather",
     "get_default_comm",

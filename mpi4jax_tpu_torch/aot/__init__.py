@@ -9,16 +9,19 @@ PyTorch counterpart of ``mpi4jax_tpu/aot/__init__.py``.
   (``pinning.py``);
 - staleness (``invalidation.py``): ``StaleProgramError`` (MPX129) when a
   pinned program is called after a knob or an override moved;
-- ``keys.py``: the key of what a pin captured.
+- ``keys.py``: the key of what a pin captured;
+- ``compile_step(fn, unroll=N)``: the elastic loop's adapter
+  (``pinning.py:ElasticStep``), a pin per world that
+  ``resilience/elastic.py:run`` re-pins after a shrink.
 
 The JAX package's persistent tier (``diskcache.py``, ``serialization.py``,
-``fastpath.py``, ``warm.py``, the ``aot`` command line) and its elastic
-adapter ``compile_step`` are not ported (ROADMAP Queue 1 item 6).
+``fastpath.py``, ``warm.py``, the ``aot`` command line) is not ported
+(ROADMAP Queue 1 item 6).
 """
 
 from . import keys  # noqa: F401
 from .invalidation import StaleProgramError, WorldStamp  # noqa: F401
-from .pinning import PinnedProgram, compile  # noqa: F401
+from .pinning import ElasticStep, PinnedProgram, compile, compile_step  # noqa: F401
 from .pinning import reset_stats as _reset_pin_stats
 from .pinning import stats as _pin_stats
 
@@ -36,6 +39,8 @@ def reset_stats() -> None:
 
 __all__ = [
     "compile",
+    "compile_step",
+    "ElasticStep",
     "PinnedProgram",
     "StaleProgramError",
     "WorldStamp",

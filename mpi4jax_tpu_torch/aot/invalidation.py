@@ -11,8 +11,8 @@ at the pin:
   epoch plus the raw value of every variable of ``config.FLAG_NAMES``
   except the storage-only and dispatch-only ones, which shape nothing a
   pin runs;
-- the elastic epoch.  ``resilience/elastic.py`` is not ported yet, so it
-  is 0, as the JAX package's is in a world that never churned.
+- the elastic epoch (``resilience/elastic.py:current_epoch``), which a
+  shrink advances.
 
 A call checks two things: the epochs (ints, first), then the raw
 variables.  A failed check raises ``StaleProgramError`` tagged MPX129,
@@ -56,17 +56,7 @@ class StaleProgramError(RuntimeError):
     mpx_code = "MPX129"
 
 
-# the elastic layer is not ported: a world without it is at epoch 0.  The
-# import is tried once, since a failed import searches the path again at
-# every attempt (about 0.1 ms, more than the rest of a pinned call)
-try:
-    from ..resilience.elastic import current_epoch as _elastic_epoch
-except ImportError:
-    _elastic_epoch = None
-
-
-def _current_epoch() -> int:
-    return 0 if _elastic_epoch is None else _elastic_epoch()
+from ..resilience.elastic import current_epoch as _current_epoch
 
 
 class WorldStamp:

@@ -50,9 +50,12 @@ and on several ranks: ``program.graph`` is False, ``program.info`` names
 the knob, and ``stats()["eager_pins"]`` and the meter ``aot.eager_pins``
 count it.  Its kernels still run on the card.
 
+``compile_step(fn, unroll=N)`` (``ElasticStep``) is the elastic loop's
+adapter: a pin per world, stale when ``resilience/elastic.py:run`` hands
+it the comm of a new epoch, re-pinned by the loop.
+
 The JAX package's persistent tier (its disk cache, serialization, C++
-fast path, cache warming) and ``compile_step`` wait: ROADMAP Queue 1
-item 6.
+fast path, cache warming) waits: ROADMAP Queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ from ..utils.tree import tree_flatten, tree_leaves
 from . import keys
 from .invalidation import WorldStamp
 
-__all__ = ["PinnedProgram", "compile", "stats", "reset_stats"]
+__all__ = ["PinnedProgram", "ElasticStep", "compile", "compile_step",
+           "stats", "reset_stats"]
 
 
 class _Stats:
@@ -437,3 +441,118 @@ def compile(fn, *example_args, comm=None, donate_argnums=(),
         return compile(fn, *example_args, **spec)
 
     return PinnedProgram(run, world, respec, name, key, donate, n_unroll)
+
+
+# ---------------------------------------------------------------------------
+# the elastic adapter: pin-per-world step functions
+# ---------------------------------------------------------------------------
+
+
+class ElasticStep:
+    """A ``(state, step, comm)`` step function that runs as a pinned
+    program per world, for ``resilience/elastic.py:run``.
+
+    The state contract is the elastic loop's: ``state`` is a replicated
+    nest of tensors (identical on every rank, parameters after a gradient
+    allreduce).  The port's state is rank-local already, so a call passes
+    it to the pin as it is (the JAX package tiles it to its global
+    convention and takes rank 0's row back).  The step index rides as a
+    0-d int32 tensor on the state's device, so stepping never re-pins.
+
+    The first call pins ``fn`` over the comm it is handed: on one CUDA
+    rank a CUDA graph, on the CPU and on several ranks the body run
+    eagerly, as every pin runs there (``compile``).  When the world moves
+    (``elastic.run`` hands a NEW comm after a shrink: another
+    ``(comm.uid, comm.epoch)``) the next call raises
+    ``StaleProgramError`` (MPX129) and ``repin()`` drops the pin;
+    ``elastic.run`` re-pins and retries the same step, so an elastic loop
+    keeps its pinned hot path across epochs.  A knob or an override moved
+    since the pin raises the same way (the pin's own stamp).
+
+    ``unroll=N`` pins a megastep: each call runs N consecutive
+    ``fn(state, step + i, comm)`` iterations (``parallel/megastep.py``;
+    one graph on one CUDA rank) and returns the state after step
+    ``step + N``.  ``elastic.run`` reads ``unroll``, rounds
+    ``commit_every`` up to a multiple of N and advances N steps a call;
+    a stale pin retries the whole megastep from the same state.
+    """
+
+    def __init__(self, fn, donate_state: bool = False, unroll: int = 1):
+        from ..parallel.megastep import validate_unroll
+
+        self._fn = fn
+        self._donate_state = donate_state
+        self.unroll = validate_unroll(unroll)
+        self._pinned: Optional[PinnedProgram] = None
+        self._world_key = None
+
+    @staticmethod
+    def _device(state, comm):
+        for t in tree_leaves(state):
+            if isinstance(t, torch.Tensor):
+                return t.device
+        return comm.device
+
+    def __call__(self, state, step: int, comm):
+        pinned = self._pinned
+        key = (comm.uid, comm.epoch)
+        if pinned is not None and self._world_key != key:
+            from ..ops._base import mpx_error
+            from .invalidation import StaleProgramError
+
+            _stats.stale_raises += 1
+            raise mpx_error(
+                StaleProgramError, "MPX129",
+                f"pinned elastic step {getattr(self._fn, '__name__', 'fn')!r} "
+                f"was handed a different communicator (uid/epoch "
+                f"{self._world_key} -> {key}): the world moved — repin() and "
+                "retry (elastic.run does this itself)",
+            )
+        step_t = torch.full((), int(step), dtype=torch.int32,
+                            device=self._device(state, comm))
+        if pinned is None:
+            fn, n_unroll = self._fn, self.unroll
+
+            def per_rank(st, step_scalar):
+                if n_unroll == 1:
+                    return fn(st, step_scalar, comm)
+                from ..parallel.megastep import megastep_loop
+
+                def one(i, carry):
+                    return fn(carry, step_scalar + i, comm)
+
+                return megastep_loop(one, st, n_unroll, comm,
+                                     label=getattr(fn, "__name__", "fn"))
+
+            per_rank.__name__ = getattr(fn, "__name__", "fn")
+            # unroll=1 on purpose: the loop (when any) is built above, and
+            # MPI4JAX_TPU_UNROLL_DEFAULT must not wrap a second one round it
+            self._pinned = pinned = compile(
+                per_rank, state, step_t, comm=comm,
+                donate_argnums=(0,) if self._donate_state else (), unroll=1)
+            self._world_key = key
+        return pinned(state, step_t)
+
+    def repin(self) -> "ElasticStep":
+        """Drop the pin; the next call pins against the comm (and state
+        shapes) it is handed."""
+        self._pinned = None
+        self._world_key = None
+        return self
+
+    @property
+    def pinned(self) -> Optional[PinnedProgram]:
+        """The current pin (``None`` before the first call and after
+        ``repin``)."""
+        return self._pinned
+
+
+def compile_step(fn, *, donate_state: bool = False,
+                 unroll: int = 1) -> ElasticStep:
+    """Adapt a per-rank ``fn(state, step, comm)`` for ``elastic.run`` with
+    a pinned hot path (see ``ElasticStep``).  ``donate_state`` donates
+    the state into each call (on one CUDA rank the graph then writes the
+    new state into the buffers it was given, and the call returns them).
+    ``unroll=N`` makes each call a megastep of N iterations; ``elastic.run``
+    aligns its commit cadence to it."""
+    return ElasticStep(fn, donate_state=donate_state, unroll=unroll)

@@ -1,0 +1,516 @@
+"""Elastic data-parallel training: survive rank loss and keep going.
+
+The twin of ``examples/elastic_training.py``: a DP-SGD loop (a 16 -> 32
+-> 1 ReLU MLP regressing ``tanh(x @ w)``, 32 rows a rank) under
+``resilience/elastic.py:run`` with a ``ShardStore`` in-memory
+checkpoint.  When a rank dies (or hangs) mid-run, the survivors agree on
+the failed set, revoke the communication epoch, re-bootstrap a smaller
+world, restore the last committed state from the surviving shard
+replicas, and finish the step budget on ``k - f`` ranks.
+
+The gradient exchange is ``compress.ef_allreduce`` with the
+error-feedback residual committed as part of the state: each rank holds
+its own row, so every step ``allgather``s the rows into the ``(k, ...)``
+stack every rank commits (the JAX example commits the same stack); after
+a restore at another world size, ``compress.ef_reshard`` moves the
+surviving rows to their new ranks (``store.last_rank_map``).  With
+``MPI4JAX_TPU_COMPRESS=off`` (the default) the residual stays zero.
+
+The port runs one process per rank, so the drill is the multi-process
+one (``--launch N``: one ``python -m
+mpi4jax_tpu_torch.models.elastic_training`` process per rank, its output
+in files of the run's directory, ``port_base`` for the agreement probed
+free here and passed on):
+
+    python -m mpi4jax_tpu_torch.models.elastic_training --launch 4 \\
+        --device cpu --fail-step 5            # simulated loss of rank 3
+
+    MPI4JAX_TPU_FAULT_SPEC='die:rank=3:op=allreduce:after=5' \\
+        python -m mpi4jax_tpu_torch.models.elastic_training --launch 4 \\
+        --device cpu --watchdog 1
+
+(``hang`` in place of ``die`` drills the watchdog's path; the hung rank
+is killed once the others have ended.)  ``--fail-step`` is the JAX
+example's single-process simulation (a ``RankFailure`` of
+``--fail-rank`` raised on every rank after that step, in epoch 0),
+which here runs on the launched ranks.  Without ``--launch`` the script
+runs a world of one rank, which has nothing to shrink.  A stalled gloo
+call breaks on its process group's timeout (``--pg-timeout``, 3x the
+watchdog's by default), and the agreement waits ``--agree-timeout``
+(4x that by default) for the slowest survivor.  The launcher exits 0 iff
+a strict majority (or ``--expect-world`` ranks) completed the budget;
+each worker writes ``<out>.p<rank>`` with the JAX example's keys
+(``losses``, ``final_world``, ``drained``).
+
+Not in this slice: ``--grow`` and ``--grid`` with ``preempt`` (ROADMAP
+Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import socket
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+DONE_TAG = "ELASTIC_DONE"
+DECLARED_TAG = "ELASTIC_DECLARED_FAILED"
+LR = 0.05
+
+
+def _init_params(dim=16, hidden=32, seed=0):
+    """The JAX example's parameters, drawn with the same numpy seed."""
+    rng = np.random.default_rng(seed)
+    return {
+        "w1": rng.normal(0, dim ** -0.5, (dim, hidden)).astype(np.float32),
+        "b1": np.zeros((hidden,), np.float32),
+        "w2": rng.normal(0, hidden ** -0.5, (hidden, 1)).astype(np.float32),
+        "b2": np.zeros((1,), np.float32),
+    }
+
+
+def _data_for(k, per_rank=32, dim=16, seed=1):
+    """Synthetic regression data with a leading rank axis, derived from
+    the CURRENT world size (the JAX example's arrays: after a shrink the
+    survivors re-derive them at k-f)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(k, per_rank, dim)).astype(np.float32)
+    w = rng.normal(size=(dim, 1)).astype(np.float32)
+    y = np.tanh(x @ w).astype(np.float32)
+    return x, y
+
+
+def to_device(tree, device):
+    """A nest of numpy arrays as tensors on ``device``."""
+    import torch
+
+    from ..utils.tree import tree_map
+
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def to_numpy(tree):
+    from ..utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _loss(params, x, y):
+    import torch
+
+    h = torch.relu(x @ params["w1"] + params["b1"])
+    pred = h @ params["w2"] + params["b2"]
+    return torch.mean((pred - y) ** 2)
+
+
+def make_elastic_step(lr=LR, store=None, *, ef_state=True):
+    """``(step_fn, losses)``: ``step_fn(state, step, comm)`` for
+    ``elastic.run`` and the list each step appends ``{"step", "world",
+    "loss", "epoch", "seconds"}`` to.  ``ef_state=False`` leaves the
+    residual stack out of the committed state (the codec must be off: the
+    residual then stays zero)."""
+    import torch
+
+    from .. import SUM, allgather, allreduce, compress
+    from ..utils.tree import tree_flatten, tree_map
+
+    data = {}
+    losses = []
+
+    def data_for(comm, dim):
+        key = (comm.Get_size(), comm.Get_rank(), str(comm.device))
+        if key not in data:
+            x, y = _data_for(key[0], dim=dim)
+            r = key[1]
+            data[key] = (torch.from_numpy(x[r]).to(comm.device),
+                         torch.from_numpy(y[r]).to(comm.device))
+        return data[key]
+
+    def residual_row(state, params, comm):
+        k, r = comm.Get_size(), comm.Get_rank()
+        res = state.get("ef_residual")
+        if res is None:
+            return compress.ef_zeros_like(params)
+        old_k = int(tree_flatten(res)[0][0].shape[0])
+        if old_k != k:
+            # a restore across a boundary: the committed rows belong to the
+            # OLD world; move the survivors' rows to their new ranks
+            rmap = store.last_rank_map if store is not None else None
+            if rmap is None:
+                rmap = {i: i for i in range(min(old_k, k))}
+            res = compress.ef_reshard(res, rmap, k)
+        return tree_map(lambda v: v[r], res)
+
+    def step_fn(state, step, comm):
+        t0 = time.perf_counter()
+        k = comm.Get_size()
+        params = state["params"]
+        x, y = data_for(comm, int(params["w1"].shape[0]))
+        res = residual_row(state, params, comm)
+        flat, unflatten = tree_flatten(params)
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in flat]
+            loss = _loss(unflatten(leaves), x, y)
+            grads = unflatten(list(torch.autograd.grad(loss, leaves)))
+        red, res, token = compress.ef_allreduce(grads, res, op=SUM, comm=comm)
+        loss, _ = allreduce(loss.detach(), op=SUM, comm=comm, token=token)
+        loss = loss / k
+        new = tree_map(lambda p, g: p - lr * (g / k), params, red)
+        out = {"params": new}
+        if ef_state:
+            out["ef_residual"] = tree_map(
+                lambda v: allgather(v, comm=comm)[0], res)
+        value = float(loss)
+        losses.append({"step": int(step), "world": k, "loss": value,
+                       "epoch": comm.epoch,
+                       "seconds": time.perf_counter() - t0})
+        print(f"step {int(step):3d}  world {k}  epoch {comm.epoch}  "
+              f"loss {value:.6f}", flush=True)
+        return out
+
+    return step_fn, losses
+
+
+def _simulated(step_fn, fail_at, fail_rank):
+    """The JAX example's simulated loss: a ``RankFailure`` of
+    ``fail_rank`` raised on every rank AFTER step ``fail_at``'s work, in
+    epoch 0 (a real death surfaces inside the next collective; the
+    recovery from here on is the same)."""
+    from ..resilience.elastic import RankFailure
+
+    def wrapped(state, step, comm):
+        state = step_fn(state, step, comm)
+        if step == fail_at and comm.epoch == 0:
+            raise RankFailure({fail_rank},
+                              f"simulated loss of rank {fail_rank}")
+        return state
+
+    return wrapped
+
+
+def _restored_probe(step_fn, record):
+    """Record the state the first step of each new epoch is handed (the
+    restored state) and that step's index."""
+    seen = {"epoch": 0}
+
+    def wrapped(state, step, comm):
+        if comm.epoch != seen["epoch"]:
+            seen["epoch"] = comm.epoch
+            record.append({"epoch": comm.epoch, "step": int(step),
+                           "state": to_numpy(state)})
+        return step_fn(state, step, comm)
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# a rank of the drill
+# ---------------------------------------------------------------------------
+
+
+def run_worker(args) -> int:
+    import torch
+
+    from .. import Comm, make_world_mesh, resilience
+    from ..parallel.mesh import init_distributed
+    from ..resilience import elastic
+
+    dev = init_distributed(
+        "gloo", init_method=elastic.rendezvous_for(args.rendezvous, 0),
+        world_size=args.num_processes, rank=args.process_id,
+        device=args.device, timeout=args.pg_timeout)
+    torch.set_num_threads(1)
+    if args.watchdog > 0:
+        resilience.set_watchdog_timeout(args.watchdog)
+    mesh = make_world_mesh(device=dev)
+    comm = Comm(mesh.axes[0], mesh=mesh)
+    store = elastic.ShardStore(comm, bootstrap={
+        "rendezvous": args.rendezvous,
+        "host": "localhost",
+        "port_base": args.port_base,
+        "agree_port_base": args.port_base + 100,
+        "agree_timeout": args.agree_timeout,
+        "process_id": args.process_id,
+        "num_processes": args.num_processes,
+        "timeout": args.pg_timeout,
+    })
+    step_fn, losses = make_elastic_step(store=store, ef_state=args.ef_state)
+    if 0 <= args.fail_step < args.steps:
+        fail_rank = (args.fail_rank if args.fail_rank >= 0
+                     else args.num_processes - 1)
+        step_fn = _simulated(step_fn, args.fail_step, fail_rank)
+    restored = []
+    step_fn = _restored_probe(step_fn, restored)
+    state = {"params": to_device(_init_params(args.dim, args.hidden), dev)}
+    commit_every = (args.commit_every if args.commit_every == "auto"
+                    else int(args.commit_every))
+    t0 = time.perf_counter()
+    declared = False
+    try:
+        state = elastic.run(step_fn, state, store, steps=args.steps,
+                            commit_every=commit_every)
+    except elastic.RankFailure as rf:
+        if "declared failed" not in str(rf):
+            raise
+        declared = True
+        print(f"{DECLARED_TAG} rank {args.process_id}: {rf}", flush=True)
+    wall = time.perf_counter() - t0
+    final_world = None if declared else int(store.comm.Get_size())
+    me = args.process_id
+    if args.out:
+        with open(f"{args.out}.p{me}", "w") as f:
+            json.dump({"losses": losses, "final_world": final_world,
+                       "drained": False}, f, indent=2)
+    if args.workdir:
+        extra = {"rank": me, "declared_failed": declared,
+                 "final_world": final_world,
+                 "epoch": elastic.current_epoch(),
+                 "epoch_history": elastic.epoch_history(),
+                 "losses": losses, "recoveries": store.recoveries,
+                 "auto_commit_every": store.auto_commit_every,
+                 "last_commit_s": store.last_commit_s,
+                 "wall": wall}
+        rec = store._committed
+        if rec is not None:
+            extra["last_commit"] = {"k": rec["k"], "held": sorted(rec["shards"]),
+                                    "shard_bytes": rec["shard"],
+                                    "state_bytes": rec["nbytes"]}
+        if not declared:
+            arrays = {f"final/{k}": v
+                      for k, v in to_numpy(state["params"]).items()}
+            for rec in restored:
+                arrays.update({f"restored/{k}": v
+                               for k, v in rec["state"]["params"].items()})
+                extra["restored_step"] = rec["step"]
+            np.savez(os.path.join(args.workdir, f"state-p{me}.npz"), **arrays)
+        with open(os.path.join(args.workdir, f"result-p{me}.json"), "w") as f:
+            json.dump(extra, f, indent=2, default=str)
+    if declared:
+        return 3
+    # every survivor ends here after the same steps: leave the world
+    # together (a process group left to the interpreter's exit can abort
+    # it while its threads still run)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"{DONE_TAG} steps={args.steps} world={final_world}", flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the launcher
+# ---------------------------------------------------------------------------
+
+
+def free_port_base(ranks: int, epochs: int = 4, tries: int = 50) -> int:
+    """A port base whose agreement ports are free for ``epochs`` epochs of
+    ``ranks`` ranks: the coordinator star's (``agree_port``) and the
+    gossip ports (``port_base + 100 + 17 * epoch + rank``).  Bases are
+    drawn at random, so concurrent launches (test workers) rarely
+    collide."""
+    from ..resilience import elastic
+
+    span = elastic.config.elastic_port_span()
+    for _ in range(tries):
+        base = random.randrange(20000, 60000 - 5 * span)
+        ports = {elastic.agree_port(base, e, span) for e in range(epochs)}
+        ports |= {base + 100 + 17 * elastic.wrapped_epoch(e, span) + r
+                  for e in range(epochs) for r in range(ranks)}
+        try:
+            for p in ports:
+                with socket.socket() as s:
+                    s.bind(("localhost", p))
+        except OSError:
+            continue
+        return base
+    raise RuntimeError("free_port_base: no free port window found")
+
+
+def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
+           fail_step: int = -1, fail_rank: int = -1, watchdog: float = 30.0,
+           pg_timeout: float = None, agree_timeout: float = None,
+           commit_every="1", dim: int = 16, hidden: int = 32,
+           ef_state: bool = True, out: str = "", expect_world: int = 0,
+           limit: float = 540.0,
+           grace: float = 3.0, workdir: str = None, env=None) -> dict:
+    """Start ``n`` ranks, wait for them and judge the drill; returns
+    ``{"ok", "exit", "stdout", "stderr", "results", "seconds", "dir"}``
+    (``results``: each rank's ``result-p<rank>.json``, ``None`` for a
+    rank that wrote none).  A rank still running once the expected
+    completions are in is the drill's hung subject: it gets ``grace``
+    seconds, then is killed.  ``fault_spec`` (``None``: the caller's
+    ``MPI4JAX_TPU_FAULT_SPEC``) and ``env`` go to every rank."""
+    from ..parallel.mesh import resolve_device
+
+    device = str(resolve_device(device))
+    if pg_timeout is None:
+        pg_timeout = 3.0 * watchdog if watchdog > 0 else 300.0
+    if agree_timeout is None:
+        agree_timeout = max(5.0, 4.0 * pg_timeout)
+    workdir = workdir or tempfile.mkdtemp(prefix="mpx-elastic-")
+    os.makedirs(workdir, exist_ok=True)
+    port_base = free_port_base(n)
+    run_env = dict(os.environ)
+    if fault_spec is not None:
+        run_env["MPI4JAX_TPU_FAULT_SPEC"] = fault_spec
+    run_env.update(env or {})
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    run_env["PYTHONPATH"] = root + os.pathsep + run_env.get("PYTHONPATH", "")
+    rendezvous = "file://" + os.path.join(workdir, "rendezvous")
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for r in range(n):
+        fo = open(os.path.join(workdir, f"rank{r}.out"), "w")
+        fe = open(os.path.join(workdir, f"rank{r}.err"), "w")
+        files.append((fo, fe))
+        cmd = [sys.executable, "-m", "mpi4jax_tpu_torch.models.elastic_training",
+               "--process-id", str(r), "--num-processes", str(n),
+               "--rendezvous", rendezvous, "--port-base", str(port_base),
+               "--device", device, "--steps", str(steps),
+               "--commit-every", str(commit_every),
+               "--fail-step", str(fail_step), "--fail-rank", str(fail_rank),
+               "--watchdog", str(watchdog), "--pg-timeout", str(pg_timeout),
+               "--agree-timeout", str(agree_timeout), "--dim", str(dim),
+               "--hidden", str(hidden), "--workdir", workdir,
+               "--ef-state" if ef_state else "--no-ef-state"]
+        if out:
+            cmd += ["--out", out]
+        procs.append(subprocess.Popen(cmd, env=run_env, stdout=fo, stderr=fe,
+                                      cwd=root))
+    target = expect_world if expect_world > 0 else n // 2 + 1
+    deadline = time.monotonic() + limit
+    try:
+        while time.monotonic() < deadline:
+            live = [p for p in procs if p.poll() is None]
+            done_ok = [p for p in procs if p.poll() == 0]
+            if not live:
+                break
+            if len(done_ok) >= target:
+                # the expected completions are in: whoever still runs is
+                # the drill's hung subject
+                end = time.monotonic() + grace
+                while (any(p.poll() is None for p in procs)
+                       and time.monotonic() < end):
+                    time.sleep(0.1)
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fo, fe in files:
+            fo.close()
+            fe.close()
+    res = {"exit": [p.returncode for p in procs], "stdout": [], "stderr": [],
+           "results": [], "seconds": time.perf_counter() - t0, "dir": workdir}
+    for r in range(n):
+        for key, ext in (("stdout", "out"), ("stderr", "err")):
+            with open(os.path.join(workdir, f"rank{r}.{ext}")) as f:
+                res[key].append(f.read())
+        path = os.path.join(workdir, f"result-p{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                res["results"].append(json.load(f))
+        else:
+            res["results"].append(None)
+    completed = [r for r in range(n) if res["exit"][r] == 0
+                 and f"{DONE_TAG} steps={steps}" in res["stdout"][r]]
+    res["completed"] = completed
+    ok = len(completed) >= target
+    if expect_world > 0:
+        ok = ok and len(completed) == expect_world
+    res["ok"] = ok
+    return res
+
+
+def _parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--steps", type=int, default=12,
+                   help="total training steps to complete (the budget)")
+    p.add_argument("--commit-every", default="1",
+                   help="commit the state every N steps, or 'auto'")
+    p.add_argument("--fail-step", type=int, default=-1,
+                   help="simulate the loss of --fail-rank after this step "
+                        "(<0 disables)")
+    p.add_argument("--fail-rank", type=int, default=-1,
+                   help="the rank the simulation fails (-1 = last)")
+    p.add_argument("--out", default="",
+                   help="each rank writes its loss trace to <out>.p<rank>")
+    p.add_argument("--launch", type=int, default=0, metavar="N",
+                   help="launch an N-rank world and run the drill")
+    p.add_argument("--expect-world", type=int, default=0,
+                   help="--launch: the expected FINAL world size (default: "
+                        "a strict majority completes)")
+    p.add_argument("--device", default=None,
+                   help="the device (default: the GPU; 'cpu' for the CPU)")
+    p.add_argument("--watchdog", type=float, default=30.0,
+                   help="watchdog timeout in seconds (0: off)")
+    p.add_argument("--pg-timeout", type=float, default=None,
+                   help="the process group's collective timeout (default: "
+                        "3x the watchdog's)")
+    p.add_argument("--agree-timeout", type=float, default=None,
+                   help="the failure agreement's window (default: 4x the "
+                        "process group's timeout)")
+    p.add_argument("--dim", type=int, default=16)
+    p.add_argument("--hidden", type=int, default=32)
+    p.add_argument("--ef-state", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="commit the error-feedback residual stack")
+    p.add_argument("--drill-timeout", type=float, default=540.0,
+                   help="--launch: seconds before the drill fails")
+    p.add_argument("--workdir", default="", help=argparse.SUPPRESS)
+    p.add_argument("--process-id", type=int, default=-1, help=argparse.SUPPRESS)
+    p.add_argument("--num-processes", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--port-base", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--rendezvous", default="", help=argparse.SUPPRESS)
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = _parse_args(argv)
+    if args.launch > 0:
+        res = launch(args.launch, steps=args.steps, device=args.device,
+                     fail_step=args.fail_step, fail_rank=args.fail_rank,
+                     watchdog=args.watchdog, pg_timeout=args.pg_timeout,
+                     agree_timeout=args.agree_timeout,
+                     commit_every=args.commit_every, dim=args.dim,
+                     hidden=args.hidden, ef_state=args.ef_state,
+                     out=args.out, expect_world=args.expect_world,
+                     limit=args.drill_timeout)
+        for r, (rc, out) in enumerate(zip(res["exit"], res["stdout"])):
+            sys.stdout.write(f"--- worker r{r} (exit {rc}) ---\n{out}")
+        print(f"drill: {len(res['completed'])} worker(s) completed the "
+              f"{args.steps}-step budget ({res['completed']}) in "
+              f"{res['seconds']:.1f}s", flush=True)
+        print("DRILL_OK" if res["ok"] else "DRILL_FAILED", flush=True)
+        return 0 if res["ok"] else 1
+    if args.process_id >= 0:
+        if args.pg_timeout is None:
+            args.pg_timeout = 3.0 * args.watchdog if args.watchdog > 0 else 300.0
+        if args.agree_timeout is None:
+            args.agree_timeout = max(5.0, 4.0 * args.pg_timeout)
+        return run_worker(args)
+    # a world of one rank: nothing to shrink, the loop runs clean
+    workdir = tempfile.mkdtemp(prefix="mpx-elastic-")
+    args.process_id, args.num_processes = 0, 1
+    args.rendezvous = "file://" + os.path.join(workdir, "rendezvous")
+    args.port_base = free_port_base(1)
+    args.fail_step = -1
+    args.pg_timeout = args.pg_timeout or 300.0
+    args.agree_timeout = args.agree_timeout or 20.0
+    print("single rank: nothing to shrink, running clean", flush=True)
+    return run_worker(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

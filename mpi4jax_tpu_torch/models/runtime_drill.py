@@ -36,10 +36,11 @@ ranks write postmortem bundles into the drill's directory:
 - ``health_hang``: the ``hang`` drill with the watchdog in its Python
   registry (``watchdog.force_python_fallback(True)``), whose expiry writes
   the bundle of each waiting rank (the C++ monitor aborts in C++ and
-  writes none); its handler dumps and aborts one ``timeout`` later, so
-  that the first death cannot close a connection another rank waits on
-  before that rank's own expiry; the hung rank writes its bundle as it
-  hangs.  Four
+  writes none); its handler dumps and aborts only once every waiting
+  rank's bundle is in the drill's directory (or ``BUNDLE_WAIT_S`` has
+  passed), so that the first death cannot close a connection another
+  rank waits on before that rank's own expiry, however loaded the host;
+  the hung rank writes its bundle as it hangs.  Four
   bundles, and ``python -m mpi4jax_tpu_torch.telemetry postmortem`` names
   rank 2 from the fault incident at the tail of its ring;
 - ``health_die``: the ``die`` drill: rank 1 writes its bundle (reason
@@ -71,6 +72,9 @@ HUNG_RANK = {"hang": 2, "health_hang": 2}
 HEALTH_DRILLS = ("health_hang", "health_die")
 WORLD = 4  # the drill specs name ranks 0-2 of a (2, 2) grid
 STEPS = 1  # drilled steps after the warm-up
+# the longest a waiting rank of health_hang holds its abort for the other
+# waiting ranks' bundles
+BUNDLE_WAIT_S = 20.0
 
 
 def drill_spec(name: str, delay: float = 0.5, hang: float = 3.0):
@@ -115,12 +119,23 @@ def rank_main(args) -> int:
         from ..resilience import watchdog as _wd
 
         _wd.force_python_fallback(True)
-        # the dump-and-die waits one timeout after the expiry (whose bundle
-        # is written before the handler runs), so that every waiting rank
-        # expires and writes its bundle before the first death closes the
-        # connections the others wait on
+        # the dump-and-die waits (capped) until every waiting rank has
+        # written its bundle (this rank's is written before the handler
+        # runs), so that the first death cannot close the connections the
+        # others wait on before their own expiries: a fixed wait of one
+        # timeout was too short on a loaded host
+        from ..telemetry import health as _health
+
+        hung = HUNG_RANK[args.drill]
+        wanted = [os.path.join(os.environ["MPI4JAX_TPU_TELEMETRY_DIR"],
+                               f"{_health.POSTMORTEM_FILE_PREFIX}{r}.json")
+                  for r in range(WORLD) if r != hung]
+
         def die_late(entries, expired):
-            time.sleep(args.timeout)
+            deadline = time.monotonic() + BUNDLE_WAIT_S
+            while (time.monotonic() < deadline
+                   and not all(os.path.exists(p) for p in wanted)):
+                time.sleep(0.05)
             _wd._default_on_timeout(entries, expired)
 
         _wd.set_on_timeout(die_late)

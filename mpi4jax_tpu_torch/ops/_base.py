@@ -12,6 +12,8 @@ keep the JAX package's meaning, so a message greps the same:
 - MPX105, root out of range;
 - MPX106, send/recv type-signature mismatch;
 - MPX112, an async start waited twice, or never waited in its region;
+- MPX126, a collective on a comm of a revoked elastic epoch
+  (``check_comm``; ``resilience/elastic.py``);
 - MPX129, a pinned program called after its world moved
   (``aot/invalidation.py``);
 - MPX130, an async span that straddles a megastep loop boundary
@@ -38,6 +40,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..parallel.region import current_context
+from ..resilience import elastic as _elastic
 from ..resilience import runtime as _resilience
 from ..telemetry import bracket as _tbracket
 from ..telemetry import core as _telemetry
@@ -47,7 +50,7 @@ from ..utils import profiling as _profiling
 from ._fusion import flush_pending
 
 CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
-                   "MPX129", "MPX130"})
+                   "MPX126", "MPX129", "MPX130"})
 
 
 class Op(enum.Enum):
@@ -163,7 +166,10 @@ def check_comm(comm, what: str):
     """The comm an op runs on: ``comm``, or inside a region
     (``parallel/region.py``) the region's when ``comm`` is ``None``.
     Inside a region it first issues the fusion queue (``ops/_fusion.py``):
-    an op that reaches here does not join it, and program order holds."""
+    an op that reaches here does not join it, and program order holds.
+    A comm built in an epoch that an elastic shrink revoked raises MPX126:
+    its ranks are a world that no longer exists (the JAX package's
+    verifier flags it at trace time; the port has no trace)."""
     ctx = current_context()
     if ctx is not None:
         flush_pending(ctx)
@@ -172,6 +178,15 @@ def check_comm(comm, what: str):
     if comm is None:
         raise ValueError(f"{what}: pass comm= (no default communicator "
                          "outside a region: spmd, run)")
+    if comm.epoch < _elastic.current_epoch():
+        raise mpx_error(
+            RuntimeError, "MPX126",
+            f"{what} on {comm!r}, built in communication epoch {comm.epoch}, "
+            f"which an elastic shrink revoked (the epoch is now "
+            f"{_elastic.current_epoch()}): use the comm the recovery handed "
+            "over (elastic.run's step receives it; ShardStore.comm), or a "
+            "comm built since",
+        )
     return comm
 
 

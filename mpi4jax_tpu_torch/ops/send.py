@@ -69,6 +69,14 @@ def queue(comm: Comm, tag: int) -> deque:
     return _queues.setdefault((comm.uid, tag), deque())
 
 
+def drop_revoked() -> None:
+    """Forget every queued and in-flight send: they belong to a world that
+    an elastic shrink revoked (``resilience/elastic.py``), whose process
+    group is gone."""
+    _queues.clear()
+    _in_flight.clear()
+
+
 def reap() -> None:
     """Drop the sends that have completed (and their buffers)."""
     _in_flight[:] = [(w, b) for w, b in _in_flight if not w.is_completed()]

@@ -10,6 +10,12 @@ their ``torch.distributed`` process group, made on every rank when the
 grid (or the split) was built.  Point-to-point ops translate a comm rank
 to a global rank (``global_rank``) and use the default group.
 
+Every comm has an ``epoch``, the communication epoch it was built in
+(``resilience/elastic.py``): ``Clone``, ``Split``, ``sub`` and ``bind``
+inherit it, ``shrink`` (the comm half of an elastic shrink) stamps the
+current one, and a collective on a comm of a revoked epoch raises MPX126
+(``ops/_base.py:check_comm``).
+
 Every comm has a ``uid``, its point-to-point matching namespace: ``send``
 and ``recv`` match per (uid, tag), and ``Clone``/``Dup`` give a fresh one
 over the same ranks.  uids count the comms this process built, so every
@@ -29,10 +35,12 @@ from __future__ import annotations
 
 import itertools
 import numbers
+from math import prod
 from typing import Optional, Tuple
 
 import torch.distributed as dist
 
+from ..resilience import elastic as _elastic
 from .mesh import ProcessGrid, ensure_groups, group_of
 
 _uid_counter = itertools.count()
@@ -64,6 +72,7 @@ class Comm:
         self._mesh = mesh
         self._members = None
         self._uid = next(_uid_counter)
+        self._epoch = _elastic.current_epoch()
         if mesh is not None:
             missing = [a for a in self._axes if a not in mesh.axes]
             if missing:
@@ -83,6 +92,12 @@ class Comm:
     def uid(self) -> int:
         """This comm's point-to-point matching namespace."""
         return self._uid
+
+    @property
+    def epoch(self) -> int:
+        """The communication epoch this comm was built in (0 for the whole
+        life of a job that never shrank)."""
+        return self._epoch
 
     @property
     def device(self):
@@ -105,6 +120,7 @@ class Comm:
         """This comm bound to ``mesh``, in the same matching namespace."""
         new = Comm(self._axes, mesh=mesh)
         new._uid = self._uid
+        new._epoch = self._epoch
         return new
 
     def Get_size(self) -> int:
@@ -125,6 +141,11 @@ class Comm:
 
     rank = Get_rank
     size = Get_size
+
+    def world_size(self) -> int:
+        """Number of ranks along this comm's axes, every group of a color
+        split together (the rank space of an elastic shrink)."""
+        return Comm.Get_size(self)
 
     def min_size(self) -> int:
         """The smallest group's size: the bound a root must satisfy."""
@@ -180,12 +201,16 @@ class Comm:
         for a in axes:
             if a not in self._axes:
                 raise ValueError(f"axis {a!r} not in comm axes {self._axes}")
-        return Comm(axes, mesh=self._mesh)
+        return self._derived(Comm(axes, mesh=self._mesh))
+
+    def _derived(self, new: "Comm") -> "Comm":
+        new._epoch = self._epoch
+        return new
 
     def Clone(self) -> "Comm":
         """A fresh matching namespace over the same ranks: a send on the
         clone never matches a recv on this comm."""
-        return Comm(self._axes, mesh=self._mesh)
+        return self._derived(Comm(self._axes, mesh=self._mesh))
 
     Dup = Clone
 
@@ -199,7 +224,7 @@ class Comm:
             remaining = tuple(a for a in self._axes if a != color)
             if not remaining:
                 raise ValueError("Split would leave an empty communicator")
-            return Comm(remaining, mesh=self._mesh)
+            return self._derived(Comm(remaining, mesh=self._mesh))
         size = self.Get_size()
         colors = list(color)
         if len(colors) != size:
@@ -224,8 +249,29 @@ class Comm:
         )
         return GroupComm(self, groups)
 
+    def shrink(self, failed, *, mesh: ProcessGrid) -> "Comm":
+        """This comm rebuilt as "all minus ``failed``" over the post-shrink
+        grid ``mesh`` (``shrink_world_mesh``, or the grid of the world a
+        re-bootstrap initialised): the comm half of an elastic shrink (the
+        analog of ULFM's ``MPI_Comm_shrink``).  ``failed`` are old-world
+        global ranks; survivors are renumbered compactly in ascending
+        old-rank order (``compact_rank_map``).  The result is a NEW comm
+        (fresh matching namespace) stamped with the current epoch."""
+        failed = frozenset(int(r) for r in failed)
+        world = self.world_size()
+        rmap = _elastic.compact_rank_map(world, failed)
+        expect = len(rmap)
+        got = prod(mesh.axis_size(a) for a in self._axes if a in mesh.axes)
+        if got != expect:
+            raise ValueError(
+                f"shrink: grid spans {got} ranks along axes {self._axes} "
+                f"but {expect} of {world} ranks survive — pass the grid "
+                "shrink_world_mesh built for this failure"
+            )
+        return Comm(self._axes, mesh=mesh)
+
     def __repr__(self):
-        return f"Comm({self._axes}, uid={self._uid})"
+        return f"Comm({self._axes}, uid={self._uid}, epoch={self._epoch})"
 
 
 class GroupComm(Comm):
@@ -242,6 +288,7 @@ class GroupComm(Comm):
 
     def __init__(self, parent: Comm, groups):
         super().__init__(parent.axes, mesh=parent.mesh)
+        self._epoch = parent.epoch
         world = Comm.Get_size(self)
         seen = [r for g in groups for r in g]
         if sorted(seen) != sorted(set(seen)):
@@ -306,7 +353,29 @@ class GroupComm(Comm):
         new = GroupComm.__new__(GroupComm)
         Comm.__init__(new, self._axes, mesh=self._mesh)
         new._groups, new._gid, new._lrank = self._groups, self._gid, self._lrank
+        new._epoch = self._epoch
         return new
+
+    def shrink(self, failed, *, mesh: ProcessGrid) -> "GroupComm":
+        """Shrink a color split: drop the failed ranks from every group,
+        renumber the survivors compactly (``shrink_groups`` keeps each
+        group's member order), drop groups that lost every member, and
+        rebuild over the post-shrink grid ``mesh``: a fresh current-epoch
+        ``GroupComm``, the split's partition kept.  Creating its groups'
+        process groups is collective, as ``Split`` is."""
+        failed = frozenset(int(r) for r in failed)
+        world = self.world_size()
+        new_groups = _elastic.shrink_groups(self._groups, failed, world)
+        parent = Comm(self._axes, mesh=mesh)
+        expect = world - len(failed)
+        got = parent.world_size()
+        if got != expect:
+            raise ValueError(
+                f"shrink: grid spans {got} ranks along axes {self._axes} "
+                f"but {expect} of {world} ranks survive — pass the grid "
+                "shrink_world_mesh built for this failure"
+            )
+        return GroupComm(parent, new_groups)
 
     def Clone(self) -> "GroupComm":
         """The same groups in a fresh matching namespace (their process
@@ -362,4 +431,5 @@ class GroupComm(Comm):
         return GroupComm(self, tuple(new_groups))
 
     def __repr__(self):
-        return f"GroupComm({self._axes}, groups={self._groups}, uid={self._uid})"
+        return (f"GroupComm({self._axes}, groups={self._groups}, "
+                f"uid={self._uid}, epoch={self._epoch})")

@@ -70,8 +70,11 @@ def _rank_main(fn, rank, nprocs, backend, device, init_method, timeout,
         result = to_numpy(fn(rank, *args))
         with open(os.path.join(outdir, f"result-{rank}.pkl"), "wb") as fh:
             pickle.dump(result, fh, protocol=pickle.HIGHEST_PROTOCOL)
-        dist.barrier()
-        dist.destroy_process_group()
+        # a rank an elastic shrink declared failed has left the world
+        # (resilience/elastic.py destroyed its process group)
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
         messages.put((rank, None))
     except BaseException:  # noqa: BLE001 - every failure goes to the parent
         messages.put((rank, traceback.format_exc()))

@@ -296,6 +296,39 @@ def make_world_mesh(
     return ProcessGrid(shape, axes, resolve_device(device), dist.get_rank())
 
 
+def shrink_world_mesh(mesh: ProcessGrid, failed,
+                      fail_unit: str = "rank") -> ProcessGrid:
+    """The grid ``mesh`` without the ``failed`` global ranks (row-major,
+    the rank space ``Comm.Get_rank`` defines): the grid half of an elastic
+    shrink (``resilience/elastic.py``).
+
+    ``fail_unit`` is the shrink's granularity
+    (``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``): ``"rank"`` removes exactly the
+    failed ranks and needs a 1-D grid (removing ranks from a Cartesian
+    grid leaves a ragged one); ``"row"``/``"col"`` remove every whole row
+    (first axis) or column (second axis) holding a failed rank, so a 2-D
+    grid keeps its shape minus those lines; on a 1-D grid both are
+    ``"rank"``.  The port runs one process per rank, so the new grid is
+    built in the world of the survivors: a re-bootstrap
+    (``ShardStore.rebootstrap``) must have initialised it, at the new
+    grid's size, before this is called on a world of several ranks."""
+    from ..resilience.elastic import expand_fail_unit, shrunken_shape
+
+    shape = tuple(mesh.shape)
+    failed = expand_fail_unit(failed, shape, fail_unit)
+    if len(shape) > 1 and fail_unit == "rank":
+        raise ValueError(
+            f"shrink_world_mesh: only 1-D grids can shrink by rank (got "
+            f"shape {dict(zip(mesh.axes, shape))}); arbitrary rank removal "
+            "leaves a ragged grid — shrink whole grid rows/columns instead "
+            "(fail_unit='row'|'col', MPI4JAX_TPU_ELASTIC_FAIL_UNIT)"
+        )
+    if len(failed) >= mesh.size:
+        raise ValueError("shrink_world_mesh: no surviving ranks")
+    new_shape = shrunken_shape(shape, failed, fail_unit)
+    return make_world_mesh(new_shape, mesh.axes, device=mesh.device)
+
+
 # the default grid and the world it was built in (or set for)
 _default_mesh: tuple = (None, None)
 
@@ -324,3 +357,18 @@ def set_default_mesh(mesh: Optional[ProcessGrid]) -> None:
     grid, as in the JAX package."""
     global _default_mesh
     _default_mesh = (_world_key(), mesh)
+
+
+def forget_world() -> None:
+    """Drop everything this layer built for the current world: the grid's
+    device, its process groups (``group_of`` keys them by member set, so a
+    stale group of the same members could come back after a shrink), and
+    the default grid and comm.  Called when a world is revoked or torn
+    down; the next grid or default comm is built afresh."""
+    global _default_mesh
+    from . import region
+
+    _World.device = None
+    _World.groups = {}
+    _default_mesh = (None, None)
+    region._default = (None, None)

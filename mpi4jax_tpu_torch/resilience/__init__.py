@@ -1,9 +1,9 @@
 """Resilience of the port: fail loudly instead of hanging silently.
 
-PyTorch counterpart of ``mpi4jax_tpu/resilience/``, less its recovery
-half.  One dead or stalled rank leaves every other rank blocked in its
-next exchange; this package is the layer that turns that into a loud,
-diagnosable death, and rehearses it:
+PyTorch counterpart of ``mpi4jax_tpu/resilience/``.  One dead or
+stalled rank leaves every other rank blocked in its next exchange; this
+package is the layer that turns that into a loud, diagnosable death or a
+recovery, and rehearses both:
 
 - :mod:`.watchdog`: a registry armed and disarmed around each op (in C++
   where the hooks library builds, ``native.py``); an op in flight longer
@@ -20,11 +20,17 @@ diagnosable death, and rehearses it:
   the dispatch point consults.  Every feature is off by default, and then
   the dispatch point runs each op's body directly.
 
-The recovery half (``elastic.py``: communication epochs, failure
-agreement, the shard store and the loop that survives a rank's loss;
-``drill.py``) is the next slice.
+- :mod:`.elastic`: the shrink-and-resume recovery (communication
+  epochs, failure agreement, the in-memory ``ShardStore`` and the loop,
+  ``elastic.run``, that survives a rank's loss on the survivors);
+- :mod:`.drill`: the pure in-process chaos drills of that control plane.
+
+Growing a world, graceful drains and row shrinks driven end to end are
+ROADMAP Queue 1 item 3.
 """
 
+from . import drill, elastic  # noqa: F401
+from .elastic import RankFailure, ShardStore  # noqa: F401
 from .faultinject import (  # noqa: F401
     FaultClause,
     canonical_spec,
@@ -48,6 +54,10 @@ from .watchdog import (  # noqa: F401
 )
 
 __all__ = [
+    "elastic",
+    "drill",
+    "RankFailure",
+    "ShardStore",
     "FaultClause",
     "parse_fault_spec",
     "canonical_spec",

@@ -40,9 +40,13 @@ Semantics:
   peers see only silence, which their watchdogs turn into a death);
   ``corrupt`` overwrites the op's floating-point inputs with NaN (``nan``,
   the default) or +Inf (``inf``) on the firing rank, on the tensors'
-  device; ``preempt`` parses, and its drain notice waits for the elastic
-  layer (``resilience/elastic.py``, the next slice): until then a firing
+  device; ``preempt`` parses, and its drain notice waits for the drain
+  half of the elastic layer (ROADMAP Queue 1 item 3): until then a firing
   ``preempt`` warns once and the op proceeds.
+- ``rank`` names a rank of the world the job was launched with: after an
+  elastic shrink renumbered the survivors (``resilience/elastic.py``),
+  each survivor is matched by its launch rank (``elastic.origin_rank``),
+  so a clause that hung rank 2 does not hang the survivor renumbered 2.
 """
 
 from __future__ import annotations
@@ -275,8 +279,8 @@ def _warn_no_elastic() -> None:
     if not _warned_no_elastic:
         _warned_no_elastic = True
         warnings.warn(
-            "fault spec fired a preempt clause, but the elastic layer that "
-            "drains a rank (resilience/elastic.py) is not ported yet: the "
+            "fault spec fired a preempt clause, but the drain half of the "
+            "elastic layer (ROADMAP Queue 1 item 3) is not ported yet: the "
             "notice is dropped and the op proceeds", RuntimeWarning,
             stacklevel=3)
 
@@ -322,8 +326,11 @@ def probe_host(indexed_clauses, mpi_name: str, rank) -> int:
     ``indexed_clauses``: tuple of (bit, clause) for clauses whose ``op``
     matches the dispatching op.  Returns a bitmask with bit ``b`` set iff
     the corrupt clause at bit ``b`` fires for this rank on this call.
+    ``rank`` is the current global rank, matched by its launch rank.
     """
-    r = int(rank)
+    from .elastic import origin_rank
+
+    r = origin_rank(int(rank))
     mask = 0
     for bit, clause in indexed_clauses:
         if clause.rank is not None and clause.rank != r:

@@ -111,8 +111,10 @@ def effective_check_numerics() -> bool:
 def cache_token() -> tuple:
     """Hashable fingerprint of the effective resilience configuration: the
     timeout, the canonical fault spec, the numeric guards, the watchdog
-    registry in use and the elastic epoch (0: the elastic layer is not
-    ported, as ``aot/invalidation.py`` has it)."""
+    registry in use and the elastic contribution
+    (``elastic.elastic_cache_token``: the epoch, and the elastic knobs
+    where one is off its default)."""
+    from .elastic import elastic_cache_token
     from .watchdog import _force_fallback
 
     return (
@@ -120,7 +122,7 @@ def cache_token() -> tuple:
         canonical_spec(effective_fault_clauses()),
         effective_check_numerics(),
         _force_fallback,
-        0,
+        elastic_cache_token(),
     )
 
 

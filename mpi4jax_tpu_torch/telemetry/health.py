@@ -40,13 +40,17 @@ PyTorch counterpart of ``mpi4jax_tpu/telemetry/health.py``, on with
   ``MPI4JAX_TPU_HEALTH_PROM`` also writes it to ``prom-p<rank>.prom`` at
   every detector boundary.
 
-Two parts wait for modules the port does not have yet, and do nothing
-until then, as the JAX package's do without those modules: the hand-off
-of persistent stragglers to the elastic agreement (``_post_suspects``,
-under ``MPI4JAX_TPU_HEALTH_SUSPECTS``: no ``resilience.elastic``) and the
-serving gauges (``_serving_gauges``: no ``serving.metrics``).  A bundle
-has no ``tuning`` (no autotune layer) and no ``epochs`` (no elastic
-epoch), which the JAX package also omits without them.
+The elastic layer (``resilience/elastic.py``) drives the plane's elastic
+half: ``elastic.run`` ticks ``on_boundary`` at every step boundary,
+bundles a classified failure (``on_failure_classified``) and journals the
+agreed verdict (``on_rank_failed``); under
+``MPI4JAX_TPU_HEALTH_SUSPECTS`` a persistent straggler is posted as a
+``RankFailure`` (``_post_suspects``) and raised from ``on_boundary``, and
+a bundle carries the epoch history (``epochs``) once an epoch advanced.
+The serving gauges (``_serving_gauges``) wait for a ``serving.metrics``
+the port does not have yet, and do nothing until then, as the JAX
+package's do without it; a bundle has no ``tuning`` (no autotune
+layer).
 
 With ``MPI4JAX_TPU_HEALTH`` unset or ``off`` every entry point returns
 before touching state: the snapshot has no ``dropped`` key, and no
@@ -388,10 +392,14 @@ def judge_exchange(peers: List[dict], my_process: int) -> List[dict]:
 
 
 def _exchange(comm, summary: dict) -> List[dict]:
-    from . import journal
+    import torch.distributed as dist
 
     det = _detector
-    my_process = journal.process_index()
+    # the current world's rank (not the journal's launch rank): a flagged
+    # rank is handed to the elastic agreement, which speaks of the world
+    # as it is now
+    my_process = (dist.get_rank()
+                  if dist.is_available() and dist.is_initialized() else 0)
     peers = _gather_json(comm, {"process": my_process, "summary": summary})
     det.exchanges += 1
     _meter("health.exchanges")
@@ -430,8 +438,7 @@ def _exchange(comm, summary: dict) -> List[dict]:
 def _post_suspects(ranks: List[int]):
     """Hand persistent stragglers to the elastic agreement (opt-in): post
     them as a pending suspected failure and return the ``RankFailure`` for
-    the caller to raise.  The port has no ``resilience.elastic`` yet, so
-    this returns ``None`` and nothing is raised."""
+    the caller to raise (``None`` without the elastic layer)."""
     try:
         from ..resilience import elastic as _elastic
     except ImportError:
@@ -456,7 +463,7 @@ def on_boundary(step, comm=None, engine=None, **info) -> Optional[list]:
     Prometheus file.  Returns the findings of a due boundary (``None``
     otherwise, or when the plane is off).  Raises a ``RankFailure`` only
     when the suspect hand-off is on and a persistent straggler was
-    confirmed, which needs the elastic layer.
+    confirmed.
     """
     if not armed():
         return None

@@ -48,14 +48,24 @@ def _clocks():
     return native.host_clock()
 
 
+# the last index seen in a world, kept while an elastic shrink has no
+# process group (between the revoked world and the survivors')
+_last_index = [0]
+
+
 def process_index() -> int:
-    """This process's rank in the ``torch.distributed`` world (0 outside
-    one)."""
+    """This process's rank in the world it was launched in (0 outside
+    one): its ``torch.distributed`` rank, mapped back through every
+    elastic shrink's renumbering (``resilience/elastic.py:origin_rank``),
+    so that a process keeps one journal and one bundle file for its whole
+    life."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
+        from ..resilience.elastic import origin_rank
+
+        _last_index[0] = origin_rank(dist.get_rank())
+    return _last_index[0]
 
 
 class _Journal:

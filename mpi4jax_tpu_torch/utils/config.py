@@ -32,8 +32,23 @@ and the runtime services' (``telemetry/``, ``resilience/``):
 - ``MPI4JAX_TPU_BOOTSTRAP_DEADLINE`` (300 s) and
   ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS`` (0: the deadline alone): the
   retry of ``init_distributed``'s rendezvous;
-- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): the drain notice window, read by
-  the elastic layer, which is not ported yet;
+- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): the drain notice window (part of
+  the elastic cache token; the drain itself is not ported yet);
+
+and the elastic layer's (``resilience/elastic.py``):
+
+- ``MPI4JAX_TPU_ELASTIC_REDUNDANCY``: the copies of each state shard
+  beyond its owner's, 1 by default, at least 0;
+- ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``: ``rank`` (default), ``row`` or
+  ``col``, the granularity of a shrink;
+- ``MPI4JAX_TPU_ELASTIC_PLACEMENT``: ``stripe`` (default) or
+  ``neighbor``, the replica placement;
+- ``MPI4JAX_TPU_ELASTIC_AGREEMENT``: ``coordinator`` (default) or
+  ``gossip``, the failure agreement's transport;
+- ``MPI4JAX_TPU_ELASTIC_PORT_SPAN``: the per-epoch port window, 64 by
+  default, at least 1;
+- ``MPI4JAX_TPU_ELASTIC_GROW``: admit replacement ranks (off by default;
+  the grow half is not ported, and ``elastic.run`` raises when it is on);
 
 and the health plane's (``telemetry/health.py``):
 
@@ -44,7 +59,7 @@ and the health plane's (``telemetry/health.py``):
 - ``MPI4JAX_TPU_FLIGHT_RING``: the ring's capacity in records, 1024 by
   default, at least 1;
 - ``MPI4JAX_TPU_HEALTH_SUSPECTS``: hand persistent stragglers to the
-  elastic layer (off by default; a no-op until that layer is ported);
+  elastic agreement (off by default);
 - ``MPI4JAX_TPU_HEALTH_PROM``: write the Prometheus text at every
   detector boundary (off by default).
 
@@ -74,6 +89,11 @@ COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
 FUSION_MODES = ("off", "auto", "force")
 TELEMETRY_MODES = ("off", "counters", "events")
 HEALTH_MODES = ("off", "on")
+ELASTIC_FAIL_UNITS = ("rank", "row", "col")
+ELASTIC_PLACEMENTS = ("stripe", "neighbor")
+ELASTIC_AGREEMENTS = ("coordinator", "gossip")
+DEFAULT_ELASTIC_REDUNDANCY = 1
+DEFAULT_ELASTIC_PORT_SPAN = 64
 TRUTHY = ("true", "1", "on", "yes")
 FALSY = ("false", "0", "off", "no", "")
 DEFAULT_BOOTSTRAP_DEADLINE = 300.0
@@ -105,6 +125,12 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_BOOTSTRAP_DEADLINE",
     "MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS",
     "MPI4JAX_TPU_DRAIN_GRACE_S",
+    "MPI4JAX_TPU_ELASTIC_REDUNDANCY",
+    "MPI4JAX_TPU_ELASTIC_GROW",
+    "MPI4JAX_TPU_ELASTIC_FAIL_UNIT",
+    "MPI4JAX_TPU_ELASTIC_PLACEMENT",
+    "MPI4JAX_TPU_ELASTIC_AGREEMENT",
+    "MPI4JAX_TPU_ELASTIC_PORT_SPAN",
     "MPI4JAX_TPU_HEALTH",
     "MPI4JAX_TPU_HEALTH_INTERVAL",
     "MPI4JAX_TPU_FLIGHT_RING",
@@ -375,6 +401,53 @@ def drain_grace_s() -> float:
             f"seconds, got {val!r}"
         )
     return val
+
+
+# ---------------------------------------------------------------------------
+# the elastic layer's knobs
+# ---------------------------------------------------------------------------
+
+
+def elastic_redundancy() -> int:
+    """The copies of each state shard beyond its owner's
+    (``MPI4JAX_TPU_ELASTIC_REDUNDANCY``; 1 by default: each shard lives on
+    its owner plus one more rank, tolerating one simultaneous loss)."""
+    return _int("MPI4JAX_TPU_ELASTIC_REDUNDANCY", DEFAULT_ELASTIC_REDUNDANCY)
+
+
+def elastic_grow() -> bool:
+    """Whether the elastic loop admits replacement ranks
+    (``MPI4JAX_TPU_ELASTIC_GROW``; off by default)."""
+    return parse_env_bool("MPI4JAX_TPU_ELASTIC_GROW", False)
+
+
+def elastic_fail_unit() -> str:
+    """The granularity of an elastic shrink
+    (``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``): ``rank`` (default), ``row`` or
+    ``col`` (``parallel/mesh.py:shrink_world_mesh``)."""
+    return _choice("MPI4JAX_TPU_ELASTIC_FAIL_UNIT", ELASTIC_FAIL_UNITS, "rank")
+
+
+def elastic_placement() -> str:
+    """The shard-replica placement (``MPI4JAX_TPU_ELASTIC_PLACEMENT``):
+    ``stripe`` (default) or ``neighbor``."""
+    return _choice("MPI4JAX_TPU_ELASTIC_PLACEMENT", ELASTIC_PLACEMENTS,
+                   "stripe")
+
+
+def elastic_agreement() -> str:
+    """The failure agreement's transport
+    (``MPI4JAX_TPU_ELASTIC_AGREEMENT``): ``coordinator`` (default) or
+    ``gossip``."""
+    return _choice("MPI4JAX_TPU_ELASTIC_AGREEMENT", ELASTIC_AGREEMENTS,
+                   "coordinator")
+
+
+def elastic_port_span() -> int:
+    """The width of the per-epoch port window
+    (``MPI4JAX_TPU_ELASTIC_PORT_SPAN``; 64 by default, at least 1)."""
+    return _int("MPI4JAX_TPU_ELASTIC_PORT_SPAN", DEFAULT_ELASTIC_PORT_SPAN,
+                minimum=1)
 
 
 # ---------------------------------------------------------------------------

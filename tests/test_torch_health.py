@@ -74,8 +74,7 @@ _META = {"op": "allreduce", "comm_uid": "0", "axes": ["i"], "bytes": 64,
 # the JAX package's __all__ names whose modules are later items of the
 # port's queue (ROADMAP Queue 1 items 2-6), and the port's own extras
 LEFT_TO_LATER_ITEMS = sorted([
-    "elastic", "RankFailure", "ShardStore", "request_drain",
-    "install_preemption_handler",                      # items 2-3: elastic
+    "request_drain", "install_preemption_handler",     # item 3: elastic drain
     "moe", "pipeline", "PipelineProgram", "serving",   # item 4: workloads
     "analyze", "Report", "Finding", "AnalysisError",
     "set_analyze_mode",                                # item 6: analysis
@@ -385,16 +384,24 @@ def test_on_boundary_interval_gating_matches_jax(monkeypatch, interval):
 
 
 def test_suspect_handoff_is_a_no_op_without_elastic(monkeypatch):
-    """``MPI4JAX_TPU_HEALTH_SUSPECTS`` needs the elastic layer, which the
-    port does not have yet: a persistent straggler is flagged and nothing
-    is raised (the JAX package's path without ``resilience.elastic``)."""
+    """``MPI4JAX_TPU_HEALTH_SUSPECTS`` needs the elastic layer: where it
+    cannot be imported, a persistent straggler is flagged and nothing is
+    raised (the JAX package's path without ``resilience.elastic``).  The
+    port has the layer, so the test hides it (the live hand-off is
+    ``tests/test_torch_elastic.py``)."""
+    import mpi4jax_tpu_torch.resilience as tres
+
     _arm(monkeypatch, MPI4JAX_TPU_HEALTH_SUSPECTS="1")
     peers = [_peer(0, 0.001), _peer(1, 0.001), _peer(3, 0.005)]
     monkeypatch.setattr(health, "_gather_json", lambda comm, p: peers)
-    health._exchange(None, {})
-    found = health._exchange(None, {})
-    assert [f["persistent"] for f in found] == [True]
-    assert health._post_suspects([3]) is None
+    # hidden for the test's body only: the teardown needs the layer back
+    with monkeypatch.context() as hide:
+        hide.delattr(tres, "elastic")
+        hide.setitem(sys.modules, "mpi4jax_tpu_torch.resilience.elastic", None)
+        health._exchange(None, {})
+        found = health._exchange(None, {})
+        assert [f["persistent"] for f in found] == [True]
+        assert health._post_suspects([3]) is None
 
 
 @pytest.fixture(scope="module")

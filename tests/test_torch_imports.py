@@ -22,7 +22,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_throughput.py",
           REPO / "tests" / "torch_ranks_dispatch.py",
           REPO / "tests" / "torch_ranks_runtime.py",
-          REPO / "tests" / "torch_ranks_health.py"]
+          REPO / "tests" / "torch_ranks_health.py",
+          REPO / "tests" / "torch_ranks_elastic.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -79,6 +80,9 @@ def test_port_is_packaged():
                                     "mpi4jax_tpu_torch.telemetry",
                                     "mpi4jax_tpu_torch.telemetry.merge",
                                     "mpi4jax_tpu_torch.resilience",
+                                    "mpi4jax_tpu_torch.resilience.elastic",
+                                    "mpi4jax_tpu_torch.resilience.drill",
+                                    "mpi4jax_tpu_torch.models.elastic_training",
                                     "mpi4jax_tpu_torch.models.runtime_drill",
                                     "mpi4jax_tpu_torch.utils.debug"])
 def test_dispatch_layer_loads_no_jax(module):

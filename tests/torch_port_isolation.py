@@ -32,7 +32,11 @@ port's runtime services back to their defaults (``reset_port_services``):
 both its registries drained (the Python one and its own C++ library's),
 its telemetry and resilience overrides, its counters, journal and fault
 counts reset, the health plane's ring, detector and gauges reset and its
-boundary hook unregistered, runtime tracing and debug logging off.
+boundary hook unregistered, runtime tracing and debug logging off, and
+the elastic layer's state cleared: the epoch and its history back to 0
+(``_reset_epoch_for_tests``, the launch-rank map too), no pending
+failure, no claimed SIGINT handler, the default grid and comm dropped
+(the claimed watchdog handler goes with ``set_on_timeout(None)``).
 
 Import it into a test module (``from torch_port_isolation import
 isolated_reference_state  # noqa: F401``); it is autouse.
@@ -59,7 +63,8 @@ def reset_port_services() -> None:
     if "mpi4jax_tpu_torch.resilience.watchdog" not in sys.modules:
         return
     from mpi4jax_tpu_torch import resilience, telemetry
-    from mpi4jax_tpu_torch.resilience import watchdog
+    from mpi4jax_tpu_torch.parallel import mesh
+    from mpi4jax_tpu_torch.resilience import elastic, watchdog
     from mpi4jax_tpu_torch.utils import debug
 
     watchdog.drain_registry()
@@ -72,6 +77,10 @@ def reset_port_services() -> None:
     telemetry.health.unregister_boundary_hook()
     debug.set_runtime_tracing(False)
     debug.set_logging(False)
+    elastic._uninstall_interrupt()
+    elastic.take_pending_failure()
+    elastic._reset_epoch_for_tests()
+    mesh.forget_world()
 
 
 @pytest.fixture(autouse=True)
