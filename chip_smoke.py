@@ -171,9 +171,31 @@ read just after:
    4 -> 3, eager pins (only megastep boundaries dispatched, a re-pin and a
    stale refusal), and on one rank, in a process of its own, a pin that
    is a CUDA graph, stale (MPX129) after ``advance_epoch()``, re-pinned
-   as a graph.  (b) and
-   (d)'s two parts run side by side; (a) and (c) alone.  One JSON line
-   ``{"elastic": ...}``.
+   as a graph; (e) a real SIGTERM to rank 3 after its step 5 at (c)'s
+   width (``commit_every=4``): ranks 0-2 finish at world 3, epoch 1,
+   cause ``drain``, rank 3 exits 0 drained, one ``drain`` incident a
+   process, no watchdog expiry, no restore, and each survivor's seconds
+   from the notice to its first step at world 3 by part (the forced
+   commit, the leaver's ``notify_drain`` acks, the step between, the
+   re-bootstrap); (f) ``preempt:rank=3`` on a (2,2) grid under
+   ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT=row``: ranks 2 and 3 drain, ranks 0
+   and 1 finish on (1,2); (g) ``die:rank=3`` on the same grid, stripe
+   placement over ``MPI4JAX_TPU_TOPOLOGY=2,2``: rank 2 shrunk out with
+   rank 3, ranks 0 and 1 finish on (1,2); (h) ``--grow`` at (c)'s width,
+   ``die:rank=3:op=allreduce:after=25``, ``commit_every="auto"``, 32
+   steps, 4 -> 3 -> 4: the replacement (launch rank 4) completes the
+   budget, the four final parameter sets are equal, the join's seconds by
+   part (the poll, the admit, ``rebootstrap_grow``, the cold restore
+   through one uint8 ``allreduce``), the joiner's wall from spawn to its
+   first step, and a step at world 4 with the grow flag on beside (c)'s
+   with it off.  (e), (f), (g) and (h) are each held bit for bit against a
+   clean run of the world they end in, from the forced commit, the
+   restore or the admission.  (a), (c), (e) and (h) run alone, in that
+   order; then (b), (d)'s two parts, (f), (g) and the clean run of (a)
+   side by side; then the clean runs of (e), (h), (f) and (g); each
+   part's seconds are printed as it ends.  (c), (e) and (h) step at lr 1e-3 (the example's
+   0.05 diverges at that width) and their losses must be finite.  One
+   JSON line ``{"elastic": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -3560,21 +3582,30 @@ def health_main():
     return 0
 
 
-def elastic_clean_rank(rank, device, params, start, steps, rdv, port_base):
-    """Phase 13 (a)'s reference: the example's loop on a clean 3-rank world
-    from the committed state (``params`` at step ``start``)."""
+def elastic_clean_rank(rank, device, params, start, steps, rdv, port_base,
+                       grid=None, ef_state=True, lr=None):
+    """Phase 13's reference: the example's loop on a clean world of this
+    size (a ``("y", "x")`` grid of shape ``grid``, if given) from a state
+    the drill handed a step (``params`` at step ``start``)."""
     from mpi4jax_tpu_torch import Comm, make_world_mesh
     from mpi4jax_tpu_torch.models import elastic_training as ET
     from mpi4jax_tpu_torch.resilience import elastic
 
-    mesh = make_world_mesh(device=device)
-    comm = Comm(mesh.axes[0], mesh=mesh)
+    if grid is None:
+        mesh = make_world_mesh(device=device)
+    else:
+        mesh = make_world_mesh(tuple(grid), ("y", "x"), device=device)
+    comm = Comm(mesh.axes, mesh=mesh)
     store = elastic.ShardStore(comm, bootstrap={
         "rendezvous": rdv, "host": "localhost", "port_base": port_base,
         "process_id": rank, "num_processes": comm.Get_size()})
-    step_fn, losses = ET.make_elastic_step(store=store)
+    step_fn, losses = ET.make_elastic_step(ET.LR if lr is None else lr,
+                                           store=store, ef_state=ef_state)
+    # one commit at the end: commits change no bits, and every one of them
+    # at 33.6 MB is a device-to-host copy
     state = elastic.run(step_fn, {"params": ET.to_device(params, device)},
-                        store, steps=steps, start_step=start)
+                        store, steps=steps, start_step=start,
+                        commit_every=max(1, steps - start))
     return {"losses": [(r["step"], r["world"], r["loss"]) for r in losses],
             "params": ET.to_numpy(state["params"])}
 
@@ -3738,6 +3769,74 @@ def _final_params(res, r):
         return {k: z[k] for k in z.files}
 
 
+def _params_at(res, name, prefix):
+    """The parameters ``state-<name>.npz`` keeps under ``prefix``
+    (``final``, ``epoch<e>``: the state the first step of epoch e got)."""
+    with np.load(os.path.join(res["dir"], f"state-{name}.npz")) as z:
+        return {k.split("/", 1)[1]: z[k] for k in z.files
+                if k.startswith(prefix + "/")}
+
+
+def _hold_clean(label, res, clean, names, outs, epoch):
+    """Each process's losses from ``epoch`` on and final parameters against
+    the clean run's, bit for bit."""
+    for i, (name, out) in enumerate(zip(names, outs)):
+        after = [(x["step"], x["world"], x["loss"]) for x in out["losses"]
+                 if x["epoch"] >= epoch]
+        if [tuple(x) for x in clean[i]["losses"]] != after:
+            raise AssertionError(f"{label}: {name}'s losses from epoch {epoch} "
+                                 "differ from the clean run's")
+        final = _params_at(res, name, "final")
+        for k, v in clean[i]["params"].items():
+            if final[k].tobytes() != v.tobytes():
+                raise AssertionError(f"{label}: {name}'s final {k} is not the "
+                                     "clean run's bit for bit")
+
+
+def _drain_checks(label, res, left, stay, world, detail):
+    if not res["ok"] or res["exit"] != [0, 0, 0, 0]:
+        raise AssertionError(f"{label}: drill failed: exit {res['exit']}, "
+                             f"stderr {[e[-800:] for e in res['stderr']]}")
+    if res["completed"] != stay or res["drained"] != left:
+        raise AssertionError(f"{label}: completed {res['completed']}, drained "
+                             f"{res['drained']}")
+    for r in range(4):
+        out = res["results"][r]
+        m = out["meters"]
+        if (m.get("elastic.drain_incidents") != 1 or "watchdog.expiries" in m
+                or "elastic.restores" in m or out["recoveries"]):
+            raise AssertionError(f"{label}: rank {r}: meters {m}, recoveries "
+                                 f"{out['recoveries']}")
+    for r in stay:
+        out = res["results"][r]
+        if (out["final_world"] != world or out["epoch"] != 1
+                or out["epoch_history"][0]["cause"] != "drain"
+                or out["epoch_history"][0]["detail"] != detail):
+            raise AssertionError(f"{label}: rank {r} ended at world "
+                                 f"{out['final_world']}, {out['epoch_history']}")
+
+
+def _clean_args(res, name, epoch, steps, rdv, port_base, grid=None,
+                ef_state=True, lr=None):
+    out = res["results"][int(name[1:])]
+    start = out["restored_steps"][str(epoch)]
+    return start, ("cuda:0", _params_at(res, name, f"epoch{epoch}"), start,
+                   steps, rdv, port_base, grid, ef_state, lr)
+
+
+def _finite_losses(label, res, names):
+    for name in names:
+        out = (res["results"][int(name[1:])] if name.startswith("p")
+               else res["joiners"][0]["result"])
+        if not np.isfinite([x["loss"] for x in out["losses"]]).all():
+            raise AssertionError(f"{label}: {name}'s losses are not finite")
+
+
+def _part(parts, name, t0):
+    parts[name] = time.perf_counter() - t0 - sum(parts.values())
+    print(f"  phase 13 part {name}: {parts[name]:.1f} s", flush=True)
+
+
 def elastic_phase(dev, launch):
     """Phase 13 (see the module docstring); returns its summary, printed as
     one JSON line."""
@@ -3749,6 +3848,8 @@ def elastic_phase(dev, launch):
     t0 = time.perf_counter()
     steps, die, hang = 12, "die:rank=3:op=allreduce:after=5", \
         "hang:rank=2:op=allreduce:after=5"
+    # (c), (e) and (h)'s width; the JAX example's lr 0.05 diverges there
+    wide = {"dim": 1024, "hidden": 8192, "ef_state": False, "lr": 1e-3}
     out, parts = {}, {}
     with tempfile.TemporaryDirectory(prefix="mpx-elastic-") as tdir:
         # (a) the example twin at the JAX example's width, rank 3 dies
@@ -3760,27 +3861,6 @@ def elastic_phase(dev, launch):
         with np.load(os.path.join(a["dir"], "state-p0.npz")) as z:
             restored = {k.split("/", 1)[1]: z[k] for k in z.files
                         if k.startswith("restored/")}
-        clean = launch.run(elastic_clean_rank, 3, backend="gloo", device="cuda:0",
-                           timeout=300, args=("cuda:0", restored, restored_step,
-                                              steps, "file://" + os.path.join(
-                                                  tdir, "clean"),
-                                              ET.free_port_base(3)))
-        after = [(x["step"], x["world"], x["loss"])
-                 for x in a["results"][0]["losses"] if x["epoch"] == 1]
-        finals = [_final_params(a, r) for r in survivors]
-        for i, r in enumerate(survivors):
-            if [tuple(x) for x in clean[i]["losses"]] != after:
-                raise AssertionError(f"(a): rank {r}'s losses after the restore "
-                                     "differ from the clean 3-rank run's")
-            for k, v in clean[i]["params"].items():
-                if (finals[i][f"final/{k}"].tobytes() != v.tobytes()
-                        or finals[i][f"final/{k}"].tobytes()
-                        != finals[0][f"final/{k}"].tobytes()):
-                    raise AssertionError(f"(a): rank {r}'s final {k} is not the "
-                                         "clean 3-rank run's bit for bit")
-        print(f"  (a) survivors {survivors}: identical parameters, bit for bit "
-              f"the clean 3-rank run's from the committed step {restored_step}; "
-              f"{a['seconds']:.1f} s with start-up")
         out["a"] = {"seconds": a["seconds"], "restored_step": restored_step,
                     "recoveries": {r: a["results"][r]["recoveries"][0]
                                    for r in survivors},
@@ -3788,56 +3868,17 @@ def elastic_phase(dev, launch):
                     "first_step_world3_s": {
                         r: next(x["seconds"] for x in a["results"][r]["losses"]
                                 if x["epoch"] == 1) for r in survivors}}
-        parts["a"] = time.perf_counter() - t0
-
-        # (b) the hang drill and both parts of (d), side by side (counts and
-        # verdicts, not times)
-        pool = ThreadPoolExecutor(3)
-        fb = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
-                         fault_spec=hang, watchdog=1.0, limit=120.0,
-                         workdir=os.path.join(tdir, "b"))
-        fd = pool.submit(launch.run, elastic_megastep_rank, 4, backend="gloo",
-                         device="cuda:0", timeout=300,
-                         args=("cuda:0", "file://" + os.path.join(tdir, "d"),
-                               ET.free_port_base(4), 4, steps))
-        # (d) one rank, in a process of its own: it advances the epoch and
-        # resets the pin counters
-        f1 = pool.submit(launch.run, elastic_one_rank_graph, 1,
-                         device=str(dev), timeout=120.0, args=(str(dev),))
-        pool.shutdown(wait=True)
-        b = fb.result()
-        survivors_b = _check_drill("(b)", b, 2, -9, steps)
-        _recovery_line("(b)", b, survivors_b)
-        out["b"] = {"seconds": b["seconds"], "exit": b["exit"],
-                    "recoveries": {r: b["results"][r]["recoveries"][0]
-                                   for r in survivors_b}}
-        d4 = fd.result()
-        if "declared failed" not in d4[3].get("declared", ""):
-            raise AssertionError(f"(d): rank 3 not declared failed: {d4[3]}")
-        for r in range(3):
-            res = d4[r]
-            calls = [tuple(c) for c in res["calls"]]
-            if (any(s % 4 for s, _ in calls) or res["world"] != 3
-                    or res["epoch"] != 1 or res["pins"] < 2
-                    or res["stale_raises"] < 1 or res["graph"]
-                    or calls[:3] != [(0, 0), (4, 0), (4, 1)]
-                    or res["w_sha"] != d4[0]["w_sha"]):
-                raise AssertionError(f"(d): rank {r}: {res}")
-        print(f"  (d) four ranks, compile_step(unroll=4): dispatched "
-              f"{d4[0]['calls']}, pins {d4[0]['pins']}, stale refusals "
-              f"{d4[0]['stale_raises']}, eager pins, world 3, epoch 1, the "
-              "survivors' state equal")
-        parts["b_and_d"] = time.perf_counter() - t0 - sum(parts.values())
+        _part(parts, "a", t0)
 
         # (c) the same loop with realistic state bytes, alone on the card
         # rank 3 dies in step 5 (its 26th allreduce: 5 a step without the
         # residual's allgather), after the auto interval locked in at world 4
         c = ET.launch(4, steps=steps, device="cuda:0",
                       fault_spec="die:rank=3:op=allreduce:after=25",
-                      watchdog=1.0, limit=300.0, dim=1024, hidden=8192,
-                      ef_state=False, commit_every="auto",
-                      workdir=os.path.join(tdir, "c"))
+                      watchdog=1.0, limit=300.0, commit_every="auto",
+                      workdir=os.path.join(tdir, "c"), **wide)
         survivors_c = _check_drill("(c)", c, 3, 13, steps)
+        _finite_losses("(c)", c, [f"p{r}" for r in survivors_c])
         r0 = c["results"][0]
         n_params = 1024 * 8192 + 8192 + 8192 + 1
         state_bytes = 4 * n_params
@@ -3867,7 +3908,227 @@ def elastic_phase(dev, launch):
               f"{r0['last_commit_s'] * 1e3:.1f} ms; restore exchange over 3 "
               f"ranks {rec['restore_s'] * 1e3:.1f} ms; commit_every='auto' "
               f"locked in {r0['auto_commit_every']}")
-        parts["c"] = time.perf_counter() - t0 - sum(parts.values())
+        _part(parts, "c", t0)
+
+        # (e) a real SIGTERM to rank 3 after its step 5, at (c)'s width:
+        # announced at boundary 6, drained at 7 off the commit_every=4
+        # cadence (a forced commit), alone on the card
+        e = ET.launch(4, steps=steps, device="cuda:0", fault_spec="",
+                      sigterm=(3, 5), watchdog=1.0, commit_every="4",
+                      env={"MPI4JAX_TPU_TELEMETRY": "counters"},
+                      expect_world=3, limit=180.0,
+                      workdir=os.path.join(tdir, "e"), **wide)
+        _drain_checks("(e)", e, [3], [0, 1, 2], 3, "drained rank(s) [3] of 4")
+        _finite_losses("(e)", e, ["p0", "p1", "p2"])
+        notice = e["results"][3]["drains"][0]
+        out["e"] = {"seconds": e["seconds"], "notify_s": notice["notify_s"],
+                    "unacked": notice["unacked"], "survivors": {}}
+        for r in range(3):
+            res_r = e["results"][r]
+            drain = res_r["drains"][-1]
+            if not drain["forced"] or drain["step"] != 7:
+                raise AssertionError(f"(e): rank {r} drained {drain}")
+            by_step = {(x["step"], x["epoch"]): x for x in res_r["losses"]}
+            between, first3 = by_step[(6, 0)], by_step[(7, 1)]
+            total = first3["at"] + first3["seconds"] - drain["notice_at"]
+            out["e"]["survivors"][r] = {
+                "notice_to_first_step_world3_s": total,
+                "forced_commit_s": drain["commit_s"],
+                "rebootstrap_s": drain["rebootstrap_s"],
+                "step_between_s": between["seconds"],
+                "first_step_world3_s": first3["seconds"]}
+            print(f"  (e) rank {r}: notice to the end of the first step at "
+                  f"world 3 {total * 1e3:.1f} ms: forced commit "
+                  f"{drain['commit_s'] * 1e3:.1f} ms, the leaver's "
+                  f"notify_drain (acks) {notice['notify_s'] * 1e3:.1f} ms, "
+                  f"step 6 {between['seconds'] * 1e3:.1f} ms, re-bootstrap "
+                  f"{drain['rebootstrap_s'] * 1e3:.1f} ms, first step at "
+                  f"world 3 {first3['seconds'] * 1e3:.1f} ms")
+        _part(parts, "e", t0)
+
+        # (h) 4 -> 3 -> 4 at (c)'s width: rank 3 dies, its replacement is
+        # admitted at the next commit boundary after it knocked (the
+        # survivors wait for the knock in the first step at world 3)
+        grow_steps = 32
+        h = ET.launch(4, steps=grow_steps, device="cuda:0",
+                      fault_spec="die:rank=3:op=allreduce:after=25",
+                      grow=True, commit_every="auto", watchdog=1.0,
+                      wait_for_join=90.0, expect_world=4, limit=300.0,
+                      workdir=os.path.join(tdir, "h"), **wide)
+        if (not h["ok"] or h["exit"][:3] != [0, 0, 0] or len(h["joiners"]) != 1
+                or h["joiners"][0]["exit"] != 0
+                or h["completed"] != [0, 1, 2, "join0"]):
+            raise AssertionError(
+                f"(h): drill failed: exit {h['exit']}, joiners "
+                f"{[(j['exit'], j['stderr'][-800:]) for j in h['joiners']]}, "
+                f"stderr {[x[-800:] for x in h['stderr']]}")
+        joiner = h["joiners"][0]["result"]
+        jname = f"j{joiner['joined']['process_id']}"
+        _finite_losses("(h)", h, ["p0", "p1", "p2", jname])
+        finals = [_params_at(h, f"p{r}", "final") for r in range(3)]
+        finals.append(_params_at(h, jname, "final"))
+        for f in finals[1:]:
+            for k, v in finals[0].items():
+                if f[k].tobytes() != v.tobytes():
+                    raise AssertionError(f"(h): the four final {k} differ")
+        if joiner["origin"] != 4 or joiner["final_world"] != 4:
+            raise AssertionError(f"(h): joiner {joiner['origin']}, "
+                                 f"{joiner['final_world']}")
+        grow0 = h["results"][0]["grows"][0]
+        spawn_to_step = joiner["losses"][0]["at"] - h["joiners"][0]["spawned_at"]
+        h4 = [x["seconds"] for x in h["results"][0]["losses"]
+              if x["world"] == 4 and x["epoch"] == 2][1:]
+        out["h"] = {"seconds": h["seconds"], "admitted_at": grow0["step"],
+                    "grows": {r: h["results"][r]["grows"][0] for r in range(3)},
+                    "joined": joiner["joined"],
+                    "spawn_to_first_step_s": spawn_to_step,
+                    "auto_commit_every": h["results"][0]["auto_commit_every"],
+                    "step_s_world4_grow_on": h4,
+                    "step_s_world4_grow_off_c": w4[1:],
+                    "recovery_rank0": h["results"][0]["recoveries"][0]}
+        h_bytes = h["results"][0]["last_commit"]["state_bytes"]
+        for r in range(3):
+            g = h["results"][r]["grows"][0]
+            print(f"  (h) rank {r}: admitted 1 at step {g['step']}: poll "
+                  f"{g['poll_s'] * 1e3:.2f} ms, admit {g['admit_s'] * 1e3:.1f} "
+                  f"ms, rebootstrap_grow {g['rebootstrap_s'] * 1e3:.1f} ms, "
+                  f"cold restore ({h_bytes / 1e6:.1f} MB, one uint8 "
+                  f"allreduce) {g['restore_s'] * 1e3:.1f} ms")
+        jj = joiner["joined"]
+        print(f"  (h) joiner (launch rank {joiner['origin']}): spawn to its "
+              f"first step {spawn_to_step:.2f} s (knock to admit "
+              f"{jj['wait_s']:.2f} s, re-bootstrap "
+              f"{jj['rebootstrap_s'] * 1e3:.1f} ms, cold restore "
+              f"{jj['restore_s'] * 1e3:.1f} ms); a step at world 4 with the "
+              f"grow flag on {np.median(h4) * 1e3:.1f} ms (median of "
+              f"{len(h4)}), (c)'s with it off {np.median(w4[1:]) * 1e3:.1f} ms")
+        _part(parts, "h", t0)
+
+        # side by side (counts, verdicts and bits, not times): (b) the hang
+        # drill, both parts of (d), (f) a row drain and (g) a row shrink by a
+        # failure on (2,2), and the clean run (a) is held against
+        row = {"MPI4JAX_TPU_TELEMETRY": "counters",
+               "MPI4JAX_TPU_ELASTIC_FAIL_UNIT": "row"}
+        pool = ThreadPoolExecutor(6)
+        fa = pool.submit(launch.run, elastic_clean_rank, 3, backend="gloo",
+                         device="cuda:0", timeout=300,
+                         args=("cuda:0", restored, restored_step, steps,
+                               "file://" + os.path.join(tdir, "clean"),
+                               ET.free_port_base(3)))
+        fb = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                         fault_spec=hang, watchdog=1.0, limit=120.0,
+                         workdir=os.path.join(tdir, "b"))
+        fd = pool.submit(launch.run, elastic_megastep_rank, 4, backend="gloo",
+                         device="cuda:0", timeout=300,
+                         args=("cuda:0", "file://" + os.path.join(tdir, "d"),
+                               ET.free_port_base(4), 4, steps))
+        # (d) one rank, in a process of its own: it advances the epoch and
+        # resets the pin counters
+        f1 = pool.submit(launch.run, elastic_one_rank_graph, 1,
+                         device=str(dev), timeout=120.0, args=(str(dev),))
+        ff = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                         fault_spec="preempt:rank=3:op=allreduce:after=5",
+                         grid="2x2", watchdog=1.0, commit_every="4", env=row,
+                         expect_world=2, limit=120.0,
+                         workdir=os.path.join(tdir, "f"))
+        fg = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                         fault_spec="die:rank=3:op=allreduce:after=5",
+                         grid="2x2", watchdog=1.0,
+                         env=dict(row, MPI4JAX_TPU_ELASTIC_PLACEMENT="stripe",
+                                  MPI4JAX_TPU_TOPOLOGY="2,2"),
+                         expect_world=2, limit=120.0,
+                         workdir=os.path.join(tdir, "g"))
+        pool.shutdown(wait=True)
+        clean = fa.result()
+        after = [(x["step"], x["world"], x["loss"])
+                 for x in a["results"][0]["losses"] if x["epoch"] == 1]
+        finals = [_final_params(a, r) for r in survivors]
+        for i, r in enumerate(survivors):
+            if [tuple(x) for x in clean[i]["losses"]] != after:
+                raise AssertionError(f"(a): rank {r}'s losses after the restore "
+                                     "differ from the clean 3-rank run's")
+            for k, v in clean[i]["params"].items():
+                if (finals[i][f"final/{k}"].tobytes() != v.tobytes()
+                        or finals[i][f"final/{k}"].tobytes()
+                        != finals[0][f"final/{k}"].tobytes()):
+                    raise AssertionError(f"(a): rank {r}'s final {k} is not the "
+                                         "clean 3-rank run's bit for bit")
+        print(f"  (a) survivors {survivors}: identical parameters, bit for bit "
+              f"the clean 3-rank run's from the committed step {restored_step}; "
+              f"{a['seconds']:.1f} s with start-up")
+        b = fb.result()
+        survivors_b = _check_drill("(b)", b, 2, -9, steps)
+        _recovery_line("(b)", b, survivors_b)
+        out["b"] = {"seconds": b["seconds"], "exit": b["exit"],
+                    "recoveries": {r: b["results"][r]["recoveries"][0]
+                                   for r in survivors_b}}
+        d4 = fd.result()
+        if "declared failed" not in d4[3].get("declared", ""):
+            raise AssertionError(f"(d): rank 3 not declared failed: {d4[3]}")
+        for r in range(3):
+            res = d4[r]
+            calls = [tuple(c) for c in res["calls"]]
+            if (any(s % 4 for s, _ in calls) or res["world"] != 3
+                    or res["epoch"] != 1 or res["pins"] < 2
+                    or res["stale_raises"] < 1 or res["graph"]
+                    or calls[:3] != [(0, 0), (4, 0), (4, 1)]
+                    or res["w_sha"] != d4[0]["w_sha"]):
+                raise AssertionError(f"(d): rank {r}: {res}")
+        print(f"  (d) four ranks, compile_step(unroll=4): dispatched "
+              f"{d4[0]['calls']}, pins {d4[0]['pins']}, stale refusals "
+              f"{d4[0]['stale_raises']}, eager pins, world 3, epoch 1, the "
+              "survivors' state equal")
+        f, g = ff.result(), fg.result()
+        _drain_checks("(f)", f, [2, 3], [0, 1], 2, "drained rank(s) [2, 3] of 4")
+        if (not g["ok"] or g["exit"] != [0, 0, 3, 13] or g["completed"] != [0, 1]
+                or "shrunk out with them" not in g["results"][2]["declared"]):
+            raise AssertionError(f"(g): drill failed: exit {g['exit']}, "
+                                 f"stderr {[x[-800:] for x in g['stderr']]}")
+        for r in (0, 1):
+            og = g["results"][r]
+            if (og["final_world"] != 2 or og["recoveries"][0]["failed"] != [3]
+                    or og["epoch_history"][0]["detail"]
+                    != "shrank out rank(s) [2, 3] of 4"):
+                raise AssertionError(f"(g): rank {r}: {og['epoch_history']}")
+        out["f"] = {"seconds": f["seconds"], "drained": f["drained"],
+                    "drain_step": f["results"][0]["drains"][-1]["step"]}
+        out["g"] = {"seconds": g["seconds"], "exit": g["exit"],
+                    "recovery_rank0": g["results"][0]["recoveries"][0]}
+        _part(parts, "side_by_side", t0)
+
+        # the clean runs (e), (h) and the (1,2) runs (f) and (g) are held
+        # against, side by side once the drills have ended
+        pool = ThreadPoolExecutor(4)
+        runs = {}
+        for label, res, epoch, n, size, grid, ef, lr in (
+                ("e", e, 1, steps, 3, None, False, wide["lr"]),
+                ("h", h, 2, grow_steps, 4, None, False, wide["lr"]),
+                ("f", f, 1, steps, 2, (1, 2), True, ET.LR),
+                ("g", g, 1, steps, 2, (1, 2), True, ET.LR)):
+            start, args = _clean_args(
+                res, "p0", epoch, n,
+                "file://" + os.path.join(tdir, f"clean-{label}"),
+                ET.free_port_base(size), grid, ef, lr)
+            runs[label] = (start, pool.submit(
+                launch.run, elastic_clean_rank, size, backend="gloo",
+                device="cuda:0", timeout=300, args=args))
+        pool.shutdown(wait=True)
+        _hold_clean("(e)", e, runs["e"][1].result(), ["p0", "p1", "p2"],
+                    [e["results"][r] for r in range(3)], 1)
+        _hold_clean("(h)", h, runs["h"][1].result(), ["p0", "p1", "p2", jname],
+                    [h["results"][r] for r in range(3)] + [joiner], 2)
+        _hold_clean("(f)", f, runs["f"][1].result(), ["p0", "p1"],
+                    [f["results"][r] for r in (0, 1)], 1)
+        _hold_clean("(g)", g, runs["g"][1].result(), ["p0", "p1"],
+                    [g["results"][r] for r in (0, 1)], 1)
+        print(f"  (e) the survivors from the forced commit at step "
+              f"{runs['e'][0]}, (h) all four from the admission at step "
+              f"{runs['h'][0]}, (f) ranks 0, 1 from the forced commit at "
+              f"{runs['f'][0]} on (1,2) after ranks 2, 3 drained, (g) ranks "
+              f"0, 1 from the restore at {runs['g'][0]} on (1,2) with rank 2 "
+              "shrunk out with rank 3: each bit for bit a clean run of that "
+              "world")
+        _part(parts, "clean_runs", t0)
 
     # (d) one rank: a graph pin, stale across advance_epoch(), re-pinned
     out["d"] = {"four_ranks": d4[0], "one_rank": f1.result()[0]}

@@ -38,11 +38,12 @@ and the health plane (``telemetry/health.py``: the flight ring, the
 straggler detector, postmortem bundles and their merge, Prometheus text)
 with the JAX package's remaining top-level helpers (``profile_ops``,
 ``cache_stats``, ``clear_caches``, ``varying``, the default mesh, the
-capability probes); and elastic shrink-and-resume
-(``resilience/elastic.py``: ``elastic.run``, ``ShardStore``,
-``RankFailure``, communication epochs with MPX126, ``aot.compile_step``,
-the chaos drills of ``resilience/drill.py``).  Nothing here imports
-JAX.
+capability probes); and elastic recovery (``resilience/elastic.py``:
+``elastic.run``, ``ShardStore``, ``RankFailure``, communication epochs
+with MPX126, graceful drains with ``request_drain``,
+``install_preemption_handler`` and MPX127, grow with
+``elastic.join_and_run``, ``aot.compile_step``, the chaos drills of
+``resilience/drill.py``).  Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -109,6 +110,8 @@ from .resilience import (  # noqa: F401
     RankFailure,
     ShardStore,
     elastic,
+    install_preemption_handler,
+    request_drain,
     set_check_numerics,
     set_fault_spec,
     set_watchdog_timeout,
@@ -170,6 +173,7 @@ __all__ = [
     "has_sycl_support",
     "has_tpu_support",
     "init_distributed",
+    "install_preemption_handler",
     "make_world_mesh",
     "overlap",
     "p2p_wait",
@@ -180,6 +184,7 @@ __all__ = [
     "reduce_scatter",
     "reduce_scatter_start",
     "reduce_scatter_wait",
+    "request_drain",
     "register_boundary_hook",
     "resilience",
     "resolve_device",

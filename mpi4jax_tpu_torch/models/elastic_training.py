@@ -37,13 +37,41 @@ which here runs on the launched ranks.  Without ``--launch`` the script
 runs a world of one rank, which has nothing to shrink.  A stalled gloo
 call breaks on its process group's timeout (``--pg-timeout``, 3x the
 watchdog's by default), and the agreement waits ``--agree-timeout``
-(4x that by default) for the slowest survivor.  The launcher exits 0 iff
-a strict majority (or ``--expect-world`` ranks) completed the budget;
-each worker writes ``<out>.p<rank>`` with the JAX example's keys
-(``losses``, ``final_world``, ``drained``).
+(4x that by default) for the slowest survivor.
 
-Not in this slice: ``--grow`` and ``--grid`` with ``preempt`` (ROADMAP
-Queue 1 item 3).
+The planned boundaries:
+
+- ``--grow`` (the launcher sets ``MPI4JAX_TPU_ELASTIC_GROW=1``): for each
+  worker that dies, the launcher spawns a replacement (``--join``:
+  ``elastic.join_and_run``) that knocks on rank 0's join listener, is
+  admitted at a commit boundary, receives the committed state through the
+  cold-join restore, and finishes the budget with the others: the
+  4 -> 3 -> 4 loop.  ``--wait-for-join S`` makes the ranks of a shrunken
+  world poll (a tiny MAX ``allreduce`` every 20 ms, at most S seconds)
+  in the first step after the shrink until a replacement has knocked, so
+  that the admission lands inside the budget whatever the replacement's
+  start-up costs;
+- ``--grid RxC`` runs on a ``("y", "x")`` grid.  With a ``preempt``
+  clause and ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT=row`` it is the graceful
+  preemption drill: the preempted rank's whole row drains at a step
+  boundary (one forced commit, one ``drain`` incident, no watchdog
+  expiry) and the other rows finish the budget::
+
+      MPI4JAX_TPU_ELASTIC_FAIL_UNIT=row \\
+      MPI4JAX_TPU_FAULT_SPEC='preempt:rank=3:op=allreduce:after=5' \\
+        python -m mpi4jax_tpu_torch.models.elastic_training --launch 4 \\
+          --device cpu --grid 2x2 --expect-world 2
+
+- ``launch(sigterm=(rank, step))`` sends a real SIGTERM to that rank
+  after its step: the rank prints a hold line after the step and waits
+  (at most 30 s) until its handler has posted the drain, and the
+  launcher sends the signal when it reads that line.
+
+The launcher exits 0 iff a strict majority (or ``--expect-world`` ranks)
+completed the budget and every worker that exited 0 either completed or
+drained; each worker writes ``<out>.p<rank>`` (a replacement
+``<out>.pj<rank>``) with the JAX example's keys (``losses``,
+``final_world``, ``drained``).
 """
 
 from __future__ import annotations
@@ -52,6 +80,7 @@ import argparse
 import json
 import os
 import random
+import signal
 import socket
 import subprocess
 import sys
@@ -62,6 +91,8 @@ import numpy as np
 
 DONE_TAG = "ELASTIC_DONE"
 DECLARED_TAG = "ELASTIC_DECLARED_FAILED"
+DRAINED_TAG = "ELASTIC_DRAINED"
+HOLD_TAG = "ELASTIC_HOLD"
 LR = 0.05
 
 
@@ -149,7 +180,7 @@ def make_elastic_step(lr=LR, store=None, *, ef_state=True):
         return tree_map(lambda v: v[r], res)
 
     def step_fn(state, step, comm):
-        t0 = time.perf_counter()
+        t0, wall = time.perf_counter(), time.time()
         k = comm.Get_size()
         params = state["params"]
         x, y = data_for(comm, int(params["w1"].shape[0]))
@@ -170,7 +201,7 @@ def make_elastic_step(lr=LR, store=None, *, ef_state=True):
         value = float(loss)
         losses.append({"step": int(step), "world": k, "loss": value,
                        "epoch": comm.epoch,
-                       "seconds": time.perf_counter() - t0})
+                       "seconds": time.perf_counter() - t0, "at": wall})
         print(f"step {int(step):3d}  world {k}  epoch {comm.epoch}  "
               f"loss {value:.6f}", flush=True)
         return out
@@ -197,7 +228,8 @@ def _simulated(step_fn, fail_at, fail_rank):
 
 def _restored_probe(step_fn, record):
     """Record the state the first step of each new epoch is handed (the
-    restored state) and that step's index."""
+    restored state after a failure, the live state after a drain, the
+    cold-restored state after a grow) and that step's index."""
     seen = {"epoch": 0}
 
     def wrapped(state, step, comm):
@@ -210,9 +242,160 @@ def _restored_probe(step_fn, record):
     return wrapped
 
 
+def _hold_for_sigterm(step_fn, hold_step, limit=30.0):
+    """After step ``hold_step`` (epoch 0) print the hold line and wait,
+    at most ``limit`` seconds, until the SIGTERM the launcher sends on
+    reading it has posted the drain (``elastic.run``'s handler)."""
+    from ..resilience import elastic
+
+    def wrapped(state, step, comm):
+        state = step_fn(state, step, comm)
+        if int(step) == hold_step and comm.epoch == 0:
+            print(f"{HOLD_TAG} step={int(step)}", flush=True)
+            deadline = time.monotonic() + limit
+            while not elastic._pending_drain and time.monotonic() < deadline:
+                time.sleep(0.005)
+        return state
+
+    return wrapped
+
+
+def _wait_for_join(step_fn, world, limit):
+    """In the first step at a world smaller than ``world``, poll (a MAX
+    ``allreduce`` every 20 ms, at most ``limit`` seconds) until rank 0's
+    join listener holds a replacement, so that it is admitted at the next
+    commit boundary."""
+    import torch
+
+    from .. import MAX, allreduce
+    from ..resilience import elastic
+
+    done = [False]
+
+    def wrapped(state, step, comm):
+        if not done[0] and comm.Get_size() < world:
+            done[0] = True
+            deadline = time.monotonic() + limit
+            while True:
+                knocked = (elastic.pending_join_count()
+                           if comm.Get_rank() == 0 else 0)
+                flag, _ = allreduce(torch.tensor([knocked], device=comm.device),
+                                    op=MAX, comm=comm)
+                if int(flag[0]) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+        return step_fn(state, step, comm)
+
+    return wrapped
+
+
+def _parse_grid(spec):
+    if not spec:
+        return None
+    r, _, c = spec.lower().partition("x")
+    return int(r), int(c)
+
+
 # ---------------------------------------------------------------------------
 # a rank of the drill
 # ---------------------------------------------------------------------------
+
+
+def _bootstrap(args, **extra) -> dict:
+    bs = {"rendezvous": args.rendezvous, "host": "localhost",
+          "port_base": args.port_base,
+          "agree_port_base": args.port_base + 100,
+          "agree_timeout": args.agree_timeout, "timeout": args.pg_timeout}
+    bs.update(extra)
+    return bs
+
+
+def _finish(args, store, losses, restored, state, name, wall, declared=None):
+    """Write the rank's ``--out`` file and its record in the run's
+    directory (``result-<name>.json``, ``state-<name>.npz``; ``name`` is
+    ``p<rank>``, a replacement's ``j<rank>``); returns the final world
+    (``None`` when it left)."""
+    from .. import telemetry
+    from ..resilience import elastic
+
+    left = declared is not None or store.drained
+    final_world = None if declared is not None else int(store.comm.Get_size())
+    if args.out:
+        # the JAX example's names: <out>.p<rank>, a replacement's <out>.pj<rank>
+        suffix = name if name.startswith("p") else "p" + name
+        with open(f"{args.out}.{suffix}", "w") as f:
+            json.dump({"losses": losses, "final_world": final_world,
+                       "drained": bool(store.drained)}, f, indent=2)
+    if not args.workdir:
+        return final_world
+    me = store.bootstrap.get("process_id")
+    extra = {"rank": me, "name": name, "declared_failed": declared is not None,
+             "declared": declared, "drained": bool(store.drained),
+             "final_world": final_world,
+             "origin": elastic.origin_rank(int(me)) if me is not None else None,
+             "epoch": elastic.current_epoch(),
+             "epoch_history": elastic.epoch_history(),
+             "losses": losses, "recoveries": store.recoveries,
+             "drains": store.drains, "grows": store.grows,
+             "joined": store.joined,
+             "auto_commit_every": store.auto_commit_every,
+             "last_commit_s": store.last_commit_s,
+             "committed_step": store.committed_step,
+             "meters": telemetry.snapshot()["meters"],
+             "wall": wall, "spawned_at": args.spawned_at or None}
+    rec = store._committed
+    if rec is not None:
+        extra["last_commit"] = {"k": rec["k"], "held": sorted(rec["shards"]),
+                                "shard_bytes": rec["shard"],
+                                "state_bytes": rec["nbytes"]}
+    if declared is None:
+        arrays = {f"final/{k}": v
+                  for k, v in to_numpy(state["params"]).items()}
+        for r in restored:
+            params = r["state"]["params"].items()
+            arrays.update({f"restored/{k}": v for k, v in params})
+            arrays.update({f"epoch{r['epoch']}/{k}": v for k, v in params})
+            extra["restored_step"] = r["step"]
+        extra["restored_steps"] = {str(r["epoch"]): r["step"]
+                                   for r in restored}
+        np.savez(os.path.join(args.workdir, f"state-{name}.npz"), **arrays)
+    with open(os.path.join(args.workdir, f"result-{name}.json"), "w") as f:
+        json.dump(extra, f, indent=2, default=str)
+    if not left:
+        # every rank of the final world ends here after the same steps:
+        # leave it together (a process group left to the interpreter's
+        # exit can abort it while its threads still run)
+        import torch.distributed as dist
+
+        dist.barrier()
+        dist.destroy_process_group()
+    return final_world
+
+
+def _declared(rf) -> bool:
+    """Whether ``rf`` says this rank left the world: declared failed, or
+    shrunk out with a failed rank of its grid row or column."""
+    text = str(rf)
+    return "declared failed" in text or "shrunk out with them" in text
+
+
+def _wrapped_step(args, store, world):
+    step_fn, losses = make_elastic_step(args.lr, store=store,
+                                        ef_state=args.ef_state)
+    if 0 <= args.fail_step < args.steps:
+        fail_rank = args.fail_rank if args.fail_rank >= 0 else world - 1
+        step_fn = _simulated(step_fn, args.fail_step, fail_rank)
+    if args.hold_after >= 0:
+        step_fn = _hold_for_sigterm(step_fn, args.hold_after)
+    if args.wait_for_join > 0:
+        step_fn = _wait_for_join(step_fn, world, args.wait_for_join)
+    restored = []
+    return _restored_probe(step_fn, restored), losses, restored
+
+
+def _commit_every(args):
+    return (args.commit_every if args.commit_every == "auto"
+            else int(args.commit_every))
 
 
 def run_worker(args) -> int:
@@ -229,78 +412,65 @@ def run_worker(args) -> int:
     torch.set_num_threads(1)
     if args.watchdog > 0:
         resilience.set_watchdog_timeout(args.watchdog)
-    mesh = make_world_mesh(device=dev)
-    comm = Comm(mesh.axes[0], mesh=mesh)
-    store = elastic.ShardStore(comm, bootstrap={
-        "rendezvous": args.rendezvous,
-        "host": "localhost",
-        "port_base": args.port_base,
-        "agree_port_base": args.port_base + 100,
-        "agree_timeout": args.agree_timeout,
-        "process_id": args.process_id,
-        "num_processes": args.num_processes,
-        "timeout": args.pg_timeout,
-    })
-    step_fn, losses = make_elastic_step(store=store, ef_state=args.ef_state)
-    if 0 <= args.fail_step < args.steps:
-        fail_rank = (args.fail_rank if args.fail_rank >= 0
-                     else args.num_processes - 1)
-        step_fn = _simulated(step_fn, args.fail_step, fail_rank)
-    restored = []
-    step_fn = _restored_probe(step_fn, restored)
+    grid = _parse_grid(args.grid)
+    if grid is None:
+        mesh = make_world_mesh(device=dev)
+    else:
+        mesh = make_world_mesh(grid, ("y", "x"), device=dev)
+    comm = Comm(mesh.axes, mesh=mesh)
+    store = elastic.ShardStore(comm, bootstrap=_bootstrap(
+        args, process_id=args.process_id, num_processes=args.num_processes))
+    step_fn, losses, restored = _wrapped_step(args, store, args.num_processes)
     state = {"params": to_device(_init_params(args.dim, args.hidden), dev)}
-    commit_every = (args.commit_every if args.commit_every == "auto"
-                    else int(args.commit_every))
     t0 = time.perf_counter()
-    declared = False
+    declared = None
     try:
         state = elastic.run(step_fn, state, store, steps=args.steps,
-                            commit_every=commit_every)
+                            commit_every=_commit_every(args))
     except elastic.RankFailure as rf:
-        if "declared failed" not in str(rf):
+        if not _declared(rf):
             raise
-        declared = True
+        declared = str(rf)
         print(f"{DECLARED_TAG} rank {args.process_id}: {rf}", flush=True)
-    wall = time.perf_counter() - t0
-    final_world = None if declared else int(store.comm.Get_size())
-    me = args.process_id
-    if args.out:
-        with open(f"{args.out}.p{me}", "w") as f:
-            json.dump({"losses": losses, "final_world": final_world,
-                       "drained": False}, f, indent=2)
-    if args.workdir:
-        extra = {"rank": me, "declared_failed": declared,
-                 "final_world": final_world,
-                 "epoch": elastic.current_epoch(),
-                 "epoch_history": elastic.epoch_history(),
-                 "losses": losses, "recoveries": store.recoveries,
-                 "auto_commit_every": store.auto_commit_every,
-                 "last_commit_s": store.last_commit_s,
-                 "wall": wall}
-        rec = store._committed
-        if rec is not None:
-            extra["last_commit"] = {"k": rec["k"], "held": sorted(rec["shards"]),
-                                    "shard_bytes": rec["shard"],
-                                    "state_bytes": rec["nbytes"]}
-        if not declared:
-            arrays = {f"final/{k}": v
-                      for k, v in to_numpy(state["params"]).items()}
-            for rec in restored:
-                arrays.update({f"restored/{k}": v
-                               for k, v in rec["state"]["params"].items()})
-                extra["restored_step"] = rec["step"]
-            np.savez(os.path.join(args.workdir, f"state-p{me}.npz"), **arrays)
-        with open(os.path.join(args.workdir, f"result-p{me}.json"), "w") as f:
-            json.dump(extra, f, indent=2, default=str)
-    if declared:
+    final_world = _finish(args, store, losses, restored, state,
+                          f"p{args.process_id}", time.perf_counter() - t0,
+                          declared)
+    if declared is not None:
         return 3
-    # every survivor ends here after the same steps: leave the world
-    # together (a process group left to the interpreter's exit can abort
-    # it while its threads still run)
-    import torch.distributed as dist
+    if store.drained:
+        # shrunk out by a planned drain (the preempted rank, or a row-mate
+        # on a Cartesian drain): a graceful exit, not a completion
+        print(f"{DRAINED_TAG} world={final_world}", flush=True)
+        return 0
+    print(f"{DONE_TAG} steps={args.steps} world={final_world}", flush=True)
+    return 0
 
-    dist.barrier()
-    dist.destroy_process_group()
+
+def run_joiner(args) -> int:
+    """A replacement worker: knock on the running (shrunken) world's rank
+    0, get admitted at a commit boundary, receive the committed state
+    through the cold-join restore, and help finish the budget."""
+    import torch
+
+    from .. import resilience
+    from ..resilience import elastic
+
+    torch.set_num_threads(1)
+    if args.watchdog > 0:
+        resilience.set_watchdog_timeout(args.watchdog)
+    store = elastic.ShardStore(None, bootstrap=_bootstrap(
+        args, device=args.device))
+    step_fn, losses, restored = _wrapped_step(args, store, 0)
+    t0 = time.perf_counter()
+    state = elastic.join_and_run(step_fn, store, steps=args.steps,
+                                 commit_every=_commit_every(args),
+                                 join_timeout=args.drill_timeout)
+    name = f"j{store.bootstrap['process_id']}"
+    final_world = _finish(args, store, losses, restored, state, name,
+                          time.perf_counter() - t0)
+    if store.drained:
+        print(f"{DRAINED_TAG} world={final_world}", flush=True)
+        return 0
     print(f"{DONE_TAG} steps={args.steps} world={final_world}", flush=True)
     return 0
 
@@ -311,19 +481,23 @@ def run_worker(args) -> int:
 
 
 def free_port_base(ranks: int, epochs: int = 4, tries: int = 50) -> int:
-    """A port base whose agreement ports are free for ``epochs`` epochs of
-    ``ranks`` ranks: the coordinator star's (``agree_port``) and the
-    gossip ports (``port_base + 100 + 17 * epoch + rank``).  Bases are
-    drawn at random, so concurrent launches (test workers) rarely
-    collide."""
+    """A port base whose elastic ports are free for ``epochs`` epochs of up
+    to ``ranks`` ranks: the agreement's (the coordinator star's,
+    ``agree_port``, and the gossip ports, ``port_base + 100 + 17 * epoch
+    + rank``), the control listeners' (``control_port``) and the join
+    listener's (``join_port``).  Bases are drawn at random, so concurrent
+    launches (test workers) rarely collide."""
     from ..resilience import elastic
 
     span = elastic.config.elastic_port_span()
     for _ in range(tries):
         base = random.randrange(20000, 60000 - 5 * span)
         ports = {elastic.agree_port(base, e, span) for e in range(epochs)}
+        ports |= {elastic.join_port(base, e, span) for e in range(epochs)}
         ports |= {base + 100 + 17 * elastic.wrapped_epoch(e, span) + r
                   for e in range(epochs) for r in range(ranks)}
+        ports |= {elastic.control_port(base, r, e, span)
+                  for e in range(2) for r in range(min(ranks, span))}
         try:
             for p in ports:
                 with socket.socket() as s:
@@ -334,20 +508,35 @@ def free_port_base(ranks: int, epochs: int = 4, tries: int = 50) -> int:
     raise RuntimeError("free_port_base: no free port window found")
 
 
+def _read(path) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
 def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
            fail_step: int = -1, fail_rank: int = -1, watchdog: float = 30.0,
            pg_timeout: float = None, agree_timeout: float = None,
            commit_every="1", dim: int = 16, hidden: int = 32,
-           ef_state: bool = True, out: str = "", expect_world: int = 0,
-           limit: float = 540.0,
+           lr: float = LR, ef_state: bool = True, out: str = "",
+           expect_world: int = 0, grid: str = "", grow: bool = False,
+           sigterm=None,
+           wait_for_join: float = 0.0, limit: float = 540.0,
            grace: float = 3.0, workdir: str = None, env=None) -> dict:
     """Start ``n`` ranks, wait for them and judge the drill; returns
-    ``{"ok", "exit", "stdout", "stderr", "results", "seconds", "dir"}``
-    (``results``: each rank's ``result-p<rank>.json``, ``None`` for a
-    rank that wrote none).  A rank still running once the expected
-    completions are in is the drill's hung subject: it gets ``grace``
-    seconds, then is killed.  ``fault_spec`` (``None``: the caller's
-    ``MPI4JAX_TPU_FAULT_SPEC``) and ``env`` go to every rank."""
+    ``{"ok", "exit", "stdout", "stderr", "results", "completed",
+    "drained", "joiners", "seconds", "dir"}`` (``results``: each launch
+    rank's ``result-p<rank>.json``, ``None`` for a rank that wrote none;
+    ``joiners``: each replacement's ``{"exit", "stdout", "stderr",
+    "result", "spawned_at"}``).  ``grid`` is ``"RxC"``; ``grow`` spawns a
+    replacement (``--join``) for each worker that exits non-zero;
+    ``sigterm=(rank, step)`` sends that rank a SIGTERM after its step.  A
+    rank still running once the expected completions are in is the
+    drill's hung subject: it gets ``grace`` seconds, then is killed.
+    ``fault_spec`` (``None``: the caller's ``MPI4JAX_TPU_FAULT_SPEC``) and
+    ``env`` go to every process."""
     from ..parallel.mesh import resolve_device
 
     device = str(resolve_device(device))
@@ -357,52 +546,83 @@ def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
         agree_timeout = max(5.0, 4.0 * pg_timeout)
     workdir = workdir or tempfile.mkdtemp(prefix="mpx-elastic-")
     os.makedirs(workdir, exist_ok=True)
-    port_base = free_port_base(n)
+    port_base = free_port_base(n + (n if grow else 0))
     run_env = dict(os.environ)
     if fault_spec is not None:
         run_env["MPI4JAX_TPU_FAULT_SPEC"] = fault_spec
+    if grow:
+        run_env["MPI4JAX_TPU_ELASTIC_GROW"] = "1"
     run_env.update(env or {})
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     run_env["PYTHONPATH"] = root + os.pathsep + run_env.get("PYTHONPATH", "")
     rendezvous = "file://" + os.path.join(workdir, "rendezvous")
-    procs, files = [], []
+    common = ["--rendezvous", rendezvous, "--port-base", str(port_base),
+              "--device", device, "--steps", str(steps),
+              "--commit-every", str(commit_every),
+              "--watchdog", str(watchdog), "--pg-timeout", str(pg_timeout),
+              "--agree-timeout", str(agree_timeout), "--dim", str(dim),
+              "--hidden", str(hidden), "--lr", repr(lr), "--workdir", workdir,
+              "--wait-for-join", str(wait_for_join),
+              "--drill-timeout", str(limit),
+              "--ef-state" if ef_state else "--no-ef-state"]
+    if out:
+        common += ["--out", out]
+    procs, files, names = [], [], []
+
+    def spawn(name, extra):
+        fo = open(os.path.join(workdir, f"{name}.out"), "w")
+        fe = open(os.path.join(workdir, f"{name}.err"), "w")
+        files.append((fo, fe))
+        names.append(name)
+        cmd = ([sys.executable, "-m",
+                "mpi4jax_tpu_torch.models.elastic_training"] + common + extra)
+        procs.append(subprocess.Popen(cmd, env=run_env, stdout=fo,
+                                      stderr=fe, cwd=root))
+
     t0 = time.perf_counter()
     for r in range(n):
-        fo = open(os.path.join(workdir, f"rank{r}.out"), "w")
-        fe = open(os.path.join(workdir, f"rank{r}.err"), "w")
-        files.append((fo, fe))
-        cmd = [sys.executable, "-m", "mpi4jax_tpu_torch.models.elastic_training",
-               "--process-id", str(r), "--num-processes", str(n),
-               "--rendezvous", rendezvous, "--port-base", str(port_base),
-               "--device", device, "--steps", str(steps),
-               "--commit-every", str(commit_every),
-               "--fail-step", str(fail_step), "--fail-rank", str(fail_rank),
-               "--watchdog", str(watchdog), "--pg-timeout", str(pg_timeout),
-               "--agree-timeout", str(agree_timeout), "--dim", str(dim),
-               "--hidden", str(hidden), "--workdir", workdir,
-               "--ef-state" if ef_state else "--no-ef-state"]
-        if out:
-            cmd += ["--out", out]
-        procs.append(subprocess.Popen(cmd, env=run_env, stdout=fo, stderr=fe,
-                                      cwd=root))
+        extra = ["--process-id", str(r), "--num-processes", str(n),
+                 "--fail-step", str(fail_step), "--fail-rank", str(fail_rank)]
+        if grid:
+            extra += ["--grid", grid]
+        if sigterm is not None and r == sigterm[0]:
+            extra += ["--hold-after", str(sigterm[1])]
+        spawn(f"rank{r}", extra)
+    spawned_at, signalled = [], sigterm is None
+
+    def completed(i):
+        return (procs[i].poll() == 0 and f"{DONE_TAG} steps={steps}"
+                in _read(os.path.join(workdir, f"{names[i]}.out")))
+
     target = expect_world if expect_world > 0 else n // 2 + 1
     deadline = time.monotonic() + limit
     try:
         while time.monotonic() < deadline:
+            if not signalled:
+                rank, step = sigterm
+                text = _read(os.path.join(workdir, f"rank{rank}.out"))
+                if f"{HOLD_TAG} step={step}" in text:
+                    os.kill(procs[rank].pid, signal.SIGTERM)
+                    signalled = True
+            subjects = [p for p in procs[:n]
+                        if p.poll() is not None and p.returncode != 0]
+            while grow and len(subjects) > len(spawned_at):
+                spawned_at.append(time.time())
+                spawn(f"join{len(spawned_at) - 1}",
+                      ["--join", "--spawned-at", repr(spawned_at[-1])])
             live = [p for p in procs if p.poll() is None]
-            done_ok = [p for p in procs if p.poll() == 0]
             if not live:
                 break
-            if len(done_ok) >= target:
+            if sum(completed(i) for i in range(len(procs))) >= target:
                 # the expected completions are in: whoever still runs is
                 # the drill's hung subject
                 end = time.monotonic() + grace
                 while (any(p.poll() is None for p in procs)
                        and time.monotonic() < end):
-                    time.sleep(0.1)
+                    time.sleep(0.05)
                 break
-            time.sleep(0.1)
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -411,24 +631,47 @@ def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
         for fo, fe in files:
             fo.close()
             fe.close()
-    res = {"exit": [p.returncode for p in procs], "stdout": [], "stderr": [],
-           "results": [], "seconds": time.perf_counter() - t0, "dir": workdir}
-    for r in range(n):
-        for key, ext in (("stdout", "out"), ("stderr", "err")):
-            with open(os.path.join(workdir, f"rank{r}.{ext}")) as f:
-                res[key].append(f.read())
-        path = os.path.join(workdir, f"result-p{r}.json")
-        if os.path.exists(path):
-            with open(path) as f:
-                res["results"].append(json.load(f))
+    res = {"exit": [], "stdout": [], "stderr": [], "results": [],
+           "joiners": [], "seconds": time.perf_counter() - t0,
+           "dir": workdir}
+    for i, name in enumerate(names):
+        rec = {"exit": procs[i].returncode,
+               "stdout": _read(os.path.join(workdir, f"{name}.out")),
+               "stderr": _read(os.path.join(workdir, f"{name}.err"))}
+        results = [f for f in os.listdir(workdir)
+                   if f.startswith("result-") and f.endswith(".json")]
+        if i < n:
+            path = os.path.join(workdir, f"result-p{i}.json")
         else:
-            res["results"].append(None)
-    completed = [r for r in range(n) if res["exit"][r] == 0
-                 and f"{DONE_TAG} steps={steps}" in res["stdout"][r]]
-    res["completed"] = completed
-    ok = len(completed) >= target
+            # a replacement names its files by the rank it was admitted as
+            path = next((os.path.join(workdir, f) for f in sorted(results)
+                         if f.startswith("result-j")
+                         and json.loads(_read(os.path.join(workdir, f)))
+                         .get("spawned_at") == spawned_at[i - n]), "")
+        rec["result"] = json.loads(_read(path)) if os.path.exists(path) else None
+        if i < n:
+            for key in ("exit", "stdout", "stderr"):
+                res[key].append(rec[key])
+            res["results"].append(rec["result"])
+        else:
+            res["joiners"].append(dict(rec, spawned_at=spawned_at[i - n]))
+    exited0 = [names[i] for i in range(len(procs)) if procs[i].returncode == 0]
+    done = [names[i] for i in range(len(procs)) if procs[i].returncode == 0
+            and f"{DONE_TAG} steps={steps}" in _read(
+                os.path.join(workdir, f"{names[i]}.out"))]
+    drained = [names[i] for i in range(len(procs))
+               if procs[i].returncode == 0 and DRAINED_TAG in _read(
+                   os.path.join(workdir, f"{names[i]}.out"))]
+    res["completed"] = [int(nm[4:]) if nm.startswith("rank") else nm
+                        for nm in done]
+    res["drained"] = [int(nm[4:]) if nm.startswith("rank") else nm
+                      for nm in drained]
+    ok = len(done) >= target
+    # every worker that exited 0 is accounted for: a completion or a
+    # graceful drain
+    ok = ok and sorted(exited0) == sorted(set(done) | set(drained))
     if expect_world > 0:
-        ok = ok and len(completed) == expect_world
+        ok = ok and len(done) == expect_world
     res["ok"] = ok
     return res
 
@@ -448,6 +691,14 @@ def _parse_args(argv=None):
                    help="each rank writes its loss trace to <out>.p<rank>")
     p.add_argument("--launch", type=int, default=0, metavar="N",
                    help="launch an N-rank world and run the drill")
+    p.add_argument("--grow", action="store_true",
+                   help="--launch: spawn a replacement (join_and_run) for "
+                        "each worker that dies: the shrink-then-grow drill")
+    p.add_argument("--grid", default="",
+                   help="run on a ('y', 'x') grid 'RxC' (default: 1-D)")
+    p.add_argument("--wait-for-join", type=float, default=0.0,
+                   help="after a shrink, poll up to this many seconds for a "
+                        "replacement to knock before training on")
     p.add_argument("--expect-world", type=int, default=0,
                    help="--launch: the expected FINAL world size (default: "
                         "a strict majority completes)")
@@ -463,6 +714,9 @@ def _parse_args(argv=None):
                         "process group's timeout)")
     p.add_argument("--dim", type=int, default=16)
     p.add_argument("--hidden", type=int, default=32)
+    p.add_argument("--lr", type=float, default=LR,
+                   help="the SGD step (the JAX example's 0.05 diverges at "
+                        "--dim 1024 --hidden 8192; 1e-3 does not)")
     p.add_argument("--ef-state", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="commit the error-feedback residual stack")
@@ -473,7 +727,18 @@ def _parse_args(argv=None):
     p.add_argument("--num-processes", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--port-base", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--rendezvous", default="", help=argparse.SUPPRESS)
+    p.add_argument("--join", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--spawned-at", type=float, default=0.0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--hold-after", type=int, default=-1, help=argparse.SUPPRESS)
     return p.parse_args(argv)
+
+
+def _timeouts(args) -> None:
+    if args.pg_timeout is None:
+        args.pg_timeout = 3.0 * args.watchdog if args.watchdog > 0 else 300.0
+    if args.agree_timeout is None:
+        args.agree_timeout = max(5.0, 4.0 * args.pg_timeout)
 
 
 def main(argv=None) -> int:
@@ -484,21 +749,27 @@ def main(argv=None) -> int:
                      watchdog=args.watchdog, pg_timeout=args.pg_timeout,
                      agree_timeout=args.agree_timeout,
                      commit_every=args.commit_every, dim=args.dim,
-                     hidden=args.hidden, ef_state=args.ef_state,
+                     hidden=args.hidden, lr=args.lr, ef_state=args.ef_state,
                      out=args.out, expect_world=args.expect_world,
+                     grid=args.grid, grow=args.grow,
+                     wait_for_join=args.wait_for_join,
                      limit=args.drill_timeout)
         for r, (rc, out) in enumerate(zip(res["exit"], res["stdout"])):
             sys.stdout.write(f"--- worker r{r} (exit {rc}) ---\n{out}")
+        for j, rec in enumerate(res["joiners"]):
+            sys.stdout.write(f"--- worker j{j} (exit {rec['exit']}) ---\n"
+                             f"{rec['stdout']}")
         print(f"drill: {len(res['completed'])} worker(s) completed the "
-              f"{args.steps}-step budget ({res['completed']}) in "
-              f"{res['seconds']:.1f}s", flush=True)
+              f"{args.steps}-step budget ({res['completed']}), "
+              f"{len(res['drained'])} drained gracefully ({res['drained']}) "
+              f"in {res['seconds']:.1f}s", flush=True)
         print("DRILL_OK" if res["ok"] else "DRILL_FAILED", flush=True)
         return 0 if res["ok"] else 1
+    if args.join:
+        _timeouts(args)
+        return run_joiner(args)
     if args.process_id >= 0:
-        if args.pg_timeout is None:
-            args.pg_timeout = 3.0 * args.watchdog if args.watchdog > 0 else 300.0
-        if args.agree_timeout is None:
-            args.agree_timeout = max(5.0, 4.0 * args.pg_timeout)
+        _timeouts(args)
         return run_worker(args)
     # a world of one rank: nothing to shrink, the loop runs clean
     workdir = tempfile.mkdtemp(prefix="mpx-elastic-")

@@ -14,6 +14,8 @@ keep the JAX package's meaning, so a message greps the same:
 - MPX112, an async start waited twice, or never waited in its region;
 - MPX126, a collective on a comm of a revoked elastic epoch
   (``check_comm``; ``resilience/elastic.py``);
+- MPX127, a collective on a comm whose world drained past its leave
+  boundary (``check_comm``);
 - MPX129, a pinned program called after its world moved
   (``aot/invalidation.py``);
 - MPX130, an async span that straddles a megastep loop boundary
@@ -50,7 +52,7 @@ from ..utils import profiling as _profiling
 from ._fusion import flush_pending
 
 CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
-                   "MPX126", "MPX129", "MPX130"})
+                   "MPX126", "MPX127", "MPX129", "MPX130"})
 
 
 class Op(enum.Enum):
@@ -167,9 +169,12 @@ def check_comm(comm, what: str):
     (``parallel/region.py``) the region's when ``comm`` is ``None``.
     Inside a region it first issues the fusion queue (``ops/_fusion.py``):
     an op that reaches here does not join it, and program order holds.
-    A comm built in an epoch that an elastic shrink revoked raises MPX126:
-    its ranks are a world that no longer exists (the JAX package's
-    verifier flags it at trace time; the port has no trace)."""
+    A comm whose world executed a planned drain past its leave boundary
+    raises MPX127, and a comm built in an epoch that an elastic boundary
+    revoked raises MPX126: its ranks are a world that no longer exists
+    (the JAX package's verifier flags both at trace time; the port has no
+    trace).  MPX127 is checked first: a survivor's drained comm is also
+    of a revoked epoch, and the drain is the specific cause."""
     ctx = current_context()
     if ctx is not None:
         flush_pending(ctx)
@@ -178,6 +183,15 @@ def check_comm(comm, what: str):
     if comm is None:
         raise ValueError(f"{what}: pass comm= (no default communicator "
                          "outside a region: spmd, run)")
+    if _elastic._drained_comms and _elastic.comm_drained(comm):
+        raise mpx_error(
+            RuntimeError, "MPX127",
+            f"{what} on comm {comm.uid} was issued after the comm's leave "
+            "boundary: its world executed a planned drain and the departed "
+            "ranks will never enter this collective; use the comm "
+            "elastic.run hands the step function after the drain boundary "
+            "(it is rebuilt without the drained ranks; ShardStore.comm)",
+        )
     if comm.epoch < _elastic.current_epoch():
         raise mpx_error(
             RuntimeError, "MPX126",

@@ -14,7 +14,8 @@ Every comm has an ``epoch``, the communication epoch it was built in
 (``resilience/elastic.py``): ``Clone``, ``Split``, ``sub`` and ``bind``
 inherit it, ``shrink`` (the comm half of an elastic shrink) stamps the
 current one, and a collective on a comm of a revoked epoch raises MPX126
-(``ops/_base.py:check_comm``).
+(``ops/_base.py:check_comm``); one on a comm whose world drained past its
+leave boundary (``drained``) raises MPX127.
 
 Every comm has a ``uid``, its point-to-point matching namespace: ``send``
 and ``recv`` match per (uid, tag), and ``Clone``/``Dup`` give a fresh one
@@ -44,6 +45,23 @@ from ..resilience import elastic as _elastic
 from .mesh import ProcessGrid, ensure_groups, group_of
 
 _uid_counter = itertools.count()
+
+
+def next_uid() -> int:
+    """The uid the next comm this process builds will take."""
+    global _uid_counter
+    n = next(_uid_counter)
+    _uid_counter = itertools.count(n)
+    return n
+
+
+def resume_uids_at(uid: int) -> None:
+    """Number this process's next comms from ``uid`` on: a process that
+    joins a running world (``elastic.join_and_run``) takes the uid the
+    world's ranks give the grown world's comm, so that point-to-point
+    messages match in one namespace on every rank."""
+    global _uid_counter
+    _uid_counter = itertools.count(int(uid))
 
 
 def _color_order_key(colors):
@@ -98,6 +116,14 @@ class Comm:
         """The communication epoch this comm was built in (0 for the whole
         life of a job that never shrank)."""
         return self._epoch
+
+    @property
+    def drained(self) -> bool:
+        """True once this comm's world executed a planned drain past its
+        leave boundary (``resilience/elastic.py``): its ranks include ranks
+        that left on purpose, so a collective on it raises MPX127.  A comm
+        merely scheduled to drain stays False through the boundary."""
+        return _elastic.comm_drained(self._uid)
 
     @property
     def device(self):

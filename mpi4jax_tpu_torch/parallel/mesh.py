@@ -96,6 +96,7 @@ class _World:
 def init_distributed(backend: str = "gloo", *, init_method: str = None,
                      world_size: int = None, rank: int = None, device=None,
                      timeout: float = 300.0,
+                     connect_timeout: Optional[float] = None,
                      connect_deadline: Optional[float] = None,
                      connect_max_attempts: Optional[int] = None,
                      connect_base_delay: float = 1.0,
@@ -107,7 +108,14 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
     ``file://<path>``), ``world_size`` and ``rank`` default to the
     ``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK``
     environment variables.  ``timeout`` (seconds) bounds every collective,
-    so a lost rank errors instead of hanging.
+    so a lost rank errors instead of hanging.  ``connect_timeout`` bounds
+    one rendezvous attempt, the wait for every rank and the connections
+    between them (default: the larger of ``timeout`` and
+    ``connect_deadline``); the world's collectives get ``timeout`` once it
+    is made.  Ranks started together on a loaded host reach the
+    rendezvous seconds apart, and an attempt cut by a collective's short
+    timeout leaves its addresses in the store, where a retry's peers read
+    them and cannot connect.
 
     The rendezvous is retried with full-jitter backoff
     (``resilience/retry.py``), as the JAX package retries its coordinator:
@@ -136,11 +144,13 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
         connect_deadline = config.bootstrap_deadline()
     if connect_max_attempts is None:
         connect_max_attempts = config.bootstrap_max_attempts()
+    if connect_timeout is None:
+        connect_timeout = max(timeout, connect_deadline)
 
     def connect():
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=world_size, rank=rank,
-                                timeout=timedelta(seconds=timeout))
+                                timeout=timedelta(seconds=connect_timeout))
 
     retry_with_backoff(
         connect,
@@ -153,6 +163,8 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
         # a second initialisation is a programming error, not a refusal
         giveup=lambda e: "twice" in str(e) or dist.is_initialized(),
     )
+    if connect_timeout != timeout:
+        dist.distributed_c10d._set_pg_timeout(timedelta(seconds=timeout))
     _World.device = dev
     _World.groups = {}
     return dev
@@ -327,6 +339,24 @@ def shrink_world_mesh(mesh: ProcessGrid, failed,
         raise ValueError("shrink_world_mesh: no surviving ranks")
     new_shape = shrunken_shape(shape, failed, fail_unit)
     return make_world_mesh(new_shape, mesh.axes, device=mesh.device)
+
+
+def grow_world_mesh(mesh: ProcessGrid, added: int) -> ProcessGrid:
+    """The grid ``mesh`` with ``added`` ranks appended: the grid half of an
+    elastic grow (``resilience/elastic.py``).  1-D grids only (joiners
+    append to the end of the rank line).  The port runs one process per
+    rank, so the new grid is built in the grown world: a re-bootstrap
+    (``ShardStore.rebootstrap_grow``) must have initialised it, at the new
+    grid's size, first."""
+    shape = tuple(mesh.shape)
+    if len(shape) != 1:
+        raise ValueError(
+            f"grow_world_mesh: only 1-D grids can grow (got shape "
+            f"{dict(zip(mesh.axes, shape))})")
+    if added < 1:
+        raise ValueError(f"grow_world_mesh: added must be >= 1, got {added}")
+    return make_world_mesh((shape[0] + int(added),), mesh.axes,
+                           device=mesh.device)
 
 
 # the default grid and the world it was built in (or set for)

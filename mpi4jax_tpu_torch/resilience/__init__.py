@@ -20,17 +20,20 @@ recovery, and rehearses both:
   the dispatch point consults.  Every feature is off by default, and then
   the dispatch point runs each op's body directly.
 
-- :mod:`.elastic`: the shrink-and-resume recovery (communication
-  epochs, failure agreement, the in-memory ``ShardStore`` and the loop,
-  ``elastic.run``, that survives a rank's loss on the survivors);
+- :mod:`.elastic`: elastic recovery (communication epochs, failure
+  agreement, the in-memory ``ShardStore`` and the loop, ``elastic.run``,
+  that survives a rank's loss on the survivors, drains an announced
+  leaver at a step boundary, and admits replacement ranks);
 - :mod:`.drill`: the pure in-process chaos drills of that control plane.
-
-Growing a world, graceful drains and row shrinks driven end to end are
-ROADMAP Queue 1 item 3.
 """
 
 from . import drill, elastic  # noqa: F401
-from .elastic import RankFailure, ShardStore  # noqa: F401
+from .elastic import (  # noqa: F401
+    RankFailure,
+    ShardStore,
+    install_preemption_handler,
+    request_drain,
+)
 from .faultinject import (  # noqa: F401
     FaultClause,
     canonical_spec,
@@ -58,6 +61,8 @@ __all__ = [
     "drill",
     "RankFailure",
     "ShardStore",
+    "request_drain",
+    "install_preemption_handler",
     "FaultClause",
     "parse_fault_spec",
     "canonical_spec",

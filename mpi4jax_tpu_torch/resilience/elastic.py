@@ -49,18 +49,39 @@ timeout raises.  Gloo's timeout text matches none of the JAX package's
 peer-death markers, so without a claim it propagates as an ordinary
 error, as there; gloo's "Connection closed by peer" classifies.
 
+4. **Drain.**  A preemption notice (a SIGTERM through the handler
+   :func:`run` installs, the ``preempt`` fault verb, or
+   :func:`request_drain`) marks this rank as leaving.  At its next step
+   boundary the leaver announces the leave boundary to every peer's
+   control listener and collects their acks (:func:`notify_drain`); at
+   that boundary every rank forces a commit and executes a planned
+   shrink (widened to the fail unit): no detection, no agreement, no
+   restore, one ``drain`` incident.  The leavers return with
+   ``store.drained`` set; a collective on their sealed comm raises MPX127
+   (``ops/_base.py:check_comm``).
+5. **Grow.**  Under ``MPI4JAX_TPU_ELASTIC_GROW`` rank 0 listens for
+   replacement processes (:func:`request_join`, :func:`join_and_run`).
+   At the next commit boundary one tiny SUM ``allreduce`` tells every
+   rank how many knocked; the epoch advances with a positive delta, rank
+   0 sends each joiner its admit message (epoch, rank, world, the
+   commit's JSON description, its launch rank, the commit interval), and
+   every process re-bootstraps at ``k + j``
+   (:meth:`ShardStore.rebootstrap_grow`, survivors keep their ranks); the
+   committed state streams to the joiners through the restore exchange's
+   cold branch (the joiner contributes zeros).
+
+:class:`BoundaryControl` runs the drain and grow boundary actions for a
+loop other than :func:`run`.
+
 The pure half (epochs, placement, renumbering, ports, the agreement
 models and their TCP runtime, failure classification, byte packing)
 needs no torch; everything that moves tensors imports it lazily.
-
-Not here yet (ROADMAP Queue 1 item 3): growing a world (the cold-join
-half of ``ShardStore``, ``join_and_run``), graceful drains (``preempt``,
-the SIGTERM handler, MPX127) and row/column shrinks driven end to end.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import socket
 import threading
 import time
@@ -111,14 +132,20 @@ __all__ = [
     "resolve_auto_commit_interval",
     "pack_leaves",
     "unpack_leaves",
+    "request_drain",
+    "take_pending_drain",
+    "install_preemption_handler",
+    "mark_comm_draining",
+    "seal_drained_comm",
+    "comm_draining",
+    "comm_drained",
+    "post_simulated_join",
+    "pending_join_count",
+    "request_join",
+    "notify_drain",
+    "BoundaryControl",
+    "join_and_run",
 ]
-
-GROW_NOT_PORTED = (
-    "MPI4JAX_TPU_ELASTIC_GROW is set, but growing a world (admitting "
-    "replacement ranks) is not ported yet: ROADMAP Queue 1 item 3 "
-    "(grow, drain and row shrinks); unset it to run the shrink-and-resume "
-    "half")
-
 
 class RankFailure(RuntimeError):
     """One or more ranks are suspected dead/stalled.
@@ -153,10 +180,15 @@ _epoch = 0
 # one record per epoch advance: {"epoch", "world", "cause", "detail"}
 _epoch_history: List[dict] = []
 # the launch world's rank of each current global rank, once a shrink
-# renumbered them (None: the identity).  Fault clauses address the launch
-# world's ranks (resilience/faultinject.py), so that a drill that hangs
-# rank 2 does not hang the survivor renumbered 2 after the shrink.
+# renumbered them or a grow appended to them (None: the identity).  Fault
+# clauses address the launch world's ranks (resilience/faultinject.py), so
+# that a drill that hangs rank 2 does not hang the survivor renumbered 2
+# after the shrink.
 _rank_origin: Optional[Tuple[int, ...]] = None
+# launch ranks issued so far: the launch world's size, then one more for
+# each joiner a grow admits, so that a joiner never takes a launch rank a
+# fault clause already names (None until the first boundary needs it)
+_origins_issued: Optional[int] = None
 
 
 def current_epoch() -> int:
@@ -170,7 +202,8 @@ def advance_epoch(*, world: Optional[int] = None, cause: str = "revoke",
     the old one is refused from now on) and the configuration epoch.
     ``world``/``cause``/``detail`` describe the boundary for
     :func:`epoch_history` (``cause`` is ``"failure"`` for a shrink,
-    ``"revoke"`` for a bare revocation).  Returns the new epoch."""
+    ``"drain"`` and ``"join"`` for the planned boundaries, ``"revoke"``
+    for a bare revocation).  Returns the new epoch."""
     global _epoch
     with _epoch_lock:
         _epoch += 1
@@ -183,6 +216,22 @@ def advance_epoch(*, world: Optional[int] = None, cause: str = "revoke",
         })
     config.bump_config_epoch()
     return new
+
+
+def _set_epoch(n: int) -> None:
+    """Adopt an epoch the world agreed on (a joiner admitted into epoch
+    ``n`` stamps its comms as the world does).  Never moves backwards."""
+    global _epoch
+    with _epoch_lock:
+        if n < _epoch:
+            raise ValueError(
+                f"cannot move the epoch backwards ({_epoch} -> {n})")
+        if n > _epoch:
+            _epoch = n
+            _epoch_history.append({
+                "epoch": n, "world": None, "cause": "adopt", "detail": "",
+            })
+    config.bump_config_epoch()
 
 
 def epoch_history() -> List[dict]:
@@ -201,21 +250,80 @@ def origin_rank(rank: int) -> int:
     return origin[rank]
 
 
-def _renumber_origin(rank_map: Dict[int, int]) -> None:
-    """Compose a shrink's ``{old: new}`` rank map into the origin map."""
+def _count_launch_ranks(world: Optional[int]) -> None:
+    """Start the counter of launch ranks issued at the launch world's size
+    (``world``, the size of a world no boundary renumbered yet)."""
+    global _origins_issued
+    if _origins_issued is None:
+        if world is None:
+            world = max(_rank_origin) + 1 if _rank_origin else 0
+        _origins_issued = int(world)
+
+
+def _renumber_origin(rank_map: Dict[int, int],
+                     world: Optional[int] = None) -> None:
+    """Compose a shrink's ``{old: new}`` rank map into the origin map;
+    ``world`` is the size of the world it shrinks."""
     global _rank_origin
+    if _rank_origin is None:
+        _count_launch_ranks(world if world is not None
+                            else max(rank_map, default=-1) + 1)
     new = [0] * len(rank_map)
     for old, cur in rank_map.items():
         new[cur] = origin_rank(old)
     _rank_origin = tuple(new)
 
 
+def _issue_origins(world: int, added: int) -> Tuple[int, ...]:
+    """The launch ranks of ``added`` joiners of a world of ``world``: the
+    next ones the counter has not issued (every rank moves it the same
+    way at the same boundary)."""
+    global _origins_issued
+    with _epoch_lock:
+        if _rank_origin is None:
+            _count_launch_ranks(world)
+        else:
+            _count_launch_ranks(None)
+        out = tuple(range(_origins_issued, _origins_issued + int(added)))
+        _origins_issued += int(added)
+    return out
+
+
+def _append_origins(world: int, origins) -> None:
+    """A grow's origin map: the ``world`` ranks keep theirs, the joiners'
+    launch ranks follow."""
+    global _rank_origin
+    _rank_origin = (tuple(origin_rank(r) for r in range(int(world)))
+                    + tuple(int(o) for o in origins))
+
+
+def _adopt_origins(origins, issued: Optional[int]) -> None:
+    """A joiner takes the world's origin map and counter from its admit."""
+    global _rank_origin, _origins_issued
+    if origins is not None:
+        _rank_origin = tuple(int(o) for o in origins)
+    if issued is not None:
+        _origins_issued = int(issued)
+
+
 def _reset_epoch_for_tests() -> None:
-    global _epoch, _rank_origin
+    global _epoch, _rank_origin, _origins_issued
     with _epoch_lock:
         _epoch = 0
         del _epoch_history[:]
     _rank_origin = None
+    _origins_issued = None
+    with _drain_lock:
+        _pending_drain.clear()
+        _peer_drain.clear()
+        _peer_drain_at[:] = []
+        _draining_comms.clear()
+        _drained_comms.clear()
+    with _join_lock:
+        for j in _pending_joins:
+            if j.get("conn") is not None:
+                j["conn"].close()
+        del _pending_joins[:]
     config.bump_config_epoch()
 
 
@@ -1081,14 +1189,428 @@ def _send_json(conn, payload: dict) -> None:
     conn.sendall(len(msg).to_bytes(8, "big") + msg)
 
 
+# the largest control message read (an admit carries the commit's JSON
+# description: a few hundred bytes a leaf): a peer that is not one of these
+# listeners cannot make a reader allocate what its first bytes claim
+_JSON_LIMIT = 16 << 20
+
+
 def _recv_json(conn) -> dict:
     header = _recv_all(conn, 8)
     if len(header) < 8:
         raise OSError("connection closed before header")
     n = int.from_bytes(header, "big")
+    if n > _JSON_LIMIT:
+        raise OSError(f"a control message of {n} bytes (over {_JSON_LIMIT}): "
+                      "not an elastic listener")
     return json.loads(_recv_all(conn, n).decode())
 
 
+# what the join and control listeners say first on every connection: a
+# client sends nothing to a listener that does not, so a port reused by
+# another service (a gloo pair's, say) never receives its bytes
+_JOIN_BANNER = b"mpi4jax_tpu_torch elastic join\n"
+_CONTROL_BANNER = b"mpi4jax_tpu_torch elastic control\n"
+
+
+def _expect_banner(conn, banner: bytes, timeout: float = 2.0) -> None:
+    conn.settimeout(timeout)
+    if _recv_all(conn, len(banner)) != banner:
+        raise OSError("not an elastic listener")
+
+
+# ---------------------------------------------------------------------------
+# graceful drain: announced departures instead of detected deaths
+# ---------------------------------------------------------------------------
+#
+# A preemption notice (SIGTERM, the scheduler's eviction warning, or the
+# ``preempt`` fault verb) marks this rank as *leaving*.  The elastic loop
+# picks the mark up at its next step boundary, announces the leave boundary
+# to every peer (with acks, so nobody can race past it), forces an early
+# ``store.commit`` there and executes a PLANNED shrink: no watchdog expiry,
+# no agreement round, exactly one ``drain`` incident.
+
+_drain_lock = threading.Lock()
+_pending_drain: dict = {}       # this process wants to leave (or a
+#                                 simulated rank does): {"rank", "grace"}
+_peer_drain: dict = {}          # a peer announced its departure:
+#                                 {"rank", "boundary"}
+_peer_drain_at: List[float] = []  # when that notice landed (time.time())
+_draining_comms: Dict[int, int] = {}   # comm uid -> scheduled leave boundary
+_drained_comms: Dict[int, int] = {}    # comm uid -> passed leave boundary
+
+
+def request_drain(grace: Optional[float] = None, *,
+                  rank: Optional[int] = None) -> None:
+    """Mark a rank as *leaving* (idempotent).  ``rank=None`` means the
+    calling process (the SIGTERM path); a concrete rank is a current
+    global rank (the ``preempt`` verb posts its own) or, in a world of one
+    process, the simulated rank to drain.  The elastic loop executes the
+    drain at its next step boundary; ``grace`` bounds the peer-ack wait
+    (default ``MPI4JAX_TPU_DRAIN_GRACE_S``)."""
+    with _drain_lock:
+        if not _pending_drain:
+            _pending_drain.update({
+                "rank": None if rank is None else int(rank),
+                "grace": grace,
+            })
+
+
+def take_pending_drain() -> Optional[dict]:
+    """Pop the pending drain request, if any."""
+    with _drain_lock:
+        if not _pending_drain:
+            return None
+        out = dict(_pending_drain)
+        _pending_drain.clear()
+    return out
+
+
+def _post_peer_drain(rank: int, boundary: int) -> None:
+    with _drain_lock:
+        if not _peer_drain:
+            _peer_drain.update({"rank": int(rank),
+                                "boundary": int(boundary)})
+            _peer_drain_at[:] = [time.time()]
+
+
+def peek_peer_drain() -> Optional[dict]:
+    with _drain_lock:
+        return dict(_peer_drain) if _peer_drain else None
+
+
+def take_peer_drain() -> Optional[dict]:
+    with _drain_lock:
+        if not _peer_drain:
+            return None
+        out = dict(_peer_drain)
+        _peer_drain.clear()
+    return out
+
+
+def _preemption_handler(grace: Optional[float]):
+    def _on_term(_signo, _frame):
+        _meter("elastic.preempt_notices")
+        request_drain(grace)
+
+    _on_term.mpx_preemption = True
+    return _on_term
+
+
+def install_preemption_handler(grace: Optional[float] = None, *,
+                               signum=None):
+    """Install a SIGTERM handler that posts a drain request (the
+    graceful-preemption entry: schedulers announce evictions with SIGTERM
+    before the kill).  Returns the previous handler (pass it to
+    ``signal.signal`` to restore), or ``None`` where no handler can be
+    installed (not the main thread): the elastic loop then has only the
+    failure path for an eviction."""
+    import signal as _signal
+
+    signum = _signal.SIGTERM if signum is None else signum
+    if threading.current_thread() is not threading.main_thread():
+        return None
+    try:
+        return _signal.signal(signum, _preemption_handler(grace))
+    except (ValueError, OSError):
+        return None
+
+
+def _restore_sigterm(prev) -> None:
+    """Put back the handler :func:`install_preemption_handler` returned."""
+    import signal as _signal
+
+    if prev is None:
+        return
+    try:
+        _signal.signal(_signal.SIGTERM, prev)
+    except (ValueError, OSError):
+        pass
+
+
+def mark_comm_draining(comm_or_uid, boundary: int) -> None:
+    """Record that ``comm``'s world has a scheduled leave boundary.
+    Collectives remain legal through the boundary; once
+    :func:`seal_drained_comm` runs the comm is *drained* and any further
+    collective on it raises MPX127."""
+    uid = getattr(comm_or_uid, "uid", comm_or_uid)
+    with _drain_lock:
+        _draining_comms[int(uid)] = int(boundary)
+
+
+def seal_drained_comm(comm_or_uid) -> None:
+    """The leave boundary passed: collectives on this comm are now errors
+    (MPX127); its world executed its planned shrink."""
+    uid = int(getattr(comm_or_uid, "uid", comm_or_uid))
+    with _drain_lock:
+        boundary = _draining_comms.pop(uid, 0)
+        _drained_comms[uid] = boundary
+
+
+def comm_draining(comm_or_uid) -> Optional[int]:
+    """The scheduled leave boundary of a draining comm, or ``None``."""
+    uid = int(getattr(comm_or_uid, "uid", comm_or_uid))
+    with _drain_lock:
+        return _draining_comms.get(uid)
+
+
+def comm_drained(comm_or_uid) -> bool:
+    """True once the comm's leave boundary passed (MPX127 territory)."""
+    uid = int(getattr(comm_or_uid, "uid", comm_or_uid))
+    with _drain_lock:
+        return uid in _drained_comms
+
+
+# ---------------------------------------------------------------------------
+# grow: admit replacement ranks at an epoch boundary
+# ---------------------------------------------------------------------------
+#
+# A replacement process contacts the CURRENT coordinator (the join listener
+# derived from ``port_base`` and the wrapped epoch, which rank 0 names in a
+# file beside the world's rendezvous: the joiner cannot know how many
+# epochs passed while it was being scheduled), parks on the open
+# connection, and is admitted at the world's next commit boundary: the world advances one epoch with a positive delta,
+# every process re-bootstraps at world + J, and the committed state is
+# streamed to the joiner through the restore exchange's cold branch (the
+# joiner contributes zeros and receives everything).
+
+_join_lock = threading.Lock()
+_pending_joins: List[dict] = []   # [{"conn": socket|None, "info": dict}]
+
+
+def post_simulated_join(count: int = 1) -> None:
+    """Queue ``count`` simulated joiners (a scripted store's drills: the
+    replacement is re-admitted by the store's ``apply_grow``)."""
+    with _join_lock:
+        for _ in range(int(count)):
+            _pending_joins.append({"conn": None, "info": {"simulated": True}})
+
+
+def pending_join_count() -> int:
+    with _join_lock:
+        return len(_pending_joins)
+
+
+def _take_pending_joins() -> List[dict]:
+    with _join_lock:
+        out, _pending_joins[:] = list(_pending_joins), []
+    return out
+
+
+class _JoinServer:
+    """The coordinator's join listener (rank 0 only, one epoch at a time):
+    accepts ``{"kind": "join"}`` hellos and parks each connection in the
+    pending-join queue; the admit message goes out on it at the next commit
+    boundary."""
+
+    def __init__(self, host: str, port: int):
+        self.host, self.port = host, int(port)
+        self._stop = threading.Event()
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind((host, self.port))
+        self._srv.listen(8)
+        self._srv.settimeout(0.2)
+        self._thread = threading.Thread(
+            target=self._serve, name="mpi4jax_tpu_torch-join", daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        try:
+            while not self._stop.is_set():
+                try:
+                    conn, _ = self._srv.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                try:
+                    conn.settimeout(10.0)
+                    conn.sendall(_JOIN_BANNER)
+                    payload = _recv_json(conn)
+                    if payload.get("kind") != "join":
+                        conn.close()
+                        continue
+                    conn.settimeout(None)
+                    with _join_lock:
+                        _pending_joins.append(
+                            {"conn": conn, "info": payload})
+                except (OSError, ValueError, KeyError):
+                    conn.close()
+        finally:
+            self._srv.close()
+
+    def stop(self):
+        self._stop.set()
+
+
+def _join_file(rendezvous: Optional[str]) -> Optional[str]:
+    """Where rank 0 names its live join listener beside a ``file://``
+    rendezvous: ``<path>.join``."""
+    if not rendezvous or not str(rendezvous).startswith("file://"):
+        return None
+    return str(rendezvous)[len("file://"):] + ".join"
+
+
+def _publish_join_port(rendezvous: Optional[str], host: str, port: int,
+                       epoch: int) -> None:
+    path = _join_file(rendezvous)
+    if path is None:
+        return
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        json.dump({"host": host, "port": int(port), "epoch": int(epoch)}, f)
+    os.replace(tmp, path)
+
+
+def _published_join_port(path: str) -> Optional[Tuple[str, int]]:
+    """``(host, port)`` of the join listener named in ``path``, if any."""
+    try:
+        with open(path) as f:
+            rec = json.load(f)
+        return str(rec["host"]), int(rec["port"])
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def request_join(rendezvous: str, *, timeout: float = 300.0,
+                 poll_interval: float = 0.1) -> dict:
+    """The replacement process's half of the join protocol: read the join
+    listener rank 0 names beside the world's ``file://`` ``rendezvous``
+    (``<path>.join``; the JAX package scans the declared port window
+    instead, which here would poke other services' ports), send a join
+    hello, and block until the coordinator admits us at a commit boundary.
+    Nothing is sent to a listener that does not greet first as a join
+    listener.  Returns the admit message (the JAX package's ``{"epoch",
+    "process_id", "num_processes", "step", "commit", "axes"}``, and the
+    port's ``origin``, ``origins``, ``launch_ranks_issued``,
+    ``comm_uid``, ``commit_every``, ``commit_anchor`` and
+    ``auto_commit``).  Raises ``RuntimeError`` when no coordinator admits
+    us within ``timeout``."""
+    path = _join_file(rendezvous)
+    if path is None:
+        raise ValueError(
+            f"request_join needs the world's file:// rendezvous, got "
+            f"{rendezvous!r}")
+    deadline = time.monotonic() + timeout
+    hello = {"kind": "join", "host": socket.gethostname()}
+    while time.monotonic() < deadline:
+        where = _published_join_port(path)
+        if where is not None:
+            try:
+                conn = socket.create_connection(where, timeout=0.3)
+            except OSError:
+                conn = None
+            if conn is not None:
+                try:
+                    _expect_banner(conn, _JOIN_BANNER)
+                    conn.settimeout(max(1.0, deadline - time.monotonic()))
+                    _send_json(conn, hello)
+                    admit = _recv_json(conn)     # parks until the boundary
+                    if admit.get("kind") == "admit":
+                        return admit
+                except (OSError, ValueError):
+                    pass
+                finally:
+                    conn.close()
+        time.sleep(poll_interval)
+    raise RuntimeError(
+        f"request_join: no coordinator admitted us within {timeout:g}s "
+        f"(the join listener named in {path}; is the running world's "
+        "MPI4JAX_TPU_ELASTIC_GROW on?)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# control plane: drain notices between peers
+# ---------------------------------------------------------------------------
+
+
+class _ControlServer:
+    """Per-rank control listener (one epoch at a time): receives drain
+    notices from a departing peer, posts them for the run loop, and acks
+    at once; the ack is what lets the leaver prove every peer knows the
+    leave boundary before anyone steps toward it."""
+
+    def __init__(self, host: str, port: int):
+        self.host, self.port = host, int(port)
+        self._stop = threading.Event()
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._srv.bind((host, self.port))
+        self._srv.listen(8)
+        self._srv.settimeout(0.2)
+        self._thread = threading.Thread(
+            target=self._serve, name="mpi4jax_tpu_torch-control",
+            daemon=True)
+        self._thread.start()
+
+    def _serve(self):
+        try:
+            while not self._stop.is_set():
+                try:
+                    conn, _ = self._srv.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                with conn:
+                    try:
+                        conn.settimeout(5.0)
+                        conn.sendall(_CONTROL_BANNER)
+                        payload = _recv_json(conn)
+                        if payload.get("kind") == "drain":
+                            _post_peer_drain(payload["rank"],
+                                             payload["boundary"])
+                            _send_json(conn, {"kind": "ack"})
+                    except (OSError, ValueError, KeyError):
+                        continue
+        finally:
+            self._srv.close()
+
+    def stop(self):
+        self._stop.set()
+
+
+def notify_drain(host: str, port_base: int, my_rank: int, world: int,
+                 boundary: int, *, epoch: Optional[int] = None,
+                 grace: Optional[float] = None) -> List[int]:
+    """Send the drain notice to every peer's control port and collect acks
+    (bounded by ``grace``).  Returns the ranks that did NOT ack: they may
+    be dead, which the ordinary failure path will discover; the drain
+    proceeds regardless (an eviction deadline does not wait)."""
+    epoch = current_epoch() if epoch is None else epoch
+    grace = config.drain_grace_s() if grace is None else float(grace)
+    notice = {"kind": "drain", "rank": int(my_rank),
+              "boundary": int(boundary)}
+    unacked = []
+    deadline = time.monotonic() + grace
+    for peer in range(world):
+        if peer == my_rank:
+            continue
+        acked = False
+        try:
+            port = control_port(port_base, peer, epoch)
+        except ValueError:
+            # a rank beyond the declared span has no control listener
+            unacked.append(peer)
+            continue
+        while time.monotonic() < deadline and not acked:
+            try:
+                with socket.create_connection(
+                    (host, port),
+                    timeout=max(0.1, deadline - time.monotonic()),
+                ) as c:
+                    _expect_banner(c, _CONTROL_BANNER,
+                                   max(0.1, deadline - time.monotonic()))
+                    c.settimeout(max(0.1, deadline - time.monotonic()))
+                    _send_json(c, notice)
+                    acked = _recv_json(c).get("kind") == "ack"
+            except (OSError, ValueError):
+                time.sleep(0.05)
+        if not acked:
+            unacked.append(peer)
+    return unacked
 
 
 class _Interrupt:
@@ -1236,6 +1758,79 @@ def _flatten_state(state):
     from ..utils.tree import tree_flatten
 
     return tree_flatten(state)
+
+
+def _pure_spec(state):
+    """``(spec, leaves)`` from the minimal deterministic flattener over
+    dict/list/tuple nests (sorted dict keys, the order of
+    ``utils/tree.py``).  The spec is JSON-able nested tuples: the
+    structural description the join protocol ships to a cold joiner, which
+    has the committed bytes but never saw the state object."""
+    leaves = []
+
+    def build(node):
+        if isinstance(node, dict):
+            return ("d", tuple(sorted(node)),
+                    tuple(build(node[k]) for k in sorted(node)))
+        if isinstance(node, (list, tuple)):
+            kind = "l" if isinstance(node, list) else "t"
+            return (kind, len(node), tuple(build(v) for v in node))
+        leaves.append(node)
+        return ("*",)
+
+    return build(state), leaves
+
+
+def _spec_from_json(obj):
+    """Rebuild a :func:`_pure_spec` spec from its JSON round trip (JSON
+    turns every tuple into a list)."""
+    if isinstance(obj, list):
+        return tuple(_spec_from_json(v) for v in obj)
+    return obj
+
+
+def _unflatten_spec(spec, leaves):
+    """The nest a :func:`_pure_spec` spec describes, with ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        tag = node[0]
+        if tag == "*":
+            return next(it)
+        if tag == "d":
+            _, keys, subs = node
+            return {k: rebuild(sub) for k, sub in zip(keys, subs)}
+        _, _, subs = node
+        vals = [rebuild(sub) for sub in subs]
+        return vals if tag == "l" else tuple(vals)
+
+    return rebuild(spec)
+
+
+def _plain_nest(node) -> bool:
+    """Whether every container of ``node`` is exactly a dict (of string
+    keys), a list or a tuple: what the spec can rebuild (a named tuple or
+    an ``OrderedDict`` would come back as another type)."""
+    if type(node) is dict:
+        return (all(isinstance(k, str) for k in node)
+                and all(_plain_nest(v) for v in node.values()))
+    if type(node) in (list, tuple):
+        return all(_plain_nest(v) for v in node)
+    return not isinstance(node, (dict, list, tuple))
+
+
+def _dtype_name(dtype) -> Optional[str]:
+    """A torch dtype by name (``"bfloat16"``), ``None`` for a leaf that was
+    not a tensor."""
+    return None if dtype is None else str(dtype).split(".", 1)[-1]
+
+
+def _dtype_of(name: Optional[str]):
+    if name is None:
+        return None
+    import torch
+
+    return getattr(torch, name)
 
 
 # numpy has no bfloat16 or float8: such tensors are packed through an
@@ -1442,10 +2037,11 @@ class ShardStore:
     ``MPI4JAX_TPU_TOPOLOGY`` spec where it covers the world.
     ``bootstrap`` holds what a re-bootstrap needs: ``rendezvous`` (the
     ``file://`` base of the per-epoch rendezvous, :func:`rendezvous_for`),
-    ``host`` and ``port_base`` (the agreement's TCP), ``process_id``,
-    ``num_processes`` and optionally ``backend`` (gloo), ``timeout``
-    (the new process group's collective timeout), ``agree_port_base``
-    and ``agree_timeout``.
+    ``host`` and ``port_base`` (the agreement's and the join and control
+    listeners' TCP), ``process_id``, ``num_processes`` and optionally
+    ``backend`` (gloo), ``timeout`` (the new process group's collective
+    timeout), ``agree_port_base`` and ``agree_timeout``; a joiner's
+    (:func:`join_and_run`) has no rank yet and names its ``device``.
     """
 
     def __init__(self, comm=None, *, redundancy: Optional[int] = None,
@@ -1474,6 +2070,17 @@ class ShardStore:
         self.recoveries: List[dict] = []
         self.auto_commit_every: Optional[int] = None
         self.last_commit_s: Optional[float] = None
+        # set by the elastic loop when THIS rank is shrunk out by a planned
+        # drain (the announcer, or a row-mate on a Cartesian drain): run()
+        # then returned the state of the forced commit early
+        self.drained = False
+        # the port's record of each planned boundary: drains (the notice,
+        # the forced commit's and the re-bootstrap's seconds) and grows
+        # (the poll, the admit, the re-bootstrap, the cold restore); a
+        # joiner's own admission in ``joined``
+        self.drains: List[dict] = []
+        self.grows: List[dict] = []
+        self.joined: Optional[dict] = None
 
     # -- world plumbing ----------------------------------------------------
 
@@ -1555,6 +2162,7 @@ class ShardStore:
             s: bytes(buf[s * shard:(s + 1) * shard])
             for s in self.held_shards(k, table)
         }
+        dtypes = [dt for _, dt in hosted]
         record = {
             "step": int(step),
             "epoch": current_epoch(),
@@ -1562,8 +2170,13 @@ class ShardStore:
             "shard": shard,
             "nbytes": int(len(meta) and sum(m[2] for m in meta)),
             "meta": meta,
-            "dtypes": [dt for _, dt in hosted],
+            "dtypes": dtypes,
             "unflatten": unflatten,
+            # what a cold joiner rebuilds the state with (it never saw the
+            # state object): the JSON spec and each leaf's torch dtype by
+            # name; computed only when the grow path can use them
+            "pure_spec": self._validated_pure_spec(state, leaves),
+            "dtype_names": [_dtype_name(dt) for dt in dtypes],
             "placement": table,
             "shards": shards,
         }
@@ -1571,6 +2184,22 @@ class ShardStore:
             self._committed = record
         self.last_commit_s = time.perf_counter() - t0
         _meter("elastic.commits")
+
+    @staticmethod
+    def _validated_pure_spec(state, leaves):
+        """The JSON-able structural spec for the cold-join description, or
+        ``None`` when it cannot describe ``state`` faithfully (a container
+        other than a plain dict, list or tuple, or a leaf order that is
+        not the flattener's).  A tree walk a commit, so it only runs when
+        the grow path that consumes it is on."""
+        if not config.elastic_grow():
+            return None
+        spec, pure_leaves = _pure_spec(state)
+        if (len(pure_leaves) != len(leaves)
+                or any(a is not b for a, b in zip(pure_leaves, leaves))
+                or not _plain_nest(state)):
+            return None
+        return spec
 
     @property
     def committed_step(self) -> Optional[int]:
@@ -1618,7 +2247,79 @@ class ShardStore:
         return plan_from_placement(frozenset(failed),
                                    self._rec_placement(rec))
 
-    def restore(self, failed: Iterable[int] = ()):
+    def can_describe_commit(self) -> bool:
+        """Whether the last commit carries a validated structural spec: the
+        admission gate.  A world whose state cannot be described admits no
+        joiner (rank 0 refuses before any epoch moves, so the refusal is
+        symmetric across ranks)."""
+        with self._lock:
+            rec = self._committed
+        return bool(rec) and rec.get("pure_spec") is not None
+
+    def describe_commit(self) -> dict:
+        """JSON-able description of the last commit: everything a cold
+        joiner needs to rebuild the state from the restore exchange's
+        bytes (step, shard geometry, per-leaf meta, structural spec,
+        placement; the JAX package's keys, with its values) and each
+        leaf's torch dtype by name (``torch_dtypes``, ``None`` for a leaf
+        that was not a tensor), and no shard payload: those flow through
+        the exchange's cold branch.  Needs a state of plain dict, list and
+        tuple nests, committed with ``MPI4JAX_TPU_ELASTIC_GROW`` on."""
+        rec = self._require_commit()
+        if rec.get("pure_spec") is None:
+            raise RuntimeError(
+                "describe_commit: the committed state's structure is not "
+                "JSON-able (a named tuple, an OrderedDict, non-string keys?) "
+                "or MPI4JAX_TPU_ELASTIC_GROW was off at the commit; cold "
+                "joins need dict/list/tuple state nests"
+            )
+        return {
+            "step": rec["step"],
+            "epoch": rec["epoch"],
+            "k": rec["k"],
+            "shard": rec["shard"],
+            "nbytes": rec["nbytes"],
+            "meta": [[list(shape), dtype, nbytes]
+                     for shape, dtype, nbytes in rec["meta"]],
+            "pure_spec": rec["pure_spec"],
+            "placement": [list(holders)
+                          for holders in self._rec_placement(rec)],
+            "torch_dtypes": list(rec["dtype_names"]),
+        }
+
+    def adopt_commit(self, desc: dict) -> None:
+        """The cold joiner's half of :meth:`describe_commit`: install a
+        commit record with the described geometry and NO shards, so the
+        next :meth:`restore` (``force_exchange=True``) contributes zeros
+        and receives everything."""
+        spec = _spec_from_json(desc["pure_spec"])
+        placement = (
+            tuple(tuple(int(r) for r in holders)
+                  for holders in desc["placement"])
+            if desc.get("placement") is not None
+            else neighbor_placement(int(desc["k"]), self.redundancy))
+        names = desc.get("torch_dtypes") or [None] * len(desc["meta"])
+        record = {
+            "step": int(desc["step"]),
+            "epoch": int(desc["epoch"]),
+            "k": int(desc["k"]),
+            "shard": int(desc["shard"]),
+            "nbytes": int(desc["nbytes"]),
+            "meta": [(tuple(shape), str(dtype), int(nbytes))
+                     for shape, dtype, nbytes in desc["meta"]],
+            "dtypes": [_dtype_of(n) for n in names],
+            "unflatten": lambda leaves: _unflatten_spec(spec, leaves),
+            "pure_spec": spec,
+            "dtype_names": list(names),
+            "placement": placement,
+            "shards": {},
+            "cold": True,
+        }
+        with self._lock:
+            self._committed = record
+
+    def restore(self, failed: Iterable[int] = (), *,
+                force_exchange: bool = False):
         """Reassemble the last committed state after losing ``failed``
         (old-world global ranks) and return ``(step, state)``: tensors
         on the comm's device where the committed leaves were tensors, the
@@ -1634,13 +2335,24 @@ class ShardStore:
         on every rank: exactly one contributor per shard, so the sum is
         placement and cannot wrap.  A loss the placement cannot recover
         raises :class:`RankFailure` before any exchange.
+        ``force_exchange=True`` exchanges in a world of one rank too; it
+        is the cold-join branch's flag (after a grow every rank, the
+        joiners included, runs the exchange; a joiner's adopted commit
+        holds no shards, so it contributes zeros and receives everything).
         """
         import numpy as np
 
         rec = self._require_commit()
         k, shard = rec["k"], rec["shard"]
         plan = plan_from_placement(frozenset(failed), self._rec_placement(rec))
-        if self.world_size() == 1:
+        if rec.get("cold"):
+            if self.world_size() == 1:
+                raise RuntimeError(
+                    "ShardStore.restore: this commit was adopted by a cold "
+                    "joiner and holds no shards; it restores only through "
+                    "the exchange with the world that committed it")
+            _meter("elastic.cold_restores")
+        if self.world_size() == 1 and not force_exchange:
             buf = np.concatenate(
                 [np.frombuffer(rec["shards"][s], np.uint8)
                  for s in range(k)]
@@ -1731,6 +2443,31 @@ class ShardStore:
             self._rank = rank_map[self._rank]
         return rank_map
 
+    def apply_grow(self, added: int) -> None:
+        """The JAX package's single-controller grow, where one process
+        drives every rank and appends spare devices to its mesh.  The port
+        runs one process per rank: the replacement ranks are processes that
+        join (:func:`join_and_run`), and a world of several processes grows
+        through :meth:`rebootstrap_grow`, so this raises there.  In a world
+        of one process there is no process to append: it raises too, after
+        checking ``added`` and the grid as :func:`grow_world_mesh` does
+        (a 1-D grid, ``added >= 1``)."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import grow_world_mesh
+
+        if (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise RuntimeError(
+                "ShardStore.apply_grow is the single-controller grow; this "
+                f"world has {dist.get_world_size()} processes, one per rank, "
+                "so it grows through ShardStore.rebootstrap_grow (the "
+                "elastic loop's admission, under MPI4JAX_TPU_ELASTIC_GROW)")
+        grid = self.comm.mesh
+        if grid is None:
+            raise RuntimeError("elastic grow needs a comm bound to a grid")
+        grow_world_mesh(grid, added)
+
     def _require_bootstrap(self) -> dict:
         bs = self.bootstrap
         for key in ("rendezvous", "host", "port_base", "process_id",
@@ -1792,7 +2529,7 @@ class ShardStore:
         new_world = len(rank_map)
         # the launch ranks first: the journal names this process by its
         # launch rank (telemetry/journal.py:process_index) from here on
-        _renumber_origin(rank_map)
+        _renumber_origin(rank_map, world)
         self._reinit_distributed(new_world, me_new, device)
 
         new_shape = shrunken_shape(old_shape, dead,
@@ -1807,6 +2544,47 @@ class ShardStore:
         if self._rank is not None:
             self._rank = rank_map.get(self._rank, self._rank)
         return rank_map
+
+    def rebootstrap_grow(self, added: int, origins=None,
+                         comm_uid: Optional[int] = None) -> None:
+        """Multi-process grow: tear the revoked process group down and
+        initialise one of ``world + added`` processes at the current
+        epoch's rendezvous.  Existing ranks keep their numbers (a grow never
+        renumbers); the joiners take ``world..world+added-1`` with the
+        launch ranks ``origins`` (by default the next ones the counter
+        issues).  The grid is 1-D only (joiners append to the end of the
+        rank line).  ``comm_uid`` is the uid the new comm takes, the one
+        the admit message gave the joiners, so that every rank of the
+        grown world matches point-to-point messages in one namespace.  The
+        commit gets the identity rank map, so the cold restore's providers
+        are the unchanged old ranks."""
+        from ..parallel.comm import Comm, resume_uids_at
+        from ..parallel.mesh import grow_world_mesh, set_default_mesh
+
+        bs = self._require_bootstrap()
+        old = self.comm.mesh
+        if old is None:
+            raise RuntimeError("elastic grow needs a comm bound to a grid")
+        if len(old.shape) != 1:
+            raise RuntimeError(
+                f"elastic grow needs a 1-D grid (joiners append to the end "
+                f"of the rank line); this one is {tuple(old.shape)}")
+        world = int(bs["num_processes"])
+        if origins is None:
+            origins = _issue_origins(world, added)
+        axes = self.comm.axes
+        self._reinit_distributed(world + int(added), int(bs["process_id"]),
+                                 old.device)
+        _append_origins(world, origins)
+        new_mesh = grow_world_mesh(old, added)
+        set_default_mesh(new_mesh)
+        if comm_uid is not None:
+            resume_uids_at(comm_uid)
+        self._comm = Comm(axes, mesh=new_mesh)
+        with self._lock:
+            if self._committed is not None:
+                k = self._committed["k"]
+                self._committed["rank_map"] = {r: r for r in range(k)}
 
     def multiprocess(self) -> bool:
         return bool(self.bootstrap)
@@ -1843,12 +2621,15 @@ def reassemble_from_stores(stores: Dict[int, "ShardStore"],
 
 
 def revoke_epoch(failed: Iterable[int], *, rank: int = 0,
-                 world: Optional[int] = None, cause: str = "failure") -> int:
-    """Revoke the current comm epoch at a shrink boundary:
+                 world: Optional[int] = None, added: int = 0,
+                 cause: str = "failure") -> int:
+    """Revoke the current comm epoch at an elastic boundary.  The boundary
+    carries a world *delta*: ranks removed (a failure or a drain) and/or
+    ranks added (a join):
 
     - advance the epoch (every comm of the old one refuses collectives,
       MPX126; every pin refuses its next call, MPX129), recording the
-      shrink in :func:`epoch_history`;
+      delta in :func:`epoch_history`;
     - drain the watchdog's in-flight registries (arms from collectives of
       the revoked world must not fire in the recovered job);
     - drop the resilience plan memo (``ops/_base.clear_caches``);
@@ -1860,9 +2641,16 @@ def revoke_epoch(failed: Iterable[int], *, rank: int = 0,
     from . import watchdog as _wd
 
     dead = sorted(frozenset(failed))
-    new_world = (world - len(dead)) if world else None
-    detail = (f"shrank out rank(s) {dead}"
-              + (f" of {world}" if world else ""))
+    new_world = (world - len(dead) + int(added)) if world else None
+    if cause == "join":
+        detail = (f"admitted {added} replacement rank(s)"
+                  + (f" -> world {new_world}" if new_world else ""))
+    elif cause == "drain":
+        detail = (f"drained rank(s) {dead}"
+                  + (f" of {world}" if world else ""))
+    else:
+        detail = (f"shrank out rank(s) {dead}"
+                  + (f" of {world}" if world else ""))
     new_epoch = advance_epoch(world=new_world, cause=cause, detail=detail)
     _wd.drain_registry()
     _base.clear_caches()
@@ -1909,17 +2697,35 @@ def resolve_auto_commit_interval(step_time_s: float,
 
 
 def run(step_fn, state, store: ShardStore, *, steps: int,
-        start_step: int = 0, commit_every=1, claim_watchdog: bool = True):
+        start_step: int = 0, commit_every=1, claim_watchdog: bool = True,
+        drain_on_sigterm: bool = True):
     """Run ``state = step_fn(state, step, comm)`` for ``steps`` steps,
-    surviving rank loss: on a :class:`RankFailure` (raised by the step,
-    posted by the claimed watchdog, or classified from a distributed
-    death rattle) the loop agrees on the failed set with the surviving
-    peers, revokes the epoch, shrinks the world (a re-bootstrap over the
-    survivors), restores the last committed state, and continues on
-    ``k - f`` ranks from the committed step.
+    surviving rank loss and world churn:
 
-    ``step_fn`` takes the CURRENT comm: after a shrink it is a new
-    (smaller, new-epoch) comm.  ``commit_every`` bounds the recovery
+    - on a :class:`RankFailure` (raised by the step, posted by the claimed
+      watchdog, or classified from a distributed death rattle) the loop
+      agrees on the failed set with the surviving peers, revokes the
+      epoch, shrinks the world (a re-bootstrap over the survivors, by rank
+      or by whole grid row or column under
+      ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``), restores the last committed
+      state, and continues on ``k - f`` ranks from the committed step;
+    - on a drain request (:func:`request_drain`: a SIGTERM, the
+      ``preempt`` fault verb) the loop forces an early commit at the next
+      step boundary and executes a planned shrink: peers are notified
+      with acks, no watchdog expiry fires, no agreement runs, and exactly
+      one ``drain`` incident is journalled.  A rank shrunk away (the
+      leaver, or a row-mate on a Cartesian drain) destroys its process
+      group and returns its state with ``store.drained`` set;
+    - with ``MPI4JAX_TPU_ELASTIC_GROW`` on, replacement processes that
+      contacted rank 0 (:func:`request_join`, :func:`join_and_run`) are
+      admitted at the next commit boundary: the epoch advances with a
+      positive world delta, every process re-bootstraps at ``k + j``, and
+      the committed state streams to the joiners through the cold-join
+      restore.  Every commit boundary then costs one tiny SUM
+      ``allreduce`` (the poll).
+
+    ``step_fn`` takes the CURRENT comm: after any boundary it is a new
+    (resized, new-epoch) comm.  ``commit_every`` bounds the recovery
     replay window; the initial state is committed before ``start_step``
     so a first-step failure is recoverable.  ``commit_every='auto'``
     commits every boundary until it has timed one step after the first
@@ -1937,16 +2743,29 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
     monitor cannot hand an expiry to Python), so an expiry becomes a
     recovery instead of a process kill; in the main thread it also
     installs a SIGINT handler that lets the claim interrupt a step
-    waiting in Python.  The JAX package's loop also installs a SIGTERM
-    handler that turns a preemption notice into a graceful drain; the
-    drain half is not ported (ROADMAP Queue 1 item 3), so this one
-    installs none, and ``MPI4JAX_TPU_ELASTIC_GROW`` raises
-    ``NotImplementedError``.
+    waiting in Python.  ``drain_on_sigterm=True`` installs, in the main
+    thread of a world of several processes, a SIGTERM handler that turns
+    a preemption notice into a drain request.  Both handlers are
+    installed inside the loop's ``try`` and restored in its ``finally``.
     """
+    return _run_loop(step_fn, state, store, steps=steps,
+                     start_step=start_step, commit_every=commit_every,
+                     claim_watchdog=claim_watchdog,
+                     drain_on_sigterm=drain_on_sigterm)
+
+
+def _run_loop(step_fn, state, store: ShardStore, *, steps: int,
+              start_step: int, commit_every, claim_watchdog: bool,
+              drain_on_sigterm: bool, auto_warm: bool = False,
+              anchor: Optional[int] = None):
+    """:func:`run`'s loop.  A joiner enters it at the admission step with
+    the world's commit cadence: ``anchor``, the step the world's commits
+    count from (commits land where ``(step - anchor) % commit_every`` is
+    0), and ``auto_warm=True`` when the world still measured
+    ``commit_every='auto'`` (the untimed first step is skipped, so the
+    joiner locks the interval in at the world's boundary)."""
     from . import watchdog as _wd
 
-    if config.elastic_grow():
-        raise NotImplementedError(GROW_NOT_PORTED)
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
     auto_commit: Optional[dict] = None
@@ -1956,7 +2775,8 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
                 f"commit_every must be an int >= 1 or 'auto', got "
                 f"{commit_every!r}"
             )
-        auto_commit = {"step_s": None, "commit_s": None, "warm": False}
+        auto_commit = {"step_s": None, "commit_s": None,
+                       "warm": bool(auto_warm)}
         commit_every = 1
     if commit_every < 1:
         raise ValueError(f"commit_every must be >= 1, got {commit_every}")
@@ -1975,19 +2795,27 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
                 "trip (pad the budget or drop unroll)"
             )
         commit_every = align_commit_every(commit_every, stride)
+    anchor = start_step if anchor is None else int(anchor)
 
     from ..aot.invalidation import StaleProgramError as _Stale
 
     claimed = False
-    prev_handler = prev_fallback = None
-    if claim_watchdog:
-        prev_handler = _wd._registry.on_timeout
-        prev_fallback = _wd._force_fallback
-        _wd.set_on_timeout(_claimed_on_timeout)
-        _wd.force_python_fallback(True)
-        claimed = True
-        _install_interrupt()
+    prev_handler = prev_fallback = prev_sigterm = None
+    servers: dict = {}
     try:
+        # setup that can fail (socket binds, the bootstrap dict) runs
+        # inside the try: the finally restores both handlers whatever
+        # happens
+        if claim_watchdog:
+            prev_handler = _wd._registry.on_timeout
+            prev_fallback = _wd._force_fallback
+            claimed = True
+            _wd.set_on_timeout(_claimed_on_timeout)
+            _wd.force_python_fallback(True)
+            _install_interrupt()
+        if drain_on_sigterm and store.multiprocess():
+            prev_sigterm = install_preemption_handler()
+        _restart_elastic_servers(servers, store)
         if store.committed_step is None:
             store.commit(start_step, state)
         step = start_step
@@ -2008,7 +2836,7 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
                         auto_commit["warm"] = True
                 step += stride
                 committed = False
-                if (step - start_step) % commit_every == 0 or step == steps:
+                if (step - anchor) % commit_every == 0 or step == steps:
                     t_commit = time.perf_counter()
                     store.commit(step, state)
                     if (auto_commit is not None
@@ -2027,7 +2855,16 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
                     store.auto_commit_every = commit_every
                     auto_commit = None
                     _meter("elastic.auto_commits")
+                # the health tick before the boundary actions: a suspect
+                # RankFailure raised there recovers like any peer death
                 _health_boundary(store, step, committed)
+                outcome = _boundary_actions(
+                    store, step, steps, state, committed, anchor,
+                    commit_every, servers, auto=auto_commit is not None)
+                if outcome is not None:
+                    kind, step, state = outcome
+                    if kind == "leave":
+                        return state
             except _Stale:
                 repin = getattr(step_fn, "repin", None)
                 if repin is None:
@@ -2041,12 +2878,15 @@ def run(step_fn, state, store: ShardStore, *, steps: int,
                 detect_s = time.perf_counter() - t_step
                 _health_failure(rf)
                 step, state = _recover(rf, store, detect_s)
+                _restart_elastic_servers(servers, store)
         return state
     finally:
+        _stop_elastic_servers(servers)
         if claimed:
             _uninstall_interrupt()
             _wd.set_on_timeout(prev_handler)
             _wd.force_python_fallback(prev_fallback)
+        _restore_sigterm(prev_sigterm)
 
 
 def _agreed_interval(store: ShardStore, interval: int) -> int:
@@ -2081,6 +2921,475 @@ def _block_on(state) -> None:
                if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
     for d in devices:
         torch.cuda.synchronize(d)
+
+
+# ---------------------------------------------------------------------------
+# boundary control: planned reconfiguration between steps
+# ---------------------------------------------------------------------------
+
+
+def _record(store, name: str, rec: dict) -> None:
+    """Append ``rec`` to the store's list ``name`` where it keeps one (a
+    scripted store may not)."""
+    log = getattr(store, name, None)
+    if isinstance(log, list):
+        log.append(rec)
+
+
+def _restart_elastic_servers(servers: dict, store: ShardStore) -> None:
+    """(Re)bind the epoch-scoped listeners: every rank of a world of
+    several processes runs a control listener (drain notices); rank 0 also
+    runs the join listener when the grow flag is on.  A failed bind
+    degrades silently: the listeners serve the PLANNED paths, and the
+    failure path never needs them."""
+    _stop_elastic_servers(servers)
+    if not store.multiprocess():
+        return
+    bs = store.bootstrap
+    try:
+        host, pb = bs["host"], int(bs["port_base"])
+        me = int(bs["process_id"])
+    except (KeyError, TypeError, ValueError):
+        return
+    epoch = current_epoch()
+    try:
+        servers["control"] = _ControlServer(host, control_port(pb, me, epoch))
+    except (OSError, ValueError):
+        servers["control"] = None
+    if me == 0 and config.elastic_grow():
+        try:
+            servers["join"] = _JoinServer(host, join_port(pb, epoch))
+            _publish_join_port(bs.get("rendezvous"), host,
+                               join_port(pb, epoch), epoch)
+        except OSError:
+            servers["join"] = None
+
+
+def _stop_elastic_servers(servers: dict) -> None:
+    for srv in servers.values():
+        if srv is not None:
+            srv.stop()
+    servers.clear()
+
+
+def _boundary_actions(store: ShardStore, step: int, steps: int, state,
+                      committed: bool, start_step: int, commit_every: int,
+                      servers: dict, *, auto: bool = False):
+    """Planned world changes at a step boundary, in priority order: execute
+    a scheduled drain (ours or a peer's), then admit pending joiners
+    (commit boundaries only).  ``start_step`` is the step the loop's
+    commits count from, and ``auto`` says it still measures
+    ``commit_every='auto'``: a joiner takes both, so that it commits (and
+    polls for joins) at the world's boundaries.  Returns ``None`` (nothing to do), ``("continue", step,
+    state)`` (the world changed, keep looping), or ``("leave", step,
+    state)`` (this rank was drained out)."""
+    mine = take_pending_drain()
+    if mine is not None and store.multiprocess():
+        bs = store.bootstrap
+        my_rank = int(bs["process_id"])
+        leaver = my_rank if mine["rank"] is None else int(mine["rank"])
+        scheduled = peek_peer_drain()
+        if leaver == my_rank and scheduled is None:
+            # announce our departure: boundary = the NEXT step boundary,
+            # acks collected before anyone steps toward it, so no peer can
+            # race past the boundary into a collective we never enter
+            boundary = step + 1
+            at, t0 = time.time(), time.perf_counter()
+            unacked = notify_drain(bs["host"], int(bs["port_base"]), my_rank,
+                                   int(bs["num_processes"]), boundary,
+                                   grace=mine["grace"])
+            _record(store, "drains", {
+                "notice": True, "at": at, "boundary": boundary,
+                "notify_s": time.perf_counter() - t0, "unacked": unacked})
+            mark_comm_draining(store.comm, boundary)
+            _post_peer_drain(my_rank, boundary)
+            mine = None
+        elif leaver == my_rank:
+            # a drain is already scheduled: ours (a repeated notice, as a
+            # ``preempt`` clause posts at every call after it fired) is
+            # announced once; another rank's executes first, and ours is
+            # announced in the world after it
+            if int(scheduled["rank"]) != my_rank:
+                request_drain(mine["grace"])
+            mine = None
+        else:
+            mine = {"rank": leaver, "grace": mine["grace"]}
+    if mine is not None:
+        # a drain of a named rank, executed at THIS boundary (a scripted
+        # store's drills, or every process of a world asking alike)
+        if mine["rank"] is None:
+            raise RuntimeError(
+                "request_drain() without a rank needs a multi-process "
+                "world (a single controller cannot leave its own job); "
+                "pass rank= to drain a simulated rank"
+            )
+        return _execute_drain(store, step, state, committed,
+                              int(mine["rank"]), servers)
+    peer = peek_peer_drain()
+    if peer is not None and step >= int(peer["boundary"]):
+        notice_at = _peer_drain_at[0] if _peer_drain_at else None
+        take_peer_drain()
+        return _execute_drain(store, step, state, committed,
+                              int(peer["rank"]), servers,
+                              notice_at=notice_at)
+    if committed and step < steps:
+        t0 = time.perf_counter()
+        joins = _poll_joins(store)
+        poll_s = time.perf_counter() - t0
+        # never admit at a boundary with a drain already scheduled: the
+        # joiner would miss the delivered notice and desynchronize at the
+        # leave boundary.  Every old rank sees the same pending notice
+        # here (the leaver collects acks BEFORE it enters the poll), so
+        # the deferral is symmetric; the joiners stay parked.
+        if joins and peek_peer_drain() is None:
+            return _execute_grow(store, step, state, committed, joins,
+                                 servers, commit_every=commit_every,
+                                 anchor=start_step, auto=auto, poll_s=poll_s)
+    return None
+
+
+def _execute_drain(store: ShardStore, step: int, state, committed: bool,
+                   leaver: int, servers: dict, *,
+                   notice_at: Optional[float] = None):
+    """The planned shrink at the leave boundary: force the early commit,
+    widen the removal to the declared fail unit, and either leave (this
+    rank is the leaver or shrunk out with it: its process group is
+    destroyed) or rebuild the world without the leavers.  No agreement
+    round (the departure is announced, not suspected), no restore (every
+    survivor's state is live), no majority guard (a planned drain cannot
+    split-brain), exactly one ``drain`` incident per process."""
+    from . import watchdog as _wd
+
+    at, t0 = time.time(), time.perf_counter()
+    with _wd.suspend_expiries():
+        if not committed:
+            store.commit(step, state)
+        t_commit = time.perf_counter()
+        comm = store.comm
+        mesh = getattr(comm, "mesh", None)
+        mesh_shape = (tuple(mesh.shape) if mesh is not None
+                      else (int(comm.world_size()),))
+        unit = config.elastic_fail_unit()
+        removed = expand_fail_unit({leaver}, mesh_shape, unit)
+        world = int(store.bootstrap.get("num_processes")
+                    or comm.world_size())
+        me = (int(store.bootstrap["process_id"])
+              if store.multiprocess() else None)
+        _meter("elastic.drains")
+        _incident(
+            "elastic.drain_incidents", "drain", me if me is not None else 0,
+            f"rank {leaver} drained at step {step} (removed "
+            f"{sorted(removed)} of {world}, fail_unit={unit})",
+        )
+        seal_drained_comm(comm)
+        rec = {"leaver": leaver, "step": step, "removed": sorted(removed),
+               "world": world, "notice_at": notice_at, "boundary_at": at,
+               "commit_s": t_commit - t0, "forced": not committed}
+        if me is not None and me in removed:
+            # we are leaving (the announcer, or a row-mate shrunk out with
+            # it): the state as of the forced commit is the result
+            store.drained = True
+            _teardown_process_group()
+            _record(store, "drains", dict(rec, left=True))
+            return "leave", step, state
+        revoke_epoch(removed, rank=me if me is not None else 0,
+                     world=world, cause="drain")
+        if store.multiprocess():
+            store.rebootstrap(removed, unit)
+        else:
+            store.apply_shrink(removed, unit)
+        _restart_elastic_servers(servers, store)
+        _record(store, "drains", dict(
+            rec, left=False, rebootstrap_s=time.perf_counter() - t_commit))
+    return "continue", step, state
+
+
+def _poll_joins(store: ShardStore) -> int:
+    """How many joiners to admit at this boundary.  A scripted store (one
+    process): the pending-join queue.  A world of several processes (grow
+    flag on): one tiny SUM ``allreduce`` of every rank's pending count
+    (rank 0's join listener parks them), so every rank learns the same
+    delta at the same boundary."""
+    if not store.multiprocess():
+        return pending_join_count()
+    if not config.elastic_grow():
+        return 0
+    import torch
+
+    from ..ops import SUM, allreduce
+
+    comm = store.comm
+    me = int(store.bootstrap["process_id"])
+    pending = pending_join_count()
+    if pending and me == 0 and not store.can_describe_commit():
+        # the committed state cannot be described to a joiner: refuse
+        # admission here, before any epoch moves, so every rank sees 0
+        # and the job keeps training instead of dying mid-admission
+        _meter("elastic.joins_refused")
+        pending = 0
+    mine = torch.tensor([pending], dtype=torch.int32, device=comm.device)
+    out, _ = allreduce(mine, op=SUM, comm=comm)
+    joins = int(out[0])
+    if not 0 <= joins <= config.elastic_port_span():
+        # a sum no pending counts make: the ranks entered different
+        # collectives here (their boundaries diverged)
+        raise RuntimeError(
+            f"the join poll read {joins} pending joiners: the ranks are not "
+            "at the same boundary")
+    return joins
+
+
+def _execute_grow(store: ShardStore, step: int, state, committed: bool,
+                  joins: int, servers: dict, *, commit_every: int = 1,
+                  anchor: int = 0, auto: bool = False, poll_s: float = 0.0):
+    """Admit ``joins`` replacement ranks at this commit boundary: advance
+    the epoch with a positive world delta, issue the joiners' launch
+    ranks (the same on every rank), send each parked joiner its admit
+    message (rank, world, the commit's description, its launch rank, the
+    comm uid and the commit interval), re-bootstrap at ``k + joins``, and
+    run the cold-join restore so every rank, the joiners included, leaves
+    the boundary with the committed state."""
+    from ..parallel.comm import next_uid
+    from . import watchdog as _wd
+
+    t0 = time.perf_counter()
+    with _wd.suspend_expiries():
+        if not committed:
+            store.commit(step, state)
+        comm = store.comm
+        world = int(store.bootstrap.get("num_processes")
+                    or comm.world_size())
+        me = (int(store.bootstrap["process_id"])
+              if store.multiprocess() else 0)
+        _meter("elastic.joins", joins)
+        _incident(
+            "elastic.join_incidents", "join", me,
+            f"admitting {joins} replacement rank(s) at step "
+            f"{store.committed_step}: world {world} -> {world + joins}",
+        )
+        revoke_epoch((), rank=me, world=world, added=joins, cause="join")
+        if store.multiprocess():
+            origins = _issue_origins(world, joins)
+            uid = next_uid()
+            if me == 0:
+                pending = _take_pending_joins()
+                # a joiner that arrived after the poll stays parked for the
+                # NEXT boundary (the polled count is what every rank agreed
+                # to admit)
+                if len(pending) > joins:
+                    with _join_lock:
+                        _pending_joins[0:0] = pending[joins:]
+                desc = store.describe_commit()
+                grown = ([origin_rank(r) for r in range(world)]
+                         + list(origins))
+                for i, j in enumerate(pending[:joins]):
+                    admit = {
+                        "kind": "admit",
+                        "epoch": current_epoch(),
+                        "process_id": world + i,
+                        "num_processes": world + joins,
+                        "step": store.committed_step,
+                        "commit": desc,
+                        "axes": list(comm.axes),
+                        "origin": origins[i],
+                        "origins": grown,
+                        "launch_ranks_issued": _origins_issued,
+                        "comm_uid": uid,
+                        "commit_every": int(commit_every),
+                        "commit_anchor": int(anchor),
+                        "auto_commit": bool(auto),
+                    }
+                    conn = j.get("conn")
+                    if conn is not None:
+                        try:
+                            _send_json(conn, admit)
+                        except OSError:
+                            pass
+                        finally:
+                            conn.close()
+            t_admit = time.perf_counter()
+            store.rebootstrap_grow(joins, origins=origins, comm_uid=uid)
+            t_boot = time.perf_counter()
+            new_step, new_state = store.restore(force_exchange=True)
+            _block_on(new_state)
+        else:
+            _take_pending_joins()
+            t_admit = time.perf_counter()
+            store.apply_grow(joins)
+            t_boot = time.perf_counter()
+            new_step, new_state = store.restore()
+        t_restored = time.perf_counter()
+        _restart_elastic_servers(servers, store)
+        _record(store, "grows", {
+            "added": joins, "step": new_step, "epoch": current_epoch(),
+            "world": world + joins, "poll_s": poll_s,
+            "admit_s": t_admit - t0, "rebootstrap_s": t_boot - t_admit,
+            "restore_s": t_restored - t_boot})
+        _meter("elastic.resumes")
+    return "continue", new_step, new_state
+
+
+class BoundaryControl:
+    """Planned-reconfiguration polling for a loop other than :func:`run`.
+
+    :func:`run` owns a fixed step budget; a loop that does not (a server,
+    whose iteration count depends on traffic) still needs the same
+    between-step semantics: a SIGTERM or preemption notice becomes a drain
+    request, the leaver announces its boundary with acks, every rank
+    executes the planned shrink at that boundary (one ``drain`` incident,
+    no watchdog expiry, no agreement), and pending joiners are admitted at
+    committed boundaries.  This wraps the helper :func:`run` drives plus
+    the listeners' lifecycle::
+
+        with BoundaryControl(store) as bc:
+            while serving:
+                ...one step...
+                outcome = bc.poll(step, state, committed=True)
+                if outcome is not None:
+                    kind, step, state = outcome
+                    if kind == "leave":
+                        break            # we drained out
+                    rebuild_programs()   # the world changed
+
+    ``poll`` returns ``None`` (nothing happened), ``("continue", step,
+    state)`` (the world changed: the store's comm is rebuilt), or
+    ``("leave", step, state)`` (this rank was drained out;
+    ``store.drained`` is set)."""
+
+    def __init__(self, store: ShardStore, *, drain_on_sigterm: bool = True):
+        self.store = store
+        self.servers: dict = {}
+        self._prev_sigterm = None
+        self._drain_on_sigterm = drain_on_sigterm
+        self._entered = False
+
+    def __enter__(self) -> "BoundaryControl":
+        self._entered = True
+        try:
+            if self._drain_on_sigterm and self.store.multiprocess():
+                self._prev_sigterm = install_preemption_handler()
+            _restart_elastic_servers(self.servers, self.store)
+        except BaseException:
+            self.__exit__(None, None, None)
+            raise
+        return self
+
+    def poll(self, step: int, state, *, committed: bool = True):
+        """Run the boundary actions for step ``step`` (drain execution,
+        join admission).  ``committed=False`` makes a drain force-commit
+        ``state`` before the shrink (pass True when the caller's committed
+        state is already current)."""
+        return _boundary_actions(self.store, step, step + 1, state,
+                                 committed, 0, 1, self.servers)
+
+    def __exit__(self, *exc) -> bool:
+        if not self._entered:
+            return False
+        self._entered = False
+        _stop_elastic_servers(self.servers)
+        _restore_sigterm(self._prev_sigterm)
+        self._prev_sigterm = None
+        return False
+
+
+def join_and_run(step_fn, store: ShardStore, *, steps: int,
+                 commit_every=1, claim_watchdog: bool = True,
+                 drain_on_sigterm: bool = True, join_timeout: float = 300.0):
+    """The replacement process's entry point: contact the running world's
+    rank 0 (at the join listener it names beside the world's ``file://``
+    rendezvous), wait to be admitted at a commit boundary, adopt the admitted epoch, rank and
+    launch rank, join the world's process group at the epoch's rendezvous
+    (``init_distributed`` at ``rendezvous_for(bootstrap["rendezvous"],
+    epoch)`` on the bootstrap's ``device``), receive the committed state
+    through the cold-join restore (we contribute zeros, the survivors'
+    shards sum to everything), and enter :func:`run` at the committed step
+    with the world's commit cadence: its interval and the step its commits
+    count from (``commit_every`` is used only where the admit names no
+    interval).  Returns the final state, as :func:`run` does.
+
+    ``store.bootstrap`` needs ``rendezvous``, ``host`` and ``port_base``
+    (those of the world: the rendezvous names rank 0's join listener), and takes ``device``, ``backend``, ``timeout``,
+    ``agree_port_base`` and ``agree_timeout`` as :class:`ShardStore` does.
+    A join fails loudly: no admission within ``join_timeout`` or a failed
+    rendezvous raises.  With the health plane armed it refuses before
+    contacting the world: the detector's boundary exchange counts the
+    boundaries since its process started, which a joiner cannot match."""
+    from ..parallel.comm import Comm, resume_uids_at
+    from ..parallel.mesh import (init_distributed, make_world_mesh,
+                                 set_default_mesh)
+    from ..telemetry import health as _health
+
+    bs = store.bootstrap
+    for key in ("rendezvous", "host", "port_base"):
+        if key not in bs:
+            raise RuntimeError(
+                "join_and_run needs ShardStore(bootstrap={'rendezvous', "
+                f"'host', 'port_base'}}); missing {key!r}"
+            )
+    if _health.armed():
+        raise RuntimeError(
+            "join_and_run: the health plane is armed (MPI4JAX_TPU_HEALTH=on); "
+            "its detector exchanges at the boundaries its process counted "
+            "since it started, which a joiner cannot line up with the "
+            "world's: start the replacement with the health plane off"
+        )
+    # the device's context before the knock, not inside the world's
+    # re-bootstrap, which waits for this process
+    from ..parallel.mesh import resolve_device
+
+    dev0 = resolve_device(bs.get("device"))
+    if dev0.type == "cuda":
+        import torch
+
+        if dev0.index is not None:
+            torch.cuda.set_device(dev0)
+        torch.empty(1, device=dev0)
+    t0 = time.perf_counter()
+    admit = request_join(bs["rendezvous"], timeout=join_timeout)
+    t_admit = time.perf_counter()
+    _set_epoch(int(admit["epoch"]))
+    bs["process_id"] = int(admit["process_id"])
+    bs["num_processes"] = int(admit["num_processes"])
+    _adopt_origins(admit.get("origins"), admit.get("launch_ranks_issued"))
+    dev = init_distributed(
+        bs.get("backend", "gloo"),
+        init_method=rendezvous_for(bs["rendezvous"], current_epoch()),
+        world_size=bs["num_processes"], rank=bs["process_id"],
+        device=bs.get("device"), timeout=float(bs.get("timeout", 300.0)))
+    axes = tuple(admit.get("axes") or ()) or None
+    mesh = make_world_mesh((int(bs["num_processes"]),), axes, device=dev)
+    set_default_mesh(mesh)
+    if admit.get("comm_uid") is not None:
+        resume_uids_at(int(admit["comm_uid"]))
+    store._comm = Comm(mesh.axes, mesh=mesh)
+    store.adopt_commit(admit["commit"])
+    _incident(
+        "elastic.join_incidents", "join", int(bs["process_id"]),
+        f"cold-joined epoch {current_epoch()} as rank "
+        f"{bs['process_id']} of {bs['num_processes']} at step "
+        f"{admit['step']}",
+    )
+    t_boot = time.perf_counter()
+    step, state = store.restore(force_exchange=True)
+    _block_on(state)
+    store.joined = {
+        "step": step, "epoch": current_epoch(),
+        "process_id": int(bs["process_id"]), "origin": admit.get("origin"),
+        "wait_s": t_admit - t0, "rebootstrap_s": t_boot - t_admit,
+        "restore_s": time.perf_counter() - t_boot,
+        "commit_every": admit.get("commit_every"),
+        "auto_commit": admit.get("auto_commit")}
+    _meter("elastic.resumes")
+    auto_warm = False
+    if admit.get("auto_commit"):
+        commit_every, auto_warm = "auto", True
+    elif admit.get("commit_every") is not None:
+        commit_every = int(admit["commit_every"])
+    return _run_loop(step_fn, state, store, steps=steps, start_step=step,
+                     commit_every=commit_every,
+                     claim_watchdog=claim_watchdog,
+                     drain_on_sigterm=drain_on_sigterm, auto_warm=auto_warm,
+                     anchor=admit.get("commit_anchor"))
 
 
 def _recover(rf: RankFailure, store: ShardStore, detect_s: float = 0.0):
@@ -2162,7 +3471,7 @@ def _recover(rf: RankFailure, store: ShardStore, detect_s: float = 0.0):
     step, state = store.restore(removed)
     _block_on(state)
     t_restored = time.perf_counter()
-    store.recoveries.append({
+    _record(store, "recoveries", {
         "failed": sorted(failed), "step": step, "epoch": current_epoch(),
         "detect_s": detect_s,
         "agree_s": t_agreed - t0, "rebootstrap_s": t_boot - t_agreed,

@@ -40,9 +40,9 @@ Semantics:
   peers see only silence, which their watchdogs turn into a death);
   ``corrupt`` overwrites the op's floating-point inputs with NaN (``nan``,
   the default) or +Inf (``inf``) on the firing rank, on the tensors'
-  device; ``preempt`` parses, and its drain notice waits for the drain
-  half of the elastic layer (ROADMAP Queue 1 item 3): until then a firing
-  ``preempt`` warns once and the op proceeds.
+  device; ``preempt`` posts a drain notice for the current rank
+  (``elastic.request_drain(grace, rank=)``) and the op proceeds: the
+  elastic loop drains the rank at its next step boundary.
 - ``rank`` names a rank of the world the job was launched with: after an
   elastic shrink renumbered the survivors (``resilience/elastic.py``),
   each survivor is matched by its launch rank (``elastic.origin_rank``),
@@ -265,24 +265,11 @@ _state = _FaultState()
 def reset_fault_state() -> None:
     """Forget all per-rank trigger counts (test isolation)."""
     _state.reset()
-    global _warned_no_topology, _warned_no_elastic
+    global _warned_no_topology
     _warned_no_topology = False
-    _warned_no_elastic = False
 
 
 _warned_no_topology = False
-_warned_no_elastic = False
-
-
-def _warn_no_elastic() -> None:
-    global _warned_no_elastic
-    if not _warned_no_elastic:
-        _warned_no_elastic = True
-        warnings.warn(
-            "fault spec fired a preempt clause, but the drain half of the "
-            "elastic layer (ROADMAP Queue 1 item 3) is not ported yet: the "
-            "notice is dropped and the op proceeds", RuntimeWarning,
-            stacklevel=3)
 
 
 def _rank_on_host(rank: int, host: int) -> bool:
@@ -375,9 +362,16 @@ def probe_host(indexed_clauses, mpi_name: str, rank) -> int:
             _hang_forever()
         elif clause.verb == "preempt":
             _fault_line(r, f"preempt notice injected in {mpi_name} "
-                           f"({clause.canonical()}) — dropped, no elastic "
-                           "layer to drain the rank")
-            _warn_no_elastic()
+                           f"({clause.canonical()}) — drain at next "
+                           "step boundary")
+            # the SIGTERM-style path: post the drain and let the collective
+            # proceed; the elastic loop executes the planned shrink at its
+            # next step boundary.  The notice names the CURRENT rank (the
+            # loop compares it with its process id), not the launch rank
+            # the clause matched.
+            from .elastic import request_drain
+
+            request_drain(clause.grace, rank=int(rank))
         else:  # corrupt
             _fault_line(r, f"corrupt:{clause.mode} injected in {mpi_name} "
                            f"({clause.canonical()})")

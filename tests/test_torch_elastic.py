@@ -21,8 +21,7 @@
   health plane on: only megastep boundaries dispatched, a re-pin and a
   stale refusal, one ``epoch_change`` and one ``rank_failed`` incident in
   each survivor's journal, a bundle with ``epochs``.
-- MPX126, ``apply_shrink``, the grow flag and the suspect hand-off in one
-  process.
+- MPX126, ``apply_shrink`` and the suspect hand-off in one process.
 """
 
 import json
@@ -375,13 +374,6 @@ def test_apply_shrink_in_a_world_of_one_process():
     assert store.last_rank_map == {0: 0}
     with pytest.raises(elastic.RankFailure, match="no survivors"):
         store.apply_shrink({0})
-
-
-def test_grow_flag_raises_naming_the_roadmap_item(monkeypatch):
-    monkeypatch.setenv("MPI4JAX_TPU_ELASTIC_GROW", "1")
-    store = elastic.ShardStore(RE.world_comm())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        elastic.run(lambda s, i, c: s, {"w": torch.zeros(1)}, store, steps=1)
 
 
 def test_run_lets_an_unshrinkable_failure_propagate_in_a_world_of_one():

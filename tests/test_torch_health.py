@@ -74,7 +74,6 @@ _META = {"op": "allreduce", "comm_uid": "0", "axes": ["i"], "bytes": 64,
 # the JAX package's __all__ names whose modules are later items of the
 # port's queue (ROADMAP Queue 1 items 2-6), and the port's own extras
 LEFT_TO_LATER_ITEMS = sorted([
-    "request_drain", "install_preemption_handler",     # item 3: elastic drain
     "moe", "pipeline", "PipelineProgram", "serving",   # item 4: workloads
     "analyze", "Report", "Finding", "AnalysisError",
     "set_analyze_mode",                                # item 6: analysis

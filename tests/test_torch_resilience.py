@@ -543,6 +543,52 @@ def test_init_distributed_retries_a_refused_rendezvous_then_connects():
     assert m and "deadline 0.6s" in proc.stdout, proc.stdout
 
 
+def test_init_distributed_waits_for_a_late_rank_and_keeps_the_short_timeout(tmp_path):
+    # rank 1 reaches the rendezvous 2.5 s after rank 0 in a world whose
+    # collectives time out after 1 s: the world is still made, and a
+    # collective rank 1 never enters fails on rank 0 after about 1 s
+    code = textwrap.dedent(f"""
+        import os, sys, time
+        import torch, torch.distributed as dist
+        from mpi4jax_tpu_torch.parallel import mesh
+
+        rank = int(sys.argv[1])
+        if rank == 1:
+            time.sleep(2.5)
+        mesh.init_distributed("gloo", init_method="file://{tmp_path}/rdv",
+                              world_size=2, rank=rank, device="cpu",
+                              timeout=1.0, connect_deadline=30.0)
+        x = torch.ones(1)
+        dist.all_reduce(x)
+        print("SUM", float(x), flush=True)
+        if rank == 1:
+            time.sleep(4.0)
+        else:
+            t0 = time.monotonic()
+            try:
+                dist.all_reduce(torch.ones(1))
+                print("NO TIMEOUT", flush=True)
+            except Exception:
+                print("TIMED OUT", round(time.monotonic() - t0, 1), flush=True)
+        os._exit(0)
+    """)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MPI4JAX_TPU_")}
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=40))
+        finally:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert all("SUM 2.0" in out for out, _ in outs), outs
+    m = re.search(r"TIMED OUT (\d+\.\d)", outs[0][0])
+    assert m and 0.5 <= float(m.group(1)) < 3.0, outs[0]
+
+
 # -- drills on four gloo ranks (mpi4jax_tpu_torch/models/runtime_drill.py)
 
 

@@ -34,15 +34,19 @@ its telemetry and resilience overrides, its counters, journal and fault
 counts reset, the health plane's ring, detector and gauges reset and its
 boundary hook unregistered, runtime tracing and debug logging off, and
 the elastic layer's state cleared: the epoch and its history back to 0
-(``_reset_epoch_for_tests``, the launch-rank map too), no pending
-failure, no claimed SIGINT handler, the default grid and comm dropped
-(the claimed watchdog handler goes with ``set_on_timeout(None)``).
+(``_reset_epoch_for_tests``: the launch-rank map and the counter of
+launch ranks issued, the drain registry, the draining and drained comms
+and the parked joins too), no pending failure, no claimed SIGINT
+handler, no preemption (SIGTERM) handler of the elastic layer, the
+default grid and comm dropped (the claimed watchdog handler goes with
+``set_on_timeout(None)``).
 
 Import it into a test module (``from torch_port_isolation import
 isolated_reference_state  # noqa: F401``); it is autouse.
 """
 
 import contextlib
+import signal
 import sys
 
 import pytest
@@ -78,6 +82,8 @@ def reset_port_services() -> None:
     debug.set_runtime_tracing(False)
     debug.set_logging(False)
     elastic._uninstall_interrupt()
+    if getattr(signal.getsignal(signal.SIGTERM), "mpx_preemption", False):
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
     elastic.take_pending_failure()
     elastic._reset_epoch_for_tests()
     mesh.forget_world()

@@ -2,16 +2,21 @@
 
 Each function runs on every rank of a ``mpi4jax_tpu_torch.parallel.launch``
 world of gloo ranks on the CPU (or, for the two peer-death checks, in
-processes ``tests/test_torch_elastic_pure.py`` starts itself).  Like
-``torch_ranks.py`` this module imports no JAX, since every rank imports
-it afresh.  A rank the shrink leaves out destroys its process group and
-returns; ``launch.run`` then skips its closing barrier.
+processes ``tests/test_torch_elastic_pure.py`` starts itself, and for the
+auto-measuring grow, the joiner rank 0 starts: ``python
+tests/torch_ranks_elastic.py join ...``).  Like ``torch_ranks.py`` this
+module imports no JAX, since every rank imports it afresh.  A rank the
+shrink or a drain leaves out destroys its process group and returns;
+``launch.run`` then skips its closing barrier.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import signal
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -222,13 +227,18 @@ def auto_commit_program(rank: int, steps: int) -> dict:
 
 
 def clean_run_program(rank: int, params: dict, start_step: int, steps: int,
-                      rdv: str, port_base: int) -> dict:
-    """The elastic example's loop on a clean world of this size, from
-    ``params`` at ``start_step``: the losses and final parameters a
-    restored run must reproduce bit for bit."""
+                      rdv: str, port_base: int, grid=None) -> dict:
+    """The elastic example's loop on a clean world of this size (on a
+    ``("y", "x")`` grid of shape ``grid``, if given), from ``params`` at
+    ``start_step``: the losses and final parameters a restored, drained or
+    grown run must reproduce bit for bit."""
     from mpi4jax_tpu_torch.models import elastic_training as ET
 
-    comm = world_comm()
+    if grid is None:
+        comm = world_comm()
+    else:
+        mesh = tpx.make_world_mesh(tuple(grid), ("y", "x"), device="cpu")
+        comm = tpx.Comm(mesh.axes, mesh=mesh)
     store = elastic.ShardStore(
         comm, bootstrap=bootstrap(rank, rdv, port_base, comm.Get_size()))
     step_fn, losses = ET.make_elastic_step(store=store)
@@ -237,6 +247,147 @@ def clean_run_program(rank: int, params: dict, start_step: int, steps: int,
                         start_step=start_step)
     return {"losses": [(r["step"], r["world"], r["loss"]) for r in losses],
             "params": ET.to_numpy(state["params"])}
+
+
+# ---------------------------------------------------------------------------
+# the planned boundaries
+# ---------------------------------------------------------------------------
+
+
+def _old_comm_refusal(comm) -> str:
+    try:
+        tpx.allreduce(torch.ones(2), comm=comm)
+        return "ran"
+    except RuntimeError as e:
+        return getattr(e, "mpx_code", str(e))
+
+
+def boundary_control_program(rank: int, rdv: str, port_base: int) -> dict:
+    """An external loop (not ``elastic.run``) polling ``BoundaryControl``
+    on three ranks: rank 2 asks to drain after step 3 and leaves at the
+    next boundary; the others go on at world 2 to step 8.  The steps each
+    rank ran, the drain records, the meters, what the old comm does
+    (MPX127) and a ring ``sendrecv`` on the new one."""
+    os.environ["MPI4JAX_TPU_TELEMETRY"] = "counters"
+    from mpi4jax_tpu_torch import telemetry
+
+    comm = world_comm()
+    store = elastic.ShardStore(comm, bootstrap=bootstrap(rank, rdv, port_base, 3))
+    state = {"w": torch.arange(4.0) + rank}
+    state = {"w": tpx.allreduce(state["w"], comm=comm)[0]}
+    store.commit(0, state)
+    steps = []
+    with elastic.BoundaryControl(store) as bc:
+        step, out = 0, None
+        while step < 8:
+            c = store.comm
+            total, _ = tpx.allreduce(state["w"], comm=c)
+            state = {"w": state["w"] * 0.5 + total / (4 * c.Get_size())}
+            steps.append((step, c.Get_size(), c.epoch))
+            step += 1
+            if rank == 2 and step == 3 and c.epoch == 0:
+                elastic.request_drain()
+            out = bc.poll(step, state, committed=False)
+            if out is not None:
+                kind, step, state = out
+                if kind == "leave":
+                    break
+    res = {"steps": steps, "drained": store.drained, "drains": store.drains,
+           "history": elastic.epoch_history(),
+           "meters": telemetry.snapshot()["meters"],
+           "old_drained": comm.drained, "old_comm": _old_comm_refusal(comm),
+           "w": state["w"].numpy(), "committed": store.committed_step,
+           "sigterm_restored": signal.getsignal(signal.SIGTERM) is signal.SIG_DFL}
+    if store.drained:
+        return res
+    new = store.comm
+    got, _ = tpx.sendrecv(torch.full((3,), float(new.Get_rank())),
+                          torch.zeros(3), source=tpx.shift(-1),
+                          dest=tpx.shift(1), comm=new)
+    res.update(world=new.Get_size(), rank=new.Get_rank(), epoch=new.epoch,
+               ring=got.numpy(), new_sum=float(tpx.allreduce(
+                   torch.ones(1), comm=new)[0][0]))
+    return res
+
+
+JOIN_STEPS = 8
+
+
+def _joiner_body(state, step, comm):
+    total, _ = tpx.allreduce(state["w"], comm=comm)
+    return {"w": state["w"] * 0.5 + total * (0.25 / comm.Get_size())
+            + float(step)}
+
+
+def joiner_step():
+    """The auto-measuring grow's step: ``w = w / 2 + mean_ranks(w) / 4 +
+    step``; at a world under 3 (the two-rank world's step 0) every rank
+    first waits (``elastic_training``'s poll, at most 30 s) until rank 0's
+    join listener holds the joiner."""
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    return ET._wait_for_join(_joiner_body, 3, 30.0)
+
+
+def _committing(store):
+    committed = []
+    real = store.commit
+
+    def commit(step, state):
+        committed.append(int(step))
+        real(step, state)
+
+    store.commit = commit
+    return committed
+
+
+def auto_join_program(rank: int, rdv: str, port_base: int, out: str) -> dict:
+    """A world of two ranks under ``commit_every='auto'`` that a third
+    process joins while the world still measures (rank 0 starts it; every
+    rank waits in step 0 until it has knocked): all three must lock the
+    interval in at the same boundary.  Each rank's interval, commits,
+    epochs and final state; the joiner writes its own to ``out``."""
+    os.environ["MPI4JAX_TPU_ELASTIC_GROW"] = "1"
+    if rank == 0:
+        env = dict(os.environ)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(here), here, env.get("PYTHONPATH", "")])
+        subprocess.Popen([sys.executable, os.path.abspath(__file__), "join",
+                          rdv, str(port_base), out], env=env,
+                         stdout=subprocess.DEVNULL, stderr=open(out + ".err", "w"))
+    comm = world_comm()
+    store = elastic.ShardStore(comm, bootstrap=bootstrap(rank, rdv, port_base, 2))
+    committed = _committing(store)
+    state = elastic.run(joiner_step(), {"w": torch.arange(6.0)}, store,
+                        steps=JOIN_STEPS, commit_every="auto")
+    res = {"auto": store.auto_commit_every, "committed": committed,
+           "grows": store.grows, "history": elastic.epoch_history(),
+           "world": store.comm.Get_size(), "w": state["w"].numpy()}
+    dist.barrier()
+    dist.destroy_process_group()
+    return res
+
+
+def joiner_main(rdv: str, port_base: int, out: str) -> None:
+    """The auto-measuring grow's joiner (a process of its own)."""
+    torch.set_num_threads(1)
+    store = elastic.ShardStore(None, bootstrap={
+        "rendezvous": rdv, "host": "localhost", "port_base": port_base,
+        "agree_port_base": port_base + 100, "agree_timeout": 20.0,
+        "timeout": 50.0, "device": "cpu"})
+    committed = _committing(store)
+    state = elastic.join_and_run(joiner_step(), store, steps=JOIN_STEPS,
+                                 commit_every=3, join_timeout=40.0)
+    res = {"auto": store.auto_commit_every, "committed": committed,
+           "joined": store.joined, "history": elastic.epoch_history(),
+           "world": store.comm.Get_size(), "rank": store.comm.Get_rank(),
+           "origin": elastic.origin_rank(store.comm.Get_rank()),
+           "w": state["w"].tolist()}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f, default=str)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +430,8 @@ def peer_program(rank: int, world: int, rdv: str, mode: str, out: str) -> None:
 
 
 if __name__ == "__main__":
-    import sys
-
-    peer_program(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-                 sys.argv[5])
+    if sys.argv[1] == "join":
+        joiner_main(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    else:
+        peer_program(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                     sys.argv[4], sys.argv[5])
