@@ -197,6 +197,27 @@ read just after:
    0.05 diverges at that width) and their losses must be finite.  One
    JSON line ``{"elastic": ...}``.
 
+14. the parallel workloads on four gloo ranks on this card
+   (``workloads_phase``; no kernel of the table: the products are cuBLAS
+   calls), in one launch: (a) the MoE twin (``models/moe_training.py``)
+   at the JAX example's width (tokens 32, d 16, d_ff 32): the overlapped
+   layer against the synchronous one bit for bit, and 4 SGD losses that
+   decrease; (b) the MoE layer at d 1024, d_ff 2048, 4096 tokens a rank,
+   4 experts at factor 1.25 (capacity 1280): each rank's output against
+   the single-GPU fold of ``reference_moe``'s math on CUDA
+   (``moe.fold_layer``) within rtol 1e-5, atol 1e-6 (bitwise or not,
+   printed), chunks 2 and 4 against 1 bit for bit, the ms a layer (sync,
+   chunks 2, chunks 4), a forward + backward, and rank 0's bytes staged
+   and seconds in one layer's exchanges; (c) the pipeline twin
+   (``models/pipeline_parallel.py``) at DIM 1024, 8 tanh substages (2 a
+   rank), batch 512 in 16 microbatches of 32 rows: the ladder, gpipe,
+   1f1b, interleaved (v=2) and auto, each bit for bit against the
+   sequential single-GPU reference on the last rank, the ms a round, and
+   under ``counters`` each schedule's measured bubble fraction beside its
+   plan's ``(warmup + cooldown) / ticks``.  Four processes share one card:
+   no number of this phase is a scaling result.  One JSON line
+   ``{"workloads": ...}``.
+
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
 
@@ -233,8 +254,9 @@ build the stencil sources and the host library and run phase 11 or phase
 12 alone, one JSON line each.
 
     python3 chip_smoke.py --elastic
+    python3 chip_smoke.py --workloads
 
-runs phase 13 alone (nothing to build), one JSON line.
+run phase 13 or phase 14 alone (nothing to build), one JSON line each.
 """
 
 import hashlib
@@ -4161,6 +4183,262 @@ def elastic_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the parallel workloads.  The expert-parallel MoE layer and the
+# pipeline schedule compiler on four gloo ranks on this card; no kernel of
+# the table runs (their products are cuBLAS calls, as the JAX package's are
+# XLA dots outside any Pallas kernel).  All three parts run in one launch.
+# ---------------------------------------------------------------------------
+
+# (b): the training block's width (PERF.md section 4), the (2,2) training
+# cell's 2 x 2048 tokens a rank, 4 experts at factor 1.25: capacity 1280
+MOE_WIDE = {"tokens": 4096, "d": 1024, "d_ff": 2048, "factor": 1.25, "seed": 0}
+# (c): 8 tanh substages at DIM 1024 (2 a rank), batch 512 in 16
+# microbatches of 32 rows (128 KiB boundary messages)
+PIPE_WIDE = {"batch": 512, "dim": 1024, "microbatches": 16}
+WORK_RTOL, WORK_ATOL = 1e-5, 1e-6   # tests/test_moe.py:72
+WORK_REPS = 5
+
+
+def _wall_ms(dev, fn, reps):
+    """Mean host wall of ``fn()`` over ``reps`` calls after one, the card
+    synchronised around them (every rank runs it in lock-step)."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def moe_wide_rank(rank, device):
+    """(b) on one rank: the layer at ``MOE_WIDE`` against the single-GPU
+    fold of ``reference_moe``'s math (``moe.fold_layer`` on CUDA), chunks 2
+    and 4 against 1, the ms a layer and a forward + backward, and the
+    exchanges of one synchronous layer."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh, spmd
+    from mpi4jax_tpu_torch.ops import _staging
+    from mpi4jax_tpu_torch.parallel import moe
+
+    mesh = make_world_mesh(device=device)
+    comm = Comm(mesh.axes[0], mesh=mesh)
+    dev, k = mesh.device, comm.Get_size()
+    c = MOE_WIDE
+    cap = moe.capacity_for(c["tokens"], k, c["factor"])
+    rng = np.random.default_rng(c["seed"])
+    x_all = torch.from_numpy(rng.standard_normal(
+        (k, c["tokens"], c["d"]), dtype=np.float32)).to(dev)
+    params_all = [moe.MoEParams(*(torch.from_numpy(a).to(dev) for a in
+                                  moe.init_moe_params(c["d"], c["d_ff"], k,
+                                                      rank=r, seed=c["seed"])))
+                  for r in range(k)]
+    x, params = x_all[rank], params_all[rank]
+    ref = moe.fold_layer(torch, x_all, params_all, cap)[rank].clone()
+    del x_all
+    torch.cuda.empty_cache()
+
+    def layer(chunks, p=params):
+        return spmd(lambda xv: moe.moe_layer(xv, p, comm=comm, chunks=chunks,
+                                             capacity_factor=c["factor"])[0],
+                    comm=comm)(x)
+
+    out = {"capacity": cap, "dispatch_bytes": int(c["tokens"] * k * cap * 4),
+           "bucket_bytes": int(k * cap * c["d"] * 4)}
+    ys = {ch: layer(ch) for ch in (1, 2, 4)}
+    out["finite"] = bool(torch.isfinite(ys[1]).all())
+    out["ref_max_abs_err"] = (ys[1] - ref).abs().max().item()
+    out["ref_in_band"] = bool(torch.allclose(ys[1], ref, rtol=WORK_RTOL,
+                                             atol=WORK_ATOL))
+    out["ref_bitwise"] = bool(torch.equal(ys[1], ref))
+    for ch in (2, 4):
+        out[f"chunks{ch}_bitwise"] = bool(torch.equal(ys[ch], ys[1]))
+        out[f"chunks{ch}_max_abs_err"] = (ys[ch] - ys[1]).abs().max().item()
+        out[f"chunks{ch}_in_band"] = bool(torch.allclose(
+            ys[ch], ys[1], rtol=WORK_RTOL, atol=WORK_ATOL))
+    del ys, ref
+    out["ms"] = {f"chunks{ch}": _wall_ms(dev, lambda ch=ch: layer(ch), WORK_REPS)
+                 for ch in (1, 2, 4)}
+    _staging.stats.reset()
+    layer(1)
+    torch.cuda.synchronize(dev)
+    out["sync_layer_exchange"] = {"calls": _staging.stats.calls,
+                                  "staged_bytes": _staging.stats.staged_bytes,
+                                  "seconds": _staging.stats.seconds}
+
+    def fwd_bwd():
+        w_in = params.w_in.detach().requires_grad_(True)
+        w_out = params.w_out.detach().requires_grad_(True)
+        p = params._replace(w_in=w_in, w_out=w_out)
+
+        def body(xv):
+            with torch.enable_grad():
+                y = moe.moe_layer(xv, p, comm=comm, chunks=1,
+                                  capacity_factor=c["factor"])[0]
+                return torch.autograd.grad(torch.sum(y * y), (w_in, w_out))
+
+        return spmd(body, comm=comm)(x)
+
+    out["fwd_bwd_ms"] = _wall_ms(dev, fwd_bwd, WORK_REPS)
+    return out
+
+
+def pipeline_wide_rank(rank, device):
+    """(c) on one rank: the pipeline twin at ``PIPE_WIDE`` (the ladder and
+    the four schedules, each bit for bit against the sequential
+    reference on the last rank, the best ms a round of ``WORK_REPS``), then
+    each schedule once under ``counters``: the measured bubble fraction
+    beside the plan's ``(warmup + cooldown) / ticks``."""
+    from mpi4jax_tpu_torch import Comm, make_world_mesh, telemetry
+    from mpi4jax_tpu_torch.models import pipeline_parallel as PP
+    from mpi4jax_tpu_torch.parallel.pipeline import pipeline, split_microbatches
+
+    c = PIPE_WIDE
+    res = PP.main(device, batch=c["batch"], dim=c["dim"],
+                  microbatches=c["microbatches"], runs=WORK_REPS)
+    mesh = make_world_mesh(device=device)
+    comm = Comm(mesh.axes[0], mesh=mesh)
+    dev, stages = mesh.device, comm.Get_size()
+    x0, ws = (torch.from_numpy(a).to(dev) for a in PP.build_inputs(stages, c["batch"],
+                                                                  c["dim"]))
+    w2, wi = (t.contiguous() for t in PP.stage_weights(ws, stages, rank))
+    mbs = split_microbatches(x0 if rank == 0 else torch.zeros_like(x0),
+                             c["microbatches"])
+    bubble = {}
+    for label, prog, params in (
+        ("gpipe", pipeline(PP.stage_pair, c["microbatches"], schedule="gpipe",
+                           comm=comm), w2),
+        ("1f1b", pipeline(PP.stage_pair, c["microbatches"], schedule="1f1b",
+                          comm=comm), w2),
+        ("interleaved", pipeline(PP.substage, c["microbatches"],
+                                 schedule="interleaved", virtual=2, comm=comm), wi),
+        ("auto", pipeline(PP.stage_pair, c["microbatches"], comm=comm), w2),
+    ):
+        prog(mbs, params)  # warm
+        telemetry.set_telemetry_mode("counters")
+        try:
+            telemetry.reset()
+            prog(mbs, params)
+            meters = telemetry.snapshot()["meters"]
+        finally:
+            telemetry.set_telemetry_mode(None)
+            telemetry.reset()
+        plan = res["plans"][label]
+        stage_us, wait_us = meters.get("pipeline.stage_us", 0), \
+            meters.get("pipeline.bubble_wait_us", 0)
+        bubble[label] = {
+            "stage_us": stage_us, "bubble_wait_us": wait_us,
+            "measured": wait_us / max(1, stage_us + wait_us),
+            "plan": (plan["warmup"] + plan["cooldown"]) / plan["ticks"],
+            "schedule": plan["schedule"]}
+    return {"ms": res["ms"], "plans": res["plans"], "last": res["last"],
+            "bubble": bubble,
+            "boundary_bytes": (c["batch"] // c["microbatches"]) * c["dim"] * 4}
+
+
+def workloads_rank(rank, device):
+    """Phase 14's three parts on one rank of one launch."""
+    from mpi4jax_tpu_torch.models import moe_training as MT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, t = {}, time.perf_counter()
+    twin = MT.main(device)  # (a): raises where the pin fails
+    out["a"] = {"losses": twin["losses"], "capacity": twin["capacity"],
+                "seconds": time.perf_counter() - t}
+    t = time.perf_counter()
+    out["b"] = moe_wide_rank(rank, device)
+    out["b"]["seconds"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["c"] = pipeline_wide_rank(rank, device)
+    out["c"]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def workloads_phase(dev, launch, smi):
+    """Phase 14 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    t0 = time.perf_counter()
+    ranks = launch.run(workloads_rank, 4, backend="gloo", device="cuda:0",
+                       timeout=600, args=("cuda:0",))
+    a = [r["a"] for r in ranks]
+    losses = a[0]["losses"]
+    if any(r["losses"] != losses for r in a) or not all(
+            np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 14 (a): losses {[r['losses'] for r in a]}")
+    print(f"phase 14 (a) MoE twin (tokens 32, d 16, d_ff 32, 4 experts, capacity "
+          f"{a[0]['capacity']}): overlapped == synchronous bit for bit on every "
+          "rank; losses " + " -> ".join(f"{v:.5f}" for v in losses))
+    b = [r["b"] for r in ranks]
+    for r, rb in enumerate(b):
+        # the pin: chunks 2 and 4 give the synchronous layer's bits
+        if not (rb["finite"] and rb["ref_in_band"] and rb["chunks2_bitwise"]
+                and rb["chunks4_bitwise"]):
+            raise AssertionError(f"phase 14 (b) rank {r}: {rb}")
+    b0 = b[0]
+    print(f"phase 14 (b) MoE layer at d {MOE_WIDE['d']}, d_ff {MOE_WIDE['d_ff']}, "
+          f"{MOE_WIDE['tokens']} tokens a rank, "
+          f"capacity {b0['capacity']} (dispatch tensor {b0['dispatch_bytes'] / 1e6:.1f}"
+          f" MB, buckets {b0['bucket_bytes'] / 1e6:.1f} MB a direction): every "
+          "rank against the single-GPU fold, max|diff| "
+          f"{max(rb['ref_max_abs_err'] for rb in b):.3e} (bitwise on "
+          f"{sum(rb['ref_bitwise'] for rb in b)}/4 ranks); chunks 2 and 4 against "
+          f"1 bitwise on {sum(rb['chunks2_bitwise'] for rb in b)}/4 and "
+          f"{sum(rb['chunks4_bitwise'] for rb in b)}/4 ranks, max|diff| "
+          f"{max(max(rb['chunks2_max_abs_err'], rb['chunks4_max_abs_err']) for rb in b):.3e}")
+    print(f"  rank 0 ms a layer: sync {b0['ms']['chunks1']:.2f}, chunks 2 "
+          f"{b0['ms']['chunks2']:.2f}, chunks 4 {b0['ms']['chunks4']:.2f}; forward + "
+          f"backward {b0['fwd_bwd_ms']:.2f} ms; one sync layer: "
+          f"{b0['sync_layer_exchange']['staged_bytes'] / 1e6:.1f} MB staged in "
+          f"{b0['sync_layer_exchange']['calls']} exchanges, "
+          f"{b0['sync_layer_exchange']['seconds'] * 1e3:.2f} ms inside them")
+    c = [r["c"] for r in ranks]
+    if not c[-1]["last"]:
+        raise AssertionError("phase 14 (c): rank 3 is not the last stage")
+    c3 = c[-1]
+    print(f"phase 14 (c) pipeline, 8 tanh substages at DIM {PIPE_WIDE['dim']}, batch "
+          f"{PIPE_WIDE['batch']} in {PIPE_WIDE['microbatches']} microbatches "
+          f"({c3['boundary_bytes'] // 1024} KiB boundaries): the ladder and every "
+          "schedule bit for bit against the sequential single-GPU reference on the "
+          "last rank")
+    for label, ms in c3["ms"].items():
+        bub = c3["bubble"].get(label)
+        extra = "" if bub is None else (
+            f"; {bub['schedule']}: measured bubble {bub['measured']:.1%} beside "
+            f"the plan's {bub['plan']:.1%}")
+        print(f"  {label:<12} {ms:8.2f} ms a round (rank 3, best of {WORK_REPS})"
+              + extra)
+    print(f"  {smi}: four processes share this one card through gloo and host "
+          "memory, so no number of phase 14 is a scaling result")
+    out = {"a": {"losses": losses, "seconds": a[0]["seconds"]},
+           "b": {"rank0": b0, "ranks": [{k: v for k, v in rb.items()
+                                         if k.endswith(("bitwise", "err"))}
+                                        for rb in b]},
+           "c": {"rank3": c3, "rank0_ms": c[0]["ms"]},
+           "card": smi, "seconds": time.perf_counter() - t0}
+    print(f"phase 14 (workloads): {out['seconds']:.1f} s")
+    return out
+
+
+def workloads_main():
+    """``python3 chip_smoke.py --workloads``: phase 14 alone (it launches no
+    kernel, so nothing is built); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.parallel import launch
+
+    out = workloads_phase(torch.device("cuda"), launch, smi)
+    print(smi)
+    print(json.dumps({"workloads": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4342,6 +4620,10 @@ def main():
     # -- elastic shrink-and-resume: no kernel, four gloo ranks -------------
     elastic = elastic_phase(dev, launch)
     print(json.dumps({"elastic": elastic}, default=str))
+
+    # -- the parallel workloads: MoE and the pipeline, no kernel -----------
+    workloads = workloads_phase(dev, launch, smi)
+    print(json.dumps({"workloads": workloads}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -4580,5 +4862,5 @@ if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
              "--ring": ring_main, "--dispatch": dispatch_main,
              "--runtime": runtime_main, "--health": health_main,
-             "--elastic": elastic_main}
+             "--elastic": elastic_main, "--workloads": workloads_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -43,7 +43,12 @@ capability probes); and elastic recovery (``resilience/elastic.py``:
 with MPX126, graceful drains with ``request_drain``,
 ``install_preemption_handler`` and MPX127, grow with
 ``elastic.join_and_run``, ``aot.compile_step``, the chaos drills of
-``resilience/drill.py``).  Nothing here imports JAX.
+``resilience/drill.py``); and the parallel workloads: the expert-parallel
+MoE layer (``moe``, ``parallel/moe.py``) and the pipeline schedule
+compiler (``pipeline``, ``PipelineProgram``: gpipe, 1f1b and interleaved,
+``parallel/pipeline.py``), with their example twins
+(``models/moe_training.py``, ``models/pipeline_parallel.py``).  Nothing
+here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -103,7 +108,9 @@ from .parallel.mesh import (  # noqa: F401
     resolve_device,
     set_default_mesh,
 )
+from .parallel import moe  # noqa: F401
 from .parallel.megastep import register_boundary_hook  # noqa: F401
+from .parallel.pipeline import PipelineProgram, pipeline  # noqa: F401
 from .parallel.rankspec import shift  # noqa: F401
 from .parallel.region import get_default_comm, run, spmd  # noqa: F401
 from .resilience import (  # noqa: F401
@@ -141,6 +148,7 @@ __all__ = [
     "P2PHandle",
     "PROD",
     "PinnedProgram",
+    "PipelineProgram",
     "ProcessGrid",
     "RankFailure",
     "ShardStore",
@@ -175,8 +183,10 @@ __all__ = [
     "init_distributed",
     "install_preemption_handler",
     "make_world_mesh",
+    "moe",
     "overlap",
     "p2p_wait",
+    "pipeline",
     "profile_ops",
     "recv",
     "recv_start",

@@ -5,10 +5,14 @@ The JAX package keeps the shallow-water state as stacked blocks
 long-context training example's parameters are a dict of arrays
 (``examples/long_context_training.py:init_params``), replicated on every
 rank; the data-parallel example's are a list of ``{"w", "b"}`` layers
-(``examples/data_parallel_training.py:init_mlp``).  Every function takes
-plain numpy arrays, dicts and lists, so nothing here
-imports JAX: ``np.asarray`` each JAX array and ``dataclasses.asdict`` the
-JAX config first.
+(``examples/data_parallel_training.py:init_mlp``).  The MoE example's
+parameters are a ``MoEParams`` of rank-stacked arrays (router, expert
+layer 1, expert layer 2; ``examples/moe_training.py:build_inputs``), and
+the pipeline example's stage weights a stack with the ranks on the
+leading axis (``examples/pipeline_parallel.py``).  Every function takes
+plain numpy arrays, dicts and lists (a JAX array converts through
+``np.asarray``, which these functions call), so nothing here imports
+JAX: ``dataclasses.asdict`` the JAX config first.
 """
 
 from __future__ import annotations
@@ -106,3 +110,53 @@ def mlp_params_from_jax(params, device=None) -> list:
         out.append({k: torch.from_numpy(np.array(a, np.float32)).to(device)
                     for k, a in (("w", w), ("b", b))})
     return out
+
+
+def moe_params_from_jax(params, device=None) -> list:
+    """Every rank's ``parallel.moe.MoEParams`` of f32 tensors on ``device``,
+    in rank order, from the JAX package's rank-stacked ``MoEParams``
+    (``w_gate`` ``(k, d, k)``, replicated; ``w_in`` ``(k, d, d_ff)`` and
+    ``w_out`` ``(k, d_ff, d)``, rank ``e``'s expert ``e``): the fields in
+    that order, as a named tuple or any sequence of three arrays.  Other
+    shapes raise ``ValueError``."""
+    from .parallel.moe import MoEParams
+
+    device = resolve_device(device)
+    if len(params) != len(MoEParams._fields):
+        raise ValueError(f"moe_params_from_jax: expected the fields "
+                         f"{MoEParams._fields}, got {len(params)} arrays")
+    w_gate, w_in, w_out = (np.asarray(a) for a in params)
+    if w_gate.ndim != 3 or w_in.ndim != 3 or w_out.ndim != 3:
+        raise ValueError("moe_params_from_jax: expected rank-stacked 3-D "
+                         f"arrays, got {w_gate.shape}, {w_in.shape}, {w_out.shape}")
+    k, d, d_ff = w_in.shape
+    if (w_gate.shape != (k, d, k) or w_out.shape != (k, d_ff, d)):
+        raise ValueError(
+            f"moe_params_from_jax: w_gate {w_gate.shape} and w_out "
+            f"{w_out.shape} do not fit w_in {w_in.shape} (want {(k, d, k)} "
+            f"and {(k, d_ff, d)}: one expert a rank)")
+    return [MoEParams(*(torch.from_numpy(np.array(a[r], np.float32)).to(device)
+                        for a in (w_gate, w_in, w_out)))
+            for r in range(k)]
+
+
+def stage_params_from_jax(stacked, device=None) -> list:
+    """Every rank's stage parameters as f32 tensors on ``device``, in rank
+    order, from the pipeline's rank-stacked weights: an array, or a dict or
+    list of arrays, each with the ranks on its leading axis (the flat
+    schedules' ``(S, ...)``, the interleaved schedule's ``(S, v, ...)``),
+    all of one rank count; otherwise ``ValueError``."""
+    from .utils.tree import tree_flatten
+
+    device = resolve_device(device)
+    leaves, unflatten = tree_flatten(stacked)
+    arrays = [np.asarray(a) for a in leaves]
+    counts = {a.shape[0] if a.ndim else None for a in arrays}
+    if len(counts) != 1 or None in counts:
+        raise ValueError("stage_params_from_jax: every leaf needs the same "
+                         f"leading rank axis, got shapes "
+                         f"{[a.shape for a in arrays]}")
+    (k,) = counts
+    return [unflatten([torch.from_numpy(np.array(a[r], np.float32)).to(device)
+                       for a in arrays])
+            for r in range(k)]

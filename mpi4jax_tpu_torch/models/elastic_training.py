@@ -65,7 +65,13 @@ The planned boundaries:
 - ``launch(sigterm=(rank, step))`` sends a real SIGTERM to that rank
   after its step: the rank prints a hold line after the step and waits
   (at most 30 s) until its handler has posted the drain, and the
-  launcher sends the signal when it reads that line.
+  launcher sends the signal when it reads that line (``sigterm=(rank,
+  step, seconds)``: that many seconds later).  The other ranks
+  wait after the same step (at most 30 s) until the leaver's drain notice
+  has landed, outside any collective: were they to wait in the next
+  step's first collective, the watchdog would time the launcher's
+  reaction, and a launcher that stalled a second (a loaded host, a busy
+  parent process) expired it on every peer.
 
 The launcher exits 0 iff a strict majority (or ``--expect-world`` ranks)
 completed the budget and every worker that exited 0 either completed or
@@ -260,6 +266,27 @@ def _hold_for_sigterm(step_fn, hold_step, limit=30.0):
     return wrapped
 
 
+def _await_peer_drain(step_fn, hold_step, limit=30.0):
+    """After step ``hold_step`` (epoch 0) wait, at most ``limit`` seconds,
+    until a peer's drain notice has landed (``elastic.peek_peer_drain``):
+    the peers of a rank held by :func:`_hold_for_sigterm`.  They wait here,
+    between the step's collectives, instead of in the next step's first
+    collective, where the watchdog would time the launcher's reaction to
+    the hold line."""
+    from ..resilience import elastic
+
+    def wrapped(state, step, comm):
+        state = step_fn(state, step, comm)
+        if int(step) == hold_step and comm.epoch == 0:
+            deadline = time.monotonic() + limit
+            while (elastic.peek_peer_drain() is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+        return state
+
+    return wrapped
+
+
 def _wait_for_join(step_fn, world, limit):
     """In the first step at a world smaller than ``world``, poll (a MAX
     ``allreduce`` every 20 ms, at most ``limit`` seconds) until rank 0's
@@ -387,6 +414,8 @@ def _wrapped_step(args, store, world):
         step_fn = _simulated(step_fn, args.fail_step, fail_rank)
     if args.hold_after >= 0:
         step_fn = _hold_for_sigterm(step_fn, args.hold_after)
+    if args.await_drain_after >= 0:
+        step_fn = _await_peer_drain(step_fn, args.await_drain_after)
     if args.wait_for_join > 0:
         step_fn = _wait_for_join(step_fn, world, args.wait_for_join)
     restored = []
@@ -532,7 +561,9 @@ def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
     ``joiners``: each replacement's ``{"exit", "stdout", "stderr",
     "result", "spawned_at"}``).  ``grid`` is ``"RxC"``; ``grow`` spawns a
     replacement (``--join``) for each worker that exits non-zero;
-    ``sigterm=(rank, step)`` sends that rank a SIGTERM after its step.  A
+    ``sigterm=(rank, step)`` sends that rank a SIGTERM after its step
+    (``(rank, step, seconds)``: that many seconds after its hold line, a
+    notice that comes late).  A
     rank still running once the expected completions are in is the
     drill's hung subject: it gets ``grace`` seconds, then is killed.
     ``fault_spec`` (``None``: the caller's ``MPI4JAX_TPU_FAULT_SPEC``) and
@@ -586,10 +617,13 @@ def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
                  "--fail-step", str(fail_step), "--fail-rank", str(fail_rank)]
         if grid:
             extra += ["--grid", grid]
-        if sigterm is not None and r == sigterm[0]:
-            extra += ["--hold-after", str(sigterm[1])]
+        if sigterm is not None:
+            extra += ["--hold-after" if r == sigterm[0] else
+                      "--await-drain-after", str(sigterm[1])]
         spawn(f"rank{r}", extra)
-    spawned_at, signalled = [], sigterm is None
+    spawned_at, signalled, held_at = [], sigterm is None, None
+    sigterm_delay = (float(sigterm[2]) if sigterm is not None and len(sigterm) > 2
+                     else 0.0)
 
     def completed(i):
         return (procs[i].poll() == 0 and f"{DONE_TAG} steps={steps}"
@@ -600,9 +634,12 @@ def launch(n: int, *, steps: int = 12, device=None, fault_spec=None,
     try:
         while time.monotonic() < deadline:
             if not signalled:
-                rank, step = sigterm
-                text = _read(os.path.join(workdir, f"rank{rank}.out"))
-                if f"{HOLD_TAG} step={step}" in text:
+                rank, step = sigterm[:2]
+                if held_at is None and f"{HOLD_TAG} step={step}" in _read(
+                        os.path.join(workdir, f"rank{rank}.out")):
+                    held_at = time.monotonic()
+                if (held_at is not None
+                        and time.monotonic() >= held_at + sigterm_delay):
                     os.kill(procs[rank].pid, signal.SIGTERM)
                     signalled = True
             subjects = [p for p in procs[:n]
@@ -731,6 +768,8 @@ def _parse_args(argv=None):
     p.add_argument("--spawned-at", type=float, default=0.0,
                    help=argparse.SUPPRESS)
     p.add_argument("--hold-after", type=int, default=-1, help=argparse.SUPPRESS)
+    p.add_argument("--await-drain-after", type=int, default=-1,
+                   help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 

@@ -155,6 +155,16 @@ def record_latency(key: str, seconds: float) -> None:
     health.feed_latency(key, seconds)
 
 
+def count_host_op(key: str, nbytes: int) -> None:
+    """Count one host-level phase into the per-op table: a bracket around
+    a whole phase of several ops (the pipeline's warmup, steady and
+    cooldown, ``parallel/pipeline.py``), not one collective.  A no-op when
+    telemetry is off, as ``meter``."""
+    if effective_mode() == "off":
+        return
+    _counters.count_op(key, nbytes)
+
+
 # ---------------------------------------------------------------------------
 # dispatch-point op records
 # ---------------------------------------------------------------------------

@@ -7,8 +7,11 @@ moves the JSON-encoded uint8 payloads; no side channel), keeps one
 snapshot per process, and renders one row per (op, comm, algorithm,
 dtype) with calls, bytes, min/p50/p99 latency and the straggler columns:
 the largest cross-rank arrival skew and the rank most often last to
-arrive (``merge.skew_table`` over the gathered events).  Every rank must
-call it, outside any region, as every collective.
+arrive (``merge.skew_table`` over the gathered events), then the meters
+summed over the processes and, where the pipeline's phases ran
+(``parallel/pipeline.py``), its section: the steady rounds, the stage
+and bubble-wait microseconds and the measured bubble fraction.  Every
+rank must call it, outside any region, as every collective.
 """
 
 from __future__ import annotations
@@ -149,6 +152,24 @@ def render(snaps: List[dict]) -> str:
         lines.append("meters:")
         for name in sorted(total_meters):
             lines.append(f"  {name:<40} {total_meters[name]:>10}")
+    # the pipeline's measured bubble (parallel/pipeline.py): host-bracket
+    # time of the steady phases ("stage") against the warmup and cooldown
+    # ("bubble_wait"), summed across processes as every meter is
+    pipe = {name[len("pipeline."):]: n for name, n in total_meters.items()
+            if name.startswith("pipeline.")}
+    if pipe:
+        lines.append("")
+        lines.append("pipeline:")
+        for label, key in (("steady rounds", "rounds"),
+                           ("stage time (us)", "stage_us"),
+                           ("bubble wait (us)", "bubble_wait_us")):
+            if key in pipe:
+                lines.append(f"  {label:<22} {pipe[key]:>10}")
+        stage_us = pipe.get("stage_us", 0)
+        bubble_us = pipe.get("bubble_wait_us", 0)
+        if stage_us + bubble_us > 0:
+            frac = bubble_us / float(stage_us + bubble_us)
+            lines.append(f"  {'bubble fraction':<22} {frac:>10.1%}")
     total_dropped = {}
     for snap in snaps:
         for src, n in snap.get("dropped", {}).items():

@@ -63,13 +63,27 @@ and the health plane's (``telemetry/health.py``):
 - ``MPI4JAX_TPU_HEALTH_PROM``: write the Prometheus text at every
   detector boundary (off by default).
 
+and the workloads' (``parallel/moe.py``, ``parallel/pipeline.py``):
+
+- ``MPI4JAX_TPU_MOE_CAPACITY_CHUNKS``: the capacity chunks of the MoE
+  layer's overlapped combine, 2 by default, at least 1 (1: the
+  synchronous layer);
+- ``MPI4JAX_TPU_PIPELINE_MICROBATCHES``: the microbatches
+  ``split_microbatches`` cuts a batch into without an explicit count, 0
+  (unset: no split) by default;
+- ``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``: the stage-chunks a rank of the
+  interleaved schedule owns without an explicit ``virtual``, 0 (unset)
+  by default.
+
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
 
 The JAX package resolves these as default < autotune table < environment.
 The port has no autotune table yet (``autotune/`` is not ported), so here
-it is default < environment, and ``auto`` compression resolves to ``bf16``,
-as the JAX package does when its table has no entry.  An unset or empty
+it is default < environment (the two pipeline knobs included: their
+``payload_bytes`` argument picks a tuned value only in the JAX package),
+and ``auto`` compression resolves to ``bf16``, as the JAX package does
+when its table has no entry.  An unset or empty
 variable takes the default; a value outside the choices, or an integer
 below its minimum, raises ``ValueError`` with the JAX package's message.
 
@@ -102,6 +116,9 @@ DEFAULT_DRAIN_GRACE_S = 5.0
 DEFAULT_FUSION_BUCKET_BYTES = 4 << 20
 DEFAULT_OVERLAP_CHUNKS = 2
 DEFAULT_FLIGHT_RING = 1024
+DEFAULT_MOE_CAPACITY_CHUNKS = 2
+DEFAULT_PIPELINE_MICROBATCHES = 0     # 0 = unset
+DEFAULT_PIPELINE_VIRTUAL_STAGES = 0   # 0 = unset
 
 # every variable that shapes what the port runs, and the JAX package's
 # storage-only and dispatch-only knobs (aot/invalidation.py exempts those
@@ -136,6 +153,9 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_FLIGHT_RING",
     "MPI4JAX_TPU_HEALTH_SUSPECTS",
     "MPI4JAX_TPU_HEALTH_PROM",
+    "MPI4JAX_TPU_MOE_CAPACITY_CHUNKS",
+    "MPI4JAX_TPU_PIPELINE_MICROBATCHES",
+    "MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
 )
 
 _config_epoch = 0
@@ -482,3 +502,32 @@ def health_prom_enabled() -> bool:
     """Whether detector boundaries also write the Prometheus text under the
     telemetry directory (``MPI4JAX_TPU_HEALTH_PROM``; off by default)."""
     return parse_env_bool("MPI4JAX_TPU_HEALTH_PROM", False)
+
+
+# ---------------------------------------------------------------------------
+# the workloads' knobs
+# ---------------------------------------------------------------------------
+
+
+def moe_capacity_chunks() -> int:
+    """The capacity chunks of the MoE layer's combine pipeline
+    (``MPI4JAX_TPU_MOE_CAPACITY_CHUNKS``; 2 by default, at least 1)."""
+    return _int("MPI4JAX_TPU_MOE_CAPACITY_CHUNKS", DEFAULT_MOE_CAPACITY_CHUNKS,
+                minimum=1)
+
+
+def pipeline_microbatches(payload_bytes: Optional[int] = None) -> int:
+    """The microbatch count of the pipeline schedule compiler
+    (``MPI4JAX_TPU_PIPELINE_MICROBATCHES``; 0, unset, by default).  The
+    variable and its default only: ``payload_bytes`` is the JAX package's
+    argument, which only its tuning layer reads."""
+    return _int("MPI4JAX_TPU_PIPELINE_MICROBATCHES",
+                DEFAULT_PIPELINE_MICROBATCHES)
+
+
+def pipeline_virtual_stages(payload_bytes: Optional[int] = None) -> int:
+    """The stage-chunks a rank of the interleaved schedule owns
+    (``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``; 0, unset, by default); as
+    ``pipeline_microbatches``, no tuning layer."""
+    return _int("MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
+                DEFAULT_PIPELINE_VIRTUAL_STAGES)

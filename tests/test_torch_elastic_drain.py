@@ -8,7 +8,8 @@ each against a clean run of the world it ends in, bit for bit:
   ranks 0-2 finish at world 3, epoch 1, cause ``drain``; rank 3 exits 0
   drained; one ``drain`` incident a process, no watchdog expiry, no
   restore; the survivors from the forced commit on are a clean 3-rank
-  run from it;
+  run from it; and the same drain with the signal 4 s late (a launcher
+  slower than the watchdog and the process group's timeout);
 - (f) ``preempt:rank=3`` on a (2,2) grid under
   ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT=row``: ranks 2 and 3 drain, ranks 0 and
   1 finish on (1,2), a clean (1,2) run from the forced commit;
@@ -47,6 +48,7 @@ REPO = Path(__file__).resolve().parents[1]
 STEPS = 12
 GROW_STEPS = 16
 DRILL_LIMIT_S = 60.0
+LATE_NOTICE_S = 4.0  # the SIGTERM's lag behind the hold line, late drill
 LOSS_RTOL = 1e-5  # the port's f32 SUM band for losses (test_torch_elastic)
 COUNTERS = {"MPI4JAX_TPU_TELEMETRY": "counters"}
 ROW = {"MPI4JAX_TPU_ELASTIC_FAIL_UNIT": "row"}
@@ -146,6 +148,38 @@ def test_sigterm_drain_is_a_clean_3_rank_run_from_the_forced_commit(sigterm_dril
     res = sigterm_drill["res"]
     assert sigterm_drill["start"] == 7
     _assert_clean(res, sigterm_drill["clean"], [0, 1, 2], 1)
+
+
+@pytest.fixture(scope="module")
+def late_sigterm_drill(tmp_path_factory):
+    def compute():
+        d = tmp_path_factory.mktemp("elastic-late-sigterm")
+        return ET.launch(4, steps=STEPS, device="cpu", fault_spec="",
+                         sigterm=(3, 5, LATE_NOTICE_S), watchdog=1.0,
+                         commit_every="4", env=COUNTERS, expect_world=3,
+                         limit=DRILL_LIMIT_S, workdir=str(d / "run"))
+
+    return R0.shared_result(tmp_path_factory, "elastic-late-sigterm", compute)
+
+
+def test_a_late_sigterm_still_drains_without_an_expiry(late_sigterm_drill):
+    """The SIGTERM LATE_NOTICE_S after rank 3's hold line (longer than the
+    watchdog's 1 s and the process group's 3 s): the peers wait outside
+    any collective for the notice, so the drain is the prompt one's."""
+    res = late_sigterm_drill
+    assert res["ok"], res["stderr"]
+    assert res["exit"] == [0, 0, 0, 0]
+    assert res["completed"] == [0, 1, 2] and res["drained"] == [3]
+    for r in range(4):
+        out = res["results"][r]
+        assert "watchdog.expiries" not in out["meters"]
+        assert out["recoveries"] == []
+        execute = out["drains"][-1]
+        assert execute["step"] == 7 and execute["forced"] and execute["leaver"] == 3
+    for r in range(3):
+        out = res["results"][r]
+        assert out["final_world"] == 3 and out["epoch"] == 1
+        assert out["losses"][-1]["step"] == STEPS - 1
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
 ``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``,
-``tests/torch_ranks_dispatch.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_dispatch.py`` and the later ones, to
+``tests/torch_ranks_workloads.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -23,7 +24,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_dispatch.py",
           REPO / "tests" / "torch_ranks_runtime.py",
           REPO / "tests" / "torch_ranks_health.py",
-          REPO / "tests" / "torch_ranks_elastic.py"]
+          REPO / "tests" / "torch_ranks_elastic.py",
+          REPO / "tests" / "torch_ranks_workloads.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -84,7 +86,11 @@ def test_port_is_packaged():
                                     "mpi4jax_tpu_torch.resilience.drill",
                                     "mpi4jax_tpu_torch.models.elastic_training",
                                     "mpi4jax_tpu_torch.models.runtime_drill",
-                                    "mpi4jax_tpu_torch.utils.debug"])
+                                    "mpi4jax_tpu_torch.utils.debug",
+                                    "mpi4jax_tpu_torch.parallel.moe",
+                                    "mpi4jax_tpu_torch.parallel.pipeline",
+                                    "mpi4jax_tpu_torch.models.moe_training",
+                                    "mpi4jax_tpu_torch.models.pipeline_parallel"])
 def test_dispatch_layer_loads_no_jax(module):
     """The dispatch layer's modules, imported in a fresh interpreter, load
     neither JAX nor the JAX package."""

@@ -42,7 +42,9 @@ default grid and comm dropped (the claimed watchdog handler goes with
 ``set_on_timeout(None)``).
 
 Import it into a test module (``from torch_port_isolation import
-isolated_reference_state  # noqa: F401``); it is autouse.
+isolated_reference_state  # noqa: F401``); it is autouse.  Where the JAX
+package cannot be imported (the card's machine, which runs only the
+``gpu`` tests) it resets the port's services alone.
 """
 
 import contextlib
@@ -91,12 +93,17 @@ def reset_port_services() -> None:
 
 @pytest.fixture(autouse=True)
 def isolated_reference_state(monkeypatch):
-    from mpi4jax_tpu.analysis import hook
-    from mpi4jax_tpu.resilience import watchdog  # noqa: F401 - loads the copy
-
     monkeypatch.delenv("MPI4JAX_TPU_ANALYZE", raising=False)
     monkeypatch.delenv("MPI4JAX_TPU_WATCHDOG_TIMEOUT", raising=False)
-    hook.set_analyze_mode(None)
+    try:
+        from mpi4jax_tpu.analysis import hook
+        from mpi4jax_tpu.resilience import watchdog  # noqa: F401 - loads the copy
+    except ImportError:
+        # no JAX (the card's machine, where only the gpu tests run): no
+        # JAX-package state to isolate from
+        hook = None
+    if hook is not None:
+        hook.set_analyze_mode(None)
     with contextlib.ExitStack() as stack:
         for copy in watchdog_copies():
             copy.drain_registry()
