@@ -218,6 +218,30 @@ read just after:
    no number of this phase is a scaling result.  One JSON line
    ``{"workloads": ...}``.
 
+15. the serving runtime (``serving_phase``; no kernel of the table: the
+   decoder's products are cuBLAS calls): (a) the serve twin
+   (``models/serving.py``) at its ``bench`` preset (d 1536, 24 heads of
+   64, ffn 6144, max_len 160: 113.6 MB of f32 parameters, a 33.4 MB KV
+   pool) on this card, its default trace (24 requests at 50/s, seed 7,
+   long_frac 0.25, unroll 4, buckets 1, 2, 4, 8), one untimed pass that
+   captures every program, then ``continuous`` and ``static`` on the wall
+   clock: tokens/s/chip, p50, p99, TTFT p99 and the speedup, every
+   request completed with its whole budget, every program a CUDA graph,
+   and each bucket's decode megastep and prefill timed by CUDA events;
+   (b) each request's greedy stream (virtual clock) under continuous
+   unroll 4, static unroll 4 and continuous unroll 1 on the card and
+   continuous unroll 4 on the CPU in this process, all equal, or each
+   difference traced to its first token and the top-2 logit gap there (a
+   gap inside the f32 band is recorded as a tie, one outside raises);
+   (c) the drain drill on four gloo ranks, rank 3 preempted from boundary
+   4 with sequences in flight, beside a clean four-rank run, the two
+   launches side by side: every worker exits 0, one drains, the
+   survivors finish at world 3 with every request and none failed, each
+   survivor's ms from the notice to its first megastep at world 3 and its
+   replay prefill, its streams against the clean run's (those finished
+   before the drain bit for bit).  Four processes share one card: no
+   number of (c) is a scaling result.  One JSON line ``{"serving": ...}``.
+
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
 
@@ -255,8 +279,9 @@ build the stencil sources and the host library and run phase 11 or phase
 
     python3 chip_smoke.py --elastic
     python3 chip_smoke.py --workloads
+    python3 chip_smoke.py --serving
 
-run phase 13 or phase 14 alone (nothing to build), one JSON line each.
+run phase 13, 14 or 15 alone (nothing to build), one JSON line each.
 """
 
 import hashlib
@@ -4439,6 +4464,275 @@ def workloads_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving runtime.  The twin's bench preset (d 1536, heads 24
+# of 64, ffn 6144, max_len 160) on this card under both schedulers, the
+# token streams under three schedules and on the CPU, and the drain drill on
+# four gloo ranks; no kernel of the table runs (the decoder's products and
+# attention are cuBLAS calls and PyTorch ops, as the JAX package's are XLA
+# dots and einsums outside any Pallas kernel).
+# ---------------------------------------------------------------------------
+
+SERVE_REPS, SERVE_WARMUP = 20, 3
+# a greedy token whose top-2 logit gap is inside this f32 band of the
+# logits' magnitude is a tie that the last bit of a sum decides
+TIE_RTOL, TIE_ATOL = 1e-5, 1e-6
+
+
+def _one_rank_comm(device):
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+
+    mesh = make_world_mesh(device=device)
+    return Comm(mesh.axes[0], mesh=mesh)
+
+
+def serving_program_ms(engine):
+    """(a)'s per-bucket times from CUDA events: one decode megastep (its
+    graph replayed on its own donated carry, the lengths growing by the
+    unroll a call) and one prefill (with the pin's copies in and out), each
+    on every lane of the bucket live; and the decode megastep's floor, its
+    parameter bytes read once a token step."""
+    cfg = engine.cfg
+    dev = engine.device
+    param_bytes = sum(t.numel() * t.element_size() for t in engine._state[:5])
+    out = {}
+    for b in engine.table.buckets:
+        lane = torch.arange(b, dtype=torch.int32, device=dev)
+        dec = engine._state + (torch.ones(b, dtype=torch.int32, device=dev),
+                               torch.full((b,), cfg.max_prompt, dtype=torch.int32,
+                                          device=dev), lane)
+        prog = engine._program("decode", b, dec)
+        carry = [prog(*dec)]
+
+        def step():
+            carry[0] = prog(*carry[0])
+
+        dec_ms = time_ms(step, SERVE_REPS, SERVE_WARMUP)
+        prompts = torch.randint(1, cfg.vocab, (b, cfg.max_prompt), dtype=torch.int32,
+                                device=dev)
+        pre = engine._state + (prompts, torch.full((b,), cfg.max_prompt,
+                                                   dtype=torch.int32, device=dev),
+                               lane)
+        pprog = engine._program("prefill", b, pre)
+        pre_ms = time_ms(lambda: pprog(*pre), SERVE_REPS, SERVE_WARMUP)
+        out[b] = {"decode_megastep_ms": dec_ms, "prefill_ms": pre_ms,
+                  "decode_graph": prog.graph, "prefill_graph": pprog.graph,
+                  "decode_bytes_copied": prog.bytes_copied,
+                  "decode_floor_ms": bound_ms(cfg.unroll * param_bytes, 0)[0]}
+    return out
+
+
+def serving_one_gpu(dev, smi):
+    """(a): the bench preset under continuous and then static on one GPU
+    (wall clock), after one untimed pass that captures the programs."""
+    from mpi4jax_tpu_torch.models import serving as MS
+
+    cfg = MS.make_config("bench")
+    trace, meta = MS.make_trace(cfg)
+    comm = _one_rank_comm(dev)
+    t0 = time.perf_counter()
+    payload, engine, runs = MS.benchmark(cfg, trace, meta, comm)
+    budgets = {r.rid: r.max_new_tokens for r in trace}
+    for sched, run in runs.items():
+        res = run["result"]
+        if (res["failed"] or res["completed"] != len(trace)
+                or {rid: len(s) for rid, s in run["streams"].items()} != budgets):
+            raise AssertionError(f"phase 15 (a) {sched}: {res}")
+    if not all(payload["graphs"].values()):
+        raise AssertionError(f"phase 15 (a): a program is not a CUDA graph: "
+                             f"{payload['graphs']}")
+    programs = sorted(payload["graphs"])
+    ms = serving_program_ms(engine)
+    params_mb = sum(t.numel() * 4 for t in engine._state[:5]) / 1e6
+    kv_mb = sum(t.numel() * 4 for t in engine._state[5:7]) / 1e6
+    print(f"phase 15 (a) serving, bench preset (d {cfg.dim}, {cfg.heads} heads of "
+          f"{cfg.head_dim}, ffn {cfg.ffn}, max_len {cfg.max_len}; {params_mb:.1f} MB "
+          f"of f32 parameters, a {kv_mb:.1f} MB KV pool of {cfg.slots() + 1} rows), "
+          f"{len(trace)} requests at {meta['rate_rps']}/s (seed {meta['seed']}, "
+          f"long_frac {meta['long_frac']}, {meta['tokens_budgeted']} tokens), "
+          f"unroll {cfg.unroll}, buckets {list(engine.table.buckets)}, one GPU, "
+          f"wall clock ({smi}):")
+    w = payload["warmup"]
+    print(f"  warm-up pass (captures every program): wall {w['wall_s']:.3f} s")
+    for sched, run in runs.items():
+        r = run["result"]
+        print(f"  {sched:>10}: {r['tokens_per_s_per_chip']} tokens/s/chip, p50 "
+              f"{r['p50_ms']} ms, p99 {r['p99_ms']} ms, TTFT p99 {r['ttft_p99_ms']} "
+              f"ms, wall {r['wall_s']} s, {r['boundaries']} boundaries, "
+              f"{r['completed']} completed, {r['failed']} failed")
+    print(f"  continuous over static: {payload.get('speedup_tokens_per_s')}x "
+          f"tokens/s; programs pinned (each a CUDA graph): {', '.join(programs)}")
+    for b, m in ms.items():
+        print(f"  bucket {b}: decode megastep ({cfg.unroll} tokens) "
+              f"{m['decode_megastep_ms']:.4f} ms (floor {m['decode_floor_ms']:.4f} "
+              f"ms: the parameters read once a token), prefill "
+              f"{m['prefill_ms']:.4f} ms with the pin's copies")
+    return {"config": cfg.workload_meta(1), "trace": meta, "payload": payload,
+            "programs": programs, "program_ms": ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def serving_invariance(dev):
+    """(b): each request's greedy stream under continuous unroll 4, static
+    unroll 4, continuous unroll 1 on the card and continuous unroll 4 on the
+    CPU (virtual clock).  A stream that differs is traced to its first
+    differing token, where the top-2 logit gap says whether it is a tie the
+    last bit decides (recorded) or a fault (raised)."""
+    from mpi4jax_tpu_torch.models import serving as MS
+
+    t0 = time.perf_counter()
+    cuda, cpu = _one_rank_comm(dev), _one_rank_comm("cpu")
+    trace, _ = MS.make_trace(MS.make_config("bench"))
+    runs = {}
+    for label, sched, unroll, comm in (("continuous,u4", "continuous", 4, cuda),
+                                       ("static,u4", "static", 4, cuda),
+                                       ("continuous,u1", "continuous", 1, cuda),
+                                       ("cpu,continuous,u4", "continuous", 4, cpu)):
+        cfg = MS.make_config("bench", unroll=unroll, virtual_clock=True)
+        res, streams = MS.serve_streams(cfg, trace, comm, sched)
+        if res["failed"] or res["completed"] != len(trace):
+            raise AssertionError(f"phase 15 (b) {label}: {res}")
+        runs[label] = streams
+    base = runs["continuous,u4"]
+    cfg = MS.make_config("bench", virtual_clock=True)
+    prompts = {r.rid: r.prompt for r in trace}
+    out = {"equal": {}, "ties": []}
+    for label, streams in runs.items():
+        if label == "continuous,u4":
+            continue
+        diffs = MS.first_differences(base, streams)
+        out["equal"][label] = len(trace) - len(diffs)
+        for rid, i in diffs.items():
+            history = tuple(prompts[rid]) + tuple(base[rid][:i])
+            tie = {"run": label, "rid": rid, "index": i,
+                   "tokens": (base[rid][i] if i < len(base[rid]) else None,
+                              streams[rid][i] if i < len(streams[rid]) else None),
+                   "gpu": MS.top2_gap(cfg, history, cuda),
+                   "cpu": MS.top2_gap(cfg, history, cpu)}
+            g = tie["gpu"]
+            tie["in_band"] = g["gap"] <= TIE_RTOL * g["max_abs"] + TIE_ATOL
+            out["ties"].append(tie)
+            print(f"  (b) {label} request {rid}: first differing token {i} "
+                  f"{tie['tokens']}, top-2 logit gap {g['gap']:.3e} of |logit| "
+                  f"{g['max_abs']:.3e} on the card, {tie['cpu']['gap']:.3e} on the "
+                  f"CPU: {'a tie of the last bit' if tie['in_band'] else 'A FAULT'}")
+    print("phase 15 (b) token streams of the bench preset (virtual clock) against "
+          "continuous unroll 4 on the card: " + ", ".join(
+              f"{label} {n}/{len(trace)} equal" for label, n in out["equal"].items()))
+    faults = [t for t in out["ties"] if not t["in_band"]]
+    if faults:
+        raise AssertionError(f"phase 15 (b): streams differ outside the f32 band: "
+                             f"{faults}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def serving_drill(smi, device="cuda:0"):
+    """(c): the drain drill 4 -> 3 at the bench preset on four gloo ranks on
+    this card (rank 3 drained from boundary 4), beside a clean four-rank
+    run of the same trace, the two launches side by side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi4jax_tpu_torch.models import serving as MS
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        fut = {name: pool.submit(MS.launch, 4, model="bench", drain_rank=rank,
+                                 drain_boundary=4, device=device, limit=240)
+               for name, rank in (("drill", 3), ("clean", MS.NO_DRAIN))}
+        drill, clean = fut["drill"].result(), fut["clean"].result()
+    for name, res in (("drill", drill), ("clean", clean)):
+        if not res["ok"]:
+            raise AssertionError(f"phase 15 (c) {name}: exits {res['exit']}, "
+                                 f"stderr {[e[-2000:] for e in res['stderr']]}")
+    if drill["drained"] != [3] or drill["completed"] != [0, 1, 2]:
+        raise AssertionError(f"phase 15 (c): drained {drill['drained']}, "
+                             f"completed {drill['completed']}")
+    ref = clean["results"][0]["streams"]
+    if any(r["streams"] != ref for r in clean["results"]):
+        raise AssertionError("phase 15 (c): the clean ranks disagree")
+    survivors = []
+    for r in (0, 1, 2):
+        rec = drill["results"][r]
+        res = rec["result"]
+        if (res["world"] != 3 or res["failed"] or res["completed"] != 24
+                or res["preempt_readmissions"] <= 0):
+            raise AssertionError(f"phase 15 (c) rank {r}: {res}")
+        [change] = rec["world_changes"]
+        [drain] = [d for d in rec["drains"] if not d.get("notice")]
+        notice = drain["notice_at"]
+        before = (change["boundary"] - 1) * rec["tick_s"] + 1e-9
+        early = [rid for rid, f in rec["finish_s"].items() if f <= before]
+        if any(rec["streams"][rid] != ref[rid] for rid in early):
+            raise AssertionError(f"phase 15 (c) rank {r}: a stream finished "
+                                 "before the drain differs from the clean run's")
+        survivors.append({
+            "rank": r, "world_change": change, "drain": drain,
+            "notice_to_first_megastep_ms": (
+                (rec["first_at_new_world"]["at"] - notice) * 1e3
+                if notice is not None else None),
+            "replay_prefill_ms": change["replay_s"] * 1e3,
+            "rebuild_ms": change["rebuild_s"] * 1e3,
+            "finished_before_drain": len(early),
+            "streams_equal_clean": sum(rec["streams"][rid] == ref[rid] for rid in ref),
+            "readmissions": res["preempt_readmissions"], "wall": rec["wall"]})
+    s0 = survivors[0]
+    print(f"phase 15 (c) drain drill, bench preset, four gloo ranks on this card "
+          f"4 -> 3 (rank 3 drained at boundary {drill['results'][3]['posted'][0]['boundary']}"
+          f", the world changed at boundary {s0['world_change']['boundary']}): every "
+          f"worker exit 0, survivors at world 3 with 24/24 completed, 0 failed, "
+          f"{s0['readmissions']} re-admitted; launches {drill['seconds']:.1f} s "
+          f"(drill) and {clean['seconds']:.1f} s (clean), side by side")
+    for s in survivors:
+        ms = s["notice_to_first_megastep_ms"]
+        print(f"  rank {s['rank']}: notice to the first megastep at world 3 "
+              f"{'-' if ms is None else f'{ms:.1f}'} ms (rebuild "
+              f"{s['rebuild_ms']:.1f} ms, replay prefill {s['replay_prefill_ms']:.1f} ms"
+              f" of {s['world_change']['readmitted']} sequences); "
+              f"{s['streams_equal_clean']}/24 streams equal the clean run's, the "
+              f"{s['finished_before_drain']} finished before the drain bit for bit")
+    print(f"  {smi}: four processes share this one card through gloo and host "
+          "memory, so no number of (c) is a scaling result")
+    return {"survivors": survivors, "drill_seconds": drill["seconds"],
+            "clean_seconds": clean["seconds"],
+            "leaver": {k: drill["results"][3][k] for k in ("posted", "result")},
+            "seconds": time.perf_counter() - t0}
+
+
+def serving_phase(dev, smi):
+    """Phase 15 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    t0 = time.perf_counter()
+    a = serving_one_gpu(dev, smi)
+    torch.cuda.empty_cache()
+    b = serving_invariance(dev)
+    torch.cuda.empty_cache()
+    c = serving_drill(smi)
+    out = {"a": a, "b": b, "c": c, "card": smi,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 15 (serving): {out['seconds']:.1f} s; (a) {a['seconds']:.1f}, "
+          f"(b) {b['seconds']:.1f}, (c) {c['seconds']:.1f}")
+    return out
+
+
+def serving_main():
+    """``python3 chip_smoke.py --serving``: phase 15 alone (it launches no
+    kernel, so nothing is built); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = serving_phase(torch.device("cuda"), smi)
+    print(smi)
+    print(json.dumps({"serving": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4624,6 +4918,10 @@ def main():
     # -- the parallel workloads: MoE and the pipeline, no kernel -----------
     workloads = workloads_phase(dev, launch, smi)
     print(json.dumps({"workloads": workloads}, default=str))
+
+    # -- the serving runtime: one GPU, streams, the drain drill; no kernel --
+    serving = serving_phase(dev, smi)
+    print(json.dumps({"serving": serving}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -4862,5 +5160,6 @@ if __name__ == "__main__":
     modes = {"--bwd-digest": bwd_digest_main, "--stencils": stencils_main,
              "--ring": ring_main, "--dispatch": dispatch_main,
              "--runtime": runtime_main, "--health": health_main,
-             "--elastic": elastic_main, "--workloads": workloads_main}
+             "--elastic": elastic_main, "--workloads": workloads_main,
+             "--serving": serving_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -47,8 +47,11 @@ with MPX126, graceful drains with ``request_drain``,
 MoE layer (``moe``, ``parallel/moe.py``) and the pipeline schedule
 compiler (``pipeline``, ``PipelineProgram``: gpipe, 1f1b and interleaved,
 ``parallel/pipeline.py``), with their example twins
-(``models/moe_training.py``, ``models/pipeline_parallel.py``).  Nothing
-here imports JAX.
+(``models/moe_training.py``, ``models/pipeline_parallel.py``); and the
+serving runtime (``serving``: buckets, the KV slot pool, the continuous
+and static schedulers, the tensor-parallel decoder, the engine with its
+pinned decode megastep and drain re-admission), with its twin
+(``models/serving.py``).  Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -81,7 +84,7 @@ from .ops import (  # noqa: F401
     send,
     sendrecv,
 )
-from . import aot, compress, resilience, telemetry  # noqa: F401
+from . import aot, compress, resilience, serving, telemetry  # noqa: F401
 from .aot import PinnedProgram, StaleProgramError, compile  # noqa: F401
 from .ops._async import (  # noqa: F401
     AsyncHandle,
@@ -204,6 +207,7 @@ __all__ = [
     "send",
     "send_start",
     "sendrecv",
+    "serving",
     "set_check_numerics",
     "set_default_mesh",
     "set_fault_spec",

@@ -9,7 +9,10 @@ rank; the data-parallel example's are a list of ``{"w", "b"}`` layers
 parameters are a ``MoEParams`` of rank-stacked arrays (router, expert
 layer 1, expert layer 2; ``examples/moe_training.py:build_inputs``), and
 the pipeline example's stage weights a stack with the ranks on the
-leading axis (``examples/pipeline_parallel.py``).  Every function takes
+leading axis (``examples/pipeline_parallel.py``).  The serving engine's
+state is eight global arrays with the ranks on the leading axis (its
+``_state``: the five parameter shards of ``serving/model.py:shard_params``,
+the KV pair and the token table).  Every function takes
 plain numpy arrays, dicts and lists (a JAX array converts through
 ``np.asarray``, which these functions call), so nothing here imports
 JAX: ``dataclasses.asdict`` the JAX config first.
@@ -160,3 +163,29 @@ def stage_params_from_jax(stacked, device=None) -> list:
     return [unflatten([torch.from_numpy(np.array(a[r], np.float32)).to(device)
                        for a in arrays])
             for r in range(k)]
+
+
+def serving_state_from_jax(global_arrays, rank: int, device=None) -> tuple:
+    """Rank ``rank``'s serving tensors on ``device`` from the JAX serving
+    engine's global arrays: the eight of its ``_state`` (``emb``,
+    ``wqkv``, ``wo``, ``w1``, ``w2`` f32, ``kk``, ``vv`` f32, ``tok_table``
+    int32), or the five parameter arrays of its
+    ``model.shard_params(master, k)``; each with the same leading rank
+    axis.  Other counts, or leading axes that differ, raise
+    ``ValueError``."""
+    device = resolve_device(device)
+    arrays = [np.asarray(a) for a in global_arrays]
+    if len(arrays) not in (5, 8):
+        raise ValueError("serving_state_from_jax: expected the 5 parameter "
+                         f"arrays or the 8 state arrays, got {len(arrays)}")
+    counts = {a.shape[0] if a.ndim else None for a in arrays}
+    if len(counts) != 1 or None in counts:
+        raise ValueError("serving_state_from_jax: every array needs the same "
+                         "leading rank axis, got shapes "
+                         f"{[a.shape for a in arrays]}")
+    (k,) = counts
+    if not 0 <= rank < k:
+        raise ValueError(f"rank {rank} out of range for {k} ranks")
+    dtypes = [np.float32] * 7 + [np.int32]
+    return tuple(torch.from_numpy(np.array(a[rank], dt)).to(device)
+                 for a, dt in zip(arrays, dtypes))

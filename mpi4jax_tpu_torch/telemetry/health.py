@@ -47,10 +47,13 @@ agreed verdict (``on_rank_failed``); under
 ``MPI4JAX_TPU_HEALTH_SUSPECTS`` a persistent straggler is posted as a
 ``RankFailure`` (``_post_suspects``) and raised from ``on_boundary``, and
 a bundle carries the epoch history (``epochs``) once an epoch advanced.
-The serving gauges (``_serving_gauges``) wait for a ``serving.metrics``
-the port does not have yet, and do nothing until then, as the JAX
-package's do without it; a bundle has no ``tuning`` (no autotune
-layer).
+The serving gauges (``_serving_gauges``) read a live serving engine
+(``serving/engine.py``) at each boundary it publishes: the KV slots in
+use and their share, the p99 request latency and its headroom under the
+objective.  A request's arrival is ``Sequence.request.arrival_s``; the
+JAX package's gauge reads ``arrival_s`` off the sequence, which has
+none, so its p99 and headroom gauges are never set (ROADMAP Queue 3).  A
+bundle has no ``tuning`` (no autotune layer).
 
 With ``MPI4JAX_TPU_HEALTH`` unset or ``off`` every entry point returns
 before touching state: the snapshot has no ``dropped`` key, and no
@@ -530,7 +533,7 @@ def _serving_gauges(engine) -> None:
         cfg = getattr(engine, "cfg", None)
         if sched is not None and cfg is not None:
             lat = sorted(
-                s.finish_s - s.arrival_s
+                s.finish_s - s.request.arrival_s
                 for s in (getattr(sched, "finished", None) or ())
                 if getattr(s, "finish_s", None) is not None
             )

@@ -8,9 +8,12 @@ snapshot per process, and renders one row per (op, comm, algorithm,
 dtype) with calls, bytes, min/p50/p99 latency and the straggler columns:
 the largest cross-rank arrival skew and the rank most often last to
 arrive (``merge.skew_table`` over the gathered events), then the meters
-summed over the processes and, where the pipeline's phases ran
-(``parallel/pipeline.py``), its section: the steady rounds, the stage
-and bubble-wait microseconds and the measured bubble fraction.  Every
+summed over the processes and, where the serving engine ran
+(``serving/engine.py``), its section: admissions, completions, failures,
+tokens, prefills, decode megasteps and drain re-admissions; where the
+pipeline's phases ran (``parallel/pipeline.py``), its section: the
+steady rounds, the stage and bubble-wait microseconds and the measured
+bubble fraction.  Every
 rank must call it, outside any region, as every collective.
 """
 
@@ -152,6 +155,23 @@ def render(snaps: List[dict]) -> str:
         lines.append("meters:")
         for name in sorted(total_meters):
             lines.append(f"  {name:<40} {total_meters[name]:>10}")
+    # the serving engine's request-level story (serving/engine.py), which
+    # its per-phase op rows (serving.prefill, serving.decode) do not carry,
+    # summed across processes as every meter is
+    srv = {name[len("serving."):]: n for name, n in total_meters.items()
+           if name.startswith("serving.")}
+    if srv:
+        lines.append("")
+        lines.append("serving:")
+        for label, key in (("requests admitted", "requests_admitted"),
+                           ("requests completed", "requests_completed"),
+                           ("requests failed", "requests_failed"),
+                           ("tokens generated", "tokens_generated"),
+                           ("prefill dispatches", "prefills"),
+                           ("decode megasteps", "megasteps"),
+                           ("drain re-admissions", "readmissions")):
+            if key in srv:
+                lines.append(f"  {label:<22} {srv[key]:>10}")
     # the pipeline's measured bubble (parallel/pipeline.py): host-bracket
     # time of the steady phases ("stage") against the warmup and cooldown
     # ("bubble_wait"), summed across processes as every meter is

@@ -73,7 +73,21 @@ and the workloads' (``parallel/moe.py``, ``parallel/pipeline.py``):
   (unset: no split) by default;
 - ``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``: the stage-chunks a rank of the
   interleaved schedule owns without an explicit ``virtual``, 0 (unset)
-  by default.
+  by default;
+
+and the serving runtime's (``serving/``):
+
+- ``MPI4JAX_TPU_SERVING_MAX_BATCH``: the decode batch cap (the largest
+  bucket), 8 by default, at least 1;
+- ``MPI4JAX_TPU_SERVING_BUCKETS``: an explicit bucket table
+  (comma-separated ascending batch sizes; empty, the default: powers of
+  two up to the cap);
+- ``MPI4JAX_TPU_SERVING_KV_SLOTS``: the KV slot budget, 0 (twice the
+  cap) by default;
+- ``MPI4JAX_TPU_SERVING_UNROLL``: the decode megastep's trip count, 4 by
+  default, at least 1;
+- ``MPI4JAX_TPU_SERVING_SLO_P99_MS``: the p99 latency objective in
+  milliseconds, 1000 by default, positive.
 
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
@@ -119,6 +133,9 @@ DEFAULT_FLIGHT_RING = 1024
 DEFAULT_MOE_CAPACITY_CHUNKS = 2
 DEFAULT_PIPELINE_MICROBATCHES = 0     # 0 = unset
 DEFAULT_PIPELINE_VIRTUAL_STAGES = 0   # 0 = unset
+DEFAULT_SERVING_MAX_BATCH = 8
+DEFAULT_SERVING_UNROLL = 4
+DEFAULT_SERVING_SLO_P99_MS = 1000.0
 
 # every variable that shapes what the port runs, and the JAX package's
 # storage-only and dispatch-only knobs (aot/invalidation.py exempts those
@@ -156,6 +173,11 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_MOE_CAPACITY_CHUNKS",
     "MPI4JAX_TPU_PIPELINE_MICROBATCHES",
     "MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
+    "MPI4JAX_TPU_SERVING_MAX_BATCH",
+    "MPI4JAX_TPU_SERVING_BUCKETS",
+    "MPI4JAX_TPU_SERVING_KV_SLOTS",
+    "MPI4JAX_TPU_SERVING_UNROLL",
+    "MPI4JAX_TPU_SERVING_SLO_P99_MS",
 )
 
 _config_epoch = 0
@@ -531,3 +553,49 @@ def pipeline_virtual_stages(payload_bytes: Optional[int] = None) -> int:
     ``pipeline_microbatches``, no tuning layer."""
     return _int("MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
                 DEFAULT_PIPELINE_VIRTUAL_STAGES)
+
+
+# ---------------------------------------------------------------------------
+# the serving runtime's knobs
+# ---------------------------------------------------------------------------
+
+
+def serving_max_batch() -> int:
+    """The decode batch cap of the serving runtime
+    (``MPI4JAX_TPU_SERVING_MAX_BATCH``; 8 by default, at least 1)."""
+    return _int("MPI4JAX_TPU_SERVING_MAX_BATCH", DEFAULT_SERVING_MAX_BATCH,
+                minimum=1)
+
+
+def serving_buckets() -> str:
+    """The raw ``MPI4JAX_TPU_SERVING_BUCKETS`` spec ('' = powers of two up
+    to :func:`serving_max_batch`), parsed by
+    ``serving/buckets.py:BucketTable.from_spec``."""
+    return (os.environ.get("MPI4JAX_TPU_SERVING_BUCKETS") or "").strip()
+
+
+def serving_kv_slots() -> int:
+    """The KV slot budget of the serving runtime
+    (``MPI4JAX_TPU_SERVING_KV_SLOTS``; 0, twice the batch cap, by
+    default)."""
+    return _int("MPI4JAX_TPU_SERVING_KV_SLOTS", 0)
+
+
+def serving_unroll() -> int:
+    """The decode megastep's trip count (``MPI4JAX_TPU_SERVING_UNROLL``; 4
+    by default, at least 1)."""
+    return _int("MPI4JAX_TPU_SERVING_UNROLL", DEFAULT_SERVING_UNROLL,
+                minimum=1)
+
+
+def serving_slo_p99_ms() -> float:
+    """The serving p99 latency objective in milliseconds
+    (``MPI4JAX_TPU_SERVING_SLO_P99_MS``; 1000 by default)."""
+    val = parse_env_float("MPI4JAX_TPU_SERVING_SLO_P99_MS",
+                          DEFAULT_SERVING_SLO_P99_MS)
+    if val is None or val <= 0:
+        raise ValueError(
+            "MPI4JAX_TPU_SERVING_SLO_P99_MS must be a positive number of "
+            f"milliseconds, got {val!r}"
+        )
+    return val

@@ -72,9 +72,8 @@ _CLOCKS = ("t_begin", "t_end", "mono_begin", "mono_end", "latency", "t", "mono",
 _META = {"op": "allreduce", "comm_uid": "0", "axes": ["i"], "bytes": 64,
          "dtype": "float32"}
 # the JAX package's __all__ names whose modules are later items of the
-# port's queue (ROADMAP Queue 1 items 4-6), and the port's own extras
+# port's queue (ROADMAP Queue 1 item 6), and the port's own extras
 LEFT_TO_LATER_ITEMS = sorted([
-    "serving",                                         # item 4: serving/
     "analyze", "Report", "Finding", "AnalysisError",
     "set_analyze_mode",                                # item 6: analysis
 ])

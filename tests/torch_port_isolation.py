@@ -39,7 +39,7 @@ launch ranks issued, the drain registry, the draining and drained comms
 and the parked joins too), no pending failure, no claimed SIGINT
 handler, no preemption (SIGTERM) handler of the elastic layer, the
 default grid and comm dropped (the claimed watchdog handler goes with
-``set_on_timeout(None)``).
+``set_on_timeout(None)``), and no serving bucket table declared.
 
 Import it into a test module (``from torch_port_isolation import
 isolated_reference_state  # noqa: F401``); it is autouse.  Where the JAX
@@ -68,7 +68,7 @@ def reset_port_services() -> None:
     port's modules are loaded)."""
     if "mpi4jax_tpu_torch.resilience.watchdog" not in sys.modules:
         return
-    from mpi4jax_tpu_torch import resilience, telemetry
+    from mpi4jax_tpu_torch import resilience, serving, telemetry
     from mpi4jax_tpu_torch.parallel import mesh
     from mpi4jax_tpu_torch.resilience import elastic, watchdog
     from mpi4jax_tpu_torch.utils import debug
@@ -89,6 +89,7 @@ def reset_port_services() -> None:
     elastic.take_pending_failure()
     elastic._reset_epoch_for_tests()
     mesh.forget_world()
+    serving.clear_declared_buckets()
 
 
 @pytest.fixture(autouse=True)
