@@ -124,11 +124,13 @@ read just after:
    ``counters`` (``sendrecv`` counted per replay from the capture's stash)
    and run eagerly under ``events`` (every call journaled); the host
    microseconds a call of the generic step per service; four gloo ranks on
-   (2,2) under the tiers interleaved (the ``wide2`` solve and 20
-   split-phase steps, bit for bit with ``off``, the journals merged by the
-   ``merge`` command); and the drills of ``models/runtime_drill.py`` at
-   3600x1800 (delay, watchdog, corrupt, die), started together.  One JSON
-   line ``{"runtime": ...}``.
+   (2,2) under off, counters, events and off again in the same four
+   processes (a 0.02-day ``wide2`` solve, 91 steps, and 20 split-phase
+   steps, bit for bit with ``off``, the events run's journals merged by
+   the ``merge`` command); and, beside those four
+   ranks, the drills of ``models/runtime_drill.py`` at 3600x1800 (delay,
+   watchdog, corrupt, die), started together.  Each part's seconds are
+   printed.  One JSON line ``{"runtime": ...}``.
 12. the health plane on this card (``health_phase``): (a) the split-phase
    0.1-day solve (``pinned=True``) under ``counters`` with
    ``MPI4JAX_TPU_HEALTH`` off, on, on, off in this process, each final
@@ -190,8 +192,8 @@ read just after:
    first step, and a step at world 4 with the grow flag on beside (c)'s
    with it off.  (e), (f), (g) and (h) are each held bit for bit against a
    clean run of the world they end in, from the forced commit, the
-   restore or the admission.  (a), (c), (e) and (h) run alone, in that
-   order; then (b), (d)'s two parts, (f), (g) and the clean run of (a)
+   restore or the admission.  (a), (c), (e) and (h) run side by side;
+   then (b), (d)'s two parts, (f), (g) and the clean run of (a)
    side by side; then the clean runs of (e), (h), (f) and (g); each
    part's seconds are printed as it ends.  (c), (e) and (h) step at lr 1e-3 (the example's
    0.05 diverges at that width) and their losses must be finite.  One
@@ -241,6 +243,25 @@ read just after:
    replay prefill, its streams against the clean run's (those finished
    before the drain bit for bit).  Four processes share one card: no
    number of (c) is a scaling result.  One JSON line ``{"serving": ...}``.
+16. the persistent tier (``aot_phase``; it builds nothing): (a) the main
+   build above runs with ``MPI4JAX_TPU_COMPILE_CACHE_DIR`` set to a fresh
+   directory, which then holds the 7 kernel libraries and the host
+   library (writes and bytes printed); (b) a fresh process with an empty
+   build directory and that tier builds every kernel and the host
+   library: 0 compiler invocations, 8 hits, 0 misses, its wall beside the
+   main build's; each kernel launched once against its plain version (the
+   stencils bit for bit at 3600x1800, the flash kernels in the bands of
+   ``tests/test_kernels.py`` at B=4, T=4096); and a pinned ``sw_steps``
+   pair (a CUDA graph) that reads the record this process wrote,
+   ``from_disk``; (c) ``python -m mpi4jax_tpu_torch.aot warm
+   --emit-manifest`` at the bench preset, world 1, then ``warm`` over it
+   (exit 0, every program warmed), then a new process that serves the
+   first request alone (its time to the first token) and the bench trace
+   with ``disk_cache.misses == 0``, its 24 streams equal to phase 15
+   (b)'s; (d) beside (c), ``models/aot_serving_step.py`` twice with one
+   fresh directory, the second run ``from_disk`` with hits.  One JSON
+   line ``{"aot": ...}``; the ``kernels`` line gives each kernel's
+   difference after the reload.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -282,6 +303,11 @@ build the stencil sources and the host library and run phase 11 or phase
     python3 chip_smoke.py --serving
 
 run phase 13, 14 or 15 alone (nothing to build), one JSON line each.
+
+    python3 chip_smoke.py --aot
+
+builds every kernel through a fresh tier, takes phase 15 (b)'s
+continuous streams in this process, and runs phase 16, one JSON line.
 """
 
 import hashlib
@@ -2767,8 +2793,13 @@ def four_rank_throughput(launch, device, lct_kwargs):
 # the four-rank runs interleave the tiers in the same processes, so that
 # no tier is compared with another call's numbers
 RUNTIME_TIERS = ("off", "counters", "events")
-RUNTIME_INTERLEAVED = ("off", "counters", "events", "events", "counters", "off")
+# the four ranks' tiers, run in turn in the same processes: off first and
+# last (the spread), counters and events between
+RUNTIME_INTERLEAVED = ("off", "counters", "events", "off")
 RUNTIME_HALO_STEPS = 20
+# the four-rank tiers' wide2 solve: 0.02 simulated days (91 steps), the
+# 0.1-day solve's depth cut to keep the smoke run in its time limit
+RUNTIME_FOUR_RANK_DAYS = 0.02
 # the split-phase step on one GPU: five boundary refreshes (h, u, v, then u
 # and v after the viscosity phase), each a sendrecv onto itself in the two
 # periodic x directions; on (2,2) four directions
@@ -2956,7 +2987,10 @@ def four_rank_runtime(launch, device, t1, tdir, nx=3600, ny=1800):
             if not (run["bit_for_bit_with_off"] and run["finite"]):
                 raise AssertionError(f"rank {r}, {run['mode']}: final state not bit for "
                                      "bit with off's")
-            if run["wide_launches"] != 221 * run["runs"] or run["phase_launches"] != 2 * RUNTIME_HALO_STEPS:
+            # one Euler launch, then a pair launch each two steps
+            per_run = 1 + -(-(run["steps"] - 1) // 2)
+            if (run["wide_launches"] != per_run * run["runs"]
+                    or run["phase_launches"] != 2 * RUNTIME_HALO_STEPS):
                 raise AssertionError(f"rank {r}, {run['mode']}: {run['wide_launches']} "
                                      f"sw_wide and {run['phase_launches']} sw_phase launches")
             want = 0 if run["mode"] == "off" else SENDRECV_A_STEP[4] * RUNTIME_HALO_STEPS
@@ -3126,22 +3160,35 @@ def runtime_call_cost(dev):
 def runtime_phase(P, dev, launch):
     """Phase 11 (see the module docstring); returns its summary, printed
     as one JSON line."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mpi4jax_tpu_torch import native
 
     import tempfile
 
     t0 = time.perf_counter()
     t1 = 0.1 * P.DAY_IN_SECONDS
+    parts = {}
     out = {"host_library": native.build(verbose=False)}
     out["one_gpu"] = runtime_solves(P, dev, t1)
+    _part(parts, "one_gpu_solves", t0, 11)
     out["call_cost_us"] = runtime_call_cost(dev)
-    # the journals and the drills' logs, removed at the end
-    with tempfile.TemporaryDirectory(prefix="mpx-runtime-") as tdir:
-        out["four_ranks"] = four_rank_runtime(launch, "cuda:0", t1, tdir)
+    _part(parts, "call_cost", t0, 11)
+    # the journals and the drills' logs, removed at the end; the drills
+    # run beside the four ranks' tiers
+    with tempfile.TemporaryDirectory(prefix="mpx-runtime-") as tdir, \
+            ThreadPoolExecutor(1) as pool:
+        drills = pool.submit(runtime_drills, "cuda:0", tdir)
+        out["four_ranks"] = four_rank_runtime(
+            launch, "cuda:0", RUNTIME_FOUR_RANK_DAYS * P.DAY_IN_SECONDS, tdir)
+        _part(parts, "four_ranks", t0, 11)
+        out["drills"] = drills.result()
+        _part(parts, "drills", t0, 11)
         torch.cuda.empty_cache()
-        out["drills"] = runtime_drills("cuda:0", tdir)
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 11 (runtime services): {out['seconds']:.1f} s")
+    out["part_seconds"] = parts
+    print(f"phase 11 (runtime services): {out['seconds']:.1f} s; by part "
+          + json.dumps({k: round(v, 1) for k, v in parts.items()}))
     return out
 
 
@@ -3879,9 +3926,9 @@ def _finite_losses(label, res, names):
             raise AssertionError(f"{label}: {name}'s losses are not finite")
 
 
-def _part(parts, name, t0):
+def _part(parts, name, t0, phase=13):
     parts[name] = time.perf_counter() - t0 - sum(parts.values())
-    print(f"  phase 13 part {name}: {parts[name]:.1f} s", flush=True)
+    print(f"  phase {phase} part {name}: {parts[name]:.1f} s", flush=True)
 
 
 def elastic_phase(dev, launch):
@@ -3899,9 +3946,38 @@ def elastic_phase(dev, launch):
     wide = {"dim": 1024, "hidden": 8192, "ef_state": False, "lr": 1e-3}
     out, parts = {}, {}
     with tempfile.TemporaryDirectory(prefix="mpx-elastic-") as tdir:
+        # (a), (c), (e) and (h) side by side
+        drills = ThreadPoolExecutor(4)
         # (a) the example twin at the JAX example's width, rank 3 dies
-        a = ET.launch(4, steps=steps, device="cuda:0", fault_spec=die,
-                      watchdog=1.0, limit=120.0, workdir=os.path.join(tdir, "a"))
+        fa_run = drills.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                             fault_spec=die, watchdog=1.0, limit=120.0,
+                             workdir=os.path.join(tdir, "a"))
+        # (c) the same loop with realistic state bytes: rank 3 dies in
+        # step 5 (its 26th allreduce: 5 a step without the residual's
+        # allgather), after the auto interval locked in at world 4
+        fc_run = drills.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                             fault_spec="die:rank=3:op=allreduce:after=25",
+                             watchdog=1.0, limit=300.0, commit_every="auto",
+                             workdir=os.path.join(tdir, "c"), **wide)
+        # (e) a real SIGTERM to rank 3 after its step 5, at (c)'s width:
+        # announced at boundary 6, drained at 7 off the commit_every=4
+        # cadence (a forced commit)
+        fe_run = drills.submit(ET.launch, 4, steps=steps, device="cuda:0",
+                             fault_spec="", sigterm=(3, 5), watchdog=1.0,
+                             commit_every="4",
+                             env={"MPI4JAX_TPU_TELEMETRY": "counters"},
+                             expect_world=3, limit=180.0,
+                             workdir=os.path.join(tdir, "e"), **wide)
+        # (h) 4 -> 3 -> 4 at (c)'s width: rank 3 dies, its replacement is
+        # admitted at the next commit boundary after it knocked (the
+        # survivors wait for the knock in the first step at world 3)
+        grow_steps = 32
+        fh_run = drills.submit(ET.launch, 4, steps=grow_steps, device="cuda:0",
+                             fault_spec="die:rank=3:op=allreduce:after=25",
+                             grow=True, commit_every="auto", watchdog=1.0,
+                             wait_for_join=90.0, expect_world=4, limit=300.0,
+                             workdir=os.path.join(tdir, "h"), **wide)
+        a = fa_run.result()
         survivors = _check_drill("(a)", a, 3, 13, steps)
         _recovery_line("(a)", a, survivors)
         restored_step = a["results"][0]["restored_step"]
@@ -3917,13 +3993,7 @@ def elastic_phase(dev, launch):
                                 if x["epoch"] == 1) for r in survivors}}
         _part(parts, "a", t0)
 
-        # (c) the same loop with realistic state bytes, alone on the card
-        # rank 3 dies in step 5 (its 26th allreduce: 5 a step without the
-        # residual's allgather), after the auto interval locked in at world 4
-        c = ET.launch(4, steps=steps, device="cuda:0",
-                      fault_spec="die:rank=3:op=allreduce:after=25",
-                      watchdog=1.0, limit=300.0, commit_every="auto",
-                      workdir=os.path.join(tdir, "c"), **wide)
+        c = fc_run.result()
         survivors_c = _check_drill("(c)", c, 3, 13, steps)
         _finite_losses("(c)", c, [f"p{r}" for r in survivors_c])
         r0 = c["results"][0]
@@ -3957,14 +4027,8 @@ def elastic_phase(dev, launch):
               f"locked in {r0['auto_commit_every']}")
         _part(parts, "c", t0)
 
-        # (e) a real SIGTERM to rank 3 after its step 5, at (c)'s width:
-        # announced at boundary 6, drained at 7 off the commit_every=4
-        # cadence (a forced commit), alone on the card
-        e = ET.launch(4, steps=steps, device="cuda:0", fault_spec="",
-                      sigterm=(3, 5), watchdog=1.0, commit_every="4",
-                      env={"MPI4JAX_TPU_TELEMETRY": "counters"},
-                      expect_world=3, limit=180.0,
-                      workdir=os.path.join(tdir, "e"), **wide)
+        drills.shutdown(wait=False)
+        e = fe_run.result()
         _drain_checks("(e)", e, [3], [0, 1, 2], 3, "drained rank(s) [3] of 4")
         _finite_losses("(e)", e, ["p0", "p1", "p2"])
         notice = e["results"][3]["drains"][0]
@@ -3993,15 +4057,7 @@ def elastic_phase(dev, launch):
                   f"world 3 {first3['seconds'] * 1e3:.1f} ms")
         _part(parts, "e", t0)
 
-        # (h) 4 -> 3 -> 4 at (c)'s width: rank 3 dies, its replacement is
-        # admitted at the next commit boundary after it knocked (the
-        # survivors wait for the knock in the first step at world 3)
-        grow_steps = 32
-        h = ET.launch(4, steps=grow_steps, device="cuda:0",
-                      fault_spec="die:rank=3:op=allreduce:after=25",
-                      grow=True, commit_every="auto", watchdog=1.0,
-                      wait_for_join=90.0, expect_world=4, limit=300.0,
-                      workdir=os.path.join(tdir, "h"), **wide)
+        h = fh_run.result()
         if (not h["ok"] or h["exit"][:3] != [0, 0, 0] or len(h["joiners"]) != 1
                 or h["joiners"][0]["exit"] != 0
                 or h["completed"] != [0, 1, 2, "join0"]):
@@ -4624,6 +4680,7 @@ def serving_invariance(dev):
         raise AssertionError(f"phase 15 (b): streams differ outside the f32 band: "
                              f"{faults}")
     out["seconds"] = time.perf_counter() - t0
+    out["streams"] = base
     return out
 
 
@@ -4728,8 +4785,375 @@ def serving_main():
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = serving_phase(torch.device("cuda"), smi)
+    out["b"].pop("streams")
     print(smi)
     print(json.dumps({"serving": out}, default=str))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the persistent tier
+# ---------------------------------------------------------------------------
+
+
+def kernel_specs(K, KP, KW, FA):
+    """The seven kernel builds, one ``nvcc`` each."""
+    return [K.spec(), KP.spec(), KW.spec(), FA.fwd_tf32_spec(), FA.tf32_spec(),
+            FA.mma_spec(), FA.fwd_mma_spec()]
+
+
+def tier_build(K, KP, KW, FA, tier):
+    """Phase 16 (a): the main build with ``MPI4JAX_TPU_COMPILE_CACHE_DIR``
+    set to ``tier`` (a fresh directory), then unset: every library the
+    build makes is written to the tier.  Returns the libraries, the host
+    library's path, the seconds and the tier's counters."""
+    from pathlib import Path
+
+    from mpi4jax_tpu_torch import native
+    from mpi4jax_tpu_torch.aot import diskcache
+    from mpi4jax_tpu_torch.kernels import _build
+
+    os.environ["MPI4JAX_TPU_COMPILE_CACHE_DIR"] = tier
+    try:
+        t0 = time.perf_counter()
+        specs = kernel_specs(K, KP, KW, FA)
+        libs = _build.build_many(specs)
+        seconds = time.perf_counter() - t0
+        host = native.build(verbose=False)
+        # a library this checkout had built already was not compiled, so not
+        # stored: store it, so that the tier holds all eight
+        local = [(_build.library_key(*spec), lib) for spec, lib in zip(specs, libs)]
+        local.append((native.library_key(), Path(host)))
+        local = [(key, lib) for key, lib in local
+                 if not os.path.exists(diskcache._path_for(diskcache.cache_root(), key))]
+        for key, lib in local:
+            _build.to_tier(key, lib)
+        st = {k: v for k, v in diskcache.stats().items() if k != "dir"}
+    finally:
+        del os.environ["MPI4JAX_TPU_COMPILE_CACHE_DIR"]
+    compiles = _build.stats()["compiles"] + native.stats()["compiles"]
+    if local:
+        print(f"phase 16 (a): {len(local)} librar(ies) found built in the checkout "
+              "were stored as they were")
+    print(f"built {', '.join(p.name for p in libs)} in {seconds:.1f} s")
+    print(f"built the host library {host}")
+    print(f"phase 16 (a) the build through the persistent tier: {compiles} compiler "
+          f"invocations, {st['writes']} artifacts written ({st['bytes']} bytes), "
+          f"{st['misses']} misses")
+    return libs, host, {"build_s": seconds, "compiles": compiles, **st}
+
+
+# a fresh process with an empty build directory and the tier of (a): it
+# builds every kernel and the host library from the tier, launches each
+# kernel once against its plain version, and pins the sw_steps pair
+AOT_COLD = r'''
+import json, sys, time
+t_start = time.perf_counter()
+from pathlib import Path
+import torch
+from mpi4jax_tpu_torch import native
+from mpi4jax_tpu_torch.kernels import _build
+_build.BUILD_DIR = native.BUILD_DIR = Path(sys.argv[1])
+import chip_smoke as CS
+import mpi4jax_tpu_torch as tpx
+from mpi4jax_tpu_torch.aot import diskcache
+from mpi4jax_tpu_torch.kernels import flash_attention as FA
+from mpi4jax_tpu_torch.kernels import sw_phase as KP
+from mpi4jax_tpu_torch.kernels import sw_steps as K
+from mpi4jax_tpu_torch.kernels import sw_wide as KW
+from mpi4jax_tpu_torch.models import shallow_water as P
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+t0 = time.perf_counter()
+libs = _build.build_many(CS.kernel_specs(K, KP, KW, FA))
+native.build(verbose=False)
+build_s = time.perf_counter() - t0
+st = diskcache.stats()
+out = {"build_s": build_s, "libraries": [p.name for p in libs],
+       "compiles": _build.stats()["compiles"] + native.stats()["compiles"],
+       "hits": st["hits"], "misses": st["misses"]}
+out["kernels"] = CS.reloaded_kernels(P, K, KP, KW, FA, torch.device("cuda"))
+cfg = P.Config(nx=3600, ny=1800)
+s1 = K.sw_steps_plain(tuple(P.initial_state(cfg, device="cuda")), cfg, True, 1)
+pin = tpx.compile(K.sw_steps, s1, cfg, False, 2, wrap=False, static_argnums=(1, 2, 3))
+CS.compare("pinned sw_steps pair", K.sw_steps_plain(s1, cfg, False, 2), pin(s1),
+           P.State._fields, exact=True)
+torch.cuda.synchronize()
+st = diskcache.stats()
+out["pin"] = {"from_disk": pin.from_disk, "graph": pin.graph, "hits": st["hits"],
+              "misses": st["misses"],
+              "compiles": _build.stats()["compiles"] + native.stats()["compiles"]}
+out["wall_s"] = time.perf_counter() - t_start
+print(json.dumps(out))
+'''
+
+
+def _launched_once(counter, name, call):
+    before = counter.launches
+    got = call()
+    torch.cuda.synchronize()
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name}: {counter.launches - before} launches, expected 1")
+    return got
+
+
+def reloaded_kernels(P, K, KP, KW, FA, dev):
+    """Phase 16 (b)'s checks, in the fresh process: each kernel launched
+    once at its main path's shape against its plain version (the stencils
+    bit for bit at 3600x1800, the flash kernels in the bands of
+    ``tests/test_kernels.py`` at B=4, T=4096, H=8, D=128).  Returns each
+    kernel's largest difference."""
+    names, errs = P.State._fields, {}
+    cfg = P.Config(nx=3600, ny=1800)
+    s1 = K.sw_steps_plain(tuple(P.initial_state(cfg, device=dev)), cfg, True, 1)
+    got = _launched_once(K.counter, "sw_steps", lambda: K.sw_steps(s1, cfg, False, 2))
+    errs["sw_steps"] = compare("reloaded sw_steps pair", K.sw_steps_plain(s1, cfg, False, 2),
+                               got, names, exact=True)
+    p1 = KP.sw_phase1_plain(tuple(P.initial_state(cfg, device=dev)), cfg, True, (0, 0))
+    got = _launched_once(KP.counter, "sw_phase", lambda: KP.sw_phase1(p1, cfg, False, (0, 0)))
+    errs["sw_phase"] = compare("reloaded sw_phase1", KP.sw_phase1_plain(p1, cfg, False, (0, 0)),
+                               got, names, exact=True)
+    got = _launched_once(KP.counter, "sw_phase", lambda: KP.sw_phase2(p1[1], p1[2], cfg, (0, 0)))
+    errs["sw_phase"] = max(errs["sw_phase"], compare(
+        "reloaded sw_phase2", KP.sw_phase2_plain(p1[1], p1[2], cfg, (0, 0)), got, ("u", "v"),
+        exact=True))
+    wcfg = P.Config(nx=3600, ny=1800, periodic_x=False)
+    _, comm = P.make_mesh_and_comm(wcfg, device=dev)
+    m = P._margin_rows(2)
+    wf, _ = P._wide_exchange(tuple(P.initial_state(wcfg, device=dev)), wcfg, comm, m,
+                             P.create_token())
+    off = (-(m - 1), -(m - 1))
+    f1 = KW.sw_wide_plain(wf, wcfg, True, 1, off)
+    sl = (slice(m - 1, m - 1 + wcfg.ny_local), slice(m - 1, m - 1 + wcfg.nx_local))
+    got = _launched_once(KW.counter, "sw_wide", lambda: KW.sw_wide(f1, wcfg, False, 2, off))
+    errs["sw_wide"] = compare("reloaded sw_wide pair",
+                              [a[sl] for a in KW.sw_wide_plain(f1, wcfg, False, 2, off)],
+                              [b[sl] for b in got], names, exact=True)
+    b, t, h, d = ATTN_B, ATTN_T, ATTN_H, ATTN_D
+    gen = torch.Generator(device=dev).manual_seed(16)
+    q, k, v = (torch.randn((b, t, h, d), device=dev, generator=gen) for _ in range(3))
+    scale = 1.0 / d**0.5
+    fwd = fwd_counters(FA)
+    for name, qq, kk, vv, causal, o_rel in (
+            ("flash_fwd_tf32", q, k, v, False, FLASH_REL["o"]),
+            ("flash_fwd_causal_tf32", q, k, v, True, FLASH_CAUSAL_O_REL),
+            ("flash_fwd_mma", q.bfloat16(), k.bfloat16(), v.bfloat16(), False,
+             FLASH_BF16_O_REL),
+            ("flash_fwd_causal_mma", q.bfloat16(), k.bfloat16(), v.bfloat16(), True,
+             FLASH_BF16_O_REL)):
+        got = _launched_once(fwd[name], name, lambda: FA.flash_block_partials(
+            qq, kk, vv, None, scale=scale, causal=causal))
+        want = FA.block_partials_plain(qq, kk, vv, None, scale=scale, causal=causal)
+        errs[name] = max(flash_compare(f"reloaded {name}", want, got, o_rel).values())
+    bwd = bwd_counters(FA)
+    for sfx, qq, kk, vv in (("tf32", q, k, v),
+                            ("mma", q.bfloat16(), k.bfloat16(), v.bfloat16())):
+        with torch.no_grad():
+            _, mm, _ = FA.flash_block_partials(qq, kk, vv, None, scale=scale)
+        g_o = torch.randn(qq.shape, device=dev, generator=gen).to(qq.dtype)
+        g_l = torch.randn(mm.shape, device=dev, generator=gen)
+        args = (qq, kk, vv, None, mm, g_o, g_l)
+        dq = _launched_once(bwd[f"flash_bwd_dq_{sfx}"], f"flash_bwd_dq_{sfx}",
+                            lambda: FA.flash_bwd_dq(*args, scale=scale))
+        dk, dv = _launched_once(bwd[f"flash_bwd_dkv_{sfx}"], f"flash_bwd_dkv_{sfx}",
+                                lambda: FA.flash_bwd_dkv(*args, scale=scale))
+        e = bwd_compare(f"reloaded backward ({sfx})",
+                        FA.block_partials_bwd_plain(*args, scale=scale), (dq, dk, dv),
+                        qq.dtype)
+        errs[f"flash_bwd_dq_{sfx}"] = e["dq"]
+        errs[f"flash_bwd_dkv_{sfx}"] = max(e["dk"], e["dv"])
+    return errs
+
+
+# a new process that serves with the tier (c): the first request alone on
+# the wall clock (its time to the first token includes the programs' pins),
+# then the bench trace on the virtual clock (phase 15 (b)'s streams)
+AOT_SERVE = r'''
+import json, sys, time
+spawned = float(sys.argv[1])
+t_start = time.time()
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import mpi4jax_tpu_torch as tpx
+from mpi4jax_tpu_torch import serving
+from mpi4jax_tpu_torch.models import serving as MS
+cfg = MS.make_config("bench")
+trace, _ = MS.make_trace(cfg)
+t_ready = time.time()
+first = serving.Request(rid=trace[0].rid, arrival_s=0.0, prompt=trace[0].prompt,
+                        max_new_tokens=1)
+res1 = serving.ServingEngine(cfg, None).run([first], scheduler="continuous")
+t_first = time.time()
+res, streams = MS.serve_streams(MS.make_config("bench", virtual_clock=True), trace,
+                                None, "continuous")
+st = tpx.cache_stats()
+print(json.dumps({
+    "interpreter_s": t_start - spawned, "imports_s": t_ready - t_start,
+    "first_ttft_ms": res1["ttft_p99_ms"], "spawn_to_first_token_s": t_first - spawned,
+    "completed": res["completed"], "failed": res["failed"],
+    "streams": {str(k): [int(x) for x in v] for k, v in streams.items()},
+    "disk_cache": {k: v for k, v in st["disk_cache"].items() if k != "dir"},
+    "aot": st["aot"]}))
+'''
+
+
+def _json_run(args, env, timeout):
+    """One ``python`` process in this checkout: its last stdout line as JSON
+    (raises, with its stderr, when it fails)."""
+    res = subprocess.run([sys.executable, *args], env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError(f"{args[:3]} exited {res.returncode}: {res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _tier_env(tier):
+    env = dict(os.environ, MPI4JAX_TPU_COMPILE_CACHE_DIR=tier)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def aot_serving_step_twice(tdir):
+    """(d): ``models/aot_serving_step.py`` twice with one fresh directory."""
+    env = _tier_env(os.path.join(tdir, "step-tier"))
+    args = ["-m", "mpi4jax_tpu_torch.models.aot_serving_step", "--json"]
+    return [_json_run(args, env, 300) for _ in range(2)]
+
+
+def aot_phase(K, tier, built, base_streams):
+    """Phase 16 (see the module docstring); returns its summary, printed as
+    one JSON line.  ``tier`` holds (a)'s libraries, ``built`` (a)'s
+    counters, ``base_streams`` phase 15 (b)'s continuous unroll-4
+    streams."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    t0 = time.perf_counter()
+    parts, out = {}, {"a": built}
+    env = _tier_env(tier)
+    # the record the fresh process reads: the same pin in this process, with
+    # the tier set (its warm-up runs the sw_steps library of (a))
+    os.environ["MPI4JAX_TPU_COMPILE_CACHE_DIR"] = tier
+    try:
+        cfg = P.Config(nx=3600, ny=1800)
+        s1 = K.sw_steps_plain(tuple(P.initial_state(cfg, device="cuda")), cfg, True, 1)
+        pin = tpx.compile(K.sw_steps, s1, cfg, False, 2, wrap=False,
+                          static_argnums=(1, 2, 3))
+        del s1
+    finally:
+        del os.environ["MPI4JAX_TPU_COMPILE_CACHE_DIR"]
+    if not pin.graph or pin.from_disk:
+        raise AssertionError(f"phase 16: the record's pin {pin!r}")
+    with tempfile.TemporaryDirectory(prefix="mpx-aot-") as tdir:
+        b = _json_run(["-c", AOT_COLD, os.path.join(tdir, "build")], env, 300)
+        if (b["compiles"], b["hits"], b["misses"]) != (0, 8, 0):
+            raise AssertionError(f"(b): {b['compiles']} compiler invocations, "
+                                 f"{b['hits']} hits, {b['misses']} misses")
+        if not (b["pin"]["from_disk"] and b["pin"]["graph"]
+                and b["pin"]["compiles"] == 0 and b["pin"]["misses"] == 0):
+            raise AssertionError(f"(b): the pinned sw_steps pair {b['pin']}")
+        print(f"phase 16 (b) a fresh process, an empty build directory: 0 compiler "
+              f"invocations, 8 hits, 0 misses; the 7 kernel libraries and the host "
+              f"library from the tier in {b['build_s']:.2f} s (the main build "
+              f"{built['build_s']:.1f} s), the process's wall {b['wall_s']:.1f} s; "
+              f"each kernel once against its plain version: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in b["kernels"].items())
+              + f"; a pinned sw_steps pair from_disk {b['pin']['from_disk']} "
+              f"(graph {b['pin']['graph']})")
+        out["b"] = b
+        _part(parts, "b", t0, 16)
+
+        with ThreadPoolExecutor(1) as pool:
+            fd = pool.submit(aot_serving_step_twice, tdir)
+            manifest = os.path.join(tdir, "serving.json")
+            emit = _json_run(["-m", "mpi4jax_tpu_torch.aot", "warm", "--emit-manifest",
+                              manifest, "--world", "1", "--model", "bench", "--json"],
+                             env, 120)
+            t_warm = time.perf_counter()
+            warm = _json_run(["-m", "mpi4jax_tpu_torch.aot", "warm", manifest, "--json"],
+                             env, 300)
+            warm_s = time.perf_counter() - t_warm
+            if warm["warmed"] != emit["programs"] or warm["failed"]:
+                raise AssertionError(f"(c): warm {warm['warmed']} of {emit['programs']}, "
+                                     f"failures {warm['failures']}")
+            served = _json_run(["-c", AOT_SERVE, repr(time.time())], env, 300)
+            equal = sum(served["streams"].get(str(rid)) == list(s)
+                        for rid, s in base_streams.items())
+            if (served["disk_cache"]["misses"] or served["failed"]
+                    or served["completed"] != len(base_streams)
+                    or equal != len(base_streams)):
+                raise AssertionError(
+                    f"(c): misses {served['disk_cache']['misses']}, completed "
+                    f"{served['completed']}, failed {served['failed']}, {equal} of "
+                    f"{len(base_streams)} streams equal phase 15's")
+            print(f"phase 16 (c) warm --emit-manifest (bench preset, world 1): "
+                  f"{emit['programs']} programs; warm: exit 0, {warm['warmed']} warmed "
+                  f"in {warm_s:.1f} s; a new process serving the bench preset: disk "
+                  f"cache {served['disk_cache']['hits']} hits, 0 misses, "
+                  f"{served['aot']['disk_loads']} pins from disk; spawn to the first "
+                  f"token {served['spawn_to_first_token_s']:.2f} s (the interpreter "
+                  f"{served['interpreter_s']:.2f} s, imports "
+                  f"{served['imports_s']:.2f} s, the first request's TTFT "
+                  f"{served['first_ttft_ms']} ms with its programs' pins); "
+                  f"{equal}/{len(base_streams)} streams equal phase 15's")
+            out["c"] = {"programs": emit["programs"], "warm": warm, "warm_s": warm_s,
+                        "served": {k: v for k, v in served.items() if k != "streams"},
+                        "streams_equal": equal}
+            _part(parts, "c", t0, 16)
+            first, second = fd.result()
+        if first["from_disk"] or not second["from_disk"] \
+                or second["disk_cache"]["hits"] < 1 or second["disk_cache"]["misses"]:
+            raise AssertionError(f"(d): {first}, {second}")
+        print(f"phase 16 (d) models/aot_serving_step.py twice, one directory: first "
+              f"from_disk {first['from_disk']} (pin {first['pin_wall_s']} s, "
+              f"{first['per_call_us']} us a call), second from_disk "
+              f"{second['from_disk']} with {second['disk_cache']['hits']} hits (pin "
+              f"{second['pin_wall_s']} s, {second['per_call_us']} us a call)")
+        out["d"] = [first, second]
+        _part(parts, "d", t0, 16)
+    out["seconds"] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    print(f"phase 16 (persistent tier): {out['seconds']:.1f} s")
+    return out
+
+
+def aot_main():
+    """``python3 chip_smoke.py --aot``: phase 16 alone: the build through a
+    fresh tier, phase 15 (b)'s continuous unroll-4 streams in this process,
+    then (b)-(d); one JSON line."""
+    import shutil
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpi4jax_tpu_torch.kernels import flash_attention as FA
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import serving as MS
+
+    tier = tempfile.mkdtemp(prefix="mpx-tier-")
+    try:
+        _, _, built = tier_build(K, KP, KW, FA, tier)
+        trace, _ = MS.make_trace(MS.make_config("bench"))
+        _, base = MS.serve_streams(MS.make_config("bench", virtual_clock=True), trace,
+                                   _one_rank_comm("cuda"), "continuous")
+        out = aot_phase(K, tier, built, base)
+    finally:
+        shutil.rmtree(tier, ignore_errors=True)
+    print(smi)
+    print(json.dumps({"aot": out}, default=str))
     return 0
 
 
@@ -4760,15 +5184,12 @@ def main():
     from mpi4jax_tpu_torch.models.shallow_water import DAY_IN_SECONDS, Config, State
     from mpi4jax_tpu_torch.parallel import launch
 
-    # -- build: one nvcc per source, all at once --------------------------
-    t0 = time.perf_counter()
-    libs = _build.build_many([K.spec(), KP.spec(), KW.spec(), FA.fwd_tf32_spec(),
-                              FA.tf32_spec(), FA.mma_spec(), FA.fwd_mma_spec()])
-    print(f"built {', '.join(p.name for p in libs)} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    from mpi4jax_tpu_torch import native
+    # -- build: one nvcc per source, all at once, through a fresh tier ----
+    import shutil
+    import tempfile
 
-    print(f"built the host library {native.build(verbose=False)}")
+    tier = tempfile.mkdtemp(prefix="mpx-tier-")
+    libs, _, built = tier_build(K, KP, KW, FA, tier)
     print_stencil_ptxas(_build)
     print_flash_ptxas(_build.BUILD_DIR / "flash_fwd_tf32.build.log")
     fwd_tf32_hmma = sass_tf32_mma(libs[3], _build._nvcc())
@@ -4921,7 +5342,15 @@ def main():
 
     # -- the serving runtime: one GPU, streams, the drain drill; no kernel --
     serving = serving_phase(dev, smi)
+    base_streams = serving["b"].pop("streams")
     print(json.dumps({"serving": serving}, default=str))
+
+    # -- the persistent tier: the libraries of the build, reloaded ---------
+    try:
+        aot = aot_phase(K, tier, built, base_streams)
+    finally:
+        shutil.rmtree(tier, ignore_errors=True)
+    print(json.dumps({"aot": aot}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -5146,6 +5575,9 @@ def main():
         })
     kernels[-1]["paths"] = {"bf16_attention_forward_1gpu": bf16_fwd_runs,
                             "bf16_forward_max_abs_err_vs_f32_reference": bf16_fwd_worst}
+    for entry in kernels:
+        # phase 16 (b): the library reloaded from the tier in a fresh process
+        entry["tier_reloaded_max_abs_err"] = aot["b"]["kernels"][entry["name"]]
     print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5161,5 +5593,5 @@ if __name__ == "__main__":
              "--ring": ring_main, "--dispatch": dispatch_main,
              "--runtime": runtime_main, "--health": health_main,
              "--elastic": elastic_main, "--workloads": workloads_main,
-             "--serving": serving_main}
+             "--serving": serving_main, "--aot": aot_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

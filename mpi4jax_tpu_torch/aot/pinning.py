@@ -54,12 +54,25 @@ count it.  Its kernels still run on the card.
 adapter: a pin per world, stale when ``resilience/elastic.py:run`` hands
 it the comm of a new epoch, re-pinned by the loop.
 
-The JAX package's persistent tier (its disk cache, serialization, C++
-fast path, cache warming) waits: ROADMAP Queue 1 item 6.
+The persistent tier (``MPI4JAX_TPU_COMPILE_CACHE_DIR``,
+``aot/diskcache.py``).  A CUDA graph cannot be serialized, so what a
+second process can skip is the build of the kernel libraries
+(``kernels/_build.py`` and ``native.py`` go through the tier themselves)
+and the search for them.  A pin keeps a small record under its
+``record_key`` (what it captured, without the donation, the same in every
+process): the libraries its first run loaded.  At the pin, a found record
+has those libraries loaded from the tier before the warm-up run
+(``from_disk`` True when it was found and nothing was compiled); a missed
+one is written after the capture (on the CPU and on several ranks, after
+the first call, the first run).  ``through_disk_cache(fn, c, label)``
+routes the first call of each argument signature through the same
+record.  ``MPI4JAX_TPU_CPP_DISPATCH=false`` runs a pin on one CUDA rank
+eagerly (``aot/fastpath.py``: the graph replay is the port's fast path).
 """
 
 from __future__ import annotations
 
+import types
 from typing import Optional
 
 import torch
@@ -68,16 +81,18 @@ import torch.distributed as dist
 from ..kernels import _build
 from ..ops._base import per_op_hook as _per_op_hook
 from ..telemetry import core as _telemetry
+from ..utils import config
 from ..utils.tree import tree_flatten, tree_leaves
-from . import keys
+from . import diskcache, fastpath, keys, serialization
 from .invalidation import WorldStamp
 
 __all__ = ["PinnedProgram", "ElasticStep", "compile", "compile_step",
-           "stats", "reset_stats"]
+           "stats", "reset_stats", "through_disk_cache"]
 
 
 class _Stats:
-    __slots__ = ("pins", "calls", "stale_raises", "replays", "copied_bytes",
+    __slots__ = ("pins", "calls", "stale_raises", "disk_loads", "compiles",
+                 "fast_path_pins", "warmed", "replays", "copied_bytes",
                  "eager_pins")
 
     def __init__(self):
@@ -87,6 +102,10 @@ class _Stats:
         self.pins = 0
         self.calls = 0
         self.stale_raises = 0
+        self.disk_loads = 0
+        self.compiles = 0
+        self.fast_path_pins = 0
+        self.warmed = 0
         self.replays = 0
         self.copied_bytes = 0
         self.eager_pins = 0
@@ -97,10 +116,15 @@ _stats = _Stats()
 
 def stats() -> dict:
     """Pinning counters: ``pins`` (programs pinned), ``calls`` (pinned
-    calls), ``stale_raises`` (MPX129 refusals), ``replays`` (CUDA-graph
-    replays), ``copied_bytes`` (bytes copied into and out of graphs by
-    calls) and ``eager_pins`` (pins on one CUDA rank that run eagerly under
-    a per-op host hook; ``program.info`` names the knob)."""
+    calls), ``stale_raises`` (MPX129 refusals), ``disk_loads`` (pins and
+    first calls served by a pin record of the persistent tier),
+    ``compiles`` (those that were not), ``fast_path_pins`` (pins that
+    replay a CUDA graph, ``aot/fastpath.py``), ``warmed`` (programs pinned
+    by ``aot warm``), ``replays`` (CUDA-graph replays), ``copied_bytes``
+    (bytes copied into and out of graphs by calls) and ``eager_pins``
+    (pins on one CUDA rank that run eagerly under a per-op host hook or
+    ``MPI4JAX_TPU_CPP_DISPATCH=false``; ``program.info`` names the
+    knob)."""
     return {k: getattr(_stats, k) for k in _Stats.__slots__}
 
 
@@ -222,16 +246,26 @@ class EagerRun:
     world of several ranks, and on one CUDA rank under a per-op host hook
     (``reason``, the knob)."""
 
-    def __init__(self, body, dyn: tuple, name: str, reason: Optional[str] = None):
+    def __init__(self, body, dyn: tuple, name: str, reason: Optional[str] = None,
+                 record: Optional["_Record"] = None):
         self.body = body
         self.name = name
         self.signature = _signature(tree_leaves(tuple(dyn)))
         self.bytes_copied = 0
         self.reason = reason
+        # written after the first call, the eager pin's first run
+        self.record = record
 
     def __call__(self, *dyn):
         _check_signature(self.name, self.signature, tree_leaves(tuple(dyn)))
-        return self.body(*dyn)
+        record = self.record
+        if record is None:
+            return self.body(*dyn)
+        self.record = None
+        before = _build.launch_totals()
+        out = self.body(*dyn)
+        record.finish(before)
+        return out
 
 
 class PinnedProgram:
@@ -241,13 +275,17 @@ class PinnedProgram:
     Statics were folded at pin time: call with the dynamic arguments only,
     shaped as the examples given to ``compile``.  ``unroll`` is the
     megastep trip count (1: one step a call); ``graph`` says whether calls
-    replay a CUDA graph; ``bytes_copied`` is what the last call copied."""
+    replay a CUDA graph; ``bytes_copied`` is what the last call copied;
+    ``from_disk`` whether the pin's record was found in the persistent tier
+    and nothing was compiled; ``fast_path`` whether calls take the graph
+    replay (``aot/fastpath.py``)."""
 
     __slots__ = ("_run", "_world", "_respec", "fn_name", "key",
-                 "donate_argnums", "unroll")
+                 "donate_argnums", "unroll", "from_disk", "fast_path")
 
     def __init__(self, run, world: WorldStamp, respec, fn_name: str, key,
-                 donate_argnums, unroll: int):
+                 donate_argnums, unroll: int, from_disk: bool = False,
+                 fast_path: bool = False):
         self._run = run
         self._world = world
         self._respec = respec
@@ -255,6 +293,8 @@ class PinnedProgram:
         self.key = key
         self.donate_argnums = donate_argnums
         self.unroll = unroll
+        self.from_disk = from_disk
+        self.fast_path = fast_path
 
     @property
     def graph(self) -> bool:
@@ -293,6 +333,7 @@ class PinnedProgram:
         return (f"PinnedProgram({self.fn_name!r}, "
                 f"{'graph' if self.graph else 'eager'}, epoch={self._world.epoch}"
                 + (f", unroll={self.unroll}" if self.unroll > 1 else "")
+                + (", disk" if self.from_disk else "")
                 + (", STALE" if self.is_stale() else "") + ")")
 
 
@@ -308,25 +349,155 @@ def _keyable(value):
         return f"{kind.__module__}.{kind.__qualname__}"
 
 
-def program_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int,
-                donate) -> str:
-    """What a pin captured, as one key: the function, the dynamic
-    arguments' shapes, dtypes and devices, the static values, the comm
-    and the unroll."""
+def _code_text(code) -> bytes:
+    """A code object's bytecode, names and constants (nested code
+    recursed), without its file name or line numbers."""
+    parts = [code.co_code, keys.canonical(code.co_names).encode(),
+             keys.canonical(code.co_varnames).encode()]
+    for c in code.co_consts:
+        if isinstance(c, types.CodeType):
+            parts.append(_code_text(c))
+        else:
+            try:
+                parts.append(keys.canonical(c).encode())
+            except TypeError:
+                parts.append(type(c).__name__.encode())
+    return b"|".join(parts)
+
+
+def _where(name: str, fn) -> str:
+    """The function as a key part: its qualified name and the fingerprint
+    of its code, so that an edited body does not read a stale record."""
+    where = f"{getattr(fn, '__module__', '')}.{getattr(fn, '__qualname__', name)}"
+    code = getattr(fn, "__code__", None)
+    if isinstance(code, types.CodeType):
+        where += ":" + keys.fingerprint(_code_text(code))
+    return where
+
+
+def comm_descriptor(comm):
+    """The comm as a key part, the same in every process: its kind, axes
+    and split groups, its grid's shape, axes, rank and device, and the
+    process group's backend (never its uid, which counts the comms a
+    process built)."""
+    if comm is None:
+        return None
+    grid = comm.mesh
+    backend = (dist.get_backend() if dist.is_available() and dist.is_initialized()
+               else "local")
+    return (type(comm).__name__, tuple(comm.axes), comm.groups,
+            None if grid is None else (tuple(grid.shape), tuple(grid.axes),
+                                       grid.rank, str(grid.device)),
+            backend)
+
+
+def _key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int,
+         *extra) -> str:
     static_vals = tuple(_keyable(v) for v in static_vals)
     sig = tuple((tuple(t.shape), str(t.dtype), str(t.device))
                 if isinstance(t, torch.Tensor) else (type(t).__name__,)
                 for t in dyn_leaves)
-    mesh = None
-    if comm is not None:
-        grid = comm.mesh
-        mesh = (tuple(comm.axes), comm.uid,
-                None if grid is None else (tuple(grid.shape), tuple(grid.axes),
-                                           grid.rank, str(grid.device)))
-    where = f"{getattr(fn, '__module__', '')}.{getattr(fn, '__qualname__', name)}"
-    return keys.derive_key(keys.fingerprint(where), mesh,
-                           (sig, static_vals, unroll, tuple(donate)),
+    return keys.derive_key(keys.fingerprint(_where(name, fn)),
+                           comm_descriptor(comm),
+                           (sig, static_vals, unroll) + extra,
                            (torch.__version__, torch.version.cuda))
+
+
+def record_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int) -> str:
+    """The key of a pin's record in the persistent tier: the function, the
+    dynamic arguments' shapes, dtypes and devices, the static values, the
+    comm's shape and the unroll.  The donation is left out: it changes how
+    a graph hands its buffers back, not the libraries it loads."""
+    return _key(name, fn, dyn_leaves, static_vals, comm, unroll)
+
+
+def program_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int,
+                donate) -> str:
+    """What a pin captured, as one key: ``record_key``'s parts and the
+    donation."""
+    return _key(name, fn, dyn_leaves, static_vals, comm, unroll, tuple(donate))
+
+
+def _compiles() -> int:
+    from .. import native
+
+    return _build.stats()["compiles"] + native.stats()["compiles"]
+
+
+class _Record:
+    """One pin record, keyed by ``record_key(*parts)``: looked up when made
+    (the libraries it names are then loaded from the tier), written by
+    ``finish`` after the first run when it was missed.  With the tier off
+    it derives no key, does nothing and ``from_disk`` is False."""
+
+    def __init__(self, fn_name: str, *parts):
+        self.key = record_key(fn_name, *parts) if diskcache.enabled() else None
+        self.fn_name = fn_name
+        self.found = False
+        self.loaded = True
+        self.compiles = _compiles()
+        if self.key is None:
+            return
+        # a record this schema cannot read is deleted and counts as a miss
+        data = diskcache.get(self.key, use=lambda d: serialization.loads_record(
+            d) is not None)
+        if data is None:
+            return
+        rec = serialization.loads_record(data)
+        self.found = True
+        for lib in rec["libraries"]:
+            out = _build.BUILD_DIR / lib["name"]
+            if not out.exists() and not _build.from_tier(lib["key"], out):
+                self.loaded = False
+
+    def finish(self, before: dict) -> None:
+        """After the first run (``before``: ``_build.launch_totals()``
+        taken before it): write the record if it was missed."""
+        if self.key is None or self.found:
+            return
+        payload = serialization.dumps_record(self.fn_name,
+                                             _build.libraries_of(before))
+        if payload is not None:
+            diskcache.put(self.key, payload)
+
+    @property
+    def from_disk(self) -> bool:
+        return self.found and self.loaded and _compiles() == self.compiles
+
+    def count(self) -> bool:
+        """Count the pin as loaded or compiled; returns ``from_disk``."""
+        hit = self.from_disk
+        if hit:
+            _stats.disk_loads += 1
+        else:
+            _stats.compiles += 1
+        return hit
+
+
+def through_disk_cache(fn, c, label: str = "fn"):
+    """Route ``fn`` through the persistent tier: once per argument
+    signature the first call looks up its record (loading the libraries
+    it names) and, on a miss, writes it after the run; every other call,
+    and every call with the tier off, calls ``fn`` directly.  ``c`` is the
+    comm the program runs over (a key part)."""
+    seen = set()
+
+    def cached_call(*args):
+        if not diskcache.enabled():
+            return fn(*args)
+        leaves = tree_leaves(args)
+        sig = _signature(leaves)
+        if sig in seen:
+            return fn(*args)
+        seen.add(sig)
+        record = _Record(label, fn, leaves, (), c, 1)
+        before = _build.launch_totals()
+        out = fn(*args)
+        record.finish(before)
+        record.count()
+        return out
+
+    return cached_call
 
 
 def compile(fn, *example_args, comm=None, donate_argnums=(),
@@ -425,22 +596,33 @@ def compile(fn, *example_args, comm=None, donate_argnums=(),
     device = tensors[0].device if tensors else (c.device if c is not None else None)
     on_card = device is not None and device.type == "cuda" and _one_rank_world()
     per_op = _per_op_hook() if on_card else None
+    if on_card and per_op is None and not config.cpp_dispatch():
+        per_op = "MPI4JAX_TPU_CPP_DISPATCH"
+    # the libraries a record names are loaded before the warm-up runs
+    record = _Record(name, inner, leaves, static_vals, c, n_unroll)
     if on_card and per_op is None:
         alias = bool(dyn) and set(donate) == set(
             i for i in range(len(example_args)) if i not in statics)
+        before = _build.launch_totals()
         run = GraphRun(body, dyn, name, alias, pool)
+        record.finish(before)
     else:
-        run = EagerRun(body, dyn, name, per_op)
+        run = EagerRun(body, dyn, name, per_op, record)
         if per_op is not None:
             _stats.eager_pins += 1
             _telemetry.meter("aot.eager_pins")
+    run, fast = fastpath.cpp_call_for(run)
+    from_disk = record.count()
     _stats.pins += 1
+    if fast:
+        _stats.fast_path_pins += 1
     key = program_key(name, inner, leaves, static_vals, c, n_unroll, donate)
 
     def respec():
         return compile(fn, *example_args, **spec)
 
-    return PinnedProgram(run, world, respec, name, key, donate, n_unroll)
+    return PinnedProgram(run, world, respec, name, key, donate, n_unroll,
+                         from_disk, fast)
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,3 @@
 """Experimental APIs: ``notoken``, the ops without tokens."""
+
+from . import notoken  # noqa: F401

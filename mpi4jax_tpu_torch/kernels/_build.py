@@ -14,9 +14,20 @@ the plain version is a band, and an f32 dot product without FMA takes twice the
 instructions.  ``build_many`` starts one ``nvcc`` per source, all at
 once.
 
+The persistent tier (``aot/diskcache.py``).  With
+``MPI4JAX_TPU_COMPILE_CACHE_DIR`` set and the library absent from
+``_build/``, ``build`` looks the library up in the tier by
+``library_key`` (the fingerprint of the source, its headers and its
+flags, the target and ``aot/keys.py:toolchain_versions``): a hit is
+written into ``_build/`` and opened, a miss is compiled and stored.  With
+the directory unset nothing changes.  ``stats()["compiles"]`` counts the
+compiler's invocations.
+
 ``LaunchCounter`` is the count each wrapper keeps of its kernel's
 launches; ``COUNTERS`` lists them by kernel name, so a CUDA-graph runner
-can account for the launches a replay makes.
+can account for the launches a replay makes.  ``load`` remembers the
+library of each launch function, so a pin can name the libraries its
+kernels came from (``libraries_of``).
 """
 
 from __future__ import annotations
@@ -35,6 +46,20 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
+TARGET = "sm_90a"
+
+_stats = {"compiles": 0}
+# launch function name -> (library file name, its build spec)
+_LIBRARY_OF: Dict[str, Tuple[str, tuple]] = {}
+
+
+def stats() -> dict:
+    """``compiles``: ``nvcc`` invocations of this process."""
+    return dict(_stats)
+
+
+def reset_stats() -> None:
+    _stats["compiles"] = 0
 
 
 class LaunchCounter:
@@ -72,24 +97,69 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(defines, fmad: bool) -> list:
+    flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
+    flags.append(f"-fmad={'true' if fmad else 'false'}")
+    return flags
+
+
+def library_key(source: Path, defines: Mapping[str, int] = None,
+                headers: Sequence[Path] = (), fmad: bool = False) -> str:
+    """The tier's key of a build: the fingerprint of the source, its
+    headers and its flags, the target, the flags and the toolchain."""
+    from ..aot import keys
+
+    flags = _flags(defines, fmad)
+    text = Path(source).read_bytes() + b"".join(
+        Path(h).read_bytes() for h in headers) + " ".join(flags).encode()
+    return keys.derive_key(keys.fingerprint(text), TARGET, flags,
+                           keys.toolchain_versions(_nvcc(), TARGET))
+
+
+def from_tier(key: str, out: Path) -> bool:
+    """Write the tier's library ``key`` to ``out`` and open it: True on a
+    hit.  A library ``ctypes`` refuses is deleted from the tier and counts
+    as a miss."""
+    from ..aot import diskcache, serialization
+
+    return diskcache.get(key, use=lambda data: serialization.load_library(
+        data, out)) is not None
+
+
+def to_tier(key: str, out: Path) -> None:
+    """Store a library just built (a failed write is ignored)."""
+    from ..aot import diskcache, serialization
+
+    data = serialization.dumps_library(out)
+    if data is not None:
+        diskcache.put(key, data)
+
+
 def build(source: Path, defines: Mapping[str, int] = None,
           headers: Sequence[Path] = (), fmad: bool = False) -> Path:
     """Compile ``source`` for sm_90a into ``_build/`` and return the
-    library's path; a library already built from the same bytes is reused.
-    ``defines`` become ``-D`` flags; ``headers`` (files the source
-    includes) enter the name's hash; ``fmad`` lets the compiler contract
-    a multiply and an add into one FMA.  The compiler's output, with
-    ``-Xptxas -v``'s register and shared-memory report, goes to
-    ``_build/<stem>.build.log``."""
+    library's path; a library already built from the same bytes is reused,
+    and with the persistent tier on one the tier holds is fetched from it
+    (see the module docstring).  ``defines`` become ``-D`` flags;
+    ``headers`` (files the source includes) enter the name's hash;
+    ``fmad`` lets the compiler contract a multiply and an add into one
+    FMA.  The compiler's output, with ``-Xptxas -v``'s register and
+    shared-memory report, goes to ``_build/<stem>.build.log``."""
+    from ..aot import diskcache
+
     source = Path(source)
-    flags = [f"-D{k}={v}" for k, v in (defines or {}).items()]
-    flags.append(f"-fmad={'true' if fmad else 'false'}")
+    flags = _flags(defines, fmad)
     digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
     for h in headers:
         digest.update(Path(h).read_bytes())
     out = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:12]}.so"
     if out.exists():
         return out
+    key = None
+    if diskcache.enabled():
+        key = library_key(source, defines, headers, fmad)
+        if from_tier(key, out):
+            return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [
@@ -98,12 +168,15 @@ def build(source: Path, defines: Mapping[str, int] = None,
         *flags, "-o", str(tmp), str(source),
     ]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    _stats["compiles"] += 1
     (BUILD_DIR / f"{source.stem}.build.log").write_text(
         " ".join(cmd) + "\n" + res.stdout + res.stderr
     )
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}) on {source.name}:\n{res.stderr}")
     os.replace(tmp, out)
+    if key is not None:
+        to_tier(key, out)
     return out
 
 
@@ -119,12 +192,40 @@ def load(spec, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
     """Build ``spec`` (``(source, defines, headers[, fmad])``) and load
     it, with the ``argtypes`` of each C function named in ``signatures``;
     every launch function returns its ``cudaError_t`` as an ``int``."""
-    lib = ctypes.CDLL(str(build(*spec)))
+    path = build(*spec)
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+        _LIBRARY_OF[name] = (path.name, tuple(spec))
     return lib
+
+
+def _kernel_of(function: str) -> str:
+    """The counter name of a launch function: ``sw_steps_launch`` ->
+    ``sw_steps``, ``sw_phase1_launch`` -> ``sw_phase``."""
+    return function[:-len("_launch")].rstrip("0123456789")
+
+
+def launch_totals() -> Dict[str, int]:
+    """Every kernel's launches, direct and captured, by name."""
+    return {k: c.launches + c.captured for k, c in COUNTERS.items()}
+
+
+def libraries_of(before: Mapping[str, int]) -> list:
+    """``[{"key", "name"}]`` of the libraries whose kernels launched since
+    ``before`` (a ``launch_totals()``), their tier keys derived from their
+    build specs."""
+    now = launch_totals()
+    moved = {k for k, n in now.items() if n != before.get(k, 0)}
+    seen, out = set(), []
+    for function, (name, spec) in sorted(_LIBRARY_OF.items()):
+        if (function.endswith("_launch") and _kernel_of(function) in moved
+                and name not in seen):
+            seen.add(name)
+            out.append({"key": library_key(*spec), "name": name})
+    return out
 
 
 def check_cuda_fields(what: str, fields, shape) -> None:

@@ -24,7 +24,10 @@ mpi4jax_tpu_torch.native build`` builds it ahead.  The library has its
 own name, so its registry never shares state with the JAX package's
 ``libmpx_hooks.so``.  Without ``g++`` the hooks fall back to Python
 (``host_fatal``, the watchdog's Python registry) and runtime tracing is
-off, as in the JAX package without its library.
+off, as in the JAX package without its library.  With
+``MPI4JAX_TPU_COMPILE_CACHE_DIR`` set, ``build`` goes through the
+persistent tier as ``kernels/_build.py:build`` does (``library_key``);
+``stats()["compiles"]`` counts the ``g++`` invocations.
 """
 
 from __future__ import annotations
@@ -54,8 +57,20 @@ _SIGNATURES = {
     "mpx_watchdog_drain": ([], ctypes.c_int),
 }
 
+_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
+_stats = {"compiles": 0}
+
+
+def stats() -> dict:
+    """``compiles``: ``g++`` invocations of this process."""
+    return dict(_stats)
+
+
+def reset_stats() -> None:
+    _stats["compiles"] = 0
 
 
 def library_path() -> Path:
@@ -65,24 +80,47 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmpx_torch_hooks_{digest}.so"
 
 
+def library_key() -> str:
+    """The persistent tier's key of the library: the fingerprint of the
+    source and the flags, the host's architecture and the toolchain."""
+    import platform
+
+    from .aot import keys
+
+    target = platform.machine()
+    return keys.derive_key(
+        keys.fingerprint(SOURCE.read_bytes() + " ".join(_FLAGS).encode()),
+        target, _FLAGS, keys.toolchain_versions("g++", target))
+
+
 def build(verbose: bool = True) -> str:
     """Compile ``csrc/host_hooks.cc`` into ``_build/`` (reused when already
-    built from the same bytes); returns the library's path.  Raises when
-    ``g++`` fails."""
+    built from the same bytes, fetched from the persistent tier when it
+    holds it); returns the library's path.  Raises when ``g++`` fails."""
     out = library_path()
     if out.exists():
         return str(out)
+    from .aot import diskcache
+    from .kernels import _build
+
+    key = None
+    if diskcache.enabled():
+        key = library_key()
+        if _build.from_tier(key, out):
+            return str(out)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", "-pthread",
-           str(SOURCE), "-o", str(tmp)]
+    cmd = ["g++", *_FLAGS, str(SOURCE), "-o", str(tmp)]
     if verbose:
         print(" ".join(cmd))
     res = subprocess.run(cmd, capture_output=True, text=True)
+    _stats["compiles"] += 1
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed ({res.returncode}) on {SOURCE.name}:\n"
                            f"{res.stderr}")
     os.replace(tmp, out)
+    if key is not None:
+        _build.to_tier(key, out)
     return str(out)
 
 

@@ -20,7 +20,25 @@ from ._base import (  # noqa: F401
     SUM,
     Op,
     OpLike,
+    cache_stats,
+    clear_caches,
+    varying,
 )
+from ._async import (  # noqa: F401
+    AsyncHandle,
+    P2PHandle,
+    allreduce_start,
+    allreduce_wait,
+    alltoall_start,
+    alltoall_wait,
+    overlap,
+    p2p_wait,
+    recv_start,
+    reduce_scatter_start,
+    reduce_scatter_wait,
+    send_start,
+)
+from ._fusion import set_fusion_mode  # noqa: F401
 from .allgather import allgather  # noqa: F401
 from .allreduce import allreduce  # noqa: F401
 from .alltoall import alltoall  # noqa: F401

@@ -458,9 +458,8 @@ def cache_stats() -> dict:
       staging buffers of the multi-rank ops (``ops/_staging.py``) are no
       cache of the port's: each call takes its pinned host buffer from
       PyTorch's caching host allocator, which the port does not count;
-    - ``"aot"``: the pin counters (``aot.stats()``);
-    - ``"disk_cache"``: the JAX package's persistent tier, which the port
-      does not have: ``enabled`` False and every count 0.
+    - ``"aot"``: the pin counters, ``"disk_cache"``: the persistent
+      tier's counters and footprint (``aot.stats()``).
 
     ``clear_caches()`` resets them."""
     from .. import aot
@@ -468,16 +467,14 @@ def cache_stats() -> dict:
 
     out = _rt.plan_memo_stats()
     out.update(aot.stats())
-    out["disk_cache"] = {"enabled": False, "dir": "", "hits": 0,
-                         "misses": 0, "writes": 0, "evictions": 0,
-                         "bytes": 0, "entries": 0, "disk_bytes": 0}
     return out
 
 
 def clear_caches() -> None:
-    """Empty the resilience plan memo (its counts too) and reset the pin
-    counters.  A pinned program keeps its graph: it is dropped with the
-    object, as the JAX package's ``spmd`` programs are."""
+    """Empty the resilience plan memo (its counts too) and reset the pin,
+    disk-tier and build counters; the tier's files stay on disk.  A pinned
+    program keeps its graph: it is dropped with the object, as the JAX
+    package's ``spmd`` programs are."""
     from .. import aot
     from ..resilience import runtime as _rt
 

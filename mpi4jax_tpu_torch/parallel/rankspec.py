@@ -18,8 +18,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from ..ops._base import mpx_error
-
 
 class shift:
     """Ring (or edge-stopping) shift pattern: rank ``r`` sends to ``r + k``.
@@ -69,6 +67,9 @@ def normalize_dest(spec: RankSpecLike, size: int, *,
             "or [(src, dst), ...] pairs."
         )
     if isinstance(spec, int):
+        # imported here: ops._base imports the parallel package
+        from ..ops._base import mpx_error
+
         raise mpx_error(
             TypeError, "MPX103",
             f"{what}: a bare int rank is ambiguous (every rank executes the "
@@ -130,6 +131,11 @@ def normalize_source(spec: RankSpecLike, size: int, *,
         return normalize_dest(pairs, size, what=what)
     # sequences are (src, dst) pairs, as for dest specs
     return normalize_dest(spec, size, what=what)
+
+
+def invert_pairs(pairs: Sequence[Tuple[int, int]]) -> Tuple[Tuple[int, int], ...]:
+    """The pairs with every message's direction reversed, sorted."""
+    return tuple(sorted((d, s) for s, d in pairs))
 
 
 def resolve_routing(source, dest, size: int, *,

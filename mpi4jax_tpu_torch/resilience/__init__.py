@@ -31,8 +31,12 @@ from . import drill, elastic  # noqa: F401
 from .elastic import (  # noqa: F401
     RankFailure,
     ShardStore,
+    coordinator_agreement,
+    gossip_agreement,
     install_preemption_handler,
+    neighbor_placement,
     request_drain,
+    stripe_placement,
 )
 from .faultinject import (  # noqa: F401
     FaultClause,
@@ -63,6 +67,10 @@ __all__ = [
     "ShardStore",
     "request_drain",
     "install_preemption_handler",
+    "coordinator_agreement",
+    "gossip_agreement",
+    "stripe_placement",
+    "neighbor_placement",
     "FaultClause",
     "parse_fault_spec",
     "canonical_spec",

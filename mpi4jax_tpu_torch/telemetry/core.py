@@ -353,11 +353,13 @@ def snapshot(include_events: bool = False) -> dict:
         "ops": ops,
         "meters": meters,
     }
-    from ..aot import pinning
+    from ..aot import diskcache, pinning
 
-    pins = pinning.stats()
-    if any(pins.values()):
-        snap["compile_cache"] = {"aot": pins}
+    cc = {"aot": pinning.stats(), "disk_cache": diskcache.stats()}
+    if (any(cc["aot"].values()) or cc["disk_cache"]["enabled"]
+            or any(v for k, v in cc["disk_cache"].items()
+                   if isinstance(v, int) and not isinstance(v, bool))):
+        snap["compile_cache"] = cc
     # present only when a bounded buffer dropped something, so that a
     # healthy snapshot keeps the shape it had before the health plane
     dropped = {"journal": journal.dropped_records(),

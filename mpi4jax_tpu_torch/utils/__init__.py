@@ -1,8 +1,13 @@
 """Knobs, debug switches, the profiler capture, pytrees and the capability
-probes: the parts of the JAX package's ``utils/`` the port reads."""
+probes: the parts of the JAX package's ``utils/`` the port reads.  Its
+dtype table (``SUPPORTED_DTYPES``, ``check_dtype``), its argument-type
+decorator (``enforce_types``), its JAX version check and its
+``prefer_notoken`` knob have no counterpart
+(``tests/test_torch_namespaces.py`` lists why)."""
 
 import torch
 
+from .config import parse_env_bool  # noqa: F401
 from .debug import (  # noqa: F401
     get_logging,
     get_runtime_tracing,
@@ -27,3 +32,11 @@ def has_tpu_support() -> bool:
 def has_sycl_support() -> bool:
     """Always False, as in the JAX package: neither has a SYCL backend."""
     return False
+
+
+def flush() -> None:
+    """Wait for the ops in flight (``ops.send.flush``, the top-level
+    ``flush``), as the JAX package's ``utils.flush`` does."""
+    from ..ops.send import flush as _flush
+
+    _flush()

@@ -87,7 +87,16 @@ and the serving runtime's (``serving/``):
 - ``MPI4JAX_TPU_SERVING_UNROLL``: the decode megastep's trip count, 4 by
   default, at least 1;
 - ``MPI4JAX_TPU_SERVING_SLO_P99_MS``: the p99 latency objective in
-  milliseconds, 1000 by default, positive.
+  milliseconds, 1000 by default, positive;
+
+and the persistent tier's (``aot/diskcache.py``):
+
+- ``MPI4JAX_TPU_COMPILE_CACHE_DIR``: where built kernel libraries and pin
+  records are kept ('' by default: the tier is off);
+  ``MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES``: its byte cap, 1 GiB by
+  default, 0 for none;
+- ``MPI4JAX_TPU_CPP_DISPATCH``: a pin on one CUDA rank replays its graph
+  (on by default; off runs it eagerly, ``aot/fastpath.py``).
 
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
@@ -133,14 +142,15 @@ DEFAULT_FLIGHT_RING = 1024
 DEFAULT_MOE_CAPACITY_CHUNKS = 2
 DEFAULT_PIPELINE_MICROBATCHES = 0     # 0 = unset
 DEFAULT_PIPELINE_VIRTUAL_STAGES = 0   # 0 = unset
+DEFAULT_COMPILE_CACHE_MAX_BYTES = 1 << 30
 DEFAULT_SERVING_MAX_BATCH = 8
 DEFAULT_SERVING_UNROLL = 4
 DEFAULT_SERVING_SLO_P99_MS = 1000.0
 
-# every variable that shapes what the port runs, and the JAX package's
-# storage-only and dispatch-only knobs (aot/invalidation.py exempts those
-# three from a pin's stamp, as the JAX package does; the port reads no
-# value of them: it has no persistent tier and no C++ dispatch)
+# every variable that shapes what the port runs, and the persistent tier's
+# storage-only and dispatch-only knobs (``compile_cache_dir``,
+# ``compile_cache_max_bytes``, ``cpp_dispatch``; aot/invalidation.py
+# exempts those three from a pin's stamp, as the JAX package does)
 FLAG_NAMES = (
     "MPI4JAX_TPU_COMPRESS",
     "MPI4JAX_TPU_FUSION",
@@ -293,6 +303,29 @@ def unroll_default() -> int:
     """The megastep trip count of a call without ``unroll=``
     (``MPI4JAX_TPU_UNROLL_DEFAULT``; 1, no loop, by default)."""
     return _int("MPI4JAX_TPU_UNROLL_DEFAULT", 1, minimum=1)
+
+
+def compile_cache_dir() -> str:
+    """The persistent tier's directory (``MPI4JAX_TPU_COMPILE_CACHE_DIR``;
+    '' = the tier is off): built kernel libraries and pin records
+    (``aot/diskcache.py``)."""
+    return (os.environ.get("MPI4JAX_TPU_COMPILE_CACHE_DIR") or "").strip()
+
+
+def compile_cache_max_bytes() -> int:
+    """The persistent tier's byte cap
+    (``MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES``; 1 GiB by default, 0 =
+    unbounded)."""
+    return _int("MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES",
+                DEFAULT_COMPILE_CACHE_MAX_BYTES)
+
+
+def cpp_dispatch() -> bool:
+    """Whether a pin on one CUDA rank replays its CUDA graph
+    (``MPI4JAX_TPU_CPP_DISPATCH``; default on).  The JAX package's switch
+    of its C++ fast-path call; the port's counterpart of that call is the
+    graph replay (``aot/fastpath.py``), so off runs the pin eagerly."""
+    return parse_env_bool("MPI4JAX_TPU_CPP_DISPATCH", True)
 
 
 # ---------------------------------------------------------------------------

@@ -220,9 +220,28 @@ def test_gossip_and_coordinator_agreement_match_jax(world, seed):
 # ---------------------------------------------------------------------------
 
 
+def _ephemeral_low(default=32768):
+    """The first port of the kernel's ephemeral range, from which outgoing
+    connections (gloo's among them) take their local ports."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return default
+
+
 def _free_base(width):
+    """A window of ``width`` ports free now, drawn below the ephemeral
+    range (an outgoing connection of another worker cannot take one of
+    them between this check and the threads' binds), from this xdist
+    worker's own slice of it."""
+    top = min(32000, _ephemeral_low()) - width
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    slot = int(worker[2:]) if worker[2:].isdigit() else 0
+    span = (top - 10000) // 8
+    lo = 10000 + (slot % 8) * span
     for _ in range(40):
-        base = int(np.random.default_rng().integers(20000, 50000))
+        base = int(np.random.default_rng().integers(lo, lo + span))
         try:
             for p in range(base, base + width):
                 with socket.socket() as s:

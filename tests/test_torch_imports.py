@@ -4,7 +4,7 @@ An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
 ``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``,
 ``tests/torch_ranks_dispatch.py`` and the later ones, to
-``tests/torch_ranks_serving.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_aot.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -26,7 +26,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_health.py",
           REPO / "tests" / "torch_ranks_elastic.py",
           REPO / "tests" / "torch_ranks_workloads.py",
-          REPO / "tests" / "torch_ranks_serving.py"]
+          REPO / "tests" / "torch_ranks_serving.py",
+          REPO / "tests" / "torch_ranks_aot.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -91,7 +92,14 @@ def test_port_is_packaged():
                                     "mpi4jax_tpu_torch.parallel.moe",
                                     "mpi4jax_tpu_torch.parallel.pipeline",
                                     "mpi4jax_tpu_torch.models.moe_training",
-                                    "mpi4jax_tpu_torch.models.pipeline_parallel"])
+                                    "mpi4jax_tpu_torch.models.pipeline_parallel",
+                                    "mpi4jax_tpu_torch.aot.diskcache",
+                                    "mpi4jax_tpu_torch.aot.serialization",
+                                    "mpi4jax_tpu_torch.aot.fastpath",
+                                    "mpi4jax_tpu_torch.aot.warm",
+                                    "mpi4jax_tpu_torch.aot.__main__",
+                                    "mpi4jax_tpu_torch.models.aot_serving_step",
+                                    "mpi4jax_tpu_torch.models.telemetry_demo"])
 def test_dispatch_layer_loads_no_jax(module):
     """The dispatch layer's modules, imported in a fresh interpreter, load
     neither JAX nor the JAX package."""

@@ -90,6 +90,11 @@ def reset_port_services() -> None:
     elastic._reset_epoch_for_tests()
     mesh.forget_world()
     serving.clear_declared_buckets()
+    # the pin, persistent-tier and compiler counters (the files a test
+    # wrote stay in its own tmp_path)
+    from mpi4jax_tpu_torch import aot
+
+    aot.reset_stats()
 
 
 @pytest.fixture(autouse=True)
