@@ -262,6 +262,23 @@ read just after:
    fresh directory, the second run ``from_disk`` with hits.  One JSON
    line ``{"aot": ...}``; the ``kernels`` line gives each kernel's
    difference after the reload.
+17. the collective verifier (``verifier_phase``; it builds nothing and
+   launches nothing of its own): (a) ``analyze(ranks="all")`` on a
+   virtual 4-rank grid bound to this card, at the paths' full width: the
+   (2,2) shallow-water first step and a pair at 3600x1800 global in
+   ``wide2`` and ``pallas_halo``, the f32 ring-attention forward at B=4,
+   T=4096, H=8, D=128, the MoE layer at d 1024, the interleaved pipeline
+   at DIM 1024 and the serving bench preset's decode program at its
+   largest bucket: 0 error findings each, its analysis time, and every
+   kernel's launch counter unmoved; (b) the one-GPU pinned ``solve_fused``
+   at 3600x1800, 0.1 day, under ``MPI4JAX_TPU_ANALYZE`` off, warn and
+   error: final fields bit for bit, ``sw_steps`` launches equal, steps/s
+   each and the first call's verification time; (c) ``python -m
+   mpi4jax_tpu_torch.analysis --ranks 4 --json`` over each broken twin of
+   ``models/broken/``, four processes at once: each exits 1 with its
+   code; (d) ``rank_divergent_deadlock`` on four gloo ranks on this card
+   under ``error`` with a 60 s limit: every rank raises ``AnalysisError``
+   with MPX121 before any exchange.  One JSON line ``{"verifier": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -308,6 +325,11 @@ run phase 13, 14 or 15 alone (nothing to build), one JSON line each.
 
 builds every kernel through a fresh tier, takes phase 15 (b)'s
 continuous streams in this process, and runs phase 16, one JSON line.
+
+    python3 chip_smoke.py --verifier
+
+builds the stencil sources (phase 17 (b) runs the main path) and runs
+phase 17 alone, one JSON line.
 """
 
 import hashlib
@@ -5157,6 +5179,222 @@ def aot_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the collective verifier
+# ---------------------------------------------------------------------------
+
+
+def _virtual(shape, axes, dev):
+    """A comm over a virtual grid of ``shape`` on ``dev``, this process its
+    rank 0: no ``torch.distributed`` (the verifier's abstract runs)."""
+    from mpi4jax_tpu_torch import Comm, ProcessGrid
+
+    return Comm(axes, mesh=ProcessGrid(tuple(shape), tuple(axes), dev, rank=0))
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def verifier_programs(P, dev):
+    """(a)'s programs: ``{name: (fn, args, comm)}``, each at its path's
+    full width, one rank's templates as ``meta`` tensors."""
+    from mpi4jax_tpu_torch import attention as TA
+    from mpi4jax_tpu_torch.models import pipeline_parallel as PP
+    from mpi4jax_tpu_torch.models import serving as MS
+    from mpi4jax_tpu_torch.parallel import moe
+    from mpi4jax_tpu_torch.parallel.pipeline import pipeline, split_microbatches
+    from mpi4jax_tpu_torch.serving import model as SM
+
+    progs = {}
+    cfg = P.Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2)
+    grid = _virtual((2, 2), ("py", "px"), dev)
+    state = P.State(*[_meta((cfg.ny_local, cfg.nx_local))] * 6)
+    for mode in ("wide2", "pallas_halo"):
+        first, multi = P.make_stepper(cfg, grid, fast=mode)
+        progs[f"shallow_water_{mode}"] = (
+            lambda s, first=first, multi=multi: multi(first(s), 2), (state,), grid)
+    ring = _virtual((4,), ("i",), dev)
+    q = _meta((ATTN_B, ATTN_T // 4, ATTN_H, ATTN_D))
+    progs["ring_attention_f32"] = (
+        lambda a, b, c: TA.ring_attention(a, b, c, comm=ring), (q, q, q), ring)
+    c = MOE_WIDE
+    w = moe.init_moe_params(c["d"], c["d_ff"], 4, rank=0, seed=c["seed"])
+    progs["moe_layer"] = (
+        lambda x, a, b, d, f=c["factor"]: moe.moe_layer(
+            x, moe.MoEParams(a, b, d), comm=ring, capacity_factor=f)[0],
+        (_meta((c["tokens"], c["d"])), *(_meta(p.shape) for p in w)), ring)
+    c = PIPE_WIDE
+    x0, ws = (torch.from_numpy(a) for a in PP.build_inputs(4, c["batch"], c["dim"]))
+    _, wi = PP.stage_weights(ws, 4, 0)
+    mbs = split_microbatches(x0, c["microbatches"])
+    prog = pipeline(PP.substage, c["microbatches"], schedule="interleaved",
+                    virtual=2, comm=ring)
+    progs["pipeline_interleaved"] = (
+        lambda m, p: prog.trace(m, p)[0], (_meta(mbs.shape), _meta(wi.shape)), ring)
+    scfg = MS.make_config("bench")
+    bucket = max(scfg.table().buckets)
+    args = tuple(_meta(s, getattr(torch, d))
+                 for s, d in scfg.program_args("decode", bucket, 4))
+    progs[f"serving_decode_bench_b{bucket}"] = (SM.decode_step, args, ring)
+    return progs
+
+
+def verifier_analyze(P, dev):
+    """(a): every program through ``analyze(ranks="all")``."""
+    from mpi4jax_tpu_torch import analyze, clear_caches
+    from mpi4jax_tpu_torch.kernels import _build
+
+    out = {}
+    before = _build.launch_totals()
+    for name, (fn, args, comm) in verifier_programs(P, dev).items():
+        clear_caches()
+        t0 = time.perf_counter()
+        rep = analyze(fn, *args, comm=comm, ranks="all")
+        seconds = time.perf_counter() - t0
+        errs = [f.code for f in rep.errors]
+        codes = sorted({f.code for f in rep.findings})
+        print(f"phase 17 (a) {name}: analyze(ranks='all') {seconds:.3f} s, "
+              f"{len(rep.events)} collectives a rank, findings {codes}")
+        if errs:
+            raise AssertionError(f"phase 17 (a) {name}: {rep.render()}")
+        out[name] = {"seconds": seconds, "events": len(rep.events),
+                     "codes": codes}
+    moved = {k: v for k, v in _build.launch_totals().items() if before.get(k) != v}
+    if moved:
+        raise AssertionError(f"phase 17 (a): the abstract runs moved {moved}")
+    print("phase 17 (a): every kernel's launch counter unmoved")
+    return out
+
+
+def verifier_ambient(P, K, dev, smi):
+    """(b): the main path under each ambient mode."""
+    from mpi4jax_tpu_torch import clear_caches, set_analyze_mode
+    from mpi4jax_tpu_torch.analysis import crossrank
+
+    cfg = P.Config(nx=3600, ny=1800)
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    out, finals = {}, {}
+    try:
+        for mode in ("off", "warn", "error"):
+            set_analyze_mode(mode)
+            clear_caches()
+            K.counter.launches = 0
+            sec, ver = crossrank.stats["seconds"], crossrank.stats["verifications"]
+            info = {}
+            wall, n_steps, final = P.solve_fused(cfg, t1, device=dev, fast="auto",
+                                                 pinned=True, return_state=True,
+                                                 info=info)
+            finals[mode] = [f.cpu() for f in final]
+            out[mode] = {"steps_per_s": n_steps / wall, "wall": wall,
+                         "n_steps": n_steps, "launches": K.counter.launches,
+                         "runs": info["runs"],
+                         "verifications": crossrank.stats["verifications"] - ver,
+                         "verify_s": crossrank.stats["seconds"] - sec}
+            print(f"phase 17 (b) solve_fused pinned 3600x1800, ANALYZE={mode}: "
+                  f"{n_steps} steps, {out[mode]['steps_per_s']:.2f} steps/s, "
+                  f"sw_steps launches {out[mode]['launches']}, "
+                  f"{out[mode]['verifications']} verification(s) in "
+                  f"{out[mode]['verify_s'] * 1e3:.2f} ms ({smi})")
+            del final
+            torch.cuda.empty_cache()
+    finally:
+        set_analyze_mode(None)
+    for mode in ("warn", "error"):
+        if out[mode]["launches"] != out["off"]["launches"]:
+            raise AssertionError(f"phase 17 (b) {mode}: launches {out[mode]}")
+        if out[mode]["verifications"] < 1:
+            raise AssertionError(f"phase 17 (b) {mode}: nothing was verified")
+        for a, b in zip(finals[mode], finals["off"]):
+            if not torch.equal(a, b) or a.numpy().tobytes() != b.numpy().tobytes():
+                raise AssertionError(f"phase 17 (b) {mode}: the final state differs")
+    if out["off"]["verifications"]:
+        raise AssertionError("phase 17 (b): the verifier ran under off")
+    print("phase 17 (b): final fields bit for bit and sw_steps launches equal "
+          "under off, warn and error")
+    return out
+
+
+def verifier_cli():
+    """(c): the command over each broken twin, four processes at once."""
+    from mpi4jax_tpu_torch.models import broken
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("MPI4JAX_TPU_ANALYZE", None)
+    t0 = time.perf_counter()
+    procs = {}
+    for name in broken.TWINS:
+        path = os.path.join("mpi4jax_tpu_torch", "models", "broken", f"{name}.py")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "mpi4jax_tpu_torch.analysis", "--ranks", "4",
+             "--json", path], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out = {}
+    for name, p in procs.items():
+        stdout, stderr = p.communicate(timeout=300)
+        codes = sorted({c for r in json.loads(stdout)["reports"] for c in r["codes"]})
+        twin = __import__(f"mpi4jax_tpu_torch.models.broken.{name}",
+                          fromlist=["CODES"])
+        if p.returncode != 1 or not twin.CODES & set(codes):
+            raise AssertionError(f"phase 17 (c) {name}: exit {p.returncode}, codes "
+                                 f"{codes}: {stderr[-2000:]}")
+        out[name] = {"exit": p.returncode, "codes": codes}
+        print(f"phase 17 (c) python -m mpi4jax_tpu_torch.analysis --ranks 4 "
+              f"--json {name}.py: exit {p.returncode}, codes {codes}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def verifier_phase(P, K, dev, smi):
+    """Phase 17 (see the module docstring); returns its summary, printed
+    as one JSON line."""
+    from mpi4jax_tpu_torch.models import broken
+
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    out["a"] = verifier_analyze(P, dev)
+    torch.cuda.empty_cache()
+    out["b"] = verifier_ambient(P, K, dev, smi)
+    out["c"] = verifier_cli()
+    t = time.perf_counter()
+    d = broken.drill("rank_divergent_deadlock",
+                     ["--launch", "4", "--device", "cuda:0", "--timeout", "60"])
+    if d["launch"] != [["MPX121"]] * 4:
+        raise AssertionError(f"phase 17 (d): {d}")
+    out["d"] = dict(d, seconds=time.perf_counter() - t)
+    print(f"phase 17 (d) rank_divergent_deadlock on four gloo ranks on this card, "
+          f"MPI4JAX_TPU_ANALYZE=error: every rank raised AnalysisError {d['launch'][0]} "
+          f"before any exchange in {out['d']['seconds']:.1f} s (limit 60 s)")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 (verifier): {out['seconds']:.1f} s; (c) "
+          f"{out['c']['seconds']:.1f}, (d) {out['d']['seconds']:.1f}")
+    return out
+
+
+def verifier_main():
+    """``python3 chip_smoke.py --verifier``: the stencil build, then phase
+    17 alone; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    K._library()
+    out = verifier_phase(P, K, torch.device("cuda"), smi)
+    print(smi)
+    print(json.dumps({"verifier": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5351,6 +5589,10 @@ def main():
     finally:
         shutil.rmtree(tier, ignore_errors=True)
     print(json.dumps({"aot": aot}, default=str))
+
+    # -- the collective verifier: abstract runs, the ambient mode, the CLI --
+    verifier = verifier_phase(P, K, dev, smi)
+    print(json.dumps({"verifier": verifier}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -5593,5 +5835,6 @@ if __name__ == "__main__":
              "--ring": ring_main, "--dispatch": dispatch_main,
              "--runtime": runtime_main, "--health": health_main,
              "--elastic": elastic_main, "--workloads": workloads_main,
-             "--serving": serving_main, "--aot": aot_main}
+             "--serving": serving_main, "--aot": aot_main,
+             "--verifier": verifier_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

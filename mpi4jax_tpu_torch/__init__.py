@@ -51,7 +51,12 @@ compiler (``pipeline``, ``PipelineProgram``: gpipe, 1f1b and interleaved,
 serving runtime (``serving``: buckets, the KV slot pool, the continuous
 and static schedulers, the tensor-parallel decoder, the engine with its
 pinned decode megastep and drain re-admission), with its twin
-(``models/serving.py``).  Nothing here imports JAX.
+(``models/serving.py``); and the collective verifier (``analysis``:
+``analyze``, the ambient ``MPI4JAX_TPU_ANALYZE`` mode with
+``set_analyze_mode``, the cross-rank deadlock pass, ``Report``,
+``Finding``, ``AnalysisError`` and ``python -m
+mpi4jax_tpu_torch.analysis``), with the broken twins of
+``models/broken/``.  Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -84,7 +89,14 @@ from .ops import (  # noqa: F401
     send,
     sendrecv,
 )
-from . import aot, compress, resilience, serving, telemetry  # noqa: F401
+from . import analysis, aot, compress, resilience, serving, telemetry  # noqa: F401
+from .analysis import (  # noqa: F401
+    AnalysisError,
+    Finding,
+    Report,
+    analyze,
+    set_analyze_mode,
+)
 from .aot import PinnedProgram, StaleProgramError, compile  # noqa: F401
 from .ops._async import (  # noqa: F401
     AsyncHandle,
@@ -136,11 +148,13 @@ from .utils import (  # noqa: F401
 )
 
 __all__ = [
+    "AnalysisError",
     "AsyncHandle",
     "BAND",
     "BOR",
     "BXOR",
     "Comm",
+    "Finding",
     "GroupComm",
     "LAND",
     "LOR",
@@ -154,6 +168,7 @@ __all__ = [
     "PipelineProgram",
     "ProcessGrid",
     "RankFailure",
+    "Report",
     "ShardStore",
     "ProfileSummary",
     "SUM",
@@ -167,6 +182,7 @@ __all__ = [
     "alltoall",
     "alltoall_start",
     "alltoall_wait",
+    "analyze",
     "aot",
     "barrier",
     "bcast",
@@ -198,6 +214,7 @@ __all__ = [
     "reduce_scatter_start",
     "reduce_scatter_wait",
     "request_drain",
+    "set_analyze_mode",
     "register_boundary_hook",
     "resilience",
     "resolve_device",

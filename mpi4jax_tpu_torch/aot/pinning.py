@@ -68,6 +68,15 @@ the first call, the first run).  ``through_disk_cache(fn, c, label)``
 routes the first call of each argument signature through the same
 record.  ``MPI4JAX_TPU_CPP_DISPATCH=false`` runs a pin on one CUDA rank
 eagerly (``aot/fastpath.py``: the graph replay is the port's fast path).
+
+The collective verifier (``analysis/``).  A replay runs no host code, so
+under the ambient mode (``MPI4JAX_TPU_ANALYZE``) ``compile`` verifies the
+program abstractly before its warm-up and capture, never inside the
+graph; the mode is part of the pin's key, and flipping it stales the pin
+(MPX129).  A call of a pin with ``donate_argnums`` records its donated
+arguments for the MPX139/MPX140 checkers (``analysis/hook.py:
+record_donation``), and inside an abstract run a pin runs its body on
+the run's ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -78,7 +87,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..analysis import hook as _analysis
 from ..kernels import _build
+from ..ops._base import hooks as _hooks
 from ..ops._base import per_op_hook as _per_op_hook
 from ..telemetry import core as _telemetry
 from ..utils import config
@@ -281,12 +292,17 @@ class PinnedProgram:
     replay (``aot/fastpath.py``)."""
 
     __slots__ = ("_run", "_world", "_respec", "fn_name", "key",
-                 "donate_argnums", "unroll", "from_disk", "fast_path")
+                 "donate_argnums", "unroll", "from_disk", "fast_path",
+                 "_body", "_donate_call")
 
     def __init__(self, run, world: WorldStamp, respec, fn_name: str, key,
                  donate_argnums, unroll: int, from_disk: bool = False,
-                 fast_path: bool = False):
+                 fast_path: bool = False, body=None, donate_call=()):
         self._run = run
+        # the body itself, which an abstract run calls on its meta
+        # tensors, and the donated positions among the call's arguments
+        self._body = body
+        self._donate_call = tuple(donate_call)
         self._world = world
         self._respec = respec
         self.fn_name = fn_name
@@ -318,6 +334,14 @@ class PinnedProgram:
             _stats.stale_raises += 1
             world.check(f"pinned program {self.fn_name!r}")
         _stats.calls += 1
+        if self._donate_call:
+            h = _hooks()
+            if h is not None and (h.collect or h.analyze):
+                donated = [args[i] for i in self._donate_call if i < len(args)]
+                _analysis.record_donation(donated,
+                                          f"pinned call {self.fn_name!r}")
+        if _analysis.recording():
+            return self._body(*args)
         return self._run(*args)
 
     def is_stale(self) -> bool:
@@ -413,9 +437,11 @@ def record_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int) -> str
 
 def program_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int,
                 donate) -> str:
-    """What a pin captured, as one key: ``record_key``'s parts and the
-    donation."""
-    return _key(name, fn, dyn_leaves, static_vals, comm, unroll, tuple(donate))
+    """What a pin captured, as one key: ``record_key``'s parts, the
+    donation and the verifier's mode (``analysis_cache_token``): a pin
+    verified under one mode is not the pin of another."""
+    return _key(name, fn, dyn_leaves, static_vals, comm, unroll, tuple(donate),
+                _analysis.analysis_cache_token())
 
 
 def _compiles() -> int:
@@ -588,6 +614,18 @@ def compile(fn, *example_args, comm=None, donate_argnums=(),
         n_unroll = resolve_unroll(unroll, len(dyn), what="compile")
         body = region_body(inner, c, statics, static_vals, n_unroll)
 
+    # verified before the warm-up and the capture: a replay runs no host
+    # code, and the region body's own check then finds its key verified
+    if wrap is not False and _analysis.effective_mode() != "off" \
+            and not _analysis.recording():
+        from ..analysis.crossrank import verify_region
+
+        _analysis._pinning[0] += 1
+        try:
+            verify_region(inner, c, statics, static_vals, n_unroll, dyn, {},
+                          body)
+        finally:
+            _analysis._pinning[0] -= 1
     # captured before the warm-up: a knob moved during the pin leaves a
     # stamp that refuses the first call
     world = WorldStamp.capture()
@@ -617,12 +655,14 @@ def compile(fn, *example_args, comm=None, donate_argnums=(),
     if fast:
         _stats.fast_path_pins += 1
     key = program_key(name, inner, leaves, static_vals, c, n_unroll, donate)
+    dyn_pos = [i for i in range(len(example_args)) if i not in statics]
 
     def respec():
         return compile(fn, *example_args, **spec)
 
     return PinnedProgram(run, world, respec, name, key, donate, n_unroll,
-                         from_disk, fast)
+                         from_disk, fast, body=body,
+                         donate_call=[dyn_pos.index(i) for i in donate])
 
 
 # ---------------------------------------------------------------------------

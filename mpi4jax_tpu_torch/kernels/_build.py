@@ -242,6 +242,18 @@ def check_cuda_fields(what: str, fields, shape) -> None:
             )
 
 
+def check_meta_fields(what: str, fields, shape) -> None:
+    """The shape rule's checks on ``meta`` fields (the verifier's abstract
+    run, ``analysis/``): f32 tensors, each of ``shape``, as a launch
+    needs."""
+    for f in fields:
+        if f.device.type != "meta" or f.dtype != torch.float32:
+            raise ValueError(f"{what}: fields must be f32 meta tensors")
+        if tuple(f.shape) != tuple(shape):
+            raise ValueError(
+                f"{what}: fields must be {tuple(shape)}, got {tuple(f.shape)}")
+
+
 def raise_on_error(what: str, err: int) -> None:
     """Raise if a launch function returned a CUDA error."""
     if err != 0:

@@ -194,8 +194,9 @@ def block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l, *, scale: float,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_inputs(q, k, v, mask) -> None:
-    dev = q.device
+def _check_kernel_shapes(q, k, v, mask) -> None:
+    """The kernels' shape and dtype contract (``_check_kernel_inputs``
+    without the memory layout)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_block_partials: q, k, v must be (B, T, H, D)")
     b, tq, h, d = q.shape
@@ -212,6 +213,16 @@ def _check_kernel_inputs(q, k, v, mask) -> None:
         raise ValueError(f"flash_block_partials: head dim {d} not in {HEAD_DIMS}")
     if b * h > 65535:
         raise ValueError(f"flash_block_partials: B*H = {b * h} exceeds 65535")
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (tq, k.shape[1])):
+        raise ValueError(
+            f"flash_block_partials: mask must be bool {(tq, k.shape[1])}")
+
+
+def _check_kernel_inputs(q, k, v, mask) -> None:
+    _check_kernel_shapes(q, k, v, mask)
+    dev = q.device
+    tq, tk = q.shape[1], k.shape[1]
     align = 4 * q.element_size()  # each thread loads 4 elements at once
     for t in (q, k, v):
         if t.device != dev:
@@ -228,6 +239,16 @@ def _check_kernel_inputs(q, k, v, mask) -> None:
                 or mask.device != dev:
             raise ValueError(
                 f"flash_block_partials: mask must be bool {(tq, tk)} on {dev}")
+
+
+def _meta_partials(q, k, v, mask):
+    """The forward kernels' shape rule for ``meta`` tensors (the
+    verifier's abstract run, ``analysis/``): ``(o, m, l)`` of the kernels'
+    shapes and dtypes, nothing launched."""
+    _check_kernel_shapes(q, k, v, mask)
+    b, tq, h, _ = q.shape
+    m = torch.empty((b, h, tq), dtype=torch.float32, device="meta")
+    return torch.empty(q.shape, dtype=q.dtype, device="meta"), m, torch.empty_like(m)
 
 
 def _check_device(q) -> None:
@@ -402,6 +423,10 @@ def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
     if q.device.type == "cpu":
         return block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l,
                                         scale=scale, causal=causal)
+    if q.device.type == "meta":  # the backward kernels' shape rule
+        _check_kernel_shapes(q, k, v, mask)
+        return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                     for t in (q, k, v))
     dq = flash_bwd_dq(q, k, v, mask, m, g_o, g_l, scale=scale, causal=causal)
     dk, dv = flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, scale=scale,
                            causal=causal)
@@ -419,6 +444,8 @@ class FlashPartials(torch.autograd.Function):
         if q.device.type == "cpu":
             o, m, l = block_partials_plain(q, k, v, mask, scale=scale,
                                            causal=causal)
+        elif q.device.type == "meta":
+            o, m, l = _meta_partials(q, k, v, mask)
         else:
             o, m, l = _kernel_partials(q, k, v, mask, scale, causal)
         ctx.save_for_backward(q, k, v, m)
@@ -448,8 +475,11 @@ def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False,
     kernels (forward, and backward under autograd), or raise.  CPU
     tensors take the natively differentiable plain version, or with
     ``custom_backward=True`` the plain forward and backward of the
-    blockwise ``FlashPartials``."""
+    blockwise ``FlashPartials``.  ``meta`` tensors (the verifier's
+    abstract run) take the kernels' shape rule and launch nothing."""
     _check_causal(q, k, mask, causal)
+    if q.device.type == "meta" and not torch.is_grad_enabled():
+        return _meta_partials(q, k, v, mask)
     if q.device.type == "cpu" and not custom_backward:
         return block_partials_plain(q, k, v, mask, scale=scale, causal=causal)
     return FlashPartials.apply(q, k, v, mask, scale, causal)

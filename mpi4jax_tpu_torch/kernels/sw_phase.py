@@ -134,9 +134,13 @@ def _launch_device(fields):
 def sw_phase1(fields, cfg, first_step: bool, offsets):
     """Phase 1 of one step on the local state ``fields`` (h, u, v, dh, du,
     dv) of the rank at ``offsets``.  On CPU tensors this is the plain
-    version; on CUDA tensors it launches the kernel, or raises."""
+    version; on CUDA tensors it launches the kernel, or raises; ``meta``
+    tensors take the shape rule (``sw_steps``)."""
     if fields[0].device.type == "cpu":
         return sw_phase1_plain(fields, cfg, first_step, offsets)
+    if fields[0].device.type == "meta":
+        _build.check_meta_fields("sw_phase", fields, (cfg.ny_local, cfg.nx_local))
+        return tuple(torch.empty_like(f) for f in fields)
     stream = _launch_device(fields)
     _build.check_cuda_fields("sw_phase", fields, (cfg.ny_local, cfg.nx_local))
     outs = tuple(torch.empty_like(f) for f in fields)
@@ -153,9 +157,13 @@ def sw_phase1(fields, cfg, first_step: bool, offsets):
 def sw_phase2(u, v, cfg, offsets):
     """Phase 2 of one step on ``u`` and ``v`` of the rank at ``offsets``;
     returns the new ``(u, v)``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise."""
+    tensors launch the kernel, or raise; ``meta`` tensors take the shape
+    rule."""
     if u.device.type == "cpu":
         return sw_phase2_plain(u, v, cfg, offsets)
+    if u.device.type == "meta":
+        _build.check_meta_fields("sw_phase", (u, v), (cfg.ny_local, cfg.nx_local))
+        return torch.empty_like(u), torch.empty_like(v)
     stream = _launch_device((u, v))
     _build.check_cuda_fields("sw_phase", (u, v), (cfg.ny_local, cfg.nx_local))
     ou, ov = torch.empty_like(u), torch.empty_like(v)

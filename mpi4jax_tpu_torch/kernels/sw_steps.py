@@ -353,11 +353,16 @@ def geometry(shape, nsteps: int):
 def sw_steps(fields, cfg, first_step: bool, nsteps: int):
     """``nsteps`` whole model steps on the local state ``fields`` (h, u, v,
     dh, du, dv).  On CPU tensors this is the plain version; on CUDA
-    tensors it launches the kernel, on the current stream, or raises."""
+    tensors it launches the kernel, on the current stream, or raises.
+    ``meta`` tensors (the verifier's abstract run, ``analysis/``) take the
+    shape rule: empty outputs of the kernel's shapes, nothing launched."""
     _check_eligible(cfg, nsteps)
     h = fields[0]
     if h.device.type == "cpu":
         return sw_steps_plain(fields, cfg, first_step, nsteps)
+    if h.device.type == "meta":
+        _build.check_meta_fields("sw_steps", fields, (cfg.ny_local, cfg.nx_local))
+        return tuple(torch.empty_like(f) for f in fields)
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_steps: unsupported device {h.device}")
     shape = (cfg.ny_local, cfg.nx_local)

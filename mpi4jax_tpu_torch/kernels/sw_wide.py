@@ -148,11 +148,15 @@ def sw_wide_plain(fields, cfg, first_step: bool, nsteps: int, offsets):
 def sw_wide(fields, cfg, first_step: bool, nsteps: int, offsets):
     """``nsteps`` whole steps on the widened frame ``fields`` (h, u, v, dh,
     du, dv).  On CPU tensors this is the plain version; on CUDA tensors it
-    launches the kernel, on the current stream, or raises."""
+    launches the kernel, on the current stream, or raises; ``meta``
+    tensors take the shape rule (``sw_steps``)."""
     _check_steps(nsteps)
     h = fields[0]
     if h.device.type == "cpu":
         return sw_wide_plain(fields, cfg, first_step, nsteps, offsets)
+    if h.device.type == "meta":
+        _build.check_meta_fields("sw_wide", fields, tuple(h.shape))
+        return tuple(torch.empty_like(f) for f in fields)
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_wide: unsupported device {h.device}")
     shape = tuple(h.shape)

@@ -91,6 +91,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -509,31 +510,91 @@ def run_joiner(args) -> int:
 # ---------------------------------------------------------------------------
 
 
+def ephemeral_low(default: int = 32768) -> int:
+    """The first port of the host's ephemeral range, from which outgoing
+    connections (gloo's among them) take their local ports."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return default
+
+
+# the lowest port a window starts at, and the slices the ports below the
+# ephemeral range are cut into under pytest-xdist: one a worker
+# (PYTEST_XDIST_WORKER), so that concurrent test workers draw from
+# disjoint windows
+PORT_FLOOR = 10000
+PORT_SLICES = 8
+
+# where this process's next window starts, as an offset into its range:
+# consecutive calls get disjoint windows, so launches that one process
+# runs side by side never share a port
+_next_window = {"offset": None}
+_next_window_lock = threading.Lock()
+
+
+def port_range() -> tuple:
+    """``(lo, hi)``: the ports this process draws its windows from, below
+    the ephemeral range (``ephemeral_low``); under pytest-xdist the
+    worker's slice of them, else all of them."""
+    top = min(32000, ephemeral_low())
+    worker = os.environ.get("PYTEST_XDIST_WORKER")
+    if worker is None:
+        return PORT_FLOOR, top
+    slot = int(worker[2:]) if worker[2:].isdigit() else 0
+    width = (top - PORT_FLOOR) // PORT_SLICES
+    lo = PORT_FLOOR + (slot % PORT_SLICES) * width
+    return lo, lo + width
+
+
 def free_port_base(ranks: int, epochs: int = 4, tries: int = 50) -> int:
     """A port base whose elastic ports are free for ``epochs`` epochs of up
     to ``ranks`` ranks: the agreement's (the coordinator star's,
     ``agree_port``, and the gossip ports, ``port_base + 100 + 17 * epoch
     + rank``), the control listeners' (``control_port``) and the join
-    listener's (``join_port``).  Bases are drawn at random, so concurrent
-    launches (test workers) rarely collide."""
+    listener's (``join_port``).  The window lies in ``port_range``, below
+    the ephemeral range: an outgoing connection cannot take one of its
+    ports between this check and the listeners' binds.  A process hands
+    out consecutive windows from a random start and wraps at the range's
+    end, so the windows of launches it runs side by side are disjoint (a
+    random draw each call could put two of them on one port, and a
+    survivor's agreement could then reach another launch's listener); a
+    window with a port in use is skipped."""
     from ..resilience import elastic
 
     span = elastic.config.elastic_port_span()
-    for _ in range(tries):
-        base = random.randrange(20000, 60000 - 5 * span)
+
+    def window(base):
         ports = {elastic.agree_port(base, e, span) for e in range(epochs)}
         ports |= {elastic.join_port(base, e, span) for e in range(epochs)}
         ports |= {base + 100 + 17 * elastic.wrapped_epoch(e, span) + r
                   for e in range(epochs) for r in range(ranks)}
         ports |= {elastic.control_port(base, r, e, span)
                   for e in range(2) for r in range(min(ranks, span))}
-        try:
-            for p in ports:
-                with socket.socket() as s:
-                    s.bind(("localhost", p))
-        except OSError:
-            continue
-        return base
+        return ports
+
+    extent = max(5 * span, max(window(0)) + 1)
+    lo, hi = port_range()
+    if hi - lo < extent:
+        raise RuntimeError(f"free_port_base: the ports {lo}-{hi} hold no "
+                           f"window of {extent}")
+    with _next_window_lock:
+        if _next_window["offset"] is None:
+            _next_window["offset"] = random.randrange(hi - lo - extent + 1)
+        for _ in range(tries):
+            offset = _next_window["offset"]
+            if lo + offset + extent > hi:
+                offset = 0
+            _next_window["offset"] = offset + extent
+            base = lo + offset
+            try:
+                for p in window(base):
+                    with socket.socket() as s:
+                        s.bind(("localhost", p))
+            except OSError:
+                continue
+            return base
     raise RuntimeError("free_port_base: no free port window found")
 
 

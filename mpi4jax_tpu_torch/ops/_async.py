@@ -69,7 +69,9 @@ from ..parallel.comm import Comm
 from ..parallel.region import current_context
 from ..utils import config
 from . import _fusion
-from ._base import SUM, Op, check_comm, combine_fn, fold, mpx_error, run_body
+from ..analysis import hook as _analysis
+from ._base import (SUM, Op, check_comm, combine_fn, fold, meta_like, mpx_error,
+                    reduction_name, run_body)
 from ._staging import Exchange
 from .recv import match, recv
 from .send import queue, send
@@ -101,7 +103,7 @@ class AsyncHandle:
 
     __slots__ = ("kind", "comm", "reduction", "shape", "dtype", "device",
                  "sizes", "k", "mode", "pieces", "uid", "waited", "exchange",
-                 "order", "loop", "span")
+                 "order", "loop", "span", "piece")
 
     def __init__(self, kind, comm, reduction):
         self.kind = kind
@@ -116,6 +118,9 @@ class AsyncHandle:
         self.loop = None
         # the instrumentation span the start opened (_span_open)
         self.span = None
+        # an abstract run's (analysis/): what the wait's event records,
+        # the JAX package's first exchange piece
+        self.piece = None
 
     def __repr__(self):
         state = "waited" if self.waited else "in-flight"
@@ -223,16 +228,45 @@ def _span_close(handle: AsyncHandle, results) -> None:
         span.finish([r for r in results if isinstance(r, torch.Tensor)])
 
 
-def _dispatch_start(opname: str, comm, body, arrays, token, handle):
+def _dispatch_start(opname: str, comm, body, arrays, token, handle, ana,
+                    result=meta_like, piece=None):
     """A start through the dispatch point; a start that raises after its
-    span opened disarms it (its wait will never come)."""
+    span opened disarms it (its wait will never come).  ``ana`` is its
+    static structure for the verifier; in an abstract run the start
+    returns a handle whose result is ``result(x)`` (a ``meta`` tensor)
+    and whose wait records ``piece(x)`` (default the result)."""
+
+    def abstract(arrays, token):
+        (x,) = arrays
+        handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
+        res = result(x)
+        handle.shape = res.shape
+        handle.piece = res if piece is None else piece(x)
+        _full(handle, res)
+        return handle, produce(token)
+
     try:
-        return run_body(opname, comm, body, arrays, token, bare=True)
+        return run_body(opname, comm, body, arrays, token, bare=True, ana=ana,
+                        abstract=abstract)
     except BaseException:
         span, handle.span = handle.span, None
         if span is not None:
             span.disarm()
         raise
+
+
+def _dispatch_wait(opname: str, handle, body, token):
+    """A wait through the dispatch point; an abstract run records the
+    handle's piece and returns its ``meta`` result."""
+    arrays = ()
+    ana = {"span": handle.uid}
+    if _analysis.recording():
+        arrays = (handle.piece,)
+        if isinstance(handle, P2PHandle):
+            ana["tag"] = handle.tag
+    return run_body(opname, handle.comm, body, arrays, token, bare=True,
+                    ana=ana, abstract=lambda a, t: (
+                        _done(handle, handle.pieces[0]), produce(t)))
 
 
 def _meter_chunks(opname: str, comm, dtype, n_chunks: int) -> None:
@@ -322,8 +356,20 @@ def allreduce_start(x, op=None, *, comm: Optional[Comm] = None,
         _issue(handle, x.device, len(handle.sizes), issue)
         return handle, produce(token)
 
+    def piece(x):
+        # the JAX package's first ring piece: a rank's block of the first
+        # chunk
+        k = len(comm.members())
+        if k == 1:
+            return meta_like(x)
+        sizes = overlap_chunk_split(
+            x.numel(), config.overlap_chunks(x.numel() * x.element_size()))
+        return meta_like(x, (-(-sizes[0] // k),))
+
     return _dispatch_start("allreduce_start", comm, body,
-                           (_fusion.materialize_value(x),), token, handle)
+                           (_fusion.materialize_value(x),), token, handle,
+                           {"reduction": reduction_name(op), "span": handle.uid},
+                           piece=piece)
 
 
 def allreduce_wait(handle, *, token: Optional[Token] = None):
@@ -340,7 +386,7 @@ def allreduce_wait(handle, *, token: Optional[Token] = None):
                 handle.shape)
         return _done(handle, res), produce(token)
 
-    return run_body("allreduce_wait", handle.comm, body, (), token, bare=True)
+    return _dispatch_wait("allreduce_wait", handle, body, token)
 
 
 # ---------------------------------------------------------------------------
@@ -414,7 +460,17 @@ def alltoall_start(x, *, comm: Optional[Comm] = None,
             _start_blocks(handle, x, comm)
         return handle, produce(token)
 
-    return _dispatch_start("alltoall_start", comm, body, (x,), token, handle)
+    def piece(x):
+        # the JAX package's first exchange piece: every block's first chunk
+        if handle.k == 1:
+            return meta_like(x)
+        blocks = x.reshape(handle.k, -1)
+        sizes = overlap_chunk_split(
+            blocks.shape[1], config.overlap_chunks(x.numel() * x.element_size()))
+        return meta_like(x, (handle.k, sizes[0]))
+
+    return _dispatch_start("alltoall_start", comm, body, (x,), token, handle,
+                           {"span": handle.uid}, piece=piece)
 
 
 def alltoall_wait(handle, *, token: Optional[Token] = None):
@@ -427,7 +483,7 @@ def alltoall_wait(handle, *, token: Optional[Token] = None):
                else _received_rows(handle).reshape(handle.shape))
         return _done(handle, res), produce(token)
 
-    return run_body("alltoall_wait", handle.comm, body, (), token, bare=True)
+    return _dispatch_wait("alltoall_wait", handle, body, token)
 
 
 def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
@@ -454,7 +510,9 @@ def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
         return handle, produce(token)
 
     return _dispatch_start("reduce_scatter_start", comm, body, (x,), token,
-                           handle)
+                           handle,
+                           {"reduction": reduction_name(op), "span": handle.uid},
+                           result=lambda x: meta_like(x, x.shape[1:]))
 
 
 def reduce_scatter_wait(handle, *, token: Optional[Token] = None):
@@ -472,7 +530,7 @@ def reduce_scatter_wait(handle, *, token: Optional[Token] = None):
                 handle.shape)
         return _done(handle, res), produce(token)
 
-    return run_body("reduce_scatter_wait", handle.comm, body, (), token, bare=True)
+    return _dispatch_wait("reduce_scatter_wait", handle, body, token)
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +553,14 @@ def send_start(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
         _full(handle, x)
         return handle, produce(token)
 
+    from .send import abstract_send
+    from .sendrecv import _p2p_ana
+
+    ana = dict(_p2p_ana(comm, None, dest, tag, "send_start"), span=handle.uid)
+    if _analysis.recording():
+        abstract_send(x, dest, tag, comm, ana["pairs"])
     return _dispatch_start("send_start", comm, body,
-                           (_fusion.materialize_value(x),), token, handle)
+                           (_fusion.materialize_value(x),), token, handle, ana)
 
 
 def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
@@ -533,8 +597,13 @@ def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
         _issue(handle, x.device, 1, issue)
         return handle, produce(token)
 
+    from .recv import abstract_match
+
+    ana = {"span": handle.uid, "tag": tag}
+    if _analysis.recording():
+        ana.update(abstract_match(x, source, tag, comm, None, "recv_start"))
     return _dispatch_start("recv_start", comm, body,
-                           (_fusion.materialize_value(x),), token, handle)
+                           (_fusion.materialize_value(x),), token, handle, ana)
 
 
 def p2p_wait(handle, *, token: Optional[Token] = None):
@@ -547,7 +616,7 @@ def p2p_wait(handle, *, token: Optional[Token] = None):
         res = handle.pieces[0] if handle.mode == "full" else _collect(handle)[0]
         return _done(handle, res), produce(token)
 
-    return run_body("p2p_wait", handle.comm, body, (), token, bare=True)
+    return _dispatch_wait("p2p_wait", handle, body, token)
 
 
 def _done(handle: AsyncHandle, res):

@@ -1,14 +1,16 @@
 """Shared pieces of the ops: the reductions, MPX-tagged errors, buffer checks.
 
 PyTorch counterpart of ``mpi4jax_tpu/ops/_base.py`` (``Op``, the local
-combine of each reduction, ``combine_fn``) and of the
-part of ``mpi4jax_tpu/analysis/report.py`` that the ops raise.  The codes
-keep the JAX package's meaning, so a message greps the same:
+combine of each reduction, ``combine_fn``).  The MPX codes the ops raise
+come from the one catalog of ``analysis/report.py`` (``mpx_error``), with
+the JAX package's meaning, so a message greps the same:
 
 - MPX101, unmatched send: a send still queued at ``flush()``;
 - MPX102, recv without matching send: a recv found no queued send on its
   (comm, tag);
 - MPX103, bare-int routing;
+- MPX104, a root, tag or routing that is the rank of an abstract per-rank
+  run (``analysis/schedule.py:RankConcrete``);
 - MPX105, root out of range;
 - MPX106, send/recv type-signature mismatch;
 - MPX112, an async start waited twice, or never waited in its region;
@@ -29,8 +31,9 @@ is associative but not commutative gives the same bits on every rank, and
 the JAX package's bits.
 
 ``run_body`` is the dispatch point every op goes through (the JAX
-package's ``_run_body``): the runtime services bracket each call there
-(see its docstring).
+package's ``_run_body``): the runtime services bracket each call there,
+and the collective verifier (``analysis/``) records there (see its
+docstring).
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from ..analysis import hook as _analysis
+from ..analysis.report import mpx_error
+from ..analysis.schedule import RankConcrete
 from ..parallel.region import current_context
 from ..resilience import elastic as _elastic
 from ..resilience import runtime as _resilience
@@ -51,8 +57,9 @@ from ..utils import debug as _debug
 from ..utils import profiling as _profiling
 from ._fusion import flush_pending
 
-CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX105", "MPX106", "MPX112",
-                   "MPX126", "MPX127", "MPX129", "MPX130"})
+# the codes the ops raise at dispatch, each an entry of the catalog
+CODES = frozenset({"MPX101", "MPX102", "MPX103", "MPX104", "MPX105", "MPX106",
+                   "MPX112", "MPX126", "MPX127", "MPX129", "MPX130"})
 
 
 class Op(enum.Enum):
@@ -124,16 +131,6 @@ def fold(blocks, fn: Callable):
     return acc[0]
 
 
-def mpx_error(exc_type, code: str, message: str):
-    """Build an exception tagged with a stable MPX code: the code rides
-    along as ``exc.mpx_code`` and is appended to the message."""
-    if code not in CODES:
-        raise KeyError(f"unknown MPX code {code}")
-    exc = exc_type(f"{message} [{code}]")
-    exc.mpx_code = code
-    return exc
-
-
 def check_send_recv(sendbuf, recvbuf, what: str) -> None:
     """MPI's type-signature rule: equal dtypes, and shapes that differ only
     where the element counts match (the result takes ``recvbuf``'s shape)."""
@@ -152,9 +149,33 @@ def check_send_recv(sendbuf, recvbuf, what: str) -> None:
         )
 
 
+def reduction_name(op) -> str:
+    """The name of a reduction in the verifier's event stream (the JAX
+    package's ``reduction_name``)."""
+    if isinstance(op, Op):
+        return op.value
+    return getattr(op, "__name__", "callable")
+
+
+def refuse_rank_concrete(value, name: str, what: str) -> None:
+    """MPX104: the rank of an abstract per-rank run is data, never a
+    structural argument (a root, a tag): one program's structure serves
+    every rank, and a per-rank run must refuse what the real run would."""
+    if type(value) is RankConcrete:
+        raise mpx_error(
+            TypeError, "MPX104",
+            f"{what}: argument {name!r} is the comm rank (concretized for "
+            "per-rank analysis); structural arguments like roots, tags, and "
+            "routing specs must be rank-uniform static Python values — one "
+            "program's structure serves all ranks. Use a static value, or "
+            "derive per-rank DATA from the rank instead.",
+        )
+
+
 def check_root(root: int, size: int, what: str) -> None:
     """A static root must name a rank of the communicator (MPX105); on a
     color split, ``size`` is the smallest group's."""
+    refuse_rank_concrete(root, "root", what)
     if isinstance(root, bool) or not isinstance(root, int):
         raise TypeError(f"{what}: root must be an int, got {type(root).__name__}")
     if not 0 <= root < size:
@@ -228,12 +249,16 @@ class Hooks:
     runtime trace), ``logging`` (the per-op debug line), ``resilience``
     (a watchdog timeout, a fault spec or numeric guards) and
     ``profiling`` (an open ``profile_ops`` capture, which names each op
-    call's range; it runs nothing a pin must run eagerly for)."""
+    call's range; it runs nothing a pin must run eagerly for); and the
+    verifier's: ``collect`` (an abstract run records, ``analysis/hook.py``)
+    and ``analyze`` (the ambient mode is ``warn`` or ``error``)."""
 
     __slots__ = ("telemetry", "events", "tracing", "logging", "resilience",
-                 "profiling", "per_op")
+                 "profiling", "per_op", "collect", "analyze")
 
     def __init__(self):
+        self.collect = _analysis.recording()
+        self.analyze = _analysis.effective_mode() != "off"
         mode = _telemetry.effective_mode()
         self.telemetry = mode != "off"
         self.events = mode == "events"
@@ -254,9 +279,12 @@ class Hooks:
                   ("MPI4JAX_TPU_DEBUG", self.logging))
         self.per_op = next((name for name, on in per_op if on), None)
 
-    def any(self) -> bool:
+    def services(self) -> bool:
         return (self.telemetry or self.tracing or self.logging
                 or self.resilience or self.profiling)
+
+    def any(self) -> bool:
+        return self.services() or self.collect or self.analyze
 
 
 _hooks_cell: list = [None, None]  # [service stamp, Hooks or None]
@@ -287,7 +315,8 @@ def per_op_hook() -> Optional[str]:
 _depth = [0]
 
 
-def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
+def run_body(opname: str, comm, body, arrays=(), token=None, bare=False,
+             ana=None, abstract=None):
     """Run op ``body(comm, arrays, token)`` bracketed by the runtime
     services every op shares, and return what it returns.  In the JAX
     package's order:
@@ -312,13 +341,32 @@ def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
     While a ``profile_ops`` capture is open, the call runs inside its
     ``mpi4jax_tpu.<op>`` range (``utils/profiling.py``).
 
+    The verifier (``analysis/``): while an abstract run records, the op's
+    event is recorded with ``ana``, its static structure (root, tag,
+    routing pairs, reduction, span), and the body is not called:
+    ``abstract(arrays, token)`` gives what the op returns, one rank's
+    result as ``meta`` tensors (default: a tensor like ``arrays[0]`` and
+    the token, or the token alone).  Under the ambient mode an op called
+    outside every region is verified at its first call for each static
+    key, before it runs (``analysis/crossrank.py:verify_eager``).
+
     The end hooks run when the body has returned, and the body returns
     with its result ready: a multi-rank op on gloo stages its exchange
     through host memory and waits for it (``ops/_staging.py``).  A route
     with no message returns with its copy queued on the device.
     """
     h = hooks()
-    if h is None or _depth[0]:
+    if h is None:
+        return body(comm, arrays, token)
+    if h.collect:
+        return _record(opname, comm, arrays, token, ana, abstract)
+    if _depth[0]:
+        return body(comm, arrays, token)
+    if h.analyze and current_context() is None:
+        from ..analysis.crossrank import verify_eager
+
+        verify_eager(opname, comm, arrays, token, ana)
+    if not h.services():
         return body(comm, arrays, token)
     _depth[0] += 1
     try:
@@ -328,6 +376,36 @@ def run_body(opname: str, comm, body, arrays=(), token=None, bare=False):
         return _instrumented(h, opname, comm, body, arrays, token, bare)
     finally:
         _depth[0] -= 1
+
+
+def meta_like(t: torch.Tensor, shape=None) -> torch.Tensor:
+    """An abstract result: a ``meta`` tensor of ``t``'s dtype and
+    ``shape`` (default ``t``'s)."""
+    return torch.empty(t.shape if shape is None else shape, dtype=t.dtype,
+                       device="meta")
+
+
+def _record(opname, comm, arrays, token, ana, abstract):
+    """One op of an abstract run: its event, and its abstract output."""
+    from .token import produce
+
+    ctx = current_context()
+    evt = _analysis.begin_event(opname, comm, arrays, token, ana, ctx,
+                                eager=ctx is None)
+    try:
+        if abstract is not None:
+            out = abstract(arrays, token)
+        elif arrays:
+            out = (meta_like(arrays[0]), produce(token))
+        else:
+            out = produce(token)
+    except BaseException:
+        if evt is not None:
+            _analysis.abort_event(evt)
+        raise
+    if evt is not None:
+        _analysis.end_event(evt, out)
+    return out
 
 
 def _instrumented(h: Hooks, opname, comm, body, arrays, token, bare):
@@ -472,11 +550,13 @@ def cache_stats() -> dict:
 
 def clear_caches() -> None:
     """Empty the resilience plan memo (its counts too) and reset the pin,
-    disk-tier and build counters; the tier's files stay on disk.  A pinned
-    program keeps its graph: it is dropped with the object, as the JAX
-    package's ``spmd`` programs are."""
+    disk-tier and build counters; the tier's files stay on disk.  Drop the
+    verifier's memo of ``analyze`` reports and of the keys the ambient
+    mode verified.  A pinned program keeps its graph: it is dropped with
+    the object, as the JAX package's ``spmd`` programs are."""
     from .. import aot
     from ..resilience import runtime as _rt
 
     _rt.clear_plan_memo()
     aot.reset_stats()
+    _analysis.clear_analysis_caches()

@@ -314,8 +314,13 @@ class _Queue:
 def maybe_defer(opname: str, x, comm, token, reduction=None, root=None):
     """Queue one fusable op and return ``(LazyResult, token)``, or ``None``
     where the layer is inactive: mode ``off``, outside a region, during a
-    flush, or an op that does not fuse."""
+    flush, an op that does not fuse, or an abstract run of the verifier
+    (``analysis/``), which records each member as its own event."""
     if _inhibit or opname not in FUSABLE_OPS or effective_mode() == "off":
+        return None
+    from ..analysis.hook import recording
+
+    if recording():
         return None
     from ..parallel.region import current_context
 

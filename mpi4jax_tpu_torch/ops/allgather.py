@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
-from ._base import check_comm, fold, run_body
+from ._base import check_comm, fold, meta_like, run_body
 from ._staging import Exchange
 from .alltoall import _exchange as _alltoall
 from .token import Token, produce
@@ -94,7 +94,8 @@ def allgather(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
     """Gather ``x`` from every rank; every rank receives
     ``(size, *x.shape)``.  Returns ``(result, token)``."""
     comm = check_comm(comm, "allgather")
-    comm.Get_size()  # the uniform group size, or the JAX package's error
+    size = comm.Get_size()  # the uniform group size, or the JAX package's error
     return run_body("allgather", comm,
                     lambda c, a, t: (allgather_any(a[0], c), produce(t)),
-                    (x,), token)
+                    (x,), token, abstract=lambda a, t: (
+                        meta_like(a[0], (size, *a[0].shape)), produce(t)))

@@ -57,7 +57,8 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from . import _async, _fusion
-from ._base import SUM, Op, OpLike, check_comm, combine_fn, fold, run_body
+from ._base import (SUM, Op, OpLike, check_comm, combine_fn, fold,
+                    reduction_name, run_body)
 from ._staging import Exchange
 from .allgather import _AllGather
 from .token import Token, produce
@@ -164,7 +165,8 @@ def allreduce(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
     comm = check_comm(comm, "allreduce")
     return run_body("allreduce", comm,
                     lambda c, a, t: (reduce_all(a[0], op, c), produce(t)),
-                    (_fusion.materialize_value(x),), token)
+                    (_fusion.materialize_value(x),), token,
+                    ana={"reduction": reduction_name(op)})
 
 
 def reduce_all(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:

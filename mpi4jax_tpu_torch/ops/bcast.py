@@ -103,4 +103,5 @@ def bcast(x, root: int, *, comm: Optional[Comm] = None,
             return x.clone(), produce(token)
         return _Bcast.apply(x, root, comm), produce(token)
 
-    return run_body("bcast", comm, body, (_fusion.materialize_value(x),), token)
+    return run_body("bcast", comm, body, (_fusion.materialize_value(x),), token,
+                    ana={"root": root})

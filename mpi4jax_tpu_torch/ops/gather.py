@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, check_root, run_body
+from ._base import check_comm, check_root, meta_like, run_body
 from .allgather import allgather_any
 from .token import Token, produce
 
@@ -22,7 +22,9 @@ def gather(x, root: int, *, comm: Optional[Comm] = None,
     """Gather ``x`` from every rank to ``root``; every rank gets the
     ``(size, *x.shape)`` result.  Returns ``(result, token)``."""
     comm = check_comm(comm, "gather")
-    check_root(root, comm.Get_size(), "gather")
+    size = comm.Get_size()
+    check_root(root, size, "gather")
     return run_body("gather", comm,
                     lambda c, a, t: (allgather_any(a[0], c), produce(t)),
-                    (x,), token)
+                    (x,), token, ana={"root": root}, abstract=lambda a, t: (
+                        meta_like(a[0], (size, *a[0].shape)), produce(t)))

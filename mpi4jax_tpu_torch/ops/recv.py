@@ -19,9 +19,11 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, mpx_error, run_body
+from ..analysis import hook as _analysis
+from ..analysis.schedule import concretizing
+from ._base import check_comm, meta_like, mpx_error, run_body
 from .send import check_no_overtake, check_tag, queue
-from .sendrecv import _SendRecv, fill_status, routing
+from .sendrecv import _SendRecv, fill_status, peers, routing
 from .status import Status
 from .token import Token, produce
 
@@ -31,6 +33,10 @@ def recv(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
     """Receive into ``x``'s shape and dtype from the matching ``send``.
     Returns ``(received, token)``."""
     comm = check_comm(comm, "recv")
+    if _analysis.recording():
+        ana = abstract_match(x, source, tag, comm, status, "recv")
+        return run_body("recv", comm, None, (x,), token, ana=ana,
+                        abstract=lambda a, t: (meta_like(a[0]), produce(t)))
     pending = match(x, source, tag, comm, "recv")
     rank = comm.Get_rank()
     to, frm = pending.to, pending.frm
@@ -51,12 +57,37 @@ def recv(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
     return run_body("recv", comm, body, (x,), token)
 
 
-def match(x, source, tag: int, comm: Comm, what: str):
-    """Pop and return the oldest send queued on ``(comm, tag)`` after
-    checking it against the template ``x`` and the ``source`` spec; a
-    failed check leaves it queued."""
+def abstract_match(x, source, tag: int, comm: Comm, status, what: str) -> dict:
+    """A recv of an abstract run (``analysis/``): its event's structure.
+    A per-rank run records it one-sided (the routing of an explicit
+    ``source``, else a wildcard the cross-rank matcher pairs); otherwise
+    it matches the recorder's own queue as ``match`` matches the real one
+    (MPX102, MPX106), and notes a queue of several sends (MPX110)."""
     check_tag(tag, what)
-    q = queue(comm, tag)
+    if concretizing():
+        if source is None:
+            return {"tag": tag, "pairs": None}
+        frm = peers(routing(comm, source, None, what), comm.Get_rank())[1]
+        fill_status(status, frm, tag, x)
+        return {"tag": tag,
+                "pairs": _analysis.event_pairs(comm, source, None, what)}
+    q = _analysis.current_recorder().queue(comm.uid, tag)
+    depth = len(q)
+    pending = match(x, source, tag, comm, what, q)
+    fill_status(status, pending.frm, tag, pending.x)
+    ana = {"tag": tag, "pairs": pending.event_pairs}
+    if depth >= 2:
+        ana["queue_depth"] = depth
+    return ana
+
+
+def match(x, source, tag: int, comm: Comm, what: str, q=None):
+    """Pop and return the oldest send queued on ``(comm, tag)`` (or on
+    ``q``) after checking it against the template ``x`` and the ``source``
+    spec; a failed check leaves it queued."""
+    check_tag(tag, what)
+    if q is None:
+        q = queue(comm, tag)
     if not q:
         raise mpx_error(
             RuntimeError, "MPX102",

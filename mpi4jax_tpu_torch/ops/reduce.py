@@ -19,7 +19,8 @@ from typing import Optional
 import torch
 
 from ..parallel.comm import Comm
-from ._base import SUM, OpLike, check_comm, check_root, combine_fn, run_body
+from ._base import (SUM, OpLike, check_comm, check_root, combine_fn,
+                    reduction_name, run_body)
 from .allreduce import reduce_all
 from .bcast import _ReduceToRoot
 from .token import Token, produce
@@ -44,4 +45,5 @@ def reduce(x, op: OpLike, root: int, *, comm: Optional[Comm] = None,
         is_root = torch.tensor(comm.Get_rank() == root, device=x.device)
         return torch.where(is_root, reduced, x), produce(token)
 
-    return run_body("reduce", comm, body, (x,), token)
+    return run_body("reduce", comm, body, (x,), token,
+                    ana={"root": root, "reduction": reduction_name(op)})

@@ -24,7 +24,8 @@ import torch
 
 from ..parallel.comm import Comm
 from . import _async
-from ._base import SUM, OpLike, check_comm, combine_fn, fold, run_body
+from ._base import (SUM, OpLike, check_comm, combine_fn, fold, meta_like,
+                    reduction_name, run_body)
 from ._fusion import materialize_value
 from .allgather import _ReduceScatterSum
 from .alltoall import _AllToAll
@@ -42,11 +43,18 @@ def reduce_scatter(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
     comm = check_comm(comm, "reduce_scatter")
     return run_body("reduce_scatter", comm,
                     lambda c, a, t: (scatter_reduced(a[0], op, c), produce(t)),
-                    (materialize_value(x),), token)
+                    (materialize_value(x),), token,
+                    ana={"reduction": reduction_name(op)},
+                    abstract=lambda a, t: (_abstract(a[0], comm), produce(t)))
 
 
-def scatter_reduced(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:
-    """``reduce_scatter``'s result, run now on ``comm``."""
+def _abstract(x: torch.Tensor, comm: Comm) -> torch.Tensor:
+    check_blocks(x, comm)
+    return meta_like(x, x.shape[1:])
+
+
+def check_blocks(x: torch.Tensor, comm: Comm) -> int:
+    """The comm size, after checking that ``x`` holds one block a rank."""
     size = comm.Get_size()
     if x.ndim == 0 or x.shape[0] != size:
         raise ValueError(
@@ -54,6 +62,12 @@ def scatter_reduced(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:
             f"({size}), got shape {tuple(x.shape)} (block i is addressed to "
             "rank i, MPI_Reduce_scatter_block)"
         )
+    return size
+
+
+def scatter_reduced(x: torch.Tensor, op: OpLike, comm: Comm) -> torch.Tensor:
+    """``reduce_scatter``'s result, run now on ``comm``."""
+    size = check_blocks(x, comm)
     fn = combine_fn(op)
     if size == 1:
         return x[0].clone()

@@ -22,7 +22,7 @@ import torch
 
 from ..parallel.comm import Comm
 from ..parallel.rankspec import shift
-from ._base import SUM, OpLike, check_comm, combine_fn, run_body
+from ._base import SUM, OpLike, check_comm, combine_fn, reduction_name, run_body
 from .sendrecv import sendrecv
 from .token import Token, produce
 
@@ -48,4 +48,5 @@ def scan(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,
             d *= 2
         return (acc.clone() if acc is x else acc), produce(token)
 
-    return run_body("scan", comm, body, (x,), token)
+    return run_body("scan", comm, body, (x,), token,
+                    ana={"reduction": reduction_name(op)})

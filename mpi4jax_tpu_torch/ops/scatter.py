@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..parallel.comm import Comm
-from ._base import check_comm, check_root, run_body
+from ._base import check_comm, check_root, meta_like, run_body
 from .alltoall import alltoall
 from .token import Token, produce
 
@@ -37,4 +37,6 @@ def scatter(x, root: int, *, comm: Optional[Comm] = None,
         rows, _ = alltoall(x, comm=comm)
         return rows[root], produce(token)
 
-    return run_body("scatter", comm, body, (x,), token)
+    return run_body("scatter", comm, body, (x,), token, ana={"root": root},
+                    abstract=lambda a, t: (meta_like(a[0], a[0].shape[1:]),
+                                           produce(t)))

@@ -35,10 +35,12 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from ..parallel.region import current_context
-from ._base import check_comm, mpx_error, run_body
+from ..analysis import hook as _analysis
+from ..analysis.schedule import concretizing
+from ._base import check_comm, mpx_error, refuse_rank_concrete, run_body
 from ._fusion import flush_pending
 from ._staging import Exchange
-from .sendrecv import peers, routing
+from .sendrecv import _p2p_ana, peers, routing
 from .token import Token, produce
 
 # a user tag takes the low 16 bits of the wire tag and the comm the rest,
@@ -58,6 +60,7 @@ def wire_tag(comm: Comm, tag: int) -> int:
 
 
 def check_tag(tag, what: str) -> None:
+    refuse_rank_concrete(tag, "tag", what)
     if isinstance(tag, bool) or not isinstance(tag, int):
         raise TypeError(f"{what}: tag must be an int, got {type(tag).__name__}")
     if not 0 <= tag < TAG_LIMIT:
@@ -139,7 +142,26 @@ def send(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
         reap()
         return produce(token)
 
-    return run_body("send", comm, body, (x,), token)
+    ana = _p2p_ana(comm, None, dest, tag, "send")
+
+    def abstract(arrays, token):
+        abstract_send(arrays[0], dest, tag, comm, ana["pairs"])
+        return produce(token)
+
+    return run_body("send", comm, body, (x,), token, ana=ana, abstract=abstract)
+
+
+def abstract_send(x, dest, tag: int, comm: Comm, event_pairs) -> None:
+    """A send of an abstract run (``analysis/``): queued on the
+    recorder's own channel, where its recv pops it; a per-rank run records
+    it one-sided, for the cross-rank matcher."""
+    if concretizing():
+        return
+    pairs = routing(comm, None, dest, "send")
+    to, frm = peers(pairs, comm.Get_rank())
+    pending = PendingSend(x, pairs, to, frm, None, None, None, next(_seq), None)
+    pending.event_pairs = event_pairs
+    _analysis.current_recorder().queue(comm.uid, tag).append(pending)
 
 
 def check_no_overtake(pending: PendingSend) -> None:

@@ -40,7 +40,8 @@ import torch.distributed as dist
 
 from ..parallel.comm import Comm
 from ..parallel.rankspec import resolve_routing
-from ._base import check_comm, check_send_recv, run_body
+from ..analysis import hook as _analysis
+from ._base import check_comm, check_send_recv, meta_like, run_body
 from ._staging import Exchange
 from .status import Status
 from .token import Token, produce
@@ -174,4 +175,15 @@ def sendrecv(sendbuf, recvbuf, source=None, dest=None, *,
             comm.global_rank(frm) if frm is not None else None, None)
         return received, produce(token)
 
-    return run_body("sendrecv", comm, body, (sendbuf, recvbuf), token)
+    return run_body("sendrecv", comm, body, (sendbuf, recvbuf), token,
+                    ana=_p2p_ana(comm, source, dest, sendtag, "sendrecv"),
+                    abstract=lambda a, t: (meta_like(a[1]), produce(t)))
+
+
+def _p2p_ana(comm: Comm, source, dest, tag: int, what: str):
+    """A point-to-point op's static structure for the verifier: its tag
+    and, while an abstract run records, its routing pairs as the JAX
+    package records them (``analysis/hook.py:event_pairs``)."""
+    if not _analysis.recording():
+        return {"tag": tag}
+    return {"tag": tag, "pairs": _analysis.event_pairs(comm, source, dest, what)}

@@ -17,6 +17,13 @@ current one, and a collective on a comm of a revoked epoch raises MPX126
 (``ops/_base.py:check_comm``); one on a comm whose world drained past its
 leave boundary (``drained``) raises MPX127.
 
+While the collective verifier re-runs a program abstractly for one rank
+(``analysis/schedule.py:scope``), a comm answers for that rank:
+``Get_rank`` returns it as a ``RankConcrete`` (an int for data, refused
+as a root, tag or routing, MPX104), and ``axis_index`` and ``members``
+give its coordinates and peers.  Outside such a run each costs one list
+index more.
+
 Every comm has a ``uid``, its point-to-point matching namespace: ``send``
 and ``recv`` match per (uid, tag), and ``Clone``/``Dup`` give a fresh one
 over the same ranks.  uids count the comms this process built, so every
@@ -41,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch.distributed as dist
 
+from ..analysis import schedule as _schedule
 from ..resilience import elastic as _elastic
 from .mesh import ProcessGrid, ensure_groups, group_of
 
@@ -158,12 +166,28 @@ class Comm:
         return size
 
     def Get_rank(self) -> int:
-        """This process's linear rank along the comm's axes (row-major)."""
+        """This process's linear rank along the comm's axes (row-major);
+        during a per-rank abstract run, the analyzed rank's
+        (``RankConcrete``)."""
         mesh = self._bound()
+        if _schedule.ACTIVE[0]:
+            concrete = _schedule.concrete_comm_rank(self._axes)
+            if concrete is not None:
+                return concrete
         rank = 0
         for a in self._axes:
             rank = rank * mesh.axis_size(a) + mesh.axis_index(a)
         return rank
+
+    def _coords(self) -> Tuple[int, ...]:
+        """This process's grid coordinates, or the analyzed rank's during
+        a per-rank abstract run over the grid's axes."""
+        mesh = self._bound()
+        if _schedule.ACTIVE[0]:
+            coords = _schedule.scope_coords(mesh.axes)
+            if coords is not None:
+                return coords
+        return mesh.coords()
 
     rank = Get_rank
     size = Get_size
@@ -203,6 +227,8 @@ class Comm:
         """The global rank of every rank of this comm, in comm-rank order
         (row-major over the comm's axes; this process's coordinates on the
         grid's other axes)."""
+        if _schedule.ACTIVE[0]:
+            return self._members_at(self._coords())
         if self._members is None:
             self._members = self._members_at(self._bound().coords())
         return self._members
@@ -219,7 +245,10 @@ class Comm:
     def axis_index(self, axis: str) -> int:
         """This process's coordinate along one grid axis (the counterpart of
         ``jax.lax.axis_index`` inside the JAX package's regions)."""
-        return self._bound().axis_index(axis)
+        mesh = self._bound()
+        if _schedule.ACTIVE[0]:
+            return self._coords()[mesh.axes.index(axis)]
+        return mesh.axis_index(axis)
 
     def sub(self, *axes: str) -> "Comm":
         """Communicator over a subset of this comm's axes: on a grid
@@ -359,8 +388,12 @@ class GroupComm(Comm):
         return size
 
     def Get_rank(self) -> int:
-        """This process's rank within its group."""
-        return self._lrank[Comm.Get_rank(self)]
+        """This process's rank within its group (a ``RankConcrete`` during
+        a per-rank abstract run)."""
+        flat = Comm.Get_rank(self)
+        if type(flat) is _schedule.RankConcrete:
+            return _schedule.RankConcrete(self._lrank[flat])
+        return self._lrank[flat]
 
     rank = Get_rank
     size = Get_size
@@ -369,6 +402,10 @@ class GroupComm(Comm):
         return min(len(g) for g in self._groups)
 
     def members(self) -> Tuple[int, ...]:
+        if _schedule.ACTIVE[0]:
+            table = self._members_at(self._coords())
+            mine = self._groups[self._gid[Comm.Get_rank(self)]]
+            return tuple(table[r] for r in mine)
         if self._members is None:
             table = self._members_at(self._bound().coords())
             mine = self._groups[self._gid[Comm.Get_rank(self)]]

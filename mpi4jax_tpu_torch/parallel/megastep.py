@@ -187,15 +187,22 @@ def megastep_loop(body_fn, carry, unroll: int, comm, label: str = "fn"):
     if n == 1:
         return body_fn(0, carry)
 
+    from ..analysis.hook import recording
     from ..ops import _async, _fusion
     from .region import current_context
 
     ctx = current_context()
     loop_id = next(_loop_ids)
     struct0, sig0 = _carry_signature(carry)
-    bracket = _LoopBracket.open(comm, n, label)
+    # an abstract run (analysis/) records the body once, its events
+    # stamped with the loop and its trip count: the JAX package's loop
+    # body also traces once
+    abstract = recording()
+    if abstract and ctx is not None:
+        ctx.megastep_unroll = n
+    bracket = None if abstract else _LoopBracket.open(comm, n, label)
     try:
-        for i in range(n):
+        for i in range(1 if abstract else n):
             scope = (loop_id, i)
             with _iteration_scope(ctx, scope):
                 out = body_fn(i, carry)

@@ -68,7 +68,19 @@ def normalize_dest(spec: RankSpecLike, size: int, *,
         )
     if isinstance(spec, int):
         # imported here: ops._base imports the parallel package
+        from ..analysis.schedule import is_rank_concrete
         from ..ops._base import mpx_error
+
+        if is_rank_concrete(spec):
+            # the rank of a per-rank abstract run (analysis/): structure
+            # must stay rank-uniform there too
+            raise mpx_error(
+                TypeError, "MPX104",
+                f"{what}: routing spec is the comm rank (concretized for "
+                "per-rank analysis). Routing is structure — it must be "
+                "rank-uniform static values describing the whole pattern "
+                "(pairs/shift/dict), not a per-rank destination.",
+            )
 
         raise mpx_error(
             TypeError, "MPX103",

@@ -48,8 +48,10 @@ class RegionContext:
         self.comm = comm
         self.fusion_queue = None
         self.handles: list = []
-        # (loop id, iteration) while a megastep iteration runs in it
+        # (loop id, iteration) while a megastep iteration runs in it, and
+        # the loop's trip count (recorded by an abstract run, analysis/)
         self.megastep = None
+        self.megastep_unroll = None
 
 
 _region_stack: List[RegionContext] = []
@@ -131,7 +133,9 @@ def region_body(f, c: Comm, statics, static_vals, unroll: int = 1):
     pushes a region over ``c``, re-inserts the statics, runs ``f`` once or
     as a megastep loop of ``unroll`` iterations, then flushes the fusion
     queue, turns deferred results into tensors and closes the async
-    starts."""
+    starts.  Under the verifier's ambient mode (``MPI4JAX_TPU_ANALYZE``)
+    the body is first verified abstractly, once per key, before it runs
+    (``analysis/crossrank.py:verify_region``)."""
     label = getattr(f, "__name__", "fn")
 
     def full_args(dyn):
@@ -141,9 +145,15 @@ def region_body(f, c: Comm, statics, static_vals, unroll: int = 1):
         return full
 
     def body(*dyn, **kwargs):
-        from ..ops import _async, _fusion
+        from ..ops import _async, _base, _fusion
         from .megastep import megastep_loop
 
+        h = _base.hooks()
+        if h is not None and h.analyze and not h.collect:
+            from ..analysis.crossrank import verify_region
+
+            verify_region(f, c, statics, static_vals, unroll, dyn, kwargs,
+                          body)
         ctx = RegionContext(c)
         _region_stack.append(ctx)
         try:

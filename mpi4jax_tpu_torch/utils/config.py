@@ -98,6 +98,16 @@ and the persistent tier's (``aot/diskcache.py``):
 - ``MPI4JAX_TPU_CPP_DISPATCH``: a pin on one CUDA rank replays its graph
   (on by default; off runs it eagerly, ``aot/fastpath.py``).
 
+and the collective verifier's (``analysis/``):
+
+- ``MPI4JAX_TPU_ANALYZE``: ``off`` (default), ``warn`` or ``error``: a
+  region (or an eager op) is verified abstractly at its first call for
+  each key, before it runs; ``warn`` warns on findings, ``error`` raises
+  ``AnalysisError`` (``set_analyze_mode`` overrides it);
+- ``MPI4JAX_TPU_ANALYZE_RANKS``: ``auto`` (default), ``off`` or a
+  positive rank cap: the cross-rank schedule pass of that verification
+  runs for comms of at most that many ranks (``auto``: every comm).
+
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
 
@@ -126,6 +136,7 @@ COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
 FUSION_MODES = ("off", "auto", "force")
 TELEMETRY_MODES = ("off", "counters", "events")
 HEALTH_MODES = ("off", "on")
+ANALYZE_MODES = ("off", "warn", "error")
 ELASTIC_FAIL_UNITS = ("rank", "row", "col")
 ELASTIC_PLACEMENTS = ("stripe", "neighbor")
 ELASTIC_AGREEMENTS = ("coordinator", "gossip")
@@ -188,6 +199,8 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_SERVING_KV_SLOTS",
     "MPI4JAX_TPU_SERVING_UNROLL",
     "MPI4JAX_TPU_SERVING_SLO_P99_MS",
+    "MPI4JAX_TPU_ANALYZE",
+    "MPI4JAX_TPU_ANALYZE_RANKS",
 )
 
 _config_epoch = 0
@@ -220,13 +233,15 @@ def bump_service_epoch() -> None:
 
 # the variables the runtime services read at an op call (which services
 # are on, ``ops/_base.py:hooks``, and an op's resilience plan,
-# ``resilience/runtime.py:plan_for``); ``MPI4JAX_TPU_DEBUG`` and
-# ``MPI4JAX_TPU_TRACE`` are read at import and their setters bump the epoch
+# ``resilience/runtime.py:plan_for``) and the verifier's mode;
+# ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read at import and
+# their setters bump the epoch
 SERVICE_FLAG_NAMES = (
     "MPI4JAX_TPU_TELEMETRY",
     "MPI4JAX_TPU_WATCHDOG_TIMEOUT",
     "MPI4JAX_TPU_FAULT_SPEC",
     "MPI4JAX_TPU_CHECK_NUMERICS",
+    "MPI4JAX_TPU_ANALYZE",
 )
 
 
@@ -630,5 +645,35 @@ def serving_slo_p99_ms() -> float:
         raise ValueError(
             "MPI4JAX_TPU_SERVING_SLO_P99_MS must be a positive number of "
             f"milliseconds, got {val!r}"
+        )
+    return val
+
+
+def analyze_mode() -> str:
+    """The collective verifier's ambient mode (``MPI4JAX_TPU_ANALYZE``):
+    ``off`` (default), ``warn`` or ``error``."""
+    return _choice("MPI4JAX_TPU_ANALYZE", ANALYZE_MODES, "off")
+
+
+def analyze_ranks():
+    """The cross-rank pass setting (``MPI4JAX_TPU_ANALYZE_RANKS``):
+    ``"auto"`` (default), ``"off"``, or a positive int cap on the comm
+    sizes the ambient per-rank re-runs cover."""
+    raw = (os.environ.get("MPI4JAX_TPU_ANALYZE_RANKS") or "").strip().lower()
+    if not raw or raw == "auto":
+        return "auto"
+    if raw == "off":
+        return "off"
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"Environment variable MPI4JAX_TPU_ANALYZE_RANKS={raw!r} must "
+            "be 'auto', 'off', or a positive integer rank cap"
+        ) from None
+    if val < 1:
+        raise ValueError(
+            f"Environment variable MPI4JAX_TPU_ANALYZE_RANKS={raw!r} must "
+            "be 'auto', 'off', or a positive integer rank cap"
         )
     return val

@@ -1029,3 +1029,33 @@ def test_unroll_one_launches_as_the_call_without_the_layer():
     for _, out in runs[1:]:
         for a, b in zip(runs[0][1], out):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_meta_routes_launch_nothing_on_the_card():
+    """The verifier's abstract runs (``analysis/``) of the card's programs
+    on CUDA tensors: 0 error findings, and no kernel's launch counter
+    moves (each kernel takes its ``meta`` shape rule)."""
+    need_cuda()
+    from mpi4jax_tpu_torch import analyze
+    from mpi4jax_tpu_torch.attention import ring_attention
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.parallel.comm import Comm
+    from mpi4jax_tpu_torch.parallel.mesh import ProcessGrid
+
+    card = torch.device("cuda", 0)
+    before = _build.launch_totals()
+    cfg = P.Config(nx=256, ny=128, nproc_y=2, nproc_x=2)
+    grid = Comm(("py", "px"), mesh=ProcessGrid((2, 2), ("py", "px"), card))
+    state = P.State(*[torch.zeros((cfg.ny_local, cfg.nx_local), device=card)] * 6)
+    for mode in ("wide2", "pallas_halo"):
+        step = P.select_steps(mode, cfg)[0]
+        rep = analyze(lambda s, step=step: step(s, cfg, grid, False), state,
+                      comm=grid, ranks="all")
+        assert not rep.errors and rep.events
+    ring = Comm("i", mesh=ProcessGrid((4,), ("i",), card))
+    q = torch.rand((1, 64, 2, 64), device=card)
+    rep = analyze(lambda a: ring_attention(a, a, a, comm=ring), q, comm=ring,
+                  ranks="all")
+    assert not rep.errors and rep.events
+    assert _build.launch_totals() == before

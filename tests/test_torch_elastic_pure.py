@@ -552,3 +552,63 @@ def test_fault_clauses_address_launch_ranks():
     finally:
         el._reset_epoch_for_tests()
         fi.reset_fault_state()
+
+
+def _window(base, ranks, epochs=4):
+    """Every port ``free_port_base`` checked for a window at ``base``."""
+    span = tconfig.elastic_port_span()
+    ports = {el.agree_port(base, e, span) for e in range(epochs)}
+    ports |= {el.join_port(base, e, span) for e in range(epochs)}
+    ports |= {base + 100 + 17 * el.wrapped_epoch(e, span) + r
+              for e in range(epochs) for r in range(ranks)}
+    ports |= {el.control_port(base, r, e, span)
+              for e in range(2) for r in range(min(ranks, span))}
+    return ports
+
+
+@pytest.mark.parametrize("low", [None, 20000])
+@pytest.mark.parametrize("worker", ["gw0", "gw5", "master"])
+def test_free_port_base_draws_below_the_ephemeral_range(monkeypatch, low, worker):
+    """The launcher's window lies below the host's ephemeral range (read
+    from /proc), in this worker's slice, whatever the range's low end;
+    the serving drill (``models/serving.py:launch``, 3 ranks) gets one
+    whose every port binds."""
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    if low is not None:
+        monkeypatch.setattr(ET, "ephemeral_low", lambda default=32768: low)
+    monkeypatch.setenv("PYTEST_XDIST_WORKER", worker)
+    top = min(32000, ET.ephemeral_low())
+    for ranks in (3, 4):
+        base = ET.free_port_base(ranks)
+        ports = _window(base, ranks)
+        assert ET.PORT_FLOOR <= min(ports) and max(ports) < top
+        for p in ports:
+            with socket.socket() as s:
+                s.bind(("localhost", p))
+
+
+@pytest.mark.parametrize("worker", ["gw3", None])
+def test_free_port_base_windows_of_one_process_are_disjoint(monkeypatch, worker):
+    """The windows one process draws in a row share no port, as phase 13
+    of the smoke script needs for the four drills it launches side by
+    side (a and h at 4 and 8 ranks); without pytest-xdist the range is
+    every port below the ephemeral range, with it the worker's slice."""
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    if worker is None:
+        monkeypatch.delenv("PYTEST_XDIST_WORKER", raising=False)
+    else:
+        monkeypatch.setenv("PYTEST_XDIST_WORKER", worker)
+    lo, hi = ET.port_range()
+    top = min(32000, ET.ephemeral_low())
+    if worker is None:
+        assert (lo, hi) == (ET.PORT_FLOOR, top)
+    else:
+        width = (top - ET.PORT_FLOOR) // ET.PORT_SLICES
+        assert (lo, hi) == (ET.PORT_FLOOR + 3 * width, ET.PORT_FLOOR + 4 * width)
+    windows = [_window(ET.free_port_base(n), n) for n in (4, 4, 4, 8, 3, 4)]
+    for i, w in enumerate(windows):
+        assert lo <= min(w) and max(w) < hi
+        for other in windows[i + 1:]:
+            assert not w & other

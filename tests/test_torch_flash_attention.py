@@ -271,9 +271,20 @@ def test_plain_path_is_differentiable_like_jax():
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(a), rtol=1e-4, atol=1e-5)
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor that reports a device the kernels have no route for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_no_fallback_off_the_cpu():
-    """A tensor that is neither on the CPU nor on a CUDA device is refused:
-    nothing falls back to the plain version."""
+    """A tensor that is neither on the CPU, nor on a CUDA device, nor a
+    ``meta`` template of the verifier's abstract run is refused: nothing
+    falls back to the plain version.  A ``meta`` tensor takes the
+    kernels' shape rule: empty outputs, nothing computed."""
     q = torch.empty((1, 8, 1, 32), device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
-        FA.flash_block_partials(q, q, q, None, scale=0.2)
+        FA.flash_block_partials(*[q.as_subclass(OtherDevice)] * 3, None, scale=0.2)
+    assert all(t.is_meta for t in FA.flash_block_partials(q, q, q, None, scale=0.2))

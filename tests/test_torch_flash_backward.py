@@ -230,10 +230,22 @@ def test_custom_backward_drops_the_stabilizer_cotangent():
     np.testing.assert_array_equal(np.asarray(want), leaves[0].grad.numpy())
 
 
+class OtherDevice(torch.Tensor):
+    """A tensor that reports a device the kernels have no route for."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_backward_dispatch_refuses_other_devices():
-    """``block_partials_bwd`` takes the plain version only for CPU tensors;
-    anything else that is not CUDA is refused."""
+    """``block_partials_bwd`` takes the plain version only for CPU tensors
+    and the shape rule only for ``meta`` templates (the verifier's
+    abstract run); anything else that is not CUDA is refused."""
     q = torch.empty((1, 8, 1, 32), device="meta")
     m = torch.empty((1, 1, 8), device="meta")
+    oq, om = q.as_subclass(OtherDevice), m.as_subclass(OtherDevice)
     with pytest.raises(RuntimeError, match="unsupported device"):
-        FA.block_partials_bwd(q, q, q, None, m, q, m, scale=0.2)
+        FA.block_partials_bwd(oq, oq, oq, None, om, oq, om, scale=0.2)
+    assert all(t.is_meta for t in FA.block_partials_bwd(q, q, q, None, m, q, m,
+                                                        scale=0.2))

@@ -72,11 +72,11 @@ _CLOCKS = ("t_begin", "t_end", "mono_begin", "mono_end", "latency", "t", "mono",
 _META = {"op": "allreduce", "comm_uid": "0", "axes": ["i"], "bytes": 64,
          "dtype": "float32"}
 # the JAX package's __all__ names whose modules are later items of the
-# port's queue (ROADMAP Queue 1 item 6), and the port's own extras
-LEFT_TO_LATER_ITEMS = sorted([
-    "analyze", "Report", "Finding", "AnalysisError",
-    "set_analyze_mode",                                # item 6: analysis
-])
+# port's queue (ROADMAP Queue 1): none since the collective verifier
+# (analysis/) landed; and the port's own extras
+LEFT_TO_LATER_ITEMS = []
+VERIFIER_NAMES = ("analyze", "Report", "Finding", "AnalysisError",
+                  "set_analyze_mode")
 PORT_ONLY = sorted(["GroupComm", "ProcessGrid", "register_boundary_hook",
                     "resilience", "resolve_device"])
 
@@ -863,6 +863,10 @@ def test_all_differs_from_jax_only_by_the_later_items():
     assert sorted(set(tpx.__all__) - set(mpx.__all__)) == PORT_ONLY
     for name in tpx.__all__:
         assert getattr(tpx, name) is not None, name
+    for name in VERIFIER_NAMES:
+        assert name in tpx.__all__ and name in mpx.__all__, name
+    # the JAX package's attribute outside its __all__
+    assert tpx.analysis.analyze is tpx.analyze
 
 
 def test_telemetry_exports_the_health_plane():

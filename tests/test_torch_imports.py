@@ -4,7 +4,7 @@ An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
 ``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``,
 ``tests/torch_ranks_dispatch.py`` and the later ones, to
-``tests/torch_ranks_aot.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_analysis.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -27,7 +27,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_elastic.py",
           REPO / "tests" / "torch_ranks_workloads.py",
           REPO / "tests" / "torch_ranks_serving.py",
-          REPO / "tests" / "torch_ranks_aot.py"]
+          REPO / "tests" / "torch_ranks_aot.py",
+          REPO / "tests" / "torch_ranks_analysis.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
@@ -72,7 +73,8 @@ def test_port_is_packaged():
 
     pkgs = find_packages(str(REPO), include=["mpi4jax_tpu*"])
     for sub in ("", ".parallel", ".ops", ".models", ".kernels", ".experimental",
-                ".utils", ".aot", ".telemetry", ".resilience"):
+                ".utils", ".aot", ".telemetry", ".resilience", ".analysis",
+                ".models.broken"):
         assert "mpi4jax_tpu_torch" + sub in pkgs
 
 
@@ -99,7 +101,15 @@ def test_port_is_packaged():
                                     "mpi4jax_tpu_torch.aot.warm",
                                     "mpi4jax_tpu_torch.aot.__main__",
                                     "mpi4jax_tpu_torch.models.aot_serving_step",
-                                    "mpi4jax_tpu_torch.models.telemetry_demo"])
+                                    "mpi4jax_tpu_torch.models.telemetry_demo",
+                                    "mpi4jax_tpu_torch.analysis",
+                                    "mpi4jax_tpu_torch.analysis.__main__",
+                                    "mpi4jax_tpu_torch.analysis.crossrank",
+                                    "mpi4jax_tpu_torch.analysis.hazards",
+                                    "mpi4jax_tpu_torch.analysis.progress",
+                                    "mpi4jax_tpu_torch.models.broken",
+                                    "mpi4jax_tpu_torch.models.broken.rank_divergent_deadlock",
+                                    "mpi4jax_tpu_torch.models.broken.overlap_donation_race"])
 def test_dispatch_layer_loads_no_jax(module):
     """The dispatch layer's modules, imported in a fresh interpreter, load
     neither JAX nor the JAX package."""

@@ -34,6 +34,11 @@ JAX_ONLY = {
         # nothing to switch
         "prefer_notoken",
     },
+    # the verifier's value-lineage half (analysis/walker.py, dataflow.py:
+    # MPX108, MPX141, MPX142) and its use of the graph, which wait for the
+    # port's dataflow slice (ROADMAP Queue 1 item 6)
+    "analysis": {"check_cond_divergence", "hazard_jaxpr_findings",
+                 "graph_arms_approx"},
 }
 
 # names of the port's subpackage the JAX one does not export, and why
@@ -49,7 +54,7 @@ PORT_ONLY = {
 }
 
 SUBPACKAGES = ("parallel", "ops", "utils", "resilience", "kernels",
-               "experimental", "aot", "telemetry", "serving")
+               "experimental", "aot", "telemetry", "serving", "analysis")
 
 
 def public_names(package: str, sub: str) -> set:

@@ -39,7 +39,9 @@ launch ranks issued, the drain registry, the draining and drained comms
 and the parked joins too), no pending failure, no claimed SIGINT
 handler, no preemption (SIGTERM) handler of the elastic layer, the
 default grid and comm dropped (the claimed watchdog handler goes with
-``set_on_timeout(None)``), and no serving bucket table declared.
+``set_on_timeout(None)``), no serving bucket table declared, and the
+collective verifier's mode override, report sink, ``analyze`` memo and
+verified keys cleared (``analysis/hook.py:reset``).
 
 Import it into a test module (``from torch_port_isolation import
 isolated_reference_state  # noqa: F401``); it is autouse.  Where the JAX
@@ -69,6 +71,7 @@ def reset_port_services() -> None:
     if "mpi4jax_tpu_torch.resilience.watchdog" not in sys.modules:
         return
     from mpi4jax_tpu_torch import resilience, serving, telemetry
+    from mpi4jax_tpu_torch.analysis import hook as analysis_hook
     from mpi4jax_tpu_torch.parallel import mesh
     from mpi4jax_tpu_torch.resilience import elastic, watchdog
     from mpi4jax_tpu_torch.utils import debug
@@ -90,6 +93,7 @@ def reset_port_services() -> None:
     elastic._reset_epoch_for_tests()
     mesh.forget_world()
     serving.clear_declared_buckets()
+    analysis_hook.reset()
     # the pin, persistent-tier and compiler counters (the files a test
     # wrote stay in its own tmp_path)
     from mpi4jax_tpu_torch import aot
