@@ -279,6 +279,31 @@ read just after:
    code; (d) ``rank_divergent_deadlock`` on four gloo ranks on this card
    under ``error`` with a 60 s limit: every rank raises ``AnalysisError``
    with MPX121 before any exchange.  One JSON line ``{"verifier": ...}``.
+18. the cost model and the tuning layer (``cost_phase``; it builds
+   nothing): (a) ``python -m mpi4jax_tpu_torch.autotune`` over four gloo
+   ranks on this card (budget 30 s) and its rank function in this process
+   as one CUDA rank (budget 20 s):
+   the fitted alpha, beta and gamma, the compute rate, the dispatch, the
+   pack GB/s, the bucket and the chunks, the seconds and the exit code
+   (1: the alltoall crossover and the codec stay untuned), each file
+   validated by ``validate_tuning_dict``; (b) ``analyze(cost=True,
+   ranks="all")`` with the four-rank file over phase 17 (a)'s programs
+   and the bench decode on a one-rank grid: each program's predicted
+   step, its compute and wire split, its advisories and seconds, 0 error
+   findings, no launch counter moved, and beside the measurement of this
+   run for the (2,2) ``wide2`` step (phase 4), the MoE layer (phase 14
+   (b)), the interleaved round (phase 14 (c)) and the decode (phase 15),
+   the ratio with no bound; (c) the pinned periodic solve at 3600x1800
+   with the file loaded under ``off`` and under ``MPI4JAX_TPU_ANALYZE=
+   error`` + ``MPI4JAX_TPU_ANALYZE_COST=on``: steps/s each, final fields
+   bit for bit, ``sw_steps`` launches equal, the verification and its
+   prediction; (d) ``ef_divergent_gate`` through the command (phase 17
+   (c)) exits 1 with MPX141, the earlier twins exit 1, and on four gloo
+   ranks under ``error`` every rank raises MPX141 before any exchange;
+   (e) ``pipeline(schedule="auto")`` at phase 14 (c)'s shape picks what
+   ``best_schedule`` prices best under the file, and the serve twin's
+   ``--simulate`` at the bench preset prints its predicted tokens/s/chip
+   and p99 beside phase 15's.  One JSON line ``{"cost": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -330,9 +355,16 @@ continuous streams in this process, and runs phase 16, one JSON line.
 
 builds the stencil sources (phase 17 (b) runs the main path) and runs
 phase 17 alone, one JSON line.
+    python3 chip_smoke.py --cost
+
+builds the stencil source and runs phase 18 alone (``cost_main``; its
+predictions stand alone, with nothing of this run measured beside them),
+one JSON line.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
@@ -5395,6 +5427,319 @@ def verifier_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the cost model and the tuning layer
+# ---------------------------------------------------------------------------
+
+# phase 14 (c)'s shape: stages, microbatches, boundary bytes
+PIPE_AUTO = (4, PIPE_WIDE["microbatches"],
+             (PIPE_WIDE["batch"] // PIPE_WIDE["microbatches"]) * PIPE_WIDE["dim"] * 4)
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
+    for k in ("MPI4JAX_TPU_ANALYZE", "MPI4JAX_TPU_TUNING", "MPI4JAX_TPU_COST_MODEL"):
+        env.pop(k, None)
+    return env
+
+
+def cost_autotune(tdir):
+    """(a): ``python -m mpi4jax_tpu_torch.autotune`` over four gloo ranks on
+    this card (budget 30 s), and its rank function in this process as one
+    CUDA rank (budget 20 s; the exit code the command would give); each
+    file validated by the port's ``validate_tuning_dict``."""
+    from mpi4jax_tpu_torch.autotune import validate_tuning_dict
+    from mpi4jax_tpu_torch.autotune.runner import rank_autotune
+
+    out = {}
+    for label, budget in (("gloo4", 30), ("cuda1", 20)):
+        path = os.path.join(tdir, f"tuning_{label}.json")
+        t0 = time.perf_counter()
+        if label == "gloo4":
+            p = subprocess.run(
+                [sys.executable, "-m", "mpi4jax_tpu_torch.autotune",
+                 "--budget-s", str(budget), "--save", path, "--ranks", "4",
+                 "--device", "cuda:0"], env=_child_env(),
+                capture_output=True, text=True, timeout=600)
+            rc, log = p.returncode, p.stderr
+        else:
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                res = rank_autotune(0, budget, path, device="cuda:0")
+            rc = 1 if res["unfitted"] else 0
+            log = err.getvalue() + ("autotune: untuned knob(s): "
+                                    + ", ".join(res["unfitted"]))
+        seconds = time.perf_counter() - t0
+        # 1: a partial fit, the file written (the alltoall crossover and the
+        # codec need lowerings the port does not have)
+        if rc not in (0, 1) or not os.path.exists(path):
+            raise AssertionError(f"phase 18 (a) {label}: exit {rc}: "
+                                 f"{log[-2000:]}")
+        with open(path) as f:
+            payload = json.load(f)
+        validate_tuning_dict(payload)
+        ici, tuned = payload["links"]["ici"], payload["tuned"]
+        pack = tuned.get("commit", {}).get("pack_gb_per_s")
+        untuned = [ln for ln in log.splitlines() if "untuned" in ln]
+        print(f"phase 18 (a) autotune {label} (budget {budget} s): exit "
+              f"{rc} in {seconds:.1f} s; ici alpha {ici['alpha_us']} us, "
+              f"beta {ici['gb_per_s']} GB/s; gamma {payload['gamma_gb_per_s']} GB/s, "
+              f"compute {payload['compute_gb_per_s']} GB/s, dispatch "
+              f"{payload['dispatch_us']} us; pack {pack} GB/s; fusion bucket "
+              f"{tuned.get('fusion_bucket_bytes')} B, overlap chunks "
+              f"{tuned.get('overlap_chunks')}; {'; '.join(untuned) or 'all fitted'}")
+        out[label] = {"path": path, "exit": rc, "seconds": seconds,
+                      "payload": payload}
+    print("phase 18 (a): both files validate under the port's validate_tuning_dict "
+          "(this script imports nothing of the JAX package, so the JAX validator "
+          "is held equal to it in the CPU tests instead)")
+    return out
+
+
+def cost_programs(P, dev):
+    """(b)'s programs: phase 17 (a)'s on the virtual 4-rank grid, and the
+    bench decode on a one-rank grid (the shape phase 15 measures)."""
+    from mpi4jax_tpu_torch.models import serving as MS
+    from mpi4jax_tpu_torch.serving import model as SM
+
+    progs = verifier_programs(P, dev)
+    one = _virtual((1,), ("i",), dev)
+    scfg = MS.make_config("bench")
+    bucket = max(scfg.table().buckets)
+    args = tuple(_meta(s, getattr(torch, d))
+                 for s, d in scfg.program_args("decode", bucket, 1))
+    progs[f"serving_decode_bench_b{bucket}_1rank"] = (SM.decode_step, args, one)
+    return progs
+
+
+def cost_analyze(P, dev, tuning, measured):
+    """(b): ``analyze(cost=True, ranks="all")`` under the four-rank file;
+    ``measured``: {program: (measured us, what, predicted units)}."""
+    from mpi4jax_tpu_torch import analyze, clear_caches
+    from mpi4jax_tpu_torch.analysis import costmodel
+    from mpi4jax_tpu_torch.kernels import _build
+
+    model = costmodel.load_model(tuning)
+    out = {}
+    before = _build.launch_totals()
+    for name, (fn, args, comm) in cost_programs(P, dev).items():
+        clear_caches()
+        t0 = time.perf_counter()
+        rep = analyze(fn, *args, comm=comm, ranks="all", cost=True,
+                      cost_model=model)
+        seconds = time.perf_counter() - t0
+        c = rep.cost
+        if c is None or rep.errors:
+            raise AssertionError(f"phase 18 (b) {name}: {rep.render()}")
+        wire = sum(v["time_us"] for v in c.per_link.values())
+        compute = max(c.compute_us.values()) if c.compute_us else 0.0
+        adv = sorted({f.code for f in rep.findings})
+        print(f"phase 18 (b) {name}: predicted {c.total_us:.1f} us (critical path "
+              f"{c.path_us:.1f} + dispatch {c.dispatch_us:.1f}; compute up to "
+              f"{compute:.1f} us a rank, wire {wire:.1f} us over its ops), 0 "
+              f"errors, advisories {adv}, {seconds:.3f} s")
+        row = {"total_us": c.total_us, "path_us": c.path_us, "compute_us": compute,
+               "wire_us": wire, "advisories": adv, "seconds": seconds}
+        if name in measured:
+            got_us, what, units = measured[name]
+            pred = c.total_us / units
+            row.update(measured_us=got_us, predicted_us=pred, ratio=pred / got_us)
+            print(f"  beside {what}: predicted {pred:.1f} us, measured {got_us:.1f} "
+                  f"us, predicted/measured {pred / got_us:.3f}")
+        out[name] = row
+    moved = {k: v for k, v in _build.launch_totals().items() if before.get(k) != v}
+    if moved:
+        raise AssertionError(f"phase 18 (b): the abstract runs moved {moved}")
+    print("phase 18 (b): every kernel's launch counter unmoved")
+    return out
+
+
+def cost_ambient(P, K, dev, smi, tuning):
+    """(c): the pinned periodic solve with the file loaded, under ``off`` and
+    under ``MPI4JAX_TPU_ANALYZE=error`` + ``MPI4JAX_TPU_ANALYZE_COST=on``."""
+    from mpi4jax_tpu_torch import clear_caches, load_tuning
+    from mpi4jax_tpu_torch.analysis import crossrank, hook
+
+    cfg = P.Config(nx=3600, ny=1800)
+    t1 = 0.1 * P.DAY_IN_SECONDS
+    out, finals = {}, {}
+    load_tuning(tuning)
+    try:
+        for label, env in (("off", {}), ("error+cost", {
+                "MPI4JAX_TPU_ANALYZE": "error", "MPI4JAX_TPU_ANALYZE_COST": "on"})):
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            sink = []
+            hook.set_report_sink(sink)
+            try:
+                clear_caches()
+                K.counter.launches = 0
+                ver = crossrank.stats["verifications"]
+                info = {}
+                wall, n_steps, final = P.solve_fused(
+                    cfg, t1, device=dev, fast="auto", pinned=True,
+                    return_state=True, info=info)
+            finally:
+                hook.set_report_sink(None)
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            finals[label] = [f.cpu() for f in final]
+            costs = [r.cost.total_us for _, r in sink if r.cost is not None]
+            out[label] = {"steps_per_s": n_steps / wall, "n_steps": n_steps,
+                          "launches": K.counter.launches,
+                          "verifications": crossrank.stats["verifications"] - ver,
+                          "predicted_us": costs}
+            print(f"phase 18 (c) solve_fused pinned 3600x1800, {label}, tuning "
+                  f"loaded: {n_steps} steps, {out[label]['steps_per_s']:.2f} steps/s, "
+                  f"sw_steps launches {out[label]['launches']}, "
+                  f"{out[label]['verifications']} verification(s), predicted "
+                  f"{[round(x, 1) for x in costs]} us per verified region ({smi})")
+            del final
+            torch.cuda.empty_cache()
+    finally:
+        load_tuning(None)
+        clear_caches()
+    a, b = out["off"], out["error+cost"]
+    if b["launches"] != a["launches"] or b["verifications"] < 1 or a["verifications"]:
+        raise AssertionError(f"phase 18 (c): {out}")
+    for x, y in zip(finals["error+cost"], finals["off"]):
+        if not torch.equal(x, y) or x.numpy().tobytes() != y.numpy().tobytes():
+            raise AssertionError("phase 18 (c): the final state differs")
+    print("phase 18 (c): final fields bit for bit and sw_steps launches equal under "
+          "off and error + cost")
+    return out
+
+
+def cost_ef_drill(cli=None):
+    """(d): ``ef_divergent_gate`` through the command (phase 17 (c)'s run when
+    given, else all the twins now) and on four gloo ranks under ``error``."""
+    from mpi4jax_tpu_torch.models import broken
+
+    if cli is None:
+        cli = verifier_cli()
+    ef = cli["ef_divergent_gate"]
+    if ef["exit"] != 1 or "MPX141" not in ef["codes"]:
+        raise AssertionError(f"phase 18 (d): the command gave {ef}")
+    earlier = {k: v["exit"] for k, v in cli.items()
+               if k in broken.TWINS and k != "ef_divergent_gate"}
+    if set(earlier.values()) != {1}:
+        raise AssertionError(f"phase 18 (d): the earlier twins gave {earlier}")
+    t = time.perf_counter()
+    d = broken.drill("ef_divergent_gate",
+                     ["--launch", "4", "--device", "cuda:0", "--timeout", "60"])
+    if not all("MPX141" in codes for codes in d["launch"]):
+        raise AssertionError(f"phase 18 (d): {d}")
+    seconds = time.perf_counter() - t
+    print(f"phase 18 (d) ef_divergent_gate: the command exits 1 with "
+          f"{ef['codes']} (the four earlier twins exit {sorted(set(earlier.values()))}); "
+          f"on four gloo ranks on this card under error every rank raised "
+          f"{d['launch'][0]} before any exchange, {seconds:.1f} s with the "
+          "virtual-grid front-ends")
+    return {"cli": ef, "earlier": earlier, "drill": d, "seconds": seconds}
+
+
+def cost_consumers(tuning, served=None):
+    """(e): ``pipeline(schedule="auto")`` at phase 14 (c)'s shape against
+    ``best_schedule`` under the file, and the serve twin's ``--simulate`` at
+    the bench preset (beside phase 15's measured numbers when given)."""
+    from mpi4jax_tpu_torch import load_tuning
+    from mpi4jax_tpu_torch.analysis import costmodel
+    from mpi4jax_tpu_torch.models import pipeline_parallel as PP
+    from mpi4jax_tpu_torch.models import serving as MS
+    from mpi4jax_tpu_torch.parallel.pipeline import pipeline
+
+    stages, mb, nbytes = PIPE_AUTO
+    out = {}
+    load_tuning(tuning)
+    try:
+        model = costmodel.load_model()
+        if model.tuned_stamp is None:
+            raise AssertionError("phase 18 (e): the tuning layer feeds no model")
+        plan = pipeline(PP.stage_pair, mb).plan(stages, mb, nbytes)
+        best, times = costmodel.best_schedule(
+            stages, mb, nbytes, model.compute_us(2 * nbytes), model, virtual=1)
+        if plan.schedule != best:
+            raise AssertionError(f"phase 18 (e): auto {plan.schedule}, best {best}")
+        print(f"phase 18 (e) pipeline(schedule='auto') at {stages} stages x {mb} "
+              f"microbatches, {nbytes // 1024} KiB boundaries, model "
+              f"tuned@{model.tuned_stamp}: {plan.schedule}, best_schedule prices "
+              + ", ".join(f"{k} {v:.1f} us" for k, v in sorted(times.items())))
+        out["pipeline"] = {"auto": plan.schedule, "times_us": times}
+        path = os.path.join(os.path.dirname(tuning), "simulate.json")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            rc = MS.main(["--model", "bench", "--simulate", "--json", "--out", path])
+        with open(path) as f:
+            sim = json.load(f)
+    finally:
+        load_tuning(None)
+    if rc != 0:
+        raise AssertionError(f"phase 18 (e): --simulate exit {rc}")
+    cont = sim["continuous"]
+    line = (f"phase 18 (e) models.serving --model bench --simulate: predicted "
+            f"{cont['tokens_per_s_per_chip']} tokens/s/chip, p99 {cont['p99_ms']} ms")
+    if served is not None:
+        line += (f"; phase 15 measured {served['tokens_per_s_per_chip']} tokens/s/chip, "
+                 f"p99 {served['p99_ms']} ms")
+    print(line)
+    out["simulate"] = {"continuous": cont, "static": sim.get("static"),
+                       "measured": served}
+    return out
+
+
+def cost_phase(P, K, dev, smi, measured=None, cli=None, served=None):
+    """Phase 18 (see the module docstring); returns its summary, printed as
+    one JSON line."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tdir = tempfile.mkdtemp(prefix="mpx-tuning-")
+    try:
+        out = {"card": smi}
+        out["a"] = cost_autotune(tdir)
+        tuning = out["a"]["gloo4"]["path"]
+        out["b"] = cost_analyze(P, dev, tuning, measured or {})
+        torch.cuda.empty_cache()
+        out["c"] = cost_ambient(P, K, dev, smi, tuning)
+        out["d"] = cost_ef_drill(cli)
+        out["e"] = cost_consumers(tuning, served)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 18 (cost): {out['seconds']:.1f} s; (a) "
+          f"{out['a']['gloo4']['seconds']:.1f} + {out['a']['cuda1']['seconds']:.1f}, "
+          f"(d) {out['d']['seconds']:.1f}")
+    return out
+
+
+def cost_main():
+    """``python3 chip_smoke.py --cost``: the stencil build, then phase 18
+    alone (nothing measured beside its predictions); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    K._library()
+    out = cost_phase(P, K, torch.device("cuda"), smi)
+    print(smi)
+    print(json.dumps({"cost": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5594,6 +5939,27 @@ def main():
     verifier = verifier_phase(P, K, dev, smi)
     print(json.dumps({"verifier": verifier}, default=str))
 
+    # -- the cost model and the tuning layer: predictions beside this run --
+    srv = serving["a"]
+    measured = {
+        "shallow_water_wide2": (
+            r0["wall"] / r0["n_steps"] * 1e6,
+            "the four-rank (2,2) wide2 solve above, rank 0's wall a step", 3),
+        "moe_layer": (
+            workloads["b"]["rank0"]["ms"]["chunks2"] * 1e3,
+            "phase 14 (b)'s layer at chunks 2 (the default), rank 0", 1),
+        "pipeline_interleaved": (
+            workloads["c"]["rank3"]["ms"]["interleaved"] * 1e3,
+            "phase 14 (c)'s interleaved round, rank 3", 1),
+        f"serving_decode_bench_b{max(srv['program_ms'])}_1rank": (
+            srv["program_ms"][max(srv["program_ms"])]["decode_megastep_ms"] * 1e3
+            / srv["config"]["unroll"],
+            "phase 15's decode megastep at its largest bucket, a token", 1),
+    }
+    cost = cost_phase(P, K, dev, smi, measured=measured, cli=verifier["c"],
+                      served=srv["payload"]["continuous"])
+    print(json.dumps({"cost": cost}, default=str))
+
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
     phase2 = phase_cases["periodic,phase2"]
@@ -5604,6 +5970,8 @@ def main():
         "source": "mpi4jax_tpu_torch/csrc/sw_steps.cu",
         "replaces": "examples/shallow_water.py:799",
         "launches": launches,
+        # phase 18 (c): the pinned solve under off and error + cost
+        "cost_phase_launches": {k: v["launches"] for k, v in cost["c"].items()},
         "max_abs_err": max(worst, worst20),
         "ms": pair["ms"],
         "plain_ms": pair["plain_ms"],
@@ -5836,5 +6204,5 @@ if __name__ == "__main__":
              "--runtime": runtime_main, "--health": health_main,
              "--elastic": elastic_main, "--workloads": workloads_main,
              "--serving": serving_main, "--aot": aot_main,
-             "--verifier": verifier_main}
+             "--verifier": verifier_main, "--cost": cost_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

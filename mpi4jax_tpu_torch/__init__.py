@@ -56,7 +56,12 @@ pinned decode megastep and drain re-admission), with its twin
 ``set_analyze_mode``, the cross-rank deadlock pass, ``Report``,
 ``Finding``, ``AnalysisError`` and ``python -m
 mpi4jax_tpu_torch.analysis``), with the broken twins of
-``models/broken/``.  Nothing here imports JAX.
+``models/broken/``, its dataflow passes (MPX108, MPX141, MPX142 over
+branches written with ``cond``/``switch``) and its cost model
+(``analyze(cost=True)``); and the tuning layer (``autotune``,
+``TuningFile``, ``load_tuning``, ``active_tuning``, ``python -m
+mpi4jax_tpu_torch.autotune``), with the serving replay
+(``serving/sim.py``).  Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401
@@ -98,6 +103,10 @@ from .analysis import (  # noqa: F401
     set_analyze_mode,
 )
 from .aot import PinnedProgram, StaleProgramError, compile  # noqa: F401
+# the tuning layer: this rebinds the package attribute ``autotune`` to the
+# function, as in the JAX package (``python -m mpi4jax_tpu_torch.autotune``
+# and ``from mpi4jax_tpu_torch.autotune import ...`` reach the subpackage)
+from .autotune import TuningFile, autotune  # noqa: F401
 from .ops._async import (  # noqa: F401
     AsyncHandle,
     P2PHandle,
@@ -115,6 +124,7 @@ from .ops._async import (  # noqa: F401
 from .ops._base import cache_stats, clear_caches, varying  # noqa: F401
 from .ops._fusion import set_fusion_mode  # noqa: F401
 from .parallel.comm import Comm, GroupComm  # noqa: F401
+from .parallel.control import cond, switch  # noqa: F401
 from .parallel.mesh import (  # noqa: F401
     ProcessGrid,
     get_default_mesh,
@@ -139,6 +149,7 @@ from .resilience import (  # noqa: F401
     set_watchdog_timeout,
 )
 from .telemetry import set_telemetry_mode  # noqa: F401
+from .utils.config import active_tuning, load_tuning  # noqa: F401
 from .utils import (  # noqa: F401
     ProfileSummary,
     has_cuda_support,
@@ -190,6 +201,7 @@ __all__ = [
     "clear_caches",
     "compile",
     "compress",
+    "cond",
     "create_token",
     "elastic",
     "flush",
@@ -233,6 +245,7 @@ __all__ = [
     "set_watchdog_timeout",
     "shift",
     "spmd",
+    "switch",
     "telemetry",
     "varying",
 ]

@@ -19,14 +19,18 @@ rewrite.  Two ways in:
   message is sent.  ``python -m mpi4jax_tpu_torch.analysis script.py``
   runs scripts under it and applies the CI exit-code contract.
 
-The JAX package's value-lineage half (``walker.py``, ``dataflow.py``:
-MPX108, MPX141, MPX142) and its cost model (``cost.py``,
-``costmodel.py``) are later slices of the port; ``analyze(cost=True)``
-raises ``NotImplementedError`` until then.
+The value-lineage passes run over the lineage record of each abstract
+run (``lineage.py``, the port's closed jaxpr): MPX108 (``walker.py``)
+and MPX141/MPX142 (``dataflow.py``), over branches written with
+``cond``/``switch`` (``parallel/control.py``).  ``analyze(cost=True)``
+extends the cross-rank pass into the critical-path timing simulation of
+the alpha-beta-gamma cost model (``cost.py``, ``costmodel.py``):
+``Report.cost`` and the advisories MPX131-MPX135 and MPX144.
 
 Nothing here imports JAX or the JAX package: the pure modules
 (``report``, ``graph``, ``checkers``, ``hazards``, ``schedule``,
-``matcher``, ``progress``) are the port's own copies.
+``matcher``, ``progress``, ``walker``, ``dataflow``, ``costmodel``,
+``cost``) are the port's own copies.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .checkers import CHECKERS, registered_codes, run_checkers  # noqa: F401
+from .dataflow import graph_arms_approx, hazard_jaxpr_findings  # noqa: F401
 from .graph import CollectiveEvent, CollectiveGraph  # noqa: F401
 from .hook import (  # noqa: F401
     Recorder,
@@ -51,12 +56,7 @@ from .report import (  # noqa: F401
     Report,
     finding_from_exception,
 )
-
-_COST_SLICE = (
-    "the cost model (analysis/cost.py, analysis/costmodel.py) is not "
-    "ported yet: it is the slice after the dataflow slice in ROADMAP.md "
-    "Queue 1 item 6"
-)
+from .walker import check_cond_divergence  # noqa: F401
 
 
 def analyze(fn, *args, comm=None, wrap: Optional[bool] = None,
@@ -92,27 +92,43 @@ def analyze(fn, *args, comm=None, wrap: Optional[bool] = None,
     ``n`` analyzes ranks ``0..n-1``; an iterable names them.
 
     A Python branch on a tensor's value raises
-    ``analysis.crossrank.DataDependentBranch``.  ``cost=True`` or ``cost_model`` raise
-    ``NotImplementedError`` (the cost model is a later slice).
+    ``analysis.crossrank.DataDependentBranch``: branch on data with
+    ``cond``/``switch``, whose arms the verifier sees (MPX108, MPX141,
+    MPX142).
+
+    ``cost=True`` extends the cross-rank pass into the critical-path
+    timing simulation (``cost.py``): ``Report.cost`` holds the predicted
+    step time, the per-op and per-link-class breakdown, the critical path
+    and the amortization, and MPX131-MPX135 and MPX144 join the findings.
+    Parameters come from ``cost_model`` (a path, a parsed dict or a
+    ``costmodel.CostModel``), else ``MPI4JAX_TPU_COST_MODEL``, else the
+    tuning layer's links section, else the card's defaults
+    (``costmodel.DEFAULT_PARAMS``).  ``cost`` implies ``ranks='all'`` when
+    ``ranks`` is not given; with ``cost=False`` the report and the memo
+    keys are those of a run without the cost model.
 
     Returns a :class:`Report`; ``report.raise_if_findings()`` converts it
     into the :class:`AnalysisError` the ambient ``error`` mode raises.
     Results are memoized per (function, argument shapes, statics, ranks,
     configuration); ``clear_caches()`` drops the memo.
     """
-    if cost or cost_model is not None:
-        raise NotImplementedError(f"analyze(cost=True): {_COST_SLICE}")
     from ..parallel.region import normalize_statics, resolve_comm, spmd
     from ..utils import config
     from . import crossrank
     from .hook import _analyze_cache
 
+    ranks_implied = cost and ranks is None
+    if ranks_implied:
+        ranks = "all"
     is_spmd = getattr(fn, "_mpx_spmd", False)
     if wrap is None:
         wrap = not is_spmd
     if ranks is not None and not wrap and not is_spmd:
+        what = ("analyze(cost=True) implies ranks='all' (the timing runs "
+                "over the matched cross-rank schedules) and"
+                if ranks_implied else "analyze(ranks=...)")
         raise ValueError(
-            "analyze(ranks=...) needs a region-style function (plain "
+            f"{what} needs a region-style function (plain "
             "per-rank or spmd-decorated): an eager-style wrap=False "
             "function has no per-rank program to re-run"
         )
@@ -138,8 +154,16 @@ def analyze(fn, *args, comm=None, wrap: Optional[bool] = None,
         c = resolve_comm(region_comm)
         _, world = crossrank.comm_shape(c)
         rank_list = crossrank.resolve_rank_list(ranks, world)
+    model = None
+    if cost:
+        from . import cost as _cost
+
+        model = _cost.resolve_model(cost_model)
     key = (fn, comm, stat_vals, crossrank.avals(dyn), wrap, rank_list,
            config.config_stamp())
+    if cost:
+        # only with the pass on: keys with cost off stay as they were
+        key = key + ("cost", model.stamp())
     try:
         hash(key)
     except TypeError:
@@ -147,9 +171,12 @@ def analyze(fn, *args, comm=None, wrap: Optional[bool] = None,
     if key is not None and key in _analyze_cache:
         return _analyze_cache[key]
     if rank_list is not None:
-        report = crossrank.cross_rank_report(target, args, {}, c, rank_list)
+        report = crossrank.cross_rank_report(target, args, {}, c, rank_list,
+                                             cost_model=model)
     else:
-        report = crossrank.single_report(target, args, {}, seed=False)
+        axes = tuple(region_comm.axes) if region_comm is not None else ("rank",)
+        report = crossrank.single_report(target, args, {}, seed=False,
+                                         axes=axes)
     if key is not None:
         _analyze_cache[key] = report
     return report

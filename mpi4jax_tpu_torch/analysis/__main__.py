@@ -23,8 +23,13 @@ Options:
   payload stays parseable;
 - ``--strict-advisories``: exit 1 on advisory-severity findings too.
 
-``--cost`` and ``--cost-model`` are the JAX package's cost pass, a later
-slice of the port: until then they are a usage error (exit 2).
+- ``--cost``: sets ``MPI4JAX_TPU_ANALYZE_COST=on``: every cross-rank pass
+  extends into the critical-path timing simulation (``analysis/cost.py``):
+  reports gain a ``cost`` breakdown and the MPX131-MPX135 advisories, and
+  clean regions are reported too;
+- ``--cost-model PATH``: sets ``MPI4JAX_TPU_COST_MODEL=PATH``, a
+  ``mpx-cost-model/1`` or ``mpx-tuning/1`` file (``python -m
+  mpi4jax_tpu_torch.autotune --save PATH`` writes one).
 """
 
 import contextlib
@@ -34,8 +39,9 @@ import runpy
 import sys
 import traceback
 
-USAGE = ("usage: python -m mpi4jax_tpu_torch.analysis [--ranks N] [--json] "
-         "[--strict-advisories] script.py [...]")
+USAGE = ("usage: python -m mpi4jax_tpu_torch.analysis [--ranks N] [--cost] "
+         "[--cost-model PATH] [--json] [--strict-advisories] "
+         "script.py [...]")
 
 
 def _parse_args(argv):
@@ -84,13 +90,12 @@ def main(argv) -> int:
         print(USAGE, file=sys.stderr)
         return 2
     ranks, as_json, cost, cost_model, strict_advisories, scripts = parsed
-    if cost or cost_model is not None:
-        from . import _COST_SLICE
-
-        print(f"{USAGE}\n--cost, --cost-model: {_COST_SLICE}", file=sys.stderr)
-        return 2
     if ranks is not None:
         os.environ["MPI4JAX_TPU_ANALYZE_RANKS"] = ranks
+    if cost:
+        os.environ["MPI4JAX_TPU_ANALYZE_COST"] = "on"
+    if cost_model is not None:
+        os.environ["MPI4JAX_TPU_COST_MODEL"] = cost_model
     os.environ.setdefault("MPI4JAX_TPU_ANALYZE", "warn")
     mode = os.environ["MPI4JAX_TPU_ANALYZE"]
 

@@ -54,6 +54,7 @@ import torch
 from ..utils import config
 from ..utils.tree import tree_flatten
 from . import hook as _hook
+from . import lineage as _lineage
 from . import schedule as _schedule
 from .checkers import run_checkers
 from .matcher import match_schedules
@@ -105,13 +106,19 @@ def _meta_error(e: BaseException) -> bool:
     return "meta" in text and isinstance(e, (RuntimeError, NotImplementedError))
 
 
-def abstract_run(target, args, kwargs=None):
+def abstract_run(target, args, kwargs=None, capture=None):
     """Call ``target(*args, **kwargs)`` on ``meta`` templates under the
-    current recorder and scope.  A Python branch on a tensor's value
-    raises :class:`DataDependentBranch`."""
+    current recorder and scope, recorded by ``capture`` (a
+    ``lineage.Capture``, its arguments seeded rank-varying) when given.  A
+    Python branch on a tensor's value raises :class:`DataDependentBranch`."""
     stats["runs"] += 1
+    margs, mkwargs = to_meta(tuple(args)), to_meta(dict(kwargs or {}))
     try:
-        return target(*to_meta(tuple(args)), **to_meta(dict(kwargs or {})))
+        if capture is None:
+            return target(*margs, **mkwargs)
+        capture.seed_args((margs, mkwargs))
+        with _lineage.capturing(capture):
+            return target(*margs, **mkwargs)
     except DataDependentBranch:
         raise
     except (RuntimeError, NotImplementedError) as e:
@@ -129,9 +136,12 @@ def abstract_run(target, args, kwargs=None):
 
 
 class _EventStream(list):
-    """A rank's recorded events plus the recording's donation records."""
+    """A rank's recorded events plus the recording's donation records and
+    the lineage record of its run (``lineage.Record``, None when the run
+    aborted)."""
 
     donations: tuple = ()
+    lineage = None
 
 
 def trace_rank_schedules(target, args, kwargs, axis_names: Sequence[str],
@@ -144,10 +154,13 @@ def trace_rank_schedules(target, args, kwargs, axis_names: Sequence[str],
     fatal: List[Finding] = []
     for r in rank_list:
         rec = _hook.Recorder("collect")
+        cap = _lineage.Capture(axis_names)
         _hook.push_recorder(rec)
+        record = None
         try:
             with _schedule.scope(axis_names, axis_sizes, r):
-                abstract_run(target, args, kwargs)
+                abstract_run(target, args, kwargs, capture=cap)
+            record = cap.record
         except Exception as e:
             f = finding_from_exception(e)
             if f is None:
@@ -157,6 +170,7 @@ def trace_rank_schedules(target, args, kwargs, axis_names: Sequence[str],
             _hook.pop_recorder()
         events = _EventStream(rec.events)
         events.donations = tuple(rec.donations)
+        events.lineage = record
         per_rank_events[r] = events
     return per_rank_events, fatal
 
@@ -215,6 +229,69 @@ def per_rank_graph_findings(per_rank_events: Dict[int, list]) -> List[Finding]:
     return findings
 
 
+def lineage_findings(record, graph, rank=None) -> List[Finding]:
+    """The passes over one run's lineage record: MPX108 (``walker``) and
+    MPX141/MPX142 (``dataflow``, approximate seeds armed by ``graph``)."""
+    from .hazards import hazard_findings
+    from .walker import check_cond_divergence
+
+    if record is None:
+        return []
+    return check_cond_divergence(record) + hazard_findings(record, graph, rank)
+
+
+def per_rank_cond_findings(per_rank_events: Dict[int, list]) -> List[Finding]:
+    """MPX108 over each rank's lineage record, deduplicated by message."""
+    from .walker import check_cond_divergence
+
+    findings, seen = [], set()
+    for r in sorted(per_rank_events):
+        record = getattr(per_rank_events[r], "lineage", None)
+        if record is None:
+            continue
+        for f in check_cond_divergence(record):
+            if f.message not in seen:
+                seen.add(f.message)
+                findings.append(f)
+    return findings
+
+
+def per_rank_hazard_findings(per_rank_events: Dict[int, list]) -> List[Finding]:
+    """The dataflow pass (MPX141/MPX142) over each rank's lineage record,
+    deduplicated by message; a deduplicated MPX141 names the would-diverge
+    rank pair (the first two ranks that surfaced it, or the sole one and
+    its successor), as in the JAX package."""
+    from .hazards import hazard_findings
+
+    order: List[tuple] = []
+    hit_ranks: Dict[tuple, List[int]] = {}
+    base: Dict[tuple, Finding] = {}
+    for r in sorted(per_rank_events):
+        record = getattr(per_rank_events[r], "lineage", None)
+        if record is None:
+            continue
+        graph = _hook.CollectiveGraph(events=per_rank_events[r],
+                                      meta=_hook.config_snapshot())
+        for f in hazard_findings(record, graph, rank=r):
+            key = (f.code, f.op, f.message)
+            if key not in base:
+                base[key] = f
+                order.append(key)
+                hit_ranks[key] = []
+            hit_ranks[key].append(r)
+    findings: List[Finding] = []
+    for key in order:
+        f = base[key]
+        ranks_hit = hit_ranks[key]
+        a = ranks_hit[0]
+        b = ranks_hit[1] if len(ranks_hit) > 1 else a + 1
+        if f.code == "MPX141":
+            f = replace(f, message=(
+                f"{f.message} (ranks {a} and {b} would diverge here)"))
+        findings.append(f)
+    return findings
+
+
 def resolve_rank_list(ranks, world: int) -> Tuple[int, ...]:
     """Normalize the ``ranks`` argument: ``'all'`` -> every rank, an int
     ``n`` -> ranks ``0..n-1``, any iterable -> its sorted unique ints;
@@ -255,9 +332,11 @@ def comm_shape(c) -> Tuple[List[int], int]:
 
 
 def cross_rank_report(target, args, kwargs, c, rank_list,
-                      where_rank0: Optional[int] = None) -> Report:
-    """The ``ranks=`` pass: per-rank re-runs -> per-rank graph checkers ->
-    global matcher -> progress checker."""
+                      where_rank0: Optional[int] = None,
+                      cost_model=None) -> Report:
+    """The ``ranks=`` pass: per-rank re-runs -> per-rank graph checkers and
+    lineage passes -> global matcher -> progress checker -> (with a
+    ``cost_model``) the critical-path cost pass (``cost.py``)."""
     axis_sizes, world = comm_shape(c)
     watermark = uid_watermark()
     per_rank, fatal = trace_rank_schedules(target, args, kwargs, c.axes,
@@ -266,26 +345,43 @@ def cross_rank_report(target, args, kwargs, c, rank_list,
     fatal_codes = {f.code for f in fatal}
     findings.extend(f for f in per_rank_graph_findings(per_rank)
                     if f.code not in fatal_codes)
+    findings.extend(per_rank_cond_findings(per_rank))
+    findings.extend(per_rank_hazard_findings(per_rank))
+    cost_report = None
     if not fatal:
         matched = match_rank_schedules(per_rank, world, watermark)
         findings.extend(cross_rank_findings(per_rank, world, matched=matched))
+        if cost_model is not None:
+            from . import cost as _cost
+
+            cost_report, cost_findings = _cost.run_cost_pass(
+                matched, model=cost_model, host_of_rank=_cost.host_map_for(c),
+                closed={r: getattr(ev, "lineage", None)
+                        for r, ev in per_rank.items()},
+                meta=_hook.config_snapshot())
+            findings.extend(cost_findings)
     first = where_rank0 if where_rank0 is not None else rank_list[0]
     events = per_rank.get(first, ())
     return Report(findings=tuple(findings), events=tuple(events),
-                  meta=dict(_hook.config_snapshot(), ranks=list(rank_list)))
+                  meta=dict(_hook.config_snapshot(), ranks=list(rank_list)),
+                  cost=cost_report)
 
 
-def single_report(target, args, kwargs, seed: bool = True) -> Report:
+def single_report(target, args, kwargs, seed: bool = True,
+                  axes=("rank",)) -> Report:
     """One abstract run of this process's own path through every checker;
     an MPX-tagged raise becomes the run's one finding for its code.
-    ``seed``: start from the ambient donations (``hook.seed_donations``)."""
+    ``seed``: start from the ambient donations (``hook.seed_donations``);
+    ``axes``: the comm axes its arguments vary over (the lineage's
+    wording)."""
     rec = _hook.Recorder("collect")
     if seed:
         _hook.seed_donations(rec)
     _hook.push_recorder(rec)
+    cap = _lineage.Capture(axes)
     fatal = None
     try:
-        abstract_run(target, args, kwargs)
+        abstract_run(target, args, kwargs, capture=cap)
     except Exception as e:
         fatal = finding_from_exception(e)
         if fatal is None:
@@ -297,6 +393,8 @@ def single_report(target, args, kwargs, seed: bool = True) -> Report:
     if fatal is not None:
         findings = [f for f in findings if f.code != fatal.code]
         findings.insert(0, fatal)
+    else:
+        findings.extend(lineage_findings(cap.record, graph))
     return Report(findings=tuple(findings), events=tuple(rec.events),
                   meta=dict(graph.meta))
 
@@ -328,6 +426,18 @@ def verify_region(f, c, statics, static_vals, unroll: int, dyn, kwargs,
     shape = tuple(mesh.shape) if mesh is not None else None
     key = ("region", f, c.uid, shape, tuple(statics), static_vals, unroll,
            avals((dyn, kwargs)), config.config_stamp())
+    cost_model = None
+    if config.analyze_cost_enabled():
+        from . import cost as _cost
+
+        try:
+            cost_model = _cost.resolve_model(None)
+        except ValueError as e:
+            warnings.warn(f"MPI4JAX_TPU_ANALYZE_COST: cost pass skipped "
+                          f"(tuning file rejected: {e})", stacklevel=3)
+        else:
+            # folded in only when the cost pass is armed
+            key = key + ("cost", cost_model.stamp())
     try:
         hash(key)
     except TypeError:
@@ -340,18 +450,25 @@ def verify_region(f, c, statics, static_vals, unroll: int, dyn, kwargs,
         name = getattr(f, "__name__", repr(f))
         reports = []
         world = comm_shape(c)[1] if mesh is not None else 1
-        if world >= 2 and _ambient_enabled(world):
-            rep = cross_rank_report(run, dyn, kwargs, c, tuple(range(world)))
+        # the cost pass prices a one-rank region too (its one schedule)
+        if (world >= 2 or cost_model is not None) and _ambient_enabled(world):
+            rep = cross_rank_report(run, dyn, kwargs, c, tuple(range(world)),
+                                    cost_model=cost_model)
             reports.append((f"cross-rank pass over spmd region {name}", rep))
-        rep = single_report(run, dyn, kwargs)
+        rep = single_report(run, dyn, kwargs, axes=tuple(c.axes))
         reports.append((f"spmd region {name}", rep))
-        reports = [(w, r) for w, r in reports if not r.ok]
+        # a clean report is kept when the cost pass ran: the CLI's --cost
+        # breakdown covers clean programs too
+        reports = [(w, r) for w, r in reports
+                   if not r.ok or r.cost is not None]
         if key is not None:
             _hook._verified[key] = reports
         stats["seconds"] += time.perf_counter() - t0
     for where, report in reports:
         if fresh:
             _hook.sink_report(where, report)
+        if report.ok:
+            continue
         if mode == "error":
             report.raise_if_findings()
         if fresh:

@@ -21,20 +21,30 @@ MPX140 (ERROR)
 
 Buffer identities are ``id()``s of the carriers, pinned alive by the
 recorder for the recording's lifetime; checkers use them purely as
-equality handles and never print them.  The value-lineage half
-(``hazard_findings`` over a program's dataflow, MPX141/MPX142) waits for
-the port's dataflow slice.
+equality handles and never print them.  The value-lineage half is
+:func:`hazard_findings`: the dataflow pass (``dataflow.py``, MPX141/MPX142)
+over a run's lineage record (``lineage.py``), armed by its graph.
 
 Pure Python: hand-built graphs drive both checkers in the tests.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 from .checkers import checker
+from .dataflow import graph_arms_approx, hazard_jaxpr_findings
 from .graph import CollectiveGraph
 from .report import Finding
+
+
+def hazard_findings(record, graph=None,
+                    rank: Optional[int] = None) -> List[Finding]:
+    """The lineage half in one call: MPX141/MPX142 over a run's lineage
+    ``record``, with the approximate seeds armed by the recorded
+    ``graph``'s codec or error-feedback activity."""
+    return hazard_jaxpr_findings(
+        record, approx_armed=graph_arms_approx(graph), rank=rank)
 
 
 def _span_intervals(graph: CollectiveGraph) -> dict:

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import warnings
 from collections import deque
+from contextlib import contextmanager
 from typing import List, Optional
 
 from ..utils import config
@@ -66,8 +67,12 @@ def effective_mode() -> str:
 
 def analysis_cache_token() -> tuple:
     """The verifier's part of a pinned program's key: flipping the mode,
-    or the cross-rank setting, must verify again."""
-    return (effective_mode(), config.analyze_ranks())
+    or the cross-rank setting, must verify again.  The ambient cost pass
+    folds in only when armed, so keys with it off stay as they were."""
+    tok = (effective_mode(), config.analyze_ranks())
+    if config.analyze_cost_enabled():
+        tok = tok + ("cost", config.cost_model_path())
+    return tok
 
 
 class Recorder:
@@ -110,7 +115,10 @@ def config_snapshot() -> dict:
     """The configuration the checkers read, in the JAX package's keys.
     The port has no algorithm selector and no multi-host topology, so the
     crossover keys (MPX109, MPX113, MPX137, MPX138) are absent and those
-    advisories stay silent, as the JAX package's do on one host."""
+    advisories stay silent, as the JAX package's do on one host.  A cost
+    model file or a tuning layer adds its measured crossovers
+    (``costmodel.measured_meta``: ``measured_*``), which the MPX111 and
+    MPX113 texts cite."""
     from ..ops._fusion import effective_mode as fusion_mode
     from ..parallel.megastep import tracing_megastep
     from ..resilience.elastic import current_epoch
@@ -130,6 +138,9 @@ def config_snapshot() -> dict:
         snap["serving_buckets"] = tuple(table.buckets)
     if _health_armed():
         snap["flight_ring"] = config.flight_ring_capacity()
+    from .costmodel import measured_meta
+
+    snap.update(measured_meta())
     return snap
 
 
@@ -165,6 +176,25 @@ def pop_recorder() -> Recorder:
 
 def current_recorder() -> Optional[Recorder]:
     return _recorder_stack[-1] if _recorder_stack else None
+
+
+@contextmanager
+def branch_recording(main: bool):
+    """Around one arm of an abstract ``cond``/``switch``
+    (``parallel/control.py``): the first arm (``main``) records into the
+    current recorder; any other arm into a recorder of its own, with a
+    copy of the point-to-point queues, whose events are dropped."""
+    rec = current_recorder()
+    if rec is None or main:
+        yield
+        return
+    sub = Recorder(rec.mode)
+    sub.queues = {k: deque(v) for k, v in rec.queues.items()}
+    push_recorder(sub)
+    try:
+        yield
+    finally:
+        pop_recorder()
 
 
 def arm_context(ctx) -> None:

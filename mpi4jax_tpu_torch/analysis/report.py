@@ -1,8 +1,9 @@
 """Findings, reports, and the MPX error-code catalog.
 
 The port's own copy of ``mpi4jax_tpu/analysis/report.py``: the whole
-catalog, every code with its title, severity and text (those whose
-checkers wait for later slices included), so that a finding renders and
+catalog, every code with its title, severity and text (those that stay
+silent in the port, for want of the algorithm selector and the multi-host
+lowerings, included), so that a finding renders and
 serializes the same in both packages.  Every rule the JAX package's
 ``docs/sharp_bits.md`` states in prose carries a stable ``MPX1xx`` code
 here, so a diagnostic can be grepped the way a compiler warning is.
@@ -518,9 +519,11 @@ class Report:
     :class:`~mpi4jax_tpu_torch.analysis.graph.CollectiveEvent`), and the
     config snapshot the checkers saw (``meta``).
 
-    ``cost`` is the JAX package's critical-path timing prediction; the
-    port's cost model is a later slice, so here it is always ``None`` and
-    the JSON shape is the JAX package's without the cost pass."""
+    ``cost`` is the critical-path timing prediction
+    (:class:`~mpi4jax_tpu_torch.analysis.cost.CostReport`) when the pass
+    ran (``cost=True``, ``MPI4JAX_TPU_ANALYZE_COST=on``), ``None``
+    otherwise, keeping the report and its JSON shape those of a run
+    without the cost model."""
 
     findings: Tuple[Finding, ...] = ()
     events: Tuple = ()

@@ -242,16 +242,40 @@ def check_cuda_fields(what: str, fields, shape) -> None:
             )
 
 
-def check_meta_fields(what: str, fields, shape) -> None:
-    """The shape rule's checks on ``meta`` fields (the verifier's abstract
-    run, ``analysis/``): f32 tensors, each of ``shape``, as a launch
-    needs."""
+# The verifier's lineage capture (``analysis/lineage.py``) registers
+# itself here: a ``meta`` route's outputs are made empty, so the capture
+# cannot see what they derive from unless the route reports them.
+_meta_hook = None
+
+
+def set_meta_hook(fn) -> None:
+    """Install ``fn(outputs, inputs, name)``, called with every ``meta``
+    route's outputs (:func:`meta_outputs`)."""
+    global _meta_hook
+    _meta_hook = fn
+
+
+def meta_outputs(name: str, inputs, outs):
+    """Report a ``meta`` route's outputs ``outs`` (the verifier's abstract
+    run, ``analysis/``: nothing launched) as derived from ``inputs`` by the
+    kernel ``name``; returns ``outs``.  Every kernel's ``meta`` route
+    returns through here."""
+    if _meta_hook is not None:
+        _meta_hook(outs, inputs, name)
+    return outs
+
+
+def meta_fields(what: str, name: str, fields, shape):
+    """The stencils' ``meta`` route: checks ``fields`` as a launch needs
+    them (f32, each of ``shape``) and returns one empty output like each,
+    reported by :func:`meta_outputs`."""
     for f in fields:
         if f.device.type != "meta" or f.dtype != torch.float32:
             raise ValueError(f"{what}: fields must be f32 meta tensors")
         if tuple(f.shape) != tuple(shape):
             raise ValueError(
                 f"{what}: fields must be {tuple(shape)}, got {tuple(f.shape)}")
+    return meta_outputs(name, fields, tuple(torch.empty_like(f) for f in fields))
 
 
 def raise_on_error(what: str, err: int) -> None:

@@ -248,7 +248,8 @@ def _meta_partials(q, k, v, mask):
     _check_kernel_shapes(q, k, v, mask)
     b, tq, h, _ = q.shape
     m = torch.empty((b, h, tq), dtype=torch.float32, device="meta")
-    return torch.empty(q.shape, dtype=q.dtype, device="meta"), m, torch.empty_like(m)
+    outs = torch.empty(q.shape, dtype=q.dtype, device="meta"), m, torch.empty_like(m)
+    return _build.meta_outputs("flash_fwd", (q, k, v, mask), outs)
 
 
 def _check_device(q) -> None:
@@ -425,8 +426,10 @@ def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
                                         scale=scale, causal=causal)
     if q.device.type == "meta":  # the backward kernels' shape rule
         _check_kernel_shapes(q, k, v, mask)
-        return tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
+        outs = tuple(torch.empty(t.shape, dtype=t.dtype, device="meta")
                      for t in (q, k, v))
+        return _build.meta_outputs("flash_bwd", (q, k, v, mask, m, g_o, g_l),
+                                   outs)
     dq = flash_bwd_dq(q, k, v, mask, m, g_o, g_l, scale=scale, causal=causal)
     dk, dv = flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, scale=scale,
                            causal=causal)

@@ -139,8 +139,8 @@ def sw_phase1(fields, cfg, first_step: bool, offsets):
     if fields[0].device.type == "cpu":
         return sw_phase1_plain(fields, cfg, first_step, offsets)
     if fields[0].device.type == "meta":
-        _build.check_meta_fields("sw_phase", fields, (cfg.ny_local, cfg.nx_local))
-        return tuple(torch.empty_like(f) for f in fields)
+        return _build.meta_fields("sw_phase", "sw_phase1", fields,
+                                  (cfg.ny_local, cfg.nx_local))
     stream = _launch_device(fields)
     _build.check_cuda_fields("sw_phase", fields, (cfg.ny_local, cfg.nx_local))
     outs = tuple(torch.empty_like(f) for f in fields)
@@ -162,8 +162,8 @@ def sw_phase2(u, v, cfg, offsets):
     if u.device.type == "cpu":
         return sw_phase2_plain(u, v, cfg, offsets)
     if u.device.type == "meta":
-        _build.check_meta_fields("sw_phase", (u, v), (cfg.ny_local, cfg.nx_local))
-        return torch.empty_like(u), torch.empty_like(v)
+        return _build.meta_fields("sw_phase", "sw_phase2", (u, v),
+                                  (cfg.ny_local, cfg.nx_local))
     stream = _launch_device((u, v))
     _build.check_cuda_fields("sw_phase", (u, v), (cfg.ny_local, cfg.nx_local))
     ou, ov = torch.empty_like(u), torch.empty_like(v)

@@ -361,8 +361,8 @@ def sw_steps(fields, cfg, first_step: bool, nsteps: int):
     if h.device.type == "cpu":
         return sw_steps_plain(fields, cfg, first_step, nsteps)
     if h.device.type == "meta":
-        _build.check_meta_fields("sw_steps", fields, (cfg.ny_local, cfg.nx_local))
-        return tuple(torch.empty_like(f) for f in fields)
+        return _build.meta_fields("sw_steps", "sw_steps", fields,
+                                  (cfg.ny_local, cfg.nx_local))
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_steps: unsupported device {h.device}")
     shape = (cfg.ny_local, cfg.nx_local)

@@ -155,8 +155,8 @@ def sw_wide(fields, cfg, first_step: bool, nsteps: int, offsets):
     if h.device.type == "cpu":
         return sw_wide_plain(fields, cfg, first_step, nsteps, offsets)
     if h.device.type == "meta":
-        _build.check_meta_fields("sw_wide", fields, tuple(h.shape))
-        return tuple(torch.empty_like(f) for f in fields)
+        return _build.meta_fields("sw_wide", "sw_wide", fields,
+                                  tuple(h.shape))
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_wide: unsupported device {h.device}")
     shape = tuple(h.shape)

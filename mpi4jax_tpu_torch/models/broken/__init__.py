@@ -18,9 +18,7 @@ package's script does:
 A twin's module defines ``CODES`` (the codes of which one must fire),
 ``build(comm, device)`` (the per-rank function) and ``example(comm,
 device)`` (one rank's arguments, on ``device``: ``meta`` templates for
-the virtual grid); ``drill`` drives the three front-ends.  The
-fifth JAX script, ``ef_divergent_gate.py`` (MPX141), waits for the port's
-dataflow slice.
+the virtual grid); ``drill`` drives the three front-ends.
 """
 
 from __future__ import annotations
@@ -31,7 +29,8 @@ import sys
 
 RANKS = 4
 TWINS = ("rank_divergent_deadlock", "pipeline_interleave_deadlock",
-         "moe_divergent_capacity", "overlap_donation_race")
+         "moe_divergent_capacity", "overlap_donation_race",
+         "ef_divergent_gate")
 
 
 def virtual_comm(n: int, device=None):

@@ -15,8 +15,8 @@ reference:
   megastep loop;
 - ``pipeline(..., schedule="interleaved", virtual=2)``: rank ``r`` owns
   substages ``r`` and ``S + r``, the boundary is a ring;
-- ``pipeline(...)`` with ``schedule="auto"`` (the port's fixed rule until
-  the cost model is ported: ``1f1b`` here, ``parallel/pipeline.py``).
+- ``pipeline(...)`` with ``schedule="auto"`` (priced by the cost model,
+  ``analysis/costmodel.py:best_schedule``: ``1f1b`` here).
 
 The reference applies every substage in order per microbatch, as the
 schedules compute on microbatch slices; the ladder computes on the whole
@@ -25,9 +25,10 @@ batch, so its reference is the same fold over the whole batch (one
 ``recv(source={s - 1: s})``, which reads "rank ``s - 1`` receives from
 ``s``" and which the JAX package itself refuses against the send's
 ``dest={s - 1: s}`` (a ``ValueError`` at the first hop); the twin passes
-the receiver-centric ``{s: s - 1}``.  The JAX example's MPX135
-``analyze`` call on the ladder waits for the analysis layer (ROADMAP
-Queue 1 item 6).  Width, stages (the world) and microbatches are
+the receiver-centric ``{s: s - 1}``.  The JAX example's MPX135 check is
+``analyze(make_ladder(comm), x, w2, ranks="all", cost=True)``: the cost
+pass reports the ladder's serialized chain (``tests/test_torch_cost.py``).
+Width, stages (the world) and microbatches are
 parameters; ``main`` runs on every rank of a world that
 ``parallel/launch.py:run`` started:
 

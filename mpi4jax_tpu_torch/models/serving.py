@@ -42,8 +42,13 @@ KV slots scatter-updated so that churn builds no program.  Two modes:
   ``--drain-rank -2`` runs the same world with no notice (the clean run
   the drill's streams are held against).
 
-``--simulate`` (the JAX example's cost-model replay) needs the cost
-model, ROADMAP Queue 1 item 6, and raises ``NotImplementedError``.
+``--simulate`` is the JAX example's cost-model replay
+(``serving/sim.py``): the real scheduler on a virtual clock priced by
+``analysis/costmodel.py`` (the active tuning layer's or cost-model file's
+parameters, else the card's defaults) at ``--ranks`` ranks (default 1),
+both policies, the benchmark payload printed; nothing runs on a device::
+
+    python -m mpi4jax_tpu_torch.models.serving --model bench --simulate
 """
 
 from __future__ import annotations
@@ -205,14 +210,41 @@ def benchmark(cfg, trace, meta, comm, schedulers=("continuous", "static")):
     return payload, engine, runs
 
 
+def simulate(cfg, trace, meta, k: int = 1, model=None):
+    """The cost-model replay of both policies over ``trace`` at ``k``
+    ranks (``serving/sim.py:replay_bench``): ``(payload, continuous,
+    static)``."""
+    from ..serving import sim
+
+    cfg.validate_world(k)
+    return sim.replay_bench(cfg, trace, k=k, trace_meta=meta, model=model)
+
+
+def run_simulate(args) -> int:
+    cfg = make_config(args.model, seed=args.seed, unroll=args.unroll,
+                      max_batch=args.max_batch, slo_ms=args.slo_ms)
+    trace, meta = make_trace(cfg, requests=args.requests, rate=args.rate,
+                             seed=args.seed, long_frac=args.long_frac)
+    payload, cont, stat = simulate(cfg, trace, meta, k=args.ranks)
+    if not args.json:
+        for sched, r in (("continuous", cont), ("static", stat)):
+            print(f"{sched:>10}: {r['tokens_per_s_per_chip']} tok/s/chip "
+                  f"predicted, p99 {r['p99_ms']} ms (slo "
+                  f"{r['slo_p99_ms']} ms), {r['completed']} completed over "
+                  f"{r['boundaries']} boundaries", file=sys.stderr)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+            f.write("\n")
+    print(json.dumps(payload) if args.json else json.dumps(payload, indent=2))
+    return 0
+
+
 def run_benchmark(args) -> int:
     from .. import Comm, make_world_mesh
 
     if args.simulate:
-        raise NotImplementedError(
-            "--simulate replays the trace on the cost model "
-            "(serving/sim.py over analysis/costmodel.py), which the port "
-            "has not reached: ROADMAP Queue 1 item 6")
+        return run_simulate(args)
     cfg = make_config(args.model, seed=args.seed, unroll=args.unroll,
                       max_batch=args.max_batch, slo_ms=args.slo_ms,
                       virtual_clock=args.virtual_clock)
@@ -438,8 +470,9 @@ def _parse_args(argv=None):
     p.add_argument("--scheduler", choices=("continuous", "static", "both"),
                    default="both")
     p.add_argument("--simulate", action="store_true",
-                   help="cost-model replay (not ported: ROADMAP Queue 1 "
-                        "item 6)")
+                   help="cost-model replay (serving/sim.py): no device")
+    p.add_argument("--ranks", type=int, default=1,
+                   help="--simulate: the world size priced (default 1)")
     p.add_argument("--virtual-clock", action="store_true",
                    help="advance arrivals one tick per megastep boundary "
                         "(deterministic across ranks; implied by --launch)")

@@ -45,6 +45,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..analysis import hook as _analysis
+from ..analysis import lineage as _lineage
 from ..analysis.report import mpx_error
 from ..analysis.schedule import RankConcrete
 from ..parallel.region import current_context
@@ -405,6 +406,7 @@ def _record(opname, comm, arrays, token, ana, abstract):
         raise
     if evt is not None:
         _analysis.end_event(evt, out)
+    _lineage.op_eqn(opname, comm, arrays, ana, out)
     return out
 
 

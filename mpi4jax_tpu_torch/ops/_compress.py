@@ -128,6 +128,7 @@ def ef_allreduce(grads, residual, op=None, *, comm=None):
     docstring).  Issues one ``allreduce`` a leaf, in the JAX package's
     leaf order, before using any, so that fusion packs them.  Returns
     ``(reduced_tree, new_residual_tree, token)``."""
+    from ..analysis import hook as _ana_hook
     from ._base import SUM
     from .allreduce import allreduce
 
@@ -146,6 +147,9 @@ def ef_allreduce(grads, residual, op=None, *, comm=None):
         q = roundtrip(comp, codec)
         new_res.append((comp - q).to(g.dtype))
         out, token = allreduce(q, op, comm=comm, token=token)
+        # an error-feedback step: arms the verifier's approximate-lineage
+        # seeds (analysis/dataflow.py:graph_arms_approx)
+        _ana_hook.mark_last_event("ef", True)
         outs.append(out)
     return unflatten(outs), unflatten(new_res), token
 

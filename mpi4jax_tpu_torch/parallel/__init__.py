@@ -8,6 +8,7 @@ function; import the module's other names from
 ``mpi4jax_tpu_torch.parallel.pipeline``)."""
 
 from .comm import Comm  # noqa: F401
+from .control import cond, switch  # noqa: F401
 from . import moe  # noqa: F401
 from .mesh import (  # noqa: F401
     DEFAULT_AXIS,

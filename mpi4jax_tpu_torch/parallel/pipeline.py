@@ -37,21 +37,15 @@ returns the global ``(S, M, mb, ...)`` stack).  ``params`` is this rank's
 stage parameters: with ``virtual=v > 1`` every leaf carries a leading
 chunk axis, chunk ``c`` of rank ``r`` being virtual stage ``c * S + r``.
 
-What waits for ROADMAP Queue 1 item 6 (``analysis/``, ``autotune/``):
-
-- ``schedule="auto"``: the JAX package prices every expressible schedule
-  with its cost model (``analysis/costmodel.py:best_schedule``).  Until
-  that is ported, ``auto`` takes a fixed rule: a chunked program
-  (``virtual >= 2``) runs ``interleaved`` (the cost model's only
-  candidate there, so the same pick), a flat one ``1f1b`` (the default
-  model's pick at the JAX tests', the example's and ``chip_smoke.py``
-  phase 14's shapes; a tuned model can pick ``gpipe``);
-- the analysis hook (the JAX tick loop's ``_mark``, ``mark_last_event``),
-  which stamps a round's schedule onto the event stream for the MPX144
-  and MPX135 advisories: left out;
-- the tuned ``pipeline_microbatches`` and ``pipeline_virtual_stages``
-  knobs: the port reads their variables and defaults only
-  (``utils/config.py``).
+``schedule="auto"`` prices every expressible schedule with the cost
+model (``analysis/costmodel.py:best_schedule``, the active model: a
+cost-model file, the tuning layer's links, else the card's defaults), as
+the JAX package does: a chunked program (``virtual >= 2``) can only run
+``interleaved``, a flat one takes the cheaper of ``gpipe`` and ``1f1b``.
+A round stamps its ``(schedule, stages, microbatches, virtual, payload
+bytes)`` on its first boundary transfer's event (``mark_last_event``),
+which the cost pass's MPX144 reads.  The tuned ``pipeline_microbatches``
+and ``pipeline_virtual_stages`` knobs apply through ``utils/config.py``.
 """
 
 from __future__ import annotations
@@ -309,13 +303,20 @@ class PipelineProgram:
 
     def plan(self, stages: int, microbatches: int, payload_bytes: int
              ) -> PhasePlan:
-        """Resolve ``schedule='auto'`` (the fixed rule of the module
-        docstring; ``payload_bytes`` is what the JAX package's cost model
-        prices) and compile the phase plan."""
+        """Resolve ``schedule='auto'`` through the cost model and compile
+        the phase plan (pure: callable without a device)."""
         schedule = self._requested
         virtual = self._resolve_virtual(schedule)
         if schedule == "auto":
-            schedule = "interleaved" if virtual >= 2 else "1f1b"
+            from ..analysis import costmodel
+
+            model = costmodel.load_model()
+            # the roofline floor of a stage's compute: it streams its
+            # boundary activation in and out (the JAX package's estimate)
+            compute_us = model.compute_us(2 * payload_bytes)
+            schedule, _times = costmodel.best_schedule(
+                stages, microbatches, payload_bytes, compute_us, model,
+                virtual=virtual)
         if schedule != "interleaved":
             if self._carries_chunks():
                 raise ValueError(
@@ -431,6 +432,21 @@ class _Ticks:
                  mbs, params):
         self.prog, self.plan, self.comm = prog, plan, comm
         self.mbs, self.params = mbs, params
+        self.stamped = False
+
+    def _mark(self):
+        """Stamp the round's schedule on its first boundary event (the
+        cost pass's MPX144 reads it)."""
+        if self.stamped:
+            return
+        self.stamped = True
+        from ..analysis.hook import mark_last_event
+
+        m0 = self.mbs[0]
+        plan = self.plan
+        mark_last_event("pipeline", (
+            plan.schedule, plan.stages, plan.microbatches, plan.virtual,
+            m0.numel() * m0.element_size()))
 
     def _chunk_fn(self, c: int):
         prog, v = self.prog, self.plan.virtual
@@ -460,6 +476,7 @@ class _Ticks:
         dest = shift(1, wrap=self.plan.virtual > 1)
         if self.plan.schedule == "gpipe":
             got, tok = sendrecv(h, h, dest=dest, comm=self.comm, token=tok)
+            self._mark()
             return None, got, tok
         sh, tok = send_start(h, dest, comm=self.comm, token=tok)
         rh, tok = recv_start(h, comm=self.comm, token=tok)
@@ -470,7 +487,9 @@ class _Ticks:
             return rh, tok  # the blocking boundary already delivered
         from ..ops._async import p2p_wait
 
-        return p2p_wait(rh, token=tok)
+        got, tok = p2p_wait(rh, token=tok)
+        self._mark()
+        return got, tok
 
     def _boundary_send_finish(self, sh, tok):
         if sh is None:
@@ -578,8 +597,8 @@ def pipeline(stage_fns: StageFns, n_microbatches: Optional[int] = None,
 
     ``stage_fns`` is one ``f(h, params)`` callable (with ``virtual=v > 1``
     every params leaf carries a leading chunk axis) or a sequence of
-    per-chunk callables.  ``schedule`` is ``'auto'`` (the fixed rule of
-    the module docstring), ``'gpipe'``, ``'1f1b'`` or ``'interleaved'``.
+    per-chunk callables.  ``schedule`` is ``'auto'`` (priced by the cost
+    model, see the module docstring), ``'gpipe'``, ``'1f1b'`` or ``'interleaved'``.
     A program carrying ``v >= 2`` stage-chunks per rank can only run the
     interleaved schedule: requesting gpipe or 1f1b raises.
     ``megastep=False`` runs the steady window tick by tick outside a

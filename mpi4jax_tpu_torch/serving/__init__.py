@@ -9,10 +9,9 @@ bucketed batch-shape table (``buckets.py``), a KV slot budget
 program per ``(phase, bucket)`` and decode run as a megastep
 (``engine.py``: on one CUDA rank a CUDA graph of N token steps).
 ``models/serving.py`` is the runnable deployment, benchmark and elastic
-drain drill (the twin of ``examples/serving/serve.py``).
-
-The cost-model replay of the JAX package (``serving/sim.py``) waits for
-the port's cost model (ROADMAP Queue 1 item 6).
+drain drill (the twin of ``examples/serving/serve.py``), and
+``serving/sim.py`` the cost-model replay of the scheduler
+(``--simulate``).
 """
 
 from .buckets import (  # noqa: F401

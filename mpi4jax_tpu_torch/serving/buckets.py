@@ -15,11 +15,10 @@ two batches in one bucket could derive two chunk counts and split the
 bucket across two programs.
 
 :func:`declare_buckets` registers the active table process-wide.  In
-the JAX package the MPX136 advisory (``analysis/checkers.py``) reads it
-to flag traced programs whose batch dimension is not a bucket; that
-checker belongs to the analysis layer the port has not reached yet
-(ROADMAP Queue 1 item 6), and the registry is kept so that the engine
-scopes its declaration around its loop as the JAX engine does.
+both packages the MPX136 advisory (``analysis/checkers.py``) reads it
+(``analysis/hook.py:config_snapshot``) to flag programs whose batch
+dimension is not a bucket, and the engine scopes its declaration around
+its loop as the JAX engine does.
 """
 
 from __future__ import annotations

@@ -111,14 +111,33 @@ and the collective verifier's (``analysis/``):
 ``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
 of ``utils/debug.py``, as in the JAX package.
 
-The JAX package resolves these as default < autotune table < environment.
-The port has no autotune table yet (``autotune/`` is not ported), so here
-it is default < environment (the two pipeline knobs included: their
-``payload_bytes`` argument picks a tuned value only in the JAX package),
-and ``auto`` compression resolves to ``bf16``, as the JAX package does
-when its table has no entry.  An unset or empty
-variable takes the default; a value outside the choices, or an integer
-below its minimum, raises ``ValueError`` with the JAX package's message.
+and the tuning layer's and the cost model's (``autotune/``,
+``analysis/costmodel.py``):
+
+- ``MPI4JAX_TPU_TUNING``: an ``mpx-tuning/1`` file (what ``python -m
+  mpi4jax_tpu_torch.autotune`` writes), served between the defaults and
+  the environment (``load_tuning`` is the programmatic form and wins);
+- ``MPI4JAX_TPU_COST_MODEL``: a cost-model file (``mpx-cost-model/1`` or
+  ``mpx-tuning/1``) for ``analyze(cost=True)`` ('' : the tuning layer's
+  links section if it has one, else the analytic defaults);
+- ``MPI4JAX_TPU_ANALYZE_COST``: ``off`` (default) or ``on``, the cost
+  pass of the ambient verifier's cross-rank pass;
+- ``MPI4JAX_TPU_RING_CROSSOVER_BYTES`` (1 MiB),
+  ``MPI4JAX_TPU_DCN_CROSSOVER_BYTES`` (4 MiB) and
+  ``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (1 MiB): the JAX package's
+  algorithm crossovers, validated and carried (the tuning layer tunes
+  them, the cost model's hierarchical byte model reads the DCN one); no
+  lowering of the port reads them until ``ops/_algos.py`` is ported
+  (ROADMAP, Blocked).
+
+Each knob a tuning file carries resolves as default < tuning < an
+explicitly set variable, as in the JAX package: ``fusion_bucket_bytes``,
+``overlap_chunks`` and ``compress`` (both by payload bucket when the file
+buckets them), the two pipeline knobs and the three crossovers; ``auto``
+compression resolves to the file's codec for the payload, else ``bf16``.
+An unset or empty variable takes the default; a value outside the
+choices, or an integer below its minimum, raises ``ValueError`` with the
+JAX package's message.
 
 A pinned program (``aot/pinning.py``) captures the configuration once:
 ``config_stamp()`` is the override epoch, which every programmatic
@@ -157,6 +176,9 @@ DEFAULT_COMPILE_CACHE_MAX_BYTES = 1 << 30
 DEFAULT_SERVING_MAX_BATCH = 8
 DEFAULT_SERVING_UNROLL = 4
 DEFAULT_SERVING_SLO_P99_MS = 1000.0
+DEFAULT_RING_CROSSOVER_BYTES = 1 << 20
+DEFAULT_DCN_CROSSOVER_BYTES = 4 << 20
+DEFAULT_ALLTOALL_CROSSOVER_BYTES = 1 << 20
 
 # every variable that shapes what the port runs, and the persistent tier's
 # storage-only and dispatch-only knobs (``compile_cache_dir``,
@@ -201,6 +223,12 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_SERVING_SLO_P99_MS",
     "MPI4JAX_TPU_ANALYZE",
     "MPI4JAX_TPU_ANALYZE_RANKS",
+    "MPI4JAX_TPU_TUNING",
+    "MPI4JAX_TPU_COST_MODEL",
+    "MPI4JAX_TPU_ANALYZE_COST",
+    "MPI4JAX_TPU_RING_CROSSOVER_BYTES",
+    "MPI4JAX_TPU_DCN_CROSSOVER_BYTES",
+    "MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES",
 )
 
 _config_epoch = 0
@@ -289,11 +317,31 @@ def _int(name: str, default: int, minimum: int = 0) -> int:
     return val
 
 
+def _explicit(name: str) -> bool:
+    raw = os.environ.get(name)
+    return raw is not None and bool(raw.strip())
+
+
+def _env_or_tuned(name: str, knob: str, default: int, minimum: int = 0,
+                  payload_bytes: Optional[int] = None) -> int:
+    """One tuned int knob, default < tuning < env: an explicitly set
+    variable wins without consulting the tuning layer (a malformed file
+    never masks it), else the layer's value, else the default."""
+    if _explicit(name):
+        return _int(name, default, minimum)
+    tuned = _tuned_knob(knob, payload_bytes=payload_bytes)
+    return tuned if tuned is not None else default
+
+
 def compress_mode(payload_bytes: Optional[int] = None) -> str:
-    """The codec (``MPI4JAX_TPU_COMPRESS``): ``off``, ``bf16`` or ``fp8``;
-    ``auto`` gives ``bf16``.  ``payload_bytes`` is the JAX package's
-    argument, which only its autotune table reads."""
+    """The codec (``MPI4JAX_TPU_COMPRESS``): ``off``, ``bf16`` or ``fp8``,
+    default < tuning (by ``payload_bytes`` bucket) < env; ``auto`` takes
+    the tuned codec for the payload, else ``bf16``."""
     mode = _choice("MPI4JAX_TPU_COMPRESS", COMPRESS_MODES, "off")
+    if not _explicit("MPI4JAX_TPU_COMPRESS") or mode == "auto":
+        tuned = _tuned_knob("compress", payload_bytes=payload_bytes)
+        if tuned is not None and str(tuned).lower() != "auto":
+            return str(tuned).lower()
     return "bf16" if mode == "auto" else mode
 
 
@@ -304,14 +352,147 @@ def fusion_mode() -> str:
 
 
 def fusion_bucket_bytes() -> int:
-    """The byte cap of a fusion bucket (``MPI4JAX_TPU_FUSION_BUCKET_BYTES``)."""
-    return _int("MPI4JAX_TPU_FUSION_BUCKET_BYTES", DEFAULT_FUSION_BUCKET_BYTES)
+    """The byte cap of a fusion bucket (``MPI4JAX_TPU_FUSION_BUCKET_BYTES``;
+    default < tuning < env)."""
+    return _env_or_tuned("MPI4JAX_TPU_FUSION_BUCKET_BYTES",
+                         "fusion_bucket_bytes", DEFAULT_FUSION_BUCKET_BYTES)
 
 
 def overlap_chunks(payload_bytes: Optional[int] = None) -> int:
-    """The chunks of an async collective (``MPI4JAX_TPU_OVERLAP_CHUNKS``);
-    ``payload_bytes`` as in ``compress_mode``."""
-    return _int("MPI4JAX_TPU_OVERLAP_CHUNKS", DEFAULT_OVERLAP_CHUNKS, minimum=1)
+    """The chunks of an async collective (``MPI4JAX_TPU_OVERLAP_CHUNKS``;
+    default < tuning, by ``payload_bytes`` bucket, < env)."""
+    return _env_or_tuned("MPI4JAX_TPU_OVERLAP_CHUNKS", "overlap_chunks",
+                         DEFAULT_OVERLAP_CHUNKS, minimum=1,
+                         payload_bytes=payload_bytes)
+
+
+def ring_crossover_bytes() -> int:
+    """The ring crossover (``MPI4JAX_TPU_RING_CROSSOVER_BYTES``; 1 MiB;
+    default < tuning < env).  Carried for the tuning layer: no lowering of
+    the port reads it yet."""
+    return _env_or_tuned("MPI4JAX_TPU_RING_CROSSOVER_BYTES",
+                         "ring_crossover_bytes", DEFAULT_RING_CROSSOVER_BYTES)
+
+
+def dcn_crossover_bytes() -> int:
+    """The DCN-phase ring crossover (``MPI4JAX_TPU_DCN_CROSSOVER_BYTES``;
+    4 MiB; default < tuning < env), read by the cost model's hierarchical
+    byte model (``analysis/costmodel.py``)."""
+    return _env_or_tuned("MPI4JAX_TPU_DCN_CROSSOVER_BYTES",
+                         "dcn_crossover_bytes", DEFAULT_DCN_CROSSOVER_BYTES)
+
+
+def alltoall_crossover_bytes() -> int:
+    """The alltoall hierarchy crossover
+    (``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES``; 1 MiB; default < tuning <
+    env).  Carried for the tuning layer: no lowering of the port reads it
+    yet."""
+    return _env_or_tuned("MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES",
+                         "alltoall_crossover_bytes",
+                         DEFAULT_ALLTOALL_CROSSOVER_BYTES)
+
+
+# ---------------------------------------------------------------------------
+# the tuning layer (default < tuning file < explicitly set variable)
+# ---------------------------------------------------------------------------
+
+_tuning_override = None  # the autotune.schema.TuningFile of load_tuning()
+
+
+def load_tuning(spec=None):
+    """Install a tuning layer: ``spec`` is a file path, a parsed
+    ``mpx-tuning/1`` dict or a ``TuningFile``; ``None`` clears it (an
+    ``MPI4JAX_TPU_TUNING`` file, if set, becomes active again).  Returns
+    the installed ``TuningFile`` (or ``None``).  Bumps the configuration
+    epoch, so a pin made before it is stale (MPX129), as
+    ``set_analyze_mode`` does."""
+    global _tuning_override
+    if spec is None:
+        _tuning_override = None
+        bump_config_epoch()
+        return None
+    from ..autotune.schema import as_tuning
+
+    tf = as_tuning(spec, fresh=True)
+    _tuning_override = tf
+    bump_config_epoch()
+    from ..telemetry.core import meter
+
+    meter("autotune.loads")
+    return tf
+
+
+def active_tuning():
+    """The active ``TuningFile``, or ``None``.  Raises ``ValueError`` on a
+    malformed ``MPI4JAX_TPU_TUNING`` file."""
+    if _tuning_override is not None:
+        return _tuning_override
+    path = (os.environ.get("MPI4JAX_TPU_TUNING") or "").strip()
+    if not path:
+        return None
+    from ..autotune.schema import load_tuning_file_memo
+
+    return load_tuning_file_memo(path)
+
+
+def tuning_stamp() -> Optional[str]:
+    """The active layer's content stamp (``tuned@<stamp>``), or ``None``."""
+    tf = active_tuning()
+    return tf.stamp if tf is not None else None
+
+
+def _tuned_knob(name: str, payload_bytes: Optional[int] = None):
+    """The active layer's value for one knob (``None``: untuned), for the
+    current topology override and payload bucket."""
+    tf = active_tuning()
+    if tf is None:
+        return None
+    return tf.knob(name, topology=topology_spec() or None,
+                   payload_bytes=payload_bytes)
+
+
+def tuning_snapshot() -> Optional[dict]:
+    """The active layer for telemetry: stamp, path and per knob its tuned,
+    default and effective value with an ``env_wins`` marker; ``None``
+    without a layer."""
+    try:
+        tf = active_tuning()
+    except ValueError:
+        return None
+    if tf is None:
+        return None
+    from ..autotune.schema import KNOB_FLAGS
+
+    defaults = {
+        "ring_crossover_bytes": DEFAULT_RING_CROSSOVER_BYTES,
+        "dcn_crossover_bytes": DEFAULT_DCN_CROSSOVER_BYTES,
+        "alltoall_crossover_bytes": DEFAULT_ALLTOALL_CROSSOVER_BYTES,
+        "fusion_bucket_bytes": DEFAULT_FUSION_BUCKET_BYTES,
+        "overlap_chunks": DEFAULT_OVERLAP_CHUNKS,
+        "compress": "off",
+        "pipeline_microbatches": DEFAULT_PIPELINE_MICROBATCHES,
+        "pipeline_virtual_stages": DEFAULT_PIPELINE_VIRTUAL_STAGES,
+    }
+    getters = {
+        "ring_crossover_bytes": ring_crossover_bytes,
+        "dcn_crossover_bytes": dcn_crossover_bytes,
+        "alltoall_crossover_bytes": alltoall_crossover_bytes,
+        "fusion_bucket_bytes": fusion_bucket_bytes,
+        "overlap_chunks": overlap_chunks,
+        "compress": compress_mode,
+        "pipeline_microbatches": pipeline_microbatches,
+        "pipeline_virtual_stages": pipeline_virtual_stages,
+    }
+    knobs = {}
+    for name, flag in KNOB_FLAGS.items():
+        knobs[name] = {
+            "tuned": tf.knob(name, topology=topology_spec() or None),
+            "default": defaults[name],
+            "effective": getters[name](),
+            "env_wins": _explicit(flag),
+        }
+    return {"stamp": tf.stamp, "path": tf.path, "knobs": knobs,
+            "commit": dict(tf.payload.get("tuned", {}).get("commit", {}))}
 
 
 def unroll_default() -> int:
@@ -588,19 +769,22 @@ def moe_capacity_chunks() -> int:
 
 def pipeline_microbatches(payload_bytes: Optional[int] = None) -> int:
     """The microbatch count of the pipeline schedule compiler
-    (``MPI4JAX_TPU_PIPELINE_MICROBATCHES``; 0, unset, by default).  The
-    variable and its default only: ``payload_bytes`` is the JAX package's
-    argument, which only its tuning layer reads."""
-    return _int("MPI4JAX_TPU_PIPELINE_MICROBATCHES",
-                DEFAULT_PIPELINE_MICROBATCHES)
+    (``MPI4JAX_TPU_PIPELINE_MICROBATCHES``; 0, unset, by default; default
+    < tuning < env)."""
+    return _env_or_tuned("MPI4JAX_TPU_PIPELINE_MICROBATCHES",
+                         "pipeline_microbatches",
+                         DEFAULT_PIPELINE_MICROBATCHES,
+                         payload_bytes=payload_bytes)
 
 
 def pipeline_virtual_stages(payload_bytes: Optional[int] = None) -> int:
     """The stage-chunks a rank of the interleaved schedule owns
-    (``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``; 0, unset, by default); as
-    ``pipeline_microbatches``, no tuning layer."""
-    return _int("MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
-                DEFAULT_PIPELINE_VIRTUAL_STAGES)
+    (``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``; 0, unset, by default; default
+    < tuning < env)."""
+    return _env_or_tuned("MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES",
+                         "pipeline_virtual_stages",
+                         DEFAULT_PIPELINE_VIRTUAL_STAGES,
+                         payload_bytes=payload_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -677,3 +861,17 @@ def analyze_ranks():
             "be 'auto', 'off', or a positive integer rank cap"
         )
     return val
+
+
+def cost_model_path() -> str:
+    """The cost-model file (``MPI4JAX_TPU_COST_MODEL``; '' : the tuning
+    layer's links section, else the analytic defaults of
+    ``analysis/costmodel.py``)."""
+    return (os.environ.get("MPI4JAX_TPU_COST_MODEL") or "").strip()
+
+
+def analyze_cost_enabled() -> bool:
+    """Whether the ambient verifier's cross-rank pass also runs the cost
+    pass (``MPI4JAX_TPU_ANALYZE_COST``: ``off``, the default, or
+    ``on``)."""
+    return _choice("MPI4JAX_TPU_ANALYZE_COST", ("off", "on"), "off") == "on"

@@ -150,11 +150,24 @@ def _jax_broken(name, comm):
         x = jnp.stack([jnp.full((n, mod.CAPACITY, mod.D), float(r))
                        for r in range(n)])
         return mod.build_combine(comm), (x,)
+    if name == "ef_divergent_gate":
+        g = jnp.stack([jnp.full((64,), 1.0) for r in range(n)])
+        return mod.build_step(comm), (g, jnp.zeros_like(g))
     return mod.build_step(comm), (row,)
 
 
+# the JAX package records both arms of a lax.cond into the event stream, one
+# after the other; the port's stream holds the first arm only (the others
+# are recorded apart, parallel/control.py), so an advisory that counts a
+# run of adjacent collectives across the branch counts the arms differently
+ARM_COUNTED = {"ef_divergent_gate": ("MPX111",)}
+
+
 @pytest.mark.parametrize("name", broken.TWINS)
-def test_broken_twin_reports_equal_jax(name):
+def test_broken_twin_reports_equal_jax(name, monkeypatch):
+    if name == "ef_divergent_gate":
+        # the JAX script sets a lossy codec at import when none is set
+        monkeypatch.setenv("MPI4JAX_TPU_COMPRESS", "bf16")
     twin = importlib.import_module(f"mpi4jax_tpu_torch.models.broken.{name}")
     jc = jax_comm()
     jfn, jargs = _jax_broken(name, jc)
@@ -163,7 +176,11 @@ def test_broken_twin_reports_equal_jax(name):
     prep = analysis.analyze(twin.build(pc, "meta"), *twin.example(pc, "meta"),
                             comm=pc, ranks="all")
     assert twin.CODES & {f.code for f in prep.findings}
-    assert finding_keys(prep) == finding_keys(jrep)
+    skip = ARM_COUNTED.get(name, ())
+    assert finding_keys(prep, skip) == finding_keys(jrep, skip)
+    for code in skip:
+        assert code in {f.code for f in prep.findings} & \
+            {f.code for f in jrep.findings}
 
 
 def test_two_rank_head_to_head_equals_jax():
@@ -450,11 +467,26 @@ def test_analyze_runs_nothing_and_is_memoized():
     assert analysis.analyze(fn, x, comm=pc) is not a
 
 
-def test_cost_raises_naming_the_later_slice():
+def test_cost_attaches_a_prediction_and_implies_every_rank():
+    """``cost=True`` runs the cross-rank pass (``ranks='all'`` implied) and
+    attaches ``Report.cost``; ``cost_model`` alone, as in the JAX package,
+    changes nothing without it."""
+    from mpi4jax_tpu_torch.analysis import costmodel
+
     pc = port_comm()
-    for kw in ({"cost": True}, {"cost_model": "model.json"}):
-        with pytest.raises(NotImplementedError, match="cost model"):
-            analysis.analyze(lambda x: x, torch.ones(2), comm=pc, **kw)
+
+    def fn(x):
+        return tpx.allreduce(x, comm=pc)[0]
+
+    rep = analysis.analyze(fn, torch.ones(8), comm=pc, cost=True)
+    assert rep.cost is not None and rep.cost.total_us > 0
+    assert list(rep.meta["ranks"]) == list(range(N))
+    assert rep.cost.per_op["allreduce"]["count"] == 1
+    model = costmodel.CostModel({"dispatch_us": 7.0})
+    plain = analysis.analyze(fn, torch.ones(8), comm=pc, cost_model=model)
+    assert plain.cost is None and "ranks" not in plain.meta
+    with pytest.raises(ValueError, match="implies ranks='all'"):
+        analysis.analyze(fn, torch.ones(8), comm=pc, wrap=False, cost=True)
 
 
 def test_set_analyze_mode_validates_and_bumps_the_pin_stamp():

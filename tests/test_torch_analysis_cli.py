@@ -87,7 +87,9 @@ sys.exit(3)
 
 def run_cli(*args, timeout=240):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    for k in ("MPI4JAX_TPU_ANALYZE", "MPI4JAX_TPU_ANALYZE_RANKS"):
+    for k in ("MPI4JAX_TPU_ANALYZE", "MPI4JAX_TPU_ANALYZE_RANKS",
+              "MPI4JAX_TPU_ANALYZE_COST", "MPI4JAX_TPU_COST_MODEL",
+              "MPI4JAX_TPU_TUNING"):
         env.pop(k, None)
     return subprocess.run([sys.executable, "-m", "mpi4jax_tpu_torch.analysis",
                            *map(str, args)], cwd=REPO, env=env,
@@ -128,15 +130,34 @@ def test_json_names_the_codes_and_strict_advisories_fail(tmp_path):
     assert json.loads(strict.stdout)["advisories"] == 1
 
 
-@pytest.mark.parametrize("args", [(), ("--bogus", "x.py"), ("--ranks",),
-                                  ("--cost", "x.py"),
-                                  ("--cost-model", "m.json", "x.py")])
+@pytest.mark.parametrize("args", [(), ("--bogus", "x.py"), ("--ranks",)])
 def test_usage_errors_exit_2(args):
     res = run_cli(*args)
     assert res.returncode == 2
     assert "usage: python -m mpi4jax_tpu_torch.analysis" in res.stderr
-    if any(a.startswith("--cost") for a in args):
-        assert "cost model" in res.stderr
+
+
+@pytest.mark.parametrize("flags", [("--cost",),
+                                   ("--cost", "--cost-model", "MODEL")])
+def test_cost_flags_report_a_breakdown(tmp_path, flags):
+    """``--cost`` reports every region with its ``cost`` breakdown, clean
+    ones too; ``--cost-model`` prices it with the file's parameters."""
+    model = tmp_path / "m.json"
+    model.write_text(json.dumps({
+        "schema": "mpx-cost-model/1",
+        "links": {"ici": {"alpha_us": 123.0, "gb_per_s": 1.0}}}))
+    flags = tuple(str(model) if f == "MODEL" else f for f in flags)
+    res = run_cli("--ranks", "4", "--json", *flags,
+                  script(tmp_path, "advisory"))
+    assert res.returncode == 0, res.stderr
+    from mpi4jax_tpu_torch.analysis.costmodel import DEFAULT_PARAMS
+
+    reports = json.loads(res.stdout)["reports"]
+    costs = [r["cost"] for r in reports if r.get("cost")]
+    assert costs and all(c["total_us"] > 0 for c in costs)
+    alpha = costs[0]["params"]["links"]["ici"]["alpha_us"]
+    assert alpha == (123.0 if "--cost-model" in flags
+                     else DEFAULT_PARAMS["links"]["ici"]["alpha_us"])
 
 
 @pytest.mark.parametrize("name", broken.TWINS)

@@ -77,8 +77,10 @@ _META = {"op": "allreduce", "comm_uid": "0", "axes": ["i"], "bytes": 64,
 LEFT_TO_LATER_ITEMS = []
 VERIFIER_NAMES = ("analyze", "Report", "Finding", "AnalysisError",
                   "set_analyze_mode")
-PORT_ONLY = sorted(["GroupComm", "ProcessGrid", "register_boundary_hook",
-                    "resilience", "resolve_device"])
+# cond and switch: the port's counterpart of lax.cond / lax.switch
+# (parallel/control.py), a branch the verifier sees both arms of
+PORT_ONLY = sorted(["GroupComm", "ProcessGrid", "cond", "register_boundary_hook",
+                    "resilience", "resolve_device", "switch"])
 
 
 @pytest.fixture(autouse=True)

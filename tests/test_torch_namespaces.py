@@ -34,11 +34,6 @@ JAX_ONLY = {
         # nothing to switch
         "prefer_notoken",
     },
-    # the verifier's value-lineage half (analysis/walker.py, dataflow.py:
-    # MPX108, MPX141, MPX142) and its use of the graph, which wait for the
-    # port's dataflow slice (ROADMAP Queue 1 item 6)
-    "analysis": {"check_cond_divergence", "hazard_jaxpr_findings",
-                 "graph_arms_approx"},
 }
 
 # names of the port's subpackage the JAX one does not export, and why
@@ -51,10 +46,15 @@ PORT_ONLY = {
     # the pure in-process chaos drills (resilience/drill.py), which the JAX
     # package has as a module without listing it in __all__
     "resilience": {"drill"},
+    # the port's counterpart of lax.cond / lax.switch (parallel/control.py):
+    # a Python branch on a tensor cannot be taken in an abstract run, so the
+    # verifier needs a branch whose arms it sees
+    "parallel": {"cond", "switch"},
 }
 
 SUBPACKAGES = ("parallel", "ops", "utils", "resilience", "kernels",
-               "experimental", "aot", "telemetry", "serving", "analysis")
+               "experimental", "aot", "telemetry", "serving", "analysis",
+               "autotune")
 
 
 def public_names(package: str, sub: str) -> set:

@@ -11,6 +11,7 @@ import time and is called as it is.
 """
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -176,10 +177,19 @@ AUTO_SHAPES = [(4, 16, 16), (8, 16, 16), (8, 16, 64), (4, 16, 64),
 
 @pytest.mark.parametrize("stages,microbatches,nbytes", AUTO_SHAPES)
 def test_auto_fixed_rule_equals_the_default_cost_model(stages, microbatches,
-                                                       nbytes):
-    """``auto``'s fixed rule: a chunked program runs interleaved (the JAX
-    cost model's only candidate there), a flat one 1f1b, which is the JAX
-    package's default model's pick at these shapes too."""
+                                                       nbytes, tmp_path,
+                                                       monkeypatch):
+    """``auto`` prices its candidates with ``best_schedule`` under the
+    active cost model, as the JAX package does: under one model file both
+    packages read (the JAX package's analytic defaults), the same plan; a
+    chunked program runs interleaved (its only candidate), a flat one
+    1f1b."""
+    from mpi4jax_tpu.analysis import costmodel as jcm
+
+    model = tmp_path / "m.json"
+    model.write_text(json.dumps(dict(jcm.DEFAULT_PARAMS,
+                                     schema="mpx-cost-model/1")))
+    monkeypatch.setenv("MPI4JAX_TPU_COST_MODEL", str(model))
     for fns, virtual in ((FNS, None), (_sub, 2), (_sub, 3), (_sub, None)):
         got = pp.pipeline(fns, microbatches, virtual=virtual).plan(
             stages, microbatches, nbytes)

@@ -23,6 +23,8 @@ health plane's serving gauges.
 """
 
 import importlib
+import json
+import os
 
 import numpy as np
 import pytest
@@ -777,8 +779,39 @@ def test_twin_presets_and_trace_are_the_examples(preset):
     assert [_req_tuple(r) for r in trace] == [_req_tuple(r) for r in jtrace]
 
 
-def test_twin_simulate_waits_for_the_cost_model():
+def test_twin_simulate_equals_the_jax_replay(tmp_path, capsys):
+    """``--simulate`` on the tiny preset: the port's replay of both
+    policies equals the JAX package's ``sim.replay_bench`` on the same
+    trace under one explicit cost model (every field exactly)."""
+    from mpi4jax_tpu.analysis import costmodel as jcm
+    from mpi4jax_tpu.serving import sim as jsim
+    from mpi4jax_tpu_torch.analysis import costmodel as pcm
     from mpi4jax_tpu_torch.models import serving as MS
 
-    with pytest.raises(NotImplementedError, match="item 6"):
-        MS.main(["--simulate", "--device", "cpu"])
+    jserving = importlib.import_module("mpi4jax_tpu.serving")
+    params = {"links": {"ici": {"alpha_us": 3.0, "gb_per_s": 40.0},
+                        "dcn": {"alpha_us": 30.0, "gb_per_s": 5.0}},
+              "gamma_gb_per_s": 200.0, "compute_gb_per_s": 150.0,
+              "dispatch_us": 90.0}
+    for k in (1, 4):
+        cfg = MS.make_config("tiny")
+        trace, meta = MS.make_trace(cfg)
+        got, _, _ = MS.simulate(cfg, trace, meta, k=k,
+                                model=pcm.CostModel(params))
+        jcfg = jserving.ServingConfig(**{f: getattr(cfg, f)
+                                         for f in cfg.__dataclass_fields__})
+        jtrace = [jserving.Request(*_req_tuple(r)) for r in trace]
+        want, _, _ = jsim.replay_bench(jcfg, jtrace, k=k, trace_meta=meta,
+                                       model=jcm.CostModel(params))
+        assert got == want
+    model = tmp_path / "m.json"
+    model.write_text(json.dumps(dict(params, schema="mpx-cost-model/1")))
+    out = tmp_path / "sim.json"
+    os.environ["MPI4JAX_TPU_COST_MODEL"] = str(model)
+    try:
+        assert MS.main(["--simulate", "--json", "--out", str(out)]) == 0
+    finally:
+        del os.environ["MPI4JAX_TPU_COST_MODEL"]
+    printed = json.loads(capsys.readouterr().out)
+    assert printed == json.loads(out.read_text())
+    assert printed["continuous"]["completed"] == len(trace)

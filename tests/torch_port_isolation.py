@@ -94,6 +94,17 @@ def reset_port_services() -> None:
     mesh.forget_world()
     serving.clear_declared_buckets()
     analysis_hook.reset()
+    # the tuning override, the cost model's and the tuning files' memos,
+    # and any lineage capture left pushed by a failed abstract run
+    from mpi4jax_tpu_torch.analysis import costmodel, lineage
+    from mpi4jax_tpu_torch.autotune import schema
+    from mpi4jax_tpu_torch.utils import config
+
+    if config._tuning_override is not None:
+        config.load_tuning(None)
+    costmodel._load_memo.clear()
+    schema._load_memo.clear()
+    del lineage._active[:]
     # the pin, persistent-tier and compiler counters (the files a test
     # wrote stay in its own tmp_path)
     from mpi4jax_tpu_torch import aot
