@@ -285,7 +285,8 @@ read just after:
    as one CUDA rank (budget 20 s):
    the fitted alpha, beta and gamma, the compute rate, the dispatch, the
    pack GB/s, the bucket and the chunks, the seconds and the exit code
-   (1: the alltoall crossover and the codec stay untuned), each file
+   (1: one host without a topology leaves the alltoall crossover
+   untuned), each file
    validated by ``validate_tuning_dict``; (b) ``analyze(cost=True,
    ranks="all")`` with the four-rank file over phase 17 (a)'s programs
    and the bench decode on a one-rank grid: each program's predicted
@@ -304,6 +305,25 @@ read just after:
    ``best_schedule`` prices best under the file, and the serve twin's
    ``--simulate`` at the bench preset prints its predicted tokens/s/chip
    and p99 beside phase 15's.  One JSON line ``{"cost": ...}``.
+19. the collective algorithm layer (``hierarchy_phase``; it builds
+   nothing): four gloo ranks on this card under
+   ``MPI4JAX_TPU_TOPOLOGY=2x2`` (two faked hosts of two ranks), and the
+   same cases on four CPU ranks beside them: (a) the
+   ``hierarchical_demo`` twin (its plan must be (2, 2)); (b) allreduce
+   SUM, PROD, MAX, int32 BXOR and an elementwise callable, SUM on a
+   parity split, reduce_scatter and bcast from roots 0 and 3, each under
+   butterfly, ring and hier at the (2,2) training cell's gradient bytes
+   (33.6 MB f32) and 64 KiB below the ring crossover, with the native
+   SUM beside; the hierarchical SUM under the codecs off, bf16 and fp8;
+   per call the ms, exchanges, staged bytes and the counters' modeled
+   intra, inter and wire inter bytes; (c) every result of (b) bit for bit
+   with the CPU's (sha256 of the bytes; the native SUM is timed only),
+   the exact ones equal across the lowerings, and no forced ``hier``
+   fallen back; (d) the MoE layer of phase 14 (b) under ``auto`` (the
+   hierarchical alltoall) against flat, bit for bit, ms a layer and its
+   link split; (e) ``autotune(budget_s=20, topologies=("2x2",))``.  One
+   JSON line ``{"hierarchy": ...}``; faked hosts on one card, so no
+   number is a hierarchy's gain.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -360,6 +380,10 @@ phase 17 alone, one JSON line.
 builds the stencil source and runs phase 18 alone (``cost_main``; its
 predictions stand alone, with nothing of this run measured beside them),
 one JSON line.
+
+    python3 chip_smoke.py --hierarchy
+
+runs phase 19 alone (nothing to build), one JSON line.
 """
 
 import contextlib
@@ -5471,8 +5495,8 @@ def cost_autotune(tdir):
             log = err.getvalue() + ("autotune: untuned knob(s): "
                                     + ", ".join(res["unfitted"]))
         seconds = time.perf_counter() - t0
-        # 1: a partial fit, the file written (the alltoall crossover and the
-        # codec need lowerings the port does not have)
+        # 1: a partial fit, the file written (one host without a topology
+        # to sweep leaves the alltoall crossover untuned)
         if rc not in (0, 1) or not os.path.exists(path):
             raise AssertionError(f"phase 18 (a) {label}: exit {rc}: "
                                  f"{log[-2000:]}")
@@ -5740,6 +5764,370 @@ def cost_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the collective algorithm layer.  Four gloo ranks on this card
+# under MPI4JAX_TPU_TOPOLOGY=2x2 (2 faked hosts x 2 ranks): the demo twin,
+# every lowering's results against the same lowering on the CPU (digests
+# of the bytes: bit for bit), the codec legs, the MoE layer with auto
+# picking the hierarchical alltoall, and the new autotune sweeps.  No
+# kernel of the table runs; four processes on one card with faked hosts,
+# so no number here is a hierarchy's gain.
+# ---------------------------------------------------------------------------
+
+HIER_SPEC = "2x2"
+# the (2,2) training cell's gradient bytes (PERF.md section 4): 33.6 MB
+# f32, and 64 KiB below the ring crossover (1 MiB)
+HIER_SIZES = {"grad": 33_554_432 // 4, "below": (1024 - 64) * 1024 // 4}
+HIER_ALGOS = ("butterfly", "ring", "hier")
+HIER_TUNE_BUDGET_S = 20
+
+
+def _first_nonzero(a, b):
+    return torch.where(a != 0, a, b)
+
+
+def _digest(t):
+    """dtype, shape and the sha256 of the bytes of ``t``."""
+    a = t.detach().cpu().contiguous()
+    raw = a.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return (str(a.dtype), tuple(a.shape), hashlib.sha256(raw).hexdigest())
+
+
+def _hier_inputs(n, rank, dev, seed=19):
+    g = torch.Generator().manual_seed(seed + rank)
+    f = torch.randn(n, generator=g)
+    f[torch.rand(n, generator=g) < 0.25] = 0.0
+    i = torch.randint(-1 << 20, 1 << 20, (n,), generator=g, dtype=torch.int32)
+    return f.to(dev), i.to(dev)
+
+
+def hierarchy_cases(rank, device, timed):
+    """(b) on one rank: every case under each forced lowering at both
+    sizes; per case the digest, and with ``timed`` the ms (host wall, the
+    card synchronised), the exchanges, the staged bytes and the counters'
+    link columns and algorithm."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import telemetry
+    from mpi4jax_tpu_torch.ops import _staging
+
+    mesh = tpx.make_world_mesh(device=device)
+    comm = tpx.Comm(mesh.axes[0], mesh=mesh)
+    split = comm.Split([r % 2 for r in range(comm.Get_size())])
+    dev, k = mesh.device, comm.Get_size()
+    out = {}
+
+    def run(key, fn):
+        telemetry.set_telemetry_mode("counters")
+        try:
+            telemetry.reset()
+            _staging.stats.reset()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            rows = list(telemetry.snapshot()["ops"].values())
+        finally:
+            telemetry.set_telemetry_mode(None)
+            telemetry.reset()
+        rec = {"digest": _digest(res)}
+        if timed:
+            rec.update(ms=ms, rounds=_staging.stats.calls,
+                       staged=_staging.stats.staged_bytes,
+                       algo=sorted({r["algo"] for r in rows}),
+                       intra=sum(r["intra_bytes"] for r in rows),
+                       inter=sum(r["inter_bytes"] for r in rows),
+                       wire_inter=sum(r["wire_inter_bytes"] for r in rows))
+        out[key] = rec
+        return res
+
+    algo_env = os.environ.get("MPI4JAX_TPU_COLLECTIVE_ALGO")
+    try:
+        # warm every lowering once (plans, process groups, pinned buffers)
+        for algo in HIER_ALGOS:
+            os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = algo
+            tpx.allreduce(torch.ones(64, device=dev), tpx.PROD, comm=comm)
+            tpx.allreduce(torch.ones(64, device=dev), tpx.SUM, comm=split)
+        for size, n in HIER_SIZES.items():
+            f, i = _hier_inputs(n, rank, dev)
+            blocks = f[: (n // k) * k].reshape(k, -1)
+            for algo in HIER_ALGOS:
+                os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = algo
+                pre = f"{size}/{algo}/"
+                run(pre + "allreduce/f/SUM",
+                    lambda: tpx.allreduce(f, tpx.SUM, comm=comm)[0])
+                run(pre + "allreduce/f/PROD",
+                    lambda: tpx.allreduce(1.0 + f * 1e-3, tpx.PROD, comm=comm)[0])
+                run(pre + "allreduce/f/MAX",
+                    lambda: tpx.allreduce(f, tpx.MAX, comm=comm)[0])
+                run(pre + "allreduce/i/BXOR",
+                    lambda: tpx.allreduce(i, tpx.BXOR, comm=comm)[0])
+                run(pre + "allreduce/f/first_nonzero",
+                    lambda: tpx.allreduce(f, _first_nonzero, comm=comm)[0])
+                run(pre + "split/allreduce/f/SUM",
+                    lambda: tpx.allreduce(f, tpx.SUM, comm=split)[0])
+                run(pre + "reduce_scatter/f/SUM",
+                    lambda: tpx.reduce_scatter(blocks, tpx.SUM, comm=comm)[0])
+                for root in (0, 3):
+                    run(pre + f"bcast/{root}/f",
+                        lambda: tpx.bcast(f, root, comm=comm)[0])
+            if timed:
+                # the native route under auto, beside the lowerings: one
+                # dist.all_reduce (gloo's own fold, so timed, not compared)
+                os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = "auto"
+                run(f"{size}/native/allreduce/f/SUM",
+                    lambda: tpx.allreduce(f, tpx.SUM, comm=comm)[0])
+            del f, i, blocks
+        # the codec legs: the hierarchical SUM under off, bf16 and fp8, at
+        # the JAX suite's size (512 a rank) and at the gradient bytes; each
+        # held to the CPU's bits, its error against the exact leg printed
+        # (the CPU tests hold them against the JAX package's legs)
+        os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = "hier"
+        for size, n in (("band", 512), ("grad", HIER_SIZES["grad"])):
+            f, _ = _hier_inputs(n, rank, dev, seed=3)
+            exact = None
+            for codec in ("off", "bf16", "fp8"):
+                os.environ["MPI4JAX_TPU_COMPRESS"] = codec
+                try:
+                    got = run(f"codec/{size}/{codec}/allreduce/f/SUM",
+                              lambda: tpx.allreduce(f, tpx.SUM, comm=comm)[0])
+                finally:
+                    os.environ.pop("MPI4JAX_TPU_COMPRESS", None)
+                if exact is None:
+                    exact = got.double()
+                    continue
+                scale = torch.clamp(exact.abs(), min=1.0)
+                out[f"codec/{size}/{codec}/allreduce/f/SUM"]["rel_err"] = float(
+                    ((got.double() - exact).abs() / scale).max())
+    finally:
+        if algo_env is None:
+            os.environ.pop("MPI4JAX_TPU_COLLECTIVE_ALGO", None)
+        else:
+            os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = algo_env
+    return out
+
+
+def hierarchy_moe(rank, device):
+    """(d) on one rank: the MoE layer at phase 14 (b)'s width under
+    ``auto`` (the dispatch and combine above the alltoall crossover: the
+    hierarchical alltoall) against the flat one (``butterfly`` forces
+    flat): bit for bit, the ms a layer, and one layer's counters by link
+    class."""
+    import mpi4jax_tpu_torch as tpx
+    from mpi4jax_tpu_torch import telemetry
+    from mpi4jax_tpu_torch.parallel import moe
+
+    mesh = tpx.make_world_mesh(device=device)
+    comm = tpx.Comm(mesh.axes[0], mesh=mesh)
+    dev, k = mesh.device, comm.Get_size()
+    c = MOE_WIDE
+    rng = np.random.default_rng(c["seed"])
+    x = torch.from_numpy(rng.standard_normal(
+        (k, c["tokens"], c["d"]), dtype=np.float32)[rank]).to(dev)
+    params = moe.MoEParams(*(torch.from_numpy(a).to(dev) for a in
+                             moe.init_moe_params(c["d"], c["d_ff"], k,
+                                                 rank=rank, seed=c["seed"])))
+
+    def layer():
+        return tpx.spmd(lambda xv: moe.moe_layer(
+            xv, params, comm=comm, chunks=2,
+            capacity_factor=c["factor"])[0], comm=comm)(x)
+
+    out = {}
+    ys = {}
+    for label, algo in (("auto", "auto"), ("flat", "butterfly")):
+        os.environ["MPI4JAX_TPU_COLLECTIVE_ALGO"] = algo
+        try:
+            ys[label] = layer()
+            out[f"{label}_ms"] = _wall_ms(dev, layer, 3)
+            telemetry.set_telemetry_mode("counters")
+            try:
+                telemetry.reset()
+                layer()
+                rows = [r for r in telemetry.snapshot()["ops"].values()
+                        if r["op"].startswith("alltoall")]
+            finally:
+                telemetry.set_telemetry_mode(None)
+                telemetry.reset()
+        finally:
+            os.environ.pop("MPI4JAX_TPU_COLLECTIVE_ALGO", None)
+        out[f"{label}_rows"] = [{key: r[key] for key in
+                                 ("op", "algo", "calls", "bytes", "intra_bytes",
+                                  "inter_bytes")} for r in rows]
+    out["bitwise"] = bool(torch.equal(ys["auto"], ys["flat"]))
+    out["finite"] = bool(torch.isfinite(ys["auto"]).all())
+    return out
+
+
+def hierarchy_rank(rank, device, timed=True):
+    """Phase 19's parts (a), (b), (d), (e) on one rank of one launch under
+    the faked topology; ``timed=False`` is the CPU reference run of (b)
+    alone."""
+    os.environ["MPI4JAX_TPU_TOPOLOGY"] = HIER_SPEC
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    if timed:
+        from mpi4jax_tpu_torch import Comm, make_world_mesh
+        from mpi4jax_tpu_torch.models import hierarchical_demo as HD
+        from mpi4jax_tpu_torch.ops._hierarchy import hier_plan
+
+        t = time.perf_counter()
+        demo = HD.main(device)  # (a): raises where ring and hier disagree
+        mesh = make_world_mesh(device=device)
+        plan = hier_plan(Comm(mesh.axes[0], mesh=mesh))
+        out["a"] = {"plan": demo["plan"], "plan_hr": (plan.h, plan.r),
+                    "rows": demo["rows"], "seconds": time.perf_counter() - t}
+    t = time.perf_counter()
+    out["b"] = hierarchy_cases(rank, device, timed)
+    out["b_seconds"] = time.perf_counter() - t
+    if timed:
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out["d"] = hierarchy_moe(rank, device)
+        out["d"]["seconds"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        from mpi4jax_tpu_torch.autotune import autotune
+
+        t = time.perf_counter()
+        res = autotune(budget_s=HIER_TUNE_BUDGET_S, load=False,
+                       topologies=(HIER_SPEC,), device=device)
+        tuned = res.payload["tuned"]
+        out["e"] = {"seconds": time.perf_counter() - t,
+                    "fitted": list(res.fitted), "unfitted": list(res.unfitted),
+                    "ring_crossover_bytes": tuned.get("ring_crossover_bytes"),
+                    "alltoall_crossover_bytes": tuned.get(
+                        "alltoall_crossover_bytes"),
+                    "compress": tuned.get("compress"),
+                    "topologies": res.payload.get("topologies"),
+                    "sources": res.payload["provenance"]["fit_sources"]}
+    return out
+
+
+def hierarchy_phase(launch, smi):
+    """Phase 19 (see the comment above); returns its summary, printed as
+    one JSON line."""
+    import threading
+
+    t0 = time.perf_counter()
+    cpu = {}
+
+    def cpu_reference():
+        cpu["ranks"] = launch.run(hierarchy_rank, 4, backend="gloo",
+                                  device="cpu", timeout=300,
+                                  args=("cpu", False))
+
+    # (c)'s reference: the same lowerings on the CPU, beside the card's run
+    th = threading.Thread(target=cpu_reference)
+    th.start()
+    ranks = launch.run(hierarchy_rank, 4, backend="gloo", device="cuda:0",
+                       timeout=300, args=("cuda:0", True))
+    th.join()
+    if "ranks" not in cpu:
+        raise AssertionError("phase 19 (c): the CPU reference run failed")
+    a = ranks[0]["a"]
+    if a["plan_hr"] != (2, 2):
+        raise AssertionError(f"phase 19 (a): plan {a['plan_hr']}, expected (2, 2)")
+    print(f"phase 19 (a) demo twin on four gloo ranks on this card: {a['plan']}")
+    for row in a["rows"]:
+        print(f"  telemetry: {row['op']} algo={row['algo']} intra_host="
+              f"{row['intra_bytes']} B inter_host={row['inter_bytes']} B")
+    # (c): every case bit for bit with the same lowering on the CPU, and
+    # hier == ring == butterfly where the result does not depend on the
+    # association
+    bad, same = [], 0
+    for r, (gpu, ref) in enumerate(zip(ranks, cpu["ranks"])):
+        for key, rec in ref["b"].items():
+            if gpu["b"][key]["digest"] != rec["digest"]:
+                bad.append((r, key))
+            else:
+                same += 1
+            algo = key.split("/")[1]
+            if (key.split("/")[0] in HIER_SIZES and algo == "hier"
+                    and gpu["b"][key]["algo"] != ["hier"]):
+                raise AssertionError(f"phase 19 (b) rank {r}: {key} fell back "
+                                     f"to {gpu['b'][key]['algo']}")
+        for size in HIER_SIZES:
+            for case in ("allreduce/f/MAX", "allreduce/i/BXOR",
+                         "allreduce/f/first_nonzero", "bcast/0/f", "bcast/3/f"):
+                ds = {gpu["b"][f"{size}/{algo}/{case}"]["digest"]
+                      for algo in HIER_ALGOS}
+                if len(ds) != 1:
+                    bad.append((r, f"{size}/*/{case}: hier != flat"))
+    if bad:
+        raise AssertionError(f"phase 19 (c): {len(bad)} case(s) differ: {bad[:8]}")
+    print(f"phase 19 (b)/(c) equivalence, {HIER_SPEC} faked: {same} results (4 "
+          "ranks x every case) bit for bit with the same lowering on the CPU, f32 "
+          "SUM and PROD and the bf16 and fp8 legs included (the native SUM is "
+          "timed, not compared); MAX, BXOR, first-non-zero and both bcasts "
+          "equal across butterfly, ring and hier")
+    b0 = ranks[0]["b"]
+    for key, rec in b0.items():
+        if "ms" not in rec:
+            continue
+        print(f"  {key:<40} {rec['ms']:9.2f} ms, {rec['rounds']:2d} exchanges, "
+              f"{rec['staged'] / 1e6:8.2f} MB staged; modeled intra "
+              f"{rec['intra']} B, inter {rec['inter']} B, wire inter "
+              f"{rec['wire_inter']} B" + (f"; rel err {rec['rel_err']:.2e}"
+                                          if "rel_err" in rec else ""))
+    d = [r["d"] for r in ranks]
+    for r, rd in enumerate(d):
+        if not (rd["bitwise"] and rd["finite"]):
+            raise AssertionError(f"phase 19 (d) rank {r}: {rd}")
+        if not any(row["algo"] == "hier" for row in rd["auto_rows"]):
+            raise AssertionError(f"phase 19 (d) rank {r}: auto did not pick the "
+                                 f"hierarchical alltoall: {rd['auto_rows']}")
+    d0 = d[0]
+    print(f"phase 19 (d) MoE layer at d {MOE_WIDE['d']}, d_ff {MOE_WIDE['d_ff']}, "
+          f"{MOE_WIDE['tokens']} tokens a rank, chunks 2: auto (hier alltoall) "
+          f"bit for bit with flat on 4/4 ranks; rank 0 ms a layer: auto "
+          f"{d0['auto_ms']:.2f}, flat {d0['flat_ms']:.2f}")
+    for label in ("auto", "flat"):
+        for row in d0[f"{label}_rows"]:
+            print(f"  {label}: {row['op']} algo={row['algo']} calls={row['calls']} "
+                  f"intra_host={row['intra_bytes']} B inter_host="
+                  f"{row['inter_bytes']} B")
+    e = ranks[0]["e"]
+    print(f"phase 19 (e) autotune over four gloo ranks (budget "
+          f"{HIER_TUNE_BUDGET_S} s, --topologies {HIER_SPEC}): {e['seconds']:.1f} s; "
+          f"ring crossover {e['ring_crossover_bytes']} B "
+          f"({e['sources'].get('ring_crossover_bytes')}), alltoall crossover "
+          f"{e['alltoall_crossover_bytes']} B, overrides {e['topologies']}, "
+          f"codec {e['compress']}; untuned: {', '.join(e['unfitted']) or 'none'}")
+    print(f"  {smi}: four processes on one card with faked hosts "
+          f"(MPI4JAX_TPU_TOPOLOGY={HIER_SPEC}), exchanges staged through host "
+          "memory: no number of phase 19 is a hierarchy's gain")
+    out = {"a": a, "b": {"rank0": {key: {k: v for k, v in rec.items()
+                                         if k != "digest"}
+                                   for key, rec in b0.items()},
+                         "bitwise_cases": same},
+           "d": {"rank0": d0}, "e": e, "card": smi,
+           "cpu_reference_seconds": cpu["ranks"][0]["b_seconds"],
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 19 (hierarchy): {out['seconds']:.1f} s")
+    return out
+
+
+def hierarchy_main():
+    """``python3 chip_smoke.py --hierarchy``: phase 19 alone (it launches no
+    kernel, so nothing is built); one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.parallel import launch
+
+    out = hierarchy_phase(launch, smi)
+    print(smi)
+    print(json.dumps({"hierarchy": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5959,6 +6347,10 @@ def main():
     cost = cost_phase(P, K, dev, smi, measured=measured, cli=verifier["c"],
                       served=srv["payload"]["continuous"])
     print(json.dumps({"cost": cost}, default=str))
+
+    # -- the collective algorithm layer: faked hosts, four gloo ranks ------
+    hierarchy = hierarchy_phase(launch, smi)
+    print(json.dumps({"hierarchy": hierarchy}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -6204,5 +6596,6 @@ if __name__ == "__main__":
              "--runtime": runtime_main, "--health": health_main,
              "--elastic": elastic_main, "--workloads": workloads_main,
              "--serving": serving_main, "--aot": aot_main,
-             "--verifier": verifier_main, "--cost": cost_main}
+             "--verifier": verifier_main, "--cost": cost_main,
+             "--hierarchy": hierarchy_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -159,8 +159,10 @@ def analyze(fn, *args, comm=None, wrap: Optional[bool] = None,
         from . import cost as _cost
 
         model = _cost.resolve_model(cost_model)
+    from ..ops._algos import algo_cache_token
+
     key = (fn, comm, stat_vals, crossrank.avals(dyn), wrap, rank_list,
-           config.config_stamp())
+           config.config_stamp(), algo_cache_token())
     if cost:
         # only with the pass on: keys with cost off stay as they were
         key = key + ("cost", model.stamp())

@@ -17,13 +17,12 @@ and ``dispatch_us`` (the host's fixed cost per step).
 
 ``collective_cost`` maps each of the 13 ops and its algorithms
 (butterfly, ring, van de Geijn, two-level hier) to ``(rounds, bytes)``
-per link class.  The byte models of the reduction family are the JAX
-package's pure arithmetic (``ops/_hierarchy.py``: ``flat_link_bytes``,
-``hier_link_bytes``, ``dcn_leg_bytes``; ``ops/_algos.py``:
-``resolve_dcn_algo``, ``algorithm_bytes_per_rank``), kept here as the
-port's own copies: the lowerings they describe are not ported (ROADMAP,
-Blocked), and the port's ranks run one algorithm per op.  The codec's
-wire bytes come from the port's ``ops/_codec.py``.
+per link class.  The byte models of the reduction family are imported
+from the lowerings they describe (``ops/_hierarchy.py``:
+``flat_link_bytes``, ``hier_link_bytes``, ``dcn_leg_bytes``;
+``ops/_algos.py``: ``resolve_dcn_algo``, ``algorithm_bytes_per_rank``),
+as the JAX cost model imports them.  The codec's wire bytes come from the
+port's ``ops/_codec.py``.
 
 The parameters load from a file (``MPI4JAX_TPU_COST_MODEL``, schema
 ``mpx-cost-model/1``, or an ``mpx-tuning/1`` file of ``python -m
@@ -42,6 +41,13 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 from ..ops import _codec
+# the byte models of the reduction family: the lowerings' own
+# (ops/_algos.py, ops/_hierarchy.py), so the priced bytes never drift from
+# what the lowerings ship
+from ..ops._algos import (RING_MIN_GROUP, algorithm_bytes_per_rank,  # noqa: F401
+                          resolve_dcn_algo)
+from ..ops._hierarchy import (dcn_leg_bytes, flat_link_bytes,  # noqa: F401
+                              hier_link_bytes)
 from ..utils import config
 
 ICI = "ici"
@@ -418,157 +424,6 @@ def measured_meta() -> dict:
 
 def _log2ceil(k: int) -> int:
     return (k - 1).bit_length() if k > 1 else 0
-
-
-# the JAX package's ops/_algos.RING_MIN_GROUP
-RING_MIN_GROUP = 4
-
-
-def resolve_dcn_algo(shard_bytes: int, h: int, ring_ok: bool = True) -> str:
-    """The hierarchical inter-host phase's pick (the JAX package's
-    ``ops/_algos.resolve_dcn_algo``): ring when the per-host shard clears
-    ``dcn_crossover_bytes()`` on at least ``RING_MIN_GROUP`` hosts."""
-    if (ring_ok and h >= RING_MIN_GROUP
-            and shard_bytes >= config.dcn_crossover_bytes()):
-        return "ring"
-    return "butterfly"
-
-
-def algorithm_bytes_per_rank(algo: str, nbytes: int, k: int,
-                             preserve_order: bool = False) -> int:
-    """Bytes one rank ships for an allreduce of ``nbytes`` (the JAX
-    package's ``ops/_algos.algorithm_bytes_per_rank``)."""
-    if k <= 1:
-        return 0
-    if algo == "butterfly":
-        rounds = (k - 1).bit_length()  # ceil(log2 k)
-        return 2 * rounds * nbytes  # fold + doubling broadcast, full payload
-    chunk = -(-nbytes // k)
-    pair = 2 if preserve_order else 1
-    return (k - 1) * chunk * (pair + 1)
-
-
-def hier_link_bytes(kind: str, nbytes: int, h: int, r: int,
-                    preserve: bool = False) -> Tuple[int, int]:
-    """Modeled per-rank wire bytes ``(intra_host, inter_host)`` for one
-    hierarchical collective of ``nbytes`` payload over ``h`` hosts ×
-    ``r`` ranks/host.
-
-    The models mirror the lowerings below round for round (the inter
-    algorithm is resolved exactly as the lowering resolves it):
-
-    - ``allreduce``: intra ring reduce-scatter + allgather of ``r``
-      chunks (``(r-1)·chunk·(pair+1)`` ≈ ``2·(r-1)/r·size``), inter
-      allreduce of one chunk over ``h`` hosts (≈ ``2·(h-1)/h·size/r``);
-    - ``reduce_scatter``: the same without the allgather — intra
-      ``(r-1)·super·pair`` on ``size/r`` super-blocks, inter
-      reduce-scatter of the per-host partial;
-    - ``bcast``: intra binomial scatter (the root's host ships ``~size``
-      down the halving tree; modeled per-rank as ``size``) + allgather,
-      inter broadcast of one ``size/r`` chunk (doubling or vdg).
-
-    ``pair`` is 2 for order-preserving callables (the lo/hi accumulator
-    ships both halves), 1 for enum ``Op``s.
-    """
-    pair = 2 if preserve else 1
-    chunk = -(-nbytes // r)
-    if kind == "alltoall":
-        # intra transpose ships (r-1) destination blocks of size/r each
-        # over ICI; the inter exchange ships (h-1) host-aggregated
-        # contiguous blocks of size/h each over DCN (the final intra
-        # scatter degenerates to a local de-interleave — every rank is
-        # its own position-group leader, see apply_hier_alltoall).
-        # Total bytes match flat (alltoall is a fixed permutation); the
-        # win is message granularity: alltoall_dcn_messages pins the
-        # 1/r DCN message-count reduction.
-        intra = (r - 1) * chunk
-        inter = (h - 1) * (-(-nbytes // h))
-        return intra, inter
-    if kind == "allreduce":
-        intra = (r - 1) * chunk * (pair + 1)
-        dcn = resolve_dcn_algo(chunk, h, ring_ok=not preserve)
-        inter = algorithm_bytes_per_rank(dcn, chunk, h, preserve)
-        return intra, inter
-    if kind == "reduce_scatter":
-        super_b = chunk  # one position super-block = size/r bytes
-        intra = (r - 1) * super_b * pair
-        block = -(-super_b // h)
-        if resolve_dcn_algo(super_b, h) == "ring":
-            inter = (h - 1) * block * pair
-        else:  # butterfly allreduce + own-block select
-            inter = 2 * (h - 1).bit_length() * super_b if h > 1 else 0
-        return intra, inter
-    if kind == "bcast":
-        intra = nbytes + (r - 1) * chunk  # halving scatter + ring allgather
-        if resolve_dcn_algo(chunk, h) == "ring":
-            inter = 2 * chunk  # van de Geijn: scatter + allgather
-        else:
-            inter = (h - 1).bit_length() * chunk  # doubling rounds
-        return intra, inter
-    raise ValueError(f"unknown hierarchical collective kind {kind!r}")
-
-
-def flat_link_bytes(kind: str, algo: str, nbytes: int, k: int,
-                    h: Optional[int],
-                    preserve: bool = False) -> Tuple[int, int]:
-    """Link-class attribution for a FLAT (single-level) algorithm,
-    modeled per op kind round for round (mirroring the flat lowerings,
-    so flat-vs-hier comparisons in the telemetry report are fair):
-
-    - ``allreduce``: butterfly ``2·ceil(log2 k)·size`` (fold + doubling
-      broadcast), ring ``(k-1)·chunk·(pair+1)``;
-    - ``bcast``: doubling ``ceil(log2 k)·size`` (one full-payload send
-      per round), van de Geijn ``~2·size`` (halving scatter + ring
-      allgather);
-    - ``reduce_scatter``: butterfly = allreduce-then-select
-      (``2·ceil(log2 k)·size``), ring ``(k-1)·chunk·pair`` (no
-      allgather phase).
-
-    The volume lands entirely on the inter-host class when the comm
-    spans ``h > 1`` hosts (every round of a flat algorithm over a
-    multi-host comm is gated on its slowest — DCN — link; exactly the
-    serialization MPX113 advises about), on the intra class otherwise.
-    ``native`` HLO (and comms with no derivable topology) is attributed
-    as payload bytes on the intra class — XLA schedules it, we don't
-    model it."""
-    pair = 2 if preserve else 1
-    rounds = (k - 1).bit_length() if k > 1 else 0  # ceil(log2 k)
-    chunk = -(-nbytes // k) if k else nbytes
-    if kind == "alltoall":
-        # a fixed permutation: every flat lowering — the native AllToAll
-        # HLO, the pairwise ppermute rounds — moves the same (k-1) blocks
-        # of size/k per rank, so (unlike the reduction family) the
-        # ``native`` algorithm is honestly modeled rather than proxied
-        total = (k - 1) * chunk
-        if h is not None and h > 1:
-            return 0, total
-        return total, 0
-    if algo == "butterfly":
-        if kind == "bcast":
-            total = rounds * nbytes
-        else:  # allreduce; reduce_scatter = allreduce + own-block select
-            total = 2 * rounds * nbytes
-    elif algo == "ring":
-        if kind == "bcast":  # van de Geijn: scatter + ring allgather
-            total = nbytes + (k - 1) * chunk
-        elif kind == "reduce_scatter":
-            total = (k - 1) * chunk * pair
-        else:  # allreduce: reduce-scatter + allgather
-            total = (k - 1) * chunk * (pair + 1)
-    else:
-        return nbytes, 0
-    if h is not None and h > 1:
-        return 0, total
-    return total, 0
-
-
-def dcn_leg_bytes(kind: str, nbytes: int, r: int) -> int:
-    """The payload the DCN phase of a hierarchical ``kind`` sees — the
-    bucket the wire codec resolves against (``_codec.codec_for``): the
-    full payload for the alltoall's host-aggregated exchange, one
-    ``1/r`` position chunk for the reduction family's leader shards."""
-    return nbytes if kind == "alltoall" else -(-nbytes // r)
-
 
 
 def _dcn_algo(shard_bytes: int, h: int, ring_ok: bool = True) -> str:

@@ -424,8 +424,10 @@ def verify_region(f, c, statics, static_vals, unroll: int, dyn, kwargs,
         return
     mesh = c.mesh
     shape = tuple(mesh.shape) if mesh is not None else None
+    from ..ops._algos import algo_cache_token
+
     key = ("region", f, c.uid, shape, tuple(statics), static_vals, unroll,
-           avals((dyn, kwargs)), config.config_stamp())
+           avals((dyn, kwargs)), config.config_stamp(), algo_cache_token())
     cost_model = None
     if config.analyze_cost_enabled():
         from . import cost as _cost
@@ -485,8 +487,10 @@ def verify_eager(opname: str, comm, arrays, token, ana) -> None:
         return
     mode = _hook.effective_mode()
     statics = tuple(sorted((ana or {}).items()))
+    from ..ops._algos import algo_cache_token
+
     key = ("eager", opname, comm.uid, avals(tuple(arrays)), statics,
-           config.config_stamp())
+           config.config_stamp(), algo_cache_token())
     try:
         hash(key)
     except TypeError:

@@ -112,11 +112,10 @@ _pinning = [0]
 
 
 def config_snapshot() -> dict:
-    """The configuration the checkers read, in the JAX package's keys.
-    The port has no algorithm selector and no multi-host topology, so the
-    crossover keys (MPX109, MPX113, MPX137, MPX138) are absent and those
-    advisories stay silent, as the JAX package's do on one host.  A cost
-    model file or a tuning layer adds its measured crossovers
+    """The configuration the checkers read, in the JAX package's keys:
+    the algorithm knob, the crossovers and the topology spec (MPX109,
+    MPX113, MPX137, MPX138 read them), fusion, the epoch, the codec.  A
+    cost model file or a tuning layer adds its measured crossovers
     (``costmodel.measured_meta``: ``measured_*``), which the MPX111 and
     MPX113 texts cite."""
     from ..ops._fusion import effective_mode as fusion_mode
@@ -126,6 +125,11 @@ def config_snapshot() -> dict:
     from ..telemetry.health import armed as _health_armed
 
     snap = {
+        "collective_algo": config.collective_algo(),
+        "ring_crossover_bytes": config.ring_crossover_bytes(),
+        "dcn_crossover_bytes": config.dcn_crossover_bytes(),
+        "alltoall_crossover_bytes": config.alltoall_crossover_bytes(),
+        "topology": config.topology_spec(),
         "fusion": fusion_mode(),
         "fusion_bucket_bytes": config.fusion_bucket_bytes(),
         "epoch": current_epoch(),

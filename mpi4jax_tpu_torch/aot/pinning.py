@@ -438,10 +438,14 @@ def record_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int) -> str
 def program_key(name: str, fn, dyn_leaves, static_vals, comm, unroll: int,
                 donate) -> str:
     """What a pin captured, as one key: ``record_key``'s parts, the
-    donation and the verifier's mode (``analysis_cache_token``): a pin
-    verified under one mode is not the pin of another."""
+    donation, the verifier's mode (``analysis_cache_token``) and the
+    algorithm layer's configuration (``ops/_algos.py:algo_cache_token``):
+    a pin verified under one mode, or lowered under one algorithm, is not
+    the pin of another."""
+    from ..ops._algos import algo_cache_token
+
     return _key(name, fn, dyn_leaves, static_vals, comm, unroll, tuple(donate),
-                _analysis.analysis_cache_token())
+                _analysis.analysis_cache_token(), algo_cache_token())
 
 
 def _compiles() -> int:

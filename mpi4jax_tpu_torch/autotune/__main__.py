@@ -43,6 +43,9 @@ def main(argv=None) -> int:
                         "process)")
     p.add_argument("--device", default=None,
                    help="the ranks' device (default: the card)")
+    p.add_argument("--topologies", nargs="*", default=[],
+                   help="MPI4JAX_TPU_TOPOLOGY specs to sweep the "
+                        "flat-vs-hier crossovers for (e.g. 2x2)")
     p.add_argument("--json", action="store_true",
                    help="print the emitted payload to stdout as JSON")
     args = p.parse_args(argv)
@@ -56,9 +59,11 @@ def main(argv=None) -> int:
 
             out = launch.run(rank_autotune, args.ranks, device=args.device,
                              timeout=args.budget_s * 4 + 120,
-                             args=(args.budget_s, args.save))[0]
+                             args=(args.budget_s, args.save, args.device,
+                                   args.topologies))[0]
         else:
-            out = rank_autotune(0, args.budget_s, args.save, args.device)
+            out = rank_autotune(0, args.budget_s, args.save, args.device,
+                                args.topologies)
     except Exception as e:
         # any failed run is exit 2: a crash is never a partial fit
         print(f"autotune: failed: {type(e).__name__}: {e}", file=sys.stderr)

@@ -13,13 +13,26 @@ serves between the defaults and the environment (``MPI4JAX_TPU_TUNING``,
   port's ranks share one host;
 - gamma (the device's fold), the compute rate (the device's copy) and the
   dispatch per step, measured;
-- the ring crossover from the alpha-beta closed form (the JAX package
-  measures it with its algorithm sweep, which needs the ring and
-  butterfly lowerings of ``ops/_algos.py``: not ported, so that sweep is
-  recorded as skipped, as are the hierarchy and alltoall sweeps); the DCN
-  crossover from the closed form over the scaled ``dcn`` class;
+- the ring crossover from the butterfly-against-ring sweep of a PROD
+  allreduce (phase 2; the alpha-beta closed form where the ring never
+  wins; no sweep below ``RING_MIN_GROUP`` ranks, where ``auto`` never
+  takes the ring and the crossover is unused); the DCN crossover from the closed form over the scaled ``dcn``
+  class;
+- per requested topology spec (``topologies=``, faked with
+  ``MPI4JAX_TPU_TOPOLOGY``), the flat-against-hier crossover (phase 4)
+  and the alltoall crossover (phase 4b), as the file's ``topologies``
+  overrides; the alltoall crossover is swept under the derived topology
+  only on several real hosts;
 - fusion bucket bytes and overlap chunk counts by sweeping candidates;
+- the codec (phase 6b): the fastest modeled inter-host leg whose
+  measured round-trip error fits ``MPI4JAX_TPU_COMPRESS_ERROR_BUDGET``;
 - the commit pack throughput (``resilience.elastic.pack_leaves``).
+
+On one host every hierarchy sweep runs under a faked topology: four
+processes on one device, no inter-host link, so its crossovers say when
+the port's two-level lowering beats its flat ring there, not what a
+hierarchy gains across hosts; ``provenance`` records the faked specs
+(``faked_topologies``).
 
 Every rank of ``comm`` calls :func:`autotune` (each sweep is a
 collective program); the budget decisions are agreed (the slowest rank's
@@ -32,10 +45,9 @@ from __future__ import annotations
 
 import hashlib
 import json
-import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from . import fit
 from .schema import SCHEMA, TuningFile
@@ -49,14 +61,18 @@ OVERLAP_CHUNK_CANDIDATES = (2, 1, 4)
 OVERLAP_SIZES_MB = (0.25, 4.0)
 PACK_PROBE_BYTES = 8 << 20
 
-# the JAX package's sweeps the port cannot run, and why
+ALGO_SIZES_MB = (0.01, 0.1, 0.5, 1.0, 4.0, 16.0)
+
+# what one host cannot measure, and why (the sweeps themselves all run)
 SKIPPED_SWEEPS = {
-    "algorithm": "ring/butterfly lowerings (ops/_algos.py) not ported; "
-                 "ring crossover from the alpha-beta closed form",
-    "hierarchy": "two-level lowerings (ops/_hierarchy.py) not ported",
-    "alltoall": "two-level alltoall (ops/_hierarchy.py) not ported",
-    "compression": "the codec's sweep prices the hierarchical DCN leg, "
-                   "not ported",
+    "dcn_links": "one host has no inter-host link: the dcn alpha and "
+                 "bandwidth are the ici fit scaled by the JAX package's "
+                 "ratios, and the DCN crossover is their closed form",
+    "hierarchy_gain": "the hierarchy and alltoall sweeps run under a "
+                      "faked MPI4JAX_TPU_TOPOLOGY: processes of one "
+                      "host, not a hierarchy's gain across hosts",
+    "codec_time": "the codec sweep's times are modeled (cost model); its "
+                  "round-trip error is measured",
 }
 
 
@@ -83,29 +99,6 @@ class _Budget:
         from .sweeps import slowest
 
         return slowest(self.comm, self.elapsed()) < self.budget_s
-
-
-class _EnvPatch:
-    """Set environment knobs for one measurement, restoring the caller's
-    values on exit."""
-
-    def __init__(self, **env):
-        self.env = {k: str(v) for k, v in env.items()}
-        self.saved = {}
-
-    def __enter__(self):
-        for k, v in self.env.items():
-            self.saved[k] = os.environ.get(k)
-            os.environ[k] = v
-        return self
-
-    def __exit__(self, *exc):
-        for k, old in self.saved.items():
-            if old is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = old
-        return False
 
 
 def provenance_block(device, n_ranks: int) -> dict:
@@ -162,13 +155,16 @@ def _world_comm(device=None):
 
 
 def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
-             load: bool = True, verbose: bool = False, device=None):
+             load: bool = True, topologies: Tuple[str, ...] = (),
+             verbose: bool = False, device=None):
     """Tune every performance knob on the actual ranks (see the module
     docstring); returns an :class:`AutotuneResult` whose ``payload`` is a
     validated ``mpx-tuning/1`` dict.  ``save=`` also writes it (rank 0 of
     ``comm`` writes); ``load=True`` installs it as the tuning layer
-    (``load_tuning``).  ``comm=None`` is the world's comm on ``device``
-    (``None``: the card)."""
+    (``load_tuning``).  ``topologies``: ``MPI4JAX_TPU_TOPOLOGY`` specs to
+    sweep the flat-against-hier crossovers for (per-topology overrides).
+    ``comm=None`` is the world's comm on ``device`` (``None``: the
+    card)."""
     if budget_s <= 0:
         raise ValueError(f"budget_s must be > 0, got {budget_s}")
     from . import sweeps
@@ -188,6 +184,7 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
     tuned: dict = {}
     measured: dict = {}
     fit_sources: dict = {}
+    topo_overrides: dict = {}
     fitted: List[str] = []
     unfitted: List[str] = []
 
@@ -219,14 +216,34 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
     note(f"gamma {gamma:.2f} GB/s, compute {compute:.2f} GB/s, dispatch "
          f"{dispatch:.2f} us")
 
-    # -- phase 2: ring crossover (closed form: the sweep is skipped) ------
-    ring_x = fit.analytic_crossover(alpha_us, gb_per_s, n)
+    # -- phase 2: ring crossover (measured, closed-form fallback) ---------
+    # below RING_MIN_GROUP ranks ``auto`` never takes the ring: no sweep
+    from ..ops._algos import RING_MIN_GROUP
+
+    algo_rows = []
+    for mb in ALGO_SIZES_MB if n >= RING_MIN_GROUP else ():
+        algo_rows += sweeps.bench_allreduce_algos(comm, sizes_mb=[mb],
+                                                  iters=3)
+        # two consecutive ring wins bound the interpolation from above
+        if (len(algo_rows) >= 2
+                and all(r["ring_speedup"] and r["ring_speedup"] > 1.0
+                        for r in algo_rows[-2:])):
+            break
+        if not budget.ok():
+            break
+    ring_x = sweeps.measured_ring_crossover(algo_rows)
+    ring_x_source = "sweep"
+    if ring_x is None:
+        ring_x = fit.analytic_crossover(alpha_us, gb_per_s, n)
+        ring_x_source = "alpha-beta fit"
     if ring_x is not None:
         tuned["ring_crossover_bytes"] = int(ring_x)
-        fit_sources["ring_crossover_bytes"] = "alpha-beta fit"
+        if ring_x_source == "sweep":
+            measured["ring_crossover_bytes"] = int(ring_x)
+        fit_sources["ring_crossover_bytes"] = ring_x_source
         fitted.append("ring_crossover_bytes")
         _meter("autotune.fits")
-        note(f"ring crossover: {ring_x} B (alpha-beta fit)")
+        note(f"ring crossover: {ring_x} B ({ring_x_source})")
     else:
         unfitted.append("ring_crossover_bytes")
         note("ring crossover: unfitted (group too small for the ring)")
@@ -246,15 +263,62 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
     else:
         unfitted.append("dcn_crossover_bytes")
 
-    # -- phase 4: the sweeps of lowerings the port does not have ----------
-    unfitted.append("alltoall_crossover_bytes")
+    # -- phase 4: per-topology flat-vs-hier crossovers --------------------
+    for spec in topologies:
+        if not budget.ok():
+            note(f"budget exhausted before topology {spec}")
+            break
+        hier_rows = sweeps.bench_hierarchy(
+            comm, sizes_mb=tuple(ALGO_SIZES_MB[:4]), topologies=(spec,),
+            iters=3)
+        x = fit.measured_crossover(hier_rows, "size_mb", "flat_us",
+                                   "hier_us")
+        if x is not None:
+            topo_overrides[spec] = {"ring_crossover_bytes": int(x)}
+            fitted.append(f"topologies[{spec}]")
+            _meter("autotune.fits")
+            note(f"hier crossover @ {spec}: {x} B")
+
+    # -- phase 4b: alltoall crossover (flat vs hier, per topology) --------
+    # swept per requested topology, or under the derived one on several
+    # real hosts; one host leaves the knob untuned
+    a2a_specs = list(topologies) or ([None] if hosts > 1 else [])
+    for spec in a2a_specs:
+        if not budget.ok():
+            note("budget exhausted before the alltoall crossover sweep")
+            break
+        a2a_rows = sweeps.bench_alltoall(
+            comm, sizes_mb=tuple(ALGO_SIZES_MB[:4]), topologies=(spec,),
+            iters=3)
+        x = fit.measured_crossover(a2a_rows, "size_mb", "flat_us", "hier_us")
+        if x is None:
+            continue
+        if spec is None:
+            tuned["alltoall_crossover_bytes"] = int(x)
+            measured["alltoall_crossover_bytes"] = int(x)
+            fit_sources["alltoall_crossover_bytes"] = "sweep"
+            fitted.append("alltoall_crossover_bytes")
+        else:
+            topo_overrides.setdefault(spec, {})[
+                "alltoall_crossover_bytes"] = int(x)
+            if "alltoall_crossover_bytes" not in tuned:
+                # the first fitted topology seeds the flat knob too
+                tuned["alltoall_crossover_bytes"] = int(x)
+                measured["alltoall_crossover_bytes"] = int(x)
+                fit_sources["alltoall_crossover_bytes"] = f"sweep @ {spec}"
+                fitted.append("alltoall_crossover_bytes")
+            fitted.append(f"alltoall[{spec}]")
+        _meter("autotune.fits")
+        note(f"alltoall crossover @ {spec or 'ambient'}: {x} B")
+    if "alltoall_crossover_bytes" not in tuned:
+        unfitted.append("alltoall_crossover_bytes")
 
     # -- phase 5: fusion bucket bytes -------------------------------------
     bucket_rows = []
     for cand in FUSION_BUCKET_CANDIDATES:
         if bucket_rows and not budget.ok():
             break
-        with _EnvPatch(MPI4JAX_TPU_FUSION_BUCKET_BYTES=cand):
+        with sweeps.env_patch(MPI4JAX_TPU_FUSION_BUCKET_BYTES=cand):
             rows = sweeps.bench_fusion(comm, counts=(16,), size_kb=64)
         bucket_rows.append({"bucket_bytes": cand,
                             "fused_us_per_op": rows[0]["fused_us_per_op"]})
@@ -279,7 +343,7 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
             break
         per_payload = []
         for cand in OVERLAP_CHUNK_CANDIDATES:
-            with _EnvPatch(MPI4JAX_TPU_OVERLAP_CHUNKS=cand):
+            with sweeps.env_patch(MPI4JAX_TPU_OVERLAP_CHUNKS=cand):
                 rows = sweeps.bench_overlap(comm, sizes_mb=(mb,))
             per_payload.append({"chunks": cand,
                                 "overlap_us": rows[0]["overlap_us"]})
@@ -296,8 +360,37 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
     else:
         unfitted.append("overlap_chunks")
 
-    # -- phase 6b: the codec (its sweep needs the hierarchical leg) -------
-    unfitted.append("compress")
+    # -- phase 6b: the codec against the error budget --------------------
+    # the fastest modeled inter-host leg whose measured round-trip error
+    # fits MPI4JAX_TPU_COMPRESS_ERROR_BUDGET; "off" always fits, so the
+    # knob is always recorded; legs below the DCN crossover stay exact
+    if budget.ok():
+        from ..utils import config as _config
+
+        err_budget = _config.compress_error_budget()
+        comp_rows = sweeps.bench_compression(comm, sizes_mb=(1.0,), iters=3)
+        best_codec, best_us = "off", None
+        for row in comp_rows:
+            if row["rel_err"] > err_budget:
+                continue
+            if best_us is None or row["modeled_dcn_us"] < best_us:
+                best_codec, best_us = row["codec"], row["modeled_dcn_us"]
+            measured[f"compress_rel_err_{row['codec']}"] = row["rel_err"]
+        if best_codec == "off":
+            tuned["compress"] = "off"
+        else:
+            bound = int(tuned.get("dcn_crossover_bytes",
+                                  _config.dcn_crossover_bytes()))
+            tuned["compress"] = [
+                {"max_bytes": bound, "codec": "off"},
+                {"max_bytes": None, "codec": best_codec},
+            ]
+        fit_sources["compress"] = "sweep vs error budget"
+        fitted.append("compress")
+        _meter("autotune.fits")
+        note(f"compress codec: {best_codec} (error budget {err_budget:g})")
+    else:
+        unfitted.append("compress")
 
     # -- phase 7: commit pack throughput ----------------------------------
     pack = _pack_throughput_gb_s()
@@ -327,8 +420,11 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
             prov, budget_s=budget.budget_s,
             elapsed_s=round(budget.elapsed(), 2),
             created=time.strftime("%Y-%m-%dT%H:%M:%S"),
-            fit_sources=fit_sources, skipped=dict(SKIPPED_SWEEPS)),
+            fit_sources=fit_sources, skipped=dict(SKIPPED_SWEEPS),
+            faked_topologies=list(topologies)),
     }
+    if topo_overrides:
+        payload["topologies"] = topo_overrides
     tf = TuningFile(payload)  # validates: an unloadable emit is a bug here
 
     path = None
@@ -348,12 +444,13 @@ def autotune(comm=None, budget_s: float = 60.0, save: Optional[str] = None,
                           elapsed_s=budget.elapsed())
 
 
-def rank_autotune(rank, budget_s, save, device=None) -> dict:
+def rank_autotune(rank, budget_s, save, device=None, topologies=()) -> dict:
     """One rank of ``python -m mpi4jax_tpu_torch.autotune`` (rank 0
     saves): the payload, its stamp, the knobs fitted and untuned and the
     seconds, as plain data."""
     res = autotune(budget_s=budget_s, save=save if rank == 0 else None,
-                   load=False, verbose=True, device=device)
+                   load=False, topologies=tuple(topologies), verbose=True,
+                   device=device)
     return {"payload": res.payload, "stamp": res.stamp,
             "fitted": list(res.fitted), "unfitted": list(res.unfitted),
             "elapsed_s": res.elapsed_s}

@@ -18,16 +18,29 @@ of the comm calls it; a time is the slowest rank's, agreed by a MAX
   (``set_fusion_mode('auto')``) against unfused;
 - :func:`bench_overlap`: ``allreduce_start``/``_wait`` around an
   independent matmul chain against the blocking allreduce and the same
-  chain.
+  chain;
+- :func:`bench_allreduce_algos` and :func:`measured_ring_crossover`: a
+  PROD allreduce forced through the butterfly and the ring over a payload
+  ladder, and the payload where the ring first wins;
+- :func:`bench_hierarchy`: the same PROD allreduce through the flat ring
+  and the two-level lowering, per topology spec (faked with
+  ``MPI4JAX_TPU_TOPOLOGY``);
+- :func:`bench_alltoall`: the flat, the hierarchical and the chunked
+  async alltoall with compute in the gap, per topology, with the modeled
+  inter-host bytes and messages;
+- :func:`bench_compression`: the codecs' modeled inter-host bytes and
+  time of the hierarchical allreduce and their measured round-trip
+  error.
 
-The algorithm, hierarchy and alltoall sweeps of the JAX package time
-lowerings the port does not have (``ops/_algos.py``,
-``ops/_hierarchy.py``: ROADMAP, Blocked); the runner records them as
-skipped.
+After ``benchmarks/micro.py:151,193,251,460`` of the JAX package.  On one
+host the topology is faked, so the hierarchy sweeps time four processes
+on one device, not a hierarchy's gain: the runner's ``provenance`` says
+so.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Sequence
 
@@ -224,4 +237,219 @@ def bench_overlap(comm, sizes_mb=(0.25,), iters: int = 5,
             "overlap_us": round(t_ovl * 1e6, 1),
             "overlap_speedup": round(t_mono / t_ovl, 2),
         })
+    return rows
+
+
+class env_patch:
+    """Knobs set for one measurement (``None`` unsets one), the caller's
+    values restored on exit."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def _prod_step(comm, x):
+    """One PROD allreduce, clipped so that the carry stays finite."""
+    from ..ops import PROD, allreduce
+
+    s, _ = allreduce(x, PROD, comm=comm)
+    return torch.clamp(s, 0.5, 2.0)
+
+
+def bench_allreduce_algos(comm, sizes_mb, iters: int = 5):
+    """A PROD allreduce (no native collective: the algorithm layer itself)
+    forced through the butterfly and the ring per payload: rows
+    ``{size_mb, butterfly_us, ring_us, ring_speedup}`` (speedup ``None``
+    on one rank)."""
+    n = comm.Get_size()
+    rows = []
+    for mb in sizes_mb:
+        nelem = max(1, int(mb * 1e6 / 4))
+        x = torch.ones(nelem, dtype=torch.float32, device=comm.device)
+        row = {"size_mb": round(nelem * 4 / 1e6, 3)}
+        for algo in ("butterfly", "ring"):
+            with env_patch(MPI4JAX_TPU_COLLECTIVE_ALGO=algo):
+                t = _time(comm, lambda: _prod_step(comm, x), iters)
+            row[f"{algo}_us"] = round(t * 1e6, 1)
+        row["ring_speedup"] = (round(row["butterfly_us"] / row["ring_us"], 2)
+                               if n > 1 else None)
+        rows.append(row)
+    return rows
+
+
+def measured_ring_crossover(algo_rows):
+    """The payload (bytes) where the measured ring first beats the
+    butterfly, interpolated (``fit.measured_crossover``); ``None`` on one
+    rank or when the ring never wins."""
+    from .fit import measured_crossover
+
+    if any(row.get("ring_speedup") is None for row in algo_rows):
+        return None
+    return measured_crossover(algo_rows, "size_mb", "butterfly_us", "ring_us")
+
+
+def _covers(spec, n: int) -> bool:
+    from ..utils.config import parse_topology_spec
+
+    counts = parse_topology_spec(spec) if spec else None
+    return counts is None or sum(counts) == n
+
+
+def bench_hierarchy(comm, sizes_mb=(1, 4), topologies=("2x2",),
+                    iters: int = 5):
+    """The flat ring against the forced two-level lowering for the same
+    PROD allreduce, per payload and topology spec: rows ``{size_mb,
+    topology, flat_us, hier_us, hier_speedup}``.  A spec of another rank
+    count is skipped."""
+    n = comm.Get_size()
+    rows = []
+    for topo in topologies:
+        if not _covers(topo, n):
+            continue
+        for mb in sizes_mb:
+            nelem = max(1, int(mb * 1e6 / 4))
+            x = torch.ones(nelem, dtype=torch.float32, device=comm.device)
+            row = {"size_mb": round(nelem * 4 / 1e6, 3), "topology": topo}
+            for label, algo in (("flat", "ring"), ("hier", "hier")):
+                with env_patch(MPI4JAX_TPU_TOPOLOGY=topo,
+                          MPI4JAX_TPU_COLLECTIVE_ALGO=algo):
+                    t = _time(comm, lambda: _prod_step(comm, x), iters)
+                row[f"{label}_us"] = round(t * 1e6, 1)
+            row["hier_speedup"] = (round(row["flat_us"] / row["hier_us"], 2)
+                                   if n > 1 else None)
+            rows.append(row)
+    return rows
+
+
+def bench_alltoall(comm, sizes_mb=(0.25, 1), topologies=(None,),
+                   iters: int = 5, compute_dim: int = 64):
+    """The flat alltoall, the forced two-level one, and the chunked async
+    start/wait with ``tanh(m @ m)`` in the gap, per payload and topology
+    (``None``: the derived one): rows ``{size_mb, topology, flat_us,
+    hier_us, async_us, hier_speedup}``, and for a uniform spec the modeled
+    inter-host bytes and messages of flat and hier
+    (``ops/_hierarchy.py``)."""
+    from ..ops import _hierarchy
+    from ..ops import alltoall
+    from ..ops._async import alltoall_start, alltoall_wait
+    from ..parallel.region import spmd
+    from ..utils.config import parse_topology_spec
+
+    n = comm.Get_size()
+    huge = 1 << 60  # flat: the crossover can never trip
+    rows = []
+    for topo in topologies:
+        if not _covers(topo, n):
+            continue
+        counts = parse_topology_spec(topo) if topo else None
+        for mb in sizes_mb:
+            per = max(1, int(mb * 1e6 / 4 / n))
+            nbytes = n * per * 4
+            x = torch.ones(n, per, dtype=torch.float32, device=comm.device)
+            w = torch.full((compute_dim, compute_dim), 0.01,
+                           device=comm.device)
+            row = {"size_mb": round(nbytes / 1e6, 4),
+                   "topology": topo or "derived"}
+
+            @spmd(comm=comm)
+            def sync(v, m):
+                r, _ = alltoall(v)
+                return r, torch.tanh(m @ m)
+
+            @spmd(comm=comm)
+            def split(v, m):
+                h, _ = alltoall_start(v)
+                m = torch.tanh(m @ m)  # overlaps the exchange
+                r, _ = alltoall_wait(h)
+                return r, m
+
+            for label, algo, fn in (("flat", "auto", sync),
+                                    ("hier", "hier", sync),
+                                    ("async", "auto", split)):
+                with env_patch(MPI4JAX_TPU_TOPOLOGY=topo,
+                          MPI4JAX_TPU_COLLECTIVE_ALGO=algo,
+                          MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES=(
+                              huge if algo == "auto" else None)):
+                    t = _time(comm, lambda: fn(x, w), iters)
+                row[f"{label}_us"] = round(t * 1e6, 1)
+            row["hier_speedup"] = (round(row["flat_us"] / row["hier_us"], 2)
+                                   if n > 1 and row["hier_us"] else None)
+            if counts is not None and len(set(counts)) == 1:
+                h, r = len(counts), counts[0]
+                row["dcn_bytes_flat"] = _hierarchy.flat_link_bytes(
+                    "alltoall", "native", nbytes, n, h)[1]
+                row["dcn_bytes_hier"] = _hierarchy.hier_link_bytes(
+                    "alltoall", nbytes, h, r)[1]
+                mf, mh = _hierarchy.alltoall_dcn_messages(h, r)
+                row["dcn_msgs_flat"] = mf
+                row["dcn_msgs_hier"] = mh
+                row["dcn_msg_reduction"] = r
+            rows.append(row)
+    return rows
+
+
+def bench_compression(comm, sizes_mb=(0.25, 1, 4), topology: str = "2x4",
+                      iters: int = 3):
+    """Per codec (off, bf16, fp8) and payload: the logical and wire
+    inter-host bytes of the hierarchical allreduce (the byte models and
+    the codec's arithmetic), its modeled inter-host time (the cost model,
+    codec priced in) and the codec's measured round-trip relative error
+    on gradient-scale data from a seed: rows ``{size_mb, codec, topology,
+    logical_dcn_bytes, wire_dcn_bytes, modeled_dcn_us, rel_err}``.  The
+    times are modeled, not measured: one host has no inter-host link."""
+    from ..analysis import costmodel
+    from ..ops import _hierarchy
+    from ..ops._codec import wire_bytes
+    from ..ops._compress import roundtrip
+    from ..utils.config import parse_topology_spec
+
+    counts = parse_topology_spec(topology)
+    h, r = len(counts), counts[0]
+    k = h * r
+    model = costmodel.load_model()
+    rows = []
+    for mb in sizes_mb:
+        n_elems = max(1, int(mb * 1e6 / 4))
+        nbytes = n_elems * 4
+        logical = _hierarchy.hier_link_bytes("allreduce", nbytes, h, r)[1]
+        for codec in ("off", "bf16", "fp8"):
+            c = None if codec == "off" else codec
+            cost_c = costmodel.collective_cost(
+                "allreduce", "hier", nbytes, k, hosts=h, hier=(h, r), codec=c)
+            err = 0.0
+            if c is not None:
+                gen = torch.Generator().manual_seed(0)
+                for _ in range(iters):
+                    x = (torch.randn(n_elems, generator=gen) * 0.02).to(
+                        comm.device)
+                    y = roundtrip(x, c)
+                    denom = max(float(x.abs().max()), 1e-30)
+                    err = max(err, float((y - x).abs().max()) / denom)
+            rows.append({
+                "size_mb": round(nbytes / 1e6, 4),
+                "codec": codec,
+                "topology": topology,
+                "logical_dcn_bytes": int(logical),
+                "wire_dcn_bytes": int(wire_bytes(int(logical), c)),
+                "modeled_dcn_us": round(model.link_time_us(
+                    "dcn", cost_c.dcn.rounds, cost_c.dcn.nbytes), 2),
+                "rel_err": round(err, 8),
+            })
     return rows

@@ -13,11 +13,12 @@ Three stages, as in the JAX example:
    router's gradient averaged over the ranks with a SUM ``allreduce`` (it
    is replicated), each expert's kept local; the losses must decrease;
 3. **counters**: the ``alltoall`` rows of the telemetry counters over one
-   overlapped forward.  The JAX example splits them by link class under
-   ``MPI4JAX_TPU_TOPOLOGY=2x4``; that split needs the topology layer
-   (``ops/_hierarchy.py``, ``parallel/topology.py``, ROADMAP "Blocked"),
-   so the port prints the rows it has: on one host every byte is
-   intra-host.
+   overlapped forward, split by link class: under a faked topology
+   (``MPI4JAX_TPU_TOPOLOGY=2x2`` on 4 ranks) the exchanges land modeled
+   bytes on both the ``intra_host`` and the ``inter_host`` class once the
+   payload reaches ``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (the
+   hierarchical alltoall, ``ops/_hierarchy.py``); on one host every byte
+   is intra-host.
 
 The inputs are the JAX example's (``build_inputs``: the same numpy seed,
 the same weights), so the losses match its run on as many devices.  The
@@ -37,6 +38,7 @@ import torch
 from .. import SUM, Comm, allreduce, make_world_mesh, telemetry
 from ..parallel import moe
 from ..parallel.region import spmd
+from ..utils import config
 
 TOKENS = 32
 D = 16
@@ -153,8 +155,11 @@ def main(device=None, *, tokens: int = TOKENS, d: int = D, d_ff: int = D_FF,
             print(f"telemetry: {row['op']} algo={row['algo'] or '-'} "
                   f"calls={row['calls']} intra_host={row['intra_bytes']} B "
                   f"inter_host={row['inter_bytes']} B")
-        print("telemetry: the link-class split by MPI4JAX_TPU_TOPOLOGY needs the "
-              "topology layer, not ported: one host, every byte intra-host")
+        spec = config.topology_spec() or "one host"
+        print(f"telemetry: link classes ({spec}): intra_host="
+              f"{sum(r['intra_bytes'] for r in rows)} B inter_host="
+              f"{sum(r['inter_bytes'] for r in rows)} B over "
+              f"{sum(r['calls'] for r in rows)} calls")
     return {"y_sync": y_sync, "y_ovl": y_ovl, "losses": losses,
             "capacity": cap, "experts": n, "rows": rows,
             "params": params._asdict()}

@@ -10,11 +10,19 @@ its scheduler interleaves with compute; here a start issues
 - ``allreduce_start`` flattens the payload, splits it into
   ``MPI4JAX_TPU_OVERLAP_CHUNKS`` pieces (``overlap_chunk_split``) and
   issues one ``dist.all_reduce`` a piece; ``allreduce_wait`` waits for
-  each and reassembles the input's shape;
+  each and reassembles the input's shape.  Where the JAX package's
+  selector takes the two-level lowering (a comm of several hosts,
+  ``ops/_hierarchy.py``), and under a forced ``ring``, each piece instead
+  runs its ring reduce-scatter (and the hierarchy's inter-host exchange)
+  at the start and its ring allgather at the wait, the JAX package's
+  chunked split; under ``auto`` without a plan the port keeps its
+  ``dist.all_reduce`` pieces where the JAX package rings (ROADMAP,
+  Queue 3);
 - ``alltoall_start`` and ``reduce_scatter_start`` split every block along
   its payload and issue one ``dist.all_to_all_single`` a piece; the waits
   reassemble, and ``reduce_scatter_wait`` folds the received rows in
-  ascending rank order as the synchronous op does;
+  ascending rank order as the synchronous op does.  Where the selector
+  takes the hierarchical alltoall, each piece runs it at the start;
 - ``send_start`` queues a buffered send as ``send`` does; ``recv_start``
   takes the matching send and posts a ``dist.irecv``; ``p2p_wait``
   returns the received tensor (a send's handle returns its payload).
@@ -98,12 +106,13 @@ def overlap_chunk_split(n: int, chunks: int) -> List[int]:
 
 class AsyncHandle:
     """One started collective: ``mode`` is ``"async"`` (works in flight in
-    ``pieces``) or ``"full"`` (the result in ``pieces``, computed at the
-    start)."""
+    ``pieces``), ``"full"`` (the result in ``pieces``, computed at the
+    start), or ``"ring"``/``"hier"`` (each piece's reduce-scatter phase in
+    ``pieces``, its allgather phase left to the wait)."""
 
     __slots__ = ("kind", "comm", "reduction", "shape", "dtype", "device",
                  "sizes", "k", "mode", "pieces", "uid", "waited", "exchange",
-                 "order", "loop", "span", "piece")
+                 "order", "loop", "span", "piece", "plan")
 
     def __init__(self, kind, comm, reduction):
         self.kind = kind
@@ -111,7 +120,7 @@ class AsyncHandle:
         self.reduction = reduction
         self.shape = self.dtype = self.device = None
         self.sizes = self.k = self.mode = self.pieces = None
-        self.exchange = self.order = None
+        self.exchange = self.order = self.plan = None
         self.uid = next(_span_counter)
         self.waited = False
         # (loop id, iteration) of the megastep iteration it started in
@@ -331,6 +340,10 @@ def allreduce_start(x, op=None, *, comm: Optional[Comm] = None,
         (x,) = _span_open("allreduce", comm, arrays, handle)
         handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
         handle.k = len(comm.members())
+        ring = None if handle.k == 1 or _grad(x) else _ring_split(x, op, comm)
+        if ring is not None:
+            _start_ring(handle, x, op, comm, *ring)
+            return handle, produce(token)
         if (handle.k == 1 or op not in _DIST_OPS or x.dtype == torch.bool
                 or _grad(x) or (comm.groups is not None and op is Op.PROD)):
             _full(handle, reduce_all(x, op, comm))
@@ -380,6 +393,9 @@ def allreduce_wait(handle, *, token: Optional[Token] = None):
     def body(comm, arrays, token):
         if handle.mode == "full":
             res = handle.pieces[0]
+        elif handle.mode in ("ring", "hier"):
+            _annotate_wait(handle.mode)
+            res = _finish_ring(handle)
         else:
             parts = _collect(handle)
             res = (torch.cat(parts) if len(parts) > 1 else parts[0]).reshape(
@@ -387,6 +403,93 @@ def allreduce_wait(handle, *, token: Optional[Token] = None):
         return _done(handle, res), produce(token)
 
     return _dispatch_wait("allreduce_wait", handle, body, token)
+
+
+def _ring_split(x: torch.Tensor, op, comm):
+    """``(mode, plan, k)`` where the start splits into the ring phases:
+    ``"hier"`` where the selector takes the two-level lowering on a plan
+    of several ranks a host, ``"ring"`` under a forced ring; ``None``
+    otherwise (an ``Op`` reduction on a uniform group only).  Annotates
+    the pick and its modeled bytes by link class."""
+    from . import _algos, _hierarchy
+
+    k = _algos.static_group_size(comm)
+    algo = config.collective_algo()
+    if k is None or k <= 1 or not isinstance(op, Op) or algo == "butterfly":
+        return None
+    plan = _hierarchy.hier_plan(comm)
+    nbytes = x.numel() * x.element_size()
+    if plan is not None and plan.r > 1 and _algos.resolve_algo(
+            algo, nbytes, k, ring_ok=True, hier_ok=True) == "hier":
+        mode = "hier"
+        link = _hierarchy.hier_link_bytes("allreduce", nbytes, plan.h, plan.r)
+    elif algo == "ring":
+        mode, plan = "ring", None
+        link = _hierarchy.flat_link_bytes("allreduce", "ring", nbytes, k,
+                                          _hierarchy.comm_hosts(comm))
+    else:
+        return None
+    _analysis.annotate(algo=mode)
+    from ..telemetry import core as _tcore
+
+    _tcore.annotate(algo=mode, link_bytes=link)
+    return mode, plan, k
+
+
+def _annotate_wait(algo: str) -> None:
+    """A wait's annotation: its start's algorithm, and no bytes of its own
+    (the start counted the exchange's model)."""
+    from ..telemetry import core as _tcore
+
+    _analysis.annotate(algo=algo)
+    _tcore.annotate(algo=algo, link_bytes=(0, 0))
+
+
+def _start_ring(handle: AsyncHandle, x, op, comm, mode, plan, k) -> None:
+    """Each piece's reduce-scatter phase now (and, for ``hier``, the
+    inter-host allreduce of its shard), the JAX package's chunked start."""
+    from . import _algos, _hierarchy
+
+    flat = x.detach().reshape(-1)
+    nbytes = flat.numel() * x.element_size()
+    handle.sizes = overlap_chunk_split(flat.numel(),
+                                       config.overlap_chunks(nbytes))
+    handle.mode, handle.plan, handle.k = mode, plan, k
+    _meter_chunks("allreduce", comm, x.dtype, len(handle.sizes))
+    pieces, off = [], 0
+    for n in handle.sizes:
+        seg = flat[off:off + n]
+        off += n
+        if mode == "hier":
+            plan.ready()
+            chunk, padded = _algos.chunk_layout(n, plan.r)
+            blocks = _algos._pad_to(seg, padded).reshape(plan.r, chunk)
+            piece = _algos.apply_ring_reduce_scatter(blocks, op, plan.intra,
+                                                     plan.r)
+            piece = _hierarchy._inter_allreduce(piece, op, plan,
+                                                chunk * x.element_size())
+        else:
+            chunk, padded = _algos.chunk_layout(n, k)
+            blocks = _algos._pad_to(seg, padded).reshape(k, chunk)
+            piece = _algos.apply_ring_reduce_scatter(blocks, op, comm, k)
+        pieces.append(piece)
+    handle.pieces = tuple(pieces)
+
+
+def _finish_ring(handle: AsyncHandle) -> torch.Tensor:
+    """The wait of a ring split: each piece's ring allgather (over the
+    plan's intra-host comm for ``hier``), reassembled."""
+    from . import _algos
+
+    if handle.mode == "hier":
+        comm, k = handle.plan.intra, handle.plan.r
+    else:
+        comm, k = handle.comm, handle.k
+    pos = comm.Get_rank()
+    parts = [_algos.apply_ring_allgather(piece, comm, k, pos).reshape(-1)[:n]
+             for piece, n in zip(handle.pieces, handle.sizes)]
+    return (torch.cat(parts) if len(parts) > 1 else parts[0]).reshape(
+        handle.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -442,7 +545,7 @@ def alltoall_start(x, *, comm: Optional[Comm] = None,
                    token: Optional[Token] = None):
     """Begin an async alltoall of ``x`` (``(size, *s)``, block i to rank
     i); returns ``(handle, token)``.  Finish it with ``alltoall_wait``."""
-    from .alltoall import _AllToAll
+    from .alltoall import _AllToAll, select_alltoall
 
     comm, handle = _start("alltoall_start", comm,
                           lambda c: AsyncHandle("alltoall", c, None))
@@ -457,7 +560,11 @@ def alltoall_start(x, *, comm: Optional[Comm] = None,
         elif _grad(x):
             _full(handle, _AllToAll.apply(x, comm))
         else:
-            _start_blocks(handle, x, comm)
+            algo, plan = select_alltoall(x, comm)
+            if algo == "hier":
+                _start_hier_alltoall(handle, x, comm, plan)
+            else:
+                _start_blocks(handle, x, comm)
         return handle, produce(token)
 
     def piece(x):
@@ -479,11 +586,33 @@ def alltoall_wait(handle, *, token: Optional[Token] = None):
     _check_handle("alltoall_wait", handle, "alltoall")
 
     def body(comm, arrays, token):
-        res = (handle.pieces[0] if handle.mode == "full"
-               else _received_rows(handle).reshape(handle.shape))
+        if handle.mode == "full":
+            res = handle.pieces[0]
+        elif handle.mode == "hier":
+            _annotate_wait("hier")
+            res = torch.cat(handle.pieces, dim=1).reshape(handle.shape)
+        else:
+            res = _received_rows(handle).reshape(handle.shape)
         return _done(handle, res), produce(token)
 
     return _dispatch_wait("alltoall_wait", handle, body, token)
+
+
+def _start_hier_alltoall(handle: AsyncHandle, x, comm, plan) -> None:
+    """The hierarchical alltoall of each piece of every block, at the
+    start (the JAX package's chunked hier split); the wait reassembles."""
+    from ._hierarchy import apply_hier_alltoall
+
+    size = handle.k
+    blocks = x.detach().reshape(size, -1)
+    handle.sizes = overlap_chunk_split(
+        blocks.shape[1], config.overlap_chunks(x.numel() * x.element_size()))
+    _meter_chunks("alltoall", comm, x.dtype, len(handle.sizes))
+    pieces, off = [], 0
+    for n in handle.sizes:
+        pieces.append(apply_hier_alltoall(blocks[:, off:off + n], comm, plan))
+        off += n
+    handle.mode, handle.plan, handle.pieces = "hier", plan, tuple(pieces)
 
 
 def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,

@@ -132,6 +132,46 @@ def fold(blocks, fn: Callable):
     return acc[0]
 
 
+def annotate_native() -> None:
+    """Record on the open verifier event and telemetry record that the op
+    took its native route (the algorithm layer's ``"native"``)."""
+    _analysis.annotate(algo="native")
+    _telemetry.annotate(algo="native")
+
+
+class Substitute(torch.autograd.Function):
+    """``value`` forward, with ``graph``'s backward: a lowering of the
+    algorithm layer (``ops/_algos.py``, ``ops/_hierarchy.py``) changes an
+    op's forward only; ``graph`` is the op's own differentiable route on
+    the same inputs, whose backward rule stands."""
+
+    @staticmethod
+    def forward(graph, value):
+        return value.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return t
+
+
+def lowered(x: torch.Tensor, run: Callable, graph: Callable) -> torch.Tensor:
+    """``run(x)``, the forward of a lowering; where autograd follows ``x``,
+    with the backward of ``graph(x)``, the op's own route."""
+    from .allreduce import wants_grad
+
+    if wants_grad(x):
+        return Substitute.apply(graph(x), run(x.detach()))
+    return run(x)
+
+
 def check_send_recv(sendbuf, recvbuf, what: str) -> None:
     """MPI's type-signature rule: equal dtypes, and shapes that differ only
     where the element counts match (the result takes ``recvbuf``'s shape)."""

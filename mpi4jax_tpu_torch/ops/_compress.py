@@ -24,11 +24,19 @@ leaf, ``comp = g + residual``, ``q = roundtrip(comp, codec)``, the new
 residual ``comp - q``, and ``q`` allreduced.  With the codec off the
 roundtrip is the identity and the residual stays exactly zero.
 
-The JAX package's inter-host appliers (``inter_allreduce``,
-``inter_reduce_scatter``, ``inter_alltoall``, ``inter_bcast`` and the fp8
-butterfly) compress the inter-host leg of its hierarchical lowerings,
-which the port does not have yet: here the codec changes the values
-(through the roundtrip), not the bytes the exchanges move.
+The inter-host appliers (``inter_allreduce``, ``inter_reduce_scatter``,
+``inter_alltoall``, ``inter_bcast`` and the fp8 butterfly) are the
+compressed twins of the inter-host phases of ``ops/_hierarchy.py``, run
+only where the codec resolved for a float32 payload's bucket is on, and
+only on that leg: the one place where a codec shrinks the bytes that
+travel (``wire_inter_bytes``).  ``bf16`` casts, runs the exact exchange on
+the bf16 tensor and casts back (reduction arithmetic in bf16); ``fp8``
+has no reduction arithmetic, so its allreduce and reduce-scatter are a
+butterfly whose every stage ships the encoded (q, scale) pair and adds in
+float32 on the receiving side, SUM only (any other ``Op`` takes bf16);
+the pure-routing legs (alltoall, bcast) encode once and ship the pair.
+Elsewhere the codec changes the values (through the roundtrip), not the
+bytes.
 """
 
 from __future__ import annotations
@@ -104,6 +112,117 @@ def _effective(codec, op):
     if codec == "fp8" and op is not None and op != SUM:
         return "bf16"
     return codec
+
+
+# ---------------------------------------------------------------------------
+# the compressed inter-host phases (the _hierarchy inter-phase twins)
+# ---------------------------------------------------------------------------
+
+
+def _fp8_butterfly_allreduce(x: torch.Tensor, comm) -> torch.Tensor:
+    """SUM allreduce over ``comm`` shipping (q, scale) pairs: the
+    suffix-fold butterfly (after the round of offset ``w`` position ``p``
+    holds the fold of ``[p, p + 2w)``), every stage's traffic encoded and
+    the accumulation in float32; position 0's fold is encoded once and
+    broadcast."""
+    from ._algos import apply_doubling_bcast, exchange_round
+
+    members = comm.members()
+    k = len(members)
+    pos = comm.Get_rank()
+    acc = x
+    w = 1
+    while w < k:
+        q, s = encode_fp8(acc)
+        dest = members[pos - w] if pos >= w else None
+        src = members[pos + w] if pos + w < k else None
+        rq = exchange_round(q if dest is not None else None, dest,
+                            q if src is not None else None, src)
+        rs = exchange_round(s if dest is not None else None, dest,
+                            s if src is not None else None, src)
+        if src is not None:
+            acc = acc + decode_fp8(rq, rs, acc.shape, acc.numel())
+        w *= 2
+    q, s = encode_fp8(acc)
+    q = apply_doubling_bcast(q, comm, 0)
+    s = apply_doubling_bcast(s, comm, 0)
+    return decode_fp8(q, s, acc.shape, acc.numel())
+
+
+def inter_allreduce(v, op, plan, shard_bytes, codec):
+    """Compressed inter-host allreduce (``_hierarchy._inter_allreduce``'s
+    twin): ring or butterfly on a bf16 cast, or the fp8 butterfly for
+    SUM."""
+    from . import _algos
+    from ._base import Op
+
+    codec = _effective(codec, op)
+    if codec == "fp8":
+        return _fp8_butterfly_allreduce(v, plan.inter).to(v.dtype)
+    v16 = v.to(torch.bfloat16)
+    ring_ok = isinstance(op, Op)
+    if _algos.resolve_dcn_algo(shard_bytes, plan.h, ring_ok) == "ring":
+        out = _algos.apply_ring_allreduce(v16, op, plan.inter, plan.h)
+    else:
+        out = _algos.apply_butterfly_allreduce(v16, op, plan.inter)
+    return out.to(v.dtype)
+
+
+def inter_reduce_scatter(blocks, op, plan, codec):
+    """Compressed inter-host reduce-scatter
+    (``_hierarchy._inter_reduce_scatter``'s twin)."""
+    from . import _algos
+
+    codec = _effective(codec, op)
+    h = plan.h
+    if codec == "fp8":
+        full = _fp8_butterfly_allreduce(blocks, plan.inter)
+        return full[plan.inter.Get_rank()].to(blocks.dtype)
+    b16 = blocks.to(torch.bfloat16)
+    nbytes = blocks.numel() * blocks.element_size()
+    if _algos.resolve_dcn_algo(nbytes, h) == "ring":
+        out = _algos.apply_ring_reduce_scatter(b16, op, plan.inter, h)
+    else:
+        full = _algos.apply_butterfly_allreduce(b16, op, plan.inter)
+        out = full[plan.inter.Get_rank()]
+    return out.to(blocks.dtype)
+
+
+def inter_alltoall(z, plan, h, codec):
+    """Compressed inter-host alltoall exchange: pure routing, encoded once
+    per destination block, so each receiver decodes exactly its blocks."""
+    from . import _algos
+
+    if codec == "bf16":
+        w = _algos.apply_pairwise_alltoall(z.to(torch.bfloat16), plan.inter, h)
+        return w.to(z.dtype)
+    s = tuple(z.shape[1:])
+    q, scale = _encode_rows(z.reshape(h, -1))
+    wq = _algos.apply_pairwise_alltoall(q, plan.inter, h)
+    ws = _algos.apply_pairwise_alltoall(scale, plan.inter, h)
+    cols = z.numel() // h
+    return _decode_rows(wq, ws, cols).reshape((h,) + s).to(z.dtype)
+
+
+def inter_bcast(v, plan, b0, codec):
+    """Compressed inter-host broadcast (``_hierarchy._inter_bcast``'s
+    twin): encoded once at the root, shipped, decoded on arrival; fp8
+    always takes the doubling broadcast (van de Geijn would re-chunk the
+    scale blocks)."""
+    from . import _algos
+
+    if codec == "bf16":
+        v16 = v.to(torch.bfloat16)
+        if _algos.resolve_dcn_algo(v.numel() * v.element_size(),
+                                   plan.h) == "ring":
+            out = _algos.apply_vdg_bcast(v16, plan.inter, b0, plan.h)
+        else:
+            out = _algos.apply_doubling_bcast(v16, plan.inter, b0)
+        return out.to(v.dtype)
+    q, s = encode_fp8(v)
+    q = _algos.apply_doubling_bcast(q, plan.inter, b0)
+    s = _algos.apply_doubling_bcast(s, plan.inter, b0)
+    return decode_fp8(q, s, v.shape, v.numel()).to(v.dtype)
 
 
 def dcn_codec(v: torch.Tensor, nbytes: int, op=None):

@@ -5,9 +5,13 @@ algorithm), with the same contract: the input is ``(size, *s)`` and the
 output ``(size, *s)``, where ``out[i]`` is the slice that rank ``i``
 addressed to this rank; a leading axis other than the comm size raises
 ``ValueError`` with the JAX package's wording.  On a size-1 comm it is a
-copy.  Over several ranks it is one ``dist.all_to_all_single`` on the
-comm's process group, with its buffers from ``ops/_staging.py`` as
-``gather``'s are.  The group orders its ranks by global rank; the rows
+copy.  Over several ranks the lowering is picked as the JAX package picks
+it (``_algos.resolve_alltoall_algo``): the two-level ``hier`` alltoall
+(``ops/_hierarchy.py``) on a comm of several hosts at and above
+``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (or forced), else the flat one,
+one ``dist.all_to_all_single`` on the comm's process group, with its
+buffers from ``ops/_staging.py`` as ``gather``'s are.  Both are pure
+routing: the same bits.  The group orders its ranks by global rank; the rows
 are permuted to and from comm-rank order around the exchange where the
 two differ.
 
@@ -28,9 +32,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..analysis.hook import dtype_name
 from ..parallel.comm import Comm
 from . import _async
-from ._base import check_comm, run_body
+from ._base import check_comm, lowered, meta_like, run_body
 from ._fusion import materialize_value
 from ._staging import Exchange
 from .token import Token, produce
@@ -106,6 +111,34 @@ def alltoall(x, *, comm: Optional[Comm] = None, token: Optional[Token] = None):
         (x,) = arrays
         if size == 1:
             return x.clone(), produce(token)
+        algo, plan = select_alltoall(x, comm)
+        if algo == "hier":
+            from ._hierarchy import apply_hier_alltoall
+
+            return lowered(x, lambda v: apply_hier_alltoall(v, comm, plan),
+                           lambda v: _AllToAll.apply(v, comm)), produce(token)
         return _AllToAll.apply(x, comm), produce(token)
 
-    return run_body("alltoall", comm, body, (x,), token)
+    def abstract(arrays, token):
+        if size > 1:
+            select_alltoall(arrays[0], comm)
+        return meta_like(arrays[0]), produce(token)
+
+    return run_body("alltoall", comm, body, (x,), token, abstract=abstract)
+
+
+def select_alltoall(x: torch.Tensor, comm: Comm, flat: str = "native"):
+    """The lowering of an alltoall of ``x``, as the JAX package picks it:
+    ``(algo, plan)``, ``algo`` ``"hier"`` or ``flat``, annotated.  Runs in
+    abstract runs too."""
+    from ..utils import config
+    from . import _algos, _hierarchy
+
+    size = comm.Get_size()
+    nbytes = x.numel() * x.element_size()
+    plan = _hierarchy.hier_plan(comm) if size > 1 else None
+    algo = _algos.resolve_alltoall_algo(config.collective_algo(), nbytes,
+                                        hier_ok=plan is not None, flat=flat)
+    _hierarchy.annotate_selection("alltoall", algo, nbytes, size, plan, comm,
+                                  dtype=dtype_name(x.dtype))
+    return algo, plan

@@ -3,8 +3,14 @@
 PyTorch counterpart of ``mpi4jax_tpu/ops/bcast.py``: every rank receives
 root's value with the input's shape; root gets its own input back.
 ``root`` is a rank of the comm (of every group, on a color split), checked
-with MPX105.  Over several ranks it is one ``dist.broadcast`` on the
-comm's process group, with its buffer from ``ops/_staging.py``.
+with MPX105.  Over several ranks the lowering is picked as the JAX
+package picks it (``select_bcast``): under ``auto`` on a whole comm the
+native route, else the selector's ``butterfly`` (the doubling broadcast),
+``ring`` (van de Geijn: binomial-halving scatter and ring allgather,
+``ops/_algos.py``) or ``hier`` (``ops/_hierarchy.py``).  The native route
+and the butterfly are one ``dist.broadcast`` on the comm's process group,
+with its buffer from ``ops/_staging.py``; every lowering is pure routing,
+so all give root's bits.
 
 Autodiff (``_Bcast``): the backward sums the cotangents of every rank onto
 root (``_ReduceToRoot``) and gives the other ranks zeros, the transpose of
@@ -22,9 +28,12 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..analysis import hook as _analysis
+from ..analysis.hook import dtype_name
 from ..parallel.comm import Comm
+from ..utils import config
 from . import _fusion
-from ._base import check_comm, check_root, run_body
+from ._base import check_comm, check_root, lowered, meta_like, run_body
 from ._staging import Exchange
 from .token import Token, produce
 
@@ -101,7 +110,48 @@ def bcast(x, root: int, *, comm: Optional[Comm] = None,
         (x,) = arrays
         if len(comm.members()) == 1:
             return x.clone(), produce(token)
-        return _Bcast.apply(x, root, comm), produce(token)
+        return run_bcast(x, root, comm, *select_bcast(x, comm)), produce(token)
+
+    def abstract(arrays, token):
+        if len(comm.members()) > 1:
+            select_bcast(arrays[0], comm)
+        return meta_like(arrays[0]), produce(token)
 
     return run_body("bcast", comm, body, (_fusion.materialize_value(x),), token,
-                    ana={"root": root})
+                    ana={"root": root}, abstract=abstract)
+
+
+def select_bcast(x: torch.Tensor, comm: Comm):
+    """The lowering of a broadcast of ``x``, as the JAX package's ``bcast``
+    picks it: ``(algo, plan, k)``, annotated.  Runs in abstract runs
+    too."""
+    from . import _algos, _hierarchy
+
+    algo = config.collective_algo()
+    if comm.groups is None and algo == "auto":
+        _analysis.annotate(algo="native")
+        return "native", None, None
+    k = _algos.static_group_size(comm)
+    plan = _hierarchy.hier_plan(comm) if k is not None and k > 1 else None
+    nbytes = x.numel() * x.element_size()
+    picked = _algos.resolve_algo(algo, nbytes, k or 1,
+                                 ring_ok=k is not None and k > 1,
+                                 hier_ok=plan is not None)
+    _hierarchy.annotate_selection("bcast", picked, nbytes, k or 1, plan, comm,
+                                  dtype=dtype_name(x.dtype))
+    return picked, plan, k
+
+
+def run_bcast(x: torch.Tensor, root: int, comm: Comm, algo: str, plan,
+              k) -> torch.Tensor:
+    """Run the lowering ``select_bcast`` picked (native and butterfly: one
+    ``dist.broadcast``)."""
+    from . import _algos, _hierarchy
+
+    if algo == "hier":
+        run = lambda v: _hierarchy.apply_hier_bcast(v, comm, root, plan)
+    elif algo == "ring":
+        run = lambda v: _algos.apply_vdg_bcast(v, comm, root, k)
+    else:
+        return _Bcast.apply(x, root, comm)
+    return lowered(x, run, lambda v: _Bcast.apply(v, root, comm))

@@ -341,8 +341,17 @@ class GroupComm(Comm):
     on any partition.  ``members`` and ``group`` are this process's group.
     """
 
-    def __init__(self, parent: Comm, groups):
+    def __init__(self, parent: Comm, groups, *, derived=None):
         super().__init__(parent.axes, mesh=parent.mesh)
+        if derived is not None:
+            # a comm the algorithm layer derives (ops/_hierarchy.py): it
+            # takes no uid from this process's count, so that building it
+            # on one rank and not on another never shifts the uids of the
+            # comms built after it; its process groups are made by
+            # ``make_groups``, where it is first used
+            global _uid_counter
+            _uid_counter = itertools.count(self._uid)
+            self._uid = (parent.uid, derived)
         self._epoch = parent.epoch
         world = Comm.Get_size(self)
         seen = [r for g in groups for r in g]
@@ -360,6 +369,13 @@ class GroupComm(Comm):
             for i, r in enumerate(members):
                 self._gid[r] = g
                 self._lrank[r] = i
+        if derived is None:
+            self.make_groups()
+
+    def make_groups(self) -> None:
+        """Create the process group of every group of more than one rank
+        that has none yet, on every copy of the comm.  Collective where it
+        creates one: every rank calls it with the same groups."""
         if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
             # collective: every rank creates every group, in one order
             ensure_groups(frozenset(table[r] for r in g)

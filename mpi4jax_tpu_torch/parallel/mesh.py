@@ -91,6 +91,8 @@ class _World:
 
     device: Optional[torch.device] = None
     groups: Dict[FrozenSet[int], object] = {}
+    # every rank's host label (parallel/topology.py:host_labels)
+    hosts: Optional[Tuple[str, ...]] = None
 
 
 def init_distributed(backend: str = "gloo", *, init_method: str = None,
@@ -167,6 +169,9 @@ def init_distributed(backend: str = "gloo", *, init_method: str = None,
         dist.distributed_c10d._set_pg_timeout(timedelta(seconds=timeout))
     _World.device = dev
     _World.groups = {}
+    from .topology import publish_host_label
+
+    publish_host_label()
     return dev
 
 
@@ -400,5 +405,6 @@ def forget_world() -> None:
 
     _World.device = None
     _World.groups = {}
+    _World.hosts = None
     _default_mesh = (None, None)
     region._default = (None, None)

@@ -1,23 +1,33 @@
-"""The host-topology model: where ranks live (the pure half).
+"""The host-topology model: where ranks live.
 
-PyTorch counterpart of the pure half of
-``mpi4jax_tpu/parallel/topology.py`` (without ``mesh_topology``, whose
-host labels come from the devices of a multi-host mesh): the
+PyTorch counterpart of ``mpi4jax_tpu/parallel/topology.py``: the
 :class:`Topology` of a flat rank space (each rank's canonical host), the
-host span of a group and the link class of a rank pair, which the cost pass (``analysis/cost.py``) prices
-its collectives by.  A topology comes from the ``MPI4JAX_TPU_TOPOLOGY``
-override (``<hosts>x<ranks_per_host>`` or per-host counts ``3,5``) when
-its rank count matches the comm's world.  The port's ranks are processes
-of one host (``parallel/launch.py``): without the override there is no
-host partition, :func:`derive_world_topology` returns ``None`` and every
-link is ``ici``, the JAX package's flat-fallback convention.  The
-hierarchical lowerings that read a topology in the JAX package
-(``ops/_hierarchy.py``, ``ops/_algos.py``) are not ported (ROADMAP,
-Blocked).
+host span of a group and the link class of a rank pair, which the
+hierarchical lowerings (``ops/_hierarchy.py``) and the cost pass
+(``analysis/cost.py``) read.  A topology comes from
+
+- the ``MPI4JAX_TPU_TOPOLOGY`` override (``<hosts>x<ranks_per_host>`` or
+  per-host counts ``3,5``) when its rank count matches the comm's world
+  (the spec wins); or
+- the grid's host layout (``mesh_topology``): where the JAX package reads
+  each device's ``process_index``, the port reads each rank's host label
+  (``host_label``, the host name), exchanged once per world through the
+  rendezvous store (every rank writes its own at ``init_distributed``,
+  ``host_labels`` reads them: no collective).  On one machine every rank has one label:
+  one host, so the flat algorithms run.
+
+Host ids are canonical (renumbered by first appearance), so only the
+partition matters.  Where no partition can be established (an unbound
+comm, a spec of another rank count, a grid whose slabs disagree)
+``derive_world_topology`` returns ``None`` and every link is ``ici``, the
+flat-fallback convention: topology never turns a working program into an
+error.
 """
 
 from __future__ import annotations
 
+import socket
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 from ..utils import config
@@ -94,17 +104,123 @@ def from_counts(counts: Sequence[int]) -> Topology:
     return Topology(host_of_rank)
 
 
+def host_label() -> str:
+    """This process's host label (the host name)."""
+    return socket.gethostname()
+
+
+_STORE_KEY = "mpi4jax_tpu_torch/host/"
+
+
+def publish_host_label() -> None:
+    """Write this rank's ``host_label()`` into the world's rendezvous
+    store (``init_distributed`` does, right after the rendezvous), and
+    forget the labels read so far.  A test that fakes a label calls it
+    again on every rank and meets a barrier before the first query."""
+    import torch.distributed as dist
+
+    from .mesh import _World
+
+    _World.hosts = None
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        store = dist.distributed_c10d._get_default_store()
+        store.set(_STORE_KEY + str(dist.get_rank()), host_label())
+
+
+def host_labels() -> Tuple[str, ...]:
+    """Every world rank's host label, in global-rank order (this process's
+    alone outside an initialised world of several ranks): read once per
+    world from the rendezvous store, where every rank wrote its own at
+    ``init_distributed`` (no collective: a rank that died since still
+    answers), and kept until the world is torn down."""
+    import torch.distributed as dist
+
+    from .mesh import _World
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return (host_label(),)
+    if _World.hosts is None:
+        store = dist.distributed_c10d._get_default_store()
+        _World.hosts = tuple(store.get(_STORE_KEY + str(r)).decode()
+                             for r in range(dist.get_world_size()))
+    return _World.hosts
+
+
+def mesh_topology(mesh, axes: Tuple[str, ...]) -> Optional[Topology]:
+    """Host partition of the flat rank space over ``axes`` of the grid
+    ``mesh``, from each rank's host label (``host_labels``).  The flat
+    order is row-major over ``axes``; on a comm over some of the grid's
+    axes every position on the other axes is one copy of the comm, and a
+    topology exists only when every copy shows the same canonical
+    pattern (else ``None``).  A grid without an initialised world (a
+    virtual grid of the verifier) lives on this process's host."""
+    import itertools
+
+    if any(a not in mesh.axes for a in axes):
+        return None
+    labels = host_labels()
+    if len(labels) == 1:
+        labels = labels * mesh.size
+    if len(labels) != mesh.size:
+        return None
+    idx = [mesh.axes.index(a) for a in axes]
+    rest = [range(1) if a in axes else range(n)
+            for a, n in zip(mesh.axes, mesh.shape)]
+    k = 1
+    for a in axes:
+        k *= mesh.axis_size(a)
+    patterns = set()
+    for base in itertools.product(*rest):
+        row = []
+        for r in range(k):
+            coord = list(base)
+            for i in reversed(idx):
+                coord[i] = r % mesh.shape[i]
+                r //= mesh.shape[i]
+            row.append(labels[mesh.rank_at(coord)])
+        patterns.add(canonical_labels(row))
+    if len(patterns) != 1:
+        return None
+    return Topology(patterns.pop())
+
+
+# memoized per spec or (grid, axes, labels): derivation runs at every
+# collective that consults the hierarchy
+_topo_memo: "OrderedDict" = OrderedDict()
+_TOPO_MEMO_MAX = 64
+_NO_TOPO = object()
+
+
 def derive_world_topology(comm) -> Optional[Topology]:
-    """The host partition of ``comm``'s flat rank space, or ``None``: the
+    """The host partition of ``comm``'s flat rank space, or ``None`` (the
+    caller keeps the flat algorithms).  Priority: the
     ``MPI4JAX_TPU_TOPOLOGY`` spec when its rank count matches the comm's
-    world.  The port has no other source of host labels (its ranks are
-    processes of one host), so without the spec there is no partition."""
+    world (a spec of another count gives ``None`` for that comm);
+    otherwise the grid's host layout (``mesh_topology``)."""
     spec = config.topology_spec()
-    if not spec:
-        return None
-    try:
-        world = comm.world_size()
-    except RuntimeError:  # unbound comm
-        return None
-    counts = config.parse_topology_spec(spec)
-    return from_counts(counts) if counts and sum(counts) == world else None
+    if spec:
+        try:
+            world = comm.world_size()
+        except RuntimeError:  # unbound comm
+            return None
+        key = ("spec", spec, world)
+    else:
+        mesh = comm.mesh
+        if mesh is None:
+            return None
+        key = ("mesh", mesh, comm.axes, host_labels())
+    cached = _topo_memo.get(key)
+    if cached is not None:
+        _topo_memo.move_to_end(key)
+        return None if cached is _NO_TOPO else cached
+    if spec:
+        counts = config.parse_topology_spec(spec)
+        topo = from_counts(counts) if counts and sum(counts) == world else None
+    else:
+        topo = mesh_topology(mesh, comm.axes)
+    _topo_memo[key] = _NO_TOPO if topo is None else topo
+    if len(_topo_memo) > _TOPO_MEMO_MAX:
+        _topo_memo.popitem(last=False)
+    return topo

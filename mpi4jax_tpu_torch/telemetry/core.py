@@ -106,16 +106,26 @@ class _Counters:
         self.meters: Dict[str, int] = {}
         self.latency: Dict[str, Histogram] = {}
 
-    def count_op(self, key: str, nbytes: int, calls: int = 1) -> None:
+    def count_op(self, key: str, nbytes: int, calls: int = 1,
+                 intra: Optional[int] = None, inter: Optional[int] = None,
+                 wire_inter: Optional[int] = None) -> None:
         with self.lock:
             row = self.ops.setdefault(
                 key, {"calls": 0, "bytes": 0, "intra_bytes": 0,
                       "inter_bytes": 0, "wire_inter_bytes": 0})
             row["calls"] += calls
             row["bytes"] += int(nbytes)
-            # one host: every byte is intra-host, as the JAX package counts
-            # an op without a link model
-            row["intra_bytes"] += int(nbytes)
+            # the modeled per-rank bytes by link class, filled by the
+            # algorithm layer (ops/_hierarchy.py:annotate_selection); an
+            # op without a model counts its payload as intra-host, as the
+            # JAX package's does
+            row["intra_bytes"] += int(nbytes if intra is None else intra)
+            inter = int(0 if inter is None else inter)
+            row["inter_bytes"] += inter
+            # after the inter-host leg's codec: the logical inter bytes
+            # unless the hierarchy compressed them
+            row["wire_inter_bytes"] += (inter if wire_inter is None
+                                        else int(wire_inter))
 
     def bump(self, name: str, n: int) -> None:
         with self.lock:
@@ -178,7 +188,8 @@ def dtype_name(dtype) -> str:
 class OpRecord:
     """One dispatch's telemetry view."""
 
-    __slots__ = ("op", "comm_uid", "comm_axes", "bytes", "dtype", "algo")
+    __slots__ = ("op", "comm_uid", "comm_axes", "bytes", "dtype", "algo",
+                 "intra_bytes", "inter_bytes", "wire_inter_bytes")
 
     def __init__(self, op, comm_uid, comm_axes, nbytes, dtype):
         self.op = op
@@ -187,6 +198,7 @@ class OpRecord:
         self.bytes = nbytes
         self.dtype = dtype
         self.algo = "native"
+        self.intra_bytes = self.inter_bytes = self.wire_inter_bytes = None
 
     def key(self) -> str:
         return op_key(self.op, self.comm_uid, self.algo, self.dtype)
@@ -219,14 +231,24 @@ class EagerCell:
         return next(reversed(self.by_sig.values())) if self.by_sig else []
 
     def totals_for(self, sig) -> tuple:
-        """``((key, calls, bytes), ...)`` of ``records_for(sig)``."""
+        """``((key, calls, bytes, intra, inter, wire_inter), ...)`` of
+        ``records_for(sig)``."""
         totals = self._totals.get(sig)
         if totals is None:
             acc = {}
             for rec in self.records_for(sig):
-                calls, nbytes = acc.get(rec.key(), (0, 0))
-                acc[rec.key()] = (calls + 1, nbytes + rec.bytes)
-            totals = self._totals[sig] = tuple((k, c, b) for k, (c, b) in acc.items())
+                calls, nbytes, intra, inter, wire = acc.get(
+                    rec.key(), (0, 0, 0, 0, 0))
+                r_inter = rec.inter_bytes or 0
+                acc[rec.key()] = (
+                    calls + 1, nbytes + rec.bytes,
+                    intra + (rec.bytes if rec.intra_bytes is None
+                             else rec.intra_bytes),
+                    inter + r_inter,
+                    wire + (r_inter if rec.wire_inter_bytes is None
+                            else rec.wire_inter_bytes))
+            totals = self._totals[sig] = tuple(
+                (k,) + v for k, v in acc.items())
         return totals
 
 
@@ -277,7 +299,10 @@ def open_op(opname: str, comm, arrays) -> Optional[OpRecord]:
 
 def annotate(**fields) -> None:
     """Record what only the op body knows: the algorithm it took
-    (``algo=``).  A no-op when nothing is open."""
+    (``algo=``) and the modeled per-rank bytes by link class
+    (``link_bytes=(intra_host, inter_host)``, ``wire_bytes=`` the same
+    after the inter-host codec; ``ops/_hierarchy.py:annotate_selection``).
+    A no-op when nothing is open."""
     if not _open_ops:
         return
     rec = _open_ops[-1]
@@ -285,6 +310,13 @@ def annotate(**fields) -> None:
     if algo is not None:
         rec.algo = algo
         meter(f"algo.{rec.op}.{algo}")
+    link = fields.get("link_bytes")
+    if link is not None:
+        rec.intra_bytes, rec.inter_bytes = link
+    wire = fields.get("wire_bytes")
+    if wire is not None:
+        # the intra-host leg is never compressed
+        rec.wire_inter_bytes = wire[1]
 
 
 def close_op(rec: Optional[OpRecord]) -> None:
@@ -296,7 +328,8 @@ def close_op(rec: Optional[OpRecord]) -> None:
     if _eager_cell is not None:
         _eager_cell._pending.append(rec)
         return
-    _counters.count_op(rec.key(), rec.bytes)
+    _counters.count_op(rec.key(), rec.bytes, 1, rec.intra_bytes,
+                       rec.inter_bytes, rec.wire_inter_bytes)
     health.record_dispatch(rec)
 
 
@@ -312,8 +345,8 @@ def count_eager_call(cell: EagerCell, sig: tuple) -> None:
     JAX package's eager dispatch spills each record it counts."""
     if effective_mode() == "off":
         return
-    for key, calls, nbytes in cell.totals_for(sig):
-        _counters.count_op(key, nbytes, calls)
+    for key, calls, nbytes, intra, inter, wire in cell.totals_for(sig):
+        _counters.count_op(key, nbytes, calls, intra, inter, wire)
     health.record_dispatches(cell.records_for(sig))
 
 

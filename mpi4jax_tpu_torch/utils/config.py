@@ -124,11 +124,19 @@ and the tuning layer's and the cost model's (``autotune/``,
   pass of the ambient verifier's cross-rank pass;
 - ``MPI4JAX_TPU_RING_CROSSOVER_BYTES`` (1 MiB),
   ``MPI4JAX_TPU_DCN_CROSSOVER_BYTES`` (4 MiB) and
-  ``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (1 MiB): the JAX package's
-  algorithm crossovers, validated and carried (the tuning layer tunes
-  them, the cost model's hierarchical byte model reads the DCN one); no
-  lowering of the port reads them until ``ops/_algos.py`` is ported
-  (ROADMAP, Blocked).
+  ``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (1 MiB): the algorithm
+  crossovers the selector of ``ops/_algos.py`` reads (the tuning layer
+  tunes them); ``MPI4JAX_TPU_COMPRESS_ERROR_BUDGET`` (1e-2): the
+  round-trip error the autotuner's codec sweep accepts;
+
+and the collective algorithm layer's (``ops/_algos.py``,
+``ops/_hierarchy.py``):
+
+- ``MPI4JAX_TPU_COLLECTIVE_ALGO``: ``auto`` (default), ``butterfly``,
+  ``ring`` or ``hier``: ``auto`` picks per call from the payload bytes,
+  the group size and the host topology; the others force one lowering
+  where it is expressible (``hier``, the two-level lowering, falls back to
+  the ``auto`` rules where no plan exists).
 
 Each knob a tuning file carries resolves as default < tuning < an
 explicitly set variable, as in the JAX package: ``fusion_bucket_bytes``,
@@ -151,6 +159,7 @@ import math
 import os
 from typing import Optional, Tuple
 
+COLLECTIVE_ALGOS = ("auto", "butterfly", "ring", "hier")
 COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
 FUSION_MODES = ("off", "auto", "force")
 TELEMETRY_MODES = ("off", "counters", "events")
@@ -179,6 +188,7 @@ DEFAULT_SERVING_SLO_P99_MS = 1000.0
 DEFAULT_RING_CROSSOVER_BYTES = 1 << 20
 DEFAULT_DCN_CROSSOVER_BYTES = 4 << 20
 DEFAULT_ALLTOALL_CROSSOVER_BYTES = 1 << 20
+DEFAULT_COMPRESS_ERROR_BUDGET = 1e-2
 
 # every variable that shapes what the port runs, and the persistent tier's
 # storage-only and dispatch-only knobs (``compile_cache_dir``,
@@ -229,6 +239,8 @@ FLAG_NAMES = (
     "MPI4JAX_TPU_RING_CROSSOVER_BYTES",
     "MPI4JAX_TPU_DCN_CROSSOVER_BYTES",
     "MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES",
+    "MPI4JAX_TPU_COLLECTIVE_ALGO",
+    "MPI4JAX_TPU_COMPRESS_ERROR_BUDGET",
 )
 
 _config_epoch = 0
@@ -366,18 +378,26 @@ def overlap_chunks(payload_bytes: Optional[int] = None) -> int:
                          payload_bytes=payload_bytes)
 
 
+def collective_algo() -> str:
+    """The reduction family's algorithm (``MPI4JAX_TPU_COLLECTIVE_ALGO``):
+    ``auto`` picks per call (``ops/_algos.py:resolve_algo``);
+    ``butterfly``, ``ring`` and ``hier`` force one lowering where it is
+    expressible."""
+    return _choice("MPI4JAX_TPU_COLLECTIVE_ALGO", COLLECTIVE_ALGOS, "auto")
+
+
 def ring_crossover_bytes() -> int:
     """The ring crossover (``MPI4JAX_TPU_RING_CROSSOVER_BYTES``; 1 MiB;
-    default < tuning < env).  Carried for the tuning layer: no lowering of
-    the port reads it yet."""
+    default < tuning < env): ``auto`` takes the ring, or the hierarchy on
+    a comm of several hosts, at and above it."""
     return _env_or_tuned("MPI4JAX_TPU_RING_CROSSOVER_BYTES",
                          "ring_crossover_bytes", DEFAULT_RING_CROSSOVER_BYTES)
 
 
 def dcn_crossover_bytes() -> int:
     """The DCN-phase ring crossover (``MPI4JAX_TPU_DCN_CROSSOVER_BYTES``;
-    4 MiB; default < tuning < env), read by the cost model's hierarchical
-    byte model (``analysis/costmodel.py``)."""
+    4 MiB; default < tuning < env): the hierarchy's inter-host phase
+    takes the ring at and above it (``ops/_algos.py:resolve_dcn_algo``)."""
     return _env_or_tuned("MPI4JAX_TPU_DCN_CROSSOVER_BYTES",
                          "dcn_crossover_bytes", DEFAULT_DCN_CROSSOVER_BYTES)
 
@@ -385,11 +405,23 @@ def dcn_crossover_bytes() -> int:
 def alltoall_crossover_bytes() -> int:
     """The alltoall hierarchy crossover
     (``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES``; 1 MiB; default < tuning <
-    env).  Carried for the tuning layer: no lowering of the port reads it
-    yet."""
+    env): ``auto`` takes the hierarchical alltoall at and above it on a
+    comm of several hosts."""
     return _env_or_tuned("MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES",
                          "alltoall_crossover_bytes",
                          DEFAULT_ALLTOALL_CROSSOVER_BYTES)
+
+
+def compress_error_budget() -> float:
+    """The largest round-trip relative error the autotuner's codec sweep
+    accepts (``MPI4JAX_TPU_COMPRESS_ERROR_BUDGET``; default 1e-2)."""
+    val = parse_env_float("MPI4JAX_TPU_COMPRESS_ERROR_BUDGET",
+                          DEFAULT_COMPRESS_ERROR_BUDGET)
+    if val is None or val <= 0:
+        raise ValueError(
+            "MPI4JAX_TPU_COMPRESS_ERROR_BUDGET must be a positive "
+            f"relative error bound, got {val!r}")
+    return val
 
 
 # ---------------------------------------------------------------------------

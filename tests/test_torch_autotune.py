@@ -3,8 +3,9 @@
 
 On the CPU: the command over two gloo ranks and over this process alone
 writes a file that validates under both packages' validators, exits 1
-(the alltoall crossover and the codec stay untuned: their sweeps time
-lowerings the port does not have), and records the sweeps it skipped;
+(the alltoall crossover stays untuned on one host without a topology to
+sweep, and two ranks are below the ring's group), tunes the codec
+against the error budget, and records what one host cannot measure;
 usage errors and a failed run exit 2.  In-process, ``autotune`` installs
 its layer (``load_tuning``) and the config serves its values.  The
 top-level names are the JAX package's.  On the card (``gpu``, run with
@@ -68,8 +69,9 @@ def test_two_gloo_ranks_write_a_partial_file_both_packages_load(two_rank_run):
     jschema.validate_tuning_dict(payload)
     assert schema.stamp_of(payload) == jschema.stamp_of(payload)
     untuned = res.stderr.split("untuned knob(s): ")[1].split("\n")[0]
-    # two ranks are below the ring's group (4): its crossover stays untuned
-    assert untuned == "ring_crossover_bytes, alltoall_crossover_bytes, compress"
+    # two ranks are below the ring's group (4): its crossover stays
+    # untuned; one host without --topologies: so does the alltoall's
+    assert untuned == "ring_crossover_bytes, alltoall_crossover_bytes"
     ici = payload["links"]["ici"]
     assert ici["alpha_us"] > 0 and ici["gb_per_s"] > 0
     assert payload["links"]["dcn"]["alpha_us"] == pytest.approx(
@@ -81,8 +83,14 @@ def test_two_gloo_ranks_write_a_partial_file_both_packages_load(two_rank_run):
     assert "overlap_chunks" in tuned and "commit" in tuned
     prov = payload["provenance"]
     assert prov["platform"] == "cpu" and prov["n_devices"] == 2
-    assert set(prov["skipped"]) == {"algorithm", "hierarchy", "alltoall",
-                                    "compression"}
+    assert set(prov["skipped"]) == set(runner.SKIPPED_SWEEPS) == {
+        "dcn_links", "hierarchy_gain", "codec_time"}
+    # bf16's round-trip error fits the 1e-2 budget, fp8's does not
+    assert tuned["compress"] == [
+        {"max_bytes": tuned["dcn_crossover_bytes"], "codec": "off"},
+        {"max_bytes": None, "codec": "bf16"}]
+    assert 0 < payload["measured"]["compress_rel_err_bf16"] <= 1e-2
+    assert "compress_rel_err_fp8" not in payload["measured"]
     assert payload["source"].startswith("mpi4jax_tpu_torch.autotune (cpu, 2")
 
 

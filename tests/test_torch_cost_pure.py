@@ -301,7 +301,9 @@ def test_a_world_topology_comes_from_the_spec_alone(monkeypatch):
     comm = Comm(("i",), mesh=ProcessGrid((8,), ("i",), torch.device("cpu"),
                                          rank=0))
     monkeypatch.delenv("MPI4JAX_TPU_TOPOLOGY", raising=False)
-    assert ptopo.derive_world_topology(comm) is None  # one host: flat
+    # without the spec, the grid's host layout: one host, flat (the JAX
+    # package's topology of a one-process mesh)
+    assert ptopo.derive_world_topology(comm).num_hosts == 1
     monkeypatch.setenv("MPI4JAX_TPU_TOPOLOGY", "2x4")
     assert ptopo.derive_world_topology(comm).host_of_rank == \
         (0, 0, 0, 0, 1, 1, 1, 1)

@@ -376,8 +376,12 @@ def test_boundary_hooks_fire_in_order_and_unregister():
         tpx.register_boundary_hook("x", 3)
 
 
-def test_boundary_hook_matches_jax_registry():
+def test_boundary_hook_matches_jax_registry(monkeypatch):
     """The same registry semantics as the JAX package's, hook for hook."""
+    # a JAX test earlier on this worker may have armed the JAX health
+    # plane, whose boundary hook stays registered for the process: compare
+    # against an empty JAX registry
+    monkeypatch.setattr(JM, "_boundary_hooks", [])
     got, want = [], []
     offs = [TM.register_boundary_hook("h", lambda s, **i: got.append(s)),
             JM.register_boundary_hook("h", lambda s, **i: want.append(s))]
