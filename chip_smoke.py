@@ -185,12 +185,13 @@ read just after:
    placement over ``MPI4JAX_TPU_TOPOLOGY=2,2``: rank 2 shrunk out with
    rank 3, ranks 0 and 1 finish on (1,2); (h) ``--grow`` at (c)'s width,
    ``die:rank=3:op=allreduce:after=25``, ``commit_every="auto"``, 32
-   steps, 4 -> 3 -> 4: the replacement (launch rank 4) completes the
+   steps, the watchdog at 2 s, 4 -> 3 -> 4: the replacement (launch rank 4) completes the
    budget, the four final parameter sets are equal, the join's seconds by
    part (the poll, the admit, ``rebootstrap_grow``, the cold restore
    through one uint8 ``allreduce``), the joiner's wall from spawn to its
-   first step, and a step at world 4 with the grow flag on beside (c)'s
-   with it off.  (e), (f), (g) and (h) are each held bit for bit against a
+   first step, the first step at world 4 on the joiner and on rank 0 (the
+   joiner warms its step before it knocks, ``warm_step``), and a step at
+   world 4 with the grow flag on beside (c)'s with it off.  (e), (f), (g) and (h) are each held bit for bit against a
    clean run of the world they end in, from the forced commit, the
    restore or the admission.  (a), (c), (e) and (h) run side by side;
    then (b), (d)'s two parts, (f), (g) and the clean run of (a)
@@ -324,6 +325,22 @@ read just after:
    link split; (e) ``autotune(budget_s=20, topologies=("2x2",))``.  One
    JSON line ``{"hierarchy": ...}``; faked hosts on one card, so no
    number is a hierarchy's gain.
+20. the command line (``cli_phase``; it builds nothing): ``run`` of
+   ``models/shallow_water.py``, the JAX example's ``main``, in this
+   process with the launch counts set to 0 before each part: (a)
+   ``--benchmark`` on this card (3600x1800, 0.1 day, 441 steps, 221
+   ``sw_steps`` launches a run over its 3 runs), its final ``h`` bit for
+   bit that of phase 1's pinned run; (b) the 1-day demo at 360x180 (4331
+   steps, 436 finite snapshots), then ``python -m
+   mpi4jax_tpu_torch.models.shallow_water --save-animation --t1-days 0.1``
+   in a fresh directory, exit 0 and the skip line without matplotlib;
+   (c) a 0.1-day demo on this card against the same with ``--device
+   cpu``, every snapshot bit for bit; (d) ``--n-devices 4`` for 0.1 day,
+   four gloo ranks on this card against four on the CPU, every stacked
+   snapshot bit for bit, ``sw_wide`` launched on every card rank, and its
+   largest difference from (c)'s one-rank run printed with no limit.
+   Steps/s of each part.  Four processes share one card: no number of
+   (d) is a scaling result.  One JSON line ``{"cli": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -365,6 +382,9 @@ build the stencil sources and the host library and run phase 11 or phase
     python3 chip_smoke.py --serving
 
 run phase 13, 14 or 15 alone (nothing to build), one JSON line each.
+``--elastic N`` first times the drill's first step in a fresh process,
+cold and after ``warm_step``, then runs phase 13 N times in one process
+and exits 1 if any run failed.
 
     python3 chip_smoke.py --aot
 
@@ -384,6 +404,11 @@ one JSON line.
     python3 chip_smoke.py --hierarchy
 
 runs phase 19 alone (nothing to build), one JSON line.
+
+    python3 chip_smoke.py --cli
+
+builds ``sw_steps`` and ``sw_wide`` (two ``nvcc`` at once), runs phase 1's
+pinned main path for (a)'s reference and phase 20 alone, one JSON line.
 """
 
 import contextlib
@@ -3916,11 +3941,40 @@ def _recovery_line(label, res, ranks):
               f"{first3['seconds'] * 1e3:.1f} ms")
 
 
+def _drill_failed(label, res):
+    """The error of a failed drill: each process's exit, the first line of
+    its stderr that names an error (the cause, where a traceback chains
+    several), its last line of output and the end of its stderr.  Every
+    process's output also goes to ``drill_logs/phase13-<label>/`` beside
+    this script."""
+    import shutil
+
+    keep = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "drill_logs", "phase13-" + label.strip("()"))
+    try:
+        shutil.copytree(res["dir"], keep, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("*.npz", "rendezvous*"))
+    except OSError:
+        keep = None
+    procs = [(f"rank{r}", rc, out, err) for r, (rc, out, err) in
+             enumerate(zip(res["exit"], res["stdout"], res["stderr"]))]
+    procs += [(f"join{j}", x["exit"], x["stdout"], x["stderr"])
+              for j, x in enumerate(res.get("joiners", []))]
+    lines = []
+    for name, rc, out, err in procs:
+        cause = next((x for x in err.splitlines()
+                      if "Error" in x or "Failure" in x or "FAULT" in x), "")
+        last = (out.strip().splitlines() or [""])[-1]
+        lines.append(f"{name} exit {rc}: cause {cause[-300:]!r}; last output "
+                     f"{last[-120:]!r}; stderr ends {err[-400:]!r}")
+    return AssertionError(f"{label}: drill failed (logs in {keep}):\n  "
+                          + "\n  ".join(lines))
+
+
 def _check_drill(label, res, lost, lost_exit, steps):
     survivors = [r for r in range(4) if r != lost]
     if not res["ok"] or res["completed"] != survivors:
-        raise AssertionError(f"{label}: drill failed: exit {res['exit']}, "
-                             f"stderr {[e[-800:] for e in res['stderr']]}")
+        raise _drill_failed(label, res)
     if res["exit"][lost] != lost_exit:
         raise AssertionError(f"{label}: rank {lost} exit {res['exit'][lost]}, "
                              f"expected {lost_exit}")
@@ -3967,8 +4021,7 @@ def _hold_clean(label, res, clean, names, outs, epoch):
 
 def _drain_checks(label, res, left, stay, world, detail):
     if not res["ok"] or res["exit"] != [0, 0, 0, 0]:
-        raise AssertionError(f"{label}: drill failed: exit {res['exit']}, "
-                             f"stderr {[e[-800:] for e in res['stderr']]}")
+        raise _drill_failed(label, res)
     if res["completed"] != stay or res["drained"] != left:
         raise AssertionError(f"{label}: completed {res['completed']}, drained "
                              f"{res['drained']}")
@@ -4048,11 +4101,15 @@ def elastic_phase(dev, launch):
                              workdir=os.path.join(tdir, "e"), **wide)
         # (h) 4 -> 3 -> 4 at (c)'s width: rank 3 dies, its replacement is
         # admitted at the next commit boundary after it knocked (the
-        # survivors wait for the knock in the first step at world 3)
+        # survivors wait for the knock in the first step at world 3).  Its
+        # watchdog is 2 s: the survivors' collectives wait out a process
+        # started beside three other drills (its imports, its CUDA context,
+        # its first step), and past 1 s that wait expired every rank of the
+        # healthy world (1 run in 4 on the H100); (a), (b) and (c) keep 1 s
         grow_steps = 32
         fh_run = drills.submit(ET.launch, 4, steps=grow_steps, device="cuda:0",
                              fault_spec="die:rank=3:op=allreduce:after=25",
-                             grow=True, commit_every="auto", watchdog=1.0,
+                             grow=True, commit_every="auto", watchdog=2.0,
                              wait_for_join=90.0, expect_world=4, limit=300.0,
                              workdir=os.path.join(tdir, "h"), **wide)
         a = fa_run.result()
@@ -4139,10 +4196,7 @@ def elastic_phase(dev, launch):
         if (not h["ok"] or h["exit"][:3] != [0, 0, 0] or len(h["joiners"]) != 1
                 or h["joiners"][0]["exit"] != 0
                 or h["completed"] != [0, 1, 2, "join0"]):
-            raise AssertionError(
-                f"(h): drill failed: exit {h['exit']}, joiners "
-                f"{[(j['exit'], j['stderr'][-800:]) for j in h['joiners']]}, "
-                f"stderr {[x[-800:] for x in h['stderr']]}")
+            raise _drill_failed("(h)", h)
         joiner = h["joiners"][0]["result"]
         jname = f"j{joiner['joined']['process_id']}"
         _finite_losses("(h)", h, ["p0", "p1", "p2", jname])
@@ -4157,14 +4211,19 @@ def elastic_phase(dev, launch):
                                  f"{joiner['final_world']}")
         grow0 = h["results"][0]["grows"][0]
         spawn_to_step = joiner["losses"][0]["at"] - h["joiners"][0]["spawned_at"]
-        h4 = [x["seconds"] for x in h["results"][0]["losses"]
-              if x["world"] == 4 and x["epoch"] == 2][1:]
+        h4_all = [x["seconds"] for x in h["results"][0]["losses"]
+                  if x["world"] == 4 and x["epoch"] == 2]
+        h4 = h4_all[1:]
+        # the admission step: the replacement's first step (warmed before
+        # it knocked), which every survivor waits for in its allreduce
+        first4 = {"rank0": h4_all[0], "joiner": joiner["losses"][0]["seconds"]}
         out["h"] = {"seconds": h["seconds"], "admitted_at": grow0["step"],
                     "grows": {r: h["results"][r]["grows"][0] for r in range(3)},
                     "joined": joiner["joined"],
                     "spawn_to_first_step_s": spawn_to_step,
                     "auto_commit_every": h["results"][0]["auto_commit_every"],
                     "step_s_world4_grow_on": h4,
+                    "first_step_world4_s": first4,
                     "step_s_world4_grow_off_c": w4[1:],
                     "recovery_rank0": h["results"][0]["recoveries"][0]}
         h_bytes = h["results"][0]["last_commit"]["state_bytes"]
@@ -4180,8 +4239,10 @@ def elastic_phase(dev, launch):
               f"first step {spawn_to_step:.2f} s (knock to admit "
               f"{jj['wait_s']:.2f} s, re-bootstrap "
               f"{jj['rebootstrap_s'] * 1e3:.1f} ms, cold restore "
-              f"{jj['restore_s'] * 1e3:.1f} ms); a step at world 4 with the "
-              f"grow flag on {np.median(h4) * 1e3:.1f} ms (median of "
+              f"{jj['restore_s'] * 1e3:.1f} ms); the first step at world 4 "
+              f"{first4['joiner'] * 1e3:.1f} ms on the joiner, "
+              f"{first4['rank0'] * 1e3:.1f} ms on rank 0; a step at world 4 "
+              f"with the grow flag on {np.median(h4) * 1e3:.1f} ms (median of "
               f"{len(h4)}), (c)'s with it off {np.median(w4[1:]) * 1e3:.1f} ms")
         _part(parts, "h", t0)
 
@@ -4263,8 +4324,7 @@ def elastic_phase(dev, launch):
         _drain_checks("(f)", f, [2, 3], [0, 1], 2, "drained rank(s) [2, 3] of 4")
         if (not g["ok"] or g["exit"] != [0, 0, 3, 13] or g["completed"] != [0, 1]
                 or "shrunk out with them" not in g["results"][2]["declared"]):
-            raise AssertionError(f"(g): drill failed: exit {g['exit']}, "
-                                 f"stderr {[x[-800:] for x in g['stderr']]}")
+            raise _drill_failed("(g)", g)
         for r in (0, 1):
             og = g["results"][r]
             if (og["final_world"] != 2 or og["recoveries"][0]["failed"] != [3]
@@ -4323,9 +4383,46 @@ def elastic_phase(dev, launch):
     return out
 
 
+def first_step_probe(warm):
+    """A fresh process's first three steps of the elastic drill at (c)'s
+    width, on a world of one gloo rank on this card; ``warm``: after
+    ``elastic_training.warm_step``, as a replacement runs it before it
+    knocks.  Prints one ``FIRST_STEP`` JSON line of seconds."""
+    import tempfile
+
+    from mpi4jax_tpu_torch import Comm, make_world_mesh
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+    from mpi4jax_tpu_torch.parallel.mesh import init_distributed
+
+    dim, hidden = 1024, 8192
+    dev = init_distributed(
+        "gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "rv"),
+        world_size=1, rank=0, device="cuda:0", timeout=60)
+    torch.set_num_threads(1)
+    mesh = make_world_mesh(device=dev)
+    comm = Comm(mesh.axes, mesh=mesh)
+    state = {"params": ET.to_device(ET._init_params(dim, hidden), dev)}
+    torch.cuda.synchronize()
+    out = {"warm": warm}
+    if warm:
+        t = time.perf_counter()
+        ET.warm_step(dim, hidden, dev)
+        out["warm_step"] = time.perf_counter() - t
+    step_fn, _ = ET.make_elastic_step(1e-3, ef_state=False)
+    for i in range(3):
+        t = time.perf_counter()
+        state = step_fn(state, i, comm)
+        torch.cuda.synchronize()
+        out[f"step{i}"] = time.perf_counter() - t
+    print("FIRST_STEP " + json.dumps(out), flush=True)
+
+
 def elastic_main():
-    """``python3 chip_smoke.py --elastic``: phase 13 alone (it launches no
-    kernel, so nothing is built); one JSON line."""
+    """``python3 chip_smoke.py --elastic [N]``: phase 13 alone (it launches
+    no kernel, so nothing is built); one JSON line.  With N > 1, first the
+    drill's first step in a fresh process cold and after ``warm_step``
+    (``first_step_probe``, one process each), then phase 13 N times in this
+    process, every run's failure printed; exits 1 if any run failed."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4336,10 +4433,39 @@ def elastic_main():
     print(smi)
     from mpi4jax_tpu_torch.parallel import launch
 
-    out = elastic_phase(torch.device("cuda"), launch)
+    repeat = int(sys.argv[2]) if len(sys.argv) > 2 else 1
+    if repeat <= 1:
+        out = elastic_phase(torch.device("cuda"), launch)
+        print(smi)
+        print(json.dumps({"elastic": out}, default=str))
+        return 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    probes = []
+    for warm in (False, True):
+        p = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as CS; "
+             f"CS.first_step_probe({warm})"],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        line = [x for x in p.stdout.splitlines() if x.startswith("FIRST_STEP ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"first_step_probe({warm}): exit "
+                                 f"{p.returncode}, {p.stderr[-2000:]}")
+        probes.append(json.loads(line[0].split(" ", 1)[1]))
+        print(f"  first step of a fresh process, {'warm' if warm else 'cold'}: "
+              + json.dumps(probes[-1]), flush=True)
+    runs = []
+    for i in range(repeat):
+        try:
+            out = elastic_phase(torch.device("cuda"), launch)
+            runs.append({"ok": True, "seconds": out["seconds"],
+                         "first_step_world4_s": out["h"]["first_step_world4_s"]})
+        except Exception as exc:  # every run's verdict, then the exit code
+            runs.append({"ok": False, "error": str(exc)[:4000]})
+        print(f"phase 13 run {i + 1} of {repeat}: "
+              + json.dumps(runs[-1])[:4000], flush=True)
     print(smi)
-    print(json.dumps({"elastic": out}, default=str))
-    return 0
+    print(json.dumps({"elastic_runs": runs, "first_step": probes}, default=str))
+    return 0 if all(r["ok"] for r in runs) else 1
 
 
 # ---------------------------------------------------------------------------
@@ -6128,6 +6254,223 @@ def hierarchy_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the command line.  ``run`` of models/shallow_water.py (the JAX
+# example's ``main``) in this process: ``--benchmark`` and the 1-day demo
+# on this card, ``--save-animation`` through ``python -m``, a 0.1-day demo
+# on the card and on the CPU, and ``--n-devices 4`` as four gloo ranks on
+# the card and on the CPU.  Four processes share one card: no number of
+# (d) is a scaling result.
+# ---------------------------------------------------------------------------
+
+CLI_RANK_TIMEOUT_S = 300
+# steps a demo multistep advances, pair calls it makes
+CLI_MULTI, CLI_PAIRS = 10, 5
+
+
+def _same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def _demo_launches(n_steps):
+    """A demo's launches of its kernel: the Euler step, then the pairs of
+    the warm-up multistep and of every timed one."""
+    return 1 + CLI_PAIRS * ((n_steps - 1) // CLI_MULTI + 1)
+
+
+def _cli_run(P, argv, what):
+    """``run(argv)`` with every launch count set to 0 just before and read
+    just after; the command's own lines printed (each progress line's
+    last state), its result with the counts and the seconds."""
+    from mpi4jax_tpu_torch.kernels import _build
+
+    for c in _build.COUNTERS.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = P.run(argv, timeout=CLI_RANK_TIMEOUT_S)
+    res["seconds"] = time.perf_counter() - t0
+    res["counted"] = {k: c.launches for k, c in _build.COUNTERS.items() if c.launches}
+    res["steps_per_s"] = res["n_steps"] / res["wall"]
+    for line in buf.getvalue().split("\n"):  # not splitlines: "\r" ends progress
+        if line.strip():
+            print(f"  | {line.rstrip(chr(13)).rsplit(chr(13), 1)[-1]}")
+    print(f"phase 20 {what}: mode {res['mode']}, {res['n_steps']} steps, wall "
+          f"{res['wall']:.4f} s, {res['steps_per_s']:.2f} steps/s, launches here "
+          f"{res['counted']}, per rank {res['launches']}, {res['seconds']:.1f} s "
+          "with set-up")
+    return res
+
+
+def _cli_expect(what, got, want):
+    if got != want:
+        raise AssertionError(f"phase 20 {what}: {got!r}, expected {want!r}")
+
+
+def _cli_snapshots(what, res, count, shape):
+    snaps = res["snapshots"]
+    _cli_expect(f"{what} snapshots", len(snaps), count)
+    for i, s in enumerate(snaps):
+        if s.shape != shape or not np.isfinite(s).all():
+            raise AssertionError(f"phase 20 {what}: snapshot {i} of shape {s.shape} "
+                                 f"(expected {shape}) or not finite")
+
+
+def _cli_same(what, a, b):
+    """Every snapshot of two runs bit for bit."""
+    _cli_expect(f"{what} snapshot counts", len(a["snapshots"]), len(b["snapshots"]))
+    for i, (x, y) in enumerate(zip(a["snapshots"], b["snapshots"])):
+        if not _same_bits(x, y):
+            raise AssertionError(f"phase 20 {what}: snapshot {i} differs, max|diff| "
+                                 f"{np.abs(x - y).max():.3e}")
+
+
+def cli_save_animation():
+    """``python -m mpi4jax_tpu_torch.models.shallow_water --save-animation
+    --t1-days 0.1`` in a fresh directory: exit 0, and the skip line where
+    matplotlib is missing (the GIF where it is there)."""
+    import importlib.util
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    with tempfile.TemporaryDirectory(prefix="mpx-cli-") as tmp:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "mpi4jax_tpu_torch.models.shallow_water",
+             "--save-animation", "--t1-days", "0.1"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        lines = p.stdout.strip().splitlines()
+        if p.returncode != 0:
+            raise AssertionError(f"phase 20 (b) --save-animation exited "
+                                 f"{p.returncode}:\n{p.stdout}\n{p.stderr}")
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        want = ("wrote shallow-water.gif" if has_mpl
+                else "matplotlib not available; skipping animation")
+        _cli_expect("(b) --save-animation's last line", lines[-1], want)
+        if has_mpl and not os.path.exists(os.path.join(tmp, "shallow-water.gif")):
+            raise AssertionError("phase 20 (b): no shallow-water.gif written")
+        if not any("(441 steps, " in ln for ln in lines):
+            raise AssertionError(f"phase 20 (b) --save-animation:\n{p.stdout}")
+    print(f"phase 20 (b) python -m ... --save-animation --t1-days 0.1: exit 0, "
+          f"'{lines[-1]}', {seconds:.1f} s")
+    return {"exit": p.returncode, "last_line": lines[-1], "matplotlib": has_mpl,
+            "seconds": seconds}
+
+
+def cli_phase(P, ref_h):
+    """Phase 20; ``ref_h`` is the interior of phase 1's final ``h`` (the
+    pinned main path), on the host."""
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) --benchmark: 3600x1800, 0.1 day, solve_fused(fast="auto") eagerly
+    a = _cli_run(P, ["--benchmark"], "(a) --benchmark")
+    _cli_expect("(a) grid", (a["cfg"].ny, a["cfg"].nx, a["grid"], a["mode"]),
+                (1800, 3600, (1, 1), "pallas2"))
+    _cli_expect("(a) steps", (a["n_steps"], a["snapshots"]), (441, []))
+    runs = 3  # the warm-up and two timed runs
+    want = {"sw_steps": (1 + (a["n_steps"] - 1) // 2) * runs}
+    _cli_expect("(a) launches", (a["counted"], a["launches"]), (want, [want]))
+    h = a["final_h"]
+    if h.shape != (1, 1802, 3602) or not np.isfinite(h).all():
+        raise AssertionError(f"phase 20 (a): final h {h.shape} not finite")
+    if not _same_bits(h[0, 1:-1, 1:-1], ref_h):
+        raise AssertionError(
+            "phase 20 (a): --benchmark's final h differs from phase 1's pinned run "
+            f"by {np.abs(h[0, 1:-1, 1:-1] - ref_h).max():.3e}")
+    print("phase 20 (a): final h bit for bit with phase 1's pinned main path")
+    out["a"] = {k: a[k] for k in ("n_steps", "wall", "steps_per_s", "seconds",
+                                  "counted", "mode")}
+    del a, h
+
+    # (b) the demo's full day at 360x180, then --save-animation
+    b = _cli_run(P, [], "(b) the 1-day demo")
+    _cli_expect("(b) grid", (b["cfg"].ny, b["cfg"].nx, b["grid"], b["mode"]),
+                (180, 360, (1, 1), "pallas2"))
+    _cli_expect("(b) steps", b["n_steps"], 4331)
+    _cli_snapshots("(b)", b, 436, (1, 182, 362))
+    want = {"sw_steps": _demo_launches(b["n_steps"])}
+    _cli_expect("(b) launches", (b["counted"], b["launches"]), (want, [want]))
+    out["b"] = {k: b[k] for k in ("n_steps", "wall", "steps_per_s", "seconds",
+                                  "counted")}
+    out["b"]["snapshots"] = len(b["snapshots"])
+    del b
+    out["b"]["save_animation"] = cli_save_animation()
+
+    # (c) a 0.1-day demo on the card against the same on the CPU
+    card = _cli_run(P, ["--t1-days", "0.1"], "(c) 0.1-day demo, card")
+    cpu = _cli_run(P, ["--t1-days", "0.1", "--device", "cpu"], "(c) 0.1-day demo, CPU")
+    for what, r in (("(c) card", card), ("(c) CPU", cpu)):
+        _cli_expect(f"{what} steps", (r["n_steps"], r["mode"]), (441, "pallas2"))
+        _cli_snapshots(what, r, 47, (1, 182, 362))
+    want = {"sw_steps": _demo_launches(441)}
+    _cli_expect("(c) card launches", (card["counted"], card["launches"]), (want, [want]))
+    _cli_expect("(c) CPU launches", (cpu["counted"], cpu["launches"]), ({}, [{}]))
+    _cli_same("(c) card against CPU", card, cpu)
+    print("phase 20 (c): 47 snapshots bit for bit, card against CPU")
+    out["c"] = {w: {k: r[k] for k in ("n_steps", "wall", "steps_per_s", "seconds",
+                                       "counted")}
+                for w, r in (("card", card), ("cpu", cpu))}
+
+    # (d) --n-devices 4: four gloo ranks on the card, and on the CPU
+    argv = ["--n-devices", "4", "--t1-days", "0.1"]
+    card4 = _cli_run(P, argv, "(d) four ranks, card")
+    cpu4 = _cli_run(P, [*argv, "--device", "cpu"], "(d) four ranks, CPU")
+    for what, r in (("(d) card", card4), ("(d) CPU", cpu4)):
+        _cli_expect(f"{what} grid", (r["grid"], r["mode"], r["n_steps"]),
+                    ((2, 2), "wide2", 441))
+        _cli_snapshots(what, r, 47, (4, 92, 182))
+        _cli_expect(f"{what} launches here", r["counted"], {})
+    want = {"sw_wide": _demo_launches(441)}
+    _cli_expect("(d) card launches per rank", card4["launches"], [want] * 4)
+    _cli_expect("(d) CPU launches per rank", cpu4["launches"], [{}] * 4)
+    _cli_same("(d) four card ranks against four CPU ranks", card4, cpu4)
+    g1, g4 = card["cfg"], card4["cfg"]
+    vs_one = max(float(np.abs(P.reassemble(x, g4) - P.reassemble(y, g1)).max())
+                 for x, y in zip(card4["snapshots"], card["snapshots"]))
+    print(f"phase 20 (d): 47 stacked snapshots bit for bit, card against CPU; "
+          f"largest difference from (c)'s one-rank pallas2 run {vs_one:.3e} "
+          "(wide2 against pallas2; a report, no limit)")
+    out["d"] = {w: {k: r[k] for k in ("n_steps", "wall", "walls", "steps_per_s",
+                                       "seconds", "launches")}
+                for w, r in (("card", card4), ("cpu", cpu4))}
+    out["d"]["max_abs_diff_vs_one_rank"] = vs_one
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 20: {out['seconds']:.1f} s")
+    return out
+
+
+def cli_main():
+    """``python3 chip_smoke.py --cli``: the two stencil sources of the
+    command's path built at once, phase 1's pinned main path (the
+    reference of (a)), then phase 20; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    t0 = time.perf_counter()
+    libs = _build.build_many([K.spec(), KW.spec()])
+    print(f"built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
+    periodic = periodic_solve(P, K, torch.device("cuda"), 0.1 * P.DAY_IN_SECONDS)
+    out = cli_phase(P, periodic["final"][0].numpy())
+    print(smi)
+    print(json.dumps({"cli": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6352,6 +6695,10 @@ def main():
     hierarchy = hierarchy_phase(launch, smi)
     print(json.dumps({"hierarchy": hierarchy}, default=str))
 
+    # -- the command line: the JAX example's main, on the card and the CPU --
+    cli = cli_phase(P, single_final[0].numpy())
+    print(json.dumps({"cli": cli}, default=str))
+
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
     phase2 = phase_cases["periodic,phase2"]
@@ -6383,6 +6730,11 @@ def main():
         "runtime_launches": {m: r["launches"] for m, r in one_gpu["periodic"].items()},
         # phase 12: one unroll=20 megastep replay under profile_ops
         "health_profile_launches": health["profiles"]["megastep"]["launches"],
+        # phase 20: the command's --benchmark (3 runs), 1-day demo and
+        # 0.1-day demo on this card, each run whole
+        "cli_launches": {"benchmark": cli["a"]["counted"]["sw_steps"],
+                         "demo_1day": cli["b"]["counted"]["sw_steps"],
+                         "demo_0.1day": cli["c"]["card"]["counted"]["sw_steps"]},
     }, {
         "name": "sw_phase",
         "route": "cuda",
@@ -6448,6 +6800,8 @@ def main():
                               if n.startswith("unroll")},
         # phase 11: rank 0's wide2 solve under each interleaved tier
         "runtime_four_rank_launches_rank0": [r["wide_launches"] for r in four],
+        # phase 20 (d): the command's --n-devices 4 demo, each rank's
+        "cli_four_rank_launches": [r["sw_wide"] for r in cli["d"]["card"]["launches"]],
     }]
     for name, main_case, replaces in (
         ("flash_fwd_tf32", "f32", ":122"),
@@ -6597,5 +6951,5 @@ if __name__ == "__main__":
              "--elastic": elastic_main, "--workloads": workloads_main,
              "--serving": serving_main, "--aot": aot_main,
              "--verifier": verifier_main, "--cost": cost_main,
-             "--hierarchy": hierarchy_main}
+             "--hierarchy": hierarchy_main, "--cli": cli_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

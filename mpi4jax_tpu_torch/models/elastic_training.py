@@ -148,6 +148,34 @@ def _loss(params, x, y):
     return torch.mean((pred - y) ** 2)
 
 
+def warm_step(dim, hidden, device, per_rank=32):
+    """One forward and backward of the drill's loss on zeros of the
+    model's shapes, its gradients copied into pinned host buffers as gloo's
+    staging copies them, all outside any collective.  A replacement runs
+    it before it knocks: its first step at the grown world then costs what
+    a step costs, where it paid the CUDA libraries' first calls and the
+    first pinned allocations (0.6-1.0 s on an H100 beside three other
+    drills) while every survivor waited in that step's allreduce, under a
+    watchdog of 1 s."""
+    import torch
+
+    from ..parallel.mesh import resolve_device
+
+    device = resolve_device(device)
+    shapes = {"w1": (dim, hidden), "b1": (hidden,), "w2": (hidden, 1),
+              "b2": (1,)}
+    params = {k: torch.zeros(s, device=device, requires_grad=True)
+              for k, s in shapes.items()}
+    x = torch.zeros((per_rank, dim), device=device)
+    y = torch.zeros((per_rank, 1), device=device)
+    with torch.enable_grad():
+        grads = torch.autograd.grad(_loss(params, x, y), list(params.values()))
+    if device.type == "cuda":
+        for g in grads:
+            torch.empty(g.shape, dtype=g.dtype, pin_memory=True).copy_(g)
+        torch.cuda.synchronize(device)
+
+
 def make_elastic_step(lr=LR, store=None, *, ef_state=True):
     """``(step_fn, losses)``: ``step_fn(state, step, comm)`` for
     ``elastic.run`` and the list each step appends ``{"step", "world",
@@ -491,6 +519,7 @@ def run_joiner(args) -> int:
     store = elastic.ShardStore(None, bootstrap=_bootstrap(
         args, device=args.device))
     step_fn, losses, restored = _wrapped_step(args, store, 0)
+    warm_step(args.dim, args.hidden, args.device)
     t0 = time.perf_counter()
     state = elastic.join_and_run(step_fn, store, steps=args.steps,
                                  commit_every=_commit_every(args),

@@ -27,14 +27,26 @@ The ``fast=`` modes are the JAX package's public contract:
 
 Every entry point takes ``device=None``, meaning the GPU; without CUDA it
 raises unless given ``device="cpu"``.
+
+The JAX example's command line (``main``, ``run``):
+
+    python -m mpi4jax_tpu_torch.models.shallow_water                # 1-day demo
+    python -m mpi4jax_tpu_torch.models.shallow_water --benchmark    # 10x domain, 0.1 day
+    python -m mpi4jax_tpu_torch.models.shallow_water --save-animation
+    python -m mpi4jax_tpu_torch.models.shallow_water --n-devices 4  # 4 gloo ranks
+
+``--n-devices N`` starts N processes, one a rank, all on ``--device``
+(so on one card they share it); ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
+import sys
 import time
 import weakref
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass, replace
 from functools import partial
 from typing import NamedTuple
 
@@ -763,23 +775,29 @@ def select_step(fast, cfg: Config = None):
     return select_steps(fast, cfg)[0]
 
 
+def resolve_fast(fast, cfg: Config = None):
+    """The mode ``fast`` names: ``"auto"`` resolved for ``cfg``, any other
+    mode as it is."""
+    if fast != "auto":
+        return fast
+    if cfg is None:
+        raise ValueError(
+            "select_step('auto') needs the Config to decide kernel "
+            "eligibility — pass cfg"
+        )
+    if cfg.nproc == 1 and cfg.periodic_x:
+        return "pallas2"
+    if min(cfg.ny_local, cfg.nx_local) - 2 >= _margin_rows(2):
+        return "wide2"
+    return "pallas_halo"
+
+
 def select_steps(fast, cfg: Config = None):
     """``(single_step, chunk_step_or_None, chunk_size)`` behind ``fast``
     (``examples/shallow_water.py:select_steps``).  ``chunk_step`` advances
     ``chunk_size`` steps per call; callers use ``single_step`` for the first
     (Euler) step and for remainders."""
-    if fast == "auto":
-        if cfg is None:
-            raise ValueError(
-                "select_step('auto') needs the Config to decide kernel "
-                "eligibility — pass cfg"
-            )
-        if cfg.nproc == 1 and cfg.periodic_x:
-            fast = "pallas2"
-        elif min(cfg.ny_local, cfg.nx_local) - 2 >= _margin_rows(2):
-            fast = "wide2"
-        else:
-            fast = "pallas_halo"
+    fast = resolve_fast(fast, cfg)
     if fast == "wide2":
         return model_step_wide, model_step2_wide, 2
     if fast == "wide":
@@ -1055,3 +1073,162 @@ def pick_process_grid(n: int):
             "(the domain is decomposed over a (2, n//2) grid)."
         )
     return nproc_y, n // nproc_y
+
+
+# ---------------------------------------------------------------------------
+# the command line (examples/shallow_water.py:main)
+# ---------------------------------------------------------------------------
+
+
+def animation_frames(snapshots, cfg: Config) -> list:
+    """Each stacked-block ``h`` snapshot as the global height anomaly."""
+    return [reassemble(s, cfg) - cfg.depth for s in snapshots]
+
+
+def save_animation(snapshots, cfg: Config, path: str = "shallow-water.gif"):
+    """Write the stacked-block ``h`` snapshots as an animated GIF of the
+    height anomaly, 20 frames a second; without matplotlib, say so and
+    write nothing (``examples/shallow_water.py:save_animation``)."""
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+        from matplotlib import animation
+    except ImportError:
+        print("matplotlib not available; skipping animation")
+        return
+    fig, ax = plt.subplots(figsize=(8, 4))
+    frames = animation_frames(snapshots, cfg)
+    vmax = np.abs(frames[-1]).max()
+    im = ax.imshow(frames[0], origin="lower", cmap="RdBu_r", vmin=-vmax, vmax=vmax)
+    fig.colorbar(im, label="height anomaly [m]")
+
+    def update(i):
+        im.set_data(frames[i])
+        ax.set_title(f"step {i}")
+        return (im,)
+
+    anim = animation.FuncAnimation(fig, update, frames=len(frames), interval=50)
+    anim.save(path, writer=animation.PillowWriter(fps=20))
+    plt.close(fig)
+    print(f"wrote {path}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX example's flags, with ``--n-devices`` counting ranks (one
+    process each), and the port's ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="python -m mpi4jax_tpu_torch.models.shallow_water",
+        description=__doc__.splitlines()[0])
+    p.add_argument("--benchmark", action="store_true",
+                   help="benchmark config: 10x the demo's domain in each "
+                        "direction, 0.1 days, no snapshots")
+    p.add_argument("--t1-days", type=float, default=None,
+                   help="simulated model days (default: 1.0; benchmark: 0.1)")
+    p.add_argument("--scale", type=float, default=None,
+                   help="linear domain scale factor (benchmark default: 10)")
+    p.add_argument("--save-animation", action="store_true")
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="ranks, one gloo process each, on a (min(N, 2), "
+                        "N // min(N, 2)) grid (default: 1, in this process)")
+    p.add_argument("--device", default=None,
+                   help="cpu, or the CUDA device every rank computes on "
+                        "(default: the GPU)")
+    return p
+
+
+def cli_rank(rank: int, fields: dict, t1: float, benchmark: bool, device,
+             verbose: bool) -> dict:
+    """One rank of the command: ``solve_fused(fast="auto")`` under
+    ``benchmark``, else ``solve(fast="auto")`` with its snapshots; the
+    wall, the step count and each kernel's launches in this rank."""
+    cfg = Config(**fields)
+    before = {k: c.launches for k, c in _build.COUNTERS.items()}
+    if benchmark:
+        wall, n_steps, final = solve_fused(cfg, t1, device=device, fast="auto",
+                                           return_state=True)
+        out = {"snapshots": [], "final_h": final.h.cpu().numpy()}
+    else:
+        snapshots, wall, n_steps = solve(cfg, t1, device=device,
+                                         verbose=verbose, fast="auto")
+        out = {"snapshots": snapshots, "final_h": None}
+    out.update(wall=wall, n_steps=n_steps, launches={
+        k: c.launches - before.get(k, 0) for k, c in _build.COUNTERS.items()
+        if c.launches != before.get(k, 0)})
+    return out
+
+
+def stack_snapshots(per_rank: list) -> list:
+    """Every rank's snapshot list as the JAX package's stacked blocks
+    ``(nproc, ny_l, nx_l)``: the rank-local ones stacked over the ranks,
+    the last (the root-gathered view) as it is."""
+    snaps = [np.stack([r[i] for r in per_rank]) for i in range(len(per_rank[0]) - 1)]
+    if per_rank[0]:
+        snaps.append(np.asarray(per_rank[0][-1]))
+    return snaps
+
+
+def run(args, *, timeout: float = 3600.0) -> dict:
+    """The command (``examples/shallow_water.py:main``) on parsed ``args``
+    (or a list of its arguments): ``--n-devices N`` ranks, in this process
+    for 1, else N gloo processes on ``--device`` through
+    ``parallel/launch.py:run`` with ``timeout`` seconds.  Prints the JAX
+    example's lines and returns what they say: the config, the grid, the
+    mode ``fast="auto"`` picked, the step count, the wall (the slowest
+    rank's), the snapshots as stacked blocks (the demo), the final stacked
+    ``h`` (``--benchmark``) and each rank's kernel launches."""
+    if not isinstance(args, argparse.Namespace):
+        args = build_parser().parse_args(args)
+    n = args.n_devices or 1
+    nproc_y, nproc_x = pick_process_grid(n)
+    device = resolve_device(args.device)
+
+    scale = args.scale if args.scale is not None else (10.0 if args.benchmark else 1.0)
+    cfg = Config(nproc_y=nproc_y, nproc_x=nproc_x)
+    cfg = replace(cfg, nx=int(cfg.nx * scale), ny=int(cfg.ny * scale))
+    t1 = (args.t1_days if args.t1_days is not None
+          else (0.1 if args.benchmark else 1.0)) * DAY_IN_SECONDS
+
+    print(f"shallow water: {cfg.ny}x{cfg.nx} interior on a "
+          f"({nproc_y}, {nproc_x}) mesh of {n} {device.type.upper()} rank(s), "
+          f"dt={cfg.dt:.1f}s")
+
+    fields = asdict(cfg)
+    if n == 1:
+        per_rank = [cli_rank(0, fields, t1, args.benchmark, device, True)]
+    else:
+        # the ranks find cli_rank by its module's name, also when this file
+        # runs as __main__
+        from . import shallow_water as sw
+        from ..parallel import launch
+
+        per_rank = launch.run(sw.cli_rank, n, backend="gloo", device=args.device,
+                              timeout=timeout,
+                              args=(fields, t1, args.benchmark, args.device, False))
+    wall = max(r["wall"] for r in per_rank)
+    n_steps = per_rank[0]["n_steps"]
+    snapshots = stack_snapshots([r["snapshots"] for r in per_rank])
+    print(f"\nSolution took {wall:.2f}s "
+          f"({n_steps} steps, {n_steps / wall:.1f} steps/s)")
+
+    if args.save_animation and snapshots:
+        save_animation(snapshots, cfg)
+    return {
+        "cfg": cfg, "grid": (nproc_y, nproc_x), "mode": resolve_fast("auto", cfg),
+        "device": str(device), "n_steps": n_steps, "wall": wall,
+        "walls": [r["wall"] for r in per_rank], "snapshots": snapshots,
+        "final_h": (np.stack([r["final_h"] for r in per_rank])
+                    if args.benchmark else None),
+        "launches": [r["launches"] for r in per_rank],
+    }
+
+
+def main(argv=None) -> int:
+    """``python -m mpi4jax_tpu_torch.models.shallow_water [flags]``."""
+    run(build_parser().parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

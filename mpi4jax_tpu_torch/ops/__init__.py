@@ -3,8 +3,10 @@
 PyTorch counterpart of ``mpi4jax_tpu/ops/__init__.py``.  The throughput
 layer beside the ops: fusion (``_fusion.py``), the async start/wait pairs
 and ``overlap()`` (``_async.py``), the codecs and error feedback
-(``_codec.py``, ``_compress.py``); its hierarchical lowerings and
-algorithm selectors are not ported.
+(``_codec.py``, ``_compress.py``, with its compressed inter-host leg); and
+the collective algorithm layer: the ring, van de Geijn and pairwise
+lowerings with the selector that picks one per call (``_algos.py``) and
+the two-level host hierarchy (``_hierarchy.py``).
 """
 
 from ._base import (  # noqa: F401

@@ -32,8 +32,9 @@ and the runtime services' (``telemetry/``, ``resilience/``):
 - ``MPI4JAX_TPU_BOOTSTRAP_DEADLINE`` (300 s) and
   ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS`` (0: the deadline alone): the
   retry of ``init_distributed``'s rendezvous;
-- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): the drain notice window (part of
-  the elastic cache token; the drain itself is not ported yet);
+- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): how long a drained rank (a
+  SIGTERM, or the ``preempt`` fault verb) waits for its peers' acks of
+  its notice (part of the elastic cache token);
 
 and the elastic layer's (``resilience/elastic.py``):
 
@@ -47,8 +48,9 @@ and the elastic layer's (``resilience/elastic.py``):
   ``gossip``, the failure agreement's transport;
 - ``MPI4JAX_TPU_ELASTIC_PORT_SPAN``: the per-epoch port window, 64 by
   default, at least 1;
-- ``MPI4JAX_TPU_ELASTIC_GROW``: admit replacement ranks (off by default;
-  the grow half is not ported, and ``elastic.run`` raises when it is on);
+- ``MPI4JAX_TPU_ELASTIC_GROW``: admit replacement ranks at a commit
+  boundary (off by default; ``elastic.join_and_run`` is the joiner's
+  side);
 
 and the health plane's (``telemetry/health.py``):
 

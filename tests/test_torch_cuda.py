@@ -1059,3 +1059,24 @@ def test_meta_routes_launch_nothing_on_the_card():
                   ranks="all")
     assert not rep.errors and rep.events
     assert _build.launch_totals() == before
+
+
+@pytest.mark.gpu
+def test_command_benchmark_on_the_card(capsys):
+    """``python -m mpi4jax_tpu_torch.models.shallow_water --benchmark
+    --scale 1 --t1-days 0.01`` on the card: 360x180, 51 steps through
+    ``sw_steps`` (26 launches a run: the Euler call and 25 pairs; a
+    warm-up and two timed runs), its final ``h`` bit for bit the same
+    command's on the CPU (the kernel is built without FMA contraction)."""
+    need_cuda()
+    argv = ["--benchmark", "--scale", "1", "--t1-days", "0.01"]
+    before = K.counter.launches
+    got = P.run(argv)
+    launches = K.counter.launches - before
+    assert got["device"].startswith("cuda") and got["mode"] == "pallas2"
+    assert got["n_steps"] == 51 and got["snapshots"] == []
+    assert launches == 26 * 3 == got["launches"][0]["sw_steps"]
+    assert np.isfinite(got["final_h"]).all()
+    want = P.run([*argv, "--device", "cpu"])
+    np.testing.assert_array_equal(got["final_h"], want["final_h"])
+    assert "(51 steps, " in capsys.readouterr().out

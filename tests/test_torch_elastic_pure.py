@@ -612,3 +612,46 @@ def test_free_port_base_windows_of_one_process_are_disjoint(monkeypatch, worker)
         assert lo <= min(w) and max(w) < hi
         for other in windows[i + 1:]:
             assert not w & other
+
+
+def test_warm_step_touches_no_state_and_needs_a_device(monkeypatch):
+    """The replacement's warm-up before it knocks: one forward and backward
+    on zeros of the drill's shapes, which leaves torch's generator and grad
+    mode as they were, and raises without a card unless the caller asks for
+    the CPU, as the port's entry points do."""
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    rng = torch.get_rng_state()
+    with torch.no_grad():
+        ET.warm_step(16, 32, "cpu")
+        assert not torch.is_grad_enabled()
+    assert torch.equal(torch.get_rng_state(), rng)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ET.warm_step(16, 32, None)
+
+
+def test_the_replacement_warms_its_step_before_it_knocks(monkeypatch, tmp_path):
+    """``run_joiner`` runs ``warm_step`` at the drill's width before
+    ``join_and_run`` knocks, so the survivors never wait, under the
+    watchdog, in the allreduce of a replacement's cold first step."""
+    from mpi4jax_tpu_torch.models import elastic_training as ET
+
+    calls = []
+    monkeypatch.setattr(ET, "warm_step",
+                        lambda dim, hidden, device: calls.append(
+                            ("warm", dim, hidden, device)))
+
+    def join_and_run(step_fn, store, **kw):
+        calls.append(("join",))
+        raise RuntimeError("stop after the knock")
+
+    monkeypatch.setattr(el, "join_and_run", join_and_run)
+    args = ET._parse_args(
+        ["--join", "--device", "cpu", "--dim", "24", "--hidden", "40",
+         "--port-base", "20000", "--watchdog", "0",
+         "--rendezvous", "file://" + str(tmp_path / "rv")])
+    ET._timeouts(args)
+    with pytest.raises(RuntimeError, match="stop after the knock"):
+        ET.run_joiner(args)
+    assert calls == [("warm", 24, 40, "cpu"), ("join",)]

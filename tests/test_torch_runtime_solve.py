@@ -28,6 +28,7 @@ wide-halo run and the split-phase one.  The contract:
 
 import os
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -56,6 +57,13 @@ pytest_plugins = ["leaked_env_guard"]
 
 SIZES = [1, 4]
 SENDRECV_A_STEP = {1: 10, 4: 20}
+# the four-rank world's own limit, for the shared RANK_TIMEOUT_S (50 s).
+# It runs 15.5 s alone; under the tier-1 command (6 xdist workers on 8
+# cores beside other rank worlds, load average 25) it took 49.0 s: 11.0 s
+# to start its ranks, 5.2 s of wide2 runs and 32.4 s of split-phase runs,
+# whose 4680 blocking sendrecv calls a rank each wait ~7 ms for a peer to
+# be scheduled (2.3 s of CPU against 10.7 s of wall a tier)
+SOLVE_WORLD_TIMEOUT_S = 150.0
 
 
 @pytest.fixture(scope="module")
@@ -78,14 +86,17 @@ def _summarise(per_rank, tdir):
 
 
 def port_run(results, size, tmp_path_factory):
-    tdir = str(tmp_path_factory.getbasetemp().parent / f"runtime-solve-{size}")
-
     def compute():
+        # a fresh journal directory for each attempt: a rerun after a failed
+        # one (RunResults keeps no failure) never merges the failed world's
+        # journals with its own
+        tdir = tempfile.mkdtemp(prefix=f"runtime-solve-{size}-",
+                                dir=tmp_path_factory.getbasetemp().parent)
         if size == 1:
             per_rank = [launch.to_numpy(R.solve_program(0, 1, tdir))]
         else:
             per_rank = launch.run(R.solve_program, size, device="cpu",
-                                  timeout=R0.RANK_TIMEOUT_S, args=(size, tdir))
+                                  timeout=SOLVE_WORLD_TIMEOUT_S, args=(size, tdir))
         return _summarise(per_rank, tdir)
 
     return results.get(f"port-{size}", compute)

@@ -316,6 +316,9 @@ _ENTRY_POINTS = {
     "solve": lambda dev: P.solve(_CFG, _CFG.dt, device=dev),
     "solve_fused": lambda dev: P.solve_fused(_CFG, _CFG.dt, device=dev),
     "entry": lambda dev: tentry.entry(device=dev),
+    # the command line: 18x9, the initial state and the Euler step
+    "main": lambda dev: P.main(["--scale", "0.05", "--t1-days", "0.0002",
+                                *(["--device", dev] if dev else [])]),
     "state_from_jax": lambda dev: convert.state_from_jax(
         [np.zeros((1, 10, 10), np.float32)] * 6, _CFG, device=dev),
 }
