@@ -30,7 +30,11 @@ read just after:
    for bit;
 4. four ranks on a (2,2) grid (gloo, all four processes on this one card,
    exchanges staged through host memory): the 0.1-day solve through
-   ``sw_wide``, and 20 steps of the split-phase path through ``sw_phase``.
+   ``sw_wide``, then the same with ``pinned=True`` (on several ranks the
+   pin is its body run eagerly: 221 ``sw_wide`` launches a run, the final
+   state bit for bit with the unpinned run's) and unpinned once more, the
+   pinned steps/s beside the two unpinned runs', and 20 steps of the
+   split-phase path through ``sw_phase``.
    Four processes share one card, so these times are not a scaling result.
 5. long-context attention at the width the JAX package measured its flash
    kernel at (B=4, T=4096, H=8, D=128, f32): the forward kernels against
@@ -189,16 +193,18 @@ read just after:
    budget, the four final parameter sets are equal, the join's seconds by
    part (the poll, the admit, ``rebootstrap_grow``, the cold restore
    through one uint8 ``allreduce``), the joiner's wall from spawn to its
-   first step, the first step at world 4 on the joiner and on rank 0 (the
-   joiner warms its step before it knocks, ``warm_step``), and a step at
-   world 4 with the grow flag on beside (c)'s with it off.  (e), (f), (g) and (h) are each held bit for bit against a
-   clean run of the world they end in, from the forced commit, the
-   restore or the admission.  (a), (c), (e) and (h) run side by side;
-   then (b), (d)'s two parts, (f), (g) and the clean run of (a)
-   side by side; then the clean runs of (e), (h), (f) and (g); each
-   part's seconds are printed as it ends.  (c), (e) and (h) step at lr 1e-3 (the example's
-   0.05 diverges at that width) and their losses must be finite.  One
-   JSON line ``{"elastic": ...}``.
+   first step, the first step at world 4 on the joiner and on rank 0
+   against the 2 s watchdog (the joiner warms its step before it knocks,
+   ``warm_step``), and a step at world 4 with the grow flag on beside
+   (c)'s with it off.  (e), (f), (g) and (h) are each held bit for bit
+   against a clean run of the world they end in, from the forced commit,
+   the restore or the admission.  (a), (c), (e) and (h) run side by side;
+   then (b), (d)'s two parts, (f), (g) and the clean runs of (a) and (e)
+   (one world of 3, one run after the other) and of (h) side by side, the
+   clean runs of (f) and (g) (one world of 2) starting as both drills
+   end; each part's seconds, and when each launch ended, are printed.  (c), (e) and
+   (h) step at lr 1e-3 (the example's 0.05 diverges at that width) and
+   their losses must be finite.  One JSON line ``{"elastic": ...}``.
 
 14. the parallel workloads on four gloo ranks on this card
    (``workloads_phase``; no kernel of the table: the products are cuBLAS
@@ -336,7 +342,8 @@ read just after:
    in a fresh directory, exit 0 and the skip line without matplotlib;
    (c) a 0.1-day demo on this card against the same with ``--device
    cpu``, every snapshot bit for bit; (d) ``--n-devices 4`` for 0.1 day,
-   four gloo ranks on this card against four on the CPU, every stacked
+   four gloo ranks on this card against four on the CPU started beside
+   them, every stacked
    snapshot bit for bit, ``sw_wide`` launched on every card rank, and its
    largest difference from (c)'s one-rank run printed with no limit.
    Steps/s of each part.  Four processes share one card: no number of
@@ -1339,8 +1346,9 @@ def print_stencil_ptxas(_build):
 def shared_card_rank(rank, t1, device, nx, ny):
     """One of four ranks on a (2,2) grid of an ``nx`` x ``ny`` domain, all on
     ``device``: the solve to ``t1`` through "auto" (the wide-halo pair
-    kernel), then 20 steps of the split-phase path against 20 of
-    model_step_fast on the same ranks."""
+    kernel), unpinned, ``pinned=True`` and unpinned again (its wall only),
+    then 20 steps of the split-phase path against 20 of model_step_fast
+    on the same ranks."""
     from mpi4jax_tpu_torch.kernels import sw_phase as KP
     from mpi4jax_tpu_torch.kernels import sw_wide as KW
     from mpi4jax_tpu_torch.models import shallow_water as P
@@ -1364,7 +1372,24 @@ def shared_card_rank(rank, t1, device, nx, ny):
         "exchange_calls": _staging.stats.calls,
         "exchange_s": info["exchange_s"], "final": tuple(final),
     }
-    del final
+
+    # the same solve pinned: on several ranks the pin is its body run
+    # eagerly at every call, bit for bit with the unpinned run
+    pinfo = {}
+    KW.counter.launches = 0
+    pwall, _, pfinal = P.solve_fused(cfg, t1, device=dev, fast="auto", pinned=True,
+                                     return_state=True, info=pinfo)
+    out["pinned"] = {
+        "wall": pwall, "runs": pinfo["runs"], "graph": pinfo["pinned"],
+        "eager_reason": pinfo.get("eager_reason"),
+        "wide_launches": KW.counter.launches,
+        "exchange_s": pinfo["exchange_s"],
+        "bit_for_bit": all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(final, pfinal))}
+    del final, pfinal
+    # the unpinned solve once more, so that the pinned one is timed between
+    # two of them
+    out["wall_after"], _ = P.solve_fused(cfg, t1, device=dev, fast="auto")
 
     _, comm = P.make_mesh_and_comm(cfg, device=dev)
     s = P.initial_state(cfg, rank=rank, device=dev)
@@ -1378,6 +1403,23 @@ def shared_card_rank(rank, t1, device, nx, ny):
     out["halo_band"] = min(band(a) for a in fast)
     out["halo_finite"] = all(bool(torch.isfinite(b).all()) for b in halo)
     return out
+
+
+def check_four_rank_pinned(r, res):
+    """Rank ``r``'s ``pinned=True`` solve of ``shared_card_rank``: eager
+    (no graph holds host-staged exchanges), 221 ``sw_wide`` launches a
+    run, its final state the unpinned run's bit for bit."""
+    pin = res["pinned"]
+    if pin["graph"] or pin["eager_reason"] != "4 ranks":
+        raise AssertionError(f"rank {r}: pinned solve graph={pin['graph']}, "
+                             f"eager_reason={pin['eager_reason']!r}")
+    if pin["wide_launches"] != 221 * pin["runs"]:
+        raise AssertionError(f"rank {r}: pinned solve launched sw_wide "
+                             f"{pin['wide_launches']} times, expected 221 x "
+                             f"{pin['runs']}")
+    if not pin["bit_for_bit"]:
+        raise AssertionError(f"rank {r}: the pinned solve's final state differs "
+                             "from the unpinned run's")
 
 
 def print_flash_ptxas(log):
@@ -3807,6 +3849,13 @@ def elastic_clean_rank(rank, device, params, start, steps, rdv, port_base,
             "params": ET.to_numpy(state["params"])}
 
 
+def elastic_clean_ranks(rank, runs):
+    """Several of phase 13's clean runs of one world size, one after
+    another in one world (``runs``: each run's ``elastic_clean_rank``
+    arguments after the rank), so that their processes start once."""
+    return [elastic_clean_rank(rank, *args) for args in runs]
+
+
 class _Calls:
     """An ``ElasticStep`` recording each call's step and epoch, and the pin
     counters' moves over its calls (a revoke resets them in between)."""
@@ -4057,6 +4106,11 @@ def _finite_losses(label, res, names):
             raise AssertionError(f"{label}: {name}'s losses are not finite")
 
 
+def _track_end(ends, label, fut, t0):
+    """Record in ``ends[label]`` the seconds from ``t0`` to ``fut``'s end."""
+    fut.add_done_callback(lambda _: ends.setdefault(label, time.perf_counter() - t0))
+
+
 def _part(parts, name, t0, phase=13):
     parts[name] = time.perf_counter() - t0 - sum(parts.values())
     print(f"  phase {phase} part {name}: {parts[name]:.1f} s", flush=True)
@@ -4106,12 +4160,16 @@ def elastic_phase(dev, launch):
         # started beside three other drills (its imports, its CUDA context,
         # its first step), and past 1 s that wait expired every rank of the
         # healthy world (1 run in 4 on the H100); (a), (b) and (c) keep 1 s
-        grow_steps = 32
+        grow_steps, grow_watchdog = 32, 2.0
         fh_run = drills.submit(ET.launch, 4, steps=grow_steps, device="cuda:0",
                              fault_spec="die:rank=3:op=allreduce:after=25",
-                             grow=True, commit_every="auto", watchdog=2.0,
+                             grow=True, commit_every="auto", watchdog=grow_watchdog,
                              wait_for_join=90.0, expect_world=4, limit=300.0,
                              workdir=os.path.join(tdir, "h"), **wide)
+        ends = {}  # seconds from the phase's start to each launch's end
+        for label, fut in (("a", fa_run), ("c", fc_run), ("e", fe_run),
+                           ("h", fh_run)):
+            _track_end(ends, label, fut, t0)
         a = fa_run.result()
         survivors = _check_drill("(a)", a, 3, 13, steps)
         _recovery_line("(a)", a, survivors)
@@ -4224,6 +4282,7 @@ def elastic_phase(dev, launch):
                     "auto_commit_every": h["results"][0]["auto_commit_every"],
                     "step_s_world4_grow_on": h4,
                     "first_step_world4_s": first4,
+                    "watchdog_s": grow_watchdog,
                     "step_s_world4_grow_off_c": w4[1:],
                     "recovery_rank0": h["results"][0]["recoveries"][0]}
         h_bytes = h["results"][0]["last_commit"]["state_bytes"]
@@ -4241,22 +4300,44 @@ def elastic_phase(dev, launch):
               f"{jj['rebootstrap_s'] * 1e3:.1f} ms, cold restore "
               f"{jj['restore_s'] * 1e3:.1f} ms); the first step at world 4 "
               f"{first4['joiner'] * 1e3:.1f} ms on the joiner, "
-              f"{first4['rank0'] * 1e3:.1f} ms on rank 0; a step at world 4 "
+              f"{first4['rank0'] * 1e3:.1f} ms on rank 0, against the "
+              f"{grow_watchdog:.0f} s watchdog; a step at world 4 "
               f"with the grow flag on {np.median(h4) * 1e3:.1f} ms (median of "
               f"{len(h4)}), (c)'s with it off {np.median(w4[1:]) * 1e3:.1f} ms")
         _part(parts, "h", t0)
 
+        def clean_args(label, res, epoch, n, size, grid, ef_state, lr):
+            """The first step of ``res``'s ``epoch`` and the arguments of the
+            clean run of the world ``res`` ends in, from that step."""
+            return _clean_args(res, "p0", epoch, n,
+                               "file://" + os.path.join(tdir, f"clean-{label}"),
+                               ET.free_port_base(size), grid, ef_state, lr)
+
+        def clean_world(size, specs):
+            """The clean runs of ``specs`` (``(start, args)`` each) one after
+            another in one world of ``size`` ranks: ``(start, every rank's
+            result)`` a run."""
+            per_rank = launch.run(elastic_clean_ranks, size, backend="gloo",
+                                  device="cuda:0", timeout=300,
+                                  args=([args for _, args in specs],))
+            return [(start, [r[i] for r in per_rank])
+                    for i, (start, _) in enumerate(specs)]
+
         # side by side (counts, verdicts and bits, not times): (b) the hang
         # drill, both parts of (d), (f) a row drain and (g) a row shrink by a
-        # failure on (2,2), and the clean run (a) is held against
+        # failure on (2,2), and the clean runs (a) and (e) (one world of 3)
+        # and (h) are held against; those of (f) and (g) (one world of 2)
+        # start as both drills have ended
         row = {"MPI4JAX_TPU_TELEMETRY": "counters",
                "MPI4JAX_TPU_ELASTIC_FAIL_UNIT": "row"}
-        pool = ThreadPoolExecutor(6)
-        fa = pool.submit(launch.run, elastic_clean_rank, 3, backend="gloo",
-                         device="cuda:0", timeout=300,
-                         args=("cuda:0", restored, restored_step, steps,
-                               "file://" + os.path.join(tdir, "clean"),
-                               ET.free_port_base(3)))
+        pool = ThreadPoolExecutor(8)
+        fae = pool.submit(clean_world, 3, [
+            (restored_step, ("cuda:0", restored, restored_step, steps,
+                             "file://" + os.path.join(tdir, "clean"),
+                             ET.free_port_base(3))),
+            clean_args("e", e, 1, steps, 3, None, False, wide["lr"])])
+        fch = pool.submit(clean_world, 4, [
+            clean_args("h", h, 2, grow_steps, 4, None, False, wide["lr"])])
         fb = pool.submit(ET.launch, 4, steps=steps, device="cuda:0",
                          fault_spec=hang, watchdog=1.0, limit=120.0,
                          workdir=os.path.join(tdir, "b"))
@@ -4280,8 +4361,15 @@ def elastic_phase(dev, launch):
                                   MPI4JAX_TPU_TOPOLOGY="2,2"),
                          expect_world=2, limit=120.0,
                          workdir=os.path.join(tdir, "g"))
+        ffg = pool.submit(lambda: clean_world(2, [
+            clean_args("f", ff.result(), 1, steps, 2, (1, 2), True, ET.LR),
+            clean_args("g", fg.result(), 1, steps, 2, (1, 2), True, ET.LR)]))
+        for label, fut in (("clean_ae", fae), ("clean_h", fch), ("b", fb),
+                           ("d", fd), ("d_one", f1), ("f", ff), ("g", fg),
+                           ("clean_fg", ffg)):
+            _track_end(ends, label, fut, t0)
         pool.shutdown(wait=True)
-        clean = fa.result()
+        clean = fae.result()[0][1]
         after = [(x["step"], x["world"], x["loss"])
                  for x in a["results"][0]["losses"] if x["epoch"] == 1]
         finals = [_final_params(a, r) for r in survivors]
@@ -4335,32 +4423,16 @@ def elastic_phase(dev, launch):
                     "drain_step": f["results"][0]["drains"][-1]["step"]}
         out["g"] = {"seconds": g["seconds"], "exit": g["exit"],
                     "recovery_rank0": g["results"][0]["recoveries"][0]}
-        _part(parts, "side_by_side", t0)
 
-        # the clean runs (e), (h) and the (1,2) runs (f) and (g) are held
-        # against, side by side once the drills have ended
-        pool = ThreadPoolExecutor(4)
-        runs = {}
-        for label, res, epoch, n, size, grid, ef, lr in (
-                ("e", e, 1, steps, 3, None, False, wide["lr"]),
-                ("h", h, 2, grow_steps, 4, None, False, wide["lr"]),
-                ("f", f, 1, steps, 2, (1, 2), True, ET.LR),
-                ("g", g, 1, steps, 2, (1, 2), True, ET.LR)):
-            start, args = _clean_args(
-                res, "p0", epoch, n,
-                "file://" + os.path.join(tdir, f"clean-{label}"),
-                ET.free_port_base(size), grid, ef, lr)
-            runs[label] = (start, pool.submit(
-                launch.run, elastic_clean_rank, size, backend="gloo",
-                device="cuda:0", timeout=300, args=args))
-        pool.shutdown(wait=True)
-        _hold_clean("(e)", e, runs["e"][1].result(), ["p0", "p1", "p2"],
+        runs = {"e": fae.result()[1], "h": fch.result()[0]}
+        runs["f"], runs["g"] = ffg.result()
+        _hold_clean("(e)", e, runs["e"][1], ["p0", "p1", "p2"],
                     [e["results"][r] for r in range(3)], 1)
-        _hold_clean("(h)", h, runs["h"][1].result(), ["p0", "p1", "p2", jname],
+        _hold_clean("(h)", h, runs["h"][1], ["p0", "p1", "p2", jname],
                     [h["results"][r] for r in range(3)] + [joiner], 2)
-        _hold_clean("(f)", f, runs["f"][1].result(), ["p0", "p1"],
+        _hold_clean("(f)", f, runs["f"][1], ["p0", "p1"],
                     [f["results"][r] for r in (0, 1)], 1)
-        _hold_clean("(g)", g, runs["g"][1].result(), ["p0", "p1"],
+        _hold_clean("(g)", g, runs["g"][1], ["p0", "p1"],
                     [g["results"][r] for r in (0, 1)], 1)
         print(f"  (e) the survivors from the forced commit at step "
               f"{runs['e'][0]}, (h) all four from the admission at step "
@@ -4369,7 +4441,7 @@ def elastic_phase(dev, launch):
               f"0, 1 from the restore at {runs['g'][0]} on (1,2) with rank 2 "
               "shrunk out with rank 3: each bit for bit a clean run of that "
               "world")
-        _part(parts, "clean_runs", t0)
+        _part(parts, "side_by_side", t0)
 
     # (d) one rank: a graph pin, stale across advance_epoch(), re-pinned
     out["d"] = {"four_ranks": d4[0], "one_rank": f1.result()[0]}
@@ -4378,8 +4450,12 @@ def elastic_phase(dev, launch):
           "eager iterations")
     out["seconds"] = time.perf_counter() - t0
     out["part_seconds"] = parts
+    out["ends_s"] = ends
     print(f"phase 13 (elastic): {out['seconds']:.1f} s; by part "
-          + json.dumps({k: round(v, 1) for k, v in parts.items()}))
+          + json.dumps({k: round(v, 1) for k, v in parts.items()})
+          + "; each launch ended at (s) "
+          + json.dumps({k: round(v, 1) for k, v in sorted(ends.items(),
+                                                         key=lambda kv: kv[1])}))
     return out
 
 
@@ -4458,7 +4534,10 @@ def elastic_main():
         try:
             out = elastic_phase(torch.device("cuda"), launch)
             runs.append({"ok": True, "seconds": out["seconds"],
-                         "first_step_world4_s": out["h"]["first_step_world4_s"]})
+                         "part_seconds": out["part_seconds"],
+                         "ends_s": out["ends_s"],
+                         "first_step_world4_s": out["h"]["first_step_world4_s"],
+                         "watchdog_s": out["h"]["watchdog_s"]})
         except Exception as exc:  # every run's verdict, then the exit code
             runs.append({"ok": False, "error": str(exc)[:4000]})
         print(f"phase 13 run {i + 1} of {repeat}: "
@@ -6279,29 +6358,45 @@ def _demo_launches(n_steps):
     return 1 + CLI_PAIRS * ((n_steps - 1) // CLI_MULTI + 1)
 
 
-def _cli_run(P, argv, what):
-    """``run(argv)`` with every launch count set to 0 just before and read
-    just after; the command's own lines printed (each progress line's
-    last state), its result with the counts and the seconds."""
+def _cli_runs(P, runs):
+    """``run(argv)`` for each ``(argv, what)`` of ``runs``, all at once (one
+    thread each beside the first, which runs in this thread), with every
+    launch count set to 0 just before and read just after (what launched
+    here, for all of them); the commands' lines printed (each progress
+    line's last state), each result with the counts and its seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from mpi4jax_tpu_torch.kernels import _build
+
+    def timed(argv):
+        t0 = time.perf_counter()
+        res = P.run(argv, timeout=CLI_RANK_TIMEOUT_S)
+        res["seconds"] = time.perf_counter() - t0
+        return res
 
     for c in _build.COUNTERS.values():
         c.launches = 0
     buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        res = P.run(argv, timeout=CLI_RANK_TIMEOUT_S)
-    res["seconds"] = time.perf_counter() - t0
-    res["counted"] = {k: c.launches for k, c in _build.COUNTERS.items() if c.launches}
-    res["steps_per_s"] = res["n_steps"] / res["wall"]
+    with contextlib.redirect_stdout(buf), ThreadPoolExecutor(len(runs)) as pool:
+        rest = [pool.submit(timed, argv) for argv, _ in runs[1:]]
+        results = [timed(runs[0][0])] + [f.result() for f in rest]
+    counted = {k: c.launches for k, c in _build.COUNTERS.items() if c.launches}
     for line in buf.getvalue().split("\n"):  # not splitlines: "\r" ends progress
         if line.strip():
             print(f"  | {line.rstrip(chr(13)).rsplit(chr(13), 1)[-1]}")
-    print(f"phase 20 {what}: mode {res['mode']}, {res['n_steps']} steps, wall "
-          f"{res['wall']:.4f} s, {res['steps_per_s']:.2f} steps/s, launches here "
-          f"{res['counted']}, per rank {res['launches']}, {res['seconds']:.1f} s "
-          "with set-up")
-    return res
+    for res, (_, what) in zip(results, runs):
+        res["counted"] = counted
+        res["steps_per_s"] = res["n_steps"] / res["wall"]
+        print(f"phase 20 {what}: mode {res['mode']}, {res['n_steps']} steps, wall "
+              f"{res['wall']:.4f} s, {res['steps_per_s']:.2f} steps/s, launches "
+              f"here {res['counted']}, per rank {res['launches']}, "
+              f"{res['seconds']:.1f} s with set-up")
+    return results
+
+
+def _cli_run(P, argv, what):
+    """One command of ``_cli_runs``."""
+    return _cli_runs(P, [(argv, what)])[0]
 
 
 def _cli_expect(what, got, want):
@@ -6416,10 +6511,11 @@ def cli_phase(P, ref_h):
                                        "counted")}
                 for w, r in (("card", card), ("cpu", cpu))}
 
-    # (d) --n-devices 4: four gloo ranks on the card, and on the CPU
+    # (d) --n-devices 4: four gloo ranks on the card, and four on the CPU
+    # beside them (their ranks are processes of their own)
     argv = ["--n-devices", "4", "--t1-days", "0.1"]
-    card4 = _cli_run(P, argv, "(d) four ranks, card")
-    cpu4 = _cli_run(P, [*argv, "--device", "cpu"], "(d) four ranks, CPU")
+    card4, cpu4 = _cli_runs(P, [(argv, "(d) four ranks, card"),
+                                ([*argv, "--device", "cpu"], "(d) four ranks, CPU")])
     for what, r in (("(d) card", card4), ("(d) CPU", cpu4)):
         _cli_expect(f"{what} grid", (r["grid"], r["mode"], r["n_steps"]),
                     ((2, 2), "wide2", 441))
@@ -6567,7 +6663,15 @@ def main():
               f"{res['halo_err']:.3e} (band {res['halo_band']:.3e}); timed "
               f"solve {res['exchange_s']:.4f} s of {res['wall']:.4f} s inside "
               "exchanges")
+        check_four_rank_pinned(r, res)
     runs = r0["runs"]
+    pin0 = r0["pinned"]
+    print(f"  pinned=True on four ranks (the pin eager, {pin0['eager_reason']}): "
+          f"{r0['n_steps'] / pin0['wall']:.2f} steps/s, timed between the "
+          f"unpinned runs' {r0['n_steps'] / r0['wall']:.2f} and "
+          f"{r0['n_steps'] / r0['wall_after']:.2f} (rank 0's walls; "
+          f"{pin0['exchange_s']:.4f} s of {pin0['wall']:.4f} s inside exchanges), "
+          "every rank's final state bit for bit with the unpinned run's")
     print(f"four processes share one card (gloo, exchanges staged through host "
           f"memory; not a scaling result): {r0['n_steps']} steps, wall "
           f"{r0['wall']:.4f} s, {r0['n_steps'] / r0['wall']:.2f} steps/s; rank 0 "
@@ -6791,6 +6895,8 @@ def main():
         "geometry": {k: g for k, g in geo.items() if k.startswith("sw_wide")},
         "walled_solve_steps_per_s": walled["steps_per_s"],
         "four_rank_launches_rank0": r0["wide_launches"],
+        # phase 4: the same solve pinned=True (the pin eager on four ranks)
+        "four_rank_pinned_launches_rank0": r0["pinned"]["wide_launches"],
         # phase 8: the dry run's wide-halo shallow water (see sw_phase)
         "dryrun_launches": dry_kernels["sw_wide"]["launches"],
         "dryrun_max_abs_err": dry_kernels["sw_wide"]["max_abs_err"],

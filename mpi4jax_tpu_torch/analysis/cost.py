@@ -34,7 +34,7 @@ from .checkers import ALGO_OPS, ENUM_REDUCTIONS, FUSABLE_OPS
 from .costmodel import CostModel, OpCost, collective_cost, p2p_cost
 from .matcher import MatchedProgram, inst_key
 from .progress import _Simulation
-from .report import Finding
+from .report import CALIBRATE_COMMAND, PIPELINE_EXAMPLE, Finding
 from .schedule import SchedOp
 
 # codes this module owns in the checker-coverage sense
@@ -695,7 +695,7 @@ def _check_mispick(sim: _TimedSimulation,
                      + _model_provenance(sim.model)),
             suggestion=(f"force MPI4JAX_TPU_COLLECTIVE_ALGO={best} for "
                         "an A/B run, or recalibrate the crossover flags "
-                        "with benchmarks/micro.py --cost-calibrate"),
+                        f"with {CALIBRATE_COMMAND}"),
         ))
     return findings
 
@@ -798,7 +798,7 @@ def _check_p2p_chain(sim: _TimedSimulation, path: List[_Node],
                         f"schedule prices at {f1b_us:.1f} us/round vs "
                         f"{ladder_us:.1f} us serialized, so stage i+1's "
                         "transfer overlaps stage i's compute — see "
-                        "examples/pipeline_parallel.py and "
+                        f"{PIPELINE_EXAMPLE} and "
                         "docs/pipeline.md"),
         ))
 

@@ -23,6 +23,12 @@ from typing import Dict, Optional, Tuple
 ERROR = "error"
 ADVISORY = "advisory"
 
+# where a finding sends the user: the port's own command and twin, in place
+# of the JAX package's ``benchmarks/micro.py --cost-calibrate`` and
+# ``examples/pipeline_parallel.py`` (the only texts that differ from it)
+CALIBRATE_COMMAND = "python -m mpi4jax_tpu_torch.autotune"
+PIPELINE_EXAMPLE = "mpi4jax_tpu_torch/models/pipeline_parallel.py"
+
 
 @dataclass(frozen=True)
 class CodeInfo:
@@ -34,8 +40,8 @@ class CodeInfo:
     doc: str
 
 
-# The checker catalog: the JAX package's, entry by entry (the port's tests
-# hold the two equal).
+# The checker catalog: the JAX package's, entry by entry, but for the two
+# names above (the port's tests hold the two equal).
 CODES = {
     c.code: c
     for c in (
@@ -261,7 +267,7 @@ CODES = {
             "Usually a crossover flag "
             "(MPI4JAX_TPU_RING_CROSSOVER_BYTES / _DCN_CROSSOVER_BYTES) "
             "sitting far from the measured value — recalibrate with "
-            "benchmarks/micro.py --cost-calibrate.",
+            f"{CALIBRATE_COMMAND}.",
         ),
         CodeInfo(
             "MPX134", "structural load imbalance", ADVISORY,
@@ -278,7 +284,7 @@ CODES = {
             "full compute + transfer, so the chain's stages run "
             "serially.  Split the batch into microbatches (GPipe-style) "
             "so stage i+1's transfer overlaps stage i's compute — see "
-            "examples/pipeline_parallel.py.",
+            f"{PIPELINE_EXAMPLE}.",
         ),
         CodeInfo(
             "MPX136", "batch dimension outside the serving bucket set",

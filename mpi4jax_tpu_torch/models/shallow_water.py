@@ -921,11 +921,15 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     The wide modes run the carried frame (``_wide_run``) over the
     whole run: one frame build, a margin-band refresh per call, one crop.
 
-    ``pinned=True`` pins the whole run (``aot.compile``): on one CUDA rank
-    one CUDA graph, captured after one eager run, whose replays are timed.
-    It needs a CUDA device and a single-rank grid (a multi-rank run stages
-    its exchanges through the host, which a graph cannot capture); a
-    failed capture raises, there is no eager fallback.
+    ``pinned=True`` pins the whole run (``aot.compile``), as the JAX
+    package does on any mesh: on one CUDA rank one CUDA graph, captured
+    after one eager run, whose replays are timed; a failed capture raises,
+    there is no eager fallback.  On the CPU and on several ranks (whose
+    exchanges are staged through the host, which a graph cannot capture)
+    the pin is its body run eagerly at every call, the pin's meaning
+    there: the same steps and bits as ``pinned=False``, with
+    ``info["pinned"]`` False and ``info["eager_reason"]`` naming the world
+    (``"device cpu"``, ``"4 ranks"``).
 
     ``unroll=N`` (> 0) runs the megastep mode of the JAX package: the
     Euler step through the whole-run program at total 0, then
@@ -941,8 +945,9 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     runs executed (warm-ups included), ``info["pinned"]`` says whether
     they replayed CUDA graphs, ``info["unroll"]`` is the megastep trip
     count that ran (0 without one), ``info["eager_reason"]``, present
-    only when a pin on one CUDA rank ran eagerly, the knob that made it
-    (``aot/pinning.py``), and of the timed (best) run
+    only when a pin ran eagerly, what made it (the world of a whole-run
+    pin off one CUDA rank, else the knob, ``aot/pinning.py``), and of the
+    timed (best) run
     ``info["exchange_s"]`` holds the seconds spent inside multi-rank ops
     (``ops/_staging.py:stats``), ``info["replays"]`` the graph replays,
     ``info["launches"]`` each kernel's launches (the kernels that
@@ -978,7 +983,7 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
             return _run_steps(state, 1, cfg, comm, step, chunk, chunk_size)
 
     state = initial_state(cfg, rank=comm.Get_rank(), device=comm.device)
-    runs, programs = 0, []
+    runs, programs, eager_reason = 0, [], None
     mega = bool(unroll) and unroll > 0
     if mega:
         n_mega, tail = divmod(n_steps - 1, unroll)
@@ -998,17 +1003,13 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
                 s = tail_pp(s)
             return s
     elif pinned:
-        if comm.Get_size() > 1:
-            raise ValueError(
-                "pinned=True captures a CUDA graph, which cannot hold the "
-                f"host-staged exchanges of a {comm.Get_size()}-rank run; "
-                "pass pinned=False"
-            )
-        if comm.device.type != "cuda":
-            raise ValueError("pinned=True captures a CUDA graph; it needs a CUDA device")
         runner = pinning.compile(fused, state, n_steps - 1)
         programs = [runner]
         runs += int(runner.graph)  # the eager run before the capture
+        if comm.Get_size() > 1:
+            eager_reason = f"{comm.Get_size()} ranks"
+        elif comm.device.type != "cuda":
+            eager_reason = f"device {comm.device.type}"
     else:
         def runner(s: State) -> State:
             return fused(s, n_steps - 1)
@@ -1029,9 +1030,10 @@ def solve_fused(cfg: Config, t1: float, *, num_multisteps: int = 10,
     if info is not None:
         info["runs"] = runs
         info["pinned"] = graph
-        # the knob that made a pin on one CUDA rank run eagerly, if one did
-        reason = next((p.info["eager_reason"] for p in programs
-                       if p.info["eager_reason"]), None)
+        # what made the whole-run pin eager (its world, or a knob on one
+        # CUDA rank), or the knob that made a megastep pin eager
+        reason = eager_reason or next((p.info["eager_reason"] for p in programs
+                                       if p.info["eager_reason"]), None)
         if reason is not None:
             info["eager_reason"] = reason
         info["unroll"] = unroll if mega else 0

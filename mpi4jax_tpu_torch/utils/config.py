@@ -1,165 +1,54 @@
-"""The knobs of the throughput and dispatch layers, read from the JAX
-package's variables.
+"""The environment flags of the port: the declared registry and its readers.
 
-PyTorch counterpart of the part of ``mpi4jax_tpu/utils/config.py`` that
-fusion, the async collectives, the codec and the megastep loops read; the
-names, choices and defaults are the same, so a user's settings carry over:
+PyTorch counterpart of ``mpi4jax_tpu/utils/config.py``.  Every
+``MPI4JAX_TPU_*`` variable the port reads is declared in ``FLAGS`` (name,
+type, default, what the port does with it, and the choices of a choice
+flag) and read through ``_getenv``, the single read point: reading an
+undeclared name raises ``RuntimeError``.  The names, types, defaults and
+choices are the JAX package's, so a user's settings carry over; the port
+reads 48 of its 50 (``MPI4JAX_TPU_PREFER_NOTOKEN`` and
+``MPI4JAX_TPU_NO_WARN_JAX_VERSION`` switch nothing in a package that runs
+eagerly and imports no JAX).  ``tests/test_torch_config.py`` holds the
+registry against the JAX package's, and ``tests/test_torch_lint.py``
+rejects a literal ``MPI4JAX_TPU_*`` read of an undeclared name anywhere
+in the port and checks that the README's port section lists every flag.
 
-- ``MPI4JAX_TPU_COMPRESS``: ``off`` (default), ``bf16``, ``fp8`` or
-  ``auto``, the codec of ``compress.ef_allreduce``'s roundtrip;
-- ``MPI4JAX_TPU_FUSION``: ``off`` (default), ``auto`` or ``force``
-  (``ops/_fusion.py``; ``set_fusion_mode`` overrides it);
-- ``MPI4JAX_TPU_FUSION_BUCKET_BYTES``: the byte cap of a fusion bucket,
-  4 MiB by default;
-- ``MPI4JAX_TPU_OVERLAP_CHUNKS``: the chunks an async collective is split
-  into, 2 by default, at least 1;
-- ``MPI4JAX_TPU_UNROLL_DEFAULT``: the megastep trip count of an ``spmd``
-  or ``compile`` call without ``unroll=`` (``parallel/megastep.py``), 1
-  (no loop) by default, at least 1;
-
-and the runtime services' (``telemetry/``, ``resilience/``):
-
-- ``MPI4JAX_TPU_TELEMETRY``: ``off`` (default), ``counters`` or
-  ``events``; ``MPI4JAX_TPU_TELEMETRY_DIR``: where the events tier writes
-  its per-process JSONL journal ('' keeps it in memory);
-- ``MPI4JAX_TPU_WATCHDOG_TIMEOUT``: seconds a collective may stay in
-  flight (unset, empty or 0: off); ``MPI4JAX_TPU_FAULT_SPEC``: the fault
-  injection spec (``resilience/faultinject.py``);
-  ``MPI4JAX_TPU_CHECK_NUMERICS``: guard every op's floating inputs and
-  outputs against NaN/Inf;
-- ``MPI4JAX_TPU_TOPOLOGY``: ranks per host (``2x4`` or ``3,5``), which
-  the fault spec's host clauses read;
-- ``MPI4JAX_TPU_BOOTSTRAP_DEADLINE`` (300 s) and
-  ``MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS`` (0: the deadline alone): the
-  retry of ``init_distributed``'s rendezvous;
-- ``MPI4JAX_TPU_DRAIN_GRACE_S`` (5 s): how long a drained rank (a
-  SIGTERM, or the ``preempt`` fault verb) waits for its peers' acks of
-  its notice (part of the elastic cache token);
-
-and the elastic layer's (``resilience/elastic.py``):
-
-- ``MPI4JAX_TPU_ELASTIC_REDUNDANCY``: the copies of each state shard
-  beyond its owner's, 1 by default, at least 0;
-- ``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``: ``rank`` (default), ``row`` or
-  ``col``, the granularity of a shrink;
-- ``MPI4JAX_TPU_ELASTIC_PLACEMENT``: ``stripe`` (default) or
-  ``neighbor``, the replica placement;
-- ``MPI4JAX_TPU_ELASTIC_AGREEMENT``: ``coordinator`` (default) or
-  ``gossip``, the failure agreement's transport;
-- ``MPI4JAX_TPU_ELASTIC_PORT_SPAN``: the per-epoch port window, 64 by
-  default, at least 1;
-- ``MPI4JAX_TPU_ELASTIC_GROW``: admit replacement ranks at a commit
-  boundary (off by default; ``elastic.join_and_run`` is the joiner's
-  side);
-
-and the health plane's (``telemetry/health.py``):
-
-- ``MPI4JAX_TPU_HEALTH``: ``off`` (default) or ``on``, the flight ring,
-  the straggler detector and postmortem bundles;
-- ``MPI4JAX_TPU_HEALTH_INTERVAL``: the boundary stride of the detector's
-  exchange, 1 (every boundary) by default, at least 1;
-- ``MPI4JAX_TPU_FLIGHT_RING``: the ring's capacity in records, 1024 by
-  default, at least 1;
-- ``MPI4JAX_TPU_HEALTH_SUSPECTS``: hand persistent stragglers to the
-  elastic agreement (off by default);
-- ``MPI4JAX_TPU_HEALTH_PROM``: write the Prometheus text at every
-  detector boundary (off by default).
-
-and the workloads' (``parallel/moe.py``, ``parallel/pipeline.py``):
-
-- ``MPI4JAX_TPU_MOE_CAPACITY_CHUNKS``: the capacity chunks of the MoE
-  layer's overlapped combine, 2 by default, at least 1 (1: the
-  synchronous layer);
-- ``MPI4JAX_TPU_PIPELINE_MICROBATCHES``: the microbatches
-  ``split_microbatches`` cuts a batch into without an explicit count, 0
-  (unset: no split) by default;
-- ``MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES``: the stage-chunks a rank of the
-  interleaved schedule owns without an explicit ``virtual``, 0 (unset)
-  by default;
-
-and the serving runtime's (``serving/``):
-
-- ``MPI4JAX_TPU_SERVING_MAX_BATCH``: the decode batch cap (the largest
-  bucket), 8 by default, at least 1;
-- ``MPI4JAX_TPU_SERVING_BUCKETS``: an explicit bucket table
-  (comma-separated ascending batch sizes; empty, the default: powers of
-  two up to the cap);
-- ``MPI4JAX_TPU_SERVING_KV_SLOTS``: the KV slot budget, 0 (twice the
-  cap) by default;
-- ``MPI4JAX_TPU_SERVING_UNROLL``: the decode megastep's trip count, 4 by
-  default, at least 1;
-- ``MPI4JAX_TPU_SERVING_SLO_P99_MS``: the p99 latency objective in
-  milliseconds, 1000 by default, positive;
-
-and the persistent tier's (``aot/diskcache.py``):
-
-- ``MPI4JAX_TPU_COMPILE_CACHE_DIR``: where built kernel libraries and pin
-  records are kept ('' by default: the tier is off);
-  ``MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES``: its byte cap, 1 GiB by
-  default, 0 for none;
-- ``MPI4JAX_TPU_CPP_DISPATCH``: a pin on one CUDA rank replays its graph
-  (on by default; off runs it eagerly, ``aot/fastpath.py``).
-
-and the collective verifier's (``analysis/``):
-
-- ``MPI4JAX_TPU_ANALYZE``: ``off`` (default), ``warn`` or ``error``: a
-  region (or an eager op) is verified abstractly at its first call for
-  each key, before it runs; ``warn`` warns on findings, ``error`` raises
-  ``AnalysisError`` (``set_analyze_mode`` overrides it);
-- ``MPI4JAX_TPU_ANALYZE_RANKS``: ``auto`` (default), ``off`` or a
-  positive rank cap: the cross-rank schedule pass of that verification
-  runs for comms of at most that many ranks (``auto``: every comm).
-
-``MPI4JAX_TPU_DEBUG`` and ``MPI4JAX_TPU_TRACE`` are read once, at import
-of ``utils/debug.py``, as in the JAX package.
-
-and the tuning layer's and the cost model's (``autotune/``,
-``analysis/costmodel.py``):
-
-- ``MPI4JAX_TPU_TUNING``: an ``mpx-tuning/1`` file (what ``python -m
-  mpi4jax_tpu_torch.autotune`` writes), served between the defaults and
-  the environment (``load_tuning`` is the programmatic form and wins);
-- ``MPI4JAX_TPU_COST_MODEL``: a cost-model file (``mpx-cost-model/1`` or
-  ``mpx-tuning/1``) for ``analyze(cost=True)`` ('' : the tuning layer's
-  links section if it has one, else the analytic defaults);
-- ``MPI4JAX_TPU_ANALYZE_COST``: ``off`` (default) or ``on``, the cost
-  pass of the ambient verifier's cross-rank pass;
-- ``MPI4JAX_TPU_RING_CROSSOVER_BYTES`` (1 MiB),
-  ``MPI4JAX_TPU_DCN_CROSSOVER_BYTES`` (4 MiB) and
-  ``MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES`` (1 MiB): the algorithm
-  crossovers the selector of ``ops/_algos.py`` reads (the tuning layer
-  tunes them); ``MPI4JAX_TPU_COMPRESS_ERROR_BUDGET`` (1e-2): the
-  round-trip error the autotuner's codec sweep accepts;
-
-and the collective algorithm layer's (``ops/_algos.py``,
-``ops/_hierarchy.py``):
-
-- ``MPI4JAX_TPU_COLLECTIVE_ALGO``: ``auto`` (default), ``butterfly``,
-  ``ring`` or ``hier``: ``auto`` picks per call from the payload bytes,
-  the group size and the host topology; the others force one lowering
-  where it is expressible (``hier``, the two-level lowering, falls back to
-  the ``auto`` rules where no plan exists).
-
-Each knob a tuning file carries resolves as default < tuning < an
-explicitly set variable, as in the JAX package: ``fusion_bucket_bytes``,
-``overlap_chunks`` and ``compress`` (both by payload bucket when the file
-buckets them), the two pipeline knobs and the three crossovers; ``auto``
-compression resolves to the file's codec for the payload, else ``bf16``.
 An unset or empty variable takes the default; a value outside the
 choices, or an integer below its minimum, raises ``ValueError`` with the
-JAX package's message.
+JAX package's message.  Each knob a tuning file carries resolves as
+default < tuning < an explicitly set variable, as in the JAX package:
+``fusion_bucket_bytes``, ``overlap_chunks`` and ``compress`` (both by
+payload bucket when the file buckets them), the two pipeline knobs and
+the three crossovers; ``auto`` compression resolves to the file's codec
+for the payload, else ``bf16``.  ``MPI4JAX_TPU_DEBUG`` and
+``MPI4JAX_TPU_TRACE`` are read once, at import of ``utils/debug.py``, as
+in the JAX package.
 
 A pinned program (``aot/pinning.py``) captures the configuration once:
 ``config_stamp()`` is the override epoch, which every programmatic
 override bumps (``bump_config_epoch``; ``set_fusion_mode`` does), and the
-raw values of ``FLAG_NAMES``.
+raw values of ``FLAG_NAMES``.  The dispatch point reads
+``service_stamp()``, the raw values of ``SERVICE_FLAG_NAMES``.  Both
+tuples are declared flags; these stamps read their raw values in bulk,
+unparsed, and every other read goes through ``_getenv``.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
+
+
+class Flag(NamedTuple):
+    """One declared environment flag."""
+
+    name: str
+    type: str            # "bool" | "float" | "int" | "str" | "choice"
+    default: object
+    doc: str
+    choices: Optional[Tuple[str, ...]] = None
+
 
 COLLECTIVE_ALGOS = ("auto", "butterfly", "ring", "hier")
 COMPRESS_MODES = ("off", "bf16", "fp8", "auto")
@@ -191,6 +80,247 @@ DEFAULT_RING_CROSSOVER_BYTES = 1 << 20
 DEFAULT_DCN_CROSSOVER_BYTES = 4 << 20
 DEFAULT_ALLTOALL_CROSSOVER_BYTES = 1 << 20
 DEFAULT_COMPRESS_ERROR_BUDGET = 1e-2
+
+FLAGS = {
+    f.name: f
+    for f in (
+        Flag("MPI4JAX_TPU_DEBUG", "bool", False,
+             "Log every op call as ``r{rank} | {id} | ...`` "
+             "(``utils/debug.py``; read at import, ``set_logging`` "
+             "overrides it).  A pin on one CUDA rank then runs its body "
+             "eagerly, so the log sees every call."),
+        Flag("MPI4JAX_TPU_TRACE", "bool", False,
+             "Runtime op tracing: the host library "
+             "(``csrc/host_hooks.cc``, ``native.py``) logs a begin and an "
+             "end line with the wall-clock latency of every collective "
+             "(read at import, ``set_runtime_tracing`` overrides it)."),
+        Flag("MPI4JAX_TPU_WATCHDOG_TIMEOUT", "float", None,
+             "Seconds a collective may stay in flight before the host "
+             "watchdog (``resilience/watchdog.py``) kills the process "
+             "with every rank's in-flight ops.  Unset, empty or 0: off."),
+        Flag("MPI4JAX_TPU_FAULT_SPEC", "str", "",
+             "Deterministic fault injection "
+             "(``resilience/faultinject.py``): semicolon-separated "
+             "clauses such as ``die:rank=3:op=allreduce:after=5``, whose "
+             "ranks are the launch ranks of the gloo or NCCL world.  "
+             "Empty: none."),
+        Flag("MPI4JAX_TPU_BOOTSTRAP_DEADLINE", "float",
+             DEFAULT_BOOTSTRAP_DEADLINE,
+             "Seconds ``init_distributed``'s rendezvous, and every "
+             "elastic re-bootstrap of a process group, may retry before "
+             "it fails (``resilience/retry.py``).  Default 300."),
+        Flag("MPI4JAX_TPU_BOOTSTRAP_MAX_ATTEMPTS", "int",
+             DEFAULT_BOOTSTRAP_MAX_ATTEMPTS,
+             "Attempt cap of that retry; 0 (default) leaves the deadline "
+             "alone to bound it."),
+        Flag("MPI4JAX_TPU_ELASTIC_REDUNDANCY", "int",
+             DEFAULT_ELASTIC_REDUNDANCY,
+             "Copies of each state shard that the elastic in-memory "
+             "checkpoint (``resilience/elastic.py:ShardStore``) keeps "
+             "beyond its owner's, in host memory: that many ranks may "
+             "die at once.  Default 1."),
+        Flag("MPI4JAX_TPU_ELASTIC_GROW", "bool", False,
+             "Admit replacement processes at commit boundaries: rank 0 "
+             "runs a join listener, ``elastic.join_and_run`` is the "
+             "joiner's side, and the world's process group is made anew "
+             "with it.  Off (default): no poll at any boundary."),
+        Flag("MPI4JAX_TPU_DRAIN_GRACE_S", "float", DEFAULT_DRAIN_GRACE_S,
+             "Seconds a drained process (a SIGTERM, or the ``preempt`` "
+             "fault verb) waits for its peers to acknowledge its notice "
+             "before it steps to the leave boundary.  Default 5."),
+        Flag("MPI4JAX_TPU_ELASTIC_FAIL_UNIT", "choice", "rank",
+             "Granularity of an elastic shrink "
+             "(``parallel/mesh.py:shrink_world_mesh``): ``rank`` removes "
+             "the failed ranks of a 1-D world; ``row`` and ``col`` remove "
+             "every grid row or column that holds one.",
+             choices=ELASTIC_FAIL_UNITS),
+        Flag("MPI4JAX_TPU_ELASTIC_PLACEMENT", "choice", "stripe",
+             "Where the shard store puts each replica: ``stripe`` on "
+             "another host than the owner where the topology says so, "
+             "``neighbor`` on the next ranks of the ring.  Must match "
+             "across processes.",
+             choices=ELASTIC_PLACEMENTS),
+        Flag("MPI4JAX_TPU_ELASTIC_AGREEMENT", "choice", "coordinator",
+             "Transport of the failure agreement: ``coordinator`` "
+             "through rank 0 over TCP, falling back to peer gossip when "
+             "rank 0 is a suspect; ``gossip`` all pairs.  Must match "
+             "across processes.",
+             choices=ELASTIC_AGREEMENTS),
+        Flag("MPI4JAX_TPU_ELASTIC_PORT_SPAN", "int",
+             DEFAULT_ELASTIC_PORT_SPAN,
+             "Width of the per-epoch port window: epoch e's listeners "
+             "take ``port_base + (e % span)``.  Default 64."),
+        Flag("MPI4JAX_TPU_CHECK_NUMERICS", "bool", False,
+             "Guard every op's floating inputs and outputs against NaN "
+             "and Inf on the device, aborting through ``abort_if`` with "
+             "the op's name (``resilience/numerics.py``)."),
+        Flag("MPI4JAX_TPU_COLLECTIVE_ALGO", "choice", "auto",
+             "Algorithm of the reduction family (``ops/_algos.py``): "
+             "``auto`` picks per call from the payload bytes, the group "
+             "size and the hosts; ``butterfly``, ``ring`` and ``hier`` "
+             "(the two-level lowering of ``ops/_hierarchy.py``) force "
+             "one where it is expressible.",
+             choices=COLLECTIVE_ALGOS),
+        Flag("MPI4JAX_TPU_RING_CROSSOVER_BYTES", "int",
+             DEFAULT_RING_CROSSOVER_BYTES,
+             "Payload bytes at and above which ``auto`` takes the ring "
+             "lowerings, or the hierarchy on a comm of several hosts.  "
+             "Default 1 MiB; a tuning file may set it."),
+        Flag("MPI4JAX_TPU_TOPOLOGY", "str", "",
+             "Ranks per host: ``<hosts>x<ranks_per_host>`` (``2x4``) or "
+             "per-host counts (``3,5``).  Empty (default): each rank's "
+             "host name, published in the rendezvous store at "
+             "``init_distributed``."),
+        Flag("MPI4JAX_TPU_DCN_CROSSOVER_BYTES", "int",
+             DEFAULT_DCN_CROSSOVER_BYTES,
+             "Shard bytes at and above which the hierarchy's inter-host "
+             "phase takes the ring (``ops/_algos.py:resolve_dcn_algo``).  "
+             "Default 4 MiB; a tuning file may set it."),
+        Flag("MPI4JAX_TPU_ALLTOALL_CROSSOVER_BYTES", "int",
+             DEFAULT_ALLTOALL_CROSSOVER_BYTES,
+             "Payload bytes at and above which ``auto`` takes the "
+             "two-level alltoall on a comm of several hosts (the same "
+             "bits as the flat one).  Default 1 MiB."),
+        Flag("MPI4JAX_TPU_COMPRESS", "choice", "off",
+             "Codec of the inter-host leg and of "
+             "``compress.ef_allreduce``'s roundtrip (``ops/_compress.py``): "
+             "``bf16``, ``fp8`` with a per-chunk scale, or ``auto``, the "
+             "tuning file's codec for the payload (``bf16`` without "
+             "one).  A codec changes values, not the bytes gloo moves.",
+             choices=COMPRESS_MODES),
+        Flag("MPI4JAX_TPU_COMPRESS_ERROR_BUDGET", "float",
+             DEFAULT_COMPRESS_ERROR_BUDGET,
+             "Largest round-trip relative error the autotuner's codec "
+             "sweep accepts (``python -m mpi4jax_tpu_torch.autotune``).  "
+             "Default 1e-2."),
+        Flag("MPI4JAX_TPU_MOE_CAPACITY_CHUNKS", "int",
+             DEFAULT_MOE_CAPACITY_CHUNKS,
+             "Capacity chunks of the MoE layer (``parallel/moe.py``): "
+             "chunk i's combine ``alltoall_start`` overlaps chunk i+1's "
+             "expert MLP; 1 is the synchronous layer.  Default 2."),
+        Flag("MPI4JAX_TPU_PIPELINE_MICROBATCHES", "int",
+             DEFAULT_PIPELINE_MICROBATCHES,
+             "Microbatches ``split_microbatches`` cuts a batch into "
+             "without an explicit count (``parallel/pipeline.py``).  0 "
+             "(default): the tuning file's count, else no split."),
+        Flag("MPI4JAX_TPU_PIPELINE_VIRTUAL_STAGES", "int",
+             DEFAULT_PIPELINE_VIRTUAL_STAGES,
+             "Stage-chunks a rank of the interleaved schedule owns "
+             "without an explicit ``virtual``.  0 (default): the tuning "
+             "file's, else derived from the stage functions."),
+        Flag("MPI4JAX_TPU_ANALYZE", "choice", "off",
+             "Ambient collective verifier (``analysis/``): a region or an "
+             "eager op is run abstractly on ``meta`` tensors at its first "
+             "call for each key, before it runs; ``warn`` warns on "
+             "findings, ``error`` raises ``AnalysisError``.  "
+             "``set_analyze_mode`` overrides it.",
+             choices=ANALYZE_MODES),
+        Flag("MPI4JAX_TPU_TUNING", "str", "",
+             "An ``mpx-tuning/1`` file, as ``python -m "
+             "mpi4jax_tpu_torch.autotune`` writes it, served between the "
+             "defaults and the environment; its stamp stales every pin "
+             "made before it (MPX129).  ``load_tuning`` wins over it."),
+        Flag("MPI4JAX_TPU_COST_MODEL", "str", "",
+             "Cost-model file (``mpx-cost-model/1`` or ``mpx-tuning/1``) "
+             "for ``analyze(cost=True)`` (``analysis/costmodel.py``).  "
+             "Empty: the tuning file's links section, else the card's "
+             "defaults."),
+        Flag("MPI4JAX_TPU_ANALYZE_COST", "choice", "off",
+             "``on``: the ambient verifier's cross-rank pass also runs "
+             "the critical-path cost pass (``analysis/cost.py``) and "
+             "reports MPX131-MPX135.",
+             choices=("off", "on")),
+        Flag("MPI4JAX_TPU_ANALYZE_RANKS", "str", "auto",
+             "The ambient verifier's cross-rank pass: ``auto`` (default) "
+             "for every comm, ``off``, or a positive cap on the comm "
+             "sizes it covers (it re-runs a region once a rank).  The "
+             "analysis command's ``--ranks N`` sets it."),
+        Flag("MPI4JAX_TPU_TELEMETRY", "choice", "off",
+             "Telemetry tier (``telemetry/``): ``counters`` counts calls "
+             "and bytes per op, comm, algorithm and dtype, and a pin "
+             "keeps its CUDA graph; ``events`` also journals a begin and "
+             "end record a call, and a pin on one CUDA rank runs "
+             "eagerly.  ``set_telemetry_mode`` overrides it.",
+             choices=TELEMETRY_MODES),
+        Flag("MPI4JAX_TPU_TELEMETRY_DIR", "str", "",
+             "Directory of the ``events`` tier's per-process JSONL "
+             "journals and the health plane's bundles, merged by "
+             "``python -m mpi4jax_tpu_torch.telemetry merge``.  Empty: "
+             "in memory only."),
+        Flag("MPI4JAX_TPU_FUSION", "choice", "off",
+             "Collective fusion in a region (``ops/_fusion.py``): "
+             "``auto`` queues ``allreduce`` and ``bcast`` calls and "
+             "flushes them packed by bucket; ``force`` also ignores the "
+             "byte cap and packs single members.  ``set_fusion_mode`` "
+             "overrides it.",
+             choices=FUSION_MODES),
+        Flag("MPI4JAX_TPU_FUSION_BUCKET_BYTES", "int",
+             DEFAULT_FUSION_BUCKET_BYTES,
+             "Byte cap of a fusion bucket, per dtype.  Default 4 MiB; a "
+             "tuning file may set it."),
+        Flag("MPI4JAX_TPU_COMPILE_CACHE_DIR", "str", "",
+             "The persistent tier (``aot/diskcache.py``): built kernel "
+             "libraries and pin records, so a fresh process loads its "
+             "kernels instead of running ``nvcc`` (a CUDA graph is "
+             "captured anew).  Empty (default): off."),
+        Flag("MPI4JAX_TPU_COMPILE_CACHE_MAX_BYTES", "int",
+             DEFAULT_COMPILE_CACHE_MAX_BYTES,
+             "Byte cap of the persistent tier, least recently used "
+             "evicted first.  Default 1 GiB; 0: no cap."),
+        Flag("MPI4JAX_TPU_OVERLAP_CHUNKS", "int",
+             DEFAULT_OVERLAP_CHUNKS,
+             "Pieces an async collective (``ops/_async.py``, "
+             "``async_op=True``) is split into, each staged through a "
+             "pinned host buffer.  Default 2; a tuning file may set it "
+             "by payload."),
+        Flag("MPI4JAX_TPU_UNROLL_DEFAULT", "int", 1,
+             "Megastep trip count of an ``spmd`` or ``compile`` call "
+             "without ``unroll=`` (``parallel/megastep.py``): on one CUDA "
+             "rank one graph of N iterations.  1 (default): no loop."),
+        Flag("MPI4JAX_TPU_SERVING_MAX_BATCH", "int",
+             DEFAULT_SERVING_MAX_BATCH,
+             "Decode batch cap of the serving engine (``serving/``): the "
+             "largest bucket of its batch-shape table.  Default 8."),
+        Flag("MPI4JAX_TPU_SERVING_BUCKETS", "str", "",
+             "Explicit bucket table, ascending batch sizes such as "
+             "``1,2,4,8``; each bucket and phase is one pinned program.  "
+             "Empty (default): powers of two up to the cap."),
+        Flag("MPI4JAX_TPU_SERVING_KV_SLOTS", "int", 0,
+             "KV slots of the serving engine: sequences that may hold a "
+             "KV cache at once.  0 (default): twice the batch cap."),
+        Flag("MPI4JAX_TPU_SERVING_UNROLL", "int", DEFAULT_SERVING_UNROLL,
+             "Tokens a decode megastep runs (one CUDA graph on one CUDA "
+             "rank); the scheduler admits and evicts between "
+             "megasteps.  Default 4."),
+        Flag("MPI4JAX_TPU_SERVING_SLO_P99_MS", "float",
+             DEFAULT_SERVING_SLO_P99_MS,
+             "The p99 latency bound, in milliseconds, that the serving "
+             "twin reports tokens/s/chip at.  Default 1000."),
+        Flag("MPI4JAX_TPU_CPP_DISPATCH", "bool", True,
+             "A pin on one CUDA rank replays its CUDA graph "
+             "(``aot/fastpath.py``); false runs its body eagerly and "
+             "names this flag in ``program.info``.  Never stales a pin."),
+        Flag("MPI4JAX_TPU_HEALTH", "choice", "off",
+             "The health plane (``telemetry/health.py``): ``on`` arms "
+             "the flight ring, the straggler detector at "
+             "``on_boundary`` and postmortem bundles; it records only "
+             "where telemetry commits.",
+             choices=HEALTH_MODES),
+        Flag("MPI4JAX_TPU_HEALTH_INTERVAL", "int", 1,
+             "Every N-th boundary runs the detector's digest exchange "
+             "(a MAX ``allreduce`` and an ``allgather``).  Default 1."),
+        Flag("MPI4JAX_TPU_FLIGHT_RING", "int", DEFAULT_FLIGHT_RING,
+             "Records the flight ring keeps; older ones are overwritten "
+             "and counted as dropped.  Default 1024."),
+        Flag("MPI4JAX_TPU_HEALTH_SUSPECTS", "bool", False,
+             "Hand persistent stragglers and stalled collectives to the "
+             "elastic agreement as suspects.  Off (default): the "
+             "detector only journals and meters them."),
+        Flag("MPI4JAX_TPU_HEALTH_PROM", "bool", False,
+             "Write ``prometheus_text()`` to ``prom-p<process>.prom`` in "
+             "the telemetry directory at every detector boundary."),
+    )
+}
 
 # every variable that shapes what the port runs, and the persistent tier's
 # storage-only and dispatch-only knobs (``compile_cache_dir``,
@@ -286,6 +416,12 @@ SERVICE_FLAG_NAMES = (
     "MPI4JAX_TPU_ANALYZE",
 )
 
+# the stamps below read these names without ``_getenv``: each must be
+# declared
+_undeclared = sorted(set(FLAG_NAMES + SERVICE_FLAG_NAMES) - set(FLAGS))
+if _undeclared:
+    raise RuntimeError(f"stamped flags not declared in FLAGS: {_undeclared}")
+
 
 def service_stamp() -> tuple:
     """``(config_epoch(), the service epoch, raw values of
@@ -305,19 +441,37 @@ def config_stamp() -> tuple:
     return (_config_epoch, env_fingerprint())
 
 
-def _choice(name: str, choices, default: str) -> str:
-    raw = os.environ.get(name)
+def _getenv(name: str) -> Optional[str]:
+    """The single environment read point: the flag must be declared."""
+    if name not in FLAGS:
+        raise RuntimeError(
+            f"environment flag {name} is not declared in "
+            "mpi4jax_tpu_torch.utils.config.FLAGS; declare it (name, type, "
+            "default, docstring) before reading it"
+        )
+    return os.environ.get(name)
+
+
+def _text(name: str) -> str:
+    """A string flag, stripped ('' when unset)."""
+    return (_getenv(name) or "").strip()
+
+
+def _choice(name: str) -> str:
+    """A declared choice flag (unset or empty: its default)."""
+    flag = FLAGS[name]
+    raw = _getenv(name)
     if raw is None or not raw.strip():
-        return default
+        return flag.default
     val = raw.lower().strip()
-    if val not in choices:
+    if val not in flag.choices:
         raise ValueError(f"Environment variable {name}={raw!r} must be one of "
-                         f"{choices}")
+                         f"{flag.choices}")
     return val
 
 
 def _int(name: str, default: int, minimum: int = 0) -> int:
-    raw = os.environ.get(name)
+    raw = _getenv(name)
     if raw is None or not raw.strip():
         return default
     try:
@@ -332,8 +486,7 @@ def _int(name: str, default: int, minimum: int = 0) -> int:
 
 
 def _explicit(name: str) -> bool:
-    raw = os.environ.get(name)
-    return raw is not None and bool(raw.strip())
+    return bool(_text(name))
 
 
 def _env_or_tuned(name: str, knob: str, default: int, minimum: int = 0,
@@ -351,7 +504,7 @@ def compress_mode(payload_bytes: Optional[int] = None) -> str:
     """The codec (``MPI4JAX_TPU_COMPRESS``): ``off``, ``bf16`` or ``fp8``,
     default < tuning (by ``payload_bytes`` bucket) < env; ``auto`` takes
     the tuned codec for the payload, else ``bf16``."""
-    mode = _choice("MPI4JAX_TPU_COMPRESS", COMPRESS_MODES, "off")
+    mode = _choice("MPI4JAX_TPU_COMPRESS")
     if not _explicit("MPI4JAX_TPU_COMPRESS") or mode == "auto":
         tuned = _tuned_knob("compress", payload_bytes=payload_bytes)
         if tuned is not None and str(tuned).lower() != "auto":
@@ -362,7 +515,7 @@ def compress_mode(payload_bytes: Optional[int] = None) -> str:
 def fusion_mode() -> str:
     """The fusion mode (``MPI4JAX_TPU_FUSION``): ``off``, ``auto`` or
     ``force``."""
-    return _choice("MPI4JAX_TPU_FUSION", FUSION_MODES, "off")
+    return _choice("MPI4JAX_TPU_FUSION")
 
 
 def fusion_bucket_bytes() -> int:
@@ -385,7 +538,7 @@ def collective_algo() -> str:
     ``auto`` picks per call (``ops/_algos.py:resolve_algo``);
     ``butterfly``, ``ring`` and ``hier`` force one lowering where it is
     expressible."""
-    return _choice("MPI4JAX_TPU_COLLECTIVE_ALGO", COLLECTIVE_ALGOS, "auto")
+    return _choice("MPI4JAX_TPU_COLLECTIVE_ALGO")
 
 
 def ring_crossover_bytes() -> int:
@@ -461,7 +614,7 @@ def active_tuning():
     malformed ``MPI4JAX_TPU_TUNING`` file."""
     if _tuning_override is not None:
         return _tuning_override
-    path = (os.environ.get("MPI4JAX_TPU_TUNING") or "").strip()
+    path = _text("MPI4JAX_TPU_TUNING")
     if not path:
         return None
     from ..autotune.schema import load_tuning_file_memo
@@ -539,7 +692,7 @@ def compile_cache_dir() -> str:
     """The persistent tier's directory (``MPI4JAX_TPU_COMPILE_CACHE_DIR``;
     '' = the tier is off): built kernel libraries and pin records
     (``aot/diskcache.py``)."""
-    return (os.environ.get("MPI4JAX_TPU_COMPILE_CACHE_DIR") or "").strip()
+    return _text("MPI4JAX_TPU_COMPILE_CACHE_DIR")
 
 
 def compile_cache_max_bytes() -> int:
@@ -565,7 +718,7 @@ def cpp_dispatch() -> bool:
 
 def parse_env_bool(name: str, default: bool = False) -> bool:
     """A truthy/falsy variable; anything else raises ``ValueError``."""
-    raw = os.environ.get(name)
+    raw = _getenv(name)
     if raw is None:
         return default
     val = raw.lower().strip()
@@ -581,7 +734,7 @@ def parse_env_bool(name: str, default: bool = False) -> bool:
 
 def parse_env_float(name: str, default: Optional[float] = None) -> Optional[float]:
     """A finite number of seconds >= 0 (unset or empty: ``default``)."""
-    raw = os.environ.get(name)
+    raw = _getenv(name)
     if raw is None or not raw.strip():
         return default
     try:
@@ -612,13 +765,13 @@ def trace_enabled() -> bool:
 def telemetry_mode() -> str:
     """The telemetry tier (``MPI4JAX_TPU_TELEMETRY``): ``off``,
     ``counters`` or ``events``."""
-    return _choice("MPI4JAX_TPU_TELEMETRY", TELEMETRY_MODES, "off")
+    return _choice("MPI4JAX_TPU_TELEMETRY")
 
 
 def telemetry_dir() -> str:
     """Where the events tier writes its JSONL journal
     (``MPI4JAX_TPU_TELEMETRY_DIR``; '' = in memory only)."""
-    return (os.environ.get("MPI4JAX_TPU_TELEMETRY_DIR") or "").strip()
+    return _text("MPI4JAX_TPU_TELEMETRY_DIR")
 
 
 def watchdog_timeout() -> Optional[float]:
@@ -633,7 +786,7 @@ def watchdog_timeout() -> Optional[float]:
 def fault_spec() -> str:
     """The raw ``MPI4JAX_TPU_FAULT_SPEC`` ('' = no injection), parsed by
     ``resilience.parse_fault_spec``."""
-    return (os.environ.get("MPI4JAX_TPU_FAULT_SPEC") or "").strip()
+    return _text("MPI4JAX_TPU_FAULT_SPEC")
 
 
 def check_numerics() -> bool:
@@ -644,7 +797,7 @@ def check_numerics() -> bool:
 
 def topology_spec() -> str:
     """The raw ``MPI4JAX_TPU_TOPOLOGY`` string ('' = none declared)."""
-    return (os.environ.get("MPI4JAX_TPU_TOPOLOGY") or "").strip()
+    return _text("MPI4JAX_TPU_TOPOLOGY")
 
 
 def parse_topology_spec(raw: str) -> Optional[Tuple[int, ...]]:
@@ -730,22 +883,20 @@ def elastic_fail_unit() -> str:
     """The granularity of an elastic shrink
     (``MPI4JAX_TPU_ELASTIC_FAIL_UNIT``): ``rank`` (default), ``row`` or
     ``col`` (``parallel/mesh.py:shrink_world_mesh``)."""
-    return _choice("MPI4JAX_TPU_ELASTIC_FAIL_UNIT", ELASTIC_FAIL_UNITS, "rank")
+    return _choice("MPI4JAX_TPU_ELASTIC_FAIL_UNIT")
 
 
 def elastic_placement() -> str:
     """The shard-replica placement (``MPI4JAX_TPU_ELASTIC_PLACEMENT``):
     ``stripe`` (default) or ``neighbor``."""
-    return _choice("MPI4JAX_TPU_ELASTIC_PLACEMENT", ELASTIC_PLACEMENTS,
-                   "stripe")
+    return _choice("MPI4JAX_TPU_ELASTIC_PLACEMENT")
 
 
 def elastic_agreement() -> str:
     """The failure agreement's transport
     (``MPI4JAX_TPU_ELASTIC_AGREEMENT``): ``coordinator`` (default) or
     ``gossip``."""
-    return _choice("MPI4JAX_TPU_ELASTIC_AGREEMENT", ELASTIC_AGREEMENTS,
-                   "coordinator")
+    return _choice("MPI4JAX_TPU_ELASTIC_AGREEMENT")
 
 
 def elastic_port_span() -> int:
@@ -762,7 +913,7 @@ def elastic_port_span() -> int:
 
 def health_mode() -> str:
     """The health plane (``MPI4JAX_TPU_HEALTH``): ``off`` or ``on``."""
-    return _choice("MPI4JAX_TPU_HEALTH", HEALTH_MODES, "off")
+    return _choice("MPI4JAX_TPU_HEALTH")
 
 
 def health_interval() -> int:
@@ -837,7 +988,7 @@ def serving_buckets() -> str:
     """The raw ``MPI4JAX_TPU_SERVING_BUCKETS`` spec ('' = powers of two up
     to :func:`serving_max_batch`), parsed by
     ``serving/buckets.py:BucketTable.from_spec``."""
-    return (os.environ.get("MPI4JAX_TPU_SERVING_BUCKETS") or "").strip()
+    return _text("MPI4JAX_TPU_SERVING_BUCKETS")
 
 
 def serving_kv_slots() -> int:
@@ -870,14 +1021,14 @@ def serving_slo_p99_ms() -> float:
 def analyze_mode() -> str:
     """The collective verifier's ambient mode (``MPI4JAX_TPU_ANALYZE``):
     ``off`` (default), ``warn`` or ``error``."""
-    return _choice("MPI4JAX_TPU_ANALYZE", ANALYZE_MODES, "off")
+    return _choice("MPI4JAX_TPU_ANALYZE")
 
 
 def analyze_ranks():
     """The cross-rank pass setting (``MPI4JAX_TPU_ANALYZE_RANKS``):
     ``"auto"`` (default), ``"off"``, or a positive int cap on the comm
     sizes the ambient per-rank re-runs cover."""
-    raw = (os.environ.get("MPI4JAX_TPU_ANALYZE_RANKS") or "").strip().lower()
+    raw = _text("MPI4JAX_TPU_ANALYZE_RANKS").lower()
     if not raw or raw == "auto":
         return "auto"
     if raw == "off":
@@ -901,11 +1052,11 @@ def cost_model_path() -> str:
     """The cost-model file (``MPI4JAX_TPU_COST_MODEL``; '' : the tuning
     layer's links section, else the analytic defaults of
     ``analysis/costmodel.py``)."""
-    return (os.environ.get("MPI4JAX_TPU_COST_MODEL") or "").strip()
+    return _text("MPI4JAX_TPU_COST_MODEL")
 
 
 def analyze_cost_enabled() -> bool:
     """Whether the ambient verifier's cross-rank pass also runs the cost
     pass (``MPI4JAX_TPU_ANALYZE_COST``: ``off``, the default, or
     ``on``)."""
-    return _choice("MPI4JAX_TPU_ANALYZE_COST", ("off", "on"), "off") == "on"
+    return _choice("MPI4JAX_TPU_ANALYZE_COST") == "on"

@@ -388,9 +388,26 @@ def test_solve_fused_unroll_on_a_2x2_grid_matches_jax(results):
 
 
 def test_pinned_still_needs_one_cuda_rank():
+    """A graph still needs one CUDA rank: on the CPU ``pinned=True`` runs
+    the pin's body eagerly, bit for bit with ``pinned=False`` (the
+    periodic pallas2 run and the wide2 carried frame), replays nothing and
+    names the device."""
     cfg = P.Config(nx=48, ny=24)
-    with pytest.raises(ValueError, match="CUDA"):
-        P.solve_fused(cfg, cfg.dt, device="cpu", pinned=True)
+    for mode in ("auto", "wide2"):
+        runs = {}
+        for pinned in (False, True):
+            info = {}
+            _, n, state = P.solve_fused(cfg, 7 * cfg.dt, num_multisteps=2,
+                                        fast=mode, return_state=True,
+                                        device="cpu", pinned=pinned, info=info)
+            runs[pinned] = (n, state, info)
+        assert runs[True][0] == runs[False][0] == 7
+        for a, b in zip(runs[False][1], runs[True][1]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), mode
+        info = runs[True][2]
+        assert not info["pinned"] and info["replays"] == 0 and info["runs"] == 3
+        assert info["eager_reason"] == "device cpu"
+        assert "eager_reason" not in runs[False][2]
 
 
 # ---------------------------------------------------------------------------

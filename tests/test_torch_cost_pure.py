@@ -34,6 +34,7 @@ from mpi4jax_tpu.parallel import topology as jtopo  # noqa: E402
 from mpi4jax_tpu_torch.analysis import cost as pcost  # noqa: E402
 from mpi4jax_tpu_torch.analysis import costmodel as pcm  # noqa: E402
 from mpi4jax_tpu_torch.analysis import matcher as pmatcher  # noqa: E402
+from mpi4jax_tpu_torch.analysis import report as preport  # noqa: E402
 from mpi4jax_tpu_torch.analysis import schedule as psched  # noqa: E402
 from mpi4jax_tpu_torch.parallel import topology as ptopo  # noqa: E402
 from torch_port_isolation import isolated_reference_state  # noqa: E402,F401
@@ -442,18 +443,32 @@ def _finding_key(f):
     return (f.code, f.op, f.index, f.rank, f.seq, f.message, f.suggestion)
 
 
+# the JAX package's scripts that a finding names, and the port's command
+# and twin in their place (analysis/report.py), by design
+PORT_NAMES = {"benchmarks/micro.py --cost-calibrate": preport.CALIBRATE_COMMAND,
+              "examples/pipeline_parallel.py": preport.PIPELINE_EXAMPLE}
+
+
+def port_text(text):
+    for jax_name, port_name in PORT_NAMES.items():
+        text = text.replace(jax_name, port_name)
+    return text
+
+
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_the_timed_simulation_and_critic_equal_jax(name):
     build, kw = SCENARIOS[name]
     prep, pfind = _run((psched.SchedOp, pmatcher, pcost), build, kw)
     jrep, jfind = _run((jsched.SchedOp, jmatcher, jcost), build, kw)
-    assert [_finding_key(f) for f in pfind] == [_finding_key(f) for f in jfind]
+    assert [_finding_key(f) for f in pfind] == [
+        tuple(port_text(x) if isinstance(x, str) else x for x in _finding_key(f))
+        for f in jfind]
     if jrep is None:
         assert prep is None and name == "deadlock"
         return
-    assert prep.to_json() == jrep.to_json()
-    assert prep.render() == jrep.render().replace("analytic defaults",
-                                                  pcm.DEFAULTS_NAME)
+    assert prep.to_json() == json.loads(port_text(json.dumps(jrep.to_json())))
+    assert prep.render() == port_text(jrep.render()).replace("analytic defaults",
+                                                             pcm.DEFAULTS_NAME)
     expect = {"mpx131": "MPX131", "mpx132": "MPX132", "mpx133": "MPX133",
               "mpx134": "MPX134", "mpx135": "MPX135", "moe_fixture": "MPX133",
               "mpx144_gpipe": "MPX144"}.get(name)

@@ -146,6 +146,20 @@ def test_pinned_run_counts_replayed_launches():
 
 
 @pytest.mark.gpu
+def test_pinned_on_one_cuda_rank_stays_one_graph():
+    """Where the CPU and several ranks run the pin eagerly, one CUDA rank
+    still captures the whole run as one graph: each timed run is one
+    replay, and no eager reason is named."""
+    need_cuda()
+    cfg = P.Config(nx=48, ny=24)
+    info = {}
+    P.solve_fused(cfg, 7 * cfg.dt, num_multisteps=2, fast="wide2", pinned=True,
+                  info=info)
+    assert info["pinned"] and info["replays"] == 1 and "eager_reason" not in info
+    assert info["launches"] == {"sw_wide": 4}
+
+
+@pytest.mark.gpu
 def test_entry_runs_on_the_card():
     need_cuda()
     fn, (state,) = entry()

@@ -211,11 +211,30 @@ def test_decomposition_invariance_bitwise(results, mode):
                                   P.reassemble(snaps[-2][None], cfg1))
 
 
-def test_pinned_multi_rank_raises(results):
-    """A CUDA graph cannot capture host-staged exchanges: ``pinned=True`` on
-    a multi-rank grid is refused before anything runs."""
-    msg = port_run(results, (2, 4))[0]["pinned_error"]
-    assert "pinned=True" in msg and "8-rank" in msg
+def test_pinned_multi_rank_runs_the_pin_eagerly(results):
+    """``pinned=True`` on (2,4), as the JAX package pins on any mesh: a
+    CUDA graph cannot capture host-staged exchanges, so the pin is its
+    body run eagerly, bit for bit with ``pinned=False`` on every rank,
+    ``info["pinned"]`` False and the world named; the state against the
+    JAX package's ``solve_fused(pinned=True)`` on its (2,4) CPU mesh,
+    band 1e-5 + 2e-6 * max|a|."""
+    cfg = jax_config(R.WIDE_SIZE, (2, 4), True)
+
+    def compute():
+        _, n, s = J.solve_fused(cfg, 23 * cfg.dt, num_multisteps=5, fast="wide2",
+                                return_state=True, pinned=True)
+        return n, [np.asarray(f) for f in s]
+
+    jn, want = results.get("jax-solve-fused-pinned", compute)
+    assert jn == 26
+    per_rank = port_run(results, (2, 4))
+    for r in per_rank:
+        assert r["solve_fused/pinned_info"] == {
+            "runs": 3, "pinned": False, "eager_reason": "8 ranks", "replays": 0}
+        for a, b in zip(r["solve_fused/wide2"], r["solve_fused/wide2/pinned"]):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    assert_band(want, stacked(per_rank, "solve_fused/wide2/pinned"), 1e-5, 2e-6,
+                "solve_fused wide2 pinned")
 
 
 # ---------------------------------------------------------------------------

@@ -293,9 +293,22 @@ def test_entry_matches_jax_entry():
 
 
 def test_pinned_needs_cuda_device():
-    _, pcfg = configs(48, 24)
-    with pytest.raises(ValueError, match="CUDA"):
-        P.solve_fused(pcfg, pcfg.dt, device="cpu", pinned=True)
+    """A pin's graph needs a CUDA device: on the CPU ``solve_fused(pinned=
+    True)`` runs the pin eagerly, as the JAX package pins on its CPU
+    devices, and matches JAX's pinned run in the band of the unpinned
+    one."""
+    jcfg, pcfg = configs(48, 24)
+    t1 = 7 * jcfg.dt
+    _, jn, jstate = J.solve_fused(jcfg, t1, num_multisteps=2, fast="auto",
+                                  return_state=True, pinned=True,
+                                  devices=jax.devices()[:1])
+    info = {}
+    _, n, state = P.solve_fused(pcfg, t1, num_multisteps=2, fast="auto",
+                                return_state=True, device="cpu", pinned=True,
+                                info=info)
+    assert n == jn == 7
+    assert not info["pinned"] and info["eager_reason"] == "device cpu"
+    assert_in_band(jax_local(jstate), state, "solve_fused auto pinned")
 
 
 def test_pick_process_grid_matches_jax():

@@ -230,11 +230,14 @@ def sw_program(rank: int, grid):
                               fast=mode)
         out[f"solve/{mode}/local"] = torch.from_numpy(snaps[-2])
         out[f"solve/{mode}/gathered"] = torch.from_numpy(snaps[-1])
-    try:
-        P.solve_fused(cfg, cfg.dt, device="cpu", pinned=True)
-        out["pinned_error"] = ""
-    except ValueError as e:
-        out["pinned_error"] = str(e)
+    # pinned=True on several ranks: the pin is its body run eagerly
+    info = {}
+    _, n, state = P.solve_fused(cfg, 23 * cfg.dt, num_multisteps=5, fast="wide2",
+                                return_state=True, device="cpu", pinned=True,
+                                info=info)
+    out["solve_fused/wide2/pinned"] = tuple(state)
+    out["solve_fused/pinned_info"] = {k: info[k] for k in
+                                      ("runs", "pinned", "eager_reason", "replays")}
     return out
 
 
