@@ -348,6 +348,29 @@ read just after:
    largest difference from (c)'s one-rank run printed with no limit.
    Steps/s of each part.  Four processes share one card: no number of
    (d) is a scaling result.  One JSON line ``{"cli": ...}``.
+21. the ops under ``torch.func`` and the hybrid ensemble
+   (``transforms_phase``; it builds nothing): (a) four gloo ranks on this
+   card, 3 lanes from a numpy seed: ``torch.func.vmap`` over each of the
+   13 ops and the tokenless ``allreduce`` and ``sendrecv``, in f32 and in
+   int32 and bool where the op takes them, each result bit for bit with
+   the op applied lane by lane on the same ranks (an f32 SUM on one
+   ``dist.all_reduce`` or ``dist.reduce``, and the matrix-product
+   callable, within the port's band: their rounding depends on the
+   batched buffer), as many exchanges as one lane's call, and the
+   microseconds of a vmapped call against its 3 lane calls; (b)
+   ``jacfwd`` and ``jacrev`` of a SUM-allreduce (n x I and I, the JAX
+   package's convention inside its region) and of a ``sendrecv`` ring
+   (the same bits), each bit for bit with a CPU run in the same
+   processes; (c) eight gloo ranks on this card: two shallow-water
+   members of 3600x1800 on the ``("py", "px")`` sub-communicator of a
+   ``(dp, py, px) = (2, 2, 2)`` world, member 1 started 10 cm higher,
+   ``fast="auto"`` (``wide2``: ``sw_wide`` on each rank's 902x1802
+   frame) for 20 steps, the ``dp`` mean bit for bit ``0.5 * (h0 +
+   h1)`` on every rank, member 0 within the run band of 20 single-GPU
+   ``pallas2`` steps, the members more than 1e-3 apart, every field
+   finite; each rank's ``sw_wide`` launches and steps/s.  Eight
+   processes share one card: no number of (c) is a scaling result.  One
+   JSON line ``{"transforms": ...}``.
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -416,6 +439,11 @@ runs phase 19 alone (nothing to build), one JSON line.
 
 builds ``sw_steps`` and ``sw_wide`` (two ``nvcc`` at once), runs phase 1's
 pinned main path for (a)'s reference and phase 20 alone, one JSON line.
+
+    python3 chip_smoke.py --transforms
+
+builds ``sw_steps`` and ``sw_wide`` (two ``nvcc`` at once) and runs phase
+21 alone, one JSON line.
 """
 
 import contextlib
@@ -6567,6 +6595,314 @@ def cli_main():
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the ops under torch.func, and the hybrid ensemble
+# ---------------------------------------------------------------------------
+
+VMAP_LANES = 3
+ENSEMBLE_STEPS = 20  # the first step, then 19
+
+
+def vmap_inputs(n, rank):
+    """Rank ``rank``'s ``VMAP_LANES`` lanes of phase 21 (a), from a numpy
+    seed: f32 (positive), int32 and bool lanes ``(256, 256)``, blocks
+    ``(n, 4096)`` of each, and 2x2 matrices."""
+    rng = np.random.default_rng(2100 + rank)
+    lanes, blocks = (VMAP_LANES, 256, 256), (VMAP_LANES, n, 4096)
+    return {"f": rng.uniform(0.5, 1.5, lanes).astype(np.float32),
+            "i": rng.integers(-60, 60, lanes).astype(np.int32),
+            "b": rng.random(lanes) < 0.5,
+            "fb": rng.uniform(0.5, 1.5, blocks).astype(np.float32),
+            "ib": rng.integers(0, 128, blocks).astype(np.int32),
+            "bb": rng.random(blocks) < 0.5,
+            "mats": rng.standard_normal((VMAP_LANES, 2, 2)).astype(np.float32)}
+
+
+def vmap_cases(M, N, world, n):
+    """``(name, input, lane function)`` of phase 21 (a): the 13 ops, in
+    f32 and in int32 and bool where the op takes them, and the tokenless
+    ``allreduce`` and ``sendrecv``."""
+    last = n - 1
+    cases = []
+    for kind, ops in (("f", ("SUM", "PROD", "MIN", "MAX")), ("i", ("SUM", "MAX", "BXOR")),
+                      ("b", ("LOR", "LXOR"))):
+        for op in ops:
+            cases.append((f"allreduce/{kind}/{op}", kind, lambda v, op=op:
+                          M.allreduce(v, getattr(M, op), comm=world)[0]))
+    cases.append(("allreduce/matmul", "mats",
+                  lambda v: M.allreduce(v, torch.matmul, comm=world)[0]))
+    for kind, op in (("f", "SUM"), ("i", "MAX"), ("b", "LOR")):
+        cases += [
+            (f"reduce/{kind}/{op}", kind, lambda v, op=op:
+             M.reduce(v, getattr(M, op), last, comm=world)[0]),
+            (f"reduce_scatter/{kind}/{op}", kind + "b", lambda v, op=op:
+             M.reduce_scatter(v, getattr(M, op), comm=world)[0])]
+    for kind, op in (("f", "SUM"), ("i", "BXOR"), ("b", "LXOR")):
+        cases.append((f"scan/{kind}/{op}", kind, lambda v, op=op:
+                      M.scan(v, getattr(M, op), comm=world)[0]))
+    for kind in ("f", "i", "b"):
+        cases += [
+            (f"allgather/{kind}", kind, lambda v: M.allgather(v, comm=world)[0]),
+            (f"bcast/{kind}", kind, lambda v: M.bcast(v, last, comm=world)[0]),
+            (f"alltoall/{kind}", kind + "b", lambda v: M.alltoall(v, comm=world)[0]),
+            (f"sendrecv/{kind}", kind, lambda v:
+             M.sendrecv(v, v, dest=M.shift(1), comm=world)[0])]
+    for kind in ("f", "i"):
+        cases.append((f"scatter/{kind}", kind + "b",
+                      lambda v: M.scatter(v, last, comm=world)[0]))
+    cases += [
+        ("gather/f", "f", lambda v: M.gather(v, 0, comm=world)[0]),
+        ("send_recv/f", "f", lambda v: M.recv(
+            v, comm=world, token=M.send(v, M.shift(1), comm=world))[0]),
+        ("barrier/f", "f", lambda v: (M.barrier(comm=world), v * 2)[1]),
+        ("notoken/allreduce/f", "f", lambda v: N.allreduce(v, comm=world)),
+        ("notoken/sendrecv/f", "f", lambda v:
+         N.sendrecv(v, v, dest=M.shift(1), comm=world)),
+    ]
+    return cases
+
+
+def vmap_lane_band(name, n):
+    """The band of a vmapped case against its lane-by-lane run (``None``:
+    bit for bit): an f32 SUM on one ``dist.all_reduce`` or ``dist.reduce``
+    adds each element's ranks in an order gloo derives from the buffer's
+    length, commutative only between two ranks (rtol 1e-5, the port's SUM
+    band); the matrix-product callable runs as one batched product (rtol
+    1e-5, atol 1e-5)."""
+    if name in ("allreduce/f/SUM", "reduce/f/SUM", "notoken/allreduce/f") and n > 2:
+        return {"rtol": 1e-5, "atol": 0.0}
+    if name == "allreduce/matmul":
+        return {"rtol": 1e-5, "atol": 1e-5}
+    return None
+
+
+def _wall_us(dev, fn, reps):
+    """Median host wall of ``fn()``, with the card's work waited for, in
+    microseconds."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        walls.append((time.perf_counter() - t0) * 1e6)
+    return sorted(walls)[len(walls) // 2]
+
+
+def vmap_rank(rank, device, n, reps):
+    """Phase 21 (a) and (b) on one of ``n`` ranks on ``device``: every case
+    of ``vmap_cases`` vmapped and lane by lane, their bits, exchanges and
+    microseconds; ``jacfwd`` and ``jacrev`` of a SUM-allreduce and of a
+    ``sendrecv`` ring on the card and on the CPU."""
+    import mpi4jax_tpu_torch as M
+    from mpi4jax_tpu_torch.experimental import notoken as N
+    from mpi4jax_tpu_torch.ops import _staging
+    from torch.func import jacfwd, jacrev, vmap
+
+    dev = torch.device(device)
+    world = M.Comm("x", mesh=M.make_world_mesh((n,), ("x",), device=dev))
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in vmap_inputs(n, rank).items()}
+    out = {"cases": {}, "worst": 0.0}
+    for name, kind, fn in vmap_cases(M, N, world, n):
+        x = inp[kind]
+        _staging.stats.reset()
+        got = vmap(fn)(x)
+        calls = _staging.stats.calls
+        _staging.stats.reset()
+        lanes = torch.stack([fn(x[b]) for b in range(VMAP_LANES)])
+        lane_calls = _staging.stats.calls / VMAP_LANES
+        if got.device != dev or got.dtype != lanes.dtype or got.shape != lanes.shape:
+            raise AssertionError(f"rank {rank} vmap {name}: {got.device} {got.dtype} "
+                                 f"{tuple(got.shape)} against lanes {lanes.dtype} "
+                                 f"{tuple(lanes.shape)}")
+        lb = vmap_lane_band(name, n)
+        err = (got.double() - lanes.double()).abs().max().item()
+        if lb is None and not torch.equal(got, lanes):
+            raise AssertionError(f"rank {rank} vmap {name}: not bit for bit with "
+                                 f"its lanes (max|diff| {err:.3e})")
+        if lb is not None and not torch.allclose(got, lanes, **lb):
+            raise AssertionError(f"rank {rank} vmap {name}: off its lanes by {err:.3e}")
+        if calls != lane_calls:
+            raise AssertionError(f"rank {rank} vmap {name}: {calls} exchanges, one "
+                                 f"lane's call {lane_calls}")
+        out["worst"] = max(out["worst"], err)
+        out["cases"][name] = {
+            "calls": calls, "max_abs_err_vs_lanes": err,
+            "vmap_us": _wall_us(dev, lambda: vmap(fn)(x), reps),
+            "lanes_us": _wall_us(dev, lambda: [fn(x[b]) for b in range(VMAP_LANES)],
+                                 reps)}
+    M.flush()
+    # (b): the JAX package's convention inside its region: through a
+    # SUM-allreduce jacfwd sums every rank's tangent (n x I) and jacrev
+    # counts a replicated cotangent once (I); a ring's are the same bits
+    x = torch.from_numpy(np.random.default_rng(2200 + rank).uniform(
+        0.5, 1.5, 64).astype(np.float32))
+    jac = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        v = x.to(d)
+        ar = lambda w: M.allreduce(w, M.SUM, comm=world)[0]
+        ring = lambda w: M.sendrecv(w, w, dest=M.shift(1), comm=world)[0]
+        jac[where] = {"allreduce/jacfwd": jacfwd(ar)(v).cpu(),
+                      "allreduce/jacrev": jacrev(ar)(v).cpu(),
+                      "ring/jacfwd": jacfwd(ring)(v).cpu(),
+                      "ring/jacrev": jacrev(ring)(v).cpu()}
+    card = jac["card"]
+    eye = torch.eye(64)
+    if not (torch.equal(card["allreduce/jacrev"], eye)
+            and torch.equal(card["allreduce/jacfwd"], n * card["allreduce/jacrev"])):
+        raise AssertionError(f"rank {rank}: allreduce jacfwd/jacrev are not n x I / I")
+    if not torch.equal(card["ring/jacfwd"], card["ring/jacrev"]):
+        raise AssertionError(f"rank {rank}: the ring's jacfwd and jacrev differ")
+    for key, val in card.items():
+        if not torch.equal(val, jac["cpu"][key]):
+            raise AssertionError(f"rank {rank}: {key} on the card differs from the CPU's")
+    out["jacobians"] = {k: float(v.abs().sum()) for k, v in card.items()}
+    return out
+
+
+def ensemble_rank(rank, device, nx, ny, steps):
+    """Phase 21 (c) on one of eight ranks on ``device``: two members of
+    ``nx`` x ``ny`` on the ``("py", "px")`` sub-communicator of a
+    ``(dp, py, px) = (2, 2, 2)`` world, member 1 started 10 cm higher,
+    ``steps`` steps through ``make_stepper(fast="auto")``, and the mean of
+    ``h`` allreduced over ``dp``."""
+    import mpi4jax_tpu_torch as M
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+
+    dev = torch.device(device)
+    mesh = M.make_world_mesh((2, 2, 2), ("dp", "py", "px"), device=dev)
+    world = M.Comm(("dp", "py", "px"), mesh=mesh)
+    sp, dpc = world.sub("py", "px"), world.sub("dp")
+    cfg = P.Config(nx=nx, ny=ny, nproc_y=2, nproc_x=2)
+    mode = P.resolve_fast("auto", cfg)
+    if mode != "wide2":
+        raise AssertionError(f"rank {rank}: auto picks {mode}, not wide2")
+    s = P.initial_state(cfg, rank=sp.Get_rank(), device=dev)
+    member = dpc.Get_rank()
+    if member == 1:
+        s = s._replace(h=s.h + 0.1)
+    first, multi = P.make_stepper(cfg, sp, fast="auto")
+    KW.counter.launches = 0
+    s = first(s)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    s = multi(s, steps - 1)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = KW.counter.launches
+    total, _ = M.allreduce(s.h, M.SUM, comm=dpc)
+    out = {"member": member, "block": sp.Get_rank(), "launches": launches,
+           "steps_per_s": (steps - 1) / wall, "mean": (total * 0.5).cpu().numpy(),
+           "h": s.h.cpu().numpy(), "frame": list(s.h.shape),
+           "finite": all(bool(torch.isfinite(f).all()) for f in s)}
+    if member == 0:
+        out["state"] = tuple(f.cpu().numpy() for f in s)
+    return out
+
+
+def transforms_phase(P, dev, launch, smi):
+    """Phase 21: (a) and (b) on four gloo ranks on this card
+    (``vmap_rank``), (c) the hybrid ensemble on eight (``ensemble_rank``)
+    against 20 single-GPU ``pallas2`` steps from the same state."""
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    t0 = time.perf_counter()
+    res = launch.run(vmap_rank, 4, backend="gloo", device="cuda:0", timeout=300,
+                     args=("cuda:0", 4, 5))
+    out["a_b_s"] = time.perf_counter() - t0
+    r0 = res[0]
+    out["a"] = {"cases": len(r0["cases"]),
+                "max_abs_err_vs_lanes": max(r["worst"] for r in res),
+                "rank0": r0["cases"]}
+    out["b"] = {"rank0_abs_sums": r0["jacobians"]}
+    for name, c in r0["cases"].items():
+        print(f"  21 (a) {name}: vmapped {c['vmap_us']:.0f} us against "
+              f"{VMAP_LANES} lane calls {c['lanes_us']:.0f} us, {c['calls']} "
+              f"exchange(s), max|diff| vs lanes {c['max_abs_err_vs_lanes']:.3e}")
+    print(f"  21 (b) jacfwd/jacrev of allreduce (n x I, I) and of a ring (equal), "
+          "card bit for bit with CPU on every rank")
+
+    cfg1 = P.Config(nx=3600, ny=1800)
+    _, comm1 = P.make_mesh_and_comm(cfg1, device=dev)
+    first, multi = P.make_stepper(cfg1, comm1, fast="pallas2")
+    ref = [f[1:-1, 1:-1].cpu()
+           for f in multi(first(P.initial_state(cfg1, device=dev)), ENSEMBLE_STEPS - 1)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.run(ensemble_rank, 8, backend="gloo", device="cuda:0", timeout=600,
+                       args=("cuda:0", 3600, 1800, ENSEMBLE_STEPS))
+    out["c_s"] = time.perf_counter() - t0
+    g = P.Config(nx=3600, ny=1800, nproc_y=2, nproc_x=2)
+    members = [[r for r in ranks if r["member"] == m] for m in (0, 1)]
+    for m in members:
+        m.sort(key=lambda r: r["block"])
+    if [len(m) for m in members] != [4, 4]:
+        raise AssertionError("the ensemble's ranks are not two members of four")
+    worst = 0.0
+    for k, fname in enumerate(P.State._fields):
+        got = torch.from_numpy(P.reassemble(np.stack([r["state"][k] for r in members[0]]),
+                                            g))
+        err = (got - ref[k]).abs().max().item()
+        lim = RUN_BAND_ABS + RUN_BAND_REL * ref[k].abs().max().item()
+        print(f"  21 (c) member 0 wide2 vs single-GPU pallas2, {ENSEMBLE_STEPS} steps, "
+              f"{fname}: max|diff| {err:.3e} (band {lim:.3e})")
+        if err > lim:
+            raise AssertionError(f"ensemble member 0 {fname} off by {err:.3e}")
+        worst = max(worst, err)
+    spread = 0.0
+    for r0_, r1_ in zip(*members):
+        want = 0.5 * (r0_["h"] + r1_["h"])
+        for r in (r0_, r1_):
+            if not np.array_equal(r["mean"], want):
+                raise AssertionError(f"block {r['block']}: the dp mean is not "
+                                     "0.5 * (h0 + h1) bit for bit")
+        spread = max(spread, float(np.abs(r0_["h"] - r1_["h"]).max()))
+    if not spread > 1e-3:
+        raise AssertionError(f"the members differ by only {spread:.3e}")
+    if not all(r["finite"] for r in ranks):
+        raise AssertionError("an ensemble field is not finite")
+    per_rank = [{"member": r["member"], "block": r["block"], "launches": r["launches"],
+                 "steps_per_s": r["steps_per_s"], "frame": r["frame"]} for r in ranks]
+    for r, pr in enumerate(per_rank):
+        if pr["launches"] == 0:
+            raise AssertionError(f"rank {r}: sw_wide was never launched")
+        print(f"  21 (c) rank {r} (member {pr['member']}, block {pr['block']}): "
+              f"sw_wide {pr['launches']} launches, {pr['steps_per_s']:.2f} steps/s")
+    out["c"] = {"max_abs_err_vs_single_gpu": worst, "members_differ_by": spread,
+                "ranks": per_rank, "ensemble_launches_rank0": ranks[0]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21: {out['seconds']:.1f} s ((a)+(b) {out['a_b_s']:.1f} s, "
+          f"(c) {out['c_s']:.1f} s with start-up)")
+    return out
+
+
+def transforms_main():
+    """``python3 chip_smoke.py --transforms``: ``sw_steps`` and ``sw_wide``
+    built at once, then phase 21 alone; one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+    from mpi4jax_tpu_torch.models import shallow_water as P
+    from mpi4jax_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    libs = _build.build_many([K.spec(), KW.spec()])
+    print(f"built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
+    out = transforms_phase(P, torch.device("cuda"), launch, smi)
+    print(smi)
+    print(json.dumps({"transforms": out}, default=str))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6803,6 +7139,10 @@ def main():
     cli = cli_phase(P, single_final[0].numpy())
     print(json.dumps({"cli": cli}, default=str))
 
+    # -- torch.func over the ops, and the hybrid ensemble on eight ranks ---
+    transforms = transforms_phase(P, dev, launch, smi)
+    print(json.dumps({"transforms": transforms}, default=str))
+
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
     phase2 = phase_cases["periodic,phase2"]
@@ -6908,6 +7248,8 @@ def main():
         "runtime_four_rank_launches_rank0": [r["wide_launches"] for r in four],
         # phase 20 (d): the command's --n-devices 4 demo, each rank's
         "cli_four_rank_launches": [r["sw_wide"] for r in cli["d"]["card"]["launches"]],
+        # phase 21 (c): the hybrid ensemble, rank 0's 20 steps
+        "ensemble_launches_rank0": transforms["c"]["ensemble_launches_rank0"],
     }]
     for name, main_case, replaces in (
         ("flash_fwd_tf32", "f32", ":122"),
@@ -7057,5 +7399,6 @@ if __name__ == "__main__":
              "--elastic": elastic_main, "--workloads": workloads_main,
              "--serving": serving_main, "--aot": aot_main,
              "--verifier": verifier_main, "--cost": cost_main,
-             "--hierarchy": hierarchy_main, "--cli": cli_main}
+             "--hierarchy": hierarchy_main, "--cli": cli_main,
+             "--transforms": transforms_main}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in modes else main())

@@ -61,7 +61,14 @@ branches written with ``cond``/``switch``) and its cost model
 (``analyze(cost=True)``); and the tuning layer (``autotune``,
 ``TuningFile``, ``load_tuning``, ``active_tuning``, ``python -m
 mpi4jax_tpu_torch.autotune``), with the serving replay
-(``serving/sim.py``).  Nothing here imports JAX.
+(``serving/sim.py``); and the ops under ``torch.func``: ``vmap`` over
+every op and its tokenless form, one collective a call on the physical
+tensor, and ``jvp``, ``jacfwd``, ``jacrev``, ``vjp``, ``grad`` and
+``hessian`` through the differentiable ones (``ops/_base.py``:
+``Exchanged``, ``Lanes``), with the hybrid ensemble on a 3-axis mesh
+(members on ``world.sub("py", "px")``, the mean over ``dp``) that
+``chip_smoke.py`` phase 21 (``--transforms``) drives on the card.
+Nothing here imports JAX.
 """
 
 from .ops import (  # noqa: F401

@@ -280,14 +280,18 @@ def exchange_round(send: Optional[torch.Tensor], dest: Optional[int],
     """One round: send ``send`` to global rank ``dest`` and receive a
     tensor like ``recv_like`` from global rank ``source`` (either side may
     be ``None``), as one batch of point-to-point ops; the tensors travel
-    as their bytes.  Returns the received tensor (or ``None``)."""
-    from .sendrecv import _exchange
+    as their bytes, viewed on the physical tensors under ``vmap``
+    (``sendrecv.message_layout``).  Returns the received tensor (or
+    ``None``)."""
+    from ._base import exchange
+    from .sendrecv import _p2p, message_layout
 
-    raw = _exchange(None if send is None else _bytes(send), dest,
-                    None if recv_like is None else _bytes(recv_like), source)
-    if raw is None:
-        return None
-    return raw.view(recv_like.dtype).reshape(recv_like.shape)
+    def run(s, r):
+        raw = _p2p(None if s is None else _bytes(s), dest,
+                   None if r is None else _bytes(r), source)
+        return None if raw is None else raw.view(r.dtype).reshape(r.shape)
+
+    return exchange(run, message_layout, send, recv_like)
 
 
 def _neighbours(comm, k: int):
@@ -309,14 +313,17 @@ def apply_butterfly_allreduce(x, op, comm):
     """The port's butterfly: one ``dist.all_gather`` of every member's
     ``x`` (as bytes) and the ascending fold (``_base.fold``), the JAX
     butterfly's bits and dtype; any partition."""
-    from ._base import combine_fn, fold
-    from .allgather import gather_blocks
+    from ._base import STACKED, combine_fn, exchange, fold
+    from .allgather import _gather_blocks
 
     if len(comm.members()) == 1:
         return x
-    rows = gather_blocks(_bytes(x), comm)
-    blocks = rows.view(x.dtype).reshape((rows.shape[0],) + tuple(x.shape))
-    out = fold(blocks.unbind(0), combine_fn(op))
+
+    def run(v):
+        rows = _gather_blocks(_bytes(v), comm)
+        return rows.view(v.dtype).reshape((rows.shape[0],) + tuple(v.shape))
+
+    out = fold(exchange(run, STACKED, x).unbind(0), combine_fn(op))
     # the butterfly's jnp.where promotes a logical result to x's dtype
     return out.to(torch.promote_types(out.dtype, x.dtype))
 
@@ -325,11 +332,13 @@ def apply_doubling_bcast(x, comm, root: int):
     """The port's doubling broadcast: one ``dist.broadcast`` of ``x``'s
     bytes from group position ``root`` (pure routing: the JAX doubling
     broadcast's bits)."""
-    from .bcast import broadcast
+    from ._base import ELEMENTWISE, exchange
+    from .bcast import _broadcast
 
     if len(comm.members()) == 1:
         return x
-    return broadcast(_bytes(x), root, comm).view(x.dtype).reshape(x.shape)
+    return exchange(lambda v: _broadcast(_bytes(v), root, comm).view(
+        v.dtype).reshape(v.shape), ELEMENTWISE, x)
 
 
 # ---------------------------------------------------------------------------

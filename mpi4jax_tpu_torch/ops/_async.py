@@ -37,9 +37,10 @@ group are matched by issue order, so handles may be waited in any order.
 Where the async route does not give the synchronous op's bits or its
 autograd (a size-1 comm, a reduction the port folds itself: callables,
 bool tensors, the logical and bitwise ones, PROD on a color split; a
-tensor that autograd follows, forward or backward), the start runs the
-whole synchronous op and the wait only returns its result, as the JAX
-package's start does where its ring does not apply.  An f32 SUM or PROD
+tensor that autograd follows, forward or backward, or that a
+``torch.func`` transform wraps), the start runs the whole synchronous op
+and the wait only returns its result, as the JAX package's start does
+where its ring does not apply.  An f32 SUM or PROD
 in pieces may add in another order than in one piece: fused, chunked and
 whole results agree within the band the port's SUM is held to (rtol
 1e-5); everything else bit for bit.
@@ -52,7 +53,9 @@ flight at the iteration's end raises MPX130 (``close_iteration``), and so
 does a wait of a start from another iteration or from outside the loop.
 ``with overlap():`` splits every ``allreduce``, ``reduce_scatter`` and
 ``alltoall`` inside it into a start and a wait deferred to the result's
-first use (``_LazyWait``), or to the scope's end.
+first use (``_LazyWait``), or to the scope's end; under a ``torch.func``
+transform that began inside the region the op runs at once
+(``_fusion.deferrable``).
 
 Each start and each wait goes through the dispatch point as its own op
 (``ops/_base.py:run_body``, ``bare=True``: a telemetry record each), and
@@ -79,7 +82,7 @@ from ..utils import config
 from . import _fusion
 from ..analysis import hook as _analysis
 from ._base import (SUM, Op, check_comm, combine_fn, fold, meta_like, mpx_error,
-                    reduction_name, run_body)
+                    reduction_name, run_body, transformed, wants_grad)
 from ._staging import Exchange
 from .recv import match, recv
 from .send import queue, send
@@ -290,10 +293,12 @@ def _full(handle: AsyncHandle, result) -> None:
     handle.pieces = (result,)
 
 
-def _grad(x: torch.Tensor) -> bool:
-    from .allreduce import wants_grad
-
-    return wants_grad(x)
+def _whole(x: torch.Tensor) -> bool:
+    """Whether the start runs the synchronous op: autograd follows ``x``,
+    or a ``torch.func`` transform wraps it (the pieces in flight are
+    buffers of the physical tensor, which the wait could not hand back
+    batched)."""
+    return wants_grad(x) or transformed(x)
 
 
 def _issue(handle: AsyncHandle, device, calls: int, issue) -> None:
@@ -340,12 +345,12 @@ def allreduce_start(x, op=None, *, comm: Optional[Comm] = None,
         (x,) = _span_open("allreduce", comm, arrays, handle)
         handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
         handle.k = len(comm.members())
-        ring = None if handle.k == 1 or _grad(x) else _ring_split(x, op, comm)
+        ring = None if handle.k == 1 or _whole(x) else _ring_split(x, op, comm)
         if ring is not None:
             _start_ring(handle, x, op, comm, *ring)
             return handle, produce(token)
         if (handle.k == 1 or op not in _DIST_OPS or x.dtype == torch.bool
-                or _grad(x) or (comm.groups is not None and op is Op.PROD)):
+                or _whole(x) or (comm.groups is not None and op is Op.PROD)):
             _full(handle, reduce_all(x, op, comm))
             return handle, produce(token)
         flat = x.detach().reshape(-1)
@@ -557,7 +562,7 @@ def alltoall_start(x, *, comm: Optional[Comm] = None,
         handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
         if handle.k == 1:
             _full(handle, x.clone())
-        elif _grad(x):
+        elif _whole(x):
             _full(handle, _AllToAll.apply(x, comm))
         else:
             algo, plan = select_alltoall(x, comm)
@@ -632,7 +637,7 @@ def reduce_scatter_start(x, op=None, *, comm: Optional[Comm] = None,
     def body(comm, arrays, token):
         (x,) = _span_open("reduce_scatter", comm, arrays, handle)
         handle.shape, handle.dtype, handle.device = x.shape[1:], x.dtype, x.device
-        if handle.k == 1 or not isinstance(op, Op) or _grad(x):
+        if handle.k == 1 or not isinstance(op, Op) or _whole(x):
             _full(handle, scatter_reduced(x, op, comm))
         else:
             _start_blocks(handle, x, comm)
@@ -704,7 +709,7 @@ def recv_start(x, source=None, tag: int = 0, *, comm: Optional[Comm] = None,
         (x,) = _span_open("recv", comm, arrays, handle)
         handle.shape, handle.dtype, handle.device = x.shape, x.dtype, x.device
         q = queue(comm, tag)
-        if _grad(x) or (q and _grad(q[0].x)):
+        if _whole(x) or (q and _whole(q[0].x)):
             _full(handle, recv(x, source, tag, comm=comm)[0])
             return handle, produce(token)
         pending = match(x, source, tag, comm, "recv_start")
@@ -805,7 +810,7 @@ def finish_region(ctx) -> None:
 # ---------------------------------------------------------------------------
 
 
-_overlap_stack: List[list] = []
+_overlap_stack: List["overlap"] = []
 
 
 class overlap:
@@ -820,7 +825,7 @@ class overlap:
                 "overlap() requires a region (spmd / run); use explicit "
                 "allreduce_start/allreduce_wait outside one")
         self._lazies: list = []
-        _overlap_stack.append(self._lazies)
+        _overlap_stack.append(self)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -856,7 +861,8 @@ def overlap_active() -> bool:
 def maybe_lazy(opname: str, x, op, comm, token):
     """Route one collective through its start and a deferred wait;
     ``None`` outside ``overlap()``."""
-    if not overlap_active():
+    if not overlap_active() or not _fusion.deferrable(
+            _fusion.materialize_value(x), current_context().level):
         return None
     if opname == "allreduce":
         handle, tok = allreduce_start(x, op, comm=comm, token=token)
@@ -865,5 +871,5 @@ def maybe_lazy(opname: str, x, op, comm, token):
     else:
         handle, tok = reduce_scatter_start(x, op, comm=comm, token=token)
     lw = _LazyWait(handle)
-    _overlap_stack[-1].append(lw)
+    _overlap_stack[-1]._lazies.append(lw)
     return lw, tok

@@ -43,6 +43,7 @@ import itertools
 from typing import Callable, Optional, Union
 
 import torch
+from torch._C import _functorch
 
 from ..analysis import hook as _analysis
 from ..analysis import lineage as _lineage
@@ -139,7 +140,118 @@ def annotate_native() -> None:
     _telemetry.annotate(algo="native")
 
 
-class Substitute(torch.autograd.Function):
+# ---------------------------------------------------------------------------
+# torch.func: the batching rule of every exchange
+# ---------------------------------------------------------------------------
+#
+# An op is Python around exchanges (``torch.distributed`` calls) and local
+# arithmetic.  Under ``torch.func.vmap`` the arithmetic batches by itself
+# and every check reads the lane's shape; an exchange runs once, on the
+# physical tensor, as a batched JAX collective is one collective.  The
+# exchanges sit inside ``Exchanged`` Functions: the differentiable ones of
+# the ops (``_AllreduceSum``, ``_AllGather``, ``_SendRecv``, ...) and
+# ``Lanes``, the thin one around an exchange with no rule of its own
+# (``exchange``).  Their ``vmap`` rule lays the batch dim out as the
+# exchange's family needs (``layout``) and applies the Function again, one
+# level down, until ``forward`` gets plain tensors.  The grad and jvp
+# levels unwrap in the same way (functorch's own rule for a Function), and
+# a backward or jvp rule that runs an exchange goes through the same
+# Functions, so ``jacrev`` (a vmap over a vjp) and ``jacfwd`` (a vmap over
+# a jvp) batch too.
+
+
+def transformed(*tensors) -> bool:
+    """Whether a ``torch.func`` transform (``vmap``, ``grad``, ``jvp``,
+    ...) wraps one of ``tensors``: they then have no storage of their own,
+    and an exchange must run on what they wrap."""
+    return any(isinstance(t, torch.Tensor) and _functorch.is_functorch_wrapped_tensor(t)
+               for t in tensors)
+
+
+def wants_grad(x: torch.Tensor) -> bool:
+    """Whether autograd follows ``x`` here: backward or forward
+    (``torch.autograd.forward_ad``), or a ``torch.func`` grad or jvp level
+    that tracks it, under any number of vmap levels."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return True
+    if torch.autograd.forward_ad.unpack_dual(x).tangent is not None:
+        return True
+    while _functorch.is_functorch_wrapped_tensor(x):
+        if _functorch.is_gradtrackingtensor(x):
+            return True
+        x = _functorch.get_unwrapped(x)
+    return False
+
+
+def batch_at(size: int, dim: Optional[int], t: torch.Tensor,
+             at: int = 0) -> torch.Tensor:
+    """The physical ``t`` of a vmapped call with its batch dim (``dim``)
+    at ``at``; an unbatched ``t`` expanded to ``size`` lanes."""
+    if dim is None:
+        return t.unsqueeze(at).expand(*t.shape[:at], size, *t.shape[at:])
+    return t.movedim(dim, at)
+
+
+def _laid_out(at: int, out: int):
+    def layout(size, in_dims, args):
+        return [batch_at(size, d, a, at) if isinstance(a, torch.Tensor) else a
+                for a, d in zip(args, in_dims)], out
+    return layout
+
+
+# the layouts, ``(batch size, in_dims, args) -> (args, out_dims)``, of the
+# exchange families: elementwise (allreduce, bcast, reduce to root; the
+# batch dim first), stacked (allgather: the size axis goes in front of the
+# batch dim), blocks (alltoall: the lane's leading axis is the rank-block
+# axis, so the batch dim goes behind it) and reduced blocks
+# (reduce-scatter, whose result loses the block axis)
+ELEMENTWISE = _laid_out(0, 0)
+STACKED = _laid_out(0, 1)
+BLOCKS = _laid_out(1, 1)
+REDUCED_BLOCKS = _laid_out(1, 0)
+
+
+class Exchanged(torch.autograd.Function):
+    """A Function around an exchange, batched by its ``layout``: the vmap
+    rule runs the Function once on the physical tensors."""
+
+    layout: Callable = ELEMENTWISE
+
+    @classmethod
+    def vmap(cls, info, in_dims, *args):
+        args, out_dims = cls.layout(info.batch_size, in_dims, args)
+        return cls.apply(*args), out_dims
+
+
+class Lanes(Exchanged):
+    """``run(*tensors)``, an exchange with no Function of its own, on the
+    physical tensors laid out by ``layout`` (see ``exchange``)."""
+
+    @staticmethod
+    def forward(run, layout, *tensors):
+        return run(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @classmethod
+    def vmap(cls, info, in_dims, run, layout, *tensors):
+        tensors, out_dims = layout(info.batch_size, in_dims[2:], tensors)
+        return cls.apply(run, layout, *tensors), out_dims
+
+
+def exchange(run: Callable, layout: Callable, *tensors):
+    """``run(*tensors)``; under a ``torch.func`` transform, once on the
+    physical tensors (``Lanes``), the result re-wrapped as ``layout``
+    says.  ``run`` must not be differentiated through: an op that autograd
+    follows takes its Function."""
+    if transformed(*tensors):
+        return Lanes.apply(run, layout, *tensors)
+    return run(*tensors)
+
+
+class Substitute(Exchanged):
     """``value`` forward, with ``graph``'s backward: a lowering of the
     algorithm layer (``ops/_algos.py``, ``ops/_hierarchy.py``) changes an
     op's forward only; ``graph`` is the op's own differentiable route on
@@ -165,8 +277,6 @@ class Substitute(torch.autograd.Function):
 def lowered(x: torch.Tensor, run: Callable, graph: Callable) -> torch.Tensor:
     """``run(x)``, the forward of a lowering; where autograd follows ``x``,
     with the backward of ``graph(x)``, the op's own route."""
-    from .allreduce import wants_grad
-
     if wants_grad(x):
         return Substitute.apply(graph(x), run(x.detach()))
     return run(x)

@@ -34,7 +34,10 @@ the order the backend picks for each position, which may differ once
 members share a buffer; there fused and unfused agree within the band
 the port's SUM is held to against the JAX package (rtol 1e-5).
 Callable reductions never fuse.  A deferred op's token passes through:
-the packed collective is ordered by where the flush happens.
+the packed collective is ordered by where the flush happens.  Under a
+``torch.func`` transform that began inside the region an op does not
+queue: its deferred result could not leave the transform
+(``deferrable``).
 
 A flush meters each bucket (``_meter_bucket``: buckets, members, packed
 bytes and padding per op, comm and dtype) in the telemetry tiers, and each
@@ -48,6 +51,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+from torch._C import _functorch
 
 from ..utils import config
 from ..utils.tree import tree_map
@@ -329,6 +333,8 @@ def maybe_defer(opname: str, x, comm, token, reduction=None, root=None):
         return None
     comm = comm if comm is not None else ctx.comm
     x = materialize_value(x)
+    if not deferrable(x, ctx.level):
+        return None
     key = (opname, comm.uid, reduction, root)
     q = ctx.fusion_queue
     if q is not None and q.key != key:
@@ -343,6 +349,18 @@ def maybe_defer(opname: str, x, comm, token, reduction=None, root=None):
 
         token = Token()
     return cell, token
+
+
+def deferrable(x, opened_at) -> bool:
+    """Whether an op on ``x`` may return a deferred result (fusion,
+    ``overlap()``) in a region opened at ``torch.func`` level
+    ``opened_at``.  A deferred result turns into its tensor at its first
+    use, at the latest at the region's end; under a transform that began
+    inside the region, that end lies outside the transform, which a
+    deferred value cannot leave (``vmap`` returns tensors only), so the op
+    runs at once there."""
+    return (not _functorch.is_functorch_wrapped_tensor(x)
+            or _functorch.maybe_current_level() == opened_at)
 
 
 def flush_pending(ctx) -> None:

@@ -25,7 +25,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.comm import Comm
-from ._base import check_comm, fold, meta_like, run_body
+from ._base import (REDUCED_BLOCKS, STACKED, Exchanged, check_comm, exchange,
+                    fold, meta_like, run_body)
 from ._staging import Exchange
 from .alltoall import _exchange as _alltoall
 from .token import Token, produce
@@ -33,6 +34,10 @@ from .token import Token, produce
 
 def gather_blocks(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """Every rank's ``x``, stacked in comm-rank order (several ranks)."""
+    return exchange(lambda v: _gather_blocks(v, comm), STACKED, x)
+
+
+def _gather_blocks(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     members = comm.members()
     with Exchange(x.device) as ex:
         parts = [ex.buffer(x) for _ in members]
@@ -47,7 +52,9 @@ def reduce_scatter_sum(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     return fold(_alltoall(x, comm).unbind(0), torch.add)
 
 
-class _AllGather(torch.autograd.Function):
+class _AllGather(Exchanged):
+    layout = STACKED
+
     @staticmethod
     def forward(x, comm):
         return gather_blocks(x, comm)
@@ -65,7 +72,9 @@ class _AllGather(torch.autograd.Function):
         return gather_blocks(t, ctx.comm)
 
 
-class _ReduceScatterSum(torch.autograd.Function):
+class _ReduceScatterSum(Exchanged):
+    layout = REDUCED_BLOCKS
+
     @staticmethod
     def forward(x, comm):
         return reduce_scatter_sum(x, comm)

@@ -50,7 +50,12 @@ rank r's own loss:
   with a grad on a color split they take the fold, differentiable, as the
   JAX package's butterfly is.
 
-The forward mode reduces the tangent alongside (``jvp``).
+The forward mode reduces the tangent alongside (``jvp``).  Under
+``torch.func`` every exchange here batches through its Function's
+``vmap`` rule (``_base.Exchanged``): a vmapped allreduce is one
+collective, a callable folds lane by lane, and ``jacrev``/``jacfwd``
+batch the backward and jvp rules in the same way; ``wants_grad`` sees
+the grad and jvp levels.
 """
 
 from __future__ import annotations
@@ -64,8 +69,9 @@ from ..analysis.hook import dtype_name
 from ..parallel.comm import Comm
 from ..utils import config
 from . import _async, _fusion
-from ._base import (SUM, Op, OpLike, annotate_native, check_comm, combine_fn,
-                    fold, lowered, meta_like, reduction_name, run_body)
+from ._base import (ELEMENTWISE, SUM, Exchanged, Op, OpLike, annotate_native,
+                    check_comm, combine_fn, exchange, fold, lowered, meta_like,
+                    reduction_name, run_body, wants_grad)
 from ._staging import Exchange
 from .allgather import _AllGather
 from .token import Token, produce
@@ -81,6 +87,10 @@ _DIST_OPS = {
 def all_reduce(x: torch.Tensor, op: Op, comm: Comm) -> torch.Tensor:
     """One ``dist.all_reduce`` of ``x`` (SUM, MIN, MAX or PROD) over ``comm``'s
     ranks; ``x`` is not written."""
+    return exchange(lambda v: _all_reduce(v, op, comm), ELEMENTWISE, x)
+
+
+def _all_reduce(x: torch.Tensor, op: Op, comm: Comm) -> torch.Tensor:
     with Exchange(x.device) as ex:
         buf = ex.send(x)
         if buf.data_ptr() == x.data_ptr():  # all_reduce writes in place
@@ -89,7 +99,7 @@ def all_reduce(x: torch.Tensor, op: Op, comm: Comm) -> torch.Tensor:
         return ex.result(buf)
 
 
-class _AllreduceSum(torch.autograd.Function):
+class _AllreduceSum(Exchanged):
     """SUM-allreduce whose backward is the per-rank identity."""
 
     @staticmethod
@@ -109,7 +119,7 @@ class _AllreduceSum(torch.autograd.Function):
         return all_reduce(t, Op.SUM, ctx.comm)
 
 
-class _GroupSum(torch.autograd.Function):
+class _GroupSum(Exchanged):
     """SUM-allreduce on a color split: its own transpose."""
 
     @staticmethod
@@ -129,7 +139,7 @@ class _GroupSum(torch.autograd.Function):
         return all_reduce(t, Op.SUM, ctx.comm)
 
 
-class _Identity(torch.autograd.Function):
+class _Identity(Exchanged):
     """The transpose of ``_AllreduceSum``; its own transpose is the
     allreduce again."""
 
@@ -148,13 +158,6 @@ class _Identity(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, t, _):
         return t
-
-
-def wants_grad(x: torch.Tensor) -> bool:
-    """Whether autograd, backward or forward, follows ``x`` here."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return True
-    return torch.autograd.forward_ad.unpack_dual(x).tangent is not None
 
 
 def allreduce(x, op: OpLike = SUM, *, comm: Optional[Comm] = None,

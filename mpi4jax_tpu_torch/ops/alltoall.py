@@ -35,7 +35,8 @@ import torch.distributed as dist
 from ..analysis.hook import dtype_name
 from ..parallel.comm import Comm
 from . import _async
-from ._base import check_comm, lowered, meta_like, run_body
+from ._base import (BLOCKS, Exchanged, check_comm, exchange, lowered, meta_like,
+                    run_body)
 from ._fusion import materialize_value
 from ._staging import Exchange
 from .token import Token, produce
@@ -60,6 +61,10 @@ def unpermute(out: torch.Tensor, by_group) -> torch.Tensor:
 
 def _exchange(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """One multi-rank alltoall of ``x`` (leading axis = the group size)."""
+    return exchange(lambda v: _all_to_all(v, comm), BLOCKS, x.detach())
+
+
+def _all_to_all(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     by_group = group_order(comm)
     x = x.detach()
     if by_group is not None:
@@ -71,9 +76,11 @@ def _exchange(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     return unpermute(out, by_group)
 
 
-class _AllToAll(torch.autograd.Function):
+class _AllToAll(Exchanged):
     """The exchange, whose backward is the alltoall of the cotangent (rank
     r's slice i went to rank i's slot r, and back)."""
+
+    layout = BLOCKS
 
     @staticmethod
     def forward(x, comm):

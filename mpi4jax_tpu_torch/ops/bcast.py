@@ -33,13 +33,18 @@ from ..analysis.hook import dtype_name
 from ..parallel.comm import Comm
 from ..utils import config
 from . import _fusion
-from ._base import check_comm, check_root, lowered, meta_like, run_body
+from ._base import (ELEMENTWISE, Exchanged, check_comm, check_root, exchange,
+                    lowered, meta_like, run_body)
 from ._staging import Exchange
 from .token import Token, produce
 
 
 def broadcast(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
     """Comm rank ``root``'s ``x`` on every rank; ``x`` is not written."""
+    return exchange(lambda v: _broadcast(v, root, comm), ELEMENTWISE, x)
+
+
+def _broadcast(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
     with Exchange(x.device) as ex:
         buf = ex.send(x)
         if buf.data_ptr() == x.data_ptr():  # broadcast writes in place
@@ -50,6 +55,10 @@ def broadcast(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
 
 def reduce_to_root(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
     """The sum of every rank's ``x`` on comm rank ``root``, zeros elsewhere."""
+    return exchange(lambda v: _reduce_to_root(v, root, comm), ELEMENTWISE, x)
+
+
+def _reduce_to_root(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
     with Exchange(x.device) as ex:
         buf = ex.send(x)
         if buf.data_ptr() == x.data_ptr():  # reduce writes in place
@@ -60,7 +69,7 @@ def reduce_to_root(x: torch.Tensor, root: int, comm: Comm) -> torch.Tensor:
     return out if comm.Get_rank() == root else torch.zeros_like(x)
 
 
-class _Bcast(torch.autograd.Function):
+class _Bcast(Exchanged):
     @staticmethod
     def forward(x, root, comm):
         return broadcast(x, root, comm)
@@ -78,7 +87,7 @@ class _Bcast(torch.autograd.Function):
         return broadcast(t, ctx.root, ctx.comm)
 
 
-class _ReduceToRoot(torch.autograd.Function):
+class _ReduceToRoot(Exchanged):
     @staticmethod
     def forward(x, root, comm):
         return reduce_to_root(x, root, comm)

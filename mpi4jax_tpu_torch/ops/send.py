@@ -37,7 +37,8 @@ from ..parallel.comm import Comm
 from ..parallel.region import current_context
 from ..analysis import hook as _analysis
 from ..analysis.schedule import concretizing
-from ._base import check_comm, mpx_error, refuse_rank_concrete, run_body
+from ._base import (ELEMENTWISE, check_comm, exchange, mpx_error,
+                    refuse_rank_concrete, run_body)
 from ._fusion import flush_pending
 from ._staging import Exchange
 from .sendrecv import _p2p_ana, peers, routing
@@ -129,16 +130,23 @@ def send(x, dest, tag: int = 0, *, comm: Optional[Comm] = None,
 
     def body(comm, arrays, token):
         (x,) = arrays
-        wire, snapshot, work = wire_tag(comm, tag), None, None
+        wire, snapshot, works = wire_tag(comm, tag), None, [None]
+
+        def start(v):
+            with Exchange(v.device) as ex:
+                snap = ex.send(v)
+                if snap.data_ptr() == v.data_ptr():
+                    snap = snap.clone()
+                works[0] = dist.isend(snap, comm.global_rank(to), tag=wire)
+            return snap
+
         if to is not None and to != rank:
-            with Exchange(x.device) as ex:
-                snapshot = ex.send(x.detach())
-                if snapshot.data_ptr() == x.data_ptr():
-                    snapshot = snapshot.clone()
-                work = dist.isend(snapshot, comm.global_rank(to), tag=wire)
+            # under vmap the message is batched as x is, batch dim first,
+            # as the matching recv receives it (sendrecv.message_layout)
+            snapshot = exchange(start, ELEMENTWISE, x.detach())
         peer = comm.global_rank(frm) if frm is not None and frm != rank else None
         queue(comm, tag).append(PendingSend(x, pairs, to, frm, wire, snapshot,
-                                            work, next(_seq), peer))
+                                            works[0], next(_seq), peer))
         reap()
         return produce(token)
 

@@ -28,7 +28,10 @@ call it with a tangent.  Every rank that sends or receives must also run
 the op's backward: a rank that drops the output of a sendrecv it took part
 in leaves its peer's cotangent unreceived.  ``status=`` is filled as in
 the JAX package: the source's comm rank (-1 where nothing arrived), the
-tag the message was sent with, its element count and dtype.
+tag the message was sent with, its element count and dtype.  Under
+``torch.func.vmap`` the message is batched as the sent tensor is, the
+batch dim first (``message_layout``), on every rank alike whether it
+sends or not; an unbatched recv template beside it is expanded.
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ import torch.distributed as dist
 from ..parallel.comm import Comm
 from ..parallel.rankspec import resolve_routing
 from ..analysis import hook as _analysis
-from ._base import check_comm, check_send_recv, meta_like, run_body
+from ._base import (Exchanged, batch_at, check_comm, check_send_recv, exchange,
+                    meta_like, run_body)
 from ._staging import Exchange
 from .status import Status
 from .token import Token, produce
@@ -68,13 +72,34 @@ def peers(pairs, rank: int):
 def _exchange(send: Optional[torch.Tensor], dest: Optional[int],
               recv_like: Optional[torch.Tensor], source: Optional[int]):
     """Send ``send`` to global rank ``dest`` and receive a tensor shaped
-    like ``recv_like`` from global rank ``source`` (either may be ``None``),
-    as one batch of point-to-point ops; returns the received tensor (or
-    ``None``)."""
+    like ``recv_like`` from global rank ``source`` (``dest``, ``source``,
+    ``recv_like`` may be ``None``: no send, no receive), as one batch of
+    point-to-point ops; returns the received tensor (or ``None``).  Under
+    ``vmap`` the message is batched as ``send`` is (as ``recv_like`` is
+    where there is no ``send``): every rank's program batches it alike,
+    whether or not this rank sends."""
+    return exchange(lambda s, r: _p2p(s, dest, r, source), message_layout,
+                    send, recv_like)
+
+
+def message_layout(size, in_dims, args):
+    """The ``vmap`` layout of a point-to-point exchange ``(send,
+    recv_like)`` (see ``_exchange``): a batched message with the batch dim
+    first, the other buffer expanded to it; an unbatched message is
+    received into one lane of ``recv_like``."""
+    send, recv_like = args
+    lead = in_dims[0] if send is not None else in_dims[1]
+    if lead is None:
+        return [send, recv_like.select(in_dims[1], 0)], None
+    return [None if t is None else batch_at(size, d, t)
+            for t, d in zip(args, in_dims)], 0
+
+
+def _p2p(send, dest, recv_like, source):
     device = (recv_like if recv_like is not None else send).device
     with Exchange(device) as ex:
         ops, recv = [], None
-        if send is not None:
+        if send is not None and dest is not None:
             ops.append(dist.P2POp(dist.isend, ex.send(send), dest))
         if recv_like is not None:
             recv = ex.buffer(recv_like)
@@ -84,22 +109,32 @@ def _exchange(send: Optional[torch.Tensor], dest: Optional[int],
         return None if recv is None else ex.result(recv)
 
 
-class _SendRecv(torch.autograd.Function):
+class _SendRecv(Exchanged):
     """One rank's part of a routed exchange: send ``sendbuf`` to global rank
     ``to`` and receive from ``frm`` (either ``None``); the output is the
     received tensor, or a copy of ``recvbuf`` where nothing arrives.
     ``pending`` is a queued ``send`` (``ops/send.py``) whose message is
-    already on its way: the forward then only receives and completes it."""
+    already on its way: the forward then only receives and completes it.
+    Under ``vmap`` the message is batched as ``sendbuf`` is
+    (``message_layout``)."""
 
     @staticmethod
     def forward(sendbuf, recvbuf, to, frm, pending):
         if pending is not None:
             received = pending.receive(recvbuf, frm)
         else:
-            received = _exchange(
-                sendbuf.reshape(recvbuf.shape) if to is not None else None, to,
-                recvbuf if frm is not None else None, frm)
+            received = _exchange(sendbuf.reshape(recvbuf.shape), to,
+                                 recvbuf if frm is not None else None, frm)
         return received if received is not None else recvbuf.clone()
+
+    @staticmethod
+    def vmap(info, in_dims, sendbuf, recvbuf, to, frm, pending):
+        (send, recv), out = message_layout(info.batch_size, in_dims[:2],
+                                           (sendbuf, recvbuf))
+        received = _SendRecv.apply(send, recv, to, frm, pending)
+        if frm is None and out is None:  # nothing arrives: recvbuf's lanes
+            return recvbuf.clone(), in_dims[1]
+        return received, out
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -125,7 +160,7 @@ class _SendRecv(torch.autograd.Function):
         if t_send is None:
             t_send = torch.zeros(ctx.send_shape, **ctx.like)
         received = _exchange(
-            t_send.reshape(ctx.recv_shape) if ctx.to is not None else None, ctx.to,
+            t_send.reshape(ctx.recv_shape), ctx.to,
             torch.empty(ctx.recv_shape, **ctx.like) if ctx.frm is not None else None,
             ctx.frm)
         if received is not None:

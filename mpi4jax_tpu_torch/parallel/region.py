@@ -36,16 +36,21 @@ from __future__ import annotations
 import functools
 from typing import List, Optional
 
+from torch._C import _functorch
+
 from .comm import Comm
 from .mesh import DEFAULT_AXIS, _world_key, get_default_mesh
 
 
 class RegionContext:
     """The state of one region: its comm, the fusion queue (``None`` when
-    empty) and the async starts issued in it."""
+    empty) and the async starts issued in it; ``level``, the
+    ``torch.func`` transform level it opened at (``None`` outside every
+    transform)."""
 
     def __init__(self, comm: Comm):
         self.comm = comm
+        self.level = _functorch.maybe_current_level()
         self.fusion_queue = None
         self.handles: list = []
         # (loop id, iteration) while a megastep iteration runs in it, and

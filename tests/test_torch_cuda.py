@@ -1094,3 +1094,20 @@ def test_command_benchmark_on_the_card(capsys):
     want = P.run([*argv, "--device", "cpu"])
     np.testing.assert_array_equal(got["final_h"], want["final_h"])
     assert "(51 steps, " in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_vmap_ops_on_the_card():
+    """``chip_smoke.py`` phase 21 (a) and (b) on one gloo rank on the card:
+    ``torch.func.vmap`` over the 13 ops and the tokenless ``allreduce``
+    and ``sendrecv`` on CUDA tensors, each bit for bit with its lanes and
+    with as many exchanges as one lane's call; ``jacfwd`` and ``jacrev``
+    of a SUM-allreduce and of a ring, the card's bits the CPU's."""
+    need_cuda()
+    import chip_smoke
+    from mpi4jax_tpu_torch.parallel import launch
+
+    (res,) = launch.run(chip_smoke.vmap_rank, 1, backend="gloo", device="cuda:0",
+                        timeout=120, args=("cuda:0", 1, 1))
+    assert len(res["cases"]) == 38 and res["worst"] == 0.0
+    assert all(c["calls"] == 0 for c in res["cases"].values())

@@ -4,7 +4,7 @@ An AST scan of every module of ``mpi4jax_tpu_torch/``, of
 ``chip_smoke.py`` and of the rank programs (``tests/torch_ranks.py``,
 ``tests/torch_ranks_ops.py``, ``tests/torch_ranks_throughput.py``,
 ``tests/torch_ranks_dispatch.py`` and the later ones, to
-``tests/torch_ranks_hierarchy.py``): no import of ``jax`` (or ``jaxlib``), none of
+``tests/torch_ranks_transforms.py``): no import of ``jax`` (or ``jaxlib``), none of
 ``mpi4jax_tpu`` or ``mpi4jax_tpu.*``.  Module names are matched exactly,
 since ``mpi4jax_tpu_torch`` starts with ``mpi4jax_tpu``.
 """
@@ -29,7 +29,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_serving.py",
           REPO / "tests" / "torch_ranks_aot.py",
           REPO / "tests" / "torch_ranks_analysis.py",
-          REPO / "tests" / "torch_ranks_hierarchy.py"]
+          REPO / "tests" / "torch_ranks_hierarchy.py",
+          REPO / "tests" / "torch_ranks_transforms.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 
