@@ -371,6 +371,32 @@ read just after:
    finite; each rank's ``sw_wide`` launches and steps/s.  Eight
    processes share one card: no number of (c) is a scaling result.  One
    JSON line ``{"transforms": ...}``.
+22. the kernels under ``torch.func`` (``kernel_transforms_phase``; it
+   builds nothing), the launch counts read before and after each part:
+   (a) ``torch.func.vmap`` over ``flash_block_partials`` on 2 lanes of
+   (B=2, T=4096, H=8, D=128), f32 and bf16, unmasked, shared-masked and
+   causal: one forward launch a call, its lanes bit for bit the
+   unbatched B=4 launch on the same tensors, both timed; ``vmap(grad)``
+   through ``flash_attention`` (f32 unmasked and causal, bf16
+   unmasked): one ``dq`` and one ``dk``/``dv`` launch, each lane's
+   gradients against ``reference_attention``'s in the bands of
+   ``tests/test_kernels.py``; a batched mask, one launch a lane, each
+   lane bit for bit its own launch; (b) a two-member ensemble at
+   3600x1800 (member 1 10 cm higher) through a vmapped stepper, 20
+   steps of ``pallas2`` periodic, ``wide2`` walled and ``pallas_halo``
+   periodic: 11, 11 and 40 launches, each member bit for bit its own
+   unbatched run, member-steps/s of each form (the median of 3 warm
+   runs), and each stencil kernel's two-lane launch timed beside its
+   one-lane launch (CUDA graphs); (c) phase 21's four ranks' vmapped
+   causal ``ring_attention`` and ``ulysses_attention`` (2 lanes, 1024
+   tokens a rank), each rank against its slice of the vmapped
+   single-GPU ``flash_attention`` in the attention band, rank r's ring
+   one causal and r full launches; (d) ``analyze(ranks="all")`` of
+   (a)-(c)'s programs on ``meta`` on virtual grids (four ranks; the
+   ``pallas2`` ensemble on one), 0 errors, no launch counter moved.
+   One JSON line ``{"kernel_transforms": ...}``; the ``kernels`` line
+   gains each kernel's ``transforms_launches`` (the main process's parts)
+   and ``transforms_four_rank_launches`` ((c), over the four ranks).
 
 It exits non-zero, and prints no result, without a CUDA device or outside
 a checkout of the repository.  Every phase raises on failure.
@@ -442,8 +468,9 @@ pinned main path for (a)'s reference and phase 20 alone, one JSON line.
 
     python3 chip_smoke.py --transforms
 
-builds ``sw_steps`` and ``sw_wide`` (two ``nvcc`` at once) and runs phase
-21 alone, one JSON line.
+builds the three stencil and four flash sources (one ``nvcc`` each, all
+at once), prints the stencils' ``ptxas`` lines and runs phases 21 and 22
+alone, one JSON line.
 """
 
 import contextlib
@@ -6757,6 +6784,8 @@ def vmap_rank(rank, device, n, reps):
         if not torch.equal(val, jac["cpu"][key]):
             raise AssertionError(f"rank {rank}: {key} on the card differs from the CPU's")
     out["jacobians"] = {k: float(v.abs().sum()) for k, v in card.items()}
+    # phase 22 (c) in this group
+    out["attention"] = kt_rank_attention(rank, world, dev)
     return out
 
 
@@ -6811,6 +6840,8 @@ def transforms_phase(P, dev, launch, smi):
     res = launch.run(vmap_rank, 4, backend="gloo", device="cuda:0", timeout=300,
                      args=("cuda:0", 4, 5))
     out["a_b_s"] = time.perf_counter() - t0
+    # phase 22 (c)'s outputs, read by kernel_transforms_phase
+    out["four_rank_attention"] = [r.pop("attention") for r in res]
     r0 = res[0]
     out["a"] = {"cases": len(r0["cases"]),
                 "max_abs_err_vs_lanes": max(r["worst"] for r in res),
@@ -6877,9 +6908,394 @@ def transforms_phase(P, dev, launch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the kernels under torch.func
+# ---------------------------------------------------------------------------
+
+KT_LANES = 2  # the vmapped batch of phase 22
+KT_T_LOC = 1024  # (c)'s tokens a rank
+
+
+def kt_attention_inputs(rank=None):
+    """(c)'s lanes ``(KT_LANES, 1, 4 * KT_T_LOC, ATTN_H, ATTN_D)`` of q, k,
+    v from a numpy seed; with ``rank`` its slice of the sequence."""
+    rng = np.random.default_rng(2230)
+    shape = (KT_LANES, 1, 4 * KT_T_LOC, ATTN_H, ATTN_D)
+    out = [rng.standard_normal(shape, dtype=np.float32) for _ in range(3)]
+    if rank is not None:
+        out = [np.ascontiguousarray(a[:, :, rank * KT_T_LOC:(rank + 1) * KT_T_LOC])
+               for a in out]
+    return out
+
+
+def _kt_bits(a, b) -> bool:
+    """Whether two tensors hold the same bits (the signs of zeros and NaNs
+    included)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def kt_rank_attention(rank, world, dev):
+    """Phase 22 (c) on one of the four ranks of phase 21's group: causal
+    ``ring_attention`` and ``ulysses_attention`` under ``torch.func.vmap``
+    over ``KT_LANES`` lanes of ``KT_T_LOC`` tokens, each call's forward
+    launches, its output (the main process holds it against its slice of
+    the vmapped single-GPU ``flash_attention``) and its wall."""
+    from mpi4jax_tpu_torch import attention as TA
+    from mpi4jax_tpu_torch.kernels import _build
+    from torch.func import vmap
+
+    q, k, v = (torch.from_numpy(a).to(dev) for a in kt_attention_inputs(rank))
+    out = {}
+    for name, fn in (("ring", TA.ring_attention), ("ulysses", TA.ulysses_attention)):
+        f = lambda q, k, v, fn=fn: fn(q, k, v, comm=world, causal=True)  # noqa: E731
+        vmap(f)(q, k, v)  # warm: the exchanges' first call
+        torch.cuda.synchronize(dev)
+        before = _build.launch_totals()
+        t0 = time.perf_counter()
+        got = vmap(f)(q, k, v)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        after = _build.launch_totals()
+        out[name] = {"out": got.cpu().numpy(), "wall_s": wall,
+                     "launches": {n: after[n] - before.get(n, 0) for n in after
+                                  if after[n] != before.get(n, 0)}}
+    return out
+
+
+def kt_flash(FA, TA, dev):
+    """Phase 22 (a): ``torch.func.vmap`` over ``flash_block_partials`` at
+    the attention width, ``KT_LANES`` lanes of (B=2, T, H, D): one forward
+    launch a vmapped call, its lanes bit for bit the unbatched B=4 launch
+    on the same tensors, both timed; ``vmap(grad)`` through it, one ``dq``
+    and one ``dk``/``dv`` launch, against ``reference_attention``'s
+    gradients lane by lane; a batched mask, one launch a lane."""
+    from torch.func import grad, vmap
+
+    from mpi4jax_tpu_torch.kernels import _build
+
+    scale = 1.0 / ATTN_D ** 0.5
+    rng = np.random.default_rng(2220)
+    shape = (KT_LANES, ATTN_B // 2, ATTN_T, ATTN_H, ATTN_D)
+    base = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+            for _ in range(3)]
+    mask = torch.from_numpy(rng.random((ATTN_T, ATTN_T)) < 0.8).to(dev)
+    out = {"fwd": {}, "grad": {}, "batched_mask": {}}
+
+    def counted(fn):
+        torch.cuda.synchronize(dev)
+        before = _build.launch_totals()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        after = _build.launch_totals()
+        return res, {n: after[n] - before.get(n, 0) for n in after
+                     if after[n] != before.get(n, 0)}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        q, k, v = (x.to(dtype) for x in base)
+        flat = [x.reshape(-1, *x.shape[2:]) for x in (q, k, v)]
+        for case, msk, causal in (("full", None, False), ("masked", mask, False),
+                                  ("causal", None, True)):
+            f = lambda q, k, v, msk=msk, causal=causal: FA.flash_block_partials(  # noqa: E731
+                q, k, v, msk, scale=scale, causal=causal)
+            got, launches = counted(lambda: vmap(f)(q, k, v))
+            want = f(*flat)
+            if sum(launches.values()) != 1:
+                raise AssertionError(f"phase 22 (a) vmap {tag} {case}: launches {launches}")
+            for name, a, b in zip("oml", got, want):
+                if not _kt_bits(a.reshape(b.shape), b):
+                    raise AssertionError(f"phase 22 (a) vmap {tag} {case}: {name} is not the "
+                                         "unbatched B=4 launch's bits")
+            ms = time_ms(lambda: vmap(f)(q, k, v), reps=10, warmup=3)
+            flat_ms = time_ms(lambda: f(*flat), reps=10, warmup=3)
+            out["fwd"][f"{tag},{case}"] = {"launches": launches, "vmap_ms": ms,
+                                           "unbatched_b4_ms": flat_ms}
+            print(f"  22 (a) vmap flash_block_partials {tag} {case}: {launches}, lanes bit for "
+                  f"bit the B=4 launch; vmapped {ms:.4f} ms, unbatched B=4 {flat_ms:.4f} ms")
+        del flat
+        cases = (("full", False), ("causal", True)) if tag == "f32" else (("full", False),)
+        for case, causal in cases:
+            def loss(q, k, v, causal=causal):
+                return (TA.flash_attention(q, k, v, causal=causal).float() ** 2).sum()
+
+            grads, launches = counted(lambda: vmap(grad(loss, argnums=(0, 1, 2)))(q, k, v))
+            bwd = {n: c for n, c in launches.items() if "bwd" in n}
+            if sorted(bwd.values()) != [1, 1] or len(bwd) != 2:
+                raise AssertionError(f"phase 22 (a) vmap(grad) {tag} {case}: {launches}")
+            worst = 0.0
+            for lane in range(KT_LANES):
+                refs = [x[lane].detach().float().requires_grad_(True) for x in (q, k, v)]
+                (TA.reference_attention(*refs, causal=causal) ** 2).sum().backward()
+                for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+                    top = r.grad.abs().max().item()
+                    lim = (BWD_ABS + BWD_REL * top if tag == "f32"
+                           else FLASH_BF16_O_REL * top)
+                    err = (a[lane].float() - r.grad).abs().max().item()
+                    if not bool(torch.isfinite(a[lane]).all()) or err > lim:
+                        raise AssertionError(f"phase 22 (a) vmap(grad) {tag} {case} lane "
+                                             f"{lane} {name} off by {err:.3e} > {lim:.3e}")
+                    worst = max(worst, err)
+                del refs
+            out["grad"][f"{tag},{case}"] = {"launches": launches, "max_abs_err": worst}
+            print(f"  22 (a) vmap(grad) flash_attention {tag} {case}: {launches}; gradients "
+                  f"max|diff| from reference_attention's {worst:.3e}")
+    q, k, v = base
+    masks = torch.from_numpy(rng.random((KT_LANES, ATTN_T, ATTN_T)) < 0.8).to(dev)
+    f = lambda q, k, v, m: FA.flash_block_partials(q, k, v, m, scale=scale)  # noqa: E731
+    got, launches = counted(lambda: vmap(f)(q, k, v, masks))
+    if sum(launches.values()) != KT_LANES:
+        raise AssertionError(f"phase 22 (a) batched mask: launches {launches}")
+    for lane in range(KT_LANES):
+        want = f(q[lane], k[lane], v[lane], masks[lane])
+        if not all(_kt_bits(a[lane], b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 22 (a) batched mask: lane {lane} is not its own "
+                                 "launch's bits")
+    out["batched_mask"] = {"launches": launches}
+    print(f"  22 (a) vmap with a batched mask: {launches}, one launch a lane, each lane "
+          "bit for bit its own launch")
+    return out
+
+
+KT_REPS = 3  # (b)'s timed runs of each form
+
+
+def _median_wall(dev, fn):
+    """The median host wall of ``KT_REPS`` synchronised calls of ``fn``."""
+    walls = []
+    for _ in range(KT_REPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[len(walls) // 2]
+
+
+# (b)'s runs: (mode, periodic, kernel, launches for ENSEMBLE_STEPS steps)
+KT_ENSEMBLE = (("pallas2", True, "sw_steps", 11), ("wide2", False, "sw_wide", 11),
+               ("pallas_halo", True, "sw_phase", 40))
+
+
+def kt_ensemble(P, dev):
+    """Phase 22 (b): a two-member ensemble at the flagship width through a
+    ``torch.func.vmap``ped stepper, ``ENSEMBLE_STEPS`` steps of each run of
+    ``KT_ENSEMBLE``: one launch a batched call, each member bit for bit its
+    own unbatched run, member-steps/s (the median of ``KT_REPS`` warm runs)
+    beside the unbatched runs'."""
+    from torch.func import vmap
+
+    from mpi4jax_tpu_torch.kernels import _build
+
+    out = {}
+    for mode, periodic, kernel, want in KT_ENSEMBLE:
+        cfg = P.Config(nx=3600, ny=1800, periodic_x=periodic)
+        _, comm = P.make_mesh_and_comm(cfg, device=dev)
+        first, multi = P.make_stepper(cfg, comm, fast=mode)
+        s0 = P.initial_state(cfg, device=dev)
+        members = [s0, s0._replace(h=s0.h + 0.1)]
+        ens = [torch.stack(f) for f in zip(*members)]
+
+        def run(*fields):
+            return tuple(multi(first(P.State(*fields)), ENSEMBLE_STEPS - 1))
+
+        # warm both forms (the library's first launch, and each op's first
+        # call under vmap), then time each KT_REPS times
+        vmap(run)(*ens)
+        run(*members[0])
+        torch.cuda.synchronize(dev)
+        counter = _build.COUNTERS[kernel]
+        counter.launches = 0
+        got = vmap(run)(*ens)
+        torch.cuda.synchronize(dev)
+        launches = counter.launches
+        if launches != want:
+            raise AssertionError(f"phase 22 (b) {mode}: {kernel} launched {launches} "
+                                 f"times, expected {want}")
+        for m, s in enumerate(members):
+            alone = run(*s)
+            for name, a, b in zip(P.State._fields, got, alone):
+                if not torch.equal(a[m].view(torch.int32), b.view(torch.int32)):
+                    raise AssertionError(f"phase 22 (b) {mode}: member {m} {name} is not "
+                                         "its unbatched run's bits")
+            if not all(bool(torch.isfinite(f).all()) for f in alone):
+                raise AssertionError(f"phase 22 (b) {mode}: member {m} not finite")
+        wall = _median_wall(dev, lambda: vmap(run)(*ens))
+        walls = [_median_wall(dev, lambda s=s: run(*s)) for s in members]
+        spread = (got[0][1] - got[0][0]).abs().max().item()
+        out[mode] = {"kernel": kernel, "launches": launches, "wall_s": wall,
+                     "member_steps_per_s": 2 * ENSEMBLE_STEPS / wall,
+                     "unbatched_walls_s": walls,
+                     "unbatched_member_steps_per_s": 2 * ENSEMBLE_STEPS / sum(walls),
+                     "members_differ_by": spread}
+        print(f"  22 (b) vmapped {mode} ({kernel}) ensemble of 2 at 3600x1800, "
+              f"{ENSEMBLE_STEPS} steps: {launches} launches, "
+              f"{2 * ENSEMBLE_STEPS / wall:.2f} member-steps/s against "
+              f"{2 * ENSEMBLE_STEPS / sum(walls):.2f} unbatched; each member bit for bit "
+              f"its own run (members differ by {spread:.3e} in h)")
+        del got, ens, members, s0
+        torch.cuda.empty_cache()
+    return out
+
+
+def kt_stencil_ms(P, dev):
+    """Phase 22 (b): the device ms of one two-lane launch of each stencil
+    kernel at the flagship width beside its one-lane launch, from CUDA
+    graphs (``time_graph_ms``), on the first step's AB-2 state (member 1
+    10 cm higher)."""
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
+    from mpi4jax_tpu_torch.kernels import sw_steps as K
+    from mpi4jax_tpu_torch.kernels import sw_wide as KW
+
+    out = {}
+    for periodic in (True, False):
+        cfg = P.Config(nx=3600, ny=1800, periodic_x=periodic)
+        _, comm = P.make_mesh_and_comm(cfg, device=dev)
+        s = P.initial_state(cfg, device=dev)
+        one = tuple(s)
+        if not periodic:
+            m = P._margin_rows(2)
+            one, _ = P._wide_exchange(one, cfg, comm, m, P.create_token())
+            off = (-(m - 1), -(m - 1))
+        two = tuple(torch.stack([f, f + 0.1 if i == 0 else f]).contiguous()
+                    for i, f in enumerate(one))
+        if periodic:
+            cases = {"sw_steps pair": lambda f: K.sw_steps(f, cfg, False, 2),
+                     "sw_phase phase 1": lambda f: KP.sw_phase1(f, cfg, False, (0, 0)),
+                     "sw_phase phase 2": lambda f: KP.sw_phase2(f[1], f[2], cfg, (0, 0))}
+        else:
+            cases = {"sw_wide pair": lambda f: KW.sw_wide(f, cfg, False, 2, off)}
+        for name, fn in cases.items():
+            ms1 = time_graph_ms(lambda: fn(one), reps=20, warmup=5)
+            ms2 = time_graph_ms(lambda: fn(two), reps=20, warmup=5)
+            out[name] = {"one_lane_ms": ms1, "two_lanes_ms": ms2}
+            print(f"  22 (b) {name} at 3600x1800: two lanes in one launch {ms2:.4f} ms, "
+                  f"one lane {ms1:.4f} ms ({ms2 / ms1:.3f}x)")
+        del one, two
+        torch.cuda.empty_cache()
+    return out
+
+
+def kt_attention_check(TA, dev, ranks):
+    """Phase 22 (c): each rank's vmapped causal ring and Ulysses outputs
+    against its slice of the vmapped single-GPU ``flash_attention`` on the
+    whole sequence, and each rank's forward launches (the ring's causal
+    rank r: one diagonal launch and r full ones, folded; Ulysses one)."""
+    from torch.func import vmap
+
+    q, k, v = (torch.from_numpy(a).to(dev) for a in kt_attention_inputs())
+    single = vmap(lambda q, k, v: TA.flash_attention(q, k, v, causal=True))(q, k, v).cpu()
+    out, worst = {}, 0.0
+    for r, res in enumerate(ranks):
+        want = single[:, :, r * KT_T_LOC:(r + 1) * KT_T_LOC].numpy()
+        for name, expect in (("ring", {"flash_fwd_causal_tf32": 1, "flash_fwd_tf32": r}),
+                             ("ulysses", {"flash_fwd_causal_tf32": 1})):
+            got = res[name]["out"]
+            err = float(np.abs(got - want).max())
+            if not np.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL):
+                raise AssertionError(f"phase 22 (c) rank {r} vmapped {name}: off the "
+                                     f"single-GPU flash_attention's slice by {err:.3e}")
+            expect = {n: c for n, c in expect.items() if c}
+            if res[name]["launches"] != expect:
+                raise AssertionError(f"phase 22 (c) rank {r} {name}: launches "
+                                     f"{res[name]['launches']}, expected {expect}")
+            worst = max(worst, err)
+            out[f"rank{r}/{name}"] = {"launches": res[name]["launches"],
+                                      "wall_s": res[name]["wall_s"], "max_abs_err": err}
+            print(f"  22 (c) rank {r} vmapped causal {name}: {res[name]['launches']}, "
+                  f"max|diff| from the single-GPU slice {err:.3e}, {res[name]['wall_s']:.4f} s")
+    return out, worst
+
+
+def kt_analyze(P, FA, TA, dev):
+    """Phase 22 (d): (a)-(c)'s programs through ``analyze(ranks="all")`` on
+    ``meta`` (the ensemble's pair on a (2, 2) grid of the flagship's
+    blocks, ``pallas2`` on one rank), 0 errors, no launch counter moved."""
+    from torch.func import grad, vmap
+
+    from mpi4jax_tpu_torch import analyze, clear_caches
+    from mpi4jax_tpu_torch.kernels import _build
+
+    ring = _virtual((4,), ("i",), dev)
+    q = _meta((KT_LANES, ATTN_B // 2, ATTN_T, ATTN_H, ATTN_D))
+    scale = 1.0 / ATTN_D ** 0.5
+    progs = {
+        "flash_vmap": (lambda q, k, v: vmap(lambda q, k, v: FA.flash_block_partials(
+            q, k, v, None, scale=scale))(q, k, v), (q, q, q), ring),
+        "flash_vmap_grad": (lambda q, k, v: vmap(grad(
+            lambda q, k, v: (TA.flash_attention(q, k, v) ** 2).sum(),
+            argnums=(0, 1, 2)))(q, k, v), (q, q, q), ring),
+    }
+    t = _meta((KT_LANES, 1, KT_T_LOC, ATTN_H, ATTN_D))
+    for name, fn in (("ring", TA.ring_attention), ("ulysses", TA.ulysses_attention)):
+        progs[f"{name}_causal_vmap"] = (
+            lambda a, b, c, fn=fn: vmap(lambda a, b, c: fn(a, b, c, comm=ring, causal=True))(
+                a, b, c), (t, t, t), ring)
+    for mode, periodic, _, _ in KT_ENSEMBLE:
+        grid = (1, 1) if mode == "pallas2" else (2, 2)
+        cfg = P.Config(nx=3600, ny=1800, nproc_y=grid[0], nproc_x=grid[1],
+                       periodic_x=periodic)
+        comm = _virtual(grid, ("py", "px"), dev)
+        first, multi = P.make_stepper(cfg, comm, fast=mode)
+        state = [_meta((2, cfg.ny_local, cfg.nx_local))] * 6
+        progs[f"ensemble_{mode}"] = (
+            lambda *s, first=first, multi=multi: vmap(
+                lambda *f: tuple(multi(first(P.State(*f)), 2)))(*s), state, comm)
+    out = {}
+    before = _build.launch_totals()
+    for name, (fn, args, comm) in progs.items():
+        clear_caches()
+        t0 = time.perf_counter()
+        rep = analyze(fn, *args, comm=comm, ranks="all")
+        seconds = time.perf_counter() - t0
+        codes = sorted({f.code for f in rep.findings})
+        print(f"  22 (d) {name}: analyze(ranks='all') on meta {seconds:.3f} s, "
+              f"{len(rep.events)} collectives a rank, findings {codes}")
+        if rep.errors:
+            raise AssertionError(f"phase 22 (d) {name}: {rep.render()}")
+        out[name] = {"seconds": seconds, "events": len(rep.events), "codes": codes}
+    moved = {k: v for k, v in _build.launch_totals().items() if before.get(k) != v}
+    if moved:
+        raise AssertionError(f"phase 22 (d): the abstract runs moved {moved}")
+    return out
+
+
+def kernel_transforms_phase(P, FA, TA, dev, smi, four_rank):
+    """Phase 22: (a) the flash kernels under ``vmap`` and ``vmap(grad)``,
+    (b) the vmapped ensemble at the flagship width, (c) phase 21's four
+    ranks' vmapped causal ring and Ulysses (``four_rank``: their
+    ``kt_rank_attention`` results) against the single-GPU run, (d) the
+    verifier on their programs; each part's launches by kernel."""
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    t0 = time.perf_counter()
+    out["a"] = kt_flash(FA, TA, dev)
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = kt_ensemble(P, dev)
+    out["b_s"] = time.perf_counter() - t0
+    out["b_kernel_ms"] = kt_stencil_ms(P, dev)
+    out["c"], out["c_max_abs_err"] = kt_attention_check(TA, dev, four_rank)
+    torch.cuda.empty_cache()
+    # the launches of the vmapped calls of (a) and (b), by kernel (the
+    # timing repeats aside); (c)'s are its ranks'
+    counted = [c["launches"] for part in ("fwd", "grad") for c in out["a"][part].values()]
+    counted.append(out["a"]["batched_mask"]["launches"])
+    counted += [{r["kernel"]: r["launches"]} for r in out["b"].values()]
+    out["launches"] = {}
+    for c in counted:
+        for n, k in c.items():
+            out["launches"][n] = out["launches"].get(n, 0) + k
+    out["d"] = kt_analyze(P, FA, TA, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 22: {out['seconds']:.1f} s ((a) {out['a_s']:.1f} s, (b) {out['b_s']:.1f} s)")
+    return out
+
+
 def transforms_main():
-    """``python3 chip_smoke.py --transforms``: ``sw_steps`` and ``sw_wide``
-    built at once, then phase 21 alone; one JSON line."""
+    """``python3 chip_smoke.py --transforms``: the stencil and flash
+    sources built at once, then phases 21 and 22 alone; one JSON line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6888,18 +7304,28 @@ def transforms_main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mpi4jax_tpu_torch import attention as TA
     from mpi4jax_tpu_torch.kernels import _build
+    from mpi4jax_tpu_torch.kernels import flash_attention as FA
+    from mpi4jax_tpu_torch.kernels import sw_phase as KP
     from mpi4jax_tpu_torch.kernels import sw_steps as K
     from mpi4jax_tpu_torch.kernels import sw_wide as KW
     from mpi4jax_tpu_torch.models import shallow_water as P
     from mpi4jax_tpu_torch.parallel import launch
 
     t0 = time.perf_counter()
-    libs = _build.build_many([K.spec(), KW.spec()])
+    libs = _build.build_many([K.spec(), KW.spec(), KP.spec(), FA.fwd_tf32_spec(),
+                              FA.fwd_mma_spec(), FA.tf32_spec(), FA.mma_spec()])
     print(f"built {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.1f} s")
-    out = transforms_phase(P, torch.device("cuda"), launch, smi)
+    print_stencil_ptxas(_build)
+    dev = torch.device("cuda")
+    out = transforms_phase(P, dev, launch, smi)
+    four = out.pop("four_rank_attention")
+    out22 = kernel_transforms_phase(P, FA, TA, dev, smi, four)
     print(smi)
-    print(json.dumps({"transforms": out}, default=str))
+    print(json.dumps({"transforms": out, "kernel_transforms": out22}, default=str))
     return 0
 
 
@@ -7141,7 +7567,12 @@ def main():
 
     # -- torch.func over the ops, and the hybrid ensemble on eight ranks ---
     transforms = transforms_phase(P, dev, launch, smi)
+    vmapped_four_ranks = transforms.pop("four_rank_attention")
     print(json.dumps({"transforms": transforms}, default=str))
+
+    # -- the kernels under torch.func: batched launches, reverse mode ------
+    kernel_transforms = kernel_transforms_phase(P, FA, TA, dev, smi, vmapped_four_ranks)
+    print(json.dumps({"kernel_transforms": kernel_transforms}, default=str))
 
     pair = per_case["first=False,nsteps=2"]
     phase = phase_cases["periodic,phase1"]
@@ -7379,9 +7810,15 @@ def main():
         })
     kernels[-1]["paths"] = {"bf16_attention_forward_1gpu": bf16_fwd_runs,
                             "bf16_forward_max_abs_err_vs_f32_reference": bf16_fwd_worst}
+    kt_four = kernel_transforms["c"]
     for entry in kernels:
         # phase 16 (b): the library reloaded from the tier in a fresh process
         entry["tier_reloaded_max_abs_err"] = aot["b"]["kernels"][entry["name"]]
+        # phase 22 (a)-(c): the kernels under torch.func, one launch a
+        # vmapped call (one a lane under a batched mask); (c)'s on four ranks
+        entry["transforms_launches"] = kernel_transforms["launches"].get(entry["name"], 0)
+        entry["transforms_four_rank_launches"] = sum(
+            c["launches"].get(entry["name"], 0) for c in kt_four.values())
     print(smi)  # again, so that the tail of a long log holds it too
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -67,7 +67,12 @@ tensor, and ``jvp``, ``jacfwd``, ``jacrev``, ``vjp``, ``grad`` and
 ``hessian`` through the differentiable ones (``ops/_base.py``:
 ``Exchanged``, ``Lanes``), with the hybrid ensemble on a 3-axis mesh
 (members on ``world.sub("py", "px")``, the mean over ``dp``) that
-``chip_smoke.py`` phase 21 (``--transforms``) drives on the card.
+``chip_smoke.py`` phase 21 (``--transforms``) drives on the card; and
+the kernels under ``torch.func``: a vmapped flash call is one launch of
+its folded batch, ``grad``, ``vjp`` and ``jacrev`` reach the backward
+kernels, and the stencils run a vmapped stepper's lanes in one launch
+(``kernels/flash_attention.py:FlashPartials``,
+``kernels/_build.py:StencilCall``; phase 22).
 Nothing here imports JAX.
 """
 

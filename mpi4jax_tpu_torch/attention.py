@@ -22,7 +22,10 @@ rank-order concatenation of the shards.
 
 The block partials and their backward come from
 ``kernels/flash_attention.py``: the CUDA kernels on the card, the plain
-versions on the CPU.  ``ring_attention(memory_efficient_grad=False)``
+versions on the CPU.  Every function here composes with ``torch.func``
+(``vmap``, ``grad``, ``vjp``, ``jacrev``): the exchanges and the
+partials have vmap rules of their own, one exchange and one launch a
+call.  ``ring_attention(memory_efficient_grad=False)``
 differentiates through the forward op by op: the partials' own backward,
 the merges, and the transposes of the rotations (``sendrecv``'s reverse
 route).  Every rank must run the transpose of every rotation, in the same
@@ -109,7 +112,7 @@ def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
     partials for the backward and recomputes no forward."""
     comm = _comm_of(comm, "ring_attention")
     if memory_efficient_grad:
-        return _RingAttention.apply(q, k, v, comm, causal)
+        return _RingAttention.apply(q, k, v, comm, causal)[0]
     out, _m, _l = _ring_forward(q, k, v, comm, causal)
     return out
 
@@ -117,7 +120,13 @@ def ring_attention(q, k, v, *, comm: Optional[Comm] = None,
 class _Tie(torch.autograd.Function):
     """``out`` with ``tied`` made inputs of it: the backward passes ``out``'s
     cotangent through and gives ``tied`` zeros, so that autograd runs the
-    backward of whatever produced ``tied`` on every rank."""
+    backward of whatever produced ``tied`` on every rank.  Its vmap rule is
+    generated (a clone and a pass-through batch as they are).  The zeros
+    are made like ``tied``, so that under ``vmap`` they are batched as it
+    is: the rotations' transposes then send equal messages on every rank,
+    whether a rank's causal ring read its last block or not."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(out, tied):
@@ -125,12 +134,12 @@ class _Tie(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.tied = (inputs[1].shape, inputs[1].dtype, inputs[1].device)
+        ctx.save_for_backward(inputs[1])
 
     @staticmethod
     def backward(ctx, g):
-        shape, dtype, device = ctx.tied
-        return g, torch.zeros(shape, dtype=dtype, device=device)
+        (tied,) = ctx.saved_tensors
+        return g, torch.zeros_like(tied)
 
     @staticmethod
     def jvp(ctx, t_out, _):
@@ -191,18 +200,33 @@ class _RingAttention(torch.autograd.Function):
     of the partials on it, and adds dK/dV into buffers that rotate with
     the block: after ``size`` hops every rank holds its own dK/dV with
     every rank's contributions.  Per rank the backward makes
-    ``2 (size - 1)`` K/V rotations and ``2 size`` dK/dV ones."""
+    ``2 (size - 1)`` K/V rotations and ``2 size`` dK/dV ones.
+
+    Under ``torch.func`` the vmap rule is generated: forward and backward
+    run on the batched tensors, whose rotations (``sendrecv``) and
+    partials (``flash_block_partials``, ``block_partials_bwd``) have rules
+    of their own, one exchange and one launch a call; the accumulators
+    are therefore added out of place.  Forward mode raises, as the JAX
+    package's ``custom_vjp`` does."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, q, k, v, comm, causal):
-        out, m, l = _ring_forward(q, k, v, comm, causal)
+    def forward(q, k, v, comm, causal):
+        # (m, l) are outputs so that setup_context can save them
+        return _ring_forward(q, k, v, comm, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, comm, causal = inputs
+        out, m, l = output
+        ctx.mark_non_differentiable(m, l)
         # rank-local residuals only: O(T / size) per rank
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.comm, ctx.causal = comm, causal
-        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_m, _g_l):
         q, k, v, out, m, l = ctx.saved_tensors
         comm, causal = ctx.comm, ctx.causal
         size, rank = comm.Get_size(), comm.Get_rank()
@@ -228,9 +252,9 @@ class _RingAttention(torch.autograd.Function):
                 dq_b, dk_b, dv_b = block_partials_bwd(
                     q, k_blk, v_blk, None, m_b, g_ob, g_l * w, scale=scale,
                     causal=blk_causal)
-                dq += dq_b.float()
-                dk += dk_b.float()
-                dv += dv_b.float()
+                dq = dq + dq_b.float()
+                dk = dk + dk_b.float()
+                dv = dv + dv_b.float()
             # dK/dV travel with their block and need all size hops to get
             # home; K/V are not read after the last step
             if step + 1 < size:
@@ -239,6 +263,15 @@ class _RingAttention(torch.autograd.Function):
             dk, _ = sendrecv(dk, dk, dest=shift(1), comm=comm)
             dv, _ = sendrecv(dv, dv, dest=shift(1), comm=comm)
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise TypeError(
+            "ring_attention(memory_efficient_grad=True): forward-mode "
+            "differentiation (jvp, jacfwd) is not supported by the ring's "
+            "own backward, as the JAX package's custom_vjp ring refuses it; "
+            "pass memory_efficient_grad=False to differentiate through the "
+            "forward op by op")
 
 
 def ulysses_attention(q, k, v, *, comm: Optional[Comm] = None,

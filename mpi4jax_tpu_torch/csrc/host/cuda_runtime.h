@@ -221,12 +221,13 @@ extern "C" void host_emu_schedule(int s) { emu::schedule = s; }
 template <typename K, typename A>
 void launch_stub(K kernel, dim3 grid, int threads, A a) {
   gridDim = grid;
-  for (unsigned y = 0; y < grid.y; ++y)
-    for (unsigned x = 0; x < grid.x; ++x) {
-      blockIdx = {x, y, 0u};
-      emu::blk.body = [&] { kernel(a); };
-      emu::run_block(threads);
-    }
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        emu::blk.body = [&] { kernel(a); };
+        emu::run_block(threads);
+      }
 }
 
 // __shfl_xor_sync over the whole warp: each lane deposits x and reads the

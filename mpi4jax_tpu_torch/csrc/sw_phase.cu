@@ -100,7 +100,7 @@ struct Walk {
   sws::Cols c;
 
   __device__ __forceinline__ Walk(const Args& args, float* smem)
-      : a(args), k(args.k), dd{{sws::divisor(args.k.dx, EXACT)},
+      : a(sws::lane_of(args)), k(args.k), dd{{sws::divisor(args.k.dx, EXACT)},
                                {sws::divisor(args.k.dy, EXACT)}},
         sm(smem), t(threadIdx.x) {
     const sws::Span s = sws::span_of(a, 1, blockIdx.x, blockIdx.y);
@@ -364,10 +364,12 @@ cudaError_t dispatch(const Args& a, int phase, int* geo, int* blocks, cudaStream
                : dispatch_exact<false>(a, phase, geo, blocks, stream);
 }
 
-// the whole local array is the output
+// the whole local array is the output, of one lane unless the launch says
+// otherwise
 Args args(int ny, int nx, int oy, int ox, int GY, int GX, int walls, float dx, float dy,
           float g, float dt, float ab_a, float ab_b, float f0, float beta, float visc) {
   Args a{};
+  a.lanes = 1;
   a.ny = ny;
   a.nx = nx;
   a.oy = oy;
@@ -383,15 +385,18 @@ Args args(int ny, int nx, int oy, int ox, int GY, int GX, int walls, float dx, f
 
 }  // namespace
 
-// Phase 1 on `stream`; returns the launch's cudaError_t (0 on success).
+// Phase 1 on `stream`, on `lanes` states whose fields lie `lane_stride`
+// elements apart; returns the launch's cudaError_t (0 on success).
 extern "C" int sw_phase1_launch(
     const float* h, const float* u, const float* v, const float* dh,
     const float* du, const float* dv, float* oh, float* ou, float* ov,
     float* odh, float* odu, float* odv, int ny, int nx, int oy, int ox,
     int GY, int GX, int walls, int first, float dx, float dy, float g,
     float dt, float ab_a, float ab_b, float f0, float beta, float visc,
-    void* stream) {
+    int lanes, long long lane_stride, void* stream) {
   Args a = args(ny, nx, oy, ox, GY, GX, walls, dx, dy, g, dt, ab_a, ab_b, f0, beta, visc);
+  a.lanes = lanes;
+  a.lane_stride = lane_stride;
   const float* in[6] = {h, u, v, dh, du, dv};
   float* out[6] = {oh, ou, ov, odh, odu, odv};
   for (int f = 0; f < 6; ++f) {
@@ -402,13 +407,17 @@ extern "C" int sw_phase1_launch(
   return (int)dispatch(a, 1, nullptr, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// Phase 2 on `stream`; returns the launch's cudaError_t (0 on success).
+// Phase 2 on `stream`, on `lanes` pairs (u, v) whose fields lie
+// `lane_stride` elements apart; returns the launch's cudaError_t (0 on
+// success).
 extern "C" int sw_phase2_launch(
     const float* u, const float* v, float* ou, float* ov, int ny, int nx,
     int oy, int ox, int GY, int GX, int walls, float dx, float dy, float g,
     float dt, float ab_a, float ab_b, float f0, float beta, float visc,
-    void* stream) {
+    int lanes, long long lane_stride, void* stream) {
   Args a = args(ny, nx, oy, ox, GY, GX, walls, dx, dy, g, dt, ab_a, ab_b, f0, beta, visc);
+  a.lanes = lanes;
+  a.lane_stride = lane_stride;
   a.in[1] = u;
   a.in[2] = v;
   a.out[1] = ou;

@@ -39,9 +39,11 @@ cudaError_t dispatch(const sws::Args& a, int nsteps, int* geo, int* blocks,
   }
 }
 
-// the whole local array is the output; one rank, so local = global
+// the whole local array is the output; one rank, so local = global; one
+// lane unless the launch says otherwise
 sws::Args args(int ny, int nx) {
   sws::Args a{};
+  a.lanes = 1;
   a.ny = ny;
   a.nx = nx;
   a.GY = ny;
@@ -54,15 +56,20 @@ sws::Args args(int ny, int nx) {
 }  // namespace
 
 // Launch NSTEPS fused steps on `stream`, in chunks of rows that fill the
-// card's resident blocks once.  Returns the cudaError_t of the launch
-// (0 on success); the caller raises on anything else.
+// card's resident blocks once, on `lanes` states whose fields lie
+// `lane_stride` elements apart (one lane: the fields alone).  Returns the
+// cudaError_t of the launch (0 on success); the caller raises on anything
+// else.
 extern "C" int sw_steps_launch(
     const float* h, const float* u, const float* v, const float* dh,
     const float* du, const float* dv, float* oh, float* ou, float* ov,
     float* odh, float* odu, float* odv, int ny, int nx, int first, int nsteps,
     int has_visc, float dx, float dy, float g, float dt,
-    float ab_a, float ab_b, float f0, float beta, float visc, void* stream) {
+    float ab_a, float ab_b, float f0, float beta, float visc, int lanes,
+    long long lane_stride, void* stream) {
   sws::Args a = args(ny, nx);
+  a.lanes = lanes;
+  a.lane_stride = lane_stride;
   const float* in[6] = {h, u, v, dh, du, dv};
   float* out[6] = {oh, ou, ov, odh, odu, odv};
   for (int f = 0; f < 6; ++f) {

@@ -72,6 +72,13 @@
 // Copies: the input state rows (h, u, v) go to their ring by 4-byte
 // cp.async one row ahead: the local array's row pitch (3602 x 4 bytes) is
 // not a multiple of 16, and each thread copies its own column.
+//
+// Lanes.  One launch may run LANES independent states (a vmapped call):
+// blockIdx.z is the lane, and a block offsets every field pointer by its
+// lane times the lane's plane stride (lane_of) before anything else.  The
+// grid of each lane is the one-lane grid, so a lane's blocks compute what
+// its own one-lane launch computes, bit for bit; nothing is shared between
+// lanes (each block has its own rings and divisors).
 
 #pragma once
 
@@ -122,7 +129,21 @@ struct Args {
   int first, has_visc;
   Consts k;
   int exact_dx, exact_dy;  // a / dx, a / dy exact by reciprocal (set by launch())
+  int lanes;               // states of one launch, one a blockIdx.z
+  long long lane_stride;   // elements from one lane's field to the next's
 };
+
+// a's fields at the lane of this block (blockIdx.z); unset fields stay null
+__device__ __forceinline__ Args lane_of(const Args& a) {
+  Args l = a;
+  const long long off = (long long)blockIdx.z * a.lane_stride;
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    l.in[f] = a.in[f] == nullptr ? nullptr : a.in[f] + off;
+    l.out[f] = a.out[f] == nullptr ? nullptr : a.out[f] + off;
+  }
+  return l;
+}
 
 __host__ __device__ inline int pmod(int a, int n) { return ((a % n) + n) % n; }
 
@@ -684,7 +705,7 @@ struct Block {
   }
 
   __device__ __forceinline__ Block(const Args& args, float* smem)
-      : a(args), k(args.k), dd{divisor(args.k.dx, args.exact_dx != 0),
+      : a(lane_of(args)), k(args.k), dd{divisor(args.k.dx, args.exact_dx != 0),
                                divisor(args.k.dy, args.exact_dy != 0)},
         sm(smem), t(threadIdx.x) {
     const Span s = span_of(a, NS, blockIdx.x, blockIdx.y);
@@ -804,7 +825,8 @@ cudaError_t residency(size_t smem, Residency& out) {
 inline cudaError_t grid(Args& a, int nsteps, int min_rows, Residency res, size_t smem,
                         int* out, int* blocks) {
   const int me = EDGE_RX * nsteps, mi = RX * nsteps;
-  if (NT <= 2 * me || a.rows < 1 || a.cols < 1) return cudaErrorInvalidValue;
+  if (NT <= 2 * me || a.rows < 1 || a.cols < 1 || a.lanes < 1 || a.lanes > 65535)
+    return cudaErrorInvalidValue;
   a.nstrips = strip_count(a.cols, NT - 2 * me, NT - 2 * mi);
   int chunks = res.per_sm * res.sms / a.nstrips;
   chunks = chunks < 1 ? 1 : chunks;
@@ -839,7 +861,7 @@ cudaError_t launch_with(Args a, int nsteps, int min_rows, size_t smem, int* out,
   if (e != cudaSuccess || out != nullptr || blocks != nullptr) return e;
   a.exact_dx = reciprocal_is_exact(a.k.dx);
   a.exact_dy = reciprocal_is_exact(a.k.dy);
-  const dim3 g(a.nstrips, (a.rows + a.rows_per_block - 1) / a.rows_per_block);
+  const dim3 g(a.nstrips, (a.rows + a.rows_per_block - 1) / a.rows_per_block, a.lanes);
   KERNEL<<<g, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }

@@ -51,6 +51,7 @@ cudaError_t dispatch(const sws::Args& a, int nsteps, int* geo, int* blocks,
 sws::Args args(int ny, int nx, int oy, int ox, int GY, int GX, int walls, int cy, int cx,
                int crop_ny, int crop_nx) {
   sws::Args a{};
+  a.lanes = 1;
   a.ny = ny;
   a.nx = nx;
   a.oy = oy;
@@ -69,15 +70,20 @@ sws::Args args(int ny, int nx, int oy, int ox, int GY, int GX, int walls, int cy
 
 // NSTEPS wide-frame steps on `stream`, computed on the crop whose first
 // row and column are (cy, cx) and whose extent is crop_ny x crop_nx, in
-// chunks of rows that fill the card's resident blocks once.  Returns the launch's cudaError_t (0 on success).
+// chunks of rows that fill the card's resident blocks once, on `lanes`
+// frames whose fields lie `lane_stride` elements apart.  Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int sw_wide_launch(
     const float* h, const float* u, const float* v, const float* dh,
     const float* du, const float* dv, float* oh, float* ou, float* ov,
     float* odh, float* odu, float* odv, int ny, int nx, int oy, int ox,
     int GY, int GX, int walls, int cy, int cx, int crop_ny, int crop_nx, int first,
     int nsteps, int has_visc, float dx, float dy, float g, float dt,
-    float ab_a, float ab_b, float f0, float beta, float visc, void* stream) {
+    float ab_a, float ab_b, float f0, float beta, float visc, int lanes,
+    long long lane_stride, void* stream) {
   sws::Args a = args(ny, nx, oy, ox, GY, GX, walls, cy, cx, crop_ny, crop_nx);
+  a.lanes = lanes;
+  a.lane_stride = lane_stride;
   const float* in[6] = {h, u, v, dh, du, dv};
   float* out[6] = {oh, ou, ov, odh, odu, odv};
   for (int f = 0; f < 6; ++f) {

@@ -43,6 +43,8 @@ from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
 import torch
 
+from ..utils.transforms import batch_at, transformed
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -230,7 +232,8 @@ def libraries_of(before: Mapping[str, int]) -> list:
 
 def check_cuda_fields(what: str, fields, shape) -> None:
     """The checks of a launch: f32 tensors on one CUDA device, contiguous,
-    each of ``shape``."""
+    each of ``shape``: a plane, or ``(lanes, *plane)`` for a batched
+    launch."""
     dev = fields[0].device
     for f in fields:
         if f.device != dev or f.dtype != torch.float32:
@@ -240,6 +243,53 @@ def check_cuda_fields(what: str, fields, shape) -> None:
                 f"{what}: fields must be contiguous {tuple(shape)}, got "
                 f"{tuple(f.shape)}"
             )
+
+
+def lanes_of(fields) -> int:
+    """The lanes of a stencil call's fields: an ``(ny, nx)`` plane is one
+    lane, an ``(lanes, ny, nx)`` stack that many."""
+    return fields[0].shape[0] if fields[0].dim() == 3 else 1
+
+
+def per_lane(fn, fields):
+    """``fn(lane's fields)`` on every lane of ``(lanes, ny, nx)`` fields,
+    the outputs stacked: a plain version over a batched call's lanes."""
+    outs = [fn(tuple(f[i] for f in fields)) for i in range(fields[0].shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+class StencilCall(torch.autograd.Function):
+    """A stencil entry point (``sw_steps``, ``sw_wide``, ``sw_phase1``,
+    ``sw_phase2``) under a ``torch.func`` transform: ``route(fields)`` on
+    the physical tensors.  Forward only, as the JAX package's stencils have
+    no VJP.  The vmap rule lays the lanes out as contiguous ``(N, ny, nx)``
+    planes (an unbatched field expanded; the lanes of nested vmaps folded
+    into one N) and calls the route once: one launch of the kernel for all
+    N lanes, each lane bit for bit its own one-lane launch."""
+
+    @staticmethod
+    def forward(route, *fields):
+        return route(fields)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, route, *fields):
+        lanes = [batch_at(info.batch_size, d, f) for d, f in zip(in_dims[1:], fields)]
+        lead = lanes[0].shape[:-2]
+        outs = StencilCall.apply(route, *(f.reshape(-1, *f.shape[-2:]).contiguous()
+                                          for f in lanes))
+        return tuple(o.reshape(*lead, *o.shape[-2:]) for o in outs), (0,) * len(outs)
+
+
+def stencil_call(route, fields):
+    """``route(fields)``; under a ``torch.func`` transform through
+    ``StencilCall``, whose vmap rule makes one launch of all lanes."""
+    if transformed(*fields):
+        return StencilCall.apply(route, *fields)
+    return route(tuple(fields))
 
 
 # The verifier's lineage capture (``analysis/lineage.py``) registers
@@ -267,8 +317,9 @@ def meta_outputs(name: str, inputs, outs):
 
 def meta_fields(what: str, name: str, fields, shape):
     """The stencils' ``meta`` route: checks ``fields`` as a launch needs
-    them (f32, each of ``shape``) and returns one empty output like each,
-    reported by :func:`meta_outputs`."""
+    them (f32, each of ``shape``: a plane, or ``(lanes, *plane)`` for a
+    batched call) and returns one empty output like each, reported by
+    :func:`meta_outputs`."""
     for f in fields:
         if f.device.type != "meta" or f.dtype != torch.float32:
             raise ValueError(f"{what}: fields must be f32 meta tensors")

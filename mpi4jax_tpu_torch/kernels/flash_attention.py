@@ -35,7 +35,9 @@ Each is chosen by dtype, and each has its own launch counter:
   ``csrc/flash_bwd_mma.cu``.
 
 A CUDA call launches the kernels or raises; nothing falls back to the
-plain version.
+plain version.  Under ``torch.func`` the lanes of a ``vmap`` fold into B
+(``FlashPartials.vmap``, ``PartialsBackward.vmap``): a vmapped call is
+one launch of each kernel it reaches.
 
 The backward holds ``m`` constant, as the JAX package's custom VJP does:
 its cotangent is dropped, which is exact for every consumer that merges
@@ -62,6 +64,7 @@ import ctypes
 
 import torch
 
+from ..utils.transforms import batch_at, transformed
 from . import _build
 
 SOURCE = _build.CSRC / "flash_fwd_tf32.cu"
@@ -415,12 +418,9 @@ def flash_bwd_dkv(q, k, v, mask, m, g_o, g_l, *, scale: float,
     return dk, dv
 
 
-def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
-                       causal: bool = False):
-    """``(dq, dk, dv)`` of the partials from the saved ``(q, k, v, m)`` and
-    the cotangents of ``o`` and ``l``: the plain version for CPU tensors,
-    the two backward kernels for CUDA tensors (or raise)."""
-    _check_causal(q, k, mask, causal)
+def _bwd_partials(q, k, v, mask, m, g_o, g_l, scale: float, causal: bool):
+    """The backward's route by device: the plain version (CPU), the shape
+    rule (``meta``), the two kernels (CUDA)."""
     if q.device.type == "cpu":
         return block_partials_bwd_plain(q, k, v, mask, m, g_o, g_l,
                                         scale=scale, causal=causal)
@@ -436,31 +436,129 @@ def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
     return dq, dk, dv
 
 
+def block_partials_bwd(q, k, v, mask, m, g_o, g_l, *, scale: float,
+                       causal: bool = False):
+    """``(dq, dk, dv)`` of the partials from the saved ``(q, k, v, m)`` and
+    the cotangents of ``o`` and ``l``: the plain version for CPU tensors,
+    the two backward kernels for CUDA tensors (or raise).  Under a
+    ``torch.func`` transform it runs as ``PartialsBackward``, whose vmap
+    rule folds the lanes into B."""
+    _check_causal(q, k, mask, causal)
+    if transformed(q, k, v, mask, m, g_o, g_l):
+        return PartialsBackward.apply(q, k, v, mask, m, g_o, g_l, scale, causal)
+    return _bwd_partials(q, k, v, mask, m, g_o, g_l, scale, causal)
+
+
+# ---------------------------------------------------------------------------
+# torch.func: the Functions and their vmap rules
+# ---------------------------------------------------------------------------
+
+# the kernels' grid limit on B*H (``_check_kernel_shapes``), which a fold
+# of N lanes into B meets as N*B*H
+MAX_BATCH_HEADS = 65535
+
+FORWARD_MODE_ERROR = (
+    "flash_block_partials: forward-mode differentiation (jvp, jacfwd) does "
+    "not reach the kernel route (every CUDA tensor, and custom_backward=True "
+    "on the CPU): its Function has a reverse-mode rule only, as the JAX "
+    "package's custom_vjp kernel path has; on the CPU pass "
+    "custom_backward=False, the plain route, which differentiates in both "
+    "modes")
+
+
+def _lanes(fn, n: int, dims, tensors, mask, mask_dim):
+    """``fn(tensors, mask)`` of a vmapped call on ``n`` lanes: every
+    tensor (B, ...) laid out lanes first, folded into B as (N*B, ...),
+    ``fn`` called once and its outputs unfolded to (N, B, ...).  A batched
+    mask cannot fold (the kernels' mask is one (Tq, Tk) shared by batch and
+    heads), so then ``fn`` runs once a lane and the results are stacked."""
+    if mask is not None and mask_dim is not None:
+        per_lane = [fn([t if d is None else t.select(d, i) for t, d in zip(tensors, dims)],
+                       mask.select(mask_dim, i)) for i in range(n)]
+        outs = tuple(torch.stack(o) for o in zip(*per_lane))
+        return outs, (0,) * len(outs)
+    lanes = [batch_at(n, d, t) for t, d in zip(tensors, dims)]
+    b, h = lanes[0].shape[1], lanes[0].shape[3]
+    if n * b * h > MAX_BATCH_HEADS:
+        raise ValueError(
+            f"flash_block_partials under vmap: {n} lanes folded into B={b} "
+            f"with H={h} give N*B*H = {n * b * h}, past the kernels' limit "
+            f"B*H <= {MAX_BATCH_HEADS}; vmap over fewer lanes or a smaller batch")
+    outs = fn([t.reshape(n * t.shape[1], *t.shape[2:]) for t in lanes], mask)
+    return tuple(o.reshape(n, b, *o.shape[1:]) for o in outs), (0,) * len(outs)
+
+
+class PartialsBackward(torch.autograd.Function):
+    """``block_partials_bwd`` under a ``torch.func`` transform: once on
+    the physical tensors.  Its vmap rule folds the lanes into B, so
+    ``vmap(grad)`` and ``jacrev`` make one ``dq`` and one ``dk``/``dv``
+    launch (one of each a lane under a batched mask).  It has no backward
+    of its own: a second derivative through the kernels is not taken."""
+
+    @staticmethod
+    def forward(q, k, v, mask, m, g_o, g_l, scale, causal):
+        return _bwd_partials(q, k, v, mask, m, g_o, g_l, scale, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, m, g_o, g_l, scale, causal):
+        def run(ts, msk):
+            q_, k_, v_, m_, g_o_, g_l_ = ts
+            return PartialsBackward.apply(q_, k_, v_, msk, m_, g_o_, g_l_, scale, causal)
+
+        dims = in_dims[:3] + in_dims[4:7]
+        return _lanes(run, info.batch_size, dims, (q, k, v, m, g_o, g_l), mask,
+                      in_dims[3])
+
+
+def _partials(q, k, v, mask, scale: float, causal: bool):
+    """The forward's route by device: the plain version (CPU), the shape
+    rule (``meta``), one kernel launch (CUDA)."""
+    if q.device.type == "cpu":
+        return block_partials_plain(q, k, v, mask, scale=scale, causal=causal)
+    if q.device.type == "meta":
+        return _meta_partials(q, k, v, mask)
+    return _kernel_partials(q, k, v, mask, scale, causal)
+
+
 class FlashPartials(torch.autograd.Function):
     """The partials with their blockwise backward (the JAX package's
     ``_partials`` custom VJP): the forward saves ``(q, k, v, m)``, the
     backward recomputes ``p`` tile by tile, so no (Tq, Tk) tensor is kept,
-    and drops ``m``'s cotangent."""
+    and drops ``m``'s cotangent.  It composes with ``torch.func``:
+    ``grad``, ``vjp`` and ``jacrev`` reach the backward; the vmap rule
+    folds the lanes into B, so a vmapped call is one launch of the forward
+    kernel (one a lane under a batched mask); forward mode raises, as a
+    ``custom_vjp`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, scale, causal):
-        if q.device.type == "cpu":
-            o, m, l = block_partials_plain(q, k, v, mask, scale=scale,
-                                           causal=causal)
-        elif q.device.type == "meta":
-            o, m, l = _meta_partials(q, k, v, mask)
-        else:
-            o, m, l = _kernel_partials(q, k, v, mask, scale, causal)
-        ctx.save_for_backward(q, k, v, m)
-        ctx.mask, ctx.scale, ctx.causal = mask, scale, causal
-        return o, m, l
+    def forward(q, k, v, mask, scale, causal):
+        return _partials(q, k, v, mask, scale, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, mask, scale, causal = inputs
+        ctx.save_for_backward(q, k, v, mask, output[1])
+        ctx.scale, ctx.causal = scale, causal
 
     @staticmethod
     def backward(ctx, g_o, _g_m, g_l):
-        q, k, v, m = ctx.saved_tensors
-        dq, dk, dv = block_partials_bwd(q, k, v, ctx.mask, m, g_o, g_l,
+        q, k, v, mask, m = ctx.saved_tensors
+        dq, dk, dv = block_partials_bwd(q, k, v, mask, m, g_o, g_l,
                                         scale=ctx.scale, causal=ctx.causal)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise TypeError(FORWARD_MODE_ERROR)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, scale, causal):
+        return _lanes(lambda ts, msk: FlashPartials.apply(*ts, msk, scale, causal),
+                      info.batch_size, in_dims[:3], (q, k, v), mask, in_dims[3])
 
 
 def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False,
@@ -479,9 +577,13 @@ def flash_block_partials(q, k, v, mask, *, scale: float, causal: bool = False,
     tensors take the natively differentiable plain version, or with
     ``custom_backward=True`` the plain forward and backward of the
     blockwise ``FlashPartials``.  ``meta`` tensors (the verifier's
-    abstract run) take the kernels' shape rule and launch nothing."""
+    abstract run) take the kernels' shape rule and launch nothing.
+    Under ``torch.func`` the kernel route runs as ``FlashPartials``: one
+    launch a vmapped call, reverse mode through the backward kernels,
+    forward mode refused (see ``FlashPartials``)."""
     _check_causal(q, k, mask, causal)
-    if q.device.type == "meta" and not torch.is_grad_enabled():
+    if q.device.type == "meta" and not torch.is_grad_enabled() \
+            and not transformed(q, k, v, mask):
         return _meta_partials(q, k, v, mask)
     if q.device.type == "cpu" and not custom_backward:
         return block_partials_plain(q, k, v, mask, scale=scale, causal=causal)

@@ -69,9 +69,11 @@ _lib = None
 
 _C = ctypes
 _CONSTS = [_C.c_float] * 9
+_LANES = [_C.c_int, _C.c_longlong]  # lanes of one launch, elements between them
 _SIGNATURES = {
-    "sw_phase1_launch": [_C.c_void_p] * 12 + [_C.c_int] * 8 + _CONSTS + [_C.c_void_p],
-    "sw_phase2_launch": [_C.c_void_p] * 4 + [_C.c_int] * 7 + _CONSTS + [_C.c_void_p],
+    "sw_phase1_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 8 + _CONSTS + _LANES
+                         + [_C.c_void_p]),
+    "sw_phase2_launch": [_C.c_void_p] * 4 + [_C.c_int] * 7 + _CONSTS + _LANES + [_C.c_void_p],
     "sw_phase_geometry": [_C.c_int] * 3 + [_C.c_void_p] * 2,
 }
 
@@ -131,23 +133,39 @@ def _launch_device(fields):
     return torch.cuda.current_stream(h.device).cuda_stream
 
 
+def _launch_shape(fields, cfg):
+    """The shape a launch asks of every field: the local plane, or stacked
+    lanes of it."""
+    return (*fields[0].shape[:-2], cfg.ny_local, cfg.nx_local)
+
+
 def sw_phase1(fields, cfg, first_step: bool, offsets):
     """Phase 1 of one step on the local state ``fields`` (h, u, v, dh, du,
-    dv) of the rank at ``offsets``.  On CPU tensors this is the plain
-    version; on CUDA tensors it launches the kernel, or raises; ``meta``
-    tensors take the shape rule (``sw_steps``)."""
+    dv) of the rank at ``offsets``, each ``(ny_l, nx_l)`` or stacked
+    ``(lanes, ny_l, nx_l)``.  On CPU tensors this is the plain version
+    (lane by lane); on CUDA tensors it launches the kernel once, or
+    raises; ``meta`` tensors take the shape rule; under
+    ``torch.func.vmap`` the lanes go to one launch (``sw_steps``)."""
+    return _build.stencil_call(lambda fs: _phase1(fs, cfg, first_step, offsets), fields)
+
+
+def _phase1(fields, cfg, first_step: bool, offsets):
+    shape = _launch_shape(fields, cfg)
     if fields[0].device.type == "cpu":
+        if fields[0].dim() == 3:
+            return _build.per_lane(
+                lambda fs: sw_phase1_plain(fs, cfg, first_step, offsets), fields)
         return sw_phase1_plain(fields, cfg, first_step, offsets)
     if fields[0].device.type == "meta":
-        return _build.meta_fields("sw_phase", "sw_phase1", fields,
-                                  (cfg.ny_local, cfg.nx_local))
+        return _build.meta_fields("sw_phase", "sw_phase1", fields, shape)
     stream = _launch_device(fields)
-    _build.check_cuda_fields("sw_phase", fields, (cfg.ny_local, cfg.nx_local))
+    _build.check_cuda_fields("sw_phase", fields, shape)
     outs = tuple(torch.empty_like(f) for f in fields)
     ints, floats = _frame_args(cfg, offsets)
     err = _library().sw_phase1_launch(
         *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
-        *ints, int(first_step), *floats, stream,
+        *ints, int(first_step), *floats, _build.lanes_of(fields),
+        cfg.ny_local * cfg.nx_local, stream,
     )
     _build.raise_on_error("sw_phase1", err)
     counter.count(torch.cuda.is_current_stream_capturing())
@@ -155,22 +173,29 @@ def sw_phase1(fields, cfg, first_step: bool, offsets):
 
 
 def sw_phase2(u, v, cfg, offsets):
-    """Phase 2 of one step on ``u`` and ``v`` of the rank at ``offsets``;
-    returns the new ``(u, v)``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel, or raise; ``meta`` tensors take the shape
-    rule."""
+    """Phase 2 of one step on ``u`` and ``v`` of the rank at ``offsets``
+    (planes, or stacked lanes); returns the new ``(u, v)``.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel once, or raise;
+    ``meta`` tensors take the shape rule; under ``torch.func.vmap`` the
+    lanes go to one launch."""
+    return _build.stencil_call(lambda fs: _phase2(*fs, cfg, offsets), (u, v))
+
+
+def _phase2(u, v, cfg, offsets):
+    shape = _launch_shape((u, v), cfg)
     if u.device.type == "cpu":
+        if u.dim() == 3:
+            return _build.per_lane(lambda fs: sw_phase2_plain(*fs, cfg, offsets), (u, v))
         return sw_phase2_plain(u, v, cfg, offsets)
     if u.device.type == "meta":
-        return _build.meta_fields("sw_phase", "sw_phase2", (u, v),
-                                  (cfg.ny_local, cfg.nx_local))
+        return _build.meta_fields("sw_phase", "sw_phase2", (u, v), shape)
     stream = _launch_device((u, v))
-    _build.check_cuda_fields("sw_phase", (u, v), (cfg.ny_local, cfg.nx_local))
+    _build.check_cuda_fields("sw_phase", (u, v), shape)
     ou, ov = torch.empty_like(u), torch.empty_like(v)
     ints, floats = _frame_args(cfg, offsets)
     err = _library().sw_phase2_launch(
         u.data_ptr(), v.data_ptr(), ou.data_ptr(), ov.data_ptr(),
-        *ints, *floats, stream,
+        *ints, *floats, _build.lanes_of((u, v)), cfg.ny_local * cfg.nx_local, stream,
     )
     _build.raise_on_error("sw_phase2", err)
     counter.count(torch.cuda.is_current_stream_capturing())

@@ -27,7 +27,8 @@ This module holds three things:
   with ``torch.roll``; the phase windows, in both mask frames, also serve
   ``kernels/sw_phase.py`` and ``kernels/sw_wide.py``;
 - the wrapper ``sw_steps``: a CPU tensor takes the plain version, a CUDA
-  tensor launches the kernel or raises;
+  tensor launches the kernel or raises; stacked ``(lanes, ny, nx)``
+  fields, and the lanes of a ``torch.func.vmap``, run in one launch;
 - the build of ``csrc/sw_steps.cu`` with ``nvcc`` at first use, into the
   package's ``_build/`` directory (``kernels/_build.py``), loaded with
   ``ctypes``, and the kernel's geometry as the source reports it.
@@ -294,7 +295,7 @@ _lib = None
 _C = ctypes
 _SIGNATURES = {
     "sw_steps_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 5 + [_C.c_float] * 9
-                        + [_C.c_void_p]),
+                        + [_C.c_int, _C.c_longlong, _C.c_void_p]),
     "sw_steps_geometry": [_C.c_int] * 3 + [_C.c_void_p] * 2,
 }
 # what the geometry functions of csrc/sw_steps.cu and sw_wide.cu report
@@ -352,32 +353,42 @@ def geometry(shape, nsteps: int):
 
 def sw_steps(fields, cfg, first_step: bool, nsteps: int):
     """``nsteps`` whole model steps on the local state ``fields`` (h, u, v,
-    dh, du, dv).  On CPU tensors this is the plain version; on CUDA
-    tensors it launches the kernel, on the current stream, or raises.
-    ``meta`` tensors (the verifier's abstract run, ``analysis/``) take the
-    shape rule: empty outputs of the kernel's shapes, nothing launched."""
+    dh, du, dv), each ``(ny_l, nx_l)``, or ``(lanes, ny_l, nx_l)`` for
+    that many states at once.  On CPU tensors this is the plain version
+    (lane by lane); on CUDA tensors it launches the kernel once, on the
+    current stream, or raises.  ``meta`` tensors (the verifier's abstract
+    run, ``analysis/``) take the shape rule: empty outputs of the kernel's
+    shapes, nothing launched.  Under ``torch.func.vmap`` the lanes go to
+    one launch (``_build.StencilCall``)."""
     _check_eligible(cfg, nsteps)
+    return _build.stencil_call(lambda fs: _steps(fs, cfg, first_step, nsteps), fields)
+
+
+def _steps(fields, cfg, first_step: bool, nsteps: int):
     h = fields[0]
+    plane = (cfg.ny_local, cfg.nx_local)
+    shape = (*h.shape[:-2], *plane)  # a plane, or stacked lanes of it
     if h.device.type == "cpu":
+        if h.dim() == 3:
+            return _build.per_lane(
+                lambda fs: sw_steps_plain(fs, cfg, first_step, nsteps), fields)
         return sw_steps_plain(fields, cfg, first_step, nsteps)
     if h.device.type == "meta":
-        return _build.meta_fields("sw_steps", "sw_steps", fields,
-                                  (cfg.ny_local, cfg.nx_local))
+        return _build.meta_fields("sw_steps", "sw_steps", fields, shape)
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_steps: unsupported device {h.device}")
-    shape = (cfg.ny_local, cfg.nx_local)
     _build.check_cuda_fields("sw_steps", fields, shape)
-    if min(shape) < 3:
-        raise ValueError(f"sw_steps: local shape {shape} below 3x3")
+    if min(plane) < 3:
+        raise ValueError(f"sw_steps: local shape {plane} below 3x3")
     outs = tuple(torch.empty_like(f) for f in fields)
     c = step_constants(cfg)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     err = _library().sw_steps_launch(
         *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
-        shape[0], shape[1], int(first_step), nsteps,
+        plane[0], plane[1], int(first_step), nsteps,
         int(cfg.lateral_viscosity > 0),
         c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc,
-        stream,
+        _build.lanes_of(fields), plane[0] * plane[1], stream,
     )
     _build.raise_on_error("sw_steps", err)
     counter.count(torch.cuda.is_current_stream_capturing())

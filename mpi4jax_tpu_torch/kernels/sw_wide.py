@@ -67,7 +67,7 @@ _lib = None
 _C = ctypes
 _SIGNATURES = {
     "sw_wide_launch": ([_C.c_void_p] * 12 + [_C.c_int] * 14 + [_C.c_float] * 9
-                       + [_C.c_void_p]),
+                       + [_C.c_int, _C.c_longlong, _C.c_void_p]),
     "sw_wide_geometry": [_C.c_int] * 7 + [_C.c_void_p] * 2,
 }
 
@@ -147,20 +147,30 @@ def sw_wide_plain(fields, cfg, first_step: bool, nsteps: int, offsets):
 
 def sw_wide(fields, cfg, first_step: bool, nsteps: int, offsets):
     """``nsteps`` whole steps on the widened frame ``fields`` (h, u, v, dh,
-    du, dv).  On CPU tensors this is the plain version; on CUDA tensors it
-    launches the kernel, on the current stream, or raises; ``meta``
-    tensors take the shape rule (``sw_steps``)."""
+    du, dv), or on ``(lanes, *frame)`` stacks of that many frames.  On CPU
+    tensors this is the plain version (lane by lane); on CUDA tensors it
+    launches the kernel once, on the current stream, or raises; ``meta``
+    tensors take the shape rule; under ``torch.func.vmap`` the lanes go to
+    one launch (``sw_steps``)."""
     _check_steps(nsteps)
+    return _build.stencil_call(
+        lambda fs: _wide(fs, cfg, first_step, nsteps, offsets), fields)
+
+
+def _wide(fields, cfg, first_step: bool, nsteps: int, offsets):
     h = fields[0]
+    shape = tuple(h.shape[-2:])  # the frame of each lane
     if h.device.type == "cpu":
+        if h.dim() == 3:
+            return _build.per_lane(
+                lambda fs: sw_wide_plain(fs, cfg, first_step, nsteps, offsets), fields)
         return sw_wide_plain(fields, cfg, first_step, nsteps, offsets)
     if h.device.type == "meta":
         return _build.meta_fields("sw_wide", "sw_wide", fields,
                                   tuple(h.shape))
     if h.device.type != "cuda":
         raise RuntimeError(f"sw_wide: unsupported device {h.device}")
-    shape = tuple(h.shape)
-    _build.check_cuda_fields("sw_wide", fields, shape)
+    _build.check_cuda_fields("sw_wide", fields, tuple(h.shape))
     cy, cx, rows, cols = crop_region(cfg, shape)
     outs = tuple(torch.empty_like(f) for f in fields)
     c = step_constants(cfg)
@@ -171,7 +181,7 @@ def sw_wide(fields, cfg, first_step: bool, nsteps: int, offsets):
         cfg.ny + 2, cfg.nx + 2, int(not cfg.periodic_x), cy, cx, rows, cols,
         int(first_step), nsteps, int(cfg.lateral_viscosity > 0),
         c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc,
-        stream,
+        _build.lanes_of(fields), shape[0] * shape[1], stream,
     )
     _build.raise_on_error("sw_wide", err)
     counter.count(torch.cuda.is_current_stream_capturing())

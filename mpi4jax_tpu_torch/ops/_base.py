@@ -57,6 +57,7 @@ from ..telemetry import core as _telemetry
 from ..utils import config as _config
 from ..utils import debug as _debug
 from ..utils import profiling as _profiling
+from ..utils.transforms import batch_at, transformed  # noqa: F401  (the ops' names)
 from ._fusion import flush_pending
 
 # the codes the ops raise at dispatch, each an entry of the catalog
@@ -160,14 +161,6 @@ def annotate_native() -> None:
 # a jvp) batch too.
 
 
-def transformed(*tensors) -> bool:
-    """Whether a ``torch.func`` transform (``vmap``, ``grad``, ``jvp``,
-    ...) wraps one of ``tensors``: they then have no storage of their own,
-    and an exchange must run on what they wrap."""
-    return any(isinstance(t, torch.Tensor) and _functorch.is_functorch_wrapped_tensor(t)
-               for t in tensors)
-
-
 def wants_grad(x: torch.Tensor) -> bool:
     """Whether autograd follows ``x`` here: backward or forward
     (``torch.autograd.forward_ad``), or a ``torch.func`` grad or jvp level
@@ -181,15 +174,6 @@ def wants_grad(x: torch.Tensor) -> bool:
             return True
         x = _functorch.get_unwrapped(x)
     return False
-
-
-def batch_at(size: int, dim: Optional[int], t: torch.Tensor,
-             at: int = 0) -> torch.Tensor:
-    """The physical ``t`` of a vmapped call with its batch dim (``dim``)
-    at ``at``; an unbatched ``t`` expanded to ``size`` lanes."""
-    if dim is None:
-        return t.unsqueeze(at).expand(*t.shape[:at], size, *t.shape[at:])
-    return t.movedim(dim, at)
 
 
 def _laid_out(at: int, out: int):

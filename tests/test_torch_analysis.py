@@ -630,3 +630,83 @@ def test_flash_meta_routes_give_the_plain_shapes(dtype, causal):
                                    g_o.to("meta"), g_l.to("meta"), scale=0.1,
                                    causal=causal)
     assert _like(mgrads) == _like(grads)
+
+
+# ---------------------------------------------------------------------------
+# programs under vmap: the JAX events of the jax.vmap program
+# ---------------------------------------------------------------------------
+
+VMAP_LANES = 3
+# (name, the JAX op, the port op): the lane's call of each op family
+VMAP_OPS = {
+    "allreduce": lambda ns, c: lambda v: ns.allreduce(v, comm=c)[0],
+    "sendrecv": lambda ns, c: lambda v: ns.sendrecv(v, v, dest=ns.shift(1), comm=c)[0],
+    "alltoall": lambda ns, c: lambda v: ns.alltoall(v, comm=c)[0],
+    "allgather": lambda ns, c: lambda v: ns.allgather(v, comm=c)[0],
+    "bcast": lambda ns, c: lambda v: ns.bcast(v, 1, comm=c)[0],
+}
+
+
+@pytest.mark.parametrize("name", sorted(VMAP_OPS))
+def test_vmapped_op_records_the_jax_events(name):
+    """An op under ``vmap`` (three lanes of (N, 5)) records the events of
+    the JAX package's ``jax.vmap`` of it, lane shape and all, 0 errors."""
+    jc, pc = jax_comm(), port_comm()
+    jop, pop = VMAP_OPS[name](mpx, jc), VMAP_OPS[name](tpx, pc)
+    check_clean(jax.vmap(jop), (jnp.zeros((N, VMAP_LANES, N, 5)),), jc,
+                lambda x: torch.func.vmap(pop)(x), (torch.zeros((VMAP_LANES, N, 5)),), pc)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_vmapped_ring_forward_records_the_jax_events(causal):
+    """The vmapped ring forward (the rotations and, on ``meta``, the
+    partials' batched shape rule) records the JAX ``jax.vmap`` events."""
+    from mpi4jax_tpu.attention import ring_attention as jring
+    from mpi4jax_tpu_torch.attention import ring_attention as pring
+
+    jc, pc = jax_comm(), port_comm()
+    q = jnp.zeros((N, VMAP_LANES, 1, 16, 2, 64), jnp.float32)
+    t = torch.zeros((VMAP_LANES, 1, 16, 2, 64))
+    rep = check_clean(
+        jax.vmap(lambda a, b, c: jring(a, b, c, comm=jc, causal=causal)), (q, q, q), jc,
+        lambda a, b, c: torch.func.vmap(
+            lambda a, b, c: pring(a, b, c, comm=pc, causal=causal))(a, b, c), (t, t, t), pc)
+    assert {e.op for e in rep.events} == {"sendrecv"}
+
+
+@pytest.mark.parametrize("mode", ["pallas_halo", "wide2"])
+def test_vmapped_stepper_pair_records_the_jax_events(mode):
+    """A stepper pair of a (2, 2) grid (the first step, then one call of
+    the chunk step, ``select_steps``' pair) under ``vmap`` over a
+    two-member ensemble: 0 errors and the JAX event stream of ``jax.vmap``
+    of the JAX pair; the stencils' batched ``meta`` routes run in the
+    port's abstract run."""
+    from mpi4jax_tpu_torch.kernels import _build
+
+    jcfg = JSW.Config(nx=64, ny=32, nproc_y=2, nproc_x=2)
+    pcfg = PSW.Config(nx=64, ny=32, nproc_y=2, nproc_x=2)
+    jc = JSW.make_mesh_and_comm(jcfg, devices=jax.devices()[:4])[1]
+    pc = port_comm(shape=(2, 2), axes=("py", "px"))
+
+    def pair(ns, cfg, comm):
+        step, chunk, _ = ns.select_steps(mode, cfg)
+        return lambda s: (chunk or step)(step(s, cfg, comm, True), cfg, comm, False)
+
+    jpair, ppair = pair(JSW, jcfg, jc), pair(PSW, pcfg, pc)
+    # the rank axis first, the members behind it
+    jens = JSW.State(*(jnp.stack([f, f], axis=1) for f in JSW.initial_state(jcfg)))
+    shape = (2, pcfg.ny_local, pcfg.nx_local)
+    seen = []
+    hook = _build._meta_hook
+    _build.set_meta_hook(lambda outs, ins, name: (
+        seen.append((name, tuple(outs[0].shape))), hook and hook(outs, ins, name)))
+    try:
+        check_clean(jax.vmap(jpair), (jens,), jc,
+                    lambda s: PSW.State(*torch.func.vmap(
+                        lambda *f: tuple(ppair(PSW.State(*f))))(*s)),
+                    (PSW.State(*[torch.empty(shape, device="meta")] * 6),), pc,
+                    same_findings=False)
+    finally:
+        _build.set_meta_hook(hook)
+    kernel = "sw_phase1" if mode == "pallas_halo" else "sw_wide"
+    assert any(name == kernel and s[0] == 2 for name, s in seen), seen

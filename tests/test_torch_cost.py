@@ -419,3 +419,20 @@ def test_a_rejected_file_skips_the_ambient_cost_pass_with_a_warning(
     finally:
         hook.set_report_sink(None)
     assert all(r.cost is None for _, r in sink)
+
+
+def test_vmapped_ring_attention_equals_jax():
+    """The ring under ``vmap`` (two lanes): the same wire costs as the JAX
+    package's ``jax.vmap`` of it, and the compute part within the room of
+    the unbatched ring's ratio (the folded partials write their lanes'
+    bytes in one launch)."""
+    from mpi4jax_tpu.attention import ring_attention as jring
+    from mpi4jax_tpu_torch.attention import ring_attention as pring
+
+    jc, pc = jax_comm(), port_comm()
+    q, t = jnp.zeros((N, 2, 1, 64, 2, 64)), torch.zeros((2, 1, 64, 2, 64))
+    jrep, prep = both(
+        (jax.vmap(lambda a, b, c: jring(a, b, c, comm=jc)), jc), (q, q, q),
+        (lambda a, b, c: torch.func.vmap(lambda a, b, c: pring(a, b, c, comm=pc))(a, b, c),
+         pc), (t, t, t))
+    check_equal_wire(jrep, prep, "ring_attention")

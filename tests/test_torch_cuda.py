@@ -1111,3 +1111,75 @@ def test_vmap_ops_on_the_card():
                         timeout=120, args=("cuda:0", 1, 1))
     assert len(res["cases"]) == 38 and res["worst"] == 0.0
     assert all(c["calls"] == 0 for c in res["cases"].values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_vmapped_flash_partials_are_one_launch_on_the_card(dtype, causal):
+    """``chip_smoke.py`` phase 22 (a) at a small width: ``torch.func.vmap``
+    over the partials is one forward launch, its lanes bit for bit the
+    unbatched launch of the folded batch; ``vmap(grad)`` one ``dq`` and one
+    ``dk``/``dv`` launch."""
+    need_cuda()
+    from torch.func import grad, vmap
+
+    from mpi4jax_tpu_torch.kernels import _build
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((3, 2, 128, 2, 64), device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    f = lambda q, k, v: FA.flash_block_partials(q, k, v, None, scale=0.125,  # noqa: E731
+                                                causal=causal)
+    before = _build.launch_totals()
+    got = vmap(f)(q, k, v)
+    torch.cuda.synchronize()
+    moved = {n: c - before.get(n, 0) for n, c in _build.launch_totals().items()
+             if c != before.get(n, 0)}
+    assert sum(moved.values()) == 1, moved
+    want = f(*(x.reshape(6, *x.shape[2:]) for x in (q, k, v)))
+    for a, b in zip(got, want):
+        assert torch.equal(a.reshape(b.shape).view(torch.uint8), b.view(torch.uint8))
+    before = _build.launch_totals()
+    vmap(grad(lambda q, k, v: (flash_attention(q, k, v, causal=causal).float() ** 2).sum(),
+              argnums=(0, 1, 2)))(q, k, v)
+    torch.cuda.synchronize()
+    moved = {n: c - before.get(n, 0) for n, c in _build.launch_totals().items()
+             if c != before.get(n, 0) and "bwd" in n}
+    assert sorted(moved.values()) == [1, 1], moved
+
+
+@pytest.mark.gpu
+def test_batched_stencil_launches_are_each_lane_on_the_card():
+    """Each stencil kernel on stacked ``(lanes, ny, nx)`` fields: one
+    launch, each lane bit for bit its own one-lane launch (ragged strips
+    and chunks, walled and periodic, both phases)."""
+    need_cuda()
+    cfg = P.Config(nx=598, ny=38)
+    lanes = [perturbed_state(38, 598, seed) for seed in range(3)]
+    stacked = tuple(torch.stack(f) for f in zip(*lanes))
+    runs = {"sw_steps": (K.counter, lambda f: K.sw_steps(f, cfg, False, 2)),
+            "sw_phase1": (KP.counter, lambda f: KP.sw_phase1(f, cfg, True, (0, 0))),
+            "sw_phase2": (KP.counter, lambda f: KP.sw_phase2(f[1], f[2], cfg, (0, 0)))}
+    for name, (counter, fn) in runs.items():
+        before = counter.launches
+        got = fn(stacked)
+        torch.cuda.synchronize()
+        assert counter.launches - before == 1, name
+        for i, lane in enumerate(lanes):
+            for a, b in zip(got, fn(lane)):
+                assert torch.equal(a[i].view(torch.int32), b.view(torch.int32)), (name, i)
+    wcfg = replace(P.Config(nx=64, ny=32, nproc_y=2, nproc_x=2), periodic_x=False)
+    frames = [tuple(torch.randn((48, 64), device="cuda") for _ in range(6))
+              for _ in range(2)]
+    stacked = tuple(torch.stack(f) for f in zip(*frames))
+    before = KW.counter.launches
+    got = KW.sw_wide(stacked, wcfg, False, 2, (-15, -15))
+    torch.cuda.synchronize()
+    assert KW.counter.launches - before == 1
+    cy, cx, rows, cols = KW.crop_region(wcfg, (48, 64))
+    crop = (slice(cy, cy + rows), slice(cx, cx + cols))
+    for i, lane in enumerate(frames):
+        for a, b in zip(got, KW.sw_wide(lane, wcfg, False, 2, (-15, -15))):
+            assert torch.equal(a[i][crop].contiguous().view(torch.int32),
+                               b[crop].contiguous().view(torch.int32))

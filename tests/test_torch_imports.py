@@ -30,7 +30,8 @@ FILES += [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py",
           REPO / "tests" / "torch_ranks_aot.py",
           REPO / "tests" / "torch_ranks_analysis.py",
           REPO / "tests" / "torch_ranks_hierarchy.py",
-          REPO / "tests" / "torch_ranks_transforms.py"]
+          REPO / "tests" / "torch_ranks_transforms.py",
+          REPO / "tests" / "torch_ranks_kernel_transforms.py"]
 FORBIDDEN = ("jax", "jaxlib", "mpi4jax_tpu")
 
 

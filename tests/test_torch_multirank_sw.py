@@ -51,9 +51,10 @@ def results(tmp_path_factory):
 
 
 def port_run(results, grid):
-    """Every rank's results of ``sw_program`` on ``grid``."""
+    """Every rank's results of ``sw_program`` on ``grid``, within a budget
+    that grows with the world (``R.world_timeout``)."""
     return results.get(f"port-{grid[0]}x{grid[1]}", lambda: launch.run(
-        R.sw_program, prod(grid), device="cpu", timeout=R.RANK_TIMEOUT_S,
+        R.sw_program, prod(grid), device="cpu", timeout=R.world_timeout(prod(grid)),
         args=(grid,)))
 
 

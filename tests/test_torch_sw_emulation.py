@@ -20,7 +20,11 @@ geometry functions the sources export agree with the blocks they report,
 give the main path's computed over useful cells and residency under the
 H100's shared-memory limits, and the kernels' division by a held
 reciprocal (``Divisor``) is held against true division on 24 M
-numerators.  Skips where no C++ compiler is found.
+numerators.  A batched launch (2 and 3 lanes, one a ``blockIdx.z``) of
+each source, both phases, walled and periodic, with ragged strips, is bit
+for bit each lane's one-lane launch in lockstep and with the warps run
+apart, and writes nothing outside its lanes.  Skips where no C++ compiler
+is found.
 """
 
 import shutil
@@ -72,14 +76,22 @@ def same_bits(a, b):
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def run_steps(lib, fields, cfg, first, nsteps):
-    outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
+def lanes_of(fields):
+    """``(lanes, elements between lanes)`` of a launch on ``fields``: one
+    plane, or a ``(lanes, ny, nx)`` stack."""
+    ny, nx = fields[0].shape[-2:]
+    return (fields[0].shape[0] if fields[0].dim() == 3 else 1), ny * nx
+
+
+def run_steps(lib, fields, cfg, first, nsteps, outs=None):
+    if outs is None:
+        outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
     c = K.step_constants(cfg)
-    ny, nx = fields[0].shape
+    ny, nx = fields[0].shape[-2:]
     err = lib.sw_steps_launch(*(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
                               ny, nx, int(first), nsteps, int(cfg.lateral_viscosity > 0),
                               c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc,
-                              None)
+                              *lanes_of(fields), None)
     assert err == 0
     return outs
 
@@ -139,16 +151,17 @@ def wide_case(grid, rank, periodic, nsteps, seed=0, nx=64, ny=32):
     return cfg, fields, (oy, ox)
 
 
-def run_wide(lib, fields, cfg, first, nsteps, off):
-    outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
+def run_wide(lib, fields, cfg, first, nsteps, off, outs=None):
+    if outs is None:
+        outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
     c = K.step_constants(cfg)
-    ny, nx = fields[0].shape
+    ny, nx = fields[0].shape[-2:]
     cy, cx, rows, cols = KW.crop_region(cfg, (ny, nx))
     err = lib.sw_wide_launch(*(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs),
                              ny, nx, off[0], off[1], cfg.ny + 2, cfg.nx + 2,
                              int(not cfg.periodic_x), cy, cx, rows, cols, int(first), nsteps,
                              int(cfg.lateral_viscosity > 0), c.dx, c.dy, c.g, c.dt, c.ab_a,
-                             c.ab_b, c.f0, c.beta, c.visc, None)
+                             c.ab_b, c.f0, c.beta, c.visc, *lanes_of(fields), None)
     assert err == 0
     return outs
 
@@ -205,20 +218,23 @@ def phase_case(grid, rank, periodic, nx, ny, seed=0, dx=5e3):
     return cfg, fields, (py * (cfg.ny_local - 2), px * (cfg.nx_local - 2))
 
 
-def run_phase(lib, phase, fields, cfg, off):
+def run_phase(lib, phase, fields, cfg, off, outs=None):
     """Phase 1 (``"euler"``, ``"ab2"``) or 2 (``"visc"``) of ``lib`` into
-    outputs filled with a sentinel; returns what the plain version returns
-    (six fields, or u and v)."""
+    outputs filled with a sentinel (or ``outs``); returns what the plain
+    version returns (six fields, or u and v)."""
     ints, floats = KP._frame_args(cfg, off)
     if phase == "visc":
-        outs = (torch.full_like(fields[1], SENTINEL), torch.full_like(fields[2], SENTINEL))
+        if outs is None:
+            outs = (torch.full_like(fields[1], SENTINEL), torch.full_like(fields[2], SENTINEL))
         err = lib.sw_phase2_launch(fields[1].data_ptr(), fields[2].data_ptr(),
-                                   *(o.data_ptr() for o in outs), *ints, *floats, None)
+                                   *(o.data_ptr() for o in outs), *ints, *floats,
+                                   *lanes_of(fields), None)
     else:
-        outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
+        if outs is None:
+            outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
         err = lib.sw_phase1_launch(*(f.data_ptr() for f in fields),
                                    *(o.data_ptr() for o in outs), *ints,
-                                   int(phase == "euler"), *floats, None)
+                                   int(phase == "euler"), *floats, *lanes_of(fields), None)
     assert err == 0
     return outs
 
@@ -494,3 +510,94 @@ def test_main_path_pairs_compute_at_most_a_quarter_more_than_they_keep(libs):
     for g in (steps, wide):
         assert g["computed_per_useful"] <= 1.25, g
         assert g["warps_per_sm"] >= 16, g
+
+
+# ---------------------------------------------------------------------------
+# the batched launch: N lanes of one launch, one a blockIdx.z
+# ---------------------------------------------------------------------------
+
+
+def lane_inputs(kind, case, lanes):
+    """``(cfg, offsets, fields)`` of ``lanes`` states, lane i from its own
+    seed, stacked as ``(lanes, ny, nx)`` contiguous planes."""
+    per_lane = []
+    for i in range(lanes):
+        if kind == "steps":
+            cfg, fields = state(*case, seed=1 + i)
+            off = None
+        elif kind == "wide":
+            grid, rank, periodic, nx, ny = case
+            cfg, fields, off = wide_case(grid, rank, periodic, 2, seed=i, nx=nx, ny=ny)
+        else:
+            cfg, fields, off = phase_case(*case[:5], seed=i)
+        per_lane.append(fields)
+    return cfg, off, tuple(torch.stack(f).contiguous() for f in zip(*per_lane))
+
+
+def run_lanes(lib, kind, step, fields, cfg, off, outs=None):
+    """One launch of ``kind`` (``step`` its (first, nsteps) or phase) on
+    ``fields``, planes or stacked lanes."""
+    if kind == "steps":
+        return run_steps(lib, fields, cfg, *step, outs=outs)
+    if kind == "wide":
+        return run_wide(lib, fields, cfg, *step, off, outs=outs)
+    return run_phase(lib, step, fields, cfg, off, outs=outs)
+
+
+# (kind, case, step): periodic fused steps on two seam strips and on four
+# strips with a ragged last strip and chunk; the wide frame walled on a
+# (2,4) edge rank and periodic with three strips at an offset; both phases
+# on a ragged walled (2,2) rank of three strips and two chunks, and phase
+# 1 on a periodic edge rank of (2,4)
+BATCH_CASES = [("steps", (30, 300), (True, 1)), ("steps", (20, 850), (False, 3)),
+               ("wide", WIDE_CASES[4], (False, 2)), ("wide", WIDE_CASES[6], (True, 1)),
+               ("phase", PHASE_CASES[6], "ab2"), ("phase", PHASE_CASES[6], "visc"),
+               ("phase", PHASE_CASES[4], "euler")]
+BATCH_IDS = ["steps-2strips-euler", "steps-4strips-ragged-3steps", "wide-2x4-r6-walled",
+             "wide-2x2-r3-periodic-3strips", "phase1-ab2-ragged", "phase2-ragged",
+             "phase1-euler-2x4-r2-periodic"]
+
+
+@pytest.mark.parametrize("schedule", [0, 1, -1], ids=["lockstep", "ascending", "descending"])
+@pytest.mark.parametrize("lanes", [2, 3])
+@pytest.mark.parametrize("case", BATCH_CASES, ids=BATCH_IDS)
+def test_emulated_batched_launch_is_each_lane_bit_for_bit(libs, case, lanes, schedule):
+    """``lanes`` states in one launch (``gridDim.z`` = lanes, every field
+    offset by its lane's plane): each lane's output is bit for bit its own
+    one-lane launch, with the warps in lockstep and each alone from
+    barrier to barrier in both orders, and no cell outside the lanes is
+    written (a guard plane on each side keeps its sentinel)."""
+    kind, shape_case, step = case
+    lib = libs["sw_" + kind]
+    cfg, off, fields = lane_inputs(kind, shape_case, lanes)
+    lib.host_emu_schedule(schedule)
+    try:
+        n_out = 2 if step == "visc" else 6
+        guarded = [torch.full((lanes + 2, *fields[0].shape[1:]), SENTINEL)
+                   for _ in range(n_out)]
+        got = run_lanes(lib, kind, step, fields, cfg, off,
+                        outs=tuple(g[1:-1] for g in guarded))
+        for i in range(lanes):
+            want = run_lanes(lib, kind, step, tuple(f[i].contiguous() for f in fields),
+                             cfg, off)
+            for name, a, b in zip(P.State._fields if n_out == 6 else ("u", "v"), want,
+                                  got):
+                assert same_bits(a, b[i].contiguous()), (i, name)
+    finally:
+        lib.host_emu_schedule(0)
+    for g in guarded:
+        assert bool((g[0] == SENTINEL).all()) and bool((g[-1] == SENTINEL).all())
+
+
+def test_emulated_launch_with_no_lanes_is_refused(libs):
+    """A lane count below 1 is an invalid launch, refused before anything
+    runs (cudaErrorInvalidValue); a count of 1 is the plane alone, whose
+    geometry the exports report as before (the geometry tests above)."""
+    cfg, fields = state(30, 300, 1)
+    c = K.step_constants(cfg)
+    outs = tuple(torch.full_like(f, SENTINEL) for f in fields)
+    err = libs["sw_steps"].sw_steps_launch(
+        *(f.data_ptr() for f in fields), *(o.data_ptr() for o in outs), 30, 300, 1, 1, 1,
+        c.dx, c.dy, c.g, c.dt, c.ab_a, c.ab_b, c.f0, c.beta, c.visc, 0, 30 * 300, None)
+    assert err != 0
+    assert all(bool((o == SENTINEL).all()) for o in outs)

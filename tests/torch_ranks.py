@@ -45,6 +45,19 @@ from mpi4jax_tpu_torch.ops import _staging
 # every launch of the tests gets this limit: a hang fails one test instead
 # of the whole run
 RANK_TIMEOUT_S = 50.0
+# ... and a world whose ranks compute for long, a budget of this much a
+# rank: each rank is one process on a CPU thread, so under a loaded run
+# (six xdist workers beside other worlds) its compute stretches with the
+# ranks that share the cores.  The 8-rank shallow-water world
+# (sw_program) took 20 s whole alone and 39-58 s under such a load, of
+# which its eight process starts took 5-6 s: the rest is compute.
+RANK_BUDGET_S = 20.0
+
+
+def world_timeout(nprocs: int) -> float:
+    """The launch limit of a world of ``nprocs`` ranks: ``RANK_TIMEOUT_S``,
+    or ``RANK_BUDGET_S`` a rank where that is more."""
+    return max(RANK_TIMEOUT_S, RANK_BUDGET_S * nprocs)
 
 
 def shared_result(tmp_path_factory, name: str, compute):
